@@ -1,0 +1,50 @@
+"""Particle-array factories (port of ``pysph_tpu/base/utils.py``)."""
+
+import numpy
+
+from pysph_tpu_torch.base.particle_array import ParticleArray
+
+DEFAULT_PROPS = set(
+    ('x', 'y', 'z', 'u', 'v', 'w', 'm', 'h', 'rho', 'p',
+     'au', 'av', 'aw', 'gid', 'pid', 'tag')
+)
+
+
+def get_particle_array(additional_props=None, constants=None, **props):
+    """A particle array with the default SPH properties; keywords set
+    property data and ``additional_props`` adds more."""
+    name = props.pop('name', 'array')
+    pa = ParticleArray(name=name, constants=constants)
+    nparticles = 0
+    for data in props.values():
+        if data is not None:
+            nparticles = max(nparticles, numpy.atleast_1d(
+                numpy.asarray(data)).size)
+
+    all_props = set(DEFAULT_PROPS)
+    if additional_props:
+        all_props = all_props.union(additional_props)
+    all_props = all_props.union(props.keys())
+
+    for prop in sorted(all_props):
+        data = props.get(prop, None)
+        if prop in ('tag', 'pid'):
+            pa.add_property(prop, type='int', data=data, _n=nparticles)
+        elif prop == 'gid':
+            if data is None:
+                data = numpy.arange(nparticles, dtype=numpy.uint32)
+            pa.add_property(prop, type='unsigned int', data=data,
+                            default=(1 << 32) - 1, _n=nparticles)
+        else:
+            pa.add_property(prop, data=data, _n=nparticles)
+    pa.set_output_arrays(['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'm', 'h',
+                          'pid', 'gid', 'tag', 'p'])
+    return pa
+
+
+def get_particle_array_wcsph(constants=None, **props):
+    """WCSPH particle array."""
+    wcsph_props = ['cs', 'ax', 'ay', 'az', 'arho', 'x0', 'y0', 'z0',
+                   'u0', 'v0', 'w0', 'rho0', 'div', 'dt_cfl', 'dt_force']
+    return get_particle_array(
+        constants=constants, additional_props=wcsph_props, **props)

@@ -1,0 +1,38 @@
+"""Run configuration: device, float dtype and pair engine.
+
+float32 is the speed path and float64 (``--use-double``) the validation
+path, as in ``pysph_tpu``.  The device is never guessed: a ``cuda``
+device with no card fails at the first allocation instead of quietly
+running on the CPU.
+
+``engine`` picks how eligible pair phases run:
+
+- ``'kernel'`` (default): through the wrapper of the hand-written pair
+  kernel (``ops/wcsph_pair.py``), which launches the CUDA kernel for
+  CUDA tensors and uses its plain torch version for CPU tensors;
+- ``'torch'``: every pair phase through the generic torch pair engine
+  (``sph/acceleration_eval.py``).
+"""
+
+from dataclasses import dataclass, field
+
+import torch
+
+ENGINES = ('kernel', 'torch')
+
+
+@dataclass
+class Config:
+    device: torch.device = field(
+        default_factory=lambda: torch.device('cuda'))
+    dtype: torch.dtype = torch.float32
+    engine: str = 'kernel'
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError('dtype must be float32 or float64, got %r'
+                             % (self.dtype,))
+        if self.engine not in ENGINES:
+            raise ValueError('engine must be one of %s, got %r'
+                             % (ENGINES, self.engine))

@@ -1,0 +1,220 @@
+"""The WCSPH pair kernel: wrapper, launch counter and plain version.
+
+``wcsph_pair`` runs the loop terms of the main path's pair group for one
+dest array over all its sources (at most ``MAX_SOURCES``) in one call.
+A per-source term mask selects
+
+- ``CONT``: ``arho += m_j VIJ.DWIJ`` (``ContinuityEquation``);
+- ``MOM``: ``au, av, aw`` and the ``dt_cfl`` max (non-tensile
+  ``MomentumEquation``);
+- ``XSPH``: ``ax, ay, az += -eps m_j WIJ RHOIJ1 VIJ``
+  (``XSPHCorrection``).
+
+Each output is ``pre + sum`` (``max(pre, m)`` for ``dt_cfl``) on rows
+under the write mask and ``pre`` elsewhere; every read sees the value
+from before the phase.
+
+For CUDA tensors it launches ``csrc/wcsph_pair.cu`` (built on first use
+by ``ops/build.py``) and counts the launch in ``wcsph_pair.launches``;
+for CPU tensors it calls ``wcsph_pair_reference``, the same computation
+on the torch pair engine.
+"""
+
+import ctypes
+
+import torch
+
+from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.sph.basic_equations import (
+    ContinuityEquation, XSPHCorrection)
+from pysph_tpu_torch.sph.wc.basic import MomentumEquation
+
+CONT, MOM, XSPH = 1, 2, 4
+MAX_SOURCES = 4
+OUTPUTS = ('arho', 'au', 'av', 'aw', 'ax', 'ay', 'az', 'dt_cfl')
+TERM_OUTPUTS = {CONT: ('arho',), MOM: ('au', 'av', 'aw', 'dt_cfl'),
+                XSPH: ('ax', 'ay', 'az')}
+
+# props each term reads; the dest needs them without 'm', sources with
+_BASE = ('x', 'y', 'z', 'u', 'v', 'w', 'h')
+_TERM_READS = {CONT: ('m',), MOM: ('m', 'rho', 'p', 'cs'),
+               XSPH: ('m', 'rho')}
+_DEST_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'rho', 'p', 'cs')
+_SRC_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'm', 'rho', 'p', 'cs')
+
+
+def outputs_for(terms):
+    return tuple(p for p in OUTPUTS
+                 if any(terms & t and p in TERM_OUTPUTS[t]
+                        for t in TERM_OUTPUTS))
+
+
+def _reads(terms, with_mass):
+    props = set(_BASE)
+    for t, extra in _TERM_READS.items():
+        if terms & t:
+            props.update(extra)
+    if not with_mass:
+        props.discard('m')
+    return props
+
+
+def _equations(ps):
+    """The Equation objects a ``PairSource`` stands for."""
+    eqs = []
+    if ps.terms & CONT:
+        eqs.append(ContinuityEquation('dest', [ps.name]))
+    if ps.terms & MOM:
+        eqs.append(MomentumEquation('dest', [ps.name], c0=ps.c0,
+                                    alpha=ps.alpha, beta=ps.beta))
+    if ps.terms & XSPH:
+        eqs.append(XSPHCorrection('dest', [ps.name], eps=ps.eps))
+    return eqs
+
+
+def wcsph_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
+                         kernel):
+    """Plain torch version of ``wcsph_pair``: the torch pair engine
+    running the equations the term masks stand for.
+
+    ``dest``: state dict of the dest array; ``dest_cells``: its
+    ``CellList``; ``write_mask``: bool rows or None; ``pre``: {output:
+    value before the phase}; ``sources``: [(state, CellList,
+    PairSource)]; ``grid``: the ``CellGrid`` of the cell lists.
+    Returns {output: tensor}."""
+    from pysph_tpu_torch.sph.acceleration_eval import run_pair_phase
+    store = dict(dest)
+    store.update(pre)
+    for src, src_cells, ps in sources:
+        run_pair_phase(_equations(ps), store, src, dest_cells, src_cells,
+                       grid, kernel, write_mask, 0.0, 0.0)
+    return {p: store[p] for p in pre}
+
+
+class _SrcArgs(ctypes.Structure):
+    _fields_ = ([(p, ctypes.c_void_p) for p in _SRC_PROPS] +
+                [('order', ctypes.c_void_p), ('cell_start', ctypes.c_void_p),
+                 ('cell_end', ctypes.c_void_p),
+                 ('c0', ctypes.c_double), ('alpha', ctypes.c_double),
+                 ('beta', ctypes.c_double), ('xsph_eps', ctypes.c_double),
+                 ('terms', ctypes.c_int32), ('pad', ctypes.c_int32)])
+
+
+class _Args(ctypes.Structure):
+    _fields_ = ([(p, ctypes.c_void_p) for p in _DEST_PROPS] +
+                [('cell', ctypes.c_void_p), ('wmask', ctypes.c_void_p),
+                 ('pre', ctypes.c_void_p * len(OUTPUTS)),
+                 ('out', ctypes.c_void_p * len(OUTPUTS)),
+                 ('src', _SrcArgs * MAX_SOURCES),
+                 ('radius_scale', ctypes.c_double),
+                 ('kfac', ctypes.c_double)] +
+                [(k, ctypes.c_int32) for k in (
+                    'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim',
+                    'kernel_kind', 'dtype')])
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from pysph_tpu_torch.ops.build import load_library
+        lib = load_library('wcsph_pair')
+        lib.wcsph_pair_launch.argtypes = [ctypes.POINTER(_Args),
+                                          ctypes.c_void_p]
+        lib.wcsph_pair_launch.restype = ctypes.c_int
+        lib.wcsph_pair_error_string.argtypes = [ctypes.c_int]
+        lib.wcsph_pair_error_string.restype = ctypes.c_char_p
+        lib.wcsph_pair_args_size.argtypes = []
+        lib.wcsph_pair_args_size.restype = ctypes.c_int
+        if lib.wcsph_pair_args_size() != ctypes.sizeof(_Args):
+            raise RuntimeError('wcsph_pair: argument struct is %d bytes in '
+                               'C and %d in Python' % (
+                                   lib.wcsph_pair_args_size(),
+                                   ctypes.sizeof(_Args)))
+        _lib = lib
+    return _lib
+
+
+def _ptr(t, n, dtype, device, what):
+    if t.device != device or t.dtype != dtype or t.dim() != 1 or \
+            t.shape[0] != n or not t.is_contiguous():
+        raise ValueError('wcsph_pair: %s must be a contiguous (%d,) %s '
+                         'tensor on %s, got %s %s on %s' % (
+                             what, n, dtype, device, tuple(t.shape),
+                             t.dtype, t.device))
+    return t.data_ptr()
+
+
+def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    x = dest['x']
+    dev, fdt, n = x.device, x.dtype, x.shape[0]
+    if fdt not in (torch.float32, torch.float64):
+        raise ValueError('wcsph_pair: dtype %s' % fdt)
+    if len(sources) > MAX_SOURCES:
+        raise ValueError('wcsph_pair: %d sources' % len(sources))
+    i32 = torch.int32
+    args = _Args()
+    terms = 0
+    for k, (src, cells, ps) in enumerate(sources):
+        terms |= ps.terms
+        ns = src['x'].shape[0]
+        sa = args.src[k]
+        for p in _reads(ps.terms, with_mass=True):
+            setattr(sa, p, _ptr(src[p], ns, fdt, dev, 's_' + p))
+        sa.order = _ptr(cells.order, ns, i32, dev, 'source order')
+        sa.cell_start = _ptr(cells.start, grid.ncells, i32, dev,
+                             'cell_start')
+        sa.cell_end = _ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
+        sa.c0, sa.alpha, sa.beta, sa.xsph_eps = (ps.c0, ps.alpha, ps.beta,
+                                                 ps.eps)
+        sa.terms = ps.terms
+    for p in _reads(terms, with_mass=False):
+        setattr(args, p, _ptr(dest[p], n, fdt, dev, 'd_' + p))
+    args.cell = _ptr(dest_cells.cell, n, i32, dev, 'dest cell')
+    if write_mask is not None:
+        args.wmask = _ptr(write_mask, n, torch.bool, dev, 'write mask')
+    if set(pre) != set(outputs_for(terms)):
+        raise ValueError('wcsph_pair: pre values for %s, terms give %s'
+                         % (sorted(pre), outputs_for(terms)))
+    out = {}
+    for k, p in enumerate(OUTPUTS):
+        if p in pre:
+            args.pre[k] = _ptr(pre[p], n, fdt, dev, 'pre ' + p)
+            out[p] = torch.empty_like(pre[p])
+            args.out[k] = out[p].data_ptr()
+    args.radius_scale = grid.radius_scale
+    args.kfac = kernel.fac
+    args.n_dest, args.n_src = n, len(sources)
+    args.nx, args.ny, args.nz = grid.dims
+    args.dim = kernel.dim
+    args.kernel_kind = KERNEL_KIND[type(kernel)]
+    args.dtype = 1 if fdt == torch.float64 else 0
+    if n == 0:
+        return out
+    lib = _library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.wcsph_pair_launch(ctypes.byref(args), stream)
+    if rc != 0:
+        raise RuntimeError('wcsph_pair launch failed: %s (CUDA error %d)'
+                           % (lib.wcsph_pair_error_string(rc).decode(), rc))
+    wcsph_pair.launches += 1
+    return out
+
+
+def wcsph_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Pair terms of one dest over its sources; same arguments and
+    result as ``wcsph_pair_reference``.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if dest['x'].device.type == 'cpu':
+        return wcsph_pair_reference(dest, dest_cells, write_mask, pre,
+                                    sources, grid, kernel)
+    if dest['x'].device.type != 'cuda':
+        raise ValueError('wcsph_pair: no kernel for device %s'
+                         % dest['x'].device)
+    return _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel)
+
+
+#: kernel launches since the last reset (set to 0 to reset)
+wcsph_pair.launches = 0

@@ -1,0 +1,251 @@
+"""The pairwise equation DSL on torch tensors.
+
+Port of ``pysph_tpu/sph/equation.py``; the contract is the same: an
+``Equation(dest, sources)`` may define
+
+- ``initialize(d_idx, d_*...)``                    -- per dest particle
+- ``loop(d_idx, s_idx, d_*, s_*, precomputed...)`` -- per neighbour pair
+- ``post_loop(d_idx, d_*...)``                     -- per dest particle
+
+with arrays requested by name (``d_``/``s_`` prefixes) and the
+precomputed pair symbols (HIJ, XIJ, VIJ, R2IJ, RIJ, RINV, WIJ, DWIJ,
+...).  Methods run once, batched:
+
+- in per-particle phases ``d_prop[d_idx]`` is the whole ``(n,)`` column
+  and an assignment writes it back under the phase's write mask;
+- in the pair phase the engine holds a compacted pair list ``(i, j)``:
+  ``d_prop[d_idx]`` reads ``d_prop[i]`` and ``s_prop[s_idx]`` reads
+  ``s_prop[j]``, one value per pair, and ``d_acc[d_idx] += expr`` becomes
+  an ``index_add_`` of the per-pair increments into row ``i``;
+- ``if cond:`` on pair values becomes ``torch.where``; ``MAX`` marks
+  max accumulation (``scatter_reduce`` with ``amax``).
+"""
+
+import inspect
+from functools import lru_cache
+
+import torch
+
+
+class IndexSym(object):
+    """The ``d_idx``/``s_idx`` sentinel.  Index arithmetic (strided
+    properties, ``d_v[3*d_idx + j]``) comes with delta-SPH."""
+
+    __slots__ = ('role',)
+
+    def __init__(self, role):
+        self.role = role
+
+    def _strided(self, other):
+        raise NotImplementedError(
+            'strided properties are not ported yet (ROADMAP Queue 1, '
+            'delta-SPH)')
+
+    __mul__ = __rmul__ = __add__ = __radd__ = _strided
+
+
+def _check_index(key, name):
+    if not isinstance(key, IndexSym):
+        raise NotImplementedError(
+            'indexing %r with %r: only d_idx/s_idx are ported yet (ROADMAP '
+            'Queue 1, DSL breadth)' % (name, key))
+
+
+class SymVec(object):
+    """A mutable 3-component pair symbol (XIJ, VIJ, DWIJ)."""
+
+    __slots__ = ('comps',)
+
+    def __init__(self, comps):
+        self.comps = list(comps)
+
+    def __getitem__(self, i):
+        return self.comps[i]
+
+    def __setitem__(self, i, value):
+        self.comps[i] = value
+
+
+class _AccumMax(object):
+    __slots__ = ('value',)
+
+    def __init__(self, value):
+        self.value = value
+
+
+def _as_tensor_pair(a, b):
+    ta, tb = torch.is_tensor(a), torch.is_tensor(b)
+    if ta and not tb:
+        b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    elif tb and not ta:
+        a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+    return a, b
+
+
+def MAX(a, b):
+    """DSL max: in a pair ``loop``, ``d_x[d_idx] = MAX(expr,
+    d_x[d_idx])`` accumulates the maximum over neighbours."""
+    a, b = _as_tensor_pair(a, b)
+    return _AccumMax(torch.maximum(a, b))
+
+
+class ArrayView(object):
+    """Per-particle view over one property of a state dict; writes go
+    back under ``write_mask`` (None = every row)."""
+
+    __slots__ = ('store', 'name', 'write_mask')
+
+    def __init__(self, store, name, write_mask=None):
+        self.store = store
+        self.name = name
+        self.write_mask = write_mask
+
+    def __getitem__(self, key):
+        # a copy: ``d_x[d_idx] += v`` runs an in-place add on what this
+        # returns before ``__setitem__`` applies the write mask
+        _check_index(key, self.name)
+        return self.store[self.name].clone()
+
+    def __setitem__(self, key, value):
+        _check_index(key, self.name)
+        if isinstance(value, _AccumMax):
+            value = value.value
+        col = self.store[self.name]
+        if torch.is_tensor(value):
+            new = value.to(col.dtype).expand_as(col)
+        else:   # a Python number: no host-to-device copy
+            new = torch.full_like(col, value)
+        if self.write_mask is not None:
+            new = torch.where(self.write_mask, new, col)
+        self.store[self.name] = new.contiguous()
+
+
+class PairDestView(object):
+    """Dest view in the pair phase: reads ``d[i]`` per pair; writes
+    accumulate per pair into row ``i`` and are committed at once (under
+    the write mask), so later reads see them, as in ``pysph_tpu``'s XLA
+    engine."""
+
+    __slots__ = ('ctx', 'name')
+
+    def __init__(self, ctx, name):
+        self.ctx = ctx
+        self.name = name
+
+    def __getitem__(self, key):
+        _check_index(key, self.name)
+        # a copy, so that ``+=`` cannot change the cached pre-write read
+        return self.ctx.dget(self.name).clone()
+
+    def __setitem__(self, key, value):
+        _check_index(key, self.name)
+        ctx = self.ctx
+        col = ctx.dest[self.name]
+        i = ctx.i
+        if isinstance(value, _AccumMax):
+            v = value.value.to(col.dtype).expand(i.shape)
+            seg = torch.full_like(col, -float('inf')).scatter_reduce_(
+                0, i, v, 'amax')
+            new = torch.maximum(col, seg)
+        else:
+            v = torch.as_tensor(value, dtype=col.dtype, device=col.device)
+            if v.shape != i.shape:
+                raise NotImplementedError(
+                    'write of shape %s to %r in a pair loop: only per-pair '
+                    'accumulation is supported' % (tuple(v.shape),
+                                                   self.name))
+            new = col.index_add(0, i, v - ctx.dget(self.name))
+        if ctx.write_mask is not None:
+            new = torch.where(ctx.write_mask, new, col)
+        ctx.commit(self.name, new)
+
+
+class PairSrcView(object):
+    """Source view in the pair phase: reads ``s[j]`` per pair."""
+
+    __slots__ = ('ctx', 'name')
+
+    def __init__(self, ctx, name):
+        self.ctx = ctx
+        self.name = name
+
+    def __getitem__(self, key):
+        _check_index(key, self.name)
+        return self.ctx.sget(self.name)
+
+    def __setitem__(self, key, value):
+        raise ValueError('equations may only write d_* arrays at d_idx '
+                         '(attempted write to source %r)' % self.name)
+
+
+def _method_args(method):
+    return _cached_args(method.__func__ if hasattr(method, '__func__')
+                        else method)
+
+
+@lru_cache(maxsize=None)
+def _cached_args(func):
+    return tuple(p for p in inspect.signature(func).parameters
+                 if p != 'self')
+
+
+class Equation(object):
+    """Base class of all equations."""
+
+    def __init__(self, dest, sources=None, name=None):
+        self.dest = dest
+        if sources is not None and len(sources) == 0:
+            sources = None
+        self.sources = sources
+        self.no_source = sources is None
+        self.name = name if name is not None else self.__class__.__name__
+
+    def __repr__(self):
+        return '%s(dest=%r, sources=%r)' % (self.__class__.__name__,
+                                            self.dest, self.sources)
+
+
+class Group(object):
+    """Ordered set of equations evaluated together.  With ``real`` the
+    group writes only local particles (``tag == 0``).
+
+    The other group features of ``pysph_tpu`` (``iterate``,
+    ``condition``, ``update_nnps``, ``pre``/``post``, ``start_idx``/
+    ``stop_idx``, sub-groups) are refused until they are ported."""
+
+    def __init__(self, equations, real=True, **features):
+        self.equations = list(equations)
+        self.real = real
+        used = sorted(k for k, v in features.items() if v)
+        if used or any(isinstance(e, Group) for e in self.equations):
+            raise NotImplementedError(
+                'group features %s / sub-groups are not ported yet '
+                '(ROADMAP Queue 1, DSL breadth)' % used)
+
+    def __repr__(self):
+        return 'Group(n_eq=%d, real=%s)' % (len(self.equations), self.real)
+
+    def write_mask(self, state):
+        """Rows the group may write: every particle of the (unpadded)
+        state, and only local ones (``tag == 0``) when ``real``; None
+        means every row."""
+        if self.real:
+            return state['tag'] == 0
+        return None
+
+
+def get_arrays_used_in_equation(equation):
+    """Names of the d_*/s_* properties an equation's methods request."""
+    d_props, s_props = set(), set()
+    for name in ('initialize', 'loop', 'post_loop'):
+        method = getattr(equation, name, None)
+        if method is None:
+            continue
+        for arg in _method_args(method):
+            if arg in ('d_idx', 's_idx'):
+                continue
+            if arg.startswith('d_'):
+                d_props.add(arg[2:])
+            elif arg.startswith('s_'):
+                s_props.add(arg[2:])
+    return d_props, s_props

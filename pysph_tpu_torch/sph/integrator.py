@@ -1,0 +1,107 @@
+"""Time integrators (port of ``pysph_tpu/sph/integrator.py``).
+
+An ``Integrator`` is built from per-array ``IntegratorStep`` objects
+(``EPECIntegrator(fluid=WCSPHStep())``) and a ``one_timestep(t, dt)``
+recipe of ``initialize()``, ``stage1()``.. and
+``compute_accelerations()``, run eagerly on the state dicts (updated in
+place).  No domain manager is ported yet, so no ``update_domain()``
+runs between stages.
+
+Adaptive dt follows the reference: the maxima of the ``dt_cfl`` /
+``dt_force`` / ``dt_visc`` properties give ``hmin/f``,
+``sqrt(hmin/sqrt(f))`` and ``hmin/f``.  The reductions run on the device
+and the result crosses to the host once per step.
+"""
+
+import torch
+
+from pysph_tpu_torch.sph.acceleration_eval import _bind_particle_phase
+
+
+class Integrator(object):
+    def __init__(self, **steppers):
+        self.steppers = steppers
+        self.acceleration_evals = None
+        self._states = None
+        self._t = 0.0
+        self._dt = 0.0
+
+    def set_acceleration_evals(self, a_evals):
+        if not isinstance(a_evals, (list, tuple)):
+            a_evals = [a_evals]
+        self.acceleration_evals = list(a_evals)
+
+    def step(self, states, t, dt):
+        """Advance ``states`` (updated in place) by one timestep."""
+        self._states, self._t, self._dt = states, t, dt
+        self.one_timestep(t, dt)
+        self._states = None
+        return states
+
+    def initial_acceleration(self, states, t, dt):
+        """The force evaluation before the first step."""
+        self._states, self._t, self._dt = states, t, dt
+        self.compute_accelerations(0)
+        self._states = None
+        return states
+
+    def compute_accelerations(self, index=0):
+        self.acceleration_evals[index].compute(self._t, self._dt,
+                                               self._states)
+
+    def _run_stage(self, stage_name):
+        a_eval = self.acceleration_evals[0]
+        for arr_name, stepper in self.steppers.items():
+            fn = getattr(stepper, stage_name, None)
+            if fn is None:
+                continue
+            store = self._states[arr_name]
+            _bind_particle_phase(fn, store, store['tag'] == 0, self._t,
+                                 self._dt, a_eval.consts[arr_name])
+
+    def initialize(self):
+        self._run_stage('initialize')
+
+    def stage1(self):
+        self._run_stage('stage1')
+
+    def stage2(self):
+        self._run_stage('stage2')
+
+    def one_timestep(self, t, dt):
+        raise NotImplementedError()
+
+    def compute_time_step(self, states, dt_current, cfl):
+        """The adaptive dt as a float (``dt_current`` when no particle
+        constrains it)."""
+        arrays = [s for s in states.values() if s['h'].numel() > 0]
+        factors = {}
+        for prop in ('dt_cfl', 'dt_force', 'dt_visc'):
+            vals = [s[prop].max() for s in arrays if prop in s]
+            if vals:
+                factors[prop] = torch.stack(vals).max().clamp(min=-1.0)
+        if not factors:
+            return dt_current
+        hmin = torch.stack([s['h'].min() for s in arrays]).min()
+        inf = torch.full_like(hmin, float('inf'))
+        dt_min = inf
+        for prop, f in factors.items():
+            pos = f > 0
+            if prop == 'dt_force':
+                cand = torch.sqrt(hmin / torch.sqrt(torch.where(pos, f, 1.0)))
+            else:
+                cand = hmin / torch.where(pos, f, 1.0)
+            dt_min = torch.minimum(dt_min, torch.where(pos, cand, inf))
+        ok = (dt_min > 0) & torch.isfinite(dt_min)
+        return float(torch.where(ok, cfl * dt_min, dt_current))
+
+
+class EPECIntegrator(Integrator):
+    """Evaluate-Predict-Evaluate-Correct."""
+
+    def one_timestep(self, t, dt):
+        self.initialize()
+        self.compute_accelerations()
+        self.stage1()
+        self.compute_accelerations()
+        self.stage2()

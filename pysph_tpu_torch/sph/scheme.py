@@ -1,0 +1,200 @@
+"""SPH schemes: equations + integrator + solver for a formulation
+(port of ``pysph_tpu/sph/scheme.py``: ``Scheme`` and ``WCSPHScheme``)."""
+
+
+class Scheme(object):
+    """An API for an SPH scheme."""
+
+    def __init__(self, fluids, solids, dim):
+        self.fluids = fluids
+        self.solids = solids
+        self.dim = dim
+        self.solver = None
+
+    def add_user_options(self, group):
+        pass
+
+    def configure(self, **kw):
+        for k, v in kw.items():
+            if not hasattr(self, k):
+                raise RuntimeError('Parameter %s not defined for %s.' %
+                                   (k, self.__class__.__name__))
+            setattr(self, k, v)
+
+    def consume_user_options(self, options):
+        pass
+
+    def configure_solver(self, kernel=None, integrator_cls=None,
+                         extra_steppers=None, **kw):
+        raise NotImplementedError()
+
+    def get_equations(self):
+        raise NotImplementedError()
+
+    def get_solver(self):
+        return self.solver
+
+    def setup_properties(self, particles):
+        raise NotImplementedError()
+
+    def _ensure_properties(self, pa, desired_props):
+        """Add the desired props the array lacks."""
+        for prop in desired_props:
+            if prop not in pa.properties:
+                pa.add_property(prop)
+
+    def _smart_getattr(self, obj, var):
+        res = getattr(obj, var, None)
+        if res is None:
+            return getattr(self, var)
+        return res
+
+
+def add_bool_argument(group, arg, dest, help, default):
+    group.add_argument('--%s' % arg, action='store_true', dest=dest,
+                       help=help, default=default)
+    group.add_argument('--no-%s' % arg, action='store_false', dest=dest,
+                       help='Do not ' + help[0].lower() + help[1:])
+
+
+class WCSPHScheme(Scheme):
+    """Weakly-compressible SPH."""
+
+    def __init__(self, fluids, solids, dim, rho0, c0, h0, hdx, gamma=7.0,
+                 gx=0.0, gy=0.0, gz=0.0, alpha=0.1, beta=0.0, delta=0.1,
+                 nu=0.0, tensile_correction=False, hg_correction=False,
+                 update_h=False, delta_sph=False, summation_density=False):
+        self.fluids = fluids
+        self.solids = solids
+        self.solver = None
+        self.rho0 = rho0
+        self.c0 = c0
+        self.gamma = gamma
+        self.dim = dim
+        self.h0 = h0
+        self.hdx = hdx
+        self.gx = gx
+        self.gy = gy
+        self.gz = gz
+        self.alpha = alpha
+        self.beta = beta
+        self.delta = delta
+        self.nu = nu
+        self.tensile_correction = tensile_correction
+        self.hg_correction = hg_correction
+        self.update_h = update_h
+        self.delta_sph = delta_sph
+        self.summation_density = summation_density
+
+    def add_user_options(self, group):
+        group.add_argument('--alpha', action='store', type=float,
+                           dest='alpha', default=None,
+                           help='Artificial viscosity alpha.')
+        group.add_argument('--beta', action='store', type=float,
+                           dest='beta', default=None,
+                           help='Artificial viscosity beta.')
+        group.add_argument('--delta', action='store', type=float,
+                           dest='delta', default=None,
+                           help='delta-SPH diffusion coefficient.')
+        group.add_argument('--gamma', action='store', type=float,
+                           dest='gamma', default=None,
+                           help='Tait EOS gamma.')
+        add_bool_argument(group, 'tensile-correction',
+                          'tensile_correction',
+                          'Use tensile instability correction.', None)
+        add_bool_argument(group, 'hg-correction', 'hg_correction',
+                          'Use the Hughes-Graham correction.', None)
+        add_bool_argument(group, 'update-h', 'update_h',
+                          'Update the smoothing length.', None)
+        add_bool_argument(group, 'delta-sph', 'delta_sph',
+                          'Use delta-SPH.', None)
+        add_bool_argument(group, 'summation-density', 'summation_density',
+                          'Use summation density.', None)
+
+    def consume_user_options(self, options):
+        vars = ['gamma', 'tensile_correction', 'hg_correction',
+                'update_h', 'delta_sph', 'alpha', 'beta',
+                'summation_density', 'delta']
+        data = dict((var, self._smart_getattr(options, var))
+                    for var in vars)
+        self.configure(**data)
+
+    def get_timestep(self, cfl=0.5):
+        return cfl * self.h0 / self.c0
+
+    def configure_solver(self, kernel=None, integrator_cls=None,
+                         extra_steppers=None, **kw):
+        from pysph_tpu_torch.base.kernels import CubicSpline
+        from pysph_tpu_torch.sph.integrator_step import WCSPHStep
+        from pysph_tpu_torch.solver.solver import Solver
+        if integrator_cls is None:
+            raise NotImplementedError(
+                'the default PECIntegrator is not ported yet (ROADMAP '
+                'Queue 1, other integrators); pass EPECIntegrator')
+        if kernel is None:
+            kernel = CubicSpline(dim=self.dim)
+        steppers = dict(extra_steppers or {})
+        for name in self.fluids + self.solids:
+            if name not in steppers:
+                steppers[name] = WCSPHStep()
+        integrator = integrator_cls(**steppers)
+        if 'dt' not in kw:
+            kw['dt'] = self.get_timestep()
+        self.solver = Solver(dim=self.dim, integrator=integrator,
+                             kernel=kernel, **kw)
+
+    def get_equations(self):
+        """The WCSPH equation groups of the main path."""
+        from pysph_tpu_torch.sph.basic_equations import (
+            ContinuityEquation, XSPHCorrection)
+        from pysph_tpu_torch.sph.equation import Group
+        from pysph_tpu_torch.sph.wc.basic import (
+            MomentumEquation, TaitEOS, TaitEOSHGCorrection)
+        for flag, item in ((self.summation_density, 'summation density: '
+                            'ROADMAP Queue 1, elliptical_drop'),
+                           (self.delta_sph, 'delta-SPH: ROADMAP Queue 1'),
+                           (abs(self.nu) > 1e-14, 'laminar viscosity: '
+                            'ROADMAP Queue 1, delta-SPH'),
+                           (self.update_h, 'update_h: ROADMAP Queue 1, '
+                            'remaining physics')):
+            if flag:
+                raise NotImplementedError('%s is not ported yet' % item)
+
+        equations = []
+        all = self.fluids + self.solids
+
+        g1 = []
+        for name in self.fluids:
+            g1.append(TaitEOS(dest=name, sources=None, rho0=self.rho0,
+                              c0=self.c0, gamma=self.gamma))
+        for name in self.solids:
+            cls = TaitEOSHGCorrection if self.hg_correction else TaitEOS
+            g1.append(cls(dest=name, sources=None, rho0=self.rho0,
+                          c0=self.c0, gamma=self.gamma))
+        equations.append(Group(equations=g1, real=False))
+
+        g2 = []
+        for name in self.solids:
+            g2.append(ContinuityEquation(dest=name, sources=self.fluids))
+        for name in self.fluids:
+            g2.append(ContinuityEquation(dest=name, sources=all))
+            g2.append(MomentumEquation(
+                dest=name, sources=all, c0=self.c0, alpha=self.alpha,
+                beta=self.beta, gx=self.gx, gy=self.gy, gz=self.gz,
+                tensile_correction=self.tensile_correction))
+            g2.append(XSPHCorrection(dest=name, sources=[name]))
+        equations.append(Group(equations=g2))
+        return equations
+
+    def setup_properties(self, particles):
+        from pysph_tpu_torch.base.utils import get_particle_array_wcsph
+        dummy = get_particle_array_wcsph(name='junk')
+        props = list(dummy.properties.keys())
+        output_props = ['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'm', 'h',
+                        'pid', 'gid', 'tag', 'p']
+        for pa in particles:
+            self._ensure_properties(pa, props)
+            pa.set_output_arrays(output_props)
+            if pa.name in self.solids:
+                if 'lb_weight' not in pa.constants:
+                    pa.add_constant('lb_weight', 0.1)

@@ -1,0 +1,109 @@
+"""Basic WCSPH equations of the main path (port of
+``pysph_tpu/sph/wc/basic.py``)."""
+
+import torch
+
+from pysph_tpu_torch.sph.equation import MAX, Equation
+
+
+class TaitEOS(Equation):
+    """Tait EOS: p = p0 + B ((rho/rho0)^gamma - 1),
+    cs = c0 (rho/rho0)^((gamma-1)/2)."""
+
+    def __init__(self, dest, sources, rho0, c0, gamma, p0=0.0):
+        self.rho0 = rho0
+        self.rho01 = 1.0 / rho0
+        self.c0 = c0
+        self.gamma = gamma
+        self.gamma1 = 0.5 * (gamma - 1.0)
+        self.B = rho0 * c0 * c0 / gamma
+        self.p0 = p0
+        super(TaitEOS, self).__init__(dest, sources)
+
+    def loop(self, d_idx, d_rho, d_p, d_cs):
+        ratio = d_rho[d_idx] * self.rho01
+        tmp = ratio ** self.gamma
+        d_p[d_idx] = self.p0 + self.B * (tmp - 1.0)
+        d_cs[d_idx] = self.c0 * ratio ** self.gamma1
+
+
+class TaitEOSHGCorrection(Equation):
+    """Tait EOS with the Hughes-Graham correction: rho is clamped to at
+    least rho0 (for boundaries)."""
+
+    def __init__(self, dest, sources, rho0, c0, gamma):
+        self.rho0 = rho0
+        self.rho01 = 1.0 / rho0
+        self.c0 = c0
+        self.gamma = gamma
+        self.gamma1 = 0.5 * (gamma - 1.0)
+        self.B = rho0 * c0 * c0 / gamma
+        super(TaitEOSHGCorrection, self).__init__(dest, sources)
+
+    def loop(self, d_idx, d_rho, d_p, d_cs):
+        d_rho[d_idx] = torch.clamp(d_rho[d_idx], min=self.rho0)
+        ratio = d_rho[d_idx] * self.rho01
+        tmp = ratio ** self.gamma
+        d_p[d_idx] = self.B * (tmp - 1.0)
+        d_cs[d_idx] = self.c0 * ratio ** self.gamma1
+
+
+class MomentumEquation(Equation):
+    """Monaghan momentum equation with artificial viscosity; also
+    accumulates the per-particle CFL/force timestep factors
+    dt_cfl/dt_force."""
+
+    def __init__(self, dest, sources, c0, alpha=1.0, beta=1.0, gx=0.0,
+                 gy=0.0, gz=0.0, tensile_correction=False):
+        if tensile_correction:
+            raise NotImplementedError(
+                'the tensile-correction branch of MomentumEquation is not '
+                'ported yet (ROADMAP Queue 1, main-path equations)')
+        self.alpha = alpha
+        self.beta = beta
+        self.gx = gx
+        self.gy = gy
+        self.gz = gz
+        self.c0 = c0
+        self.tensile_correction = tensile_correction
+        super(MomentumEquation, self).__init__(dest, sources)
+
+    def initialize(self, d_idx, d_au, d_av, d_aw, d_dt_cfl):
+        d_au[d_idx] = 0.0
+        d_av[d_idx] = 0.0
+        d_aw[d_idx] = 0.0
+        d_dt_cfl[d_idx] = 0.0
+
+    def loop(self, d_idx, s_idx, d_rho, d_cs, d_p, d_au, d_av, d_aw,
+             s_m, s_rho, s_cs, s_p, VIJ, XIJ, HIJ, R2IJ, RHOIJ1, RINV,
+             EPS, DWIJ, d_dt_cfl):
+        rhoi21 = 1.0 / (d_rho[d_idx] * d_rho[d_idx])
+        rhoj21 = 1.0 / (s_rho[s_idx] * s_rho[s_idx])
+
+        vijdotxij = VIJ[0] * XIJ[0] + VIJ[1] * XIJ[1] + VIJ[2] * XIJ[2]
+
+        cij = 0.5 * (d_cs[d_idx] + s_cs[s_idx])
+        muij = (HIJ * vijdotxij) / (R2IJ + EPS)
+        piij = (-self.alpha * cij * muij +
+                self.beta * muij * muij) * RHOIJ1
+        piij = torch.where(vijdotxij < 0, piij, 0.0)
+
+        # CFL timestep factor (max-accumulated over neighbours);
+        # 1/R2IJ = RINV*RINV
+        _dt_cfl = torch.where(
+            R2IJ > 1e-12,
+            torch.abs(HIJ * vijdotxij) * RINV * RINV + self.c0, 0.0)
+        d_dt_cfl[d_idx] = MAX(_dt_cfl, d_dt_cfl[d_idx])
+
+        tmp = d_p[d_idx] * rhoi21 + s_p[s_idx] * rhoj21
+        d_au[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[0]
+        d_av[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[1]
+        d_aw[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[2]
+
+    def post_loop(self, d_idx, d_au, d_av, d_aw, d_dt_force):
+        d_au[d_idx] += self.gx
+        d_av[d_idx] += self.gy
+        d_aw[d_idx] += self.gz
+        d_dt_force[d_idx] = (d_au[d_idx] * d_au[d_idx] +
+                             d_av[d_idx] * d_av[d_idx] +
+                             d_aw[d_idx] * d_aw[d_idx])
