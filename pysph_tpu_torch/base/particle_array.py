@@ -6,11 +6,16 @@ per-particle properties and named constants.  Float properties are kept
 in float64 on the host and cast to the run's dtype on the way to the
 device.
 
+A property may have a stride ``k`` (``add_property(name, stride=k)``,
+recorded in ``pa.stride``): ``k`` values per particle, flat ``(n*k,)`` on
+the host as in ``pysph_tpu``.
+
 ``to_device(config)`` gives the compute representation: a dict of
 unpadded torch tensors, one per property and constant, on the run's
-device.  Unlike the JAX package there is no padding to a capacity and no
-``n_act``: every row of a tensor is a particle.  ``update_from_device``
-copies results back.
+device; a stride-``k`` property is one ``(n, k)`` tensor, so that
+``d_p[k*d_idx + c]`` is its column ``c``.  Unlike the JAX package there is
+no padding to a capacity and no ``n_act``: every row of a tensor is a
+particle.  ``update_from_device`` copies results back.
 
 ``from_numpy``/``to_numpy`` carry the same particles across from (and
 back to) ``pysph_tpu`` as plain numpy, which is how the tests put one
@@ -40,6 +45,7 @@ class ParticleArray(object):
     def __init__(self, name='', constants=None, **props):
         self.name = name
         self.properties = OrderedDict()
+        self.stride = {}
         self.constants = OrderedDict()
         self.output_property_arrays = []
 
@@ -64,28 +70,35 @@ class ParticleArray(object):
     def get_number_of_particles(self):
         if not self.properties:
             return 0
-        return next(iter(self.properties.values())).size
+        name, arr = next(iter(self.properties.items()))
+        return arr.size // self.stride.get(name, 1)
 
     # -- properties / constants ----------------------------------------
     def add_property(self, name, type='double', default=None, data=None,
-                     _n=None):
+                     stride=1, _n=None):
         dtype = _np_dtype(type)
         if default is None:
             default = 0
         n = self.get_number_of_particles() if _n is None else _n
+        size = n * stride
         if data is None:
-            arr = np.full(n, default, dtype=dtype)
+            arr = np.full(size, default, dtype=dtype)
         else:
             arr = np.atleast_1d(np.asarray(data)).astype(dtype).ravel()
-            if arr.size == 1 and n > 1:
-                arr = np.full(n, arr[0], dtype=dtype)
-            elif arr.size < n:
+            if arr.size == 1 and size > 1:
+                arr = np.full(size, arr[0], dtype=dtype)
+            elif arr.size < size:
                 arr = np.concatenate(
-                    [arr, np.full(n - arr.size, default, dtype=dtype)])
+                    [arr, np.full(size - arr.size, default, dtype=dtype)])
             else:
                 arr = arr.copy()
         self.properties[name] = arr
+        self.stride[name] = stride
         return self
+
+    def remove_property(self, name):
+        self.properties.pop(name, None)
+        self.stride.pop(name, None)
 
     def add_constant(self, name, value):
         v = np.atleast_1d(np.asarray(value))
@@ -121,11 +134,14 @@ class ParticleArray(object):
 
     # -- carrying state across packages --------------------------------
     @classmethod
-    def from_numpy(cls, name, props, constants=None):
-        """Build an array from ``{prop: ndarray}`` (ints keep their
-        integer type, everything else becomes float64)."""
+    def from_numpy(cls, name, props, constants=None, stride=None):
+        """Build an array from ``{prop: flat ndarray}`` and ``{prop:
+        stride}`` (ints keep their integer type, everything else becomes
+        float64)."""
         pa = cls(name=name)
-        n = max((np.asarray(v).size for v in props.values()), default=0)
+        stride = stride or {}
+        n = max((np.asarray(v).size // stride.get(k, 1)
+                 for k, v in props.items()), default=0)
         for prop, data in props.items():
             data = np.asarray(data)
             kind = data.dtype.kind
@@ -135,25 +151,31 @@ class ParticleArray(object):
                              data.dtype, 'int')
             else:
                 type_ = 'double'
-            pa.add_property(prop, type=type_, data=data, _n=n)
+            pa.add_property(prop, type=type_, data=data,
+                            stride=stride.get(prop, 1), _n=n)
         for cname, value in (constants or {}).items():
             pa.add_constant(cname, value)
         return pa
 
     def to_numpy(self):
-        """``(props, constants)`` as dicts of numpy copies."""
+        """``(props, constants)`` as dicts of numpy copies (strided
+        properties flat; ``stride`` gives their strides)."""
         return ({k: v.copy() for k, v in self.properties.items()},
                 {k: v.copy() for k, v in self.constants.items()})
 
     # -- device state --------------------------------------------------
     def to_device(self, config):
         """Dict of tensors on ``config.device``: float properties and
-        constants in ``config.dtype``, integer ones in int32/int64."""
+        constants in ``config.dtype``, integer ones in int32/int64; a
+        stride-k property as an ``(n, k)`` tensor."""
         state = {}
         for name, arr in list(self.properties.items()) + \
                 list(self.constants.items()):
             if name in state:
                 raise ValueError('constant %r shadows a property' % name)
+            k = self.stride.get(name, 1) if name in self.properties else 1
+            if k > 1:
+                arr = arr.reshape(-1, k)
             if arr.dtype.kind == 'f':
                 t = torch.as_tensor(arr, dtype=config.dtype)
             else:
@@ -164,7 +186,7 @@ class ParticleArray(object):
 
     def update_from_device(self, state):
         for name, t in state.items():
-            host = t.detach().cpu().numpy()
+            host = t.detach().cpu().numpy().reshape(-1)
             if name in self.properties:
                 self.properties[name][:] = host.astype(
                     self.properties[name].dtype)

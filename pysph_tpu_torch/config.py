@@ -7,9 +7,10 @@ running on the CPU.
 
 ``engine`` picks how eligible pair phases run:
 
-- ``'kernel'`` (default): through the wrapper of the hand-written pair
-  kernel (``ops/wcsph_pair.py``), which launches the CUDA kernel for
-  CUDA tensors and uses its plain torch version for CPU tensors;
+- ``'kernel'`` (default): through the wrapper of a hand-written pair
+  kernel (``ops/wcsph_pair.py``, ``ops/gtvf_pair.py``; planned by
+  ``ops/pair_engine.py``), which launches the CUDA kernel for CUDA
+  tensors and uses its plain torch version for CPU tensors;
 - ``'torch'``: every pair phase through the generic torch pair engine
   (``sph/acceleration_eval.py``).
 """

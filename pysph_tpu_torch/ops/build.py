@@ -1,7 +1,11 @@
-"""Build the CUDA kernels of ``pysph_tpu_torch/csrc`` with nvcc.
+"""Build the CUDA kernels of ``pysph_tpu_torch/csrc`` with nvcc, and
+launch them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes a shared
-library, loaded with ``ctypes``.  The build runs at first use, into
+library, loaded with ``ctypes``: ``<name>_launch(const Args*, stream)``
+returns a CUDA error code, ``<name>_error_string(code)`` names it and
+``<name>_args_size()`` gives ``sizeof(Args)``, which must match the
+wrapper's ``ctypes.Structure``.  The build runs at first use, into
 ``build/`` at the repository root, keyed by a hash of the source and the
 flags, so an edited source is rebuilt and an unchanged one is not.  The
 compiler's resource report (``-Xptxas -v``: registers, spills, shared
@@ -18,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
@@ -59,8 +65,47 @@ def build(name):
     return lib
 
 
-def load_library(name):
-    """The built library of ``csrc/<name>.cu`` as a ``ctypes.CDLL``."""
+def load_library(name, args_type):
+    """The built library of ``csrc/<name>.cu`` as a ``ctypes.CDLL`` with
+    its C interface declared, checked against the argument struct
+    ``args_type``."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        lib = ctypes.CDLL(str(build(name)))
+        fn = getattr(lib, name + '_launch')
+        fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, name + '_error_string')
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        fn = getattr(lib, name + '_args_size')
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+        if fn() != ctypes.sizeof(args_type):
+            raise RuntimeError('%s: argument struct is %d bytes in C and %d '
+                               'in Python' % (name, fn(),
+                                              ctypes.sizeof(args_type)))
+        _loaded[name] = lib
     return _loaded[name]
+
+
+def launch(name, args, device):
+    """Launch ``csrc/<name>.cu`` with the ctypes struct ``args`` on the
+    current stream of ``device``; raises if CUDA refuses the launch."""
+    lib = load_library(name, type(args))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(lib, name + '_launch')(ctypes.byref(args), stream)
+    if rc != 0:
+        raise RuntimeError('%s launch failed: %s (CUDA error %d)' % (
+            name, getattr(lib, name + '_error_string')(rc).decode(), rc))
+
+
+def data_ptr(t, n, dtype, device, what):
+    """``t.data_ptr()``, once ``t`` is checked to be a contiguous
+    ``(n,)`` tensor of ``dtype`` on ``device``."""
+    if t.device != device or t.dtype != dtype or t.dim() != 1 or \
+            t.shape[0] != n or not t.is_contiguous():
+        raise ValueError('%s must be a contiguous (%d,) %s tensor on %s, '
+                         'got %s %s on %s' % (what, n, dtype, device,
+                                              tuple(t.shape), t.dtype,
+                                              t.device))
+    return t.data_ptr()

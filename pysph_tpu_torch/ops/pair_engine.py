@@ -1,30 +1,39 @@
-"""Planning: which pair phases the hand-written pair kernel runs.
+"""Planning: which pair phases a hand-written pair kernel runs.
 
-A dest's pair phases match the kernel (``ops/wcsph_pair.py``) when
+Two kernels take a dest's pair phases, all its sources in one call:
 
-- every equation with sources is exactly ``ContinuityEquation``,
-  ``MomentumEquation`` (non-tensile) or ``XSPHCorrection``, each at most
-  once per source, with at most ``MAX_SOURCES`` sources;
-- the smoothing kernel is ``WendlandQuintic`` or ``CubicSpline``;
-- no equation reads a property that another one accumulates (the kernel
-  gives every read the value from before the phase).
+- ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path):
+  every equation with sources is ``ContinuityEquation``,
+  ``MomentumEquation`` (non-tensile) or ``XSPHCorrection``, with the
+  ``WendlandQuintic`` or ``CubicSpline`` kernel;
+- ``gtvf_pair`` (``ops/gtvf_pair.py``, the GTVF dam break): the
+  equations fall in one of its five phase sets (``SetWallVelocity``;
+  ``ContinuityEquationGTVF`` + ``ContinuitySolid``; ``CorrectDensity``;
+  ``VolumeSummation`` + ``SolidWallPressureBC``;
+  ``MomentumEquationPressureGradient`` +
+  ``MomentumEquationArtificialStress``), with ``WendlandQuintic``.
 
-Periodic domains never reach here: the evaluator refuses them.
-Anything else raises ``PairIneligible`` and the evaluator runs the
-torch pair engine instead.
+For both, each equation appears at most once per source, with at most
+``MAX_SOURCES`` sources, and no equation reads a property that another
+one accumulates (the kernels give every read the value from before the
+phase).  The per-source term masks say which equations each source
+takes.  Periodic domains never reach here: the evaluator refuses them.
+Anything else raises ``PairIneligible`` and the evaluator runs the torch
+pair engine instead.
 """
 
 from typing import NamedTuple
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.base.kernels import KERNEL_KIND, WendlandQuintic
+from pysph_tpu_torch.ops import gtvf_pair as _gp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
 from pysph_tpu_torch.sph.basic_equations import (
     ContinuityEquation, XSPHCorrection)
 from pysph_tpu_torch.sph.equation import _method_args
 from pysph_tpu_torch.sph.wc.basic import MomentumEquation
 
-_TERM_OF = {ContinuityEquation: _wp.CONT, MomentumEquation: _wp.MOM,
-            XSPHCorrection: _wp.XSPH}
+_WCSPH_TERMS = {ContinuityEquation: _wp.CONT, MomentumEquation: _wp.MOM,
+                XSPHCorrection: _wp.XSPH}
 
 # pair symbols -> the props they read on both sides
 _SYM_READS = {'HIJ': ('h',), 'EPS': ('h',), 'RHOIJ': ('rho',),
@@ -35,17 +44,34 @@ _SYM_READS = {'HIJ': ('h',), 'EPS': ('h',), 'RHOIJ': ('rho',),
 
 
 class PairIneligible(Exception):
-    """The pair phases of a dest do not match the kernel's set."""
+    """The pair phases of a dest do not match a kernel's set."""
 
 
 class PairSource(NamedTuple):
-    """One source of a dest's fused pair phases and its term mask."""
+    """One source of a dest's fused ``wcsph_pair`` phases and its term
+    mask."""
     name: str
     terms: int
     c0: float = 0.0
     alpha: float = 0.0
     beta: float = 0.0
     eps: float = 0.0
+
+
+def _gtvf_terms():
+    # imported here: sph/wc/gtvf.py imports the integrator, which
+    # imports the evaluator, which imports this module
+    from pysph_tpu_torch.sph.wc.gtvf import (
+        ContinuityEquationGTVF, CorrectDensity,
+        MomentumEquationArtificialStress, MomentumEquationPressureGradient)
+    from pysph_tpu_torch.sph.wc.transport_velocity import (
+        ContinuitySolid, SetWallVelocity, SolidWallPressureBC,
+        VolumeSummation)
+    return {SetWallVelocity: _gp.SWV, ContinuityEquationGTVF: _gp.CGTVF,
+            ContinuitySolid: _gp.CSOLID, CorrectDensity: _gp.CDENS,
+            VolumeSummation: _gp.VSUM, SolidWallPressureBC: _gp.WALLP,
+            MomentumEquationPressureGradient: _gp.MPG,
+            MomentumEquationArtificialStress: _gp.MAS}
 
 
 def _reads(eq):
@@ -57,57 +83,103 @@ def _reads(eq):
     return props
 
 
-def plan_pair_phases(dest, sources, kernel):
-    """``sources``: ordered {src name: [equations]}.  Returns a
-    ``PairPlan`` or raises ``PairIneligible``."""
-    if type(kernel) not in KERNEL_KIND:
-        raise PairIneligible('kernel %r' % kernel)
-    if len(sources) > _wp.MAX_SOURCES:
+def _source_terms(sources, term_of, term_outputs, max_sources):
+    """[(src, terms, eqs)] for ``sources`` ({src: [equations]}), or
+    ``PairIneligible`` if an equation is not the kernel's, appears twice
+    for a source, or reads what another one accumulates."""
+    if len(sources) > max_sources:
         raise PairIneligible('%d sources (at most %d)'
-                             % (len(sources), _wp.MAX_SOURCES))
-    plan_sources = []
+                             % (len(sources), max_sources))
+    out = []
     writes, reads = {}, set()
     for src, eqs in sources.items():
-        params = {}
         terms = 0
         for eq in eqs:
-            term = _TERM_OF.get(type(eq))
+            term = term_of.get(type(eq))
             if term is None:
                 raise PairIneligible('equation %s' % eq.name)
             if terms & term:
                 raise PairIneligible('%s twice for source %s'
                                      % (eq.name, src))
-            if term == _wp.MOM:
-                params.update(c0=eq.c0, alpha=eq.alpha, beta=eq.beta)
-            elif term == _wp.XSPH:
-                params['eps'] = eq.eps
             terms |= term
-            own = set(_wp.TERM_OUTPUTS[term])
+            own = set(term_outputs[term])
             for p in own:
                 writes.setdefault(p, set()).add(type(eq))
             reads |= {(p, type(eq)) for p in _reads(eq) - own}
-        plan_sources.append(PairSource(src, terms, **params))
+        out.append((src, terms, eqs))
     for prop, cls in reads:
         if writes.get(prop, set()) - {cls}:
             raise PairIneligible('%s reads %r, which another equation '
                                  'accumulates' % (cls.__name__, prop))
-    return PairPlan(dest, plan_sources, kernel)
+    return out
+
+
+def _plan_wcsph(dest, sources, kernel):
+    if type(kernel) not in KERNEL_KIND:
+        raise PairIneligible('kernel %r' % kernel)
+    plan_sources = []
+    terms = 0
+    for src, t, eqs in _source_terms(sources, _WCSPH_TERMS,
+                                     _wp.TERM_OUTPUTS, _wp.MAX_SOURCES):
+        params = {}
+        for eq in eqs:
+            if isinstance(eq, MomentumEquation):
+                params.update(c0=eq.c0, alpha=eq.alpha, beta=eq.beta)
+            elif isinstance(eq, XSPHCorrection):
+                params['eps'] = eq.eps
+        plan_sources.append(PairSource(src, t, **params))
+        terms |= t
+    return PairPlan(dest, plan_sources, kernel, _wp.wcsph_pair,
+                    _wp.wcsph_pair_reference, _wp.outputs_for(terms))
+
+
+def _plan_gtvf(dest, sources, kernel):
+    if type(kernel) is not WendlandQuintic:
+        raise PairIneligible('kernel %r' % kernel)
+    term_of = _gtvf_terms()
+    plan_sources = []
+    terms = 0
+    for src, t, eqs in _source_terms(sources, term_of, _gp.TERM_OUTPUTS,
+                                     _gp.MAX_SOURCES):
+        gravity = next(((eq.gx, eq.gy, eq.gz) for eq in eqs
+                        if term_of[type(eq)] == _gp.WALLP),
+                       (0.0, 0.0, 0.0))
+        plan_sources.append(_gp.GtvfSource(src, t, tuple(eqs), gravity))
+        terms |= t
+    if _gp.phase_of(terms) is None:
+        raise PairIneligible('GTVF terms %#x span two phase sets' % terms)
+    return PairPlan(dest, plan_sources, kernel, _gp.gtvf_pair,
+                    _gp.gtvf_pair_reference, _gp.outputs_for(terms))
+
+
+def plan_pair_phases(dest, sources, kernel):
+    """``sources``: ordered {src name: [equations]}.  Returns the
+    ``PairPlan`` of the first kernel that takes them, or raises
+    ``PairIneligible`` with each kernel's reason."""
+    reasons = []
+    for planner in (_plan_wcsph, _plan_gtvf):
+        try:
+            return planner(dest, sources, kernel)
+        except PairIneligible as e:
+            reasons.append('%s: %s' % (planner.__name__[6:], e))
+    raise PairIneligible('; '.join(reasons))
 
 
 class PairPlan(object):
-    """The kernel call for one dest over all its sources."""
+    """The kernel call for one dest over all its sources: ``op`` is the
+    kernel's wrapper, ``reference`` its plain version (same
+    arguments)."""
 
-    def __init__(self, dest, sources, kernel):
+    def __init__(self, dest, sources, kernel, op, reference, outputs):
         self.dest = dest
         self.sources = sources
         self.kernel = kernel
-        terms = 0
-        for s in sources:
-            terms |= s.terms
-        self.outputs = _wp.outputs_for(terms)
+        self.op = op
+        self.reference = reference
+        self.outputs = outputs
 
     def execute(self, store, states, cells, grid, write_mask):
         pre = {p: store[p] for p in self.outputs}
         srcs = [(states[s.name], cells[s.name], s) for s in self.sources]
-        store.update(_wp.wcsph_pair(store, cells[self.dest], write_mask,
-                                    pre, srcs, grid, self.kernel))
+        store.update(self.op(store, cells[self.dest], write_mask, pre, srcs,
+                             grid, self.kernel))

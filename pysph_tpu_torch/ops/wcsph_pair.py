@@ -25,6 +25,8 @@ import ctypes
 import torch
 
 from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.ops import build
+from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.sph.basic_equations import (
     ContinuityEquation, XSPHCorrection)
 from pysph_tpu_torch.sph.wc.basic import MomentumEquation
@@ -113,40 +115,6 @@ class _Args(ctypes.Structure):
                     'kernel_kind', 'dtype')])
 
 
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from pysph_tpu_torch.ops.build import load_library
-        lib = load_library('wcsph_pair')
-        lib.wcsph_pair_launch.argtypes = [ctypes.POINTER(_Args),
-                                          ctypes.c_void_p]
-        lib.wcsph_pair_launch.restype = ctypes.c_int
-        lib.wcsph_pair_error_string.argtypes = [ctypes.c_int]
-        lib.wcsph_pair_error_string.restype = ctypes.c_char_p
-        lib.wcsph_pair_args_size.argtypes = []
-        lib.wcsph_pair_args_size.restype = ctypes.c_int
-        if lib.wcsph_pair_args_size() != ctypes.sizeof(_Args):
-            raise RuntimeError('wcsph_pair: argument struct is %d bytes in '
-                               'C and %d in Python' % (
-                                   lib.wcsph_pair_args_size(),
-                                   ctypes.sizeof(_Args)))
-        _lib = lib
-    return _lib
-
-
-def _ptr(t, n, dtype, device, what):
-    if t.device != device or t.dtype != dtype or t.dim() != 1 or \
-            t.shape[0] != n or not t.is_contiguous():
-        raise ValueError('wcsph_pair: %s must be a contiguous (%d,) %s '
-                         'tensor on %s, got %s %s on %s' % (
-                             what, n, dtype, device, tuple(t.shape),
-                             t.dtype, t.device))
-    return t.data_ptr()
-
-
 def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
@@ -162,26 +130,26 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
         ns = src['x'].shape[0]
         sa = args.src[k]
         for p in _reads(ps.terms, with_mass=True):
-            setattr(sa, p, _ptr(src[p], ns, fdt, dev, 's_' + p))
-        sa.order = _ptr(cells.order, ns, i32, dev, 'source order')
-        sa.cell_start = _ptr(cells.start, grid.ncells, i32, dev,
-                             'cell_start')
-        sa.cell_end = _ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
+            setattr(sa, p, data_ptr(src[p], ns, fdt, dev, 's_' + p))
+        sa.order = data_ptr(cells.order, ns, i32, dev, 'source order')
+        sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
+                                 'cell_start')
+        sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
         sa.c0, sa.alpha, sa.beta, sa.xsph_eps = (ps.c0, ps.alpha, ps.beta,
                                                  ps.eps)
         sa.terms = ps.terms
     for p in _reads(terms, with_mass=False):
-        setattr(args, p, _ptr(dest[p], n, fdt, dev, 'd_' + p))
-    args.cell = _ptr(dest_cells.cell, n, i32, dev, 'dest cell')
+        setattr(args, p, data_ptr(dest[p], n, fdt, dev, 'd_' + p))
+    args.cell = data_ptr(dest_cells.cell, n, i32, dev, 'dest cell')
     if write_mask is not None:
-        args.wmask = _ptr(write_mask, n, torch.bool, dev, 'write mask')
+        args.wmask = data_ptr(write_mask, n, torch.bool, dev, 'write mask')
     if set(pre) != set(outputs_for(terms)):
         raise ValueError('wcsph_pair: pre values for %s, terms give %s'
                          % (sorted(pre), outputs_for(terms)))
     out = {}
     for k, p in enumerate(OUTPUTS):
         if p in pre:
-            args.pre[k] = _ptr(pre[p], n, fdt, dev, 'pre ' + p)
+            args.pre[k] = data_ptr(pre[p], n, fdt, dev, 'pre ' + p)
             out[p] = torch.empty_like(pre[p])
             args.out[k] = out[p].data_ptr()
     args.radius_scale = grid.radius_scale
@@ -193,12 +161,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     args.dtype = 1 if fdt == torch.float64 else 0
     if n == 0:
         return out
-    lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.wcsph_pair_launch(ctypes.byref(args), stream)
-    if rc != 0:
-        raise RuntimeError('wcsph_pair launch failed: %s (CUDA error %d)'
-                           % (lib.wcsph_pair_error_string(rc).decode(), rc))
+    build.launch('wcsph_pair', args, dev)
     wcsph_pair.launches += 1
     return out
 

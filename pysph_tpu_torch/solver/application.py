@@ -141,7 +141,8 @@ class Application(object):
         self.equations = self.create_equations()
         self.particles = list(self.create_particles())
         if self.scheme is not None:
-            self.scheme.setup_properties(self.particles)
+            # non-destructive: create_particles may add properties
+            self.scheme.setup_properties(self.particles, clean=False)
 
         o = self.options
         solver = self.solver

@@ -50,15 +50,17 @@ class Solver(object):
         self._epsilon = EPSILON * tf
 
     def setup(self, particles, equations, config):
-        """Build the evaluator against the particles and move them to
+        """Build the evaluators (one per stage of ``MultiStageEquations``,
+        all on one ``CellGrid``) against the particles and move them to
         ``config.device``."""
-        from pysph_tpu_torch.sph.acceleration_eval import AccelerationEval
+        from pysph_tpu_torch.sph.acceleration_eval import (
+            make_acceleration_evals)
         self.particles = particles
         self.config = config
         self.grid = CellGrid.from_particles(
             particles, dim=self.dim, radius_scale=self.kernel.radius_scale)
-        self.acceleration_evals = [AccelerationEval(
-            particles, equations, self.kernel, config, self.grid)]
+        self.acceleration_evals = make_acceleration_evals(
+            particles, equations, self.kernel, config, self.grid)
         self.integrator.set_acceleration_evals(self.acceleration_evals)
         self._sync_to_device()
 

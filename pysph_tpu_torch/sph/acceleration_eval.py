@@ -8,9 +8,9 @@ per group and dest array the phases run as in the reference:
 Pair phases take one of two engines, chosen once per (group, dest) when
 the evaluator is built and recorded in ``engine_choices``:
 
-- ``'kernel'``: the phase set matches the hand-written pair kernel
-  (``ops/pair_engine.py``), which then runs every source of the dest in
-  one call;
+- ``'kernel'``: the phase set matches one of the hand-written pair
+  kernels (``ops/pair_engine.py``), which then runs every source of the
+  dest in one call;
 - ``'torch'``: the generic engine below, for any equation.  It bins the
   arrays into sorted cell lists, builds compacted ``(i, j)`` pair lists
   chunked over dest rows (bounded memory), evaluates the equations'
@@ -18,7 +18,9 @@ the evaluator is built and recorded in ``engine_choices``:
   ``index_add`` / ``scatter_reduce``.  It is also the plain version that
   the kernel is tested against.
 
-Particles are rebinned at every evaluation.
+Particles are rebinned at every evaluation.  ``make_acceleration_evals``
+builds one evaluator per stage of a ``MultiStageEquations``, all on one
+``CellGrid``.
 """
 
 import logging
@@ -28,8 +30,9 @@ import torch
 
 from pysph_tpu_torch.ops.pair_engine import PairIneligible, plan_pair_phases
 from pysph_tpu_torch.sph.equation import (
-    ArrayView, Group, IndexSym, PairDestView, PairSrcView, SymVec,
-    _method_args, get_arrays_used_in_equation)
+    UNIT, ArrayView, Group, IndexSym, MultiStageEquations, PairDestView,
+    PairSrcView, SymVec, _method_args, column, get_arrays_used_in_equation,
+    with_column)
 
 logger = logging.getLogger(__name__)
 
@@ -61,19 +64,21 @@ class PairContext(object):
         self._s = {}
         self._sym = {}
 
-    def dget(self, prop):
-        if prop not in self._d:
-            self._d[prop] = self.dest[prop][self.i]
-        return self._d[prop]
+    def dget(self, prop, key=UNIT):
+        ck = (prop, key.off)
+        if ck not in self._d:
+            self._d[ck] = column(self.dest[prop], key, prop)[self.i]
+        return self._d[ck]
 
-    def sget(self, prop):
-        if prop not in self._s:
-            self._s[prop] = self.src[prop][self.j]
-        return self._s[prop]
+    def sget(self, prop, key=UNIT):
+        ck = (prop, key.off)
+        if ck not in self._s:
+            self._s[ck] = column(self.src[prop], key, prop)[self.j]
+        return self._s[ck]
 
-    def commit(self, prop, value):
-        self.dest[prop] = value
-        self._d.pop(prop, None)
+    def commit(self, prop, key, col):
+        self.dest[prop] = with_column(self.dest[prop], key, col)
+        self._d.pop((prop, key.off), None)
 
     def sym(self, name):
         if name not in self._sym:
@@ -138,7 +143,8 @@ class PairContext(object):
         return SymVec([tmp * xij[0], tmp * xij[1], tmp * xij[2]])
 
 
-def _bind_particle_phase(method, store, write_mask, t, dt, consts=()):
+def _bind_particle_phase(method, store, write_mask, t, dt, consts=(),
+                         kernel=None):
     """Run a per-particle method batched over every row of ``store``."""
     kwargs = {}
     for arg in _method_args(method):
@@ -148,6 +154,8 @@ def _bind_particle_phase(method, store, write_mask, t, dt, consts=()):
             kwargs[arg] = t
         elif arg == 'dt':
             kwargs[arg] = dt
+        elif arg == 'SPH_KERNEL':
+            kwargs[arg] = kernel
         elif arg.startswith('d_'):
             prop = arg[2:]
             kwargs[arg] = ArrayView(
@@ -169,6 +177,8 @@ def _bind_pair_phase(method, ctx, t, dt):
             kwargs[arg] = t
         elif arg == 'dt':
             kwargs[arg] = dt
+        elif arg == 'SPH_KERNEL':
+            kwargs[arg] = ctx.kernel
         elif arg in PairContext.SYMBOLS:
             kwargs[arg] = ctx.sym(arg)
         elif arg.startswith('d_'):
@@ -195,6 +205,16 @@ def run_pair_phase(eqs, dest, src, dest_cells, src_cells, grid, kernel,
         ctx = PairContext(dest, src, i, j, kernel, write_mask)
         for eq in eqs:
             _bind_pair_phase(eq.loop, ctx, t, dt)
+
+
+def make_acceleration_evals(particle_arrays, equations, kernel, config,
+                            grid):
+    """One ``AccelerationEval`` per stage of ``MultiStageEquations``, or
+    one for a plain list of groups."""
+    stages = equations.groups if isinstance(
+        equations, MultiStageEquations) else [equations]
+    return [AccelerationEval(particle_arrays, eqs, kernel, config, grid)
+            for eqs in stages]
 
 
 class AccelerationEval(object):
@@ -310,10 +330,11 @@ class AccelerationEval(object):
             for eq in eqs:
                 fn = getattr(eq, 'initialize', None)
                 if fn is not None:
-                    _bind_particle_phase(fn, store, wm, t, dt, consts)
+                    _bind_particle_phase(fn, store, wm, t, dt, consts, kernel)
             for eq in eqs:
                 if eq.no_source and getattr(eq, 'loop', None) is not None:
-                    _bind_particle_phase(eq.loop, store, wm, t, dt, consts)
+                    _bind_particle_phase(eq.loop, store, wm, t, dt, consts,
+                                         kernel)
             sources = self._sources(eqs)
             plan = self._plans.get((id(group), dest))
             if plan is not None:
@@ -328,4 +349,4 @@ class AccelerationEval(object):
             for eq in eqs:
                 fn = getattr(eq, 'post_loop', None)
                 if fn is not None:
-                    _bind_particle_phase(fn, store, wm, t, dt, consts)
+                    _bind_particle_phase(fn, store, wm, t, dt, consts, kernel)

@@ -17,6 +17,8 @@ precomputed pair symbols (HIJ, XIJ, VIJ, R2IJ, RIJ, RINV, WIJ, DWIJ,
   ``d_prop[d_idx]`` reads ``d_prop[i]`` and ``s_prop[s_idx]`` reads
   ``s_prop[j]``, one value per pair, and ``d_acc[d_idx] += expr`` becomes
   an ``index_add_`` of the per-pair increments into row ``i``;
+- a stride-``k`` property is an ``(n, k)`` tensor, and ``d_p[k*d_idx + c]``
+  (``s_p[...]`` likewise) addresses its column ``c`` in both phases;
 - ``if cond:`` on pair values becomes ``torch.where``; ``MAX`` marks
   max accumulation (``scatter_reduce`` with ``amax``).
 """
@@ -28,20 +30,32 @@ import torch
 
 
 class IndexSym(object):
-    """The ``d_idx``/``s_idx`` sentinel.  Index arithmetic (strided
-    properties, ``d_v[3*d_idx + j]``) comes with delta-SPH."""
+    """The ``d_idx``/``s_idx`` sentinel, with the affine arithmetic of
+    strided access: ``k*d_idx + c`` is column ``c`` of a stride-``k``
+    property."""
 
-    __slots__ = ('role',)
+    __slots__ = ('role', 'mul', 'off')
 
-    def __init__(self, role):
+    def __init__(self, role, mul=1, off=0):
         self.role = role
+        self.mul = mul
+        self.off = off
 
-    def _strided(self, other):
-        raise NotImplementedError(
-            'strided properties are not ported yet (ROADMAP Queue 1, '
-            'delta-SPH)')
+    def __mul__(self, k):
+        return IndexSym(self.role, self.mul * int(k), self.off * int(k))
 
-    __mul__ = __rmul__ = __add__ = __radd__ = _strided
+    __rmul__ = __mul__
+
+    def __add__(self, c):
+        if isinstance(c, IndexSym):
+            raise TypeError('cannot add two index symbols')
+        return IndexSym(self.role, self.mul, self.off + int(c))
+
+    __radd__ = __add__
+
+    def __repr__(self):
+        return 'IndexSym(%s, mul=%d, off=%d)' % (self.role, self.mul,
+                                                 self.off)
 
 
 def _check_index(key, name):
@@ -49,6 +63,31 @@ def _check_index(key, name):
         raise NotImplementedError(
             'indexing %r with %r: only d_idx/s_idx are ported yet (ROADMAP '
             'Queue 1, DSL breadth)' % (name, key))
+
+
+def column(t, key, name):
+    """The ``(n,)`` column of property tensor ``t`` that ``key``
+    addresses: ``t`` itself for a ``(n,)`` property, ``t[:, off]`` for a
+    ``(n, k)`` one indexed as ``k*d_idx + off``."""
+    _check_index(key, name)
+    stride = 1 if t.dim() == 1 else t.shape[1]
+    if key.mul != stride or not 0 <= key.off < stride:
+        raise IndexError('property %r has stride %d but was indexed as '
+                         '%d*idx + %d' % (name, stride, key.mul, key.off))
+    return t if stride == 1 else t[:, key.off]
+
+
+def with_column(t, key, col):
+    """``t`` with the column ``key`` addresses replaced by ``col`` (a new
+    tensor: states may share their tensors)."""
+    if t.dim() == 1:
+        return col.contiguous()
+    out = t.clone()
+    out[:, key.off] = col
+    return out
+
+
+UNIT = IndexSym('dest')
 
 
 class SymVec(object):
@@ -103,21 +142,20 @@ class ArrayView(object):
     def __getitem__(self, key):
         # a copy: ``d_x[d_idx] += v`` runs an in-place add on what this
         # returns before ``__setitem__`` applies the write mask
-        _check_index(key, self.name)
-        return self.store[self.name].clone()
+        return column(self.store[self.name], key, self.name).clone()
 
     def __setitem__(self, key, value):
-        _check_index(key, self.name)
         if isinstance(value, _AccumMax):
             value = value.value
-        col = self.store[self.name]
+        arr = self.store[self.name]
+        col = column(arr, key, self.name)
         if torch.is_tensor(value):
             new = value.to(col.dtype).expand_as(col)
         else:   # a Python number: no host-to-device copy
             new = torch.full_like(col, value)
         if self.write_mask is not None:
             new = torch.where(self.write_mask, new, col)
-        self.store[self.name] = new.contiguous()
+        self.store[self.name] = with_column(arr, key, new)
 
 
 class PairDestView(object):
@@ -133,14 +171,12 @@ class PairDestView(object):
         self.name = name
 
     def __getitem__(self, key):
-        _check_index(key, self.name)
         # a copy, so that ``+=`` cannot change the cached pre-write read
-        return self.ctx.dget(self.name).clone()
+        return self.ctx.dget(self.name, key).clone()
 
     def __setitem__(self, key, value):
-        _check_index(key, self.name)
         ctx = self.ctx
-        col = ctx.dest[self.name]
+        col = column(ctx.dest[self.name], key, self.name)
         i = ctx.i
         if isinstance(value, _AccumMax):
             v = value.value.to(col.dtype).expand(i.shape)
@@ -154,10 +190,10 @@ class PairDestView(object):
                     'write of shape %s to %r in a pair loop: only per-pair '
                     'accumulation is supported' % (tuple(v.shape),
                                                    self.name))
-            new = col.index_add(0, i, v - ctx.dget(self.name))
+            new = col.index_add(0, i, v - ctx.dget(self.name, key))
         if ctx.write_mask is not None:
             new = torch.where(ctx.write_mask, new, col)
-        ctx.commit(self.name, new)
+        ctx.commit(self.name, key, new)
 
 
 class PairSrcView(object):
@@ -170,8 +206,7 @@ class PairSrcView(object):
         self.name = name
 
     def __getitem__(self, key):
-        _check_index(key, self.name)
-        return self.ctx.sget(self.name)
+        return self.ctx.sget(self.name, key)
 
     def __setitem__(self, key, value):
         raise ValueError('equations may only write d_* arrays at d_idx '
@@ -232,6 +267,20 @@ class Group(object):
         if self.real:
             return state['tag'] == 0
         return None
+
+
+class MultiStageEquations(object):
+    """One list of groups per acceleration evaluator, for integrators
+    that evaluate different equations at different stages (GTVF)."""
+
+    def __init__(self, groups):
+        self.groups = list(groups)
+
+    def __len__(self):
+        return len(self.groups)
+
+    def __repr__(self):
+        return 'MultiStageEquations(n_stages=%d)' % len(self.groups)
 
 
 def get_arrays_used_in_equation(equation):

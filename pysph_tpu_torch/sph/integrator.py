@@ -3,9 +3,11 @@
 An ``Integrator`` is built from per-array ``IntegratorStep`` objects
 (``EPECIntegrator(fluid=WCSPHStep())``) and a ``one_timestep(t, dt)``
 recipe of ``initialize()``, ``stage1()``.. and
-``compute_accelerations()``, run eagerly on the state dicts (updated in
-place).  No domain manager is ported yet, so no ``update_domain()``
-runs between stages.
+``compute_accelerations(index)`` (evaluator ``index`` of several, as
+GTVF has), run eagerly on the state dicts (updated in place).  No domain
+manager is ported yet, so ``update_domain()`` does nothing; the cell
+lists are rebuilt at every evaluation, so ``update_nnps`` changes
+nothing either.
 
 Adaptive dt follows the reference: the maxima of the ``dt_cfl`` /
 ``dt_force`` / ``dt_visc`` properties give ``hmin/f``,
@@ -39,15 +41,19 @@ class Integrator(object):
         return states
 
     def initial_acceleration(self, states, t, dt):
-        """The force evaluation before the first step."""
+        """The force evaluation before the first step: evaluator 0 only,
+        as in ``pysph_tpu``."""
         self._states, self._t, self._dt = states, t, dt
         self.compute_accelerations(0)
         self._states = None
         return states
 
-    def compute_accelerations(self, index=0):
+    def compute_accelerations(self, index=0, update_nnps=True):
         self.acceleration_evals[index].compute(self._t, self._dt,
                                                self._states)
+
+    def update_domain(self):
+        pass
 
     def _run_stage(self, stage_name):
         a_eval = self.acceleration_evals[0]
@@ -57,7 +63,8 @@ class Integrator(object):
                 continue
             store = self._states[arr_name]
             _bind_particle_phase(fn, store, store['tag'] == 0, self._t,
-                                 self._dt, a_eval.consts[arr_name])
+                                 self._dt, a_eval.consts[arr_name],
+                                 a_eval.kernel)
 
     def initialize(self):
         self._run_stage('initialize')
@@ -67,6 +74,9 @@ class Integrator(object):
 
     def stage2(self):
         self._run_stage('stage2')
+
+    def stage3(self):
+        self._run_stage('stage3')
 
     def one_timestep(self, t, dt):
         raise NotImplementedError()

@@ -1,5 +1,6 @@
 """SPH schemes: equations + integrator + solver for a formulation
-(port of ``pysph_tpu/sph/scheme.py``: ``Scheme`` and ``WCSPHScheme``)."""
+(port of ``pysph_tpu/sph/scheme.py``: ``Scheme``, ``SchemeChooser`` and
+``WCSPHScheme``; ``GTVFScheme`` is in ``sph/wc/gtvf.py``)."""
 
 
 class Scheme(object):
@@ -34,20 +35,91 @@ class Scheme(object):
     def get_solver(self):
         return self.solver
 
-    def setup_properties(self, particles):
+    def setup_properties(self, particles, clean=True):
         raise NotImplementedError()
 
-    def _ensure_properties(self, pa, desired_props):
-        """Add the desired props the array lacks."""
-        for prop in desired_props:
+    def _ensure_properties(self, pa, desired_props, clean=True):
+        """Add the desired props the array lacks (a dict entry gives
+        ``add_property`` keywords, e.g. a stride); with ``clean``, remove
+        the props not desired."""
+        all_props = {}
+        for p in desired_props:
+            if isinstance(p, dict):
+                all_props[p['name']] = p
+            elif p not in all_props:
+                all_props[p] = {'name': p}
+        if clean:
+            for prop in set(pa.properties) - set(all_props):
+                pa.remove_property(prop)
+        for prop in all_props:
             if prop not in pa.properties:
-                pa.add_property(prop)
+                kw = dict(all_props[prop])
+                pa.add_property(kw.pop('name'), **kw)
 
     def _smart_getattr(self, obj, var):
         res = getattr(obj, var, None)
         if res is None:
             return getattr(self, var)
         return res
+
+
+class SchemeChooser(Scheme):
+    """Chooses one of several schemes with ``--scheme``; every other
+    call goes to the chosen one."""
+
+    def __init__(self, default, **schemes):
+        self.default = default
+        self.schemes = dict(schemes)
+        self.scheme = schemes[default]
+        self.solver = None
+
+    def add_user_options(self, group):
+        group.add_argument(
+            '--scheme', action='store', dest='scheme',
+            default=self.default, choices=list(self.schemes.keys()),
+            help='Scheme to use (one of %s)' % list(self.schemes.keys()))
+        for scheme in self.schemes.values():
+            scheme.add_user_options(group)
+
+    def configure(self, **kw):
+        self.scheme.configure(**kw)
+
+    def consume_user_options(self, options):
+        self.scheme = self.schemes[options.scheme]
+        self.scheme.consume_user_options(options)
+
+    def configure_solver(self, kernel=None, integrator_cls=None,
+                         extra_steppers=None, **kw):
+        self.scheme.configure_solver(kernel=kernel,
+                                     integrator_cls=integrator_cls,
+                                     extra_steppers=extra_steppers, **kw)
+
+    def get_equations(self):
+        return self.scheme.get_equations()
+
+    def get_solver(self):
+        return self.scheme.get_solver()
+
+    def setup_properties(self, particles, clean=True):
+        self.scheme.setup_properties(particles, clean)
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, 'scheme'), name)
+
+
+class NotPortedScheme(Scheme):
+    """Holds the place of a scheme the port lacks in a ``SchemeChooser``,
+    so that the command line keeps the reference's choices; choosing it
+    raises ``NotImplementedError`` naming the ROADMAP item."""
+
+    def __init__(self, name, item):
+        self.name = name
+        self.item = item
+        self.solver = None
+
+    def consume_user_options(self, options):
+        raise NotImplementedError('the %s scheme is not ported yet (%s)'
+                                  % (self.name, self.item))
 
 
 def add_bool_argument(group, arg, dest, help, default):
@@ -186,14 +258,14 @@ class WCSPHScheme(Scheme):
         equations.append(Group(equations=g2))
         return equations
 
-    def setup_properties(self, particles):
+    def setup_properties(self, particles, clean=True):
         from pysph_tpu_torch.base.utils import get_particle_array_wcsph
         dummy = get_particle_array_wcsph(name='junk')
         props = list(dummy.properties.keys())
         output_props = ['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'm', 'h',
                         'pid', 'gid', 'tag', 'p']
         for pa in particles:
-            self._ensure_properties(pa, props)
+            self._ensure_properties(pa, props, clean)
             pa.set_output_arrays(output_props)
             if pa.name in self.solids:
                 if 'lb_weight' not in pa.constants:
