@@ -1,15 +1,15 @@
 """SPH smoothing kernels on torch tensors.
 
-Port of ``pysph_tpu/base/kernels.py`` for the kernels of the main path:
-``CubicSpline`` and ``WendlandQuintic``.  Each kernel is one shape
-function ``_shape(q) -> (w, dw)`` evaluated with ``torch.where`` over
-whole pair tensors, with the shared identities
+Port of ``pysph_tpu/base/kernels.py`` for the kernels of the ported
+paths: ``CubicSpline``, ``WendlandQuintic`` and ``Gaussian``.  Each
+kernel is one shape function ``_shape(q) -> (w, dw)`` evaluated with
+``torch.where`` over whole pair tensors, with the shared identities
 
     W(r, h)   = fac(h) * w(q),  q = r / h,  fac(h) = sigma / h^dim
     grad_a W  = fac(h) * dw(q) / h * x_ij / r
 
-The CUDA pair kernel (``csrc/wcsph_pair.cu``) carries the same two shape
-functions; ``KERNEL_KIND`` names them there.
+The CUDA pair kernels (``csrc/wcsph_terms.cuh``) carry the same three
+shape functions; ``KERNEL_KIND`` names them there.
 """
 
 import math
@@ -17,6 +17,7 @@ import math
 import torch
 
 M_1_PI = 1.0 / math.pi
+M_2_SQRTPI = 2.0 / math.sqrt(math.pi)
 
 
 class SmoothingKernel(object):
@@ -109,5 +110,20 @@ class WendlandQuintic(SmoothingKernel):
         return torch.where(inside, w, 0.0), torch.where(inside, dw, 0.0)
 
 
-#: Shape-function ids shared with ``csrc/wcsph_pair.cu``.
-KERNEL_KIND = {WendlandQuintic: 0, CubicSpline: 1}
+class Gaussian(SmoothingKernel):
+    """Gaussian kernel, truncated at q = 3."""
+
+    radius_scale = 3.0
+
+    def _sigma(self, dim):
+        return (0.5 * M_2_SQRTPI) ** dim
+
+    def _shape(self, q):
+        inside = q < 3.0
+        e = torch.exp(-torch.where(inside, q * q, 0.0))
+        return torch.where(inside, e, 0.0), torch.where(inside, -2.0 * q * e,
+                                                         0.0)
+
+
+#: Shape-function ids shared with ``csrc/wcsph_terms.cuh``.
+KERNEL_KIND = {WendlandQuintic: 0, CubicSpline: 1, Gaussian: 2}

@@ -46,6 +46,8 @@ class ParticleArray(object):
         self.name = name
         self.properties = OrderedDict()
         self.stride = {}
+        self._type = {}
+        self.default_values = {}
         self.constants = OrderedDict()
         self.output_property_arrays = []
 
@@ -73,6 +75,13 @@ class ParticleArray(object):
         name, arr = next(iter(self.properties.items()))
         return arr.size // self.stride.get(name, 1)
 
+    @property
+    def num_real_particles(self):
+        """Particles tagged local (``tag == 0``); all without a tag."""
+        if 'tag' in self.properties:
+            return int(np.sum(self.properties['tag'] == 0))
+        return self.get_number_of_particles()
+
     # -- properties / constants ----------------------------------------
     def add_property(self, name, type='double', default=None, data=None,
                      stride=1, _n=None):
@@ -94,11 +103,14 @@ class ParticleArray(object):
                 arr = arr.copy()
         self.properties[name] = arr
         self.stride[name] = stride
+        self._type[name] = type
+        self.default_values[name] = default
         return self
 
     def remove_property(self, name):
-        self.properties.pop(name, None)
-        self.stride.pop(name, None)
+        for d in (self.properties, self.stride, self._type,
+                  self.default_values):
+            d.pop(name, None)
 
     def add_constant(self, name, value):
         v = np.atleast_1d(np.asarray(value))

@@ -11,6 +11,10 @@ running on the CPU.
   kernel (``ops/wcsph_pair.py``, ``ops/gtvf_pair.py``; planned by
   ``ops/pair_engine.py``), which launches the CUDA kernel for CUDA
   tensors and uses its plain torch version for CPU tensors;
+- ``'dense'``: the WCSPH phase sets through ``ops/dense_pair.py`` (one
+  thread block per dest cell), every other set through the torch pair
+  engine; the port's counterpart of the JAX package's dense-slot Pallas
+  engine (``PYSPH_TPU_RESIDENT=0 PYSPH_TPU_COMPACT=0``);
 - ``'torch'``: every pair phase through the generic torch pair engine
   (``sph/acceleration_eval.py``).
 """
@@ -19,7 +23,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-ENGINES = ('kernel', 'torch')
+ENGINES = ('kernel', 'dense', 'torch')
 
 
 @dataclass

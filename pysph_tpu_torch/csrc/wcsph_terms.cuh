@@ -1,0 +1,224 @@
+// The WCSPH pair terms shared by csrc/wcsph_pair.cu and csrc/dense_pair.cu.
+//
+// Both kernels compute the same contract (ops/wcsph_pair.py): the
+// ContinuityEquation, the non-tensile MomentumEquation (artificial
+// viscosity and the dt_cfl max) and XSPHCorrection of one dest array over
+// at most kMaxSources sources, each output written once as pre + sum
+// (max(pre, m) for dt_cfl) under the write mask.  They differ only in how
+// a dest reaches its source particles, so everything else lives here: the
+// argument struct, the shape functions and the per-pair body.  A source
+// is read through a functor (`Src::x(j)`, ...), so the body stays the
+// same whether the values come from global memory or shared memory, and
+// a value is only read once the pair is in support.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// The argument structs are at global scope: the exported C functions
+// take them, and a type in an unnamed namespace would give those
+// functions internal linkage.
+constexpr int kMaxSources = 4;
+constexpr int kCont = 1, kMom = 2, kXsph = 4;
+// outputs in the order of ops/wcsph_pair.py OUTPUTS: arho, au, av, aw,
+// ax, ay, az, dt_cfl
+constexpr int kDtCfl = 7, kNumOut = 8;
+
+struct SrcArgs {
+  const void *x, *y, *z, *u, *v, *w, *h, *m, *rho, *p, *cs;
+  const int32_t* order;       // particle indices sorted by cell
+  const int32_t* cell_start;  // per cell: first position in order
+  const int32_t* cell_end;    // per cell: one past the last
+  double c0, alpha, beta, xsph_eps;
+  int32_t terms, pad;
+};
+
+struct WcsphArgs {
+  const void *x, *y, *z, *u, *v, *w, *h, *rho, *p, *cs;  // dest
+  const int32_t* cell;   // dest cell id, ix + nx * (iy + ny * iz)
+  // the dest's own cell list (read by dense_pair only)
+  const int32_t *dorder, *dcell_start, *dcell_end;
+  const uint8_t* wmask;  // write mask (bool); null: every row
+  const void* pre[kNumOut];  // values before the phase; null: unused
+  void* out[kNumOut];
+  SrcArgs src[kMaxSources];
+  double radius_scale, kfac;  // kfac: the kernel's sigma
+  int32_t n_dest, n_src, nx, ny, nz, dim, kernel_kind, dtype;
+};
+
+namespace wcsph {
+
+template <typename T>
+__device__ __forceinline__ T ld(const void* p, int i) {
+  return static_cast<const T*>(p)[i];
+}
+
+// Unnormalised shape function (w, dw/dq) of base/kernels.py.
+template <typename T, int KIND>
+__device__ __forceinline__ void shape(T q, T& w, T& dw) {
+  if (KIND == 0) {  // WendlandQuintic, support q < 2
+    if (q < T(2)) {
+      const T t = T(1) - T(0.5) * q;
+      const T t3 = t * t * t;
+      w = t3 * t * (T(2) * q + T(1));
+      dw = T(-5) * q * t3;
+    } else {
+      w = T(0);
+      dw = T(0);
+    }
+  } else if (KIND == 1) {  // CubicSpline, support q <= 2
+    if (q > T(2)) {
+      w = T(0);
+      dw = T(0);
+    } else if (q > T(1)) {
+      const T t = T(2) - q;
+      w = T(0.25) * t * t * t;
+      dw = T(-0.75) * t * t;
+    } else {
+      w = T(1) - T(1.5) * q * q * (T(1) - T(0.5) * q);
+      dw = T(-3) * q * (T(1) - T(0.75) * q);
+    }
+  } else {  // Gaussian, truncated at q = 3 (exp, not __expf)
+    if (q < T(3)) {
+      const T e = exp(-q * q);
+      w = e;
+      dw = T(-2) * q * e;
+    } else {
+      w = T(0);
+      dw = T(0);
+    }
+  }
+}
+
+// A source read from global memory through its particle index.
+template <typename T>
+struct GlobalSrc {
+  const SrcArgs& S;
+  __device__ T x(int j) const { return ld<T>(S.x, j); }
+  __device__ T y(int j) const { return ld<T>(S.y, j); }
+  __device__ T z(int j) const { return ld<T>(S.z, j); }
+  __device__ T u(int j) const { return ld<T>(S.u, j); }
+  __device__ T v(int j) const { return ld<T>(S.v, j); }
+  __device__ T w(int j) const { return ld<T>(S.w, j); }
+  __device__ T h(int j) const { return ld<T>(S.h, j); }
+  __device__ T m(int j) const { return ld<T>(S.m, j); }
+  __device__ T rho(int j) const { return ld<T>(S.rho, j); }
+  __device__ T p(int j) const { return ld<T>(S.p, j); }
+  __device__ T cs(int j) const { return ld<T>(S.cs, j); }
+};
+
+// One dest particle: its values, read once, and its accumulators.
+template <typename T>
+struct Dest {
+  T xi, yi, zi, ui, vi, wi, hi, rhoi, pi, csi, rhoi21;
+  T arho, au, av, aw, ax, ay, az, cfl;
+
+  // dterms: the union of the sources' term masks
+  __device__ void load(const WcsphArgs& a, int i, int dterms) {
+    const bool need_rho = dterms & (kMom | kXsph);
+    const bool mom = dterms & kMom;
+    xi = ld<T>(a.x, i);
+    yi = ld<T>(a.y, i);
+    zi = ld<T>(a.z, i);
+    ui = ld<T>(a.u, i);
+    vi = ld<T>(a.v, i);
+    wi = ld<T>(a.w, i);
+    hi = ld<T>(a.h, i);
+    rhoi = need_rho ? ld<T>(a.rho, i) : T(0);
+    pi = mom ? ld<T>(a.p, i) : T(0);
+    csi = mom ? ld<T>(a.cs, i) : T(0);
+    rhoi21 = mom ? T(1) / (rhoi * rhoi) : T(0);
+    arho = au = av = aw = ax = ay = az = T(0);
+    cfl = mom ? ld<T>(a.pre[kDtCfl], i) : T(0);
+  }
+
+  // The pair (this dest, source particle j), with the support test
+  // r2 < (rs max(hi, hj))^2 and the guards of the torch pair engine.
+  template <int KIND, class Src>
+  __device__ __forceinline__ void pair(const Src& s, int j, int terms,
+                                       T c0, T alpha, T beta, T xeps, T rs,
+                                       T kfac, int dim) {
+    const T xij = xi - s.x(j);
+    const T yij = yi - s.y(j);
+    const T zij = zi - s.z(j);
+    const T r2 = xij * xij + yij * yij + zij * zij;
+    const T hj = s.h(j);
+    const T sup = rs * (hi > hj ? hi : hj);
+    if (!(r2 < sup * sup)) return;
+
+    const T uij = ui - s.u(j);
+    const T vij = vi - s.v(j);
+    const T wij = wi - s.w(j);
+    const T mj = s.m(j);
+    const T hij = T(0.5) * (hi + hj);
+    const T rinv = r2 > T(1e-24) ? T(1) / sqrt(r2) : T(0);
+    const T rij = r2 * rinv;
+    const T h1 = T(1) / (hij > T(0) ? hij : T(1));
+    T wq, dwq;
+    shape<T, KIND>(rij * h1, wq, dwq);
+    const T fac = kfac * (dim == 1   ? h1
+                          : dim == 2 ? h1 * h1
+                                     : h1 * h1 * h1);
+    const T g = rij > T(1e-12) ? dwq * fac * h1 * rinv : T(0);
+    const T dwx = g * xij, dwy = g * yij, dwz = g * zij;
+
+    if (terms & kCont) arho += mj * (dwx * uij + dwy * vij + dwz * wij);
+    if (terms & (kMom | kXsph)) {
+      const T rhoj = s.rho(j);
+      const T rhoij = T(0.5) * (rhoi + rhoj);
+      const T rhoij1 = T(1) / (rhoij != T(0) ? rhoij : T(1));
+      if (terms & kMom) {
+        const T vdotx = uij * xij + vij * yij + wij * zij;
+        const T cij = T(0.5) * (csi + s.cs(j));
+        const T muij = (hij * vdotx) / (r2 + T(0.01) * hij * hij);
+        T piij = (-alpha * cij * muij + beta * muij * muij) * rhoij1;
+        if (!(vdotx < T(0))) piij = T(0);
+        const T dtc =
+            r2 > T(1e-12) ? fabs(hij * vdotx) * rinv * rinv + c0 : T(0);
+        cfl = dtc > cfl ? dtc : cfl;
+        const T tmp = pi * rhoi21 + s.p(j) * (T(1) / (rhoj * rhoj));
+        const T f = -mj * (tmp + piij);
+        au += f * dwx;
+        av += f * dwy;
+        aw += f * dwz;
+      }
+      if (terms & kXsph) {
+        const T t = -xeps * mj * (wq * fac) * rhoij1;
+        ax += t * uij;
+        ay += t * vij;
+        az += t * wij;
+      }
+    }
+  }
+
+  // pre + sum (max(pre, m) for dt_cfl) where the write mask is set,
+  // pre elsewhere.
+  __device__ void store(const WcsphArgs& a, int i) const {
+    const bool wm = a.wmask == nullptr || a.wmask[i] != 0;
+    const T acc[kNumOut] = {arho, au, av, aw, ax, ay, az, T(0)};
+#pragma unroll
+    for (int k = 0; k < kNumOut; ++k) {
+      if (a.out[k] == nullptr) continue;
+      const T pre = ld<T>(a.pre[k], i);
+      const T val = k == kDtCfl ? cfl : pre + acc[k];
+      static_cast<T*>(a.out[k])[i] = wm ? val : pre;
+    }
+  }
+};
+
+// The union of the sources' term masks.
+__device__ __forceinline__ int dest_terms(const WcsphArgs& a) {
+  int t = 0;
+  for (int s = 0; s < a.n_src; ++s) t |= a.src[s].terms;
+  return t;
+}
+
+// Checks shared by both launch functions.
+inline bool args_ok(const WcsphArgs& a) {
+  return a.n_src >= 0 && a.n_src <= kMaxSources && a.nx >= 1 && a.ny >= 1 &&
+         a.nz >= 1 && a.kernel_kind >= 0 && a.kernel_kind <= 2 &&
+         (a.dtype == 0 || a.dtype == 1);
+}
+
+}  // namespace wcsph

@@ -6,8 +6,9 @@ library, loaded with ``ctypes``: ``<name>_launch(const Args*, stream)``
 returns a CUDA error code, ``<name>_error_string(code)`` names it and
 ``<name>_args_size()`` gives ``sizeof(Args)``, which must match the
 wrapper's ``ctypes.Structure``.  The build runs at first use, into
-``build/`` at the repository root, keyed by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is not.  The
+``build/`` at the repository root, keyed by a hash of the source, of the
+``csrc/`` headers it includes and of the flags, so an edited source or
+header is rebuilt and an unchanged one is not.  The
 compiler's resource report (``-Xptxas -v``: registers, spills, shared
 memory per kernel) is kept beside the library as ``.log``.
 
@@ -19,6 +20,7 @@ else ``nvcc`` on ``PATH``) and a Hopper card: the code is built for
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,12 +47,43 @@ def nvcc():
     return found
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name):
+    """``csrc/<name>.cu`` and every ``csrc/`` header it includes with
+    ``#include "..."``, directly or through another header, in the order
+    first reached."""
+    found = []
+    todo = [CSRC / (name + '.cu')]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = path.parent / inc
+            if not dep.is_file():
+                raise FileNotFoundError('%s includes %r, which is not in %s'
+                                        % (path.name, inc, path.parent))
+            todo.append(dep)
+    return found
+
+
+def build_key(name):
+    """Hash of the sources of ``name`` and the flags: the library's
+    name, so that an edit of the ``.cu`` or of a header it includes
+    rebuilds it."""
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        digest.update(path.name.encode() + b'\0' + path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build(name):
     """Path of ``lib<name>-<hash>.so``, compiling it if missing."""
     src = CSRC / (name + '.cu')
-    key = hashlib.sha256(src.read_bytes() +
-                         ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / ('lib%s-%s.so' % (name, key))
+    lib = BUILD_DIR / ('lib%s-%s.so' % (name, build_key(name)))
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

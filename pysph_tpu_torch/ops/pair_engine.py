@@ -1,11 +1,14 @@
 """Planning: which pair phases a hand-written pair kernel runs.
 
-Two kernels take a dest's pair phases, all its sources in one call:
+Three kernels take a dest's pair phases, all its sources in one call:
 
-- ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path):
-  every equation with sources is ``ContinuityEquation``,
-  ``MomentumEquation`` (non-tensile) or ``XSPHCorrection``, with the
-  ``WendlandQuintic`` or ``CubicSpline`` kernel;
+- ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path and
+  the elliptical drop): every equation with sources is
+  ``ContinuityEquation``, ``MomentumEquation`` (non-tensile) or
+  ``XSPHCorrection``, with the ``WendlandQuintic``, ``CubicSpline`` or
+  ``Gaussian`` kernel;
+- ``dense_pair`` (``ops/dense_pair.py``): the same phase sets and
+  contract, walked one thread block per dest cell;
 - ``gtvf_pair`` (``ops/gtvf_pair.py``, the GTVF dam break): the
   equations fall in one of its five phase sets (``SetWallVelocity``;
   ``ContinuityEquationGTVF`` + ``ContinuitySolid``; ``CorrectDensity``;
@@ -20,11 +23,18 @@ phase).  The per-source term masks say which equations each source
 takes.  Periodic domains never reach here: the evaluator refuses them.
 Anything else raises ``PairIneligible`` and the evaluator runs the torch
 pair engine instead.
+
+The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
+sets onto ``wcsph_pair`` and the GTVF sets onto ``gtvf_pair``; ``dense``
+plans the WCSPH sets onto ``dense_pair`` and nothing else, as the JAX
+package's dense-slot engine refuses the sequential and strided phases of
+the GTVF sets (``pallas_engine.py:855-861``).
 """
 
 from typing import NamedTuple
 
 from pysph_tpu_torch.base.kernels import KERNEL_KIND, WendlandQuintic
+from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gtvf_pair as _gp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
 from pysph_tpu_torch.sph.basic_equations import (
@@ -114,7 +124,7 @@ def _source_terms(sources, term_of, term_outputs, max_sources):
     return out
 
 
-def _plan_wcsph(dest, sources, kernel):
+def _plan_wcsph(dest, sources, kernel, op=_wp.wcsph_pair):
     if type(kernel) not in KERNEL_KIND:
         raise PairIneligible('kernel %r' % kernel)
     plan_sources = []
@@ -129,8 +139,12 @@ def _plan_wcsph(dest, sources, kernel):
                 params['eps'] = eq.eps
         plan_sources.append(PairSource(src, t, **params))
         terms |= t
-    return PairPlan(dest, plan_sources, kernel, _wp.wcsph_pair,
+    return PairPlan(dest, plan_sources, kernel, op,
                     _wp.wcsph_pair_reference, _wp.outputs_for(terms))
+
+
+def _plan_dense(dest, sources, kernel):
+    return _plan_wcsph(dest, sources, kernel, op=_dp.dense_pair)
 
 
 def _plan_gtvf(dest, sources, kernel):
@@ -152,12 +166,15 @@ def _plan_gtvf(dest, sources, kernel):
                     _gp.gtvf_pair_reference, _gp.outputs_for(terms))
 
 
-def plan_pair_phases(dest, sources, kernel):
+_PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf), 'dense': (_plan_dense,)}
+
+
+def plan_pair_phases(dest, sources, kernel, engine='kernel'):
     """``sources``: ordered {src name: [equations]}.  Returns the
-    ``PairPlan`` of the first kernel that takes them, or raises
-    ``PairIneligible`` with each kernel's reason."""
+    ``PairPlan`` of the first of the ``engine``'s kernels that takes
+    them, or raises ``PairIneligible`` with each kernel's reason."""
     reasons = []
-    for planner in (_plan_wcsph, _plan_gtvf):
+    for planner in _PLANNERS[engine]:
         try:
             return planner(dest, sources, kernel)
         except PairIneligible as e:

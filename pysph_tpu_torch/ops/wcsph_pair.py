@@ -17,7 +17,8 @@ from before the phase.
 For CUDA tensors it launches ``csrc/wcsph_pair.cu`` (built on first use
 by ``ops/build.py``) and counts the launch in ``wcsph_pair.launches``;
 for CPU tensors it calls ``wcsph_pair_reference``, the same computation
-on the torch pair engine.
+on the torch pair engine.  ``ops/dense_pair.py`` is the other walk of
+the same contract, with the same arguments and ``launch_pair``.
 """
 
 import ctypes
@@ -104,7 +105,9 @@ class _SrcArgs(ctypes.Structure):
 
 class _Args(ctypes.Structure):
     _fields_ = ([(p, ctypes.c_void_p) for p in _DEST_PROPS] +
-                [('cell', ctypes.c_void_p), ('wmask', ctypes.c_void_p),
+                [('cell', ctypes.c_void_p), ('dorder', ctypes.c_void_p),
+                 ('dcell_start', ctypes.c_void_p),
+                 ('dcell_end', ctypes.c_void_p), ('wmask', ctypes.c_void_p),
                  ('pre', ctypes.c_void_p * len(OUTPUTS)),
                  ('out', ctypes.c_void_p * len(OUTPUTS)),
                  ('src', _SrcArgs * MAX_SOURCES),
@@ -115,13 +118,20 @@ class _Args(ctypes.Structure):
                     'kernel_kind', 'dtype')])
 
 
-def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+def launch_pair(name, op, dest, dest_cells, write_mask, pre, sources, grid,
+                kernel):
+    """Check the arguments, launch ``csrc/<name>.cu`` (``wcsph_pair`` or
+    ``dense_pair``, which take the same ``WcsphArgs``) on the current
+    stream and count the launch in ``op.launches``.  Returns {output:
+    tensor}."""
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
-        raise ValueError('wcsph_pair: dtype %s' % fdt)
+        raise ValueError('%s: dtype %s' % (name, fdt))
     if len(sources) > MAX_SOURCES:
-        raise ValueError('wcsph_pair: %d sources' % len(sources))
+        raise ValueError('%s: %d sources' % (name, len(sources)))
+    if type(kernel) not in KERNEL_KIND:
+        raise ValueError('%s: no shape function for %r' % (name, kernel))
     i32 = torch.int32
     args = _Args()
     terms = 0
@@ -141,11 +151,16 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     for p in _reads(terms, with_mass=False):
         setattr(args, p, data_ptr(dest[p], n, fdt, dev, 'd_' + p))
     args.cell = data_ptr(dest_cells.cell, n, i32, dev, 'dest cell')
+    args.dorder = data_ptr(dest_cells.order, n, i32, dev, 'dest order')
+    args.dcell_start = data_ptr(dest_cells.start, grid.ncells, i32, dev,
+                                'dest cell_start')
+    args.dcell_end = data_ptr(dest_cells.end, grid.ncells, i32, dev,
+                              'dest cell_end')
     if write_mask is not None:
         args.wmask = data_ptr(write_mask, n, torch.bool, dev, 'write mask')
     if set(pre) != set(outputs_for(terms)):
-        raise ValueError('wcsph_pair: pre values for %s, terms give %s'
-                         % (sorted(pre), outputs_for(terms)))
+        raise ValueError('%s: pre values for %s, terms give %s'
+                         % (name, sorted(pre), outputs_for(terms)))
     out = {}
     for k, p in enumerate(OUTPUTS):
         if p in pre:
@@ -161,8 +176,8 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     args.dtype = 1 if fdt == torch.float64 else 0
     if n == 0:
         return out
-    build.launch('wcsph_pair', args, dev)
-    wcsph_pair.launches += 1
+    build.launch(name, args, dev)
+    op.launches += 1
     return out
 
 
@@ -176,7 +191,8 @@ def wcsph_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     if dest['x'].device.type != 'cuda':
         raise ValueError('wcsph_pair: no kernel for device %s'
                          % dest['x'].device)
-    return _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel)
+    return launch_pair('wcsph_pair', wcsph_pair, dest, dest_cells,
+                       write_mask, pre, sources, grid, kernel)
 
 
 #: kernel launches since the last reset (set to 0 to reset)

@@ -1,34 +1,60 @@
 """The Application: the user-facing entry point of a simulation (port of
 ``pysph_tpu/solver/application.py``).
 
-A subclass overrides ``create_particles``, ``create_scheme`` (or
-``create_equations`` and ``create_solver``), ``add_user_options``,
-``consume_user_options`` and ``configure_scheme`` and calls ``run()``.
-The command line sets time stepping, the dtype (``--use-double``), the
-device (``--device``, default ``cuda``) and the pair engine
-(``--engine kernel|torch``).
+A subclass overrides ``initialize``, ``create_particles``,
+``create_scheme`` (or ``create_equations`` and ``create_solver``),
+``add_user_options``, ``consume_user_options``, ``configure_scheme`` and
+``post_process`` and calls ``run()``.  The command line sets time
+stepping, output (``-d/--directory``, ``--pfreq``, ``--output-at-times``,
+``--disable-output``), the SPH kernel (``--kernel``), the dtype
+(``--use-double``), the device (``--device``, default ``cuda``) and the
+pair engine (``--engine kernel|dense|torch``).
 """
 
 import argparse
 import logging
+import os
 import sys
 import time
 
 import torch
 
+from pysph_tpu_torch.base import kernels as _kernels
 from pysph_tpu_torch.config import ENGINES, Config
+from pysph_tpu_torch.solver.utils import get_files
 
 logger = logging.getLogger(__name__)
 
+#: the ``--kernel`` choices of the JAX package; the ones ``base/kernels.py``
+#: lacks raise ``NotImplementedError``
+KERNELS = ('CubicSpline', 'Gaussian', 'QuinticSpline', 'SuperGaussian',
+           'WendlandQuintic', 'WendlandQuinticC2_1D', 'WendlandQuinticC4',
+           'WendlandQuinticC4_1D', 'WendlandQuinticC6',
+           'WendlandQuinticC6_1D')
+
 
 class Application(object):
-    def __init__(self):
+    def __init__(self, fname=None, output_dir=None):
         self.solver = None
         self.scheme = None
         self.particles = []
         self.args = sys.argv[1:]
+        self.fname = fname or self._guess_fname()
+        self.output_dir = output_dir or (self.fname + '_output')
         self._setup_time = 0.0
         self._solve_time = 0.0
+        self.initialize()
+
+    def _guess_fname(self):
+        """The example's module name (its file's, when run as a
+        script): the stem of the output files."""
+        module = self.__class__.__module__
+        if module != '__main__':
+            return module.rsplit('.', 1)[-1]
+        f = getattr(sys.modules.get('__main__'), '__file__', None)
+        if f:
+            return os.path.splitext(os.path.basename(f))[0]
+        return self.__class__.__name__.lower()
 
     # -- command line --------------------------------------------------
     def _setup_argparse(self):
@@ -39,13 +65,25 @@ class Application(object):
                             dest='verbose', default=False)
         parser.add_argument('-q', '--quiet', action='store_true',
                             dest='quiet', default=False)
+        parser.add_argument('-d', '--directory', action='store',
+                            dest='output_dir', default=self.output_dir,
+                            help='Output directory.')
         parser.add_argument('--max-steps', action='store', type=int,
                             dest='max_steps', default=1 << 31,
                             help='Maximum number of steps to run.')
         parser.add_argument('--disable-output', action='store_true',
                             dest='disable_output', default=False,
-                            help='Write no output files (required until '
-                                 'output is ported).')
+                            help='Write no output files.')
+        parser.add_argument('--pfreq', '--print-freq', action='store',
+                            type=int, dest='freq', default=None,
+                            help='Dump the particles every this many '
+                                 'steps.')
+        parser.add_argument('--output-at-times', action='store',
+                            dest='output_at_times', default=None,
+                            help='Comma-separated times to dump at.')
+        parser.add_argument('--kernel', action='store', dest='kernel',
+                            default=None, choices=KERNELS,
+                            help='SPH kernel to use.')
         parser.add_argument('--timestep', '--dt', action='store',
                             type=float, dest='time_step', default=None)
         parser.add_argument('--tf', '--final-time', action='store',
@@ -66,9 +104,11 @@ class Application(object):
                             help='Torch device of the particle state.')
         parser.add_argument('--engine', action='store', dest='engine',
                             default='kernel', choices=ENGINES,
-                            help='Pair engine: the hand-written kernel '
-                                 'where the phases match it, or the '
-                                 'generic torch engine everywhere.')
+                            help='Pair engine: the hand-written kernels '
+                                 'where the phases match them, the '
+                                 'cell-blocked dense_pair kernel for the '
+                                 'WCSPH phases, or the generic torch '
+                                 'engine everywhere.')
         if self.scheme is not None:
             group = parser.add_argument_group(
                 'Scheme options', conflict_handler='resolve')
@@ -80,6 +120,7 @@ class Application(object):
     def _process_command_line(self, argv):
         self.options = self._setup_argparse().parse_args(argv)
         o = self.options
+        self.output_dir = o.output_dir
         self.config = Config(
             device=o.device,
             dtype=torch.float64 if o.use_double else torch.float32,
@@ -95,6 +136,9 @@ class Application(object):
             log.addHandler(logging.StreamHandler(sys.stderr))
 
     # -- user-overridable protocol -------------------------------------
+    def initialize(self):
+        pass
+
     def create_scheme(self):
         return None
 
@@ -122,6 +166,19 @@ class Application(object):
     def configure_scheme(self):
         pass
 
+    def post_process(self, info_fname_or_directory):
+        pass
+
+    # -- output files --------------------------------------------------
+    @property
+    def info_filename(self):
+        return os.path.join(self.output_dir, self.fname + '.info')
+
+    @property
+    def output_files(self):
+        """The dump files of the run, sorted by step count."""
+        return get_files(self.output_dir, self.fname)
+
     # -- setup + run ---------------------------------------------------
     def setup(self, argv=None):
         if argv is None:
@@ -147,6 +204,22 @@ class Application(object):
         o = self.options
         solver = self.solver
         solver.disable_output = o.disable_output
+        solver.set_output_directory(self.output_dir)
+        solver.set_output_fname(self.fname)
+        if o.freq is not None:
+            solver.set_print_freq(o.freq)
+        if o.output_at_times:
+            solver.set_output_at_times(
+                [float(t) for t in o.output_at_times.split(',') if t])
+        if o.kernel is not None:
+            # the solver sizes its CellGrid with this kernel's
+            # radius_scale
+            cls = getattr(_kernels, o.kernel, None)
+            if cls is None:
+                raise NotImplementedError(
+                    'the %s kernel is not ported yet (ROADMAP Queue 1 item '
+                    '19)' % o.kernel)
+            solver.kernel = cls(dim=solver.dim)
         if o.time_step is not None:
             solver.dt = o.time_step
         if o.final_time is not None:

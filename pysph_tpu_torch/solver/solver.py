@@ -1,21 +1,24 @@
 """The Solver: the time loop (port of ``pysph_tpu/solver/solver.py``).
 
 A plain Python loop over eager integrator steps, with adaptive and
-damped dt, ``output_at_times`` landing and ``max_steps``.  The particle
-state is a dict of per-array tensor dicts on the configured device; the
-host arrays are refreshed at the end of ``solve``.  Adaptive dt costs one
-device-to-host copy per step.
-
-Output dumps are not ported yet (ROADMAP Queue 1, output): a run must
-disable them.
+damped dt, ``max_steps`` and output: a dump ``<fname>_<count>`` (hdf5 or
+npz, ``solver/output.py``) into ``output_directory`` before the first
+step, every ``pfreq`` steps, at each of ``output_at_times`` (dt is
+shortened to land on them) and at the end.  The particle state is a dict
+of per-array tensor dicts on the configured device; the host arrays are
+refreshed for each dump and at the end of ``solve``.  Adaptive dt costs
+one device-to-host copy per step, a dump one copy of the state.
 """
 
 import logging
+import os
 
 import numpy as np
 
 from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import CubicSpline
+from pysph_tpu_torch.solver.output import dump
+from pysph_tpu_torch.solver.utils import mkdir
 
 logger = logging.getLogger(__name__)
 
@@ -36,7 +39,10 @@ class Solver(object):
         self.t = 0.0
         self.count = 0
         self.pre_step_callbacks = []
+        self.pfreq = 100
         self.disable_output = False
+        self.fname = self.__class__.__name__
+        self.output_directory = self.fname + '_output'
         self.n_damp = n_damp
         self.adaptive_timestep = adaptive_timestep
         self.cfl = cfl
@@ -80,6 +86,18 @@ class Solver(object):
         self.tf = tf
         self._epsilon = EPSILON * tf
 
+    def set_print_freq(self, n):
+        self.pfreq = n
+
+    def set_output_fname(self, fname):
+        self.fname = fname
+
+    def set_output_directory(self, path):
+        self.output_directory = path
+
+    def set_output_at_times(self, output_at_times):
+        self.output_at_times = np.asarray(output_at_times)
+
     # -- the time loop -------------------------------------------------
     def solve(self):
         self._epsilon = EPSILON * self.tf
@@ -96,7 +114,7 @@ class Solver(object):
             self.count += 1
             self._epsilon = EPSILON * self.tf * self.count
             self.dt = self._get_timestep()
-            self._land_on_output_times()
+            self._dump_output_if_needed()
             logger.debug('step %d t=%.6g dt=%.6g', self.count, self.t,
                          self.dt)
 
@@ -139,26 +157,41 @@ class Solver(object):
         return dt
 
     # -- output --------------------------------------------------------
+    def _get_solver_data(self):
+        dt = self._prev_dt if self._prev_dt is not None else self.dt
+        return {'dt': dt / self._damping_factor, 't': self.t,
+                'count': self.count}
+
     def dump_output(self):
+        """Write ``<output_directory>/<fname>_<count:05d>`` from the
+        device state (a sync point)."""
         if self.disable_output:
             return
-        raise NotImplementedError(
-            'output dumps are not ported yet (ROADMAP Queue 1, output): '
-            'run with --disable-output')
+        self._sync_to_host()
+        mkdir(self.output_directory)
+        fname = os.path.join(self.output_directory,
+                             '%s_%05d' % (self.fname, self.count))
+        dump(fname, self.particles, self._get_solver_data())
 
-    def _land_on_output_times(self):
-        """Shorten dt to land exactly on the next of ``output_at_times``
-        (the dumps themselves wait for the output port)."""
+    def _dump_output_if_needed(self):
+        """Dump every ``pfreq`` steps and at each of ``output_at_times``,
+        and shorten dt to land exactly on the next of them."""
         if abs(self.t - self.tf) < self._epsilon:
             return
+        due = self.count % self.pfreq == 0
         tdiff = self.output_at_times - self.t
-        too_big = (tdiff > 0.0) & (tdiff < self.dt)
-        if np.any(too_big):
-            indices = np.where(too_big)[0]
-            output_time = self.output_at_times[indices[0]]
-            if (abs(output_time - self.t) < self._epsilon and
-                    len(indices) > 1):
-                output_time = self.output_at_times[indices[1]]
-            if abs(output_time - self.t) > self._epsilon:
-                self._prev_dt = self.dt
-                self.dt = float(output_time - self.t)
+        if len(tdiff):
+            if np.any(np.abs(tdiff) < self._epsilon):
+                due = True
+            too_big = (tdiff > 0.0) & (tdiff < self.dt)
+            if np.any(too_big):
+                indices = np.where(too_big)[0]
+                output_time = self.output_at_times[indices[0]]
+                if (abs(output_time - self.t) < self._epsilon and
+                        len(indices) > 1):
+                    output_time = self.output_at_times[indices[1]]
+                if abs(output_time - self.t) > self._epsilon:
+                    self._prev_dt = self.dt
+                    self.dt = float(output_time - self.t)
+        if due:
+            self.dump_output()

@@ -5,12 +5,13 @@ per group and dest array the phases run as in the reference:
 ``initialize`` -> source-less ``loop`` -> pair ``loop`` per source ->
 ``post_loop``.
 
-Pair phases take one of two engines, chosen once per (group, dest) when
+Pair phases take one of the engines, chosen once per (group, dest) when
 the evaluator is built and recorded in ``engine_choices``:
 
-- ``'kernel'``: the phase set matches one of the hand-written pair
-  kernels (``ops/pair_engine.py``), which then runs every source of the
-  dest in one call;
+- ``'kernel'`` or ``'dense'`` (the configured engine): the phase set
+  matches one of that engine's hand-written pair kernels
+  (``ops/pair_engine.py``), which then runs every source of the dest in
+  one call;
 - ``'torch'``: the generic engine below, for any equation.  It bins the
   arrays into sorted cell lists, builds compacted ``(i, j)`` pair lists
   chunked over dest rows (bounded memory), evaluates the equations'
@@ -232,7 +233,8 @@ class AccelerationEval(object):
         self.arrays_used = sorted(
             {eq.dest for eq in self._iter_equations()} |
             {s for eq in self._iter_equations() for s in eq.sources or ()})
-        # {(dest, (srcs,)): 'kernel' | 'torch'}, filled while planning
+        # {(dest, (srcs,)): 'kernel' | 'dense' | 'torch'}, filled while
+        # planning
         self.engine_choices = {}
         self._plans = self._plan()
 
@@ -303,14 +305,16 @@ class AccelerationEval(object):
                     continue
                 key = (dest, tuple(sources))
                 plan = None
-                if self.config.engine == 'kernel':
+                engine = self.config.engine
+                if engine != 'torch':
                     try:
-                        plan = plan_pair_phases(dest, sources, self.kernel)
+                        plan = plan_pair_phases(dest, sources, self.kernel,
+                                                engine)
                     except PairIneligible as e:
                         logger.info('torch pair engine for %s <- %s: %s',
                                     dest, list(sources), e)
                 self.engine_choices[key] = 'torch' if plan is None \
-                    else 'kernel'
+                    else engine
                 plans[(id(group), dest)] = plan
         return plans
 

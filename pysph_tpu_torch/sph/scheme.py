@@ -223,7 +223,7 @@ class WCSPHScheme(Scheme):
         from pysph_tpu_torch.sph.wc.basic import (
             MomentumEquation, TaitEOS, TaitEOSHGCorrection)
         for flag, item in ((self.summation_density, 'summation density: '
-                            'ROADMAP Queue 1, elliptical_drop'),
+                            'ROADMAP Queue 1 item 19'),
                            (self.delta_sph, 'delta-SPH: ROADMAP Queue 1'),
                            (abs(self.nu) > 1e-14, 'laminar viscosity: '
                             'ROADMAP Queue 1, delta-SPH'),

@@ -1,0 +1,51 @@
+"""The build key of ``ops/build.py`` covers the ``csrc/`` headers a source
+includes, so a header edit rebuilds every library that includes it (and
+only those).  Runs on the CPU: nothing is compiled."""
+
+import shutil
+
+import pytest
+
+from pysph_tpu_torch.ops import build
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    copy = tmp_path / 'csrc'
+    shutil.copytree(build.CSRC, copy)
+    monkeypatch.setattr(build, 'CSRC', copy)
+    return copy
+
+
+def test_sources_follow_the_includes(csrc):
+    assert [p.name for p in build.sources('wcsph_pair')] == [
+        'wcsph_pair.cu', 'wcsph_terms.cuh']
+    assert [p.name for p in build.sources('dense_pair')] == [
+        'dense_pair.cu', 'wcsph_terms.cuh']
+    assert [p.name for p in build.sources('fused_pair')] == ['fused_pair.cu']
+
+
+def test_header_edit_changes_the_key(csrc):
+    names = ('wcsph_pair', 'dense_pair', 'fused_pair', 'gtvf_pair')
+    before = {n: build.build_key(n) for n in names}
+    assert before == {n: build.build_key(n) for n in names}
+    header = csrc / 'wcsph_terms.cuh'
+    header.write_text(header.read_text() + '\n// edited\n')
+    after = {n: build.build_key(n) for n in names}
+    assert after['wcsph_pair'] != before['wcsph_pair']
+    assert after['dense_pair'] != before['dense_pair']
+    assert after['fused_pair'] == before['fused_pair']
+    assert after['gtvf_pair'] == before['gtvf_pair']
+    # a nested include counts too
+    (csrc / 'extra.cuh').write_text('// v1\n')
+    header.write_text('#include "extra.cuh"\n' + header.read_text())
+    nested = build.build_key('dense_pair')
+    (csrc / 'extra.cuh').write_text('// v2\n')
+    assert build.build_key('dense_pair') != nested
+
+
+def test_missing_header_is_an_error(csrc):
+    src = csrc / 'fused_pair.cu'
+    src.write_text('#include "nowhere.cuh"\n' + src.read_text())
+    with pytest.raises(FileNotFoundError, match='nowhere.cuh'):
+        build.build_key('fused_pair')

@@ -12,12 +12,12 @@ CASES = [('WendlandQuintic', 2), ('WendlandQuintic', 3),
          ('CubicSpline', 1), ('CubicSpline', 2), ('CubicSpline', 3)]
 
 
-def _inputs(seed=3, n=4000):
+def _inputs(seed=3, n=4000, qmax=2.3):
     rng = np.random.default_rng(seed)
     h = rng.uniform(0.01, 0.2, n)
     xij = rng.normal(size=(3, n))
-    # r from exactly 0 through past the support radius 2h
-    r = np.concatenate([[0.0, 0.0], rng.uniform(0.0, 2.3, n - 2)]) * h
+    # r from exactly 0 through past the support radius
+    r = np.concatenate([[0.0, 0.0], rng.uniform(0.0, qmax, n - 2)]) * h
     xij *= r / np.maximum(np.linalg.norm(xij, axis=0), 1e-300)
     return xij, np.linalg.norm(xij, axis=0), h
 
@@ -43,3 +43,25 @@ def test_kernel_and_gradient_match_jax(name, dim):
     q = np.linspace(0.0, 2.5, 501)
     for got, want in zip(tkern._shape(t(q)), jkern._shape(q)):
         _close(got, want)
+
+
+@pytest.mark.parametrize('dim', [1, 2, 3])
+def test_gaussian_matches_jax(dim):
+    """Values, dW/dq and gradients from r = 0 through past the q = 3
+    cut, and the cut itself."""
+    xij, rij, h = _inputs(seed=5, qmax=3.4)
+    jkern = jk.Gaussian(dim=dim)
+    tkern = tk.Gaussian(dim=dim)
+    assert tkern.fac == jkern.fac
+    assert tkern.radius_scale == jkern.radius_scale == 3.0
+    t = torch.as_tensor
+    _close(tkern.kernel(rij=t(rij), h=t(h)), jkern.kernel(rij=rij, h=h))
+    _close(tkern.dwdq(rij=t(rij), h=t(h)), jkern.dwdq(rij=rij, h=h))
+    _close(tkern.gradient(t(xij), t(rij), t(h)),
+           jkern.gradient(xij, rij, h))
+    q = np.concatenate([np.linspace(0.0, 3.5, 701),
+                        np.nextafter(3.0, [0.0, 4.0])])
+    for got, want in zip(tkern._shape(t(q)), jkern._shape(q)):
+        _close(got, want)
+    w, dw = tkern._shape(t(np.array([np.nextafter(3.0, 0.0), 3.0])))
+    assert w[0] > 0 and dw[0] < 0 and w[1] == 0 and dw[1] == 0
