@@ -5,14 +5,15 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the four CUDA kernels from ``pysph_tpu_torch/csrc`` with nvcc,
-   one process per source, in parallel, and print ``-Xptxas -v``;
+2. build the seven CUDA kernels from ``pysph_tpu_torch/csrc`` with
+   nvcc, one process per source, in parallel, and print ``-Xptxas -v``;
 3. ``wcsph_pair`` against its plain torch version on the card, on the
    dam_break_3d state with a seeded velocity and density perturbation:
    dx=0.04 (24,672 particles) in float64 (scaled error <= 1e-10) and
    float32 (<= 1e-4 of max|ref|), and dx=0.02 (143,051 particles, the
-   main path's shapes) in float32, where both are also timed; then 10
-   steps of dam_break_3d at dx=0.04 in float64 on the kernel engine
+   main path's shapes) in float32, where both are also timed (the kernel
+   eagerly and replayed from a CUDA graph) and the work is counted; then
+   10 steps of dam_break_3d at dx=0.04 in float64 on the kernel engine
    against the torch engine (<= 1e-9 of max|ref|);
 4. the main path: ``pysph_tpu_torch.examples.dam_break_3d`` at dx=0.02
    in float32 for ``STEPS`` steps, with the kernel's launches counted,
@@ -21,9 +22,9 @@ Phases (any failure propagates; the exit code is then not 0):
    (``examples.dam_break_2d --scheme gtvf``) with a seeded perturbation,
    every phase set of both evaluators: dx=0.02 (7,603 particles) in
    float64 and float32, dx=0.004 (137,803 particles, the path's shapes)
-   in float32, timed there; infinities (``rhodiv`` next to the walls)
-   must match exactly; then 10 steps at dx=0.02 in float64 on the kernel
-   engine against the torch engine (<= 1e-9 of max|ref|);
+   in float32, timed and counted there; infinities (``rhodiv`` next to
+   the walls) must match exactly; then 10 steps at dx=0.02 in float64 on
+   the kernel engine against the torch engine (<= 1e-9 of max|ref|);
 6. the GTVF path at dx=0.004 in float32 for ``STEPS`` steps: launches
    counted (2 + 5 x steps), every pair phase of both evaluators on the
    kernel, the median ms/step, and a finite final state (``rhodiv``
@@ -47,12 +48,28 @@ Phases (any failure propagates; the exit code is then not 0):
 10. the physics gate: the drop at nx=40 in float64 to tf=0.0076 under
     ``--engine dense``, dumping into a temporary directory under
     ``build/``: max |y| within 3% of the exact semi-major axis, and
-    ``post_process`` through the ported ``load``.
+    ``post_process`` through the ported ``load``;
+11. ``micro_launch`` against its plain version on the nine cases of
+    ``tools_dev/micro_launch.py`` (seeded inputs, <= 1e-4 of max|ref|),
+    then that tool's run (its path) with the launches counted, and the
+    fluid dest phase case timed beside the plain version and
+    ``embedding_bag``;
+12. ``micro_engine`` against its plain version on ``fluid-full`` with
+    ``dyn_maps`` both ways and 9 and 3 views, then the
+    ``tools_dev/micro_engine.py`` run with the launches counted;
+13. ``pair_stub`` in every mode on dam_break_3d dx=0.02's calls: every
+    output exactly 0, global loads in the SASS of every mode but
+    ``none``, each mode timed (``all`` must be slower than ``none``);
+    then the ``tools_dev/prof_dma.py`` and ``prof_phases.py`` runs (its
+    path) with the launches counted.
 
-The line before the last is a JSON summary of the kernels; the last is
+Each kernel's bound is computed from its work at the path's shapes
+(``tools_dev/roofline.py``) and printed beside its time.  The line
+before the last is a JSON summary of the kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import shutil
 import subprocess
@@ -60,6 +77,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -75,7 +93,13 @@ from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import wcsph_pair as wp
+from pysph_tpu_torch.ops import micro
+from pysph_tpu_torch.ops import pair_stub as stub
 from pysph_tpu_torch.ops.pair_engine import PairSource
+from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
+from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
+from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
+from pysph_tpu_torch.tools_dev.common import events_ms, graph_ms
 
 STEPS = 200
 WARMUP = 20
@@ -231,19 +255,6 @@ def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=()):
           flush=True)
 
 
-def _time_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _drive(app, label, op, first, per_step, skip_finite=(),
            engine='kernel'):
     """Solve ``app`` for ``STEPS`` steps with ``op``'s launch count set
@@ -304,7 +315,8 @@ def _fused_check(nx, dtype):
     with CubicSpline: the kernel against its plain version (timed in
     float32), then, with its launches counted, m times its rates
     against ``wcsph_pair``'s Continuity + Momentum on the same state
-    (pre = 0).  Returns (launches, max abs err, kernel ms, plain ms)."""
+    (pre = 0).  Returns (launches, max abs err, and in float32 the
+    times and work)."""
     calls, n, app = _drop_calls(nx, dtype)
     del calls
     st = app.solver.states['fluid']
@@ -328,14 +340,20 @@ def _fused_check(nx, dtype):
     print('compare %s: kernel against plain, max abs err %.3g, max scaled '
           'err %.3g (tol %.0e)' % (label, worst, worst_scaled, tol),
           flush=True)
-    ms = plain_ms = 0.0
+    timed = None
     if dtype == torch.float32:
-        ms = _time_ms(lambda: fp.fused_continuity_momentum(
-            st, cells, grid, **kw), 20)
-        plain_ms = _time_ms(lambda: fp.fused_continuity_momentum_reference(
-            st, cells, grid, **kw), 3)
-        print('fused_pair at nx=%d float32: kernel %.3f ms, plain torch '
-              '%.3f ms' % (nx, ms, plain_ms), flush=True)
+        timed = dict(
+            eager_ms=events_ms(lambda: fp.fused_continuity_momentum(
+                st, cells, grid, **kw), 20),
+            ms=graph_ms(lambda: fp.fused_continuity_momentum(
+                st, cells, grid, **kw), 20),
+            plain_ms=events_ms(lambda: fp.fused_continuity_momentum_reference(
+                st, cells, grid, **kw), 3),
+            work=roofline.fused_work(st, cells, grid))
+        print('fused_pair at nx=%d float32: kernel %.3f ms eager, %.3f ms '
+              'in a graph, plain torch %.3f ms' % (
+                  nx, timed['eager_ms'], timed['ms'], timed['plain_ms']),
+              flush=True)
 
     # the drop's Continuity + Momentum rates through the fused kernel,
     # against wcsph_pair with the same kernel on the same cells (the
@@ -363,7 +381,7 @@ def _fused_check(nx, dtype):
                                  '%.1g * %.3g' % (label, name, d, tol, scale))
     print('%s: m x rates against wcsph_pair CONT|MOM within %.0e scaled'
           % (label, tol), flush=True)
-    return launches, worst, ms, plain_ms
+    return launches, worst, timed
 
 
 def _physics_gate():
@@ -400,6 +418,191 @@ def _physics_gate():
         shutil.rmtree(out, ignore_errors=True)
 
 
+def _entry(name, replaces, launches, err, ms, plain_ms, work, library_ms,
+           **extra):
+    """One kernel of the JSON line, with its bound from ``work``."""
+    bound_ms, bound_by = roofline.bound(work)
+    return dict(name=name, route='cuda',
+                source='pysph_tpu_torch/csrc/%s.cu' % name,
+                replaces=replaces, launches=launches, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, **extra,
+                work=work)
+
+
+def _calls_work(calls, count):
+    return roofline.add(*[count(*c[3]) for c in calls])
+
+
+def _check_close(label, got, ref):
+    """Max abs error of ``got`` against ``ref``, within 1e-4 of
+    max|ref| (float32 sums in another order)."""
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    if not err <= TOL[torch.float32] * scale:
+        raise AssertionError('%s: error %.3g > %.0e * %.3g'
+                             % (label, err, TOL[torch.float32], scale))
+    return err
+
+
+def _micro_launch_phase():
+    """``micro_launch`` against its plain version on the tool's nine
+    cases (seeded inputs); the tool's run with the launches counted;
+    the fluid dest phase case timed beside its plain version and
+    ``embedding_bag``."""
+    worst = 0.0
+    for label, progs, views, tz, lanes, planes in tool_launch.CASES:
+        src = tool_launch.make_src(tz, lanes, planes, 'cuda', seed=21)
+        worst = max(worst, _check_close(
+            'micro_launch ' + label, micro.micro_launch(src, progs, views),
+            micro.micro_launch_reference(src, progs, views)))
+    print('compare micro_launch, nine cases: max abs err %.3g (tol 1e-4 '
+          'scaled)' % worst, flush=True)
+    micro.micro_launch.launches = 0
+    rows = tool_launch.main()
+    torch.cuda.synchronize()
+    launches = micro.micro_launch.launches
+    if launches == 0:
+        raise AssertionError('the micro_launch tool launched no kernel')
+    label, progs, views, tz, lanes, planes = tool_launch.CASES[3]
+    src = tool_launch.make_src(tz, lanes, planes, 'cuda', seed=21)
+    n_blocks = src.shape[0]
+    bags = (micro.launch_map(progs, views, n_blocks, 'cuda')[:, :, None] *
+            planes + torch.arange(planes, device='cuda')).reshape(progs, -1)
+    weight = src.view(n_blocks * planes, tz * lanes)
+
+    def library():
+        return torch.nn.functional.embedding_bag(bags, weight, mode='sum')
+
+    _check_close('embedding_bag', library().view(progs, 1, tz, lanes)[
+        ..., :micro.OUT_LANES], micro.micro_launch_reference(src, progs,
+                                                             views))
+    plain_ms = events_ms(
+        lambda: micro.micro_launch_reference(src, progs, views), 5)
+    library_ms = events_ms(library, 20)
+    print('micro_launch %s: kernel %.4f ms (graph), plain torch %.4f ms, '
+          'embedding_bag (every lane) %.4f ms' % (
+              label, rows[3]['kernel_ms'], plain_ms, library_ms), flush=True)
+    return _entry('micro_launch', 'tools_dev/micro_launch.py:39', launches,
+                  worst, rows[3]['kernel_ms'], plain_ms,
+                  roofline.micro_launch_work(src, progs, views), library_ms,
+                  case=label, eager_ms=rows[3]['eager_ms'],
+                  graph_ms=rows[3]['graph_ms'])
+
+
+def _micro_engine_phase():
+    """``micro_engine`` against its plain version on ``fluid-full`` with
+    ``dyn_maps`` both ways and 9 and 3 views (seeded inputs); the tool's
+    run with the launches counted."""
+    worst = 0.0
+    for dyn_maps in (True, False):
+        for n_views in (9, 3):
+            _, args, kw = tool_engine.make_case('fluid-full', 'cuda', seed=22)
+            kw.update(dyn_maps=dyn_maps, n_views=n_views)
+            worst = max(worst, _check_close(
+                'micro_engine fluid-full %s' % kw,
+                micro.micro_engine(*args, **kw),
+                micro.micro_engine_reference(*args, **kw)))
+    print('compare micro_engine fluid-full, dyn_maps both ways, 9 and 3 '
+          'views: max abs err %.3g (tol 1e-4 scaled)' % worst, flush=True)
+    micro.micro_engine.launches = 0
+    rows = tool_engine.main([])
+    torch.cuda.synchronize()
+    launches = micro.micro_engine.launches
+    if launches == 0:
+        raise AssertionError('the micro_engine tool launched no kernel')
+    _, args, kw = tool_engine.make_case('fluid-full', 'cuda', seed=22)
+    plain_ms = events_ms(lambda: micro.micro_engine_reference(*args, **kw),
+                         5)
+    row = rows[0]
+    print('micro_engine fluid-full: kernel %.4f ms (graph), plain torch '
+          '%.4f ms' % (row['kernel_ms'], plain_ms), flush=True)
+    return _entry('micro_engine', 'tools_dev/micro_engine.py:69', launches,
+                  worst, row['kernel_ms'], plain_ms,
+                  roofline.micro_engine_work(*args, **kw), None,
+                  case='fluid-full', eager_ms=row['eager_ms'],
+                  graph_ms=row['graph_ms'])
+
+
+def _sass_loads(lib):
+    """{stub mode: global loads (LDG) in the float kernel's SASS}."""
+    cuobjdump = Path(build.nvcc()).with_name('cuobjdump')
+    sass = subprocess.run([str(cuobjdump), '-sass', str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            name = line.split(':', 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and 'LDG' in line:
+            counts[name] += 1
+    return {mode: next(v for k, v in counts.items()
+                       if 'pair_stub_kernelIfLi%dE' % k_mode in k)
+            for k_mode, mode in enumerate(stub.MODES)}
+
+
+def _pair_stub_phase(lib):
+    """``pair_stub`` in every mode on dam_break_3d dx=0.02's calls: exact
+    zeros (pre set to 7), global loads in the SASS of every mode but
+    ``none``, each mode timed; then the prof tools' run with the
+    launches counted."""
+    calls, n = _pair_calls(0.02, torch.float32)
+    calls = [c[:3] + (c[3][:3] + ({p: torch.full_like(v, 7.0) for p, v in
+                                   c[3][3].items()},) + c[3][4:],)
+             for c in calls]
+    for mode in stub.MODES:
+        for _, dest, _, args in calls:
+            out = stub.pair_stub(*args, mode=mode)
+            torch.cuda.synchronize()
+            if not all(bool((v == 0).all()) for v in out.values()):
+                raise AssertionError('pair_stub %s wrote a non-zero to %s'
+                                     % (mode, dest))
+    print('compare pair_stub, every mode, dam_break_3d dx=0.02 (%d '
+          'particles): exact zeros' % n, flush=True)
+    loads = _sass_loads(lib)
+    print('pair_stub float SASS global loads by mode: %s' % loads)
+    if not (loads['none'] == 0 < loads['dest'] < loads['all'] and
+            loads['third'] > loads['dest']):
+        raise AssertionError('pair_stub: the compiler dropped loads: %s'
+                             % loads)
+    times = {}
+    for mode in stub.MODES:
+        times[mode] = graph_ms(lambda: [stub.pair_stub(*c[3], mode=mode)
+                                        for c in calls], 20)
+        work = _calls_work(calls, functools.partial(roofline.stub_work,
+                                                    mode))
+        print('pair_stub %-5s one eval (3 launches): %.4f ms (graph); %.4g '
+              'candidates, %.4g B, bound %.4f ms (%s)' % (
+                  (mode, times[mode], work['candidates'], work['bytes']) +
+                  roofline.bound(work)), flush=True)
+    if not times['all'] > times['none']:
+        raise AssertionError('pair_stub all (%.4f ms) is not slower than '
+                             'none (%.4f ms)' % (times['all'],
+                                                 times['none']))
+    plain_ms = events_ms(lambda: [stub.pair_stub_reference(*c[3])
+                                  for c in calls], 20)
+    size = sum(v.numel() for c in calls for v in c[3][3].values())
+    library_ms = events_ms(lambda: torch.zeros(size, device='cuda'), 20)
+    work = _calls_work(calls, functools.partial(roofline.stub_work, 'all'))
+    del calls
+
+    stub.pair_stub.launches = 0
+    prof_dma.main(0.02)
+    prof_phases.main(0.02)
+    torch.cuda.synchronize()
+    launches = stub.pair_stub.launches
+    if launches == 0:
+        raise AssertionError('the prof tools launched no pair_stub')
+    print('pair_stub launches in the prof_dma and prof_phases runs: %d'
+          % launches, flush=True)
+    return _entry('pair_stub', 'tools_dev/prof_dma.py:105', launches, 0.0,
+                  times['all'], plain_ms, work, library_ms,
+                  also_replaces='tools_dev/prof_phases.py:86', mode='all',
+                  mode_ms=times)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -414,13 +617,15 @@ def main():
                                             torch.version.cuda, kind))
 
     t0 = time.perf_counter()
-    names = ('wcsph_pair', 'gtvf_pair', 'dense_pair', 'fused_pair')
+    names = ('wcsph_pair', 'gtvf_pair', 'dense_pair', 'fused_pair',
+             'micro_launch', 'micro_engine', 'pair_stub')
     with ThreadPoolExecutor(len(names)) as pool:
-        libs = list(pool.map(build.build, names))
-    print('built %s in %.1f s' % ([lib.name for lib in libs],
+        libs = dict(zip(names, pool.map(build.build, names)))
+    print('built %s in %.1f s' % ([lib.name for lib in libs.values()],
                                   time.perf_counter() - t0))
-    for lib in libs:
+    for lib in libs.values():
         print(lib.with_suffix('.log').read_text().strip(), flush=True)
+    kernels = {}
 
     # wcsph_pair against its plain version
     for dx, dtype in ((0.04, torch.float64), (0.04, torch.float32)):
@@ -430,24 +635,30 @@ def main():
     calls, n = _pair_calls(0.02, torch.float32)
     wcsph_err = _compare(calls, torch.float32, 'wcsph_pair dx=0.02 float32 '
                          '(%d particles)' % n)
-    wcsph_ms = _time_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
-    wcsph_plain_ms = _time_ms(
+    wcsph_eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    wcsph_ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    wcsph_plain_ms = events_ms(
         lambda: [c[2].reference(*c[3]) for c in calls], 3)
+    wcsph_work = _calls_work(calls, roofline.wcsph_work)
     print('wcsph_pair, pair phases of one eval at dx=0.02 float32: kernel '
-          '%.3f ms, plain torch %.3f ms' % (wcsph_ms, wcsph_plain_ms),
-          flush=True)
+          '%.3f ms eager, %.3f ms in a graph, plain torch %.3f ms'
+          % (wcsph_eager, wcsph_ms, wcsph_plain_ms), flush=True)
     del calls
     _engines_agree('dam_break_3d', 0.04, 10,
                    ('x', 'y', 'z', 'u', 'v', 'w', 'rho', 'p'))
 
     # the main path
     app = _app(0.02, torch.float32, steps=STEPS)
-    wcsph_launches, n, _ = _drive(app, 'dam_break_3d dx=0.02 float32',
-                                  wp.wcsph_pair, 3, 6)
+    wcsph_launches, n, path_ms = _drive(app, 'dam_break_3d dx=0.02 float32',
+                                        wp.wcsph_pair, 3, 6)
     if n != 143051:
         raise AssertionError('dam_break_3d at dx=0.02 has %d particles, '
                              'not 143,051' % n)
     del app
+    kernels['wcsph_pair'] = _entry(
+        'wcsph_pair', 'pysph_tpu/ops/resident.py:645', wcsph_launches,
+        wcsph_err, wcsph_ms, wcsph_plain_ms, wcsph_work, None,
+        eager_ms=wcsph_eager, path='dam_break_3d dx=0.02, one eval')
 
     # gtvf_pair against its plain version
     for dx, dtype in ((0.02, torch.float64), (0.02, torch.float32)):
@@ -457,16 +668,20 @@ def main():
     calls, n = _gtvf_calls(0.004, torch.float32)
     gtvf_err = _compare(calls, torch.float32, 'gtvf_pair dx=0.004 float32 '
                         '(%d particles)' % n)
-    gtvf_ms = gtvf_plain_ms = 0.0
+    gtvf_eager = gtvf_plain_ms = 0.0
     for k in (0, 1):
         mine = [c for c in calls if c[0] == k]
-        kms = _time_ms(lambda: [c[2].op(*c[3]) for c in mine], 20)
-        pms = _time_ms(lambda: [c[2].reference(*c[3]) for c in mine], 3)
+        kms = events_ms(lambda: [c[2].op(*c[3]) for c in mine], 20)
+        pms = events_ms(lambda: [c[2].reference(*c[3]) for c in mine], 3)
         print('gtvf_pair, pair phases of eval %d (%d launches) at dx=0.004 '
               'float32: kernel %.3f ms, plain torch %.3f ms'
               % (k, len(mine), kms, pms), flush=True)
-        gtvf_ms += kms
+        gtvf_eager += kms
         gtvf_plain_ms += pms
+    gtvf_ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    gtvf_work = _calls_work(calls, roofline.gtvf_work)
+    print('gtvf_pair, both evals (5 launches) at dx=0.004 float32: %.3f ms '
+          'in a graph' % gtvf_ms, flush=True)
     del calls, mine
     _engines_agree('GTVF dam_break_2d', 0.02, 10,
                    ('x', 'y', 'u', 'v', 'rho', 'p', 'sigma', 'rhodiv',
@@ -476,8 +691,9 @@ def main():
     # the GTVF path: 2 launches in the initial eval (eval 0), 5 a step
     app = _app(0.004, torch.float32, steps=STEPS, cls=DamBreak2D,
                extra=('--scheme', 'gtvf'))
-    gtvf_launches, n, _ = _drive(app, 'GTVF dam_break_2d dx=0.004 float32',
-                                 gp.gtvf_pair, 2, 5, skip_finite=('rhodiv',))
+    gtvf_launches, n, gtvf_path_ms = _drive(
+        app, 'GTVF dam_break_2d dx=0.004 float32', gp.gtvf_pair, 2, 5,
+        skip_finite=('rhodiv',))
     rhodiv = app.solver.states['fluid']['rhodiv']
     if bool((rhodiv == -float('inf')).any()):
         raise AssertionError('rhodiv holds -inf')
@@ -485,6 +701,10 @@ def main():
           'rho0 is 0)' % (int(torch.isinf(rhodiv).sum()),
                           int(torch.isnan(rhodiv).sum()), rhodiv.numel()))
     del app, rhodiv
+    kernels['gtvf_pair'] = _entry(
+        'gtvf_pair', 'pysph_tpu/ops/pallas_engine.py:1160', gtvf_launches,
+        gtvf_err, gtvf_ms, gtvf_plain_ms, gtvf_work, None,
+        eager_ms=gtvf_eager, path='GTVF dx=0.004, both evals of a step')
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
@@ -508,18 +728,29 @@ def main():
                          ('wcsph_pair', wp.wcsph_pair),
                          ('plain', wp.wcsph_pair_reference)):
             reps = 3 if name == 'plain' else 20
-            t[name] = _time_ms(lambda: [op(*c[3]) for c in calls], reps)
+            t[name] = events_ms(lambda: [op(*c[3]) for c in calls], reps)
+            if name != 'plain':
+                t[name + ' graph'] = graph_ms(
+                    lambda: [op(*c[3]) for c in calls], 20)
+        t['work'] = _calls_work(calls, roofline.wcsph_work)
         print('pair phases of one eval, %s float32 (%d launches): '
-              'dense_pair %.3f ms, wcsph_pair %.3f ms, plain torch %.3f ms'
-              % (label, len(calls), t['dense_pair'], t['wcsph_pair'],
-                 t['plain']), flush=True)
+              'dense_pair %.3f ms eager, %.3f in a graph; wcsph_pair %.3f '
+              'ms eager, %.3f in a graph; plain torch %.3f ms; bound %.4f '
+              'ms (%s)' % ((label, len(calls), t['dense_pair'],
+                            t['dense_pair graph'], t['wcsph_pair'],
+                            t['wcsph_pair graph'], t['plain']) +
+                           roofline.bound(t['work'])), flush=True)
     del timed, calls
 
     # fused_continuity_momentum on the drop's state
     fused_launches = 0
     for dtype in (torch.float64, torch.float32):
-        k, fused_err, fused_ms, fused_plain_ms = _fused_check(200, dtype)
+        k, fused_err, fused = _fused_check(200, dtype)
         fused_launches += k
+    kernels['fused_pair'] = _entry(
+        'fused_pair', 'pysph_tpu/ops/pallas_pair.py:47', fused_launches,
+        fused_err, fused['ms'], fused['plain_ms'], fused['work'], None,
+        eager_ms=fused['eager_ms'], path='drop nx=200 state, one call')
 
     # the elliptical drop on both engines
     steps_ms = {}
@@ -537,31 +768,32 @@ def main():
         del app
     print('elliptical_drop nx=200 float32 median ms/step: kernel %.3f, '
           'dense %.3f' % (steps_ms['kernel'], steps_ms['dense']), flush=True)
+    drop = times['drop nx=200']
+    kernels['dense_pair'] = _entry(
+        'dense_pair', 'pysph_tpu/ops/pallas_engine.py:574', dense_launches,
+        dense_err, drop['dense_pair graph'], drop['plain'], drop['work'],
+        None, eager_ms=drop['dense_pair'], path='drop nx=200, one eval')
 
     _physics_gate()
 
-    print(json.dumps({'kernels': [{
-        'name': 'wcsph_pair', 'route': 'cuda',
-        'source': 'pysph_tpu_torch/csrc/wcsph_pair.cu',
-        'replaces': 'pysph_tpu/ops/resident.py:645',
-        'launches': wcsph_launches, 'max_abs_err': wcsph_err,
-        'ms': wcsph_ms, 'plain_ms': wcsph_plain_ms}, {
-        'name': 'gtvf_pair', 'route': 'cuda',
-        'source': 'pysph_tpu_torch/csrc/gtvf_pair.cu',
-        'replaces': 'pysph_tpu/ops/pallas_engine.py:1160',
-        'launches': gtvf_launches, 'max_abs_err': gtvf_err,
-        'ms': gtvf_ms, 'plain_ms': gtvf_plain_ms}, {
-        'name': 'dense_pair', 'route': 'cuda',
-        'source': 'pysph_tpu_torch/csrc/dense_pair.cu',
-        'replaces': 'pysph_tpu/ops/pallas_engine.py:574',
-        'launches': dense_launches, 'max_abs_err': dense_err,
-        'ms': times['drop nx=200']['dense_pair'],
-        'plain_ms': times['drop nx=200']['plain']}, {
-        'name': 'fused_pair', 'route': 'cuda',
-        'source': 'pysph_tpu_torch/csrc/fused_pair.cu',
-        'replaces': 'pysph_tpu/ops/pallas_pair.py:47',
-        'launches': fused_launches, 'max_abs_err': fused_err,
-        'ms': fused_ms, 'plain_ms': fused_plain_ms}]}))
+    # the probes and the stub: the tools' paths
+    kernels['micro_launch'] = _micro_launch_phase()
+    kernels['micro_engine'] = _micro_engine_phase()
+    kernels['pair_stub'] = _pair_stub_phase(libs['pair_stub'])
+
+    print('ms/step in this run: dam_break_3d dx=0.02 %.3f, GTVF dx=0.004 '
+          '%.3f, drop nx=200 kernel %.3f, dense %.3f' % (
+              path_ms, gtvf_path_ms, steps_ms['kernel'], steps_ms['dense']))
+    print('%-12s %8s %12s %12s %12s %12s %10s %10s %8s' % (
+        'kernel', 'launches', 'candidates', 'pairs', 'flops', 'bytes',
+        'bound ms', 'ms', 'share'))
+    for e in kernels.values():
+        w = e['work']
+        print('%-12s %8d %12d %12d %12d %12d %10.4f %10.4f %7.1f%% (%s)' % (
+            e['name'], e['launches'], w['candidates'], w['pairs'],
+            w['flops'], w['bytes'], e['bound_ms'], e['ms'],
+            100 * e['bound_ms'] / e['ms'], e['bound_by']))
+    print(json.dumps({'kernels': list(kernels.values())}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}))

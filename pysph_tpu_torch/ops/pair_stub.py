@@ -1,0 +1,76 @@
+"""The pair kernel's walk without its arithmetic: wrapper, launch counter
+and plain version.
+
+``pair_stub`` is the port's counterpart of the zero-writing stubs that
+``tools_dev/prof_dma.py`` and ``tools_dev/prof_phases.py`` swap in for
+the engine's Pallas kernel: it takes ``wcsph_pair``'s arguments, makes
+the loads of ``mode`` and writes 0 to every output of ``pre``:
+
+- ``all``: ``wcsph_pair``'s walk of the 3^dim cells of every source and
+  its loads (the support test decides, as there, which pairs load the
+  term mask's props);
+- ``third``: the same over the cells at the dest's own x only;
+- ``dest``: the dest's props only, no walk;
+- ``none``: no loads, the stores only.
+
+The plain version, ``pair_stub_reference``, returns the zeros and
+launches nothing: it is also the tools' "skip" variant.
+
+For CUDA tensors it launches ``csrc/pair_stub.cu`` (built on first use by
+``ops/build.py``) and counts the launch in ``pair_stub.launches``; for
+CPU tensors it calls the plain version.
+"""
+
+import ctypes
+
+import torch
+
+from pysph_tpu_torch.ops import build
+from pysph_tpu_torch.ops.wcsph_pair import WcsphArgs, pair_args
+
+#: in the order of the kernel's Mode enum
+MODES = ('none', 'dest', 'third', 'all')
+
+
+def _check_mode(mode):
+    if mode not in MODES:
+        raise ValueError('pair_stub: mode %r is not one of %s'
+                         % (mode, MODES))
+
+
+def pair_stub_reference(dest, dest_cells, write_mask, pre, sources, grid,
+                        kernel, mode='all'):
+    """Plain torch version of ``pair_stub``: {output: zeros like pre}."""
+    _check_mode(mode)
+    return {p: torch.zeros_like(v) for p, v in pre.items()}
+
+
+class StubArgs(ctypes.Structure):
+    _fields_ = [('a', WcsphArgs), ('sink', ctypes.c_void_p),
+                ('mode', ctypes.c_int32), ('write_sink', ctypes.c_int32)]
+
+
+def pair_stub(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+              mode='all'):
+    """Zeros for every output of ``pre``, after the loads of ``mode``;
+    ``wcsph_pair``'s arguments.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    _check_mode(mode)
+    dev = dest['x'].device
+    if dev.type == 'cpu':
+        return pair_stub_reference(dest, dest_cells, write_mask, pre,
+                                   sources, grid, kernel, mode)
+    if dev.type != 'cuda':
+        raise ValueError('pair_stub: no kernel for device %s' % dev)
+    args, out = pair_args('pair_stub', dest, dest_cells, write_mask, pre,
+                          sources, grid, kernel)
+    if args.n_dest == 0:
+        return out
+    build.launch('pair_stub', StubArgs(args, None, MODES.index(mode), 0),
+                 dev)
+    pair_stub.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (set to 0 to reset)
+pair_stub.launches = 0

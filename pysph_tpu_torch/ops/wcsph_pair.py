@@ -103,7 +103,7 @@ class _SrcArgs(ctypes.Structure):
                  ('terms', ctypes.c_int32), ('pad', ctypes.c_int32)])
 
 
-class _Args(ctypes.Structure):
+class WcsphArgs(ctypes.Structure):
     _fields_ = ([(p, ctypes.c_void_p) for p in _DEST_PROPS] +
                 [('cell', ctypes.c_void_p), ('dorder', ctypes.c_void_p),
                  ('dcell_start', ctypes.c_void_p),
@@ -118,12 +118,12 @@ class _Args(ctypes.Structure):
                     'kernel_kind', 'dtype')])
 
 
-def launch_pair(name, op, dest, dest_cells, write_mask, pre, sources, grid,
-                kernel):
-    """Check the arguments, launch ``csrc/<name>.cu`` (``wcsph_pair`` or
-    ``dense_pair``, which take the same ``WcsphArgs``) on the current
-    stream and count the launch in ``op.launches``.  Returns {output:
-    tensor}."""
+def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
+              kernel):
+    """Check the arguments of a kernel that takes ``WcsphArgs``
+    (``wcsph_pair``, ``dense_pair``, ``pair_stub``; ``name`` is for the
+    messages) and fill them in.  Returns (args, {output: empty
+    tensor})."""
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
@@ -133,7 +133,7 @@ def launch_pair(name, op, dest, dest_cells, write_mask, pre, sources, grid,
     if type(kernel) not in KERNEL_KIND:
         raise ValueError('%s: no shape function for %r' % (name, kernel))
     i32 = torch.int32
-    args = _Args()
+    args = WcsphArgs()
     terms = 0
     for k, (src, cells, ps) in enumerate(sources):
         terms |= ps.terms
@@ -174,9 +174,20 @@ def launch_pair(name, op, dest, dest_cells, write_mask, pre, sources, grid,
     args.dim = kernel.dim
     args.kernel_kind = KERNEL_KIND[type(kernel)]
     args.dtype = 1 if fdt == torch.float64 else 0
-    if n == 0:
+    return args, out
+
+
+def launch_pair(name, op, dest, dest_cells, write_mask, pre, sources, grid,
+                kernel):
+    """Check the arguments, launch ``csrc/<name>.cu`` (``wcsph_pair`` or
+    ``dense_pair``, which take the same ``WcsphArgs``) on the current
+    stream and count the launch in ``op.launches``.  Returns {output:
+    tensor}."""
+    args, out = pair_args(name, dest, dest_cells, write_mask, pre, sources,
+                          grid, kernel)
+    if args.n_dest == 0:
         return out
-    build.launch(name, args, dev)
+    build.launch(name, args, dest['x'].device)
     op.launches += 1
     return out
 

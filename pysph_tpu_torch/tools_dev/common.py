@@ -1,0 +1,57 @@
+"""Timing on the card, shared by the tools and ``chip_smoke.py``.
+
+Every time is device time from CUDA events: ``events_ms`` around eager
+calls (it includes whatever the host makes the stream wait for), and
+``graph_ms`` around replays of one CUDA graph that captured the calls
+(no Python or launch cost of the host between kernels, the counterpart
+of a JAX ``jit``).
+"""
+
+import subprocess
+
+import torch
+
+
+def require_cuda():
+    """The card's ``nvidia-smi`` name and power limit; raises without a
+    card (the tools time the device and have no CPU fallback)."""
+    if not torch.cuda.is_available():
+        raise SystemExit('torch.cuda.is_available() is False: this tool '
+                         'times an NVIDIA card')
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+def events_ms(fn, reps):
+    """Milliseconds per call of ``fn`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def capture(fn):
+    """A CUDA graph of ``fn``'s launches, after one warm-up call on a
+    side stream (as ``torch.cuda.graphs`` asks)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def graph_ms(fn, reps):
+    """Milliseconds per replay of a CUDA graph of ``fn``."""
+    return events_ms(capture(fn).replay, reps)

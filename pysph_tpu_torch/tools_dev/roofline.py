@@ -1,0 +1,241 @@
+"""Work counts and bounds of the port's kernels on an NVIDIA H100.
+
+Each ``*_work`` function takes a kernel's arguments (the same as the
+kernel's wrapper) and returns a dict of what that call needs:
+
+- ``candidates``: (dest, source) pairs the 3^dim-cell walk visits;
+- ``pairs``: the pairs in support, ``r2 < (rs max(hi, hj))^2``;
+- ``flops``: operations, a division, square root, ``exp``, compare or
+  max counting one, from the per-candidate and per-pair-in-support
+  tables below (read off the CUDA sources, lines cited);
+- ``bytes``: the unique bytes read and written, each input byte once:
+  the dest's props, cell ids, write mask and ``pre`` values, the outputs,
+  and of each source the particles and cell ranges that the walk can
+  reach (cells in the stencil of a non-empty dest cell), with every prop
+  the term mask reads.
+
+``bound(work)`` is the least time the card could take for that work: the
+larger of ``flops`` over the float32 peak outside the tensor cores and
+``bytes`` over the memory rate (NVIDIA's H100 SXM data sheet, at the
+700 W power limit), and which of the two sets it.  The counts come from
+the cell lists and shapes, so they run on the CPU as well as on the
+card; only a time divided by a bound is a device number.
+"""
+
+import torch
+
+from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.ops import gtvf_pair as gp
+from pysph_tpu_torch.ops import micro
+from pysph_tpu_torch.ops import wcsph_pair as wp
+
+PEAK_FLOPS = 67e12    # float32, outside the tensor cores
+PEAK_BYTES = 3.35e12  # HBM3
+I32 = 4
+
+#: the support test of every walk: xij yij zij, r2, max(hi, hj), rs *,
+#: square, compare (wcsph_terms.cuh:142-148, gtvf_pair.cu:348-354)
+SUPPORT_FLOPS = 12
+#: per pair in support, before the terms: uij vij wij, hij, rinv, rij,
+#: h1, q, fac, g, DWIJ (wcsph_terms.cuh:150-164), and the shape function
+#: by kernel kind (WendlandQuintic, CubicSpline, Gaussian; :59-91)
+WCSPH_PAIR_FLOPS = 22
+SHAPE_FLOPS = (12, 9, 6)
+#: per term and pair in support (wcsph_terms.cuh:166-191); MOM and XSPH
+#: share rhoij and rhoij1 (4)
+WCSPH_TERM_FLOPS = {wp.CONT: 7, wp.MOM: 39, wp.XSPH: 10}
+WCSPH_RHO_FLOPS = 4
+#: gtvf_pair.cu: WIJ and DWIJ of every pair in support (:356-367), then
+#: each term's functor (:143-303)
+GTVF_PAIR_FLOPS = 32
+GTVF_TERM_FLOPS = {gp.SWV: 7, gp.CGTVF: 12, gp.CSOLID: 12, gp.CDENS: 4,
+                   gp.VSUM: 1, gp.WALLP: 14, gp.MPG: 44, gp.MAS: 72}
+#: fused_pair.cu: the h > 0 test and the support test per candidate
+#: (:86-93), the rest per pair in support (:95-130)
+FUSED_CANDIDATE_FLOPS = 13
+FUSED_PAIR_FLOPS = 65
+
+
+def bound(work):
+    """(ms, 'operations' or 'bytes'): the least time of ``work`` on the
+    card and what sets it."""
+    t_ops = work['flops'] / PEAK_FLOPS * 1e3
+    t_bytes = work['bytes'] / PEAK_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops > t_bytes else (t_bytes, 'bytes')
+
+
+def add(*works):
+    """The sum of several calls' work."""
+    return {k: sum(w[k] for w in works) for k in works[0]}
+
+
+def _grid3(grid, counts):
+    nx, ny, nz = grid.dims
+    return counts.reshape(nz, ny, nx)
+
+
+def _shift_sum(grid, a3, x_offsets):
+    """out[c] = sum over the stencil offsets o of a3[c + o] (0 outside
+    the grid), on a (nz, ny, nx) array."""
+    nz, ny, nx = a3.shape
+    pad = torch.zeros((nz + 2, ny + 2, nx + 2), dtype=a3.dtype,
+                      device=a3.device)
+    pad[1:-1, 1:-1, 1:-1] = a3
+    out = torch.zeros_like(a3)
+    for ox, oy, oz in grid.offsets(a3.device).tolist():
+        if ox not in x_offsets:
+            continue
+        out += pad[1 + oz:1 + oz + nz, 1 + oy:1 + oy + ny,
+                   1 + ox:1 + ox + nx]
+    return out
+
+
+def stencil(grid, dest_cells, src_cells, x_offsets=(-1, 0, 1)):
+    """(candidates, reached source particles, reached cells) of the walk
+    of every dest over the source's cells at the stencil offsets whose x
+    offset is in ``x_offsets``."""
+    dcount = _grid3(grid, (dest_cells.end - dest_cells.start).long())
+    scount = _grid3(grid, (src_cells.end - src_cells.start).long())
+    candidates = int((dcount * _shift_sum(grid, scount, x_offsets)).sum())
+    # a source cell is reached when a non-empty dest cell lies at minus a
+    # stencil offset; the stencil is symmetric, so the same shifts do
+    reached = _shift_sum(grid, (dcount > 0).long(),
+                         tuple(-o for o in x_offsets)) > 0
+    return candidates, int(scount[reached].sum()), int(reached.sum())
+
+
+def support_pairs(grid, dest, dest_cells, src, src_cells, chunk=16384):
+    """Pairs in support, from the torch pair engine's pair lists."""
+    n = dest['x'].shape[0]
+    return sum(int(grid.neighbor_pairs(dest, dest_cells, src, src_cells,
+                                       (a, min(n, a + chunk)))[0].numel())
+               for a in range(0, n, chunk))
+
+
+def _dest_bytes(dest, write_mask, pre, props):
+    """Dest props, cell ids and write mask read, pre read and outputs
+    written, once each."""
+    x = dest['x']
+    n, es = x.shape[0], x.element_size()
+    wm = 0 if write_mask is None else n
+    return n * (es * (len(props) + 2 * len(pre)) + I32) + wm
+
+
+def _source_bytes(src, reached, cells_reached, props):
+    return reached * (src['x'].element_size() * len(props) + I32) + \
+        cells_reached * 2 * I32
+
+
+def wcsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Work of one ``wcsph_pair`` (or ``dense_pair``) call."""
+    terms = 0
+    work = dict(candidates=0, pairs=0, flops=0, bytes=0)
+    shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    for src, cells, ps in sources:
+        terms |= ps.terms
+        cand, reached, ncells = stencil(grid, dest_cells, cells)
+        pairs = support_pairs(grid, dest, dest_cells, src, cells)
+        per_pair = WCSPH_PAIR_FLOPS + shape + sum(
+            f for t, f in WCSPH_TERM_FLOPS.items() if ps.terms & t)
+        if ps.terms & (wp.MOM | wp.XSPH):
+            per_pair += WCSPH_RHO_FLOPS
+        work['candidates'] += cand
+        work['pairs'] += pairs
+        work['flops'] += cand * SUPPORT_FLOPS + pairs * per_pair
+        work['bytes'] += _source_bytes(src, reached, ncells,
+                                       wp._reads(ps.terms, with_mass=True))
+    work['bytes'] += _dest_bytes(dest, write_mask, pre,
+                                 wp._reads(terms, with_mass=False))
+    return work
+
+
+def gtvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Work of one ``gtvf_pair`` call."""
+    terms = 0
+    work = dict(candidates=0, pairs=0, flops=0, bytes=0)
+    for src, cells, gs in sources:
+        terms |= gs.terms
+        cand, reached, ncells = stencil(grid, dest_cells, cells)
+        pairs = support_pairs(grid, dest, dest_cells, src, cells)
+        per_pair = GTVF_PAIR_FLOPS + sum(
+            f for t, f in GTVF_TERM_FLOPS.items() if gs.terms & t)
+        work['candidates'] += cand
+        work['pairs'] += pairs
+        work['flops'] += cand * SUPPORT_FLOPS + pairs * per_pair
+        work['bytes'] += _source_bytes(src, reached, ncells,
+                                       gp._reads(gs.terms, 1))
+    work['bytes'] += _dest_bytes(dest, write_mask, pre, gp._reads(terms, 0))
+    return work
+
+
+def fused_work(state, cells, grid):
+    """Work of one ``fused_continuity_momentum`` call (one array against
+    itself, 9 props in, 4 sums out, no pre values or write mask)."""
+    x = state['x']
+    n, es = x.shape[0], x.element_size()
+    cand, _, ncells = stencil(grid, cells, cells)
+    pairs = support_pairs(grid, state, cells, state, cells)
+    return dict(candidates=cand, pairs=pairs,
+                flops=cand * FUSED_CANDIDATE_FLOPS + pairs * FUSED_PAIR_FLOPS,
+                bytes=n * (es * (9 + 4) + 2 * I32) + ncells * 2 * I32)
+
+
+def stub_work(mode, dest, dest_cells, write_mask, pre, sources, grid,
+              kernel):
+    """Work of one ``pair_stub`` call in ``mode``: the outputs written;
+    from ``dest`` on, the dest props ``wcsph_pair`` loads; from ``third``
+    on, the walk's loads and support tests over the cells at the stencil
+    x offsets of the mode."""
+    x = dest['x']
+    n, es = x.shape[0], x.element_size()
+    terms = 0
+    for _, _, ps in sources:
+        terms |= ps.terms
+    work = dict(candidates=0, pairs=0, flops=0, bytes=n * es * len(pre))
+    if mode == 'none':
+        return work
+    dprops = wp._reads(terms, with_mass=False)
+    work['bytes'] += n * es * (len(dprops) + int(bool(terms & wp.MOM)))
+    if mode == 'dest':
+        return work
+    work['bytes'] += n * I32     # cell ids
+    x_offsets = (-1, 0, 1) if mode == 'all' else (0,)
+    for src, cells, ps in sources:
+        cand, reached, ncells = stencil(grid, dest_cells, cells, x_offsets)
+        work['candidates'] += cand
+        work['flops'] += cand * SUPPORT_FLOPS
+        work['bytes'] += _source_bytes(src, reached, ncells,
+                                       wp._reads(ps.terms, with_mass=True))
+    return work
+
+
+def micro_launch_work(src, n_programs, n_views):
+    """Work of one ``micro_launch`` call: the first 8 lanes of every
+    distinct block its views reach, the outputs, one add per input."""
+    n_blocks, planes, tz, _ = src.shape
+    blocks = micro.launch_map(n_programs, n_views, n_blocks)
+    return dict(candidates=0, pairs=0,
+                flops=n_programs * n_views * planes * tz * micro.OUT_LANES,
+                bytes=(int(torch.unique(blocks).numel()) * planes +
+                       n_programs) * tz * micro.OUT_LANES * 4)
+
+
+def micro_engine_work(src, bi, bj, bz, inv, n_views=9, dyn_maps=True,
+                      md=32, nx=micro.NX, ny=micro.NY, n_zt=micro.N_ZT):
+    """Work of one ``micro_engine`` call (its arguments): plane 0 of every
+    distinct block that each source's views reach, the outputs, and under
+    ``dyn_maps`` the block coordinates and the distinct entries of
+    ``inv`` read; one add per input lane."""
+    n_src, tz, lanes = src.shape[0], src.shape[3], src.shape[4]
+    a_max = bi.shape[0]
+    blocks = micro.engine_blocks(bi, bj, bz, inv, src.shape[1] - 1,
+                                 n_views, dyn_maps, nx, ny, n_zt)
+    distinct = sum(int(torch.unique(b).numel()) for b in blocks)
+    maps = 0
+    if dyn_maps:
+        cells = micro.engine_cells(bi, bj, bz, n_views, nx, ny, n_zt)
+        maps = (3 * a_max + n_src * int(torch.unique(cells).numel())) * I32
+    return dict(candidates=0, pairs=0,
+                flops=n_src * a_max * n_views * tz * lanes,
+                bytes=(distinct * tz * lanes + a_max * micro.OUT_PLANES *
+                       tz * md) * 4 + maps)

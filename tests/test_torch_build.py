@@ -22,11 +22,15 @@ def test_sources_follow_the_includes(csrc):
         'wcsph_pair.cu', 'wcsph_terms.cuh']
     assert [p.name for p in build.sources('dense_pair')] == [
         'dense_pair.cu', 'wcsph_terms.cuh']
-    assert [p.name for p in build.sources('fused_pair')] == ['fused_pair.cu']
+    assert [p.name for p in build.sources('pair_stub')] == [
+        'pair_stub.cu', 'wcsph_terms.cuh']
+    for name in ('fused_pair', 'gtvf_pair', 'micro_launch', 'micro_engine'):
+        assert [p.name for p in build.sources(name)] == [name + '.cu']
 
 
 def test_header_edit_changes_the_key(csrc):
-    names = ('wcsph_pair', 'dense_pair', 'fused_pair', 'gtvf_pair')
+    names = ('wcsph_pair', 'dense_pair', 'pair_stub', 'fused_pair',
+             'gtvf_pair', 'micro_engine')
     before = {n: build.build_key(n) for n in names}
     assert before == {n: build.build_key(n) for n in names}
     header = csrc / 'wcsph_terms.cuh'
@@ -34,6 +38,8 @@ def test_header_edit_changes_the_key(csrc):
     after = {n: build.build_key(n) for n in names}
     assert after['wcsph_pair'] != before['wcsph_pair']
     assert after['dense_pair'] != before['dense_pair']
+    assert after['pair_stub'] != before['pair_stub']
+    assert after['micro_engine'] == before['micro_engine']
     assert after['fused_pair'] == before['fused_pair']
     assert after['gtvf_pair'] == before['gtvf_pair']
     # a nested include counts too

@@ -47,18 +47,23 @@ def test_dam_break_3d_three_steps_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in JAX or the
-    JAX package."""
+    """Every module of the port, its tools included, imports without
+    pulling in JAX, the JAX package or the root ``tools_dev``."""
     import pysph_tpu_torch
     names = [m.name for m in pkgutil.walk_packages(
         pysph_tpu_torch.__path__, 'pysph_tpu_torch.')]
     assert 'pysph_tpu_torch.examples.dam_break_3d' in names
+    for m in ('ops.micro', 'ops.pair_stub', 'tools_dev.micro_launch',
+              'tools_dev.micro_engine', 'tools_dev.prof_dma',
+              'tools_dev.prof_phases', 'tools_dev.roofline'):
+        assert 'pysph_tpu_torch.' + m in names
     code = ('import importlib, sys\n'
             'for m in %r:\n'
             '    importlib.import_module(m)\n'
             'bad = sorted(m for m in sys.modules if m == "jax" or '
             'm.startswith(("jax.", "jaxlib")) or m == "pysph_tpu" or '
-            'm.startswith("pysph_tpu."))\n'
+            'm.startswith("pysph_tpu.") or m == "tools_dev" or '
+            'm.startswith("tools_dev."))\n'
             'print(bad)\n' % names)
     out = subprocess.run([sys.executable, '-c', code], capture_output=True,
                          text=True, cwd=Path(__file__).resolve().parents[1],
