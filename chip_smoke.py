@@ -5,19 +5,23 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the seven CUDA kernels from ``pysph_tpu_torch/csrc`` with
-   nvcc, one process per source, in parallel, and print ``-Xptxas -v``;
+2. build the eight CUDA sources of ``pysph_tpu_torch/csrc`` (the seven
+   kernels and the source pack ``cell_pack``) with nvcc, one process per
+   source, in parallel, and print ``-Xptxas -v``;
 3. ``wcsph_pair`` against its plain torch version on the card, on the
    dam_break_3d state with a seeded velocity and density perturbation:
    dx=0.04 (24,672 particles) in float64 (scaled error <= 1e-10) and
    float32 (<= 1e-4 of max|ref|), and dx=0.02 (143,051 particles, the
    main path's shapes) in float32, where both are also timed (the kernel
-   eagerly and replayed from a CUDA graph) and the work is counted; then
-   10 steps of dam_break_3d at dx=0.04 in float64 on the kernel engine
-   against the torch engine (<= 1e-9 of max|ref|);
+   with its source pack, eagerly and replayed from a CUDA graph) and the
+   work is counted (candidates and ``visited``); the pack of each call
+   equal to its plain version, and timed; then 10 steps of dam_break_3d
+   at dx=0.04 in float64 on the kernel engine against the torch engine
+   (<= 1e-9 of max|ref|);
 4. the main path: ``pysph_tpu_torch.examples.dam_break_3d`` at dx=0.02
-   in float32 for ``STEPS`` steps, with the kernel's launches counted,
-   the median ms/step after warm-up, and a finite final state;
+   in float32 for ``STEPS`` steps, with the kernel's and the pack's
+   launches counted, the median ms/step after warm-up, and a finite
+   final state;
 5. ``gtvf_pair`` against its plain version on the GTVF dam break
    (``examples.dam_break_2d --scheme gtvf``) with a seeded perturbation,
    every phase set of both evaluators: dx=0.02 (7,603 particles) in
@@ -35,7 +39,11 @@ Phases (any failure propagates; the exit code is then not 0):
    particles) in float64 (scaled error <= 1e-10) and nx=200 (125,623,
    the path's shapes) in float32 (<= 1e-4); ``dense_pair`` also on
    dam_break_3d's calls at dx=0.04 in float64 and dx=0.02 in float32
-   (three sources, 3D); ``dense_pair``, ``wcsph_pair`` and the plain
+   (three sources, 3D); both kernels and the pack on the walk's edge
+   cases (``tools_dev/walk_cases.py``: a clamped cell longer than a
+   ``dense_pair`` stage, a 2D grid, four sources, write masks, an empty
+   dest array) in float64 and float32, and the bulk copy (``UBLKCP``) in
+   ``dense_pair``'s SASS; ``dense_pair``, ``wcsph_pair`` and the plain
    version timed on identical calls at nx=200 and at dx=0.02;
 8. ``fused_continuity_momentum`` (CubicSpline) against its plain version
    on the perturbed drop at nx=200 in float64 and float32, timed; then,
@@ -43,8 +51,9 @@ Phases (any failure propagates; the exit code is then not 0):
    Continuity + Momentum on the same state;
 9. the elliptical drop at nx=200 in float32 for ``STEPS`` steps under
    ``--engine kernel`` (``wcsph_pair``) and ``--engine dense``
-   (``dense_pair``): launches counted (1 + 2 x steps), every pair phase
-   on the engine, the median ms/step, and a finite final state;
+   (``dense_pair``): launches counted (1 + 2 x steps, and one pack a
+   launch), every pair phase on the engine, the median ms/step, and a
+   finite final state;
 10. the physics gate: the drop at nx=40 in float64 to tf=0.0076 under
     ``--engine dense``, dumping into a temporary directory under
     ``build/``: max |y| within 3% of the exact semi-major axis, and
@@ -99,99 +108,27 @@ from pysph_tpu_torch.ops.pair_engine import PairSource
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
+from pysph_tpu_torch.tools_dev import walk_cases
 from pysph_tpu_torch.tools_dev.common import events_ms, graph_ms
+from pysph_tpu_torch.tools_dev.time_walks import (
+    drop_calls, make_app, pair_calls, perturb, plan_calls)
 
 STEPS = 200
 WARMUP = 20
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 
-def _app(dx, dtype, steps=0, engine='kernel', cls=DamBreak3D, extra=()):
-    app = cls()
-    argv = ['--disable-output', '-q', '--device', 'cuda', '--engine',
-            engine, *extra]
-    if dx is not None:
-        argv += ['--dx', str(dx)]
-    if dtype == torch.float64:
-        argv.append('--use-double')
-    if steps:
-        argv += ['--max-steps', str(steps)]
-    app.setup(argv)
-    return app
-
-
-def _perturb(states, dtype, props, seed=12345):
-    rng = np.random.default_rng(seed)
-    for st in states.values():
-        n = st['x'].shape[0]
-        for p in props:
-            st[p] = torch.as_tensor(rng.normal(0.0, 0.5, n), dtype=dtype,
-                                    device='cuda')
-        st['rho'] = torch.as_tensor(1000.0 * (1.0 + 0.01 * rng.normal(
-            size=n)), dtype=dtype, device='cuda')
-
-
-def _plan_calls(s, evals):
-    """[(eval index, dest, plan, kernel arguments)] for every planned
-    pair phase of the solver's evaluators ``evals``, on its states."""
-    calls = []
-    for k in evals:
-        a_eval = s.acceleration_evals[k]
-        cells = a_eval.grid.bin_all(s.states)
-        for group in a_eval.groups:
-            for dest in a_eval._dest_order(group):
-                plan = a_eval._plans.get((id(group), dest))
-                if plan is None:
-                    continue
-                store = s.states[dest]
-                pre = {p: torch.zeros_like(store[p]) for p in plan.outputs}
-                srcs = [(s.states[ps.name], cells[ps.name], ps)
-                        for ps in plan.sources]
-                calls.append((k, dest, plan, (
-                    store, cells[dest], group.write_mask(store), pre, srcs,
-                    a_eval.grid, a_eval.kernel)))
-    return calls
-
-
-def _pair_calls(dx, dtype):
-    """(calls, particle count) for one eval of the perturbed dam break
-    at ``dx``."""
-    app = _app(dx, dtype)
-    s = app.solver
-    _perturb(s.states, dtype, 'uvw')
-    s.integrator.initial_acceleration(s.states, 0.0, s.dt)
-    n = sum(st['x'].shape[0] for st in s.states.values())
-    return _plan_calls(s, [0]), n
-
-
 def _gtvf_calls(dx, dtype):
     """(calls, particle count) for both evals of the perturbed GTVF dam
     break at ``dx``, after one pass of each eval has set the derived
     properties (wall ghost velocities, rho0, p0, ...)."""
-    app = _app(dx, dtype, cls=DamBreak2D, extra=('--scheme', 'gtvf'))
+    app = make_app(dx, dtype, cls=DamBreak2D, extra=('--scheme', 'gtvf'))
     s = app.solver
-    _perturb(s.states, dtype, ('u', 'v', 'uhat', 'vhat'))
+    perturb(s.states, dtype, ('u', 'v', 'uhat', 'vhat'))
     for a_eval in s.acceleration_evals:
         a_eval.compute(0.0, s.dt, s.states)
     n = sum(st['x'].shape[0] for st in s.states.values())
-    return _plan_calls(s, range(len(s.acceleration_evals))), n
-
-
-def _drop_calls(nx, dtype):
-    """(calls, particle count, app) for one eval of the elliptical drop
-    at ``nx`` with a seeded velocity and density perturbation."""
-    app = _app(None, dtype, cls=EllipticalDrop, extra=('--nx', str(nx)))
-    s = app.solver
-    st = s.states['fluid']
-    rng = np.random.default_rng(2024)
-    n = st['x'].shape[0]
-    for p in ('u', 'v'):
-        st[p] = st[p] + torch.as_tensor(rng.normal(0.0, 10.0, n),
-                                        dtype=dtype, device='cuda')
-    st['rho'] = torch.as_tensor(1.0 + 1e-3 * rng.normal(size=n),
-                                dtype=dtype, device='cuda')
-    s.integrator.initial_acceleration(s.states, 0.0, s.dt)
-    return _plan_calls(s, [0]), n, app
+    return plan_calls(s, range(len(s.acceleration_evals))), n
 
 
 def _compare(calls, dtype, label, op=None):
@@ -229,8 +166,8 @@ def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=()):
     must match exactly)."""
     runs = {}
     for engine in ('kernel', 'torch'):
-        app = _app(dx, torch.float64, steps=steps, engine=engine, cls=cls,
-                   extra=extra)
+        app = make_app(dx, torch.float64, steps=steps, engine=engine,
+                       cls=cls, extra=extra)
         app.solve()
         runs[engine] = app
     worst = 0.0
@@ -256,13 +193,14 @@ def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=()):
 
 
 def _drive(app, label, op, first, per_step, skip_finite=(),
-           engine='kernel'):
-    """Solve ``app`` for ``STEPS`` steps with ``op``'s launch count set
-    to 0 just before and read just after; check that the initial eval
-    launched ``first`` and each step ``per_step`` times, that every pair
-    phase of every evaluator was planned on ``engine``, and that the
+           engine='kernel', packed=False):
+    """Solve ``app`` for ``STEPS`` steps with ``op``'s launch count (and
+    with ``packed``, the source pack's) set to 0 just before and read
+    just after; check that the initial eval launched ``first`` and each
+    step ``per_step`` times (the pack as often as ``op``), that every
+    pair phase of every evaluator was planned on ``engine``, and that the
     final state is finite (``skip_finite`` aside).  Returns (launches,
-    particle count, median ms/step)."""
+    pack launches, particle count, median ms/step)."""
     counts = {pa.name: pa.get_number_of_particles() for pa in app.particles}
     n = sum(counts.values())
     print('%s: %s, %d particles' % (label, counts, n))
@@ -276,10 +214,10 @@ def _drive(app, label, op, first, per_step, skip_finite=(),
             at_first_step.append(op.launches)
 
     app.solver.add_pre_step_callback(pre_step)
-    op.launches = 0
+    op.launches = wp.pack_sources.launches = 0
     app.solve()
     torch.cuda.synchronize()
-    launches = op.launches
+    launches, packs = op.launches, wp.pack_sources.launches
     step_launches = launches - at_first_step[0]
     for k, a_eval in enumerate(app.solver.acceleration_evals):
         print('eval %d engine_choices: %s' % (k, a_eval.engine_choices))
@@ -294,6 +232,11 @@ def _drive(app, label, op, first, per_step, skip_finite=(),
             step_launches != per_step * STEPS:
         raise AssertionError('%s did not run every pair phase through the '
                              'kernel' % label)
+    if packs != (launches if packed else 0):
+        raise AssertionError('%s: %d pack launches for %d kernel launches'
+                             % (label, packs, launches))
+    if packed:
+        print('pack_sources launches: %d, one a kernel launch' % packs)
     for name, st in app.solver.states.items():
         for p, v in st.items():
             if p in skip_finite or not v.is_floating_point():
@@ -307,7 +250,7 @@ def _drive(app, label, op, first, per_step, skip_finite=(),
           '%.4g particle-steps/s; t=%.6g dt=%.6g' % (
               label, med, ms.min(), ms.max(), WARMUP + 1, STEPS,
               n / med * 1e3, app.solver.t, app.solver.dt), flush=True)
-    return launches, n, med
+    return launches, packs, n, med
 
 
 def _fused_check(nx, dtype):
@@ -317,7 +260,7 @@ def _fused_check(nx, dtype):
     against ``wcsph_pair``'s Continuity + Momentum on the same state
     (pre = 0).  Returns (launches, max abs err, and in float32 the
     times and work)."""
-    calls, n, app = _drop_calls(nx, dtype)
+    calls, n, app = drop_calls(nx, dtype)
     del calls
     st = app.solver.states['fluid']
     grid = CellGrid.from_particles(app.particles, dim=2, radius_scale=2.0)
@@ -525,8 +468,8 @@ def _micro_engine_phase():
                   graph_ms=row['graph_ms'])
 
 
-def _sass_loads(lib):
-    """{stub mode: global loads (LDG) in the float kernel's SASS}."""
+def _sass_counts(lib, opcode):
+    """{kernel function: SASS lines holding ``opcode``} of a library."""
     cuobjdump = Path(build.nvcc()).with_name('cuobjdump')
     sass = subprocess.run([str(cuobjdump), '-sass', str(lib)],
                           capture_output=True, text=True, check=True,
@@ -536,11 +479,56 @@ def _sass_loads(lib):
         if 'Function :' in line:
             name = line.split(':', 1)[1].strip()
             counts[name] = 0
-        elif name is not None and 'LDG' in line:
+        elif name is not None and opcode in line:
             counts[name] += 1
+    return counts
+
+
+def _sass_loads(lib):
+    """{stub mode: global loads (LDG) in the float kernel's SASS}."""
+    counts = _sass_counts(lib, 'LDG')
     return {mode: next(v for k, v in counts.items()
                        if 'pair_stub_kernelIfLi%dE' % k_mode in k)
             for k_mode, mode in enumerate(stub.MODES)}
+
+
+def _check_pack(sources, label):
+    """The pack kernel against its plain version: exactly equal."""
+    for k, (got, ref) in enumerate(zip(wp.pack_sources(sources),
+                                       wp.pack_sources_reference(sources))):
+        if got.shape != ref.shape or not torch.equal(got, ref):
+            raise AssertionError('%s: the packed copy of source %d differs '
+                                 'from its plain version' % (label, k))
+
+
+def _walk_cases(dense_lib):
+    """``wcsph_pair``, ``dense_pair`` and the pack against their plain
+    versions on the walk's edge cases (``tools_dev/walk_cases.py``: a
+    clamped cell longer than a stage, a 2D grid, four sources, write
+    masks, an empty dest array) in float64 and float32; then the bulk
+    copy in ``dense_pair``'s SASS."""
+    worst = 0.0
+    for dtype in (torch.float64, torch.float32):
+        for case in walk_cases.CASES:
+            args = walk_cases.make_case(case, 'cuda', dtype, seed=31)
+            _check_pack(args[4], 'walk case ' + case)
+            for op in (wp.wcsph_pair, dp.dense_pair):
+                try:
+                    worst = max(worst, walk_cases.check_kernel(
+                        op, args, TOL[dtype]))
+                except AssertionError as e:
+                    raise AssertionError('walk case %s %s: %s'
+                                         % (case, str(dtype)[6:], e)) from e
+    print('compare wcsph_pair, dense_pair on the walk cases %s, float64 and '
+          'float32: max scaled err %.3g (tol 1e-10, 1e-04); the pack exact'
+          % (walk_cases.CASES, worst), flush=True)
+    copies = {k: v for k, v in _sass_counts(dense_lib, 'UBLKCP').items()
+              if 'dense_pair_kernel' in k}
+    print('dense_pair SASS bulk copies (UBLKCP) by kernel: %s'
+          % sorted(copies.values()))
+    if not copies or min(copies.values()) == 0:
+        raise AssertionError('dense_pair compiled without the bulk copy: %s'
+                             % copies)
 
 
 def _pair_stub_phase(lib):
@@ -548,7 +536,7 @@ def _pair_stub_phase(lib):
     zeros (pre set to 7), global loads in the SASS of every mode but
     ``none``, each mode timed; then the prof tools' run with the
     launches counted."""
-    calls, n = _pair_calls(0.02, torch.float32)
+    calls, n = pair_calls(0.02, torch.float32)
     calls = [c[:3] + (c[3][:3] + ({p: torch.full_like(v, 7.0) for p, v in
                                    c[3][3].items()},) + c[3][4:],)
              for c in calls]
@@ -583,8 +571,6 @@ def _pair_stub_phase(lib):
                                                  times['none']))
     plain_ms = events_ms(lambda: [stub.pair_stub_reference(*c[3])
                                   for c in calls], 20)
-    size = sum(v.numel() for c in calls for v in c[3][3].values())
-    library_ms = events_ms(lambda: torch.zeros(size, device='cuda'), 20)
     work = _calls_work(calls, functools.partial(roofline.stub_work, 'all'))
     del calls
 
@@ -598,7 +584,7 @@ def _pair_stub_phase(lib):
     print('pair_stub launches in the prof_dma and prof_phases runs: %d'
           % launches, flush=True)
     return _entry('pair_stub', 'tools_dev/prof_dma.py:105', launches, 0.0,
-                  times['all'], plain_ms, work, library_ms,
+                  times['all'], plain_ms, work, None,
                   also_replaces='tools_dev/prof_phases.py:86', mode='all',
                   mode_ms=times)
 
@@ -618,7 +604,7 @@ def main():
 
     t0 = time.perf_counter()
     names = ('wcsph_pair', 'gtvf_pair', 'dense_pair', 'fused_pair',
-             'micro_launch', 'micro_engine', 'pair_stub')
+             'micro_launch', 'micro_engine', 'pair_stub', 'cell_pack')
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     print('built %s in %.1f s' % ([lib.name for lib in libs.values()],
@@ -629,10 +615,10 @@ def main():
 
     # wcsph_pair against its plain version
     for dx, dtype in ((0.04, torch.float64), (0.04, torch.float32)):
-        calls, n = _pair_calls(dx, dtype)
+        calls, n = pair_calls(dx, dtype)
         _compare(calls, dtype, 'wcsph_pair dx=%g %s (%d particles)'
                  % (dx, str(dtype)[6:], n))
-    calls, n = _pair_calls(0.02, torch.float32)
+    calls, n = pair_calls(0.02, torch.float32)
     wcsph_err = _compare(calls, torch.float32, 'wcsph_pair dx=0.02 float32 '
                          '(%d particles)' % n)
     wcsph_eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
@@ -640,17 +626,33 @@ def main():
     wcsph_plain_ms = events_ms(
         lambda: [c[2].reference(*c[3]) for c in calls], 3)
     wcsph_work = _calls_work(calls, roofline.wcsph_work)
-    print('wcsph_pair, pair phases of one eval at dx=0.02 float32: kernel '
-          '%.3f ms eager, %.3f ms in a graph, plain torch %.3f ms'
-          % (wcsph_eager, wcsph_ms, wcsph_plain_ms), flush=True)
+    print('wcsph_pair, pair phases of one eval at dx=0.02 float32 (the pack '
+          'included): kernel %.3f ms eager, %.3f ms in a graph, plain torch '
+          '%.3f ms; %d candidates, %d visited' % (
+              wcsph_eager, wcsph_ms, wcsph_plain_ms,
+              wcsph_work['candidates'], wcsph_work['visited']), flush=True)
+    # the source pack of each call: exact, and timed alone
+    for _, dest, _, args in calls:
+        _check_pack(args[4], 'dam_break_3d dx=0.02 ' + dest)
+    pack_ms = graph_ms(lambda: [wp.pack_sources(c[3][4]) for c in calls], 20)
+    pack_eager = events_ms(
+        lambda: [wp.pack_sources(c[3][4]) for c in calls], 20)
+    pack_plain_ms = events_ms(
+        lambda: [wp.pack_sources_reference(c[3][4]) for c in calls], 20)
+    pack_work = roofline.add(*[roofline.pack_work(c[3][4]) for c in calls])
+    print('pack_sources, the 3 calls of one eval at dx=0.02 float32: exact; '
+          '%.4f ms in a graph, %.4f eager, plain torch %.4f ms; %d B'
+          % (pack_ms, pack_eager, pack_plain_ms, pack_work['bytes']),
+          flush=True)
     del calls
     _engines_agree('dam_break_3d', 0.04, 10,
                    ('x', 'y', 'z', 'u', 'v', 'w', 'rho', 'p'))
 
     # the main path
-    app = _app(0.02, torch.float32, steps=STEPS)
-    wcsph_launches, n, path_ms = _drive(app, 'dam_break_3d dx=0.02 float32',
-                                        wp.wcsph_pair, 3, 6)
+    app = make_app(0.02, torch.float32, steps=STEPS)
+    wcsph_launches, pack_launches, n, path_ms = _drive(
+        app, 'dam_break_3d dx=0.02 float32', wp.wcsph_pair, 3, 6,
+        packed=True)
     if n != 143051:
         raise AssertionError('dam_break_3d at dx=0.02 has %d particles, '
                              'not 143,051' % n)
@@ -659,6 +661,14 @@ def main():
         'wcsph_pair', 'pysph_tpu/ops/resident.py:645', wcsph_launches,
         wcsph_err, wcsph_ms, wcsph_plain_ms, wcsph_work, None,
         eager_ms=wcsph_eager, path='dam_break_3d dx=0.02, one eval')
+    kernels['cell_pack'] = dict(_entry(
+        'cell_pack', 'pysph_tpu/ops/resident.py:331', pack_launches, 0.0,
+        pack_ms, pack_plain_ms, pack_work, None, eager_ms=pack_eager,
+        path='dam_break_3d dx=0.02, the 3 calls of one eval'),
+        source='pysph_tpu_torch/csrc/cell_pack.cuh',
+        note='the source pack, launched by the walks\' launch functions; '
+        'its JAX counterpart, build_pack, is an XLA gather, not a '
+        'pallas_call')
 
     # gtvf_pair against its plain version
     for dx, dtype in ((0.02, torch.float64), (0.02, torch.float32)):
@@ -689,9 +699,9 @@ def main():
                    extra=('--scheme', 'gtvf'))
 
     # the GTVF path: 2 launches in the initial eval (eval 0), 5 a step
-    app = _app(0.004, torch.float32, steps=STEPS, cls=DamBreak2D,
-               extra=('--scheme', 'gtvf'))
-    gtvf_launches, n, gtvf_path_ms = _drive(
+    app = make_app(0.004, torch.float32, steps=STEPS, cls=DamBreak2D,
+                   extra=('--scheme', 'gtvf'))
+    gtvf_launches, _, n, gtvf_path_ms = _drive(
         app, 'GTVF dam_break_2d dx=0.004 float32', gp.gtvf_pair, 2, 5,
         skip_finite=('rhodiv',))
     rhodiv = app.solver.states['fluid']['rhodiv']
@@ -710,17 +720,18 @@ def main():
     # the perturbed drop; dense_pair also on dam_break_3d's calls
     timed = {}     # the float32 calls at the paths' shapes
     for nx, dtype in ((40, torch.float64), (200, torch.float32)):
-        calls, n, _ = _drop_calls(nx, dtype)
+        calls, n, _ = drop_calls(nx, dtype)
         label = 'nx=%d %s (%d particles)' % (nx, str(dtype)[6:], n)
         _compare(calls, dtype, 'wcsph_pair Gaussian drop ' + label)
         dense_err = _compare(calls, dtype, 'dense_pair drop ' + label,
                              dp.dense_pair)
     timed['drop nx=200'] = calls
     for dx, dtype in ((0.04, torch.float64), (0.02, torch.float32)):
-        calls, n = _pair_calls(dx, dtype)
+        calls, n = pair_calls(dx, dtype)
         _compare(calls, dtype, 'dense_pair dam_break_3d dx=%g %s (%d '
                  'particles)' % (dx, str(dtype)[6:], n), dp.dense_pair)
     timed['dam_break_3d dx=0.02'] = calls
+    _walk_cases(libs['dense_pair'])
     times = {}
     for label, calls in timed.items():
         times[label] = t = {}
@@ -733,13 +744,16 @@ def main():
                 t[name + ' graph'] = graph_ms(
                     lambda: [op(*c[3]) for c in calls], 20)
         t['work'] = _calls_work(calls, roofline.wcsph_work)
-        print('pair phases of one eval, %s float32 (%d launches): '
-              'dense_pair %.3f ms eager, %.3f in a graph; wcsph_pair %.3f '
-              'ms eager, %.3f in a graph; plain torch %.3f ms; bound %.4f '
-              'ms (%s)' % ((label, len(calls), t['dense_pair'],
-                            t['dense_pair graph'], t['wcsph_pair'],
-                            t['wcsph_pair graph'], t['plain']) +
-                           roofline.bound(t['work'])), flush=True)
+        print('pair phases of one eval, %s float32 (%d launches, the pack '
+              'included): dense_pair %.3f ms eager, %.3f in a graph; '
+              'wcsph_pair %.3f ms eager, %.3f in a graph; plain torch %.3f '
+              'ms; bound %.4f ms (%s); %d candidates, %d visited (both '
+              'walks)' % (
+                  (label, len(calls), t['dense_pair'], t['dense_pair graph'],
+                   t['wcsph_pair'], t['wcsph_pair graph'], t['plain']) +
+                  roofline.bound(t['work']) +
+                  (t['work']['candidates'], t['work']['visited'])),
+              flush=True)
     del timed, calls
 
     # fused_continuity_momentum on the drop's state
@@ -755,11 +769,11 @@ def main():
     # the elliptical drop on both engines
     steps_ms = {}
     for engine, op in (('kernel', wp.wcsph_pair), ('dense', dp.dense_pair)):
-        app = _app(None, torch.float32, steps=STEPS, engine=engine,
-                   cls=EllipticalDrop, extra=('--nx', '200'))
-        launches, n, steps_ms[engine] = _drive(
+        app = make_app(None, torch.float32, steps=STEPS, engine=engine,
+                       cls=EllipticalDrop, extra=('--nx', '200'))
+        launches, _, n, steps_ms[engine] = _drive(
             app, 'elliptical_drop nx=200 float32 --engine %s' % engine, op,
-            1, 2, engine=engine)
+            1, 2, engine=engine, packed=True)
         if n != 125623:
             raise AssertionError('the drop at nx=200 has %d particles, not '
                                  '125,623' % n)
@@ -771,8 +785,9 @@ def main():
     drop = times['drop nx=200']
     kernels['dense_pair'] = _entry(
         'dense_pair', 'pysph_tpu/ops/pallas_engine.py:574', dense_launches,
-        dense_err, drop['dense_pair graph'], drop['plain'], drop['work'],
-        None, eager_ms=drop['dense_pair'], path='drop nx=200, one eval')
+        dense_err, drop['dense_pair graph'], drop['plain'],
+        drop['work'], None, eager_ms=drop['dense_pair'],
+        path='drop nx=200, one eval')
 
     _physics_gate()
 
@@ -784,15 +799,16 @@ def main():
     print('ms/step in this run: dam_break_3d dx=0.02 %.3f, GTVF dx=0.004 '
           '%.3f, drop nx=200 kernel %.3f, dense %.3f' % (
               path_ms, gtvf_path_ms, steps_ms['kernel'], steps_ms['dense']))
-    print('%-12s %8s %12s %12s %12s %12s %10s %10s %8s' % (
-        'kernel', 'launches', 'candidates', 'pairs', 'flops', 'bytes',
-        'bound ms', 'ms', 'share'))
+    print('%-12s %8s %12s %12s %12s %12s %12s %10s %10s %8s' % (
+        'kernel', 'launches', 'candidates', 'visited', 'pairs', 'flops',
+        'bytes', 'bound ms', 'ms', 'share'))
     for e in kernels.values():
         w = e['work']
-        print('%-12s %8d %12d %12d %12d %12d %10.4f %10.4f %7.1f%% (%s)' % (
-            e['name'], e['launches'], w['candidates'], w['pairs'],
-            w['flops'], w['bytes'], e['bound_ms'], e['ms'],
-            100 * e['bound_ms'] / e['ms'], e['bound_by']))
+        print('%-12s %8d %12d %12s %12d %12d %12d %10.4f %10.4f %7.1f%% (%s)'
+              % (e['name'], e['launches'], w['candidates'],
+                 w.get('visited', '-'), w['pairs'], w['flops'], w['bytes'],
+                 e['bound_ms'], e['ms'], 100 * e['bound_ms'] / e['ms'],
+                 e['bound_by']))
     print(json.dumps({'kernels': list(kernels.values())}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

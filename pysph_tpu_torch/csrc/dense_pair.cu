@@ -1,4 +1,5 @@
-// Cell-blocked WCSPH pair kernel for Hopper (sm_90a).
+// Cell-tiled WCSPH pair kernel for Hopper (sm_90a): tiles of dest cells,
+// with the neighbour rows of the packed sources staged by bulk copies.
 //
 // Replaces pysph_tpu/ops/pallas_engine.py::_pair_kernel (the dense-slot
 // Pallas engine, PYSPH_TPU_RESIDENT=0 PYSPH_TPU_COMPACT=0) for the WCSPH
@@ -8,152 +9,312 @@
 // arguments and same per-pair body (wcsph_terms.cuh) as
 // csrc/wcsph_pair.cu; only the walk differs.
 //
-// The TPU kernel gives one program to each active cell block, runs the
-// 9 neighbour views and every fused source inside it, accumulates in
-// VMEM scratch and writes each output once.  The GPU form of that:
+// The TPU kernel gives one program to each active cell block, stages its
+// 9 neighbour views of every fused source into VMEM by DMA, accumulates
+// in VMEM scratch and writes each output once.  The GPU form of that:
 //
-// - one thread block per dest cell; the cell's dest particles, taken
-//   through the dest's sorted order[start:end), a tile of kThreads at a
-//   time, one thread each;
-// - for each source and each of the 3^dim neighbour cells, the block
-//   stages the source particles' props into shared memory, a chunk of
-//   kThreads at a time (so a cell of any occupancy fits, including the
-//   fat edge cells into which CellGrid clamps particles that left the
-//   initial extent), with __syncthreads() between chunks; every dest
-//   thread of the tile then walks the chunk;
-// - each dest accumulates in registers over every source and writes
-//   pre + sum (max(pre, m) for dt_cfl) once, under the write mask.  No
+// - one thread block per tile of kTileCells x-adjacent dest cells of one
+//   (y, z) row.  The tile's dests are one contiguous range of the dest's
+//   sorted order, taken kDests at a time, one consumer thread each (a
+//   tile holds ~120-145 dests at 15-18 a cell; a clamped edge cell only
+//   adds passes);
+// - for each source and each stencil row, the particles of the tile's
+//   cells x0 - 1 .. x1 + 1 are one contiguous span of the packed copy
+//   (csrc/cell_pack.cuh, launched by this file's launch function just
+//   before the walk).  A producer warp copies the span's
+//   {x, y, z, h} records, which every candidate's support test reads,
+//   into a ring of kStages shared-memory stages with the bulk copy
+//   (cp.async.bulk, completing on the stage's `full` mbarrier), in chunks
+//   of at most kStageRecords records, so a clamped edge cell of any size
+//   fits.  It refills a stage once the kConsumerWarps consumer warps have
+//   each arrived on the stage's `empty` mbarrier, so the copies of the
+//   next chunks run while the consumers walk, and a consumer warp waits
+//   for no other warp, only for its data;
+// - each consumer thread tests only the part of the chunk that holds its
+//   own cells cx - 1 .. cx + 1, so it tests the candidates of the plain
+//   stencil walk, in its order; the walker of csrc/cell_walk.cuh keeps
+//   those in support and hands them to the pair body in rounds, which
+//   read the {u, v, w, m} and {rho, p, cs} records of the pairs in
+//   support from the packed copy in global memory (L2), so a pair may
+//   wait in the walker after its chunk's stage is reused;
+// - each dest accumulates in registers over every source and writes pre
+//   + sum (max(pre, m) for dt_cfl) once, under the write mask.  No
 //   atomics: runs repeat exactly.
 //
-// What bounds it: wcsph_pair.cu gathers each candidate's 8-11 values
-// once per dest that sees it (27 cells x ~18 particles in 3D); here a
-// block loads them once per dest tile, coalesced through the sorted
-// order, and the walk reads shared memory.  The cost is occupancy: at
-// ~15 particles a cell (the 2D elliptical drop at nx=200) most of the 64
-// threads of a block idle during the walk, and every block of an empty
-// cell starts and stops.  kThreads = 64 (two warps) keeps 32 resident
-// blocks an SM at full thread occupancy; tuning it, or packing several
-// cells into a block, is later work.
+// What bounds it: the same candidates and pair body as wcsph_pair.cu.
+// Here every candidate's record reaches the SM once per tile instead of
+// once per warp that tests it, and the tests read shared memory.
 //
-// Interface: plain C through ctypes (ops/dense_pair.py), as wcsph_pair.
+// Interface: plain C through ctypes (ops/dense_pair.py), as wcsph_pair:
+// the launch function launches the pack of a.pack, then the walk.
 
-#include "wcsph_terms.cuh"
+#include "cell_walk.cuh"
 
 namespace {
 
+using wcsph::Cand;
 using wcsph::Dest;
+using wcsph::Rec;
 
-constexpr int kThreads = 64;
-// shared-memory planes of a staged chunk
-enum { kX, kY, kZ, kU, kV, kW, kH, kM, kRho, kP, kCs, kPlanes };
-
-// A chunk of source particles in shared memory, read by position.
-template <typename T>
-struct SharedSrc {
-  const T* sm;
-  __device__ T x(int k) const { return sm[kX * kThreads + k]; }
-  __device__ T y(int k) const { return sm[kY * kThreads + k]; }
-  __device__ T z(int k) const { return sm[kZ * kThreads + k]; }
-  __device__ T u(int k) const { return sm[kU * kThreads + k]; }
-  __device__ T v(int k) const { return sm[kV * kThreads + k]; }
-  __device__ T w(int k) const { return sm[kW * kThreads + k]; }
-  __device__ T h(int k) const { return sm[kH * kThreads + k]; }
-  __device__ T m(int k) const { return sm[kM * kThreads + k]; }
-  __device__ T rho(int k) const { return sm[kRho * kThreads + k]; }
-  __device__ T p(int k) const { return sm[kP * kThreads + k]; }
-  __device__ T cs(int k) const { return sm[kCs * kThreads + k]; }
-};
+constexpr int kConsumerWarps = 4;
+constexpr int kDests = 32 * kConsumerWarps;  // dests of a pass
+constexpr int kThreads = kDests + 32;        // and the producer warp
+constexpr int kTileCells = 8;
+constexpr int kStages = 4;
+constexpr int kStageRecords = 512;
 
 template <typename T>
-__device__ __forceinline__ void stage(T* sm, int plane, const void* src,
-                                      int j) {
-  sm[plane * kThreads + threadIdx.x] = wcsph::ld<T>(src, j);
+__host__ __device__ constexpr int stage_bytes() {
+  return kStageRecords * 4 * static_cast<int>(sizeof(T));
 }
 
-template <typename T, int KIND>
-__global__ void __launch_bounds__(kThreads)
-    dense_pair_kernel(const WcsphArgs a) {
-  __shared__ T sm[kPlanes * kThreads];
-  const SharedSrc<T> chunk{sm};
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int c = blockIdx.x;
-  const int dstart = a.dcell_start[c], dend = a.dcell_end[c];
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   shared_addr(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   shared_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          shared_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(shared_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst (both 16-byte
+// aligned), completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(shared_addr(bar))
+      : "memory");
+}
+
+// Record k of a staged plane.
+__device__ __forceinline__ Rec<float> srec(const float* plane, int k) {
+  const float4 v = reinterpret_cast<const float4*>(plane)[k];
+  return {v.x, v.y, v.z, v.w};
+}
+__device__ __forceinline__ Rec<double> srec(const double* plane, int k) {
+  const double2* q = reinterpret_cast<const double2*>(plane) + 2 * k;
+  const double2 lo = q[0], hi = q[1];
+  return {lo.x, lo.y, hi.x, hi.y};
+}
+
+// The staged chunks of one tile, in the order the block walks them: for
+// each source, each stencil row (oz, oy) inside the grid whose span of
+// the cells x0 - 1 .. x1 + 1 is not empty, chunks of at most
+// kStageRecords records from the span's start.
+struct Chunks {
+  int x0, x1, y, z;  // the tile
+  int s, r;          // source, stencil row (r = (oz + rz) * ny3 + oy + ry)
+  int kc, k1;        // the chunk's first position, the span's end
+  bool done;
+
+  __device__ int ny3(const WcsphArgs& a) const { return a.ny > 1 ? 3 : 1; }
+  __device__ int row_y(const WcsphArgs& a) const {
+    return y + r % ny3(a) - (a.ny > 1);
+  }
+  __device__ int row_z(const WcsphArgs& a) const {
+    return z + r / ny3(a) - (a.nz > 1);
+  }
+  __device__ int count() const { return min(kStageRecords, k1 - kc); }
+
+  __device__ void begin(const WcsphArgs& a, int tx0, int tx1, int ty,
+                        int tz) {
+    x0 = tx0;
+    x1 = tx1;
+    y = ty;
+    z = tz;
+    s = 0;
+    r = -1;
+    kc = k1 = 0;
+    done = a.n_src == 0;
+    if (!done) next_row(a);
+  }
+
+  __device__ void next_row(const WcsphArgs& a) {
+    const int rows = ny3(a) * (a.nz > 1 ? 3 : 1);
+    for (;;) {
+      if (++r == rows) {
+        r = 0;
+        if (++s == a.n_src) {
+          done = true;
+          return;
+        }
+      }
+      const walk::Span sp =
+          walk::row_span(a, a.src[s], x0 - 1, x1 + 1, row_y(a), row_z(a));
+      if (sp.k0 < sp.k1) {
+        kc = sp.k0;
+        k1 = sp.k1;
+        return;
+      }
+    }
+  }
+
+  __device__ void next(const WcsphArgs& a) {
+    kc += kStageRecords;
+    if (kc >= k1) next_row(a);
+  }
+};
+
+// The producer: copy the {x, y, z, h} records of chunk c into `stage`,
+// completing on bar.
+template <typename T>
+__device__ void issue(const WcsphArgs& a, const Chunks& c,
+                      unsigned char* stage, uint64_t* bar) {
+  const uint32_t bytes = c.count() * 4 * sizeof(T);
+  const T* from = static_cast<const T*>(a.src[c.s].pos) +
+                  static_cast<size_t>(c.kc) * 4;
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(stage, from, bytes, bar);
+}
+
+// 5 blocks an SM in float (72 registers a thread)
+template <typename T, int KIND>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
+    dense_pair_kernel(const WcsphArgs a) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  // full: the stage's copy landed; empty: every consumer warp walked it
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+
+  const int tiles = (a.nx + kTileCells - 1) / kTileCells;
+  const int row = blockIdx.x / tiles;
+  const int x0 = (blockIdx.x % tiles) * kTileCells;
+  const int x1 = min(x0 + kTileCells, a.nx) - 1;
+  const int y = row % a.ny, z = row / a.ny;
+  const int dstart = a.dcell_start[x0 + a.nx * row];
+  const int dend = a.dcell_end[x1 + a.nx * row];
   if (dstart >= dend) return;  // the same for every thread of the block
 
-  const int cx = c % a.nx, cy = (c / a.nx) % a.ny, cz = c / (a.nx * a.ny);
-  const int rx = a.nx > 1, ry = a.ny > 1, rz = a.nz > 1;
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < kStages; ++q) {
+      mbar_init(&full[q], 1);
+      mbar_init(&empty[q], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int sb = stage_bytes<T>();
+
+  // chunk u of the block (counted over every pass) sits in stage
+  // u % kStages, in that stage's (u / kStages)-th phase
+  if (threadIdx.x >= kDests) {  // the producer warp
+    if (threadIdx.x == kDests) {
+      unsigned u = 0;
+      for (int base = dstart; base < dend; base += kDests) {
+        Chunks c;
+        for (c.begin(a, x0, x1, y, z); !c.done; c.next(a), ++u) {
+          const int st = u % kStages;
+          if (u >= kStages) mbar_wait(&empty[st], (u / kStages - 1) & 1);
+          issue<T>(a, c, ring + st * sb, &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
   const int dterms = wcsph::dest_terms(a);
   const T rs = T(a.radius_scale), kfac = T(a.kfac);
-
-  for (int base = dstart; base < dend; base += kThreads) {
+  unsigned used = 0;
+  for (int base = dstart; base < dend; base += kDests) {
     const int pos = base + threadIdx.x;
     const bool active = pos < dend;
     const int i = active ? a.dorder[pos] : 0;
-    Dest<T> d;
+    const int cx = active ? a.cell[i] % a.nx : x0;
+    Dest<T> d{};
     if (active) d.load(a, i, dterms);
 
+    Chunks c;
+    c.begin(a, x0, x1, y, z);
+    walk::Walker<T> walker;
+    walker.begin();
     for (int s = 0; s < a.n_src; ++s) {
       const SrcArgs& S = a.src[s];
       const int terms = S.terms;
-      const bool rho = terms & (kMom | kXsph), mom = terms & kMom;
+      const bool thermo = terms & (kMom | kXsph);
       const T c0 = T(S.c0), alpha = T(S.alpha), beta = T(S.beta);
       const T xeps = T(S.xsph_eps);
-      for (int oz = -rz; oz <= rz; ++oz) {
-        const int z = cz + oz;
-        if (z < 0 || z >= a.nz) continue;
-        for (int oy = -ry; oy <= ry; ++oy) {
-          const int y = cy + oy;
-          if (y < 0 || y >= a.ny) continue;
-          for (int ox = -rx; ox <= rx; ++ox) {
-            const int x = cx + ox;
-            if (x < 0 || x >= a.nx) continue;
-            const int nc = x + a.nx * (y + a.ny * z);
-            const int kend = S.cell_end[nc];
-            for (int k0 = S.cell_start[nc]; k0 < kend; k0 += kThreads) {
-              const int cnt = min(kThreads, kend - k0);
-              __syncthreads();  // the last chunk's readers are done
-              if (threadIdx.x < cnt) {
-                const int j = S.order[k0 + threadIdx.x];
-                stage<T>(sm, kX, S.x, j);
-                stage<T>(sm, kY, S.y, j);
-                stage<T>(sm, kZ, S.z, j);
-                stage<T>(sm, kU, S.u, j);
-                stage<T>(sm, kV, S.v, j);
-                stage<T>(sm, kW, S.w, j);
-                stage<T>(sm, kH, S.h, j);
-                stage<T>(sm, kM, S.m, j);
-                if (rho) stage<T>(sm, kRho, S.rho, j);
-                if (mom) {
-                  stage<T>(sm, kP, S.p, j);
-                  stage<T>(sm, kCs, S.cs, j);
-                }
-              }
-              __syncthreads();
-              if (active)
-                for (int k = 0; k < cnt; ++k)
-                  d.template pair<KIND>(chunk, k, terms, c0, alpha, beta,
-                                        xeps, rs, kfac, a.dim);
-            }
-          }
-        }
+      auto body = [&](int k) {
+        Cand<T> cand;
+        cand.pos = wcsph::rec<T>(S.pos, k);
+        cand.vel = wcsph::rec<T>(S.vel, k);
+        cand.th = thermo ? wcsph::rec<T>(S.thermo, k) : Rec<T>{};
+        d.template pair<KIND>(cand, k, terms, c0, alpha, beta, xeps, rs,
+                              kfac, a.dim);
+      };
+      for (; !c.done && c.s == s; c.next(a), ++used) {
+        const int st = used % kStages;
+        mbar_wait(&full[st], (used / kStages) & 1);
+        const T* staged = reinterpret_cast<const T*>(ring + st * sb);
+        const int kc = c.kc;
+        // this thread's own cells cx - 1 .. cx + 1 of the row, in the chunk
+        walk::Span own{0, 0};
+        if (active)
+          own = walk::row_span(a, S, cx - 1, cx + 1, c.row_y(a), c.row_z(a));
+        const int lo = max(own.k0, kc), hi = min(own.k1, kc + c.count());
+        auto staged_pos = [&](int k) { return srec(staged, k - kc); };
+        walker.walk(lo, hi - lo, d, rs, staged_pos, body);
+        // the warp's reads of the stage come before the producer's refill
+        __syncwarp();
+        if (threadIdx.x % 32 == 0) mbar_arrive(&empty[st]);
       }
+      walker.finish(body);
     }
     if (active) d.store(a, i);
   }
 }
 
+template <typename T, int KIND>
+cudaError_t launch_kind(const WcsphArgs& a, int blocks, cudaStream_t stream) {
+  // above 48 KB (float64) a kernel must ask for its dynamic shared memory
+  constexpr int ring = kStages * stage_bytes<T>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dense_pair_kernel<T, KIND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, ring);
+  if (attr != cudaSuccess) return attr;
+  dense_pair_kernel<T, KIND><<<blocks, kThreads, ring, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
-  const long long cells = 1LL * a.nx * a.ny * a.nz;
-  if (cells > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int blocks = static_cast<int>(cells);
-  if (a.kernel_kind == 0)
-    dense_pair_kernel<T, 0><<<blocks, kThreads, 0, stream>>>(a);
-  else if (a.kernel_kind == 1)
-    dense_pair_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(a);
-  else
-    dense_pair_kernel<T, 2><<<blocks, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+  const long long tiles =
+      1LL * ((a.nx + kTileCells - 1) / kTileCells) * a.ny * a.nz;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>(tiles);
+  if (a.kernel_kind == 0) return launch_kind<T, 0>(a, blocks, stream);
+  if (a.kernel_kind == 1) return launch_kind<T, 1>(a, blocks, stream);
+  return launch_kind<T, 2>(a, blocks, stream);
 }
 
 }  // namespace
@@ -164,11 +325,13 @@ int dense_pair_args_size() { return static_cast<int>(sizeof(WcsphArgs)); }
 
 int dense_pair_launch(const WcsphArgs* args, void* stream) {
   const WcsphArgs a = *args;
-  if (!wcsph::args_ok(a) || a.dorder == nullptr ||
+  if (!wcsph::args_ok(a) || a.dorder == nullptr || a.cell == nullptr ||
       a.dcell_start == nullptr || a.dcell_end == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t packed = pack::launch(a.pack, st);
+  if (packed != cudaSuccess) return static_cast<int>(packed);
   return static_cast<int>(a.dtype == 0 ? launch<float>(a, st)
                                         : launch<double>(a, st));
 }

@@ -7,18 +7,24 @@
 // 0, and the time tells data movement apart from arithmetic.  On a GPU
 // the inputs are not copied in ahead of the body; the kernel's own loads
 // are the data movement, so this kernel takes csrc/wcsph_pair.cu's
-// arguments (WcsphArgs), makes the loads of the mode it is given and
-// writes 0 to every output:
+// arguments (WcsphArgs, with the sources' packed copies), makes the loads
+// of the mode it is given and writes 0 to every output:
 //
-//   all    wcsph_pair's walk of the 3^dim cells of every source, with its
-//          loads: the cell ranges, the sorted order, x y z h of every
-//          candidate, and the props its term mask reads (u v w m, rho,
-//          p cs) of every pair in support.  The support test
-//          r2 < (rs max(hi, hj))^2 stays, since it decides which loads
-//          the kernel makes; the pair arithmetic after it goes.  The
-//          counterpart of the TPU tool's "stub (all inputs)";
-//   third  the same, over the cells at the dest's own x only (3^(dim-1)
-//          of the 3^dim): the TPU tool keeps views 1, 4 and 7 of each 9;
+//   all    wcsph_pair's walk (csrc/cell_walk.cuh): threads in the dest's
+//          sorted order, each lane walking its cells cx - 1 .. cx + 1 in
+//          every stencil row of every source (the packed copy, launched
+//          first as wcsph_pair launches it), with its loads: the dest's
+//          order and cell, the row
+//          spans, the {x y z h} record of every candidate, and the {u v w
+//          m} and, where the term mask reads rho, {rho p cs} records of
+//          every pair in support.  The support test r2 < (rs max(hi,
+//          hj))^2 stays, since it decides which loads the kernel makes;
+//          the fold of those records takes the place of the pair body,
+//          in the walker's rounds.  The counterpart of the TPU tool's
+//          "stub (all inputs)";
+//   third  the same walk over the lane's own cell cx only, in every
+//          stencil row: one x offset of three (the TPU tool keeps views
+//          1, 4 and 7 of each 9);
 //   dest   the dest's props only (as wcsph_pair reads them), no walk;
 //   none   no loads.
 //
@@ -27,16 +33,16 @@
 // sets it, but the compiler cannot know that, so the loads stay (the
 // mode is a template argument, so the SASS of each instance shows them).
 //
-// What bounds it: in `all` mode the same gather as wcsph_pair.cu (4
-// values per candidate, 4-7 more per pair in support, scattered), with
-// 12 flops per candidate; in `none` only the stores, so its time is a
+// What bounds it: in `all` mode the loads of wcsph_pair.cu's walk (one
+// record per candidate, one or two more per pair in support), with 12
+// flops per candidate; in `none` only the stores, so its time is a
 // launch and the output bytes.
 //
 // Interface: plain C through ctypes (ops/pair_stub.py).  pair_stub_launch
 // takes a host pointer to StubArgs and the stream, and returns
 // cudaGetLastError().
 
-#include "wcsph_terms.cuh"
+#include "cell_walk.cuh"
 
 struct StubArgs {
   WcsphArgs a;
@@ -47,61 +53,48 @@ struct StubArgs {
 namespace {
 
 using wcsph::Dest;
-using wcsph::GlobalSrc;
 
 enum Mode { kNone, kDestOnly, kThird, kAll };
 
 template <typename T, int MODE>
 __global__ void __launch_bounds__(128) pair_stub_kernel(const StubArgs sa) {
   const WcsphArgs& a = sa.a;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n_dest) return;
-
+  const int pos = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = pos < a.n_dest;
+  // the walk's threads follow the dest's sorted order; without a walk,
+  // thread i takes row i and reads no index
+  int i = pos;
   T acc = T(0);
-  if (MODE >= kDestOnly) {
-    Dest<T> d;
+  if (MODE < kThird && !active) return;
+  if (MODE >= kThird) i = active ? a.dorder[pos] : 0;
+  Dest<T> d{};
+  if (MODE >= kDestOnly && active) {
     d.load(a, i, wcsph::dest_terms(a));
     acc = d.xi + d.yi + d.zi + d.ui + d.vi + d.wi + d.hi + d.rhoi + d.pi +
           d.csi + d.cfl;
-    if (MODE >= kThird) {
-      const T rs = T(a.radius_scale);
-      const int c = a.cell[i];
-      const int cx = c % a.nx, cy = (c / a.nx) % a.ny, cz = c / (a.nx * a.ny);
-      const int rx = a.nx > 1, ry = a.ny > 1, rz = a.nz > 1;
-      const int ox0 = MODE == kAll ? -rx : 0, ox1 = MODE == kAll ? rx : 0;
-      for (int s = 0; s < a.n_src; ++s) {
-        const SrcArgs& S = a.src[s];
-        const GlobalSrc<T> src{S};
-        const bool rho = S.terms & (kMom | kXsph), mom = S.terms & kMom;
-        for (int oz = -rz; oz <= rz; ++oz) {
-          const int z = cz + oz;
-          if (z < 0 || z >= a.nz) continue;
-          for (int oy = -ry; oy <= ry; ++oy) {
-            const int y = cy + oy;
-            if (y < 0 || y >= a.ny) continue;
-            for (int ox = ox0; ox <= ox1; ++ox) {
-              const int x = cx + ox;
-              if (x < 0 || x >= a.nx) continue;
-              const int nc = x + a.nx * (y + a.ny * z);
-              const int kend = S.cell_end[nc];
-              for (int k = S.cell_start[nc]; k < kend; ++k) {
-                const int j = S.order[k];
-                const T xij = d.xi - src.x(j);
-                const T yij = d.yi - src.y(j);
-                const T zij = d.zi - src.z(j);
-                const T r2 = xij * xij + yij * yij + zij * zij;
-                const T hj = src.h(j);
-                const T sup = rs * (d.hi > hj ? d.hi : hj);
-                if (!(r2 < sup * sup)) continue;
-                acc += src.u(j) + src.v(j) + src.w(j) + src.m(j);
-                if (rho) acc += src.rho(j);
-                if (mom) acc += src.p(j) + src.cs(j);
-              }
-            }
-          }
+  }
+  if (MODE >= kThird) {
+    const T rs = T(a.radius_scale);
+    const walk::Lane l =
+        walk::lane_cell(a, active ? a.cell[i] : 0, active);
+    walk::Walker<T> walker;
+    walker.begin();
+    for (int s = 0; s < a.n_src; ++s) {
+      const SrcArgs& S = a.src[s];
+      const bool thermo = S.terms & (kMom | kXsph), mom = S.terms & kMom;
+      auto fold = [&](int k) {
+        const wcsph::Rec<T> v = wcsph::rec<T>(S.vel, k);
+        acc += v.a + v.b + v.c + v.d;
+        if (thermo) {
+          const wcsph::Rec<T> t = wcsph::rec<T>(S.thermo, k);
+          acc += t.a;
+          if (mom) acc += t.b + t.c;
         }
-      }
+      };
+      walk::walk_rows(a, S, l, MODE == kAll ? 1 : 0, d, rs, walker, fold);
+      walker.finish(fold);
     }
+    if (!active) return;
   }
 #pragma unroll
   for (int k = 0; k < kNumOut; ++k)
@@ -140,10 +133,14 @@ int pair_stub_args_size() { return static_cast<int>(sizeof(StubArgs)); }
 
 int pair_stub_launch(const StubArgs* args, void* stream) {
   const StubArgs sa = *args;
-  if (!wcsph::args_ok(sa.a) || (sa.write_sink && sa.sink == nullptr))
+  if (!wcsph::args_ok(sa.a) || (sa.write_sink && sa.sink == nullptr) ||
+      (sa.mode >= kThird &&
+       (sa.a.dorder == nullptr || sa.a.cell == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (sa.a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t packed = pack::launch(sa.a.pack, st);
+  if (packed != cudaSuccess) return static_cast<int>(packed);
   return static_cast<int>(sa.a.dtype == 0 ? launch<float>(sa, st)
                                            : launch<double>(sa, st));
 }

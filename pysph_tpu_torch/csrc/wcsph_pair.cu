@@ -1,4 +1,5 @@
-// WCSPH pair kernel for Hopper (sm_90a).
+// WCSPH pair kernel for Hopper (sm_90a): a warp-coherent walk over the
+// cell-sorted packed sources.
 //
 // Replaces pysph_tpu/ops/resident.py::_pair_kernel_resident for the
 // equations of the dam-break main path: ContinuityEquation, the
@@ -8,71 +9,73 @@
 // One launch computes every pair term of one dest array over all of its
 // sources (at most 4), and writes each output once.
 //
-// What bounds it: per candidate pair it loads 8-11 source values through
-// the cell-sorted index, scattered over memory, against some 60-100
-// flops; on an H100 the neighbour gather (L2 and DRAM traffic, latency),
-// not arithmetic, is the limit.
+// What bounds it: the candidates of the 3^dim-cell stencil (~280 a dest
+// on dam_break_3d, 17% of them in support) and the pair body of those in
+// support.  Walking them one dest per thread, in unrelated cells, costs
+// a chained index load and four scattered loads per candidate, and the
+// pair body runs whenever any lane of the warp has a pair in support.
 //
-// Design: one thread per dest particle.  The thread walks the 3^dim
-// cells around its own cell in each source's sorted cell list, applies
-// the support test r2 < (rs max(hi, hj))^2, computes the pair symbols
-// with the guards of the torch pair engine, and accumulates in
-// registers.  No atomics and no cross-thread reduction are needed, so
-// the result is the same on every run.  The per-pair body, the shape
-// functions and the argument struct are in wcsph_terms.cuh, shared with
-// csrc/dense_pair.cu, which walks the same cells with one block per
-// dest cell and the source cells staged in shared memory.
+// Design (csrc/cell_walk.cuh): thread t takes the dest at position t of
+// the dest's sorted order, so a warp holds dests of one or a few nearby
+// cells.  Each lane walks its own cells cx - 1 .. cx + 1 as one span in
+// each of the 3^(dim-1) stencil rows of the packed copy (csrc/
+// cell_pack.cuh, launched by this file's launch function just before the
+// walk): one 16-byte record load per candidate, no index, and the lanes
+// of one cell load the same records at the same steps.  The candidates
+// in support are kept as bits and handed to the pair body a round at a
+// time, one per lane, so the body runs with most lanes busy.
+// No shared memory, no block barrier and no atomics: the result is the
+// same on every run, and each lane sums its pairs in the order of the
+// plain stencil walk.  The per-pair body, the shape functions and the
+// argument struct are in wcsph_terms.cuh, shared with csrc/dense_pair.cu.
 //
 // Interface: plain C, called through ctypes (ops/wcsph_pair.py).  The
 // launch function takes a host pointer to WcsphArgs (copied into the
-// kernel's parameters) and the stream, and returns cudaGetLastError().
+// kernel's parameters) and the stream, launches the pack of a.pack and
+// then the walk, and returns cudaGetLastError().
 
-#include "wcsph_terms.cuh"
+#include "cell_walk.cuh"
 
 namespace {
 
+using wcsph::Cand;
 using wcsph::Dest;
-using wcsph::GlobalSrc;
 
+// 8 blocks of 128 threads an SM in float (64 registers a thread): the
+// walk waits on its loads, so more warps in flight hide more of it
 template <typename T, int KIND>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
     wcsph_pair_kernel(const WcsphArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n_dest) return;
+  // every lane stays to the end: the walk's votes take the whole warp
+  const int pos = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = pos < a.n_dest;
+  const int i = active ? a.dorder[pos] : 0;
+  const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
 
-  Dest<T> d;
-  d.load(a, i, wcsph::dest_terms(a));
+  Dest<T> d{};
+  if (active) d.load(a, i, wcsph::dest_terms(a));
   const T rs = T(a.radius_scale), kfac = T(a.kfac);
 
-  const int c = a.cell[i];
-  const int cx = c % a.nx, cy = (c / a.nx) % a.ny, cz = c / (a.nx * a.ny);
-  const int rx = a.nx > 1, ry = a.ny > 1, rz = a.nz > 1;
-
+  walk::Walker<T> walker;
+  walker.begin();
   for (int s = 0; s < a.n_src; ++s) {
     const SrcArgs& S = a.src[s];
-    const GlobalSrc<T> src{S};
     const int terms = S.terms;
+    const bool thermo = terms & (kMom | kXsph);
     const T c0 = T(S.c0), alpha = T(S.alpha), beta = T(S.beta);
     const T xeps = T(S.xsph_eps);
-    for (int oz = -rz; oz <= rz; ++oz) {
-      const int z = cz + oz;
-      if (z < 0 || z >= a.nz) continue;
-      for (int oy = -ry; oy <= ry; ++oy) {
-        const int y = cy + oy;
-        if (y < 0 || y >= a.ny) continue;
-        for (int ox = -rx; ox <= rx; ++ox) {
-          const int x = cx + ox;
-          if (x < 0 || x >= a.nx) continue;
-          const int nc = x + a.nx * (y + a.ny * z);
-          const int kend = S.cell_end[nc];
-          for (int k = S.cell_start[nc]; k < kend; ++k)
-            d.template pair<KIND>(src, S.order[k], terms, c0, alpha, beta,
-                                  xeps, rs, kfac, a.dim);
-        }
-      }
-    }
+    auto body = [&](int k) {
+      Cand<T> c;
+      c.pos = wcsph::rec<T>(S.pos, k);
+      c.vel = wcsph::rec<T>(S.vel, k);
+      c.th = thermo ? wcsph::rec<T>(S.thermo, k) : wcsph::Rec<T>{};
+      d.template pair<KIND>(c, k, terms, c0, alpha, beta, xeps, rs, kfac,
+                            a.dim);
+    };
+    walk::walk_rows(a, S, l, 1, d, rs, walker, body);
+    walker.finish(body);
   }
-  d.store(a, i);
+  if (active) d.store(a, i);
 }
 
 template <typename T>
@@ -96,9 +99,12 @@ int wcsph_pair_args_size() { return static_cast<int>(sizeof(WcsphArgs)); }
 
 int wcsph_pair_launch(const WcsphArgs* args, void* stream) {
   const WcsphArgs a = *args;
-  if (!wcsph::args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wcsph::args_ok(a) || a.dorder == nullptr || a.cell == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t packed = pack::launch(a.pack, st);
+  if (packed != cudaSuccess) return static_cast<int>(packed);
   return static_cast<int>(a.dtype == 0 ? launch<float>(a, st)
                                         : launch<double>(a, st));
 }

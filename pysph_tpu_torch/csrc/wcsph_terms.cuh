@@ -1,20 +1,28 @@
-// The WCSPH pair terms shared by csrc/wcsph_pair.cu and csrc/dense_pair.cu.
+// The WCSPH pair terms shared by csrc/wcsph_pair.cu, csrc/dense_pair.cu
+// and csrc/pair_stub.cu.
 //
-// Both kernels compute the same contract (ops/wcsph_pair.py): the
+// The two pair kernels compute the same contract (ops/wcsph_pair.py): the
 // ContinuityEquation, the non-tensile MomentumEquation (artificial
 // viscosity and the dt_cfl max) and XSPHCorrection of one dest array over
 // at most kMaxSources sources, each output written once as pre + sum
 // (max(pre, m) for dt_cfl) under the write mask.  They differ only in how
-// a dest reaches its source particles, so everything else lives here: the
-// argument struct, the shape functions and the per-pair body.  A source
-// is read through a functor (`Src::x(j)`, ...), so the body stays the
-// same whether the values come from global memory or shared memory, and
-// a value is only read once the pair is in support.
+// a dest reaches its source particles (csrc/cell_walk.cuh), so everything
+// else lives here: the argument struct, the packed source records, the
+// shape functions and the per-pair body.  The body reads a source
+// through a functor (`Src::x(j)`, ...); the walks hand it one
+// candidate's records (Cand).
+//
+// Sources are read from their packed copy (csrc/cell_pack.cuh): records of
+// four values of the working type in the source's cell order, so that the
+// walk reads one 16-byte (float) or 32-byte (double) record where it read
+// an index and four scattered values.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cell_pack.cuh"
 
 // The argument structs are at global scope: the exported C functions
 // take them, and a type in an unnamed namespace would give those
@@ -26,9 +34,12 @@ constexpr int kCont = 1, kMom = 2, kXsph = 4;
 constexpr int kDtCfl = 7, kNumOut = 8;
 
 struct SrcArgs {
-  const void *x, *y, *z, *u, *v, *w, *h, *m, *rho, *p, *cs;
-  const int32_t* order;       // particle indices sorted by cell
-  const int32_t* cell_start;  // per cell: first position in order
+  // the packed copy: record k holds particle order[k], the source's
+  // particles in cell order (ops/wcsph_pair.py pack_sources)
+  const void* pos;     // {x, y, z, h}
+  const void* vel;     // {u, v, w, m}
+  const void* thermo;  // {rho, p, cs, 0}; null where the terms read no rho
+  const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double c0, alpha, beta, xsph_eps;
   int32_t terms, pad;
@@ -37,7 +48,7 @@ struct SrcArgs {
 struct WcsphArgs {
   const void *x, *y, *z, *u, *v, *w, *h, *rho, *p, *cs;  // dest
   const int32_t* cell;   // dest cell id, ix + nx * (iy + ny * iz)
-  // the dest's own cell list (read by dense_pair only)
+  // the dest's own cell list: threads follow its order
   const int32_t *dorder, *dcell_start, *dcell_end;
   const uint8_t* wmask;  // write mask (bool); null: every row
   const void* pre[kNumOut];  // values before the phase; null: unused
@@ -45,6 +56,9 @@ struct WcsphArgs {
   SrcArgs src[kMaxSources];
   double radius_scale, kfac;  // kfac: the kernel's sigma
   int32_t n_dest, n_src, nx, ny, nz, dim, kernel_kind, dtype;
+  // the pack that fills the sources' pos, vel and thermo: the launch
+  // functions launch it just before the walk (n_src 0: none)
+  PackArgs pack;
 };
 
 namespace wcsph {
@@ -91,21 +105,43 @@ __device__ __forceinline__ void shape(T q, T& w, T& dw) {
   }
 }
 
-// A source read from global memory through its particle index.
+// One record of four values of a packed source.
 template <typename T>
-struct GlobalSrc {
-  const SrcArgs& S;
-  __device__ T x(int j) const { return ld<T>(S.x, j); }
-  __device__ T y(int j) const { return ld<T>(S.y, j); }
-  __device__ T z(int j) const { return ld<T>(S.z, j); }
-  __device__ T u(int j) const { return ld<T>(S.u, j); }
-  __device__ T v(int j) const { return ld<T>(S.v, j); }
-  __device__ T w(int j) const { return ld<T>(S.w, j); }
-  __device__ T h(int j) const { return ld<T>(S.h, j); }
-  __device__ T m(int j) const { return ld<T>(S.m, j); }
-  __device__ T rho(int j) const { return ld<T>(S.rho, j); }
-  __device__ T p(int j) const { return ld<T>(S.p, j); }
-  __device__ T cs(int j) const { return ld<T>(S.cs, j); }
+struct Rec {
+  T a, b, c, d;
+};
+
+// Record k of a packed array: one 16-byte load in float, two in double.
+__device__ __forceinline__ Rec<float> rec(const float* p, int k) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p) + k);
+  return {v.x, v.y, v.z, v.w};
+}
+__device__ __forceinline__ Rec<double> rec(const double* p, int k) {
+  const double2* q = reinterpret_cast<const double2*>(p) + 2 * k;
+  const double2 lo = __ldg(q), hi = __ldg(q + 1);
+  return {lo.x, lo.y, hi.x, hi.y};
+}
+template <typename T>
+__device__ __forceinline__ Rec<T> rec(const void* p, int k) {
+  return rec(static_cast<const T*>(p), k);
+}
+
+// One candidate's packed records, as the pair body reads them (the
+// body's particle index is not used: the values are already here).
+template <typename T>
+struct Cand {
+  Rec<T> pos, vel, th;
+  __device__ T x(int) const { return pos.a; }
+  __device__ T y(int) const { return pos.b; }
+  __device__ T z(int) const { return pos.c; }
+  __device__ T h(int) const { return pos.d; }
+  __device__ T u(int) const { return vel.a; }
+  __device__ T v(int) const { return vel.b; }
+  __device__ T w(int) const { return vel.c; }
+  __device__ T m(int) const { return vel.d; }
+  __device__ T rho(int) const { return th.a; }
+  __device__ T p(int) const { return th.b; }
+  __device__ T cs(int) const { return th.c; }
 };
 
 // One dest particle: its values, read once, and its accumulators.
@@ -207,6 +243,19 @@ struct Dest {
   }
 };
 
+// The support test of Dest::pair, r2 < (rs max(hi, hj))^2, against a
+// candidate's {x, y, z, h} record: the walks' test of every candidate.
+template <typename T>
+__device__ __forceinline__ bool in_support(const Dest<T>& d,
+                                           const Rec<T>& pj, T rs) {
+  const T xij = d.xi - pj.a;
+  const T yij = d.yi - pj.b;
+  const T zij = d.zi - pj.c;
+  const T r2 = xij * xij + yij * yij + zij * zij;
+  const T sup = rs * (d.hi > pj.d ? d.hi : pj.d);
+  return r2 < sup * sup;
+}
+
 // The union of the sources' term masks.
 __device__ __forceinline__ int dest_terms(const WcsphArgs& a) {
   int t = 0;
@@ -214,11 +263,12 @@ __device__ __forceinline__ int dest_terms(const WcsphArgs& a) {
   return t;
 }
 
-// Checks shared by both launch functions.
+// Checks shared by the launch functions.
 inline bool args_ok(const WcsphArgs& a) {
   return a.n_src >= 0 && a.n_src <= kMaxSources && a.nx >= 1 && a.ny >= 1 &&
          a.nz >= 1 && a.kernel_kind >= 0 && a.kernel_kind <= 2 &&
-         (a.dtype == 0 || a.dtype == 1);
+         (a.dtype == 0 || a.dtype == 1) && pack::args_ok(a.pack) &&
+         (a.pack.n_src == 0 || a.pack.dtype == a.dtype);
 }
 
 }  // namespace wcsph

@@ -1,0 +1,53 @@
+"""The walks of the WCSPH pair kernels, in torch: which source positions
+each dest tests.
+
+Mirrors ``csrc/cell_walk.cuh`` (``wcsph_pair`` and ``pair_stub``) and the
+tile constants of ``csrc/dense_pair.cu``, so that the CPU tests can hold
+the rules to the plain stencil walk.  Positions index a source's packed
+copy (``ops/wcsph_pair.py::pack_sources``), which is its cell order.
+
+``wcsph_pair``'s rule: the dest at position ``p`` of its sorted order is
+lane ``p % 32`` of warp ``p // 32``, and in each stencil row (z offset
+outer, y offset inner) it tests the positions of its x cells ``cx - halo
+.. cx + halo`` (clipped to the grid), one contiguous range: with halo 1
+exactly the candidates of its 3^dim stencil.
+"""
+
+import torch
+
+#: dense_pair: x-adjacent dest cells of a block, shared-memory stages and
+#: {x, y, z, h} records a stage holds (dense_pair.cu kTileCells, kStages,
+#: kStageRecords)
+TILE_CELLS = 8
+STAGES = 4
+STAGE_RECORDS = 512
+
+
+def stencil_rows(grid):
+    """[(oy, oz)] of the stencil rows, in the walks' order."""
+    ry = (-1, 0, 1) if grid.dims[1] > 1 else (0,)
+    rz = (-1, 0, 1) if grid.dims[2] > 1 else (0,)
+    return [(oy, oz) for oz in rz for oy in ry]
+
+
+def walk_spans(grid, dest_cells, src_cells, halo=1):
+    """(n, rows, 2) int64: the source positions [k0, k1) that the dest at
+    each sorted position tests in each stencil row (``stencil_rows``),
+    under ``wcsph_pair``'s rule (halo 1) or ``pair_stub``'s ``third``
+    (halo 0); (0, 0) for a row outside the grid."""
+    nx, ny, nz = grid.dims
+    cell = dest_cells.cell[dest_cells.order.long()].long()
+    cx, row = cell % nx, cell // nx
+    y, z = row % ny, row // ny
+    xa = (cx - halo).clamp(min=0)
+    xb = (cx + halo).clamp(max=nx - 1)
+    start, end = src_cells.start.long(), src_cells.end.long()
+    spans = []
+    for oy, oz in stencil_rows(grid):
+        yy, zz = y + oy, z + oz
+        inside = (yy >= 0) & (yy < ny) & (zz >= 0) & (zz < nz)
+        base = nx * (yy.clamp(0, ny - 1) + ny * zz.clamp(0, nz - 1))
+        spans.append(torch.stack([
+            torch.where(inside, start[base + xa], 0),
+            torch.where(inside, end[base + xb], 0)], dim=1))
+    return torch.stack(spans, dim=1)

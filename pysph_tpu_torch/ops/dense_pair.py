@@ -8,10 +8,13 @@ of both.  The engine ``dense`` (``config.py``) plans the WCSPH phase sets
 onto it; it is the port's counterpart of the JAX package's dense-slot
 Pallas engine (``PYSPH_TPU_RESIDENT=0 PYSPH_TPU_COMPACT=0``).
 
-For CUDA tensors it launches ``csrc/dense_pair.cu`` (one thread block
-per dest cell, source cells staged in shared memory; built on first use
-by ``ops/build.py``) and counts the launch in ``dense_pair.launches``;
-for CPU tensors it calls ``wcsph_pair_reference``.
+For CUDA tensors it calls ``csrc/dense_pair.cu`` (built on first use by
+``ops/build.py``) once, which launches the source pack (counted in
+``ops/wcsph_pair.py::pack_sources.launches``) and then the walk (one
+thread block per tile of x-adjacent dest cells of a row, the neighbour
+rows of the packed sources staged in shared memory by bulk copies;
+counted in ``dense_pair.launches``); for CPU tensors it calls
+``wcsph_pair_reference``.
 """
 
 from pysph_tpu_torch.ops.wcsph_pair import launch_pair, wcsph_pair_reference

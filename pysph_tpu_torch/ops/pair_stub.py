@@ -6,19 +6,23 @@ and plain version.
 the engine's Pallas kernel: it takes ``wcsph_pair``'s arguments, makes
 the loads of ``mode`` and writes 0 to every output of ``pre``:
 
-- ``all``: ``wcsph_pair``'s walk of the 3^dim cells of every source and
-  its loads (the support test decides, as there, which pairs load the
-  term mask's props);
-- ``third``: the same over the cells at the dest's own x only;
+- ``all``: ``wcsph_pair``'s walk (``csrc/cell_walk.cuh``: each lane
+  walks its cells ``cx - 1 .. cx + 1`` in every stencil row of every
+  source's packed copy) and its loads (the support test decides, as
+  there, which pairs load the term mask's records);
+- ``third``: the same walk over the lane's own cell ``cx`` only, one x
+  offset of three;
 - ``dest``: the dest's props only, no walk;
 - ``none``: no loads, the stores only.
 
 The plain version, ``pair_stub_reference``, returns the zeros and
 launches nothing: it is also the tools' "skip" variant.
 
-For CUDA tensors it launches ``csrc/pair_stub.cu`` (built on first use by
-``ops/build.py``) and counts the launch in ``pair_stub.launches``; for
-CPU tensors it calls the plain version.
+For CUDA tensors it calls ``csrc/pair_stub.cu`` (built on first use by
+``ops/build.py``) once: in the modes that walk its launch function
+launches the source pack first, as ``wcsph_pair``'s does (counted in
+``pack_sources.launches``); the stub's launch is counted in
+``pair_stub.launches``.  For CPU tensors it calls the plain version.
 """
 
 import ctypes
@@ -26,7 +30,7 @@ import ctypes
 import torch
 
 from pysph_tpu_torch.ops import build
-from pysph_tpu_torch.ops.wcsph_pair import WcsphArgs, pair_args
+from pysph_tpu_torch.ops.wcsph_pair import WcsphArgs, pack_sources, pair_args
 
 #: in the order of the kernel's Mode enum
 MODES = ('none', 'dest', 'third', 'all')
@@ -62,13 +66,15 @@ def pair_stub(dest, dest_cells, write_mask, pre, sources, grid, kernel,
                                    sources, grid, kernel, mode)
     if dev.type != 'cuda':
         raise ValueError('pair_stub: no kernel for device %s' % dev)
-    args, out = pair_args('pair_stub', dest, dest_cells, write_mask, pre,
-                          sources, grid, kernel)
+    walks = mode in ('third', 'all') and dest['x'].shape[0] > 0
+    args, out, _ = pair_args('pair_stub', dest, dest_cells, write_mask, pre,
+                             sources, grid, kernel, packed=walks)
     if args.n_dest == 0:
         return out
     build.launch('pair_stub', StubArgs(args, None, MODES.index(mode), 0),
                  dev)
     pair_stub.launches += 1
+    pack_sources.launches += bool(args.pack.n_src)
     return out
 
 

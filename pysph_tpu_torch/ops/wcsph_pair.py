@@ -14,14 +14,26 @@ Each output is ``pre + sum`` (``max(pre, m)`` for ``dt_cfl``) on rows
 under the write mask and ``pre`` elsewhere; every read sees the value
 from before the phase.
 
-For CUDA tensors it launches ``csrc/wcsph_pair.cu`` (built on first use
-by ``ops/build.py``) and counts the launch in ``wcsph_pair.launches``;
-for CPU tensors it calls ``wcsph_pair_reference``, the same computation
-on the torch pair engine.  ``ops/dense_pair.py`` is the other walk of
-the same contract, with the same arguments and ``launch_pair``.
+For CUDA tensors it calls ``csrc/wcsph_pair.cu`` (built on first use by
+``ops/build.py``) once: its launch function launches the source pack
+(``csrc/cell_pack.cuh``, counted in ``pack_sources.launches``) and then
+the walk (counted in ``wcsph_pair.launches``); for CPU tensors it calls
+``wcsph_pair_reference``, the same computation on the torch pair engine.
+``ops/dense_pair.py`` is the other walk of the same contract, with the
+same arguments and ``launch_pair``.
+
+The packed copy: for each source of a call, its props in its cell order
+(position ``k`` is particle ``order[k]``) as records of four values of
+the working type, in ``PACK_RECORDS`` planes.  The walks read one record
+where they read an index and four scattered values, and the particles of
+x-adjacent cells of a row are one contiguous span.  A copy is made for
+every call: a dest's ``initialize``/``post_loop`` between two calls of
+one group may write a source prop in place.  ``pack_sources`` launches
+the pack alone (``csrc/cell_pack.cu``), for the tests and the timings.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -43,15 +55,24 @@ _BASE = ('x', 'y', 'z', 'u', 'v', 'w', 'h')
 _TERM_READS = {CONT: ('m',), MOM: ('m', 'rho', 'p', 'cs'),
                XSPH: ('m', 'rho')}
 _DEST_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'rho', 'p', 'cs')
-_SRC_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'm', 'rho', 'p', 'cs')
+_SRC_PROPS = ('x', 'y', 'z', 'h', 'u', 'v', 'w', 'm', 'rho', 'p', 'cs')
+
+#: record planes of the packed copy; the third only where the terms read
+#: rho, and a prop the terms do not read is written as 0
+PACK_RECORDS = (('x', 'y', 'z', 'h'), ('u', 'v', 'w', 'm'),
+                ('rho', 'p', 'cs', None))
 
 
+# the wrappers run on every call of the host's hot loop: the two term
+# tables below are computed once per term mask
+@functools.lru_cache(maxsize=None)
 def outputs_for(terms):
     return tuple(p for p in OUTPUTS
                  if any(terms & t and p in TERM_OUTPUTS[t]
                         for t in TERM_OUTPUTS))
 
 
+@functools.lru_cache(maxsize=None)
 def _reads(terms, with_mass):
     props = set(_BASE)
     for t, extra in _TERM_READS.items():
@@ -59,7 +80,7 @@ def _reads(terms, with_mass):
             props.update(extra)
     if not with_mass:
         props.discard('m')
-    return props
+    return frozenset(props)
 
 
 def _equations(ps):
@@ -94,9 +115,101 @@ def wcsph_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
     return {p: store[p] for p in pre}
 
 
-class _SrcArgs(ctypes.Structure):
+def pack_planes(terms):
+    """Record planes of a source's packed copy under the term mask."""
+    return 3 if terms & (MOM | XSPH) else 2
+
+
+def pack_sources_reference(sources):
+    """Plain torch version of ``pack_sources``: for each (state,
+    ``CellList``, ``PairSource``) of a call, the ``(planes, n, 4)``
+    records of ``PACK_RECORDS`` gathered through the cell order."""
+    out = []
+    for src, cells, ps in sources:
+        order = cells.order.long()
+        reads = _reads(ps.terms, with_mass=True)
+        zero = torch.zeros_like(src['x'][order])
+        out.append(torch.stack([
+            torch.stack([src[p][order] if p in reads else zero
+                         for p in names], dim=1)
+            for names in PACK_RECORDS[:pack_planes(ps.terms)]]))
+    return out
+
+
+class _PackSrc(ctypes.Structure):
     _fields_ = ([(p, ctypes.c_void_p) for p in _SRC_PROPS] +
-                [('order', ctypes.c_void_p), ('cell_start', ctypes.c_void_p),
+                [('order', ctypes.c_void_p), ('out', ctypes.c_void_p),
+                 ('n', ctypes.c_int32), ('planes', ctypes.c_int32)])
+
+
+class PackArgs(ctypes.Structure):
+    _fields_ = [('src', _PackSrc * MAX_SOURCES), ('n_src', ctypes.c_int32),
+                ('dtype', ctypes.c_int32)]
+
+
+def fill_pack(args, sources, name):
+    """Fill the ``PackArgs`` ``args`` for the sources of a call on the
+    card, checking their props (``name`` is for the messages), and
+    allocate their packed copies in one buffer.  Returns the copies, as
+    ``pack_sources`` does; ``args.n_src`` stays 0 where no source has a
+    particle, and then nothing is to be launched."""
+    x = sources[0][0]['x']
+    dev, fdt = x.device, x.dtype
+    if fdt not in (torch.float32, torch.float64):
+        raise ValueError('%s: dtype %s' % (name, fdt))
+    if len(sources) > MAX_SOURCES:
+        raise ValueError('%s: %d sources' % (name, len(sources)))
+    shapes = [(pack_planes(ps.terms), src['x'].shape[0], 4)
+              for src, _, ps in sources]
+    sizes = [p * n * 4 for p, n, _ in shapes]
+    buf = torch.empty(sum(sizes), dtype=fdt, device=dev)
+    out, off = [], 0
+    for k, (src, cells, ps) in enumerate(sources):
+        sa = args.src[k]
+        ns = shapes[k][1]
+        for p in _reads(ps.terms, with_mass=True):
+            setattr(sa, p, data_ptr(src[p], ns, fdt, dev, 's_' + p))
+        sa.order = data_ptr(cells.order, ns, torch.int32, dev,
+                            'source order')
+        # every copy starts at a whole record: aligned for the walks
+        out.append(buf[off:off + sizes[k]].view(shapes[k]))
+        sa.out = out[-1].data_ptr()
+        sa.planes, sa.n = shapes[k][:2]
+        off += sizes[k]
+    args.n_src = len(sources) if off else 0
+    args.dtype = 1 if fdt == torch.float64 else 0
+    return out
+
+
+def pack_sources(sources):
+    """The packed copy of every source of a call; same arguments and
+    result as ``pack_sources_reference``.  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/cell_pack.cu`` once for all the
+    sources."""
+    if not sources:
+        return []
+    dev = sources[0][0]['x'].device
+    if dev.type == 'cpu':
+        return pack_sources_reference(sources)
+    if dev.type != 'cuda':
+        raise ValueError('pack_sources: no kernel for device %s' % dev)
+    args = PackArgs()
+    out = fill_pack(args, sources, 'pack_sources')
+    if args.n_src:
+        build.launch('cell_pack', args, dev)
+        pack_sources.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (set to 0 to reset), by
+#: ``pack_sources`` and by the walks' calls, which launch the pack first
+pack_sources.launches = 0
+
+
+class _SrcArgs(ctypes.Structure):
+    _fields_ = ([('pos', ctypes.c_void_p), ('vel', ctypes.c_void_p),
+                 ('thermo', ctypes.c_void_p),
+                 ('cell_start', ctypes.c_void_p),
                  ('cell_end', ctypes.c_void_p),
                  ('c0', ctypes.c_double), ('alpha', ctypes.c_double),
                  ('beta', ctypes.c_double), ('xsph_eps', ctypes.c_double),
@@ -115,15 +228,19 @@ class WcsphArgs(ctypes.Structure):
                  ('kfac', ctypes.c_double)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim',
-                    'kernel_kind', 'dtype')])
+                    'kernel_kind', 'dtype')] +
+                [('pack', PackArgs)])
 
 
 def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
-              kernel):
+              kernel, packed=False):
     """Check the arguments of a kernel that takes ``WcsphArgs``
     (``wcsph_pair``, ``dense_pair``, ``pair_stub``; ``name`` is for the
-    messages) and fill them in.  Returns (args, {output: empty
-    tensor})."""
+    messages) and fill them in.  With ``packed``, also the pack
+    (``args.pack``, ``fill_pack``) that the kernel's launch function runs
+    before its walk, and the walk's pointers into its copies; without,
+    no source records, for a kernel that walks none.  Returns (args,
+    {output: empty tensor}, the packed copies or None)."""
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
@@ -134,14 +251,18 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
         raise ValueError('%s: no shape function for %r' % (name, kernel))
     i32 = torch.int32
     args = WcsphArgs()
+    copies = fill_pack(args.pack, sources, name) if packed and sources \
+        else None
     terms = 0
     for k, (src, cells, ps) in enumerate(sources):
         terms |= ps.terms
-        ns = src['x'].shape[0]
         sa = args.src[k]
-        for p in _reads(ps.terms, with_mass=True):
-            setattr(sa, p, data_ptr(src[p], ns, fdt, dev, 's_' + p))
-        sa.order = data_ptr(cells.order, ns, i32, dev, 'source order')
+        if copies is not None:
+            ptr = copies[k].data_ptr()
+            plane = copies[k][0].numel() * copies[k].element_size()
+            sa.pos, sa.vel = ptr, ptr + plane
+            if copies[k].shape[0] == 3:
+                sa.thermo = ptr + 2 * plane
         sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
                                  'cell_start')
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
@@ -158,7 +279,7 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
                               'dest cell_end')
     if write_mask is not None:
         args.wmask = data_ptr(write_mask, n, torch.bool, dev, 'write mask')
-    if set(pre) != set(outputs_for(terms)):
+    if pre.keys() != set(outputs_for(terms)):
         raise ValueError('%s: pre values for %s, terms give %s'
                          % (name, sorted(pre), outputs_for(terms)))
     out = {}
@@ -174,21 +295,22 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
     args.dim = kernel.dim
     args.kernel_kind = KERNEL_KIND[type(kernel)]
     args.dtype = 1 if fdt == torch.float64 else 0
-    return args, out
+    return args, out, copies
 
 
 def launch_pair(name, op, dest, dest_cells, write_mask, pre, sources, grid,
                 kernel):
-    """Check the arguments, launch ``csrc/<name>.cu`` (``wcsph_pair`` or
-    ``dense_pair``, which take the same ``WcsphArgs``) on the current
-    stream and count the launch in ``op.launches``.  Returns {output:
-    tensor}."""
-    args, out = pair_args(name, dest, dest_cells, write_mask, pre, sources,
-                          grid, kernel)
-    if args.n_dest == 0:
-        return out
-    build.launch(name, args, dest['x'].device)
-    op.launches += 1
+    """Check the arguments and launch ``csrc/<name>.cu`` (``wcsph_pair``
+    or ``dense_pair``, which take the same ``WcsphArgs``): the sources'
+    pack, then the walk, from one host call on the current stream.
+    Returns {output: tensor}."""
+    n = dest['x'].shape[0]
+    args, out, _ = pair_args(name, dest, dest_cells, write_mask, pre,
+                             sources, grid, kernel, packed=n > 0)
+    if n:
+        build.launch(name, args, dest['x'].device)
+        op.launches += 1
+        pack_sources.launches += bool(args.pack.n_src)
     return out
 
 

@@ -1,0 +1,200 @@
+"""The WCSPH pair kernels timed on their paths' calls, on the card.
+
+    python3 pysph_tpu_torch/tools_dev/time_walks.py [label]
+
+Builds one eval's pair calls of dam_break_3d at dx=0.02 and of the
+elliptical drop at nx=200 (float32, seeded velocity and density
+perturbations, as ``chip_smoke.py`` times them) and times ``wcsph_pair``
+and ``dense_pair`` on both: CUDA events around eager calls and around
+replays of a CUDA graph of the calls, and the host's time a call.  Then
+it runs each path for ``STEPS`` steps from rest (the drop under
+``--engine kernel`` and ``--engine dense``) and takes the median ms/step
+after ``WARMUP`` steps (host clock, the card synchronised between
+steps).  Prints one JSON line per path, tagged with ``label`` and the
+card's name and power limit.
+
+The script uses only the port's entry points (the examples, the two
+wrappers, ``tools_dev/common.py`` and ``tools_dev/roofline.py``), so it
+also times an older checkout of the port: run it by path with
+``PYTHONPATH`` set to that checkout, and alternate the two in one call
+(older, newer, newer, older) to compare them on one card.
+``chip_smoke.py`` builds its calls with the functions here.
+"""
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
+from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
+from pysph_tpu_torch.ops import dense_pair as dp
+from pysph_tpu_torch.ops import wcsph_pair as wp
+from pysph_tpu_torch.tools_dev import common, roofline
+
+REPS = 20
+STEPS = 200
+WARMUP = 20
+
+
+def make_app(dx, dtype, steps=0, engine='kernel', cls=DamBreak3D,
+             extra=()):
+    """An example's application set up on the card."""
+    app = cls()
+    argv = ['--disable-output', '-q', '--device', 'cuda', '--engine',
+            engine, *extra]
+    if dx is not None:
+        argv += ['--dx', str(dx)]
+    if dtype == torch.float64:
+        argv.append('--use-double')
+    if steps:
+        argv += ['--max-steps', str(steps)]
+    app.setup(argv)
+    return app
+
+
+def perturb(states, dtype, props, seed=12345):
+    """Seeded normal values for ``props`` and a 1% density perturbation
+    around 1000."""
+    rng = np.random.default_rng(seed)
+    for st in states.values():
+        n = st['x'].shape[0]
+        for p in props:
+            st[p] = torch.as_tensor(rng.normal(0.0, 0.5, n), dtype=dtype,
+                                    device='cuda')
+        st['rho'] = torch.as_tensor(1000.0 * (1.0 + 0.01 * rng.normal(
+            size=n)), dtype=dtype, device='cuda')
+
+
+def plan_calls(s, evals):
+    """[(eval index, dest, plan, kernel arguments)] for every planned
+    pair phase of the solver's evaluators ``evals``, on its states."""
+    calls = []
+    for k in evals:
+        a_eval = s.acceleration_evals[k]
+        cells = a_eval.grid.bin_all(s.states)
+        for group in a_eval.groups:
+            for dest in a_eval._dest_order(group):
+                plan = a_eval._plans.get((id(group), dest))
+                if plan is None:
+                    continue
+                store = s.states[dest]
+                pre = {p: torch.zeros_like(store[p]) for p in plan.outputs}
+                srcs = [(s.states[ps.name], cells[ps.name], ps)
+                        for ps in plan.sources]
+                calls.append((k, dest, plan, (
+                    store, cells[dest], group.write_mask(store), pre, srcs,
+                    a_eval.grid, a_eval.kernel)))
+    return calls
+
+
+def pair_calls(dx, dtype):
+    """(calls, particle count) for one eval of the perturbed dam break
+    at ``dx``."""
+    s = make_app(dx, dtype).solver
+    perturb(s.states, dtype, 'uvw')
+    s.integrator.initial_acceleration(s.states, 0.0, s.dt)
+    n = sum(st['x'].shape[0] for st in s.states.values())
+    return plan_calls(s, [0]), n
+
+
+def drop_calls(nx, dtype):
+    """(calls, particle count, app) for one eval of the elliptical drop
+    at ``nx`` with a seeded velocity and density perturbation."""
+    app = make_app(None, dtype, cls=EllipticalDrop, extra=('--nx', str(nx)))
+    s = app.solver
+    st = s.states['fluid']
+    rng = np.random.default_rng(2024)
+    n = st['x'].shape[0]
+    for p in ('u', 'v'):
+        st[p] = st[p] + torch.as_tensor(rng.normal(0.0, 10.0, n),
+                                        dtype=dtype, device='cuda')
+    st['rho'] = torch.as_tensor(1.0 + 1e-3 * rng.normal(size=n),
+                                dtype=dtype, device='cuda')
+    s.integrator.initial_acceleration(s.states, 0.0, s.dt)
+    return plan_calls(s, [0]), n, app
+
+
+def step_ms(app):
+    """Median ms/step of ``app``'s run after ``WARMUP`` steps."""
+    stamps = []
+
+    def pre_step(solver):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    app.solver.add_pre_step_callback(pre_step)
+    app.solve()
+    torch.cuda.synchronize()
+    return float(np.median(np.diff(stamps)[WARMUP:])) * 1e3
+
+
+def host_us(fn, n_calls, reps=REPS):
+    """Median host microseconds a call of the ``n_calls`` calls that
+    ``fn`` makes takes to return, the card idle before each rep: the
+    wrapper's own cost, which sets an eager call's time once the
+    kernel's is shorter."""
+    fn()
+    per = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        per.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return float(np.median(per)) * 1e6 / n_calls
+
+
+def time_ops(calls, ops, reps=REPS):
+    """{name: ms} of one eval's calls through each op of ``ops`` ({name:
+    op}): eagerly, as ``<name> graph`` replayed from a CUDA graph, and
+    the host's microseconds a call as ``<name> host_us``."""
+    times = {}
+    for name, op in ops.items():
+        times[name] = common.events_ms(
+            lambda: [op(*c[3]) for c in calls], reps)
+        times[name + ' graph'] = common.graph_ms(
+            lambda: [op(*c[3]) for c in calls], reps)
+        times[name + ' host_us'] = host_us(
+            lambda: [op(*c[3]) for c in calls], len(calls), reps)
+    return times
+
+
+def main(label=''):
+    smi = common.require_cuda()
+    ops = {'wcsph_pair': wp.wcsph_pair, 'dense_pair': dp.dense_pair}
+    pack = getattr(wp, 'pack_sources', None)  # not in older checkouts
+    if pack is not None:
+        ops['pack_sources'] = lambda *args: pack(args[4])
+    rows = []
+    for path, build in (('dam_break_3d dx=0.02',
+                         lambda: pair_calls(0.02, torch.float32)[0]),
+                        ('drop nx=200',
+                         lambda: drop_calls(200, torch.float32)[0])):
+        calls = build()
+        row = dict(label=label, card=smi, path=path, launches=len(calls),
+                   **time_ops(calls, ops))
+        work = roofline.add(*[roofline.wcsph_work(*c[3]) for c in calls])
+        row.update(work=work, bound_ms=roofline.bound(work)[0])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del calls
+    for path, kw in (('dam_break_3d dx=0.02', dict(dx=0.02)),
+                     ('drop nx=200 kernel', dict(
+                         dx=None, cls=EllipticalDrop, extra=('--nx', '200'))),
+                     ('drop nx=200 dense', dict(
+                         dx=None, cls=EllipticalDrop, extra=('--nx', '200'),
+                         engine='dense'))):
+        app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+        row = dict(label=label, card=smi, path=path, steps=STEPS,
+                   ms_per_step=step_ms(app))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del app
+    return rows
+
+
+if __name__ == '__main__':
+    main(sys.argv[1] if len(sys.argv) > 1 else '')

@@ -1,0 +1,148 @@
+"""Seeded edge cases of the WCSPH pair kernels' walks.
+
+Each case is the argument tuple of one ``wcsph_pair`` / ``dense_pair``
+call (``ops/wcsph_pair.py``), built from numpy random numbers, with
+particles pushed beyond the grid so that ``CellGrid`` clamps them into
+its edge cells:
+
+- ``clamped-3d``: WendlandQuintic, a fluid and a wall source, and a fat
+  corner cell of clamped particles longer than one ``dense_pair`` stage;
+- ``grid-2d``: the Gaussian kernel on a 2D grid (``nz = 1``);
+- ``four-sources``: CubicSpline, four sources with four term masks;
+- ``empty-dest``: a dest array of no particles.
+
+Every case but ``four-sources`` has a write mask.  The cases run on any
+device: the CPU tests hold the walks' rules to them and the card tests
+and ``chip_smoke.py`` hold the kernels to their plain version on them
+(``check_kernel``).
+"""
+
+import numpy as np
+import torch
+
+from pysph_tpu_torch.base.cell_grid import CELL_SLACK, CellGrid
+from pysph_tpu_torch.base.kernels import CubicSpline, Gaussian, WendlandQuintic
+from pysph_tpu_torch.ops import cell_walk
+from pysph_tpu_torch.ops import wcsph_pair as wp
+from pysph_tpu_torch.ops.pair_engine import PairSource
+
+CASES = ('clamped-3d', 'grid-2d', 'four-sources', 'empty-dest')
+ALL = wp.CONT | wp.MOM | wp.XSPH
+
+
+def _state(rng, dim, lo, hi, dx, dtype, device, n=None):
+    """Particles uniform in the box [lo, hi)^dim, one per dx^dim unless
+    ``n`` is given, with seeded props."""
+    if n is None:
+        n = int(round(((hi - lo) / dx) ** dim))
+    xyz = np.zeros((3, n))
+    xyz[:dim] = rng.uniform(lo, hi, (dim, n))
+    vel = rng.normal(0.0, 1.0, (3, n))
+    vel[dim:] = 0.0
+    rho = 1000.0 * (1.0 + 0.01 * rng.normal(size=n))
+    cols = dict(x=xyz[0], y=xyz[1], z=xyz[2], u=vel[0], v=vel[1],
+                w=vel[2], h=1.3 * dx * (1.0 + 0.05 * rng.uniform(size=n)),
+                m=1000.0 * dx ** dim * np.ones(n), rho=rho,
+                p=1e4 * rng.normal(size=n),
+                cs=10.0 * (1.0 + 0.1 * rng.uniform(size=n)))
+    return {k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in cols.items()}
+
+
+def _cat(a, b):
+    return {k: torch.cat([a[k], b[k]]) for k in a}
+
+
+def make_case(name, device='cpu', dtype=torch.float64, seed=0):
+    """The argument tuple (dest, dest cells, write mask, pre, sources,
+    grid, kernel) of the case ``name`` on ``device``."""
+    if name not in CASES:
+        raise ValueError('no walk case %r; cases: %s' % (name, CASES))
+    rng = np.random.default_rng(seed)
+    dim = 2 if name == 'grid-2d' else 3
+    # ~20 particles a cell, as on the paths; the grid covers [0, 1] and
+    # particles up to 1.2 clamp into its last cells
+    dx = 0.02 if dim == 2 else 0.06
+    kernel = {'grid-2d': Gaussian(dim=2), 'four-sources': CubicSpline(dim=3)
+              }.get(name, WendlandQuintic(dim=3))
+    rs = 3.0 if name == 'grid-2d' else 2.0
+    fluid = _state(rng, dim, 0.0, 1.2, dx, dtype, device)
+    if name == 'clamped-3d':
+        # a corner cell of more particles than one stage of dense_pair
+        fluid = _cat(fluid, _state(rng, dim, 1.5, 1.6, dx, dtype, device,
+                                   n=cell_walk.STAGE_RECORDS + 150))
+    wall = _state(rng, dim - 1, 0.0, 1.2, dx, dtype, device)
+    wall['z' if dim == 3 else 'y'][:] = 0.0
+    states = {'fluid': fluid, 'wall': wall}
+    sources = [('fluid', ALL), ('wall', wp.CONT | wp.MOM)]
+    if name == 'four-sources':
+        states['obstacle'] = _state(rng, dim, 0.4, 0.7, dx, dtype, device)
+        states['tracer'] = _state(rng, dim, 0.0, 1.0, dx, dtype, device,
+                                  n=500)
+        sources += [('obstacle', wp.CONT), ('tracer', wp.XSPH)]
+    dest_name = 'fluid'
+    if name == 'empty-dest':
+        states['probe'] = _state(rng, dim, 0.0, 1.0, dx, dtype, device, n=0)
+        dest_name = 'probe'
+    hmax = max(float(s['h'].max()) for s in states.values() if
+               s['h'].numel())
+    width = CELL_SLACK * rs * hmax
+    dims = [int(1.0 // width) + 1 if d < dim else 1 for d in range(3)]
+    grid = CellGrid(dim, rs, dims)
+    cells = grid.bin_all(states)
+    dest = states[dest_name]
+    srcs = [(states[s], cells[s], PairSource(s, terms, c0=10.0, alpha=0.1,
+                                              beta=0.05, eps=0.5))
+            for s, terms in sources]
+    terms = 0
+    for s, t in sources:
+        terms |= t
+    nd = dest['x'].shape[0]
+    pre = {p: torch.as_tensor(rng.normal(size=nd), dtype=dtype,
+                              device=device)
+           for p in wp.outputs_for(terms)}
+    pre['dt_cfl'] = pre['dt_cfl'].abs()
+    wmask = None
+    if name != 'four-sources':
+        wmask = torch.as_tensor(rng.uniform(size=nd) < 0.8, device=device)
+    return (dest, cells[dest_name], wmask, pre, srcs, grid, kernel)
+
+
+def check_kernel(op, args, tol):
+    """Hold ``op`` (``wcsph_pair`` or ``dense_pair``) to the plain version
+    on a case's arguments ``args`` (CUDA tensors): one kernel launch and
+    one pack launch where the dest has particles, none where it has none;
+    every output of the dest's length, within ``tol`` of max|ref|, and
+    ``pre`` on rows outside the write mask.  Raises AssertionError;
+    returns the largest scaled error."""
+    dest, _, wm, pre = args[:4]
+    n = dest['x'].shape[0]
+    launches, packs = op.launches, wp.pack_sources.launches
+    got = op(*args)
+    ref = wp.wcsph_pair_reference(*args)
+    name = op.__name__
+    if op.launches - launches != int(n > 0) or \
+            wp.pack_sources.launches - packs != int(n > 0):
+        raise AssertionError('%s: %d launches and %d packs for %d dests' % (
+            name, op.launches - launches, wp.pack_sources.launches - packs,
+            n))
+    if set(got) != set(ref):
+        raise AssertionError('%s: outputs %s, plain version %s'
+                             % (name, sorted(got), sorted(ref)))
+    worst = 0.0
+    for p in ref:
+        if got[p].shape != (n,):
+            raise AssertionError('%s: %s has shape %s'
+                                 % (name, p, tuple(got[p].shape)))
+        if n == 0:
+            continue
+        scale = float(ref[p].abs().max())
+        err = float((got[p] - ref[p]).abs().max())
+        worst = max(worst, err / scale)
+        if not err <= tol * scale:
+            raise AssertionError('%s %s: error %.3g > %.0e * %.3g'
+                                 % (name, p, err, tol, scale))
+        if wm is not None and not torch.equal(got[p][~wm], pre[p][~wm]):
+            raise AssertionError('%s: %s changed outside the write mask'
+                                 % (name, p))
+    return worst

@@ -18,19 +18,18 @@ def csrc(tmp_path, monkeypatch):
 
 
 def test_sources_follow_the_includes(csrc):
-    assert [p.name for p in build.sources('wcsph_pair')] == [
-        'wcsph_pair.cu', 'wcsph_terms.cuh']
-    assert [p.name for p in build.sources('dense_pair')] == [
-        'dense_pair.cu', 'wcsph_terms.cuh']
-    assert [p.name for p in build.sources('pair_stub')] == [
-        'pair_stub.cu', 'wcsph_terms.cuh']
+    for name in ('wcsph_pair', 'dense_pair', 'pair_stub'):
+        assert [p.name for p in build.sources(name)] == [
+            name + '.cu', 'cell_walk.cuh', 'wcsph_terms.cuh', 'cell_pack.cuh']
+    assert [p.name for p in build.sources('cell_pack')] == [
+        'cell_pack.cu', 'cell_pack.cuh']
     for name in ('fused_pair', 'gtvf_pair', 'micro_launch', 'micro_engine'):
         assert [p.name for p in build.sources(name)] == [name + '.cu']
 
 
 def test_header_edit_changes_the_key(csrc):
     names = ('wcsph_pair', 'dense_pair', 'pair_stub', 'fused_pair',
-             'gtvf_pair', 'micro_engine')
+             'gtvf_pair', 'micro_engine', 'cell_pack')
     before = {n: build.build_key(n) for n in names}
     assert before == {n: build.build_key(n) for n in names}
     header = csrc / 'wcsph_terms.cuh'
@@ -42,6 +41,13 @@ def test_header_edit_changes_the_key(csrc):
     assert after['micro_engine'] == before['micro_engine']
     assert after['fused_pair'] == before['fused_pair']
     assert after['gtvf_pair'] == before['gtvf_pair']
+    assert after['cell_pack'] == before['cell_pack']
+    # the pack's header: the pack and the three walks that launch it
+    pack = csrc / 'cell_pack.cuh'
+    pack.write_text(pack.read_text() + '\n// edited\n')
+    edited = {n: build.build_key(n) for n in names}
+    assert {n for n in names if edited[n] != after[n]} == {
+        'wcsph_pair', 'dense_pair', 'pair_stub', 'cell_pack'}
     # a nested include counts too
     (csrc / 'extra.cuh').write_text('// v1\n')
     header.write_text('#include "extra.cuh"\n' + header.read_text())

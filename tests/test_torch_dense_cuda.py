@@ -1,5 +1,6 @@
-"""The cell-blocked pair kernel (``dense_pair``) against its plain torch
-version, on the card.
+"""The cell-tiled pair kernel (``dense_pair``) against its plain torch
+version, on the card: the drop's and dam_break_3d's calls with a fat
+clamped edge cell, and the walk's edge cases (``tools_dev/walk_cases.py``).
 
 Skips without an NVIDIA card (a CUDA kernel has no CPU mode).  This file
 imports no JAX, so it also runs where only the port is installed:
@@ -15,6 +16,7 @@ from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import wcsph_pair as wp
+from pysph_tpu_torch.tools_dev import walk_cases as wc
 
 CASES = {'elliptical_drop': (EllipticalDrop, ['--nx', '40']),
          'dam_break_3d': (DamBreak3D, ['--dx', '0.04'])}
@@ -78,3 +80,14 @@ def test_dense_kernel_matches_plain_version_on_the_card(case, dtype, tol):
                     assert torch.equal(got[p][~wm], pre[p][~wm])
             checked += 1
     assert checked == len(a_eval._plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize('case', wc.CASES)
+def test_dense_kernel_matches_plain_version_on_walk_cases(case, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (a CUDA kernel has no CPU mode)')
+    args = wc.make_case(case, 'cuda', dtype, seed=11)
+    wc.check_kernel(dp.dense_pair, args, tol)

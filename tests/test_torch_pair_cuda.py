@@ -1,4 +1,7 @@
-"""The CUDA pair kernel against its plain torch version, on the card.
+"""The CUDA pair kernel and the source pack against their plain torch
+versions, on the card: dam_break_3d's calls and the walk's edge cases
+(``tools_dev/walk_cases.py``: a clamped cell longer than one stage, a 2D
+grid, four sources, write masks, an empty dest array).
 
 Skips without an NVIDIA card (a CUDA kernel has no CPU mode).  This file
 imports no JAX, so it also runs where only the port is installed:
@@ -12,14 +15,20 @@ import torch
 
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.ops import wcsph_pair as wp
+from pysph_tpu_torch.tools_dev import walk_cases as wc
+
+TOLS = [(torch.float64, 1e-10), (torch.float32, 1e-4)]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA card (a CUDA kernel has no CPU mode)')
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-10),
-                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize('dtype,tol', TOLS)
 def test_kernel_matches_plain_version_on_the_card(dtype, tol):
-    if not torch.cuda.is_available():
-        pytest.skip('needs an NVIDIA card (a CUDA kernel has no CPU mode)')
+    _need_card()
     app = DamBreak3D()
     app.setup(['-q', '--disable-output', '--dx', '0.06'] +
               (['--use-double'] if dtype == torch.float64 else []))
@@ -60,3 +69,25 @@ def test_kernel_matches_plain_version_on_the_card(dtype, tol):
                 masked = store['tag'] != 0
                 assert torch.equal(got[p][masked], pre[p][masked])
     assert launched == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', TOLS)
+@pytest.mark.parametrize('case', wc.CASES)
+def test_kernel_matches_plain_version_on_walk_cases(case, dtype, tol):
+    _need_card()
+    args = wc.make_case(case, 'cuda', dtype, seed=11)
+    wc.check_kernel(wp.wcsph_pair, args, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('case', wc.CASES)
+def test_pack_kernel_is_exactly_its_plain_version(case, dtype):
+    _need_card()
+    sources = wc.make_case(case, 'cuda', dtype, seed=12)[4]
+    before = wp.pack_sources.launches
+    got = wp.pack_sources(sources)
+    assert wp.pack_sources.launches == before + 1
+    for g, r in zip(got, wp.pack_sources_reference(sources)):
+        assert g.shape == r.shape and torch.equal(g, r)
