@@ -15,7 +15,8 @@ Phases (any failure propagates; the exit code is then not 0):
    main path's shapes) in float32, where both are also timed (the kernel
    with its source pack, eagerly and replayed from a CUDA graph) and the
    work is counted (candidates and ``visited``); the pack of each call
-   equal to its plain version, and timed; then 10 steps of dam_break_3d
+   (``ops/cell_pack.py``) equal to its plain version, and timed; then 10
+   steps of dam_break_3d
    at dx=0.04 in float64 on the kernel engine against the torch engine
    (<= 1e-9 of max|ref|);
 4. the main path: ``pysph_tpu_torch.examples.dam_break_3d`` at dx=0.02
@@ -27,12 +28,13 @@ Phases (any failure propagates; the exit code is then not 0):
    every phase set of both evaluators: dx=0.02 (7,603 particles) in
    float64 and float32, dx=0.004 (137,803 particles, the path's shapes)
    in float32, timed and counted there; infinities (``rhodiv`` next to
-   the walls) must match exactly; then 10 steps at dx=0.02 in float64 on
+   the walls) must match exactly; the pack of each call (the GTVF planes)
+   equal to its plain version; then 10 steps at dx=0.02 in float64 on
    the kernel engine against the torch engine (<= 1e-9 of max|ref|);
 6. the GTVF path at dx=0.004 in float32 for ``STEPS`` steps: launches
-   counted (2 + 5 x steps), every pair phase of both evaluators on the
-   kernel, the median ms/step, and a finite final state (``rhodiv``
-   aside);
+   counted (2 + 5 x steps, and one pack a launch), every pair phase of
+   both evaluators on the kernel, the median ms/step, and a finite final
+   state (``rhodiv`` aside);
 7. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -46,7 +48,8 @@ Phases (any failure propagates; the exit code is then not 0):
    ``dense_pair``'s SASS; ``dense_pair``, ``wcsph_pair`` and the plain
    version timed on identical calls at nx=200 and at dx=0.02;
 8. ``fused_continuity_momentum`` (CubicSpline) against its plain version
-   on the perturbed drop at nx=200 in float64 and float32, timed; then,
+   on the perturbed drop at nx=200 in float64 and float32, timed, and its
+   pack (the fused planes) equal to its plain version; then,
    with its launches counted, m times its rates against ``wcsph_pair``'s
    Continuity + Momentum on the same state;
 9. the elliptical drop at nx=200 in float32 for ``STEPS`` steps under
@@ -57,7 +60,9 @@ Phases (any failure propagates; the exit code is then not 0):
 10. the physics gate: the drop at nx=40 in float64 to tf=0.0076 under
     ``--engine dense``, dumping into a temporary directory under
     ``build/``: max |y| within 3% of the exact semi-major axis, and
-    ``post_process`` through the ported ``load``;
+    ``post_process`` through the ported ``load``; the drop outgrows its
+    initial cell grid, which must grow at least once and end with at
+    most twice the stencil candidates of the start;
 11. ``micro_launch`` against its plain version on the nine cases of
     ``tools_dev/micro_launch.py`` (seeded inputs, <= 1e-4 of max|ref|),
     then that tool's run (its path) with the launches counted, and the
@@ -91,13 +96,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import CubicSpline
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
-from pysph_tpu_torch.ops import build
+from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
@@ -111,24 +115,11 @@ from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
 from pysph_tpu_torch.tools_dev import walk_cases
 from pysph_tpu_torch.tools_dev.common import events_ms, graph_ms
 from pysph_tpu_torch.tools_dev.time_walks import (
-    drop_calls, make_app, pair_calls, perturb, plan_calls)
+    drop_calls, fused_call, gtvf_calls, make_app, pair_calls)
 
 STEPS = 200
 WARMUP = 20
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
-
-
-def _gtvf_calls(dx, dtype):
-    """(calls, particle count) for both evals of the perturbed GTVF dam
-    break at ``dx``, after one pass of each eval has set the derived
-    properties (wall ghost velocities, rho0, p0, ...)."""
-    app = make_app(dx, dtype, cls=DamBreak2D, extra=('--scheme', 'gtvf'))
-    s = app.solver
-    perturb(s.states, dtype, ('u', 'v', 'uhat', 'vhat'))
-    for a_eval in s.acceleration_evals:
-        a_eval.compute(0.0, s.dt, s.states)
-    n = sum(st['x'].shape[0] for st in s.states.values())
-    return plan_calls(s, range(len(s.acceleration_evals))), n
 
 
 def _compare(calls, dtype, label, op=None):
@@ -214,10 +205,10 @@ def _drive(app, label, op, first, per_step, skip_finite=(),
             at_first_step.append(op.launches)
 
     app.solver.add_pre_step_callback(pre_step)
-    op.launches = wp.pack_sources.launches = 0
+    op.launches = cell_pack.pack.launches = 0
     app.solve()
     torch.cuda.synchronize()
-    launches, packs = op.launches, wp.pack_sources.launches
+    launches, packs = op.launches, cell_pack.pack.launches
     step_launches = launches - at_first_step[0]
     for k, a_eval in enumerate(app.solver.acceleration_evals):
         print('eval %d engine_choices: %s' % (k, a_eval.engine_choices))
@@ -236,7 +227,7 @@ def _drive(app, label, op, first, per_step, skip_finite=(),
         raise AssertionError('%s: %d pack launches for %d kernel launches'
                              % (label, packs, launches))
     if packed:
-        print('pack_sources launches: %d, one a kernel launch' % packs)
+        print('cell_pack launches: %d, one a kernel launch' % packs)
     for name, st in app.solver.states.items():
         for p, v in st.items():
             if p in skip_finite or not v.is_floating_point():
@@ -260,14 +251,11 @@ def _fused_check(nx, dtype):
     against ``wcsph_pair``'s Continuity + Momentum on the same state
     (pre = 0).  Returns (launches, max abs err, and in float32 the
     times and work)."""
-    calls, n, app = drop_calls(nx, dtype)
-    del calls
-    st = app.solver.states['fluid']
-    grid = CellGrid.from_particles(app.particles, dim=2, radius_scale=2.0)
-    cells = grid.bin_all({'fluid': st})['fluid']
-    kw = dict(dim=2, c0=app.co, alpha=app.alpha, beta=0.0)
+    st, cells, grid, kw, app = fused_call(nx, dtype)
+    n = st['x'].shape[0]
     tol = TOL[dtype]
     label = 'fused_pair nx=%d %s (%d particles)' % (nx, str(dtype)[6:], n)
+    _check_pack(label, [fp.pack(st, cells)], [fp.pack_reference(st, cells)])
     got = fp.fused_continuity_momentum(st, cells, grid, **kw)
     ref = fp.fused_continuity_momentum_reference(st, cells, grid, **kw)
     torch.cuda.synchronize()
@@ -327,20 +315,35 @@ def _fused_check(nx, dtype):
     return launches, worst, timed
 
 
+def _candidates(solver):
+    """Stencil candidates of the drop's fluid on the solver's grid."""
+    cells = solver.grid.bin_all(solver.states)['fluid']
+    return roofline.stencil(solver.grid, cells, cells)[0]
+
+
 def _physics_gate():
     """The drop at nx=40 in float64 to tf=0.0076 on the dense engine:
-    max |y| against the exact semi-major axis (3%), and post_process
-    through the ported load."""
+    max |y| against the exact semi-major axis (3%), post_process through
+    the ported load, and the cell grid grown with the drop."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = tempfile.mkdtemp(prefix='elliptical_drop_', dir=build.BUILD_DIR)
     try:
         app = EllipticalDrop()
         app.setup(['--nx', '40', '--use-double', '--device', 'cuda',
                    '--engine', 'dense', '-q', '-d', out])
+        s = app.solver
+        dims, first = s.grid.dims, _candidates(s)
         start = time.perf_counter()
         app.solve()
         secs = time.perf_counter() - start
-        s = app.solver
+        last = _candidates(s)
+        print('elliptical_drop nx=40: the cell grid grew %d times, %s -> '
+              '%s; stencil candidates %d at the start, %d at the end '
+              '(%.3gx; bar 2x)' % (s.grid.grows, dims, s.grid.dims, first,
+                                   last, last / first), flush=True)
+        if s.grid.grows < 1 or last > 2 * first:
+            raise AssertionError('the drop\'s cell grid did not grow with '
+                                 'it')
         y = s.states['fluid']['y']
         if not bool(torch.isfinite(y).all()):
             raise AssertionError('the drop has non-finite positions')
@@ -492,10 +495,11 @@ def _sass_loads(lib):
             for k_mode, mode in enumerate(stub.MODES)}
 
 
-def _check_pack(sources, label):
-    """The pack kernel against its plain version: exactly equal."""
-    for k, (got, ref) in enumerate(zip(wp.pack_sources(sources),
-                                       wp.pack_sources_reference(sources))):
+def _check_pack(label, copies, refs):
+    """The pack kernel's copies against its plain version's: exactly
+    equal."""
+    torch.cuda.synchronize()
+    for k, (got, ref) in enumerate(zip(copies, refs)):
         if got.shape != ref.shape or not torch.equal(got, ref):
             raise AssertionError('%s: the packed copy of source %d differs '
                                  'from its plain version' % (label, k))
@@ -511,7 +515,8 @@ def _walk_cases(dense_lib):
     for dtype in (torch.float64, torch.float32):
         for case in walk_cases.CASES:
             args = walk_cases.make_case(case, 'cuda', dtype, seed=31)
-            _check_pack(args[4], 'walk case ' + case)
+            _check_pack('walk case ' + case, wp.pack_sources(args[4]),
+                        wp.pack_sources_reference(args[4]))
             for op in (wp.wcsph_pair, dp.dense_pair):
                 try:
                     worst = max(worst, walk_cases.check_kernel(
@@ -633,7 +638,8 @@ def main():
               wcsph_work['candidates'], wcsph_work['visited']), flush=True)
     # the source pack of each call: exact, and timed alone
     for _, dest, _, args in calls:
-        _check_pack(args[4], 'dam_break_3d dx=0.02 ' + dest)
+        _check_pack('dam_break_3d dx=0.02 ' + dest, wp.pack_sources(args[4]),
+                    wp.pack_sources_reference(args[4]))
     pack_ms = graph_ms(lambda: [wp.pack_sources(c[3][4]) for c in calls], 20)
     pack_eager = events_ms(
         lambda: [wp.pack_sources(c[3][4]) for c in calls], 20)
@@ -672,12 +678,17 @@ def main():
 
     # gtvf_pair against its plain version
     for dx, dtype in ((0.02, torch.float64), (0.02, torch.float32)):
-        calls, n = _gtvf_calls(dx, dtype)
+        calls, n = gtvf_calls(dx, dtype)
         _compare(calls, dtype, 'gtvf_pair dx=%g %s (%d particles)'
                  % (dx, str(dtype)[6:], n))
-    calls, n = _gtvf_calls(0.004, torch.float32)
+    calls, n = gtvf_calls(0.004, torch.float32)
     gtvf_err = _compare(calls, torch.float32, 'gtvf_pair dx=0.004 float32 '
                         '(%d particles)' % n)
+    for k, dest, _, args in calls:
+        _check_pack('GTVF dx=0.004 eval %d %s' % (k, dest),
+                    gp.pack_sources(args[4]),
+                    gp.pack_sources_reference(args[4]))
+    print('cell_pack, the GTVF planes of the 5 calls: exact', flush=True)
     gtvf_eager = gtvf_plain_ms = 0.0
     for k in (0, 1):
         mine = [c for c in calls if c[0] == k]
@@ -703,7 +714,7 @@ def main():
                    extra=('--scheme', 'gtvf'))
     gtvf_launches, _, n, gtvf_path_ms = _drive(
         app, 'GTVF dam_break_2d dx=0.004 float32', gp.gtvf_pair, 2, 5,
-        skip_finite=('rhodiv',))
+        skip_finite=('rhodiv',), packed=True)
     rhodiv = app.solver.states['fluid']['rhodiv']
     if bool((rhodiv == -float('inf')).any()):
         raise AssertionError('rhodiv holds -inf')

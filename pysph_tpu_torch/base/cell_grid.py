@@ -15,8 +15,12 @@ to be redone.  The cell width is at least ``radius_scale * hmax``, so a
 pair within support lies in the same or an adjacent cell.  Clamping
 keeps that true for particles outside the grid: two coordinates less
 than one width apart floor to cells at most one apart, and clamping
-cannot widen the gap.  The grid's cell counts are fixed at setup; its
-origin and width follow the particles at every binning.
+cannot widen the gap.  The grid's origin and width follow the particles
+at every binning; its cell counts are sized at setup with ``PAD`` of
+headroom and 3 cells, as ``pysph_tpu``'s ``GridSpec`` is.  Clamping is
+correct but piles escaped particles into the edge cells, so each binning
+also sets ``overflow``, a device flag that some particle lies beyond
+the grid, and the solver ``grow``s the grid when it reads it.
 
 Particles keep their order: consumers read sources through ``order``.
 """
@@ -29,6 +33,9 @@ import torch
 # support radius cannot land two cells apart through rounding of the
 # cell coordinate.
 CELL_SLACK = 1.001
+#: headroom of the cell counts on each side of the particles' extent
+#: (pysph_tpu/base/cell_grid.py:168)
+PAD = 0.03
 
 
 class CellList(NamedTuple):
@@ -40,22 +47,38 @@ class CellList(NamedTuple):
 
 
 class CellGrid(object):
-    """Static cell counts of the grid; bins particle states into
-    ``CellList``s."""
+    """Cell counts of the grid; bins particle states into ``CellList``s.
+
+    ``overflow`` is the last binning's device flag (None before the
+    first); ``grows`` counts the calls of ``grow``."""
 
     def __init__(self, dim, radius_scale, dims):
         self.dim = int(dim)
         self.radius_scale = float(radius_scale)
+        self._set_dims(dims)
+        self.overflow = None
+        self.grows = 0
+
+    def _set_dims(self, dims):
         dims = tuple(int(d) for d in dims)
         self.dims = dims + (1,) * (3 - len(dims))
         self.ncells = self.dims[0] * self.dims[1] * self.dims[2]
+        self._limit = None
 
     def __repr__(self):
         return 'CellGrid(dim=%d, dims=%s)' % (self.dim, self.dims)
 
+    @staticmethod
+    def padded_dims(extent, width, dim):
+        """Cell counts for a box of ``extent`` (3,) and cells of
+        ``width``: ``PAD`` of headroom on each side and 3 cells more, on
+        each axis below ``dim`` (pysph_tpu/base/cell_grid.py:228-230)."""
+        return [int(extent[d] * (1 + 2 * PAD) / width) + 3 if d < dim
+                else 1 for d in range(3)]
+
     @classmethod
     def from_particles(cls, particle_arrays, dim, radius_scale):
-        """Size the grid to the bounding box of the particles."""
+        """Size the grid to the bounding box of the particles, padded."""
         import numpy as np
         los, his, hmax = [], [], 0.0
         for pa in particle_arrays:
@@ -70,9 +93,37 @@ class CellGrid(object):
                              'of positive h')
         extent = np.max(his, axis=0) - np.min(los, axis=0)
         width = CELL_SLACK * radius_scale * hmax
-        dims = [int(extent[d] // width) + 1 if d < dim else 1
-                for d in range(3)]
-        return cls(dim, radius_scale, dims)
+        return cls(dim, radius_scale, cls.padded_dims(extent, width, dim))
+
+    def grow(self, states):
+        """Re-size the cell counts from the states' current bounding box
+        and hmax, padded as ``from_particles`` does (one device-to-host
+        copy).  The grid is changed in place, so every evaluator that
+        shares it bins on the new counts from its next binning on; the
+        ``CellList``s of earlier binnings no longer fit it."""
+        lo, hi, hmax = self._box(states)
+        box = torch.cat([hi - lo, hmax.reshape(1)]).tolist()
+        width = CELL_SLACK * self.radius_scale * box[3]
+        self._set_dims(self.padded_dims(box[:3], width, self.dim))
+        self.overflow = None
+        self.grows += 1
+
+    @staticmethod
+    def _box(states):
+        """(lowest (3,), highest (3,), hmax ()) tensors of the particles
+        of ``states`` on their device."""
+        los, his, hmax = [], [], None
+        for s in states:
+            if s['x'].numel() == 0:
+                continue
+            lo, hi = torch.aminmax(torch.stack([s['x'], s['y'], s['z']]),
+                                   dim=1)
+            los.append(lo)
+            his.append(hi)
+            h = s['h'].max()
+            hmax = h if hmax is None else torch.maximum(hmax, h)
+        return (torch.stack(los).min(dim=0).values,
+                torch.stack(his).max(dim=0).values, hmax)
 
     def offsets(self, device):
         """(S, 3) stencil offsets: -1..1 on each axis with more than one
@@ -84,18 +135,22 @@ class CellGrid(object):
                             device=device)
 
     def geometry(self, states):
-        """(origin (3,), width ()) tensors on the states' device: the
-        lower corner of all particles and the cell width."""
-        los, hmax = [], None
-        for s in states:
-            if s['x'].numel() == 0:
-                continue
-            los.append(torch.stack([s['x'].min(), s['y'].min(),
-                                    s['z'].min()]))
-            h = s['h'].max()
-            hmax = h if hmax is None else torch.maximum(hmax, h)
-        origin = torch.stack(los).min(dim=0).values
-        return origin, CELL_SLACK * self.radius_scale * hmax
+        """(origin (3,), width (), overflow ()) tensors on the states'
+        device: the lower corner of all particles, the cell width, and
+        whether some particle lies at or beyond ``origin + dims * width``
+        on an axis of more than one cell, where binning clamps it into
+        the edge cell.  Nothing is read back."""
+        origin, hi, hmax = self._box(states)
+        width = CELL_SLACK * self.radius_scale * hmax
+        top = torch.floor((hi - origin) / width)
+        if self._limit is None or self._limit.device != top.device or \
+                self._limit.dtype != top.dtype:
+            # the counts on the device, inf on an axis of one cell: made
+            # once per size, so that a binning copies nothing there
+            self._limit = torch.tensor(
+                [n if n > 1 else float('inf') for n in self.dims],
+                dtype=top.dtype, device=top.device)
+        return origin, width, (top >= self._limit).any()
 
     def cell_ids(self, state, origin, width):
         """(n,) int64 cell id of each particle."""
@@ -123,8 +178,9 @@ class CellGrid(object):
                         end.to(i32))
 
     def bin_all(self, states):
-        """{name: CellList} for a dict of states binned on one grid."""
-        origin, width = self.geometry(states.values())
+        """{name: CellList} for a dict of states binned on one grid; sets
+        ``overflow`` (``geometry``)."""
+        origin, width, self.overflow = self.geometry(states.values())
         return {name: self.bin(s, origin, width)
                 for name, s in states.items()}
 

@@ -1,27 +1,25 @@
 // The packed, cell-sorted copy of the sources of one pair call, for Hopper
 // (sm_90a).
 //
-// csrc/wcsph_pair.cu, csrc/dense_pair.cu and csrc/pair_stub.cu read each
-// source through this copy: position k holds particle order[k], as
-// records of four values of the working type,
-//
-//   record plane 0: {x, y, z, h}      every candidate's support test
-//   record plane 1: {u, v, w, m}      every pair in support
-//   record plane 2: {rho, p, cs, 0}   where the term mask reads rho (p and
-//                                     cs 0 where it reads neither)
-//
-// so that a walk reads one 16-byte (float) or 32-byte (double) record
-// where it read an index and four scattered values, and the particles of
-// x-adjacent cells of a row are one contiguous, aligned span that the
-// bulk copy can stage.  The JAX package's counterpart is the resident
-// engine's pack (pysph_tpu/ops/resident.py::build_pack, an XLA gather).
-// One launch packs every source of a call (grid y: the source); a copy
-// is made for each call, since a dest's initialize/post_loop between two
-// calls may change a source prop.
+// Every pair kernel reads each source through this copy: position k holds
+// particle order[k], as record planes of four values of the working type.
+// The kernel names its planes (csrc/wcsph_terms.cuh, csrc/gtvf_pair.cu,
+// csrc/fused_pair.cu; ops/cell_pack.py); plane 0 is always {x, y, z, h},
+// which every candidate's support test reads.  A source packs plane 0 and
+// the planes that hold a prop its terms read, and a prop the terms do not
+// read is written as 0 (a null pointer here).  So a walk reads one 16-byte
+// (float) or 32-byte (double) record where it read an index and four
+// scattered values, and the particles of x-adjacent cells of a row are
+// one contiguous, aligned span that the bulk copy can stage.  The JAX
+// package's counterpart is the resident engine's pack
+// (pysph_tpu/ops/resident.py::build_pack, an XLA gather).  One launch
+// packs every source of a call (grid y: the source); a copy is made for
+// each call, since a dest's initialize/post_loop between two calls may
+// change a source prop.
 //
 // The walks' launch functions launch the pack themselves, just before
-// the walk on the same stream (WcsphArgs::pack), so a call costs the host
-// one launch through ctypes; csrc/cell_pack.cu exports it alone.
+// the walk on the same stream (their args' `pack`), so a call costs the
+// host one launch through ctypes; csrc/cell_pack.cu exports it alone.
 //
 // What bounds it: bytes; each value is read once through order (a
 // gather) and written once, coalesced.
@@ -32,10 +30,11 @@
 #include <stdint.h>
 
 constexpr int kMaxPackSources = 4;
+constexpr int kMaxPlanes = 5;
 
 struct PackSrc {
-  // rho null: two record planes; p and cs null: written as 0
-  const void *x, *y, *z, *h, *u, *v, *w, *m, *rho, *p, *cs;
+  // plane q, record k: {prop[q][0..3][order[k]]}; null: written as 0
+  const void* prop[kMaxPlanes][4];
   const int32_t* order;
   void* out;  // (planes, n, 4) of the dtype
   int32_t n, planes;
@@ -73,13 +72,10 @@ __global__ void __launch_bounds__(256) cell_pack_kernel(const PackArgs a) {
   const int j = S.order[k];
   T* out = static_cast<T*>(S.out);
   const size_t plane = static_cast<size_t>(S.n) * 4;
-  store(out, k, value<T>(S.x, j), value<T>(S.y, j), value<T>(S.z, j),
-        value<T>(S.h, j));
-  store(out + plane, k, value<T>(S.u, j), value<T>(S.v, j),
-        value<T>(S.w, j), value<T>(S.m, j));
-  if (S.planes == 3)
-    store(out + 2 * plane, k, value<T>(S.rho, j), value<T>(S.p, j),
-          value<T>(S.cs, j), T(0));
+  for (int q = 0; q < S.planes; ++q)
+    store(out + q * plane, k, value<T>(S.prop[q][0], j),
+          value<T>(S.prop[q][1], j), value<T>(S.prop[q][2], j),
+          value<T>(S.prop[q][3], j));
 }
 
 inline bool args_ok(const PackArgs& a) {
@@ -88,7 +84,7 @@ inline bool args_ok(const PackArgs& a) {
     return false;
   for (int s = 0; s < a.n_src; ++s) {
     const PackSrc& S = a.src[s];
-    if (S.n < 0 || (S.planes != 2 && S.planes != 3) ||
+    if (S.n < 0 || S.planes < 1 || S.planes > kMaxPlanes ||
         (S.n > 0 && (S.order == nullptr || S.out == nullptr)))
       return false;
   }

@@ -1,22 +1,28 @@
-// The cell walk shared by csrc/wcsph_pair.cu, csrc/dense_pair.cu and
-// csrc/pair_stub.cu: row spans of the packed source copy, a lane's cell,
-// and the walker that tests every candidate and hands those in support
-// to the pair body in batches.
+// The cell walk shared by every pair kernel (csrc/wcsph_pair.cu,
+// csrc/dense_pair.cu, csrc/pair_stub.cu, csrc/gtvf_pair.cu and
+// csrc/fused_pair.cu): the records of a packed source copy
+// (csrc/cell_pack.cuh), the support test, row spans of the copy, a lane's
+// cell, and the walker that tests every candidate and hands those in
+// support to the pair body in batches.  It defines no kernel's arguments:
+// a kernel hands it its own argument struct for the grid's cell counts
+// (any struct with members nx, ny, nz), a source's cell ranges and the
+// plane of its {x, y, z, h} records.
 //
 // Row spans.  CellGrid numbers cells ix + nx * (iy + ny * iz), so the
 // x-adjacent cells xa..xb of one (y, z) row have consecutive ids and their
 // particles are the one range [start[xa], end[xb]) of the source's packed
 // copy.  A walk of the 3^dim stencil reads 3^(dim-1) such ranges.
 //
-// Lanes (wcsph_pair, pair_stub).  Threads follow the dest's sorted order,
-// so the 32 lanes of a warp hold dests of one or a few nearby cells, and
-// the lanes of one cell load the same records at the same steps.  Each
-// lane walks the span of its own cells cx - 1 .. cx + 1 in every stencil
-// row: exactly the candidates of the 3^dim stencil, in the order of the
-// plain stencil walk: row (oz, oy), x ascending, then position.  (Lanes
-// of up to four adjacent cells walking the union span of their cells, so
-// that more lanes share each load, were measured slower on the paths:
-// the extra candidates cost more than the shared loads save.)
+// Lanes (wcsph_pair, pair_stub, gtvf_pair, fused_pair).  Threads follow
+// the dest's sorted order, so the 32 lanes of a warp hold dests of one or
+// a few nearby cells, and the lanes of one cell load the same records at
+// the same steps.  Each lane walks the span of its own cells cx - 1 .. cx
+// + 1 in every stencil row: exactly the candidates of the 3^dim stencil,
+// in the order of the plain stencil walk: row (oz, oy), x ascending, then
+// position.  (Lanes of up to four adjacent cells walking the union span
+// of their cells, so that more lanes share each load, were measured
+// slower on the paths: the extra candidates cost more than the shared
+// loads save.)
 //
 // The walker.  Every lane of a warp runs the same number of steps (the
 // warp's longest span), so the votes see all 32 lanes.  A lane tests its
@@ -31,7 +37,8 @@
 
 #pragma once
 
-#include "wcsph_terms.cuh"
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace walk {
 
@@ -41,20 +48,55 @@ constexpr int kWindows = 4;
 // record loads a lane has in flight while it tests candidates
 constexpr int kBatch = 4;
 
+// One record of four values of a packed source.
+template <typename T>
+struct Rec {
+  T a, b, c, d;
+};
+
+// Record k of a packed plane: one 16-byte load in float, two in double.
+__device__ __forceinline__ Rec<float> rec(const float* p, int k) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p) + k);
+  return {v.x, v.y, v.z, v.w};
+}
+__device__ __forceinline__ Rec<double> rec(const double* p, int k) {
+  const double2* q = reinterpret_cast<const double2*>(p) + 2 * k;
+  const double2 lo = __ldg(q), hi = __ldg(q + 1);
+  return {lo.x, lo.y, hi.x, hi.y};
+}
+template <typename T>
+__device__ __forceinline__ Rec<T> rec(const void* p, int k) {
+  return rec(static_cast<const T*>(p), k);
+}
+
+// The support test of every walk, r2 < (rs max(hi, hj))^2, of a dest's
+// {xi, yi, zi, hi} against a candidate's {x, y, z, h} record.
+template <typename T>
+__device__ __forceinline__ bool in_support(const Rec<T>& di,
+                                           const Rec<T>& pj, T rs) {
+  const T xij = di.a - pj.a;
+  const T yij = di.b - pj.b;
+  const T zij = di.c - pj.c;
+  const T r2 = xij * xij + yij * yij + zij * zij;
+  const T sup = rs * (di.d > pj.d ? di.d : pj.d);
+  return r2 < sup * sup;
+}
+
 // Positions [k0, k1) of a source's packed copy.
 struct Span {
   int k0, k1;
 };
 
-// The particles of cells xa..xb (clipped to the grid) of row (y, z); empty
+// The particles of cells xa..xb (clipped to the grid of g's nx, ny, nz)
+// of row (y, z) of a source whose cells hold [start[c], end[c]); empty
 // where the row lies outside the grid.
-__device__ __forceinline__ Span row_span(const WcsphArgs& a,
-                                         const SrcArgs& S, int xa, int xb,
+template <class G>
+__device__ __forceinline__ Span row_span(const G& g, const int32_t* start,
+                                         const int32_t* end, int xa, int xb,
                                          int y, int z) {
-  if (y < 0 || y >= a.ny || z < 0 || z >= a.nz) return {0, 0};
-  const int row = a.nx * (y + a.ny * z);
-  return {S.cell_start[row + max(xa, 0)],
-          S.cell_end[row + min(xb, a.nx - 1)]};
+  if (y < 0 || y >= g.ny || z < 0 || z >= g.nz) return {0, 0};
+  const int row = g.nx * (y + g.ny * z);
+  return {start[row + max(xa, 0)], end[row + min(xb, g.nx - 1)]};
 }
 
 // One lane's candidates in support not yet handed to the body: window w
@@ -84,26 +126,24 @@ struct Walker {
     if (k >= 0) body(k);
   }
 
-  // Test this lane's positions [k0, k0 + n) against dest d: pos(k) is
-  // candidate k's {x, y, z, h} record.
+  // Test this lane's positions [k0, k0 + n) against the dest's {xi, yi,
+  // zi, hi} di: pos(k) is candidate k's {x, y, z, h} record.
   template <class Pos, class Body>
-  __device__ __forceinline__ void walk(int k0, int n,
-                                       const wcsph::Dest<T>& d, T rs,
-                                       Pos& pos, Body& body) {
+  __device__ __forceinline__ void walk(int k0, int n, const Rec<T>& di,
+                                       T rs, Pos& pos, Body& body) {
     const int trip = static_cast<int>(
         __reduce_max_sync(kFull, static_cast<unsigned>(max(n, 0))));
     for (int t0 = 0; t0 < trip; t0 += 32) {
       const int m = min(32, n - t0);  // this lane's steps in the window
       unsigned found = 0;
       for (int b = 0; b < m; b += kBatch) {
-        wcsph::Rec<T> r[kBatch];
+        Rec<T> r[kBatch];
 #pragma unroll
         for (int u = 0; u < kBatch; ++u)
           r[u] = pos(k0 + t0 + min(b + u, m - 1));
 #pragma unroll
         for (int u = 0; u < kBatch; ++u)
-          if (b + u < m && wcsph::in_support(d, r[u], rs))
-            found |= 1u << (b + u);
+          if (b + u < m && in_support(di, r[u], rs)) found |= 1u << (b + u);
       }
       if (!__any_sync(kFull, found != 0)) continue;
       while (__any_sync(kFull, bits[0] != 0)) round(body);
@@ -130,38 +170,42 @@ struct Walker {
   }
 };
 
-// A lane's cell: its x cell and row.  Lanes past the end of the dest
-// array walk nothing.
+// A lane's cell: its x cell and row.  A lane that walks nothing (past the
+// end of the dest array, or a dest that takes no pair) is not active.
 struct Lane {
   int cx, y, z;
   bool active;
 };
 
-__device__ __forceinline__ Lane lane_cell(const WcsphArgs& a, int cell,
+template <class G>
+__device__ __forceinline__ Lane lane_cell(const G& g, int cell,
                                           bool active) {
-  const int row = cell / a.nx;
-  return {cell % a.nx, row % a.ny, row / a.ny, active};
+  const int row = cell / g.nx;
+  return {cell % g.nx, row % g.ny, row / g.ny, active};
 }
 
 // One source's walk for a lane: each stencil row (oz, oy), in order,
 // over the lane's x cell widened by `halo` on each side (1: the pair
-// kernel's walk; 0: the lane's own cell, pair_stub's `third`), reading
-// the {x, y, z, h} records from the packed copy.  The caller finishes the
+// kernels' walk; 0: the lane's own cell, pair_stub's `third`), reading
+// the {x, y, z, h} records from the plane `pos` of the source's packed
+// copy, whose cells hold [start[c], end[c]).  The caller finishes the
 // walker once the source's last row is walked.
-template <typename T, class Body>
-__device__ __forceinline__ void walk_rows(const WcsphArgs& a,
-                                          const SrcArgs& S, const Lane& l,
-                                          int halo, const wcsph::Dest<T>& d,
-                                          T rs, Walker<T>& walker,
-                                          Body& body) {
-  auto pos = [&](int k) { return wcsph::rec<T>(S.pos, k); };
-  const int ry = a.ny > 1, rz = a.nz > 1;
+template <typename T, class G, class Body>
+__device__ __forceinline__ void walk_rows(const G& g,
+                                          const int32_t* start,
+                                          const int32_t* end,
+                                          const void* pos, const Lane& l,
+                                          int halo, const Rec<T>& di, T rs,
+                                          Walker<T>& walker, Body& body) {
+  auto load = [&](int k) { return rec<T>(pos, k); };
+  const int ry = g.ny > 1, rz = g.nz > 1;
   for (int oz = -rz; oz <= rz; ++oz) {
     for (int oy = -ry; oy <= ry; ++oy) {
       Span sp{0, 0};
       if (l.active)
-        sp = row_span(a, S, l.cx - halo, l.cx + halo, l.y + oy, l.z + oz);
-      walker.walk(sp.k0, sp.k1 - sp.k0, d, rs, pos, body);
+        sp = row_span(g, start, end, l.cx - halo, l.cx + halo, l.y + oy,
+                      l.z + oz);
+      walker.walk(sp.k0, sp.k1 - sp.k0, di, rs, load, body);
     }
   }
 }

@@ -48,7 +48,7 @@
 // Interface: plain C through ctypes (ops/dense_pair.py), as wcsph_pair:
 // the launch function launches the pack of a.pack, then the walk.
 
-#include "cell_walk.cuh"
+#include "wcsph_terms.cuh"
 
 namespace {
 
@@ -172,7 +172,8 @@ struct Chunks {
         }
       }
       const walk::Span sp =
-          walk::row_span(a, a.src[s], x0 - 1, x1 + 1, row_y(a), row_z(a));
+          walk::row_span(a, a.src[s].cell_start, a.src[s].cell_end, x0 - 1,
+                         x1 + 1, row_y(a), row_z(a));
       if (sp.k0 < sp.k1) {
         kc = sp.k0;
         k1 = sp.k1;
@@ -253,6 +254,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
     const int cx = active ? a.cell[i] % a.nx : x0;
     Dest<T> d{};
     if (active) d.load(a, i, dterms);
+    const Rec<T> di = d.point();
 
     Chunks c;
     c.begin(a, x0, x1, y, z);
@@ -280,10 +282,11 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
         // this thread's own cells cx - 1 .. cx + 1 of the row, in the chunk
         walk::Span own{0, 0};
         if (active)
-          own = walk::row_span(a, S, cx - 1, cx + 1, c.row_y(a), c.row_z(a));
+          own = walk::row_span(a, S.cell_start, S.cell_end, cx - 1, cx + 1,
+                               c.row_y(a), c.row_z(a));
         const int lo = max(own.k0, kc), hi = min(own.k1, kc + c.count());
         auto staged_pos = [&](int k) { return srec(staged, k - kc); };
-        walker.walk(lo, hi - lo, d, rs, staged_pos, body);
+        walker.walk(lo, hi - lo, di, rs, staged_pos, body);
         // the warp's reads of the stage come before the producer's refill
         __syncwarp();
         if (threadIdx.x % 32 == 0) mbar_arrive(&empty[st]);

@@ -1,4 +1,5 @@
-// GTVF pair kernel for Hopper (sm_90a).
+// GTVF pair kernel for Hopper (sm_90a): the warp-coherent walk of
+// csrc/cell_walk.cuh over the cell-sorted packed sources.
 //
 // Replaces pysph_tpu/ops/pallas_engine.py::_pair_kernel_compact for the
 // pair phases of the GTVF dam break (examples/dam_break_2d.py --scheme
@@ -18,31 +19,47 @@
 // computes every pair term of one dest array over all of its sources (at
 // most 4) and writes each output once.
 //
-// What bounds it: per candidate pair it loads 4 to 12 source values
-// through the cell-sorted index, scattered over memory, against some 30
-// to 120 flops; the neighbour gather (L2 and DRAM traffic, latency), not
-// arithmetic, is the limit on an H100.
+// What bounds it: the candidates of the 3x3-cell stencil and, per pair
+// in support, 30 to 120 flops on 4 to 12 source values.  Walked one dest
+// per thread in unrelated cells, each candidate cost a chained index load
+// and four scattered loads, and the functor ran whenever any lane of the
+// warp had a pair in support.
 //
-// Design: one thread per dest particle walks the 3^dim cells around its
-// own cell in each source's sorted cell list (base/cell_grid.py: no
-// per-cell capacity, nothing can overflow), applies the support test
-// r2 < (rs max(hi, hj))^2, computes WIJ and DWIJ with the guards of the
-// torch pair engine, and hands the pair to the phase set's functor,
-// which accumulates in registers.  The epilogue writes pre + sum under
-// the write mask (Group real=True) and pre elsewhere.  No atomics and no
-// cross-thread reduction, so the result is the same on every run.  Every
+// Design, as csrc/wcsph_pair.cu: thread t takes the dest at position t
+// of the dest's sorted order, so a warp holds dests of one or a few
+// nearby cells.  Each source is read from its packed copy (csrc/
+// cell_pack.cuh, launched by this file's launch function just before the
+// walk), whose record planes are, as ops/gtvf_pair.py PACK_RECORDS:
+//   plane 0: x y z h
+//   plane 1: m rho p rho0
+//   plane 2: u v w 0
+//   plane 3: uhat vhat what 0
+//   plane 4: ug vg wg 0
+// of which a source packs plane 0 and those its terms read (so one or two
+// record loads a pair in support: WallPressure packs planes 0 and 1,
+// Momentum 0 to 3).  Each lane walks its own cells cx - 1 .. cx + 1 as
+// one span in each stencil row, tests the support r2 < (rs max(hi,
+// hj))^2 on the {x y z h} records, and the walker hands the candidates in
+// support to the pair body in rounds, one per lane; the body computes
+// WIJ and DWIJ with the guards of the torch pair engine and hands the
+// pair to the phase set's functor, which reads the records of the planes
+// it needs and accumulates in registers.  The epilogue writes pre + sum
+// under the write mask (Group real=True) and pre elsewhere.  No shared
+// memory and no atomics, so the result is the same on every run, and
+// each lane sums its pairs in the order of the plain stencil walk.  Every
 // dest read sees the value from before the phase, as in the Pallas
 // kernel; the planner refuses a phase set in which one equation reads
 // what another accumulates.  No fast-math: CorrectDensity divides by the
 // source's rho0, which is 0 on the walls, and the reference gives IEEE
-// inf there.
+// inf there; the pack copies the 0 as it is.
 //
 // Interface: plain C, called through ctypes (ops/gtvf_pair.py).  The
 // launch function takes a host pointer to GtvfArgs (copied into the
-// kernel's parameters) and the stream, and returns cudaGetLastError().
+// kernel's parameters) and the stream, launches the pack of a.pack and
+// then the walk, and returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cell_pack.cuh"
+#include "cell_walk.cuh"
 
 // The argument structs are at global scope: the exported C functions
 // take them, and a type in an unnamed namespace would give those
@@ -60,12 +77,14 @@ enum Out {
 enum Phase {
   kWallVelocity, kContinuity, kDensity, kWallPressure, kMomentum
 };
+// the record planes of the packed copy (above)
+enum Plane { kPos, kMass, kVel, kHat, kGhost, kPlanes };
 
 struct SrcArgs {
-  const void *x, *y, *z, *h, *m, *rho, *rho0, *p, *u, *v, *w, *uhat,
-      *vhat, *what, *ug, *vg, *wg;
-  const int32_t* order;       // particle indices sorted by cell
-  const int32_t* cell_start;  // per cell: first position in order
+  // the packed copy's planes, in the source's cell order; null where the
+  // source's terms read none of the plane's props
+  const void* plane[kPlanes];
+  const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double gx, gy, gz;          // SolidWallPressureBC's gravity
   int32_t terms, pad;
@@ -75,15 +94,22 @@ struct GtvfArgs {
   const void *x, *y, *z, *h, *rho, *p, *p0, *u, *v, *w, *uhat, *vhat,
       *what, *au, *av, *aw;  // dest
   const int32_t* cell;       // dest cell id, ix + nx * (iy + ny * iz)
+  const int32_t* dorder;     // the dest's cell order: threads follow it
   const uint8_t* wmask;      // write mask (bool); null: every row
   const void* pre[kNumOut];  // values before the phase; null: unused
   void* out[kNumOut];
   SrcArgs src[kMaxSources];
   double radius_scale, kfac;  // kfac: the kernel's sigma
   int32_t n_dest, n_src, nx, ny, nz, dim, phase, dtype;
+  // the pack that fills the sources' planes: the launch function launches
+  // it just before the walk (n_src 0: none)
+  PackArgs pack;
 };
 
 namespace {
+
+using walk::Rec;
+using walk::rec;
 
 template <typename T>
 __device__ __forceinline__ T ld(const void* p, int i) {
@@ -110,10 +136,11 @@ __device__ __forceinline__ T hpow(T h1, int dim) {
   return dim == 1 ? h1 : dim == 2 ? h1 * h1 : h1 * h1 * h1;
 }
 
-// One pair in support, with the symbols the equations read.
+// One pair in support, with the symbols the equations read: k is the
+// source particle's position in its packed copy.
 template <typename T>
 struct Pair {
-  int j;
+  int k;
   T xij, yij, zij, rij, hij;
   T w;              // WIJ
   T dwx, dwy, dwz;  // DWIJ
@@ -134,17 +161,22 @@ __device__ __forceinline__ int all_terms(const GtvfArgs& a) {
   return t;
 }
 
+// Each functor: kBlocks, the blocks of 128 threads an SM that its
+// kernel's __launch_bounds__ asks for; load(a, i), the dest's values;
+// pair(a, S, q), one pair in support; store(a, i, wm), the epilogue.
 template <typename T>
 struct WallVelocity {
+  static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
   T uf = 0, vf = 0, wf = 0, wij = 0;
   __device__ void load(const GtvfArgs&, int) {}
   __device__ void pair(const GtvfArgs&, const SrcArgs& S,
                        const Pair<T>& q) {
     if (!(S.terms & kSwv)) return;
+    const Rec<T> vj = rec<T>(S.plane[kVel], q.k);
     wij += q.w;
-    uf += ld<T>(S.u, q.j) * q.w;
-    vf += ld<T>(S.v, q.j) * q.w;
-    wf += ld<T>(S.w, q.j) * q.w;
+    uf += vj.a * q.w;
+    vf += vj.b * q.w;
+    wf += vj.c * q.w;
   }
   __device__ void store(const GtvfArgs& a, int i, bool wm) {
     put(a, oUf, i, uf, wm);
@@ -156,6 +188,7 @@ struct WallVelocity {
 
 template <typename T>
 struct Continuity {
+  static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
   T rhoi = 0, ui = 0, vi = 0, wi = 0, uhi = 0, vhi = 0, whi = 0;
   T arho = 0;
   __device__ void load(const GtvfArgs& a, int i) {
@@ -174,19 +207,19 @@ struct Continuity {
   }
   __device__ void pair(const GtvfArgs&, const SrcArgs& S,
                        const Pair<T>& q) {
-    const int j = q.j;
-    const T mj = ld<T>(S.m, j), rhoj = ld<T>(S.rho, j);
+    const Rec<T> mass = rec<T>(S.plane[kMass], q.k);
+    const T mj = mass.a, rhoj = mass.b;
     if (S.terms & kCgtvf) {  // ContinuityEquationGTVF
-      const T udotdij = q.dwx * (uhi - ld<T>(S.uhat, j)) +
-                        q.dwy * (vhi - ld<T>(S.vhat, j)) +
-                        q.dwz * (whi - ld<T>(S.what, j));
+      const Rec<T> hat = rec<T>(S.plane[kHat], q.k);
+      const T udotdij = q.dwx * (uhi - hat.a) + q.dwy * (vhi - hat.b) +
+                        q.dwz * (whi - hat.c);
       arho += rhoi * mj / rhoj * udotdij;
     }
     if (S.terms & kCsolid) {  // ContinuitySolid
+      const Rec<T> g = rec<T>(S.plane[kGhost], q.k);
       const T Vj = mj / rhoj;
-      const T vdotdw = (ui - ld<T>(S.ug, j)) * q.dwx +
-                       (vi - ld<T>(S.vg, j)) * q.dwy +
-                       (wi - ld<T>(S.wg, j)) * q.dwz;
+      const T vdotdw =
+          (ui - g.a) * q.dwx + (vi - g.b) * q.dwy + (wi - g.c) * q.dwz;
       arho += rhoi * Vj * vdotdw;
     }
   }
@@ -197,14 +230,16 @@ struct Continuity {
 
 template <typename T>
 struct Density {
+  static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
   T rho = 0, rhodiv = 0;
   __device__ void load(const GtvfArgs&, int) {}
   __device__ void pair(const GtvfArgs&, const SrcArgs& S,
                        const Pair<T>& q) {
     if (!(S.terms & kCdens)) return;  // CorrectDensity
-    const T mw = ld<T>(S.m, q.j) * q.w;
+    const Rec<T> mass = rec<T>(S.plane[kMass], q.k);
+    const T mw = mass.a * q.w;
     rho += mw;
-    rhodiv += mw / ld<T>(S.rho0, q.j);  // inf where rho0 is 0
+    rhodiv += mw / mass.d;  // inf where rho0 is 0
   }
   __device__ void store(const GtvfArgs& a, int i, bool wm) {
     put(a, oRho, i, rho, wm);
@@ -214,6 +249,7 @@ struct Density {
 
 template <typename T>
 struct WallPressure {
+  static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
   T aui = 0, avi = 0, awi = 0;
   T V = 0, p = 0, wij = 0;
   __device__ void load(const GtvfArgs& a, int i) {
@@ -229,7 +265,8 @@ struct WallPressure {
     if (S.terms & kWallp) {         // SolidWallPressureBC
       const T gdotxij = (T(S.gx) - aui) * q.xij + (T(S.gy) - avi) * q.yij +
                         (T(S.gz) - awi) * q.zij;
-      p += ld<T>(S.p, q.j) * q.w + ld<T>(S.rho, q.j) * gdotxij * q.w;
+      const Rec<T> mass = rec<T>(S.plane[kMass], q.k);
+      p += mass.c * q.w + mass.b * gdotxij * q.w;
       wij += q.w;
     }
   }
@@ -240,34 +277,39 @@ struct WallPressure {
   }
 };
 
+// The dest's parts of both equations are computed once in load():
+// pi / rhoi^2, -p0i / rhoi^2 and the nine ui[c] uidif[d] / rhoi, so that
+// a pair in support divides twice where it divided 21 times.
 template <typename T>
 struct Momentum {
-  T rhoi = 0, rhoi2 = 0, pi = 0, p0i = 0;
-  T ui[3] = {0, 0, 0}, uidif[3] = {0, 0, 0};
+  static constexpr int kBlocks = sizeof(T) == 4 ? 7 : 4;
+  T pirho2 = 0, p0rho2 = 0;
+  T si[3][3] = {};  // ui[c] uidif[d] / rhoi
   T au = 0, av = 0, aw = 0, auhat = 0, avhat = 0, awhat = 0;
   __device__ void load(const GtvfArgs& a, int i) {
     const int t = all_terms(a);
-    rhoi = ld<T>(a.rho, i);
-    rhoi2 = rhoi * rhoi;
+    const T rhoi = ld<T>(a.rho, i);
+    const T rhoi2 = rhoi * rhoi;
     if (t & kMpg) {
-      pi = ld<T>(a.p, i);
-      p0i = ld<T>(a.p0, i);
+      pirho2 = ld<T>(a.p, i) / rhoi2;
+      p0rho2 = -ld<T>(a.p0, i) / rhoi2;
     }
     if (t & kMas) {
-      ui[0] = ld<T>(a.u, i);
-      ui[1] = ld<T>(a.v, i);
-      ui[2] = ld<T>(a.w, i);
-      uidif[0] = ld<T>(a.uhat, i) - ui[0];
-      uidif[1] = ld<T>(a.vhat, i) - ui[1];
-      uidif[2] = ld<T>(a.what, i) - ui[2];
+      const T ui[3] = {ld<T>(a.u, i), ld<T>(a.v, i), ld<T>(a.w, i)};
+      const T uidif[3] = {ld<T>(a.uhat, i) - ui[0], ld<T>(a.vhat, i) - ui[1],
+                          ld<T>(a.what, i) - ui[2]};
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int d = 0; d < 3; ++d) si[c][d] = ui[c] * uidif[d] / rhoi;
     }
   }
   __device__ void pair(const GtvfArgs& a, const SrcArgs& S,
                        const Pair<T>& q) {
-    const int j = q.j;
-    const T mj = ld<T>(S.m, j), rhoj = ld<T>(S.rho, j);
+    const Rec<T> mass = rec<T>(S.plane[kMass], q.k);
+    const T mj = mass.a, rhoj = mass.b;
     if (S.terms & kMpg) {  // MomentumEquationPressureGradient
-      const T pij = pi / rhoi2 + ld<T>(S.p, j) / (rhoj * rhoj);
+      const T pij = pirho2 + mass.c / (rhoj * rhoj);
       const T tmp = -mj * pij;
       au += tmp * q.dwx;
       av += tmp * q.dwy;
@@ -279,15 +321,17 @@ struct Momentum {
       shape<T>(q.rij * h1, wq, dwq);
       const T wdash = dwq * (T(a.kfac) * hpow(h1, a.dim));
       const T g = q.rij > T(1e-12) ? wdash / (h * q.rij) : T(0);
-      const T tmph = -p0i * mj / rhoi2;
+      const T tmph = p0rho2 * mj;
       auhat += tmph * (g * q.xij);
       avhat += tmph * (g * q.yij);
       awhat += tmph * (g * q.zij);
     }
     if (S.terms & kMas) {  // MomentumEquationArtificialStress
-      const T uj[3] = {ld<T>(S.u, j), ld<T>(S.v, j), ld<T>(S.w, j)};
-      const T ujdif[3] = {ld<T>(S.uhat, j) - uj[0], ld<T>(S.vhat, j) - uj[1],
-                          ld<T>(S.what, j) - uj[2]};
+      const Rec<T> vel = rec<T>(S.plane[kVel], q.k);
+      const Rec<T> hat = rec<T>(S.plane[kHat], q.k);
+      const T rhoj1 = T(1) / rhoj;
+      const T uj[3] = {vel.a, vel.b, vel.c};
+      const T ujdif[3] = {hat.a - uj[0], hat.b - uj[1], hat.c - uj[2]};
       const T dw[3] = {q.dwx, q.dwy, q.dwz};
       T res[3];
 #pragma unroll
@@ -295,7 +339,7 @@ struct Momentum {
         T acc = T(0);
 #pragma unroll
         for (int d = 0; d < 3; ++d)
-          acc += (ui[c] * uidif[d] / rhoi + uj[c] * ujdif[d] / rhoj) * dw[d];
+          acc += (si[c][d] + uj[c] * ujdif[d] * rhoj1) * dw[d];
         res[c] = acc;
       }
       au += mj * res[0];
@@ -313,66 +357,55 @@ struct Momentum {
   }
 };
 
-// The cell walk shared by every phase set.
+// The walk shared by every phase set.
 template <typename T, class PhaseSet>
-__global__ void __launch_bounds__(128) gtvf_pair_kernel(const GtvfArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n_dest) return;
+__global__ void __launch_bounds__(128, PhaseSet::kBlocks)
+    gtvf_pair_kernel(const GtvfArgs a) {
+  // every lane stays to the end: the walk's votes take the whole warp
+  const int pos = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = pos < a.n_dest;
+  const int i = active ? a.dorder[pos] : 0;
+  const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
 
-  const T xi = ld<T>(a.x, i), yi = ld<T>(a.y, i), zi = ld<T>(a.z, i);
-  const T hi = ld<T>(a.h, i);
-  const T rs = T(a.radius_scale), kfac = T(a.kfac);
+  Rec<T> di{};  // {xi, yi, zi, hi}
   PhaseSet ph;
-  ph.load(a, i);
+  if (active) {
+    di = {ld<T>(a.x, i), ld<T>(a.y, i), ld<T>(a.z, i), ld<T>(a.h, i)};
+    ph.load(a, i);
+  }
+  const T rs = T(a.radius_scale), kfac = T(a.kfac);
 
-  const int c = a.cell[i];
-  const int cx = c % a.nx, cy = (c / a.nx) % a.ny, cz = c / (a.nx * a.ny);
-  const int rx = a.nx > 1, ry = a.ny > 1, rz = a.nz > 1;
-
+  walk::Walker<T> walker;
+  walker.begin();
   for (int s = 0; s < a.n_src; ++s) {
     const SrcArgs& S = a.src[s];
-    for (int oz = -rz; oz <= rz; ++oz) {
-      const int z = cz + oz;
-      if (z < 0 || z >= a.nz) continue;
-      for (int oy = -ry; oy <= ry; ++oy) {
-        const int y = cy + oy;
-        if (y < 0 || y >= a.ny) continue;
-        for (int ox = -rx; ox <= rx; ++ox) {
-          const int x = cx + ox;
-          if (x < 0 || x >= a.nx) continue;
-          const int nc = x + a.nx * (y + a.ny * z);
-          const int kend = S.cell_end[nc];
-          for (int k = S.cell_start[nc]; k < kend; ++k) {
-            Pair<T> q;
-            q.j = S.order[k];
-            q.xij = xi - ld<T>(S.x, q.j);
-            q.yij = yi - ld<T>(S.y, q.j);
-            q.zij = zi - ld<T>(S.z, q.j);
-            const T r2 = q.xij * q.xij + q.yij * q.yij + q.zij * q.zij;
-            const T hj = ld<T>(S.h, q.j);
-            const T sup = rs * (hi > hj ? hi : hj);
-            if (!(r2 < sup * sup)) continue;
-
-            q.hij = T(0.5) * (hi + hj);
-            const T rinv = r2 > T(1e-24) ? T(1) / sqrt(r2) : T(0);
-            q.rij = r2 * rinv;
-            const T h1 = T(1) / (q.hij > T(0) ? q.hij : T(1));
-            T wq, dwq;
-            shape<T>(q.rij * h1, wq, dwq);
-            const T fac = kfac * hpow(h1, a.dim);
-            q.w = wq * fac;
-            const T g = q.rij > T(1e-12) ? dwq * fac * h1 * rinv : T(0);
-            q.dwx = g * q.xij;
-            q.dwy = g * q.yij;
-            q.dwz = g * q.zij;
-            ph.pair(a, S, q);
-          }
-        }
-      }
-    }
+    auto body = [&](int k) {
+      const Rec<T> pj = rec<T>(S.plane[kPos], k);
+      Pair<T> q;
+      q.k = k;
+      q.xij = di.a - pj.a;
+      q.yij = di.b - pj.b;
+      q.zij = di.c - pj.c;
+      const T r2 = q.xij * q.xij + q.yij * q.yij + q.zij * q.zij;
+      q.hij = T(0.5) * (di.d + pj.d);
+      const T rinv = r2 > T(1e-24) ? T(1) / sqrt(r2) : T(0);
+      q.rij = r2 * rinv;
+      const T h1 = T(1) / (q.hij > T(0) ? q.hij : T(1));
+      T wq, dwq;
+      shape<T>(q.rij * h1, wq, dwq);
+      const T fac = kfac * hpow(h1, a.dim);
+      q.w = wq * fac;
+      const T gr = q.rij > T(1e-12) ? dwq * fac * h1 * rinv : T(0);
+      q.dwx = gr * q.xij;
+      q.dwy = gr * q.yij;
+      q.dwz = gr * q.zij;
+      ph.pair(a, S, q);
+    };
+    walk::walk_rows(a, S.cell_start, S.cell_end, S.plane[kPos], l, 1, di,
+                    rs, walker, body);
+    walker.finish(body);
   }
-
-  ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
+  if (active) ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
 }
 
 template <typename T>
@@ -410,18 +443,16 @@ int gtvf_pair_args_size() { return static_cast<int>(sizeof(GtvfArgs)); }
 int gtvf_pair_launch(const GtvfArgs* args, void* stream) {
   const GtvfArgs a = *args;
   if (a.n_src < 0 || a.n_src > kMaxSources || a.nx < 1 || a.ny < 1 ||
-      a.nz < 1 || a.dim < 1 || a.dim > 3)
+      a.nz < 1 || a.dim < 1 || a.dim > 3 || (a.dtype != 0 && a.dtype != 1) ||
+      a.dorder == nullptr || a.cell == nullptr || !pack::args_ok(a.pack) ||
+      (a.pack.n_src != 0 && a.pack.dtype != a.dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (a.dtype == 0)
-    err = launch<float>(a, st);
-  else if (a.dtype == 1)
-    err = launch<double>(a, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const cudaError_t packed = pack::launch(a.pack, st);
+  if (packed != cudaSuccess) return static_cast<int>(packed);
+  return static_cast<int>(a.dtype == 0 ? launch<float>(a, st)
+                                        : launch<double>(a, st));
 }
 
 const char* gtvf_pair_error_string(int code) {

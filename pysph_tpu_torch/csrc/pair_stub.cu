@@ -42,7 +42,7 @@
 // takes a host pointer to StubArgs and the stream, and returns
 // cudaGetLastError().
 
-#include "cell_walk.cuh"
+#include "wcsph_terms.cuh"
 
 struct StubArgs {
   WcsphArgs a;
@@ -91,7 +91,8 @@ __global__ void __launch_bounds__(128) pair_stub_kernel(const StubArgs sa) {
           if (mom) acc += t.b + t.c;
         }
       };
-      walk::walk_rows(a, S, l, MODE == kAll ? 1 : 0, d, rs, walker, fold);
+      wcsph::walk_rows(a, S, l, MODE == kAll ? 1 : 0, d, rs, walker,
+                       fold);
       walker.finish(fold);
     }
     if (!active) return;

@@ -34,7 +34,7 @@
 // kernel's parameters) and the stream, launches the pack of a.pack and
 // then the walk, and returns cudaGetLastError().
 
-#include "cell_walk.cuh"
+#include "wcsph_terms.cuh"
 
 namespace {
 
@@ -72,7 +72,7 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
       d.template pair<KIND>(c, k, terms, c0, alpha, beta, xeps, rs, kfac,
                             a.dim);
     };
-    walk::walk_rows(a, S, l, 1, d, rs, walker, body);
+    wcsph::walk_rows(a, S, l, 1, d, rs, walker, body);
     walker.finish(body);
   }
   if (active) d.store(a, i);

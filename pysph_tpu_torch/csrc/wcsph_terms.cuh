@@ -12,10 +12,13 @@
 // through a functor (`Src::x(j)`, ...); the walks hand it one
 // candidate's records (Cand).
 //
-// Sources are read from their packed copy (csrc/cell_pack.cuh): records of
-// four values of the working type in the source's cell order, so that the
-// walk reads one 16-byte (float) or 32-byte (double) record where it read
-// an index and four scattered values.
+// Sources are read from their packed copy (csrc/cell_pack.cuh), whose
+// record planes are, as ops/wcsph_pair.py PACK_RECORDS:
+//   plane 0: x y z h
+//   plane 1: u v w m
+//   plane 2: rho p cs 0
+// the third only where the term mask reads rho (p and cs 0 where it reads
+// neither).
 
 #pragma once
 
@@ -23,6 +26,7 @@
 #include <stdint.h>
 
 #include "cell_pack.cuh"
+#include "cell_walk.cuh"
 
 // The argument structs are at global scope: the exported C functions
 // take them, and a type in an unnamed namespace would give those
@@ -105,26 +109,8 @@ __device__ __forceinline__ void shape(T q, T& w, T& dw) {
   }
 }
 
-// One record of four values of a packed source.
-template <typename T>
-struct Rec {
-  T a, b, c, d;
-};
-
-// Record k of a packed array: one 16-byte load in float, two in double.
-__device__ __forceinline__ Rec<float> rec(const float* p, int k) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p) + k);
-  return {v.x, v.y, v.z, v.w};
-}
-__device__ __forceinline__ Rec<double> rec(const double* p, int k) {
-  const double2* q = reinterpret_cast<const double2*>(p) + 2 * k;
-  const double2 lo = __ldg(q), hi = __ldg(q + 1);
-  return {lo.x, lo.y, hi.x, hi.y};
-}
-template <typename T>
-__device__ __forceinline__ Rec<T> rec(const void* p, int k) {
-  return rec(static_cast<const T*>(p), k);
-}
+using walk::Rec;
+using walk::rec;
 
 // One candidate's packed records, as the pair body reads them (the
 // body's particle index is not used: the values are already here).
@@ -228,6 +214,9 @@ struct Dest {
     }
   }
 
+  // {xi, yi, zi, hi}: the walk's support test
+  __device__ Rec<T> point() const { return {xi, yi, zi, hi}; }
+
   // pre + sum (max(pre, m) for dt_cfl) where the write mask is set,
   // pre elsewhere.
   __device__ void store(const WcsphArgs& a, int i) const {
@@ -243,17 +232,17 @@ struct Dest {
   }
 };
 
-// The support test of Dest::pair, r2 < (rs max(hi, hj))^2, against a
-// candidate's {x, y, z, h} record: the walks' test of every candidate.
-template <typename T>
-__device__ __forceinline__ bool in_support(const Dest<T>& d,
-                                           const Rec<T>& pj, T rs) {
-  const T xij = d.xi - pj.a;
-  const T yij = d.yi - pj.b;
-  const T zij = d.zi - pj.c;
-  const T r2 = xij * xij + yij * yij + zij * zij;
-  const T sup = rs * (d.hi > pj.d ? d.hi : pj.d);
-  return r2 < sup * sup;
+// The walk over one source for a lane (walk::walk_rows), with the grid
+// and the source's cell ranges and {x, y, z, h} plane of `a`.
+template <typename T, class Body>
+__device__ __forceinline__ void walk_rows(const WcsphArgs& a,
+                                          const SrcArgs& S,
+                                          const walk::Lane& l, int halo,
+                                          const Dest<T>& d, T rs,
+                                          walk::Walker<T>& walker,
+                                          Body& body) {
+  walk::walk_rows(a, S.cell_start, S.cell_end, S.pos, l, halo,
+                  d.point(), rs, walker, body);
 }
 
 // The union of the sources' term masks.

@@ -1,16 +1,18 @@
-"""The walks of the WCSPH pair kernels, in torch: which source positions
-each dest tests.
+"""The walks of the pair kernels, in torch: which source positions each
+dest tests.
 
-Mirrors ``csrc/cell_walk.cuh`` (``wcsph_pair`` and ``pair_stub``) and the
-tile constants of ``csrc/dense_pair.cu``, so that the CPU tests can hold
-the rules to the plain stencil walk.  Positions index a source's packed
-copy (``ops/wcsph_pair.py::pack_sources``), which is its cell order.
+Mirrors ``csrc/cell_walk.cuh`` (``wcsph_pair``, ``gtvf_pair``,
+``fused_pair`` and ``pair_stub``) and the tile constants of
+``csrc/dense_pair.cu``, so that the CPU tests can hold the rules to the
+plain stencil walk.  Positions index a source's packed copy
+(``ops/cell_pack.py``), which is its cell order.
 
-``wcsph_pair``'s rule: the dest at position ``p`` of its sorted order is
-lane ``p % 32`` of warp ``p // 32``, and in each stencil row (z offset
-outer, y offset inner) it tests the positions of its x cells ``cx - halo
-.. cx + halo`` (clipped to the grid), one contiguous range: with halo 1
-exactly the candidates of its 3^dim stencil.
+The lanes' rule: the dest at position ``p`` of its sorted order is lane
+``p % 32`` of warp ``p // 32``, and in each stencil row (z offset outer,
+y offset inner) it tests the positions of its x cells ``cx - halo .. cx
++ halo`` (clipped to the grid), one contiguous range: with halo 1
+exactly the candidates of its 3^dim stencil.  (``fused_pair``'s dests
+with ``h <= 0`` walk nothing.)
 """
 
 import torch
@@ -33,8 +35,8 @@ def stencil_rows(grid):
 def walk_spans(grid, dest_cells, src_cells, halo=1):
     """(n, rows, 2) int64: the source positions [k0, k1) that the dest at
     each sorted position tests in each stencil row (``stencil_rows``),
-    under ``wcsph_pair``'s rule (halo 1) or ``pair_stub``'s ``third``
-    (halo 0); (0, 0) for a row outside the grid."""
+    under the lanes' rule (halo 1) or ``pair_stub``'s ``third`` (halo 0);
+    (0, 0) for a row outside the grid."""
     nx, ny, nz = grid.dims
     cell = dest_cells.cell[dest_cells.order.long()].long()
     cx, row = cell % nx, cell // nx

@@ -10,7 +10,7 @@ Pallas engine (``PYSPH_TPU_RESIDENT=0 PYSPH_TPU_COMPACT=0``).
 
 For CUDA tensors it calls ``csrc/dense_pair.cu`` (built on first use by
 ``ops/build.py``) once, which launches the source pack (counted in
-``ops/wcsph_pair.py::pack_sources.launches``) and then the walk (one
+``ops/cell_pack.py::pack.launches``) and then the walk (one
 thread block per tile of x-adjacent dest cells of a row, the neighbour
 rows of the packed sources staged in shared memory by bulk copies;
 counted in ``dense_pair.launches``); for CPU tensors it calls

@@ -12,9 +12,11 @@ Where the JAX function takes dense ``(n_cells * M,)`` slot arrays, this
 one takes the per-particle state and its ``CellList`` on a ``CellGrid``
 whose cells are at least ``2 hmax`` wide (``radius_scale >= 2``).
 
-For CUDA tensors it launches ``csrc/fused_pair.cu`` (built on first use
-by ``ops/build.py``) and counts the launch in
-``fused_continuity_momentum.launches``; for CPU tensors it calls
+For CUDA tensors it calls ``csrc/fused_pair.cu`` (built on first use by
+``ops/build.py``) once: its launch function packs the array in its cell
+order into the ``PACK_RECORDS`` planes (``ops/cell_pack.py``, counted in
+``cell_pack.pack.launches``) and then walks it against itself (counted
+in ``fused_continuity_momentum.launches``).  For CPU tensors it calls
 ``fused_continuity_momentum_reference``.
 """
 
@@ -23,10 +25,13 @@ import math
 
 import torch
 
-from pysph_tpu_torch.ops import build
+from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 
 PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'rho', 'p')
+#: record planes of the packed copy (csrc/fused_pair.cu)
+PACK_RECORDS = (('x', 'y', 'z', 'h'), ('u', 'v', 'w', None),
+                ('rho', 'p', None, None))
 #: dest rows per pair-list chunk of the plain version
 CHUNK = 16384
 
@@ -93,16 +98,29 @@ def fused_continuity_momentum_reference(state, cells, grid, dim=3, c0=10.0,
     return arho, -au, -av, -aw
 
 
+def pack_reference(state, cells):
+    """Plain torch version of the kernel's packed copy of ``state``: the
+    ``(3, n, 4)`` records of ``PACK_RECORDS`` in the cell order."""
+    return cell_pack.pack_reference([(state, cells.order, PACK_RECORDS)])[0]
+
+
+def pack(state, cells):
+    """The packed copy the kernel walks, launched alone
+    (``cell_pack.pack``); same result as ``pack_reference``."""
+    return cell_pack.pack([(state, cells.order, PACK_RECORDS)])[0]
+
+
 class _Args(ctypes.Structure):
-    _fields_ = ([(p, ctypes.c_void_p) for p in PROPS] +
-                [('cell', ctypes.c_void_p), ('order', ctypes.c_void_p),
-                 ('cell_start', ctypes.c_void_p),
-                 ('cell_end', ctypes.c_void_p),
-                 ('out', ctypes.c_void_p * 4),
-                 ('c0', ctypes.c_double), ('alpha', ctypes.c_double),
-                 ('beta', ctypes.c_double), ('eps_fac', ctypes.c_double)] +
-                [(k, ctypes.c_int32) for k in (
-                    'n', 'nx', 'ny', 'nz', 'dim', 'dtype')])
+    _fields_ = [('plane', ctypes.c_void_p * len(PACK_RECORDS)),
+                ('cell', ctypes.c_void_p), ('order', ctypes.c_void_p),
+                ('cell_start', ctypes.c_void_p),
+                ('cell_end', ctypes.c_void_p),
+                ('out', ctypes.c_void_p * 4),
+                ('c0', ctypes.c_double), ('alpha', ctypes.c_double),
+                ('beta', ctypes.c_double), ('eps_fac', ctypes.c_double)] + \
+        [(k, ctypes.c_int32) for k in ('n', 'nx', 'ny', 'nz', 'dim',
+                                       'dtype')] + \
+        [('pack', cell_pack.PackArgs)]
 
 
 def _launch(state, cells, grid, dim, c0, alpha, beta, eps_fac):
@@ -113,14 +131,19 @@ def _launch(state, cells, grid, dim, c0, alpha, beta, eps_fac):
         raise ValueError('fused_continuity_momentum: dtype %s' % fdt)
     i32 = torch.int32
     args = _Args()
-    for p in PROPS:
-        setattr(args, p, data_ptr(state[p], n, fdt, dev, p))
+    out = [torch.empty_like(x) for _ in range(4)]
+    if n == 0:
+        return tuple(out)
+    # the copy's buffer stays referenced until the launch is queued
+    buf = cell_pack.fill(args.pack, [(state, cells.order, PACK_RECORDS)],
+                         'fused_continuity_momentum')
+    for q in range(len(PACK_RECORDS)):
+        args.plane[q] = buf.data_ptr() + q * n * 4 * x.element_size()
     args.cell = data_ptr(cells.cell, n, i32, dev, 'cell')
     args.order = data_ptr(cells.order, n, i32, dev, 'order')
     args.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
                                'cell_start')
     args.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
-    out = [torch.empty_like(x) for _ in range(4)]
     for k, t in enumerate(out):
         args.out[k] = t.data_ptr()
     args.c0, args.alpha, args.beta, args.eps_fac = c0, alpha, beta, eps_fac
@@ -128,10 +151,9 @@ def _launch(state, cells, grid, dim, c0, alpha, beta, eps_fac):
     args.nx, args.ny, args.nz = grid.dims
     args.dim = dim
     args.dtype = 1 if fdt == torch.float64 else 0
-    if n == 0:
-        return tuple(out)
     build.launch('fused_pair', args, dev)
     fused_continuity_momentum.launches += 1
+    cell_pack.pack.launches += 1
     return tuple(out)
 
 

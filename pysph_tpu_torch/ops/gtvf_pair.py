@@ -24,18 +24,22 @@ Each output is ``pre + sum`` on rows under the write mask and ``pre``
 elsewhere; every read sees the value from before the phase.  The
 smoothing kernel is ``WendlandQuintic``.
 
-For CUDA tensors it launches ``csrc/gtvf_pair.cu`` (built on first use
-by ``ops/build.py``) and counts the launch in ``gtvf_pair.launches``; for
-CPU tensors it calls ``gtvf_pair_reference``, the torch pair engine
-running the same ``Equation`` objects.
+For CUDA tensors it calls ``csrc/gtvf_pair.cu`` (built on first use by
+``ops/build.py``) once: its launch function launches the source pack
+(``ops/cell_pack.py``, counted in ``cell_pack.pack.launches``; each
+source packs the ``PACK_RECORDS`` planes its terms read) and then the
+walk (counted in ``gtvf_pair.launches``).  For CPU tensors it calls
+``gtvf_pair_reference``, the torch pair engine running the same
+``Equation`` objects.
 """
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
-from pysph_tpu_torch.ops import build
+from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 
 SWV, CGTVF, CSOLID, CDENS, VSUM, WALLP, MPG, MAS = (1 << k for k in range(8))
@@ -64,8 +68,13 @@ _TERM_READS = {
           ('m', 'rho', 'u', 'v', 'w') + _HAT)}
 _DEST_PROPS = ('x', 'y', 'z', 'h', 'rho', 'p', 'p0', 'u', 'v', 'w', 'uhat',
                'vhat', 'what', 'au', 'av', 'aw')
-_SRC_PROPS = ('x', 'y', 'z', 'h', 'm', 'rho', 'rho0', 'p', 'u', 'v', 'w',
-              'uhat', 'vhat', 'what', 'ug', 'vg', 'wg')
+#: record planes of the packed copy (csrc/gtvf_pair.cu): mass and
+#: density props share one plane, which every term but SWV and VSUM
+#: reads, so a pair in support loads one to three records beyond {x y z
+#: h}; a source packs the planes its terms read (``cell_pack.layout``)
+PACK_RECORDS = (('x', 'y', 'z', 'h'), ('m', 'rho', 'p', 'rho0'),
+                ('u', 'v', 'w', None), ('uhat', 'vhat', 'what', None),
+                ('ug', 'vg', 'wg', None))
 
 
 class GtvfSource(NamedTuple):
@@ -86,18 +95,45 @@ def phase_of(terms):
     return None
 
 
+@functools.lru_cache(maxsize=None)
 def outputs_for(terms):
     return tuple(p for p in OUTPUTS
                  if any(terms & t and p in TERM_OUTPUTS[t]
                         for t in TERM_OUTPUTS))
 
 
+@functools.lru_cache(maxsize=None)
 def _reads(terms, side):
     props = {'x', 'y', 'z', 'h'}
     for t, reads in _TERM_READS.items():
         if terms & t:
             props.update(reads[side])
-    return props
+    return frozenset(props)
+
+
+def pack_layout(terms):
+    """(slots, planes): the ``PACK_RECORDS`` planes a source with the
+    term mask packs, and their prop names (``cell_pack.layout``)."""
+    return cell_pack.layout(PACK_RECORDS, _reads(terms, 1))
+
+
+def _packs(sources):
+    return [(src, cells.order, pack_layout(gs.terms)[1])
+            for src, cells, gs in sources]
+
+
+def pack_sources_reference(sources):
+    """Plain torch version of ``pack_sources``: for each (state,
+    ``CellList``, ``GtvfSource``) of a call, the ``(planes, n, 4)``
+    records of its planes gathered through the cell order."""
+    return cell_pack.pack_reference(_packs(sources))
+
+
+def pack_sources(sources):
+    """The packed copy of every source of a ``gtvf_pair`` call; same
+    arguments and result as ``pack_sources_reference``.  CPU tensors
+    take the plain version; CUDA tensors launch ``csrc/cell_pack.cu``."""
+    return cell_pack.pack(_packs(sources))
 
 
 def gtvf_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
@@ -120,17 +156,18 @@ def gtvf_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
 
 
 class _SrcArgs(ctypes.Structure):
-    _fields_ = ([(p, ctypes.c_void_p) for p in _SRC_PROPS] +
-                [('order', ctypes.c_void_p), ('cell_start', ctypes.c_void_p),
-                 ('cell_end', ctypes.c_void_p),
-                 ('gx', ctypes.c_double), ('gy', ctypes.c_double),
-                 ('gz', ctypes.c_double),
-                 ('terms', ctypes.c_int32), ('pad', ctypes.c_int32)])
+    _fields_ = [('plane', ctypes.c_void_p * len(PACK_RECORDS)),
+                ('cell_start', ctypes.c_void_p),
+                ('cell_end', ctypes.c_void_p),
+                ('gx', ctypes.c_double), ('gy', ctypes.c_double),
+                ('gz', ctypes.c_double),
+                ('terms', ctypes.c_int32), ('pad', ctypes.c_int32)]
 
 
 class _Args(ctypes.Structure):
     _fields_ = ([(p, ctypes.c_void_p) for p in _DEST_PROPS] +
-                [('cell', ctypes.c_void_p), ('wmask', ctypes.c_void_p),
+                [('cell', ctypes.c_void_p), ('dorder', ctypes.c_void_p),
+                 ('wmask', ctypes.c_void_p),
                  ('pre', ctypes.c_void_p * len(OUTPUTS)),
                  ('out', ctypes.c_void_p * len(OUTPUTS)),
                  ('src', _SrcArgs * MAX_SOURCES),
@@ -138,7 +175,8 @@ class _Args(ctypes.Structure):
                  ('kfac', ctypes.c_double)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim', 'phase',
-                    'dtype')])
+                    'dtype')] +
+                [('pack', cell_pack.PackArgs)])
 
 
 def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
@@ -150,14 +188,18 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
         raise ValueError('gtvf_pair: %d sources' % len(sources))
     i32 = torch.int32
     args = _Args()
+    # the copies' buffer stays referenced until the launch is queued
+    buf = cell_pack.fill(args.pack, _packs(sources), 'gtvf_pair') \
+        if n and sources else None
     terms = 0
     for k, (src, cells, gs) in enumerate(sources):
         terms |= gs.terms
-        ns = src['x'].shape[0]
         sa = args.src[k]
-        for p in _reads(gs.terms, 1):
-            setattr(sa, p, data_ptr(src[p], ns, fdt, dev, 's_' + p))
-        sa.order = data_ptr(cells.order, ns, i32, dev, 'source order')
+        if buf is not None:
+            copy = args.pack.src[k]
+            plane = copy.n * 4 * x.element_size()
+            for q, slot in enumerate(pack_layout(gs.terms)[0]):
+                sa.plane[slot] = copy.out + q * plane
         sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
                                  'cell_start')
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
@@ -169,6 +211,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     for p in _reads(terms, 0):
         setattr(args, p, data_ptr(dest[p], n, fdt, dev, 'd_' + p))
     args.cell = data_ptr(dest_cells.cell, n, i32, dev, 'dest cell')
+    args.dorder = data_ptr(dest_cells.order, n, i32, dev, 'dest order')
     if write_mask is not None:
         args.wmask = data_ptr(write_mask, n, torch.bool, dev, 'write mask')
     if set(pre) != set(outputs_for(terms)):
@@ -191,6 +234,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
         return out
     build.launch('gtvf_pair', args, dev)
     gtvf_pair.launches += 1
+    cell_pack.pack.launches += bool(args.pack.n_src)
     return out
 
 

@@ -21,7 +21,7 @@ launches nothing: it is also the tools' "skip" variant.
 For CUDA tensors it calls ``csrc/pair_stub.cu`` (built on first use by
 ``ops/build.py``) once: in the modes that walk its launch function
 launches the source pack first, as ``wcsph_pair``'s does (counted in
-``pack_sources.launches``); the stub's launch is counted in
+``cell_pack.pack.launches``); the stub's launch is counted in
 ``pair_stub.launches``.  For CPU tensors it calls the plain version.
 """
 
@@ -29,8 +29,8 @@ import ctypes
 
 import torch
 
-from pysph_tpu_torch.ops import build
-from pysph_tpu_torch.ops.wcsph_pair import WcsphArgs, pack_sources, pair_args
+from pysph_tpu_torch.ops import build, cell_pack
+from pysph_tpu_torch.ops.wcsph_pair import WcsphArgs, pair_args
 
 #: in the order of the kernel's Mode enum
 MODES = ('none', 'dest', 'third', 'all')
@@ -67,14 +67,15 @@ def pair_stub(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     if dev.type != 'cuda':
         raise ValueError('pair_stub: no kernel for device %s' % dev)
     walks = mode in ('third', 'all') and dest['x'].shape[0] > 0
-    args, out, _ = pair_args('pair_stub', dest, dest_cells, write_mask, pre,
-                             sources, grid, kernel, packed=walks)
+    # the copies' buffer stays referenced until the launch is queued
+    args, out, buf = pair_args('pair_stub', dest, dest_cells, write_mask,
+                               pre, sources, grid, kernel, packed=walks)
     if args.n_dest == 0:
         return out
     build.launch('pair_stub', StubArgs(args, None, MODES.index(mode), 0),
                  dev)
     pair_stub.launches += 1
-    pack_sources.launches += bool(args.pack.n_src)
+    cell_pack.pack.launches += bool(args.pack.n_src)
     return out
 
 

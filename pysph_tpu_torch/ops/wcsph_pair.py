@@ -16,20 +16,18 @@ from before the phase.
 
 For CUDA tensors it calls ``csrc/wcsph_pair.cu`` (built on first use by
 ``ops/build.py``) once: its launch function launches the source pack
-(``csrc/cell_pack.cuh``, counted in ``pack_sources.launches``) and then
+(``ops/cell_pack.py``, counted in ``cell_pack.pack.launches``) and then
 the walk (counted in ``wcsph_pair.launches``); for CPU tensors it calls
 ``wcsph_pair_reference``, the same computation on the torch pair engine.
 ``ops/dense_pair.py`` is the other walk of the same contract, with the
 same arguments and ``launch_pair``.
 
 The packed copy: for each source of a call, its props in its cell order
-(position ``k`` is particle ``order[k]``) as records of four values of
-the working type, in ``PACK_RECORDS`` planes.  The walks read one record
-where they read an index and four scattered values, and the particles of
-x-adjacent cells of a row are one contiguous span.  A copy is made for
-every call: a dest's ``initialize``/``post_loop`` between two calls of
-one group may write a source prop in place.  ``pack_sources`` launches
-the pack alone (``csrc/cell_pack.cu``), for the tests and the timings.
+as records of four values of the working type, in the ``PACK_RECORDS``
+planes that its terms read.  A copy is made for every call: a dest's
+``initialize``/``post_loop`` between two calls of one group may write a
+source prop in place.  ``pack_sources`` launches the pack alone
+(``csrc/cell_pack.cu``), for the tests and the timings.
 """
 
 import ctypes
@@ -38,7 +36,7 @@ import functools
 import torch
 
 from pysph_tpu_torch.base.kernels import KERNEL_KIND
-from pysph_tpu_torch.ops import build
+from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.sph.basic_equations import (
     ContinuityEquation, XSPHCorrection)
@@ -57,8 +55,8 @@ _TERM_READS = {CONT: ('m',), MOM: ('m', 'rho', 'p', 'cs'),
 _DEST_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'rho', 'p', 'cs')
 _SRC_PROPS = ('x', 'y', 'z', 'h', 'u', 'v', 'w', 'm', 'rho', 'p', 'cs')
 
-#: record planes of the packed copy; the third only where the terms read
-#: rho, and a prop the terms do not read is written as 0
+#: record planes of the packed copy (csrc/wcsph_terms.cuh); the third
+#: only where the terms read rho (``cell_pack.layout``)
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('u', 'v', 'w', 'm'),
                 ('rho', 'p', 'cs', None))
 
@@ -115,95 +113,35 @@ def wcsph_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
     return {p: store[p] for p in pre}
 
 
+def pack_layout(terms):
+    """Prop names of the record planes of a source's packed copy under
+    the term mask (``cell_pack.layout``)."""
+    return cell_pack.layout(PACK_RECORDS, _reads(terms, with_mass=True))[1]
+
+
 def pack_planes(terms):
     """Record planes of a source's packed copy under the term mask."""
-    return 3 if terms & (MOM | XSPH) else 2
+    return len(pack_layout(terms))
+
+
+def _packs(sources):
+    return [(src, cells.order, pack_layout(ps.terms))
+            for src, cells, ps in sources]
 
 
 def pack_sources_reference(sources):
     """Plain torch version of ``pack_sources``: for each (state,
     ``CellList``, ``PairSource``) of a call, the ``(planes, n, 4)``
-    records of ``PACK_RECORDS`` gathered through the cell order."""
-    out = []
-    for src, cells, ps in sources:
-        order = cells.order.long()
-        reads = _reads(ps.terms, with_mass=True)
-        zero = torch.zeros_like(src['x'][order])
-        out.append(torch.stack([
-            torch.stack([src[p][order] if p in reads else zero
-                         for p in names], dim=1)
-            for names in PACK_RECORDS[:pack_planes(ps.terms)]]))
-    return out
-
-
-class _PackSrc(ctypes.Structure):
-    _fields_ = ([(p, ctypes.c_void_p) for p in _SRC_PROPS] +
-                [('order', ctypes.c_void_p), ('out', ctypes.c_void_p),
-                 ('n', ctypes.c_int32), ('planes', ctypes.c_int32)])
-
-
-class PackArgs(ctypes.Structure):
-    _fields_ = [('src', _PackSrc * MAX_SOURCES), ('n_src', ctypes.c_int32),
-                ('dtype', ctypes.c_int32)]
-
-
-def fill_pack(args, sources, name):
-    """Fill the ``PackArgs`` ``args`` for the sources of a call on the
-    card, checking their props (``name`` is for the messages), and
-    allocate their packed copies in one buffer.  Returns the copies, as
-    ``pack_sources`` does; ``args.n_src`` stays 0 where no source has a
-    particle, and then nothing is to be launched."""
-    x = sources[0][0]['x']
-    dev, fdt = x.device, x.dtype
-    if fdt not in (torch.float32, torch.float64):
-        raise ValueError('%s: dtype %s' % (name, fdt))
-    if len(sources) > MAX_SOURCES:
-        raise ValueError('%s: %d sources' % (name, len(sources)))
-    shapes = [(pack_planes(ps.terms), src['x'].shape[0], 4)
-              for src, _, ps in sources]
-    sizes = [p * n * 4 for p, n, _ in shapes]
-    buf = torch.empty(sum(sizes), dtype=fdt, device=dev)
-    out, off = [], 0
-    for k, (src, cells, ps) in enumerate(sources):
-        sa = args.src[k]
-        ns = shapes[k][1]
-        for p in _reads(ps.terms, with_mass=True):
-            setattr(sa, p, data_ptr(src[p], ns, fdt, dev, 's_' + p))
-        sa.order = data_ptr(cells.order, ns, torch.int32, dev,
-                            'source order')
-        # every copy starts at a whole record: aligned for the walks
-        out.append(buf[off:off + sizes[k]].view(shapes[k]))
-        sa.out = out[-1].data_ptr()
-        sa.planes, sa.n = shapes[k][:2]
-        off += sizes[k]
-    args.n_src = len(sources) if off else 0
-    args.dtype = 1 if fdt == torch.float64 else 0
-    return out
+    records of its ``pack_layout`` gathered through the cell order."""
+    return cell_pack.pack_reference(_packs(sources))
 
 
 def pack_sources(sources):
     """The packed copy of every source of a call; same arguments and
     result as ``pack_sources_reference``.  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/cell_pack.cu`` once for all the
-    sources."""
-    if not sources:
-        return []
-    dev = sources[0][0]['x'].device
-    if dev.type == 'cpu':
-        return pack_sources_reference(sources)
-    if dev.type != 'cuda':
-        raise ValueError('pack_sources: no kernel for device %s' % dev)
-    args = PackArgs()
-    out = fill_pack(args, sources, 'pack_sources')
-    if args.n_src:
-        build.launch('cell_pack', args, dev)
-        pack_sources.launches += 1
-    return out
-
-
-#: kernel launches since the last reset (set to 0 to reset), by
-#: ``pack_sources`` and by the walks' calls, which launch the pack first
-pack_sources.launches = 0
+    sources (``cell_pack.pack``)."""
+    return cell_pack.pack(_packs(sources))
 
 
 class _SrcArgs(ctypes.Structure):
@@ -229,7 +167,7 @@ class WcsphArgs(ctypes.Structure):
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim',
                     'kernel_kind', 'dtype')] +
-                [('pack', PackArgs)])
+                [('pack', cell_pack.PackArgs)])
 
 
 def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
@@ -237,10 +175,10 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
     """Check the arguments of a kernel that takes ``WcsphArgs``
     (``wcsph_pair``, ``dense_pair``, ``pair_stub``; ``name`` is for the
     messages) and fill them in.  With ``packed``, also the pack
-    (``args.pack``, ``fill_pack``) that the kernel's launch function runs
-    before its walk, and the walk's pointers into its copies; without,
+    (``args.pack``, ``cell_pack.fill``) that the kernel's launch function
+    runs before its walk, and the walk's pointers into its copies; without,
     no source records, for a kernel that walks none.  Returns (args,
-    {output: empty tensor}, the packed copies or None)."""
+    {output: empty tensor}, the buffer of the packed copies or None)."""
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
@@ -251,18 +189,18 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
         raise ValueError('%s: no shape function for %r' % (name, kernel))
     i32 = torch.int32
     args = WcsphArgs()
-    copies = fill_pack(args.pack, sources, name) if packed and sources \
-        else None
+    buf = cell_pack.fill(args.pack, _packs(sources), name) \
+        if packed and sources else None
     terms = 0
     for k, (src, cells, ps) in enumerate(sources):
         terms |= ps.terms
         sa = args.src[k]
-        if copies is not None:
-            ptr = copies[k].data_ptr()
-            plane = copies[k][0].numel() * copies[k].element_size()
-            sa.pos, sa.vel = ptr, ptr + plane
-            if copies[k].shape[0] == 3:
-                sa.thermo = ptr + 2 * plane
+        if buf is not None:
+            copy = args.pack.src[k]
+            plane = copy.n * 4 * x.element_size()
+            sa.pos, sa.vel = copy.out, copy.out + plane
+            if copy.planes == 3:
+                sa.thermo = copy.out + 2 * plane
         sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
                                  'cell_start')
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
@@ -295,7 +233,7 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
     args.dim = kernel.dim
     args.kernel_kind = KERNEL_KIND[type(kernel)]
     args.dtype = 1 if fdt == torch.float64 else 0
-    return args, out, copies
+    return args, out, buf
 
 
 def launch_pair(name, op, dest, dest_cells, write_mask, pre, sources, grid,
@@ -305,12 +243,13 @@ def launch_pair(name, op, dest, dest_cells, write_mask, pre, sources, grid,
     pack, then the walk, from one host call on the current stream.
     Returns {output: tensor}."""
     n = dest['x'].shape[0]
-    args, out, _ = pair_args(name, dest, dest_cells, write_mask, pre,
-                             sources, grid, kernel, packed=n > 0)
+    # the copies' buffer stays referenced until the launch is queued
+    args, out, buf = pair_args(name, dest, dest_cells, write_mask, pre,
+                               sources, grid, kernel, packed=n > 0)
     if n:
         build.launch(name, args, dest['x'].device)
         op.launches += 1
-        pack_sources.launches += bool(args.pack.n_src)
+        cell_pack.pack.launches += bool(args.pack.n_src)
     return out
 
 

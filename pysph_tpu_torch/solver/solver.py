@@ -8,12 +8,20 @@ shortened to land on them) and at the end.  The particle state is a dict
 of per-array tensor dicts on the configured device; the host arrays are
 refreshed for each dump and at the end of ``solve``.  Adaptive dt costs
 one device-to-host copy per step, a dump one copy of the state.
+
+The evaluators share one ``CellGrid``, whose binnings flag particles
+beyond its cells (``CellGrid.overflow``); the solver grows the grid when
+the flag is set.  With adaptive dt the flag rides on the dt's copy, so
+a step still reads the device once; with a fixed dt the solver reads it
+every ``GROW_CHECK_STEPS`` steps.  Between reads, escaped particles are
+clamped into the edge cells, which is slower but correct.
 """
 
 import logging
 import os
 
 import numpy as np
+import torch
 
 from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import CubicSpline
@@ -23,6 +31,8 @@ from pysph_tpu_torch.solver.utils import mkdir
 logger = logging.getLogger(__name__)
 
 EPSILON = 1e-14
+#: steps between two reads of the grid's overflow flag where dt is fixed
+GROW_CHECK_STEPS = 20
 
 
 class Solver(object):
@@ -131,11 +141,24 @@ class Solver(object):
         return dt
 
     def _compute_timestep(self):
+        """The next dt; grows the grid if its last binning overflowed."""
         undamped = self._get_undamped_timestep()
+        flag = self.grid.overflow
+        dt = None
         if self.adaptive_timestep:
-            return self.integrator.compute_time_step(self.states, undamped,
-                                                     self.cfl)
-        return undamped
+            dt = self.integrator.compute_time_step(self.states, undamped,
+                                                   self.cfl)
+        if dt is not None:
+            # one device-to-host copy for both
+            dt, grow = torch.stack([dt, flag.to(dt.dtype)]).tolist()
+        else:
+            dt = undamped
+            grow = self.count % GROW_CHECK_STEPS == 0 and bool(flag)
+        if grow:
+            self.grid.grow(self.states.values())
+            logger.info('step %d: particles left the cell grid; grown to '
+                        '%s', self.count, self.grid.dims)
+        return dt
 
     def _damp_timestep(self, dt):
         n_damp = self.n_damp

@@ -12,7 +12,7 @@ nothing either.
 Adaptive dt follows the reference: the maxima of the ``dt_cfl`` /
 ``dt_force`` / ``dt_visc`` properties give ``hmin/f``,
 ``sqrt(hmin/sqrt(f))`` and ``hmin/f``.  The reductions run on the device
-and the result crosses to the host once per step.
+and the result crosses to the host once per step, in the solver.
 """
 
 import torch
@@ -82,8 +82,10 @@ class Integrator(object):
         raise NotImplementedError()
 
     def compute_time_step(self, states, dt_current, cfl):
-        """The adaptive dt as a float (``dt_current`` when no particle
-        constrains it)."""
+        """The adaptive dt as a 0-d tensor on the states' device
+        (``dt_current`` where no particle constrains it), or None when no
+        array has a ``dt_*`` property.  Nothing is read back: the solver
+        copies it to the host together with the grid's overflow flag."""
         arrays = [s for s in states.values() if s['h'].numel() > 0]
         factors = {}
         for prop in ('dt_cfl', 'dt_force', 'dt_visc'):
@@ -91,7 +93,7 @@ class Integrator(object):
             if vals:
                 factors[prop] = torch.stack(vals).max().clamp(min=-1.0)
         if not factors:
-            return dt_current
+            return None
         hmin = torch.stack([s['h'].min() for s in arrays]).min()
         inf = torch.full_like(hmin, float('inf'))
         dt_min = inf
@@ -103,7 +105,7 @@ class Integrator(object):
                 cand = hmin / torch.where(pos, f, 1.0)
             dt_min = torch.minimum(dt_min, torch.where(pos, cand, inf))
         ok = (dt_min > 0) & torch.isfinite(dt_min)
-        return float(torch.where(ok, cfl * dt_min, dt_current))
+        return torch.where(ok, cfl * dt_min, dt_current)
 
 
 class EPECIntegrator(Integrator):

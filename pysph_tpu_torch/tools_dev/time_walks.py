@@ -1,21 +1,25 @@
-"""The WCSPH pair kernels timed on their paths' calls, on the card.
+"""The pair kernels timed on their paths' calls, on the card.
 
     python3 pysph_tpu_torch/tools_dev/time_walks.py [label]
 
-Builds one eval's pair calls of dam_break_3d at dx=0.02 and of the
-elliptical drop at nx=200 (float32, seeded velocity and density
-perturbations, as ``chip_smoke.py`` times them) and times ``wcsph_pair``
-and ``dense_pair`` on both: CUDA events around eager calls and around
-replays of a CUDA graph of the calls, and the host's time a call.  Then
-it runs each path for ``STEPS`` steps from rest (the drop under
-``--engine kernel`` and ``--engine dense``) and takes the median ms/step
-after ``WARMUP`` steps (host clock, the card synchronised between
-steps).  Prints one JSON line per path, tagged with ``label`` and the
-card's name and power limit.
+Builds the pair calls of one eval of dam_break_3d at dx=0.02 and of the
+elliptical drop at nx=200, and of both evals of the GTVF dam break at
+dx=0.004 (float32, seeded velocity and density perturbations, as
+``chip_smoke.py`` times them), and times ``wcsph_pair`` and
+``dense_pair`` on the first two, ``gtvf_pair`` on the third and
+``fused_continuity_momentum`` on the drop's state: CUDA events around
+eager calls and around replays of a CUDA graph of the calls, and the
+host's time a call (the source pack alone too, where the checkout has
+its entry).  Then it runs each path for ``STEPS`` steps from rest (the
+drop under ``--engine kernel`` and ``--engine dense``) and takes the
+median ms/step after ``WARMUP`` steps (host clock, the card
+synchronised between steps).  Prints one JSON line per path, tagged
+with ``label`` and the card's name and power limit.
 
-The script uses only the port's entry points (the examples, the two
-wrappers, ``tools_dev/common.py`` and ``tools_dev/roofline.py``), so it
-also times an older checkout of the port: run it by path with
+The script uses only the port's entry points (the examples, the
+wrappers, ``CellGrid``, ``tools_dev/common.py`` and
+``tools_dev/roofline.py``), so it also times an older checkout of the
+port: run it by path with
 ``PYTHONPATH`` set to that checkout, and alternate the two in one call
 (older, newer, newer, older) to compare them on one card.
 ``chip_smoke.py`` builds its calls with the functions here.
@@ -28,9 +32,13 @@ import time
 import numpy as np
 import torch
 
+from pysph_tpu_torch.base.cell_grid import CellGrid
+from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
 from pysph_tpu_torch.ops import dense_pair as dp
+from pysph_tpu_torch.ops import fused_pair as fp
+from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.tools_dev import common, roofline
 
@@ -117,6 +125,31 @@ def drop_calls(nx, dtype):
     return plan_calls(s, [0]), n, app
 
 
+def gtvf_calls(dx, dtype):
+    """(calls, particle count) for both evals of the perturbed GTVF dam
+    break at ``dx``, after one pass of each eval has set the derived
+    properties (wall ghost velocities, rho0, p0, ...)."""
+    app = make_app(dx, dtype, cls=DamBreak2D, extra=('--scheme', 'gtvf'))
+    s = app.solver
+    perturb(s.states, dtype, ('u', 'v', 'uhat', 'vhat'))
+    for a_eval in s.acceleration_evals:
+        a_eval.compute(0.0, s.dt, s.states)
+    n = sum(st['x'].shape[0] for st in s.states.values())
+    return plan_calls(s, range(len(s.acceleration_evals))), n
+
+
+def fused_call(nx, dtype):
+    """(state, cells, grid, keyword arguments, app) of one
+    ``fused_continuity_momentum`` call (CubicSpline, cells 2 hmax wide)
+    on the perturbed drop at ``nx`` after its first eval."""
+    _, _, app = drop_calls(nx, dtype)
+    st = app.solver.states['fluid']
+    grid = CellGrid.from_particles(app.particles, dim=2, radius_scale=2.0)
+    cells = grid.bin_all({'fluid': st})['fluid']
+    return st, cells, grid, dict(dim=2, c0=app.co, alpha=app.alpha,
+                                 beta=0.0), app
+
+
 def step_ms(app):
     """Median ms/step of ``app``'s run after ``WARMUP`` steps."""
     stamps = []
@@ -149,8 +182,10 @@ def host_us(fn, n_calls, reps=REPS):
 
 def time_ops(calls, ops, reps=REPS):
     """{name: ms} of one eval's calls through each op of ``ops`` ({name:
-    op}): eagerly, as ``<name> graph`` replayed from a CUDA graph, and
-    the host's microseconds a call as ``<name> host_us``."""
+    op}): eagerly, as ``<name> graph`` replayed from a CUDA graph, the
+    host's microseconds a call as ``<name> host_us``, and where there
+    are several calls, each alone in a graph as ``<name> graph per
+    call``."""
     times = {}
     for name, op in ops.items():
         times[name] = common.events_ms(
@@ -159,35 +194,64 @@ def time_ops(calls, ops, reps=REPS):
             lambda: [op(*c[3]) for c in calls], reps)
         times[name + ' host_us'] = host_us(
             lambda: [op(*c[3]) for c in calls], len(calls), reps)
+        if len(calls) > 1:
+            times[name + ' graph per call'] = [
+                common.graph_ms(lambda: op(*c[3]), reps) for c in calls]
     return times
 
 
 def main(label=''):
     smi = common.require_cuda()
-    ops = {'wcsph_pair': wp.wcsph_pair, 'dense_pair': dp.dense_pair}
-    pack = getattr(wp, 'pack_sources', None)  # not in older checkouts
-    if pack is not None:
-        ops['pack_sources'] = lambda *args: pack(args[4])
     rows = []
+
+    def report(path, calls, ops, work):
+        row = dict(label=label, card=smi, path=path, launches=len(calls),
+                   **time_ops(calls, ops))
+        row.update(work=work, bound_ms=roofline.bound(work)[0])
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+
+    # the packs' entries are not in older checkouts
+    wpack = getattr(wp, 'pack_sources', None)
+    gpack = getattr(gp, 'pack_sources', None)
+    fpack = getattr(fp, 'pack', None)
+    ops = {'wcsph_pair': wp.wcsph_pair, 'dense_pair': dp.dense_pair}
+    if wpack is not None:
+        ops['pack_sources'] = lambda *args: wpack(args[4])
     for path, build in (('dam_break_3d dx=0.02',
                          lambda: pair_calls(0.02, torch.float32)[0]),
                         ('drop nx=200',
                          lambda: drop_calls(200, torch.float32)[0])):
         calls = build()
-        row = dict(label=label, card=smi, path=path, launches=len(calls),
-                   **time_ops(calls, ops))
-        work = roofline.add(*[roofline.wcsph_work(*c[3]) for c in calls])
-        row.update(work=work, bound_ms=roofline.bound(work)[0])
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        report(path, calls, ops, roofline.add(
+            *[roofline.wcsph_work(*c[3]) for c in calls]))
         del calls
-    for path, kw in (('dam_break_3d dx=0.02', dict(dx=0.02)),
-                     ('drop nx=200 kernel', dict(
-                         dx=None, cls=EllipticalDrop, extra=('--nx', '200'))),
-                     ('drop nx=200 dense', dict(
-                         dx=None, cls=EllipticalDrop, extra=('--nx', '200'),
-                         engine='dense'))):
-        app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+    calls = gtvf_calls(0.004, torch.float32)[0]
+    ops = {'gtvf_pair': gp.gtvf_pair}
+    if gpack is not None:
+        ops['pack_sources'] = lambda *args: gpack(args[4])
+    report('GTVF dx=0.004', calls, ops,
+           roofline.add(*[roofline.gtvf_work(*c[3]) for c in calls]))
+    del calls
+    st, cells, grid, kw, app = fused_call(200, torch.float32)
+    ops = {'fused_pair': lambda *args: fp.fused_continuity_momentum(
+        *args, **kw)}
+    if fpack is not None:
+        ops['pack'] = lambda st, cells, grid: fpack(st, cells)
+    report('drop nx=200 fused', [(0, 'fluid', None, (st, cells, grid))],
+           ops, roofline.fused_work(st, cells, grid))
+    del st, cells, app
+    for path, setup in (('dam_break_3d dx=0.02', dict(dx=0.02)),
+                        ('GTVF dx=0.004', dict(
+                            dx=0.004, cls=DamBreak2D,
+                            extra=('--scheme', 'gtvf'))),
+                        ('drop nx=200 kernel', dict(
+                            dx=None, cls=EllipticalDrop,
+                            extra=('--nx', '200'))),
+                        ('drop nx=200 dense', dict(
+                            dx=None, cls=EllipticalDrop,
+                            extra=('--nx', '200'), engine='dense'))):
+        app = make_app(dtype=torch.float32, steps=STEPS, **setup)
         row = dict(label=label, card=smi, path=path, steps=STEPS,
                    ms_per_step=step_ms(app))
         print(json.dumps(row), flush=True)

@@ -1,9 +1,9 @@
-"""Seeded edge cases of the WCSPH pair kernels' walks.
+"""Seeded edge cases of the pair kernels' walks.
 
-Each case is the argument tuple of one ``wcsph_pair`` / ``dense_pair``
-call (``ops/wcsph_pair.py``), built from numpy random numbers, with
-particles pushed beyond the grid so that ``CellGrid`` clamps them into
-its edge cells:
+Each case of ``CASES`` is the argument tuple of one ``wcsph_pair`` /
+``dense_pair`` call (``ops/wcsph_pair.py``), built from numpy random
+numbers, with particles pushed beyond the grid so that ``CellGrid``
+clamps them into its edge cells:
 
 - ``clamped-3d``: WendlandQuintic, a fluid and a wall source, and a fat
   corner cell of clamped particles longer than one ``dense_pair`` stage;
@@ -11,9 +11,13 @@ its edge cells:
 - ``four-sources``: CubicSpline, four sources with four term masks;
 - ``empty-dest``: a dest array of no particles.
 
-Every case but ``four-sources`` has a write mask.  The cases run on any
-device: the CPU tests hold the walks' rules to them and the card tests
-and ``chip_smoke.py`` hold the kernels to their plain version on them
+Every case but ``four-sources`` has a write mask.  ``gtvf_calls`` gives
+the ``gtvf_pair`` calls of both evaluators of a small GTVF dam break,
+optionally with a crowded clamped edge cell, and ``fused_case`` a
+``fused_continuity_momentum`` call with rows of ``h <= 0``, a clamped
+edge cell and cells of a chosen width.  The cases run on any device:
+the CPU tests hold the walks' rules to them and the card tests and
+``chip_smoke.py`` hold the kernels to their plain version on them
 (``check_kernel``).
 """
 
@@ -22,9 +26,12 @@ import torch
 
 from pysph_tpu_torch.base.cell_grid import CELL_SLACK, CellGrid
 from pysph_tpu_torch.base.kernels import CubicSpline, Gaussian, WendlandQuintic
-from pysph_tpu_torch.ops import cell_walk
+from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
+from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
+from pysph_tpu_torch.ops import cell_pack, cell_walk
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops.pair_engine import PairSource
+from pysph_tpu_torch.tools_dev.time_walks import plan_calls
 
 CASES = ('clamped-3d', 'grid-2d', 'four-sources', 'empty-dest')
 ALL = wp.CONT | wp.MOM | wp.XSPH
@@ -117,14 +124,14 @@ def check_kernel(op, args, tol):
     returns the largest scaled error."""
     dest, _, wm, pre = args[:4]
     n = dest['x'].shape[0]
-    launches, packs = op.launches, wp.pack_sources.launches
+    launches, packs = op.launches, cell_pack.pack.launches
     got = op(*args)
     ref = wp.wcsph_pair_reference(*args)
     name = op.__name__
     if op.launches - launches != int(n > 0) or \
-            wp.pack_sources.launches - packs != int(n > 0):
+            cell_pack.pack.launches - packs != int(n > 0):
         raise AssertionError('%s: %d launches and %d packs for %d dests' % (
-            name, op.launches - launches, wp.pack_sources.launches - packs,
+            name, op.launches - launches, cell_pack.pack.launches - packs,
             n))
     if set(got) != set(ref):
         raise AssertionError('%s: outputs %s, plain version %s'
@@ -146,3 +153,76 @@ def check_kernel(op, args, tol):
             raise AssertionError('%s: %s changed outside the write mask'
                                  % (name, p))
     return worst
+
+
+def _argv(device, dtype):
+    return ['-q', '--disable-output', '--device', str(device)] + (
+        ['--use-double'] if dtype == torch.float64 else [])
+
+
+def gtvf_calls(device='cpu', dtype=torch.float64, seed=4, crowd=False,
+               dx=0.05):
+    """[(eval index, dest, plan, arguments)] of every ``gtvf_pair`` call
+    of both evaluators of the GTVF dam break at ``dx``, after one pass of
+    each: seeded velocities and transport velocities, every fifth row
+    outside the write mask, seeded ``pre`` values.  With ``crowd``, 300
+    fluid particles sit far beyond the grid's corner, clamped into its
+    corner cell."""
+    app = DamBreak2D()
+    app.setup(['--scheme', 'gtvf', '--dx', str(dx)] + _argv(device, dtype))
+    s = app.solver
+    rng = np.random.default_rng(seed)
+    for st in s.states.values():
+        n = st['x'].shape[0]
+        for p in ('u', 'v', 'uhat', 'vhat'):
+            st[p] = torch.as_tensor(rng.normal(0.0, 0.5, n), dtype=dtype,
+                                    device=device)
+        st['tag'][::5] = 1
+    if crowd:
+        fluid = s.states['fluid']
+        for c in 'xy':
+            fluid[c] = fluid[c].clone()
+            fluid[c][:300] = fluid[c].max() + 10.0 + 0.05 * torch.as_tensor(
+                rng.uniform(size=300), dtype=dtype, device=device)
+    for a_eval in s.acceleration_evals:
+        a_eval.compute(0.0, s.dt, s.states)
+    calls = []
+    for k, dest, plan, args in plan_calls(s, range(len(s.acceleration_evals))):
+        n = args[0]['x'].shape[0]
+        pre = {p: torch.as_tensor(rng.normal(size=n), dtype=dtype,
+                                  device=device) for p in plan.outputs}
+        calls.append((k, dest, plan, args[:3] + (pre,) + args[4:]))
+    return calls
+
+
+def fused_case(device='cpu', dtype=torch.float64, seed=8, radius_scale=2.0,
+               nx=20):
+    """(state, cells, grid, keyword arguments) of one
+    ``fused_continuity_momentum`` call on the drop at ``nx`` with seeded
+    velocities, pressures and densities, rows of ``h`` 0 and negative,
+    100 particles clamped into the grid's corner cell, on cells
+    ``radius_scale`` hmax wide."""
+    app = EllipticalDrop()
+    app.setup(['--nx', str(nx)] + _argv(device, dtype))
+    st = dict(app.solver.states['fluid'])
+    n = st['x'].shape[0]
+    rng = np.random.default_rng(seed)
+
+    def normal(scale):
+        return torch.as_tensor(rng.normal(0.0, scale, n), dtype=dtype,
+                               device=device)
+    st['u'], st['v'], st['p'] = (st['u'] + normal(10.0),
+                                 st['v'] + normal(10.0),
+                                 st['p'] + normal(100.0))
+    st['rho'] = 1.0 + normal(1e-3)
+    st['h'] = st['h'].clone()
+    st['h'][::37] = 0.0
+    st['h'][5::53] = -st['h'][5::53]
+    grid = CellGrid.from_particles(app.particles, dim=2,
+                                   radius_scale=radius_scale)
+    for c in 'xy':
+        st[c] = st[c].clone()
+        st[c][:100] = st[c].max() + 10.0 + 0.01 * torch.as_tensor(
+            rng.uniform(size=100), dtype=dtype, device=device)
+    cells = grid.bin_all({'fluid': st})['fluid']
+    return st, cells, grid, dict(dim=2, c0=1400.0, alpha=0.1, beta=0.02)

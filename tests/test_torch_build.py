@@ -20,10 +20,13 @@ def csrc(tmp_path, monkeypatch):
 def test_sources_follow_the_includes(csrc):
     for name in ('wcsph_pair', 'dense_pair', 'pair_stub'):
         assert [p.name for p in build.sources(name)] == [
-            name + '.cu', 'cell_walk.cuh', 'wcsph_terms.cuh', 'cell_pack.cuh']
+            name + '.cu', 'wcsph_terms.cuh', 'cell_pack.cuh', 'cell_walk.cuh']
+    for name in ('fused_pair', 'gtvf_pair'):
+        assert [p.name for p in build.sources(name)] == [
+            name + '.cu', 'cell_pack.cuh', 'cell_walk.cuh']
     assert [p.name for p in build.sources('cell_pack')] == [
         'cell_pack.cu', 'cell_pack.cuh']
-    for name in ('fused_pair', 'gtvf_pair', 'micro_launch', 'micro_engine'):
+    for name in ('micro_launch', 'micro_engine'):
         assert [p.name for p in build.sources(name)] == [name + '.cu']
 
 
@@ -42,12 +45,19 @@ def test_header_edit_changes_the_key(csrc):
     assert after['fused_pair'] == before['fused_pair']
     assert after['gtvf_pair'] == before['gtvf_pair']
     assert after['cell_pack'] == before['cell_pack']
-    # the pack's header: the pack and the three walks that launch it
+    # the pack's header: the pack and the five walks that launch it
     pack = csrc / 'cell_pack.cuh'
     pack.write_text(pack.read_text() + '\n// edited\n')
     edited = {n: build.build_key(n) for n in names}
     assert {n for n in names if edited[n] != after[n]} == {
-        'wcsph_pair', 'dense_pair', 'pair_stub', 'cell_pack'}
+        'wcsph_pair', 'dense_pair', 'pair_stub', 'fused_pair', 'gtvf_pair',
+        'cell_pack'}
+    # the walk's header: the five walks
+    walk = csrc / 'cell_walk.cuh'
+    walk.write_text(walk.read_text() + '\n// edited\n')
+    walked = {n: build.build_key(n) for n in names}
+    assert {n for n in names if walked[n] != edited[n]} == {
+        'wcsph_pair', 'dense_pair', 'pair_stub', 'fused_pair', 'gtvf_pair'}
     # a nested include counts too
     (csrc / 'extra.cuh').write_text('// v1\n')
     header.write_text('#include "extra.cuh"\n' + header.read_text())

@@ -1,9 +1,11 @@
-"""The walks of the WCSPH pair kernels on the CPU: row spans of the cell
-order, the packed source copy and the pack's arguments, ``wcsph_pair``'s
-lane walk (``ops/cell_walk.py``, the rule of ``csrc/cell_walk.cuh``) and
-``dense_pair``'s tiles and staged chunks, held to the plain 3^dim
+"""The walks of the pair kernels on the CPU: row spans of the cell
+order, the packed source copies (``ops/cell_pack.py``) and the pack's
+arguments, the lanes' walk of ``wcsph_pair``, ``gtvf_pair`` and
+``fused_pair`` (``ops/cell_walk.py``, the rule of ``csrc/cell_walk.cuh``)
+and ``dense_pair``'s tiles and staged chunks, held to the plain 3^dim
 stencil walk on seeded cases with clamped particles
-(``tools_dev/walk_cases.py``), and the work counter's ``visited``."""
+(``tools_dev/walk_cases.py``), the record planes against the ``.cu``
+sources, and the work counter's ``visited``."""
 
 import re
 
@@ -11,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from pysph_tpu_torch.ops import build, cell_walk
+from pysph_tpu_torch.ops import build, cell_pack, cell_walk
+from pysph_tpu_torch.ops import fused_pair as fp
+from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.tools_dev import roofline
 from pysph_tpu_torch.tools_dev import walk_cases as wc
@@ -204,10 +208,12 @@ def test_pair_args_point_the_walk_at_its_pack(case, dtype):
     copies whose planes the walk reads, one aligned buffer for all."""
     args = wc.make_case(case, dtype=dtype, seed=5)
     sources = args[4]
-    wa, _, copies = wp.pair_args('wcsph_pair', *args, packed=True)
+    wa, _, buf = wp.pair_args('wcsph_pair', *args, packed=True)
+    copies = cell_pack.copies(buf, wp._packs(sources))
     assert wa.pack.n_src == wa.n_src == len(sources) == len(copies)
     assert wa.pack.dtype == wa.dtype == int(dtype == torch.float64)
-    record = 4 * copies[0].element_size()
+    record = 4 * buf.element_size()
+    assert sum(c.numel() for c in copies) == buf.numel()
     for k, (rec, (src, cells, ps)) in enumerate(zip(copies, sources)):
         planes, n = wp.pack_planes(ps.terms), src['x'].shape[0]
         assert rec.shape == (planes, n, 4) and rec.is_contiguous()
@@ -219,9 +225,12 @@ def test_pair_args_point_the_walk_at_its_pack(case, dtype):
         assert (sa.thermo or 0) == (sa.pos + 2 * n * record
                                     if planes == 3 else 0)
         assert ps_args.order == cells.order.data_ptr()
-        for p in wp.PACK_RECORDS[0] + wp.PACK_RECORDS[1]:
-            assert getattr(ps_args, p) == src[p].data_ptr()
-        assert bool(ps_args.rho) == (planes == 3)
+        for q in range(cell_pack.MAX_PLANES):
+            names = wp.pack_layout(ps.terms)[q] if q < planes else (None,) * 4
+            for c, p in enumerate(names):
+                assert (ps_args.prop[q][c] or 0) == (
+                    0 if p is None else src[p].data_ptr()), (q, p)
+        assert bool(ps_args.prop[2][0]) == (planes == 3)
     no_pack = wp.pair_args('wcsph_pair', *args)
     assert no_pack[0].pack.n_src == 0 and no_pack[2] is None
 
@@ -234,3 +243,113 @@ def test_pair_args_reject_a_source_prop_of_the_wrong_length():
     with pytest.raises(ValueError, match='s_rho'):
         wp.pair_args('wcsph_pair', dest, dcells, wm, pre, sources, grid,
                      kernel, packed=True)
+
+
+def _fixed_wcsph_pack(sources):
+    """The WCSPH pack as a fixed gather, before the planes became a
+    table: {x y z h}, {u v w m}, and {rho p cs 0} where the terms read
+    rho, with a prop the terms do not read as 0."""
+    out = []
+    for src, cells, ps in sources:
+        order = cells.order.long()
+        reads = wp._reads(ps.terms, with_mass=True)
+        zero = torch.zeros_like(src['x'][order])
+        planes = 3 if ps.terms & (wp.MOM | wp.XSPH) else 2
+        out.append(torch.stack([
+            torch.stack([src[p][order] if p in reads else zero
+                         for p in names], dim=1)
+            for names in (('x', 'y', 'z', 'h'), ('u', 'v', 'w', 'm'),
+                          ('rho', 'p', 'cs', None))[:planes]]))
+    return out
+
+
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('case', WALKED)
+def test_table_pack_is_the_fixed_wcsph_pack(case, dtype):
+    sources = wc.make_case(case, dtype=dtype, seed=6)[4]
+    for got, want in zip(wp.pack_sources_reference(sources),
+                         _fixed_wcsph_pack(sources)):
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.fixture(scope='module')
+def gtvf_calls():
+    return wc.gtvf_calls(crowd=True)
+
+
+@pytest.mark.parametrize('phase', range(len(gp.PHASE_SETS)))
+def test_gtvf_pack_planes_are_the_gather_through_the_cell_order(
+        gtvf_calls, phase):
+    """Each source packs {x y z h} and the planes holding a prop its
+    terms read; column p of a plane is ``src[p][order]``, 0 where the
+    terms read nothing there."""
+    calls = [c for c in gtvf_calls if gp.phase_of(
+        np.bitwise_or.reduce([ps.terms for ps in c[2].sources])) == phase]
+    assert calls
+    for _, _, _, args in calls:
+        sources = args[4]
+        for rec, (src, cells, gs) in zip(gp.pack_sources(sources), sources):
+            reads = gp._reads(gs.terms, 1)
+            slots = [q for q, names in enumerate(gp.PACK_RECORDS)
+                     if q == 0 or reads & set(names)]
+            n = src['x'].shape[0]
+            assert rec.shape == (len(slots), n, 4)
+            order = cells.order.long()
+            for plane, q in zip(rec, slots):
+                for col, p in zip(plane.T, gp.PACK_RECORDS[q]):
+                    want = src[p][order] if p in reads else \
+                        torch.zeros(n, dtype=torch.float64)
+                    assert torch.equal(col, want), (q, p)
+    # the walls' rho0 of 0 is carried as it is (rhodiv = inf)
+    if phase == 2:
+        assert any(bool((rec[1, :, 3] == 0).any())
+                   for c in calls for rec in gp.pack_sources(c[3][4]))
+
+
+@pytest.mark.parametrize('kernel', ['wcsph_pair', 'gtvf_pair', 'fused_pair'])
+def test_plane_tables_are_the_cuda_sources(kernel):
+    module, source = {'wcsph_pair': (wp, 'wcsph_terms.cuh'),
+                      'gtvf_pair': (gp, 'gtvf_pair.cu'),
+                      'fused_pair': (fp, 'fused_pair.cu')}[kernel]
+    rows = re.findall(r'^//\s+plane (\d): (.+)$',
+                      (build.CSRC / source).read_text(), re.MULTILINE)
+    assert [int(q) for q, _ in rows] == list(range(len(rows)))
+    assert [tuple(None if p == '0' else p for p in names.split())
+            for _, names in rows] == list(module.PACK_RECORDS)
+    assert len(rows) <= cell_pack.MAX_PLANES
+
+
+@pytest.mark.parametrize('kernel', ['gtvf_pair', 'fused_pair'])
+def test_gtvf_and_fused_lanes_walk_the_plain_stencil(gtvf_calls, kernel):
+    """``gtvf_pair`` on the GTVF calls (2D, a crowded clamped corner
+    cell) and ``fused_pair``'s self walk on cells 2.5 hmax wide with
+    rows of h <= 0 (which walk nothing): each lane's spans are exactly
+    its stencil candidates, and ``visited`` counts them."""
+    if kernel == 'gtvf_pair':
+        walks = [(args[5], args[1], scells, None)
+                 for _, _, _, args in gtvf_calls
+                 for _, scells, _ in args[4]]
+        for _, _, _, args in gtvf_calls:
+            work = roofline.gtvf_work(*args)
+            assert work['visited'] == work['candidates'] > 0
+    else:
+        st, cells, grid, _ = wc.fused_case(radius_scale=2.5)
+        assert grid.radius_scale == 2.5
+        walks = [(grid, cells, cells, st['h'])]
+    fat = 0
+    for grid, dcells, scells, h in walks:
+        order = dcells.order.numpy()
+        cell = dcells.cell.numpy()[order]
+        spans = cell_walk.walk_spans(grid, dcells, scells).numpy()
+        fat = max(fat, int((scells.end - scells.start).max()))
+        visited = 0
+        for p in range(order.size):
+            walked = np.concatenate([np.arange(a, b) for a, b in spans[p]])
+            assert np.array_equal(walked, _stencil_walk(grid, scells,
+                                                        cell[p]))
+            if h is None or h[order[p]] > 0:
+                visited += walked.size
+    assert fat >= 100       # the clamped corner cell
+    if kernel == 'fused_pair':
+        work = roofline.fused_work(st, cells, grid)
+        assert work['visited'] == visited < work['candidates']
