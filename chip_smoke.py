@@ -19,11 +19,24 @@ Phases (any failure propagates; the exit code is then not 0):
    steps of dam_break_3d
    at dx=0.04 in float64 on the kernel engine against the torch engine
    (<= 1e-9 of max|ref|);
-4. the main path: ``pysph_tpu_torch.examples.dam_break_3d`` at dx=0.02
-   in float32 for ``STEPS`` steps, with the kernel's and the pack's
-   launches counted, the median ms/step after warm-up, and a finite
-   final state;
-5. ``gtvf_pair`` against its plain version on the GTVF dam break
+4. the solver's chunks (``tools_dev/time_chunks.py::gate``): on each of
+   the three paths in float64 at a small size (dam_break_3d dx=0.04, GTVF
+   dx=0.02, the drop nx=40 in a grid that just holds it), 30 steps with
+   ``n_damp = 0`` in chunks of 10 replayed from CUDA graphs against the
+   eager per-step loop: every prop within 1e-12 of its max, t, dt and
+   the count exactly equal, one landing on an output time inside a
+   chunk, one replay a chunk, and the drop's grid grown and its chunk
+   captured again;
+5. the main path: ``pysph_tpu_torch.examples.dam_break_3d`` at dx=0.02
+   in float32 for ``STEPS`` steps (``_drive``), per step (``chunk_steps
+   = 1``) and in chunks of 10 (50 damped steps, then chunks), each with
+   its median ms/step (per step: host clock at each step's start, the
+   card synchronised; in chunks: host clock after each chunk's read,
+   over the chunks after the capture) and the kernel's and the pack's
+   launches counted (in chunks: the eager ones, and those a capture
+   counts x the replays), the captures, replays and host reads, and a
+   finite final state;
+6. ``gtvf_pair`` against its plain version on the GTVF dam break
    (``examples.dam_break_2d --scheme gtvf``) with a seeded perturbation,
    every phase set of both evaluators: dx=0.02 (7,603 particles) in
    float64 and float32, dx=0.004 (137,803 particles, the path's shapes)
@@ -31,11 +44,11 @@ Phases (any failure propagates; the exit code is then not 0):
    the walls) must match exactly; the pack of each call (the GTVF planes)
    equal to its plain version; then 10 steps at dx=0.02 in float64 on
    the kernel engine against the torch engine (<= 1e-9 of max|ref|);
-6. the GTVF path at dx=0.004 in float32 for ``STEPS`` steps: launches
-   counted (2 + 5 x steps, and one pack a launch), every pair phase of
-   both evaluators on the kernel, the median ms/step, and a finite final
+7. the GTVF path at dx=0.004 in float32, as the main path (chunks from
+   step 0; 2 launches in the initial eval, 5 a step, one pack a launch),
+   every pair phase of both evaluators on the kernel, and a finite final
    state (``rhodiv`` aside);
-7. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
+8. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
    particles) in float64 (scaled error <= 1e-10) and nx=200 (125,623,
@@ -47,40 +60,42 @@ Phases (any failure propagates; the exit code is then not 0):
    dest array) in float64 and float32, and the bulk copy (``UBLKCP``) in
    ``dense_pair``'s SASS; ``dense_pair``, ``wcsph_pair`` and the plain
    version timed on identical calls at nx=200 and at dx=0.02;
-8. ``fused_continuity_momentum`` (CubicSpline) against its plain version
+9. ``fused_continuity_momentum`` (CubicSpline) against its plain version
    on the perturbed drop at nx=200 in float64 and float32, timed, and its
    pack (the fused planes) equal to its plain version; then,
    with its launches counted, m times its rates against ``wcsph_pair``'s
    Continuity + Momentum on the same state;
-9. the elliptical drop at nx=200 in float32 for ``STEPS`` steps under
-   ``--engine kernel`` (``wcsph_pair``) and ``--engine dense``
-   (``dense_pair``): launches counted (1 + 2 x steps, and one pack a
-   launch), every pair phase on the engine, the median ms/step, and a
-   finite final state;
-10. the physics gate: the drop at nx=40 in float64 to tf=0.0076 under
-    ``--engine dense``, dumping into a temporary directory under
-    ``build/``: max |y| within 3% of the exact semi-major axis, and
-    ``post_process`` through the ported ``load``; the drop outgrows its
-    initial cell grid, which must grow at least once and end with at
-    most twice the stencil candidates of the start;
-11. ``micro_launch`` against its plain version on the nine cases of
+10. the elliptical drop at nx=200 in float32 under ``--engine kernel``
+    (``wcsph_pair``) and ``--engine dense`` (``dense_pair``), as the main
+    path (1 launch in the initial eval, 2 a step), every pair phase on the
+    engine;
+11. the physics gate: the drop at nx=40 in float64 to tf=0.0076 under
+    ``--engine dense``, in chunks after its 50 damped steps, dumping into
+    a temporary directory under ``build/``: max |y| within 3% of the exact
+    semi-major axis, and ``post_process`` through the ported ``load``; the
+    drop outgrows its initial cell grid, which must grow at least once and
+    end with at most twice the stencil candidates of the start, and a grow
+    after the first capture must capture the chunk again;
+12. ``micro_launch`` against its plain version on the nine cases of
     ``tools_dev/micro_launch.py`` (seeded inputs, <= 1e-4 of max|ref|),
     then that tool's run (its path) with the launches counted, and the
     fluid dest phase case timed beside the plain version and
     ``embedding_bag``;
-12. ``micro_engine`` against its plain version on ``fluid-full`` with
+13. ``micro_engine`` against its plain version on ``fluid-full`` with
     ``dyn_maps`` both ways and 9 and 3 views, then the
     ``tools_dev/micro_engine.py`` run with the launches counted;
-13. ``pair_stub`` in every mode on dam_break_3d dx=0.02's calls: every
+14. ``pair_stub`` in every mode on dam_break_3d dx=0.02's calls: every
     output exactly 0, global loads in the SASS of every mode but
     ``none``, each mode timed (``all`` must be slower than ``none``);
     then the ``tools_dev/prof_dma.py`` and ``prof_phases.py`` runs (its
     path) with the launches counted.
 
 Each kernel's bound is computed from its work at the path's shapes
-(``tools_dev/roofline.py``) and printed beside its time.  The line
-before the last is a JSON summary of the kernels; the last is
-``{"ok": true, "device": {...}}``.
+(``tools_dev/roofline.py``) and printed beside its time; a kernel's
+``launches`` are those on the card in its path's run.  Then ms/step of
+the four full-width runs, per step and in chunks, with the chunked runs'
+captures, replays and host reads.  The line before the last is a JSON
+summary of the kernels; the last is ``{"ok": true, "device": {...}}``.
 """
 
 import functools
@@ -112,13 +127,12 @@ from pysph_tpu_torch.ops.pair_engine import PairSource
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
-from pysph_tpu_torch.tools_dev import walk_cases
+from pysph_tpu_torch.tools_dev import time_chunks, walk_cases
 from pysph_tpu_torch.tools_dev.common import events_ms, graph_ms
 from pysph_tpu_torch.tools_dev.time_walks import (
     drop_calls, fused_call, gtvf_calls, make_app, pair_calls)
 
 STEPS = 200
-WARMUP = 20
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 
@@ -183,65 +197,117 @@ def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=()):
           flush=True)
 
 
-def _drive(app, label, op, first, per_step, skip_finite=(),
-           engine='kernel', packed=False):
-    """Solve ``app`` for ``STEPS`` steps with ``op``'s launch count (and
-    with ``packed``, the source pack's) set to 0 just before and read
-    just after; check that the initial eval launched ``first`` and each
-    step ``per_step`` times (the pack as often as ``op``), that every
-    pair phase of every evaluator was planned on ``engine``, and that the
-    final state is finite (``skip_finite`` aside).  Returns (launches,
-    pack launches, particle count, median ms/step)."""
-    counts = {pa.name: pa.get_number_of_particles() for pa in app.particles}
-    n = sum(counts.values())
-    print('%s: %s, %d particles' % (label, counts, n))
-    stamps = []
-    at_first_step = []
+def _chunk_launches(solver, op):
+    """Record, for each chunk body ``solver`` runs, (steps, ``op``'s
+    launches counted in it, whether it was being captured): the wrappers
+    count Python calls, so a capture counts its chunk's launches once and
+    a replay counts none.  Returns the list it fills."""
+    rows = []
+    body = solver._chunk_body
 
-    def pre_step(solver):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        if not at_first_step:
-            at_first_step.append(op.launches)
+    def counted(iters):
+        before = op.launches
+        capturing = torch.cuda.is_current_stream_capturing()
+        body(iters)
+        rows.append((iters, op.launches - before, capturing))
 
-    app.solver.add_pre_step_callback(pre_step)
-    op.launches = cell_pack.pack.launches = 0
-    app.solve()
-    torch.cuda.synchronize()
-    launches, packs = op.launches, cell_pack.pack.launches
-    step_launches = launches - at_first_step[0]
-    for k, a_eval in enumerate(app.solver.acceleration_evals):
-        print('eval %d engine_choices: %s' % (k, a_eval.engine_choices))
-        if set(a_eval.engine_choices.values()) != {engine}:
-            raise AssertionError('a dest planned off the %s engine: %s'
-                                 % (engine, a_eval.engine_choices))
-    print('%s launches: %d in the run = %d (initial eval) + %d in the %d '
-          'steps (expected %d + %d x steps)' % (
-              op.__name__, launches, at_first_step[0], step_launches,
-              STEPS, first, per_step))
-    if app.solver.count != STEPS or at_first_step[0] != first or \
-            step_launches != per_step * STEPS:
-        raise AssertionError('%s did not run every pair phase through the '
-                             'kernel' % label)
-    if packs != (launches if packed else 0):
-        raise AssertionError('%s: %d pack launches for %d kernel launches'
-                             % (label, packs, launches))
-    if packed:
-        print('cell_pack launches: %d, one a kernel launch' % packs)
-    for name, st in app.solver.states.items():
-        for p, v in st.items():
-            if p in skip_finite or not v.is_floating_point():
-                continue
-            if not bool(torch.isfinite(v).all()):
-                raise AssertionError('non-finite %s.%s after the run'
-                                     % (name, p))
-    ms = np.diff(stamps)[WARMUP:] * 1e3
-    med = float(np.median(ms))
-    print('%s ms/step: median %.3f (min %.3f, max %.3f) over steps %d-%d; '
-          '%.4g particle-steps/s; t=%.6g dt=%.6g' % (
-              label, med, ms.min(), ms.max(), WARMUP + 1, STEPS,
-              n / med * 1e3, app.solver.t, app.solver.dt), flush=True)
-    return launches, packs, n, med
+    solver._chunk_body = counted
+    return rows
+
+
+def _drive(label, kw, op, first, per_step, skip_finite=(), engine='kernel',
+           check=None):
+    """A path at full width in float32 for ``STEPS`` steps, per step
+    (``chunk_steps = 1``) and in chunks (10, replayed from a CUDA graph),
+    each timed by ``time_chunks.timed_solve`` (median ms/step: per step
+    from the host clock at each step's start, the card synchronised; in
+    chunks from the host clock after each chunk's read, over the chunks
+    after the capture).  ``op``'s launch count (and the source pack's) is
+    set to 0 just before each run and read just after: per step, the
+    initial eval launches ``first`` and a step ``per_step`` times; in
+    chunks, the eager launches are the initial eval's, the damped steps'
+    and one warm-up step a capture, each capture counts ``per_step`` x K,
+    and the launches on the card are the eager ones plus those of a
+    capture x replays (the pack as often as ``op``).  Every pair phase of
+    every evaluator must be planned on ``engine``, the final state finite
+    (``skip_finite`` aside) and ``check(solver)`` pass.  Returns
+    (launches, pack launches, particle count, {chunk steps: ms/step},
+    the chunked run's solver counters)."""
+    ms, counters = {}, None
+    for k in (1, 10):
+        app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+        s = app.solver
+        bodies = _chunk_launches(s, op)
+        op.launches = cell_pack.pack.launches = 0
+        ms[k], samples = time_chunks.timed_solve(app, k)
+        counted, packs = op.launches, cell_pack.pack.launches
+        n = sum(st['x'].shape[0] for st in s.states.values())
+        print('%s, chunk_steps=%d: median %.3f ms/step (min %.3f, max %.3f '
+              'over %d samples from step %d), %.4g particle-steps/s; %d '
+              'captures, %d replays, %d reads; t=%.6g dt=%.6g' % (
+                  label, k, ms[k], min(samples), max(samples), len(samples),
+                  time_chunks.WARMUP, n / ms[k] * 1e3, s.captures,
+                  s.replays, s.reads, s.t, s.dt), flush=True)
+        if k == 1:
+            if s.captures or s.replays or bodies or s.count != STEPS or \
+                    counted != first + per_step * STEPS:
+                raise AssertionError('%s, chunk_steps=1: %d launches, %d '
+                                     'chunks' % (label, counted, len(bodies)))
+            del app, s
+            continue
+        K = s.chunk_steps
+        captured = [c for it, c, cap in bodies if cap]
+        warm = [c for it, c, cap in bodies if not cap]
+        chunked = STEPS - s.n_damp
+        eager = counted - sum(captured)
+        launches = eager + per_step * K * s.replays
+        print('%s launches: %d eager (initial eval %d, %d damped steps, %d '
+              'warm-up steps) + %d a capture (%d steps) x %d replays = %d '
+              'on the card; %d steps chunked, %d counted in %d captures'
+              % (op.__name__, eager, first, s.n_damp, len(warm),
+                 per_step * K, K, s.replays, launches, chunked,
+                 sum(captured), len(captured)), flush=True)
+        if (s.count != STEPS or not s.captures or
+                len(captured) != s.captures or
+                set(captured) != {per_step * K} or
+                warm != [per_step] * s.captures or
+                eager != first + per_step * (s.n_damp + s.captures) or
+                s.replays != -(-chunked // K)):
+            raise AssertionError('%s did not run every pair phase through '
+                                 'the kernel in its chunks: %s' % (
+                                     label, bodies))
+        if packs != counted:
+            raise AssertionError('%s: %d pack launches for %d kernel '
+                                 'launches' % (label, packs, counted))
+        for i, a_eval in enumerate(s.acceleration_evals):
+            print('eval %d engine_choices: %s' % (i, a_eval.engine_choices))
+            if set(a_eval.engine_choices.values()) != {engine}:
+                raise AssertionError('a dest planned off the %s engine: %s'
+                                     % (engine, a_eval.engine_choices))
+        for name, st in s.states.items():
+            for p, v in st.items():
+                if p in skip_finite or not v.is_floating_point():
+                    continue
+                if not bool(torch.isfinite(v).all()):
+                    raise AssertionError('non-finite %s.%s after the run'
+                                         % (name, p))
+        if check is not None:
+            check(s)
+        counters = dict(captures=s.captures, replays=s.replays,
+                        reads=s.reads, chunk_steps=K)
+        del app, s
+    print('%s: %.3f ms/step per step, %.3f in chunks (%.2fx)' % (
+        label, ms[1], ms[10], ms[1] / ms[10]), flush=True)
+    return launches, launches, n, ms, counters
+
+
+def _rhodiv(solver):
+    rhodiv = solver.states['fluid']['rhodiv']
+    if bool((rhodiv == -float('inf')).any()):
+        raise AssertionError('rhodiv holds -inf')
+    print('fluid rhodiv: %d inf, %d nan of %d (a boundary neighbour, whose '
+          'rho0 is 0)' % (int(torch.isinf(rhodiv).sum()),
+                          int(torch.isnan(rhodiv).sum()), rhodiv.numel()))
 
 
 def _fused_check(nx, dtype):
@@ -339,11 +405,16 @@ def _physics_gate():
         last = _candidates(s)
         print('elliptical_drop nx=40: the cell grid grew %d times, %s -> '
               '%s; stencil candidates %d at the start, %d at the end '
-              '(%.3gx; bar 2x)' % (s.grid.grows, dims, s.grid.dims, first,
-                                   last, last / first), flush=True)
+              '(%.3gx; bar 2x); %d chunk captures, %d replays, %d reads'
+              % (s.grid.grows, dims, s.grid.dims, first, last, last / first,
+                 s.captures, s.replays, s.reads), flush=True)
         if s.grid.grows < 1 or last > 2 * first:
             raise AssertionError('the drop\'s cell grid did not grow with '
                                  'it')
+        # a grow after the first capture captures the chunk again
+        if not 2 <= s.captures <= 1 + s.grid.grows:
+            raise AssertionError('%d captures for %d grows'
+                                 % (s.captures, s.grid.grows))
         y = s.states['fluid']['y']
         if not bool(torch.isfinite(y).all()):
             raise AssertionError('the drop has non-finite positions')
@@ -654,15 +725,19 @@ def main():
     _engines_agree('dam_break_3d', 0.04, 10,
                    ('x', 'y', 'z', 'u', 'v', 'w', 'rho', 'p'))
 
+    # the chunks: captured against per-step in float64 on each path
+    for case in time_chunks.GATES:
+        print('chunk gate: %s' % json.dumps(time_chunks.gate(case)),
+              flush=True)
+
     # the main path
-    app = make_app(0.02, torch.float32, steps=STEPS)
-    wcsph_launches, pack_launches, n, path_ms = _drive(
-        app, 'dam_break_3d dx=0.02 float32', wp.wcsph_pair, 3, 6,
-        packed=True)
+    path_ms, counters = {}, {}
+    label = 'dam_break_3d dx=0.02'
+    wcsph_launches, pack_launches, n, path_ms[label], counters[label] = \
+        _drive(label, time_chunks.PATHS[label], wp.wcsph_pair, 3, 6)
     if n != 143051:
         raise AssertionError('dam_break_3d at dx=0.02 has %d particles, '
                              'not 143,051' % n)
-    del app
     kernels['wcsph_pair'] = _entry(
         'wcsph_pair', 'pysph_tpu/ops/resident.py:645', wcsph_launches,
         wcsph_err, wcsph_ms, wcsph_plain_ms, wcsph_work, None,
@@ -710,18 +785,10 @@ def main():
                    extra=('--scheme', 'gtvf'))
 
     # the GTVF path: 2 launches in the initial eval (eval 0), 5 a step
-    app = make_app(0.004, torch.float32, steps=STEPS, cls=DamBreak2D,
-                   extra=('--scheme', 'gtvf'))
-    gtvf_launches, _, n, gtvf_path_ms = _drive(
-        app, 'GTVF dam_break_2d dx=0.004 float32', gp.gtvf_pair, 2, 5,
-        skip_finite=('rhodiv',), packed=True)
-    rhodiv = app.solver.states['fluid']['rhodiv']
-    if bool((rhodiv == -float('inf')).any()):
-        raise AssertionError('rhodiv holds -inf')
-    print('fluid rhodiv: %d inf, %d nan of %d (a boundary neighbour, whose '
-          'rho0 is 0)' % (int(torch.isinf(rhodiv).sum()),
-                          int(torch.isnan(rhodiv).sum()), rhodiv.numel()))
-    del app, rhodiv
+    label = 'GTVF dx=0.004'
+    gtvf_launches, _, n, path_ms[label], counters[label] = _drive(
+        label, time_chunks.PATHS[label], gp.gtvf_pair, 2, 5,
+        skip_finite=('rhodiv',), check=_rhodiv)
     kernels['gtvf_pair'] = _entry(
         'gtvf_pair', 'pysph_tpu/ops/pallas_engine.py:1160', gtvf_launches,
         gtvf_err, gtvf_ms, gtvf_plain_ms, gtvf_work, None,
@@ -778,21 +845,15 @@ def main():
         eager_ms=fused['eager_ms'], path='drop nx=200 state, one call')
 
     # the elliptical drop on both engines
-    steps_ms = {}
     for engine, op in (('kernel', wp.wcsph_pair), ('dense', dp.dense_pair)):
-        app = make_app(None, torch.float32, steps=STEPS, engine=engine,
-                       cls=EllipticalDrop, extra=('--nx', '200'))
-        launches, _, n, steps_ms[engine] = _drive(
-            app, 'elliptical_drop nx=200 float32 --engine %s' % engine, op,
-            1, 2, engine=engine, packed=True)
+        label = 'drop nx=200 ' + engine
+        launches, _, n, path_ms[label], counters[label] = _drive(
+            label, time_chunks.PATHS[label], op, 1, 2, engine=engine)
         if n != 125623:
             raise AssertionError('the drop at nx=200 has %d particles, not '
                                  '125,623' % n)
         if engine == 'dense':
             dense_launches = launches
-        del app
-    print('elliptical_drop nx=200 float32 median ms/step: kernel %.3f, '
-          'dense %.3f' % (steps_ms['kernel'], steps_ms['dense']), flush=True)
     drop = times['drop nx=200']
     kernels['dense_pair'] = _entry(
         'dense_pair', 'pysph_tpu/ops/pallas_engine.py:574', dense_launches,
@@ -807,9 +868,11 @@ def main():
     kernels['micro_engine'] = _micro_engine_phase()
     kernels['pair_stub'] = _pair_stub_phase(libs['pair_stub'])
 
-    print('ms/step in this run: dam_break_3d dx=0.02 %.3f, GTVF dx=0.004 '
-          '%.3f, drop nx=200 kernel %.3f, dense %.3f' % (
-              path_ms, gtvf_path_ms, steps_ms['kernel'], steps_ms['dense']))
+    print('ms/step in this run, float32, per step / in chunks of 10 '
+          '(captures, replays, reads of the chunked %d-step run):' % STEPS)
+    for label, ms in path_ms.items():
+        print('  %-22s %8.3f / %8.3f  (%s)' % (label, ms[1], ms[10],
+                                               counters[label]))
     print('%-12s %8s %12s %12s %12s %12s %12s %10s %10s %8s' % (
         'kernel', 'launches', 'candidates', 'visited', 'pairs', 'flops',
         'bytes', 'bound ms', 'ms', 'share'))

@@ -50,13 +50,16 @@ class CellGrid(object):
     """Cell counts of the grid; bins particle states into ``CellList``s.
 
     ``overflow`` is the last binning's device flag (None before the
-    first); ``grows`` counts the calls of ``grow``."""
+    first); ``overflow_any``, once set to a flag, ORs in every later
+    binning's (the solver's chunks set and read it; None: not kept);
+    ``grows`` counts the calls of ``grow``."""
 
     def __init__(self, dim, radius_scale, dims):
         self.dim = int(dim)
         self.radius_scale = float(radius_scale)
         self._set_dims(dims)
         self.overflow = None
+        self.overflow_any = None
         self.grows = 0
 
     def _set_dims(self, dims):
@@ -105,7 +108,7 @@ class CellGrid(object):
         box = torch.cat([hi - lo, hmax.reshape(1)]).tolist()
         width = CELL_SLACK * self.radius_scale * box[3]
         self._set_dims(self.padded_dims(box[:3], width, self.dim))
-        self.overflow = None
+        self.overflow = self.overflow_any = None
         self.grows += 1
 
     @staticmethod
@@ -179,8 +182,10 @@ class CellGrid(object):
 
     def bin_all(self, states):
         """{name: CellList} for a dict of states binned on one grid; sets
-        ``overflow`` (``geometry``)."""
+        ``overflow`` (``geometry``) and ORs it into ``overflow_any``."""
         origin, width, self.overflow = self.geometry(states.values())
+        if self.overflow_any is not None:
+            self.overflow_any = self.overflow_any | self.overflow
         return {name: self.bin(s, origin, width)
                 for name, s in states.items()}
 

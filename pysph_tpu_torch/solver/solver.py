@@ -1,23 +1,58 @@
 """The Solver: the time loop (port of ``pysph_tpu/solver/solver.py``).
 
-A plain Python loop over eager integrator steps, with adaptive and
-damped dt, ``max_steps`` and output: a dump ``<fname>_<count>`` (hdf5 or
-npz, ``solver/output.py``) into ``output_directory`` before the first
-step, every ``pfreq`` steps, at each of ``output_at_times`` (dt is
-shortened to land on them) and at the end.  The particle state is a dict
-of per-array tensor dicts on the configured device; the host arrays are
-refreshed for each dump and at the end of ``solve``.  Adaptive dt costs
-one device-to-host copy per step, a dump one copy of the state.
+The loop steps with adaptive and damped dt, ``max_steps`` and output: a
+dump ``<fname>_<count>`` (hdf5 or npz, ``solver/output.py``) into
+``output_directory`` before the first step, every ``pfreq`` steps, at
+each of ``output_at_times`` (dt is shortened to land on them) and at the
+end.  The particle state is a dict of per-array tensor dicts on the
+configured device; the host arrays are refreshed for each dump and at
+the end of ``solve``.
 
-The evaluators share one ``CellGrid``, whose binnings flag particles
-beyond its cells (``CellGrid.overflow``); the solver grows the grid when
-the flag is set.  With adaptive dt the flag rides on the dt's copy, so
-a step still reads the device once; with a fixed dt the solver reads it
-every ``GROW_CHECK_STEPS`` steps.  Between reads, escaped particles are
-clamped into the edge cells, which is slower but correct.
+Steps run in chunks of ``chunk_steps`` (K, 10 as in the JAX solver),
+the counterpart of its ``lax.scan`` chunk: ``t``, ``dt`` and the step
+count stay on the device as float64 0-d tensors, and the host reads one
+small tensor a chunk (t, dt, the uncapped dt, the steps done and the
+grid's overflow flag).  On a CUDA device the K steps are captured once
+into one CUDA graph and each chunk is one replay; on the CPU the same
+code runs eagerly.  A chunk runs where the JAX solver runs one: K > 1,
+``count >= n_damp`` (the damped steps stay on the host), no dt shortened
+for an output time pending, and no pre-step callback.  Elsewhere the
+per-step loop runs, reading dt (and the overflow flag) once a step with
+adaptive dt, the flag every ``GROW_CHECK_STEPS`` steps with a fixed one;
+``chunk_steps = 1`` is that loop throughout.  The first ineligible
+step of each reason is logged at INFO.
+
+A chunk takes the same decisions as the per-step loop, in the same
+float64 arithmetic, so both give the same bits: the chunk's length is
+``min(K, steps to the next pfreq dump, steps to max_steps)``; on the
+device each step lands on ``tf`` and on the next output time as the
+host would, and an iteration past the length, past ``tf``, after
+reaching the output time or after a binning flagged particles beyond
+the grid is inactive: every state tensor is written back from a select
+on the device's ``active`` flag, so it stays bit-identical, and t and
+the count stay.  After the read the host dumps where due and grows the
+grid (``CellGrid.grow``) if a binning of the chunk overflowed; between
+the overflow and the grow, escaped particles are clamped into the edge
+cells (correct, only slower), as in the per-step loop.
+
+Capture (CUDA): the graph reads and writes static state tensors, which
+``solver.states`` keeps across replays; a state tensor the host replaced
+between chunks is copied into its static one first.  The chunk is
+captured again after a grow (``ncells`` sizes the cell lists) and
+wherever a constant baked into the graph changes (K, tf, cfl, adaptive
+dt); each capture follows one inactive warm-up step on a side stream,
+which makes what a first call allocates or copies (the grid's limits
+after a grow) outside the capture.  ``captures``, ``replays`` and
+``reads`` count.  A capture or replay that fails raises.  The launch
+counters of the kernel wrappers count Python calls, so under capture
+they count a chunk's launches once, at capture: launches on the card are
+(launches a capture) x replays plus the eager ones.  A dest on the torch
+pair engine sizes its pair list on the host and cannot be captured:
+with one, a chunk on a CUDA device runs eagerly, as on the CPU (logged).
 """
 
 import logging
+import math
 import os
 
 import numpy as np
@@ -32,7 +67,10 @@ logger = logging.getLogger(__name__)
 
 EPSILON = 1e-14
 #: steps between two reads of the grid's overflow flag where dt is fixed
+#: (the per-step loop; a chunk reads it once)
 GROW_CHECK_STEPS = 20
+#: the chunk's device carry: float64 slots of ``Solver._carry``
+T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW = range(8)
 
 
 class Solver(object):
@@ -60,10 +98,23 @@ class Solver(object):
         self.tf = tf
         self.dt = dt
         self.max_steps = 1 << 31
+        #: steps a chunk (1: the per-step loop)
+        self.chunk_steps = 10
+        #: chunk graphs captured, chunk graphs replayed, and the time
+        #: loop's device-to-host reads (a chunk's, a step's dt and flag,
+        #: a grow's box)
+        self.captures = 0
+        self.replays = 0
+        self.reads = 0
         self.states = None
         self._prev_dt = None
         self._damping_factor = 1.0
         self._epsilon = EPSILON * tf
+        self._carry = None
+        self._static = self._static_layout = None
+        self._graph = None
+        self._graph_key = None
+        self._logged = set()
 
     def setup(self, particles, equations, config):
         """Build the evaluators (one per stage of ``MultiStageEquations``,
@@ -117,6 +168,9 @@ class Solver(object):
 
         while ((self.tf - self.t) > self._epsilon and
                self.count < self.max_steps):
+            if self._chunk_eligible():
+                self._run_chunk()
+                continue
             for callback in self.pre_step_callbacks:
                 callback(self)
             self.integrator.step(self.states, self.t, self.dt)
@@ -130,6 +184,209 @@ class Solver(object):
 
         self._sync_to_host()
         self.dump_output()
+
+    # -- the K-step chunk ----------------------------------------------
+    def _log_once(self, reason):
+        if reason not in self._logged:
+            self._logged.add(reason)
+            logger.info('step %d: %s', self.count, reason)
+
+    def _chunk_eligible(self):
+        """Whether the next steps run as a chunk (the JAX solver's
+        conditions); logs the first step of each reason that they do
+        not."""
+        for failed, reason in (
+                (self.chunk_steps <= 1, 'chunk_steps <= 1'),
+                (self.count < self.n_damp, 'damped steps (count < n_damp)'),
+                (self._prev_dt is not None,
+                 'a dt shortened for an output time'),
+                (self.pre_step_callbacks, 'a pre-step callback')):
+            if failed:
+                self._log_once('per-step loop: %s' % reason)
+                return False
+        return True
+
+    def _graphed(self):
+        """Whether chunks are CUDA graphs: on a CUDA device, unless a
+        dest takes the torch pair engine, which reads its pair count."""
+        if self.config.device.type != 'cuda':
+            return False
+        if any(engine == 'torch' for a in self.acceleration_evals
+               for engine in a.engine_choices.values()):
+            self._log_once('eager chunks: a dest is on the torch pair '
+                           'engine, which cannot be captured')
+            return False
+        return True
+
+    def _next_output_time(self):
+        """The first output time more than epsilon after t (inf if
+        none): the one a chunk may land on."""
+        ahead = self.output_at_times[self.output_at_times - self.t >
+                                     self._epsilon]
+        return float(np.min(ahead)) if len(ahead) else math.inf
+
+    def _run_chunk(self):
+        """One chunk: up to K steps with t and dt on the device, then one
+        read and the host's part of the steps (grow, dump)."""
+        n_real = min(self.chunk_steps, self.pfreq - self.count % self.pfreq,
+                     self.max_steps - self.count)
+        self._bind_static()
+        inputs = [0.0] * (GROW + 1)
+        inputs[T], inputs[DT], inputs[DT_UN] = self.t, self.dt, self.dt
+        inputs[COUNT], inputs[N_REAL] = self.count, n_real
+        inputs[T_OUT] = self._next_output_time()
+        graph = self._captured_chunk() if self._graphed() else None
+        self._carry.copy_(torch.tensor(inputs, dtype=torch.float64))
+        if graph is not None:
+            graph.replay()
+            self.replays += 1
+        else:
+            self._chunk_body(self.chunk_steps)
+        # the chunk's binnings ran inside it (in a graph's memory on CUDA)
+        self.grid.overflow = None
+        vals = self._carry.tolist()      # the chunk's one read
+        self.reads += 1
+        self.t, self.dt = vals[T], vals[DT]
+        self.count = int(vals[COUNT])
+        self._epsilon = EPSILON * self.tf * self.count
+        # the last step set a dt to land on an output time: resume with
+        # the uncapped one after it, as the per-step loop does
+        self._prev_dt = vals[DT_UN] if vals[DT] != vals[DT_UN] else None
+        if vals[GROW]:
+            self._grow()
+        self._dump_output_if_needed()
+        logger.debug('chunk of %d steps to step %d t=%.6g dt=%.6g',
+                     int(vals[DONE]), self.count, self.t, self.dt)
+
+    def _bind_static(self):
+        """Make the states' tensors the chunk's static ones: the first
+        time (or when the state's layout changed) take the current ones
+        and drop the graph; later, copy a tensor the host replaced since
+        the last chunk into its static one."""
+        layout = {name: {p: (v.shape, v.dtype) for p, v in st.items()}
+                  for name, st in self.states.items()}
+        if self._static is None or layout != self._static_layout:
+            seen = set()
+            for st in self.states.values():
+                for p, v in st.items():
+                    if id(v) in seen:       # one tensor under two names
+                        st[p] = v = v.clone()
+                    seen.add(id(v))
+            self._static = {name: dict(st)
+                            for name, st in self.states.items()}
+            self._static_layout = layout
+            device = self.config.device
+            self._carry = torch.zeros(GROW + 1, dtype=torch.float64,
+                                      device=device)
+            self._graph = self._graph_key = None
+            return
+        for name, st in self.states.items():
+            static = self._static[name]
+            for p, v in st.items():
+                if v is not static[p]:
+                    static[p].copy_(v)
+                    st[p] = static[p]
+
+    def _write_back(self, active):
+        """Write the step's new state tensors into the static ones where
+        ``active`` (a 0-d device bool) is set, keep the static ones'
+        values elsewhere, and put the static tensors back in the
+        states."""
+        new = []
+        for name, st in self.states.items():
+            static = self._static[name]
+            for p, v in st.items():
+                s = static.get(p)
+                if s is None:
+                    raise RuntimeError('a step added %s.%s: a chunk needs a '
+                                       'fixed set of state tensors'
+                                       % (name, p))
+                if v is not s:
+                    new.append((s, torch.where(active, v, s)))
+                    st[p] = s
+        for s, v in new:
+            s.copy_(v)
+
+    def _chunk_body(self, iters):
+        """``iters`` steps from the carry (``_carry``: t, dt, its uncapped
+        value, the count, the chunk's length and the next output time),
+        each deciding on the device what the per-step loop decides on
+        the host; writes back t, dt, the uncapped dt, the count, the
+        steps done and whether a binning overflowed."""
+        c = self._carry
+        t, dt, dt_un, count, n_real, t_out = (c[T], c[DT], c[DT_UN],
+                                              c[COUNT], c[N_REAL], c[T_OUT])
+        tf = self.tf
+        eps_unit = EPSILON * tf
+        wdt = self.config.dtype
+        active = n_real > 0
+        done = torch.zeros_like(t)
+        grow = torch.zeros_like(active)
+        for i in range(iters):
+            self.grid.overflow_any = torch.zeros_like(active)
+            self.integrator.step(self.states, t, dt)
+            ovf = self.grid.overflow_any
+            self.grid.overflow_any = None
+            self._write_back(active)
+            t1 = t + dt
+            c1 = count + 1
+            eps = eps_unit * c1
+            at_tf = (tf - t1).abs() < eps
+            # _get_timestep: the adaptive dt (dt_un where nothing
+            # constrains it), capped at tf
+            raw = dt_un
+            if self.adaptive_timestep:
+                adapted = self.integrator.compute_time_step(
+                    self.states, dt_un.to(wdt), self.cfl)
+                if adapted is not None:
+                    raw = adapted.to(torch.float64)
+            raw = torch.where(t1 + raw > tf, tf - t1, raw)
+            dt_next_un = torch.where(at_tf, dt, raw)
+            # _dump_output_if_needed: land on the next output time
+            tdiff = t_out - t1
+            land = ~at_tf & (tdiff > 0.0) & (tdiff < dt_next_un) & \
+                (tdiff.abs() > eps)
+            dt_next = torch.where(land, tdiff, dt_next_un)
+            t = torch.where(active, t1, t)
+            count = torch.where(active, c1, count)
+            dt = torch.where(active, dt_next, dt)
+            dt_un = torch.where(active, dt_next_un, dt_un)
+            done = done + active
+            grow = grow | (active & ovf)
+            # the next iteration runs if the loop would run it without a
+            # dump or a grow on the host first
+            active = active & (n_real > i + 1) & ((tf - t1) > eps) & \
+                ~(tdiff.abs() < eps) & ~ovf
+        c.copy_(torch.stack([t, dt, dt_un, count, n_real, t_out, done,
+                             grow.to(torch.float64)]))
+
+    def _captured_chunk(self):
+        """The CUDA graph of a chunk, captured again where what it bakes
+        in changed."""
+        key = (self.chunk_steps, self.tf, self.cfl, self.adaptive_timestep,
+               self.grid.dims)
+        if self._graph is not None and self._graph_key == key:
+            return self._graph
+        self._graph = None
+        # an inactive step (N_REAL = 0) leaves the state as it is
+        self._carry.zero_()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._chunk_body(1)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._chunk_body(self.chunk_steps)
+        self.captures += 1
+        self._graph, self._graph_key = graph, key
+        return graph
+
+    def _grow(self):
+        self.grid.grow(self.states.values())
+        self.reads += 1
+        logger.info('step %d: particles left the cell grid; grown to %s',
+                    self.count, self.grid.dims)
 
     # -- timestep helpers ----------------------------------------------
     def _get_undamped_timestep(self):
@@ -151,13 +408,13 @@ class Solver(object):
         if dt is not None:
             # one device-to-host copy for both
             dt, grow = torch.stack([dt, flag.to(dt.dtype)]).tolist()
+            self.reads += 1
         else:
             dt = undamped
             grow = self.count % GROW_CHECK_STEPS == 0 and bool(flag)
+            self.reads += self.count % GROW_CHECK_STEPS == 0
         if grow:
-            self.grid.grow(self.states.values())
-            logger.info('step %d: particles left the cell grid; grown to '
-                        '%s', self.count, self.grid.dims)
+            self._grow()
         return dt
 
     def _damp_timestep(self, dt):

@@ -9,10 +9,16 @@ manager is ported yet, so ``update_domain()`` does nothing; the cell
 lists are rebuilt at every evaluation, so ``update_nnps`` changes
 nothing either.
 
+``t`` and ``dt`` reach the stages and the evaluators as given: Python
+floats in the solver's per-step loop, 0-d float64 tensors on the device
+in its chunks (only arithmetic reads them, so a step captures into a
+CUDA graph).
+
 Adaptive dt follows the reference: the maxima of the ``dt_cfl`` /
 ``dt_force`` / ``dt_visc`` properties give ``hmin/f``,
 ``sqrt(hmin/sqrt(f))`` and ``hmin/f``.  The reductions run on the device
-and the result crosses to the host once per step, in the solver.
+and nothing is read back here: the solver reads the result once a step
+in its per-step loop, and its chunks keep it on the device.
 """
 
 import torch
@@ -83,9 +89,9 @@ class Integrator(object):
 
     def compute_time_step(self, states, dt_current, cfl):
         """The adaptive dt as a 0-d tensor on the states' device
-        (``dt_current`` where no particle constrains it), or None when no
-        array has a ``dt_*`` property.  Nothing is read back: the solver
-        copies it to the host together with the grid's overflow flag."""
+        (``dt_current``, a float or a 0-d tensor of the working dtype,
+        where no particle constrains it), or None when no array has a
+        ``dt_*`` property.  Nothing is read back."""
         arrays = [s for s in states.values() if s['h'].numel() > 0]
         factors = {}
         for prop in ('dt_cfl', 'dt_force', 'dt_visc'):

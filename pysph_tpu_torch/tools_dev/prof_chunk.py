@@ -1,0 +1,180 @@
+"""Device time by layer of a step replayed from the solver's CUDA graph.
+
+    python3 -m pysph_tpu_torch.tools_dev.prof_chunk [label]
+
+Sets each full-width path of ``time_chunks.PATHS`` up in float32, solves
+it ``STEPS`` steps (past its damped steps, into its chunks), then times
+on the state it reached:
+
+- the solver's chunk graph: CUDA events around replays, and the device's
+  busy time and kernels from ``torch.profiler`` (CUDA activity only) over
+  replays, per step (a replay runs ``chunk_steps`` steps);
+- one CUDA graph per layer, busy time from the profiler over replays:
+  the binning of an eval (``CellGrid.bin_all``), its pair calls (each
+  plan's kernel wrapper, the source packs included), the whole eval,
+  each integrator stage and the adaptive dt (``compute_time_step``);
+  the elementwise phases of an eval are the eval less its binning and
+  pair calls, and "rest" is the step less its evals, stages and dt (the
+  chunk's write-back selects and its t/dt arithmetic).
+
+Then the host's part of a chunk: the replay call, the replay and its
+wait, and a whole ``Solver._run_chunk`` (host clock, medians).
+
+Where the profiler shows no device time, the layer's time is CUDA events
+around its graph's replays instead (``method``).  Prints one JSON line
+per path, tagged with ``label`` and the card's name and power limit.
+"""
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from pysph_tpu_torch.tools_dev import common
+from pysph_tpu_torch.tools_dev.time_chunks import PATHS
+from pysph_tpu_torch.tools_dev.time_walks import make_app, plan_calls
+
+STEPS = 80
+REPS = 10
+STAGES = ('initialize', 'stage1', 'stage2', 'stage3')
+
+
+def _busy(prof):
+    """(device ms, kernels) of all device events the profiler kept."""
+    ms, n = 0.0, 0
+    for evt in prof.key_averages():
+        us = getattr(evt, 'self_device_time_total', None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            ms += us / 1e3
+            n += evt.count
+    return ms, n
+
+
+def replay_busy(graph, reps=REPS):
+    """(busy ms, kernels, events ms) a replay of ``graph``."""
+    graph.replay()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    ms, n = _busy(prof)
+    return ms / reps, n / reps, common.events_ms(graph.replay, reps)
+
+
+def chunk_host(s, reps=REPS):
+    """Host milliseconds of a chunk on the solver's graph (medians): the
+    replay call alone, the replay and the wait for it, and a whole
+    ``_run_chunk`` at ``max_steps`` (every step inactive: the same
+    device work, the read and the host's bookkeeping)."""
+    call, replay, whole = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        s._graph.replay()
+        call.append(time.perf_counter() - start)
+        torch.cuda.synchronize()
+        replay.append(time.perf_counter() - start)
+    for _ in range(reps):
+        start = time.perf_counter()
+        s._run_chunk()
+        whole.append(time.perf_counter() - start)
+    return {name: float(np.median(v)) * 1e3 for name, v in (
+        ('replay_call_ms', call), ('replay_and_wait_ms', replay),
+        ('run_chunk_ms', whole))}
+
+
+def layer_ms(fn):
+    """(device ms a call, how measured, kernels a call) of ``fn``
+    replayed from a CUDA graph."""
+    busy, n, events = replay_busy(common.capture(fn))
+    if busy > 0:
+        return busy, 'profiler', n
+    return events, 'events', None
+
+
+def _copy(states):
+    return {name: dict(st) for name, st in states.items()}
+
+
+def profile_path(path, kw):
+    app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+    app.solve()
+    s = app.solver
+    if s._graph is None:
+        raise AssertionError('%s: no chunk was captured in %d steps'
+                             % (path, STEPS))
+    k = s.chunk_steps
+    busy, kernels, events = replay_busy(s._graph)
+    method = {'profiler' if busy > 0 else 'events'}
+    row = dict(path=path, steps_per_replay=k,
+               particles=sum(st['x'].shape[0] for st in s.states.values()),
+               step_graph_ms=events / k, step_busy_ms=busy / k,
+               step_kernels=kernels / k,
+               idle_share=1.0 - busy / events if busy > 0 else None)
+    busy = busy if busy > 0 else events
+    row['chunk_host'] = chunk_host(s)
+    f64 = dict(dtype=torch.float64, device=s.config.device)
+    t, dt = torch.tensor(s.t, **f64), torch.tensor(s.dt, **f64)
+    layers = {}
+
+    def measure(name, fn):
+        ms, how, n = layer_ms(fn)
+        layers[name] = dict(ms=ms, kernels=n)
+        method.add(how)
+        return ms
+
+    evals = 0.0
+    for i, a_eval in enumerate(s.acceleration_evals):
+        used = {n: s.states[n] for n in a_eval.arrays_used}
+        binning = measure('eval %d binning' % i,
+                          lambda: a_eval.grid.bin_all(used))
+        calls = plan_calls(s, [i])
+        pairs = measure('eval %d pair calls (%d)' % (i, len(calls)),
+                        lambda: [c[2].op(*c[3]) for c in calls])
+        whole = measure('eval %d' % i,
+                        lambda: a_eval.compute(t, dt, _copy(s.states)))
+        layers['eval %d elementwise' % i] = dict(
+            ms=whole - binning - pairs, kernels=None)
+        evals += whole
+    # EPEC evaluates its one evaluator twice a step, GTVF each of two once
+    evals_a_step = evals * (2 if len(s.acceleration_evals) == 1 else 1)
+    integ = s.integrator
+    stages = 0.0
+    for name in STAGES:
+        if not any(hasattr(st, name) for st in integ.steppers.values()):
+            continue
+
+        def stage(name=name):
+            integ._states, integ._t, integ._dt = _copy(s.states), t, dt
+            integ._run_stage(name)
+        stages += measure('stage ' + name, stage)
+    integ._states = None
+    dt_ms = 0.0
+    if s.adaptive_timestep:
+        dt_ms = measure('adaptive dt', lambda: integ.compute_time_step(
+            s.states, dt.to(s.config.dtype), s.cfl))
+    row.update(layers=layers, evals_a_step_ms=evals_a_step,
+               stages_ms=stages, dt_ms=dt_ms,
+               rest_ms=busy / k - evals_a_step - stages - dt_ms,
+               method=sorted(method))
+    return row
+
+
+def main(label=''):
+    smi = common.require_cuda()
+    rows = []
+    for path, kw in PATHS.items():
+        row = dict(label=label, card=smi, **profile_path(path, kw))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+if __name__ == '__main__':
+    main(sys.argv[1] if len(sys.argv) > 1 else '')

@@ -1,0 +1,211 @@
+"""The solver's chunks on the card: the equality gate and ms/step.
+
+    python3 -m pysph_tpu_torch.tools_dev.time_chunks [label]
+
+``gate(case)``: a path in float64 at a small size, ``GATE_STEPS`` steps
+with ``n_damp = 0``, under ``chunk_steps = 10`` (chunks replayed from a
+CUDA graph) and under ``chunk_steps = 1`` (the eager per-step loop):
+every state prop within 1e-12 of its max over the finite entries (the
+non-finite ones equal), ``t``, ``dt`` and ``count`` exactly equal, the
+same dumps (count and t), among them a landing on an output time that
+the chunk decided; on the drop, the grid just holds it and its speed is
+ten times the example's, so a binning overflows inside a chunk, the grid
+grows and the chunk is captured again.
+
+``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
+step (host clock at each step's start, the card synchronised) or in
+chunks (host clock after each chunk's read, which waits for the card,
+over the chunks after the capture).  ``main`` prints one JSON line per
+full-width run of ``STEPS`` steps, both ways, tagged with ``label`` and
+the card's name and power limit.
+"""
+
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from pysph_tpu_torch.base.cell_grid import CELL_SLACK
+from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
+from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
+from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
+from pysph_tpu_torch.tools_dev import common
+from pysph_tpu_torch.tools_dev.time_walks import make_app
+
+STEPS = 200
+WARMUP = 20
+GATE_STEPS = 30
+TOL = 1e-12
+
+#: {case: (example, arguments)} of the gate, float64
+GATES = {
+    'dam_break_3d dx=0.04': (DamBreak3D, ('--dx', '0.04')),
+    'GTVF dx=0.02': (DamBreak2D, ('--scheme', 'gtvf', '--dx', '0.02')),
+    'elliptical_drop nx=40': (EllipticalDrop, ('--nx', '40')),
+}
+
+#: the full-width float32 runs: {label: make_app keyword arguments}
+PATHS = {
+    'dam_break_3d dx=0.02': dict(dx=0.02),
+    'GTVF dx=0.004': dict(dx=0.004, cls=DamBreak2D,
+                          extra=('--scheme', 'gtvf')),
+    'drop nx=200 kernel': dict(dx=None, cls=EllipticalDrop,
+                               extra=('--nx', '200')),
+    'drop nx=200 dense': dict(dx=None, cls=EllipticalDrop,
+                              extra=('--nx', '200'), engine='dense'),
+}
+
+
+def _tight_grid(s):
+    """The drop ten times faster in a grid that just holds it."""
+    st = s.states['fluid']
+    st['u'] = st['u'] * 10.0
+    st['v'] = st['v'] * 10.0
+    width = CELL_SLACK * s.grid.radius_scale * float(st['h'].max())
+    s.grid._set_dims([int(float(st[c].max() - st[c].min()) // width) + 1
+                      for c in 'xy'] + [1])
+
+
+def _gate_run(case, chunk_steps, device):
+    """One run of a gate case; returns (solver, dumps, chunks): the
+    (count, t) of each dump call and the (count before, after) of each
+    chunk."""
+    cls, extra = GATES[case]
+    app = cls()
+    app.setup(['--disable-output', '-q', '--use-double', '--device', device,
+               '--max-steps', str(GATE_STEPS), *extra])
+    s = app.solver
+    s.n_damp = 0
+    s.chunk_steps = chunk_steps
+    if cls is EllipticalDrop:
+        _tight_grid(s)
+    # an output time between steps 5 and 6 of the first dt
+    s.set_output_at_times([5.5 * s.dt])
+    dumps, chunks = [], []
+    dump, run_chunk = s.dump_output, s._run_chunk
+
+    def record_dump():
+        dumps.append((s.count, s.t))
+        dump()
+
+    def record_chunk():
+        before = s.count
+        run_chunk()
+        chunks.append((before, s.count))
+
+    s.dump_output, s._run_chunk = record_dump, record_chunk
+    app.solve()
+    return s, dumps, chunks
+
+
+def gate(case, device='cuda'):
+    """Chunked against per-step on a gate case; raises where they
+    differ.  Returns a dict of what it held."""
+    got, got_dumps, chunks = _gate_run(case, 10, device)
+    want, want_dumps, _ = _gate_run(case, 1, device)
+    if (got.count, got.t, got.dt) != (want.count, want.t, want.dt):
+        raise AssertionError('%s: chunked count, t, dt %r, per-step %r' % (
+            case, (got.count, got.t, got.dt),
+            (want.count, want.t, want.dt)))
+    worst = 0.0
+    for name, ref in want.states.items():
+        for p, v in ref.items():
+            mine = got.states[name][p]
+            fin = torch.isfinite(v)
+            if not (torch.equal(torch.isfinite(mine), fin) and
+                    torch.equal(mine[~fin], v[~fin])):
+                raise AssertionError('%s: non-finite entries of %s.%s differ'
+                                     % (case, name, p))
+            if not bool(fin.any()):
+                continue
+            scale = max(float(v[fin].abs().max()), 1e-300)
+            err = float((mine[fin] - v[fin]).abs().max()) / scale
+            worst = max(worst, err)
+            if not err <= TOL:
+                raise AssertionError('%s: %s.%s chunked against per-step %.3g'
+                                     ' > %.0e scaled' % (case, name, p, err,
+                                                         TOL))
+    t_out = float(got.output_at_times[0])
+    landed = [c for c, t in got_dumps if abs(t - t_out) < 1e-9 * t_out]
+    if got_dumps != want_dumps or len(landed) != 1 or not any(
+            a < landed[0] - 1 and b == landed[0] for a, b in chunks):
+        raise AssertionError('%s: no landing on %g inside a chunk (dumps '
+                             '%s, %s; chunks %s)' % (case, t_out, got_dumps,
+                                                     want_dumps, chunks))
+    # on the card, one replay a chunk, and the drop's capture again
+    # after each grow
+    graphs = 1 + got.grid.grows if device == 'cuda' else 0
+    if GATES[case][0] is EllipticalDrop and got.grid.grows < 1 or \
+            got.captures != graphs or \
+            got.replays != (len(chunks) if graphs else 0):
+        raise AssertionError('%s: %d grows, %d captures, %d replays of %d '
+                             'chunks' % (case, got.grid.grows, got.captures,
+                                         got.replays, len(chunks)))
+    n = sum(st['x'].shape[0] for st in got.states.values())
+    return dict(case=case, particles=n, steps=got.count, t=got.t,
+                max_scaled_err=worst, landing_step=landed[0],
+                chunks=len(chunks), captures=got.captures,
+                replays=got.replays, reads=got.reads, grows=got.grid.grows,
+                per_step_reads=want.reads)
+
+
+def timed_solve(app, chunk_steps, warmup=WARMUP):
+    """(median ms/step, [ms/step samples]) of ``app.solve()`` under
+    ``chunk_steps``.  Per step: the host clock at each step's start, the
+    card synchronised there (a pre-step callback, which keeps the run on
+    the per-step loop anyway), one sample a step.  In chunks: the host
+    clock after each chunk's read, which waits for the card, one sample
+    a chunk over the chunks that replay a graph captured before them
+    (the capture, the damped steps and setup drop out).  Samples start at
+    step ``warmup``."""
+    s = app.solver
+    s.chunk_steps = chunk_steps
+    stamps = []
+    if chunk_steps == 1:
+        def pre_step(solver):
+            torch.cuda.synchronize()
+            stamps.append((time.perf_counter(), solver.count, 0))
+        s.add_pre_step_callback(pre_step)
+    else:
+        run_chunk = s._run_chunk
+
+        def timed_chunk():
+            run_chunk()
+            stamps.append((time.perf_counter(), s.count, s.captures))
+        s._run_chunk = timed_chunk
+    app.solve()
+    torch.cuda.synchronize()
+    samples = [(b[0] - a[0]) / (b[1] - a[1]) * 1e3
+               for a, b in zip(stamps, stamps[1:])
+               if a[1] >= warmup and b[1] > a[1] and a[2] == b[2]]
+    return float(np.median(samples)), samples
+
+
+def main(label=''):
+    smi = common.require_cuda()
+    rows = []
+    for case in GATES:
+        row = dict(label=label, card=smi, **gate(case))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    for path, kw in PATHS.items():
+        row = dict(label=label, card=smi, path=path, steps=STEPS)
+        for k in (10, 1):
+            app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+            ms, samples = timed_solve(app, k)
+            s = app.solver
+            n = sum(st['x'].shape[0] for st in s.states.values())
+            row['chunk_steps=%d' % k] = dict(
+                ms_per_step=ms, min=min(samples), max=max(samples),
+                samples=len(samples), particle_steps_per_s=n / ms * 1e3,
+                captures=s.captures, replays=s.replays, reads=s.reads)
+            del app, s
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+if __name__ == '__main__':
+    main(sys.argv[1] if len(sys.argv) > 1 else '')

@@ -13,7 +13,8 @@ host's time a call (the source pack alone too, where the checkout has
 its entry).  Then it runs each path for ``STEPS`` steps from rest (the
 drop under ``--engine kernel`` and ``--engine dense``) and takes the
 median ms/step after ``WARMUP`` steps (host clock, the card
-synchronised between steps).  Prints one JSON line per path, tagged
+synchronised between steps by a pre-step callback, which keeps the
+solver on its per-step loop; ``time_chunks.py`` times its chunks).  Prints one JSON line per path, tagged
 with ``label`` and the card's name and power limit.
 
 The script uses only the port's entry points (the examples, the

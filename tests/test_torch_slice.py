@@ -55,7 +55,8 @@ def test_port_imports_no_jax():
     assert 'pysph_tpu_torch.examples.dam_break_3d' in names
     for m in ('ops.micro', 'ops.pair_stub', 'tools_dev.micro_launch',
               'tools_dev.micro_engine', 'tools_dev.prof_dma',
-              'tools_dev.prof_phases', 'tools_dev.roofline'):
+              'tools_dev.prof_phases', 'tools_dev.roofline',
+              'tools_dev.time_chunks', 'tools_dev.prof_chunk'):
         assert 'pysph_tpu_torch.' + m in names
     code = ('import importlib, sys\n'
             'for m in %r:\n'
