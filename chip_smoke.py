@@ -5,9 +5,10 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the eight CUDA sources of ``pysph_tpu_torch/csrc`` (the seven
-   kernels and the source pack ``cell_pack``) with nvcc, one process per
-   source, in parallel, and print ``-Xptxas -v``;
+2. build the nine CUDA sources of ``pysph_tpu_torch/csrc`` (the seven
+   pair and probe kernels, the source pack ``cell_pack`` and the binning
+   ``bin_cells``) with nvcc, one process per source, in parallel, and
+   print ``-Xptxas -v``;
 3. ``wcsph_pair`` against its plain torch version on the card, on the
    dam_break_3d state with a seeded velocity and density perturbation:
    dx=0.04 (24,672 particles) in float64 (scaled error <= 1e-10) and
@@ -20,13 +21,14 @@ Phases (any failure propagates; the exit code is then not 0):
    at dx=0.04 in float64 on the kernel engine against the torch engine
    (<= 1e-9 of max|ref|);
 4. the solver's chunks (``tools_dev/time_chunks.py::gate``): on each of
-   the three paths in float64 at a small size (dam_break_3d dx=0.04, GTVF
-   dx=0.02, the drop nx=40 in a grid that just holds it), 30 steps with
-   ``n_damp = 0`` in chunks of 10 replayed from CUDA graphs against the
-   eager per-step loop: every prop within 1e-12 of its max, t, dt and
-   the count exactly equal, one landing on an output time inside a
-   chunk, one replay a chunk, and the drop's grid grown and its chunk
-   captured again;
+   the three paths in float64 at a small size (dam_break_3d dx=0.04, also
+   with its fluid at 3 m/s so that the binning is rebuilt inside the
+   chunks, GTVF dx=0.02, the drop nx=40 in a grid that just holds it), 30
+   steps with ``n_damp = 0`` in chunks of 10 replayed from CUDA graphs
+   against the eager per-step loop: every prop within 1e-12 of its max,
+   t, dt, the count and the binnings that ran exactly equal, one landing
+   on an output time inside a chunk, one replay a chunk, and the drop's
+   grid grown and its chunk captured again;
 5. the main path: ``pysph_tpu_torch.examples.dam_break_3d`` at dx=0.02
    in float32 for ``STEPS`` steps (``_drive``), per step (``chunk_steps
    = 1``) and in chunks of 10 (50 damped steps, then chunks), each with
@@ -34,8 +36,16 @@ Phases (any failure propagates; the exit code is then not 0):
    card synchronised; in chunks: host clock after each chunk's read,
    over the chunks after the capture) and the kernel's and the pack's
    launches counted (in chunks: the eager ones, and those a capture
-   counts x the replays), the captures, replays and host reads, and a
-   finite final state;
+   counts x the replays), the binning's too (``bin_cells``: the reuse
+   test once a step, and the binnings that ran), the captures, replays
+   and host reads, and a finite final state; then ``bin_cells`` against
+   its plain version on the run's final state (``tools_dev/bin_check.py``:
+   forced, kept, stale but inactive, rebuilt, kept; every tensor of the
+   handle exactly equal, and unchanged under the flag 0) and its time an
+   eval in a CUDA graph, kept and rebuilt; the same run again under the
+   reference's other binning configuration (``bin_every_eval`` on cells
+   1.001 times the support, ``time_chunks.CONFIGS``), per step and in
+   chunks; GTVF and the drops below are driven and checked the same way;
 6. ``gtvf_pair`` against its plain version on the GTVF dam break
    (``examples.dam_break_2d --scheme gtvf``) with a seeded perturbation,
    every phase set of both evaluators: dx=0.02 (7,603 particles) in
@@ -59,7 +69,9 @@ Phases (any failure propagates; the exit code is then not 0):
    ``dense_pair`` stage, a 2D grid, four sources, write masks, an empty
    dest array) in float64 and float32, and the bulk copy (``UBLKCP``) in
    ``dense_pair``'s SASS; ``dense_pair``, ``wcsph_pair`` and the plain
-   version timed on identical calls at nx=200 and at dx=0.02;
+   version timed on identical calls at nx=200 and at dx=0.02, on cells
+   1.1 and 1.001 times the support, with the candidates and
+   ``dense_pair``'s passes;
 9. ``fused_continuity_momentum`` (CubicSpline) against its plain version
    on the perturbed drop at nx=200 in float64 and float32, timed, and its
    pack (the fused planes) equal to its plain version; then,
@@ -93,9 +105,11 @@ Phases (any failure propagates; the exit code is then not 0):
 Each kernel's bound is computed from its work at the path's shapes
 (``tools_dev/roofline.py``) and printed beside its time; a kernel's
 ``launches`` are those on the card in its path's run.  Then ms/step of
-the four full-width runs, per step and in chunks, with the chunked runs'
-captures, replays and host reads.  The line before the last is a JSON
-summary of the kernels; the last is ``{"ok": true, "device": {...}}``.
+the four full-width runs under both binning configurations, per step and
+in chunks, with the chunked runs' captures, replays, host reads and
+binnings per 100 steps, and the binning's times an eval.  The line
+before the last is a JSON summary of the kernels; the last is
+``{"ok": true, "device": {...}}``.
 """
 
 import functools
@@ -116,7 +130,8 @@ from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
-from pysph_tpu_torch.ops import build, cell_pack
+from pysph_tpu_torch.ops import bin_cells as bc
+from pysph_tpu_torch.ops import build, cell_pack, cell_walk
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
@@ -124,6 +139,7 @@ from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.ops import pair_stub as stub
 from pysph_tpu_torch.ops.pair_engine import PairSource
+from pysph_tpu_torch.tools_dev import bin_check
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
@@ -197,85 +213,107 @@ def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=()):
           flush=True)
 
 
-def _chunk_launches(solver, op):
-    """Record, for each chunk body ``solver`` runs, (steps, ``op``'s
-    launches counted in it, whether it was being captured): the wrappers
-    count Python calls, so a capture counts its chunk's launches once and
-    a replay counts none.  Returns the list it fills."""
+def _chunk_launches(solver, ops):
+    """Record, for each chunk body ``solver`` runs, (steps, [launches of
+    each of ``ops`` counted in it], whether it was being captured): the
+    wrappers count Python calls, so a capture counts its chunk's
+    launches once and a replay counts none.  Returns the list it fills."""
     rows = []
     body = solver._chunk_body
 
     def counted(iters):
-        before = op.launches
+        before = [op.launches for op in ops]
         capturing = torch.cuda.is_current_stream_capturing()
         body(iters)
-        rows.append((iters, op.launches - before, capturing))
+        rows.append((iters, [op.launches - b for op, b in zip(ops, before)],
+                     capturing))
 
     solver._chunk_body = counted
     return rows
 
 
-def _drive(label, kw, op, first, per_step, skip_finite=(), engine='kernel',
-           check=None):
-    """A path at full width in float32 for ``STEPS`` steps, per step
+def _drive(label, kw, op, first, per_step, bins, skip_finite=(),
+           engine='kernel', checks=(), config='reuse'):
+    """A path at full width in float32 for ``STEPS`` steps under the
+    binning configuration ``config`` (``time_chunks.CONFIGS``), per step
     (``chunk_steps = 1``) and in chunks (10, replayed from a CUDA graph),
     each timed by ``time_chunks.timed_solve`` (median ms/step: per step
     from the host clock at each step's start, the card synchronised; in
     chunks from the host clock after each chunk's read, over the chunks
-    after the capture).  ``op``'s launch count (and the source pack's) is
-    set to 0 just before each run and read just after: per step, the
-    initial eval launches ``first`` and a step ``per_step`` times; in
+    after the capture).  ``op``'s launch count (and the source pack's and
+    ``bin_cells``') is set to 0 just before each run and read just after:
+    per step, the initial eval launches ``first`` and a step ``per_step``
+    times (``bin_cells`` once and ``bins`` times: each reuse test); in
     chunks, the eager launches are the initial eval's, the damped steps'
-    and one warm-up step a capture, each capture counts ``per_step`` x K,
-    and the launches on the card are the eager ones plus those of a
-    capture x replays (the pack as often as ``op``).  Every pair phase of
-    every evaluator must be planned on ``engine``, the final state finite
-    (``skip_finite`` aside) and ``check(solver)`` pass.  Returns
-    (launches, pack launches, particle count, {chunk steps: ms/step},
-    the chunked run's solver counters)."""
-    ms, counters = {}, None
+    and one warm-up step a capture, each capture counts ``per_step`` x K
+    (``bins`` x K), and the launches on the card are the eager ones plus
+    those of a capture x replays (the pack as often as ``op``).  Every
+    pair phase of every evaluator must be planned on ``engine``, the
+    final state finite (``skip_finite`` aside) and each of ``checks``
+    pass (called with the chunked run's solver).
+    Returns {launches, bin_launches, particles, ms: {chunk steps:
+    ms/step}, rebuilds: {chunk steps: binnings that ran}, counters: the
+    chunked run's solver counters}."""
+    ms, rebuilds, counters = {}, {}, None
     for k in (1, 10):
-        app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+        app = time_chunks.configure(
+            make_app(dtype=torch.float32, steps=STEPS, **kw), config)
         s = app.solver
-        bodies = _chunk_launches(s, op)
-        op.launches = cell_pack.pack.launches = 0
+        bodies = _chunk_launches(s, (op, bc.bin_cells))
+        op.launches = cell_pack.pack.launches = bc.bin_cells.launches = 0
         ms[k], samples = time_chunks.timed_solve(app, k)
         counted, packs = op.launches, cell_pack.pack.launches
+        binned = bc.bin_cells.launches
+        rebuilds[k] = s.rebuilds
         n = sum(st['x'].shape[0] for st in s.states.values())
-        print('%s, chunk_steps=%d: median %.3f ms/step (min %.3f, max %.3f '
-              'over %d samples from step %d), %.4g particle-steps/s; %d '
-              'captures, %d replays, %d reads; t=%.6g dt=%.6g' % (
-                  label, k, ms[k], min(samples), max(samples), len(samples),
-                  time_chunks.WARMUP, n / ms[k] * 1e3, s.captures,
-                  s.replays, s.reads, s.t, s.dt), flush=True)
+        print('%s, %s, chunk_steps=%d: median %.3f ms/step (min %.3f, max '
+              '%.3f over %d samples from step %d), %.4g particle-steps/s; %d '
+              'captures, %d replays, %d reads, %d binnings of %d tests; '
+              't=%.6g dt=%.6g' % (
+                  label, config, k, ms[k], min(samples), max(samples),
+                  len(samples), time_chunks.WARMUP, n / ms[k] * 1e3,
+                  s.captures, s.replays, s.reads, s.rebuilds,
+                  1 + bins * STEPS, s.t, s.dt), flush=True)
         if k == 1:
             if s.captures or s.replays or bodies or s.count != STEPS or \
-                    counted != first + per_step * STEPS:
+                    counted != first + per_step * STEPS or \
+                    binned != 1 + bins * STEPS:
                 raise AssertionError('%s, chunk_steps=1: %d launches, %d '
-                                     'chunks' % (label, counted, len(bodies)))
+                                     'bin_cells launches, %d chunks' % (
+                                         label, counted, binned,
+                                         len(bodies)))
             del app, s
             continue
         K = s.chunk_steps
-        captured = [c for it, c, cap in bodies if cap]
-        warm = [c for it, c, cap in bodies if not cap]
+        captured = [c[0] for it, c, cap in bodies if cap]
+        warm = [c[0] for it, c, cap in bodies if not cap]
+        bin_captured = [c[1] for it, c, cap in bodies if cap]
+        bin_warm = [c[1] for it, c, cap in bodies if not cap]
         chunked = STEPS - s.n_damp
         eager = counted - sum(captured)
         launches = eager + per_step * K * s.replays
+        bin_eager = binned - sum(bin_captured)
+        bin_launches = bin_eager + bins * K * s.replays
         print('%s launches: %d eager (initial eval %d, %d damped steps, %d '
               'warm-up steps) + %d a capture (%d steps) x %d replays = %d '
-              'on the card; %d steps chunked, %d counted in %d captures'
+              'on the card; %d steps chunked, %d counted in %d captures; '
+              'bin_cells: %d eager + %d a capture x %d replays = %d'
               % (op.__name__, eager, first, s.n_damp, len(warm),
                  per_step * K, K, s.replays, launches, chunked,
-                 sum(captured), len(captured)), flush=True)
+                 sum(captured), len(captured), bin_eager, bins * K,
+                 s.replays, bin_launches), flush=True)
         if (s.count != STEPS or not s.captures or
                 len(captured) != s.captures or
                 set(captured) != {per_step * K} or
                 warm != [per_step] * s.captures or
                 eager != first + per_step * (s.n_damp + s.captures) or
-                s.replays != -(-chunked // K)):
-            raise AssertionError('%s did not run every pair phase through '
-                                 'the kernel in its chunks: %s' % (
-                                     label, bodies))
+                s.replays != -(-chunked // K) or
+                set(bin_captured) != {bins * K} or
+                bin_warm != [bins] * s.captures or
+                bin_eager != 1 + bins * (s.n_damp + s.captures)):
+            raise AssertionError('%s did not run every pair phase and '
+                                 'reuse test through the kernels in its '
+                                 'chunks: %s' % (label, bodies))
         if packs != counted:
             raise AssertionError('%s: %d pack launches for %d kernel '
                                  'launches' % (label, packs, counted))
@@ -291,14 +329,45 @@ def _drive(label, kw, op, first, per_step, skip_finite=(), engine='kernel',
                 if not bool(torch.isfinite(v).all()):
                     raise AssertionError('non-finite %s.%s after the run'
                                          % (name, p))
-        if check is not None:
+        for check in checks:
             check(s)
         counters = dict(captures=s.captures, replays=s.replays,
                         reads=s.reads, chunk_steps=K)
         del app, s
-    print('%s: %.3f ms/step per step, %.3f in chunks (%.2fx)' % (
-        label, ms[1], ms[10], ms[1] / ms[10]), flush=True)
-    return launches, launches, n, ms, counters
+    print('%s, %s: %.3f ms/step per step, %.3f in chunks (%.2fx); %d and %d '
+          'binnings in %d steps' % (label, config, ms[1], ms[10],
+                                    ms[1] / ms[10], rebuilds[1],
+                                    rebuilds[10], STEPS), flush=True)
+    return dict(launches=launches, bin_launches=bin_launches, particles=n,
+                ms=ms, rebuilds=rebuilds, counters=counters)
+
+
+def _bin_phase(label, s, out):
+    """``bin_cells`` against its plain version on the states the run of
+    ``s`` ended with, the arrays of each evaluator (``bin_check.check``:
+    exact, and unchanged under the flag 0), then its times an eval
+    (``bin_check.times``), into ``out[label]``."""
+    rows = []
+    for i, a_eval in enumerate(s.acceleration_evals):
+        used = {n: s.states[n] for n in a_eval.arrays_used}
+        calls = bin_check.check(s.grid, used, seed=i,
+                                label='%s eval %d' % (label, i))
+        t = bin_check.times(s.grid, used)
+        n = sum(st['x'].shape[0] for st in used.values())
+        print('bin_cells %s eval %d after %d steps (%d particles in %d '
+              'arrays, %d cells): exactly the plain version in %d calls, '
+              'bitwise unchanged under the flag 0; kept %.4f ms, rebuilt '
+              '%.4f ms in a graph, plain %.3f ms; bound kept %.4f ms (%s), '
+              'rebuilt %.4f ms (%s)' % (
+                  (label, i, STEPS, n, len(used), s.grid.ncells, calls,
+                   t['kept_ms'], t['rebuilt_ms'], t['plain_ms']) +
+                  roofline.bound(t['kept_work']) +
+                  roofline.bound(t['rebuilt_work'])), flush=True)
+        print('  rebuilt, by kernel (ms): %s' % ', '.join(
+            '%s %.4f' % (k.split('(')[0].split(' ')[-1], v)
+            for k, v in t['rebuilt_kernels'].items()), flush=True)
+        rows.append(t)
+    out[label] = rows
 
 
 def _rhodiv(solver):
@@ -680,7 +749,8 @@ def main():
 
     t0 = time.perf_counter()
     names = ('wcsph_pair', 'gtvf_pair', 'dense_pair', 'fused_pair',
-             'micro_launch', 'micro_engine', 'pair_stub', 'cell_pack')
+             'micro_launch', 'micro_engine', 'pair_stub', 'cell_pack',
+             'bin_cells')
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     print('built %s in %.1f s' % ([lib.name for lib in libs.values()],
@@ -730,14 +800,22 @@ def main():
         print('chunk gate: %s' % json.dumps(time_chunks.gate(case)),
               flush=True)
 
-    # the main path
-    path_ms, counters = {}, {}
-    label = 'dam_break_3d dx=0.02'
-    wcsph_launches, pack_launches, n, path_ms[label], counters[label] = \
-        _drive(label, time_chunks.PATHS[label], wp.wcsph_pair, 3, 6)
-    if n != 143051:
+    # the main path, under both binning configurations: 3 launches in the
+    # initial eval, 6 a step; the reuse test once a step (reuse) or at
+    # both evals (every eval)
+    runs, bins = {}, {}
+    label = MAIN = 'dam_break_3d dx=0.02'
+    for config, (every, _) in time_chunks.CONFIGS.items():
+        runs[label, config] = _drive(
+            label, time_chunks.PATHS[label], wp.wcsph_pair, 3, 6,
+            2 if every else 1, config=config,
+            checks=() if every else (functools.partial(
+                _bin_phase, label, out=bins),))
+    main_run = runs[MAIN, 'reuse']
+    if main_run['particles'] != 143051:
         raise AssertionError('dam_break_3d at dx=0.02 has %d particles, '
-                             'not 143,051' % n)
+                             'not 143,051' % main_run['particles'])
+    wcsph_launches = pack_launches = main_run['launches']
     kernels['wcsph_pair'] = _entry(
         'wcsph_pair', 'pysph_tpu/ops/resident.py:645', wcsph_launches,
         wcsph_err, wcsph_ms, wcsph_plain_ms, wcsph_work, None,
@@ -750,6 +828,18 @@ def main():
         note='the source pack, launched by the walks\' launch functions; '
         'its JAX counterpart, build_pack, is an XLA gather, not a '
         'pallas_call')
+    main_bin = bins[MAIN][0]
+    kernels['bin_cells'] = dict(_entry(
+        'bin_cells', 'pysph_tpu/sph/acceleration_eval.py:857',
+        main_run['bin_launches'], 0.0, main_bin['rebuilt_ms'],
+        main_bin['plain_ms'], main_bin['rebuilt_work'], None,
+        kept_ms=main_bin['kept_ms'],
+        kept_bound_ms=roofline.bound(main_bin['kept_work'])[0],
+        path='dam_break_3d dx=0.02 after %d steps, one eval rebuilt (ms) '
+        'and kept (kept_ms)' % STEPS),
+        note='the binning and its reuse test, one call of five gated '
+        'kernels; its JAX counterpart, prepare_reuse and prepare, is XLA '
+        'ops under a lax.cond, not a pallas_call')
 
     # gtvf_pair against its plain version
     for dx, dtype in ((0.02, torch.float64), (0.02, torch.float32)):
@@ -784,11 +874,17 @@ def main():
                     'au', 'auhat', 'V'), cls=DamBreak2D,
                    extra=('--scheme', 'gtvf'))
 
-    # the GTVF path: 2 launches in the initial eval (eval 0), 5 a step
+    # the GTVF path: 2 launches in the initial eval (eval 0), 5 a step; a
+    # reuse test for each evaluator a step either way (eval 0 keeps the
+    # step's neighbours)
     label = 'GTVF dx=0.004'
-    gtvf_launches, _, n, path_ms[label], counters[label] = _drive(
-        label, time_chunks.PATHS[label], gp.gtvf_pair, 2, 5,
-        skip_finite=('rhodiv',), check=_rhodiv)
+    for config, (every, _) in time_chunks.CONFIGS.items():
+        runs[label, config] = _drive(
+            label, time_chunks.PATHS[label], gp.gtvf_pair, 2, 5, 2,
+            skip_finite=('rhodiv',), config=config,
+            checks=(_rhodiv,) + (() if every else (functools.partial(
+                _bin_phase, label, out=bins),)))
+    gtvf_launches = runs[label, 'reuse']['launches']
     kernels['gtvf_pair'] = _entry(
         'gtvf_pair', 'pysph_tpu/ops/pallas_engine.py:1160', gtvf_launches,
         gtvf_err, gtvf_ms, gtvf_plain_ms, gtvf_work, None,
@@ -809,6 +905,11 @@ def main():
         _compare(calls, dtype, 'dense_pair dam_break_3d dx=%g %s (%d '
                  'particles)' % (dx, str(dtype)[6:], n), dp.dense_pair)
     timed['dam_break_3d dx=0.02'] = calls
+    # the same calls on cells 1.001 times the support (bin_every_eval's)
+    timed['drop nx=200, cells 1.001'] = drop_calls(
+        200, torch.float32, cell_slack=1.001)[0]
+    timed['dam_break_3d dx=0.02, cells 1.001'] = pair_calls(
+        0.02, torch.float32, cell_slack=1.001)[0]
     _walk_cases(libs['dense_pair'])
     times = {}
     for label, calls in timed.items():
@@ -832,6 +933,14 @@ def main():
                   roofline.bound(t['work']) +
                   (t['work']['candidates'], t['work']['visited'])),
               flush=True)
+        tiles = passes = 0
+        for c in calls:
+            a, b = cell_walk.dense_passes(c[3][5], c[3][1])
+            tiles, passes = tiles + a, passes + b
+        print('  %s: cells %g times the support, %s; dense_pair %d tiles '
+              'holding dests, %d passes (%.3f a tile)' % (
+                  label, calls[0][3][5].cell_slack, calls[0][3][5].dims,
+                  tiles, passes, passes / max(tiles, 1)), flush=True)
     del timed, calls
 
     # fused_continuity_momentum on the drop's state
@@ -844,16 +953,20 @@ def main():
         fused_err, fused['ms'], fused['plain_ms'], fused['work'], None,
         eager_ms=fused['eager_ms'], path='drop nx=200 state, one call')
 
-    # the elliptical drop on both engines
+    # the elliptical drop on both engines: 1 launch in the initial eval,
+    # 2 a step; the binning checked on the kernel engine's run
     for engine, op in (('kernel', wp.wcsph_pair), ('dense', dp.dense_pair)):
         label = 'drop nx=200 ' + engine
-        launches, _, n, path_ms[label], counters[label] = _drive(
-            label, time_chunks.PATHS[label], op, 1, 2, engine=engine)
-        if n != 125623:
-            raise AssertionError('the drop at nx=200 has %d particles, not '
-                                 '125,623' % n)
-        if engine == 'dense':
-            dense_launches = launches
+        for config, (every, _) in time_chunks.CONFIGS.items():
+            runs[label, config] = run = _drive(
+                label, time_chunks.PATHS[label], op, 1, 2,
+                2 if every else 1, engine=engine, config=config,
+                checks=(functools.partial(_bin_phase, label, out=bins),)
+                if engine == 'kernel' and not every else ())
+            if run['particles'] != 125623:
+                raise AssertionError('the drop at nx=200 has %d particles, '
+                                     'not 125,623' % run['particles'])
+    dense_launches = runs['drop nx=200 dense', 'reuse']['launches']
     drop = times['drop nx=200']
     kernels['dense_pair'] = _entry(
         'dense_pair', 'pysph_tpu/ops/pallas_engine.py:574', dense_launches,
@@ -868,11 +981,23 @@ def main():
     kernels['micro_engine'] = _micro_engine_phase()
     kernels['pair_stub'] = _pair_stub_phase(libs['pair_stub'])
 
-    print('ms/step in this run, float32, per step / in chunks of 10 '
-          '(captures, replays, reads of the chunked %d-step run):' % STEPS)
-    for label, ms in path_ms.items():
-        print('  %-22s %8.3f / %8.3f  (%s)' % (label, ms[1], ms[10],
-                                               counters[label]))
+    print('ms/step in this run, float32, per step / in chunks of 10, and '
+          'binnings a 100 steps per step / in chunks, by binning '
+          'configuration (captures, replays, reads of the chunked %d-step '
+          'run):' % STEPS)
+    for (label, config), r in runs.items():
+        print('  %-22s %-10s %8.3f / %8.3f ms/step  %6.1f / %6.1f  (%s)' % (
+            label, config, r['ms'][1], r['ms'][10],
+            100.0 * r['rebuilds'][1] / STEPS,
+            100.0 * r['rebuilds'][10] / STEPS, r['counters']))
+    print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
+    for label, rows in bins.items():
+        for i, t in enumerate(rows):
+            print('  %-22s eval %d %8.4f / %8.4f ms; bound %.4f / %.4f ms; '
+                  'plain %.3f ms' % (
+                      label, i, t['kept_ms'], t['rebuilt_ms'],
+                      roofline.bound(t['kept_work'])[0],
+                      roofline.bound(t['rebuilt_work'])[0], t['plain_ms']))
     print('%-12s %8s %12s %12s %12s %12s %12s %10s %10s %8s' % (
         'kernel', 'launches', 'candidates', 'visited', 'pairs', 'flops',
         'bytes', 'bound ms', 'ms', 'share'))

@@ -1,4 +1,5 @@
-"""Sorted cell list: the neighbour structure of the port.
+"""Sorted cell lists, kept Verlet-style: the neighbour structure of the
+port.
 
 Replaces the capacity-M dense grid of ``pysph_tpu/base/cell_grid.py``.
 The TPU needed fixed-shape (cells, M) blocks because Mosaic has no
@@ -11,28 +12,33 @@ sorted by cell id:
   ``[start, end)`` of positions in ``order``.
 
 There is no per-cell capacity, so nothing can overflow and no step has
-to be redone.  The cell width is at least ``radius_scale * hmax``, so a
-pair within support lies in the same or an adjacent cell.  Clamping
-keeps that true for particles outside the grid: two coordinates less
-than one width apart floor to cells at most one apart, and clamping
-cannot widen the gap.  The grid's origin and width follow the particles
-at every binning; its cell counts are sized at setup with ``PAD`` of
-headroom and 3 cells, as ``pysph_tpu``'s ``GridSpec`` is.  Clamping is
-correct but piles escaped particles into the edge cells, so each binning
-also sets ``overflow``, a device flag that some particle lies beyond
-the grid, and the solver ``grow``s the grid when it reads it.
+to be redone.  The cell width is ``cell_slack * radius_scale * hmax``
+with ``cell_slack = 1.1``, as in ``pysph_tpu``, so a pair within support
+lies in the same or an adjacent cell, and stays so while no particle has
+moved more than half the slack margin ``0.5 (cell_slack - 1) radius_scale
+hmax`` since the binning (two particles may each move half of it toward
+the other) and hmax has not grown past the width.  So a binning is kept
+across evaluations and steps in a ``GridHandle`` (the lists, the origin,
+the width and the positions at the binning) and rebuilt only when that
+test fails (``ops/bin_cells.py``, on the card; the evaluator's
+``prepare_reuse``).  Clamping keeps the rule true for particles outside
+the grid: two coordinates less than one width apart floor to cells at
+most one apart, and clamping cannot widen the gap.  The grid's origin and
+width follow the particles at every binning; its cell counts are sized
+at setup with ``PAD`` of headroom and 3 cells, as ``pysph_tpu``'s
+``GridSpec`` is.  Clamping is correct but piles escaped particles into
+the edge cells, so each binning also sets ``overflow``, a device flag
+that some particle lies beyond the grid, and the solver ``grow``s the
+grid when it reads it.
 
 Particles keep their order: consumers read sources through ``order``.
 """
 
+import weakref
 from typing import NamedTuple
 
 import torch
 
-# Headroom over radius_scale * hmax so that a pair exactly at the
-# support radius cannot land two cells apart through rounding of the
-# cell coordinate.
-CELL_SLACK = 1.001
 #: headroom of the cell counts on each side of the particles' extent
 #: (pysph_tpu/base/cell_grid.py:168)
 PAD = 0.03
@@ -46,21 +52,73 @@ class CellList(NamedTuple):
     end: torch.Tensor     # (ncells,) int32 one past the last
 
 
+class GridHandle(object):
+    """One binning of some arrays on a ``CellGrid``, kept across
+    evaluations: ``lists`` ({name: CellList}), the ``origin`` (3,) and
+    ``width`` () it binned with, the positions the particles had then
+    (``ref``, {name: (3, n)}), its ``overflow`` flag and the ``rebuild``
+    flag of its last test (``ops/bin_cells.py``), all tensors on the
+    states' device that each binning overwrites in place, so that a CUDA
+    graph replaying a step sees the same storage; ``scratch`` is the
+    kernel's.  A new handle holds no particle in any cell and has width
+    0, so its first test rebuilds it; ``invalidate`` sets the width to 0
+    again."""
+
+    def __init__(self, grid, states):
+        x = next(iter(states.values()))['x']
+        dev, fdt, i32 = x.device, x.dtype, torch.int32
+        self.dims, self.ncells = grid.dims, grid.ncells
+        self.names = tuple(states)
+        self.sizes = tuple(s['x'].shape[0] for s in states.values())
+        self.dtype, self.device = fdt, dev
+        self.lists = {name: CellList(
+            torch.zeros(n, dtype=i32, device=dev),
+            torch.arange(n, dtype=i32, device=dev),
+            torch.zeros(grid.ncells, dtype=i32, device=dev),
+            torch.zeros(grid.ncells, dtype=i32, device=dev))
+            for name, n in zip(self.names, self.sizes)}
+        self.ref = {name: torch.zeros((3, n), dtype=fdt, device=dev)
+                    for name, n in zip(self.names, self.sizes)}
+        self.origin = torch.zeros(3, dtype=fdt, device=dev)
+        self.width = torch.zeros((), dtype=fdt, device=dev)
+        self.overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        self.rebuild = torch.zeros((), dtype=torch.bool, device=dev)
+        self.scratch = None
+
+    def fits(self, grid, states):
+        """Whether the handle can hold a binning of ``states`` on
+        ``grid``'s cell counts."""
+        x = next(iter(states.values()))['x']
+        return (self.dims == grid.dims and self.names == tuple(states) and
+                self.sizes == tuple(s['x'].shape[0]
+                                    for s in states.values()) and
+                x.dtype == self.dtype and x.device == self.device)
+
+    def invalidate(self):
+        """Make the next test rebuild the binning (in place)."""
+        self.width.zero_()
+
+
 class CellGrid(object):
     """Cell counts of the grid; bins particle states into ``CellList``s.
 
-    ``overflow`` is the last binning's device flag (None before the
-    first); ``overflow_any``, once set to a flag, ORs in every later
+    ``cell_slack`` scales the cells above the support (1.1, as in
+    ``pysph_tpu``: the Verlet margin of the binning's reuse).
+    ``overflow`` ORs the overflow flags of the binnings since the last
+    grow (None before the first; the solver sets it to None after a
+    chunk); ``overflow_any``, once set to a flag, ORs in every later
     binning's (the solver's chunks set and read it; None: not kept);
     ``grows`` counts the calls of ``grow``."""
 
-    def __init__(self, dim, radius_scale, dims):
+    def __init__(self, dim, radius_scale, dims, cell_slack=1.1):
         self.dim = int(dim)
         self.radius_scale = float(radius_scale)
+        self.cell_slack = float(cell_slack)
         self._set_dims(dims)
         self.overflow = None
         self.overflow_any = None
         self.grows = 0
+        self._handles = weakref.WeakSet()
 
     def _set_dims(self, dims):
         dims = tuple(int(d) for d in dims)
@@ -69,7 +127,13 @@ class CellGrid(object):
         self._limit = None
 
     def __repr__(self):
-        return 'CellGrid(dim=%d, dims=%s)' % (self.dim, self.dims)
+        return 'CellGrid(dim=%d, dims=%s, cell_slack=%g)' % (
+            self.dim, self.dims, self.cell_slack)
+
+    def half_margin(self):
+        """The Verlet margin's half over hmax: ``0.5 (cell_slack - 1)
+        radius_scale`` (pysph_tpu/sph/acceleration_eval.py:883)."""
+        return 0.5 * (self.cell_slack - 1.0) * self.radius_scale
 
     @staticmethod
     def padded_dims(extent, width, dim):
@@ -80,9 +144,15 @@ class CellGrid(object):
                 else 1 for d in range(3)]
 
     @classmethod
-    def from_particles(cls, particle_arrays, dim, radius_scale):
-        """Size the grid to the bounding box of the particles, padded."""
+    def from_particles(cls, particle_arrays, dim, radius_scale,
+                       cell_slack=1.1, stratify=False):
+        """Size the grid to the bounding box of the particles, padded, for
+        cells ``cell_slack`` times the support (the parameter and default
+        of ``pysph_tpu``'s ``GridSpec.from_particles``)."""
         import numpy as np
+        if stratify:
+            raise NotImplementedError('stratified variable-h binning is not '
+                                      'ported yet (ROADMAP Queue 1, item 27)')
         los, his, hmax = [], [], 0.0
         for pa in particle_arrays:
             if pa.get_number_of_particles() == 0:
@@ -95,21 +165,49 @@ class CellGrid(object):
             raise ValueError('cannot size a cell grid without particles '
                              'of positive h')
         extent = np.max(his, axis=0) - np.min(los, axis=0)
-        width = CELL_SLACK * radius_scale * hmax
-        return cls(dim, radius_scale, cls.padded_dims(extent, width, dim))
+        width = cell_slack * radius_scale * hmax
+        return cls(dim, radius_scale, cls.padded_dims(extent, width, dim),
+                   cell_slack)
 
     def grow(self, states):
+        """Re-size the grid as ``resize`` does, after particles left it."""
+        self.resize(states)
+        self.grows += 1
+
+    def resize(self, states, cell_slack=None):
         """Re-size the cell counts from the states' current bounding box
         and hmax, padded as ``from_particles`` does (one device-to-host
-        copy).  The grid is changed in place, so every evaluator that
-        shares it bins on the new counts from its next binning on; the
-        ``CellList``s of earlier binnings no longer fit it."""
+        copy), for cells ``cell_slack`` times the support where given.
+        The grid is changed in place, so every evaluator that shares it
+        bins on the new counts; every handle of the grid is invalidated,
+        so its next test rebuilds it (made anew where the counts
+        changed)."""
+        if cell_slack is not None:
+            self.cell_slack = float(cell_slack)
         lo, hi, hmax = self._box(states)
         box = torch.cat([hi - lo, hmax.reshape(1)]).tolist()
-        width = CELL_SLACK * self.radius_scale * box[3]
+        width = self.cell_slack * self.radius_scale * box[3]
         self._set_dims(self.padded_dims(box[:3], width, self.dim))
         self.overflow = self.overflow_any = None
-        self.grows += 1
+        for handle in list(self._handles):
+            handle.invalidate()
+
+    def handle_for(self, handle, states):
+        """``handle`` where it fits the grid and ``states``, else a new,
+        empty one of the grid (whose first test rebuilds it)."""
+        if handle is not None and handle.fits(self, states):
+            return handle
+        handle = GridHandle(self, states)
+        self._handles.add(handle)
+        return handle
+
+    def note_overflow(self, flag):
+        """OR a binning's overflow flag into ``overflow`` (which it sets
+        where None) and, where kept, ``overflow_any``."""
+        self.overflow = flag if self.overflow is None else \
+            self.overflow | flag
+        if self.overflow_any is not None:
+            self.overflow_any = self.overflow_any | flag
 
     @staticmethod
     def _box(states):
@@ -137,14 +235,11 @@ class CellGrid(object):
                              for a in axes[0]], dtype=torch.int64,
                             device=device)
 
-    def geometry(self, states):
-        """(origin (3,), width (), overflow ()) tensors on the states'
-        device: the lower corner of all particles, the cell width, and
-        whether some particle lies at or beyond ``origin + dims * width``
-        on an axis of more than one cell, where binning clamps it into
-        the edge cell.  Nothing is read back."""
-        origin, hi, hmax = self._box(states)
-        width = CELL_SLACK * self.radius_scale * hmax
+    def escaped(self, origin, hi, width):
+        """0-d device bool: whether the highest coordinates ``hi`` lie at
+        or beyond ``origin + dims * width`` on an axis of more than one
+        cell, where binning clamps them into the edge cell.  Nothing is
+        read back."""
         top = torch.floor((hi - origin) / width)
         if self._limit is None or self._limit.device != top.device or \
                 self._limit.dtype != top.dtype:
@@ -153,7 +248,7 @@ class CellGrid(object):
             self._limit = torch.tensor(
                 [n if n > 1 else float('inf') for n in self.dims],
                 dtype=top.dtype, device=top.device)
-        return origin, width, (top >= self._limit).any()
+        return (top >= self._limit).any()
 
     def cell_ids(self, state, origin, width):
         """(n,) int64 cell id of each particle."""
@@ -168,6 +263,8 @@ class CellGrid(object):
         return cid
 
     def bin(self, state, origin, width):
+        """The ``CellList`` of one state on cells of ``width`` from
+        ``origin`` (the plain binning)."""
         cid = self.cell_ids(state, origin, width)
         _, order = torch.sort(cid, stable=True)
         # not bincount: on CUDA it reads max(cid) back to size its output
@@ -181,13 +278,15 @@ class CellGrid(object):
                         end.to(i32))
 
     def bin_all(self, states):
-        """{name: CellList} for a dict of states binned on one grid; sets
-        ``overflow`` (``geometry``) and ORs it into ``overflow_any``."""
-        origin, width, self.overflow = self.geometry(states.values())
-        if self.overflow_any is not None:
-            self.overflow_any = self.overflow_any | self.overflow
-        return {name: self.bin(s, origin, width)
-                for name, s in states.items()}
+        """{name: CellList} of a fresh binning of a dict of states, into a
+        new handle (``ops/bin_cells.py``: on CUDA tensors the kernels);
+        sets ``overflow`` to its flag and ORs it into ``overflow_any``."""
+        from pysph_tpu_torch.ops.bin_cells import bin_cells
+        handle = self.handle_for(None, states)
+        flag = bin_cells(self, states, handle, force=True)
+        self.overflow = None
+        self.note_overflow(handle.overflow & flag)
+        return handle.lists
 
     def neighbor_pairs(self, dest, dest_cells, src, src_cells, rows):
         """Compacted pair list ``(i, j)`` (int64) of the dest rows

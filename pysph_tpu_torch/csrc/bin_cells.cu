@@ -1,0 +1,399 @@
+// The cell binning of one evaluator's arrays, kept Verlet-style, for Hopper
+// (sm_90a): the reuse test and the binning it gates, decided on the card.
+//
+// Replaces what pysph_tpu does in XLA ops, not a Pallas kernel:
+// AccelerationEval.prepare_reuse (pysph_tpu/sph/acceleration_eval.py:
+// 857-927, the test and its lax.cond) and prepare (:801-855, the binning),
+// on the port's sorted cell lists (pysph_tpu_torch/base/cell_grid.py).
+// It computes exactly what ops/bin_cells.py::bin_cells_reference computes
+// from the same tensors:
+//
+// - over every particle of every array: the box lo, hi, hmax = max h and
+//   disp2 = max |x - ref|^2 against the handle's reference positions;
+// - rebuild = force or disp2 > margin^2 or cell > width * 1.0001, and
+//   active where an active flag is given, with cell = cell_slack
+//   radius_scale hmax and margin = 0.5 (cell_slack - 1) radius_scale hmax;
+// - where rebuild: origin = lo, width = cell, overflow = some particle at
+//   or beyond origin + dims width on an axis of more than one cell; per
+//   array the cell id ix + nx (iy + ny iz) of each particle, with i =
+//   floor((x - origin) / width) clamped into the grid, the order (particle
+//   indices sorted by cell id, ascending within a cell, as a stable sort
+//   gives them), start and end per cell, and x, y, z copied into ref;
+// - where not: nothing of the handle changes (every kernel but the first
+//   returns at once); the flag is written either way.
+//
+// IEEE arithmetic, no fused multiply-add: every value is one rounded
+// operation as in the plain version's torch ops (__f*_rn/__d*_rn; the
+// library is built without --use_fast_math), so the cell ids, and with
+// them the lists, equal the plain version's bit for bit.
+//
+// What bounds it: bytes, and at the paths' sizes (1e5 particles, 1e4-1e5
+// cells) the launches.  A binning reads x y z h and ref once for the test
+// and x y z once more, and writes cell, order, start, end, ref: a few MB,
+// ~2 us at 3.35 TB/s.  A kept eval reads x y z h and ref.
+//
+// Design: five launches, each gated by the flag on the card, so a CUDA
+// graph holds all five and a kept eval costs their early returns:
+// 1. bin_reduce: grid-stride over all particles, block maxima, a partial
+//    per block; the last block to finish (a ticket) reduces the partials
+//    and decides (finalize).  It also zeroes the per-cell counts (scratch).
+// 2. bin_count: cell ids, the counts by atomicAdd, ref.
+// 3. bin_scan: a block per tile of kScanTile cells of an array; it sums
+//    the counts before its tile (the tiles are few, so every block reads
+//    them, and no block waits on another), scans its tile in shared
+//    memory and writes start, and end = start (the scatter's cursors).
+// 4. bin_scatter: order[end[cell]++] = i, in no fixed order, which leaves
+//    end one past the cell's last;
+// 5. bin_sort: one thread per cell sorts its range of order (insertion:
+//    ~20-40 particles a cell at cell_slack 1.1), which makes order
+//    deterministic and equal to the stable sort's.
+//
+// Interface: plain C through ctypes (ops/bin_cells.py):
+// bin_cells_launch(const BinArgs*, stream) launches the five kernels and
+// returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+constexpr int kMaxArrays = 8;
+constexpr int kThreads = 256;
+// blocks of bin_reduce at most (2 a streaming multiprocessor), and the
+// partials' rows (ops/bin_cells.py REDUCE_BLOCKS)
+constexpr int kReduceBlocks = 264;
+constexpr int kScanThreads = 1024;
+// cells a block of bin_scan scans, kScanItems a thread
+constexpr int kScanItems = 8;
+constexpr int kScanTile = kScanThreads * kScanItems;
+// a partial: -lo (3), hi (3), hmax, disp2, each reduced by max
+constexpr int kValues = 8;
+
+struct BinArray {
+  const void* x;     // (n,) of the dtype
+  const void* y;
+  const void* z;
+  const void* h;
+  void* ref;         // (3, n): the positions at the last binning
+  int32_t* cell;     // (n,) cell id
+  int32_t* order;    // (n,) particle indices sorted by cell
+  int32_t* start;    // (ncells,) first position in order
+  int32_t* end;      // (ncells,) one past the last
+  int32_t* count;    // (ncells,) scratch: the counts
+  int32_t n, pad;
+};
+
+struct BinArgs {
+  BinArray arr[kMaxArrays];
+  void* origin;             // (3,) of the dtype
+  void* width;              // () of the dtype
+  uint8_t* overflow;        // () bool
+  uint8_t* rebuild;         // () bool, written by bin_reduce
+  const uint8_t* active;    // () bool, or null: always active
+  double* partial;          // (kReduceBlocks, kValues) scratch
+  uint32_t* ticket;         // () scratch, 0 between launches
+  double slack_rs;          // cell_slack * radius_scale
+  double half_margin;       // 0.5 * (cell_slack - 1) * radius_scale
+  int32_t n_arr, dtype, force, nx, ny, nz, ncells, pad;
+};
+
+namespace bin {
+
+// one rounded IEEE operation each, never contracted into an FMA
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// v[j] = the maximum of v[j] over the block, in every thread of warp 0
+template <typename T>
+__device__ void block_max(T* v, T (*sh)[kValues]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = 0; j < kValues; ++j) v[j] = warp_max(v[j]);
+  if (lane == 0)
+    for (int j = 0; j < kValues; ++j) sh[warp][j] = v[j];
+  __syncthreads();
+  if (warp == 0)
+    for (int j = 0; j < kValues; ++j)
+      v[j] = warp_max(lane < (blockDim.x >> 5) ? sh[lane][j]
+                                               : -static_cast<T>(INFINITY));
+  __syncthreads();
+}
+
+// The decision and, where it rebuilds, the geometry: thread 0 of the last
+// block, from the reduced values v.
+template <typename T>
+__device__ void finalize(const BinArgs& a, const T* v) {
+  T* origin = static_cast<T*>(a.origin);
+  T* width = static_cast<T*>(a.width);
+  const T hmax = v[6], disp2 = v[7];
+  const T cell = mul(static_cast<T>(a.slack_rs), hmax);
+  const T margin = mul(static_cast<T>(a.half_margin), hmax);
+  const bool stale = disp2 > mul(margin, margin) ||
+                     cell > mul(*width, static_cast<T>(1.0001));
+  bool rebuild = a.force != 0 || stale;
+  if (a.active != nullptr) rebuild = rebuild && *a.active != 0;
+  *a.rebuild = rebuild;
+  if (!rebuild) return;
+  const int dims[3] = {a.nx, a.ny, a.nz};
+  bool overflow = false;
+  for (int d = 0; d < 3; ++d) {
+    const T lo = -v[d];
+    origin[d] = lo;
+    if (dims[d] > 1)
+      overflow |= floor(div(sub(v[3 + d], lo), cell)) >=
+                  static_cast<T>(dims[d]);
+  }
+  *width = cell;
+  *a.overflow = overflow;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bin_reduce(const BinArgs a) {
+  __shared__ T sh[kThreads / 32][kValues];
+  __shared__ bool last;
+  const T lowest = -static_cast<T>(INFINITY);
+  T v[kValues];
+  for (int j = 0; j < kValues; ++j) v[j] = lowest;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  for (int s = 0; s < a.n_arr; ++s) {
+    const BinArray& A = a.arr[s];
+    for (int c = first; c < a.ncells; c += stride) A.count[c] = 0;
+    const T* x = static_cast<const T*>(A.x);
+    const T* y = static_cast<const T*>(A.y);
+    const T* z = static_cast<const T*>(A.z);
+    const T* h = static_cast<const T*>(A.h);
+    const T* ref = static_cast<const T*>(A.ref);
+    for (int i = first; i < A.n; i += stride) {
+      const T px = x[i], py = y[i], pz = z[i];
+      v[0] = fmax(v[0], -px);
+      v[1] = fmax(v[1], -py);
+      v[2] = fmax(v[2], -pz);
+      v[3] = fmax(v[3], px);
+      v[4] = fmax(v[4], py);
+      v[5] = fmax(v[5], pz);
+      v[6] = fmax(v[6], h[i]);
+      const T dx = sub(px, ref[i]), dy = sub(py, ref[A.n + i]),
+              dz = sub(pz, ref[2 * A.n + i]);
+      v[7] = fmax(v[7], add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz)));
+    }
+  }
+  block_max(v, sh);
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < kValues; ++j)
+      a.partial[blockIdx.x * kValues + j] = static_cast<double>(v[j]);
+    __threadfence();
+    last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the partials hold values of T exactly, so the maxima are T's
+  for (int j = 0; j < kValues; ++j) v[j] = lowest;
+  for (int b = threadIdx.x; b < gridDim.x; b += blockDim.x)
+    for (int j = 0; j < kValues; ++j)
+      v[j] = fmax(v[j], static_cast<T>(__ldcg(&a.partial[b * kValues + j])));
+  block_max(v, sh);
+  if (threadIdx.x == 0) {
+    finalize(a, v);
+    *a.ticket = 0;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bin_count(const BinArgs a) {
+  if (!*a.rebuild) return;
+  const BinArray& A = a.arr[blockIdx.y];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= A.n) return;
+  const T* origin = static_cast<const T*>(a.origin);
+  const T w = *static_cast<const T*>(a.width);
+  const T* pos[3] = {static_cast<const T*>(A.x), static_cast<const T*>(A.y),
+                     static_cast<const T*>(A.z)};
+  const int dims[3] = {a.nx, a.ny, a.nz};
+  T* ref = static_cast<T*>(A.ref);
+  long long cid = 0, stride = 1;
+  for (int d = 0; d < 3; ++d) {
+    const T p = pos[d][i];
+    ref[static_cast<size_t>(d) * A.n + i] = p;
+    if (dims[d] > 1) {
+      T c = floor(div(sub(p, origin[d]), w));
+      const T top = static_cast<T>(dims[d] - 1);
+      c = c < static_cast<T>(0) ? static_cast<T>(0) : c;
+      c = c > top ? top : c;
+      cid += static_cast<long long>(c) * stride;
+    }
+    stride *= dims[d];
+  }
+  A.cell[i] = static_cast<int32_t>(cid);
+  atomicAdd(&A.count[cid], 1);
+}
+
+// the exclusive prefix sum of v over the block, and the block's total in
+// *total (every thread); sh: 32 ints of shared memory
+__device__ int block_scan(int v, int* sh, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sh[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < (blockDim.x >> 5) ? sh[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    sh[lane] = w;
+  }
+  __syncthreads();
+  const int before = (warp > 0 ? sh[warp - 1] : 0) + x - v;
+  *total = sh[31];
+  __syncthreads();
+  return before;
+}
+
+__global__ void __launch_bounds__(kScanThreads) bin_scan(const BinArgs a) {
+  if (!*a.rebuild) return;
+  __shared__ int tile[kScanTile];
+  __shared__ int sh[32];
+  const BinArray& A = a.arr[blockIdx.y];
+  const int t = threadIdx.x, base = blockIdx.x * kScanTile;
+  // the particles in the cells before the tile
+  int off = 0;
+  for (int c = t; c < base; c += kScanThreads) off += A.count[c];
+  block_scan(off, sh, &off);
+  for (int k = 0; k < kScanItems; ++k) {
+    const int c = base + k * kScanThreads + t;
+    tile[k * kScanThreads + t] = c < a.ncells ? A.count[c] : 0;
+  }
+  __syncthreads();
+  int v[kScanItems], sum = 0;
+  for (int k = 0; k < kScanItems; ++k) {
+    v[k] = tile[t * kScanItems + k];
+    sum += v[k];
+  }
+  int total;
+  int run = off + block_scan(sum, sh, &total);
+  for (int k = 0; k < kScanItems; ++k) {
+    tile[t * kScanItems + k] = run;
+    run += v[k];
+  }
+  __syncthreads();
+  for (int k = 0; k < kScanItems; ++k) {
+    const int c = base + k * kScanThreads + t;
+    if (c < a.ncells) A.start[c] = A.end[c] = tile[k * kScanThreads + t];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) bin_scatter(const BinArgs a) {
+  if (!*a.rebuild) return;
+  const BinArray& A = a.arr[blockIdx.y];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= A.n) return;
+  A.order[atomicAdd(&A.end[A.cell[i]], 1)] = i;
+}
+
+__global__ void __launch_bounds__(kThreads) bin_sort(const BinArgs a) {
+  if (!*a.rebuild) return;
+  const BinArray& A = a.arr[blockIdx.y];
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= a.ncells) return;
+  int32_t* o = A.order;
+  const int s = A.start[c], e = A.end[c];
+  for (int k = s + 1; k < e; ++k) {
+    const int32_t v = o[k];
+    int j = k - 1;
+    while (j >= s && o[j] > v) {
+      o[j + 1] = o[j];
+      --j;
+    }
+    o[j + 1] = v;
+  }
+}
+
+inline bool args_ok(const BinArgs& a) {
+  if (a.n_arr < 1 || a.n_arr > kMaxArrays || (a.dtype != 0 && a.dtype != 1) ||
+      a.nx < 1 || a.ny < 1 || a.nz < 1 ||
+      static_cast<long long>(a.nx) * a.ny * a.nz != a.ncells ||
+      a.origin == nullptr || a.width == nullptr || a.overflow == nullptr ||
+      a.rebuild == nullptr || a.partial == nullptr || a.ticket == nullptr)
+    return false;
+  for (int s = 0; s < a.n_arr; ++s) {
+    const BinArray& A = a.arr[s];
+    if (A.n < 0 || A.start == nullptr || A.end == nullptr ||
+        A.count == nullptr ||
+        (A.n > 0 && (A.x == nullptr || A.y == nullptr || A.z == nullptr ||
+                     A.h == nullptr || A.ref == nullptr ||
+                     A.cell == nullptr || A.order == nullptr)))
+      return false;
+  }
+  return true;
+}
+
+template <typename T>
+cudaError_t launch(const BinArgs& a, cudaStream_t st) {
+  int nmax = 0;
+  for (int s = 0; s < a.n_arr; ++s) nmax = max(nmax, a.arr[s].n);
+  const int most = max(nmax, a.ncells);
+  const int blocks =
+      min(kReduceBlocks, max(1, (most + kThreads - 1) / kThreads));
+  bin_reduce<T><<<blocks, kThreads, 0, st>>>(a);
+  const dim3 by_particle((nmax + kThreads - 1) / kThreads, a.n_arr);
+  const dim3 by_cell((a.ncells + kThreads - 1) / kThreads, a.n_arr);
+  if (nmax > 0) bin_count<T><<<by_particle, kThreads, 0, st>>>(a);
+  const dim3 by_tile((a.ncells + kScanTile - 1) / kScanTile, a.n_arr);
+  bin_scan<<<by_tile, kScanThreads, 0, st>>>(a);
+  if (nmax > 0) bin_scatter<<<by_particle, kThreads, 0, st>>>(a);
+  bin_sort<<<by_cell, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace bin
+
+extern "C" {
+
+int bin_cells_args_size() { return static_cast<int>(sizeof(BinArgs)); }
+
+int bin_cells_launch(const BinArgs* args, void* stream) {
+  const BinArgs a = *args;
+  if (!bin::args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(a.dtype == 0 ? bin::launch<float>(a, st)
+                                       : bin::launch<double>(a, st));
+}
+
+const char* bin_cells_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

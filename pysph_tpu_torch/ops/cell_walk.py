@@ -23,6 +23,21 @@ import torch
 TILE_CELLS = 8
 STAGES = 4
 STAGE_RECORDS = 512
+#: dense_pair: dests of one pass of a block (dense_pair.cu kDests)
+PASS_DESTS = 128
+
+
+def dense_passes(grid, dest_cells):
+    """(tiles holding a dest, their passes) of ``dense_pair``'s blocks:
+    a tile of ``TILE_CELLS`` x-adjacent cells of a row takes
+    ``ceil(dests / PASS_DESTS)`` passes over its stencil."""
+    nx, ny, nz = grid.dims
+    counts = (dest_cells.end - dest_cells.start).long().reshape(ny * nz, nx)
+    counts = torch.nn.functional.pad(counts, (0, (-nx) % TILE_CELLS))
+    dests = counts.reshape(ny * nz, -1, TILE_CELLS).sum(dim=2)
+    busy = dests[dests > 0]
+    return int(busy.numel()), int(((busy + PASS_DESTS - 1) //
+                                   PASS_DESTS).sum())
 
 
 def stencil_rows(grid):

@@ -11,16 +11,17 @@ the end of ``solve``.
 Steps run in chunks of ``chunk_steps`` (K, 10 as in the JAX solver),
 the counterpart of its ``lax.scan`` chunk: ``t``, ``dt`` and the step
 count stay on the device as float64 0-d tensors, and the host reads one
-small tensor a chunk (t, dt, the uncapped dt, the steps done and the
-grid's overflow flag).  On a CUDA device the K steps are captured once
-into one CUDA graph and each chunk is one replay; on the CPU the same
-code runs eagerly.  A chunk runs where the JAX solver runs one: K > 1,
-``count >= n_damp`` (the damped steps stay on the host), no dt shortened
-for an output time pending, and no pre-step callback.  Elsewhere the
-per-step loop runs, reading dt (and the overflow flag) once a step with
-adaptive dt, the flag every ``GROW_CHECK_STEPS`` steps with a fixed one;
-``chunk_steps = 1`` is that loop throughout.  The first ineligible
-step of each reason is logged at INFO.
+small tensor a chunk (t, dt, the uncapped dt, the steps done, the
+grid's overflow flag and the count of binnings that ran).  On a CUDA
+device the K steps are captured once into one CUDA graph and each chunk
+is one replay; on the CPU the same code runs eagerly.  A chunk runs
+where the JAX solver runs one: K > 1, ``count >= n_damp`` (the damped
+steps stay on the host), no dt shortened for an output time pending,
+and no pre-step callback.  Elsewhere the per-step loop runs, reading dt
+(and the overflow flag) once a step with adaptive dt, the flag every
+``GROW_CHECK_STEPS`` steps with a fixed one; ``chunk_steps = 1`` is that
+loop throughout.  The first ineligible step of each reason is logged at
+INFO.
 
 A chunk takes the same decisions as the per-step loop, in the same
 float64 arithmetic, so both give the same bits: the chunk's length is
@@ -29,11 +30,15 @@ device each step lands on ``tf`` and on the next output time as the
 host would, and an iteration past the length, past ``tf``, after
 reaching the output time or after a binning flagged particles beyond
 the grid is inactive: every state tensor is written back from a select
-on the device's ``active`` flag, so it stays bit-identical, and t and
-the count stay.  After the read the host dumps where due and grows the
-grid (``CellGrid.grow``) if a binning of the chunk overflowed; between
-the overflow and the grow, escaped particles are clamped into the edge
-cells (correct, only slower), as in the per-step loop.
+on the device's ``active`` flag, so it stays bit-identical, t and the
+count stay, and no binning runs (the integrator's reuse test rebuilds
+only where ``stale & active``, so the reference positions move where
+the per-step loop moves them).  The binning handles live in the
+integrator across steps and chunks; a binning that kept its lists
+reports no overflow.  After the read the host dumps where due and grows
+the grid (``CellGrid.grow``) if a binning of the chunk overflowed;
+between the overflow and the grow, escaped particles are clamped into
+the edge cells (correct, only slower), as in the per-step loop.
 
 Capture (CUDA): the graph reads and writes static state tensors, which
 ``solver.states`` keeps across replays; a state tensor the host replaced
@@ -43,12 +48,14 @@ wherever a constant baked into the graph changes (K, tf, cfl, adaptive
 dt); each capture follows one inactive warm-up step on a side stream,
 which makes what a first call allocates or copies (the grid's limits
 after a grow) outside the capture.  ``captures``, ``replays`` and
-``reads`` count.  A capture or replay that fails raises.  The launch
-counters of the kernel wrappers count Python calls, so under capture
-they count a chunk's launches once, at capture: launches on the card are
-(launches a capture) x replays plus the eager ones.  A dest on the torch
-pair engine sizes its pair list on the host and cannot be captured:
-with one, a chunk on a CUDA device runs eagerly, as on the CPU (logged).
+``reads`` count, and ``rebuilds`` the binnings that ran (read with each
+chunk and at the end of ``solve``).  A capture or replay that fails
+raises.  The launch counters of the kernel wrappers count Python calls,
+so under capture they count a chunk's launches once, at capture:
+launches on the card are (launches a capture) x replays plus the eager
+ones.  A dest on the torch pair engine sizes its pair list on the host
+and cannot be captured: with one, a chunk on a CUDA device runs
+eagerly, as on the CPU (logged).
 """
 
 import logging
@@ -70,7 +77,7 @@ EPSILON = 1e-14
 #: (the per-step loop; a chunk reads it once)
 GROW_CHECK_STEPS = 20
 #: the chunk's device carry: float64 slots of ``Solver._carry``
-T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW = range(8)
+T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW, REBUILDS = range(9)
 
 
 class Solver(object):
@@ -106,6 +113,8 @@ class Solver(object):
         self.captures = 0
         self.replays = 0
         self.reads = 0
+        #: binnings that ran (the integrator's device count, as last read)
+        self.rebuilds = 0
         self.states = None
         self._prev_dt = None
         self._damping_factor = 1.0
@@ -182,6 +191,7 @@ class Solver(object):
             logger.debug('step %d t=%.6g dt=%.6g', self.count, self.t,
                          self.dt)
 
+        self.rebuilds = int(self.integrator.rebuilds)
         self._sync_to_host()
         self.dump_output()
 
@@ -231,7 +241,7 @@ class Solver(object):
         n_real = min(self.chunk_steps, self.pfreq - self.count % self.pfreq,
                      self.max_steps - self.count)
         self._bind_static()
-        inputs = [0.0] * (GROW + 1)
+        inputs = [0.0] * (REBUILDS + 1)
         inputs[T], inputs[DT], inputs[DT_UN] = self.t, self.dt, self.dt
         inputs[COUNT], inputs[N_REAL] = self.count, n_real
         inputs[T_OUT] = self._next_output_time()
@@ -248,6 +258,7 @@ class Solver(object):
         self.reads += 1
         self.t, self.dt = vals[T], vals[DT]
         self.count = int(vals[COUNT])
+        self.rebuilds = int(vals[REBUILDS])
         self._epsilon = EPSILON * self.tf * self.count
         # the last step set a dt to land on an output time: resume with
         # the uncapped one after it, as the per-step loop does
@@ -276,7 +287,7 @@ class Solver(object):
                             for name, st in self.states.items()}
             self._static_layout = layout
             device = self.config.device
-            self._carry = torch.zeros(GROW + 1, dtype=torch.float64,
+            self._carry = torch.zeros(REBUILDS + 1, dtype=torch.float64,
                                       device=device)
             self._graph = self._graph_key = None
             return
@@ -312,7 +323,7 @@ class Solver(object):
         value, the count, the chunk's length and the next output time),
         each deciding on the device what the per-step loop decides on
         the host; writes back t, dt, the uncapped dt, the count, the
-        steps done and whether a binning overflowed."""
+        steps done, whether a binning overflowed and the binnings run."""
         c = self._carry
         t, dt, dt_un, count, n_real, t_out = (c[T], c[DT], c[DT_UN],
                                               c[COUNT], c[N_REAL], c[T_OUT])
@@ -324,7 +335,7 @@ class Solver(object):
         grow = torch.zeros_like(active)
         for i in range(iters):
             self.grid.overflow_any = torch.zeros_like(active)
-            self.integrator.step(self.states, t, dt)
+            self.integrator.step(self.states, t, dt, active)
             ovf = self.grid.overflow_any
             self.grid.overflow_any = None
             self._write_back(active)
@@ -358,7 +369,8 @@ class Solver(object):
             active = active & (n_real > i + 1) & ((tf - t1) > eps) & \
                 ~(tdiff.abs() < eps) & ~ovf
         c.copy_(torch.stack([t, dt, dt_un, count, n_real, t_out, done,
-                             grow.to(torch.float64)]))
+                             grow.to(torch.float64),
+                             self.integrator.rebuilds]))
 
     def _captured_chunk(self):
         """The CUDA graph of a chunk, captured again where what it bakes
@@ -398,7 +410,8 @@ class Solver(object):
         return dt
 
     def _compute_timestep(self):
-        """The next dt; grows the grid if its last binning overflowed."""
+        """The next dt; grows the grid if a binning since the last grow
+        overflowed."""
         undamped = self._get_undamped_timestep()
         flag = self.grid.overflow
         dt = None

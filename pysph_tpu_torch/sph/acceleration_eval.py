@@ -12,16 +12,19 @@ the evaluator is built and recorded in ``engine_choices``:
   matches one of that engine's hand-written pair kernels
   (``ops/pair_engine.py``), which then runs every source of the dest in
   one call;
-- ``'torch'``: the generic engine below, for any equation.  It bins the
-  arrays into sorted cell lists, builds compacted ``(i, j)`` pair lists
+- ``'torch'``: the generic engine below, for any equation.  From the
+  sorted cell lists it builds compacted ``(i, j)`` pair lists
   chunked over dest rows (bounded memory), evaluates the equations'
   ``loop`` bodies on per-pair tensors and accumulates with
   ``index_add`` / ``scatter_reduce``.  It is also the plain version that
   the kernel is tested against.
 
-Particles are rebinned at every evaluation.  ``make_acceleration_evals``
-builds one evaluator per stage of a ``MultiStageEquations``, all on one
-``CellGrid``.
+An evaluation does not bin: ``compute`` takes a ``GridHandle``
+(``base/cell_grid.py``) that ``prepare`` bins afresh and
+``prepare_reuse`` keeps while its test holds (Verlet-style, as
+``pysph_tpu``'s; the integrator calls them, once a step per evaluator by
+default).  ``make_acceleration_evals`` builds one evaluator per stage of
+a ``MultiStageEquations``, all on one ``CellGrid``.
 """
 
 import logging
@@ -29,6 +32,7 @@ from collections import OrderedDict
 
 import torch
 
+from pysph_tpu_torch.ops.bin_cells import bin_cells
 from pysph_tpu_torch.ops.pair_engine import PairIneligible, plan_pair_phases
 from pysph_tpu_torch.sph.equation import (
     UNIT, ArrayView, Group, IndexSym, MultiStageEquations, PairDestView,
@@ -237,6 +241,9 @@ class AccelerationEval(object):
         # planning
         self.engine_choices = {}
         self._plans = self._plan()
+        self.domain = None
+        # the handle of update_and_compute
+        self._handle = None
 
     @staticmethod
     def _make_groups(equations):
@@ -318,9 +325,51 @@ class AccelerationEval(object):
                 plans[(id(group), dest)] = plan
         return plans
 
-    def compute(self, t, dt, states):
-        """One evaluation; updates the per-array state dicts in place."""
-        cells = self.grid.bin_all({n: states[n] for n in self.arrays_used})
+    def set_domain(self, domain):
+        self.domain = domain
+
+    # -- binning -------------------------------------------------------
+    def prepare(self, states, handle=None):
+        """Bin the arrays of ``arrays_used`` afresh (port of
+        ``pysph_tpu``'s ``prepare``), into ``handle`` where it fits the
+        grid, else into a new one.  Returns (handle, rebuild flag)."""
+        return self._bin(states, handle, force=True)
+
+    def prepare_reuse(self, states, handle, active=None):
+        """Verlet-list reuse (port of ``pysph_tpu``'s ``prepare_reuse``):
+        keep the binning of ``handle`` while every particle has moved less
+        than half the slack margin since it was binned and hmax has not
+        grown past its width, else rebuild it in place; with ``active``
+        (a 0-d device bool) rebuild only where it is set.  The test and
+        the binning run on the states' device (``ops/bin_cells.py``) and
+        nothing is read back.  Returns (handle, rebuild flag): a new
+        handle where ``handle`` is None or no longer fits the grid, whose
+        test always rebuilds (where active)."""
+        if getattr(self.domain, 'is_periodic', False):
+            raise NotImplementedError(
+                'the minimum image of a periodic domain in the binning\'s '
+                'reuse test is not ported yet (ROADMAP Queue 1, item 25)')
+        return self._bin(states, handle, force=False, active=active)
+
+    def _bin(self, states, handle, force, active=None):
+        sub = {n: states[n] for n in self.arrays_used}
+        handle = self.grid.handle_for(handle, sub)
+        flag = bin_cells(self.grid, sub, handle, force, active)
+        # a kept binning reports no overflow
+        self.grid.note_overflow(handle.overflow & flag)
+        return handle, flag
+
+    # -- execution -----------------------------------------------------
+    def update_and_compute(self, t, dt, states):
+        """Bin afresh (into the evaluator's own handle), then evaluate:
+        one evaluation as the reference's ``update_and_compute``."""
+        self._handle, _ = self.prepare(states, self._handle)
+        return self.compute(t, dt, states, self._handle)
+
+    def compute(self, t, dt, states, handle):
+        """One evaluation on the binning of ``handle``; updates the
+        per-array state dicts in place."""
+        cells = handle.lists
         for group in self.groups:
             self._run_group(group, t, dt, states, cells)
         return states

@@ -5,9 +5,18 @@ An ``Integrator`` is built from per-array ``IntegratorStep`` objects
 recipe of ``initialize()``, ``stage1()``.. and
 ``compute_accelerations(index)`` (evaluator ``index`` of several, as
 GTVF has), run eagerly on the state dicts (updated in place).  No domain
-manager is ported yet, so ``update_domain()`` does nothing; the cell
-lists are rebuilt at every evaluation, so ``update_nnps`` changes
-nothing either.
+manager is ported yet, so ``update_domain()`` does nothing.
+
+Binning, as in ``pysph_tpu`` (``integrator.py:63-67, 307-318``): each
+evaluator index keeps one ``GridHandle`` (``handles``) across steps.
+``initial_acceleration`` bins evaluator 0 afresh; in a step, the first
+evaluation of each index runs the reuse test (``prepare_reuse``: rebuild
+only when a particle has moved half the slack margin, or h has grown)
+and its later evaluations in the step reuse that binning, unless
+``bin_every_eval`` is set, when every evaluation with ``update_nnps``
+runs the test.  ``step(..., active)`` passes the solver's chunk flag to
+the test, so an inactive step bins nothing.  ``rebuilds`` (a float64 0-d
+tensor on the device) counts the binnings that ran; nothing is read.
 
 ``t`` and ``dt`` reach the stages and the evaluators as given: Python
 floats in the solver's per-step loop, 0-d float64 tensors on the device
@@ -30,6 +39,17 @@ class Integrator(object):
     def __init__(self, **steppers):
         self.steppers = steppers
         self.acceleration_evals = None
+        # Bin once a step and reuse the binning across steps while its
+        # test holds (the grid's cell_slack is the margin); True runs the
+        # test at every evaluation that updates the neighbours.
+        self.bin_every_eval = False
+        #: {evaluator index: GridHandle}, kept across steps
+        self.handles = {}
+        #: binnings that ran (0-d float64 tensor on the device, or None
+        #: before the first)
+        self.rebuilds = None
+        self._checked = set()
+        self._active = None
         self._states = None
         self._t = 0.0
         self._dt = 0.0
@@ -38,25 +58,51 @@ class Integrator(object):
         if not isinstance(a_evals, (list, tuple)):
             a_evals = [a_evals]
         self.acceleration_evals = list(a_evals)
+        self.handles = {}
 
-    def step(self, states, t, dt):
-        """Advance ``states`` (updated in place) by one timestep."""
+    def step(self, states, t, dt, active=None):
+        """Advance ``states`` (updated in place) by one timestep; with
+        ``active`` (a 0-d device bool), bin only where it is set."""
         self._states, self._t, self._dt = states, t, dt
+        self._active, self._checked = active, set()
         self.one_timestep(t, dt)
-        self._states = None
+        self._states = self._active = None
         return states
 
     def initial_acceleration(self, states, t, dt):
         """The force evaluation before the first step: evaluator 0 only,
-        as in ``pysph_tpu``."""
+        on a fresh binning, as in ``pysph_tpu``."""
         self._states, self._t, self._dt = states, t, dt
-        self.compute_accelerations(0)
+        self._active, self._checked = None, set()
+        self._bin(0, force=True)
+        self.acceleration_evals[0].compute(t, dt, states, self.handles[0])
         self._states = None
         return states
 
+    def _bin(self, index, force=False):
+        """Bin evaluator ``index``'s arrays afresh (``force``) or run its
+        reuse test, and count a binning that ran."""
+        a_eval = self.acceleration_evals[index]
+        handle = self.handles.get(index)
+        if force:
+            handle, flag = a_eval.prepare(self._states, handle)
+        else:
+            handle, flag = a_eval.prepare_reuse(self._states, handle,
+                                                self._active)
+        self.handles[index] = handle
+        self._checked.add(index)
+        if self.rebuilds is None:
+            self.rebuilds = torch.zeros((), dtype=torch.float64,
+                                        device=flag.device)
+        self.rebuilds.add_(flag)
+
     def compute_accelerations(self, index=0, update_nnps=True):
+        if (update_nnps and self.bin_every_eval) or \
+                index not in self._checked:
+            self._bin(index)
         self.acceleration_evals[index].compute(self._t, self._dt,
-                                               self._states)
+                                               self._states,
+                                               self.handles[index])
 
     def update_domain(self):
         pass

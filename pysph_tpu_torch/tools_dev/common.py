@@ -55,3 +55,25 @@ def capture(fn):
 def graph_ms(fn, reps):
     """Milliseconds per replay of a CUDA graph of ``fn``."""
     return events_ms(capture(fn).replay, reps)
+
+
+def graph_kernels_ms(fn, reps):
+    """{kernel name: device milliseconds a replay} of a CUDA graph of
+    ``fn``, from ``torch.profiler`` (CUDA activity only) over ``reps``
+    replays."""
+    graph = capture(fn)
+    graph.replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, 'self_device_time_total', None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            out[evt.key] = us / 1e3 / reps
+    return out

@@ -10,11 +10,16 @@ on the state it reached:
   busy time and kernels from ``torch.profiler`` (CUDA activity only) over
   replays, per step (a replay runs ``chunk_steps`` steps);
 - one CUDA graph per layer, busy time from the profiler over replays:
-  the binning of an eval (``CellGrid.bin_all``), its pair calls (each
-  plan's kernel wrapper, the source packs included), the whole eval,
-  each integrator stage and the adaptive dt (``compute_time_step``);
-  the elementwise phases of an eval are the eval less its binning and
-  pair calls, and "rest" is the step less its evals, stages and dt (the
+  the binning of each evaluator as a step runs it, its reuse test and
+  the gated kernels (``ops/bin_cells.py``), once kept (``prepare_reuse``
+  on the positions it was binned at) and once rebuilt (``prepare``);
+  its pair calls (each plan's kernel wrapper, the source packs
+  included), the whole eval on its binning (``compute``), each
+  integrator stage and the adaptive dt (``compute_time_step``); the
+  elementwise phases of an eval are the eval less its pair calls.  The
+  binning a step is each evaluator's test, kept, plus the share of
+  tests that rebuilt in the solve (``rebuilds``) times the difference;
+  "rest" is the step less its evals, binning, stages and dt (the
   chunk's write-back selects and its t/dt arithmetic).
 
 Then the host's part of a chunk: the replay call, the replay and its
@@ -106,6 +111,8 @@ def profile_path(path, kw):
     app = make_app(dtype=torch.float32, steps=STEPS, **kw)
     app.solve()
     s = app.solver
+    # the solve's binnings (the replays below advance the run further)
+    rebuilds = s.rebuilds
     if s._graph is None:
         raise AssertionError('%s: no chunk was captured in %d steps'
                              % (path, STEPS))
@@ -129,21 +136,31 @@ def profile_path(path, kw):
         method.add(how)
         return ms
 
-    evals = 0.0
+    evals = kept_a_step = more_if_rebuilt = 0.0
     for i, a_eval in enumerate(s.acceleration_evals):
         used = {n: s.states[n] for n in a_eval.arrays_used}
-        binning = measure('eval %d binning' % i,
-                          lambda: a_eval.grid.bin_all(used))
+        handle = s.integrator.handles[i]
+        # rebuilt at the current positions, then kept there
+        rebuilt = measure('eval %d binning rebuilt' % i,
+                          lambda: a_eval.prepare(used, handle))
+        kept = measure('eval %d binning kept' % i,
+                       lambda: a_eval.prepare_reuse(used, handle))
+        kept_a_step += kept
+        more_if_rebuilt += rebuilt - kept
         calls = plan_calls(s, [i])
         pairs = measure('eval %d pair calls (%d)' % (i, len(calls)),
                         lambda: [c[2].op(*c[3]) for c in calls])
-        whole = measure('eval %d' % i,
-                        lambda: a_eval.compute(t, dt, _copy(s.states)))
-        layers['eval %d elementwise' % i] = dict(
-            ms=whole - binning - pairs, kernels=None)
+        whole = measure('eval %d' % i, lambda: a_eval.compute(
+            t, dt, _copy(s.states), handle))
+        layers['eval %d elementwise' % i] = dict(ms=whole - pairs,
+                                                 kernels=None)
         evals += whole
     # EPEC evaluates its one evaluator twice a step, GTVF each of two once
     evals_a_step = evals * (2 if len(s.acceleration_evals) == 1 else 1)
+    # the tests of the run that rebuilt (the first binning forced)
+    tests = STEPS * len(s.acceleration_evals)
+    rebuilt_share = (rebuilds - 1) / tests
+    binning_a_step = kept_a_step + rebuilt_share * more_if_rebuilt
     integ = s.integrator
     stages = 0.0
     for name in STAGES:
@@ -160,9 +177,10 @@ def profile_path(path, kw):
         dt_ms = measure('adaptive dt', lambda: integ.compute_time_step(
             s.states, dt.to(s.config.dtype), s.cfl))
     row.update(layers=layers, evals_a_step_ms=evals_a_step,
-               stages_ms=stages, dt_ms=dt_ms,
-               rest_ms=busy / k - evals_a_step - stages - dt_ms,
-               method=sorted(method))
+               rebuilds=rebuilds, rebuilt_share=rebuilt_share,
+               binning_a_step_ms=binning_a_step, stages_ms=stages,
+               dt_ms=dt_ms, rest_ms=busy / k - evals_a_step -
+               binning_a_step - stages - dt_ms, method=sorted(method))
     return row
 
 

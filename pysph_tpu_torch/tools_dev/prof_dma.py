@@ -109,7 +109,7 @@ def run_variant(app, variant):
     a_eval = s.acceleration_evals[0]
     saved = swap_ops(a_eval, variant)
     try:
-        a_eval.compute(0.0, s.dt, s.states)
+        a_eval.update_and_compute(0.0, s.dt, s.states)
     finally:
         restore_ops(a_eval, saved)
     return s.states
@@ -124,9 +124,9 @@ def time_variant(app, label, variant, reps=REPS):
     saved = swap_ops(a_eval, variant)
     try:
         eval_ms = common.events_ms(
-            lambda: a_eval.compute(0.0, s.dt, s.states), reps)
+            lambda: a_eval.update_and_compute(0.0, s.dt, s.states), reps)
         eval_graph_ms = common.graph_ms(
-            lambda: a_eval.compute(0.0, s.dt, s.states), reps)
+            lambda: a_eval.update_and_compute(0.0, s.dt, s.states), reps)
         ops = [(plan.op, args) for plan, args in calls]
         pair_ms = common.events_ms(lambda: [op(*a) for op, a in ops], reps)
         graph_ms = 0.0
@@ -166,7 +166,8 @@ def main(dx=0.02):
     print(common.require_cuda(), flush=True)
     app = setup(dx, 'cuda')
     s = app.solver
-    n_ops, busy = device_ops(lambda: s.acceleration_evals[0].compute(
+    a_eval = s.acceleration_evals[0]
+    n_ops, busy = device_ops(lambda: a_eval.update_and_compute(
         0.0, s.dt, s.states))
     print('one real eval: %d device operations, %.3f ms busy' % (n_ops, busy),
           flush=True)

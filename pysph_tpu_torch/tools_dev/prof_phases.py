@@ -57,7 +57,7 @@ def time_split(app, reps=prof_dma.REPS):
     for dest, eqs in dest_split(a_eval).items():
         group = Group(equations=eqs, real=g1.real)
         times[dest] = with_groups(a_eval, [group], lambda: common.events_ms(
-            lambda: a_eval.compute(0.0, s.dt, s.states), reps))
+            lambda: a_eval.update_and_compute(0.0, s.dt, s.states), reps))
         print('%-34s %7.3f ms' % ('g1[%s]' % dest, times[dest]), flush=True)
     return times
 

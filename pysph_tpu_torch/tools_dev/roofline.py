@@ -63,6 +63,12 @@ GTVF_TERM_FLOPS = {gp.SWV: 7, gp.CGTVF: 12, gp.CSOLID: 12, gp.CDENS: 4,
 #: support (fused_pair.cu:103-144)
 FUSED_CANDIDATE_FLOPS = 13
 FUSED_PAIR_FLOPS = 65
+#: bin_cells.cu: the reuse test per particle (the box's 6 and h's max,
+#: 3 sub, 3 mul, 2 add and a max for the displacement; :194-206), and a
+#: binning's cell id per axis of more than one cell (sub, div, floor, 2
+#: clamps; :246-251)
+BIN_TEST_FLOPS = 16
+BIN_CELL_FLOPS = 5
 
 
 def bound(work):
@@ -204,6 +210,24 @@ def fused_work(state, cells, grid):
     return dict(candidates=cand, visited=visited, pairs=pairs,
                 flops=cand * FUSED_CANDIDATE_FLOPS + pairs * FUSED_PAIR_FLOPS,
                 bytes=n * (es * (9 + 4) + 2 * I32) + ncells * 2 * I32)
+
+
+def bin_work(grid, states, rebuilt):
+    """Work of one ``bin_cells`` call on ``states`` ({name: state}):
+    kept, each particle's x y z h and reference position read once;
+    rebuilt, also its cell id, its place in the order and its reference
+    position written, and start and end of every cell of each array (the
+    per-cell counts are the kernels' scratch, not the function's)."""
+    x = next(iter(states.values()))['x']
+    n = sum(s['x'].shape[0] for s in states.values())
+    es = x.element_size()
+    work = dict(candidates=0, visited=0, pairs=0, flops=n * BIN_TEST_FLOPS,
+                bytes=n * 7 * es)
+    if rebuilt:
+        work['bytes'] += n * (3 * es + 2 * I32) + \
+            len(states) * grid.ncells * 2 * I32
+        work['flops'] += n * BIN_CELL_FLOPS * grid.dim
+    return work
 
 
 def stub_work(mode, dest, dest_cells, write_mask, pre, sources, grid,

@@ -6,18 +6,29 @@
 with ``n_damp = 0``, under ``chunk_steps = 10`` (chunks replayed from a
 CUDA graph) and under ``chunk_steps = 1`` (the eager per-step loop):
 every state prop within 1e-12 of its max over the finite entries (the
-non-finite ones equal), ``t``, ``dt`` and ``count`` exactly equal, the
+non-finite ones equal), ``t``, ``dt``, ``count`` and the binnings that
+ran (``rebuilds``) exactly equal, the
 same dumps (count and t), among them a landing on an output time that
 the chunk decided; on the drop, the grid just holds it and its speed is
 ten times the example's, so a binning overflows inside a chunk, the grid
-grows and the chunk is captured again.
+grows and the chunk is captured again; on the moving dam break, seeded
+velocities of 3 m/s make the reuse test rebuild the binning every few
+steps inside the chunks.
 
 ``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
 step (host clock at each step's start, the card synchronised) or in
 chunks (host clock after each chunk's read, which waits for the card,
 over the chunks after the capture).  ``main`` prints one JSON line per
-full-width run of ``STEPS`` steps, both ways, tagged with ``label`` and
-the card's name and power limit.
+full-width run of ``STEPS`` steps and binning configuration of
+``CONFIGS``, both ways, with the binnings that ran, tagged with
+``label`` and the card's name and power limit.
+
+``CONFIGS`` are the reference's two binning configurations, set in code
+on an app after its setup (``configure``): ``reuse`` (the default: a
+reuse test once a step per evaluator, cells ``cell_slack`` 1.1 times the
+support) and ``every eval`` (``Integrator.bin_every_eval``, the test at
+every evaluation, on cells 1.001 times the support, so that nearly every
+test rebuilds).
 """
 
 import json
@@ -27,7 +38,6 @@ import time
 import numpy as np
 import torch
 
-from pysph_tpu_torch.base.cell_grid import CELL_SLACK
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
@@ -39,12 +49,12 @@ WARMUP = 20
 GATE_STEPS = 30
 TOL = 1e-12
 
-#: {case: (example, arguments)} of the gate, float64
-GATES = {
-    'dam_break_3d dx=0.04': (DamBreak3D, ('--dx', '0.04')),
-    'GTVF dx=0.02': (DamBreak2D, ('--scheme', 'gtvf', '--dx', '0.02')),
-    'elliptical_drop nx=40': (EllipticalDrop, ('--nx', '40')),
-}
+#: {case: (example, arguments, what to change on its solver or None)}
+#: of the gate, float64; filled below
+GATES = {}
+
+#: the binning configurations: {name: (bin_every_eval, cell_slack)}
+CONFIGS = {'reuse': (False, 1.1), 'every eval': (True, 1.001)}
 
 #: the full-width float32 runs: {label: make_app keyword arguments}
 PATHS = {
@@ -58,29 +68,60 @@ PATHS = {
 }
 
 
+def configure(app, config):
+    """Set the binning configuration ``config`` (of ``CONFIGS``) on a set
+    up app: the integrator's ``bin_every_eval`` and the grid's cell_slack
+    (the grid re-sized to it)."""
+    every, slack = CONFIGS[config]
+    s = app.solver
+    s.integrator.bin_every_eval = every
+    if slack != s.grid.cell_slack:
+        s.grid.resize(s.states.values(), cell_slack=slack)
+    return app
+
+
 def _tight_grid(s):
     """The drop ten times faster in a grid that just holds it."""
     st = s.states['fluid']
     st['u'] = st['u'] * 10.0
     st['v'] = st['v'] * 10.0
-    width = CELL_SLACK * s.grid.radius_scale * float(st['h'].max())
+    width = s.grid.cell_slack * s.grid.radius_scale * float(
+        st['h'].max())
     s.grid._set_dims([int(float(st[c].max() - st[c].min()) // width) + 1
                       for c in 'xy'] + [1])
+
+
+def _moving(s):
+    """Seeded normal fluid velocities of 3 m/s a component."""
+    st = s.states['fluid']
+    rng = np.random.default_rng(17)
+    for c in 'uvw':
+        st[c] = torch.as_tensor(rng.normal(0.0, 3.0, st[c].shape[0]),
+                                dtype=st[c].dtype, device=st[c].device)
+
+
+GATES.update({
+    'dam_break_3d dx=0.04': (DamBreak3D, ('--dx', '0.04'), None),
+    'dam_break_3d dx=0.04 moving': (DamBreak3D, ('--dx', '0.04'), _moving),
+    'GTVF dx=0.02': (DamBreak2D, ('--scheme', 'gtvf', '--dx', '0.02'),
+                     None),
+    'elliptical_drop nx=40': (EllipticalDrop, ('--nx', '40'), _tight_grid),
+})
 
 
 def _gate_run(case, chunk_steps, device):
     """One run of a gate case; returns (solver, dumps, chunks): the
     (count, t) of each dump call and the (count before, after) of each
     chunk."""
-    cls, extra = GATES[case]
+    cls, extra, prepare = GATES[case]
     app = cls()
     app.setup(['--disable-output', '-q', '--use-double', '--device', device,
                '--max-steps', str(GATE_STEPS), *extra])
     s = app.solver
     s.n_damp = 0
     s.chunk_steps = chunk_steps
-    if cls is EllipticalDrop:
-        _tight_grid(s)
+    if prepare is not None:
+        prepare(s)
     # an output time between steps 5 and 6 of the first dt
     s.set_output_at_times([5.5 * s.dt])
     dumps, chunks = [], []
@@ -105,10 +146,14 @@ def gate(case, device='cuda'):
     differ.  Returns a dict of what it held."""
     got, got_dumps, chunks = _gate_run(case, 10, device)
     want, want_dumps, _ = _gate_run(case, 1, device)
-    if (got.count, got.t, got.dt) != (want.count, want.t, want.dt):
-        raise AssertionError('%s: chunked count, t, dt %r, per-step %r' % (
-            case, (got.count, got.t, got.dt),
-            (want.count, want.t, want.dt)))
+    if (got.count, got.t, got.dt, got.rebuilds) != (
+            want.count, want.t, want.dt, want.rebuilds):
+        raise AssertionError('%s: chunked count, t, dt, rebuilds %r, '
+                             'per-step %r' % (
+                                 case, (got.count, got.t, got.dt,
+                                        got.rebuilds),
+                                 (want.count, want.t, want.dt,
+                                  want.rebuilds)))
     worst = 0.0
     for name, ref in want.states.items():
         for p, v in ref.items():
@@ -148,7 +193,7 @@ def gate(case, device='cuda'):
                 max_scaled_err=worst, landing_step=landed[0],
                 chunks=len(chunks), captures=got.captures,
                 replays=got.replays, reads=got.reads, grows=got.grid.grows,
-                per_step_reads=want.reads)
+                rebuilds=got.rebuilds, per_step_reads=want.reads)
 
 
 def timed_solve(app, chunk_steps, warmup=WARMUP):
@@ -191,19 +236,23 @@ def main(label=''):
         print(json.dumps(row), flush=True)
         rows.append(row)
     for path, kw in PATHS.items():
-        row = dict(label=label, card=smi, path=path, steps=STEPS)
-        for k in (10, 1):
-            app = make_app(dtype=torch.float32, steps=STEPS, **kw)
-            ms, samples = timed_solve(app, k)
-            s = app.solver
-            n = sum(st['x'].shape[0] for st in s.states.values())
-            row['chunk_steps=%d' % k] = dict(
-                ms_per_step=ms, min=min(samples), max=max(samples),
-                samples=len(samples), particle_steps_per_s=n / ms * 1e3,
-                captures=s.captures, replays=s.replays, reads=s.reads)
-            del app, s
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        for config in CONFIGS:
+            row = dict(label=label, card=smi, path=path, config=config,
+                       steps=STEPS)
+            for k in (10, 1):
+                app = configure(make_app(dtype=torch.float32, steps=STEPS,
+                                         **kw), config)
+                ms, samples = timed_solve(app, k)
+                s = app.solver
+                n = sum(st['x'].shape[0] for st in s.states.values())
+                row['chunk_steps=%d' % k] = dict(
+                    ms_per_step=ms, min=min(samples), max=max(samples),
+                    samples=len(samples), particle_steps_per_s=n / ms * 1e3,
+                    captures=s.captures, replays=s.replays, reads=s.reads,
+                    rebuilds=s.rebuilds)
+                del app, s
+            print(json.dumps(row), flush=True)
+            rows.append(row)
     return rows
 
 

@@ -99,21 +99,29 @@ def plan_calls(s, evals):
     return calls
 
 
-def pair_calls(dx, dtype):
+def _slack(s, cell_slack):
+    if cell_slack is not None:
+        s.grid.resize(s.states.values(), cell_slack=cell_slack)
+
+
+def pair_calls(dx, dtype, cell_slack=None):
     """(calls, particle count) for one eval of the perturbed dam break
-    at ``dx``."""
+    at ``dx`` (on cells ``cell_slack`` times the support where given)."""
     s = make_app(dx, dtype).solver
+    _slack(s, cell_slack)
     perturb(s.states, dtype, 'uvw')
     s.integrator.initial_acceleration(s.states, 0.0, s.dt)
     n = sum(st['x'].shape[0] for st in s.states.values())
     return plan_calls(s, [0]), n
 
 
-def drop_calls(nx, dtype):
+def drop_calls(nx, dtype, cell_slack=None):
     """(calls, particle count, app) for one eval of the elliptical drop
-    at ``nx`` with a seeded velocity and density perturbation."""
+    at ``nx`` with a seeded velocity and density perturbation (on cells
+    ``cell_slack`` times the support where given)."""
     app = make_app(None, dtype, cls=EllipticalDrop, extra=('--nx', str(nx)))
     s = app.solver
+    _slack(s, cell_slack)
     st = s.states['fluid']
     rng = np.random.default_rng(2024)
     n = st['x'].shape[0]
@@ -134,7 +142,7 @@ def gtvf_calls(dx, dtype):
     s = app.solver
     perturb(s.states, dtype, ('u', 'v', 'uhat', 'vhat'))
     for a_eval in s.acceleration_evals:
-        a_eval.compute(0.0, s.dt, s.states)
+        a_eval.update_and_compute(0.0, s.dt, s.states)
     n = sum(st['x'].shape[0] for st in s.states.values())
     return plan_calls(s, range(len(s.acceleration_evals))), n
 

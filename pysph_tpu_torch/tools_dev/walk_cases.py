@@ -24,7 +24,7 @@ the CPU tests hold the walks' rules to them and the card tests and
 import numpy as np
 import torch
 
-from pysph_tpu_torch.base.cell_grid import CELL_SLACK, CellGrid
+from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import CubicSpline, Gaussian, WendlandQuintic
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
@@ -93,9 +93,10 @@ def make_case(name, device='cpu', dtype=torch.float64, seed=0):
         dest_name = 'probe'
     hmax = max(float(s['h'].max()) for s in states.values() if
                s['h'].numel())
-    width = CELL_SLACK * rs * hmax
-    dims = [int(1.0 // width) + 1 if d < dim else 1 for d in range(3)]
-    grid = CellGrid(dim, rs, dims)
+    grid = CellGrid(dim, rs, (1, 1, 1))
+    width = grid.cell_slack * rs * hmax
+    grid._set_dims([int(1.0 // width) + 1 if d < dim else 1
+                    for d in range(3)])
     cells = grid.bin_all(states)
     dest = states[dest_name]
     srcs = [(states[s], cells[s], PairSource(s, terms, c0=10.0, alpha=0.1,
@@ -185,7 +186,7 @@ def gtvf_calls(device='cpu', dtype=torch.float64, seed=4, crowd=False,
             fluid[c][:300] = fluid[c].max() + 10.0 + 0.05 * torch.as_tensor(
                 rng.uniform(size=300), dtype=dtype, device=device)
     for a_eval in s.acceleration_evals:
-        a_eval.compute(0.0, s.dt, s.states)
+        a_eval.update_and_compute(0.0, s.dt, s.states)
     calls = []
     for k, dest, plan, args in plan_calls(s, range(len(s.acceleration_evals))):
         n = args[0]['x'].shape[0]

@@ -26,13 +26,13 @@ def test_sources_follow_the_includes(csrc):
             name + '.cu', 'cell_pack.cuh', 'cell_walk.cuh']
     assert [p.name for p in build.sources('cell_pack')] == [
         'cell_pack.cu', 'cell_pack.cuh']
-    for name in ('micro_launch', 'micro_engine'):
+    for name in ('micro_launch', 'micro_engine', 'bin_cells'):
         assert [p.name for p in build.sources(name)] == [name + '.cu']
 
 
 def test_header_edit_changes_the_key(csrc):
     names = ('wcsph_pair', 'dense_pair', 'pair_stub', 'fused_pair',
-             'gtvf_pair', 'micro_engine', 'cell_pack')
+             'gtvf_pair', 'micro_engine', 'cell_pack', 'bin_cells')
     before = {n: build.build_key(n) for n in names}
     assert before == {n: build.build_key(n) for n in names}
     header = csrc / 'wcsph_terms.cuh'
@@ -45,6 +45,7 @@ def test_header_edit_changes_the_key(csrc):
     assert after['fused_pair'] == before['fused_pair']
     assert after['gtvf_pair'] == before['gtvf_pair']
     assert after['cell_pack'] == before['cell_pack']
+    assert after['bin_cells'] == before['bin_cells']
     # the pack's header: the pack and the five walks that launch it
     pack = csrc / 'cell_pack.cuh'
     pack.write_text(pack.read_text() + '\n// edited\n')

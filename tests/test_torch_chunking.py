@@ -5,7 +5,8 @@ chunk carries time in float32 and holds to 1e-5, the port's carries t
 and dt in float64 on the device and takes the per-step loop's decisions
 in the same arithmetic.  Each case runs ``chunk_steps = 4`` against
 ``chunk_steps = 1`` from the same setup: every state prop within 1e-12
-of its max (the cases below reach 0), ``t``, ``dt`` and ``count`` exact,
+of its max (the cases below reach 0), ``t``, ``dt``, ``count`` and the
+binnings that ran (the reuse test decides them on the device) exact,
 and the same dumps (count and t).  On the CPU a chunk runs eagerly; the
 card replays it from a CUDA graph (``tests/test_torch_capture_cuda.py``).
 """
@@ -15,7 +16,7 @@ import logging
 import pytest
 import torch
 
-from pysph_tpu_torch.base.cell_grid import CELL_SLACK, CellGrid
+from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
@@ -39,7 +40,8 @@ def _drop_tight_grid(s):
     st = s.states['fluid']
     st['u'] = st['u'] * 10.0
     st['v'] = st['v'] * 10.0
-    width = CELL_SLACK * s.grid.radius_scale * float(st['h'].max())
+    width = s.grid.cell_slack * s.grid.radius_scale * float(
+        st['h'].max())
     s.grid._set_dims([int(float(st[c].max() - st[c].min()) // width) + 1
                       for c in 'xy'] + [1])
 
@@ -99,6 +101,8 @@ def _assert_same(got, want):
     assert got.count == want.count
     assert got.t == want.t and got.dt == want.dt
     assert got.grid.grows == want.grid.grows
+    # the same binnings ran: no inactive step of a chunk re-bins
+    assert got.rebuilds == want.rebuilds > 0
     for name, ref in want.states.items():
         for p, v in ref.items():
             mine = got.states[name][p]

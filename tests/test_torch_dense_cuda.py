@@ -48,7 +48,7 @@ def test_dense_kernel_matches_plain_version_on_the_card(case, dtype, tol):
         fluid[c][:300] = fluid[c].max() + 0.01 * torch.as_tensor(
             rng.uniform(size=300), dtype=dtype, device='cuda')
     a_eval = s.acceleration_evals[0]
-    a_eval.compute(0.0, s.dt, s.states)
+    a_eval.update_and_compute(0.0, s.dt, s.states)
     cells = a_eval.grid.bin_all(s.states)
     assert int((cells['fluid'].end - cells['fluid'].start).max()) > 128
     checked = 0

@@ -150,9 +150,9 @@ def test_engines_plan_the_drop():
         assert [(ps.name, ps.terms) for ps in plan.sources] == [
             ('fluid', wp.CONT | wp.MOM | wp.XSPH)]
         assert isinstance(s.kernel, Gaussian)
-        # cells 3 h = 0.195 wide over the drop's 1.9 extent, padded by 3%
-        # a side and 3 cells
-        assert s.grid.radius_scale == 3.0 and s.grid.dims == (13, 13, 1)
+        # cells 1.1 x 3 h = 0.2145 wide over the drop's 1.9 extent,
+        # padded by 3% a side and 3 cells
+        assert s.grid.radius_scale == 3.0 and s.grid.dims == (12, 12, 1)
     s = _port_app('torch', ['--disable-output']).solver
     assert s.acceleration_evals[0].engine_choices == {
         ('fluid', ('fluid',)): 'torch'}
@@ -181,7 +181,7 @@ def test_kernel_and_scheme_options():
     s = _port_app('kernel', ['--disable-output', '--kernel',
                              'CubicSpline']).solver
     assert isinstance(s.kernel, CubicSpline)
-    assert s.grid.radius_scale == 2.0 and s.grid.dims == (18, 18, 1)
+    assert s.grid.radius_scale == 2.0 and s.grid.dims == (17, 17, 1)
     with pytest.raises(NotImplementedError, match='item 19'):
         _port_app('kernel', ['--disable-output', '--kernel',
                              'QuinticSpline'])

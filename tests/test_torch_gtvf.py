@@ -128,7 +128,7 @@ def _port_app(engine, inputs=None, argv=ARGV):
 
 def _port_eval(engine, index, inputs):
     s = _port_app(engine, inputs).solver
-    s.acceleration_evals[index].compute(0.0, s.dt, s.states)
+    s.acceleration_evals[index].update_and_compute(0.0, s.dt, s.states)
     return {name: {p: st[p].numpy() for p in EVAL_OUT[index] if p in st}
             for name, st in s.states.items()}
 

@@ -34,7 +34,7 @@ def _app(seed=7):
 
 def _calls(app):
     a_eval = app.solver.acceleration_evals[0]
-    a_eval.compute(0.0, app.solver.dt, app.solver.states)
+    a_eval.update_and_compute(0.0, app.solver.dt, app.solver.states)
     return prof_dma.pair_calls(a_eval, app.solver.states)
 
 
@@ -79,8 +79,9 @@ def test_prof_phases_runs_each_dest_share_and_restores_the_eval():
     g1 = a_eval.groups[1]
     for dest, eqs in prof_phases.dest_split(a_eval).items():
         group = Group(equations=eqs, real=g1.real)
-        prof_phases.with_groups(a_eval, [group], lambda: a_eval.compute(
-            0.0, s.dt, s.states))
+        prof_phases.with_groups(a_eval, [group],
+                                lambda: a_eval.update_and_compute(
+                                    0.0, s.dt, s.states))
         assert s.acceleration_evals[0].groups is groups
     assert a_eval._plans is plans and a_eval.engine_choices == choices
 
@@ -100,7 +101,7 @@ def test_prof_dma_variant_runs_one_eval_on_the_cpu(variant):
         for plan in ref_eval._plans.values():
             if plan is not None:
                 plan.op = plan.reference
-        ref_eval.compute(0.0, ref.solver.dt, ref.solver.states)
+        ref_eval.update_and_compute(0.0, ref.solver.dt, ref.solver.states)
         want = ref.solver.states
     else:
         want = prof_dma.run_variant(_app(), 'skip')
