@@ -5,7 +5,7 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the nine CUDA sources of ``pysph_tpu_torch/csrc`` (the seven
+2. build the ten CUDA sources of ``pysph_tpu_torch/csrc`` (the eight
    pair and probe kernels, the source pack ``cell_pack`` and the binning
    ``bin_cells``) with nvcc, one process per source, in parallel, and
    print ``-Xptxas -v``;
@@ -21,9 +21,11 @@ Phases (any failure propagates; the exit code is then not 0):
    at dx=0.04 in float64 on the kernel engine against the torch engine
    (<= 1e-9 of max|ref|);
 4. the solver's chunks (``tools_dev/time_chunks.py::gate``): on each of
-   the three paths in float64 at a small size (dam_break_3d dx=0.04, also
+   the four paths in float64 at a small size (dam_break_3d dx=0.04, also
    with its fluid at 3 m/s so that the binning is rebuilt inside the
-   chunks, GTVF dx=0.02, the drop nx=40 in a grid that just holds it), 30
+   chunks, and with ``--delta-sph``, its strided ``m_mat`` and
+   ``gradrho`` in the chunk's write-back; GTVF dx=0.02, the drop nx=40 in
+   a grid that just holds it), 30
    steps with ``n_damp = 0`` in chunks of 10 replayed from CUDA graphs
    against the eager per-step loop: every prop within 1e-12 of its max,
    t, dt, the count and the binnings that ran exactly equal, one landing
@@ -46,7 +48,19 @@ Phases (any failure propagates; the exit code is then not 0):
    reference's other binning configuration (``bin_every_eval`` on cells
    1.001 times the support, ``time_chunks.CONFIGS``), per step and in
    chunks; GTVF and the drops below are driven and checked the same way;
-6. ``gtvf_pair`` against its plain version on the GTVF dam break
+6. the delta-SPH dam break (``dam_break_3d --delta-sph``, the
+   BASELINE's): ``delta_pair`` (the moment matrix and the corrected
+   density gradient) and ``wcsph_pair``'s delta terms against their plain
+   versions (``tools_dev/delta_check.py``) at dx=0.04 perturbed in
+   float64 and float32, and at dx=0.02 on the path's state after its 50
+   damped steps in float32, with the pairs whose accept decision differs
+   counted; both timed there (``delta_pair``'s two launches, and the
+   fluid's ``wcsph_pair`` call with the delta terms against without
+   them); then the path as the main path, under ``reuse`` only (3
+   ``wcsph_pair`` and 2 ``delta_pair`` launches an eval, peak device
+   memory); its chunks against the per-step loop in float64 are a gate
+   of phase 4 (``dam_break_3d dx=0.04 delta``);
+7. ``gtvf_pair`` against its plain version on the GTVF dam break
    (``examples.dam_break_2d --scheme gtvf``) with a seeded perturbation,
    every phase set of both evaluators: dx=0.02 (7,603 particles) in
    float64 and float32, dx=0.004 (137,803 particles, the path's shapes)
@@ -54,11 +68,11 @@ Phases (any failure propagates; the exit code is then not 0):
    the walls) must match exactly; the pack of each call (the GTVF planes)
    equal to its plain version; then 10 steps at dx=0.02 in float64 on
    the kernel engine against the torch engine (<= 1e-9 of max|ref|);
-7. the GTVF path at dx=0.004 in float32, as the main path (chunks from
+8. the GTVF path at dx=0.004 in float32, as the main path (chunks from
    step 0; 2 launches in the initial eval, 5 a step, one pack a launch),
    every pair phase of both evaluators on the kernel, and a finite final
    state (``rhodiv`` aside);
-8. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
+9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
    particles) in float64 (scaled error <= 1e-10) and nx=200 (125,623,
@@ -72,31 +86,31 @@ Phases (any failure propagates; the exit code is then not 0):
    version timed on identical calls at nx=200 and at dx=0.02, on cells
    1.1 and 1.001 times the support, with the candidates and
    ``dense_pair``'s passes;
-9. ``fused_continuity_momentum`` (CubicSpline) against its plain version
+10. ``fused_continuity_momentum`` (CubicSpline) against its plain version
    on the perturbed drop at nx=200 in float64 and float32, timed, and its
    pack (the fused planes) equal to its plain version; then,
    with its launches counted, m times its rates against ``wcsph_pair``'s
    Continuity + Momentum on the same state;
-10. the elliptical drop at nx=200 in float32 under ``--engine kernel``
+11. the elliptical drop at nx=200 in float32 under ``--engine kernel``
     (``wcsph_pair``) and ``--engine dense`` (``dense_pair``), as the main
     path (1 launch in the initial eval, 2 a step), every pair phase on the
     engine;
-11. the physics gate: the drop at nx=40 in float64 to tf=0.0076 under
+12. the physics gate: the drop at nx=40 in float64 to tf=0.0076 under
     ``--engine dense``, in chunks after its 50 damped steps, dumping into
     a temporary directory under ``build/``: max |y| within 3% of the exact
     semi-major axis, and ``post_process`` through the ported ``load``; the
     drop outgrows its initial cell grid, which must grow at least once and
     end with at most twice the stencil candidates of the start, and a grow
     after the first capture must capture the chunk again;
-12. ``micro_launch`` against its plain version on the nine cases of
+13. ``micro_launch`` against its plain version on the nine cases of
     ``tools_dev/micro_launch.py`` (seeded inputs, <= 1e-4 of max|ref|),
     then that tool's run (its path) with the launches counted, and the
     fluid dest phase case timed beside the plain version and
     ``embedding_bag``;
-13. ``micro_engine`` against its plain version on ``fluid-full`` with
+14. ``micro_engine`` against its plain version on ``fluid-full`` with
     ``dyn_maps`` both ways and 9 and 3 views, then the
     ``tools_dev/micro_engine.py`` run with the launches counted;
-14. ``pair_stub`` in every mode on dam_break_3d dx=0.02's calls: every
+15. ``pair_stub`` in every mode on dam_break_3d dx=0.02's calls: every
     output exactly 0, global loads in the SASS of every mode but
     ``none``, each mode timed (``all`` must be slower than ``none``);
     then the ``tools_dev/prof_dma.py`` and ``prof_phases.py`` runs (its
@@ -132,6 +146,7 @@ from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
 from pysph_tpu_torch.ops import bin_cells as bc
 from pysph_tpu_torch.ops import build, cell_pack, cell_walk
+from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
@@ -139,14 +154,14 @@ from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.ops import pair_stub as stub
 from pysph_tpu_torch.ops.pair_engine import PairSource
-from pysph_tpu_torch.tools_dev import bin_check
+from pysph_tpu_torch.tools_dev import bin_check, delta_check
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
 from pysph_tpu_torch.tools_dev import time_chunks, walk_cases
 from pysph_tpu_torch.tools_dev.common import events_ms, graph_ms
 from pysph_tpu_torch.tools_dev.time_walks import (
-    drop_calls, fused_call, gtvf_calls, make_app, pair_calls)
+    delta_calls, drop_calls, fused_call, gtvf_calls, make_app, pair_calls)
 
 STEPS = 200
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
@@ -232,91 +247,103 @@ def _chunk_launches(solver, ops):
     return rows
 
 
-def _drive(label, kw, op, first, per_step, bins, skip_finite=(),
-           engine='kernel', checks=(), config='reuse'):
+def _drive(label, kw, ops, bins, skip_finite=(), engine='kernel',
+           checks=(), config='reuse'):
     """A path at full width in float32 for ``STEPS`` steps under the
     binning configuration ``config`` (``time_chunks.CONFIGS``), per step
     (``chunk_steps = 1``) and in chunks (10, replayed from a CUDA graph),
     each timed by ``time_chunks.timed_solve`` (median ms/step: per step
     from the host clock at each step's start, the card synchronised; in
     chunks from the host clock after each chunk's read, over the chunks
-    after the capture).  ``op``'s launch count (and the source pack's and
-    ``bin_cells``') is set to 0 just before each run and read just after:
-    per step, the initial eval launches ``first`` and a step ``per_step``
-    times (``bin_cells`` once and ``bins`` times: each reuse test); in
-    chunks, the eager launches are the initial eval's, the damped steps'
-    and one warm-up step a capture, each capture counts ``per_step`` x K
-    (``bins`` x K), and the launches on the card are the eager ones plus
-    those of a capture x replays (the pack as often as ``op``).  Every
-    pair phase of every evaluator must be planned on ``engine``, the
-    final state finite (``skip_finite`` aside) and each of ``checks``
-    pass (called with the chunked run's solver).
-    Returns {launches, bin_launches, particles, ms: {chunk steps:
-    ms/step}, rebuilds: {chunk steps: binnings that ran}, counters: the
-    chunked run's solver counters}."""
-    ms, rebuilds, counters = {}, {}, None
+    after the capture).  ``ops``: ((kernel wrapper, first, per_step),
+    ...), the path's pair kernels.  Each one's launch count (and the
+    source pack's and ``bin_cells``') is set to 0 just before each run and
+    read just after: per step, the initial eval launches it ``first`` and
+    a step ``per_step`` times (``bin_cells`` once and ``bins`` times: each
+    reuse test); in chunks, the eager launches are the initial eval's, the
+    damped steps' and one warm-up step a capture, each capture counts
+    ``per_step`` x K (``bins`` x K), and the launches on the card are the
+    eager ones plus those of a capture x replays (the pack as often as the
+    pair kernels together).  Every pair phase of every evaluator must be
+    planned on ``engine``, the final state finite (``skip_finite`` aside)
+    and each of ``checks`` pass (called with the chunked run's solver).
+    Returns {launches: {kernel: launches}, bin_launches, particles, ms:
+    {chunk steps: ms/step}, rebuilds: {chunk steps: binnings that ran},
+    counters: the chunked run's solver counters, peak_mib: the chunked
+    run's peak device memory}."""
+    ms, rebuilds, counters, launches = {}, {}, None, {}
+    wrappers = [op for op, _, _ in ops]
     for k in (1, 10):
         app = time_chunks.configure(
             make_app(dtype=torch.float32, steps=STEPS, **kw), config)
         s = app.solver
-        bodies = _chunk_launches(s, (op, bc.bin_cells))
-        op.launches = cell_pack.pack.launches = bc.bin_cells.launches = 0
+        bodies = _chunk_launches(s, wrappers + [bc.bin_cells])
+        for op in wrappers:
+            op.launches = 0
+        cell_pack.pack.launches = bc.bin_cells.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         ms[k], samples = time_chunks.timed_solve(app, k)
-        counted, packs = op.launches, cell_pack.pack.launches
-        binned = bc.bin_cells.launches
+        counted = [op.launches for op in wrappers]
+        packs, binned = cell_pack.pack.launches, bc.bin_cells.launches
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
         rebuilds[k] = s.rebuilds
         n = sum(st['x'].shape[0] for st in s.states.values())
         print('%s, %s, chunk_steps=%d: median %.3f ms/step (min %.3f, max '
               '%.3f over %d samples from step %d), %.4g particle-steps/s; %d '
               'captures, %d replays, %d reads, %d binnings of %d tests; '
-              't=%.6g dt=%.6g' % (
+              't=%.6g dt=%.6g; peak device memory %.1f MiB' % (
                   label, config, k, ms[k], min(samples), max(samples),
                   len(samples), time_chunks.WARMUP, n / ms[k] * 1e3,
                   s.captures, s.replays, s.reads, s.rebuilds,
-                  1 + bins * STEPS, s.t, s.dt), flush=True)
+                  1 + bins * STEPS, s.t, s.dt, peak_mib), flush=True)
         if k == 1:
             if s.captures or s.replays or bodies or s.count != STEPS or \
-                    counted != first + per_step * STEPS or \
-                    binned != 1 + bins * STEPS:
-                raise AssertionError('%s, chunk_steps=1: %d launches, %d '
+                    any(c != first + per_step * STEPS
+                        for c, (_, first, per_step) in zip(counted, ops)) \
+                    or binned != 1 + bins * STEPS:
+                raise AssertionError('%s, chunk_steps=1: %s launches, %d '
                                      'bin_cells launches, %d chunks' % (
                                          label, counted, binned,
                                          len(bodies)))
             del app, s
             continue
         K = s.chunk_steps
-        captured = [c[0] for it, c, cap in bodies if cap]
-        warm = [c[0] for it, c, cap in bodies if not cap]
-        bin_captured = [c[1] for it, c, cap in bodies if cap]
-        bin_warm = [c[1] for it, c, cap in bodies if not cap]
         chunked = STEPS - s.n_damp
-        eager = counted - sum(captured)
-        launches = eager + per_step * K * s.replays
+        nb = len(ops)
+        bin_captured = [c[nb] for it, c, cap in bodies if cap]
+        bin_warm = [c[nb] for it, c, cap in bodies if not cap]
+        ok = (s.count == STEPS and s.captures and
+              s.replays == -(-chunked // K))
+        for q, (op, first, per_step) in enumerate(ops):
+            captured = [c[q] for it, c, cap in bodies if cap]
+            warm = [c[q] for it, c, cap in bodies if not cap]
+            eager = counted[q] - sum(captured)
+            launches[op.__name__] = eager + per_step * K * s.replays
+            print('%s launches: %d eager (initial eval %d, %d damped '
+                  'steps, %d warm-up steps) + %d a capture (%d steps) x %d '
+                  'replays = %d on the card; %d steps chunked, %d counted in '
+                  '%d captures' % (
+                      op.__name__, eager, first, s.n_damp, len(warm),
+                      per_step * K, K, s.replays, launches[op.__name__],
+                      chunked, sum(captured), len(captured)), flush=True)
+            ok = ok and (len(captured) == s.captures and
+                         set(captured) == {per_step * K} and
+                         warm == [per_step] * s.captures and
+                         eager == first + per_step * (s.n_damp +
+                                                      s.captures))
         bin_eager = binned - sum(bin_captured)
         bin_launches = bin_eager + bins * K * s.replays
-        print('%s launches: %d eager (initial eval %d, %d damped steps, %d '
-              'warm-up steps) + %d a capture (%d steps) x %d replays = %d '
-              'on the card; %d steps chunked, %d counted in %d captures; '
-              'bin_cells: %d eager + %d a capture x %d replays = %d'
-              % (op.__name__, eager, first, s.n_damp, len(warm),
-                 per_step * K, K, s.replays, launches, chunked,
-                 sum(captured), len(captured), bin_eager, bins * K,
-                 s.replays, bin_launches), flush=True)
-        if (s.count != STEPS or not s.captures or
-                len(captured) != s.captures or
-                set(captured) != {per_step * K} or
-                warm != [per_step] * s.captures or
-                eager != first + per_step * (s.n_damp + s.captures) or
-                s.replays != -(-chunked // K) or
-                set(bin_captured) != {bins * K} or
-                bin_warm != [bins] * s.captures or
-                bin_eager != 1 + bins * (s.n_damp + s.captures)):
+        print('bin_cells: %d eager + %d a capture x %d replays = %d'
+              % (bin_eager, bins * K, s.replays, bin_launches), flush=True)
+        if not (ok and set(bin_captured) == {bins * K} and
+                bin_warm == [bins] * s.captures and
+                bin_eager == 1 + bins * (s.n_damp + s.captures)):
             raise AssertionError('%s did not run every pair phase and '
                                  'reuse test through the kernels in its '
                                  'chunks: %s' % (label, bodies))
-        if packs != counted:
+        if packs != sum(counted):
             raise AssertionError('%s: %d pack launches for %d kernel '
-                                 'launches' % (label, packs, counted))
+                                 'launches' % (label, packs, sum(counted)))
         for i, a_eval in enumerate(s.acceleration_evals):
             print('eval %d engine_choices: %s' % (i, a_eval.engine_choices))
             if set(a_eval.engine_choices.values()) != {engine}:
@@ -339,7 +366,8 @@ def _drive(label, kw, op, first, per_step, bins, skip_finite=(),
                                     ms[1] / ms[10], rebuilds[1],
                                     rebuilds[10], STEPS), flush=True)
     return dict(launches=launches, bin_launches=bin_launches, particles=n,
-                ms=ms, rebuilds=rebuilds, counters=counters)
+                ms=ms, rebuilds=rebuilds, counters=counters,
+                peak_mib=peak_mib)
 
 
 def _bin_phase(label, s, out):
@@ -368,6 +396,79 @@ def _bin_phase(label, s, out):
             for k, v in t['rebuilt_kernels'].items()), flush=True)
         rows.append(t)
     out[label] = rows
+
+
+def _delta_phase(runs, kernels):
+    """dam_break_3d ``--delta-sph``: ``delta_pair`` and ``wcsph_pair``'s
+    delta terms against their plain versions (``tools_dev/delta_check.py``:
+    float64 and float32 at dx=0.04 perturbed, float32 at dx=0.02 on the
+    path's state after its damped steps, the accept decisions' flips
+    counted), timed there, then the path (``_drive``, reuse only): 3
+    ``wcsph_pair`` and 2 ``delta_pair`` launches an eval.  Adds the
+    ``delta_pair`` entry and the delta terms of the ``wcsph_pair`` one."""
+    for dx, dtype in ((0.04, torch.float64), (0.04, torch.float32)):
+        calls, n, _ = delta_calls(dx, dtype)
+        delta_check.check(calls, 'dam_break_3d --delta-sph dx=%g %s (%d '
+                          'particles), perturbed' % (dx, str(dtype)[6:], n))
+        del calls
+    label = 'dam_break_3d dx=0.02 delta'
+    calls, n, app = delta_calls(0.02, torch.float32, steps=50)
+    found = delta_check.check(calls, '%s float32 (%d particles) after its '
+                              '%d damped steps' % (label, n,
+                                                   app.solver.count))
+    dcalls = [c for c in calls if c[2].op is dl.delta_pair]
+    delta_ms = graph_ms(lambda: [c[2].op(*c[3]) for c in dcalls], 20)
+    delta_eager = events_ms(lambda: [c[2].op(*c[3]) for c in dcalls], 20)
+    per_launch = [graph_ms(lambda c=c: c[2].op(*c[3]), 20) for c in dcalls]
+    delta_plain_ms = events_ms(
+        lambda: [c[2].reference(*c[3]) for c in dcalls], 3)
+    delta_work = _calls_work(dcalls, roofline.delta_work)
+    print('delta_pair, the 2 pre-phases of one eval at dx=0.02 float32 (the '
+          'packs included): %.3f ms in a graph (moment %.3f, gradient '
+          '%.3f), %.3f eager, plain torch %.3f ms; bound %.4f ms (%s)' % (
+              (delta_ms, per_launch[0], per_launch[1], delta_eager,
+               delta_plain_ms) + roofline.bound(delta_work)), flush=True)
+    # the delta terms: the fluid's wcsph_pair call with and without them
+    tc = delta_check.terms_calls(calls)
+    with_ms = graph_ms(lambda: [wp.wcsph_pair(*c[0]) for c in tc], 20)
+    without_ms = graph_ms(lambda: [wp.wcsph_pair(*c[1]) for c in tc], 20)
+    alone_ms = graph_ms(lambda: [wp.wcsph_pair(*c[2]) for c in tc], 20)
+    plain_alone = events_ms(
+        lambda: [wp.wcsph_pair_reference(*c[2]) for c in tc], 3)
+    work_with = roofline.add(*[roofline.wcsph_work(*c[0]) for c in tc])
+    work_without = roofline.add(*[roofline.wcsph_work(*c[1]) for c in tc])
+    terms_work = {k: work_with[k] - work_without[k] for k in work_with}
+    terms_bound, terms_by = roofline.bound(terms_work)
+    print('wcsph_pair, the fluid call at dx=0.02 float32: %.3f ms in a graph '
+          'with the delta terms, %.3f without, %.3f with them alone (plain '
+          'torch %.3f ms); the terms\' bound %.4f ms (%s)' % (
+              with_ms, without_ms, alone_ms, plain_alone, terms_bound,
+              terms_by), flush=True)
+    # the calls with the delta terms are one of the path's wcsph_pair calls
+    terms_share = len(tc) / sum(c[2].op is wp.wcsph_pair for c in calls)
+    del calls, dcalls, tc, app
+    runs[label, 'reuse'] = run = _drive(
+        label, time_chunks.PATHS[label],
+        ((wp.wcsph_pair, 3, 6), (dl.delta_pair, 2, 4)), 1)
+    kernels['delta_pair'] = _entry(
+        'delta_pair', 'pysph_tpu/ops/resident.py:645',
+        run['launches']['delta_pair'], found['by_kernel']['delta_pair'],
+        delta_ms, delta_plain_ms, delta_work, None, eager_ms=delta_eager,
+        share=roofline.bound(delta_work)[0] / delta_ms,
+        per_launch_ms=per_launch, flips=found['flips'],
+        flipped_dests=found['flipped_dests'],
+        path='dam_break_3d --delta-sph dx=0.02 after the damped steps, one '
+        'eval (2 launches)')
+    terms_ms = with_ms - without_ms
+    kernels['wcsph_pair']['delta_terms'] = dict(
+        launches=round(run['launches']['wcsph_pair'] * terms_share),
+        max_abs_err=found['by_kernel']['wcsph_pair'], ms=terms_ms,
+        alone_ms=alone_ms, plain_ms=plain_alone, bound_ms=terms_bound,
+        bound_by=terms_by, share=terms_bound / terms_ms
+        if terms_ms > 0 else None, work=terms_work,
+        path='dam_break_3d --delta-sph dx=0.02, the fluid call with the '
+        'terms less without them (ms), the terms alone (alone_ms, and '
+        'the plain version\'s plain_ms)')
 
 
 def _rhodiv(solver):
@@ -750,7 +851,7 @@ def main():
     t0 = time.perf_counter()
     names = ('wcsph_pair', 'gtvf_pair', 'dense_pair', 'fused_pair',
              'micro_launch', 'micro_engine', 'pair_stub', 'cell_pack',
-             'bin_cells')
+             'bin_cells', 'delta_pair')
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     print('built %s in %.1f s' % ([lib.name for lib in libs.values()],
@@ -807,7 +908,7 @@ def main():
     label = MAIN = 'dam_break_3d dx=0.02'
     for config, (every, _) in time_chunks.CONFIGS.items():
         runs[label, config] = _drive(
-            label, time_chunks.PATHS[label], wp.wcsph_pair, 3, 6,
+            label, time_chunks.PATHS[label], ((wp.wcsph_pair, 3, 6),),
             2 if every else 1, config=config,
             checks=() if every else (functools.partial(
                 _bin_phase, label, out=bins),))
@@ -815,7 +916,7 @@ def main():
     if main_run['particles'] != 143051:
         raise AssertionError('dam_break_3d at dx=0.02 has %d particles, '
                              'not 143,051' % main_run['particles'])
-    wcsph_launches = pack_launches = main_run['launches']
+    wcsph_launches = pack_launches = main_run['launches']['wcsph_pair']
     kernels['wcsph_pair'] = _entry(
         'wcsph_pair', 'pysph_tpu/ops/resident.py:645', wcsph_launches,
         wcsph_err, wcsph_ms, wcsph_plain_ms, wcsph_work, None,
@@ -840,6 +941,7 @@ def main():
         note='the binning and its reuse test, one call of five gated '
         'kernels; its JAX counterpart, prepare_reuse and prepare, is XLA '
         'ops under a lax.cond, not a pallas_call')
+    _delta_phase(runs, kernels)
 
     # gtvf_pair against its plain version
     for dx, dtype in ((0.02, torch.float64), (0.02, torch.float32)):
@@ -880,11 +982,11 @@ def main():
     label = 'GTVF dx=0.004'
     for config, (every, _) in time_chunks.CONFIGS.items():
         runs[label, config] = _drive(
-            label, time_chunks.PATHS[label], gp.gtvf_pair, 2, 5, 2,
+            label, time_chunks.PATHS[label], ((gp.gtvf_pair, 2, 5),), 2,
             skip_finite=('rhodiv',), config=config,
             checks=(_rhodiv,) + (() if every else (functools.partial(
                 _bin_phase, label, out=bins),)))
-    gtvf_launches = runs[label, 'reuse']['launches']
+    gtvf_launches = runs[label, 'reuse']['launches']['gtvf_pair']
     kernels['gtvf_pair'] = _entry(
         'gtvf_pair', 'pysph_tpu/ops/pallas_engine.py:1160', gtvf_launches,
         gtvf_err, gtvf_ms, gtvf_plain_ms, gtvf_work, None,
@@ -959,14 +1061,15 @@ def main():
         label = 'drop nx=200 ' + engine
         for config, (every, _) in time_chunks.CONFIGS.items():
             runs[label, config] = run = _drive(
-                label, time_chunks.PATHS[label], op, 1, 2,
+                label, time_chunks.PATHS[label], ((op, 1, 2),),
                 2 if every else 1, engine=engine, config=config,
                 checks=(functools.partial(_bin_phase, label, out=bins),)
                 if engine == 'kernel' and not every else ())
             if run['particles'] != 125623:
                 raise AssertionError('the drop at nx=200 has %d particles, '
                                      'not 125,623' % run['particles'])
-    dense_launches = runs['drop nx=200 dense', 'reuse']['launches']
+    dense_launches = runs['drop nx=200 dense', 'reuse']['launches'][
+        'dense_pair']
     drop = times['drop nx=200']
     kernels['dense_pair'] = _entry(
         'dense_pair', 'pysph_tpu/ops/pallas_engine.py:574', dense_launches,

@@ -33,8 +33,11 @@ constexpr int kMaxPackSources = 4;
 constexpr int kMaxPlanes = 5;
 
 struct PackSrc {
-  // plane q, record k: {prop[q][0..3][order[k]]}; null: written as 0
+  // plane q, record k: {prop[q][c][stride[q][c] * order[k]]}, c = 0..3;
+  // null: written as 0.  A column of a strided prop (an (n, k) array)
+  // points at its first value, with stride k.
   const void* prop[kMaxPlanes][4];
+  int32_t stride[kMaxPlanes][4];
   const int32_t* order;
   void* out;  // (planes, n, 4) of the dtype
   int32_t n, planes;
@@ -49,8 +52,10 @@ struct PackArgs {
 namespace pack {
 
 template <typename T>
-__device__ __forceinline__ T value(const void* p, int j) {
-  return p == nullptr ? T(0) : static_cast<const T*>(p)[j];
+__device__ __forceinline__ T value(const void* p, int stride, int j) {
+  return p == nullptr ? T(0)
+                      : static_cast<const T*>(p)[static_cast<size_t>(j) *
+                                                 stride];
 }
 
 __device__ __forceinline__ void store(float* plane, int k, float a, float b,
@@ -73,9 +78,10 @@ __global__ void __launch_bounds__(256) cell_pack_kernel(const PackArgs a) {
   T* out = static_cast<T*>(S.out);
   const size_t plane = static_cast<size_t>(S.n) * 4;
   for (int q = 0; q < S.planes; ++q)
-    store(out + q * plane, k, value<T>(S.prop[q][0], j),
-          value<T>(S.prop[q][1], j), value<T>(S.prop[q][2], j),
-          value<T>(S.prop[q][3], j));
+    store(out + q * plane, k, value<T>(S.prop[q][0], S.stride[q][0], j),
+          value<T>(S.prop[q][1], S.stride[q][1], j),
+          value<T>(S.prop[q][2], S.stride[q][2], j),
+          value<T>(S.prop[q][3], S.stride[q][3], j));
 }
 
 inline bool args_ok(const PackArgs& a) {

@@ -1,0 +1,288 @@
+// The delta-SPH pre-phases for Hopper (sm_90a): the moment matrix of the
+// Bonet-Lok gradient correction, and the corrected density gradient, on
+// the warp-coherent walk over the cell-sorted packed sources.
+//
+// Replaces pysph_tpu/ops/resident.py::_pair_kernel_resident for the two
+// groups that WCSPHScheme(delta_sph=True) puts before the main group:
+//   MMAT        GradientCorrectionPreStep(dim): m_mat[3a+b] +=
+//               -V_j DWIJ[a] XIJ[b], a, b < dim (a stride-9 output);
+//   CORR | GRAD GradientCorrection(dim, tol) rewrites DWIJ pair by pair
+//               from the dest's m_mat (the closed-form adjugate solve of
+//               sph/wc/linalg.py small_solve_cols, kept where the L1 norm
+//               changes by less than tol), then
+//               ContinuityEquationDeltaSPHPreStep sums gradrho +=
+//               (rho_j - rho_i) V_j DWIJ (a stride-3 output);
+//   GRAD        the same sum on the uncorrected DWIJ.
+// One launch is one group of one dest array over all of its sources (at
+// most 4, all with the same terms); the moment group writes every row,
+// the gradient group only the rows under the write mask, so the two are
+// two launches.  The correction reads only the dest's own m_mat.
+//
+// The accept test is a step function: a pair whose change lies near tol
+// flips between the corrected and the uncorrected gradient.  So DWIJ, the
+// solve and the test are evaluated in the operations and the order of
+// the plain version (the torch pair engine: sph/acceleration_eval.py
+// PairContext, base/kernels.py, sph/wc/kernel_correction.py accept),
+// with rsqrt for RINV as torch.rsqrt, and this file is built without FMA
+// contraction (ops/build.py), so that on the same inputs both take the
+// same decision.  A singular matrix (|det| <= 1e-30) keeps the gradient,
+// as the plain version does; `accepted` (optional) counts the accepted
+// pairs of each dest.
+//
+// The walk is wcsph_pair's (csrc/cell_walk.cuh): thread = position in the
+// dest's sorted order, each lane walking its cells cx - 1 .. cx + 1 in
+// each stencil row of the packed copy, the candidates in support handed
+// to the pair body in rounds.  Sources are read from their packed copy
+// (csrc/cell_pack.cuh), whose record planes are, as ops/delta_pair.py
+// PACK_RECORDS:
+//   plane 0: x y z h
+//   plane 1: m rho 0 0
+// Each dest sums in registers in the order of the plain stencil walk and
+// writes its row once: no shared memory, no atomics.
+//
+// Interface: plain C through ctypes (ops/delta_pair.py): the launch
+// function takes a host pointer to DeltaArgs and the stream, launches the
+// pack of a.pack and then the walk, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cell_pack.cuh"
+#include "cell_walk.cuh"
+#include "wcsph_terms.cuh"
+
+constexpr int kDeltaSources = 4;
+constexpr int kMmat = 1, kCorr = 2, kGrad = 4;
+
+struct DeltaSrc {
+  const void* pos;   // {x, y, z, h}
+  const void* mass;  // {m, rho, 0, 0}
+  const int32_t* cell_start;
+  const int32_t* cell_end;
+};
+
+struct DeltaArgs {
+  const void *x, *y, *z, *h, *rho;  // dest
+  const void* m_mat;  // dest, (n, 9): the correction's matrix (kCorr)
+  const int32_t* cell;
+  const int32_t *dorder, *dcell_start, *dcell_end;
+  const uint8_t* wmask;  // null: every row
+  const void* pre;  // (n, 9) m_mat (kMmat) or (n, 3) gradrho
+  void* out;
+  int32_t* accepted;  // per dest: pairs whose correction was kept; null
+  DeltaSrc src[kDeltaSources];
+  double radius_scale, kfac, tol;
+  // dim: the kernel's; mdim: the moment's (kMmat) or correction's (kCorr)
+  int32_t n_dest, n_src, nx, ny, nz, dim, kernel_kind, dtype, terms, mdim;
+  PackArgs pack;
+};
+
+namespace {
+
+template <typename T>
+__device__ __forceinline__ T ld(const void* p, size_t i) {
+  return static_cast<const T*>(p)[i];
+}
+
+// rsqrt as torch.rsqrt computes it on the card
+__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
+__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
+
+// sph/wc/linalg.py small_solve_cols for n = 1, 2, 3 on the matrix m
+// (row-major 3x3, its top-left n x n block), in its operations and order:
+// w is replaced by the solution unless |det| <= 1e-30.
+template <typename T>
+__device__ __forceinline__ void small_solve(const T* m, T* w, int n) {
+  const T tiny = T(1e-30);
+  if (n == 1) {
+    const T det = m[0];
+    if (fabs(det) > tiny) w[0] = w[0] / det;
+  } else if (n == 2) {
+    const T det = m[0] * m[4] - m[1] * m[3];
+    if (fabs(det) > tiny) {
+      const T x0 = (m[4] * w[0] - m[1] * w[1]) / det;
+      const T x1 = (m[0] * w[1] - m[3] * w[0]) / det;
+      w[0] = x0;
+      w[1] = x1;
+    }
+  } else {
+    const T c00 = m[4] * m[8] - m[5] * m[7];
+    const T c01 = -(m[3] * m[8] - m[5] * m[6]);
+    const T c02 = m[3] * m[7] - m[4] * m[6];
+    const T c10 = -(m[1] * m[8] - m[2] * m[7]);
+    const T c11 = m[0] * m[8] - m[2] * m[6];
+    const T c12 = -(m[0] * m[7] - m[1] * m[6]);
+    const T c20 = m[1] * m[5] - m[2] * m[4];
+    const T c21 = -(m[0] * m[5] - m[2] * m[3]);
+    const T c22 = m[0] * m[4] - m[1] * m[3];
+    const T det = m[0] * c00 + m[1] * c01 + m[2] * c02;
+    if (fabs(det) > tiny) {
+      const T x0 = (c00 * w[0] + c10 * w[1] + c20 * w[2]) / det;
+      const T x1 = (c01 * w[0] + c11 * w[1] + c21 * w[2]) / det;
+      const T x2 = (c02 * w[0] + c12 * w[1] + c22 * w[2]) / det;
+      w[0] = x0;
+      w[1] = x1;
+      w[2] = x2;
+    }
+  }
+}
+
+template <typename T, int KIND, bool MOMENT>
+__global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
+    delta_pair_kernel(const DeltaArgs a) {
+  // every lane stays to the end: the walk's votes take the whole warp
+  const int pos = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = pos < a.n_dest;
+  const int i = active ? a.dorder[pos] : 0;
+  const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
+
+  T xi = 0, yi = 0, zi = 0, hi = 0, rhoi = 0;
+  T m[9] = {};   // the correction's matrix (kCorr)
+  T acc[9] = {};
+  int kept = 0;
+  if (active) {
+    xi = ld<T>(a.x, i);
+    yi = ld<T>(a.y, i);
+    zi = ld<T>(a.z, i);
+    hi = ld<T>(a.h, i);
+    if (!MOMENT) rhoi = ld<T>(a.rho, i);
+    if (!MOMENT && (a.terms & kCorr)) {
+#pragma unroll
+      for (int e = 0; e < 9; ++e) m[e] = ld<T>(a.m_mat, 9 * size_t(i) + e);
+    }
+  }
+  const T rs = T(a.radius_scale), kfac = T(a.kfac), tol = T(a.tol);
+  const int n = a.mdim;
+  const bool corr = a.terms & kCorr;
+
+  walk::Walker<T> walker;
+  walker.begin();
+  for (int s = 0; s < a.n_src; ++s) {
+    const DeltaSrc& S = a.src[s];
+    auto body = [&](int k) {
+      const walk::Rec<T> p = walk::rec<T>(S.pos, k);
+      const walk::Rec<T> mr = walk::rec<T>(S.mass, k);
+      const T xij = xi - p.a, yij = yi - p.b, zij = zi - p.c;
+      const T r2 = xij * xij + yij * yij + zij * zij;
+      const T hij = T(0.5) * (hi + p.d);
+      const T rinv = r2 > T(1e-24) ? rsqrt_t(r2) : T(0);
+      const T rij = r2 * rinv;
+      const T h1 = T(1) / (hij > T(0) ? hij : T(1));
+      T wq, dwq;
+      wcsph::shape<T, KIND>(rij * h1, wq, dwq);
+      const T fac = kfac * (a.dim == 1   ? h1
+                            : a.dim == 2 ? h1 * h1
+                                         : h1 * h1 * h1);
+      const T g = rij > T(1e-12) ? dwq * fac * h1 * rinv : T(0);
+      T dw[3] = {g * xij, g * yij, g * zij};
+      const T mj = mr.a, rhoj = mr.b;
+      // loops over the 3 components with a test against n, unrolled, so
+      // that every array stays in registers
+      if (MOMENT) {
+        const T x[3] = {xij, yij, zij};
+        const T v = mj / rhoj;
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            if (r < n && c < n) acc[3 * r + c] += -v * dw[r] * x[c];
+        return;
+      }
+      if (corr) {
+        T res[3] = {dw[0], dw[1], dw[2]};
+        small_solve(m, res, n);
+        T res_mag = fabs(res[0]), dw_mag = fabs(dw[0]);
+#pragma unroll
+        for (int c = 1; c < 3; ++c) {
+          if (c < n) {
+            res_mag = res_mag + fabs(res[c]);
+            dw_mag = dw_mag + fabs(dw[c]);
+          }
+        }
+        const T eps = T(1.0e-4) * hij;
+        const T change = fabs(res_mag - dw_mag) / (dw_mag + eps);
+        if (change < tol) {
+          ++kept;
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            if (c < n) dw[c] = res[c];
+        }
+      }
+      const T drho = (rhoj - rhoi) * mj / rhoj;
+      acc[0] += drho * dw[0];
+      acc[1] += drho * dw[1];
+      acc[2] += drho * dw[2];
+    };
+    walk::walk_rows(a, S.cell_start, S.cell_end, S.pos, l, 1,
+                    walk::Rec<T>{xi, yi, zi, hi}, rs, walker, body);
+    walker.finish(body);
+  }
+  if (!active) return;
+  const bool wm = a.wmask == nullptr || a.wmask[i] != 0;
+  constexpr int width = MOMENT ? 9 : 3;
+#pragma unroll
+  for (int e = 0; e < width; ++e) {
+    const size_t at = width * size_t(i) + e;
+    const T pre = ld<T>(a.pre, at);
+    static_cast<T*>(a.out)[at] = wm ? pre + acc[e] : pre;
+  }
+  if (a.accepted != nullptr) a.accepted[i] = kept;
+}
+
+template <typename T, bool MOMENT>
+cudaError_t launch(const DeltaArgs& a, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (a.n_dest + threads - 1) / threads;
+  if (a.kernel_kind == 0)
+    delta_pair_kernel<T, 0, MOMENT><<<blocks, threads, 0, stream>>>(a);
+  else if (a.kernel_kind == 1)
+    delta_pair_kernel<T, 1, MOMENT><<<blocks, threads, 0, stream>>>(a);
+  else
+    delta_pair_kernel<T, 2, MOMENT><<<blocks, threads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+bool args_ok(const DeltaArgs& a) {
+  const bool terms_ok = a.terms == kMmat || a.terms == (kCorr | kGrad) ||
+                        a.terms == kGrad;
+  const bool dims_ok = (a.terms & (kMmat | kCorr))
+                           ? a.mdim >= 1 && a.mdim <= 3
+                           : a.mdim == 0;
+  return terms_ok && dims_ok && a.n_src >= 1 && a.n_src <= kDeltaSources &&
+         a.nx >= 1 && a.ny >= 1 && a.nz >= 1 && a.dim >= 1 && a.dim <= 3 &&
+         a.kernel_kind >= 0 && a.kernel_kind <= 2 &&
+         (a.dtype == 0 || a.dtype == 1) && pack::args_ok(a.pack) &&
+         (a.pack.n_src == 0 || a.pack.dtype == a.dtype) &&
+         a.dorder != nullptr && a.cell != nullptr && a.pre != nullptr &&
+         a.out != nullptr &&
+         ((a.terms & kCorr) == 0 || a.m_mat != nullptr) &&
+         ((a.terms & kGrad) == 0 || a.rho != nullptr);
+}
+
+}  // namespace
+
+extern "C" {
+
+int delta_pair_args_size() { return static_cast<int>(sizeof(DeltaArgs)); }
+
+int delta_pair_launch(const DeltaArgs* args, void* stream) {
+  const DeltaArgs a = *args;
+  if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n_dest <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t packed = pack::launch(a.pack, st);
+  if (packed != cudaSuccess) return static_cast<int>(packed);
+  const bool moment = a.terms == kMmat;
+  cudaError_t rc;
+  if (a.dtype == 0)
+    rc = moment ? launch<float, true>(a, st) : launch<float, false>(a, st);
+  else
+    rc = moment ? launch<double, true>(a, st) : launch<double, false>(a, st);
+  return static_cast<int>(rc);
+}
+
+const char* delta_pair_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -331,6 +331,11 @@ int dense_pair_launch(const WcsphArgs* args, void* stream) {
   if (!wcsph::args_ok(a) || a.dorder == nullptr || a.cell == nullptr ||
       a.dcell_start == nullptr || a.dcell_end == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the delta-SPH terms are wcsph_pair's only (their strided gradrho
+  // plane is not staged here)
+  for (int s = 0; s < a.n_src; ++s)
+    if (a.src[s].terms & (kDcont | kDmom))
+      return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t packed = pack::launch(a.pack, st);

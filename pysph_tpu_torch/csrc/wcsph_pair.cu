@@ -4,8 +4,10 @@
 // Replaces pysph_tpu/ops/resident.py::_pair_kernel_resident for the
 // equations of the dam-break main path: ContinuityEquation, the
 // non-tensile MomentumEquation (artificial viscosity and the dt_cfl max)
-// and XSPHCorrection, with the WendlandQuintic, CubicSpline or Gaussian
-// kernel.
+// and XSPHCorrection, and the main group's delta-SPH terms
+// (ContinuityEquationDeltaSPH, MomentumEquationDeltaSPH), with the
+// WendlandQuintic, CubicSpline or Gaussian kernel.  (The delta-SPH
+// pre-phases are csrc/delta_pair.cu.)
 // One launch computes every pair term of one dest array over all of its
 // sources (at most 4), and writes each output once.
 //
@@ -42,8 +44,9 @@ using wcsph::Cand;
 using wcsph::Dest;
 
 // 8 blocks of 128 threads an SM in float (64 registers a thread): the
-// walk waits on its loads, so more warps in flight hide more of it
-template <typename T, int KIND>
+// walk waits on its loads, so more warps in flight hide more of it.
+// DELTA: built with the delta-SPH terms (a call whose sources take one).
+template <typename T, int KIND, bool DELTA>
 __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
     wcsph_pair_kernel(const WcsphArgs a) {
   // every lane stays to the end: the walk's votes take the whole warp
@@ -53,7 +56,7 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
   const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
 
   Dest<T> d{};
-  if (active) d.load(a, i, wcsph::dest_terms(a));
+  if (active) d.template load<DELTA>(a, i, wcsph::dest_terms(a));
   const T rs = T(a.radius_scale), kfac = T(a.kfac);
 
   walk::Walker<T> walker;
@@ -61,16 +64,20 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
   for (int s = 0; s < a.n_src; ++s) {
     const SrcArgs& S = a.src[s];
     const int terms = S.terms;
-    const bool thermo = terms & (kMom | kXsph);
+    const bool thermo =
+        terms & (kMom | kXsph | (DELTA ? kDcont | kDmom : 0));
+    const bool grad = DELTA && (terms & kDcont);
     const T c0 = T(S.c0), alpha = T(S.alpha), beta = T(S.beta);
     const T xeps = T(S.xsph_eps);
+    const wcsph::DeltaConsts<T> dc = wcsph::delta_consts<T>(S);
     auto body = [&](int k) {
       Cand<T> c;
       c.pos = wcsph::rec<T>(S.pos, k);
       c.vel = wcsph::rec<T>(S.vel, k);
       c.th = thermo ? wcsph::rec<T>(S.thermo, k) : wcsph::Rec<T>{};
-      d.template pair<KIND>(c, k, terms, c0, alpha, beta, xeps, rs, kfac,
-                            a.dim);
+      c.gr = grad ? wcsph::rec<T>(S.grad, k) : wcsph::Rec<T>{};
+      d.template pair<KIND, DELTA>(c, k, terms, c0, alpha, beta, xeps, rs,
+                                   kfac, a.dim, dc);
     };
     wcsph::walk_rows(a, S, l, 1, d, rs, walker, body);
     walker.finish(body);
@@ -78,17 +85,25 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
   if (active) d.store(a, i);
 }
 
-template <typename T>
+template <typename T, bool DELTA>
 cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (a.n_dest + threads - 1) / threads;
   if (a.kernel_kind == 0)
-    wcsph_pair_kernel<T, 0><<<blocks, threads, 0, stream>>>(a);
+    wcsph_pair_kernel<T, 0, DELTA><<<blocks, threads, 0, stream>>>(a);
   else if (a.kernel_kind == 1)
-    wcsph_pair_kernel<T, 1><<<blocks, threads, 0, stream>>>(a);
+    wcsph_pair_kernel<T, 1, DELTA><<<blocks, threads, 0, stream>>>(a);
   else
-    wcsph_pair_kernel<T, 2><<<blocks, threads, 0, stream>>>(a);
+    wcsph_pair_kernel<T, 2, DELTA><<<blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
+  bool delta = false;
+  for (int s = 0; s < a.n_src; ++s)
+    delta = delta || (a.src[s].terms & (kDcont | kDmom));
+  return delta ? launch<T, true>(a, stream) : launch<T, false>(a, stream);
 }
 
 }  // namespace

@@ -3,9 +3,11 @@
 //
 // The two pair kernels compute the same contract (ops/wcsph_pair.py): the
 // ContinuityEquation, the non-tensile MomentumEquation (artificial
-// viscosity and the dt_cfl max) and XSPHCorrection of one dest array over
-// at most kMaxSources sources, each output written once as pre + sum
-// (max(pre, m) for dt_cfl) under the write mask.  They differ only in how
+// viscosity and the dt_cfl max), XSPHCorrection and, in wcsph_pair only,
+// the two delta-SPH terms (ContinuityEquationDeltaSPH,
+// MomentumEquationDeltaSPH) of one dest array over at most kMaxSources
+// sources, each output written once as pre + sum (max(pre, m) for
+// dt_cfl) under the write mask.  They differ only in how
 // a dest reaches its source particles (csrc/cell_walk.cuh), so everything
 // else lives here: the argument struct, the packed source records, the
 // shape functions and the per-pair body.  The body reads a source
@@ -17,8 +19,10 @@
 //   plane 0: x y z h
 //   plane 1: u v w m
 //   plane 2: rho p cs 0
+//   plane 3: gradrho[0] gradrho[1] gradrho[2] 0
 // the third only where the term mask reads rho (p and cs 0 where it reads
-// neither).
+// neither), the fourth only where it holds kDcont.  The dest's gradrho,
+// an (n, 3) array, is read from its row.
 
 #pragma once
 
@@ -32,7 +36,7 @@
 // take them, and a type in an unnamed namespace would give those
 // functions internal linkage.
 constexpr int kMaxSources = 4;
-constexpr int kCont = 1, kMom = 2, kXsph = 4;
+constexpr int kCont = 1, kMom = 2, kXsph = 4, kDcont = 8, kDmom = 16;
 // outputs in the order of ops/wcsph_pair.py OUTPUTS: arho, au, av, aw,
 // ax, ay, az, dt_cfl
 constexpr int kDtCfl = 7, kNumOut = 8;
@@ -43,14 +47,18 @@ struct SrcArgs {
   const void* pos;     // {x, y, z, h}
   const void* vel;     // {u, v, w, m}
   const void* thermo;  // {rho, p, cs, 0}; null where the terms read no rho
+  const void* grad;    // {gradrho, 0}; null without kDcont
   const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double c0, alpha, beta, xsph_eps;
+  // kDcont: delta, its c0; kDmom: alpha, c0, rho0
+  double delta, delta_c0, dmom_alpha, dmom_c0, rho0;
   int32_t terms, pad;
 };
 
 struct WcsphArgs {
   const void *x, *y, *z, *u, *v, *w, *h, *rho, *p, *cs;  // dest
+  const void* gradrho;  // dest, (n, 3); read with kDcont
   const int32_t* cell;   // dest cell id, ix + nx * (iy + ny * iz)
   // the dest's own cell list: threads follow its order
   const int32_t *dorder, *dcell_start, *dcell_end;
@@ -116,7 +124,7 @@ using walk::rec;
 // body's particle index is not used: the values are already here).
 template <typename T>
 struct Cand {
-  Rec<T> pos, vel, th;
+  Rec<T> pos, vel, th, gr;
   __device__ T x(int) const { return pos.a; }
   __device__ T y(int) const { return pos.b; }
   __device__ T z(int) const { return pos.c; }
@@ -128,17 +136,37 @@ struct Cand {
   __device__ T rho(int) const { return th.a; }
   __device__ T p(int) const { return th.b; }
   __device__ T cs(int) const { return th.c; }
+  __device__ T gx(int) const { return gr.a; }
+  __device__ T gy(int) const { return gr.b; }
+  __device__ T gz(int) const { return gr.c; }
 };
+
+// The delta-SPH terms' constants of one source, in the working type.
+template <typename T>
+struct DeltaConsts {
+  T delta, delta_c0, dmom_alpha, dmom_c0, rho0;
+};
+
+template <typename T>
+__device__ __forceinline__ DeltaConsts<T> delta_consts(const SrcArgs& S) {
+  return {T(S.delta), T(S.delta_c0), T(S.dmom_alpha), T(S.dmom_c0),
+          T(S.rho0)};
+}
 
 // One dest particle: its values, read once, and its accumulators.
 template <typename T>
 struct Dest {
-  T xi, yi, zi, ui, vi, wi, hi, rhoi, pi, csi, rhoi21;
+  T xi, yi, zi, ui, vi, wi, hi, rhoi, pi, csi, rhoi21, gxi, gyi, gzi;
   T arho, au, av, aw, ax, ay, az, cfl;
 
-  // dterms: the union of the sources' term masks
+  // dterms: the union of the sources' term masks; DELTA: whether they
+  // may hold the delta-SPH terms (a kernel without them is built apart,
+  // so that their registers cost the other paths nothing)
+  template <bool DELTA = false>
   __device__ void load(const WcsphArgs& a, int i, int dterms) {
-    const bool need_rho = dterms & (kMom | kXsph);
+    const bool need_rho =
+        dterms & (kMom | kXsph | (DELTA ? kDcont | kDmom : 0));
+    const bool dcont = DELTA && (dterms & kDcont);
     const bool mom = dterms & kMom;
     xi = ld<T>(a.x, i);
     yi = ld<T>(a.y, i);
@@ -151,16 +179,22 @@ struct Dest {
     pi = mom ? ld<T>(a.p, i) : T(0);
     csi = mom ? ld<T>(a.cs, i) : T(0);
     rhoi21 = mom ? T(1) / (rhoi * rhoi) : T(0);
+    gxi = dcont ? ld<T>(a.gradrho, 3 * i) : T(0);
+    gyi = dcont ? ld<T>(a.gradrho, 3 * i + 1) : T(0);
+    gzi = dcont ? ld<T>(a.gradrho, 3 * i + 2) : T(0);
     arho = au = av = aw = ax = ay = az = T(0);
     cfl = mom ? ld<T>(a.pre[kDtCfl], i) : T(0);
   }
 
   // The pair (this dest, source particle j), with the support test
   // r2 < (rs max(hi, hj))^2 and the guards of the torch pair engine.
-  template <int KIND, class Src>
+  // dc: the delta-SPH terms' constants (read only with kDcont, kDmom,
+  // in a kernel built with DELTA).
+  template <int KIND, bool DELTA = false, class Src>
   __device__ __forceinline__ void pair(const Src& s, int j, int terms,
                                        T c0, T alpha, T beta, T xeps, T rs,
-                                       T kfac, int dim) {
+                                       T kfac, int dim,
+                                       const DeltaConsts<T>& dc = {}) {
     const T xij = xi - s.x(j);
     const T yij = yi - s.y(j);
     const T zij = zi - s.z(j);
@@ -186,6 +220,27 @@ struct Dest {
     const T dwx = g * xij, dwy = g * yij, dwz = g * zij;
 
     if (terms & kCont) arho += mj * (dwx * uij + dwy * vij + dwz * wij);
+    if (DELTA && (terms & (kDcont | kDmom))) {
+      const T rhoj = s.rho(j);
+      const T vj = mj / rhoj;
+      const T eps = T(0.01) * hij * hij;
+      if (terms & kDcont) {
+        const T fac = T(-2) * (rhoj - rhoi) / (r2 + eps);
+        const T psix = fac * xij - gxi - s.gx(j);
+        const T psiy = fac * yij - gyi - s.gy(j);
+        const T psiz = fac * zij - gzi - s.gz(j);
+        const T psidot = psix * dwx + psiy * dwy + psiz * dwz;
+        arho += dc.delta * hij * dc.delta_c0 * psidot * vj;
+      }
+      if (terms & kDmom) {
+        const T vdotx = uij * xij + vij * yij + wij * zij;
+        const T fac = dc.dmom_alpha * hij * dc.dmom_c0 * dc.rho0;
+        const T t = fac * (vdotx / (r2 + eps)) * vj / rhoi;
+        au += t * dwx;
+        av += t * dwy;
+        aw += t * dwz;
+      }
+    }
     if (terms & (kMom | kXsph)) {
       const T rhoj = s.rho(j);
       const T rhoij = T(0.5) * (rhoi + rhoj);

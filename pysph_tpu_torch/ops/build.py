@@ -31,6 +31,9 @@ CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+#: flags of one source only: delta_pair's accept test must round every
+#: operation as the plain torch version does, so no FMA contraction
+EXTRA_FLAGS = {'delta_pair': ('-fmad=false',)}
 
 _loaded = {}
 
@@ -70,11 +73,16 @@ def sources(name):
     return found
 
 
+def flags(name):
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def build_key(name):
     """Hash of the sources of ``name`` and the flags: the library's
     name, so that an edit of the ``.cu`` or of a header it includes
     rebuilds it."""
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(flags(name)).encode())
     for path in sources(name):
         digest.update(path.name.encode() + b'\0' + path.read_bytes())
     return digest.hexdigest()[:16]
@@ -88,7 +96,7 @@ def build(name):
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(lib.name + '.%d.tmp' % os.getpid())
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)],
+    proc = subprocess.run([nvcc(), *flags(name), '-o', str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError('nvcc failed on %s:\n%s%s' % (
@@ -132,13 +140,15 @@ def launch(name, args, device):
             name, getattr(lib, name + '_error_string')(rc).decode(), rc))
 
 
-def data_ptr(t, n, dtype, device, what):
+def data_ptr(t, n, dtype, device, what, width=None):
     """``t.data_ptr()``, once ``t`` is checked to be a contiguous
-    ``(n,)`` tensor of ``dtype`` on ``device``."""
-    if t.device != device or t.dtype != dtype or t.dim() != 1 or \
-            t.shape[0] != n or not t.is_contiguous():
-        raise ValueError('%s must be a contiguous (%d,) %s tensor on %s, '
-                         'got %s %s on %s' % (what, n, dtype, device,
+    ``(n,)`` tensor of ``dtype`` on ``device`` (``(n, width)`` for a
+    strided prop)."""
+    shape = (n,) if width is None else (n, width)
+    if t.device != device or t.dtype != dtype or \
+            tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError('%s must be a contiguous %s %s tensor on %s, '
+                         'got %s %s on %s' % (what, shape, dtype, device,
                                               tuple(t.shape), t.dtype,
                                               t.device))
     return t.data_ptr()

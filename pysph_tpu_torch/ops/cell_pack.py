@@ -7,9 +7,11 @@ records of four values of the working type in planes.  Each kernel names
 its planes in a table of four prop names each (``None``: always 0):
 ``ops/wcsph_pair.py``, ``ops/gtvf_pair.py`` and ``ops/fused_pair.py``
 ``PACK_RECORDS``, and the same table in a comment of the ``.cu``.  A
-source packs plane 0 (``{x y z h}``, read by every candidate's support
-test) and each plane that holds a prop its terms read (``layout``), and
-a prop its terms do not read is written as 0.
+name is a prop of stride 1 or ``(prop, c)``, column ``c`` of a strided
+prop (an ``(n, k)`` tensor, e.g. ``('gradrho', 0)``).  A source packs
+plane 0 (``{x y z h}``, read by every candidate's support test) and each
+plane that holds a prop its terms read (``layout``), and a prop its
+terms do not read is written as 0.
 
 A pack is given as ``(state, order, planes)``: the source's state dict,
 its ``CellList.order`` and the prop names of the planes it packs.  For
@@ -45,6 +47,15 @@ def layout(table, reads):
                         for q in slots)
 
 
+def column(state, name):
+    """The ``(n,)`` values a plane name stands for: ``state[name]``, or
+    column ``c`` of ``state[prop]`` for ``(prop, c)``."""
+    if isinstance(name, tuple):
+        prop, c = name
+        return state[prop][:, c]
+    return state[name]
+
+
 def pack_reference(packs):
     """Plain torch version of ``pack``: for each ``(state, order,
     planes)`` the ``(len(planes), n, 4)`` records gathered through
@@ -54,7 +65,7 @@ def pack_reference(packs):
         idx = order.long()
         zero = torch.zeros_like(state['x'][idx])
         out.append(torch.stack([
-            torch.stack([zero if p is None else state[p][idx]
+            torch.stack([zero if p is None else column(state, p)[idx]
                          for p in names], dim=1)
             for names in planes]))
     return out
@@ -62,6 +73,7 @@ def pack_reference(packs):
 
 class _PackSrc(ctypes.Structure):
     _fields_ = [('prop', (ctypes.c_void_p * 4) * MAX_PLANES),
+                ('stride', (ctypes.c_int32 * 4) * MAX_PLANES),
                 ('order', ctypes.c_void_p), ('out', ctypes.c_void_p),
                 ('n', ctypes.c_int32), ('planes', ctypes.c_int32)]
 
@@ -95,10 +107,23 @@ def fill(args, packs, name):
         if len(planes) > MAX_PLANES:
             raise ValueError('%s: %d record planes' % (name, len(planes)))
         for q, names in enumerate(planes):
-            row = sa.prop[q]
             for c, p in enumerate(names):
-                if p is not None:
-                    row[c] = data_ptr(state[p], ns, fdt, dev, 's_' + p)
+                if p is None:
+                    continue
+                if isinstance(p, tuple):
+                    prop, col = p
+                    t = state[prop]
+                    width = t.shape[1] if t.dim() == 2 else 0
+                    if not 0 <= col < width:
+                        raise ValueError('%s: s_%s has no column %d'
+                                         % (name, prop, col))
+                    sa.prop[q][c] = data_ptr(
+                        t, ns, fdt, dev, 's_' + prop,
+                        width=width) + col * t.element_size()
+                    sa.stride[q][c] = width
+                else:
+                    sa.prop[q][c] = data_ptr(state[p], ns, fdt, dev, 's_' + p)
+                    sa.stride[q][c] = 1
         sa.order = data_ptr(order, ns, torch.int32, dev, 'source order')
         sa.out = ptr
         sa.planes, sa.n = len(planes), ns

@@ -2,7 +2,8 @@
 
 ``dense_pair`` computes what ``wcsph_pair`` computes (``ops/wcsph_pair.py``:
 Continuity, non-tensile Momentum and XSPH of one dest over at most
-``MAX_SOURCES`` sources, with the same per-source term masks), with the
+``MAX_SOURCES`` sources, with the same per-source term masks, but for
+the delta-SPH terms ``DCONT`` and ``DMOM``, which it refuses), with the
 same arguments and outputs; ``wcsph_pair_reference`` is the plain version
 of both.  The engine ``dense`` (``config.py``) plans the WCSPH phase sets
 onto it; it is the port's counterpart of the JAX package's dense-slot
@@ -17,13 +18,16 @@ counted in ``dense_pair.launches``); for CPU tensors it calls
 ``wcsph_pair_reference``.
 """
 
-from pysph_tpu_torch.ops.wcsph_pair import launch_pair, wcsph_pair_reference
+from pysph_tpu_torch.ops.wcsph_pair import (
+    DCONT, DMOM, launch_pair, wcsph_pair_reference)
 
 
 def dense_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     """Pair terms of one dest over its sources; same arguments and
     result as ``wcsph_pair_reference``.  CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
+    if any(ps.terms & (DCONT | DMOM) for _, _, ps in sources):
+        raise ValueError('dense_pair: the delta-SPH terms are wcsph_pair\'s')
     if dest['x'].device.type == 'cpu':
         return wcsph_pair_reference(dest, dest_cells, write_mask, pre,
                                     sources, grid, kernel)

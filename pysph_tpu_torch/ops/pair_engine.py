@@ -1,14 +1,22 @@
 """Planning: which pair phases a hand-written pair kernel runs.
 
-Three kernels take a dest's pair phases, all its sources in one call:
+Four kernels take a dest's pair phases, all its sources in one call:
 
 - ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path and
   the elliptical drop): every equation with sources is
-  ``ContinuityEquation``, ``MomentumEquation`` (non-tensile) or
-  ``XSPHCorrection``, with the ``WendlandQuintic``, ``CubicSpline`` or
-  ``Gaussian`` kernel;
-- ``dense_pair`` (``ops/dense_pair.py``): the same phase sets and
-  contract, walked one thread block per dest cell;
+  ``ContinuityEquation``, ``MomentumEquation`` (non-tensile),
+  ``XSPHCorrection``, ``ContinuityEquationDeltaSPH`` or
+  ``MomentumEquationDeltaSPH``, with the ``WendlandQuintic``,
+  ``CubicSpline`` or ``Gaussian`` kernel;
+- ``dense_pair`` (``ops/dense_pair.py``): the same phase sets but for the
+  two delta-SPH terms, walked one thread block per dest cell;
+- ``delta_pair`` (``ops/delta_pair.py``, the delta-SPH pre-phases): every
+  source takes ``GradientCorrectionPreStep`` alone, or
+  ``GradientCorrection`` then ``ContinuityEquationDeltaSPHPreStep``, or
+  the latter alone, the same for every source, with the kernels of
+  ``wcsph_pair``.  ``GradientCorrection`` rewrites ``DWIJ`` for the
+  equation after it: a symbol, which the rule below does not see, so
+  ``delta_pair``'s planner accepts exactly that ordered pair;
 - ``gtvf_pair`` (``ops/gtvf_pair.py``, the GTVF dam break): the
   equations fall in one of its five phase sets (``SetWallVelocity``;
   ``ContinuityEquationGTVF`` + ``ContinuitySolid``; ``CorrectDensity``;
@@ -25,25 +33,41 @@ Anything else raises ``PairIneligible`` and the evaluator runs the torch
 pair engine instead.
 
 The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
-sets onto ``wcsph_pair`` and the GTVF sets onto ``gtvf_pair``; ``dense``
-plans the WCSPH sets onto ``dense_pair`` and nothing else, as the JAX
-package's dense-slot engine refuses the sequential and strided phases of
-the GTVF sets (``pallas_engine.py:855-861``).
+sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair`` and the
+delta-SPH pre-phases onto ``delta_pair``; ``dense`` plans the WCSPH sets
+without delta-SPH terms onto ``dense_pair`` and nothing else, as the JAX
+package's dense-slot engine refuses sequential and strided phases
+(``pallas_engine.py:855-861``): the GTVF sets, the delta-SPH pre-phases
+(their outputs ``m_mat`` and ``gradrho`` are strided) and the delta-SPH
+main group (it reads the strided ``gradrho``) run on the torch engine.
 """
 
 from typing import NamedTuple
 
 from pysph_tpu_torch.base.kernels import KERNEL_KIND, WendlandQuintic
+from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gtvf_pair as _gp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
 from pysph_tpu_torch.sph.basic_equations import (
     ContinuityEquation, XSPHCorrection)
 from pysph_tpu_torch.sph.equation import _method_args
-from pysph_tpu_torch.sph.wc.basic import MomentumEquation
+from pysph_tpu_torch.sph.wc.basic import (
+    ContinuityEquationDeltaSPH, ContinuityEquationDeltaSPHPreStep,
+    MomentumEquation, MomentumEquationDeltaSPH)
+from pysph_tpu_torch.sph.wc.kernel_correction import (
+    GradientCorrection, GradientCorrectionPreStep)
 
-_WCSPH_TERMS = {ContinuityEquation: _wp.CONT, MomentumEquation: _wp.MOM,
+_DENSE_TERMS = {ContinuityEquation: _wp.CONT, MomentumEquation: _wp.MOM,
                 XSPHCorrection: _wp.XSPH}
+_WCSPH_TERMS = {**_DENSE_TERMS, ContinuityEquationDeltaSPH: _wp.DCONT,
+                MomentumEquationDeltaSPH: _wp.DMOM}
+#: delta_pair's term masks by the equation types of a source, in order
+_DELTA_SETS = {
+    (GradientCorrectionPreStep,): _dl.MMAT,
+    (GradientCorrection, ContinuityEquationDeltaSPHPreStep):
+        _dl.CORR | _dl.GRAD,
+    (ContinuityEquationDeltaSPHPreStep,): _dl.GRAD}
 
 # pair symbols -> the props they read on both sides
 _SYM_READS = {'HIJ': ('h',), 'EPS': ('h',), 'RHOIJ': ('rho',),
@@ -58,14 +82,19 @@ class PairIneligible(Exception):
 
 
 class PairSource(NamedTuple):
-    """One source of a dest's fused ``wcsph_pair`` phases and its term
-    mask."""
+    """One source of a dest's fused ``wcsph_pair`` phases, its term mask
+    and its equations' constants."""
     name: str
     terms: int
     c0: float = 0.0
     alpha: float = 0.0
     beta: float = 0.0
     eps: float = 0.0
+    delta: float = 0.0
+    delta_c0: float = 0.0
+    dmom_alpha: float = 0.0
+    dmom_c0: float = 0.0
+    rho0: float = 0.0
 
 
 def _gtvf_terms():
@@ -124,19 +153,25 @@ def _source_terms(sources, term_of, term_outputs, max_sources):
     return out
 
 
-def _plan_wcsph(dest, sources, kernel, op=_wp.wcsph_pair):
+def _plan_wcsph(dest, sources, kernel, op=_wp.wcsph_pair,
+                term_of=_WCSPH_TERMS):
     if type(kernel) not in KERNEL_KIND:
         raise PairIneligible('kernel %r' % kernel)
     plan_sources = []
     terms = 0
-    for src, t, eqs in _source_terms(sources, _WCSPH_TERMS,
-                                     _wp.TERM_OUTPUTS, _wp.MAX_SOURCES):
+    for src, t, eqs in _source_terms(sources, term_of, _wp.TERM_OUTPUTS,
+                                     _wp.MAX_SOURCES):
         params = {}
         for eq in eqs:
             if isinstance(eq, MomentumEquation):
                 params.update(c0=eq.c0, alpha=eq.alpha, beta=eq.beta)
             elif isinstance(eq, XSPHCorrection):
                 params['eps'] = eq.eps
+            elif isinstance(eq, ContinuityEquationDeltaSPH):
+                params.update(delta=eq.delta, delta_c0=eq.c0)
+            elif isinstance(eq, MomentumEquationDeltaSPH):
+                params.update(dmom_alpha=eq.alpha, dmom_c0=eq.c0,
+                              rho0=eq.rho0)
         plan_sources.append(PairSource(src, t, **params))
         terms |= t
     return PairPlan(dest, plan_sources, kernel, op,
@@ -144,7 +179,30 @@ def _plan_wcsph(dest, sources, kernel, op=_wp.wcsph_pair):
 
 
 def _plan_dense(dest, sources, kernel):
-    return _plan_wcsph(dest, sources, kernel, op=_dp.dense_pair)
+    return _plan_wcsph(dest, sources, kernel, op=_dp.dense_pair,
+                       term_of=_DENSE_TERMS)
+
+
+def _plan_delta(dest, sources, kernel):
+    if type(kernel) not in KERNEL_KIND:
+        raise PairIneligible('kernel %r' % kernel)
+    if len(sources) > _dl.MAX_SOURCES:
+        raise PairIneligible('%d sources (at most %d)'
+                             % (len(sources), _dl.MAX_SOURCES))
+    plan_sources = []
+    for src, eqs in sources.items():
+        terms = _DELTA_SETS.get(tuple(type(eq) for eq in eqs))
+        if terms is None:
+            raise PairIneligible('equations %s of source %s' % (
+                [eq.name for eq in eqs], src))
+        dim = eqs[0].dim if terms & (_dl.MMAT | _dl.CORR) else 0
+        tol = eqs[0].tol if terms & _dl.CORR else 0.1
+        plan_sources.append(_dl.DeltaSource(src, terms, dim, tol))
+    first = plan_sources[0]
+    if any(ds[1:] != first[1:] for ds in plan_sources):
+        raise PairIneligible('sources of different delta-SPH phases')
+    return PairPlan(dest, plan_sources, kernel, _dl.delta_pair,
+                    _dl.delta_pair_reference, _dl.outputs_for(first.terms))
 
 
 def _plan_gtvf(dest, sources, kernel):
@@ -166,7 +224,8 @@ def _plan_gtvf(dest, sources, kernel):
                     _gp.gtvf_pair_reference, _gp.outputs_for(terms))
 
 
-_PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf), 'dense': (_plan_dense,)}
+_PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta),
+             'dense': (_plan_dense,)}
 
 
 def plan_pair_phases(dest, sources, kernel, engine='kernel'):

@@ -8,7 +8,11 @@ A per-source term mask selects
 - ``MOM``: ``au, av, aw`` and the ``dt_cfl`` max (non-tensile
   ``MomentumEquation``);
 - ``XSPH``: ``ax, ay, az += -eps m_j WIJ RHOIJ1 VIJ``
-  (``XSPHCorrection``).
+  (``XSPHCorrection``);
+- ``DCONT``: the delta-SPH diffusion of ``arho``, which reads the
+  dest's and the source's ``gradrho`` (``ContinuityEquationDeltaSPH``);
+- ``DMOM``: the delta-SPH viscous term of ``au, av, aw``
+  (``MomentumEquationDeltaSPH``).
 
 Each output is ``pre + sum`` (``max(pre, m)`` for ``dt_cfl``) on rows
 under the write mask and ``pre`` elsewhere; every read sees the value
@@ -40,25 +44,31 @@ from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.sph.basic_equations import (
     ContinuityEquation, XSPHCorrection)
-from pysph_tpu_torch.sph.wc.basic import MomentumEquation
+from pysph_tpu_torch.sph.wc.basic import (
+    ContinuityEquationDeltaSPH, MomentumEquation, MomentumEquationDeltaSPH)
 
-CONT, MOM, XSPH = 1, 2, 4
+CONT, MOM, XSPH, DCONT, DMOM = 1, 2, 4, 8, 16
 MAX_SOURCES = 4
 OUTPUTS = ('arho', 'au', 'av', 'aw', 'ax', 'ay', 'az', 'dt_cfl')
 TERM_OUTPUTS = {CONT: ('arho',), MOM: ('au', 'av', 'aw', 'dt_cfl'),
-                XSPH: ('ax', 'ay', 'az')}
+                XSPH: ('ax', 'ay', 'az'), DCONT: ('arho',),
+                DMOM: ('au', 'av', 'aw')}
 
+#: the columns of the stride-3 ``gradrho``, as the pack names them
+GRADRHO = tuple(('gradrho', c) for c in range(3))
 # props each term reads; the dest needs them without 'm', sources with
 _BASE = ('x', 'y', 'z', 'u', 'v', 'w', 'h')
 _TERM_READS = {CONT: ('m',), MOM: ('m', 'rho', 'p', 'cs'),
-               XSPH: ('m', 'rho')}
-_DEST_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'rho', 'p', 'cs')
-_SRC_PROPS = ('x', 'y', 'z', 'h', 'u', 'v', 'w', 'm', 'rho', 'p', 'cs')
+               XSPH: ('m', 'rho'), DCONT: ('m', 'rho') + GRADRHO,
+               DMOM: ('m', 'rho')}
+_DEST_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'rho', 'p', 'cs',
+               'gradrho')
 
 #: record planes of the packed copy (csrc/wcsph_terms.cuh); the third
-#: only where the terms read rho (``cell_pack.layout``)
+#: only where the terms read rho, the fourth where they read gradrho
+#: (``cell_pack.layout``)
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('u', 'v', 'w', 'm'),
-                ('rho', 'p', 'cs', None))
+                ('rho', 'p', 'cs', None), GRADRHO + (None,))
 
 
 # the wrappers run on every call of the host's hot loop: the two term
@@ -91,6 +101,14 @@ def _equations(ps):
                                     alpha=ps.alpha, beta=ps.beta))
     if ps.terms & XSPH:
         eqs.append(XSPHCorrection('dest', [ps.name], eps=ps.eps))
+    if ps.terms & DCONT:
+        eqs.append(ContinuityEquationDeltaSPH('dest', [ps.name],
+                                              c0=ps.delta_c0,
+                                              delta=ps.delta))
+    if ps.terms & DMOM:
+        eqs.append(MomentumEquationDeltaSPH('dest', [ps.name], rho0=ps.rho0,
+                                            c0=ps.dmom_c0,
+                                            alpha=ps.dmom_alpha))
     return eqs
 
 
@@ -146,12 +164,13 @@ def pack_sources(sources):
 
 class _SrcArgs(ctypes.Structure):
     _fields_ = ([('pos', ctypes.c_void_p), ('vel', ctypes.c_void_p),
-                 ('thermo', ctypes.c_void_p),
+                 ('thermo', ctypes.c_void_p), ('grad', ctypes.c_void_p),
                  ('cell_start', ctypes.c_void_p),
-                 ('cell_end', ctypes.c_void_p),
-                 ('c0', ctypes.c_double), ('alpha', ctypes.c_double),
-                 ('beta', ctypes.c_double), ('xsph_eps', ctypes.c_double),
-                 ('terms', ctypes.c_int32), ('pad', ctypes.c_int32)])
+                 ('cell_end', ctypes.c_void_p)] +
+                [(k, ctypes.c_double) for k in (
+                    'c0', 'alpha', 'beta', 'xsph_eps', 'delta', 'delta_c0',
+                    'dmom_alpha', 'dmom_c0', 'rho0')] +
+                [('terms', ctypes.c_int32), ('pad', ctypes.c_int32)])
 
 
 class WcsphArgs(ctypes.Structure):
@@ -198,17 +217,27 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
         if buf is not None:
             copy = args.pack.src[k]
             plane = copy.n * 4 * x.element_size()
-            sa.pos, sa.vel = copy.out, copy.out + plane
-            if copy.planes == 3:
-                sa.thermo = copy.out + 2 * plane
+            slots = cell_pack.layout(PACK_RECORDS, _reads(
+                ps.terms, with_mass=True))[0]
+            for q, field in enumerate(('pos', 'vel', 'thermo', 'grad')):
+                if q in slots:
+                    setattr(sa, field, copy.out + slots.index(q) * plane)
         sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
                                  'cell_start')
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
         sa.c0, sa.alpha, sa.beta, sa.xsph_eps = (ps.c0, ps.alpha, ps.beta,
                                                  ps.eps)
+        sa.delta, sa.delta_c0 = ps.delta, ps.delta_c0
+        sa.dmom_alpha, sa.dmom_c0, sa.rho0 = (ps.dmom_alpha, ps.dmom_c0,
+                                              ps.rho0)
         sa.terms = ps.terms
     for p in _reads(terms, with_mass=False):
+        if p in GRADRHO:
+            continue
         setattr(args, p, data_ptr(dest[p], n, fdt, dev, 'd_' + p))
+    if terms & DCONT:
+        args.gradrho = data_ptr(dest['gradrho'], n, fdt, dev, 'd_gradrho',
+                                width=3)
     args.cell = data_ptr(dest_cells.cell, n, i32, dev, 'dest cell')
     args.dorder = data_ptr(dest_cells.order, n, i32, dev, 'dest order')
     args.dcell_start = data_ptr(dest_cells.start, grid.ncells, i32, dev,

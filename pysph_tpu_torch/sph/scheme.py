@@ -216,19 +216,26 @@ class WCSPHScheme(Scheme):
                              kernel=kernel, **kw)
 
     def get_equations(self):
-        """The WCSPH equation groups of the main path."""
+        """The WCSPH equation groups: the main path's, with the delta-SPH
+        groups (``delta_sph``) and laminar viscosity (``nu != 0``) as in
+        ``pysph_tpu/sph/scheme.py``.  ``GradientCorrection`` is built
+        without ``dim``, so it corrects two components in 3D as the
+        reference does."""
         from pysph_tpu_torch.sph.basic_equations import (
             ContinuityEquation, XSPHCorrection)
         from pysph_tpu_torch.sph.equation import Group
         from pysph_tpu_torch.sph.wc.basic import (
-            MomentumEquation, TaitEOS, TaitEOSHGCorrection)
+            ContinuityEquationDeltaSPH, ContinuityEquationDeltaSPHPreStep,
+            MomentumEquation, MomentumEquationDeltaSPH, TaitEOS,
+            TaitEOSHGCorrection)
+        from pysph_tpu_torch.sph.wc.kernel_correction import (
+            GradientCorrection, GradientCorrectionPreStep)
+        from pysph_tpu_torch.sph.wc.viscosity import (
+            LaminarViscosity, LaminarViscosityDeltaSPH)
         for flag, item in ((self.summation_density, 'summation density: '
                             'ROADMAP Queue 1 item 19'),
-                           (self.delta_sph, 'delta-SPH: ROADMAP Queue 1'),
-                           (abs(self.nu) > 1e-14, 'laminar viscosity: '
-                            'ROADMAP Queue 1, delta-SPH'),
-                           (self.update_h, 'update_h: ROADMAP Queue 1, '
-                            'remaining physics')):
+                           (self.update_h, 'update_h: ROADMAP Queue 1 '
+                            'item 28')):
             if flag:
                 raise NotImplementedError('%s is not ported yet' % item)
 
@@ -245,16 +252,47 @@ class WCSPHScheme(Scheme):
                           c0=self.c0, gamma=self.gamma))
         equations.append(Group(equations=g1, real=False))
 
+        if self.delta_sph:
+            equations.append(Group(equations=[
+                GradientCorrectionPreStep(dest=name, sources=[name],
+                                          dim=self.dim)
+                for name in self.fluids], real=False))
+            eq2 = []
+            for name in self.fluids:
+                eq2.extend([
+                    GradientCorrection(dest=name, sources=[name]),
+                    ContinuityEquationDeltaSPHPreStep(
+                        dest=name, sources=[name])])
+            equations.append(Group(equations=eq2))
+
         g2 = []
         for name in self.solids:
             g2.append(ContinuityEquation(dest=name, sources=self.fluids))
         for name in self.fluids:
             g2.append(ContinuityEquation(dest=name, sources=all))
+            if self.delta_sph:
+                g2.append(ContinuityEquationDeltaSPH(
+                    dest=name, sources=[name], c0=self.c0,
+                    delta=self.delta))
             g2.append(MomentumEquation(
-                dest=name, sources=all, c0=self.c0, alpha=self.alpha,
+                dest=name, sources=all, c0=self.c0,
+                alpha=0.0 if self.delta_sph else self.alpha,
                 beta=self.beta, gx=self.gx, gy=self.gy, gz=self.gz,
                 tensile_correction=self.tensile_correction))
+            if self.delta_sph:
+                g2.append(MomentumEquationDeltaSPH(
+                    dest=name, sources=[name], rho0=self.rho0,
+                    c0=self.c0, alpha=self.alpha))
             g2.append(XSPHCorrection(dest=name, sources=[name]))
+            if abs(self.nu) > 1e-14:
+                if self.delta_sph:
+                    eq = LaminarViscosityDeltaSPH(
+                        dest=name, sources=all, dim=self.dim,
+                        rho0=self.rho0, nu=self.nu)
+                else:
+                    eq = LaminarViscosity(dest=name, sources=all,
+                                          nu=self.nu)
+                g2.insert(-1, eq)
         equations.append(Group(equations=g2))
         return equations
 
@@ -264,6 +302,9 @@ class WCSPHScheme(Scheme):
         props = list(dummy.properties.keys())
         output_props = ['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'm', 'h',
                         'pid', 'gid', 'tag', 'p']
+        if self.delta_sph:
+            props += [{'name': 'm_mat', 'stride': 9},
+                      {'name': 'gradrho', 'stride': 3}]
         for pa in particles:
             self._ensure_properties(pa, props, clean)
             pa.set_output_arrays(output_props)

@@ -1,5 +1,7 @@
-"""Basic WCSPH equations of the main path (port of
-``pysph_tpu/sph/wc/basic.py``)."""
+"""Basic WCSPH equations of the main path and of delta-SPH (port of
+``pysph_tpu/sph/wc/basic.py``).  ``UpdateSmoothingLengthFerrari``
+(``update_h``) and ``PressureGradientUsingNumberDensity`` are not ported
+yet (ROADMAP Queue 1 item 28)."""
 
 import torch
 
@@ -107,3 +109,63 @@ class MomentumEquation(Equation):
         d_dt_force[d_idx] = (d_au[d_idx] * d_au[d_idx] +
                              d_av[d_idx] * d_av[d_idx] +
                              d_aw[d_idx] * d_aw[d_idx])
+
+
+class MomentumEquationDeltaSPH(Equation):
+    """delta-SPH momentum equation, Marrone 2011 eqn (5b) viscous
+    term."""
+
+    def __init__(self, dest, sources, rho0, c0, alpha=1.0):
+        self.alpha = alpha
+        self.c0 = c0
+        self.rho0 = rho0
+        super(MomentumEquationDeltaSPH, self).__init__(dest, sources)
+
+    def loop(self, d_idx, s_idx, d_rho, d_au, d_av, d_aw, s_m, s_rho,
+             VIJ, XIJ, HIJ, R2IJ, EPS, DWIJ):
+        Vj = s_m[s_idx] / s_rho[s_idx]
+        vijdotxij = VIJ[0] * XIJ[0] + VIJ[1] * XIJ[1] + VIJ[2] * XIJ[2]
+        fac = self.alpha * HIJ * self.c0 * self.rho0
+        piij = vijdotxij / (R2IJ + EPS)
+        tmp = fac * piij * Vj / d_rho[d_idx]
+        d_au[d_idx] += tmp * DWIJ[0]
+        d_av[d_idx] += tmp * DWIJ[1]
+        d_aw[d_idx] += tmp * DWIJ[2]
+
+
+class ContinuityEquationDeltaSPHPreStep(Equation):
+    """Renormalized density gradient, Marrone 2011 eqn (5a); gradrho has
+    stride 3."""
+
+    def initialize(self, d_idx, d_gradrho):
+        d_gradrho[d_idx * 3 + 0] = 0.0
+        d_gradrho[d_idx * 3 + 1] = 0.0
+        d_gradrho[d_idx * 3 + 2] = 0.0
+
+    def loop(self, d_idx, s_idx, d_rho, s_rho, s_m, d_gradrho, DWIJ):
+        drho = (s_rho[s_idx] - d_rho[d_idx]) * s_m[s_idx] / s_rho[s_idx]
+        d_gradrho[d_idx * 3 + 0] += drho * DWIJ[0]
+        d_gradrho[d_idx * 3 + 1] += drho * DWIJ[1]
+        d_gradrho[d_idx * 3 + 2] += drho * DWIJ[2]
+
+
+class ContinuityEquationDeltaSPH(Equation):
+    """delta-SPH dissipative continuity term, Marrone 2011 eqn (5a)."""
+
+    def __init__(self, dest, sources, c0, delta=0.1):
+        self.c0 = c0
+        self.delta = delta
+        super(ContinuityEquationDeltaSPH, self).__init__(dest, sources)
+
+    def loop(self, d_idx, d_arho, s_idx, s_m, d_rho, s_rho, DWIJ, XIJ,
+             R2IJ, HIJ, EPS, d_gradrho, s_gradrho):
+        Vj = s_m[s_idx] / s_rho[s_idx]
+        fac = -2.0 * (s_rho[s_idx] - d_rho[d_idx]) / (R2IJ + EPS)
+        psix = (fac * XIJ[0] - d_gradrho[d_idx * 3 + 0] -
+                s_gradrho[s_idx * 3 + 0])
+        psiy = (fac * XIJ[1] - d_gradrho[d_idx * 3 + 1] -
+                s_gradrho[s_idx * 3 + 1])
+        psiz = (fac * XIJ[2] - d_gradrho[d_idx * 3 + 2] -
+                s_gradrho[s_idx * 3 + 2])
+        psidotdwij = psix * DWIJ[0] + psiy * DWIJ[1] + psiz * DWIJ[2]
+        d_arho[d_idx] += self.delta * HIJ * self.c0 * psidotdwij * Vj

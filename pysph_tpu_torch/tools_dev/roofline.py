@@ -12,9 +12,10 @@ kernel's wrapper) and returns a dict of what that call needs:
   ``tests/test_torch_cell_walk.py``), so it equals ``candidates``, but
   for ``fused_pair``'s dests with ``h <= 0``, which walk nothing;
 - ``pairs``: the pairs in support, ``r2 < (rs max(hi, hj))^2``;
-- ``flops``: operations, a division, square root, ``exp``, compare or
-  max counting one, from the per-candidate and per-pair-in-support
-  tables below (read off the CUDA sources, lines cited);
+- ``flops``: operations, a division, square root, ``exp``, compare,
+  absolute value or max counting one, from the per-candidate and
+  per-pair-in-support tables below (read off the CUDA sources, lines
+  cited);
 - ``bytes``: the unique bytes read and written, each input byte once:
   the dest's props, cell ids, write mask and ``pre`` values, the outputs,
   and of each source the particles and cell ranges that the walk can
@@ -33,6 +34,7 @@ import torch
 
 from pysph_tpu_torch.base.kernels import KERNEL_KIND
 from pysph_tpu_torch.ops import cell_walk
+from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.ops import wcsph_pair as wp
@@ -45,14 +47,23 @@ I32 = 4
 #: square, compare (cell_walk.cuh:74-83)
 SUPPORT_FLOPS = 12
 #: per pair in support, before the terms: uij vij wij, hij, rinv, rij,
-#: h1, q, fac, g, DWIJ (wcsph_terms.cuh:184-198), and the shape function
-#: by kernel kind (WendlandQuintic, CubicSpline, Gaussian; :72-103)
+#: h1, q, fac, g, DWIJ (wcsph_terms.cuh:198-220), and the shape function
+#: by kernel kind (WendlandQuintic, CubicSpline, Gaussian; :84-118)
 WCSPH_PAIR_FLOPS = 22
 SHAPE_FLOPS = (12, 9, 6)
-#: per term and pair in support (wcsph_terms.cuh:200-225); MOM and XSPH
-#: share rhoij and rhoij1 (4)
-WCSPH_TERM_FLOPS = {wp.CONT: 7, wp.MOM: 39, wp.XSPH: 10}
+#: per term and pair in support (wcsph_terms.cuh:222-270); MOM and XSPH
+#: share rhoij and rhoij1 (4), DCONT and DMOM V_j and EPS (3)
+WCSPH_TERM_FLOPS = {wp.CONT: 7, wp.MOM: 39, wp.XSPH: 10, wp.DCONT: 23,
+                    wp.DMOM: 19}
 WCSPH_RHO_FLOPS = 4
+WCSPH_DELTA_FLOPS = 3
+#: delta_pair.cu, per pair in support: DWIJ (:165-177) before the shape
+#: function; the moment's 1 + 4 n^2 (:182-188); the gradient's drho and
+#: sums (:211-214); the correction's solve by n (:95-128) and its test
+#: 5 n + 4 (:194-208)
+DELTA_PAIR_FLOPS = 26
+DELTA_GRAD_FLOPS = 9
+DELTA_SOLVE_FLOPS = {1: 3, 2: 13, 3: 56}
 #: gtvf_pair.cu: WIJ and DWIJ of every pair in support (:382-401), then
 #: each term's functor (:168-358)
 GTVF_PAIR_FLOPS = 32
@@ -155,6 +166,8 @@ def wcsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
             f for t, f in WCSPH_TERM_FLOPS.items() if ps.terms & t)
         if ps.terms & (wp.MOM | wp.XSPH):
             per_pair += WCSPH_RHO_FLOPS
+        if ps.terms & (wp.DCONT | wp.DMOM):
+            per_pair += WCSPH_DELTA_FLOPS
         work['candidates'] += cand
         work['pairs'] += pairs
         work['flops'] += cand * SUPPORT_FLOPS + pairs * per_pair
@@ -162,6 +175,41 @@ def wcsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
                                        wp._reads(ps.terms, with_mass=True))
     work['bytes'] += _dest_bytes(dest, write_mask, pre,
                                  wp._reads(terms, with_mass=False))
+    return work
+
+
+def delta_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Work of one ``delta_pair`` call: the walk of ``wcsph_pair``; the
+    dest's x y z h (with rho for the gradient, and m_mat for the
+    correction), cell ids, write mask, pre values and output read or
+    written once; of each source the reachable particles' x y z h m rho
+    and cell ranges."""
+    x = dest['x']
+    n, es = x.shape[0], x.element_size()
+    shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    ds = sources[0][2]
+    if ds.terms & dl.MMAT:
+        body = 1 + 4 * ds.dim * ds.dim
+    else:
+        body = DELTA_GRAD_FLOPS
+        if ds.terms & dl.CORR:
+            body += DELTA_SOLVE_FLOPS[ds.dim] + 5 * ds.dim + 4
+    work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
+    for src, cells, _ in sources:
+        cand, reached, ncells = stencil(grid, dest_cells, cells)
+        pairs = support_pairs(grid, dest, dest_cells, src, cells)
+        work['candidates'] += cand
+        work['visited'] += cand
+        work['pairs'] += pairs
+        work['flops'] += cand * SUPPORT_FLOPS + pairs * (
+            DELTA_PAIR_FLOPS + shape + body)
+        work['bytes'] += _source_bytes(src, reached, ncells,
+                                       dl.PACK_RECORDS[0] + ('m', 'rho'))
+    (out,) = pre.values()
+    props = 4 + (0 if ds.terms & dl.MMAT else 1) + (
+        9 if ds.terms & dl.CORR else 0)
+    work['bytes'] += n * (es * (props + 2 * out.shape[1]) + I32) + (
+        0 if write_mask is None else n)
     return work
 
 

@@ -21,7 +21,8 @@ chunks (host clock after each chunk's read, which waits for the card,
 over the chunks after the capture).  ``main`` prints one JSON line per
 full-width run of ``STEPS`` steps and binning configuration of
 ``CONFIGS``, both ways, with the binnings that ran, tagged with
-``label`` and the card's name and power limit.
+``label`` and the card's name and power limit (the delta-SPH dam break
+under ``reuse`` only).
 
 ``CONFIGS`` are the reference's two binning configurations, set in code
 on an app after its setup (``configure``): ``reuse`` (the default: a
@@ -59,6 +60,7 @@ CONFIGS = {'reuse': (False, 1.1), 'every eval': (True, 1.001)}
 #: the full-width float32 runs: {label: make_app keyword arguments}
 PATHS = {
     'dam_break_3d dx=0.02': dict(dx=0.02),
+    'dam_break_3d dx=0.02 delta': dict(dx=0.02, extra=('--delta-sph',)),
     'GTVF dx=0.004': dict(dx=0.004, cls=DamBreak2D,
                           extra=('--scheme', 'gtvf')),
     'drop nx=200 kernel': dict(dx=None, cls=EllipticalDrop,
@@ -66,6 +68,15 @@ PATHS = {
     'drop nx=200 dense': dict(dx=None, cls=EllipticalDrop,
                               extra=('--nx', '200'), engine='dense'),
 }
+
+
+#: the paths timed under the default binning configuration only
+REUSE_ONLY = ('dam_break_3d dx=0.02 delta',)
+
+
+def configs(path):
+    """The binning configurations ``path`` is timed under."""
+    return ('reuse',) if path in REUSE_ONLY else tuple(CONFIGS)
 
 
 def configure(app, config):
@@ -103,6 +114,8 @@ def _moving(s):
 GATES.update({
     'dam_break_3d dx=0.04': (DamBreak3D, ('--dx', '0.04'), None),
     'dam_break_3d dx=0.04 moving': (DamBreak3D, ('--dx', '0.04'), _moving),
+    'dam_break_3d dx=0.04 delta': (DamBreak3D, ('--dx', '0.04',
+                                                '--delta-sph'), None),
     'GTVF dx=0.02': (DamBreak2D, ('--scheme', 'gtvf', '--dx', '0.02'),
                      None),
     'elliptical_drop nx=40': (EllipticalDrop, ('--nx', '40'), _tight_grid),
@@ -236,7 +249,7 @@ def main(label=''):
         print(json.dumps(row), flush=True)
         rows.append(row)
     for path, kw in PATHS.items():
-        for config in CONFIGS:
+        for config in configs(path):
             row = dict(label=label, card=smi, path=path, config=config,
                        steps=STEPS)
             for k in (10, 1):

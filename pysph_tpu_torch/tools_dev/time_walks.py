@@ -115,6 +115,22 @@ def pair_calls(dx, dtype, cell_slack=None):
     return plan_calls(s, [0]), n
 
 
+def delta_calls(dx, dtype, steps=0):
+    """(calls, particle count, app) of one eval of dam_break_3d
+    ``--delta-sph`` at ``dx``: with ``steps``, on the state the path
+    reaches after that many steps from rest; without, after the first
+    eval of a state with seeded velocity and density perturbations."""
+    app = make_app(dx, dtype, steps=steps, extra=('--delta-sph',))
+    s = app.solver
+    if steps:
+        app.solve()
+    else:
+        perturb(s.states, dtype, 'uvw')
+        s.integrator.initial_acceleration(s.states, 0.0, s.dt)
+    n = sum(st['x'].shape[0] for st in s.states.values())
+    return plan_calls(s, [0]), n, app
+
+
 def drop_calls(nx, dtype, cell_slack=None):
     """(calls, particle count, app) for one eval of the elliptical drop
     at ``nx`` with a seeded velocity and density perturbation (on cells

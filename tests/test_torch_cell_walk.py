@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from pysph_tpu_torch.ops import build, cell_pack, cell_walk
+from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import wcsph_pair as wp
@@ -306,15 +307,26 @@ def test_gtvf_pack_planes_are_the_gather_through_the_cell_order(
                    for c in calls for rec in gp.pack_sources(c[3][4]))
 
 
-@pytest.mark.parametrize('kernel', ['wcsph_pair', 'gtvf_pair', 'fused_pair'])
+def _plane_name(p):
+    """A name of a ``plane q:`` comment: ``0``, a prop, or ``prop[c]``,
+    column c of a strided prop."""
+    if p == '0':
+        return None
+    m = re.fullmatch(r'(\w+)\[(\d)\]', p)
+    return (m.group(1), int(m.group(2))) if m else p
+
+
+@pytest.mark.parametrize('kernel', ['wcsph_pair', 'gtvf_pair', 'fused_pair',
+                                    'delta_pair'])
 def test_plane_tables_are_the_cuda_sources(kernel):
     module, source = {'wcsph_pair': (wp, 'wcsph_terms.cuh'),
                       'gtvf_pair': (gp, 'gtvf_pair.cu'),
-                      'fused_pair': (fp, 'fused_pair.cu')}[kernel]
+                      'fused_pair': (fp, 'fused_pair.cu'),
+                      'delta_pair': (dl, 'delta_pair.cu')}[kernel]
     rows = re.findall(r'^//\s+plane (\d): (.+)$',
                       (build.CSRC / source).read_text(), re.MULTILINE)
     assert [int(q) for q, _ in rows] == list(range(len(rows)))
-    assert [tuple(None if p == '0' else p for p in names.split())
+    assert [tuple(_plane_name(p) for p in names.split())
             for _, names in rows] == list(module.PACK_RECORDS)
     assert len(rows) <= cell_pack.MAX_PLANES
 
