@@ -54,12 +54,20 @@ Phases (any failure propagates; the exit code is then not 0):
    versions (``tools_dev/delta_check.py``) at dx=0.04 perturbed in
    float64 and float32, and at dx=0.02 on the path's state after its 50
    damped steps in float32, with the pairs whose accept decision differs
-   counted; both timed there (``delta_pair``'s two launches, and the
+   counted, and the linked pair there (``delta_check.check_linked``: the
+   moment launch's neighbour list equal to ``neighbours_reference``, the
+   gradient launch that reads it equal to the walking one bit for bit,
+   0 flips, one pack for the two; the dests past the list's capacity,
+   its largest count and the capacity printed); timed there (the linked
+   pair against the two walking launches of before the link and each
+   launch alone, graph replays alternated in one process, and the
    fluid's ``wcsph_pair`` call with the delta terms against without
-   them); then the path as the main path, under ``reuse`` only (3
-   ``wcsph_pair`` and 2 ``delta_pair`` launches an eval, peak device
-   memory); its chunks against the per-step loop in float64 are a gate
-   of phase 4 (``dam_break_3d dx=0.04 delta``);
+   them), the launches of one eval counted (2 ``delta_pair``, 3
+   ``wcsph_pair``, 4 packs); then the path as the main path, under
+   ``reuse`` only (3 ``wcsph_pair`` and 2 ``delta_pair`` launches an
+   eval, a pack for each but the linked gradient, peak device memory);
+   its chunks against the per-step loop in float64 are a gate of phase 4
+   (``dam_break_3d dx=0.04 delta``);
 7. ``gtvf_pair`` against its plain version on the GTVF dam break
    (``examples.dam_break_2d --scheme gtvf``) with a seeded perturbation,
    every phase set of both evaluators: dx=0.02 (7,603 particles) in
@@ -127,6 +135,7 @@ before the last is a JSON summary of the kernels; the last is
 """
 
 import functools
+import gc
 import json
 import shutil
 import subprocess
@@ -159,7 +168,7 @@ from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
 from pysph_tpu_torch.tools_dev import time_chunks, walk_cases
-from pysph_tpu_torch.tools_dev.common import events_ms, graph_ms
+from pysph_tpu_torch.tools_dev.common import capture, events_ms, graph_ms
 from pysph_tpu_torch.tools_dev.time_walks import (
     delta_calls, drop_calls, fused_call, gtvf_calls, make_app, pair_calls)
 
@@ -255,24 +264,27 @@ def _drive(label, kw, ops, bins, skip_finite=(), engine='kernel',
     each timed by ``time_chunks.timed_solve`` (median ms/step: per step
     from the host clock at each step's start, the card synchronised; in
     chunks from the host clock after each chunk's read, over the chunks
-    after the capture).  ``ops``: ((kernel wrapper, first, per_step),
-    ...), the path's pair kernels.  Each one's launch count (and the
-    source pack's and ``bin_cells``') is set to 0 just before each run and
-    read just after: per step, the initial eval launches it ``first`` and
-    a step ``per_step`` times (``bin_cells`` once and ``bins`` times: each
-    reuse test); in chunks, the eager launches are the initial eval's, the
-    damped steps' and one warm-up step a capture, each capture counts
-    ``per_step`` x K (``bins`` x K), and the launches on the card are the
-    eager ones plus those of a capture x replays (the pack as often as the
-    pair kernels together).  Every pair phase of every evaluator must be
+    after the capture).  ``ops``: ((kernel wrapper, first, per_step[,
+    packs a launch]), ...), the path's pair kernels (a launch packs once
+    but where said: a linked ``delta_pair`` pair packs once).  Each one's
+    launch count (and the source pack's and ``bin_cells``') is set to 0
+    just before each run and read just after: per step, the initial eval
+    launches it ``first`` and a step ``per_step`` times (``bin_cells``
+    once and ``bins`` times: each reuse test); in chunks, the eager
+    launches are the initial eval's, the damped steps' and one warm-up
+    step a capture, each capture counts ``per_step`` x K (``bins`` x K),
+    and the launches on the card are the eager ones plus those of a
+    capture x replays (the pack as often as the pair kernels' launches
+    times their packs a launch).  Every pair phase of every evaluator must be
     planned on ``engine``, the final state finite (``skip_finite`` aside)
     and each of ``checks`` pass (called with the chunked run's solver).
     Returns {launches: {kernel: launches}, bin_launches, particles, ms:
     {chunk steps: ms/step}, rebuilds: {chunk steps: binnings that ran},
     counters: the chunked run's solver counters, peak_mib: the chunked
-    run's peak device memory}."""
+    run's peak device memory, from a reset after a garbage collection}."""
     ms, rebuilds, counters, launches = {}, {}, None, {}
-    wrappers = [op for op, _, _ in ops]
+    wrappers = [o[0] for o in ops]
+    pack_share = [o[3] if len(o) > 3 else 1 for o in ops]
     for k in (1, 10):
         app = time_chunks.configure(
             make_app(dtype=torch.float32, steps=STEPS, **kw), config)
@@ -281,6 +293,8 @@ def _drive(label, kw, ops, bins, skip_finite=(), engine='kernel',
         for op in wrappers:
             op.launches = 0
         cell_pack.pack.launches = bc.bin_cells.launches = 0
+        # the earlier runs' solvers sit in reference cycles (timed_solve)
+        gc.collect()
         torch.cuda.reset_peak_memory_stats()
         ms[k], samples = time_chunks.timed_solve(app, k)
         counted = [op.launches for op in wrappers]
@@ -298,8 +312,8 @@ def _drive(label, kw, ops, bins, skip_finite=(), engine='kernel',
                   1 + bins * STEPS, s.t, s.dt, peak_mib), flush=True)
         if k == 1:
             if s.captures or s.replays or bodies or s.count != STEPS or \
-                    any(c != first + per_step * STEPS
-                        for c, (_, first, per_step) in zip(counted, ops)) \
+                    any(c != o[1] + o[2] * STEPS
+                        for c, o in zip(counted, ops)) \
                     or binned != 1 + bins * STEPS:
                 raise AssertionError('%s, chunk_steps=1: %s launches, %d '
                                      'bin_cells launches, %d chunks' % (
@@ -314,7 +328,7 @@ def _drive(label, kw, ops, bins, skip_finite=(), engine='kernel',
         bin_warm = [c[nb] for it, c, cap in bodies if not cap]
         ok = (s.count == STEPS and s.captures and
               s.replays == -(-chunked // K))
-        for q, (op, first, per_step) in enumerate(ops):
+        for q, (op, first, per_step, *_) in enumerate(ops):
             captured = [c[q] for it, c, cap in bodies if cap]
             warm = [c[q] for it, c, cap in bodies if not cap]
             eager = counted[q] - sum(captured)
@@ -341,9 +355,12 @@ def _drive(label, kw, ops, bins, skip_finite=(), engine='kernel',
             raise AssertionError('%s did not run every pair phase and '
                                  'reuse test through the kernels in its '
                                  'chunks: %s' % (label, bodies))
-        if packs != sum(counted):
-            raise AssertionError('%s: %d pack launches for %d kernel '
-                                 'launches' % (label, packs, sum(counted)))
+        want = sum(c * f for c, f in zip(counted, pack_share))
+        print('cell_pack launches: %d eager and in captures, for %d pair '
+              'kernel launches' % (packs, sum(counted)), flush=True)
+        if packs != want:
+            raise AssertionError('%s: %d pack launches, not %g' % (
+                label, packs, want))
         for i, a_eval in enumerate(s.acceleration_evals):
             print('eval %d engine_choices: %s' % (i, a_eval.engine_choices))
             if set(a_eval.engine_choices.values()) != {engine}:
@@ -398,36 +415,105 @@ def _bin_phase(label, s, out):
     out[label] = rows
 
 
+def _delta_times(calls, rounds=5, reps=20):
+    """Median ms of CUDA graph replays of the linked pair of ``calls``
+    (the moment call emitting, the gradient call consuming), of the two
+    walking calls (each packing, as before the link), and of each launch
+    alone (``consume`` on a hand-off emitted before), the graphs' replays
+    alternated over ``rounds`` rounds in this process."""
+    ((_, _, _, margs), (_, _, _, gargs)), = delta_check.linked_calls(calls)
+    _, held = dl.delta_pair(*margs, emit=True)
+    fns = {
+        'linked': lambda: dl.delta_pair(
+            *gargs, handoff=dl.delta_pair(*margs, emit=True)[1]),
+        'walking': lambda: (dl.delta_pair(*margs), dl.delta_pair(*gargs)),
+        'emit': lambda: dl.delta_pair(*margs, emit=True),
+        'consume': lambda: dl.delta_pair(*gargs, handoff=held),
+        'moment walk': lambda: dl.delta_pair(*margs),
+        'gradient walk': lambda: dl.delta_pair(*gargs),
+    }
+    graphs = {k: capture(fn) for k, fn in fns.items()}
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, graph in graphs.items():
+            times[k].append(events_ms(graph.replay, reps))
+    del graphs, held
+    return {k: float(np.median(v)) for k, v in times.items()}, fns['linked']
+
+
+def _delta_packs(app):
+    """(delta_pair launches, pack launches) of one eager eval of
+    ``app``'s evaluator, and the pair launches of the wcsph_pair calls."""
+    s = app.solver
+    a_eval = s.acceleration_evals[0]
+    handle, _ = a_eval.prepare(s.states)
+    torch.cuda.synchronize()
+    dl.delta_pair.launches = wp.wcsph_pair.launches = 0
+    cell_pack.pack.launches = 0
+    a_eval.compute(0.0, s.dt, s.states, handle)
+    torch.cuda.synchronize()
+    return (dl.delta_pair.launches, cell_pack.pack.launches,
+            wp.wcsph_pair.launches)
+
+
 def _delta_phase(runs, kernels):
     """dam_break_3d ``--delta-sph``: ``delta_pair`` and ``wcsph_pair``'s
     delta terms against their plain versions (``tools_dev/delta_check.py``:
     float64 and float32 at dx=0.04 perturbed, float32 at dx=0.02 on the
     path's state after its damped steps, the accept decisions' flips
-    counted), timed there, then the path (``_drive``, reuse only): 3
-    ``wcsph_pair`` and 2 ``delta_pair`` launches an eval.  Adds the
-    ``delta_pair`` entry and the delta terms of the ``wcsph_pair`` one."""
+    counted), and the linked pair there (``check_linked``: the moment
+    call's neighbour list equal to ``neighbours_reference``, the
+    consuming gradient call equal to the walking one bit for bit, 0
+    flips, one pack), timed at dx=0.02 (``_delta_times``: the linked pair
+    against the two walking launches, each launch alone), the pack
+    launches of one eval counted, then the path (``_drive``, reuse
+    only): 3 ``wcsph_pair`` and 2 ``delta_pair`` launches an eval, 4
+    packs.  Adds the ``delta_pair`` entry and the delta terms of the
+    ``wcsph_pair`` one."""
     for dx, dtype in ((0.04, torch.float64), (0.04, torch.float32)):
         calls, n, _ = delta_calls(dx, dtype)
-        delta_check.check(calls, 'dam_break_3d --delta-sph dx=%g %s (%d '
-                          'particles), perturbed' % (dx, str(dtype)[6:], n))
+        what = 'dam_break_3d --delta-sph dx=%g %s (%d particles), ' \
+            'perturbed' % (dx, str(dtype)[6:], n)
+        delta_check.check(calls, what)
+        delta_check.check_linked(calls, what)
         del calls
     label = 'dam_break_3d dx=0.02 delta'
     calls, n, app = delta_calls(0.02, torch.float32, steps=50)
-    found = delta_check.check(calls, '%s float32 (%d particles) after its '
-                              '%d damped steps' % (label, n,
-                                                   app.solver.count))
+    what = '%s float32 (%d particles) after its %d damped steps' % (
+        label, n, app.solver.count)
+    found = delta_check.check(calls, what)
+    linked = delta_check.check_linked(calls, what)
     dcalls = [c for c in calls if c[2].op is dl.delta_pair]
-    delta_ms = graph_ms(lambda: [c[2].op(*c[3]) for c in dcalls], 20)
-    delta_eager = events_ms(lambda: [c[2].op(*c[3]) for c in dcalls], 20)
-    per_launch = [graph_ms(lambda c=c: c[2].op(*c[3]), 20) for c in dcalls]
+    times, linked_fn = _delta_times(calls)
+    delta_ms = times['linked']
+    delta_eager = events_ms(linked_fn, 20)
     delta_plain_ms = events_ms(
         lambda: [c[2].reference(*c[3]) for c in dcalls], 3)
-    delta_work = _calls_work(dcalls, roofline.delta_work)
-    print('delta_pair, the 2 pre-phases of one eval at dx=0.02 float32 (the '
-          'packs included): %.3f ms in a graph (moment %.3f, gradient '
-          '%.3f), %.3f eager, plain torch %.3f ms; bound %.4f ms (%s)' % (
-              (delta_ms, per_launch[0], per_launch[1], delta_eager,
-               delta_plain_ms) + roofline.bound(delta_work)), flush=True)
+    # the linked gradient tests no candidate: one walk's support tests
+    ((_, _, _, margs), (_, _, _, gargs)), = delta_check.linked_calls(calls)
+    delta_work = roofline.add(roofline.delta_work(*margs),
+                              roofline.delta_work(*gargs, walks=False))
+    two_walks = _calls_work(dcalls, roofline.delta_work)
+    print('delta_pair, the 2 pre-phases of one eval at dx=0.02 float32, '
+          'graph replays alternated in this process: linked (emit + '
+          'consume, one pack) %.4f ms, walking (2 walks, 2 packs) %.4f ms; '
+          'alone: emit %.4f, consume %.4f, moment walk %.4f, gradient walk '
+          '%.4f; linked eager %.3f, plain torch %.3f ms; bound %.4f ms (%s, '
+          'one walk: %.4g flops); counted with two walks %.4f ms (%s, %.4g '
+          'flops)' % (
+              (delta_ms, times['walking'], times['emit'], times['consume'],
+               times['moment walk'], times['gradient walk'], delta_eager,
+               delta_plain_ms) + roofline.bound(delta_work) +
+              (delta_work['flops'],) + roofline.bound(two_walks) +
+              (two_walks['flops'],)), flush=True)
+    launches, packs, wcsph = _delta_packs(app)
+    print('one eager eval of %s: %d delta_pair launches, %d wcsph_pair, %d '
+          'pack launches (%d for the pre-phases)' % (
+              label, launches, wcsph, packs, packs - wcsph), flush=True)
+    if (launches, wcsph, packs) != (2, 3, 4):
+        raise AssertionError('%s: %d delta_pair, %d wcsph_pair and %d pack '
+                             'launches in one eval, not 2, 3 and 4' % (
+                                 label, launches, wcsph, packs))
     # the delta terms: the fluid's wcsph_pair call with and without them
     tc = delta_check.terms_calls(calls)
     with_ms = graph_ms(lambda: [wp.wcsph_pair(*c[0]) for c in tc], 20)
@@ -446,19 +532,26 @@ def _delta_phase(runs, kernels):
               terms_by), flush=True)
     # the calls with the delta terms are one of the path's wcsph_pair calls
     terms_share = len(tc) / sum(c[2].op is wp.wcsph_pair for c in calls)
-    del calls, dcalls, tc, app
+    del calls, dcalls, tc, app, linked_fn, margs, gargs
     runs[label, 'reuse'] = run = _drive(
         label, time_chunks.PATHS[label],
-        ((wp.wcsph_pair, 3, 6), (dl.delta_pair, 2, 4)), 1)
+        ((wp.wcsph_pair, 3, 6), (dl.delta_pair, 2, 4, 0.5)), 1)
     kernels['delta_pair'] = _entry(
         'delta_pair', 'pysph_tpu/ops/resident.py:645',
         run['launches']['delta_pair'], found['by_kernel']['delta_pair'],
         delta_ms, delta_plain_ms, delta_work, None, eager_ms=delta_eager,
         share=roofline.bound(delta_work)[0] / delta_ms,
-        per_launch_ms=per_launch, flips=found['flips'],
+        per_launch_ms=[times['emit'], times['consume']],
+        walking_ms=times['walking'],
+        walking_per_launch_ms=[times['moment walk'],
+                               times['gradient walk']],
+        two_walk_bound_ms=roofline.bound(two_walks)[0],
+        flips=found['flips'] + linked['flips'],
         flipped_dests=found['flipped_dests'],
+        overflowed=linked['overflowed'], max_count=linked['max_count'],
+        capacity=linked['capacity'],
         path='dam_break_3d --delta-sph dx=0.02 after the damped steps, one '
-        'eval (2 launches)')
+        'eval (2 launches, linked: the moment emits, the gradient consumes)')
     terms_ms = with_ms - without_ms
     kernels['wcsph_pair']['delta_terms'] = dict(
         launches=round(run['launches']['wcsph_pair'] * terms_share),

@@ -23,15 +23,31 @@ evaluator (the moment group writes every row, the gradient group only
 real ones), so a step's eval launches ``delta_pair`` twice for each
 fluid.
 
+The linked pair.  Where the gradient group follows the moment group
+with the same dest and sources and nothing between them moves ``x y z h
+m rho`` (``ops/pair_engine.py::link_delta``), the two plans share a
+``Link``: the moment call runs with ``emit=True`` and returns, beside
+its output, a ``Handoff``: the sources' packed copies and the
+neighbour list, each dest's in-support source positions in the walk's
+order (``neighbours_reference``), up to ``CAPACITY[dim]`` a dest, with
+its count.  The gradient call takes it (``handoff=``): it packs nothing
+and reads the listed records instead of walking, so its sums are the
+walk's bit for bit; a warp holding a dest past the capacity walks as
+an unlinked call.  The moment launch counts such dests on the card
+(``overflowed``).  A linked gradient plan run without its hand-off
+raises.
+
 For CUDA tensors it calls ``csrc/delta_pair.cu`` (built on first use by
 ``ops/build.py``, without FMA contraction) once: its launch function
 launches the source pack (``ops/cell_pack.py``, counted in
-``cell_pack.pack.launches``) and then the walk (counted in
-``delta_pair.launches``).  For CPU tensors it calls
-``delta_pair_reference``, the torch pair engine on the same equations.
-The kernel evaluates ``DWIJ``, the solve and the accept test in the
-plain version's operations and order, so that both take the same
-decision on the same inputs; ``accepted`` counts them per dest.
+``cell_pack.pack.launches``; none for a call given a hand-off) and then
+the kernel (counted in ``delta_pair.launches``).  For CPU tensors it
+calls ``delta_pair_reference``, the torch pair engine on the same
+equations, which walks for the gradient too: an emitting call returns
+an empty hand-off.  The kernel evaluates ``DWIJ``, the solve and
+the accept test in the plain version's operations and order, so that
+both take the same decision on the same inputs; ``accepted`` counts
+them per dest.
 """
 
 import ctypes
@@ -50,10 +66,33 @@ MMAT, CORR, GRAD = 1, 2, 4
 MAX_SOURCES = 4
 #: the term masks a call may hold
 TERM_SETS = (MMAT, CORR | GRAD, GRAD)
+#: the kernel's modes (csrc/delta_pair.cu kWalk, kEmit, kConsume)
+WALK, EMIT, CONSUME = 0, 1, 2
+#: entries of the neighbour list a dest, by the kernel's dim: the most
+#: pairs a dest held on the card, 81 in dam_break_3d dx=0.02 after its
+#: damped steps (3D) and 45 in the perturbed drop (2D), with headroom
+#: (PERF.md); a dest past it makes its warp walk
+CAPACITY = {1: 16, 2: 64, 3: 128}
 
 #: record planes of the packed copy (csrc/delta_pair.cu)
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('m', 'rho', None, None))
 _READS = frozenset(('x', 'y', 'z', 'h', 'm', 'rho'))
+
+
+class Handoff(NamedTuple):
+    """What a linked moment call leaves for its gradient call: the
+    sources' packed copies, one after another (``cell_pack.fill``'s
+    buffer), and the neighbour list: ``nbr[c, p]`` is the c-th source
+    position in support of the dest at sorted position ``p`` (in the
+    numbering of ``neighbours_reference``), for ``c < min(count[p],
+    capacity)``; ``count[p]`` may exceed the capacity ``nbr.shape[0]``.
+    ``sources``: ((name, particles), ...) of the copies.  On the CPU,
+    where the plain gradient walks, ``buf`` and ``nbr`` are empty and
+    ``count`` is None."""
+    buf: torch.Tensor
+    nbr: torch.Tensor
+    count: torch.Tensor
+    sources: tuple
 
 
 class DeltaSource(NamedTuple):
@@ -140,6 +179,118 @@ def accepted_reference(dest, dest_cells, sources, grid, kernel):
     return count.to(torch.int32)
 
 
+def neighbours_reference(dest, dest_cells, sources, grid):
+    """The pairs in support of each dest in the kernel's walk order:
+    (count, positions).  ``count``: int32 (n,), the pairs of the dest at
+    each sorted position of ``dest_cells.order``; ``positions``: int32,
+    the dests' source positions one dest after another in that order,
+    each dest's in the walk's order (the sources in order, then the
+    stencil rows, x, position: ``grid.neighbor_pairs``' order).  Source
+    s's position k is numbered ``base_s + k``, ``base_s`` the particles
+    of the sources before it."""
+    from pysph_tpu_torch.sph.acceleration_eval import PAIR_CHUNK
+    x = dest['x']
+    n, dev = x.shape[0], x.device
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    rank[dest_cells.order.long()] = torch.arange(n, device=dev)
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    keys, vals, base = [none], [none], 0
+    for s, (src, cells, _) in enumerate(sources):
+        ns = src['x'].shape[0]
+        where = torch.empty(ns, dtype=torch.int64, device=dev)
+        where[cells.order.long()] = torch.arange(ns, device=dev)
+        for a in range(0, n, PAIR_CHUNK):
+            i, j = grid.neighbor_pairs(dest, dest_cells, src, cells,
+                                       (a, min(n, a + PAIR_CHUNK)))
+            keys.append(rank[i] * len(sources) + s)
+            vals.append(base + where[j])
+        base += ns
+    key = torch.cat(keys)
+    # stable: a (dest, source)'s pairs keep neighbor_pairs' order
+    key, perm = torch.sort(key, stable=True)
+    count = torch.bincount(key // len(sources), minlength=n)
+    return count.to(torch.int32), torch.cat(vals)[perm].to(torch.int32)
+
+
+def _slots(kept):
+    """(dest, slot) of every entry of lists of ``kept`` entries a dest."""
+    p = torch.repeat_interleave(torch.arange(kept.shape[0],
+                                             device=kept.device), kept)
+    c = torch.arange(p.shape[0], device=p.device) - torch.repeat_interleave(
+        torch.cumsum(kept, 0) - kept, kept)
+    return p, c
+
+
+def cut(count, positions, capacity):
+    """``positions`` (``neighbours_reference``'s) without each dest's
+    entries past ``capacity``."""
+    _, c = _slots(count.long())
+    return positions[c < capacity]
+
+
+def listed(handoff):
+    """(count, positions) of a hand-off's neighbour list, as
+    ``neighbours_reference`` gives them, each dest's list cut at the
+    capacity (``cut``)."""
+    nbr = handoff.nbr
+    p, c = _slots(handoff.count.long().clamp(max=nbr.shape[0]))
+    return handoff.count, nbr[c, p]
+
+
+_OVERFLOW = {}
+
+
+def overflow_counter(device):
+    """The int32 device counter to which every emitting launch adds its
+    dests past the capacity.  Made on first use, which a CUDA graph
+    capture must not be."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    if device not in _OVERFLOW:
+        if device.type == 'cuda' and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError('delta_pair: the overflow counter of %s is '
+                               'made in a capture; emit once before it'
+                               % device)
+        _OVERFLOW[device] = torch.zeros(1, dtype=torch.int32,
+                                        device=device)
+    return _OVERFLOW[device]
+
+
+def overflowed(device):
+    """The dests past the capacity counted since the last
+    ``reset_overflow`` (reads the counter)."""
+    return int(overflow_counter(device)[0])
+
+
+def reset_overflow(device):
+    overflow_counter(device).zero_()
+
+
+class Link(object):
+    """A moment plan and the gradient plan of the group after it, linked
+    by ``ops/pair_engine.py::link_delta``: the moment call emits a
+    ``Handoff``, which the gradient call consumes."""
+
+    def __init__(self, moment, gradient):
+        self.moment = moment
+        self.gradient = gradient
+        self.handoff = None
+
+    def run(self, plan, args):
+        """The result of ``plan`` (one of the two) on its arguments."""
+        if plan is self.moment:
+            out, self.handoff = plan.op(*args, emit=True)
+            return out
+        handoff, self.handoff = self.handoff, None
+        if handoff is None:
+            raise RuntimeError('delta_pair: the linked gradient of %s runs '
+                               'without the hand-off of its moment call'
+                               % plan.dest)
+        return plan.op(*args, handoff=handoff)
+
+
 def pack_layout():
     """Prop names of the record planes of a source's packed copy."""
     return cell_pack.layout(PACK_RECORDS, _READS)[1]
@@ -163,7 +314,8 @@ def pack_sources(sources):
 class _SrcArgs(ctypes.Structure):
     _fields_ = [('pos', ctypes.c_void_p), ('mass', ctypes.c_void_p),
                 ('cell_start', ctypes.c_void_p),
-                ('cell_end', ctypes.c_void_p)]
+                ('cell_end', ctypes.c_void_p), ('base', ctypes.c_int32),
+                ('pad', ctypes.c_int32)]
 
 
 class DeltaArgs(ctypes.Structure):
@@ -173,13 +325,15 @@ class DeltaArgs(ctypes.Structure):
                  ('dcell_start', ctypes.c_void_p),
                  ('dcell_end', ctypes.c_void_p), ('wmask', ctypes.c_void_p),
                  ('pre', ctypes.c_void_p), ('out', ctypes.c_void_p),
-                 ('accepted', ctypes.c_void_p),
+                 ('accepted', ctypes.c_void_p), ('nbr', ctypes.c_void_p),
+                 ('count', ctypes.c_void_p), ('overflow', ctypes.c_void_p),
                  ('src', _SrcArgs * MAX_SOURCES),
                  ('radius_scale', ctypes.c_double),
                  ('kfac', ctypes.c_double), ('tol', ctypes.c_double)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim',
-                    'kernel_kind', 'dtype', 'terms', 'mdim')] +
+                    'kernel_kind', 'dtype', 'terms', 'mdim', 'mode',
+                    'cap')] +
                 [('pack', cell_pack.PackArgs)])
 
 
@@ -187,11 +341,40 @@ class DeltaArgs(ctypes.Structure):
 _WIDTH = {'m_mat': 9, 'gradrho': 3}
 
 
+def _copies_of(sources):
+    return tuple((ds.name, st['x'].shape[0]) for st, _, ds in sources)
+
+
+def _check_mode(first, emit, handoff, dest, sources):
+    """Raise unless a moment call emits or not and a gradient call takes
+    a hand-off or not, one that ``sources`` on ``dest``'s device
+    emitted for as many dests."""
+    if emit and (handoff is not None or first.terms != MMAT):
+        raise ValueError('delta_pair: only a moment call emits a hand-off')
+    if handoff is None:
+        return
+    if first.terms == MMAT:
+        raise ValueError('delta_pair: a moment call takes no hand-off')
+    x = dest['x']
+    if handoff.sources != _copies_of(sources) or \
+            handoff.buf.dtype != x.dtype or \
+            handoff.buf.device != x.device or \
+            handoff.nbr.shape[1] != x.shape[0]:
+        raise ValueError('delta_pair: a hand-off of %s for %d dests on %s, '
+                         'given to a call over %s for %d dests on %s' % (
+                             handoff.sources, handoff.nbr.shape[1],
+                             handoff.buf.device, _copies_of(sources),
+                             x.shape[0], x.device))
+
+
 def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-               accepted=None):
+               accepted=None, emit=False, handoff=None, capacity=None):
     """Check the arguments of a ``delta_pair`` call and fill them in, with
-    the pack that its launch function runs before the walk.  Returns
-    (args, {output: empty tensor}, the buffer of the packed copies)."""
+    the pack that its launch function runs before the walk (none where
+    ``handoff`` gives the copies).  Returns (args, {output: empty
+    tensor}, the hand-off emitted or given, else the buffer of the
+    packed copies), the last of which must stay referenced until the
+    launch is queued."""
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
@@ -203,16 +386,22 @@ def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     if pre.keys() != {output}:
         raise ValueError('delta_pair: pre values for %s, terms give %s'
                          % (sorted(pre), output))
+    _check_mode(first, emit, handoff, dest, sources)
     i32 = torch.int32
     args = DeltaArgs()
-    buf = cell_pack.fill(args.pack, _packs(sources), 'delta_pair')
-    for k, (src, cells, _) in enumerate(sources):
-        sa, copy = args.src[k], args.pack.src[k]
-        sa.pos = copy.out
-        sa.mass = copy.out + copy.n * 4 * x.element_size()
+    packs = _packs(sources)
+    buf = cell_pack.fill(args.pack, packs, 'delta_pair') \
+        if handoff is None else handoff.buf
+    base = 0
+    for k, (copy, (src, cells, _)) in enumerate(
+            zip(cell_pack.copies(buf, packs), sources)):
+        sa = args.src[k]
+        sa.pos, sa.mass = copy[0].data_ptr(), copy[1].data_ptr()
         sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
                                  'cell_start')
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
+        sa.base = base
+        base += src['x'].shape[0]
     for p in ('x', 'y', 'z', 'h') + (('rho',) if first.terms & GRAD
                                      else ()):
         setattr(args, p, data_ptr(dest[p], n, fdt, dev, 'd_' + p))
@@ -233,6 +422,20 @@ def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     args.out = out[output].data_ptr()
     if accepted is not None:
         args.accepted = data_ptr(accepted, n, i32, dev, 'accepted')
+    if emit:
+        cap = capacity or CAPACITY[kernel.dim]
+        handoff = Handoff(buf, torch.empty((cap, n), dtype=i32, device=dev),
+                          torch.empty(n, dtype=i32, device=dev),
+                          _copies_of(sources))
+        args.overflow = overflow_counter(dev).data_ptr()
+        args.mode = EMIT
+    elif handoff is not None:
+        args.mode = CONSUME
+    if handoff is not None:
+        args.nbr = data_ptr(handoff.nbr, handoff.nbr.shape[0], i32, dev,
+                            'neighbour list', width=n)
+        args.count = data_ptr(handoff.count, n, i32, dev, 'counts')
+        args.cap = handoff.nbr.shape[0]
     args.radius_scale = grid.radius_scale
     args.kfac = kernel.fac
     args.tol = first.tol
@@ -243,34 +446,53 @@ def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     args.dtype = 1 if fdt == torch.float64 else 0
     args.terms = first.terms
     args.mdim = first.dim if first.terms & (MMAT | CORR) else 0
-    return args, out, buf
+    return args, out, buf if handoff is None else handoff
 
 
 def delta_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-               accepted=None):
+               accepted=None, emit=False, handoff=None, capacity=None):
     """One delta-SPH pre-phase of one dest over its sources; same
     arguments and result as ``delta_pair_reference``.  ``accepted``: an
     int32 tensor of a count per dest, to be filled with the pairs whose
-    correction was accepted.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    correction was accepted.  ``emit`` (a moment call): return (result,
+    ``Handoff``); ``handoff`` (a gradient call): read that hand-off's
+    copies and neighbour list instead of packing and walking;
+    ``capacity``: the neighbour list's entries a dest for ``emit``, for
+    tests (default ``CAPACITY[kernel.dim]``).  CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     dev = dest['x'].device
     if dev.type == 'cpu':
-        out = delta_pair_reference(dest, dest_cells, write_mask, pre,
-                                   sources, grid, kernel)
-        if accepted is not None:
-            accepted.copy_(accepted_reference(dest, dest_cells, sources,
-                                              grid, kernel))
-        return out
+        return _plain(dest, dest_cells, write_mask, pre, sources, grid,
+                      kernel, accepted, emit, handoff, capacity)
     if dev.type != 'cuda':
         raise ValueError('delta_pair: no kernel for device %s' % dev)
-    # the copies' buffer stays referenced until the launch is queued
-    args, out, buf = delta_args(dest, dest_cells, write_mask, pre, sources,
-                                grid, kernel, accepted)
+    # the copies (and the list) stay referenced until the launch is queued
+    args, out, kept = delta_args(dest, dest_cells, write_mask, pre, sources,
+                                 grid, kernel, accepted, emit, handoff,
+                                 capacity)
     if args.n_dest:
         build.launch('delta_pair', args, dev)
         delta_pair.launches += 1
         cell_pack.pack.launches += bool(args.pack.n_src)
-    return out
+    return (out, kept) if emit else out
+
+
+def _plain(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+           accepted, emit, handoff, capacity):
+    """``delta_pair`` on CPU tensors: the plain version, with an empty
+    hand-off where it emits one."""
+    _check_mode(_check_sources(sources), emit, handoff, dest, sources)
+    out = delta_pair_reference(dest, dest_cells, write_mask, pre, sources,
+                               grid, kernel)
+    if accepted is not None:
+        accepted.copy_(accepted_reference(dest, dest_cells, sources, grid,
+                                          kernel))
+    if not emit:
+        return out
+    # the plain gradient walks: its hand-off carries no copies and no list
+    x = dest['x']
+    return out, Handoff(x.new_empty(0), torch.empty(
+        (0, x.shape[0]), dtype=torch.int32), None, _copies_of(sources))
 
 
 #: kernel launches since the last reset (set to 0 to reset)

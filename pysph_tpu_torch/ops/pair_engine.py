@@ -32,6 +32,12 @@ takes.  Periodic domains never reach here: the evaluator refuses them.
 Anything else raises ``PairIneligible`` and the evaluator runs the torch
 pair engine instead.
 
+``link_delta`` links a dest's ``delta_pair`` moment plan to its
+corrected gradient plan in the group right after it where nothing
+between them moves the pairs: the moment call then hands its neighbour
+list and packed copies to the gradient call (``PairPlan.link``,
+``ops/delta_pair.py``), which walks no candidates.
+
 The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
 sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair`` and the
 delta-SPH pre-phases onto ``delta_pair``; ``dense`` plans the WCSPH sets
@@ -42,6 +48,7 @@ package's dense-slot engine refuses sequential and strided phases
 main group (it reads the strided ``gradrho``) run on the torch engine.
 """
 
+import logging
 from typing import NamedTuple
 
 from pysph_tpu_torch.base.kernels import KERNEL_KIND, WendlandQuintic
@@ -75,6 +82,9 @@ _SYM_READS = {'HIJ': ('h',), 'EPS': ('h',), 'RHOIJ': ('rho',),
               'VIJ': ('u', 'v', 'w'), 'R2IJ': ('x', 'y', 'z'),
               'RINV': ('x', 'y', 'z'), 'RIJ': ('x', 'y', 'z'),
               'WIJ': ('x', 'y', 'z', 'h'), 'DWIJ': ('x', 'y', 'z', 'h')}
+
+
+logger = logging.getLogger(__name__)
 
 
 class PairIneligible(Exception):
@@ -241,10 +251,65 @@ def plan_pair_phases(dest, sources, kernel, engine='kernel'):
     raise PairIneligible('; '.join(reasons))
 
 
+#: the equations of the delta planner's sets: none writes x y z h m rho
+#: or has a post_loop, so a linked pair's two calls see the same pairs
+#: in support and the same packed records
+_DELTA_EQUATIONS = frozenset(t for eqs in _DELTA_SETS for t in eqs)
+
+
+def _link_refusal(moment_group, gradient_group, moment, gradient):
+    """Why the moment plan and the gradient plan of the group after it
+    cannot share a walk, or None."""
+    names = [ps.name for ps in moment.sources]
+    if names != [ps.name for ps in gradient.sources]:
+        return 'sources %s and %s' % (
+            names, [ps.name for ps in gradient.sources])
+    mdim, cdim = moment.sources[0].dim, gradient.sources[0].dim
+    if mdim != moment.kernel.dim or cdim > mdim:
+        return 'the moment in %d dimensions, the correction in %d' % (
+            mdim, cdim)
+    for group in (moment_group, gradient_group):
+        for eq in group.equations:
+            if type(eq) not in _DELTA_EQUATIONS:
+                return '%s is no delta-SPH pre-phase equation' % eq.name
+    return None
+
+
+def link_delta(groups, plans):
+    """Link each ``delta_pair`` moment plan (``MMAT``) to the corrected
+    gradient plan (``CORR | GRAD``) of the same dest in the group right
+    after it (``groups``, in order; ``plans``: {(id(group), dest):
+    ``PairPlan`` or None}), where both have the same sources, the moment
+    is in the kernel's dimensions and the correction in no more, and
+    every equation of both groups is one of the delta planner's (none
+    writes ``x y z h m rho`` or has a ``post_loop``): the moment call
+    then emits the neighbour list and packed copies that the gradient
+    call reads (``ops/delta_pair.py``).  Returns the ``Link`` of each
+    linked pair."""
+    links = []
+    for g0, g1 in zip(groups, groups[1:]):
+        for dest in dict.fromkeys(eq.dest for eq in g1.equations):
+            moment = plans.get((id(g0), dest))
+            gradient = plans.get((id(g1), dest))
+            if moment is None or gradient is None or \
+                    moment.op is not _dl.delta_pair or \
+                    gradient.op is not _dl.delta_pair or \
+                    moment.sources[0].terms != _dl.MMAT or \
+                    gradient.sources[0].terms != _dl.CORR | _dl.GRAD:
+                continue
+            why = _link_refusal(g0, g1, moment, gradient)
+            if why is not None:
+                logger.info('delta_pair for %s: no link: %s', dest, why)
+                continue
+            moment.link = gradient.link = _dl.Link(moment, gradient)
+            links.append(moment.link)
+    return links
+
+
 class PairPlan(object):
     """The kernel call for one dest over all its sources: ``op`` is the
-    kernel's wrapper, ``reference`` its plain version (same
-    arguments)."""
+    kernel's wrapper, ``reference`` its plain version (same arguments);
+    ``link``: the ``delta_pair.Link`` a linked plan runs through."""
 
     def __init__(self, dest, sources, kernel, op, reference, outputs):
         self.dest = dest
@@ -253,9 +318,12 @@ class PairPlan(object):
         self.op = op
         self.reference = reference
         self.outputs = outputs
+        self.link = None
 
     def execute(self, store, states, cells, grid, write_mask):
         pre = {p: store[p] for p in self.outputs}
         srcs = [(states[s.name], cells[s.name], s) for s in self.sources]
-        store.update(self.op(store, cells[self.dest], write_mask, pre, srcs,
-                             grid, self.kernel))
+        args = (store, cells[self.dest], write_mask, pre, srcs, grid,
+                self.kernel)
+        store.update(self.op(*args) if self.link is None
+                     else self.link.run(self, args))

@@ -33,7 +33,8 @@ from collections import OrderedDict
 import torch
 
 from pysph_tpu_torch.ops.bin_cells import bin_cells
-from pysph_tpu_torch.ops.pair_engine import PairIneligible, plan_pair_phases
+from pysph_tpu_torch.ops.pair_engine import (
+    PairIneligible, link_delta, plan_pair_phases)
 from pysph_tpu_torch.sph.equation import (
     UNIT, ArrayView, Group, IndexSym, MultiStageEquations, PairDestView,
     PairSrcView, SymVec, _method_args, column, get_arrays_used_in_equation,
@@ -323,6 +324,7 @@ class AccelerationEval(object):
                 self.engine_choices[key] = 'torch' if plan is None \
                     else engine
                 plans[(id(group), dest)] = plan
+        link_delta(self.groups, plans)
         return plans
 
     def set_domain(self, domain):

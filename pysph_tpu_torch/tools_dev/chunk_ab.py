@@ -7,14 +7,19 @@ of the port on one card.
 Runs each path of the checkout's ``time_chunks.PATHS`` (or the paths
 named) for ``time_chunks.STEPS`` steps in float32 under the default
 binning configuration, in chunks of 10, and prints one JSON line a path
-with the median ms/step of ``time_chunks.timed_solve`` and its spread,
-tagged with ``label`` and the card's name and power limit.  It uses only
+with the median ms/step of ``time_chunks.timed_solve`` and its spread
+and the run's peak device memory (MiB, from a reset just before it,
+after a garbage collection: ``timed_solve`` leaves each solver in a
+reference cycle, so an earlier path's app and its graph's memory would
+stay until the collector runs), tagged with ``label`` and the card's
+name and power limit.  It uses only
 names that older checkouts have too, so run it by path with
 ``PYTHONPATH`` set to each checkout and alternate them in one call
 (older, newer, newer, older): runs within a call vary by ~10%, calls by
 more.
 """
 
+import gc
 import json
 import sys
 
@@ -31,10 +36,13 @@ def main(label, paths=()):
         app = time_chunks.configure(make_app(
             dtype=torch.float32, steps=time_chunks.STEPS,
             **time_chunks.PATHS[path]), 'reuse')
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
         ms, samples = time_chunks.timed_solve(app, 10)
         row = dict(label=label, card=smi, path=path, ms_per_step=ms,
                    min=min(samples), max=max(samples),
-                   samples=len(samples))
+                   samples=len(samples),
+                   peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
         print(json.dumps(row), flush=True)
         rows.append(row)
         del app

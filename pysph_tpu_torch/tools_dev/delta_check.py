@@ -13,6 +13,12 @@ pairs that decide differently) and ``flipped_dests`` the dests whose
 counts differ.  Raises where a bar is missed, after printing what it
 found.
 
+``check_linked(calls, label)`` runs each linked pair of ``delta_pair``
+calls as the path runs it (the moment call emitting its neighbour list,
+the gradient call consuming it) and holds it to the two walking calls
+bit for bit, the list to ``delta_pair.neighbours_reference`` exactly,
+and the accept decisions to the plain version's.
+
 ``terms_calls(calls)`` gives each ``wcsph_pair`` call with delta-SPH
 terms three times: with them, without them, and with them alone (its
 plain version then computes only the terms), for timing the terms.
@@ -20,6 +26,7 @@ plain version then computes only the terms), for timing the terms.
 
 import torch
 
+from pysph_tpu_torch.ops import cell_pack
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import wcsph_pair as wp
 
@@ -107,6 +114,98 @@ def check(calls, label):
              found['by_kernel']['wcsph_pair'], found['max_scaled_err'],
              found['accepted'], found['pairs'], found['flips'],
              found['flipped_dests']), flush=True)
+    if failures:
+        raise AssertionError('%s: %s' % (label, '; '.join(failures)))
+    return found
+
+
+def linked_calls(calls):
+    """[(moment call, gradient call)] of each linked pair of plans among
+    ``calls`` (``ops/pair_engine.py::link_delta``)."""
+    pairs = []
+    for c in calls:
+        link = c[2].link
+        if link is not None and c[2] is link.moment:
+            (g,) = [d for d in calls if d[0] == c[0] and d[2] is link.gradient]
+            pairs.append((c, g))
+    return pairs
+
+
+def check_linked(calls, label, capacity=None):
+    """Each linked pair of ``calls`` run as the path runs it: the moment
+    call emitting (``capacity``: the list's, for tests), then the
+    gradient call consuming its hand-off.  The moment's output must be
+    the walking call's bit for bit, the counts and the listed positions
+    those of ``delta_pair.neighbours_reference`` exactly (up to the
+    capacity), the overflow counter the dests past it, the gradient the
+    walking gradient call's bit for bit and within ``TOL`` of the plain
+    version, the accepted pairs the walk's and the plain version's (0
+    flips), and the pair one pack.  Returns {linked, dests, pairs,
+    overflowed, max_count, capacity, flips, packs}; raises where a bar
+    is missed, after printing what it found, and for calls on the CPU,
+    where the linked gradient runs the plain version, which walks."""
+    if not all(c[3][0]['x'].is_cuda for c in calls):
+        raise ValueError('check_linked: %s: calls off the card' % label)
+    found = dict(linked=0, dests=0, pairs=0, overflowed=0, max_count=0,
+                 capacity=0, flips=0, packs=0)
+    failures = []
+    for (_, dest, _, margs), (_, _, gplan, gargs) in linked_calls(calls):
+        n, dev = margs[0]['x'].shape[0], margs[0]['x'].device
+        dl.reset_overflow(dev)
+        packs = cell_pack.pack.launches
+        moment, handoff = dl.delta_pair(*margs, emit=True,
+                                        capacity=capacity)
+        mine = torch.zeros(n, dtype=torch.int32, device=dev)
+        grad = dl.delta_pair(*gargs, handoff=handoff, accepted=mine)
+        found['packs'] += cell_pack.pack.launches - packs
+        overflowed = dl.overflowed(dev)
+        walked = torch.zeros_like(mine)
+        same = (torch.equal(moment['m_mat'], dl.delta_pair(*margs)['m_mat'])
+                and torch.equal(grad['gradrho'], dl.delta_pair(
+                    *gargs, accepted=walked)['gradrho'])
+                and torch.equal(mine, walked))
+        if not same:
+            failures.append('%s: the linked pair differs from the walk'
+                            % dest)
+        count, positions = dl.listed(handoff)
+        want, where = dl.neighbours_reference(margs[0], margs[1], margs[4],
+                                              margs[5])
+        cap = handoff.nbr.shape[0]
+        if not (torch.equal(count, want) and
+                torch.equal(positions, dl.cut(want, where, cap))):
+            failures.append('%s: the neighbour list differs from '
+                            'neighbours_reference' % dest)
+        if overflowed != int((want > cap).sum()):
+            failures.append('%s: %d dests counted past the capacity, %d '
+                            'are' % (dest, overflowed,
+                                     int((want > cap).sum())))
+        ref = gplan.reference(*gargs)['gradrho']
+        err = float((grad['gradrho'] - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1e-300)
+        if not err <= TOL[ref.dtype] * scale:
+            failures.append('%s gradrho: error %.3g > %.0e * %.3g' % (
+                dest, err, TOL[ref.dtype], scale))
+        theirs = dl.accepted_reference(gargs[0], gargs[1], gargs[4],
+                                       gargs[5], gargs[6])
+        found['flips'] += int((mine - theirs).abs().sum())
+        found['linked'] += 1
+        found['dests'] += n
+        found['pairs'] += int(want.sum())
+        found['overflowed'] += overflowed
+        found['max_count'] = max(found['max_count'], int(want.max()))
+        found['capacity'] = cap
+    if found['packs'] != found['linked']:
+        failures.append('%d packs for %d linked pairs' % (found['packs'],
+                                                          found['linked']))
+    if found['flips']:
+        failures.append('%d flipped accept decisions' % found['flips'])
+    print('delta_pair linked, %s: %d linked pairs, %d dests, %d pairs; the '
+          'list equal to neighbours_reference, the pair equal to the walk '
+          'bit for bit; capacity %d, largest count %d, %d dests past it; '
+          '%d flips; %d packs' % (
+              label, found['linked'], found['dests'], found['pairs'],
+              found['capacity'], found['max_count'], found['overflowed'],
+              found['flips'], found['packs']), flush=True)
     if failures:
         raise AssertionError('%s: %s' % (label, '; '.join(failures)))
     return found

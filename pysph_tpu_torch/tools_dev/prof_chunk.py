@@ -8,19 +8,24 @@ on the state it reached:
 
 - the solver's chunk graph: CUDA events around replays, and the device's
   busy time and kernels from ``torch.profiler`` (CUDA activity only) over
-  replays, per step (a replay runs ``chunk_steps`` steps);
+  replays, per step (a replay runs ``chunk_steps`` steps); and, from the
+  profiler's trace of one replay, the idle time between its first and
+  last device operation, its ``GAPS`` longest gaps, each with the
+  operations before and after it, and the ``GAPS`` operations after
+  which the most idle time falls in all;
 - one CUDA graph per layer, busy time from the profiler over replays:
   the binning of each evaluator as a step runs it, its reuse test and
   the gated kernels (``ops/bin_cells.py``), once kept (``prepare_reuse``
-  on the positions it was binned at) and once rebuilt (``prepare``);
-  its pair calls (each plan's kernel wrapper, the source packs
-  included), the whole eval on its binning (``compute``), each
-  integrator stage and the adaptive dt (``compute_time_step``); the
-  elementwise phases of an eval are the eval less its pair calls.  The
-  binning a step is each evaluator's test, kept, plus the share of
-  tests that rebuilt in the solve (``rebuilds``) times the difference;
-  "rest" is the step less its evals, binning, stages and dt (the
-  chunk's write-back selects and its t/dt arithmetic).
+  on the positions it was binned at) and once rebuilt (``prepare``); its
+  pair calls (each plan's kernel wrapper, the source packs included, a
+  linked ``delta_pair`` pair as the path runs it), the whole eval on its
+  binning (``compute``), each integrator stage and the adaptive dt
+  (``compute_time_step``); the elementwise phases of an eval are the
+  eval less its pair calls.  The binning a step is each evaluator's
+  test, kept, plus the share of tests that rebuilt in the solve
+  (``rebuilds``) times the difference; "rest" is the step less its
+  evals, binning, stages and dt (the chunk's write-back selects and its
+  t/dt arithmetic).
 
 Then the host's part of a chunk: the replay call, the replay and its
 wait, and a whole ``Solver._run_chunk`` (host clock, medians).
@@ -31,18 +36,25 @@ per path, tagged with ``label`` and the card's name and power limit.
 """
 
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from pysph_tpu_torch.ops.build import BUILD_DIR
 from pysph_tpu_torch.tools_dev import common
 from pysph_tpu_torch.tools_dev.time_chunks import PATHS
-from pysph_tpu_torch.tools_dev.time_walks import make_app, plan_calls
+from pysph_tpu_torch.tools_dev.time_walks import (
+    make_app, plan_calls, run_as_path)
 
 STEPS = 80
 REPS = 10
+GAPS = 5
+#: the trace's categories of device operations
+DEVICE_OPS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 STAGES = ('initialize', 'stage1', 'stage2', 'stage3')
 
 
@@ -70,6 +82,49 @@ def replay_busy(graph, reps=REPS):
         torch.cuda.synchronize()
     ms, n = _busy(prof)
     return ms / reps, n / reps, common.events_ms(graph.replay, reps)
+
+
+def replay_gaps(graph, top=GAPS):
+    """The idle time of one replay of ``graph`` from the profiler's
+    trace: {span_us: its first device operation's start to its last's
+    end, idle_us: the time in that span that no operation runs, ops:
+    the device operations, gaps: the ``top`` longest idle gaps, [us,
+    operation before, operation after], after: the ``top`` operations
+    (by name) after which the most idle time falls, [us, gaps, name]}."""
+    graph.replay()
+    torch.cuda.synchronize()
+    act = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, path = tempfile.mkstemp(suffix='.json', dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    finally:
+        os.unlink(path)
+    ops = sorted((e['ts'], e['ts'] + e.get('dur', 0), e['name'][:80])
+                 for e in events if e.get('cat') in DEVICE_OPS)
+    if not ops:
+        return None
+    gaps, (_, end, last) = [], ops[0]
+    for start, stop, name in ops[1:]:
+        if start > end:
+            gaps.append([start - end, last, name])
+        if stop > end:
+            end, last = stop, name
+    after = {}
+    for us, name, _ in gaps:
+        total = after.setdefault(name, [0.0, 0, name])
+        total[0] += us
+        total[1] += 1
+    gaps.sort(key=lambda g: -g[0])
+    return dict(span_us=end - ops[0][0], idle_us=sum(g[0] for g in gaps),
+                ops=len(ops), gaps=gaps[:top],
+                after=sorted(after.values(), key=lambda a: -a[0])[:top])
 
 
 def chunk_host(s, reps=REPS):
@@ -123,7 +178,8 @@ def profile_path(path, kw):
                particles=sum(st['x'].shape[0] for st in s.states.values()),
                step_graph_ms=events / k, step_busy_ms=busy / k,
                step_kernels=kernels / k,
-               idle_share=1.0 - busy / events if busy > 0 else None)
+               idle_share=1.0 - busy / events if busy > 0 else None,
+               replay_idle=replay_gaps(s._graph))
     busy = busy if busy > 0 else events
     row['chunk_host'] = chunk_host(s)
     f64 = dict(dtype=torch.float64, device=s.config.device)
@@ -149,7 +205,7 @@ def profile_path(path, kw):
         more_if_rebuilt += rebuilt - kept
         calls = plan_calls(s, [i])
         pairs = measure('eval %d pair calls (%d)' % (i, len(calls)),
-                        lambda: [c[2].op(*c[3]) for c in calls])
+                        lambda: run_as_path(calls))
         whole = measure('eval %d' % i, lambda: a_eval.compute(
             t, dt, _copy(s.states), handle))
         layers['eval %d elementwise' % i] = dict(ms=whole - pairs,

@@ -178,12 +178,15 @@ def wcsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     return work
 
 
-def delta_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+def delta_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+               walks=True):
     """Work of one ``delta_pair`` call: the walk of ``wcsph_pair``; the
     dest's x y z h (with rho for the gradient, and m_mat for the
     correction), cell ids, write mask, pre values and output read or
     written once; of each source the reachable particles' x y z h m rho
-    and cell ranges."""
+    and cell ranges.  ``walks=False``: a gradient call that reads a
+    linked moment call's neighbour list, whose candidates' support
+    tests that walk made and are not counted again."""
     x = dest['x']
     n, es = x.shape[0], x.element_size()
     shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
@@ -198,11 +201,12 @@ def delta_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     for src, cells, _ in sources:
         cand, reached, ncells = stencil(grid, dest_cells, cells)
         pairs = support_pairs(grid, dest, dest_cells, src, cells)
-        work['candidates'] += cand
-        work['visited'] += cand
+        if walks:
+            work['candidates'] += cand
+            work['visited'] += cand
+            work['flops'] += cand * SUPPORT_FLOPS
         work['pairs'] += pairs
-        work['flops'] += cand * SUPPORT_FLOPS + pairs * (
-            DELTA_PAIR_FLOPS + shape + body)
+        work['flops'] += pairs * (DELTA_PAIR_FLOPS + shape + body)
         work['bytes'] += _source_bytes(src, reached, ncells,
                                        dl.PACK_RECORDS[0] + ('m', 'rho'))
     (out,) = pre.values()

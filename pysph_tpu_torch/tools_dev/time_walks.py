@@ -99,6 +99,14 @@ def plan_calls(s, evals):
     return calls
 
 
+def run_as_path(calls):
+    """The results of ``calls`` (``plan_calls``') as the evaluator runs
+    their plans: a linked ``delta_pair`` pair through its link (the
+    moment call emitting, the gradient call consuming), in order."""
+    return [c[2].op(*c[3]) if c[2].link is None
+            else c[2].link.run(c[2], c[3]) for c in calls]
+
+
 def _slack(s, cell_slack):
     if cell_slack is not None:
         s.grid.resize(s.states.values(), cell_slack=cell_slack)

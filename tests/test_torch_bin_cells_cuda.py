@@ -18,6 +18,7 @@ from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.config import Config
 from pysph_tpu_torch.ops import bin_cells as bc
 from pysph_tpu_torch.tools_dev import bin_check, time_chunks
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 
 def _need_card():

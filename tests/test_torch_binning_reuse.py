@@ -35,6 +35,7 @@ from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.config import Config
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.ops import bin_cells as bc
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 ARGV = ['--dx', '0.12']
 CPU = ['-q', '--disable-output', '--use-double', '--device', 'cpu']

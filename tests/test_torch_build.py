@@ -7,6 +7,7 @@ import shutil
 import pytest
 
 from pysph_tpu_torch.ops import build
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from pysph_tpu_torch.tools_dev import time_chunks
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 
 def _need_card():

@@ -9,6 +9,7 @@ from pysph_tpu.base.nnps import brute_force_neighbors
 from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.config import Config
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 CPU64 = Config(device='cpu', dtype=torch.float64)
 

@@ -20,6 +20,7 @@ from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.tools_dev import roofline
 from pysph_tpu_torch.tools_dev import walk_cases as wc
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 WALKED = ('clamped-3d', 'grid-2d', 'four-sources')
 

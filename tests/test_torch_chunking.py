@@ -20,6 +20,7 @@ from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 K = 4
 CPU = ['--use-double', '--device', 'cpu', '-q']

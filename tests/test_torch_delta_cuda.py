@@ -4,7 +4,12 @@ and ``wcsph_pair`` with the delta-SPH terms, on dam_break_3d
 ``--delta-sph`` at dx=0.06 with a seeded velocity and density
 perturbation and on the elliptical drop (2D, Gaussian); scaled error <=
 1e-10 in float64, <= 1e-4 of max|ref| in float32, with the pairs whose
-accept decision differs counted (``tools_dev/delta_check.py``).
+accept decision differs counted (``tools_dev/delta_check.py``).  The
+linked pair (the moment call emitting its neighbour list, the gradient
+call consuming it) on the same calls: the list equal to
+``neighbours_reference``, the gradient the walking one's bit for bit,
+also with a capacity so small that every warp walks, and 0 flips; and a
+few steps of the path with the links and without them, bit for bit.
 
 Skips without an NVIDIA card (a CUDA kernel has no CPU mode).  This file
 imports no JAX:
@@ -22,6 +27,7 @@ from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.tools_dev import delta_check
 from pysph_tpu_torch.tools_dev.time_walks import (
     delta_calls, make_app, plan_calls)
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 DTYPES = [torch.float64, torch.float32]
 
@@ -47,10 +53,9 @@ def test_delta_kernels_match_plain_versions_dam_break(dtype):
         assert found['flips'] == 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('dtype', DTYPES)
-def test_delta_kernels_match_plain_versions_drop(dtype):
-    _need_card()
+def _drop_calls(dtype):
+    """The pair calls of one eval of the perturbed delta-SPH drop at
+    nx=60, every 7th row outside the gradient group's mask."""
     app = make_app(None, dtype, cls=EllipticalDrop,
                    extra=('--nx', '60', '--delta-sph'))
     s = app.solver
@@ -63,7 +68,14 @@ def test_delta_kernels_match_plain_versions_drop(dtype):
                                 dtype=dtype, device='cuda')
     st['tag'][::7] = 1      # rows outside the gradient group's mask
     s.integrator.initial_acceleration(s.states, 0.0, s.dt)
-    calls = plan_calls(s, [0])
+    return plan_calls(s, [0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_delta_kernels_match_plain_versions_drop(dtype):
+    _need_card()
+    calls = _drop_calls(dtype)
     assert len(delta_check.delta_calls_of(calls)) == 3
     found = delta_check.check(calls, 'drop nx=60 %s' % dtype)
     assert 0 < found['accepted'] < found['pairs']
@@ -82,3 +94,50 @@ def test_delta_kernels_raise_on_bad_arguments():
     sources = [(st, cells, ds._replace(dim=4)) for st, cells, ds in args[4]]
     with pytest.raises(ValueError, match='dim'):
         dl.delta_pair(*args[:4], sources, *args[5:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['dam_break', 'drop'])
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_linked_pair_is_the_walk(dtype, case):
+    _need_card()
+    calls = delta_calls(0.06, dtype)[0] if case == 'dam_break' \
+        else _drop_calls(dtype)
+    before = dl.delta_pair.launches
+    found = delta_check.check_linked(calls, '%s %s' % (case, dtype))
+    # emit, consume (and the accepted counts), the two walking calls
+    assert dl.delta_pair.launches - before == 4
+    assert found['linked'] == 1 and found['packs'] == 1
+    assert found['overflowed'] == 0 and found['flips'] == 0
+    assert found['max_count'] <= found['capacity']
+    # every dest has its self-pair, nearly all more: every warp walks
+    small = delta_check.check_linked(calls, '%s %s, capacity 1'
+                                     % (case, dtype), capacity=1)
+    assert small['capacity'] == 1
+    assert 0.9 * small['dests'] < small['overflowed'] <= small['dests']
+
+
+@pytest.mark.cuda
+def test_linked_path_steps_as_the_walking_path():
+    """dam_break_3d --delta-sph at dx=0.06, 6 steps per step and in
+    chunks of 3, with the links and with them removed: every prop bit
+    for bit."""
+    _need_card()
+    runs = []
+    for linked in (True, False):
+        app = make_app(0.06, torch.float32, steps=6,
+                       extra=('--delta-sph',))
+        s = app.solver
+        s.n_damp, s.chunk_steps = 3, 3
+        plans = [p for a in s.acceleration_evals for p in a._plans.values()
+                 if p is not None]
+        assert sum(p.link is not None for p in plans) == 2
+        if not linked:
+            for p in plans:
+                p.link = None
+        app.solve()
+        assert s.count == 6 and s.replays >= 1
+        runs.append(s.states)
+    for name, st in runs[1].items():
+        for p, v in st.items():
+            assert torch.equal(runs[0][name][p], v), (name, p)

@@ -48,6 +48,7 @@ from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.sph.wc import linalg
 from test_reference_parity import NumpyDeltaSPH, _drop_particles
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 NX = ['--nx', '20', '--delta-sph']
 OUT = ('m_mat', 'gradrho', 'arho', 'au', 'av', 'ax', 'ay', 'dt_cfl', 'p',
@@ -242,12 +243,16 @@ def test_delta_sph_tracks_the_oracle():
         assert err <= 1e-6, '%s rel L2 %.3g > 1e-6' % (prop, err)
 
 
-def _dam_break(engine):
+def _dam_break_app(engine='kernel'):
     from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
     app = DamBreak3D()
     app.setup(['-q', '--use-double', '--device', 'cpu', '--engine', engine,
                '--dx', '0.12', '--delta-sph', '--disable-output'])
-    return app.solver.acceleration_evals[0]
+    return app
+
+
+def _dam_break(engine):
+    return _dam_break_app(engine).solver.acceleration_evals[0]
 
 
 def _plans(a_eval):
@@ -408,6 +413,169 @@ def test_plain_versions_and_accepted_counts():
     pairs.index_add_(0, i, torch.ones_like(i, dtype=torch.int32))
     assert bool((count <= pairs).all())
     assert 0.5 * int(pairs.sum()) < int(count.sum()) < int(pairs.sum())
+
+
+def _linked(a_eval):
+    """[(dest, moment plan, gradient plan)] of the evaluator's links."""
+    return [(p.dest, p, p.link.gradient) for p in a_eval._plans.values()
+            if p is not None and p.link is not None and p is p.link.moment]
+
+
+def test_link_forms_on_the_delta_paths():
+    """The moment plan and the corrected gradient plan of the fluid share
+    a link on the drop and on dam_break_3d, and no other plan has one."""
+    for a_eval in (_port_app('kernel', ['--disable-output']).solver
+                   .acceleration_evals[0], _dam_break('kernel')):
+        (dest, moment, gradient), = _linked(a_eval)
+        assert dest == 'fluid' and moment.link is gradient.link
+        assert moment.outputs == ('m_mat',)
+        assert gradient.sources[0].terms == dl.CORR | dl.GRAD
+        assert [p for p in a_eval._plans.values() if p is not None and
+                p.link is not None] == [moment, gradient]
+
+
+def _link_case(between=False, gradient_sources=('f',), moves=False):
+    """The plans of a moment group and a gradient group of dest ``f``
+    (with a source-less group between them, a source ``g`` more for the
+    gradient, or an equation in the moment group that moves ``f``),
+    and the links ``link_delta`` makes of them."""
+    from pysph_tpu_torch.base.kernels import WendlandQuintic
+    from pysph_tpu_torch.ops.pair_engine import link_delta, plan_pair_phases
+    from pysph_tpu_torch.sph.equation import Equation, Group
+    from pysph_tpu_torch.sph.wc.basic import (
+        ContinuityEquationDeltaSPHPreStep as Grad)
+    from pysph_tpu_torch.sph.wc.kernel_correction import (
+        GradientCorrection as Corr, GradientCorrectionPreStep as Pre)
+
+    class Shift(Equation):
+        def initialize(self, d_idx, d_x):
+            d_x[d_idx] += 0.0
+
+    kernel = WendlandQuintic(dim=3)
+    srcs = list(gradient_sources)
+    moment = Group([Pre('f', ['f'], dim=3)] +
+                   ([Shift('f', None)] if moves else []), real=False)
+    gradient = Group([Corr('f', srcs), Grad('f', srcs)])
+    groups = [moment] + ([Group([Shift('g', None)])] if between else []) + [
+        gradient]
+    plans = {(id(moment), 'f'): plan_pair_phases(
+        'f', {'f': [moment.equations[0]]}, kernel),
+        (id(gradient), 'f'): plan_pair_phases(
+            'f', {s: list(gradient.equations) for s in srcs}, kernel)}
+    return plans, link_delta(groups, plans)
+
+
+def test_link_forms_only_where_nothing_moves_between():
+    plans, links = _link_case()
+    (link,) = links
+    assert [p.link for p in plans.values()] == [link, link]
+    assert _link_case(between=True)[1] == []
+    assert _link_case(gradient_sources=('f', 'g'))[1] == []
+    assert _link_case(moves=True)[1] == []
+
+
+def test_neighbours_reference_is_the_walk_order():
+    """The positions of ``neighbours_reference`` are the pairs of
+    ``grid.neighbor_pairs``, one dest after another in sorted order,
+    and each dest's are those of the lanes' rule (``cell_walk``'s spans
+    in stencil order, ascending in each) that hold the support test;
+    over three sources (dam_break_3d's fluid call), source s numbered
+    after the sources before it."""
+    from pysph_tpu_torch.ops import cell_walk
+    from pysph_tpu_torch.tools_dev.time_walks import plan_calls
+    app = _dam_break_app()
+    calls = plan_calls(app.solver, [0])
+    (_, _, _, args), = [c for c in calls if c[1] == 'fluid' and
+                        c[2].op is wp.wcsph_pair]
+    dest, dcells, _, _, sources, grid, _ = args
+    assert len(sources) == 3
+    count, positions = dl.neighbours_reference(dest, dcells, sources, grid)
+    n = dest['x'].shape[0]
+    order = dcells.order.long()
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n)
+    pairs, base = [], 0
+    for src, cells, _ in sources:
+        i, j = grid.neighbor_pairs(dest, dcells, src, cells, (0, n))
+        where = torch.empty_like(cells.order, dtype=torch.int64)
+        where[cells.order.long()] = torch.arange(cells.order.shape[0])
+        pairs.append((rank[i], base + where[j]))
+        base += src['x'].shape[0]
+    assert int(count.sum()) == sum(p[0].numel() for p in pairs) == \
+        positions.numel()
+    offsets = torch.cumsum(count.long(), 0) - count.long()
+    rs = grid.radius_scale
+    d = {c: dest[c].numpy() for c in 'xyzh'}
+    spans = [cell_walk.walk_spans(grid, dcells, cells).tolist()
+             for _, cells, _ in sources]
+    for p in range(0, n, max(1, n // 40)):
+        i = int(order[p])
+        want, base = [], 0
+        for (src, cells, _), (ri, gj), rows in zip(sources, pairs, spans):
+            s = {c: src[c].numpy() for c in 'xyzh'}
+            sorder = cells.order.tolist()
+            mine = []
+            for k0, k1 in rows[p]:
+                for k in range(k0, k1):
+                    j = sorder[k]
+                    dx, dy, dz = (d[c][i] - s[c][j] for c in 'xyz')
+                    sup = rs * max(d['h'][i], s['h'][j])
+                    if dx * dx + dy * dy + dz * dz < sup * sup:
+                        mine.append(base + k)
+            assert gj[ri == p].tolist() == mine
+            want += mine
+            base += src['x'].shape[0]
+        assert positions[offsets[p]:offsets[p] + count[p]].tolist() == want
+
+
+def test_plain_handoff_and_its_misuse_raise():
+    """On the CPU the linked pair runs the plain versions: the moment
+    call's hand-off is empty (the plain gradient walks), the linked
+    gradient equals the walking one, and a gradient without its
+    hand-off, a moment given one, a hand-off of other sources and the
+    card's check of CPU calls raise."""
+    from pysph_tpu_torch.tools_dev import delta_check
+    calls = _drop_calls()
+    ((_, _, moment, margs), (_, _, gradient, gargs)), = \
+        delta_check.linked_calls(calls)
+    with pytest.raises(ValueError, match='off the card'):
+        delta_check.check_linked(calls, 'drop nx=20 float64, cpu')
+    with pytest.raises(RuntimeError, match='hand-off'):
+        moment.link.run(gradient, gargs)
+    _, handoff = dl.delta_pair(*margs, emit=True)
+    assert handoff.buf.numel() == handoff.nbr.numel() == 0
+    assert handoff.count is None
+    with pytest.raises(ValueError, match='only a moment call'):
+        dl.delta_pair(*gargs, emit=True)
+    with pytest.raises(ValueError, match='takes no hand-off'):
+        dl.delta_pair(*margs, handoff=handoff)
+    with pytest.raises(ValueError, match='a hand-off of'):
+        dl.delta_pair(*gargs, handoff=handoff._replace(
+            sources=(('other', 1),)))
+    out = moment.link.run(moment, margs)
+    assert torch.equal(out['m_mat'], dl.delta_pair(*margs)['m_mat'])
+    assert moment.link.handoff is not None
+    assert torch.equal(moment.link.run(gradient, gargs)['gradrho'],
+                       dl.delta_pair(*gargs)['gradrho'])
+    assert moment.link.handoff is None
+
+
+def test_linked_pair_counts_one_walk():
+    """The work of a linked pair (``roofline.delta_work``) holds one
+    walk's support tests: the consuming gradient call counts its pairs'
+    work and no candidate."""
+    from pysph_tpu_torch.tools_dev import delta_check, roofline
+    ((_, _, _, margs), (_, _, _, gargs)), = delta_check.linked_calls(
+        _drop_calls())
+    walked = roofline.delta_work(*gargs)
+    listed = roofline.delta_work(*gargs, walks=False)
+    assert walked['candidates'] > walked['pairs'] > 0
+    assert listed['candidates'] == listed['visited'] == 0
+    assert (listed['pairs'], listed['bytes']) == (walked['pairs'],
+                                                  walked['bytes'])
+    assert walked['flops'] - listed['flops'] == \
+        walked['candidates'] * roofline.SUPPORT_FLOPS
+    assert roofline.delta_work(*margs)['candidates'] == walked['candidates']
 
 
 def test_chunks_carry_the_strided_props(tmp_path):

@@ -17,6 +17,7 @@ from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.tools_dev import walk_cases as wc
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 CASES = {'elliptical_drop': (EllipticalDrop, ['--nx', '40']),
          'dam_break_3d': (DamBreak3D, ['--dx', '0.04'])}

@@ -36,6 +36,7 @@ from pysph_tpu_torch.examples.elliptical_drop import (
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.solver import output
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 NX = ['--nx', '20']
 PAIR_OUT = ('arho', 'au', 'av', 'aw', 'ax', 'ay', 'az', 'dt_cfl', 'p',

@@ -23,6 +23,7 @@ from pysph_tpu_torch.config import Config
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops.pair_engine import PairSource
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 C0, ALPHA, BETA = 10.0, 0.1, 0.0
 

@@ -26,6 +26,7 @@ from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
 from pysph_tpu_torch.solver import solver as solver_mod
 from pysph_tpu_torch.tools_dev import roofline
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 ARGV = ['--nx', '20', '-q', '--use-double', '--device', 'cpu',
         '--disable-output']

@@ -33,6 +33,7 @@ from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.sph.acceleration_eval import _bind_particle_phase
 from pysph_tpu_torch.sph.wc.gtvf import (
     GTVFIntegrator, GTVFScheme, GTVFStep, get_particle_array_gtvf)
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 # the chunked JAX time loop hands dt over as float32, so the tests give
 # both packages a dt that float32 holds exactly (~0.125 h / c0 at dx=0.1)

@@ -12,6 +12,7 @@ import torch
 from pysph_tpu_torch.ops import cell_pack
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.tools_dev import walk_cases as wc
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.cuda

@@ -7,6 +7,7 @@ import torch
 
 import pysph_tpu.base.kernels as jk
 import pysph_tpu_torch.base.kernels as tk
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 CASES = [('WendlandQuintic', 2), ('WendlandQuintic', 3),
          ('CubicSpline', 1), ('CubicSpline', 2), ('CubicSpline', 3)]

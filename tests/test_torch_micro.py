@@ -23,6 +23,7 @@ from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import roofline
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 TOL = 1e-6
 

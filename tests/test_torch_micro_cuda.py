@@ -16,6 +16,7 @@ from pysph_tpu_torch.ops import pair_stub as ps
 from pysph_tpu_torch.tools_dev import common, prof_dma
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 TOL = 1e-4   # of max|ref|, float32 sums in another order
 

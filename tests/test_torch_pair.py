@@ -24,6 +24,7 @@ from pysph_tpu.examples.dam_break_3d import DamBreak3D as JaxDamBreak3D
 from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.ops import wcsph_pair as wp
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 PAIR_OUT = ('arho', 'au', 'av', 'aw', 'ax', 'ay', 'az', 'dt_cfl',
             'dt_force', 'p', 'cs', 'rho')

@@ -17,6 +17,7 @@ from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.ops import cell_pack
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.tools_dev import walk_cases as wc
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 TOLS = [(torch.float64, 1e-10), (torch.float32, 1e-4)]
 

@@ -7,6 +7,7 @@ from pysph_tpu.base.utils import get_particle_array_wcsph as jax_wcsph
 from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.base.utils import get_particle_array_wcsph
 from pysph_tpu_torch.config import Config
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 
 def _jax_array():

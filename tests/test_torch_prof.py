@@ -12,6 +12,7 @@ from pysph_tpu_torch.ops import pair_stub as ps
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.sph.equation import Group
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 DX = 0.12
 PROPS = ('au', 'av', 'aw', 'arho', 'ax', 'ay', 'az', 'rho', 'p')

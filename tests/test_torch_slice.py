@@ -12,6 +12,7 @@ import numpy as np
 
 from pysph_tpu.examples.dam_break_3d import DamBreak3D as JaxDamBreak3D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 ARGV = ['--dx', '0.12', '--max-steps', '3', '--disable-output', '-q']
 PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'rho', 'p')
