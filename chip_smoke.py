@@ -21,11 +21,14 @@ Phases (any failure propagates; the exit code is then not 0):
    at dx=0.04 in float64 on the kernel engine against the torch engine
    (<= 1e-9 of max|ref|);
 4. the solver's chunks (``tools_dev/time_chunks.py::gate``): on each of
-   the four paths in float64 at a small size (dam_break_3d dx=0.04, also
+   the paths in float64 at a small size (dam_break_3d dx=0.04, also
    with its fluid at 3 m/s so that the binning is rebuilt inside the
-   chunks, and with ``--delta-sph``, its strided ``m_mat`` and
-   ``gradrho`` in the chunk's write-back; GTVF dx=0.02, the drop nx=40 in
-   a grid that just holds it), 30
+   chunks, with ``--delta-sph``, its strided ``m_mat`` and ``gradrho`` in
+   the chunk's write-back, and with ``--engine dense --delta-sph``, whose
+   delta-SPH groups run on the torch pair engine inside the graphs; GTVF
+   dx=0.02; the 2D WCSPH dam break dx=0.02 under PEC and under Euler,
+   TVDRK3, LeapFrog and PEFRL; the drop nx=40 in a grid that just holds
+   it), 30
    steps with ``n_damp = 0`` in chunks of 10 replayed from CUDA graphs
    against the eager per-step loop: every prop within 1e-12 of its max,
    t, dt, the count and the binnings that ran exactly equal, one landing
@@ -67,7 +70,11 @@ Phases (any failure propagates; the exit code is then not 0):
    ``reuse`` only (3 ``wcsph_pair`` and 2 ``delta_pair`` launches an
    eval, a pack for each but the linked gradient, peak device memory);
    its chunks against the per-step loop in float64 are a gate of phase 4
-   (``dam_break_3d dx=0.04 delta``);
+   (``dam_break_3d dx=0.04 delta``); then ``--engine dense --delta-sph``
+   at dx=0.02 in float32, its delta-SPH groups on the torch pair engine,
+   for its 50 damped steps and 3 chunks per step and in captured chunks,
+   with one overflow forced (the capacities cut before the first chunk):
+   grown, redone and captured again;
 7. ``gtvf_pair`` against its plain version on the GTVF dam break
    (``examples.dam_break_2d --scheme gtvf``) with a seeded perturbation,
    every phase set of both evaluators: dx=0.02 (7,603 particles) in
@@ -79,7 +86,16 @@ Phases (any failure propagates; the exit code is then not 0):
 8. the GTVF path at dx=0.004 in float32, as the main path (chunks from
    step 0; 2 launches in the initial eval, 5 a step, one pack a launch),
    every pair phase of both evaluators on the kernel, and a finite final
-   state (``rhodiv`` aside);
+   state (``rhodiv`` aside); then the 2D WCSPH dam break
+   (``examples.dam_break_2d``'s default ``--scheme wcsph``: PEC,
+   WendlandQuintic, the Hughes-Graham walls): ``wcsph_pair`` against its
+   plain version with a seeded perturbation at dx=0.02 and dx=0.004
+   (137,803 particles, the path's shapes) in float64 and float32, timed
+   and counted at dx=0.004 in float32, and the path as the main path (50
+   damped steps, then chunks; 2 launches in the initial eval, 2 a step);
+   then Euler, TVDRK3, LeapFrog and PEFRL each driving its equations at
+   dx=0.02 in float64 for 3 captured chunks, a capture counting 2
+   ``wcsph_pair`` launches an eval (1, 3, 1 and 4 evals a step);
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -127,7 +143,7 @@ Phases (any failure propagates; the exit code is then not 0):
 Each kernel's bound is computed from its work at the path's shapes
 (``tools_dev/roofline.py``) and printed beside its time; a kernel's
 ``launches`` are those on the card in its path's run.  Then ms/step of
-the four full-width runs under both binning configurations, per step and
+the full-width runs under both binning configurations, per step and
 in chunks, with the chunked runs' captures, replays, host reads and
 binnings per 100 steps, and the binning's times an eval.  The line
 before the last is a JSON summary of the kernels; the last is
@@ -562,6 +578,155 @@ def _delta_phase(runs, kernels):
         path='dam_break_3d --delta-sph dx=0.02, the fluid call with the '
         'terms less without them (ms), the terms alone (alone_ms, and '
         'the plain version\'s plain_ms)')
+
+
+def _wcsph2d_phase(runs, kernels, bins):
+    """The WCSPH dam break in 2D (``examples.dam_break_2d``, its default
+    ``--scheme wcsph``: PEC, WendlandQuintic, the Hughes-Graham walls):
+    ``wcsph_pair`` against its plain version with a seeded velocity and
+    density perturbation, dx=0.02 (7,603 particles) in float64 and
+    float32 and dx=0.004 (137,803, the path's shapes) in float64 and
+    float32, timed and counted there; then the path as the main path (2
+    launches in the initial eval, 2 a step: PEC evaluates once).  Adds
+    the path's numbers to the ``wcsph_pair`` entry."""
+    for dx, dtype in ((0.02, torch.float64), (0.02, torch.float32),
+                      (0.004, torch.float64)):
+        calls, n = pair_calls(dx, dtype, cls=DamBreak2D)
+        _compare(calls, dtype, 'wcsph_pair dam_break_2d wcsph dx=%g %s (%d '
+                 'particles)' % (dx, str(dtype)[6:], n))
+        del calls
+    calls, n = pair_calls(0.004, torch.float32, cls=DamBreak2D)
+    if n != 137803:
+        raise AssertionError('dam_break_2d at dx=0.004 has %d particles, '
+                             'not 137,803' % n)
+    err = _compare(calls, torch.float32, 'wcsph_pair dam_break_2d wcsph '
+                   'dx=0.004 float32 (%d particles)' % n)
+    eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in calls], 3)
+    work = _calls_work(calls, roofline.wcsph_work)
+    bound_ms, bound_by = roofline.bound(work)
+    print('wcsph_pair, pair phases of one eval of dam_break_2d wcsph at '
+          'dx=0.004 float32 (%d launches, the pack included): kernel %.3f '
+          'ms eager, %.3f ms in a graph, plain torch %.3f ms; bound %.4f ms '
+          '(%s); %d candidates, %d visited, %d pairs' % (
+              len(calls), eager, ms, plain_ms, bound_ms, bound_by,
+              work['candidates'], work['visited'], work['pairs']),
+          flush=True)
+    del calls
+    label = 'dam_break_2d wcsph dx=0.004'
+    for config, (every, _) in time_chunks.CONFIGS.items():
+        runs[label, config] = _drive(
+            label, time_chunks.PATHS[label], ((wp.wcsph_pair, 2, 2),), 1,
+            config=config, checks=() if every else (functools.partial(
+                _bin_phase, label, out=bins),))
+    kernels['wcsph_pair']['dam_break_2d_wcsph'] = dict(
+        launches=runs[label, 'reuse']['launches']['wcsph_pair'],
+        max_abs_err=err, ms=ms, eager_ms=eager, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, work=work,
+        path='dam_break_2d --scheme wcsph dx=0.004, one eval (2 launches)')
+
+
+def _integrators_phase():
+    """The WCSPH dam break's equations under each other integrator
+    (``time_chunks.INTEGRATORS``: Euler, TVDRK3, LeapFrog, PEFRL; their
+    chunks against the eager loop in float64 are gates of the chunk
+    phase) at dx=0.02 in float64, 30 steps from ``n_damp = 0`` in 3
+    captured chunks: the ``wcsph_pair`` launches a capture counts must be
+    2 an eval, so the graph holds 1, 3, 1 and 4 evals a step."""
+    for name, (_, evals) in time_chunks.INTEGRATORS.items():
+        app = time_chunks.integrated(name)()
+        app.setup(['--disable-output', '-q', '--use-double', '--device',
+                   'cuda', '--dx', '0.02', '--max-steps', '30'])
+        s = app.solver
+        s.n_damp = 0
+        bodies = _chunk_launches(s, [wp.wcsph_pair])
+        app.solve()
+        captured = [c[0] for it, c, cap in bodies if cap]
+        print('%s on dam_break_2d wcsph dx=0.02 float64: %d steps, %d '
+              'captures, %d replays; wcsph_pair launches a capture %s (%d '
+              'evals a step); t=%.6g' % (
+                  name, s.count, s.captures, s.replays, captured, evals,
+                  s.t), flush=True)
+        if s.count != 30 or s.captures != 1 or s.replays != 3 or \
+                captured != [2 * evals * s.chunk_steps]:
+            raise AssertionError('%s did not run its %d evals a step in '
+                                 'captured chunks' % (name, evals))
+        for name_, st in s.states.items():
+            for p, v in st.items():
+                if v.is_floating_point() and \
+                        not bool(torch.isfinite(v).all()):
+                    raise AssertionError('%s: non-finite %s.%s'
+                                         % (name, name_, p))
+        del app, s
+
+
+def _dense_delta_phase():
+    """dam_break_3d ``--engine dense --delta-sph`` at dx=0.02 in float32:
+    the delta-SPH groups on the torch pair engine, the boundary's on
+    ``dense_pair``, for its 50 damped steps and 3 chunks, per step and in
+    captured chunks, with ms/step both ways; in the chunked run the
+    capacities are cut to half before the first chunk, so that it
+    overflows and is redone: grown, captured again, replayed from the
+    state before it (1 + redos captures, 3 + redos replays).  Returns
+    {ms: {chunk steps: ms/step}, rebuilds: {chunk steps: binnings},
+    counters: the chunked run's solver counters}."""
+    label = 'dam_break_3d dx=0.02 dense delta'
+    steps = 80
+    ms, rebuilds, counters = {}, {}, {}
+    for k in (1, 10):
+        app = make_app(0.02, torch.float32, steps=steps, engine='dense',
+                       extra=('--delta-sph',))
+        s = app.solver
+        if k == 10:
+            run_chunk = s._run_chunk
+
+            def cut_first():
+                if s.count == s.n_damp and not s.redos:
+                    for cap in s.grid.pair_caps.values():
+                        cap.candidates //= 2
+                        cap.pairs //= 2
+                run_chunk()
+            s._run_chunk = cut_first
+        bodies = _chunk_launches(s, [dp.dense_pair])
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ms[k], samples = time_chunks.timed_solve(app, k)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        rebuilds[k] = s.rebuilds
+        caps = {'%s<-%s' % key: (c.candidates, c.pairs)
+                for key, c in s.grid.pair_caps.items()}
+        print('%s, chunk_steps=%d: median %.3f ms/step (min %.3f, max %.3f '
+              'over %d samples); %d captures, %d replays, %d redos, %d '
+              'reads; capacities (candidates, pairs) %s; engines %s; peak '
+              'device memory %.1f MiB' % (
+                  label, k, ms[k], min(samples), max(samples), len(samples),
+                  s.captures, s.replays, s.redos, s.reads, caps,
+                  s.acceleration_evals[0].engine_choices, peak), flush=True)
+        if 'torch' not in s.acceleration_evals[0].engine_choices.values() \
+                or s.count != steps:
+            raise AssertionError('%s: no torch engine dest, or %d steps'
+                                 % (label, s.count))
+        if k == 10:
+            captured = [c for it, c, cap in bodies if cap]
+            if not (s.redos >= 1 and
+                    s.captures == 1 + s.redos + s.grid.grows and
+                    len(captured) == s.captures and
+                    s.replays == 3 + s.redos):
+                raise AssertionError('%s: %d captures, %d replays, %d redos '
+                                     'in chunks' % (label, s.captures,
+                                                    s.replays, s.redos))
+            counters = dict(captures=s.captures, replays=s.replays,
+                            redos=s.redos, reads=s.reads, chunk_steps=10)
+        for name, st in s.states.items():
+            for p, v in st.items():
+                if v.is_floating_point() and \
+                        not bool(torch.isfinite(v).all()):
+                    raise AssertionError('non-finite %s.%s' % (name, p))
+        del app, s
+    print('%s: %.3f ms/step per step (eager), %.3f in captured chunks '
+          '(%.2fx)' % (label, ms[1], ms[10], ms[1] / ms[10]), flush=True)
+    return dict(ms=ms, rebuilds=rebuilds, counters=counters, steps=steps)
 
 
 def _rhodiv(solver):
@@ -1035,6 +1200,7 @@ def main():
         'kernels; its JAX counterpart, prepare_reuse and prepare, is XLA '
         'ops under a lax.cond, not a pallas_call')
     _delta_phase(runs, kernels)
+    dense_delta = _dense_delta_phase()
 
     # gtvf_pair against its plain version
     for dx, dtype in ((0.02, torch.float64), (0.02, torch.float32)):
@@ -1084,6 +1250,10 @@ def main():
         'gtvf_pair', 'pysph_tpu/ops/pallas_engine.py:1160', gtvf_launches,
         gtvf_err, gtvf_ms, gtvf_plain_ms, gtvf_work, None,
         eager_ms=gtvf_eager, path='GTVF dx=0.004, both evals of a step')
+
+    # the 2D WCSPH dam break (PEC) and the other integrators
+    _wcsph2d_phase(runs, kernels, bins)
+    _integrators_phase()
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
@@ -1186,6 +1356,13 @@ def main():
             label, config, r['ms'][1], r['ms'][10],
             100.0 * r['rebuilds'][1] / STEPS,
             100.0 * r['rebuilds'][10] / STEPS, r['counters']))
+    r = dense_delta
+    print('  %-22s %-10s %8.3f / %8.3f ms/step  %6.1f / %6.1f  (%s; %d '
+          'steps: 50 damped, 3 chunks)' % (
+              'dam_break_3d dx=0.02 dense delta', 'reuse', r['ms'][1],
+              r['ms'][10], 100.0 * r['rebuilds'][1] / r['steps'],
+              100.0 * r['rebuilds'][10] / r['steps'], r['counters'],
+              r['steps']))
     print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
     for label, rows in bins.items():
         for i, t in enumerate(rows):

@@ -32,7 +32,22 @@ that some particle lies beyond the grid, and the solver ``grow``s the
 grid when it reads it.
 
 Particles keep their order: consumers read sources through ``order``.
+
+The torch pair engine's lists (``neighbor_pairs`` with a
+``PairCapacity``) are built at capacities held on the host, one for the
+stencil candidates and one for the pairs in support of a chunk of dest
+rows, so that nothing is read back and a step can be captured into a
+CUDA graph.  A chunk with more of either than its capacity drops the
+excess: it ORs a device flag into ``pair_overflow`` (kept, like
+``overflow_any``, where the caller set it) and raises the capacity's
+running maxima (``need``), from which ``grow_pairs`` sizes the
+capacities on the host; the caller then runs the evaluation again from
+the state before it (``sph/acceleration_eval.py::run_sized``, the
+solver's redo).  At any capacity that holds them the pairs are those of
+the exact list (no capacity), in its order.
 """
+
+import math
 
 import weakref
 from typing import NamedTuple
@@ -50,6 +65,23 @@ class CellList(NamedTuple):
     order: torch.Tensor   # (n,) int32 particle indices sorted by cell
     start: torch.Tensor   # (ncells,) int32 first position in ``order``
     end: torch.Tensor     # (ncells,) int32 one past the last
+
+
+class PairCapacity(object):
+    """The torch pair engine's capacities for one (dest, source) pair of
+    arrays, a chunk of dest rows: ``candidates`` and ``pairs`` (host
+    ints, 0 until sized), and ``need``, (2,) int64 on the device: the
+    most candidates and pairs in support that a chunk has had (of the
+    candidates within the capacity), raised in place by every list."""
+
+    def __init__(self, device):
+        self.candidates = 0
+        self.pairs = 0
+        self.need = torch.zeros(2, dtype=torch.int64, device=device)
+
+
+#: a grown capacity's headroom over the count that outgrew it
+PAIR_GROWTH = 1.25
 
 
 class GridHandle(object):
@@ -98,6 +130,22 @@ class GridHandle(object):
         """Make the next test rebuild the binning (in place)."""
         self.width.zero_()
 
+    def _tensors(self):
+        out = [self.origin, self.width, self.overflow, self.rebuild]
+        for cells in self.lists.values():
+            out.extend(cells)
+        return out + list(self.ref.values())
+
+    def save(self):
+        """Copies of the handle's tensors (``scratch`` aside), for
+        ``restore``."""
+        return [t.clone() for t in self._tensors()]
+
+    def restore(self, saved):
+        """Put back what ``save`` copied, in place."""
+        for t, v in zip(self._tensors(), saved):
+            t.copy_(v)
+
 
 class CellGrid(object):
     """Cell counts of the grid; bins particle states into ``CellList``s.
@@ -119,12 +167,18 @@ class CellGrid(object):
         self.overflow_any = None
         self.grows = 0
         self._handles = weakref.WeakSet()
+        #: {(dest, source): PairCapacity} of the torch pair engine
+        self.pair_caps = {}
+        #: 0-d device bool that the torch engine's lists OR their
+        #: overflow into while set (None: not kept)
+        self.pair_overflow = None
 
     def _set_dims(self, dims):
         dims = tuple(int(d) for d in dims)
         self.dims = dims + (1,) * (3 - len(dims))
         self.ncells = self.dims[0] * self.dims[1] * self.dims[2]
         self._limit = None
+        self._offsets = {}
 
     def __repr__(self):
         return 'CellGrid(dim=%d, dims=%s, cell_slack=%g)' % (
@@ -209,6 +263,51 @@ class CellGrid(object):
         if self.overflow_any is not None:
             self.overflow_any = self.overflow_any | flag
 
+    # -- the torch pair engine's capacities ----------------------------
+    def pair_capacity(self, dest, src, device):
+        """The ``PairCapacity`` of the lists of ``dest`` against
+        ``src`` (made where missing, unsized)."""
+        cap = self.pair_caps.get((dest, src))
+        if cap is None:
+            cap = self.pair_caps[dest, src] = PairCapacity(device)
+        return cap
+
+    def watch_pairs(self):
+        """Keep the torch engine's overflow flags from here on, in
+        ``pair_overflow`` (where a capacity exists; made on its
+        device)."""
+        if self.pair_caps:
+            need = next(iter(self.pair_caps.values())).need
+            self.pair_overflow = torch.zeros((), dtype=torch.bool,
+                                             device=need.device)
+
+    def pairs_overflowed(self):
+        """Whether a list overflowed since ``watch_pairs`` (one read where
+        a flag was kept); stops keeping the flag."""
+        flag, self.pair_overflow = self.pair_overflow, None
+        return flag is not None and bool(flag)
+
+    def grow_pairs(self):
+        """Raise each capacity that a list outgrew to ``PAIR_GROWTH``
+        times the count it needed (one read of every ``need``).  Returns
+        the {(dest, source): (candidates, pairs)} grown."""
+        keys = list(self.pair_caps)
+        needs = torch.stack([self.pair_caps[k].need for k in keys]).tolist()
+        grown = {}
+        for key, (cand, pairs) in zip(keys, needs):
+            cap = self.pair_caps[key]
+            if cand > cap.candidates or pairs > cap.pairs:
+                cap.candidates = max(cap.candidates,
+                                     math.ceil(PAIR_GROWTH * cand))
+                cap.pairs = max(cap.pairs, math.ceil(PAIR_GROWTH * pairs))
+                grown[key] = (cap.candidates, cap.pairs)
+        return grown
+
+    def pair_key(self):
+        """The capacities as a tuple (what a captured graph bakes in)."""
+        return tuple((k, c.candidates, c.pairs)
+                     for k, c in sorted(self.pair_caps.items()))
+
     @staticmethod
     def _box(states):
         """(lowest (3,), highest (3,), hmax ()) tensors of the particles
@@ -228,12 +327,17 @@ class CellGrid(object):
 
     def offsets(self, device):
         """(S, 3) stencil offsets: -1..1 on each axis with more than one
-        cell, 0 elsewhere (3^dim cells for a full grid)."""
-        axes = [(-1, 0, 1) if self.dims[d] > 1 else (0,)
-                for d in range(3)]
-        return torch.tensor([(a, b, c) for c in axes[2] for b in axes[1]
-                             for a in axes[0]], dtype=torch.int64,
-                            device=device)
+        cell, 0 elsewhere (3^dim cells for a full grid); made once per
+        size and device, so that a list built in a CUDA graph's capture
+        copies nothing there."""
+        device = torch.device(device)
+        if device not in self._offsets:
+            axes = [(-1, 0, 1) if self.dims[d] > 1 else (0,)
+                    for d in range(3)]
+            self._offsets[device] = torch.tensor(
+                [(a, b, c) for c in axes[2] for b in axes[1]
+                 for a in axes[0]], dtype=torch.int64, device=device)
+        return self._offsets[device]
 
     def escaped(self, origin, hi, width):
         """0-d device bool: whether the highest coordinates ``hi`` lie at
@@ -288,11 +392,17 @@ class CellGrid(object):
         self.note_overflow(handle.overflow & flag)
         return handle.lists
 
-    def neighbor_pairs(self, dest, dest_cells, src, src_cells, rows):
-        """Compacted pair list ``(i, j)`` (int64) of the dest rows
-        ``rows = (a, b)`` against the source: every pair in the
-        3^dim-cell stencil with ``r2 < (radius_scale * max(hi, hj))^2``.
-        The self-pair is kept."""
+    def neighbor_pairs(self, dest, dest_cells, src, src_cells, rows,
+                       cap=None):
+        """The pair list of the dest rows ``rows = (a, b)`` against the
+        source: every pair in the 3^dim-cell stencil with ``r2 <
+        (radius_scale * max(hi, hj))^2``, in stencil-row-cell order (the
+        self-pair kept).  Without ``cap``: ``(i, j)`` (int64), compacted
+        to its size, which is read back.  With a ``PairCapacity``: ``(i,
+        j, w)`` of ``cap.pairs`` entries, nothing read back; the entries
+        past the pair count have ``i = a``, ``j = 0`` and the write row
+        ``w = n`` (one past the dest's rows), the others ``w = i``; see
+        the module's docstring for the overflow."""
         a, b = rows
         dims = self.dims
         dev = dest['x'].device
@@ -313,6 +423,9 @@ class CellGrid(object):
         cnt = torch.where(valid, (src_cells.end[ncell] -
                                   src_cells.start[ncell]).to(torch.int64),
                           0).reshape(-1)
+        if cap is not None:
+            return self._capped_pairs(dest, src, src_cells, a, start, cnt,
+                                      offs.shape[0], cap)
         total = int(cnt.sum())
         seg = torch.repeat_interleave(
             torch.arange(cnt.numel(), device=dev), cnt, output_size=total)
@@ -320,11 +433,51 @@ class CellGrid(object):
         pos = start[seg] + (torch.arange(total, device=dev) - first[seg])
         j = src_cells.order[pos].to(torch.int64)
         i = a + torch.div(seg, offs.shape[0], rounding_mode='floor')
+        keep = self._in_support(dest, src, i, j)
+        return i[keep], j[keep]
+
+    def _in_support(self, dest, src, i, j):
         dx = dest['x'][i] - src['x'][j]
         dy = dest['y'][i] - src['y'][j]
         dz = dest['z'][i] - src['z'][j]
         r2 = dx ** 2 + dy ** 2 + dz ** 2
         rs = self.radius_scale
         sup = torch.maximum(rs * dest['h'][i], rs * src['h'][j])
-        keep = r2 < sup * sup
-        return i[keep], j[keep]
+        return r2 < sup * sup
+
+    def _capped_pairs(self, dest, src, src_cells, a, start, cnt, n_offs,
+                      cap):
+        """``neighbor_pairs`` at the capacities of ``cap``: candidate
+        ``k`` lies in the stencil segment whose running end first passes
+        ``k`` (``searchsorted``), the in-support ones are scattered to
+        their rank among them; nothing is read back."""
+        dev = cnt.device
+        n_dest = dest['x'].shape[0]
+        ends = torch.cumsum(cnt, 0)
+        total = ends[-1]
+        k = torch.arange(cap.candidates, device=dev)
+        if src['x'].shape[0] == 0:
+            k = k[:0]
+        seg = torch.searchsorted(ends, k, right=True).clamp_(
+            max=cnt.numel() - 1)
+        live = k < total
+        pos = torch.where(live, start[seg] + (k - (ends[seg] - cnt[seg])),
+                          0)
+        j = src_cells.order[pos].to(torch.int64)
+        i = a + torch.div(seg, n_offs, rounding_mode='floor')
+        keep = live & self._in_support(dest, src, i, j)
+        rank = torch.cumsum(keep, 0) - 1
+        n_pairs = rank[-1] + 1 if rank.numel() else total.new_zeros(())
+        slot = torch.where(keep & (rank < cap.pairs), rank, cap.pairs)
+        out_i = torch.full((cap.pairs + 1,), a, dtype=torch.int64,
+                           device=dev).scatter_(0, slot, i)[:-1]
+        out_j = torch.zeros(cap.pairs + 1, dtype=torch.int64,
+                            device=dev).scatter_(0, slot, j)[:-1]
+        out_w = torch.where(torch.arange(cap.pairs, device=dev) < n_pairs,
+                            out_i, n_dest)
+        counts = torch.stack([total, n_pairs])
+        cap.need.copy_(torch.maximum(cap.need, counts))
+        if self.pair_overflow is not None:
+            self.pair_overflow = self.pair_overflow | (
+                (total > cap.candidates) | (n_pairs > cap.pairs))
+        return out_i, out_j, out_w

@@ -1,20 +1,24 @@
 """Two-dimensional dam break over a dry bed (Gomez-Gesteira et al. 2010).
 
 Port of ``pysph_tpu/examples/dam_break_2d.py``: a 1 m x 2 m water column
-in a 4 m x 4 m tank with four wall layers.  ``--scheme gtvf`` (the
-generalised transport-velocity formulation, two evaluators per step) is
-the ported path; on an NVIDIA card:
+in a 4 m x 4 m tank with four wall layers.  ``--scheme wcsph`` (the
+default: WCSPH with the Hughes-Graham corrected walls, ``PECIntegrator``,
+``WendlandQuintic``, adaptive dt, 50 damped steps) and ``--scheme gtvf``
+(the generalised transport-velocity formulation, two evaluators per
+step) are ported; on an NVIDIA card:
 
+    python -m pysph_tpu_torch.examples.dam_break_2d \\
+        --dx 0.004 --max-steps 200 --disable-output
     python -m pysph_tpu_torch.examples.dam_break_2d --scheme gtvf \\
         --dx 0.004 --max-steps 200 --disable-output
 
-``--scheme wcsph`` (the reference's default) needs ``PECIntegrator`` and
-``edac``/``iisph`` their schemes; each raises ``NotImplementedError``
-naming its ROADMAP item.
+``edac`` and ``iisph`` need their schemes; each raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 import numpy as np
 
+from pysph_tpu_torch.base.kernels import WendlandQuintic
 from pysph_tpu_torch.base.utils import get_particle_array
 from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.scheme import (
@@ -68,10 +72,13 @@ class DamBreak2D(Application):
         dt = 0.125 * self.h / co
         kw = dict(tf=2.5, output_at_times=[0.4, 0.6, 0.8, 1.0])
         if self.options.scheme == 'wcsph':
-            raise NotImplementedError(
-                'dam_break_2d --scheme wcsph needs PECIntegrator, which is '
-                'not ported yet (ROADMAP Queue 1 item 20); use --scheme '
-                'gtvf')
+            from pysph_tpu_torch.sph.integrator import PECIntegrator
+            self.scheme.configure(h0=self.h, hdx=self.hdx)
+            self.scheme.configure_solver(
+                integrator_cls=PECIntegrator,
+                kernel=WendlandQuintic(dim=2), adaptive_timestep=True,
+                n_damp=50, fixed_h=False, dt=dt, **kw)
+            return
         self.scheme.configure(pref=ro * co * co / gamma, h0=self.h)
         self.scheme.configure_solver(dt=dt, **kw)
 

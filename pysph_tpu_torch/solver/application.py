@@ -3,12 +3,12 @@
 
 A subclass overrides ``initialize``, ``create_particles``,
 ``create_scheme`` (or ``create_equations`` and ``create_solver``),
-``add_user_options``, ``consume_user_options``, ``configure_scheme`` and
-``post_process`` and calls ``run()``.  The command line sets time
-stepping, output (``-d/--directory``, ``--pfreq``, ``--output-at-times``,
-``--disable-output``), the SPH kernel (``--kernel``), the dtype
-(``--use-double``), the device (``--device``, default ``cuda``) and the
-pair engine (``--engine kernel|dense|torch``).
+``add_user_options``, ``consume_user_options``, ``configure_scheme``,
+``post_stage`` and ``post_process`` and calls ``run()``.  The command
+line sets time stepping, output (``-d/--directory``, ``--pfreq``,
+``--output-at-times``, ``--disable-output``), the SPH kernel
+(``--kernel``), the dtype (``--use-double``), the device (``--device``,
+default ``cuda``) and the pair engine (``--engine kernel|dense|torch``).
 """
 
 import argparse
@@ -166,6 +166,11 @@ class Application(object):
     def configure_scheme(self):
         pass
 
+    def post_stage(self, current_time, dt, stage):
+        """Called after each integrator stage where overridden (the run
+        then steps in the solver's per-step loop)."""
+        pass
+
     def post_process(self, info_fname_or_directory):
         pass
 
@@ -230,6 +235,8 @@ class Application(object):
         if o.n_damp is not None:
             solver.n_damp = o.n_damp
         solver.max_steps = o.max_steps
+        if type(self).post_stage is not Application.post_stage:
+            solver.add_post_stage_callback(self.post_stage)
         solver.setup(self.particles, self.equations, self.config)
         self._setup_time = time.time() - start
 

@@ -17,11 +17,11 @@ device the K steps are captured once into one CUDA graph and each chunk
 is one replay; on the CPU the same code runs eagerly.  A chunk runs
 where the JAX solver runs one: K > 1, ``count >= n_damp`` (the damped
 steps stay on the host), no dt shortened for an output time pending,
-and no pre-step callback.  Elsewhere the per-step loop runs, reading dt
-(and the overflow flag) once a step with adaptive dt, the flag every
-``GROW_CHECK_STEPS`` steps with a fixed one; ``chunk_steps = 1`` is that
-loop throughout.  The first ineligible step of each reason is logged at
-INFO.
+and no pre-step or post-stage callback.  Elsewhere the per-step loop
+runs, reading dt (and the overflow flag) once a step with adaptive dt,
+the flag every ``GROW_CHECK_STEPS`` steps with a fixed one;
+``chunk_steps = 1`` is that loop throughout.  The first ineligible step
+of each reason is logged at INFO.
 
 A chunk takes the same decisions as the per-step loop, in the same
 float64 arithmetic, so both give the same bits: the chunk's length is
@@ -45,19 +45,31 @@ Capture (CUDA): the graph reads and writes static state tensors, which
 between chunks is copied into its static one first.  The chunk is
 captured again after a grow (``ncells`` sizes the cell lists) and
 wherever a constant baked into the graph changes (K, tf, cfl, adaptive
-dt); each capture follows one inactive warm-up step on a side stream,
-which makes what a first call allocates or copies (the grid's limits
-after a grow) outside the capture.  ``captures``, ``replays`` and
-``reads`` count, and ``rebuilds`` the binnings that ran (read with each
+dt, the torch engine's capacities); each capture follows one inactive
+warm-up step on a side stream, which makes what a first call allocates
+or copies (the grid's limits after a grow) outside the capture.
+``captures``, ``replays`` and ``reads`` count, and ``rebuilds`` the binnings that ran (read with each
 chunk and at the end of ``solve``).  A capture or replay that fails
 raises.  The launch counters of the kernel wrappers count Python calls,
 so under capture they count a chunk's launches once, at capture:
 launches on the card are (launches a capture) x replays plus the eager
-ones.  A dest on the torch pair engine sizes its pair list on the host
-and cannot be captured: with one, a chunk on a CUDA device runs
-eagerly, as on the CPU (logged).
+ones.
+
+The torch pair engine builds its lists at capacities held on the host
+(``CellGrid.pair_capacity``; the first sized by the initial eval), so a
+step on it captures like any other.  A list past its capacity drops
+pairs, which changes the result (a grid overflow only clamps), so such
+a step is redone, as the JAX solver redoes one: where a dest is on that
+engine, the state before the chunk (or step) is kept (the state tensors,
+the binning handles, the count of binnings), the chunk's read carries
+the flag beside ``GROW`` (the per-step loop reads it after each step),
+and after an overflow the host puts the state back, grows the
+capacities (``CellGrid.grow_pairs``, one more read) and runs the chunk
+again, captured anew; t, dt and the count are the host's from before it.
+``redos`` counts.
 """
 
+import gc
 import logging
 import math
 import os
@@ -77,13 +89,14 @@ EPSILON = 1e-14
 #: (the per-step loop; a chunk reads it once)
 GROW_CHECK_STEPS = 20
 #: the chunk's device carry: float64 slots of ``Solver._carry``
-T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW, REBUILDS = range(9)
+T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW, REBUILDS, PAIRS = range(10)
+N_CARRY = PAIRS + 1
 
 
 class Solver(object):
     def __init__(self, dim=2, integrator=None, kernel=None, n_damp=0,
                  tf=1.0, dt=1e-3, adaptive_timestep=False, cfl=0.3,
-                 output_at_times=()):
+                 output_at_times=(), fixed_h=False):
         self.integrator = integrator
         self.dim = dim
         self.kernel = kernel if kernel is not None else CubicSpline(dim)
@@ -94,6 +107,9 @@ class Solver(object):
         self.t = 0.0
         self.count = 0
         self.pre_step_callbacks = []
+        # kept as the reference's solver keeps it; no ported equation
+        # changes h, so nothing reads it
+        self.fixed_h = fixed_h
         self.pfreq = 100
         self.disable_output = False
         self.fname = self.__class__.__name__
@@ -115,6 +131,9 @@ class Solver(object):
         self.reads = 0
         #: binnings that ran (the integrator's device count, as last read)
         self.rebuilds = 0
+        #: chunks and steps run again after a torch engine pair list
+        #: overflowed
+        self.redos = 0
         self.states = None
         self._prev_dt = None
         self._damping_factor = 1.0
@@ -152,6 +171,11 @@ class Solver(object):
     def add_pre_step_callback(self, callback):
         self.pre_step_callbacks.append(callback)
 
+    def add_post_stage_callback(self, callback):
+        """``callback(t, dt, stage)`` after each integrator stage (the
+        last one added; a run with one steps in the per-step loop)."""
+        self.integrator.set_post_stage_callback(callback)
+
     def set_final_time(self, tf):
         self.tf = tf
         self._epsilon = EPSILON * tf
@@ -182,7 +206,7 @@ class Solver(object):
                 continue
             for callback in self.pre_step_callbacks:
                 callback(self)
-            self.integrator.step(self.states, self.t, self.dt)
+            self._step()
             self.t += self.dt
             self.count += 1
             self._epsilon = EPSILON * self.tf * self.count
@@ -210,23 +234,66 @@ class Solver(object):
                 (self.count < self.n_damp, 'damped steps (count < n_damp)'),
                 (self._prev_dt is not None,
                  'a dt shortened for an output time'),
-                (self.pre_step_callbacks, 'a pre-step callback')):
+                (self.pre_step_callbacks, 'a pre-step callback'),
+                (self.integrator.post_stage_callback is not None,
+                 'a post-stage callback')):
             if failed:
                 self._log_once('per-step loop: %s' % reason)
                 return False
         return True
 
     def _graphed(self):
-        """Whether chunks are CUDA graphs: on a CUDA device, unless a
-        dest takes the torch pair engine, which reads its pair count."""
-        if self.config.device.type != 'cuda':
-            return False
-        if any(engine == 'torch' for a in self.acceleration_evals
-               for engine in a.engine_choices.values()):
-            self._log_once('eager chunks: a dest is on the torch pair '
-                           'engine, which cannot be captured')
-            return False
-        return True
+        """Whether chunks are CUDA graphs: on a CUDA device."""
+        return self.config.device.type == 'cuda'
+
+    def _step(self):
+        """One step of the per-step loop, redone from the state before it
+        with the capacities grown where a torch engine pair list
+        overflowed (where a dest is on that engine: one read a step)."""
+        if not self.grid.pair_caps:
+            self.integrator.step(self.states, self.t, self.dt)
+            return
+        saved = self._save()
+        while True:
+            self.grid.watch_pairs()
+            self.integrator.step(self.states, self.t, self.dt)
+            self.reads += 1
+            if not self.grid.pairs_overflowed():
+                return
+            self._redo(saved, 'step')
+
+    def _save(self):
+        """What a redo puts back: copies of the states (a chunk writes
+        its static tensors in place) and of the binning handles, the
+        count of binnings and the grid's overflow flag."""
+        ig = self.integrator
+        states = {name: {p: v.clone() for p, v in st.items()}
+                  for name, st in self.states.items()}
+        handles = {i: (h, h.save()) for i, h in ig.handles.items()}
+        rebuilds = None if ig.rebuilds is None else ig.rebuilds.clone()
+        return states, handles, rebuilds, self.grid.overflow
+
+    def _redo(self, saved, what):
+        """Put back what ``_save`` kept (a chunk's next run copies the
+        states into its static tensors) and grow the torch engine's
+        capacities that a list outgrew (one read)."""
+        states, handles, rebuilds, overflow = saved
+        for name, st in self.states.items():
+            st.clear()
+            st.update(states[name])
+        ig = self.integrator
+        ig.handles = {i: h for i, (h, _) in handles.items()}
+        for h, kept in handles.values():
+            h.restore(kept)
+        if rebuilds is not None:
+            ig.rebuilds.copy_(rebuilds)
+        self.grid.overflow = overflow
+        grown = self.grid.grow_pairs()
+        self.reads += 1
+        self.redos += 1
+        logger.info('step %d: a torch engine pair list overflowed; '
+                    'capacities grown to %s, the %s run again', self.count,
+                    grown, what)
 
     def _next_output_time(self):
         """The first output time more than epsilon after t (inf if
@@ -241,11 +308,12 @@ class Solver(object):
         n_real = min(self.chunk_steps, self.pfreq - self.count % self.pfreq,
                      self.max_steps - self.count)
         self._bind_static()
-        inputs = [0.0] * (REBUILDS + 1)
+        inputs = [0.0] * N_CARRY
         inputs[T], inputs[DT], inputs[DT_UN] = self.t, self.dt, self.dt
         inputs[COUNT], inputs[N_REAL] = self.count, n_real
         inputs[T_OUT] = self._next_output_time()
         graph = self._captured_chunk() if self._graphed() else None
+        saved = self._save() if self.grid.pair_caps else None
         self._carry.copy_(torch.tensor(inputs, dtype=torch.float64))
         if graph is not None:
             graph.replay()
@@ -256,6 +324,10 @@ class Solver(object):
         self.grid.overflow = None
         vals = self._carry.tolist()      # the chunk's one read
         self.reads += 1
+        if vals[PAIRS]:
+            # the loop runs the chunk again, captured at the new sizes
+            self._redo(saved, 'chunk')
+            return
         self.t, self.dt = vals[T], vals[DT]
         self.count = int(vals[COUNT])
         self.rebuilds = int(vals[REBUILDS])
@@ -287,7 +359,7 @@ class Solver(object):
                             for name, st in self.states.items()}
             self._static_layout = layout
             device = self.config.device
-            self._carry = torch.zeros(REBUILDS + 1, dtype=torch.float64,
+            self._carry = torch.zeros(N_CARRY, dtype=torch.float64,
                                       device=device)
             self._graph = self._graph_key = None
             return
@@ -323,7 +395,9 @@ class Solver(object):
         value, the count, the chunk's length and the next output time),
         each deciding on the device what the per-step loop decides on
         the host; writes back t, dt, the uncapped dt, the count, the
-        steps done, whether a binning overflowed and the binnings run."""
+        steps done, whether a binning overflowed, the binnings run and
+        whether a torch engine pair list overflowed (the chunk then stops
+        after that step)."""
         c = self._carry
         t, dt, dt_un, count, n_real, t_out = (c[T], c[DT], c[DT_UN],
                                               c[COUNT], c[N_REAL], c[T_OUT])
@@ -333,11 +407,20 @@ class Solver(object):
         active = n_real > 0
         done = torch.zeros_like(t)
         grow = torch.zeros_like(active)
+        pairs = torch.zeros_like(active)
+        watch = bool(self.grid.pair_caps)
         for i in range(iters):
             self.grid.overflow_any = torch.zeros_like(active)
+            if watch:
+                self.grid.pair_overflow = torch.zeros_like(active)
             self.integrator.step(self.states, t, dt, active)
             ovf = self.grid.overflow_any
             self.grid.overflow_any = None
+            stop = ovf
+            if watch:
+                stop = ovf | self.grid.pair_overflow
+                pairs = pairs | (active & self.grid.pair_overflow)
+                self.grid.pair_overflow = None
             self._write_back(active)
             t1 = t + dt
             c1 = count + 1
@@ -365,18 +448,19 @@ class Solver(object):
             done = done + active
             grow = grow | (active & ovf)
             # the next iteration runs if the loop would run it without a
-            # dump or a grow on the host first
+            # dump, a grow or a redo on the host first
             active = active & (n_real > i + 1) & ((tf - t1) > eps) & \
-                ~(tdiff.abs() < eps) & ~ovf
+                ~(tdiff.abs() < eps) & ~stop
         c.copy_(torch.stack([t, dt, dt_un, count, n_real, t_out, done,
                              grow.to(torch.float64),
-                             self.integrator.rebuilds]))
+                             self.integrator.rebuilds,
+                             pairs.to(torch.float64)]))
 
     def _captured_chunk(self):
         """The CUDA graph of a chunk, captured again where what it bakes
-        in changed."""
+        in changed (the grid's counts, the torch engine's capacities)."""
         key = (self.chunk_steps, self.tf, self.cfl, self.adaptive_timestep,
-               self.grid.dims)
+               self.grid.dims, self.grid.pair_key())
         if self._graph is not None and self._graph_key == key:
             return self._graph
         self._graph = None
@@ -388,8 +472,16 @@ class Solver(object):
             self._chunk_body(1)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._chunk_body(self.chunk_steps)
+        # a dead solver's graph that the collector frees inside the
+        # capture resets it there, which invalidates the capture: collect
+        # before, not during it
+        gc.collect()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._chunk_body(self.chunk_steps)
+        finally:
+            gc.enable()
         self.captures += 1
         self._graph, self._graph_key = graph, key
         return graph

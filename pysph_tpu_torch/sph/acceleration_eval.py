@@ -16,8 +16,14 @@ the evaluator is built and recorded in ``engine_choices``:
   sorted cell lists it builds compacted ``(i, j)`` pair lists
   chunked over dest rows (bounded memory), evaluates the equations'
   ``loop`` bodies on per-pair tensors and accumulates with
-  ``index_add`` / ``scatter_reduce``.  It is also the plain version that
-  the kernel is tested against.
+  ``index_add`` / ``scatter_reduce``.  Its lists are at capacities held
+  on the host (``CellGrid.neighbor_pairs`` with a ``PairCapacity`` per
+  (dest, source)), so it reads nothing back and a step on it captures
+  into a CUDA graph; a list past its capacity sets the grid's
+  ``pair_overflow`` flag and the evaluation is run again with grown
+  capacities (``run_sized`` here, the solver's redo in the time loop).
+  On exact lists (no capacity) it is also the plain version that the
+  kernels are tested against.
 
 An evaluation does not bin: ``compute`` takes a ``GridHandle``
 (``base/cell_grid.py``) that ``prepare`` bins afresh and
@@ -54,16 +60,18 @@ class PairContext(object):
 
     ``dest`` is the live dest state (writes are committed into it);
     ``src`` is the source state as it was when the source's phase
-    began."""
+    began; ``w``: the write rows of a list at a capacity
+    (``CellGrid.neighbor_pairs``), None for an exact list."""
 
     SYMBOLS = ('HIJ', 'EPS', 'RHOIJ', 'RHOIJ1', 'XIJ', 'VIJ', 'R2IJ',
                'RIJ', 'RINV', 'WIJ', 'DWIJ')
 
-    def __init__(self, dest, src, i, j, kernel, write_mask):
+    def __init__(self, dest, src, i, j, kernel, write_mask, w=None):
         self.dest = dest
         self.src = src
         self.i = i
         self.j = j
+        self.w = w
         self.kernel = kernel
         self.write_mask = write_mask
         self._d = {}
@@ -199,18 +207,40 @@ def _bind_pair_phase(method, ctx, t, dt):
 
 
 def run_pair_phase(eqs, dest, src, dest_cells, src_cells, grid, kernel,
-                   write_mask, t, dt, chunk=PAIR_CHUNK):
+                   write_mask, t, dt, chunk=PAIR_CHUNK, cap=None):
     """The torch pair engine: run the ``loop`` of every equation in
     ``eqs`` over all (dest, src) pairs in support, updating the ``dest``
-    state dict in place."""
+    state dict in place; a chunk of ``chunk`` dest rows at a time, on
+    lists at the capacities of ``cap`` (a ``PairCapacity``: nothing is
+    read back) or, without, on exact lists (their sizes read back: the
+    kernels' plain versions)."""
     src = dict(src)
     n = dest['x'].shape[0]
     for a in range(0, n, chunk):
-        i, j = grid.neighbor_pairs(dest, dest_cells, src, src_cells,
-                                   (a, min(n, a + chunk)))
-        ctx = PairContext(dest, src, i, j, kernel, write_mask)
+        i, j, *w = grid.neighbor_pairs(dest, dest_cells, src, src_cells,
+                                       (a, min(n, a + chunk)), cap)
+        ctx = PairContext(dest, src, i, j, kernel, write_mask, *w)
         for eq in eqs:
             _bind_pair_phase(eq.loop, ctx, t, dt)
+
+
+def run_sized(grid, states, run):
+    """Run ``run()``, an eager evaluation that writes ``states`` (a dict
+    of state dicts, whose entries it replaces), again from the states as
+    they were, with ``grid``'s pair capacities grown, until no torch
+    engine pair list overflowed: one read a run where a dest is on that
+    engine, none else.  The first capacities are sized so."""
+    saved = {name: dict(st) for name, st in states.items()}
+    while True:
+        grid.watch_pairs()
+        run()
+        if not grid.pairs_overflowed():
+            return
+        grown = grid.grow_pairs()
+        logger.info('torch pair engine capacities grown: %s', grown)
+        for name, st in states.items():
+            st.clear()
+            st.update(saved[name])
 
 
 def make_acceleration_evals(particle_arrays, equations, kernel, config,
@@ -324,6 +354,10 @@ class AccelerationEval(object):
                 self.engine_choices[key] = 'torch' if plan is None \
                     else engine
                 plans[(id(group), dest)] = plan
+                if plan is None:
+                    for src in sources:
+                        self.grid.pair_capacity(dest, src,
+                                                self.config.device)
         link_delta(self.groups, plans)
         return plans
 
@@ -364,13 +398,20 @@ class AccelerationEval(object):
     # -- execution -----------------------------------------------------
     def update_and_compute(self, t, dt, states):
         """Bin afresh (into the evaluator's own handle), then evaluate:
-        one evaluation as the reference's ``update_and_compute``."""
-        self._handle, _ = self.prepare(states, self._handle)
-        return self.compute(t, dt, states, self._handle)
+        one evaluation as the reference's ``update_and_compute``, run
+        again where a torch engine pair list overflowed (``run_sized``)."""
+        def run():
+            self._handle, _ = self.prepare(states, self._handle)
+            self.compute(t, dt, states, self._handle)
+
+        run_sized(self.grid, states, run)
+        return states
 
     def compute(self, t, dt, states, handle):
         """One evaluation on the binning of ``handle``; updates the
-        per-array state dicts in place."""
+        per-array state dicts in place.  The torch engine's lists are at
+        the grid's capacities: a caller that may meet an overflow keeps
+        ``grid.pair_overflow`` (``run_sized``, the solver)."""
         cells = handle.lists
         for group in self.groups:
             self._run_group(group, t, dt, states, cells)
@@ -400,7 +441,8 @@ class AccelerationEval(object):
                         [eq for eq in src_eqs
                          if getattr(eq, 'loop', None) is not None],
                         store, states[src], cells[dest], cells[src],
-                        self.grid, kernel, wm, t, dt)
+                        self.grid, kernel, wm, t, dt,
+                        cap=self.grid.pair_caps[dest, src])
             for eq in eqs:
                 fn = getattr(eq, 'post_loop', None)
                 if fn is not None:

@@ -16,7 +16,9 @@ precomputed pair symbols (HIJ, XIJ, VIJ, R2IJ, RIJ, RINV, WIJ, DWIJ,
 - in the pair phase the engine holds a compacted pair list ``(i, j)``:
   ``d_prop[d_idx]`` reads ``d_prop[i]`` and ``s_prop[s_idx]`` reads
   ``s_prop[j]``, one value per pair, and ``d_acc[d_idx] += expr`` becomes
-  an ``index_add_`` of the per-pair increments into row ``i``;
+  an ``index_add_`` of the per-pair increments into row ``i`` (into the
+  write rows ``w`` of a list at a capacity, whose entries past the pair
+  count go to a scratch row);
 - a stride-``k`` property is an ``(n, k)`` tensor, and ``d_p[k*d_idx + c]``
   (``s_p[...]`` likewise) addresses its column ``c`` in both phases;
 - ``if cond:`` on pair values becomes ``torch.where``; ``MAX`` marks
@@ -114,10 +116,12 @@ class _AccumMax(object):
 
 def _as_tensor_pair(a, b):
     ta, tb = torch.is_tensor(a), torch.is_tensor(b)
+    # a Python number is filled on the device: no copy from the host,
+    # which a CUDA graph's capture refuses
     if ta and not tb:
-        b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+        b = torch.full_like(a, b)
     elif tb and not ta:
-        a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+        a = torch.full_like(b, a)
     return a, b
 
 
@@ -177,20 +181,23 @@ class PairDestView(object):
     def __setitem__(self, key, value):
         ctx = self.ctx
         col = column(ctx.dest[self.name], key, self.name)
-        i = ctx.i
+        # the write rows; at a capacity, the entries past the pair count
+        # write a scratch row past the dest's, which is dropped
+        w = ctx.i if ctx.w is None else ctx.w
         if isinstance(value, _AccumMax):
-            v = value.value.to(col.dtype).expand(i.shape)
-            seg = torch.full_like(col, -float('inf')).scatter_reduce_(
-                0, i, v, 'amax')
-            new = torch.maximum(col, seg)
+            v = value.value.to(col.dtype).expand(w.shape)
+            seg = col.new_full((col.shape[0] + 1,), -float('inf'))
+            new = torch.maximum(col, seg.scatter_reduce_(0, w, v,
+                                                         'amax')[:-1])
         else:
             v = torch.as_tensor(value, dtype=col.dtype, device=col.device)
-            if v.shape != i.shape:
+            if v.shape != w.shape:
                 raise NotImplementedError(
                     'write of shape %s to %r in a pair loop: only per-pair '
                     'accumulation is supported' % (tuple(v.shape),
                                                    self.name))
-            new = col.index_add(0, i, v - ctx.dget(self.name, key))
+            new = torch.cat([col, col.new_zeros(1)]).index_add_(
+                0, w, v - ctx.dget(self.name, key))[:-1]
         if ctx.write_mask is not None:
             new = torch.where(ctx.write_mask, new, col)
         ctx.commit(self.name, key, new)

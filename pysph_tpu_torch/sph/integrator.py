@@ -1,11 +1,17 @@
 """Time integrators (port of ``pysph_tpu/sph/integrator.py``).
 
 An ``Integrator`` is built from per-array ``IntegratorStep`` objects
-(``EPECIntegrator(fluid=WCSPHStep())``) and a ``one_timestep(t, dt)``
-recipe of ``initialize()``, ``stage1()``.. and
+(``PECIntegrator(fluid=WCSPHStep())``) and a ``one_timestep(t, dt)``
+recipe of ``initialize()``, ``stage1()`` .. ``stage5()``,
 ``compute_accelerations(index)`` (evaluator ``index`` of several, as
-GTVF has), run eagerly on the state dicts (updated in place).  No domain
-manager is ported yet, so ``update_domain()`` does nothing.
+GTVF has), ``update_domain()`` and ``do_post_stage(stage_dt, stage)``,
+run eagerly on the state dicts (updated in place).  The recipes are the
+reference's: Euler, PEC, EPEC, TVDRK3, LeapFrog and PEFRL (1, 1, 2, 3,
+1 and 4 evaluations a step).  No domain manager is ported yet, so
+``update_domain()`` does nothing.  ``do_post_stage`` calls the post-stage
+callback (``set_post_stage_callback``: ``callback(t + stage_dt, dt,
+stage)``), a host function, so the solver runs a step with one in its
+per-step loop.
 
 Binning, as in ``pysph_tpu`` (``integrator.py:63-67, 307-318``): each
 evaluator index keeps one ``GridHandle`` (``handles``) across steps.
@@ -28,11 +34,20 @@ Adaptive dt follows the reference: the maxima of the ``dt_cfl`` /
 ``sqrt(hmin/sqrt(f))`` and ``hmin/f``.  The reductions run on the device
 and nothing is read back here: the solver reads the result once a step
 in its per-step loop, and its chunks keep it on the device.
+
+The torch pair engine builds its pair lists at capacities held on the
+host (``CellGrid.pair_capacity``), so a list that outgrew its capacity
+drops pairs: ``initial_acceleration`` runs again from the same state
+with the capacities grown until none overflowed (one read a run where a
+dest is on that engine; the first capacities come from here); within a
+step nothing is read, and the solver redoes a step or chunk that
+overflowed.
 """
 
 import torch
 
-from pysph_tpu_torch.sph.acceleration_eval import _bind_particle_phase
+from pysph_tpu_torch.sph.acceleration_eval import (
+    _bind_particle_phase, run_sized)
 
 
 class Integrator(object):
@@ -48,6 +63,7 @@ class Integrator(object):
         #: binnings that ran (0-d float64 tensor on the device, or None
         #: before the first)
         self.rebuilds = None
+        self.post_stage_callback = None
         self._checked = set()
         self._active = None
         self._states = None
@@ -60,6 +76,10 @@ class Integrator(object):
         self.acceleration_evals = list(a_evals)
         self.handles = {}
 
+    def set_post_stage_callback(self, callback):
+        """``callback(t + stage_dt, dt, stage)`` after each stage."""
+        self.post_stage_callback = callback
+
     def step(self, states, t, dt, active=None):
         """Advance ``states`` (updated in place) by one timestep; with
         ``active`` (a 0-d device bool), bin only where it is set."""
@@ -71,12 +91,21 @@ class Integrator(object):
 
     def initial_acceleration(self, states, t, dt):
         """The force evaluation before the first step: evaluator 0 only,
-        on a fresh binning, as in ``pysph_tpu``."""
-        self._states, self._t, self._dt = states, t, dt
-        self._active, self._checked = None, set()
-        self._bin(0, force=True)
-        self.acceleration_evals[0].compute(t, dt, states, self.handles[0])
-        self._states = None
+        on a fresh binning, as in ``pysph_tpu``; run again with the torch
+        engine's capacities grown where a pair list overflowed
+        (``run_sized``), the count of binnings as it was before."""
+        rebuilds = None if self.rebuilds is None else self.rebuilds.clone()
+
+        def run():
+            self._states, self._t, self._dt = states, t, dt
+            self._active, self._checked = None, set()
+            self.rebuilds = None if rebuilds is None else rebuilds.clone()
+            self._bin(0, force=True)
+            self.acceleration_evals[0].compute(t, dt, states,
+                                               self.handles[0])
+            self._states = None
+
+        run_sized(self.acceleration_evals[0].grid, states, run)
         return states
 
     def _bin(self, index, force=False):
@@ -107,6 +136,10 @@ class Integrator(object):
     def update_domain(self):
         pass
 
+    def do_post_stage(self, stage_dt, stage):
+        if self.post_stage_callback is not None:
+            self.post_stage_callback(self._t + stage_dt, self._dt, stage)
+
     def _run_stage(self, stage_name):
         a_eval = self.acceleration_evals[0]
         for arr_name, stepper in self.steppers.items():
@@ -129,6 +162,12 @@ class Integrator(object):
 
     def stage3(self):
         self._run_stage('stage3')
+
+    def stage4(self):
+        self._run_stage('stage4')
+
+    def stage5(self):
+        self._run_stage('stage5')
 
     def one_timestep(self, t, dt):
         raise NotImplementedError()
@@ -160,6 +199,30 @@ class Integrator(object):
         return torch.where(ok, cfl * dt_min, dt_current)
 
 
+class EulerIntegrator(Integrator):
+    """1-stage Euler."""
+
+    def one_timestep(self, t, dt):
+        self.compute_accelerations()
+        self.stage1()
+        self.update_domain()
+        self.do_post_stage(dt, 1)
+
+
+class PECIntegrator(Integrator):
+    """Predict-Evaluate-Correct: one evaluation a step."""
+
+    def one_timestep(self, t, dt):
+        self.initialize()
+        self.stage1()
+        self.update_domain()
+        self.do_post_stage(0.5 * dt, 1)
+        self.compute_accelerations()
+        self.stage2()
+        self.update_domain()
+        self.do_post_stage(dt, 2)
+
+
 class EPECIntegrator(Integrator):
     """Evaluate-Predict-Evaluate-Correct."""
 
@@ -167,5 +230,69 @@ class EPECIntegrator(Integrator):
         self.initialize()
         self.compute_accelerations()
         self.stage1()
+        self.update_domain()
+        self.do_post_stage(0.5 * dt, 1)
         self.compute_accelerations()
         self.stage2()
+        self.update_domain()
+        self.do_post_stage(dt, 2)
+
+
+class TVDRK3Integrator(Integrator):
+    """3-stage SSP RK3."""
+
+    def one_timestep(self, t, dt):
+        self.initialize()
+        self.compute_accelerations()
+        self.stage1()
+        self.update_domain()
+        self.do_post_stage(1. / 3 * dt, 1)
+        self.compute_accelerations()
+        self.stage2()
+        self.update_domain()
+        self.do_post_stage(2. / 3 * dt, 2)
+        self.compute_accelerations()
+        self.stage3()
+        self.update_domain()
+        self.do_post_stage(dt, 3)
+
+
+class LeapFrogIntegrator(PECIntegrator):
+    """Kick-drift-kick leap-frog."""
+
+    def one_timestep(self, t, dt):
+        self.stage1()
+        self.update_domain()
+        self.do_post_stage(0.5 * dt, 1)
+        self.compute_accelerations()
+        self.stage2()
+        self.update_domain()
+        self.do_post_stage(dt, 2)
+
+
+class PEFRLIntegrator(Integrator):
+    """Position-Extended Forest-Ruth-Like 4th order symplectic
+    integrator: four evaluations a step, the particles moving between
+    them (the first evaluation's reuse test keeps the step's binning for
+    the other three, as in ``pysph_tpu``)."""
+
+    def one_timestep(self, t, dt):
+        self.stage1()
+        self.update_domain()
+        self.do_post_stage(0.1786178958448091 * dt, 1)
+        self.compute_accelerations()
+        self.stage2()
+        self.update_domain()
+        self.do_post_stage(0.1123533131749906 * dt, 2)
+        self.compute_accelerations()
+        self.stage3()
+        self.update_domain()
+        self.do_post_stage(0.8876466868250094 * dt, 3)
+        self.compute_accelerations()
+        self.stage4()
+        self.update_domain()
+        self.do_post_stage(0.8213821041551909 * dt, 4)
+        self.compute_accelerations()
+        self.stage5()
+        self.update_domain()
+        self.do_post_stage(dt, 5)

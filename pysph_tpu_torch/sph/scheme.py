@@ -196,20 +196,24 @@ class WCSPHScheme(Scheme):
 
     def configure_solver(self, kernel=None, integrator_cls=None,
                          extra_steppers=None, **kw):
+        """``PECIntegrator`` by default; under ``TVDRK3Integrator`` the
+        arrays step with ``WCSPHTVDRK3Step``, else ``WCSPHStep``."""
         from pysph_tpu_torch.base.kernels import CubicSpline
-        from pysph_tpu_torch.sph.integrator_step import WCSPHStep
+        from pysph_tpu_torch.sph.integrator import (
+            PECIntegrator, TVDRK3Integrator)
+        from pysph_tpu_torch.sph.integrator_step import (
+            WCSPHStep, WCSPHTVDRK3Step)
         from pysph_tpu_torch.solver.solver import Solver
-        if integrator_cls is None:
-            raise NotImplementedError(
-                'the default PECIntegrator is not ported yet (ROADMAP '
-                'Queue 1, other integrators); pass EPECIntegrator')
         if kernel is None:
             kernel = CubicSpline(dim=self.dim)
+        cls = PECIntegrator if integrator_cls is None else integrator_cls
+        step_cls = WCSPHTVDRK3Step if cls is TVDRK3Integrator else \
+            WCSPHStep
         steppers = dict(extra_steppers or {})
         for name in self.fluids + self.solids:
             if name not in steppers:
-                steppers[name] = WCSPHStep()
-        integrator = integrator_cls(**steppers)
+                steppers[name] = step_cls()
+        integrator = cls(**steppers)
         if 'dt' not in kw:
             kw['dt'] = self.get_timestep()
         self.solver = Solver(dim=self.dim, integrator=integrator,

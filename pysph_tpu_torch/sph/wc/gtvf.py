@@ -37,11 +37,14 @@ class GTVFIntegrator(Integrator):
 
     def one_timestep(self, t, dt):
         self.stage1()
+        self.do_post_stage(dt, 1)
         self.compute_accelerations(0, update_nnps=False)
         self.stage2()
         self.update_domain()
+        self.do_post_stage(dt, 2)
         self.compute_accelerations(1)
         self.stage3()
+        self.do_post_stage(dt, 3)
 
 
 class GTVFStep(IntegratorStep):

@@ -21,7 +21,8 @@ on the state it reached:
   linked ``delta_pair`` pair as the path runs it), the whole eval on its
   binning (``compute``), each integrator stage and the adaptive dt
   (``compute_time_step``); the elementwise phases of an eval are the
-  eval less its pair calls.  The binning a step is each evaluator's
+  eval less its pair calls; an evaluator's evals a step are those the
+  solve's captures counted.  The binning a step is each evaluator's
   test, kept, plus the share of tests that rebuilt in the solve
   (``rebuilds``) times the difference; "rest" is the step less its
   evals, binning, stages and dt (the chunk's write-back selects and its
@@ -55,7 +56,7 @@ REPS = 10
 GAPS = 5
 #: the trace's categories of device operations
 DEVICE_OPS = ('kernel', 'gpu_memcpy', 'gpu_memset')
-STAGES = ('initialize', 'stage1', 'stage2', 'stage3')
+STAGES = ('initialize', 'stage1', 'stage2', 'stage3', 'stage4', 'stage5')
 
 
 def _busy(prof):
@@ -162,8 +163,21 @@ def _copy(states):
     return {name: dict(st) for name, st in states.items()}
 
 
+def _count_captured_evals(integ):
+    """Count the integrator's evaluations made inside a CUDA graph's
+    capture (in ``integ.captured_evals``)."""
+    compute = integ.compute_accelerations
+    integ.captured_evals = 0
+
+    def counted(*args, **kw):
+        integ.captured_evals += torch.cuda.is_current_stream_capturing()
+        return compute(*args, **kw)
+    integ.compute_accelerations = counted
+
+
 def profile_path(path, kw):
     app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+    _count_captured_evals(app.solver.integrator)
     app.solve()
     s = app.solver
     # the solve's binnings (the replays below advance the run further)
@@ -211,8 +225,10 @@ def profile_path(path, kw):
         layers['eval %d elementwise' % i] = dict(ms=whole - pairs,
                                                  kernels=None)
         evals += whole
-    # EPEC evaluates its one evaluator twice a step, GTVF each of two once
-    evals_a_step = evals * (2 if len(s.acceleration_evals) == 1 else 1)
+    # the evaluations a step, from those the captures counted (PEC one,
+    # EPEC its one evaluator twice, GTVF each of two once)
+    a_step = s.integrator.captured_evals / (k * s.captures)
+    evals_a_step = evals * a_step / len(s.acceleration_evals)
     # the tests of the run that rebuilt (the first binning forced)
     tests = STEPS * len(s.acceleration_evals)
     rebuilt_share = (rebuilds - 1) / tests
@@ -232,7 +248,8 @@ def profile_path(path, kw):
     if s.adaptive_timestep:
         dt_ms = measure('adaptive dt', lambda: integ.compute_time_step(
             s.states, dt.to(s.config.dtype), s.cfl))
-    row.update(layers=layers, evals_a_step_ms=evals_a_step,
+    row.update(layers=layers, evals_a_step=a_step,
+               evals_a_step_ms=evals_a_step,
                rebuilds=rebuilds, rebuilt_share=rebuilt_share,
                binning_a_step_ms=binning_a_step, stages_ms=stages,
                dt_ms=dt_ms, rest_ms=busy / k - evals_a_step -

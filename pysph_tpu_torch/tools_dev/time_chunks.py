@@ -13,7 +13,9 @@ the chunk decided; on the drop, the grid just holds it and its speed is
 ten times the example's, so a binning overflows inside a chunk, the grid
 grows and the chunk is captured again; on the moving dam break, seeded
 velocities of 3 m/s make the reuse test rebuild the binning every few
-steps inside the chunks.
+steps inside the chunks; ``dam_break_3d --engine dense --delta-sph``
+runs its delta-SPH groups on the torch pair engine inside the graphs
+(a chunk that overflowed a capacity is redone and captured again).
 
 ``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
 step (host clock at each step's start, the card synchronised) or in
@@ -42,6 +44,8 @@ import torch
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
+from pysph_tpu_torch.sph import integrator as _integrator
+from pysph_tpu_torch.sph import integrator_step as _steps
 from pysph_tpu_torch.tools_dev import common
 from pysph_tpu_torch.tools_dev.time_walks import make_app
 
@@ -63,6 +67,7 @@ PATHS = {
     'dam_break_3d dx=0.02 delta': dict(dx=0.02, extra=('--delta-sph',)),
     'GTVF dx=0.004': dict(dx=0.004, cls=DamBreak2D,
                           extra=('--scheme', 'gtvf')),
+    'dam_break_2d wcsph dx=0.004': dict(dx=0.004, cls=DamBreak2D),
     'drop nx=200 kernel': dict(dx=None, cls=EllipticalDrop,
                                extra=('--nx', '200')),
     'drop nx=200 dense': dict(dx=None, cls=EllipticalDrop,
@@ -102,6 +107,48 @@ def _tight_grid(s):
                       for c in 'xy'] + [1])
 
 
+#: the integrators that drive the WCSPH dam break's equations besides its
+#: PEC: {integrator: (step class or None for the scheme's own, evals a
+#: step)}
+INTEGRATORS = {
+    'EulerIntegrator': ('EulerStep', 1),
+    'TVDRK3Integrator': (None, 3),
+    'LeapFrogIntegrator': ('LeapFrogStep', 1),
+    'PEFRLIntegrator': ('PEFRLStep', 4),
+}
+
+
+def integrated(name):
+    """The ``dam_break_2d --scheme wcsph`` application class under the
+    integrator ``name`` (of ``INTEGRATORS``), its arrays given the ``e``
+    and ``ae`` that ``LeapFrogStep`` and ``PEFRLStep`` advance (the
+    equations leave ``ae`` 0)."""
+    step, _ = INTEGRATORS[name]
+
+    class Integrated(DamBreak2D):
+        def configure_scheme(self):
+            super().configure_scheme()
+            solver = self.scheme.get_solver()
+            extra = None if step is None else {
+                a: getattr(_steps, step)() for a in ('fluid', 'boundary')}
+            self.scheme.configure_solver(
+                integrator_cls=getattr(_integrator, name),
+                extra_steppers=extra, kernel=solver.kernel,
+                adaptive_timestep=True, n_damp=solver.n_damp, dt=solver.dt,
+                tf=solver.tf, output_at_times=solver.output_at_times)
+
+        def create_particles(self):
+            arrays = super().create_particles()
+            for pa in arrays:
+                for p in ('e', 'ae'):
+                    if p not in pa.properties:
+                        pa.add_property(p)
+            return arrays
+
+    Integrated.__name__ = 'DamBreak2D' + name[:-len('Integrator')]
+    return Integrated
+
+
 def _moving(s):
     """Seeded normal fluid velocities of 3 m/s a component."""
     st = s.states['fluid']
@@ -116,10 +163,17 @@ GATES.update({
     'dam_break_3d dx=0.04 moving': (DamBreak3D, ('--dx', '0.04'), _moving),
     'dam_break_3d dx=0.04 delta': (DamBreak3D, ('--dx', '0.04',
                                                 '--delta-sph'), None),
+    'dam_break_3d dx=0.04 dense delta': (
+        DamBreak3D, ('--dx', '0.04', '--delta-sph', '--engine', 'dense'),
+        None),
     'GTVF dx=0.02': (DamBreak2D, ('--scheme', 'gtvf', '--dx', '0.02'),
                      None),
+    'dam_break_2d wcsph dx=0.02': (DamBreak2D, ('--dx', '0.02'), None),
     'elliptical_drop nx=40': (EllipticalDrop, ('--nx', '40'), _tight_grid),
 })
+GATES.update({
+    'dam_break_2d wcsph dx=0.02 %s' % name[:-len('Integrator')]: (
+        integrated(name), ('--dx', '0.02'), None) for name in INTEGRATORS})
 
 
 def _gate_run(case, chunk_steps, device):
@@ -192,9 +246,9 @@ def gate(case, device='cuda'):
         raise AssertionError('%s: no landing on %g inside a chunk (dumps '
                              '%s, %s; chunks %s)' % (case, t_out, got_dumps,
                                                      want_dumps, chunks))
-    # on the card, one replay a chunk, and the drop's capture again
-    # after each grow
-    graphs = 1 + got.grid.grows if device == 'cuda' else 0
+    # on the card, one replay a chunk, and the chunk captured again after
+    # each grow and each redo
+    graphs = 1 + got.grid.grows + got.redos if device == 'cuda' else 0
     if GATES[case][0] is EllipticalDrop and got.grid.grows < 1 or \
             got.captures != graphs or \
             got.replays != (len(chunks) if graphs else 0):
@@ -206,7 +260,8 @@ def gate(case, device='cuda'):
                 max_scaled_err=worst, landing_step=landed[0],
                 chunks=len(chunks), captures=got.captures,
                 replays=got.replays, reads=got.reads, grows=got.grid.grows,
-                rebuilds=got.rebuilds, per_step_reads=want.reads)
+                redos=got.redos, rebuilds=got.rebuilds,
+                per_step_reads=want.reads)
 
 
 def timed_solve(app, chunk_steps, warmup=WARMUP):

@@ -112,12 +112,15 @@ def _slack(s, cell_slack):
         s.grid.resize(s.states.values(), cell_slack=cell_slack)
 
 
-def pair_calls(dx, dtype, cell_slack=None):
+def pair_calls(dx, dtype, cell_slack=None, cls=DamBreak3D):
     """(calls, particle count) for one eval of the perturbed dam break
-    at ``dx`` (on cells ``cell_slack`` times the support where given)."""
-    s = make_app(dx, dtype).solver
+    at ``dx`` (on cells ``cell_slack`` times the support where given);
+    ``cls``: ``DamBreak2D`` for the 2D WCSPH dam break (``--scheme
+    wcsph``: WendlandQuintic, the Hughes-Graham walls), its velocities
+    perturbed in the plane."""
+    s = make_app(dx, dtype, cls=cls).solver
     _slack(s, cell_slack)
-    perturb(s.states, dtype, 'uvw')
+    perturb(s.states, dtype, 'uvw'[:s.dim])
     s.integrator.initial_acceleration(s.states, 0.0, s.dt)
     n = sum(st['x'].shape[0] for st in s.states.values())
     return plan_calls(s, [0]), n

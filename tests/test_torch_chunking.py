@@ -9,6 +9,12 @@ of its max (the cases below reach 0), ``t``, ``dt``, ``count`` and the
 binnings that ran (the reuse test decides them on the device) exact,
 and the same dumps (count and t).  On the CPU a chunk runs eagerly; the
 card replays it from a CUDA graph (``tests/test_torch_capture_cuda.py``).
+
+The integrators of one and four evaluations a step run in chunks too
+(dam_break_2d ``--scheme wcsph`` under PEC and under PEFRL), and so does
+the torch pair engine (dam_break_3d ``--engine dense --delta-sph``, whose
+delta-SPH groups it takes): a capacity too small from the start is grown
+and the chunk or step redone, to the same bits as an ample one.
 """
 
 import logging
@@ -21,6 +27,7 @@ from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
 from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
+from pysph_tpu_torch.tools_dev.time_chunks import integrated
 
 K = 4
 CPU = ['--use-double', '--device', 'cpu', '-q']
@@ -60,6 +67,16 @@ CASES = {
                           '--max-steps', '13'], None),
     # chunks from count = n_damp on
     'dam_break_3d': (DamBreak3D, ['--dx', '0.12', '--max-steps', '9'],
+                     _db3d_damped),
+    # one evaluation a step (PEC, the WCSPH dam break's default), and four
+    'pec': (DamBreak2D, ['--dx', '0.1', '--max-steps', '11'],
+            _db3d_damped),
+    'pefrl': (integrated('PEFRLIntegrator'), ['--dx', '0.1',
+                                              '--max-steps', '9'],
+              _db3d_damped),
+    # the delta-SPH groups on the torch pair engine, at capacities
+    'torch_engine': (DamBreak3D, ['--dx', '0.12', '--max-steps', '9',
+                                  '--engine', 'dense', '--delta-sph'],
                      _db3d_damped),
     # the grid grows after a chunk that a binning's overflow ended
     'grow': (EllipticalDrop, ['--nx', '20', '--max-steps', '20',
@@ -123,6 +140,10 @@ def test_chunks_equal_the_per_step_loop(case, tmp_path):
     _assert_same(got, want)
     assert got_dumps == want_dumps
     assert chunks and not none
+    if case == 'torch_engine':
+        a_eval = got.acceleration_evals[0]
+        assert 'torch' in a_eval.engine_choices.values()
+        assert got.grid.pair_caps and got.redos == want.redos == 0
     # every step from n_damp on ran in a chunk, none longer than K
     assert all(0 < b - a <= K for a, b in chunks)
     assert sum(b - a for a, b in chunks) == got.count - want.n_damp
@@ -151,21 +172,23 @@ def _landing(dumps):
 
 def _count_reads(monkeypatch):
     """Count the tensor-to-host reads (``tolist``, ``item``, ``float``,
-    ``bool``, ``int``) made from Python, but for those of the torch pair
-    engine's plain version, which sizes its pair lists on the host (the
-    card's kernels do not)."""
+    ``bool``, ``int``) made from Python, but for those of the exact pair
+    lists (``neighbor_pairs`` without a capacity), which the kernels'
+    plain versions, on the CPU, size on the host (the card's kernels do
+    not).  The torch engine's lists, at capacities, count."""
     reads, inside = [], []
     for name in ('tolist', 'item', '__float__', '__bool__', '__int__'):
         def read(self, *args, _name=name, _orig=getattr(torch.Tensor, name),
                  **kw):
-            if not inside:
+            if not any(inside):
                 reads.append(_name)
             return _orig(self, *args, **kw)
         monkeypatch.setattr(torch.Tensor, name, read)
     pairs = CellGrid.neighbor_pairs
 
     def neighbor_pairs(self, *args):
-        inside.append(1)
+        exact = len(args) < 6 or args[5] is None
+        inside.append(exact)
         try:
             return pairs(self, *args)
         finally:
@@ -175,7 +198,7 @@ def _count_reads(monkeypatch):
     return reads
 
 
-@pytest.mark.parametrize('case', ['drop', 'gtvf', 'grow'])
+@pytest.mark.parametrize('case', ['drop', 'gtvf', 'grow', 'torch_engine'])
 def test_a_chunk_reads_the_device_once(case, monkeypatch, tmp_path):
     """One ``tolist`` a chunk and no other read; a grow reads the box
     once more.  The per-step loop reads once a step with adaptive dt
@@ -187,6 +210,7 @@ def test_a_chunk_reads_the_device_once(case, monkeypatch, tmp_path):
     s.chunk_steps = K
     if prepare is not None:
         prepare(s)
+    s.n_damp = 0
     s.integrator.initial_acceleration(s.states, s.t, s.dt)
     s.dt = s._get_timestep()
     reads, before_loop = _count_reads(monkeypatch), s.reads
@@ -213,3 +237,57 @@ def test_ineligible_steps_run_per_step(tmp_path, caplog):
     want, _, _ = _run('dam_break_3d', 1, tmp_path / 'loop')
     _assert_same(got, want)
     assert chunks == [] and calls == list(range(9))
+
+
+def _shrink(s, factor, when):
+    """Scale every torch engine capacity by ``factor`` after the initial
+    eval (``when = 'start'``) or before the first chunk (``'chunk'``)."""
+    def scale():
+        for cap in s.grid.pair_caps.values():
+            cap.candidates = int(cap.candidates * factor)
+            cap.pairs = int(cap.pairs * factor)
+
+    if when == 'start':
+        initial = s.integrator.initial_acceleration
+
+        def then_scale(*args):
+            initial(*args)
+            scale()
+        s.integrator.initial_acceleration = then_scale
+    else:
+        run_chunk = s._run_chunk
+
+        def first_scaled():
+            if s.count == s.n_damp and not s.redos:
+                scale()
+            run_chunk()
+        s._run_chunk = first_scaled
+
+
+def _capacity_run(tmp_path, factor, when):
+    cls, argv, prepare = CASES['torch_engine']
+    app = cls()
+    app.setup(CPU + ['-d', str(tmp_path), '--disable-output'] + argv)
+    s = app.solver
+    s.chunk_steps = K
+    prepare(s)
+    _shrink(s, factor, when)
+    app.solve()
+    return s
+
+
+@pytest.mark.parametrize('when', ['start', 'chunk'])
+def test_a_small_capacity_is_grown_and_redone(when, tmp_path):
+    """Capacities cut to a fifth (after the initial eval, so a damped
+    step of the per-step loop overflows first; or before the first
+    chunk): the step or chunk is redone from the state before it, with
+    the capacities grown, to the same bits, t, dt, count and binnings as
+    capacities four times too large."""
+    got = _capacity_run(tmp_path / 'small', 0.2, when)
+    want = _capacity_run(tmp_path / 'ample', 4.0, when)
+    assert got.redos >= 1 and want.redos == 0
+    assert got.count == want.count == 9
+    assert (got.t, got.dt, got.rebuilds) == (want.t, want.dt, want.rebuilds)
+    for name, ref in want.states.items():
+        for p, v in ref.items():
+            assert torch.equal(got.states[name][p], v), (name, p)

@@ -266,8 +266,7 @@ def test_scheme_chooser_picks_the_scheme():
     assert isinstance(s.integrator, GTVFIntegrator)
     assert len(s.acceleration_evals) == 2
     assert all(a.grid is s.grid for a in s.acceleration_evals)
-    for scheme, item in (('wcsph', 'item 20'), ('edac', 'item 28'),
-                         ('iisph', 'item 26')):
+    for scheme, item in (('edac', 'item 28'), ('iisph', 'item 26')):
         with pytest.raises(NotImplementedError, match=item):
             DamBreak2D().setup(['--scheme', scheme, '--dx', '0.1', '-q',
                                 '--disable-output', '--device', 'cpu'])
