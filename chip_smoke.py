@@ -5,7 +5,7 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the ten CUDA sources of ``pysph_tpu_torch/csrc`` (the eight
+2. build the eleven CUDA sources of ``pysph_tpu_torch/csrc`` (the nine
    pair and probe kernels, the source pack ``cell_pack`` and the binning
    ``bin_cells``) with nvcc, one process per source, in parallel, and
    print ``-Xptxas -v``;
@@ -95,7 +95,20 @@ Phases (any failure propagates; the exit code is then not 0):
    damped steps, then chunks; 2 launches in the initial eval, 2 a step);
    then Euler, TVDRK3, LeapFrog and PEFRL each driving its equations at
    dx=0.02 in float64 for 3 captured chunks, a capture counting 2
-   ``wcsph_pair`` launches an eval (1, 3, 1 and 4 evals a step);
+   ``wcsph_pair`` launches an eval (1, 3, 1 and 4 evals a step); then the
+   Taylor-Green vortex (``examples.taylor_green``, ``--scheme tvf``: a
+   box periodic in x and y, ``QuinticSpline``, PEC): ``tvf_pair``
+   against its plain version on a seeded perturbation at nx=50 in
+   float64 and float32 and at nx=400 (160,000 particles, the path's
+   shapes) in float32, each also with a tenth of the particles on the
+   box's edges and corners (``tools_dev/tvf_check.py``), timed and
+   counted at nx=400; 10 steps at nx=50 (``--perturb 0.1``) in float64
+   on the kernel engine against the torch engine; then the path at
+   nx=400 as the main path under the binning reuse (2 launches in the
+   initial eval, 2 a step, both pair groups on ``tvf_pair``), with
+   max |v| against the exact decay and the L1 error of |v| after its 200
+   steps; its chunks against the per-step loop in float64 are a gate of
+   phase 4 (``taylor_green nx=40``, particles wrapping across the box);
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -169,6 +182,7 @@ from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
+from pysph_tpu_torch.examples.taylor_green import TaylorGreen, decay_errors
 from pysph_tpu_torch.ops import bin_cells as bc
 from pysph_tpu_torch.ops import build, cell_pack, cell_walk
 from pysph_tpu_torch.ops import delta_pair as dl
@@ -178,12 +192,13 @@ from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.ops import pair_stub as stub
+from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops.pair_engine import PairSource
 from pysph_tpu_torch.tools_dev import bin_check, delta_check
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
-from pysph_tpu_torch.tools_dev import time_chunks, walk_cases
+from pysph_tpu_torch.tools_dev import time_chunks, tvf_check, walk_cases
 from pysph_tpu_torch.tools_dev.common import capture, events_ms, graph_ms
 from pysph_tpu_torch.tools_dev.time_walks import (
     delta_calls, drop_calls, fused_call, gtvf_calls, make_app, pair_calls)
@@ -248,7 +263,7 @@ def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=()):
             if not err <= 1e-9:
                 raise AssertionError('engines disagree on %s.%s after %d '
                                      'steps: %.3g' % (name, p, steps, err))
-    print('%s dx=%g float64, %d steps: kernel engine against torch engine, '
+    print('%s dx=%s float64, %d steps: kernel engine against torch engine, '
           'max scaled err %.3g (tol 1e-09)' % (label, dx, steps, worst),
           flush=True)
 
@@ -659,6 +674,105 @@ def _integrators_phase():
                     raise AssertionError('%s: non-finite %s.%s'
                                          % (name, name_, p))
         del app, s
+
+
+def _tg_decay(out, solver):
+    """max |v| and the L1 error of |v| of the Taylor-Green run's final
+    state against the exact decay (into ``out``): max |v| within 1% of
+    the exact decay of the lattice's max |v| at t = 0, the L1 error
+    below 2% of U (the pressure waves of the start, p = 0 from the
+    summation density against the exact field's, hold it near 0.9% at
+    t=0.011 at nx=64 and nx=100 in float32 on the CPU)."""
+    st = {p: solver.states['fluid'][p].double().cpu().numpy()
+          for p in 'xyuv'}
+    vmax, exact, l1 = decay_errors(st['x'], st['y'], st['u'], st['v'],
+                                   solver.t, 100.0)
+    ratio = vmax / (out['vmax0'] * exact)
+    out.update(t=solver.t, vmax=vmax, exact=exact, l1=l1, ratio=ratio)
+    print('taylor_green nx=400 float32 at t=%.6g after %d steps: max|v| '
+          '%.6f, exact decay of the start\'s %.6f: %.6f (ratio %.6f, bar '
+          '1%%); L1 error of |v| %.3g (bar 2e-2)' % (
+              solver.t, solver.count, vmax, out['vmax0'],
+              out['vmax0'] * exact, ratio, l1), flush=True)
+    if not (abs(ratio - 1.0) < 1e-2 and l1 < 2e-2):
+        raise AssertionError('the Taylor-Green vortex missed the exact '
+                             'decay')
+
+
+def _tvf_phase(runs, kernels, bins):
+    """The Taylor-Green vortex (``examples.taylor_green``, ``--scheme
+    tvf``): ``tvf_pair`` against its plain version on its periodic grid
+    (``tools_dev/tvf_check.py``: perturbed, and with a tenth of the
+    particles on the box's edges and corners) at nx=50 in both dtypes
+    and nx=400 in float32, timed and counted there; the kernel engine
+    against the torch engine at nx=50 in float64 for 10 steps, from a
+    start perturbed by a tenth of dx (on the unperturbed lattice rounding
+    alone moves ``auhat avhat`` by ~2e-9 of their max in 10 steps, as
+    ``tools_dev/tg_conditioning.py`` shows; from this start, every prop
+    by <= ~4e-13); then the path at nx=400 as the main path under the
+    binning reuse (2 launches in the initial eval, 2 a step), with its
+    decay against the exact one.  Adds the ``tvf_pair`` entry."""
+    for nx, dtype, edges in ((50, torch.float64, False),
+                             (50, torch.float64, True),
+                             (50, torch.float32, False),
+                             (50, torch.float32, True),
+                             (400, torch.float32, True)):
+        calls, n, moved = tvf_check.calls(nx, dtype, edges)
+        if not calls[0][3][5].is_periodic:
+            raise AssertionError('the Taylor-Green grid is not periodic')
+        _compare(calls, dtype, 'tvf_pair taylor_green nx=%d %s%s (%d '
+                 'particles%s)' % (nx, str(dtype)[6:], ' edges' * edges, n,
+                                   ', %d on the edges' % moved if edges
+                                   else ''))
+        del calls
+    calls, n, _ = tvf_check.calls(400, torch.float32)
+    if n != 160000:
+        raise AssertionError('taylor_green at nx=400 has %d particles, not '
+                             '160,000' % n)
+    err = _compare(calls, torch.float32, 'tvf_pair taylor_green nx=400 '
+                   'float32 (%d particles)' % n)
+    for k, dest, _, args in calls:
+        _check_pack('taylor_green nx=400 ' + dest, tp.pack_sources(args[4]),
+                    tp.pack_sources_reference(args[4]))
+    eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in calls], 3)
+    by_launch = [graph_ms(lambda: c[2].op(*c[3]), 20) for c in calls]
+    work = _calls_work(calls, roofline.tvf_work)
+    bound_ms, bound_by = roofline.bound(work)
+    print('tvf_pair, pair phases of one eval of taylor_green at nx=400 '
+          'float32 (2 launches, the packs included; grid %s, periodic %s): '
+          'kernel %.3f ms eager, %.3f ms in a graph (density %.3f, momentum '
+          '%.3f), plain torch %.3f ms; bound %.4f ms (%s); %d candidates, '
+          '%d visited, %d pairs; %.1f candidates and %.1f pairs a particle '
+          'a launch' % (
+              calls[0][3][5].dims, calls[0][3][5].periodic, eager, ms,
+              by_launch[0], by_launch[1], plain_ms, bound_ms, bound_by,
+              work['candidates'], work['visited'], work['pairs'],
+              work['candidates'] / (2.0 * n), work['pairs'] / (2.0 * n)),
+          flush=True)
+    del calls
+    _engines_agree('taylor_green nx=50', None, 10,
+                   ('x', 'y', 'u', 'v', 'rho', 'p', 'V', 'au', 'av',
+                    'auhat', 'avhat'), cls=TaylorGreen,
+                   extra=('--nx', '50', '--perturb', '0.1'))
+    label = 'taylor_green nx=400'
+    decay = dict(vmax0=1.0)
+    start = make_app(None, torch.float32, cls=TaylorGreen,
+                     extra=('--nx', '400')).solver.states['fluid']
+    decay['vmax0'] = float(torch.sqrt(start['u'] ** 2 +
+                                      start['v'] ** 2).max())
+    del start
+    runs[label, 'reuse'] = _drive(
+        label, time_chunks.PATHS[label], ((tp.tvf_pair, 2, 2),), 1,
+        checks=(functools.partial(_bin_phase, label, out=bins),
+                functools.partial(_tg_decay, decay)))
+    kernels['tvf_pair'] = _entry(
+        'tvf_pair', 'pysph_tpu/ops/resident.py:645',
+        runs[label, 'reuse']['launches']['tvf_pair'], err, ms, plain_ms,
+        work, None, eager_ms=eager, density_ms=by_launch[0],
+        momentum_ms=by_launch[1], decay=decay,
+        path='taylor_green nx=400, one eval (2 launches)')
 
 
 def _dense_delta_phase():
@@ -1107,9 +1221,9 @@ def main():
                                             torch.version.cuda, kind))
 
     t0 = time.perf_counter()
-    names = ('wcsph_pair', 'gtvf_pair', 'dense_pair', 'fused_pair',
-             'micro_launch', 'micro_engine', 'pair_stub', 'cell_pack',
-             'bin_cells', 'delta_pair')
+    names = ('tvf_pair', 'wcsph_pair', 'gtvf_pair', 'dense_pair',
+             'fused_pair', 'micro_launch', 'micro_engine', 'pair_stub',
+             'cell_pack', 'bin_cells', 'delta_pair')
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     print('built %s in %.1f s' % ([lib.name for lib in libs.values()],
@@ -1254,6 +1368,9 @@ def main():
     # the 2D WCSPH dam break (PEC) and the other integrators
     _wcsph2d_phase(runs, kernels, bins)
     _integrators_phase()
+
+    # the Taylor-Green vortex on its periodic box
+    _tvf_phase(runs, kernels, bins)
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls

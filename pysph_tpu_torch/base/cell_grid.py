@@ -33,6 +33,17 @@ grid when it reads it.
 
 Particles keep their order: consumers read sources through ``order``.
 
+A periodic domain (``base/domain.py``, ``set_domain``) changes the
+geometry on its periodic axes as ``pysph_tpu``'s ``GridSpec`` does: the
+grid spans the box, ``max(floor(L / cell), 1)`` cells of width ``L /
+dims`` from the domain's lower corner, fixed whatever the particles do
+(no grow, no overflow); cell ids wrap modulo the counts instead of
+clamping; the stencil wraps, and shrinks to ``(-1, 0)`` on an axis of
+two cells and ``(0,)`` on one of one cell so that no cell is visited
+twice; and the support test and the reuse test take the minimum image of
+every displacement.  The exact lists (``neighbor_pairs``) are the plain
+version of that walk.
+
 The torch pair engine's lists (``neighbor_pairs`` with a
 ``PairCapacity``) are built at capacities held on the host, one for the
 stencil candidates and one for the pairs in support of a chunk of dest
@@ -48,10 +59,10 @@ the exact list (no capacity), in its order.
 """
 
 import math
-
 import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 #: headroom of the cell counts on each side of the particles' extent
@@ -158,10 +169,15 @@ class CellGrid(object):
     binning's (the solver's chunks set and read it; None: not kept);
     ``grows`` counts the calls of ``grow``."""
 
-    def __init__(self, dim, radius_scale, dims, cell_slack=1.1):
+    def __init__(self, dim, radius_scale, dims, cell_slack=1.1,
+                 domain=None):
         self.dim = int(dim)
         self.radius_scale = float(radius_scale)
         self.cell_slack = float(cell_slack)
+        #: the cell width of the last sizing from particles (None where
+        #: the counts were given)
+        self.cell = None
+        self._set_domain(domain)
         self._set_dims(dims)
         self.overflow = None
         self.overflow_any = None
@@ -173,12 +189,42 @@ class CellGrid(object):
         #: overflow into while set (None: not kept)
         self.pair_overflow = None
 
+    def _set_domain(self, domain):
+        """Keep ``domain`` (a ``DomainManager``, or None) and which axes
+        below ``dim`` it makes periodic."""
+        self.domain = domain
+        self.periodic = tuple(
+            domain is not None and bool(domain.periodic[d]) and d < self.dim
+            for d in range(3))
+        self.is_periodic = any(self.periodic)
+
+    def set_domain(self, domain):
+        """Take ``domain``'s periodic axes: their cell counts are set
+        from the box for the cells of the grid's last sizing (``cell``)
+        and every handle is invalidated, as after a ``resize``."""
+        self._set_domain(domain)
+        if self.is_periodic:
+            if self.cell is None:
+                raise ValueError('a periodic domain needs a grid sized from '
+                                 'particles (from_particles)')
+            self._set_dims(self.sized_dims(self.dims, self.cell))
+        self.overflow = self.overflow_any = None
+        for handle in list(self._handles):
+            handle.invalidate()
+
     def _set_dims(self, dims):
         dims = tuple(int(d) for d in dims)
         self.dims = dims + (1,) * (3 - len(dims))
         self.ncells = self.dims[0] * self.dims[1] * self.dims[2]
         self._limit = None
         self._offsets = {}
+        self._consts = {}
+
+    def sized_dims(self, dims, cell):
+        """``dims`` with each periodic axis set to ``max(floor(L /
+        cell), 1)`` cells (pysph_tpu/base/cell_grid.py:224-226)."""
+        return [max(int(math.floor(self.domain.lengths[d] / cell)), 1)
+                if self.periodic[d] else dims[d] for d in range(3)]
 
     def __repr__(self):
         return 'CellGrid(dim=%d, dims=%s, cell_slack=%g)' % (
@@ -199,11 +245,11 @@ class CellGrid(object):
 
     @classmethod
     def from_particles(cls, particle_arrays, dim, radius_scale,
-                       cell_slack=1.1, stratify=False):
+                       cell_slack=1.1, stratify=False, domain=None):
         """Size the grid to the bounding box of the particles, padded, for
         cells ``cell_slack`` times the support (the parameter and default
-        of ``pysph_tpu``'s ``GridSpec.from_particles``)."""
-        import numpy as np
+        of ``pysph_tpu``'s ``GridSpec.from_particles``); on the periodic
+        axes of ``domain``, to the box."""
         if stratify:
             raise NotImplementedError('stratified variable-h binning is not '
                                       'ported yet (ROADMAP Queue 1, item 27)')
@@ -220,8 +266,12 @@ class CellGrid(object):
                              'of positive h')
         extent = np.max(his, axis=0) - np.min(los, axis=0)
         width = cell_slack * radius_scale * hmax
-        return cls(dim, radius_scale, cls.padded_dims(extent, width, dim),
-                   cell_slack)
+        grid = cls(dim, radius_scale, cls.padded_dims(extent, width, dim),
+                   cell_slack, domain)
+        grid.cell = width
+        if grid.is_periodic:
+            grid._set_dims(grid.sized_dims(grid.dims, width))
+        return grid
 
     def grow(self, states):
         """Re-size the grid as ``resize`` does, after particles left it."""
@@ -241,7 +291,9 @@ class CellGrid(object):
         lo, hi, hmax = self._box(states)
         box = torch.cat([hi - lo, hmax.reshape(1)]).tolist()
         width = self.cell_slack * self.radius_scale * box[3]
-        self._set_dims(self.padded_dims(box[:3], width, self.dim))
+        self.cell = width
+        self._set_dims(self.sized_dims(
+            self.padded_dims(box[:3], width, self.dim), width))
         self.overflow = self.overflow_any = None
         for handle in list(self._handles):
             handle.invalidate()
@@ -327,40 +379,130 @@ class CellGrid(object):
 
     def offsets(self, device):
         """(S, 3) stencil offsets: -1..1 on each axis with more than one
-        cell, 0 elsewhere (3^dim cells for a full grid); made once per
-        size and device, so that a list built in a CUDA graph's capture
-        copies nothing there."""
+        cell, 0 elsewhere (3^dim cells for a full grid), -1..0 on a
+        periodic axis of two cells (``_stencil_offsets``,
+        pysph_tpu/base/cell_grid.py:29-43); made once per size and
+        device, so that a list built in a CUDA graph's capture copies
+        nothing there."""
         device = torch.device(device)
         if device not in self._offsets:
-            axes = [(-1, 0, 1) if self.dims[d] > 1 else (0,)
-                    for d in range(3)]
             self._offsets[device] = torch.tensor(
-                [(a, b, c) for c in axes[2] for b in axes[1]
-                 for a in axes[0]], dtype=torch.int64, device=device)
+                self.stencil_offsets(), dtype=torch.int64, device=device)
         return self._offsets[device]
+
+    def axis_offsets(self, d):
+        """The stencil offsets of axis ``d``."""
+        n = self.dims[d]
+        if n == 1:
+            return (0,)
+        if self.periodic[d] and n == 2:
+            return (-1, 0)
+        return (-1, 0, 1)
+
+    def stencil_offsets(self):
+        """[(ox, oy, oz)] of the stencil, z outermost and x innermost:
+        the order of the walk."""
+        axes = [self.axis_offsets(d) for d in range(3)]
+        return [(a, b, c) for c in axes[2] for b in axes[1]
+                for a in axes[0]]
+
+    def box_host(self, dtype):
+        """The periodic geometry in ``dtype``'s values, as Python floats
+        (for a kernel's arguments): ``mins``, the box's lower corner;
+        ``lengths``, the box lengths; ``widths``, the cell widths ``L /
+        dims`` (each rounded once to ``dtype``) on the periodic axes, 0,
+        1 and 1 elsewhere; ``stale``, the least periodic width, inf where
+        no axis is periodic."""
+        np_t = np.float64 if dtype == torch.float64 else np.float32
+        dom = self.domain
+        mins = [np_t(dom.mins[d] if self.periodic[d] else 0.0)
+                for d in range(3)]
+        lengths = [np_t(dom.lengths[d] if self.periodic[d] else 1.0)
+                   for d in range(3)]
+        widths = [lengths[d] / np_t(self.dims[d]) if self.periodic[d]
+                  else np_t(1.0) for d in range(3)]
+        stale = min([widths[d] for d in range(3) if self.periodic[d]],
+                    default=np_t(np.inf))
+        return dict(mins=[float(v) for v in mins],
+                    lengths=[float(v) for v in lengths],
+                    widths=[float(v) for v in widths], stale=float(stale))
+
+    def box_consts(self, dtype, device):
+        """``box_host`` as tensors of ``dtype`` on ``device`` (``mins``,
+        ``lengths``, ``widths`` (3,), ``stale`` ()), and ``mask`` (3,)
+        bool, the periodic axes; made once per size, so that a binning in
+        a CUDA graph's capture copies nothing there."""
+        key = (dtype, torch.device(device))
+        if key not in self._consts:
+            host = self.box_host(dtype)
+            self._consts[key] = {
+                k: torch.tensor(v, dtype=dtype, device=device)
+                for k, v in host.items()}
+            self._consts[key]['mask'] = torch.tensor(self.periodic,
+                                                     device=device)
+        return self._consts[key]
+
+    def origin(self, lo):
+        """The binning's origin from the particles' lowest coordinates
+        ``lo`` (3,): the box's lower corner on the periodic axes."""
+        if not self.is_periodic:
+            return lo
+        c = self.box_consts(lo.dtype, lo.device)
+        return torch.where(c['mask'], c['mins'], lo)
+
+    def stale_width(self, width):
+        """The least cell width of a binning of width ``width`` (): the
+        periodic axes' ``L / dims`` and, where an axis below ``dim`` is
+        not periodic, ``width`` (the ``min(widths[:dim])`` of
+        ``pysph_tpu``'s reuse test); 0 where ``width`` is 0, so that an
+        invalidated handle is rebuilt on any grid."""
+        if not self.is_periodic:
+            return width
+        stale = self.box_consts(width.dtype, width.device)['stale']
+        if all(self.periodic[:self.dim]):
+            return torch.where(width > 0, stale, width)
+        return torch.minimum(width, stale)
+
+    def image(self, d, dx):
+        """The minimum image of the displacements ``dx`` along axis
+        ``d``: ``dx - L round(dx / L)`` on a periodic axis (L a tensor
+        on the device, so that the division is the kernels' IEEE one),
+        ``dx`` elsewhere."""
+        if not self.periodic[d]:
+            return dx
+        L = self.box_consts(dx.dtype, dx.device)['lengths'][d]
+        return dx - L * torch.round(dx / L)
 
     def escaped(self, origin, hi, width):
         """0-d device bool: whether the highest coordinates ``hi`` lie at
         or beyond ``origin + dims * width`` on an axis of more than one
-        cell, where binning clamps them into the edge cell.  Nothing is
-        read back."""
+        cell that is not periodic, where binning clamps them into the
+        edge cell.  Nothing is read back."""
         top = torch.floor((hi - origin) / width)
         if self._limit is None or self._limit.device != top.device or \
                 self._limit.dtype != top.dtype:
-            # the counts on the device, inf on an axis of one cell: made
-            # once per size, so that a binning copies nothing there
+            # the counts on the device, inf on an axis of one cell or a
+            # periodic one: made once per size, so that a binning copies
+            # nothing there
             self._limit = torch.tensor(
-                [n if n > 1 else float('inf') for n in self.dims],
+                [n if n > 1 and not per else float('inf')
+                 for n, per in zip(self.dims, self.periodic)],
                 dtype=top.dtype, device=top.device)
         return (top >= self._limit).any()
 
     def cell_ids(self, state, origin, width):
-        """(n,) int64 cell id of each particle."""
+        """(n,) int64 cell id of each particle: clamped into the grid on
+        an axis that is not periodic, modulo the counts on a periodic
+        one, whose cells have their own width (``box_consts``)."""
         cid = torch.zeros_like(state['x'], dtype=torch.int64)
         stride = 1
         for d, key in enumerate('xyz'):
             n = self.dims[d]
-            if n > 1:
+            if self.periodic[d]:
+                w = self.box_consts(width.dtype, width.device)['widths'][d]
+                c = torch.floor((state[key] - origin[d]) / w)
+                cid += torch.remainder(c.to(torch.int64), n) * stride
+            elif n > 1:
                 c = torch.floor((state[key] - origin[d]) / width)
                 cid += c.clamp_(0, n - 1).to(torch.int64) * stride
             stride *= n
@@ -395,8 +537,9 @@ class CellGrid(object):
     def neighbor_pairs(self, dest, dest_cells, src, src_cells, rows,
                        cap=None):
         """The pair list of the dest rows ``rows = (a, b)`` against the
-        source: every pair in the 3^dim-cell stencil with ``r2 <
-        (radius_scale * max(hi, hj))^2``, in stencil-row-cell order (the
+        source: every pair in the 3^dim-cell stencil (wrapped on the
+        periodic axes) with ``r2 < (radius_scale * max(hi, hj))^2`` (of
+        the minimum image there), in stencil-row-cell order (the
         self-pair kept).  Without ``cap``: ``(i, j)`` (int64), compacted
         to its size, which is read back.  With a ``PairCapacity``: ``(i,
         j, w)`` of ``cap.pairs`` entries, nothing read back; the entries
@@ -416,8 +559,12 @@ class CellGrid(object):
         stride = 1
         for d in range(3):
             nc = c[d][:, None] + offs[:, d]
-            valid &= (nc >= 0) & (nc < dims[d])
-            ncell += nc.clamp(0, dims[d] - 1) * stride
+            if self.periodic[d]:
+                nc = torch.remainder(nc, dims[d])
+            else:
+                valid &= (nc >= 0) & (nc < dims[d])
+                nc = nc.clamp(0, dims[d] - 1)
+            ncell += nc * stride
             stride *= dims[d]
         start = src_cells.start[ncell].to(torch.int64).reshape(-1)
         cnt = torch.where(valid, (src_cells.end[ncell] -
@@ -437,9 +584,9 @@ class CellGrid(object):
         return i[keep], j[keep]
 
     def _in_support(self, dest, src, i, j):
-        dx = dest['x'][i] - src['x'][j]
-        dy = dest['y'][i] - src['y'][j]
-        dz = dest['z'][i] - src['z'][j]
+        dx = self.image(0, dest['x'][i] - src['x'][j])
+        dy = self.image(1, dest['y'][i] - src['y'][j])
+        dz = self.image(2, dest['z'][i] - src['z'][j])
         r2 = dx ** 2 + dy ** 2 + dz ** 2
         rs = self.radius_scale
         sup = torch.maximum(rs * dest['h'][i], rs * src['h'][j])

@@ -1,14 +1,15 @@
 """SPH smoothing kernels on torch tensors.
 
 Port of ``pysph_tpu/base/kernels.py`` for the kernels of the ported
-paths: ``CubicSpline``, ``WendlandQuintic`` and ``Gaussian``.  Each
+paths: ``CubicSpline``, ``WendlandQuintic``, ``Gaussian`` and
+``QuinticSpline``.  Each
 kernel is one shape function ``_shape(q) -> (w, dw)`` evaluated with
 ``torch.where`` over whole pair tensors, with the shared identities
 
     W(r, h)   = fac(h) * w(q),  q = r / h,  fac(h) = sigma / h^dim
     grad_a W  = fac(h) * dw(q) / h * x_ij / r
 
-The CUDA pair kernels (``csrc/wcsph_terms.cuh``) carry the same three
+The CUDA pair kernels (``csrc/wcsph_terms.cuh``) carry the same four
 shape functions; ``KERNEL_KIND`` names them there.
 """
 
@@ -125,5 +126,38 @@ class Gaussian(SmoothingKernel):
                                                          0.0)
 
 
+class QuinticSpline(SmoothingKernel):
+    """Quintic spline, support q in [0, 3]."""
+
+    radius_scale = 3.0
+
+    def _sigma(self, dim):
+        return (1.0 / 120.0, M_1_PI * 7.0 / 478.0, M_1_PI / 120.0)[dim - 1]
+
+    def _shape(self, q):
+        t3 = 3.0 - q
+        t2 = 2.0 - q
+        t1 = 1.0 - q
+        w3 = t3 ** 5
+        w2 = 6.0 * t2 ** 5
+        w1 = 15.0 * t1 ** 5
+        w = torch.where(
+            q > 3.0, 0.0,
+            torch.where(q > 2.0, w3,
+                        torch.where(q > 1.0, w3 - w2, w3 - w2 + w1)))
+        d3 = -5.0 * t3 ** 4
+        d2 = 30.0 * t2 ** 4
+        d1 = -75.0 * t1 ** 4
+        dw = torch.where(
+            q > 3.0, 0.0,
+            torch.where(q > 2.0, d3,
+                        torch.where(q > 1.0, d3 + d2, d3 + d2 + d1)))
+        return w, dw
+
+
 #: Shape-function ids shared with ``csrc/wcsph_terms.cuh``.
-KERNEL_KIND = {WendlandQuintic: 0, CubicSpline: 1, Gaussian: 2}
+KERNEL_KIND = {WendlandQuintic: 0, CubicSpline: 1, Gaussian: 2,
+               QuinticSpline: 3}
+#: the kinds the WCSPH walks (``wcsph_pair``, ``dense_pair``,
+#: ``delta_pair``) are built for; ``tvf_pair`` takes every kind
+WCSPH_KINDS = frozenset((0, 1, 2))

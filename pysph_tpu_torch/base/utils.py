@@ -48,3 +48,26 @@ def get_particle_array_wcsph(constants=None, **props):
                    'u0', 'v0', 'w0', 'rho0', 'div', 'dt_cfl', 'dt_force']
     return get_particle_array(
         constants=constants, additional_props=wcsph_props, **props)
+
+
+def get_particle_array_tvf_fluid(constants=None, **props):
+    """TVF fluid particle array."""
+    tv_props = ['uhat', 'vhat', 'what',
+                'auhat', 'avhat', 'awhat', 'vmag2', 'V']
+    pa = get_particle_array(
+        constants=constants, additional_props=tv_props, **props)
+    pa.set_output_arrays(['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'p', 'h',
+                          'm', 'au', 'av', 'aw', 'V', 'vmag2', 'pid', 'gid',
+                          'tag'])
+    return pa
+
+
+def get_particle_array_tvf_solid(constants=None, **props):
+    """TVF solid particle array."""
+    tv_props = ['u0', 'v0', 'w0', 'V', 'wij', 'ax', 'ay', 'az',
+                'uf', 'vf', 'wf', 'ug', 'vg', 'wg']
+    pa = get_particle_array(
+        constants=constants, additional_props=tv_props, **props)
+    pa.set_output_arrays(['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'p', 'h',
+                          'm', 'V', 'pid', 'gid', 'tag'])
+    return pa

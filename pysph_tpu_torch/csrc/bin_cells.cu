@@ -20,7 +20,12 @@
 //   indices sorted by cell id, ascending within a cell, as a stable sort
 //   gives them), start and end per cell, and x, y, z copied into ref;
 // - where not: nothing of the handle changes (every kernel but the first
-//   returns at once); the flag is written either way.
+//   returns at once); the flag is written either way;
+// - on a periodic axis (CellGrid with a periodic domain): the origin is
+//   the box's lower corner, the cells have the width L / dims, the id is
+//   floor((x - origin) / width) modulo the count, the axis never
+//   overflows, the displacement is the minimum image d - L rint(d / L),
+//   and the width the test compares is the least of the cells' widths.
 //
 // IEEE arithmetic, no fused multiply-add: every value is one rounded
 // operation as in the plain version's torch ops (__f*_rn/__d*_rn; the
@@ -93,7 +98,14 @@ struct BinArgs {
   uint32_t* ticket;         // () scratch, 0 between launches
   double slack_rs;          // cell_slack * radius_scale
   double half_margin;       // 0.5 * (cell_slack - 1) * radius_scale
-  int32_t n_arr, dtype, force, nx, ny, nz, ncells, pad;
+  // the periodic axes (per[d] != 0): the box's lower corner, its length
+  // and the cells' width L / dims there, each a value of the dtype
+  double pmin[3], plen[3], pwidth[3];
+  double stale;             // the least periodic width; inf: none
+  // open_axis: some axis below dim is not periodic, so the reuse test
+  // compares the binning's width too (CellGrid.stale_width)
+  int32_t n_arr, dtype, force, nx, ny, nz, ncells, open_axis;
+  int32_t per[3], pad;
 };
 
 namespace bin {
@@ -122,6 +134,16 @@ __device__ __forceinline__ float div(float a, float b) {
 }
 __device__ __forceinline__ double div(double a, double b) {
   return __ddiv_rn(a, b);
+}
+
+__device__ __forceinline__ float rint_rn(float a) { return rintf(a); }
+__device__ __forceinline__ double rint_rn(double a) { return rint(a); }
+
+// The minimum image d - L round(d / L) of a displacement along an axis
+// of length L, round half to even as torch.round
+template <typename T>
+__device__ __forceinline__ T image(T d, T L) {
+  return sub(d, mul(L, rint_rn(div(d, L))));
 }
 
 template <typename T>
@@ -155,8 +177,13 @@ __device__ void finalize(const BinArgs& a, const T* v) {
   const T hmax = v[6], disp2 = v[7];
   const T cell = mul(static_cast<T>(a.slack_rs), hmax);
   const T margin = mul(static_cast<T>(a.half_margin), hmax);
+  // the least width of the binning's cells (CellGrid.stale_width; 0 on
+  // an invalidated handle)
+  const T least = a.open_axis != 0 ? fmin(*width, static_cast<T>(a.stale))
+                  : *width > static_cast<T>(0) ? static_cast<T>(a.stale)
+                                               : *width;
   const bool stale = disp2 > mul(margin, margin) ||
-                     cell > mul(*width, static_cast<T>(1.0001));
+                     cell > mul(least, static_cast<T>(1.0001));
   bool rebuild = a.force != 0 || stale;
   if (a.active != nullptr) rebuild = rebuild && *a.active != 0;
   *a.rebuild = rebuild;
@@ -165,8 +192,8 @@ __device__ void finalize(const BinArgs& a, const T* v) {
   bool overflow = false;
   for (int d = 0; d < 3; ++d) {
     const T lo = -v[d];
-    origin[d] = lo;
-    if (dims[d] > 1)
+    origin[d] = a.per[d] != 0 ? static_cast<T>(a.pmin[d]) : lo;
+    if (dims[d] > 1 && a.per[d] == 0)
       overflow |= floor(div(sub(v[3 + d], lo), cell)) >=
                   static_cast<T>(dims[d]);
   }
@@ -200,8 +227,12 @@ __global__ void __launch_bounds__(kThreads) bin_reduce(const BinArgs a) {
       v[4] = fmax(v[4], py);
       v[5] = fmax(v[5], pz);
       v[6] = fmax(v[6], h[i]);
-      const T dx = sub(px, ref[i]), dy = sub(py, ref[A.n + i]),
-              dz = sub(pz, ref[2 * A.n + i]);
+      T dx = sub(px, ref[i]), dy = sub(py, ref[A.n + i]),
+        dz = sub(pz, ref[2 * A.n + i]);
+      // a wrap moves a coordinate by a box length: its minimum image
+      if (a.per[0] != 0) dx = image(dx, static_cast<T>(a.plen[0]));
+      if (a.per[1] != 0) dy = image(dy, static_cast<T>(a.plen[1]));
+      if (a.per[2] != 0) dz = image(dz, static_cast<T>(a.plen[2]));
       v[7] = fmax(v[7], add(add(mul(dx, dx), mul(dy, dy)), mul(dz, dz)));
     }
   }
@@ -243,7 +274,13 @@ __global__ void __launch_bounds__(kThreads) bin_count(const BinArgs a) {
   for (int d = 0; d < 3; ++d) {
     const T p = pos[d][i];
     ref[static_cast<size_t>(d) * A.n + i] = p;
-    if (dims[d] > 1) {
+    if (a.per[d] != 0) {
+      // periodic: cells of width L / dims from the box's corner, the id
+      // modulo the count
+      const T c = floor(div(sub(p, origin[d]), static_cast<T>(a.pwidth[d])));
+      long long ci = static_cast<long long>(c) % dims[d];
+      cid += (ci < 0 ? ci + dims[d] : ci) * stride;
+    } else if (dims[d] > 1) {
       T c = floor(div(sub(p, origin[d]), w));
       const T top = static_cast<T>(dims[d] - 1);
       c = c < static_cast<T>(0) ? static_cast<T>(0) : c;

@@ -24,6 +24,20 @@
 // slower on the paths: the extra candidates cost more than the shared
 // loads save.)
 //
+// Periodic walks (walk_rows_periodic, for a kernel that takes a periodic
+// grid; the kernels built without it keep the walk above and its code).
+// On a periodic axis the stencil row wraps with the cell counts, and
+// shrinks to -1..0 on an axis of two cells and 0 on one of one cell
+// (CellGrid.axis_offsets), so no cell is visited twice.  A wrapped y or
+// z row is one range as before; a row span cx - 1 .. cx + 1 that crosses
+// the grid's end on a periodic x axis is two ranges of the packed copy,
+// its cells before the end then those from cell 0, which the warp walks
+// as a second range only where one of its lanes has one (the x edges).
+// The order stays the plain stencil walk's (x by stencil offset, then
+// position), so a lane sums its pairs as neighbor_pairs lists them.  The
+// support test takes the minimum image of each periodic displacement,
+// d - L rint(d / L), with the box lengths of the kernel's arguments.
+//
 // The walker.  Every lane of a warp runs the same number of steps (the
 // warp's longest span), so the votes see all 32 lanes.  A lane tests its
 // candidates, kBatch loads in flight, and keeps those in support as bits
@@ -82,6 +96,35 @@ __device__ __forceinline__ bool in_support(const Rec<T>& di,
   return r2 < sup * sup;
 }
 
+// The box of a periodic walk: the length of each periodic axis, 0 on
+// the others.
+template <typename T>
+struct Box {
+  T len[3];
+};
+
+// The minimum image of a displacement d along an axis of length L (0:
+// not periodic): d - L round(d / L), round half to even as torch.round.
+__device__ __forceinline__ float image(float d, float L) {
+  return L != 0.0f ? d - L * rintf(d / L) : d;
+}
+__device__ __forceinline__ double image(double d, double L) {
+  return L != 0.0 ? d - L * rint(d / L) : d;
+}
+
+// The support test of a periodic walk: in_support on the minimum image.
+template <typename T>
+__device__ __forceinline__ bool in_support(const Rec<T>& di,
+                                           const Rec<T>& pj, T rs,
+                                           const Box<T>& box) {
+  const T xij = image(di.a - pj.a, box.len[0]);
+  const T yij = image(di.b - pj.b, box.len[1]);
+  const T zij = image(di.c - pj.c, box.len[2]);
+  const T r2 = xij * xij + yij * yij + zij * zij;
+  const T sup = rs * (di.d > pj.d ? di.d : pj.d);
+  return r2 < sup * sup;
+}
+
 // Positions [k0, k1) of a source's packed copy.
 struct Span {
   int k0, k1;
@@ -131,6 +174,14 @@ struct Walker {
   template <class Pos, class Body>
   __device__ __forceinline__ void walk(int k0, int n, const Rec<T>& di,
                                        T rs, Pos& pos, Body& body) {
+    auto test = [&](const Rec<T>& r) { return in_support(di, r, rs); };
+    walk_test(k0, n, test, pos, body);
+  }
+
+  // walk with the caller's support test, test(record).
+  template <class Test, class Pos, class Body>
+  __device__ __forceinline__ void walk_test(int k0, int n, Test& test,
+                                            Pos& pos, Body& body) {
     const int trip = static_cast<int>(
         __reduce_max_sync(kFull, static_cast<unsigned>(max(n, 0))));
     for (int t0 = 0; t0 < trip; t0 += 32) {
@@ -143,7 +194,7 @@ struct Walker {
           r[u] = pos(k0 + t0 + min(b + u, m - 1));
 #pragma unroll
         for (int u = 0; u < kBatch; ++u)
-          if (b + u < m && in_support(di, r[u], rs)) found |= 1u << (b + u);
+          if (b + u < m && test(r[u])) found |= 1u << (b + u);
       }
       if (!__any_sync(kFull, found != 0)) continue;
       while (__any_sync(kFull, bits[0] != 0)) round(body);
@@ -206,6 +257,74 @@ __device__ __forceinline__ void walk_rows(const G& g,
         sp = row_span(g, start, end, l.cx - halo, l.cx + halo, l.y + oy,
                       l.z + oz);
       walker.walk(sp.k0, sp.k1 - sp.k0, di, rs, load, body);
+    }
+  }
+}
+
+// The stencil offsets lo..hi of an axis of n cells (CellGrid.axis_offsets).
+__device__ __forceinline__ void axis_offsets(int n, bool periodic, int& lo,
+                                             int& hi) {
+  lo = n > 1 ? -1 : 0;
+  hi = n > 2 || (n == 2 && !periodic) ? 1 : 0;
+}
+
+// The two ranges of row (y, z) over the cells xa..xb on a periodic grid
+// (box.len[d] != 0 on a periodic axis d): y and z wrap (or the row is
+// empty outside the grid on an axis that is not periodic); on a periodic
+// x axis the cells xa..xb wrap, and where they cross the grid's end the
+// second range holds the cells from 0 (empty where they do not).
+template <typename T, class G>
+__device__ __forceinline__ void periodic_row(const G& g, const int32_t* start,
+                                             const int32_t* end, int xa,
+                                             int xb, int y, int z,
+                                             const Box<T>& box, Span& first,
+                                             Span& second) {
+  first = second = Span{0, 0};
+  if (box.len[1] != T(0))
+    y = (y + g.ny) % g.ny;
+  else if (y < 0 || y >= g.ny)
+    return;
+  if (box.len[2] != T(0))
+    z = (z + g.nz) % g.nz;
+  else if (z < 0 || z >= g.nz)
+    return;
+  const int row = g.nx * (y + g.ny * z);
+  if (box.len[0] == T(0)) {
+    first = {start[row + max(xa, 0)], end[row + min(xb, g.nx - 1)]};
+  } else if (xa < 0) {
+    first = {start[row + xa + g.nx], end[row + g.nx - 1]};
+    second = {start[row], end[row + xb]};
+  } else if (xb >= g.nx) {
+    first = {start[row + xa], end[row + g.nx - 1]};
+    second = {start[row], end[row + xb - g.nx]};
+  } else {
+    first = {start[row + xa], end[row + xb]};
+  }
+}
+
+// walk_rows on a periodic grid (the lane's x cell widened by one on each
+// side, as the pair kernels walk): each stencil row (oz, oy), in order,
+// its first range, then its second where a lane of the warp has one.
+template <typename T, class G, class Body>
+__device__ __forceinline__ void walk_rows_periodic(
+    const G& g, const int32_t* start, const int32_t* end, const void* pos,
+    const Lane& l, const Rec<T>& di, T rs, const Box<T>& box,
+    Walker<T>& walker, Body& body) {
+  auto load = [&](int k) { return rec<T>(pos, k); };
+  auto test = [&](const Rec<T>& r) { return in_support(di, r, rs, box); };
+  int xlo, xhi, ylo, yhi, zlo, zhi;
+  axis_offsets(g.nx, box.len[0] != T(0), xlo, xhi);
+  axis_offsets(g.ny, box.len[1] != T(0), ylo, yhi);
+  axis_offsets(g.nz, box.len[2] != T(0), zlo, zhi);
+  for (int oz = zlo; oz <= zhi; ++oz) {
+    for (int oy = ylo; oy <= yhi; ++oy) {
+      Span first{0, 0}, second{0, 0};
+      if (l.active)
+        periodic_row(g, start, end, l.cx + xlo, l.cx + xhi, l.y + oy,
+                     l.z + oz, box, first, second);
+      walker.walk_test(first.k0, first.k1 - first.k0, test, load, body);
+      if (__any_sync(kFull, second.k1 > second.k0))
+        walker.walk_test(second.k0, second.k1 - second.k0, test, load, body);
     }
   }
 }

@@ -80,7 +80,9 @@ __device__ __forceinline__ T ld(const void* p, int i) {
   return static_cast<const T*>(p)[i];
 }
 
-// Unnormalised shape function (w, dw/dq) of base/kernels.py.
+// Unnormalised shape function (w, dw/dq) of base/kernels.py, by
+// KERNEL_KIND: WendlandQuintic 0, CubicSpline 1, Gaussian 2 (the WCSPH
+// walks' kinds) and QuinticSpline 3.
 template <typename T, int KIND>
 __device__ __forceinline__ void shape(T q, T& w, T& dw) {
   if (KIND == 0) {  // WendlandQuintic, support q < 2
@@ -105,7 +107,7 @@ __device__ __forceinline__ void shape(T q, T& w, T& dw) {
       w = T(1) - T(1.5) * q * q * (T(1) - T(0.5) * q);
       dw = T(-3) * q * (T(1) - T(0.75) * q);
     }
-  } else {  // Gaussian, truncated at q = 3 (exp, not __expf)
+  } else if (KIND == 2) {  // Gaussian, truncated at q = 3 (exp, not __expf)
     if (q < T(3)) {
       const T e = exp(-q * q);
       w = e;
@@ -113,6 +115,25 @@ __device__ __forceinline__ void shape(T q, T& w, T& dw) {
     } else {
       w = T(0);
       dw = T(0);
+    }
+  } else {  // QuinticSpline, support q <= 3 (csrc/tvf_pair.cu only)
+    if (q > T(3)) {
+      w = T(0);
+      dw = T(0);
+    } else {
+      const T t3 = T(3) - q, t3_2 = t3 * t3, t3_4 = t3_2 * t3_2;
+      w = t3_4 * t3;
+      dw = T(-5) * t3_4;
+      if (q <= T(2)) {
+        const T t2 = T(2) - q, t2_2 = t2 * t2, t2_4 = t2_2 * t2_2;
+        w -= T(6) * (t2_4 * t2);
+        dw += T(30) * t2_4;
+        if (q <= T(1)) {
+          const T t1 = T(1) - q, t1_2 = t1 * t1, t1_4 = t1_2 * t1_2;
+          w += T(15) * (t1_4 * t1);
+          dw += T(-75) * t1_4;
+        }
+      }
     }
   }
 }

@@ -44,34 +44,36 @@ def bin_cells_reference(grid, states, handle, force=False, active=None):
     of the handle set to ``torch.where(rebuild, new, old)``."""
     live = [(name, s) for name, s in states.items() if s['x'].numel()]
     lo, hi, hmax = grid._box(s for _, s in live)
-    disp2 = torch.stack([_disp2(s, handle.ref[name])
+    disp2 = torch.stack([_disp2(grid, s, handle.ref[name])
                          for name, s in live]).max()
     slack_rs = grid.cell_slack * grid.radius_scale
     width = slack_rs * hmax
     margin = grid.half_margin() * hmax
-    stale = (disp2 > margin * margin) | (width > handle.width * 1.0001)
+    stale = (disp2 > margin * margin) | \
+        (width > grid.stale_width(handle.width) * 1.0001)
     rebuild = torch.ones_like(stale) if force else stale
     if active is not None:
         rebuild = rebuild & active
-    overflow = grid.escaped(lo, hi, width)
+    origin = grid.origin(lo)
+    overflow = grid.escaped(origin, hi, width)
     for name, s in states.items():
-        new = grid.bin(s, lo, width)
+        new = grid.bin(s, origin, width)
         for old, value in zip(handle.lists[name], new):
             old.copy_(torch.where(rebuild, value, old))
         ref = handle.ref[name]
         ref.copy_(torch.where(rebuild, torch.stack([s['x'], s['y'], s['z']]),
                               ref))
-    for old, value in ((handle.origin, lo), (handle.width, width),
+    for old, value in ((handle.origin, origin), (handle.width, width),
                        (handle.overflow, overflow)):
         old.copy_(torch.where(rebuild, value, old))
     handle.rebuild.copy_(rebuild)
     return handle.rebuild
 
 
-def _disp2(state, ref):
-    dx = state['x'] - ref[0]
-    dy = state['y'] - ref[1]
-    dz = state['z'] - ref[2]
+def _disp2(grid, state, ref):
+    dx = grid.image(0, state['x'] - ref[0])
+    dy = grid.image(1, state['y'] - ref[1])
+    dz = grid.image(2, state['z'] - ref[2])
     return (dx * dx + dy * dy + dz * dz).max()
 
 
@@ -86,9 +88,12 @@ class BinArgs(ctypes.Structure):
         [(k, ctypes.c_void_p) for k in ('origin', 'width', 'overflow',
                                         'rebuild', 'active', 'partial',
                                         'ticket')] + \
-        [('slack_rs', ctypes.c_double), ('half_margin', ctypes.c_double)] + \
+        [('slack_rs', ctypes.c_double), ('half_margin', ctypes.c_double),
+         ('pmin', ctypes.c_double * 3), ('plen', ctypes.c_double * 3),
+         ('pwidth', ctypes.c_double * 3), ('stale', ctypes.c_double)] + \
         [(k, ctypes.c_int32) for k in ('n_arr', 'dtype', 'force', 'nx', 'ny',
-                                       'nz', 'ncells', 'pad')]
+                                       'nz', 'ncells', 'open_axis')] + \
+        [('per', ctypes.c_int32 * 3), ('pad', ctypes.c_int32)]
 
 
 def _scratch(handle):
@@ -150,6 +155,15 @@ def _launch(grid, states, handle, force, active):
     args.force = int(bool(force))
     args.nx, args.ny, args.nz = grid.dims
     args.ncells = ncells
+    # the periodic geometry, each value the dtype's (box_consts)
+    box = grid.box_host(fdt)
+    for d, per in enumerate(grid.periodic):
+        args.per[d] = per
+        args.pmin[d] = box['mins'][d]
+        args.plen[d] = box['lengths'][d]
+        args.pwidth[d] = box['widths'][d]
+    args.stale = box['stale']
+    args.open_axis = not all(grid.periodic[:grid.dim])
     build.launch('bin_cells', args, dev)
     bin_cells.launches += 1
     return handle.rebuild

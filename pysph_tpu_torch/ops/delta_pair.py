@@ -55,7 +55,7 @@ from typing import NamedTuple
 
 import torch
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.base.kernels import KERNEL_KIND, WCSPH_KINDS
 from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.sph.wc.basic import ContinuityEquationDeltaSPHPreStep
@@ -379,8 +379,11 @@ def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
         raise ValueError('delta_pair: dtype %s' % fdt)
-    if type(kernel) not in KERNEL_KIND:
+    if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
         raise ValueError('delta_pair: no shape function for %r' % kernel)
+    if grid.is_periodic:
+        raise ValueError('delta_pair: no periodic walk (ROADMAP Queue 1 '
+                         'item 34, the periodic branch of this kernel)')
     first = _check_sources(sources)
     (output,) = outputs_for(first.terms)
     if pre.keys() != {output}:

@@ -22,15 +22,21 @@ Four kernels take a dest's pair phases, all its sources in one call:
   ``ContinuityEquationGTVF`` + ``ContinuitySolid``; ``CorrectDensity``;
   ``VolumeSummation`` + ``SolidWallPressureBC``;
   ``MomentumEquationPressureGradient`` +
-  ``MomentumEquationArtificialStress``), with ``WendlandQuintic``.
+  ``MomentumEquationArtificialStress``), with ``WendlandQuintic``;
+- ``tvf_pair`` (``ops/tvf_pair.py``, the Taylor-Green vortex's TVF
+  groups): the equations of a dest fall in one of its two phase sets
+  (``SummationDensity``; the TVF ``MomentumEquationPressureGradient``,
+  ``MomentumEquationViscosity``, ``MomentumEquationArtificialStress``
+  and ``MomentumEquationArtificialViscosity``), with any kernel of
+  ``KERNEL_KIND``.  It is the one kernel with a periodic walk: on a
+  periodic grid the other planners refuse.
 
-For both, each equation appears at most once per source, with at most
+For each, each equation appears at most once per source, with at most
 ``MAX_SOURCES`` sources, and no equation reads a property that another
 one accumulates (the kernels give every read the value from before the
 phase).  The per-source term masks say which equations each source
-takes.  Periodic domains never reach here: the evaluator refuses them.
-Anything else raises ``PairIneligible`` and the evaluator runs the torch
-pair engine instead.
+takes.  Anything else raises ``PairIneligible`` and the evaluator runs
+the torch pair engine instead.
 
 ``link_delta`` links a dest's ``delta_pair`` moment plan to its
 corrected gradient plan in the group right after it where nothing
@@ -51,10 +57,12 @@ main group (it reads the strided ``gradrho``) run on the torch engine.
 import logging
 from typing import NamedTuple
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND, WendlandQuintic
+from pysph_tpu_torch.base.kernels import (
+    KERNEL_KIND, WCSPH_KINDS, WendlandQuintic)
 from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gtvf_pair as _gp
+from pysph_tpu_torch.ops import tvf_pair as _tp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
 from pysph_tpu_torch.sph.basic_equations import (
     ContinuityEquation, XSPHCorrection)
@@ -163,9 +171,23 @@ def _source_terms(sources, term_of, term_outputs, max_sources):
     return out
 
 
+def _tvf_terms():
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.wc.transport_velocity import (
+        MomentumEquationArtificialStress,
+        MomentumEquationArtificialViscosity,
+        MomentumEquationPressureGradient, MomentumEquationViscosity,
+        SummationDensity)
+    return {SummationDensity: _tp.SDEN,
+            MomentumEquationPressureGradient: _tp.MPG,
+            MomentumEquationViscosity: _tp.VISC,
+            MomentumEquationArtificialStress: _tp.MAS,
+            MomentumEquationArtificialViscosity: _tp.AVIS}
+
+
 def _plan_wcsph(dest, sources, kernel, op=_wp.wcsph_pair,
                 term_of=_WCSPH_TERMS):
-    if type(kernel) not in KERNEL_KIND:
+    if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
         raise PairIneligible('kernel %r' % kernel)
     plan_sources = []
     terms = 0
@@ -194,7 +216,7 @@ def _plan_dense(dest, sources, kernel):
 
 
 def _plan_delta(dest, sources, kernel):
-    if type(kernel) not in KERNEL_KIND:
+    if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
         raise PairIneligible('kernel %r' % kernel)
     if len(sources) > _dl.MAX_SOURCES:
         raise PairIneligible('%d sources (at most %d)'
@@ -234,16 +256,48 @@ def _plan_gtvf(dest, sources, kernel):
                     _gp.gtvf_pair_reference, _gp.outputs_for(terms))
 
 
-_PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta),
+def _plan_tvf(dest, sources, kernel):
+    if type(kernel) not in KERNEL_KIND:
+        raise PairIneligible('kernel %r' % kernel)
+    term_of = _tvf_terms()
+    plan_sources = []
+    terms = 0
+    for src, t, eqs in _source_terms(sources, term_of, _tp.TERM_OUTPUTS,
+                                     _tp.MAX_SOURCES):
+        params = {}
+        for eq in eqs:
+            if term_of[type(eq)] == _tp.MPG:
+                params['pb'] = eq.pb
+            elif term_of[type(eq)] == _tp.VISC:
+                params['nu'] = eq.nu
+            elif term_of[type(eq)] == _tp.AVIS:
+                params.update(alpha=eq.alpha, c0=eq.c0)
+        plan_sources.append(_tp.TvfSource(src, t, tuple(eqs), **params))
+        terms |= t
+    if _tp.phase_of(terms) is None:
+        raise PairIneligible('TVF terms %#x span two phase sets' % terms)
+    return PairPlan(dest, plan_sources, kernel, _tp.tvf_pair,
+                    _tp.tvf_pair_reference, _tp.outputs_for(terms))
+
+
+_PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf),
              'dense': (_plan_dense,)}
+#: the planners whose kernels walk a periodic grid
+_PERIODIC = (_plan_tvf,)
 
 
-def plan_pair_phases(dest, sources, kernel, engine='kernel'):
+def plan_pair_phases(dest, sources, kernel, engine='kernel',
+                     periodic=False):
     """``sources``: ordered {src name: [equations]}.  Returns the
     ``PairPlan`` of the first of the ``engine``'s kernels that takes
-    them, or raises ``PairIneligible`` with each kernel's reason."""
+    them (on a ``periodic`` grid, of those with a periodic walk), or
+    raises ``PairIneligible`` with each kernel's reason."""
     reasons = []
     for planner in _PLANNERS[engine]:
+        if periodic and planner not in _PERIODIC:
+            reasons.append('%s: no periodic walk (ROADMAP Queue 1 item 34)'
+                           % planner.__name__[6:])
+            continue
         try:
             return planner(dest, sources, kernel)
         except PairIneligible as e:

@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.base.kernels import KERNEL_KIND, WCSPH_KINDS
 from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.sph.basic_equations import (
@@ -204,8 +204,11 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
         raise ValueError('%s: dtype %s' % (name, fdt))
     if len(sources) > MAX_SOURCES:
         raise ValueError('%s: %d sources' % (name, len(sources)))
-    if type(kernel) not in KERNEL_KIND:
+    if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
         raise ValueError('%s: no shape function for %r' % (name, kernel))
+    if grid.is_periodic:
+        raise ValueError('%s: no periodic walk (ROADMAP Queue 1 item 34, '
+                         'the periodic branch of this kernel)' % name)
     i32 = torch.int32
     args = WcsphArgs()
     buf = cell_pack.fill(args.pack, _packs(sources), name) \

@@ -3,6 +3,7 @@
 
 A subclass overrides ``initialize``, ``create_particles``,
 ``create_scheme`` (or ``create_equations`` and ``create_solver``),
+``create_domain`` (a periodic box: ``base/domain.py``),
 ``add_user_options``, ``consume_user_options``, ``configure_scheme``,
 ``post_stage`` and ``post_process`` and calls ``run()``.  The command
 line sets time stepping, output (``-d/--directory``, ``--pfreq``,
@@ -37,6 +38,7 @@ class Application(object):
     def __init__(self, fname=None, output_dir=None):
         self.solver = None
         self.scheme = None
+        self.domain = None
         self.particles = []
         self.args = sys.argv[1:]
         self.fname = fname or self._guess_fname()
@@ -151,6 +153,11 @@ class Application(object):
     def create_particles(self):
         raise RuntimeError('Application.create_particles: override this.')
 
+    def create_domain(self):
+        """The ``DomainManager`` of the run, or None (no periodic
+        axis)."""
+        return self.domain
+
     def create_solver(self):
         if self.scheme is not None:
             return self.scheme.get_solver()
@@ -237,6 +244,9 @@ class Application(object):
         solver.max_steps = o.max_steps
         if type(self).post_stage is not Application.post_stage:
             solver.add_post_stage_callback(self.post_stage)
+        self.domain = self.create_domain()
+        if self.domain is not None:
+            solver.set_domain(self.domain)
         solver.setup(self.particles, self.equations, self.config)
         self._setup_time = time.time() - start
 

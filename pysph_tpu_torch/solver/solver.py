@@ -104,6 +104,8 @@ class Solver(object):
         self.acceleration_evals = None
         self.grid = None
         self.config = None
+        #: the DomainManager of ``set_domain``, or None
+        self.domain = None
         self.t = 0.0
         self.count = 0
         self.pre_step_callbacks = []
@@ -146,18 +148,28 @@ class Solver(object):
 
     def setup(self, particles, equations, config):
         """Build the evaluators (one per stage of ``MultiStageEquations``,
-        all on one ``CellGrid``) against the particles and move them to
+        all on one ``CellGrid``, periodic on the axes of the domain of
+        ``set_domain``) against the particles and move them to
         ``config.device``."""
         from pysph_tpu_torch.sph.acceleration_eval import (
             make_acceleration_evals)
         self.particles = particles
         self.config = config
         self.grid = CellGrid.from_particles(
-            particles, dim=self.dim, radius_scale=self.kernel.radius_scale)
+            particles, dim=self.dim, radius_scale=self.kernel.radius_scale,
+            domain=self.domain)
         self.acceleration_evals = make_acceleration_evals(
             particles, equations, self.kernel, config, self.grid)
         self.integrator.set_acceleration_evals(self.acceleration_evals)
+        if self.domain is not None:
+            self.integrator.set_domain(self.domain)
         self._sync_to_device()
+
+    def set_domain(self, domain):
+        """The simulation box (a ``DomainManager``), handed to the grid,
+        the evaluators and the integrator (which wraps the positions
+        after each stage) at ``setup``."""
+        self.domain = domain
 
     def _sync_to_device(self):
         self.states = {pa.name: pa.to_device(self.config)

@@ -61,17 +61,21 @@ class PairContext(object):
     ``dest`` is the live dest state (writes are committed into it);
     ``src`` is the source state as it was when the source's phase
     began; ``w``: the write rows of a list at a capacity
-    (``CellGrid.neighbor_pairs``), None for an exact list."""
+    (``CellGrid.neighbor_pairs``), None for an exact list; ``grid``: the
+    ``CellGrid`` of the lists, whose periodic axes give ``XIJ`` (and
+    every symbol built from it) its minimum image."""
 
     SYMBOLS = ('HIJ', 'EPS', 'RHOIJ', 'RHOIJ1', 'XIJ', 'VIJ', 'R2IJ',
                'RIJ', 'RINV', 'WIJ', 'DWIJ')
 
-    def __init__(self, dest, src, i, j, kernel, write_mask, w=None):
+    def __init__(self, dest, src, i, j, kernel, write_mask, w=None,
+                 grid=None):
         self.dest = dest
         self.src = src
         self.i = i
         self.j = j
         self.w = w
+        self.grid = grid if grid is not None and grid.is_periodic else None
         self.kernel = kernel
         self.write_mask = write_mask
         self._d = {}
@@ -114,7 +118,10 @@ class PairContext(object):
         return 1.0 / torch.where(rhoij != 0.0, rhoij, 1.0)
 
     def _c_xij(self):
-        return SymVec([self.dget(c) - self.sget(c) for c in 'xyz'])
+        xij = [self.dget(c) - self.sget(c) for c in 'xyz']
+        if self.grid is not None:
+            xij = [self.grid.image(d, v) for d, v in enumerate(xij)]
+        return SymVec(xij)
 
     def _c_vij(self):
         return SymVec([self.dget(c) - self.sget(c) for c in 'uvw'])
@@ -219,7 +226,8 @@ def run_pair_phase(eqs, dest, src, dest_cells, src_cells, grid, kernel,
     for a in range(0, n, chunk):
         i, j, *w = grid.neighbor_pairs(dest, dest_cells, src, src_cells,
                                        (a, min(n, a + chunk)), cap)
-        ctx = PairContext(dest, src, i, j, kernel, write_mask, *w)
+        ctx = PairContext(dest, src, i, j, kernel, write_mask,
+                          w[0] if w else None, grid)
         for eq in eqs:
             _bind_pair_phase(eq.loop, ctx, t, dt)
 
@@ -272,7 +280,7 @@ class AccelerationEval(object):
         # planning
         self.engine_choices = {}
         self._plans = self._plan()
-        self.domain = None
+        self.domain = grid.domain
         # the handle of update_and_compute
         self._handle = None
 
@@ -347,7 +355,8 @@ class AccelerationEval(object):
                 if engine != 'torch':
                     try:
                         plan = plan_pair_phases(dest, sources, self.kernel,
-                                                engine)
+                                                engine,
+                                                self.grid.is_periodic)
                     except PairIneligible as e:
                         logger.info('torch pair engine for %s <- %s: %s',
                                     dest, list(sources), e)
@@ -362,7 +371,15 @@ class AccelerationEval(object):
         return plans
 
     def set_domain(self, domain):
+        """Take ``domain`` (a ``DomainManager``): its periodic axes reach
+        the grid (``CellGrid.set_domain``: the counts, the wrapped cells
+        and stencil, the minimum image of the lists and of ``XIJ``), and
+        the pair phases are planned again for them."""
         self.domain = domain
+        if self.grid.domain is not domain:
+            self.grid.set_domain(domain)
+        self.engine_choices = {}
+        self._plans = self._plan()
 
     # -- binning -------------------------------------------------------
     def prepare(self, states, handle=None):
@@ -380,11 +397,9 @@ class AccelerationEval(object):
         the binning run on the states' device (``ops/bin_cells.py``) and
         nothing is read back.  Returns (handle, rebuild flag): a new
         handle where ``handle`` is None or no longer fits the grid, whose
-        test always rebuilds (where active)."""
-        if getattr(self.domain, 'is_periodic', False):
-            raise NotImplementedError(
-                'the minimum image of a periodic domain in the binning\'s '
-                'reuse test is not ported yet (ROADMAP Queue 1, item 25)')
+        test always rebuilds (where active).  On a periodic grid the
+        displacements are minimum images, as a wrap moves a coordinate by
+        a box length."""
         return self._bin(states, handle, force=False, active=active)
 
     def _bin(self, states, handle, force, active=None):

@@ -7,8 +7,11 @@ recipe of ``initialize()``, ``stage1()`` .. ``stage5()``,
 GTVF has), ``update_domain()`` and ``do_post_stage(stage_dt, stage)``,
 run eagerly on the state dicts (updated in place).  The recipes are the
 reference's: Euler, PEC, EPEC, TVDRK3, LeapFrog and PEFRL (1, 1, 2, 3,
-1 and 4 evaluations a step).  No domain manager is ported yet, so
-``update_domain()`` does nothing.  ``do_post_stage`` calls the post-stage
+1 and 4 evaluations a step).  ``update_domain()`` wraps the positions
+of every array into a periodic domain (``set_domain``) after each
+stage, on the device, with nothing read (``DomainManager.wrap_state``:
+new tensors, which the solver's chunk writes back into its static ones
+under its ``active`` select).  ``do_post_stage`` calls the post-stage
 callback (``set_post_stage_callback``: ``callback(t + stage_dt, dt,
 stage)``), a host function, so the solver runs a step with one in its
 per-step loop.
@@ -64,6 +67,8 @@ class Integrator(object):
         #: before the first)
         self.rebuilds = None
         self.post_stage_callback = None
+        #: the DomainManager of ``set_domain`` (None: no periodic axis)
+        self.domain = None
         self._checked = set()
         self._active = None
         self._states = None
@@ -75,6 +80,13 @@ class Integrator(object):
             a_evals = [a_evals]
         self.acceleration_evals = list(a_evals)
         self.handles = {}
+
+    def set_domain(self, domain):
+        """Wrap the positions into ``domain`` after each stage, and hand
+        it to the evaluators (``AccelerationEval.set_domain``)."""
+        self.domain = domain
+        for a_eval in self.acceleration_evals or ():
+            a_eval.set_domain(domain)
 
     def set_post_stage_callback(self, callback):
         """``callback(t + stage_dt, dt, stage)`` after each stage."""
@@ -134,7 +146,13 @@ class Integrator(object):
                                                self.handles[index])
 
     def update_domain(self):
-        pass
+        """Wrap every array's positions into the periodic domain (port
+        of ``pysph_tpu``'s ``update_domain``,
+        pysph_tpu/sph/integrator.py:323-336)."""
+        if self.domain is None or not self.domain.is_periodic:
+            return
+        for name, st in self._states.items():
+            st.update(self.domain.wrap_state(st))
 
     def do_post_stage(self, stage_dt, stage):
         if self.post_stage_callback is not None:

@@ -1,6 +1,7 @@
 """SPH schemes: equations + integrator + solver for a formulation
-(port of ``pysph_tpu/sph/scheme.py``: ``Scheme``, ``SchemeChooser`` and
-``WCSPHScheme``; ``GTVFScheme`` is in ``sph/wc/gtvf.py``)."""
+(port of ``pysph_tpu/sph/scheme.py``: ``Scheme``, ``SchemeChooser``,
+``TVFScheme`` and ``WCSPHScheme``; ``GTVFScheme`` is in
+``sph/wc/gtvf.py``)."""
 
 
 class Scheme(object):
@@ -127,6 +128,140 @@ def add_bool_argument(group, arg, dest, help, default):
                        help=help, default=default)
     group.add_argument('--no-%s' % arg, action='store_false', dest=dest,
                        help='Do not ' + help[0].lower() + help[1:])
+
+
+class TVFScheme(Scheme):
+    """Transport Velocity Formulation (Adami 2013): summation density,
+    the generalised equation of state, and the pressure gradient with a
+    background pressure ``pb``, laminar viscosity and the artificial
+    stress, with the Adami walls; ``PECIntegrator`` with
+    ``TransportVelocityStep`` and ``QuinticSpline`` by default."""
+
+    def __init__(self, fluids, solids, dim, rho0, c0, nu, p0, pb, h0,
+                 gx=0.0, gy=0.0, gz=0.0, alpha=0.0, tdamp=0.0):
+        self.fluids = fluids
+        self.solids = solids
+        self.solver = None
+        self.rho0 = rho0
+        self.c0 = c0
+        self.pb = pb
+        self.p0 = p0
+        self.nu = nu
+        self.dim = dim
+        self.h0 = h0
+        self.gx = gx
+        self.gy = gy
+        self.gz = gz
+        self.alpha = alpha
+        self.tdamp = tdamp
+
+    def add_user_options(self, group):
+        group.add_argument('--alpha', action='store', type=float,
+                           dest='alpha', default=None,
+                           help='Alpha for the artificial viscosity.')
+        group.add_argument('--tdamp', action='store', type=float,
+                           dest='tdamp', default=None,
+                           help='Time over which accelerations are '
+                                'damped.')
+
+    def consume_user_options(self, options):
+        data = dict((var, self._smart_getattr(options, var))
+                    for var in ('alpha', 'tdamp'))
+        self.configure(**data)
+
+    def get_timestep(self, cfl=0.25):
+        dt_cfl = cfl * self.h0 / self.c0
+        dt_viscous = 0.125 * self.h0 ** 2 / self.nu \
+            if self.nu > 1e-12 else 1.0
+        return min(dt_cfl, dt_viscous, 1.0)
+
+    def configure_solver(self, kernel=None, integrator_cls=None,
+                         extra_steppers=None, **kw):
+        from pysph_tpu_torch.base.kernels import QuinticSpline
+        from pysph_tpu_torch.sph.integrator import PECIntegrator
+        from pysph_tpu_torch.sph.integrator_step import (
+            TransportVelocityStep)
+        from pysph_tpu_torch.solver.solver import Solver
+        if kernel is None:
+            kernel = QuinticSpline(dim=self.dim)
+        steppers = dict(extra_steppers or {})
+        for fluid in self.fluids:
+            if fluid not in steppers:
+                steppers[fluid] = TransportVelocityStep()
+        cls = PECIntegrator if integrator_cls is None else integrator_cls
+        integrator = cls(**steppers)
+        if 'dt' not in kw:
+            kw['dt'] = self.get_timestep()
+        self.solver = Solver(dim=self.dim, integrator=integrator,
+                             kernel=kernel, **kw)
+
+    def get_equations(self):
+        from pysph_tpu_torch.sph.equation import Group
+        from pysph_tpu_torch.sph.wc.transport_velocity import (
+            MomentumEquationArtificialStress,
+            MomentumEquationArtificialViscosity,
+            MomentumEquationPressureGradient, MomentumEquationViscosity,
+            SetWallVelocity, SolidWallNoSlipBC, SolidWallPressureBC,
+            StateEquation, SummationDensity)
+        equations = []
+        all = self.fluids + self.solids
+        g1 = [SummationDensity(dest=fluid, sources=all)
+              for fluid in self.fluids]
+        equations.append(Group(equations=g1, real=False))
+
+        g2 = [StateEquation(dest=fluid, sources=None, p0=self.p0,
+                            rho0=self.rho0, b=1.0)
+              for fluid in self.fluids]
+        g2.extend(SetWallVelocity(dest=solid, sources=self.fluids)
+                  for solid in self.solids)
+        if g2:
+            equations.append(Group(equations=g2, real=False))
+
+        g3 = [SolidWallPressureBC(
+            dest=solid, sources=self.fluids, b=1.0, rho0=self.rho0,
+            p0=self.p0, gx=self.gx, gy=self.gy, gz=self.gz)
+            for solid in self.solids]
+        if g3:
+            equations.append(Group(equations=g3, real=False))
+
+        g4 = []
+        for fluid in self.fluids:
+            g4.append(MomentumEquationPressureGradient(
+                dest=fluid, sources=all, pb=self.pb, gx=self.gx,
+                gy=self.gy, gz=self.gz, tdamp=self.tdamp))
+            if self.alpha > 0.0:
+                g4.append(MomentumEquationArtificialViscosity(
+                    dest=fluid, sources=all, c0=self.c0,
+                    alpha=self.alpha))
+            if self.nu > 0.0:
+                g4.append(MomentumEquationViscosity(
+                    dest=fluid, sources=self.fluids, nu=self.nu))
+                if self.solids:
+                    g4.append(SolidWallNoSlipBC(
+                        dest=fluid, sources=self.solids, nu=self.nu))
+            g4.append(MomentumEquationArtificialStress(
+                dest=fluid, sources=self.fluids))
+        equations.append(Group(equations=g4))
+        return equations
+
+    def setup_properties(self, particles, clean=True):
+        from pysph_tpu_torch.base.utils import (
+            get_particle_array_tvf_fluid, get_particle_array_tvf_solid)
+        particle_arrays = dict((p.name, p) for p in particles)
+        dummy = get_particle_array_tvf_fluid(name='junk')
+        props = list(dummy.properties.keys())
+        output_props = dummy.output_property_arrays
+        for fluid in self.fluids:
+            pa = particle_arrays[fluid]
+            self._ensure_properties(pa, props, clean)
+            pa.set_output_arrays(output_props)
+        dummy = get_particle_array_tvf_solid(name='junk')
+        props = list(dummy.properties.keys())
+        output_props = dummy.output_property_arrays
+        for solid in self.solids:
+            pa = particle_arrays[solid]
+            self._ensure_properties(pa, props, clean)
+            pa.set_output_arrays(output_props)
 
 
 class WCSPHScheme(Scheme):

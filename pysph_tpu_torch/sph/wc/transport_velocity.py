@@ -1,11 +1,47 @@
-"""Transport-velocity wall equations (Adami 2012/2013): the classes of
-``pysph_tpu/sph/wc/transport_velocity.py`` that ``GTVFScheme`` emits.
-The rest of that module (``SummationDensity``, the TVF momentum and
-viscosity terms) comes with taylor_green (ROADMAP Queue 1)."""
+"""Transport Velocity Formulation equations (Adami 2012/2013): port of
+``pysph_tpu/sph/wc/transport_velocity.py``, the fluid terms of
+``TVFScheme`` (the Taylor-Green vortex) and the wall classes that
+``GTVFScheme`` and ``TVFScheme`` emit.  ``ops/tvf_pair.py`` runs the
+fluid pair terms on the card."""
+
+import math
 
 import torch
 
 from pysph_tpu_torch.sph.equation import Equation
+
+
+class SummationDensity(Equation):
+    """Summation density and number density: ``V = sum W``, ``rho = m
+    sum W``."""
+
+    def initialize(self, d_idx, d_V, d_rho):
+        d_V[d_idx] = 0.0
+        d_rho[d_idx] = 0.0
+
+    def loop(self, d_idx, d_V, d_rho, d_m, WIJ):
+        d_V[d_idx] += WIJ
+        d_rho[d_idx] += d_m[d_idx] * WIJ
+
+
+class VolumeFromMassDensity(Equation):
+    """V = rho / m."""
+
+    def loop(self, d_idx, d_V, d_rho, d_m):
+        d_V[d_idx] = d_rho[d_idx] / d_m[d_idx]
+
+
+class ContinuityEquation(Equation):
+    """TVF continuity, Adami 2012 eq. (6)."""
+
+    def initialize(self, d_idx, d_arho):
+        d_arho[d_idx] = 0.0
+
+    def loop(self, d_idx, s_idx, d_arho, s_m, s_rho, d_rho, VIJ, DWIJ):
+        vijdotdwij = (VIJ[0] * DWIJ[0] + VIJ[1] * DWIJ[1] +
+                      VIJ[2] * DWIJ[2])
+        d_arho[d_idx] += (d_rho[d_idx] * vijdotdwij * s_m[s_idx] /
+                          s_rho[s_idx])
 
 
 class VolumeSummation(Equation):
@@ -76,6 +112,91 @@ class StateEquation(Equation):
         d_p[d_idx] = self.p0 * (d_rho[d_idx] / self.rho0 - self.b)
 
 
+class MomentumEquationPressureGradient(Equation):
+    """TVF pressure gradient and background pressure, Adami 2013 eq. (8)
+    and (13); the body force, damped over ``tdamp`` from ``t = 0``, is
+    added after the loop (``t`` is the stage's, a 0-d device tensor in
+    the solver's chunks)."""
+
+    def __init__(self, dest, sources, pb, gx=0., gy=0., gz=0.,
+                 tdamp=0.0):
+        self.pb = pb
+        self.gx = gx
+        self.gy = gy
+        self.gz = gz
+        self.tdamp = tdamp
+        super(MomentumEquationPressureGradient, self).__init__(
+            dest, sources)
+
+    def initialize(self, d_idx, d_au, d_av, d_aw, d_auhat, d_avhat,
+                   d_awhat):
+        d_au[d_idx] = 0.0
+        d_av[d_idx] = 0.0
+        d_aw[d_idx] = 0.0
+        d_auhat[d_idx] = 0.0
+        d_avhat[d_idx] = 0.0
+        d_awhat[d_idx] = 0.0
+
+    def loop(self, d_idx, s_idx, d_m, d_rho, s_rho, d_au, d_av, d_aw,
+             d_p, s_p, d_auhat, d_avhat, d_awhat, d_V, s_V, DWIJ):
+        rhoi = d_rho[d_idx]
+        rhoj = s_rho[s_idx]
+        pij = (rhoj * d_p[d_idx] + rhoi * s_p[s_idx]) / (rhoj + rhoi)
+        Vi = 1.0 / d_V[d_idx]
+        Vj = 1.0 / s_V[s_idx]
+        Vi2 = Vi * Vi
+        Vj2 = Vj * Vj
+        mi1 = 1.0 / d_m[d_idx]
+        tmp = -pij * mi1 * (Vi2 + Vj2)
+        d_au[d_idx] += tmp * DWIJ[0]
+        d_av[d_idx] += tmp * DWIJ[1]
+        d_aw[d_idx] += tmp * DWIJ[2]
+        tmp = -self.pb * mi1 * (Vi2 + Vj2)
+        d_auhat[d_idx] += tmp * DWIJ[0]
+        d_avhat[d_idx] += tmp * DWIJ[1]
+        d_awhat[d_idx] += tmp * DWIJ[2]
+
+    def post_loop(self, d_idx, d_au, d_av, d_aw, t):
+        if self.tdamp > 0:
+            t = torch.as_tensor(t, dtype=torch.float64)
+            damping_factor = torch.where(
+                t < self.tdamp,
+                0.5 * (torch.sin((-0.5 + t / self.tdamp) * math.pi) + 1.0),
+                1.0)
+        else:
+            damping_factor = 1.0
+        d_au[d_idx] += self.gx * damping_factor
+        d_av[d_idx] += self.gy * damping_factor
+        d_aw[d_idx] += self.gz * damping_factor
+
+
+class MomentumEquationViscosity(Equation):
+    """TVF laminar viscosity, Adami 2013 eq. (8), the third term."""
+
+    def __init__(self, dest, sources, nu):
+        self.nu = nu
+        super(MomentumEquationViscosity, self).__init__(dest, sources)
+
+    def initialize(self, d_idx, d_au, d_av, d_aw):
+        d_au[d_idx] = 0.0
+        d_av[d_idx] = 0.0
+        d_aw[d_idx] = 0.0
+
+    def loop(self, d_idx, s_idx, d_rho, s_rho, d_m, d_V, s_V,
+             d_au, d_av, d_aw, R2IJ, EPS, DWIJ, VIJ, XIJ):
+        etai = self.nu * d_rho[d_idx]
+        etaj = self.nu * s_rho[s_idx]
+        etaij = 2 * (etai * etaj) / (etai + etaj)
+        Fij = DWIJ[0] * XIJ[0] + DWIJ[1] * XIJ[1] + DWIJ[2] * XIJ[2]
+        Vi = 1.0 / d_V[d_idx]
+        Vj = 1.0 / s_V[s_idx]
+        tmp = (1.0 / d_m[d_idx] * (Vi * Vi + Vj * Vj) * etaij * Fij /
+               (R2IJ + EPS))
+        d_au[d_idx] += tmp * VIJ[0]
+        d_av[d_idx] += tmp * VIJ[1]
+        d_aw[d_idx] += tmp * VIJ[2]
+
+
 class MomentumEquationArtificialViscosity(Equation):
     """Artificial viscosity, Adami 2012 eq. (11)."""
 
@@ -100,6 +221,46 @@ class MomentumEquationArtificialViscosity(Equation):
         d_au[d_idx] += -piij * DWIJ[0]
         d_av[d_idx] += -piij * DWIJ[1]
         d_aw[d_idx] += -piij * DWIJ[2]
+
+
+class MomentumEquationArtificialStress(Equation):
+    """TVF artificial stress, Adami 2013 eq. (8), the second term: the
+    tensor ``A = rho v (x) (vhat - v)``, its mean over the pair
+    contracted with ``DWIJ``."""
+
+    def initialize(self, d_idx, d_au, d_av, d_aw):
+        d_au[d_idx] = 0.0
+        d_av[d_idx] = 0.0
+        d_aw[d_idx] = 0.0
+
+    def loop(self, d_idx, s_idx, d_rho, d_u, d_v, d_w, d_V,
+             d_uhat, d_vhat, d_what, d_au, d_av, d_aw, d_m,
+             s_rho, s_u, s_v, s_w, s_V, s_uhat, s_vhat, s_what, DWIJ):
+        rhoi = d_rho[d_idx]
+        rhoj = s_rho[s_idx]
+        ui, vi, wi = d_u[d_idx], d_v[d_idx], d_w[d_idx]
+        dui = d_uhat[d_idx] - ui
+        dvi = d_vhat[d_idx] - vi
+        dwi = d_what[d_idx] - wi
+        uj, vj, wj = s_u[s_idx], s_v[s_idx], s_w[s_idx]
+        duj = s_uhat[s_idx] - uj
+        dvj = s_vhat[s_idx] - vj
+        dwj = s_what[s_idx] - wj
+        Ax = 0.5 * ((rhoi * ui * dui + rhoj * uj * duj) * DWIJ[0] +
+                    (rhoi * ui * dvi + rhoj * uj * dvj) * DWIJ[1] +
+                    (rhoi * ui * dwi + rhoj * uj * dwj) * DWIJ[2])
+        Ay = 0.5 * ((rhoi * vi * dui + rhoj * vj * duj) * DWIJ[0] +
+                    (rhoi * vi * dvi + rhoj * vj * dvj) * DWIJ[1] +
+                    (rhoi * vi * dwi + rhoj * vj * dwj) * DWIJ[2])
+        Az = 0.5 * ((rhoi * wi * dui + rhoj * wj * duj) * DWIJ[0] +
+                    (rhoi * wi * dvi + rhoj * wj * dvj) * DWIJ[1] +
+                    (rhoi * wi * dwi + rhoj * wj * dwj) * DWIJ[2])
+        Vi = 1.0 / d_V[d_idx]
+        Vj = 1.0 / s_V[s_idx]
+        tmp = 1.0 / d_m[d_idx] * (Vi * Vi + Vj * Vj)
+        d_au[d_idx] += tmp * Ax
+        d_av[d_idx] += tmp * Ay
+        d_aw[d_idx] += tmp * Az
 
 
 class SolidWallNoSlipBC(Equation):

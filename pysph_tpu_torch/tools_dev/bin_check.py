@@ -9,7 +9,8 @@ for bit, and the flags too:
 1. a forced binning (flag 1);
 2. the test on the same positions (kept: flag 0);
 3. the particles moved by a seeded fraction of the margin and one of
-   them past it, tested with ``active`` 0 (flag 0): the handle must
+   them past it (and wrapped into a periodic box, so that some jump by
+   its length), tested with ``active`` 0 (flag 0): the handle must
    stay bitwise as it was;
 4. the same, active (flag 1: rebuilt on the moved positions);
 5. the test on those positions (kept).
@@ -62,6 +63,9 @@ def _moved(grid, states, seed):
     x = out[first]['x'].clone()
     x[0] = x[0] + 1.5 * margin
     out[first]['x'] = x
+    if grid.is_periodic:
+        # wrapped into the box: those that crossed it jump by a length
+        out = {name: grid.domain.wrap_state(s) for name, s in out.items()}
     return out
 
 

@@ -20,13 +20,14 @@ on the state it reached:
   pair calls (each plan's kernel wrapper, the source packs included, a
   linked ``delta_pair`` pair as the path runs it), the whole eval on its
   binning (``compute``), each integrator stage and the adaptive dt
-  (``compute_time_step``); the elementwise phases of an eval are the
-  eval less its pair calls; an evaluator's evals a step are those the
-  solve's captures counted.  The binning a step is each evaluator's
-  test, kept, plus the share of tests that rebuilt in the solve
-  (``rebuilds``) times the difference; "rest" is the step less its
-  evals, binning, stages and dt (the chunk's write-back selects and its
-  t/dt arithmetic).
+  (``compute_time_step``), and on a periodic box the position wrap
+  (``update_domain``, times the wraps a step the captures counted); the
+  elementwise phases of an eval are the eval less its pair calls; an
+  evaluator's evals a step are those the solve's captures counted.  The
+  binning a step is each evaluator's test, kept, plus the share of tests
+  that rebuilt in the solve (``rebuilds``) times the difference; "rest"
+  is the step less its evals, binning, stages, wraps and dt (the chunk's
+  write-back selects and its t/dt arithmetic).
 
 Then the host's part of a chunk: the replay call, the replay and its
 wait, and a whole ``Solver._run_chunk`` (host clock, medians).
@@ -164,15 +165,21 @@ def _copy(states):
 
 
 def _count_captured_evals(integ):
-    """Count the integrator's evaluations made inside a CUDA graph's
-    capture (in ``integ.captured_evals``)."""
-    compute = integ.compute_accelerations
-    integ.captured_evals = 0
+    """Count the integrator's evaluations and position wraps made inside
+    a CUDA graph's capture (in ``integ.captured_evals`` and
+    ``captured_wraps``)."""
+    compute, wrap = integ.compute_accelerations, integ.update_domain
+    integ.captured_evals = integ.captured_wraps = 0
 
     def counted(*args, **kw):
         integ.captured_evals += torch.cuda.is_current_stream_capturing()
         return compute(*args, **kw)
+
+    def wrapped():
+        integ.captured_wraps += torch.cuda.is_current_stream_capturing()
+        return wrap()
     integ.compute_accelerations = counted
+    integ.update_domain = wrapped
 
 
 def profile_path(path, kw):
@@ -243,6 +250,14 @@ def profile_path(path, kw):
             integ._states, integ._t, integ._dt = _copy(s.states), t, dt
             integ._run_stage(name)
         stages += measure('stage ' + name, stage)
+    wrap_ms = 0.0
+    if integ.domain is not None and integ.domain.is_periodic:
+        wraps = integ.captured_wraps / (k * s.captures)
+
+        def wrap():
+            integ._states = _copy(s.states)
+            integ.update_domain()
+        wrap_ms = wraps * measure('domain wrap', wrap)
     integ._states = None
     dt_ms = 0.0
     if s.adaptive_timestep:
@@ -252,8 +267,9 @@ def profile_path(path, kw):
                evals_a_step_ms=evals_a_step,
                rebuilds=rebuilds, rebuilt_share=rebuilt_share,
                binning_a_step_ms=binning_a_step, stages_ms=stages,
-               dt_ms=dt_ms, rest_ms=busy / k - evals_a_step -
-               binning_a_step - stages - dt_ms, method=sorted(method))
+               wrap_ms=wrap_ms, dt_ms=dt_ms,
+               rest_ms=busy / k - evals_a_step - binning_a_step - stages -
+               wrap_ms - dt_ms, method=sorted(method))
     return row
 
 

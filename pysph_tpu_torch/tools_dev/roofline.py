@@ -37,6 +37,7 @@ from pysph_tpu_torch.ops import cell_walk
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import micro
+from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 
 PEAK_FLOPS = 67e12    # float32, outside the tensor cores
@@ -48,9 +49,10 @@ I32 = 4
 SUPPORT_FLOPS = 12
 #: per pair in support, before the terms: uij vij wij, hij, rinv, rij,
 #: h1, q, fac, g, DWIJ (wcsph_terms.cuh:198-220), and the shape function
-#: by kernel kind (WendlandQuintic, CubicSpline, Gaussian; :84-118)
+#: by kernel kind (WendlandQuintic, CubicSpline, Gaussian, QuinticSpline
+#: (its three branches at q <= 1); :84-137)
 WCSPH_PAIR_FLOPS = 22
-SHAPE_FLOPS = (12, 9, 6)
+SHAPE_FLOPS = (12, 9, 6, 22)
 #: per term and pair in support (wcsph_terms.cuh:222-270); MOM and XSPH
 #: share rhoij and rhoij1 (4), DCONT and DMOM V_j and EPS (3)
 WCSPH_TERM_FLOPS = {wp.CONT: 7, wp.MOM: 39, wp.XSPH: 10, wp.DCONT: 23,
@@ -77,9 +79,21 @@ FUSED_PAIR_FLOPS = 65
 #: bin_cells.cu: the reuse test per particle (the box's 6 and h's max,
 #: 3 sub, 3 mul, 2 add and a max for the displacement; :194-206), and a
 #: binning's cell id per axis of more than one cell (sub, div, floor, 2
-#: clamps; :246-251)
+#: clamps; :246-251); on a periodic grid the test's displacement takes
+#: its minimum image too (IMAGE_FLOPS an axis)
 BIN_TEST_FLOPS = 16
 BIN_CELL_FLOPS = 5
+#: tvf_pair.cu: per pair in support, xij, r2, hij, rinv, rij, h1, fac,
+#: WIJ, the gradient's factor and DWIJ (:254-272) before the shape
+#: function; each term (:135-204), and the momentum terms' shared
+#: 1 / Vj, their volume factor, EPS and vij (:146-152); the minimum
+#: image, d - L rint(d / L), on each periodic axis, in every support
+#: test (cell_walk.cuh) and in the body
+TVF_PAIR_FLOPS = 30
+TVF_TERM_FLOPS = {tp.SDEN: 3, tp.MPG: 25, tp.VISC: 25, tp.MAS: 57,
+                  tp.AVIS: 25}
+TVF_MOMENTUM_FLOPS = 9
+IMAGE_FLOPS = 4
 
 
 def bound(work):
@@ -100,19 +114,29 @@ def _grid3(grid, counts):
     return counts.reshape(nz, ny, nx)
 
 
+def _shifted(a3, offs, periodic):
+    """s[c] = a3[c + o] for the offsets ``offs`` (-1, 0 or 1 by array
+    axis): wrapped on a ``periodic`` axis, 0 past the ends of another."""
+    s = a3
+    for ax, (o, per) in enumerate(zip(offs, periodic)):
+        if o == 0:
+            continue
+        s = torch.roll(s, -o, ax)
+        if not per:
+            edge = [slice(None)] * 3
+            edge[ax] = slice(-1, None) if o > 0 else slice(0, 1)
+            s[tuple(edge)] = 0
+    return s
+
+
 def _shift_sum(grid, a3, x_offsets):
     """out[c] = sum over the stencil offsets o of a3[c + o] (0 outside
-    the grid), on a (nz, ny, nx) array."""
-    nz, ny, nx = a3.shape
-    pad = torch.zeros((nz + 2, ny + 2, nx + 2), dtype=a3.dtype,
-                      device=a3.device)
-    pad[1:-1, 1:-1, 1:-1] = a3
+    the grid, wrapped on a periodic axis), on a (nz, ny, nx) array."""
+    periodic = tuple(reversed(grid.periodic))
     out = torch.zeros_like(a3)
     for ox, oy, oz in grid.offsets(a3.device).tolist():
-        if ox not in x_offsets:
-            continue
-        out += pad[1 + oz:1 + oz + nz, 1 + oy:1 + oy + ny,
-                   1 + ox:1 + ox + nx]
+        if ox in x_offsets:
+            out += _shifted(a3, (oz, oy, ox), periodic)
     return out
 
 
@@ -249,6 +273,31 @@ def gtvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     return work
 
 
+def tvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Work of one ``tvf_pair`` call (the stencil wrapped on a periodic
+    grid)."""
+    terms = 0
+    work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
+    shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    image = IMAGE_FLOPS * sum(grid.periodic)
+    for src, cells, ts in sources:
+        terms |= ts.terms
+        cand, reached, ncells = stencil(grid, dest_cells, cells)
+        pairs = support_pairs(grid, dest, dest_cells, src, cells)
+        per_pair = TVF_PAIR_FLOPS + image + shape + sum(
+            f for t, f in TVF_TERM_FLOPS.items() if ts.terms & t)
+        if ts.terms & ~tp.SDEN:
+            per_pair += TVF_MOMENTUM_FLOPS
+        work['candidates'] += cand
+        work['visited'] += cand
+        work['pairs'] += pairs
+        work['flops'] += cand * (SUPPORT_FLOPS + image) + pairs * per_pair
+        work['bytes'] += _source_bytes(src, reached, ncells,
+                                       tp._reads(ts.terms, 1))
+    work['bytes'] += _dest_bytes(dest, write_mask, pre, tp._reads(terms, 0))
+    return work
+
+
 def fused_work(state, cells, grid):
     """Work of one ``fused_continuity_momentum`` call (one array against
     itself, 9 props in, 4 sums out, no pre values or write mask)."""
@@ -273,7 +322,8 @@ def bin_work(grid, states, rebuilt):
     x = next(iter(states.values()))['x']
     n = sum(s['x'].shape[0] for s in states.values())
     es = x.element_size()
-    work = dict(candidates=0, visited=0, pairs=0, flops=n * BIN_TEST_FLOPS,
+    work = dict(candidates=0, visited=0, pairs=0,
+                flops=n * (BIN_TEST_FLOPS + IMAGE_FLOPS * sum(grid.periodic)),
                 bytes=n * 7 * es)
     if rebuilt:
         work['bytes'] += n * (3 * es + 2 * I32) + \

@@ -15,7 +15,9 @@ grows and the chunk is captured again; on the moving dam break, seeded
 velocities of 3 m/s make the reuse test rebuild the binning every few
 steps inside the chunks; ``dam_break_3d --engine dense --delta-sph``
 runs its delta-SPH groups on the torch pair engine inside the graphs
-(a chunk that overflowed a capacity is redone and captured again).
+(a chunk that overflowed a capacity is redone and captured again); the
+Taylor-Green vortex runs on a periodic box, whose particles wrap across
+it inside the chunks.
 
 ``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
 step (host clock at each step's start, the card synchronised) or in
@@ -44,6 +46,7 @@ import torch
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
+from pysph_tpu_torch.examples.taylor_green import TaylorGreen
 from pysph_tpu_torch.sph import integrator as _integrator
 from pysph_tpu_torch.sph import integrator_step as _steps
 from pysph_tpu_torch.tools_dev import common
@@ -72,11 +75,13 @@ PATHS = {
                                extra=('--nx', '200')),
     'drop nx=200 dense': dict(dx=None, cls=EllipticalDrop,
                               extra=('--nx', '200'), engine='dense'),
+    'taylor_green nx=400': dict(dx=None, cls=TaylorGreen,
+                                extra=('--nx', '400')),
 }
 
 
 #: the paths timed under the default binning configuration only
-REUSE_ONLY = ('dam_break_3d dx=0.02 delta',)
+REUSE_ONLY = ('dam_break_3d dx=0.02 delta', 'taylor_green nx=400')
 
 
 def configs(path):
@@ -170,6 +175,8 @@ GATES.update({
                      None),
     'dam_break_2d wcsph dx=0.02': (DamBreak2D, ('--dx', '0.02'), None),
     'elliptical_drop nx=40': (EllipticalDrop, ('--nx', '40'), _tight_grid),
+    'taylor_green nx=40': (TaylorGreen, ('--nx', '40', '--perturb', '0.1'),
+                           None),
 })
 GATES.update({
     'dam_break_2d wcsph dx=0.02 %s' % name[:-len('Integrator')]: (

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from pysph_tpu_torch.base.cell_grid import CellGrid
+from pysph_tpu_torch.base.domain import DomainManager
 from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.config import Config
 from pysph_tpu_torch.ops import bin_cells as bc
@@ -68,3 +69,35 @@ def test_captured_chunks_with_reuse_equal_the_eager_loop():
     held = time_chunks.gate('dam_break_3d dx=0.04 moving')
     assert held['rebuilds'] >= 5 and held['replays'] == held['chunks']
     assert held['max_scaled_err'] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['2d xy', '2d x', '3d xyz'])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_periodic_bin_cells_matches_plain_version_exactly(case, dtype):
+    """The same on a periodic grid (``base/domain.py``): cells of L /
+    dims from the box's corner, ids modulo the counts, the reuse test's
+    displacement by minimum image (``bin_check``'s moved particles are
+    wrapped into the box, so some jump by its length), a tenth of the
+    particles on the box's ends; periodic in x and y, in x only, and in
+    every axis of 3D."""
+    _need_card()
+    dim = int(case[0])
+    axes = case.split()[1]
+    rng = np.random.default_rng(17)
+    n = 3000
+    xyz = np.zeros((3, n))
+    xyz[:dim] = rng.uniform(0.0, 1.0, (dim, n))
+    xyz[:dim, :n // 10] = rng.choice([0.0, 1.0, 1.0 - 1e-7],
+                                     (dim, n // 10))
+    kw = {}
+    for c in axes:
+        kw.update({c + 'min': 0.0, c + 'max': 1.0, 'periodic_in_' + c: True})
+    domain = DomainManager(**kw)
+    pa = ParticleArray(name='fluid', x=xyz[0], y=xyz[1], z=xyz[2],
+                       h=rng.uniform(0.01, 0.02, n))
+    grid = CellGrid.from_particles([pa], dim=dim, radius_scale=3.0,
+                                   domain=domain)
+    assert grid.periodic[:dim] == tuple(c in axes for c in 'xyz'[:dim])
+    states = {'fluid': pa.to_device(Config(device='cuda', dtype=dtype))}
+    assert bin_check.check(grid, states, seed=dim) == len(bin_check.FLAGS)

@@ -31,6 +31,7 @@ import torch
 from pysph_tpu.config import get_config
 from pysph_tpu.examples.dam_break_3d import DamBreak3D as JaxDamBreak3D
 from pysph_tpu_torch.base.cell_grid import CellGrid
+from pysph_tpu_torch.base.domain import DomainManager
 from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.config import Config
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
@@ -305,19 +306,12 @@ def test_grow_invalidates_the_handles():
 
 
 def test_unported_branches_raise():
-    """The reuse test's periodic minimum image and the stratified
-    binning wait for ROADMAP items 25 and 27."""
+    """The stratified binning and the mirror boundaries of a domain wait
+    for ROADMAP item 27 (the periodic minimum image of the reuse test,
+    which raised here, is ported: ``tests/test_torch_domain.py``)."""
     arrays = _arrays(2, 13)
     with pytest.raises(NotImplementedError, match='item 27'):
         CellGrid.from_particles(arrays, dim=2, radius_scale=2.0,
                                 stratify=True)
-    app = DamBreak3D()
-    app.setup(CPU + ARGV)
-    a_eval = app.solver.acceleration_evals[0]
-
-    class Periodic(object):
-        is_periodic = True
-
-    a_eval.set_domain(Periodic())
-    with pytest.raises(NotImplementedError, match='item 25'):
-        a_eval.prepare_reuse(app.solver.states, None)
+    with pytest.raises(NotImplementedError, match='item 27'):
+        DomainManager(xmin=0.0, xmax=1.0, mirror_in_x=True)

@@ -17,6 +17,7 @@ from pysph_tpu_torch.ops import build, cell_pack, cell_walk
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
+from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.tools_dev import roofline
 from pysph_tpu_torch.tools_dev import walk_cases as wc
@@ -318,12 +319,13 @@ def _plane_name(p):
 
 
 @pytest.mark.parametrize('kernel', ['wcsph_pair', 'gtvf_pair', 'fused_pair',
-                                    'delta_pair'])
+                                    'delta_pair', 'tvf_pair'])
 def test_plane_tables_are_the_cuda_sources(kernel):
     module, source = {'wcsph_pair': (wp, 'wcsph_terms.cuh'),
                       'gtvf_pair': (gp, 'gtvf_pair.cu'),
                       'fused_pair': (fp, 'fused_pair.cu'),
-                      'delta_pair': (dl, 'delta_pair.cu')}[kernel]
+                      'delta_pair': (dl, 'delta_pair.cu'),
+                      'tvf_pair': (tp, 'tvf_pair.cu')}[kernel]
     rows = re.findall(r'^//\s+plane (\d): (.+)$',
                       (build.CSRC / source).read_text(), re.MULTILINE)
     assert [int(q) for q, _ in rows] == list(range(len(rows)))

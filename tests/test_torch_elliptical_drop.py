@@ -29,7 +29,7 @@ from pysph_tpu.config import get_config
 from pysph_tpu.examples.elliptical_drop import \
     EllipticalDrop as JaxEllipticalDrop
 from pysph_tpu.solver import output as jax_output
-from pysph_tpu_torch.base.kernels import CubicSpline, Gaussian
+from pysph_tpu_torch.base.kernels import CubicSpline, Gaussian, QuinticSpline
 from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
@@ -183,9 +183,15 @@ def test_kernel_and_scheme_options():
                              'CubicSpline']).solver
     assert isinstance(s.kernel, CubicSpline)
     assert s.grid.radius_scale == 2.0 and s.grid.dims == (17, 17, 1)
+    # QuinticSpline is ported (the WCSPH walks do not take it: the
+    # drop's pair phases then run on the torch engine)
+    s = _port_app('kernel', ['--disable-output', '--kernel',
+                             'QuinticSpline']).solver
+    assert isinstance(s.kernel, QuinticSpline) and s.grid.radius_scale == 3.0
+    assert set(s.acceleration_evals[0].engine_choices.values()) == {'torch'}
     with pytest.raises(NotImplementedError, match='item 19'):
         _port_app('kernel', ['--disable-output', '--kernel',
-                             'QuinticSpline'])
+                             'WendlandQuinticC4'])
     with pytest.raises(NotImplementedError, match='item 26'):
         _port_app('kernel', ['--disable-output', '--scheme', 'iisph'])
 

@@ -1,0 +1,256 @@
+"""The port's Taylor-Green vortex (``examples/taylor_green.py``, ``--scheme
+tvf``) against pysph_tpu's, float64 on the CPU, nx=16 (256 particles on
+a box periodic in x and y, 4 x 4 cells).
+
+- The scheme is the reference's: ``PECIntegrator`` with
+  ``TransportVelocityStep``, ``QuinticSpline``, the example's fixed dt,
+  a periodic grid; both pair groups on ``tvf_pair`` (its plain version
+  here) under the kernel engine; the other schemes raise.
+- One evaluation of a perturbed lattice to 1e-10 of ``max|ref|``, on the
+  kernel and the torch engine, against the JAX XLA engine, and against
+  the JAX Pallas engine in resident mode (``_pair_kernel_resident`` in
+  interpret mode, the kernel ``csrc/tvf_pair.cu`` replaces).
+- Three steps to 1e-9 in x y u v p rho V: from the perturbed lattice,
+  and from one shifted so that a row and a column lie a fifth of a step
+  inside the box's ends, which wrap across it in the first step.
+- The chunks against the per-step loop (``time_chunks.gate``, the gate
+  the card runs: 30 steps at nx=40 with particles wrapping).
+- The kernel engine against the torch engine, 10 steps from ``--perturb
+  0.1`` (``tools_dev/tg_conditioning.py``, the card's engine gate).
+- ``post_process``: max |v| and the L1 error against the exact decay.
+"""
+
+import shutil
+import tempfile
+
+import numpy as np
+import pytest
+
+from pysph_tpu.config import get_config
+from pysph_tpu.examples.taylor_green import TaylorGreen as JaxTaylorGreen
+from pysph_tpu_torch.base.kernels import QuinticSpline
+from pysph_tpu_torch.base.particle_array import ParticleArray
+from pysph_tpu_torch.examples.taylor_green import TaylorGreen
+from pysph_tpu_torch.ops import tvf_pair as tp
+from pysph_tpu_torch.sph.integrator import PECIntegrator
+from pysph_tpu_torch.sph.integrator_step import TransportVelocityStep
+from pysph_tpu_torch.tools_dev import tg_conditioning, time_chunks
+from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
+
+NX = 16
+DX = 1.0 / NX
+# the JAX float64 time loop hands a fixed dt over as float32: a dt that
+# float32 holds exactly (the example's is 1.42e-3 at nx=16)
+DT = 2.0 ** -10
+ARGV = ['--nx', str(NX), '--disable-output', '-q', '--dt', repr(DT)]
+EVAL_OUT = ('V', 'rho', 'p', 'au', 'av', 'auhat', 'avhat')
+STEP_PROPS = ('x', 'y', 'u', 'v', 'p', 'rho', 'V')
+EVAL_TOL = 1e-10
+STEP_TOL = 1e-9
+
+
+def _scaled_err(a, b):
+    return np.abs(a - b).max() / max(np.abs(b).max(), np.finfo(float).tiny)
+
+
+def _start(particles, start):
+    """The perturbed lattice (seeded), or it shifted so that the last
+    row and column lie DT / 5 inside the box's ends."""
+    rng = np.random.default_rng(31)
+    for pa in particles:
+        n = pa.get_number_of_particles()
+        if start == 'shifted':
+            for c in ('x', 'y'):
+                pa.properties[c][:] += 0.5 * DX - 0.2 * DT
+        else:
+            for c in ('x', 'y'):
+                pa.properties[c][:] += 0.1 * DX * rng.uniform(-1, 1, n)
+            pa.properties['rho'][:] *= 1.0 + 0.01 * rng.normal(size=n)
+
+
+def _snapshot(particles):
+    return {pa.name: ({k: v.copy() for k, v in pa.properties.items()},
+                      {k: v.copy() for k, v in pa.constants.items()},
+                      dict(pa.stride)) for pa in particles}
+
+
+def _jax_app(out_dir, argv, use_pallas=False):
+    cfg = get_config()
+    old = cfg._use_pallas
+    try:
+        cfg.use_pallas = use_pallas
+        app = JaxTaylorGreen()
+        app.setup(['-d', str(out_dir)] + argv)
+        return app
+    finally:
+        cfg._use_pallas = old
+
+
+def _jax_eval(start, use_pallas=False, nx=NX):
+    """One evaluation in pysph_tpu: ({prop: ndarray}, the inputs, the
+    JAX evaluator's engine choices)."""
+    tmp = tempfile.mkdtemp()
+    cfg = get_config()
+    old = cfg._use_pallas
+    try:
+        app = _jax_app(tmp, ARGV[:1] + [str(nx)] + ARGV[2:], use_pallas)
+        _start(app.particles, start)
+        inputs = _snapshot(app.particles)
+        s = app.solver
+        s._sync_to_device()
+        cfg.use_pallas = use_pallas
+        states, diag, carry = s._init_accel_fn(s.states, 0.0, s.dt)
+        assert not s._check_overflow(diag)
+        states = s._mat_fn(states, carry)
+        n = app.particles[0].get_number_of_particles()
+        out = {p: np.asarray(states['fluid'][p])[:n] for p in EVAL_OUT}
+        return out, inputs, dict(s.acceleration_evals[0].engine_choices)
+    finally:
+        cfg._use_pallas = old
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _port_app(engine, argv=ARGV):
+    app = TaylorGreen()
+    app.setup(['--use-double', '--device', 'cpu', '--engine', engine] +
+              argv)
+    return app
+
+
+def _port_eval(inputs, engine):
+    s = _port_app(engine).solver
+    s.particles = [ParticleArray.from_numpy(name, *args)
+                   for name, args in inputs.items()]
+    s._sync_to_device()
+    s.integrator.initial_acceleration(s.states, 0.0, DT)
+    return s
+
+
+def _check_eval(s, ref):
+    for p, want in ref.items():
+        got = s.states['fluid'][p].numpy()
+        assert got.shape == want.shape, p
+        err = _scaled_err(got, want)
+        assert err <= EVAL_TOL, '%s: scaled error %.3g' % (p, err)
+
+
+@pytest.fixture(scope='module')
+def jax_eval():
+    return _jax_eval('perturbed')
+
+
+def test_scheme_is_the_reference_default():
+    s = _port_app('kernel', ['--nx', str(NX), '--disable-output',
+                             '-q']).solver
+    assert type(s.integrator) is PECIntegrator
+    assert [type(st) for st in s.integrator.steppers.values()] == [
+        TransportVelocityStep]
+    assert type(s.kernel) is QuinticSpline and s.kernel.dim == 2
+    h0 = DX
+    assert s.dt == min(0.25 * h0 / 11.0, 0.125 * h0 ** 2 / 0.01, 0.25)
+    assert not s.adaptive_timestep and s.tf == 2.0 and s.pfreq == 500
+    grid = s.grid
+    assert grid.periodic == (True, True, False)
+    assert grid.dims == (4, 4, 1)
+    plans = [p for p in s.acceleration_evals[0]._plans.values()
+             if p is not None]
+    assert [(p.op, p.outputs) for p in plans] == [
+        (tp.tvf_pair, ('V', 'rho')),
+        (tp.tvf_pair, ('au', 'av', 'aw', 'auhat', 'avhat', 'awhat'))]
+    assert [[ps.terms for ps in p.sources] for p in plans] == [
+        [tp.SDEN], [tp.MPG | tp.VISC | tp.MAS]]
+    for scheme in ('wcsph', 'gtvf', 'iisph', 'edac'):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            TaylorGreen().setup(['--device', 'cpu', '--scheme', scheme])
+
+
+@pytest.mark.parametrize('engine', ['kernel', 'torch'])
+def test_one_eval_matches_jax(engine, jax_eval):
+    ref, inputs, _ = jax_eval
+    s = _port_eval(inputs, engine)
+    assert set(s.acceleration_evals[0].engine_choices.values()) == {engine}
+    _check_eval(s, ref)
+
+
+def test_one_eval_matches_jax_resident():
+    """The JAX Pallas engine runs the path in resident mode (the TPU's
+    ``_pair_kernel_resident``, interpret mode here), nx=12."""
+    ref, inputs, choices = _jax_eval('perturbed', use_pallas=True, nx=12)
+    assert choices == {'__mode__': 'resident'}
+    app = TaylorGreen()
+    app.setup(['--use-double', '--device', 'cpu', '--nx', '12', '-q',
+               '--disable-output', '--dt', repr(DT)])
+    s = app.solver
+    s.particles = [ParticleArray.from_numpy(name, *args)
+                   for name, args in inputs.items()]
+    s._sync_to_device()
+    s.integrator.initial_acceleration(s.states, 0.0, DT)
+    _check_eval(s, ref)
+
+
+@pytest.mark.parametrize('start', ['perturbed', 'shifted'])
+def test_three_steps_match_jax(start):
+    argv = ARGV + ['--max-steps', '3']
+    tmp = tempfile.mkdtemp()
+    try:
+        ref = _jax_app(tmp, argv)
+        _start(ref.particles, start)
+        ref.solver._sync_to_device()
+        inputs = _snapshot(ref.particles)
+        ref.solve()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    port = _port_app('kernel', argv)
+    s = port.solver
+    s.particles = port.particles = [ParticleArray.from_numpy(name, *args)
+                                    for name, args in inputs.items()]
+    s._sync_to_device()
+    port.solve()
+    assert s.count == ref.solver.count == 3
+    assert abs(s.t - ref.solver.t) <= STEP_TOL * ref.solver.t
+    x0 = inputs['fluid'][0]['x']
+    wrapped = np.abs(port.particles[0].x - x0) > 0.5
+    if start == 'shifted':
+        assert wrapped.sum() >= 4
+    got, want = port.particles[0], ref.particles[0]
+    for p in STEP_PROPS:
+        err = _scaled_err(getattr(got, p), np.asarray(getattr(want, p)))
+        assert err <= STEP_TOL, '%s after 3 steps: %.3g' % (p, err)
+
+
+def test_chunks_match_the_per_step_loop():
+    held = time_chunks.gate('taylor_green nx=40', 'cpu')
+    assert held['steps'] == time_chunks.GATE_STEPS
+    assert held['max_scaled_err'] <= time_chunks.TOL
+    assert held['rebuilds'] >= 2
+
+
+def test_post_process_against_the_exact_decay():
+    tmp = tempfile.mkdtemp()
+    try:
+        app = TaylorGreen()
+        app.run(['--use-double', '--device', 'cpu', '--nx', str(NX), '-q',
+                 '-d', tmp, '--max-steps', '4', '--pfreq', '2'])
+        rows = app.post_process(app.info_filename)
+        data = np.load(tmp + '/results.npz')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert rows.shape == (3, 4) and data['t'].tolist() == rows[:, 0].tolist()
+    assert abs(rows[-1, 0] - 4 * app.solver.dt) < 1e-12
+    # four small steps from the exact field: max |v| of the lattice (0.963
+    # at nx=16) decays as the exact field does to 1e-3, and the L1 error
+    # of |v| stays small
+    assert rows[0, 2] == 1.0 and 0.95 < rows[0, 1] <= 1.0
+    assert np.all(np.abs(rows[:, 1] / rows[0, 1] - rows[:, 2]) < 1e-3)
+    assert np.all(rows[:, 3] < 1e-2)
+
+
+def test_engines_agree_from_a_perturbed_start():
+    # the card's engine gate in float64, here at nx=16: from --perturb
+    # 0.1 the kernel engine is within 1e-9 of the torch engine after 10
+    # steps in every prop, and rounding (x moved by one ulp) moves every
+    # prop by far less than that
+    spread = tg_conditioning.spread(NX, 10, 0.1, 'cpu')
+    for p, (kernel, ulp) in spread.items():
+        assert kernel <= STEP_TOL, '%s: kernel engine %.3g' % (p, kernel)
+        assert ulp <= 1e-3 * STEP_TOL, '%s: one ulp %.3g' % (p, ulp)
