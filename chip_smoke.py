@@ -199,7 +199,8 @@ from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
 from pysph_tpu_torch.tools_dev import time_chunks, tvf_check, walk_cases
-from pysph_tpu_torch.tools_dev.common import capture, events_ms, graph_ms
+from pysph_tpu_torch.tools_dev.common import (
+    capture, events_ms, graph_ms, linked_calls)
 from pysph_tpu_torch.tools_dev.time_walks import (
     delta_calls, drop_calls, fused_call, gtvf_calls, make_app, pair_calls)
 
@@ -446,22 +447,23 @@ def _bin_phase(label, s, out):
     out[label] = rows
 
 
-def _delta_times(calls, rounds=5, reps=20):
+def _linked_times(op, calls, rounds=5, reps=20):
     """Median ms of CUDA graph replays of the linked pair of ``calls``
-    (the moment call emitting, the gradient call consuming), of the two
+    (``op``'s emitting call, then its consuming call), of the two
     walking calls (each packing, as before the link), and of each launch
-    alone (``consume`` on a hand-off emitted before), the graphs' replays
-    alternated over ``rounds`` rounds in this process."""
-    ((_, _, _, margs), (_, _, _, gargs)), = delta_check.linked_calls(calls)
-    _, held = dl.delta_pair(*margs, emit=True)
+    alone (``consume`` on a hand-off emitted before; ``first walk`` and
+    ``second walk`` the walking calls), the graphs' replays alternated
+    over ``rounds`` rounds in this process; and the linked pair as a
+    function."""
+    ((_, _, _, first), (_, _, _, second)), = linked_calls(calls)
+    _, held = op(*first, emit=True)
     fns = {
-        'linked': lambda: dl.delta_pair(
-            *gargs, handoff=dl.delta_pair(*margs, emit=True)[1]),
-        'walking': lambda: (dl.delta_pair(*margs), dl.delta_pair(*gargs)),
-        'emit': lambda: dl.delta_pair(*margs, emit=True),
-        'consume': lambda: dl.delta_pair(*gargs, handoff=held),
-        'moment walk': lambda: dl.delta_pair(*margs),
-        'gradient walk': lambda: dl.delta_pair(*gargs),
+        'linked': lambda: op(*second, handoff=op(*first, emit=True)[1]),
+        'walking': lambda: (op(*first), op(*second)),
+        'emit': lambda: op(*first, emit=True),
+        'consume': lambda: op(*second, handoff=held),
+        'first walk': lambda: op(*first),
+        'second walk': lambda: op(*second),
     }
     graphs = {k: capture(fn) for k, fn in fns.items()}
     times = {k: [] for k in fns}
@@ -495,7 +497,7 @@ def _delta_phase(runs, kernels):
     counted), and the linked pair there (``check_linked``: the moment
     call's neighbour list equal to ``neighbours_reference``, the
     consuming gradient call equal to the walking one bit for bit, 0
-    flips, one pack), timed at dx=0.02 (``_delta_times``: the linked pair
+    flips, one pack), timed at dx=0.02 (``_linked_times``: the linked pair
     against the two walking launches, each launch alone), the pack
     launches of one eval counted, then the path (``_drive``, reuse
     only): 3 ``wcsph_pair`` and 2 ``delta_pair`` launches an eval, 4
@@ -515,13 +517,13 @@ def _delta_phase(runs, kernels):
     found = delta_check.check(calls, what)
     linked = delta_check.check_linked(calls, what)
     dcalls = [c for c in calls if c[2].op is dl.delta_pair]
-    times, linked_fn = _delta_times(calls)
+    times, linked_fn = _linked_times(dl.delta_pair, calls)
     delta_ms = times['linked']
     delta_eager = events_ms(linked_fn, 20)
     delta_plain_ms = events_ms(
         lambda: [c[2].reference(*c[3]) for c in dcalls], 3)
     # the linked gradient tests no candidate: one walk's support tests
-    ((_, _, _, margs), (_, _, _, gargs)), = delta_check.linked_calls(calls)
+    ((_, _, _, margs), (_, _, _, gargs)), = linked_calls(calls)
     delta_work = roofline.add(roofline.delta_work(*margs),
                               roofline.delta_work(*gargs, walks=False))
     two_walks = _calls_work(dcalls, roofline.delta_work)
@@ -533,7 +535,7 @@ def _delta_phase(runs, kernels):
           'one walk: %.4g flops); counted with two walks %.4f ms (%s, %.4g '
           'flops)' % (
               (delta_ms, times['walking'], times['emit'], times['consume'],
-               times['moment walk'], times['gradient walk'], delta_eager,
+               times['first walk'], times['second walk'], delta_eager,
                delta_plain_ms) + roofline.bound(delta_work) +
               (delta_work['flops'],) + roofline.bound(two_walks) +
               (two_walks['flops'],)), flush=True)
@@ -574,8 +576,8 @@ def _delta_phase(runs, kernels):
         share=roofline.bound(delta_work)[0] / delta_ms,
         per_launch_ms=[times['emit'], times['consume']],
         walking_ms=times['walking'],
-        walking_per_launch_ms=[times['moment walk'],
-                               times['gradient walk']],
+        walking_per_launch_ms=[times['first walk'],
+                               times['second walk']],
         two_walk_bound_ms=roofline.bound(two_walks)[0],
         flips=found['flips'] + linked['flips'],
         flipped_dests=found['flipped_dests'],
@@ -699,19 +701,46 @@ def _tg_decay(out, solver):
                              'decay')
 
 
+def _tvf_linked(s):
+    """The Taylor-Green run of ``s`` ran its density and momentum plans
+    linked, with no dest past the list's capacity (the counter reset
+    before the run)."""
+    plans = [p for a in s.acceleration_evals for p in a._plans.values()
+             if p is not None]
+    links = {id(p.link) for p in plans if p.link is not None}
+    overflowed = tp.overflowed('cuda')
+    print('taylor_green nx=400: %d linked tvf_pair pair, %d dests past the '
+          'list\'s capacity in the runs' % (len(links), overflowed),
+          flush=True)
+    if len(plans) != 2 or len(links) != 1 or overflowed:
+        raise AssertionError('the Taylor-Green run was not linked, or %d '
+                             'dests overflowed its list' % overflowed)
+
+
 def _tvf_phase(runs, kernels, bins):
     """The Taylor-Green vortex (``examples.taylor_green``, ``--scheme
     tvf``): ``tvf_pair`` against its plain version on its periodic grid
     (``tools_dev/tvf_check.py``: perturbed, and with a tenth of the
     particles on the box's edges and corners) at nx=50 in both dtypes
-    and nx=400 in float32, timed and counted there; the kernel engine
-    against the torch engine at nx=50 in float64 for 10 steps, from a
-    start perturbed by a tenth of dx (on the unperturbed lattice rounding
-    alone moves ``auhat avhat`` by ~2e-9 of their max in 10 steps, as
-    ``tools_dev/tg_conditioning.py`` shows; from this start, every prop
-    by <= ~4e-13); then the path at nx=400 as the main path under the
-    binning reuse (2 launches in the initial eval, 2 a step), with its
-    decay against the exact one.  Adds the ``tvf_pair`` entry."""
+    and nx=400 in float32, and its linked pair on each of these calls
+    (``tvf_check.check_linked``: the density launch's neighbour list
+    equal to ``neighbours_reference``, both launches equal to the
+    walking ones bit for bit and within ``TOL`` of the plain version,
+    one pack each, no dest past the capacity but in the edge cases,
+    whose corners stack particles; at nx=50 in float64 also with the
+    capacity one short of the largest count and with capacity 1, so that
+    some and then all warps walk); timed and counted at nx=400
+    (``_linked_times``: the linked pair against the two walking
+    launches, each launch alone, graph replays alternated) with each
+    mode's registers and spills; the kernel engine against the torch
+    engine at nx=50 in float64 for 10 steps, from a start perturbed by a
+    tenth of dx (on the unperturbed
+    lattice rounding alone moves ``auhat avhat`` by ~2e-9 of their max
+    in 10 steps, as ``tools_dev/tg_conditioning.py`` shows; from this
+    start, every prop by <= ~4e-13); then the path at nx=400 as the main
+    path under the binning reuse (2 launches in the initial eval, 2 a
+    step, linked, one pack each), with its decay against the exact one.
+    Adds the ``tvf_pair`` entry."""
     for nx, dtype, edges in ((50, torch.float64, False),
                              (50, torch.float64, True),
                              (50, torch.float32, False),
@@ -720,38 +749,67 @@ def _tvf_phase(runs, kernels, bins):
         calls, n, moved = tvf_check.calls(nx, dtype, edges)
         if not calls[0][3][5].is_periodic:
             raise AssertionError('the Taylor-Green grid is not periodic')
-        _compare(calls, dtype, 'tvf_pair taylor_green nx=%d %s%s (%d '
-                 'particles%s)' % (nx, str(dtype)[6:], ' edges' * edges, n,
-                                   ', %d on the edges' % moved if edges
-                                   else ''))
+        what = 'taylor_green nx=%d %s%s (%d particles%s)' % (
+            nx, str(dtype)[6:], ' edges' * edges, n,
+            ', %d on the edges' % moved if edges else '')
+        _compare(calls, dtype, 'tvf_pair ' + what)
+        # the corners of the edge cases stack particles: their dests past
+        # the capacity are counted and walk
+        found = tvf_check.check_linked(calls, what, TOL[dtype])
+        if found['overflowed'] and not edges:
+            raise AssertionError('%s: %d dests past the list\'s capacity'
+                                 % (what, found['overflowed']))
+        if (nx, dtype, edges) == (50, torch.float64, False):
+            for cap in (found['max_count'] - 1, 1):
+                small = tvf_check.check_linked(
+                    calls, '%s, capacity %d' % (what, cap), TOL[dtype],
+                    capacity=cap)
+                if not small['overflowed']:
+                    raise AssertionError('%s: no dest past capacity %d'
+                                         % (what, cap))
         del calls
     calls, n, _ = tvf_check.calls(400, torch.float32)
     if n != 160000:
         raise AssertionError('taylor_green at nx=400 has %d particles, not '
                              '160,000' % n)
-    err = _compare(calls, torch.float32, 'tvf_pair taylor_green nx=400 '
-                   'float32 (%d particles)' % n)
+    what = 'taylor_green nx=400 float32 (%d particles)' % n
+    err = _compare(calls, torch.float32, 'tvf_pair ' + what)
+    linked = tvf_check.check_linked(calls, what, TOL[torch.float32])
+    if linked['overflowed']:
+        raise AssertionError('%s: %d dests past the list\'s capacity'
+                             % (what, linked['overflowed']))
+    err = max(err, linked['max_abs_err'])
     for k, dest, _, args in calls:
         _check_pack('taylor_green nx=400 ' + dest, tp.pack_sources(args[4]),
                     tp.pack_sources_reference(args[4]))
-    eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
-    ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    times, linked_fn = _linked_times(tp.tvf_pair, calls)
+    eager = events_ms(linked_fn, 20)
     plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in calls], 3)
-    by_launch = [graph_ms(lambda: c[2].op(*c[3]), 20) for c in calls]
-    work = _calls_work(calls, roofline.tvf_work)
+    ((_, _, _, dargs), (_, _, _, margs)), = linked_calls(calls)
+    # the consuming momentum call tests no candidate: one walk's tests
+    work = roofline.add(roofline.tvf_work(*dargs),
+                        roofline.tvf_work(*margs, walks=False))
+    two_walks = _calls_work(calls, roofline.tvf_work)
     bound_ms, bound_by = roofline.bound(work)
-    print('tvf_pair, pair phases of one eval of taylor_green at nx=400 '
-          'float32 (2 launches, the packs included; grid %s, periodic %s): '
-          'kernel %.3f ms eager, %.3f ms in a graph (density %.3f, momentum '
-          '%.3f), plain torch %.3f ms; bound %.4f ms (%s); %d candidates, '
-          '%d visited, %d pairs; %.1f candidates and %.1f pairs a particle '
-          'a launch' % (
-              calls[0][3][5].dims, calls[0][3][5].periodic, eager, ms,
-              by_launch[0], by_launch[1], plain_ms, bound_ms, bound_by,
-              work['candidates'], work['visited'], work['pairs'],
-              work['candidates'] / (2.0 * n), work['pairs'] / (2.0 * n)),
-          flush=True)
-    del calls
+    resources = tvf_check.resources(build.build('tvf_pair'))
+    print('tvf_pair, the 2 launches of one eval of taylor_green at nx=400 '
+          'float32 (grid %s, periodic %s), graph replays alternated in this '
+          'process: linked (emit + consume, each packing) %.4f ms, walking '
+          '(2 walks) %.4f ms; alone: emit %.4f, consume %.4f, density walk '
+          '%.4f, momentum walk %.4f; linked eager %.3f, plain torch %.3f '
+          'ms; bound %.4f ms (%s, one walk: %.4g flops, %d candidates, %d '
+          'pairs); counted with two walks %.4f ms (%s, %.4g flops, %d '
+          'candidates); %.1f candidates and %.1f pairs a particle a walk; '
+          'registers and spill bytes (stores, loads) by mode: %s' % ((
+              calls[0][3][5].dims, calls[0][3][5].periodic, times['linked'],
+              times['walking'], times['emit'], times['consume'],
+              times['first walk'], times['second walk'], eager, plain_ms,
+              bound_ms, bound_by, work['flops'], work['candidates'],
+              work['pairs']) + roofline.bound(two_walks) + (
+              two_walks['flops'], two_walks['candidates'],
+              work['candidates'] / n, work['pairs'] / (2.0 * n),
+              resources)), flush=True)
+    del calls, linked_fn, dargs, margs
     _engines_agree('taylor_green nx=50', None, 10,
                    ('x', 'y', 'u', 'v', 'rho', 'p', 'V', 'au', 'av',
                     'auhat', 'avhat'), cls=TaylorGreen,
@@ -763,16 +821,24 @@ def _tvf_phase(runs, kernels, bins):
     decay['vmax0'] = float(torch.sqrt(start['u'] ** 2 +
                                       start['v'] ** 2).max())
     del start
+    tp.reset_overflow('cuda')
     runs[label, 'reuse'] = _drive(
         label, time_chunks.PATHS[label], ((tp.tvf_pair, 2, 2),), 1,
         checks=(functools.partial(_bin_phase, label, out=bins),
-                functools.partial(_tg_decay, decay)))
+                functools.partial(_tg_decay, decay), _tvf_linked))
     kernels['tvf_pair'] = _entry(
         'tvf_pair', 'pysph_tpu/ops/resident.py:645',
-        runs[label, 'reuse']['launches']['tvf_pair'], err, ms, plain_ms,
-        work, None, eager_ms=eager, density_ms=by_launch[0],
-        momentum_ms=by_launch[1], decay=decay,
-        path='taylor_green nx=400, one eval (2 launches)')
+        runs[label, 'reuse']['launches']['tvf_pair'], err, times['linked'],
+        plain_ms, work, None, eager_ms=eager,
+        share=bound_ms / times['linked'],
+        per_launch_ms=[times['emit'], times['consume']],
+        walking_ms=times['walking'],
+        walking_per_launch_ms=[times['first walk'], times['second walk']],
+        two_walk_bound_ms=roofline.bound(two_walks)[0],
+        overflowed=linked['overflowed'], max_count=linked['max_count'],
+        capacity=linked['capacity'], resources=resources, decay=decay,
+        path='taylor_green nx=400, one eval (2 launches, linked: the '
+        'density emits, the momentum consumes)')
 
 
 def _dense_delta_phase():

@@ -19,16 +19,10 @@
 // on the path).  One launch computes every pair term of one dest array
 // over all of its sources (at most 4) and writes each output once.
 //
-// What bounds it: the candidates of the 3x3-cell stencil (~98 a particle
-// at the path's 1.1 x 3h cells) and, per pair in support (~28), the shape
-// function and 20 to 150 flops on up to 12 source values; the bytes are a
-// few records a particle.  So operations and the walk's loads, not the
-// memory rate.
-//
 // Design, as csrc/gtvf_pair.cu: thread t takes the dest at position t of
 // the dest's sorted order, so a warp holds dests of one or a few nearby
 // cells.  Each source is read from its packed copy (csrc/cell_pack.cuh,
-// launched by this file's launch function just before the walk), whose
+// launched by this file's launch function just before the kernel), whose
 // record planes are, as ops/tvf_pair.py PACK_RECORDS:
 //   plane 0: x y z h
 //   plane 1: m rho p V
@@ -39,22 +33,57 @@
 // each stencil row; on a periodic grid (the template flag PERIODIC) the
 // rows wrap and a row that crosses the grid's end on x is two ranges
 // (walk::walk_rows_periodic), and every displacement, in the support test
-// and in the body, is the minimum image d - L rint(d / L) with the box
+// and in the pair, is the minimum image d - L rint(d / L) with the box
 // lengths of the arguments.  The walker hands the candidates in support
-// to the pair body in rounds, one per lane; the body computes WIJ and
-// DWIJ with the guards of the torch pair engine and hands the pair to the
-// phase set's functor, which reads the records of the planes it needs and
-// accumulates in registers.  The epilogue writes pre + sum under the
-// write mask (Group real=True) and pre elsewhere.  No shared memory and
-// no atomics, so the result is the same on every run, and each lane sums
-// its pairs in the order of the plain stencil walk.  Every dest read sees
-// the value from before the phase; the planner refuses a phase set in
-// which one equation reads what another accumulates.
+// to the pair body in rounds, one per lane; pair_of computes WIJ and
+// DWIJ with the guards of the torch pair engine and the phase set's
+// functor reads the records of the planes it needs and accumulates in
+// registers.  The epilogue writes pre + sum under the write mask (Group
+// real=True) and pre elsewhere.  No shared memory and no atomics, so the
+// result is the same on every run, and each lane sums its pairs in the
+// order of the plain stencil walk.  Every dest read sees the value from
+// before the phase; the planner refuses a phase set in which one equation
+// reads what another accumulates.
+//
+// The linked pair (mode).  TVFScheme's groups between the density and
+// the momentum group (the EOS, the wall velocity and pressure) move no
+// x y z h and the binning runs once an eval, so the momentum launch would
+// find the density launch's pairs again, in the same order.  kWalk walks
+// (an unlinked call).  kEmit (the density launch) walks and also writes
+// each dest's in-support candidates, in the order the body takes them,
+// into the neighbour list: entry c of the dest at sorted position p is
+// nbr[c * n_dest + p], a position in the numbering of all sources' copies
+// (source s's position k is base_s + k), for c < cap; count[p] is the
+// dest's number of pairs, which may exceed cap, and each such dest adds
+// one to *overflow.  kConsume (the momentum launch) packs only planes 1-3
+// (m rho p V, the velocities: fresh after the density and EOS groups) and
+// reads plane 0 from the density launch's copy: a warp whose dests all
+// fit reads its lanes' listed records in list order, kListBatch loads in
+// flight a lane, and hands each to the same pair_of and functor as the
+// walk, so its sums are the walk's bit for bit; a warp with a dest past
+// cap walks as kWalk.
+//
+// What bounds it: operations, and in each mode something else first.  A
+// walking launch tests the candidates of the 3x3-cell stencil (~98 a
+// particle at the path's 1.1 x 3h cells: a 16-byte record load, three
+// minimum images and a support test each, the warp voting in rounds) and,
+// per pair in support (~28), computes the shape function and 20 to 150
+// flops on up to 12 source values; the bytes are a few records a
+// particle.  The emitting density launch sums W alone, so its time is
+// the walk's, plus a 4-byte list store a pair.  The consuming momentum
+// launch tests no candidate: its time is its pairs' arithmetic and their
+// 3 or 4 record loads (plane 0 from the emit's copy, planes 1-3 from its
+// own), and its registers (the dest's 22 values and the accumulators)
+// set how many warps hide those loads: it asks for 5 blocks an SM (96
+// registers and a 20-byte spill in float), and each lane keeps
+// kListBatch entries' loads in flight.
 //
 // Interface: plain C, called through ctypes (ops/tvf_pair.py).  The
 // launch function takes a host pointer to TvfArgs (copied into the
 // kernel's parameters) and the stream, launches the pack of a.pack and
-// then the walk, and returns cudaGetLastError().
+// then the kernel, and returns cudaGetLastError().
+
+#include <type_traits>
 
 #include "wcsph_terms.cuh"
 
@@ -69,15 +98,39 @@ enum TvfOut { oV, oRho, oAu, oAv, oAw, oAuhat, oAvhat, oAwhat, kTvfOut };
 enum TvfPhase { kDensity, kMomentum };
 // the record planes of the packed copy (above)
 enum TvfPlane { kPos, kMass, kVel, kHat, kTvfPlanes };
+// the modes, as ops/tvf_pair.py WALK, EMIT, CONSUME
+constexpr int kWalk = 0, kEmit = 1, kConsume = 2;
+// kConsume: listed entries whose loads a lane has in flight (at 5
+// blocks an SM, tools_dev/list_batch.py: 4 fastest, against 2 and 1;
+// PERF.md section 6 gives the times)
+#ifndef LIST_BATCH
+#define LIST_BATCH 4
+#endif
+constexpr int kListBatch = LIST_BATCH;
+// float: the blocks of 128 threads an SM that __launch_bounds__ asks for,
+// by mode (the density walk: 8); double: 4.  Each is the fastest of
+// tools_dev/list_batch.py's sweep at nx=400; PERF.md section 6 gives
+// that run's times, registers and spills for each bound.
+#ifndef EMIT_BLOCKS
+#define EMIT_BLOCKS 8
+#endif
+#ifndef MOMENTUM_BLOCKS
+#define MOMENTUM_BLOCKS 6
+#endif
+#ifndef CONSUME_BLOCKS
+#define CONSUME_BLOCKS 5
+#endif
 
 struct TvfSrc {
   // the packed copy's planes, in the source's cell order; null where the
-  // source's terms read none of the plane's props
+  // source's terms read none of the plane's props (kConsume: plane 0 is
+  // the emitting launch's copy)
   const void* plane[kTvfPlanes];
   const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double pb, nu, alpha, c0;   // MPG's pb, VISC's nu, AVIS's alpha and c0
-  int32_t terms, pad;
+  int32_t terms;
+  int32_t base;  // its position 0 in the neighbour list's numbering
 };
 
 struct TvfArgs {
@@ -88,13 +141,17 @@ struct TvfArgs {
   const uint8_t* wmask;      // write mask (bool); null: every row
   const void* pre[kTvfOut];  // values before the phase; null: unused
   void* out[kTvfOut];
+  // kEmit writes, kConsume reads: (cap, n_dest) entries, (n_dest) counts
+  int32_t* nbr;
+  int32_t* count;
+  int32_t* overflow;  // kEmit: one per dest with more than cap pairs
   TvfSrc src[kMaxSources];
   double radius_scale, kfac;  // kfac: the kernel's sigma
   double box[3];  // the length of each periodic axis, 0 on the others
   int32_t n_dest, n_src, nx, ny, nz, dim, phase, dtype, kernel_kind,
-      periodic;
+      periodic, mode, cap;
   // the pack that fills the sources' planes: the launch function launches
-  // it just before the walk (n_src 0: none)
+  // it just before the kernel (n_src 0: none)
   PackArgs pack;
 };
 
@@ -123,6 +180,41 @@ struct Pair {
   T dwx, dwy, dwz;  // DWIJ
 };
 
+// The pair of the dest di ({xi, yi, zi, hi}) and the source particle at
+// position k whose {x, y, z, h} record is pj: the minimum image on a
+// periodic grid, r2, hij, WIJ and DWIJ.  Every mode computes its pairs
+// here, so that a consuming launch's sums are the walk's bit for bit.
+template <typename T, int KIND, bool PERIODIC>
+__device__ __forceinline__ Pair<T> pair_of(const Rec<T>& di,
+                                           const Rec<T>& pj, int k,
+                                           const walk::Box<T>& box, T kfac,
+                                           int dim) {
+  Pair<T> q;
+  q.k = k;
+  q.xij = di.a - pj.a;
+  q.yij = di.b - pj.b;
+  q.zij = di.c - pj.c;
+  if (PERIODIC) {
+    q.xij = walk::image(q.xij, box.len[0]);
+    q.yij = walk::image(q.yij, box.len[1]);
+    q.zij = walk::image(q.zij, box.len[2]);
+  }
+  q.r2 = q.xij * q.xij + q.yij * q.yij + q.zij * q.zij;
+  q.hij = T(0.5) * (di.d + pj.d);
+  const T rinv = q.r2 > T(1e-24) ? T(1) / sqrt(q.r2) : T(0);
+  const T rij = q.r2 * rinv;
+  const T h1 = T(1) / (q.hij > T(0) ? q.hij : T(1));
+  T wq, dwq;
+  wcsph::shape<T, KIND>(rij * h1, wq, dwq);
+  const T fac = kfac * hpow(h1, dim);
+  q.w = wq * fac;
+  const T gr = rij > T(1e-12) ? dwq * fac * h1 * rinv : T(0);
+  q.dwx = gr * q.xij;
+  q.dwy = gr * q.yij;
+  q.dwz = gr * q.zij;
+  return q;
+}
+
 // The output epilogue: pre + acc under the write mask, pre elsewhere.
 template <typename T>
 __device__ __forceinline__ void put(const TvfArgs& a, int k, int i, T acc,
@@ -138,12 +230,10 @@ __device__ __forceinline__ int all_terms(const TvfArgs& a) {
   return t;
 }
 
-// Each functor: kBlocks, the blocks of 128 threads an SM that its
-// kernel's __launch_bounds__ asks for; load(a, i), the dest's values;
-// pair(a, S, q), one pair in support; store(a, i, wm), the epilogue.
+// Each functor: load(a, i), the dest's values; pair(a, S, q), one pair in
+// support; store(a, i, wm), the epilogue.
 template <typename T>
 struct Density {
-  static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
   T mi = 0;
   T V = 0, rho = 0;
   __device__ void load(const TvfArgs& a, int i) { mi = ld<T>(a.m, i); }
@@ -162,7 +252,6 @@ struct Density {
 // velocity, and for the artificial stress rho u[c] (uhat - u)[d].
 template <typename T>
 struct Momentum {
-  static constexpr int kBlocks = 4;
   T mi1 = 0, vi2 = 0, rhoi = 0, pi = 0;
   T ui[3] = {}, ai[3][3] = {};  // ai[c][d] = rhoi ui[c] (uhati - ui)[d]
   T au = 0, av = 0, aw = 0, auhat = 0, avhat = 0, awhat = 0;
@@ -259,15 +348,27 @@ struct Momentum {
   }
 };
 
-// The walk shared by both phase sets.
-template <typename T, int KIND, bool PERIODIC, class PhaseSet>
-__global__ void __launch_bounds__(128, PhaseSet::kBlocks)
+// The blocks of 128 threads an SM that a kernel's __launch_bounds__ asks
+// for.
+template <typename T, bool DENSITY, int MODE>
+constexpr int blocks_of() {
+  return sizeof(T) == 8    ? 4
+         : MODE == kEmit    ? EMIT_BLOCKS
+         : MODE == kConsume ? CONSUME_BLOCKS
+         : DENSITY          ? 8
+                            : MOMENTUM_BLOCKS;
+}
+
+// One kernel for both phase sets and every mode: kEmit only with Density,
+// kConsume only with Momentum (the launch function's dispatch).
+template <typename T, int KIND, bool PERIODIC, class PhaseSet, int MODE>
+__global__ void __launch_bounds__(
+    128, (blocks_of<T, std::is_same<PhaseSet, Density<T>>::value, MODE>()))
     tvf_pair_kernel(const TvfArgs a) {
   // every lane stays to the end: the walk's votes take the whole warp
   const int pos = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = pos < a.n_dest;
   const int i = active ? a.dorder[pos] : 0;
-  const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
 
   Rec<T> di{};  // {xi, yi, zi, hi}
   PhaseSet ph;
@@ -278,57 +379,86 @@ __global__ void __launch_bounds__(128, PhaseSet::kBlocks)
   const T rs = T(a.radius_scale), kfac = T(a.kfac);
   const walk::Box<T> box{{T(a.box[0]), T(a.box[1]), T(a.box[2])}};
 
-  walk::Walker<T> walker;
-  walker.begin();
-  for (int s = 0; s < a.n_src; ++s) {
-    const TvfSrc& S = a.src[s];
-    auto body = [&](int k) {
-      const Rec<T> pj = rec<T>(S.plane[kPos], k);
-      Pair<T> q;
-      q.k = k;
-      q.xij = di.a - pj.a;
-      q.yij = di.b - pj.b;
-      q.zij = di.c - pj.c;
-      if (PERIODIC) {
-        q.xij = walk::image(q.xij, box.len[0]);
-        q.yij = walk::image(q.yij, box.len[1]);
-        q.zij = walk::image(q.zij, box.len[2]);
+  bool walking = true;
+  if (MODE == kConsume) {
+    const int count = active ? a.count[pos] : 0;
+    walking = __any_sync(walk::kFull, count > a.cap);
+    // the list runs source by source: s is the source of the entries
+    int s = 0;
+    for (int c0 = 0; !walking && c0 < count; c0 += kListBatch) {
+      int e[kListBatch];
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u)
+        e[u] = c0 + u < count ? a.nbr[size_t(c0 + u) * a.n_dest + pos] : -1;
+      int from[kListBatch];
+      Rec<T> pj[kListBatch];
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u) {
+        if (e[u] < 0) continue;
+        while (s + 1 < a.n_src && e[u] >= a.src[s + 1].base) ++s;
+        from[u] = s;
+        pj[u] = rec<T>(a.src[s].plane[kPos], e[u] - a.src[s].base);
       }
-      q.r2 = q.xij * q.xij + q.yij * q.yij + q.zij * q.zij;
-      q.hij = T(0.5) * (di.d + pj.d);
-      const T rinv = q.r2 > T(1e-24) ? T(1) / sqrt(q.r2) : T(0);
-      const T rij = q.r2 * rinv;
-      const T h1 = T(1) / (q.hij > T(0) ? q.hij : T(1));
-      T wq, dwq;
-      wcsph::shape<T, KIND>(rij * h1, wq, dwq);
-      const T fac = kfac * hpow(h1, a.dim);
-      q.w = wq * fac;
-      const T gr = rij > T(1e-12) ? dwq * fac * h1 * rinv : T(0);
-      q.dwx = gr * q.xij;
-      q.dwy = gr * q.yij;
-      q.dwz = gr * q.zij;
-      ph.pair(a, S, q);
-    };
-    if (PERIODIC)
-      walk::walk_rows_periodic(a, S.cell_start, S.cell_end, S.plane[kPos],
-                               l, di, rs, box, walker, body);
-    else
-      walk::walk_rows(a, S.cell_start, S.cell_end, S.plane[kPos], l, 1, di,
-                      rs, walker, body);
-    walker.finish(body);
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u) {
+        if (e[u] < 0) continue;
+        const TvfSrc& S = a.src[from[u]];
+        ph.pair(a, S,
+                pair_of<T, KIND, PERIODIC>(di, pj[u], e[u] - S.base, box,
+                                           kfac, a.dim));
+      }
+    }
+  }
+  if (walking) {
+    const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
+    int listed = 0;
+    walk::Walker<T> walker;
+    walker.begin();
+    for (int s = 0; s < a.n_src; ++s) {
+      const TvfSrc& S = a.src[s];
+      auto body = [&](int k) {
+        if (MODE == kEmit) {
+          if (listed < a.cap)
+            a.nbr[size_t(listed) * a.n_dest + pos] = S.base + k;
+          ++listed;
+        }
+        ph.pair(a, S,
+                pair_of<T, KIND, PERIODIC>(di, rec<T>(S.plane[kPos], k), k,
+                                           box, kfac, a.dim));
+      };
+      if (PERIODIC)
+        walk::walk_rows_periodic(a, S.cell_start, S.cell_end, S.plane[kPos],
+                                 l, di, rs, box, walker, body);
+      else
+        walk::walk_rows(a, S.cell_start, S.cell_end, S.plane[kPos], l, 1,
+                        di, rs, walker, body);
+      walker.finish(body);
+    }
+    if (MODE == kEmit && active) {
+      a.count[pos] = listed;
+      if (listed > a.cap) atomicAdd(a.overflow, 1);
+    }
   }
   if (active) ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
 }
 
+// the density launch walks or emits, the momentum launch walks or
+// consumes
 template <typename T, int KIND, bool PERIODIC>
 cudaError_t launch_walk(const TvfArgs& a, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (a.n_dest + threads - 1) / threads;
-  if (a.phase == kDensity)
-    tvf_pair_kernel<T, KIND, PERIODIC, Density<T>>
+  if (a.phase == kDensity && a.mode == kEmit)
+    tvf_pair_kernel<T, KIND, PERIODIC, Density<T>, kEmit>
+        <<<blocks, threads, 0, stream>>>(a);
+  else if (a.phase == kDensity)
+    tvf_pair_kernel<T, KIND, PERIODIC, Density<T>, kWalk>
+        <<<blocks, threads, 0, stream>>>(a);
+  else if (a.mode == kConsume)
+    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T>, kConsume>
         <<<blocks, threads, 0, stream>>>(a);
   else
-    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T>>
+    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T>, kWalk>
         <<<blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }
@@ -353,6 +483,26 @@ cudaError_t launch(const TvfArgs& a, cudaStream_t stream) {
   }
 }
 
+bool args_ok(const TvfArgs& a) {
+  const bool mode_ok =
+      a.mode == kWalk ||
+      (a.mode == kEmit && a.phase == kDensity && a.overflow != nullptr) ||
+      (a.mode == kConsume && a.phase == kMomentum);
+  const bool list_ok = a.mode == kWalk ||
+                       (a.cap >= 1 && a.nbr != nullptr &&
+                        a.count != nullptr);
+  bool bases_ok = a.n_src == 0 || a.src[0].base == 0;
+  for (int s = 1; s < a.n_src && s < kMaxSources; ++s)
+    bases_ok = bases_ok && a.src[s].base >= a.src[s - 1].base;
+  return mode_ok && list_ok && bases_ok && a.n_src >= 0 &&
+         a.n_src <= kMaxSources && a.nx >= 1 && a.ny >= 1 && a.nz >= 1 &&
+         a.dim >= 1 && a.dim <= 3 && (a.dtype == 0 || a.dtype == 1) &&
+         a.kernel_kind >= 0 && a.kernel_kind <= 3 && a.phase >= kDensity &&
+         a.phase <= kMomentum && a.dorder != nullptr && a.cell != nullptr &&
+         pack::args_ok(a.pack) &&
+         (a.pack.n_src == 0 || a.pack.dtype == a.dtype);
+}
+
 }  // namespace
 
 extern "C" {
@@ -361,13 +511,7 @@ int tvf_pair_args_size() { return static_cast<int>(sizeof(TvfArgs)); }
 
 int tvf_pair_launch(const TvfArgs* args, void* stream) {
   const TvfArgs a = *args;
-  if (a.n_src < 0 || a.n_src > kMaxSources || a.nx < 1 || a.ny < 1 ||
-      a.nz < 1 || a.dim < 1 || a.dim > 3 || (a.dtype != 0 && a.dtype != 1) ||
-      a.kernel_kind < 0 || a.kernel_kind > 3 || a.phase < kDensity ||
-      a.phase > kMomentum || a.dorder == nullptr || a.cell == nullptr ||
-      !pack::args_ok(a.pack) ||
-      (a.pack.n_src != 0 && a.pack.dtype != a.dtype))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t packed = pack::launch(a.pack, st);

@@ -73,37 +73,66 @@ def sources(name):
     return found
 
 
-def flags(name):
-    """The nvcc flags of ``csrc/<name>.cu``."""
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+def flags(name, extra=()):
+    """The nvcc flags of ``csrc/<name>.cu`` (and ``extra``)."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ()) + tuple(extra)
 
 
-def build_key(name):
+def build_key(name, extra=()):
     """Hash of the sources of ``name`` and the flags: the library's
     name, so that an edit of the ``.cu`` or of a header it includes
     rebuilds it."""
-    digest = hashlib.sha256(' '.join(flags(name)).encode())
+    digest = hashlib.sha256(' '.join(flags(name, extra)).encode())
     for path in sources(name):
         digest.update(path.name.encode() + b'\0' + path.read_bytes())
     return digest.hexdigest()[:16]
 
 
-def build(name):
-    """Path of ``lib<name>-<hash>.so``, compiling it if missing."""
+def build(name, extra=()):
+    """Path of ``lib<name>-<hash>.so``, compiling it if missing, with the
+    flags ``extra`` beside the source's own (a variant: the library
+    that ``load_library`` loads once ``EXTRA_FLAGS[name]`` holds them
+    too)."""
     src = CSRC / (name + '.cu')
-    lib = BUILD_DIR / ('lib%s-%s.so' % (name, build_key(name)))
+    lib = BUILD_DIR / ('lib%s-%s.so' % (name, build_key(name, extra)))
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(lib.name + '.%d.tmp' % os.getpid())
-    proc = subprocess.run([nvcc(), *flags(name), '-o', str(tmp), str(src)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([nvcc(), *flags(name, extra), '-o', str(tmp),
+                           str(src)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError('nvcc failed on %s:\n%s%s' % (
             src, proc.stdout, proc.stderr))
     lib.with_suffix('.log').write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+_PROPERTIES = re.compile(r'Function properties for (\S+)')
+_SPILLS = re.compile(r'(\d+) bytes spill stores, (\d+) bytes spill loads')
+_REGISTERS = re.compile(r'Used (\d+) registers')
+
+
+def resources(lib):
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from the ``-Xptxas -v`` log kept beside the library
+    ``lib``."""
+    found, name = {}, None
+    for line in Path(lib).with_suffix('.log').read_text().splitlines():
+        m = _PROPERTIES.search(line)
+        if m:
+            name = m.group(1)
+            found[name] = [0, 0, 0]
+            continue
+        m = _SPILLS.search(line)
+        if m and name is not None:
+            found[name][1:] = int(m.group(1)), int(m.group(2))
+        m = _REGISTERS.search(line)
+        if m and name is not None:
+            found[name][0] = int(m.group(1))
+            name = None
+    return {k: tuple(v) for k, v in found.items()}
 
 
 def load_library(name, args_type):

@@ -25,17 +25,15 @@ fluid.
 
 The linked pair.  Where the gradient group follows the moment group
 with the same dest and sources and nothing between them moves ``x y z h
-m rho`` (``ops/pair_engine.py::link_delta``), the two plans share a
-``Link``: the moment call runs with ``emit=True`` and returns, beside
-its output, a ``Handoff``: the sources' packed copies and the
-neighbour list, each dest's in-support source positions in the walk's
-order (``neighbours_reference``), up to ``CAPACITY[dim]`` a dest, with
-its count.  The gradient call takes it (``handoff=``): it packs nothing
-and reads the listed records instead of walking, so its sums are the
-walk's bit for bit; a warp holding a dest past the capacity walks as
-an unlinked call.  The moment launch counts such dests on the card
-(``overflowed``).  A linked gradient plan run without its hand-off
-raises.
+m rho`` (``ops/pair_engine.py::link_pairs``), the two plans share a
+``Link`` (``ops/pair_link.py``): the moment call runs with ``emit=True``
+and returns, beside its output, a ``Handoff``: the sources' packed
+copies and the neighbour list, up to ``CAPACITY[dim]`` a dest.  The
+gradient call takes it (``handoff=``): it packs nothing and reads the
+listed records instead of walking, so its sums are the walk's bit for
+bit; a warp holding a dest past the capacity walks as an unlinked call.
+The moment launch counts such dests on the card (``overflowed``).  A
+linked gradient plan run without its hand-off raises.
 
 For CUDA tensors it calls ``csrc/delta_pair.cu`` (built on first use by
 ``ops/build.py``, without FMA contraction) once: its launch function
@@ -56,8 +54,9 @@ from typing import NamedTuple
 import torch
 
 from pysph_tpu_torch.base.kernels import KERNEL_KIND, WCSPH_KINDS
-from pysph_tpu_torch.ops import build, cell_pack
+from pysph_tpu_torch.ops import build, cell_pack, pair_link
 from pysph_tpu_torch.ops.build import data_ptr
+from pysph_tpu_torch.ops.pair_link import CAPACITY, Handoff
 from pysph_tpu_torch.sph.wc.basic import ContinuityEquationDeltaSPHPreStep
 from pysph_tpu_torch.sph.wc.kernel_correction import (
     GradientCorrection, GradientCorrectionPreStep, accept)
@@ -68,31 +67,9 @@ MAX_SOURCES = 4
 TERM_SETS = (MMAT, CORR | GRAD, GRAD)
 #: the kernel's modes (csrc/delta_pair.cu kWalk, kEmit, kConsume)
 WALK, EMIT, CONSUME = 0, 1, 2
-#: entries of the neighbour list a dest, by the kernel's dim: the most
-#: pairs a dest held on the card, 81 in dam_break_3d dx=0.02 after its
-#: damped steps (3D) and 45 in the perturbed drop (2D), with headroom
-#: (PERF.md); a dest past it makes its warp walk
-CAPACITY = {1: 16, 2: 64, 3: 128}
-
 #: record planes of the packed copy (csrc/delta_pair.cu)
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('m', 'rho', None, None))
 _READS = frozenset(('x', 'y', 'z', 'h', 'm', 'rho'))
-
-
-class Handoff(NamedTuple):
-    """What a linked moment call leaves for its gradient call: the
-    sources' packed copies, one after another (``cell_pack.fill``'s
-    buffer), and the neighbour list: ``nbr[c, p]`` is the c-th source
-    position in support of the dest at sorted position ``p`` (in the
-    numbering of ``neighbours_reference``), for ``c < min(count[p],
-    capacity)``; ``count[p]`` may exceed the capacity ``nbr.shape[0]``.
-    ``sources``: ((name, particles), ...) of the copies.  On the CPU,
-    where the plain gradient walks, ``buf`` and ``nbr`` are empty and
-    ``count`` is None."""
-    buf: torch.Tensor
-    nbr: torch.Tensor
-    count: torch.Tensor
-    sources: tuple
 
 
 class DeltaSource(NamedTuple):
@@ -179,116 +156,27 @@ def accepted_reference(dest, dest_cells, sources, grid, kernel):
     return count.to(torch.int32)
 
 
-def neighbours_reference(dest, dest_cells, sources, grid):
-    """The pairs in support of each dest in the kernel's walk order:
-    (count, positions).  ``count``: int32 (n,), the pairs of the dest at
-    each sorted position of ``dest_cells.order``; ``positions``: int32,
-    the dests' source positions one dest after another in that order,
-    each dest's in the walk's order (the sources in order, then the
-    stencil rows, x, position: ``grid.neighbor_pairs``' order).  Source
-    s's position k is numbered ``base_s + k``, ``base_s`` the particles
-    of the sources before it."""
-    from pysph_tpu_torch.sph.acceleration_eval import PAIR_CHUNK
-    x = dest['x']
-    n, dev = x.shape[0], x.device
-    rank = torch.empty(n, dtype=torch.int64, device=dev)
-    rank[dest_cells.order.long()] = torch.arange(n, device=dev)
-    none = torch.zeros(0, dtype=torch.int64, device=dev)
-    keys, vals, base = [none], [none], 0
-    for s, (src, cells, _) in enumerate(sources):
-        ns = src['x'].shape[0]
-        where = torch.empty(ns, dtype=torch.int64, device=dev)
-        where[cells.order.long()] = torch.arange(ns, device=dev)
-        for a in range(0, n, PAIR_CHUNK):
-            i, j = grid.neighbor_pairs(dest, dest_cells, src, cells,
-                                       (a, min(n, a + PAIR_CHUNK)))
-            keys.append(rank[i] * len(sources) + s)
-            vals.append(base + where[j])
-        base += ns
-    key = torch.cat(keys)
-    # stable: a (dest, source)'s pairs keep neighbor_pairs' order
-    key, perm = torch.sort(key, stable=True)
-    count = torch.bincount(key // len(sources), minlength=n)
-    return count.to(torch.int32), torch.cat(vals)[perm].to(torch.int32)
-
-
-def _slots(kept):
-    """(dest, slot) of every entry of lists of ``kept`` entries a dest."""
-    p = torch.repeat_interleave(torch.arange(kept.shape[0],
-                                             device=kept.device), kept)
-    c = torch.arange(p.shape[0], device=p.device) - torch.repeat_interleave(
-        torch.cumsum(kept, 0) - kept, kept)
-    return p, c
-
-
-def cut(count, positions, capacity):
-    """``positions`` (``neighbours_reference``'s) without each dest's
-    entries past ``capacity``."""
-    _, c = _slots(count.long())
-    return positions[c < capacity]
-
-
-def listed(handoff):
-    """(count, positions) of a hand-off's neighbour list, as
-    ``neighbours_reference`` gives them, each dest's list cut at the
-    capacity (``cut``)."""
-    nbr = handoff.nbr
-    p, c = _slots(handoff.count.long().clamp(max=nbr.shape[0]))
-    return handoff.count, nbr[c, p]
-
-
-_OVERFLOW = {}
-
-
-def overflow_counter(device):
-    """The int32 device counter to which every emitting launch adds its
-    dests past the capacity.  Made on first use, which a CUDA graph
-    capture must not be."""
-    device = torch.device(device)
-    if device.type == 'cuda' and device.index is None:
-        device = torch.device('cuda', torch.cuda.current_device())
-    if device not in _OVERFLOW:
-        if device.type == 'cuda' and \
-                torch.cuda.is_current_stream_capturing():
-            raise RuntimeError('delta_pair: the overflow counter of %s is '
-                               'made in a capture; emit once before it'
-                               % device)
-        _OVERFLOW[device] = torch.zeros(1, dtype=torch.int32,
-                                        device=device)
-    return _OVERFLOW[device]
-
-
 def overflowed(device):
     """The dests past the capacity counted since the last
     ``reset_overflow`` (reads the counter)."""
-    return int(overflow_counter(device)[0])
+    return pair_link.overflowed('delta_pair', device)
 
 
 def reset_overflow(device):
-    overflow_counter(device).zero_()
+    pair_link.reset_overflow('delta_pair', device)
 
 
-class Link(object):
-    """A moment plan and the gradient plan of the group after it, linked
-    by ``ops/pair_engine.py::link_delta``: the moment call emits a
-    ``Handoff``, which the gradient call consumes."""
+class Link(pair_link.Link):
+    """A moment plan (the emitter) and the gradient plan of the group
+    after it (the consumer)."""
 
-    def __init__(self, moment, gradient):
-        self.moment = moment
-        self.gradient = gradient
-        self.handoff = None
+    @property
+    def moment(self):
+        return self.emitter
 
-    def run(self, plan, args):
-        """The result of ``plan`` (one of the two) on its arguments."""
-        if plan is self.moment:
-            out, self.handoff = plan.op(*args, emit=True)
-            return out
-        handoff, self.handoff = self.handoff, None
-        if handoff is None:
-            raise RuntimeError('delta_pair: the linked gradient of %s runs '
-                               'without the hand-off of its moment call'
-                               % plan.dest)
-        return plan.op(*args, handoff=handoff)
+    @property
+    def gradient(self):
+        return self.consumer
 
 
 def pack_layout():
@@ -341,10 +229,6 @@ class DeltaArgs(ctypes.Structure):
 _WIDTH = {'m_mat': 9, 'gradrho': 3}
 
 
-def _copies_of(sources):
-    return tuple((ds.name, st['x'].shape[0]) for st, _, ds in sources)
-
-
 def _check_mode(first, emit, handoff, dest, sources):
     """Raise unless a moment call emits or not and a gradient call takes
     a hand-off or not, one that ``sources`` on ``dest``'s device
@@ -355,16 +239,7 @@ def _check_mode(first, emit, handoff, dest, sources):
         return
     if first.terms == MMAT:
         raise ValueError('delta_pair: a moment call takes no hand-off')
-    x = dest['x']
-    if handoff.sources != _copies_of(sources) or \
-            handoff.buf.dtype != x.dtype or \
-            handoff.buf.device != x.device or \
-            handoff.nbr.shape[1] != x.shape[0]:
-        raise ValueError('delta_pair: a hand-off of %s for %d dests on %s, '
-                         'given to a call over %s for %d dests on %s' % (
-                             handoff.sources, handoff.nbr.shape[1],
-                             handoff.buf.device, _copies_of(sources),
-                             x.shape[0], x.device))
+    pair_link.check_handoff('delta_pair', handoff, dest, sources)
 
 
 def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
@@ -429,8 +304,9 @@ def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         cap = capacity or CAPACITY[kernel.dim]
         handoff = Handoff(buf, torch.empty((cap, n), dtype=i32, device=dev),
                           torch.empty(n, dtype=i32, device=dev),
-                          _copies_of(sources))
-        args.overflow = overflow_counter(dev).data_ptr()
+                          pair_link.copies_of(sources))
+        args.overflow = pair_link.overflow_counter('delta_pair',
+                                                   dev).data_ptr()
         args.mode = EMIT
     elif handoff is not None:
         args.mode = CONSUME
@@ -493,9 +369,7 @@ def _plain(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     if not emit:
         return out
     # the plain gradient walks: its hand-off carries no copies and no list
-    x = dest['x']
-    return out, Handoff(x.new_empty(0), torch.empty(
-        (0, x.shape[0]), dtype=torch.int32), None, _copies_of(sources))
+    return out, pair_link.empty_handoff(dest, sources)
 
 
 #: kernel launches since the last reset (set to 0 to reset)

@@ -38,11 +38,13 @@ phase).  The per-source term masks say which equations each source
 takes.  Anything else raises ``PairIneligible`` and the evaluator runs
 the torch pair engine instead.
 
-``link_delta`` links a dest's ``delta_pair`` moment plan to its
-corrected gradient plan in the group right after it where nothing
-between them moves the pairs: the moment call then hands its neighbour
-list and packed copies to the gradient call (``PairPlan.link``,
-``ops/delta_pair.py``), which walks no candidates.
+``link_pairs`` links two plans of one kernel for one dest where nothing
+between them moves the pairs: a dest's ``delta_pair`` moment plan and
+its corrected gradient plan in the group right after it, and a dest's
+``tvf_pair`` density plan and its momentum plan in a later group.  The
+first call then hands its neighbour list and packed copies to the
+second (``PairPlan.link``, ``ops/pair_link.py``), which walks no
+candidates.
 
 The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
 sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair`` and the
@@ -55,13 +57,14 @@ main group (it reads the strided ``gradrho``) run on the torch engine.
 """
 
 import logging
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 from pysph_tpu_torch.base.kernels import (
     KERNEL_KIND, WCSPH_KINDS, WendlandQuintic)
 from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gtvf_pair as _gp
+from pysph_tpu_torch.ops import pair_link as _pl
 from pysph_tpu_torch.ops import tvf_pair as _tp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
 from pysph_tpu_torch.sph.basic_equations import (
@@ -311,59 +314,131 @@ def plan_pair_phases(dest, sources, kernel, engine='kernel',
 _DELTA_EQUATIONS = frozenset(t for eqs in _DELTA_SETS for t in eqs)
 
 
-def _link_refusal(moment_group, gradient_group, moment, gradient):
-    """Why the moment plan and the gradient plan of the group after it
-    cannot share a walk, or None."""
-    names = [ps.name for ps in moment.sources]
-    if names != [ps.name for ps in gradient.sources]:
-        return 'sources %s and %s' % (
-            names, [ps.name for ps in gradient.sources])
+def _tvf_link_equations():
+    """The equations that may lie between a linked ``tvf_pair`` density
+    call and its momentum call, those calls' own included: TVF's pair
+    equations, the EOS and the walls' velocity and pressure
+    (``TVFScheme``'s groups).  None writes x y z h, so both calls see
+    the same pairs in support; the momentum call packs the other props
+    afresh."""
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.wc.transport_velocity import (
+        SetWallVelocity, SolidWallPressureBC, StateEquation)
+    return frozenset(_tvf_terms()) | {StateEquation, SetWallVelocity,
+                                      SolidWallPressureBC}
+
+
+def _delta_dims(moment, gradient):
     mdim, cdim = moment.sources[0].dim, gradient.sources[0].dim
     if mdim != moment.kernel.dim or cdim > mdim:
         return 'the moment in %d dimensions, the correction in %d' % (
             mdim, cdim)
-    for group in (moment_group, gradient_group):
-        for eq in group.equations:
-            if type(eq) not in _DELTA_EQUATIONS:
-                return '%s is no delta-SPH pre-phase equation' % eq.name
     return None
 
 
-def link_delta(groups, plans):
-    """Link each ``delta_pair`` moment plan (``MMAT``) to the corrected
-    gradient plan (``CORR | GRAD``) of the same dest in the group right
-    after it (``groups``, in order; ``plans``: {(id(group), dest):
-    ``PairPlan`` or None}), where both have the same sources, the moment
-    is in the kernel's dimensions and the correction in no more, and
-    every equation of both groups is one of the delta planner's (none
-    writes ``x y z h m rho`` or has a ``post_loop``): the moment call
-    then emits the neighbour list and packed copies that the gradient
-    call reads (``ops/delta_pair.py``).  Returns the ``Link`` of each
-    linked pair."""
+def _tvf_phase(plan):
+    terms = 0
+    for ts in plan.sources:
+        terms |= ts.terms
+    return _tp.phase_of(terms)
+
+
+class _LinkRule(NamedTuple):
+    """How one kernel's plans link: ``emits(plan)`` and
+    ``consumes(plan)`` pick the two calls; the consumer is the kernel's
+    next plan for the dest within ``reach`` groups after the emitter's
+    (None: any later group); every equation of the groups from the
+    emitter's to the consumer's must be one of ``equations()``, and
+    ``check(emitter, consumer)`` gives any further refusal."""
+    op: Callable
+    emits: Callable
+    consumes: Callable
+    reach: Optional[int]
+    equations: Callable
+    link: type
+    check: Callable = lambda emitter, consumer: None
+
+
+_LINK_RULES = (
+    _LinkRule(_dl.delta_pair,
+              lambda p: p.sources[0].terms == _dl.MMAT,
+              lambda p: p.sources[0].terms == _dl.CORR | _dl.GRAD, 1,
+              lambda: _DELTA_EQUATIONS, _dl.Link, _delta_dims),
+    _LinkRule(_tp.tvf_pair, lambda p: _tvf_phase(p) == _tp.DENSITY,
+              lambda p: _tvf_phase(p) == _tp.MOMENTUM, None,
+              _tvf_link_equations, _pl.Link),
+)
+
+
+def _link_refusal(rule, span, emitter, consumer):
+    """Why the emitting and the consuming plan, over the groups ``span``
+    (the emitter's to the consumer's), cannot share a walk, or None."""
+    names = [ps.name for ps in emitter.sources]
+    if names != [ps.name for ps in consumer.sources]:
+        return 'sources %s and %s' % (
+            names, [ps.name for ps in consumer.sources])
+    why = rule.check(emitter, consumer)
+    if why is not None:
+        return why
+    allowed = rule.equations()
+    for group in span:
+        for eq in group.equations:
+            if type(eq) not in allowed:
+                return '%s is not among the equations that keep the ' \
+                    'pairs' % eq.name
+    return None
+
+
+def link_pairs(groups, plans):
+    """Link the plans of one kernel for one dest that can share a walk
+    (``groups``, in order; ``plans``: {(id(group), dest): ``PairPlan``
+    or None}): each ``delta_pair`` moment plan (``MMAT``) to the
+    corrected gradient plan (``CORR | GRAD``) of the group right after
+    it, where the moment is in the kernel's dimensions and the
+    correction in no more and every equation of both groups is one of
+    the delta planner's (none writes ``x y z h m rho`` or has a
+    ``post_loop``); each ``tvf_pair`` density plan to the dest's next
+    ``tvf_pair`` plan where that is a momentum plan and every equation
+    from the density group to the momentum group is TVF's, the EOS or
+    the walls' (``_tvf_link_equations``: none writes ``x y z h``); both
+    with the same sources in the same order.  The first call then emits
+    the neighbour list and packed copies that the second reads
+    (``ops/pair_link.py``); each refusal is logged.  Returns the
+    ``Link`` of each linked pair."""
     links = []
-    for g0, g1 in zip(groups, groups[1:]):
-        for dest in dict.fromkeys(eq.dest for eq in g1.equations):
-            moment = plans.get((id(g0), dest))
-            gradient = plans.get((id(g1), dest))
-            if moment is None or gradient is None or \
-                    moment.op is not _dl.delta_pair or \
-                    gradient.op is not _dl.delta_pair or \
-                    moment.sources[0].terms != _dl.MMAT or \
-                    gradient.sources[0].terms != _dl.CORR | _dl.GRAD:
+    for a, g0 in enumerate(groups):
+        for dest in dict.fromkeys(eq.dest for eq in g0.equations):
+            emitter = plans.get((id(g0), dest))
+            rule = next((r for r in _LINK_RULES if emitter is not None and
+                         emitter.op is r.op and r.emits(emitter)), None)
+            if rule is None:
                 continue
-            why = _link_refusal(g0, g1, moment, gradient)
+            end = len(groups) if rule.reach is None else \
+                min(len(groups), a + 1 + rule.reach)
+            consumer = None
+            for b in range(a + 1, end):
+                consumer = plans.get((id(groups[b]), dest))
+                if consumer is not None and consumer.op is rule.op:
+                    break
+                consumer = None
+            if consumer is None or not rule.consumes(consumer):
+                logger.info('%s for %s: no link: no consuming plan after '
+                            'it', rule.op.__name__, dest)
+                continue
+            why = _link_refusal(rule, groups[a:b + 1], emitter, consumer)
             if why is not None:
-                logger.info('delta_pair for %s: no link: %s', dest, why)
+                logger.info('%s for %s: no link: %s', rule.op.__name__,
+                            dest, why)
                 continue
-            moment.link = gradient.link = _dl.Link(moment, gradient)
-            links.append(moment.link)
+            emitter.link = consumer.link = rule.link(emitter, consumer)
+            links.append(emitter.link)
     return links
 
 
 class PairPlan(object):
     """The kernel call for one dest over all its sources: ``op`` is the
     kernel's wrapper, ``reference`` its plain version (same arguments);
-    ``link``: the ``delta_pair.Link`` a linked plan runs through."""
+    ``link``: the ``pair_link.Link`` a linked plan runs through."""
 
     def __init__(self, dest, sources, kernel, op, reference, outputs):
         self.dest = dest

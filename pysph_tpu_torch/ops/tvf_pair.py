@@ -25,13 +25,30 @@ the wrapped stencil and takes the minimum image of every displacement
 (``csrc/cell_walk.cuh::walk_rows_periodic``, built as a template flag,
 so the kernel on an open grid keeps the plain walk).
 
+The linked pair.  Where the momentum group of a dest follows its
+density group with the same sources and nothing between them moves ``x
+y z h`` (``ops/pair_engine.py::link_pairs``), the two plans share a
+``Link`` (``ops/pair_link.py``): the density call runs with
+``emit=True`` and returns, beside its output, a ``Handoff``: its
+sources' packed ``{x y z h}`` copies and the neighbour list, up to
+``CAPACITY[dim]`` entries a dest.  The momentum call takes it
+(``handoff=``): it packs only the planes 1-3 (fresh after the density
+and EOS groups) and reads the listed records instead of walking, so its
+sums are the walk's bit for bit; a warp holding a dest past the
+capacity walks.  The density launch counts such dests on the card
+(``overflowed``).  A linked momentum plan run without its hand-off
+raises.
+
 For CUDA tensors it calls ``csrc/tvf_pair.cu`` (built on first use by
 ``ops/build.py``) once: its launch function launches the source pack
 (``ops/cell_pack.py``, counted in ``cell_pack.pack.launches``; each
-source packs the ``PACK_RECORDS`` planes its terms read) and then the
-walk (counted in ``tvf_pair.launches``).  For CPU tensors it calls
+source packs the ``PACK_RECORDS`` planes its terms read, a consuming
+call all but plane 0) and then the kernel (counted in
+``tvf_pair.launches``).  For CPU tensors it calls
 ``tvf_pair_reference``, the torch pair engine running the same
-``Equation`` objects on the exact lists of ``CellGrid.neighbor_pairs``.
+``Equation`` objects on the exact lists of ``CellGrid.neighbor_pairs``,
+which walks for the momentum call too: an emitting call returns an
+empty hand-off.
 """
 
 import ctypes
@@ -41,12 +58,16 @@ from typing import NamedTuple
 import torch
 
 from pysph_tpu_torch.base.kernels import KERNEL_KIND
-from pysph_tpu_torch.ops import build, cell_pack
+from pysph_tpu_torch.ops import build, cell_pack, pair_link
 from pysph_tpu_torch.ops.build import data_ptr
+from pysph_tpu_torch.ops.pair_link import CAPACITY, Handoff
 
 SDEN, MPG, VISC, MAS, AVIS = (1 << k for k in range(5))
 #: phase sets, indexed by the phase id of the CUDA kernel
 PHASE_SETS = (SDEN, MPG | VISC | MAS | AVIS)
+DENSITY, MOMENTUM = 0, 1
+#: the kernel's modes (csrc/tvf_pair.cu kWalk, kEmit, kConsume)
+WALK, EMIT, CONSUME = 0, 1, 2
 MAX_SOURCES = 4
 OUTPUTS = ('V', 'rho', 'au', 'av', 'aw', 'auhat', 'avhat', 'awhat')
 _ACC = ('au', 'av', 'aw')
@@ -152,13 +173,23 @@ def tvf_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
     return {p: store[p] for p in pre}
 
 
+def overflowed(device):
+    """The dests past the capacity counted since the last
+    ``reset_overflow`` (reads the counter)."""
+    return pair_link.overflowed('tvf_pair', device)
+
+
+def reset_overflow(device):
+    pair_link.reset_overflow('tvf_pair', device)
+
+
 class _SrcArgs(ctypes.Structure):
     _fields_ = [('plane', ctypes.c_void_p * len(PACK_RECORDS)),
                 ('cell_start', ctypes.c_void_p),
                 ('cell_end', ctypes.c_void_p),
                 ('pb', ctypes.c_double), ('nu', ctypes.c_double),
                 ('alpha', ctypes.c_double), ('c0', ctypes.c_double),
-                ('terms', ctypes.c_int32), ('pad', ctypes.c_int32)]
+                ('terms', ctypes.c_int32), ('base', ctypes.c_int32)]
 
 
 class _Args(ctypes.Structure):
@@ -167,17 +198,43 @@ class _Args(ctypes.Structure):
                  ('wmask', ctypes.c_void_p),
                  ('pre', ctypes.c_void_p * len(OUTPUTS)),
                  ('out', ctypes.c_void_p * len(OUTPUTS)),
+                 ('nbr', ctypes.c_void_p), ('count', ctypes.c_void_p),
+                 ('overflow', ctypes.c_void_p),
                  ('src', _SrcArgs * MAX_SOURCES),
                  ('radius_scale', ctypes.c_double),
                  ('kfac', ctypes.c_double),
                  ('box', ctypes.c_double * 3)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim', 'phase',
-                    'dtype', 'kernel_kind', 'periodic')] +
+                    'dtype', 'kernel_kind', 'periodic', 'mode', 'cap')] +
                 [('pack', cell_pack.PackArgs)])
 
 
-def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+def _phase(sources):
+    terms = 0
+    for _, _, ts in sources:
+        terms |= ts.terms
+    phase = phase_of(terms)
+    if phase is None:
+        raise ValueError('tvf_pair: terms %#x are in no phase set' % terms)
+    return terms, phase
+
+
+def _check_mode(phase, emit, handoff, dest, sources):
+    """Raise unless only a density call emits and only a momentum call
+    takes a hand-off, one that ``sources`` on ``dest``'s device emitted
+    for as many dests."""
+    if emit and (handoff is not None or phase != DENSITY):
+        raise ValueError('tvf_pair: only a density call emits a hand-off')
+    if handoff is None:
+        return
+    if phase != MOMENTUM:
+        raise ValueError('tvf_pair: a density call takes no hand-off')
+    pair_link.check_handoff('tvf_pair', handoff, dest, sources)
+
+
+def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+            emit, handoff, capacity):
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
@@ -186,28 +243,36 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
         raise ValueError('tvf_pair: %d sources' % len(sources))
     if type(kernel) not in KERNEL_KIND:
         raise ValueError('tvf_pair: no shape function for %r' % kernel)
+    terms, phase = _phase(sources)
+    _check_mode(phase, emit, handoff, dest, sources)
     i32 = torch.int32
     args = _Args()
+    # a consuming call packs all but plane 0, which it reads from the
+    # density call's copies (plane 0 alone, one after another)
+    first = 0 if handoff is None else 1
+    packs = [(src, cells.order, pack_layout(ts.terms)[1][first:])
+             for src, cells, ts in sources]
     # the copies' buffer stays referenced until the launch is queued
-    buf = cell_pack.fill(args.pack, _packs(sources), 'tvf_pair') \
+    buf = cell_pack.fill(args.pack, packs, 'tvf_pair') \
         if n and sources else None
-    terms = 0
+    base = 0
     for k, (src, cells, ts) in enumerate(sources):
-        terms |= ts.terms
         sa = args.src[k]
         if buf is not None:
             copy = args.pack.src[k]
             plane = copy.n * 4 * x.element_size()
-            for q, slot in enumerate(pack_layout(ts.terms)[0]):
+            for q, slot in enumerate(pack_layout(ts.terms)[0][first:]):
                 sa.plane[slot] = copy.out + q * plane
+            if handoff is not None:
+                sa.plane[0] = handoff.buf.data_ptr() + \
+                    4 * base * x.element_size()
         sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
                                  'cell_start')
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
         sa.pb, sa.nu, sa.alpha, sa.c0 = ts.pb, ts.nu, ts.alpha, ts.c0
         sa.terms = ts.terms
-    phase = phase_of(terms)
-    if phase is None:
-        raise ValueError('tvf_pair: terms %#x are in no phase set' % terms)
+        sa.base = base
+        base += src['x'].shape[0]
     for p in _reads(terms, 0):
         setattr(args, p, data_ptr(dest[p], n, fdt, dev, 'd_' + p))
     args.cell = data_ptr(dest_cells.cell, n, i32, dev, 'dest cell')
@@ -223,6 +288,29 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
             args.pre[k] = data_ptr(pre[p], n, fdt, dev, 'pre ' + p)
             out[p] = torch.empty_like(pre[p])
             args.out[k] = out[p].data_ptr()
+    if emit:
+        if buf is None:
+            handoff = pair_link.empty_handoff(dest, sources)
+        else:
+            cap = capacity or CAPACITY[kernel.dim]
+            handoff = Handoff(buf, torch.empty((cap, n), dtype=i32,
+                                               device=dev),
+                              torch.empty(n, dtype=i32, device=dev),
+                              pair_link.copies_of(sources))
+            args.overflow = pair_link.overflow_counter('tvf_pair',
+                                                       dev).data_ptr()
+        args.mode = EMIT
+    elif handoff is not None:
+        if n and handoff.buf.numel() != 4 * base:
+            raise ValueError('tvf_pair: a hand-off of %d values for %d '
+                             'source particles, not their {x y z h} '
+                             'copies' % (handoff.buf.numel(), base))
+        args.mode = CONSUME
+    if handoff is not None and n:
+        args.nbr = data_ptr(handoff.nbr, handoff.nbr.shape[0], i32, dev,
+                            'neighbour list', width=n)
+        args.count = data_ptr(handoff.count, n, i32, dev, 'counts')
+        args.cap = handoff.nbr.shape[0]
     args.radius_scale = grid.radius_scale
     args.kfac = kernel.fac
     # the box lengths of the periodic axes, each the dtype's value
@@ -236,25 +324,34 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     args.phase = phase
     args.dtype = 1 if fdt == torch.float64 else 0
     args.kernel_kind = KERNEL_KIND[type(kernel)]
-    if n == 0:
-        return out
-    build.launch('tvf_pair', args, dev)
-    tvf_pair.launches += 1
-    cell_pack.pack.launches += bool(args.pack.n_src)
-    return out
+    if n:
+        build.launch('tvf_pair', args, dev)
+        tvf_pair.launches += 1
+        cell_pack.pack.launches += bool(args.pack.n_src)
+    return (out, handoff) if emit else out
 
 
-def tvf_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+def tvf_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+             emit=False, handoff=None, capacity=None):
     """Pair terms of one dest over its sources; same arguments and
-    result as ``tvf_pair_reference``.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
-    if dest['x'].device.type == 'cpu':
-        return tvf_pair_reference(dest, dest_cells, write_mask, pre,
-                                  sources, grid, kernel)
-    if dest['x'].device.type != 'cuda':
-        raise ValueError('tvf_pair: no kernel for device %s'
-                         % dest['x'].device)
-    return _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel)
+    result as ``tvf_pair_reference``.  ``emit`` (a density call): return
+    (result, ``Handoff``); ``handoff`` (a momentum call): read that
+    hand-off's copies and neighbour list instead of walking;
+    ``capacity``: the neighbour list's entries a dest for ``emit``, for
+    tests (default ``CAPACITY[kernel.dim]``).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    dev = dest['x'].device
+    if dev.type == 'cpu':
+        _check_mode(_phase(sources)[1], emit, handoff, dest, sources)
+        out = tvf_pair_reference(dest, dest_cells, write_mask, pre,
+                                 sources, grid, kernel)
+        # the plain momentum call walks: the hand-off carries nothing
+        return (out, pair_link.empty_handoff(dest, sources)) if emit \
+            else out
+    if dev.type != 'cuda':
+        raise ValueError('tvf_pair: no kernel for device %s' % dev)
+    return _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+                   emit, handoff, capacity)
 
 
 #: kernel launches since the last reset (set to 0 to reset)

@@ -40,7 +40,7 @@ import torch
 
 from pysph_tpu_torch.ops.bin_cells import bin_cells
 from pysph_tpu_torch.ops.pair_engine import (
-    PairIneligible, link_delta, plan_pair_phases)
+    PairIneligible, link_pairs, plan_pair_phases)
 from pysph_tpu_torch.sph.equation import (
     UNIT, ArrayView, Group, IndexSym, MultiStageEquations, PairDestView,
     PairSrcView, SymVec, _method_args, column, get_arrays_used_in_equation,
@@ -367,7 +367,7 @@ class AccelerationEval(object):
                     for src in sources:
                         self.grid.pair_capacity(dest, src,
                                                 self.config.device)
-        link_delta(self.groups, plans)
+        link_pairs(self.groups, plans)
         return plans
 
     def set_domain(self, domain):

@@ -77,3 +77,17 @@ def graph_kernels_ms(fn, reps):
         if us > 0:
             out[evt.key] = us / 1e3 / reps
     return out
+
+
+def linked_calls(calls):
+    """[(emitting call, consuming call)] of each linked pair of plans
+    among ``calls`` (``time_walks.plan_calls``'; ``ops/pair_engine.py::
+    link_pairs``)."""
+    pairs = []
+    for c in calls:
+        link = c[2].link
+        if link is not None and c[2] is link.emitter:
+            (d,) = [d for d in calls if d[0] == c[0] and
+                    d[2] is link.consumer]
+            pairs.append((c, d))
+    return pairs

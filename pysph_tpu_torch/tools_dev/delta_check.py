@@ -16,7 +16,7 @@ found.
 ``check_linked(calls, label)`` runs each linked pair of ``delta_pair``
 calls as the path runs it (the moment call emitting its neighbour list,
 the gradient call consuming it) and holds it to the two walking calls
-bit for bit, the list to ``delta_pair.neighbours_reference`` exactly,
+bit for bit, the list to ``pair_link.neighbours_reference`` exactly,
 and the accept decisions to the plain version's.
 
 ``terms_calls(calls)`` gives each ``wcsph_pair`` call with delta-SPH
@@ -28,7 +28,9 @@ import torch
 
 from pysph_tpu_torch.ops import cell_pack
 from pysph_tpu_torch.ops import delta_pair as dl
+from pysph_tpu_torch.ops import pair_link
 from pysph_tpu_torch.ops import wcsph_pair as wp
+from pysph_tpu_torch.tools_dev.common import linked_calls
 
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 DELTA_TERMS = wp.DCONT | wp.DMOM
@@ -119,24 +121,12 @@ def check(calls, label):
     return found
 
 
-def linked_calls(calls):
-    """[(moment call, gradient call)] of each linked pair of plans among
-    ``calls`` (``ops/pair_engine.py::link_delta``)."""
-    pairs = []
-    for c in calls:
-        link = c[2].link
-        if link is not None and c[2] is link.moment:
-            (g,) = [d for d in calls if d[0] == c[0] and d[2] is link.gradient]
-            pairs.append((c, g))
-    return pairs
-
-
 def check_linked(calls, label, capacity=None):
     """Each linked pair of ``calls`` run as the path runs it: the moment
     call emitting (``capacity``: the list's, for tests), then the
     gradient call consuming its hand-off.  The moment's output must be
     the walking call's bit for bit, the counts and the listed positions
-    those of ``delta_pair.neighbours_reference`` exactly (up to the
+    those of ``pair_link.neighbours_reference`` exactly (up to the
     capacity), the overflow counter the dests past it, the gradient the
     walking gradient call's bit for bit and within ``TOL`` of the plain
     version, the accepted pairs the walk's and the plain version's (0
@@ -167,12 +157,12 @@ def check_linked(calls, label, capacity=None):
         if not same:
             failures.append('%s: the linked pair differs from the walk'
                             % dest)
-        count, positions = dl.listed(handoff)
-        want, where = dl.neighbours_reference(margs[0], margs[1], margs[4],
-                                              margs[5])
+        count, positions = pair_link.listed(handoff)
+        want, where = pair_link.neighbours_reference(margs[0], margs[1],
+                                                     margs[4], margs[5])
         cap = handoff.nbr.shape[0]
         if not (torch.equal(count, want) and
-                torch.equal(positions, dl.cut(want, where, cap))):
+                torch.equal(positions, pair_link.cut(want, where, cap))):
             failures.append('%s: the neighbour list differs from '
                             'neighbours_reference' % dest)
         if overflowed != int((want > cap).sum()):

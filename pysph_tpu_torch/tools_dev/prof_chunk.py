@@ -18,7 +18,7 @@ on the state it reached:
   the gated kernels (``ops/bin_cells.py``), once kept (``prepare_reuse``
   on the positions it was binned at) and once rebuilt (``prepare``); its
   pair calls (each plan's kernel wrapper, the source packs included, a
-  linked ``delta_pair`` pair as the path runs it), the whole eval on its
+  linked pair as the path runs it), the whole eval on its
   binning (``compute``), each integrator stage and the adaptive dt
   (``compute_time_step``), and on a periodic box the position wrap
   (``update_domain``, times the wraps a step the captures counted); the

@@ -84,9 +84,9 @@ FUSED_PAIR_FLOPS = 65
 BIN_TEST_FLOPS = 16
 BIN_CELL_FLOPS = 5
 #: tvf_pair.cu: per pair in support, xij, r2, hij, rinv, rij, h1, fac,
-#: WIJ, the gradient's factor and DWIJ (:254-272) before the shape
-#: function; each term (:135-204), and the momentum terms' shared
-#: 1 / Vj, their volume factor, EPS and vij (:146-152); the minimum
+#: WIJ, the gradient's factor and DWIJ (pair_of, :193-221) before the
+#: shape function; each term (:245-353), and the momentum terms' shared
+#: 1 / Vj, their volume factor, EPS and vij (:287-294); the minimum
 #: image, d - L rint(d / L), on each periodic axis, in every support
 #: test (cell_walk.cuh) and in the body
 TVF_PAIR_FLOPS = 30
@@ -273,9 +273,12 @@ def gtvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     return work
 
 
-def tvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+def tvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+             walks=True):
     """Work of one ``tvf_pair`` call (the stencil wrapped on a periodic
-    grid)."""
+    grid).  ``walks=False``: a momentum call that reads a linked density
+    call's neighbour list, whose candidates' support tests that walk
+    made and are not counted again."""
     terms = 0
     work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
     shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
@@ -288,10 +291,12 @@ def tvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
             f for t, f in TVF_TERM_FLOPS.items() if ts.terms & t)
         if ts.terms & ~tp.SDEN:
             per_pair += TVF_MOMENTUM_FLOPS
-        work['candidates'] += cand
-        work['visited'] += cand
+        if walks:
+            work['candidates'] += cand
+            work['visited'] += cand
+            work['flops'] += cand * (SUPPORT_FLOPS + image)
         work['pairs'] += pairs
-        work['flops'] += cand * (SUPPORT_FLOPS + image) + pairs * per_pair
+        work['flops'] += pairs * per_pair
         work['bytes'] += _source_bytes(src, reached, ncells,
                                        tp._reads(ts.terms, 1))
     work['bytes'] += _dest_bytes(dest, write_mask, pre, tp._reads(terms, 0))

@@ -4,10 +4,12 @@
 
 Builds the pair calls of one eval of dam_break_3d at dx=0.02 and of the
 elliptical drop at nx=200, and of both evals of the GTVF dam break at
-dx=0.004 (float32, seeded velocity and density perturbations, as
-``chip_smoke.py`` times them), and times ``wcsph_pair`` and
-``dense_pair`` on the first two, ``gtvf_pair`` on the third and
-``fused_continuity_momentum`` on the drop's state: CUDA events around
+dx=0.004 and of one eval of the Taylor-Green vortex at nx=400 (float32,
+seeded velocity and density perturbations, as ``chip_smoke.py`` times
+them), and times ``wcsph_pair`` and ``dense_pair`` on the first two,
+``gtvf_pair`` on the third, ``tvf_pair`` on the fourth (walking, and as
+the path runs it: ``as path graph``, linked where the checkout links)
+and ``fused_continuity_momentum`` on the drop's state: CUDA events around
 eager calls and around replays of a CUDA graph of the calls, and the
 host's time a call (the source pack alone too, where the checkout has
 its entry).  Then it runs each path for ``STEPS`` steps from rest (the
@@ -18,8 +20,8 @@ solver on its per-step loop; ``time_chunks.py`` times its chunks).  Prints one J
 with ``label`` and the card's name and power limit.
 
 The script uses only the port's entry points (the examples, the
-wrappers, ``CellGrid``, ``tools_dev/common.py`` and
-``tools_dev/roofline.py``), so it also times an older checkout of the
+wrappers, ``CellGrid``, ``tools_dev/common.py``, ``tools_dev/roofline.py``
+and ``tools_dev/tvf_check.py``), so it also times an older checkout of the
 port: run it by path with
 ``PYTHONPATH`` set to that checkout, and alternate the two in one call
 (older, newer, newer, older) to compare them on one card.
@@ -40,6 +42,7 @@ from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
+from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.tools_dev import common, roofline
 
@@ -101,8 +104,8 @@ def plan_calls(s, evals):
 
 def run_as_path(calls):
     """The results of ``calls`` (``plan_calls``') as the evaluator runs
-    their plans: a linked ``delta_pair`` pair through its link (the
-    moment call emitting, the gradient call consuming), in order."""
+    their plans: a linked pair through its link (the emitting call,
+    then the consuming call), in order."""
     return [c[2].op(*c[3]) if c[2].link is None
             else c[2].link.run(c[2], c[3]) for c in calls]
 
@@ -240,9 +243,9 @@ def main(label=''):
     smi = common.require_cuda()
     rows = []
 
-    def report(path, calls, ops, work):
+    def report(path, calls, ops, work, extra=()):
         row = dict(label=label, card=smi, path=path, launches=len(calls),
-                   **time_ops(calls, ops))
+                   **time_ops(calls, ops), **dict(extra))
         row.update(work=work, bound_ms=roofline.bound(work)[0])
         print(json.dumps(row), flush=True)
         rows.append(row)
@@ -268,6 +271,14 @@ def main(label=''):
         ops['pack_sources'] = lambda *args: gpack(args[4])
     report('GTVF dx=0.004', calls, ops,
            roofline.add(*[roofline.gtvf_work(*c[3]) for c in calls]))
+    del calls
+    # tvf_check builds its calls with this module's functions
+    from pysph_tpu_torch.tools_dev import tvf_check
+    calls = tvf_check.calls(400, torch.float32)[0]
+    report('Taylor-Green nx=400', calls, {'tvf_pair': tp.tvf_pair},
+           roofline.add(*[roofline.tvf_work(*c[3]) for c in calls]),
+           {'as path graph': common.graph_ms(lambda: run_as_path(calls),
+                                             REPS)})
     del calls
     st, cells, grid, kw, app = fused_call(200, torch.float32)
     ops = {'fused_pair': lambda *args: fp.fused_continuity_momentum(

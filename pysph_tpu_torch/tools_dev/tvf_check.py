@@ -9,14 +9,23 @@ velocities, the density, the number density and the pressure (numpy
 moved onto the box's edges and corners (x and y each 0, L, or L less one
 part in 1e7), so that the split x ranges at the grid's ends and the
 wrapped rows are walked by many lanes.  ``compare(calls, tol)`` holds
-the kernel to its plain version on them.  ``chip_smoke.py`` and
+the kernel to its plain version on them; ``check_linked(calls, label)``
+holds the linked pair (the density call emitting its neighbour list,
+the momentum call consuming it) to the two walking calls bit for bit,
+the list to ``pair_link.neighbours_reference`` exactly and both outputs
+to the plain version.  ``chip_smoke.py`` and
 ``tests/test_torch_tvf_cuda.py`` use them.
 """
+
+import re
 
 import numpy as np
 import torch
 
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen
+from pysph_tpu_torch.ops import cell_pack, pair_link
+from pysph_tpu_torch.ops import tvf_pair as tp
+from pysph_tpu_torch.tools_dev.common import linked_calls
 from pysph_tpu_torch.tools_dev.time_walks import make_app, plan_calls
 
 
@@ -86,3 +95,108 @@ def compare(calls_, tol):
                                      '%.3g' % (dest, p, err, tol, scale))
             worst_abs, worst = max(worst_abs, err), max(worst, err / scale)
     return worst_abs, worst
+
+
+_KERNEL = re.compile(r'tvf_pair_kernelI([fd])Li3ELb1E\w*?(Density|Momentum)'
+                     r'I[fd]EELi(\d)E')
+_MODES = {tp.WALK: 'walk', tp.EMIT: 'emit', tp.CONSUME: 'consume'}
+
+
+def resources(lib):
+    """{'<dtype> <phase set> <mode>': (registers, spill store bytes, spill
+    load bytes)} of the path's kernels (``QuinticSpline``, periodic) in
+    the built ``tvf_pair`` library ``lib`` (``build.resources``)."""
+    from pysph_tpu_torch.ops import build
+    out = {}
+    for name, res in build.resources(lib).items():
+        m = _KERNEL.search(name)
+        if m:
+            out['%s %s %s' % ('float32' if m.group(1) == 'f' else 'float64',
+                              m.group(2).lower(),
+                              _MODES[int(m.group(3))])] = res
+    return dict(sorted(out.items()))
+
+
+def _within(label, got, ref, tol, failures):
+    """The largest absolute error of ``got`` against ``ref`` over their
+    outputs; a failure where one passes ``tol`` of max|ref|."""
+    worst = 0.0
+    for p, want in ref.items():
+        scale = max(float(want.abs().max()), 1e-300)
+        err = float((got[p] - want).abs().max())
+        if not err <= tol * scale:
+            failures.append('%s.%s: error %.3g > %.0e * %.3g' % (
+                label, p, err, tol, scale))
+        worst = max(worst, err)
+    return worst
+
+
+def check_linked(calls, label, tol, capacity=None):
+    """Each linked pair of ``calls`` run as the path runs it: the
+    density call emitting (``capacity``: the list's, for tests), then
+    the momentum call consuming its hand-off.  The density output must
+    be the walking call's bit for bit, the counts and the listed
+    positions those of ``pair_link.neighbours_reference`` exactly (up to
+    the capacity), the overflow counter the dests past it, the momentum
+    output the walking momentum call's bit for bit, both within ``tol``
+    of max|ref| of the plain version, and each call one pack.  Returns
+    {linked, dests, pairs, overflowed, max_count, capacity, packs,
+    max_abs_err}; raises where a bar is missed, after printing what it
+    found, and for calls on the CPU, where the consuming call runs the
+    plain version, which walks."""
+    if not all(c[3][0]['x'].is_cuda for c in calls):
+        raise ValueError('check_linked: %s: calls off the card' % label)
+    found = dict(linked=0, dests=0, pairs=0, overflowed=0, max_count=0,
+                 capacity=0, packs=0, max_abs_err=0.0)
+    failures = []
+    for (_, dest, dplan, dargs), (_, _, mplan, margs) in linked_calls(calls):
+        n, dev = dargs[0]['x'].shape[0], dargs[0]['x'].device
+        tp.reset_overflow(dev)
+        packs = cell_pack.pack.launches
+        density, handoff = tp.tvf_pair(*dargs, emit=True, capacity=capacity)
+        momentum = tp.tvf_pair(*margs, handoff=handoff)
+        found['packs'] += cell_pack.pack.launches - packs
+        overflowed = tp.overflowed(dev)
+        for what, got, walked in (
+                ('density', density, tp.tvf_pair(*dargs)),
+                ('momentum', momentum, tp.tvf_pair(*margs))):
+            if any(not torch.equal(got[p], walked[p]) for p in walked):
+                failures.append('%s: the linked %s call differs from the '
+                                'walk' % (dest, what))
+        count, positions = pair_link.listed(handoff)
+        want, where = pair_link.neighbours_reference(dargs[0], dargs[1],
+                                                     dargs[4], dargs[5])
+        cap = handoff.nbr.shape[0]
+        if not (torch.equal(count, want) and
+                torch.equal(positions, pair_link.cut(want, where, cap))):
+            failures.append('%s: the neighbour list differs from '
+                            'neighbours_reference' % dest)
+        if overflowed != int((want > cap).sum()):
+            failures.append('%s: %d dests counted past the capacity, %d '
+                            'are' % (dest, overflowed,
+                                     int((want > cap).sum())))
+        for plan, args, got in ((dplan, dargs, density),
+                                (mplan, margs, momentum)):
+            found['max_abs_err'] = max(found['max_abs_err'], _within(
+                dest, got, plan.reference(*args), tol, failures))
+        found['linked'] += 1
+        found['dests'] += n
+        found['pairs'] += int(want.sum())
+        found['overflowed'] += overflowed
+        found['max_count'] = max(found['max_count'], int(want.max()))
+        found['capacity'] = cap
+    if found['packs'] != 2 * found['linked']:
+        failures.append('%d packs for %d linked pairs' % (found['packs'],
+                                                          found['linked']))
+    print('tvf_pair linked, %s: %d linked pairs, %d dests, %d pairs; the '
+          'list equal to neighbours_reference, both calls equal to the '
+          'walk bit for bit, max abs err %.3g against the plain version; '
+          'capacity %d, largest count %d, %d dests past it; %d packs' % (
+              label, found['linked'], found['dests'], found['pairs'],
+              found['max_abs_err'], found['capacity'], found['max_count'],
+              found['overflowed'], found['packs']), flush=True)
+    if not found['linked']:
+        failures.append('no linked pair among the calls')
+    if failures:
+        raise AssertionError('%s: %s' % (label, '; '.join(failures)))
+    return found

@@ -440,7 +440,8 @@ def _link_case(between=False, gradient_sources=('f',), moves=False):
     gradient, or an equation in the moment group that moves ``f``),
     and the links ``link_delta`` makes of them."""
     from pysph_tpu_torch.base.kernels import WendlandQuintic
-    from pysph_tpu_torch.ops.pair_engine import link_delta, plan_pair_phases
+    from pysph_tpu_torch.ops.pair_engine import link_pairs as link_delta
+    from pysph_tpu_torch.ops.pair_engine import plan_pair_phases
     from pysph_tpu_torch.sph.equation import Equation, Group
     from pysph_tpu_torch.sph.wc.basic import (
         ContinuityEquationDeltaSPHPreStep as Grad)
@@ -481,7 +482,7 @@ def test_neighbours_reference_is_the_walk_order():
     in stencil order, ascending in each) that hold the support test;
     over three sources (dam_break_3d's fluid call), source s numbered
     after the sources before it."""
-    from pysph_tpu_torch.ops import cell_walk
+    from pysph_tpu_torch.ops import cell_walk, pair_link
     from pysph_tpu_torch.tools_dev.time_walks import plan_calls
     app = _dam_break_app()
     calls = plan_calls(app.solver, [0])
@@ -489,7 +490,8 @@ def test_neighbours_reference_is_the_walk_order():
                         c[2].op is wp.wcsph_pair]
     dest, dcells, _, _, sources, grid, _ = args
     assert len(sources) == 3
-    count, positions = dl.neighbours_reference(dest, dcells, sources, grid)
+    count, positions = pair_link.neighbours_reference(dest, dcells, sources,
+                                                      grid)
     n = dest['x'].shape[0]
     order = dcells.order.long()
     rank = torch.empty_like(order)
