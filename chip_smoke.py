@@ -109,6 +109,23 @@ Phases (any failure propagates; the exit code is then not 0):
    max |v| against the exact decay and the L1 error of |v| after its 200
    steps; its chunks against the per-step loop in float64 are a gate of
    phase 4 (``taylor_green nx=40``, particles wrapping across the box);
+   then the same vortex under ``--scheme wcsph`` (``WCSPHScheme`` with
+   ``LaminarViscosity``, PEC: ``wcsph_pair``, and under ``--engine
+   dense`` ``dense_pair``) and ``--scheme gtvf`` (``GTVFScheme`` without
+   walls, with ``MomentumEquationViscosity``, two evaluators a step:
+   ``gtvf_pair``), each kernel's periodic branch against its plain
+   version on the path's calls (``tvf_check.calls``) at nx=50 in float64
+   and float32, each also with a tenth of the particles on the box's
+   edges and corners, and at nx=400 in float32, timed and counted there;
+   the kernel engine against the torch engine at nx=50 from
+   ``--perturb 0.1`` in float64 for 10 steps (<= 1e-9 of max|ref|); the
+   path at nx=400 as the main path under the binning reuse (1 launch in
+   the initial eval and 1 a step; ``gtvf``: 1 and 3), every dest on the
+   kernel, with its decay held to the JAX package's for the same scheme,
+   nx, steps and dtype (``JAX_DECAY``: max |v| over the exact decay
+   within 1e-3 of the JAX figure, the L1 error of |v| within 5% of it);
+   their chunks against the per-step loop are gates of phase 4
+   (``taylor_green <scheme> nx=40``);
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -166,6 +183,7 @@ before the last is a JSON summary of the kernels; the last is
 import functools
 import gc
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -206,6 +224,12 @@ from pysph_tpu_torch.tools_dev.time_walks import (
 
 STEPS = 200
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+#: the JAX package's Taylor-Green decay at nx=400 after STEPS steps in
+#: float32 on the CPU (``python tests/jax_tg_decay.py --scheme <scheme>
+#: --nx 400 --steps 200``): (max |v| over the exact decay of the start's
+#: max |v|, the L1 error of |v|)
+JAX_DECAY = {'wcsph': (1.000178380345958, 0.009089970207746673),
+             'gtvf': (1.000495169086151, 0.009147097045272161)}
 
 
 def _compare(calls, dtype, label, op=None):
@@ -237,19 +261,20 @@ def _compare(calls, dtype, label, op=None):
     return worst_abs
 
 
-def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=()):
-    """A path on the kernel engine against the same run on the plain
-    torch engine, float64, after ``steps`` steps (non-finite entries
-    must match exactly)."""
+def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=(),
+                   engine='kernel'):
+    """A path on a kernel engine (``engine``) against the same run on the
+    plain torch engine, float64, after ``steps`` steps (non-finite
+    entries must match exactly)."""
     runs = {}
-    for engine in ('kernel', 'torch'):
-        app = make_app(dx, torch.float64, steps=steps, engine=engine,
-                       cls=cls, extra=extra)
+    for e in (engine, 'torch'):
+        app = make_app(dx, torch.float64, steps=steps, engine=e, cls=cls,
+                       extra=extra)
         app.solve()
-        runs[engine] = app
+        runs[e] = app
     worst = 0.0
     for name, ref in runs['torch'].solver.states.items():
-        got = runs['kernel'].solver.states[name]
+        got = runs[engine].solver.states[name]
         for p in props:
             if p not in ref:
                 continue
@@ -264,9 +289,9 @@ def _engines_agree(label, dx, steps, props, cls=DamBreak3D, extra=()):
             if not err <= 1e-9:
                 raise AssertionError('engines disagree on %s.%s after %d '
                                      'steps: %.3g' % (name, p, steps, err))
-    print('%s dx=%s float64, %d steps: kernel engine against torch engine, '
-          'max scaled err %.3g (tol 1e-09)' % (label, dx, steps, worst),
-          flush=True)
+    print('%s dx=%s float64, %d steps: %s engine against torch engine, '
+          'max scaled err %.3g (tol 1e-09)' % (label, dx, steps, engine,
+                                               worst), flush=True)
 
 
 def _chunk_launches(solver, ops):
@@ -678,27 +703,39 @@ def _integrators_phase():
         del app, s
 
 
-def _tg_decay(out, solver):
+def _tg_decay(out, solver, scheme='tvf'):
     """max |v| and the L1 error of |v| of the Taylor-Green run's final
-    state against the exact decay (into ``out``): max |v| within 1% of
-    the exact decay of the lattice's max |v| at t = 0, the L1 error
-    below 2% of U (the pressure waves of the start, p = 0 from the
-    summation density against the exact field's, hold it near 0.9% at
-    t=0.011 at nx=64 and nx=100 in float32 on the CPU)."""
+    state against the exact decay (into ``out``).  ``tvf``: max |v|
+    within 1% of the exact decay of the lattice's max |v| at t = 0, the
+    L1 error below 2% of U (the pressure waves of the start, p = 0 from
+    the summation density against the exact field's, hold it near 0.9%
+    at t=0.011 at nx=64 and nx=100 in float32 on the CPU).  ``wcsph``,
+    ``gtvf``: that ratio within 1e-3 of the JAX package's for the same
+    run, the L1 error within 5% of its (``JAX_DECAY``)."""
     st = {p: solver.states['fluid'][p].double().cpu().numpy()
           for p in 'xyuv'}
     vmax, exact, l1 = decay_errors(st['x'], st['y'], st['u'], st['v'],
                                    solver.t, 100.0)
     ratio = vmax / (out['vmax0'] * exact)
     out.update(t=solver.t, vmax=vmax, exact=exact, l1=l1, ratio=ratio)
-    print('taylor_green nx=400 float32 at t=%.6g after %d steps: max|v| '
-          '%.6f, exact decay of the start\'s %.6f: %.6f (ratio %.6f, bar '
-          '1%%); L1 error of |v| %.3g (bar 2e-2)' % (
-              solver.t, solver.count, vmax, out['vmax0'],
-              out['vmax0'] * exact, ratio, l1), flush=True)
-    if not (abs(ratio - 1.0) < 1e-2 and l1 < 2e-2):
-        raise AssertionError('the Taylor-Green vortex missed the exact '
-                             'decay')
+    if scheme == 'tvf':
+        bars = 'bar 1%; L1 bar 2e-2'
+        ok = abs(ratio - 1.0) < 1e-2 and l1 < 2e-2
+    else:
+        jax_ratio, jax_l1 = JAX_DECAY[scheme]
+        out.update(jax_ratio=jax_ratio, jax_l1=jax_l1)
+        bars = 'JAX %.6f, bar 1e-3; JAX L1 %.4g, bar 5%%' % (jax_ratio,
+                                                              jax_l1)
+        ok = abs(ratio - jax_ratio) <= 1e-3 and \
+            abs(l1 - jax_l1) <= 0.05 * jax_l1
+    print('taylor_green %s nx=400 float32 at t=%.6g after %d steps: max|v| '
+          '%.6f, exact decay of the start\'s %.6f: %.6f (ratio %.6f); L1 '
+          'error of |v| %.4g (%s)' % (
+              scheme, solver.t, solver.count, vmax, out['vmax0'],
+              out['vmax0'] * exact, ratio, l1, bars), flush=True)
+    if not ok:
+        raise AssertionError('the Taylor-Green vortex (%s) missed its '
+                             'decay' % scheme)
 
 
 def _tvf_linked(s):
@@ -839,6 +876,117 @@ def _tvf_phase(runs, kernels, bins):
         capacity=linked['capacity'], resources=resources, decay=decay,
         path='taylor_green nx=400, one eval (2 launches, linked: the '
         'density emits, the momentum consumes)')
+
+
+#: the Taylor-Green vortex's other runs: (scheme, engine, kernel wrapper,
+#: its pack, its pack's plain version, its work count, the TPU kernel it
+#: replaces, launches in the initial eval and a step, reuse tests a step)
+TG_RUNS = (
+    ('wcsph', 'kernel', wp.wcsph_pair, wp.pack_sources,
+     wp.pack_sources_reference, roofline.wcsph_work,
+     'pysph_tpu/ops/resident.py:645', 1, 1, 1),
+    ('wcsph', 'dense', dp.dense_pair, wp.pack_sources,
+     wp.pack_sources_reference, roofline.wcsph_work,
+     'pysph_tpu/ops/pallas_engine.py:574', 1, 1, 1),
+    ('gtvf', 'kernel', gp.gtvf_pair, gp.pack_sources,
+     gp.pack_sources_reference, roofline.gtvf_work,
+     'pysph_tpu/ops/pallas_engine.py:1160', 1, 3, 2),
+)
+#: the props the engines must agree on, by scheme
+TG_PROPS = {'wcsph': ('x', 'y', 'u', 'v', 'rho', 'p', 'arho', 'au', 'av'),
+            'gtvf': ('x', 'y', 'u', 'v', 'rho', 'p', 'rhodiv', 'au', 'av',
+                     'auhat', 'avhat')}
+
+
+def _path_resources(lib, kernel):
+    """{mangled name: (registers, spill store bytes, spill load bytes)} of
+    the ``QuinticSpline`` instantiations of ``kernel`` with the periodic
+    flag in the built library ``lib`` (``build.resources``): the
+    Taylor-Green runs' kernels."""
+    flags = {'wcsph_pair': 'Li3ELb0ELb1ELb1E', 'dense_pair': 'Li3ELb1ELb1E',
+             'gtvf_pair': 'Li3ELb1E'}[kernel]
+    path = re.compile(kernel + '_kernelI[fd]' + flags)
+    return {name.split('_pair_kernel')[-1]: res
+            for name, res in sorted(build.resources(lib).items())
+            if path.search(name)}
+
+
+def _tg_scheme_phase(runs, kernels, run):
+    """The Taylor-Green vortex under another scheme (``TG_RUNS``): the
+    kernel's periodic branch against its plain version on the path's
+    calls (``tvf_check.calls``: perturbed, and with a tenth of the
+    particles on the box's edges and corners) at nx=50 in both dtypes and
+    at nx=400 in float32, the pack of each call exact, timed and counted
+    at nx=400 with the path's kernels' registers and spills; the kernel
+    engine against the torch engine at nx=50 from ``--perturb 0.1`` in
+    float64 for 10 steps; then the path at nx=400 as the main path under
+    the binning reuse, every dest on the kernel (the launch counts), with
+    its decay against the JAX package's (``_tg_decay``).  Adds the
+    kernel's periodic entry."""
+    (scheme, engine, op, pack, pack_reference, count, replaces, first,
+     per_step, bins) = run
+    name = op.__name__
+    what = 'taylor_green --scheme %s%s' % (
+        scheme, ' --engine dense' if engine == 'dense' else '')
+    for nx, dtype, edges in ((50, torch.float64, False),
+                             (50, torch.float64, True),
+                             (50, torch.float32, False),
+                             (50, torch.float32, True),
+                             (400, torch.float32, True)):
+        calls, n, moved = tvf_check.calls(nx, dtype, edges, scheme, engine)
+        if not all(c[3][5].is_periodic and c[2].op is op for c in calls):
+            raise AssertionError('%s: a call off the periodic %s'
+                                 % (what, name))
+        _compare(calls, dtype, '%s %s nx=%d %s%s (%d particles%s)' % (
+            name, what, nx, str(dtype)[6:], ' edges' * edges, n,
+            ', %d on the edges' % moved if edges else ''))
+        del calls
+    calls, n, _ = tvf_check.calls(400, torch.float32, False, scheme, engine)
+    if n != 160000:
+        raise AssertionError('taylor_green at nx=400 has %d particles, not '
+                             '160,000' % n)
+    err = _compare(calls, torch.float32, '%s %s nx=400 float32 (%d '
+                   'particles)' % (name, what, n))
+    for k, dest, _, args in calls:
+        _check_pack('%s nx=400 eval %d %s' % (what, k, dest),
+                    pack(args[4]), pack_reference(args[4]))
+    eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in calls], 3)
+    work = _calls_work(calls, count)
+    bound_ms, bound_by = roofline.bound(work)
+    resources = _path_resources(build.build(name), name)
+    print('%s, the %d launches of one step\'s evals of %s at nx=400 '
+          'float32 (grid %s, periodic %s; the pack included): kernel %.4f '
+          'ms in a graph, %.4f eager, plain torch %.3f ms; bound %.4f ms '
+          '(%s: %.4g flops, %d B); %d candidates, %d visited, %d pairs; '
+          'registers and spill bytes (stores, loads) of the periodic '
+          'QuinticSpline kernels: %s' % (
+              name, len(calls), what, calls[0][3][5].dims,
+              calls[0][3][5].periodic, ms, eager, plain_ms, bound_ms,
+              bound_by, work['flops'], work['bytes'], work['candidates'],
+              work['visited'], work['pairs'], resources), flush=True)
+    del calls
+    _engines_agree('taylor_green %s nx=50' % scheme, None, 10,
+                   TG_PROPS[scheme], cls=TaylorGreen, engine=engine,
+                   extra=('--nx', '50', '--perturb', '0.1', '--scheme',
+                          scheme))
+    label = 'taylor_green %s nx=400%s' % (
+        scheme, ' dense' if engine == 'dense' else '')
+    kw = time_chunks.PATHS[label]
+    start = make_app(None, torch.float32, **{
+        k: v for k, v in kw.items() if k != 'dx'}).solver.states['fluid']
+    decay = dict(vmax0=float(torch.sqrt(start['u'] ** 2 +
+                                        start['v'] ** 2).max()))
+    del start
+    runs[label, 'reuse'] = _drive(
+        label, kw, ((op, first, per_step),), bins, engine=engine,
+        checks=(functools.partial(_tg_decay, decay, scheme=scheme),))
+    kernels[name + ' periodic'] = dict(_entry(
+        name, replaces, runs[label, 'reuse']['launches'][name], err, ms,
+        plain_ms, work, None, eager_ms=eager, resources=resources,
+        decay=decay, path='%s nx=400, the pair calls of one step (%d '
+        'launches)' % (what, per_step)), name=name + ' periodic')
 
 
 def _dense_delta_phase():
@@ -1437,6 +1585,8 @@ def main():
 
     # the Taylor-Green vortex on its periodic box
     _tvf_phase(runs, kernels, bins)
+    for run in TG_RUNS:
+        _tg_scheme_phase(runs, kernels, run)
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls

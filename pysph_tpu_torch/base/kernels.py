@@ -9,8 +9,8 @@ kernel is one shape function ``_shape(q) -> (w, dw)`` evaluated with
     W(r, h)   = fac(h) * w(q),  q = r / h,  fac(h) = sigma / h^dim
     grad_a W  = fac(h) * dw(q) / h * x_ij / r
 
-The CUDA pair kernels (``csrc/wcsph_terms.cuh``) carry the same four
-shape functions; ``KERNEL_KIND`` names them there.
+The CUDA pair kernels (``csrc/shapes.cuh``) carry the same four shape
+functions; ``KERNEL_KIND`` names them there.
 """
 
 import math
@@ -155,9 +155,10 @@ class QuinticSpline(SmoothingKernel):
         return w, dw
 
 
-#: Shape-function ids shared with ``csrc/wcsph_terms.cuh``.
+#: Shape-function ids shared with ``csrc/shapes.cuh``.
 KERNEL_KIND = {WendlandQuintic: 0, CubicSpline: 1, Gaussian: 2,
                QuinticSpline: 3}
 #: the kinds the WCSPH walks (``wcsph_pair``, ``dense_pair``,
-#: ``delta_pair``) are built for; ``tvf_pair`` takes every kind
-WCSPH_KINDS = frozenset((0, 1, 2))
+#: ``delta_pair``) are built for: every kind, as ``tvf_pair`` and
+#: ``gtvf_pair``
+WCSPH_KINDS = frozenset((0, 1, 2, 3))

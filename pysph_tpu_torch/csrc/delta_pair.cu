@@ -343,8 +343,10 @@ cudaError_t launch(const DeltaArgs& a, cudaStream_t stream) {
     delta_pair_kernel<T, 0, MODE, MOMENT><<<blocks, threads, 0, stream>>>(a);
   else if (a.kernel_kind == 1)
     delta_pair_kernel<T, 1, MODE, MOMENT><<<blocks, threads, 0, stream>>>(a);
-  else
+  else if (a.kernel_kind == 2)
     delta_pair_kernel<T, 2, MODE, MOMENT><<<blocks, threads, 0, stream>>>(a);
+  else
+    delta_pair_kernel<T, 3, MODE, MOMENT><<<blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -377,7 +379,7 @@ bool args_ok(const DeltaArgs& a) {
   return terms_ok && dims_ok && mode_ok && list_ok && bases_ok &&
          a.n_src >= 1 && a.n_src <= kDeltaSources && a.nx >= 1 &&
          a.ny >= 1 && a.nz >= 1 && a.dim >= 1 && a.dim <= 3 &&
-         a.kernel_kind >= 0 && a.kernel_kind <= 2 &&
+         a.kernel_kind >= 0 && a.kernel_kind <= 3 &&
          (a.dtype == 0 || a.dtype == 1) && pack::args_ok(a.pack) &&
          (a.pack.n_src == 0 || a.pack.dtype == a.dtype) &&
          a.dorder != nullptr && a.cell != nullptr && a.pre != nullptr &&

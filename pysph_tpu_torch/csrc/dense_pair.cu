@@ -3,10 +3,11 @@
 //
 // Replaces pysph_tpu/ops/pallas_engine.py::_pair_kernel (the dense-slot
 // Pallas engine, PYSPH_TPU_RESIDENT=0 PYSPH_TPU_COMPACT=0) for the WCSPH
-// phase sets: ContinuityEquation, the non-tensile MomentumEquation and
-// XSPHCorrection of one dest array over at most 4 sources, with the
-// WendlandQuintic, CubicSpline or Gaussian kernel.  Same contract, same
-// arguments and same per-pair body (wcsph_terms.cuh) as
+// phase sets: ContinuityEquation, the non-tensile MomentumEquation,
+// XSPHCorrection and LaminarViscosity of one dest array over at most 4
+// sources, with the WendlandQuintic, CubicSpline, Gaussian or
+// QuinticSpline kernel, on an open or a periodic grid.  Same contract,
+// same arguments and same per-pair body (wcsph_terms.cuh) as
 // csrc/wcsph_pair.cu; only the walk differs.
 //
 // The TPU kernel gives one program to each active cell block, stages its
@@ -41,12 +42,25 @@
 //   + sum (max(pre, m) for dt_cfl) once, under the write mask.  No
 //   atomics: runs repeat exactly.
 //
+// On a periodic grid (the template flag PERIODIC; PeriodicChunks) the
+// stencil rows wrap with the axes' offsets (CellGrid.axis_offsets), and
+// the tile's span of a row, its cells x0 - 1 .. x1 + 1 on a periodic x
+// axis, is up to three segments of the packed copy: the cell before the
+// grid's start wrapped to its end, the cells inside the grid, the cell
+// past its end wrapped to its start.  The block stages each segment's
+// chunks in that order, and a thread tests the part of each segment that
+// its own cells hold, so it walks the two ranges of
+// walk::walk_rows_periodic in their order; the support test and the pair
+// take the minimum image.
+//
 // What bounds it: the same candidates and pair body as wcsph_pair.cu.
 // Here every candidate's record reaches the SM once per tile instead of
 // once per warp that tests it, and the tests read shared memory.
 //
 // Interface: plain C through ctypes (ops/dense_pair.py), as wcsph_pair:
 // the launch function launches the pack of a.pack, then the walk.
+
+#include <type_traits>
 
 #include "wcsph_terms.cuh"
 
@@ -186,12 +200,137 @@ struct Chunks {
     kc += kStageRecords;
     if (kc >= k1) next_row(a);
   }
+
+  // The positions of the thread's own cells cx - 1 .. cx + 1 in the
+  // chunk's row of source S.
+  __device__ walk::Span own(const WcsphArgs& a, const SrcArgs& S,
+                            int cx) const {
+    return walk::row_span(a, S.cell_start, S.cell_end, cx - 1, cx + 1,
+                          row_y(a), row_z(a));
+  }
 };
+
+// The staged chunks of one tile on a periodic grid, in the order the
+// block walks them: for each source, each stencil row (oz, oy) of the
+// axes' offsets (wrapped on a periodic axis, skipped outside the grid on
+// another), each non-empty segment g of the row's cells x0 + xlo .. x1 +
+// xhi (0: those before cell 0, wrapped to the grid's end; 1: those inside
+// the grid; 2: those past its end, wrapped to cell 0), chunks of at most
+// kStageRecords records from the segment's start.
+struct PeriodicChunks {
+  int x0, x1, y, z;  // the tile
+  int s, r, g;       // source, stencil row, segment
+  int kc, k1;        // the chunk's first position, the segment's end
+  bool done;
+  int xlo, xhi, ylo, yhi, zlo, zhi;  // the axes' stencil offsets
+
+  __device__ static bool periodic(const WcsphArgs& a, int d) {
+    return a.box[d] != 0.0;
+  }
+  __device__ int rows_y() const { return yhi - ylo + 1; }
+  // the chunk's row, wrapped; -1 outside the grid
+  __device__ int row_y(const WcsphArgs& a) const {
+    const int v = y + ylo + r % rows_y();
+    return periodic(a, 1) ? (v + a.ny) % a.ny
+                          : (v < 0 || v >= a.ny ? -1 : v);
+  }
+  __device__ int row_z(const WcsphArgs& a) const {
+    const int v = z + zlo + r / rows_y();
+    return periodic(a, 2) ? (v + a.nz) % a.nz
+                          : (v < 0 || v >= a.nz ? -1 : v);
+  }
+  __device__ int count() const { return min(kStageRecords, k1 - kc); }
+
+  // cells [xa, xb] of segment g of the cells lo .. hi of a row (xa > xb:
+  // empty)
+  __device__ static void segment(const WcsphArgs& a, int g, int lo, int hi,
+                                 int& xa, int& xb) {
+    if (!periodic(a, 0)) {
+      xa = g == 1 ? max(lo, 0) : 1;
+      xb = g == 1 ? min(hi, a.nx - 1) : 0;
+    } else if (g == 0) {
+      xa = lo < 0 ? lo + a.nx : 1;
+      xb = lo < 0 ? a.nx - 1 : 0;
+    } else if (g == 1) {
+      xa = max(lo, 0);
+      xb = min(hi, a.nx - 1);
+    } else {
+      xa = hi >= a.nx ? 0 : 1;
+      xb = hi >= a.nx ? hi - a.nx : 0;
+    }
+  }
+
+  // positions of segment g of cells lo .. hi of the chunk's row of S
+  __device__ walk::Span span(const WcsphArgs& a, const SrcArgs& S, int g,
+                             int lo, int hi) const {
+    const int yy = row_y(a), zz = row_z(a);
+    int xa, xb;
+    segment(a, g, lo, hi, xa, xb);
+    if (yy < 0 || zz < 0 || xa > xb) return {0, 0};
+    const int row = a.nx * (yy + a.ny * zz);
+    return {S.cell_start[row + xa], S.cell_end[row + xb]};
+  }
+
+  __device__ void begin(const WcsphArgs& a, int tx0, int tx1, int ty,
+                        int tz) {
+    x0 = tx0;
+    x1 = tx1;
+    y = ty;
+    z = tz;
+    walk::axis_offsets(a.nx, periodic(a, 0), xlo, xhi);
+    walk::axis_offsets(a.ny, periodic(a, 1), ylo, yhi);
+    walk::axis_offsets(a.nz, periodic(a, 2), zlo, zhi);
+    s = 0;
+    r = 0;
+    g = -1;
+    kc = k1 = 0;
+    done = a.n_src == 0;
+    if (!done) next_segment(a);
+  }
+
+  __device__ void next_segment(const WcsphArgs& a) {
+    const int rows = rows_y() * (zhi - zlo + 1);
+    for (;;) {
+      if (++g == 3) {
+        g = 0;
+        if (++r == rows) {
+          r = 0;
+          if (++s == a.n_src) {
+            done = true;
+            return;
+          }
+        }
+      }
+      const walk::Span sp = span(a, a.src[s], g, x0 + xlo, x1 + xhi);
+      if (sp.k0 < sp.k1) {
+        kc = sp.k0;
+        k1 = sp.k1;
+        return;
+      }
+    }
+  }
+
+  __device__ void next(const WcsphArgs& a) {
+    kc += kStageRecords;
+    if (kc >= k1) next_segment(a);
+  }
+
+  // The positions of the thread's own cells cx + xlo .. cx + xhi in the
+  // chunk's segment of the chunk's row of source S.
+  __device__ walk::Span own(const WcsphArgs& a, const SrcArgs& S,
+                            int cx) const {
+    return span(a, S, g, cx + xlo, cx + xhi);
+  }
+};
+
+template <bool PERIODIC>
+using ChunksOf = typename std::conditional<PERIODIC, PeriodicChunks,
+                                           Chunks>::type;
 
 // The producer: copy the {x, y, z, h} records of chunk c into `stage`,
 // completing on bar.
-template <typename T>
-__device__ void issue(const WcsphArgs& a, const Chunks& c,
+template <typename T, class C>
+__device__ void issue(const WcsphArgs& a, const C& c,
                       unsigned char* stage, uint64_t* bar) {
   const uint32_t bytes = c.count() * 4 * sizeof(T);
   const T* from = static_cast<const T*>(a.src[c.s].pos) +
@@ -200,10 +339,14 @@ __device__ void issue(const WcsphArgs& a, const Chunks& c,
   bulk_copy(stage, from, bytes, bar);
 }
 
-// 5 blocks an SM in float (72 registers a thread)
-template <typename T, int KIND>
+// 5 blocks an SM in float (72 registers a thread).  VISC: built with
+// kLvisc; PERIODIC: the periodic tile and the minimum image (template
+// flags, so that the kernels built without them are the code they were
+// before them).
+template <typename T, int KIND, bool VISC, bool PERIODIC>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
     dense_pair_kernel(const WcsphArgs a) {
+  using Chunks = ChunksOf<PERIODIC>;
   extern __shared__ __align__(128) unsigned char ring[];
   // full: the stage's copy landed; empty: every consumer warp walked it
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -253,8 +396,12 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
     const int i = active ? a.dorder[pos] : 0;
     const int cx = active ? a.cell[i] % a.nx : x0;
     Dest<T> d{};
-    if (active) d.load(a, i, dterms);
+    if (active) d.template load<false, VISC>(a, i, dterms);
     const Rec<T> di = d.point();
+    const walk::Box<T> box = wcsph::box_of<T>(a);
+    auto test = [&](const Rec<T>& r) {
+      return walk::in_support(di, r, rs, box);
+    };
 
     Chunks c;
     c.begin(a, x0, x1, y, z);
@@ -263,30 +410,34 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
     for (int s = 0; s < a.n_src; ++s) {
       const SrcArgs& S = a.src[s];
       const int terms = S.terms;
-      const bool thermo = terms & (kMom | kXsph);
+      const bool thermo = terms & (kMom | kXsph | (VISC ? kLvisc : 0));
       const T c0 = T(S.c0), alpha = T(S.alpha), beta = T(S.beta);
       const T xeps = T(S.xsph_eps);
+      const wcsph::ViscConsts<T> vc = wcsph::visc_consts<T>(S);
       auto body = [&](int k) {
         Cand<T> cand;
         cand.pos = wcsph::rec<T>(S.pos, k);
         cand.vel = wcsph::rec<T>(S.vel, k);
         cand.th = thermo ? wcsph::rec<T>(S.thermo, k) : Rec<T>{};
-        d.template pair<KIND>(cand, k, terms, c0, alpha, beta, xeps, rs,
-                              kfac, a.dim);
+        d.template pair<KIND, false, VISC, PERIODIC>(
+            cand, k, terms, c0, alpha, beta, xeps, rs, kfac, a.dim, {}, vc,
+            box);
       };
       for (; !c.done && c.s == s; c.next(a), ++used) {
         const int st = used % kStages;
         mbar_wait(&full[st], (used / kStages) & 1);
         const T* staged = reinterpret_cast<const T*>(ring + st * sb);
         const int kc = c.kc;
-        // this thread's own cells cx - 1 .. cx + 1 of the row, in the chunk
+        // this thread's own cells of the chunk's row (cx - 1 .. cx + 1;
+        // periodic: of its segment), in the chunk
         walk::Span own{0, 0};
-        if (active)
-          own = walk::row_span(a, S.cell_start, S.cell_end, cx - 1, cx + 1,
-                               c.row_y(a), c.row_z(a));
+        if (active) own = c.own(a, S, cx);
         const int lo = max(own.k0, kc), hi = min(own.k1, kc + c.count());
         auto staged_pos = [&](int k) { return srec(staged, k - kc); };
-        walker.walk(lo, hi - lo, di, rs, staged_pos, body);
+        if (PERIODIC)
+          walker.walk_test(lo, hi - lo, test, staged_pos, body);
+        else
+          walker.walk(lo, hi - lo, di, rs, staged_pos, body);
         // the warp's reads of the stage come before the producer's refill
         __syncwarp();
         if (threadIdx.x % 32 == 0) mbar_arrive(&empty[st]);
@@ -297,16 +448,30 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
   }
 }
 
-template <typename T, int KIND>
-cudaError_t launch_kind(const WcsphArgs& a, int blocks, cudaStream_t stream) {
+template <typename T, int KIND, bool VISC, bool PERIODIC>
+cudaError_t launch_flags(const WcsphArgs& a, int blocks,
+                         cudaStream_t stream) {
   // above 48 KB (float64) a kernel must ask for its dynamic shared memory
   constexpr int ring = kStages * stage_bytes<T>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dense_pair_kernel<T, KIND>,
+      dense_pair_kernel<T, KIND, VISC, PERIODIC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, ring);
   if (attr != cudaSuccess) return attr;
-  dense_pair_kernel<T, KIND><<<blocks, kThreads, ring, stream>>>(a);
+  dense_pair_kernel<T, KIND, VISC, PERIODIC>
+      <<<blocks, kThreads, ring, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, int KIND>
+cudaError_t launch_kind(const WcsphArgs& a, int blocks, cudaStream_t stream) {
+  bool visc = false;
+  for (int s = 0; s < a.n_src; ++s)
+    visc = visc || (a.src[s].terms & kLvisc);
+  if (a.periodic)
+    return visc ? launch_flags<T, KIND, true, true>(a, blocks, stream)
+                : launch_flags<T, KIND, false, true>(a, blocks, stream);
+  return visc ? launch_flags<T, KIND, true, false>(a, blocks, stream)
+              : launch_flags<T, KIND, false, false>(a, blocks, stream);
 }
 
 template <typename T>
@@ -317,7 +482,8 @@ cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
   const int blocks = static_cast<int>(tiles);
   if (a.kernel_kind == 0) return launch_kind<T, 0>(a, blocks, stream);
   if (a.kernel_kind == 1) return launch_kind<T, 1>(a, blocks, stream);
-  return launch_kind<T, 2>(a, blocks, stream);
+  if (a.kernel_kind == 2) return launch_kind<T, 2>(a, blocks, stream);
+  return launch_kind<T, 3>(a, blocks, stream);
 }
 
 }  // namespace

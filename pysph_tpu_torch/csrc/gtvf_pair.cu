@@ -2,22 +2,26 @@
 // csrc/cell_walk.cuh over the cell-sorted packed sources.
 //
 // Replaces pysph_tpu/ops/pallas_engine.py::_pair_kernel_compact for the
-// pair phases of the GTVF dam break (examples/dam_break_2d.py --scheme
-// gtvf): the two acceleration evaluators of GTVFIntegrator give five
-// phase sets, one device functor each:
+// pair phases of GTVFScheme: the GTVF dam break (examples/dam_break_2d.py
+// --scheme gtvf) and the Taylor-Green vortex on its box periodic in x
+// and y (examples/taylor_green.py --scheme gtvf).  The two acceleration
+// evaluators of GTVFIntegrator give five phase sets, one device functor
+// each:
 //
 //   WallVelocity   SetWallVelocity                       -> uf vf wf wij
 //   Continuity     ContinuityEquationGTVF, ContinuitySolid -> arho
 //   Density        CorrectDensity                        -> rho rhodiv
 //   WallPressure   VolumeSummation, SolidWallPressureBC  -> V p wij
 //   Momentum       MomentumEquationPressureGradient (with the kernel
-//                  gradient at h/2), MomentumEquationArtificialStress
+//                  gradient at h/2), MomentumEquationViscosity,
+//                  MomentumEquationArtificialStress
 //                                          -> au av aw auhat avhat awhat
 //
 // A per-source term mask (ops/gtvf_pair.py) says which equations a
-// source takes.  The smoothing kernel is WendlandQuintic.  One launch
-// computes every pair term of one dest array over all of its sources (at
-// most 4) and writes each output once.
+// source takes.  Any smoothing kernel of KERNEL_KIND (csrc/shapes.cuh:
+// WendlandQuintic on the dam break, QuinticSpline on the Taylor-Green
+// vortex).  One launch computes every pair term of one dest array over
+// all of its sources (at most 4) and writes each output once.
 //
 // What bounds it: the candidates of the 3x3-cell stencil and, per pair
 // in support, 30 to 120 flops on 4 to 12 source values.  Walked one dest
@@ -46,7 +50,12 @@
 // it needs and accumulates in registers.  The epilogue writes pre + sum
 // under the write mask (Group real=True) and pre elsewhere.  No shared
 // memory and no atomics, so the result is the same on every run, and
-// each lane sums its pairs in the order of the plain stencil walk.  Every
+// each lane sums its pairs in the order of the plain stencil walk.  On a
+// periodic grid (the template flag PERIODIC) the rows wrap, a row that
+// crosses the grid's end on x is two ranges (walk::walk_rows_periodic),
+// and every displacement, in the support test and in the pair, is the
+// minimum image d - L rint(d / L) with the box lengths of the arguments.
+// Every
 // dest read sees the value from before the phase, as in the Pallas
 // kernel; the planner refuses a phase set in which one equation reads
 // what another accumulates.  No fast-math: CorrectDensity divides by the
@@ -60,6 +69,7 @@
 
 #include "cell_pack.cuh"
 #include "cell_walk.cuh"
+#include "shapes.cuh"
 
 // The argument structs are at global scope: the exported C functions
 // take them, and a type in an unnamed namespace would give those
@@ -67,7 +77,7 @@
 constexpr int kMaxSources = 4;
 // term bits, as ops/gtvf_pair.py
 constexpr int kSwv = 1, kCgtvf = 2, kCsolid = 4, kCdens = 8, kVsum = 16,
-              kWallp = 32, kMpg = 64, kMas = 128;
+              kWallp = 32, kMpg = 64, kMas = 128, kMvisc = 256;
 // outputs in the order of ops/gtvf_pair.py OUTPUTS
 enum Out {
   oUf, oVf, oWf, oWij, oArho, oRho, oRhodiv, oV, oP,
@@ -87,6 +97,7 @@ struct SrcArgs {
   const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double gx, gy, gz;          // SolidWallPressureBC's gravity
+  double nu;                  // MomentumEquationViscosity's
   int32_t terms, pad;
 };
 
@@ -100,7 +111,9 @@ struct GtvfArgs {
   void* out[kNumOut];
   SrcArgs src[kMaxSources];
   double radius_scale, kfac;  // kfac: the kernel's sigma
-  int32_t n_dest, n_src, nx, ny, nz, dim, phase, dtype;
+  double box[3];  // the length of each periodic axis, 0 on the others
+  int32_t n_dest, n_src, nx, ny, nz, dim, phase, dtype, kernel_kind,
+      periodic;
   // the pack that fills the sources' planes: the launch function launches
   // it just before the walk (n_src 0: none)
   PackArgs pack;
@@ -116,21 +129,6 @@ __device__ __forceinline__ T ld(const void* p, int i) {
   return static_cast<const T*>(p)[i];
 }
 
-// WendlandQuintic's unnormalised shape (w, dw/dq), support q < 2
-// (base/kernels.py).
-template <typename T>
-__device__ __forceinline__ void shape(T q, T& w, T& dw) {
-  if (q < T(2)) {
-    const T t = T(1) - T(0.5) * q;
-    const T t3 = t * t * t;
-    w = t3 * t * (T(2) * q + T(1));
-    dw = T(-5) * q * t3;
-  } else {
-    w = T(0);
-    dw = T(0);
-  }
-}
-
 template <typename T>
 __device__ __forceinline__ T hpow(T h1, int dim) {
   return dim == 1 ? h1 : dim == 2 ? h1 * h1 : h1 * h1 * h1;
@@ -141,7 +139,7 @@ __device__ __forceinline__ T hpow(T h1, int dim) {
 template <typename T>
 struct Pair {
   int k;
-  T xij, yij, zij, rij, hij;
+  T xij, yij, zij, r2, rij, hij;
   T w;              // WIJ
   T dwx, dwy, dwz;  // DWIJ
 };
@@ -155,7 +153,7 @@ __device__ __forceinline__ void put(const GtvfArgs& a, int k, int i, T acc,
   static_cast<T*>(a.out[k])[i] = wm ? pre + acc : pre;
 }
 
-__device__ __forceinline__ int all_terms(const GtvfArgs& a) {
+__host__ __device__ __forceinline__ int all_terms(const GtvfArgs& a) {
   int t = 0;
   for (int s = 0; s < a.n_src; ++s) t |= a.src[s].terms;
   return t;
@@ -279,17 +277,26 @@ struct WallPressure {
 
 // The dest's parts of both equations are computed once in load():
 // pi / rhoi^2, -p0i / rhoi^2 and the nine ui[c] uidif[d] / rhoi, so that
-// a pair in support divides twice where it divided 21 times.
-template <typename T>
+// a pair in support divides twice where it divided 21 times.  KIND: the
+// shape of the h/2 gradient; VISC: built with kMvisc (a template flag, so
+// that the dam break's Momentum is the code it was before it).
+template <typename T, int KIND, bool VISC>
 struct Momentum {
   static constexpr int kBlocks = sizeof(T) == 4 ? 7 : 4;
   T pirho2 = 0, p0rho2 = 0;
   T si[3][3] = {};  // ui[c] uidif[d] / rhoi
+  T rhoi = 0, ui[3] = {};  // kMvisc
   T au = 0, av = 0, aw = 0, auhat = 0, avhat = 0, awhat = 0;
   __device__ void load(const GtvfArgs& a, int i) {
     const int t = all_terms(a);
     const T rhoi = ld<T>(a.rho, i);
     const T rhoi2 = rhoi * rhoi;
+    if (VISC && (t & kMvisc)) {
+      this->rhoi = rhoi;
+      ui[0] = ld<T>(a.u, i);
+      ui[1] = ld<T>(a.v, i);
+      ui[2] = ld<T>(a.w, i);
+    }
     if (t & kMpg) {
       pirho2 = ld<T>(a.p, i) / rhoi2;
       p0rho2 = -ld<T>(a.p0, i) / rhoi2;
@@ -318,13 +325,25 @@ struct Momentum {
       const T h = T(0.5) * q.hij;
       const T h1 = T(1) / h;
       T wq, dwq;
-      shape<T>(q.rij * h1, wq, dwq);
+      shapes::shape<T, KIND>(q.rij * h1, wq, dwq);
       const T wdash = dwq * (T(a.kfac) * hpow(h1, a.dim));
       const T g = q.rij > T(1e-12) ? wdash / (h * q.rij) : T(0);
       const T tmph = p0rho2 * mj;
       auhat += tmph * (g * q.xij);
       avhat += tmph * (g * q.yij);
       awhat += tmph * (g * q.zij);
+    }
+    if (VISC && (S.terms & kMvisc)) {  // MomentumEquationViscosity
+      const Rec<T> vel = rec<T>(S.plane[kVel], q.k);
+      const T etai = T(S.nu) * rhoi, etaj = T(S.nu) * rhoj;
+      const T etaij = T(4) * (etai * etaj) / (etai + etaj);
+      const T xdotdij = q.dwx * q.xij + q.dwy * q.yij + q.dwz * q.zij;
+      const T tmp = mj / (rhoi * rhoj);
+      const T fac =
+          tmp * etaij * xdotdij / (q.r2 + T(0.01) * q.hij * q.hij);
+      au += fac * (ui[0] - vel.a);
+      av += fac * (ui[1] - vel.b);
+      aw += fac * (ui[2] - vel.c);
     }
     if (S.terms & kMas) {  // MomentumEquationArtificialStress
       const Rec<T> vel = rec<T>(S.plane[kVel], q.k);
@@ -357,8 +376,9 @@ struct Momentum {
   }
 };
 
-// The walk shared by every phase set.
-template <typename T, class PhaseSet>
+// The walk shared by every phase set; KIND: the shape function;
+// PERIODIC: the periodic walk and the minimum image.
+template <typename T, int KIND, bool PERIODIC, class PhaseSet>
 __global__ void __launch_bounds__(128, PhaseSet::kBlocks)
     gtvf_pair_kernel(const GtvfArgs a) {
   // every lane stays to the end: the walk's votes take the whole warp
@@ -374,6 +394,7 @@ __global__ void __launch_bounds__(128, PhaseSet::kBlocks)
     ph.load(a, i);
   }
   const T rs = T(a.radius_scale), kfac = T(a.kfac);
+  const walk::Box<T> box{{T(a.box[0]), T(a.box[1]), T(a.box[2])}};
 
   walk::Walker<T> walker;
   walker.begin();
@@ -386,13 +407,19 @@ __global__ void __launch_bounds__(128, PhaseSet::kBlocks)
       q.xij = di.a - pj.a;
       q.yij = di.b - pj.b;
       q.zij = di.c - pj.c;
+      if (PERIODIC) {
+        q.xij = walk::image(q.xij, box.len[0]);
+        q.yij = walk::image(q.yij, box.len[1]);
+        q.zij = walk::image(q.zij, box.len[2]);
+      }
       const T r2 = q.xij * q.xij + q.yij * q.yij + q.zij * q.zij;
+      q.r2 = r2;
       q.hij = T(0.5) * (di.d + pj.d);
       const T rinv = r2 > T(1e-24) ? T(1) / sqrt(r2) : T(0);
       q.rij = r2 * rinv;
       const T h1 = T(1) / (q.hij > T(0) ? q.hij : T(1));
       T wq, dwq;
-      shape<T>(q.rij * h1, wq, dwq);
+      shapes::shape<T, KIND>(q.rij * h1, wq, dwq);
       const T fac = kfac * hpow(h1, a.dim);
       q.w = wq * fac;
       const T gr = q.rij > T(1e-12) ? dwq * fac * h1 * rinv : T(0);
@@ -401,37 +428,70 @@ __global__ void __launch_bounds__(128, PhaseSet::kBlocks)
       q.dwz = gr * q.zij;
       ph.pair(a, S, q);
     };
-    walk::walk_rows(a, S.cell_start, S.cell_end, S.plane[kPos], l, 1, di,
-                    rs, walker, body);
+    if (PERIODIC)
+      walk::walk_rows_periodic(a, S.cell_start, S.cell_end, S.plane[kPos],
+                               l, di, rs, box, walker, body);
+    else
+      walk::walk_rows(a, S.cell_start, S.cell_end, S.plane[kPos], l, 1, di,
+                      rs, walker, body);
     walker.finish(body);
   }
   if (active) ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
 }
 
-template <typename T>
-cudaError_t launch(const GtvfArgs& a, cudaStream_t stream) {
+template <typename T, int KIND, bool PERIODIC>
+cudaError_t launch_walk(const GtvfArgs& a, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (a.n_dest + threads - 1) / threads;
   switch (a.phase) {
     case kWallVelocity:
-      gtvf_pair_kernel<T, WallVelocity<T>><<<blocks, threads, 0, stream>>>(a);
+      gtvf_pair_kernel<T, KIND, PERIODIC, WallVelocity<T>>
+          <<<blocks, threads, 0, stream>>>(a);
       break;
     case kContinuity:
-      gtvf_pair_kernel<T, Continuity<T>><<<blocks, threads, 0, stream>>>(a);
+      gtvf_pair_kernel<T, KIND, PERIODIC, Continuity<T>>
+          <<<blocks, threads, 0, stream>>>(a);
       break;
     case kDensity:
-      gtvf_pair_kernel<T, Density<T>><<<blocks, threads, 0, stream>>>(a);
+      gtvf_pair_kernel<T, KIND, PERIODIC, Density<T>>
+          <<<blocks, threads, 0, stream>>>(a);
       break;
     case kWallPressure:
-      gtvf_pair_kernel<T, WallPressure<T>><<<blocks, threads, 0, stream>>>(a);
+      gtvf_pair_kernel<T, KIND, PERIODIC, WallPressure<T>>
+          <<<blocks, threads, 0, stream>>>(a);
       break;
     case kMomentum:
-      gtvf_pair_kernel<T, Momentum<T>><<<blocks, threads, 0, stream>>>(a);
+      if (all_terms(a) & kMvisc)
+        gtvf_pair_kernel<T, KIND, PERIODIC, Momentum<T, KIND, true>>
+            <<<blocks, threads, 0, stream>>>(a);
+      else
+        gtvf_pair_kernel<T, KIND, PERIODIC, Momentum<T, KIND, false>>
+            <<<blocks, threads, 0, stream>>>(a);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <typename T, int KIND>
+cudaError_t launch_kind(const GtvfArgs& a, cudaStream_t stream) {
+  return a.periodic ? launch_walk<T, KIND, true>(a, stream)
+                    : launch_walk<T, KIND, false>(a, stream);
+}
+
+template <typename T>
+cudaError_t launch(const GtvfArgs& a, cudaStream_t stream) {
+  switch (a.kernel_kind) {
+    case 0:
+      return launch_kind<T, 0>(a, stream);
+    case 1:
+      return launch_kind<T, 1>(a, stream);
+    case 2:
+      return launch_kind<T, 2>(a, stream);
+    default:
+      return launch_kind<T, 3>(a, stream);
+  }
 }
 
 }  // namespace
@@ -444,6 +504,7 @@ int gtvf_pair_launch(const GtvfArgs* args, void* stream) {
   const GtvfArgs a = *args;
   if (a.n_src < 0 || a.n_src > kMaxSources || a.nx < 1 || a.ny < 1 ||
       a.nz < 1 || a.dim < 1 || a.dim > 3 || (a.dtype != 0 && a.dtype != 1) ||
+      a.kernel_kind < 0 || a.kernel_kind > 3 ||
       a.dorder == nullptr || a.cell == nullptr || !pack::args_ok(a.pack) ||
       (a.pack.n_src != 0 && a.pack.dtype != a.dtype))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -15,7 +15,7 @@
 //                                          -> au av aw auhat avhat awhat
 //
 // A per-source term mask (ops/tvf_pair.py) says which equations a source
-// takes.  Any shape of KERNEL_KIND (csrc/wcsph_terms.cuh; QuinticSpline
+// takes.  Any shape of KERNEL_KIND (csrc/shapes.cuh; QuinticSpline
 // on the path).  One launch computes every pair term of one dest array
 // over all of its sources (at most 4) and writes each output once.
 //

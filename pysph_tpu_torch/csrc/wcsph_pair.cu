@@ -6,8 +6,10 @@
 // non-tensile MomentumEquation (artificial viscosity and the dt_cfl max)
 // and XSPHCorrection, and the main group's delta-SPH terms
 // (ContinuityEquationDeltaSPH, MomentumEquationDeltaSPH), with the
-// WendlandQuintic, CubicSpline or Gaussian kernel.  (The delta-SPH
-// pre-phases are csrc/delta_pair.cu.)
+// WendlandQuintic, CubicSpline, Gaussian or QuinticSpline kernel; and for
+// WCSPHScheme with a viscosity, LaminarViscosity, on the Taylor-Green
+// vortex's box periodic in x and y (examples/taylor_green.py --scheme
+// wcsph).  (The delta-SPH pre-phases are csrc/delta_pair.cu.)
 // One launch computes every pair term of one dest array over all of its
 // sources (at most 4), and writes each output once.
 //
@@ -25,7 +27,10 @@
 // walk): one 16-byte record load per candidate, no index, and the lanes
 // of one cell load the same records at the same steps.  The candidates
 // in support are kept as bits and handed to the pair body a round at a
-// time, one per lane, so the body runs with most lanes busy.
+// time, one per lane, so the body runs with most lanes busy.  On a
+// periodic grid (the template flag PERIODIC) the rows wrap, a row that
+// crosses the grid's end on x is two ranges (walk::walk_rows_periodic),
+// and every displacement is the minimum image.
 // No shared memory, no block barrier and no atomics: the result is the
 // same on every run, and each lane sums its pairs in the order of the
 // plain stencil walk.  The per-pair body, the shape functions and the
@@ -45,8 +50,11 @@ using wcsph::Dest;
 
 // 8 blocks of 128 threads an SM in float (64 registers a thread): the
 // walk waits on its loads, so more warps in flight hide more of it.
-// DELTA: built with the delta-SPH terms (a call whose sources take one).
-template <typename T, int KIND, bool DELTA>
+// DELTA: built with the delta-SPH terms (a call whose sources take one);
+// VISC: with kLvisc; PERIODIC: the periodic walk and the minimum image.
+// Each flag is a template parameter, so that the kernels built without
+// it are the code they were before it.
+template <typename T, int KIND, bool DELTA, bool VISC, bool PERIODIC>
 __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
     wcsph_pair_kernel(const WcsphArgs a) {
   // every lane stays to the end: the walk's votes take the whole warp
@@ -56,8 +64,9 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
   const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
 
   Dest<T> d{};
-  if (active) d.template load<DELTA>(a, i, wcsph::dest_terms(a));
+  if (active) d.template load<DELTA, VISC>(a, i, wcsph::dest_terms(a));
   const T rs = T(a.radius_scale), kfac = T(a.kfac);
+  const walk::Box<T> box = wcsph::box_of<T>(a);
 
   walk::Walker<T> walker;
   walker.begin();
@@ -65,45 +74,65 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
     const SrcArgs& S = a.src[s];
     const int terms = S.terms;
     const bool thermo =
-        terms & (kMom | kXsph | (DELTA ? kDcont | kDmom : 0));
+        terms & (kMom | kXsph | (DELTA ? kDcont | kDmom : 0) |
+                 (VISC ? kLvisc : 0));
     const bool grad = DELTA && (terms & kDcont);
     const T c0 = T(S.c0), alpha = T(S.alpha), beta = T(S.beta);
     const T xeps = T(S.xsph_eps);
     const wcsph::DeltaConsts<T> dc = wcsph::delta_consts<T>(S);
+    const wcsph::ViscConsts<T> vc = wcsph::visc_consts<T>(S);
     auto body = [&](int k) {
       Cand<T> c;
       c.pos = wcsph::rec<T>(S.pos, k);
       c.vel = wcsph::rec<T>(S.vel, k);
       c.th = thermo ? wcsph::rec<T>(S.thermo, k) : wcsph::Rec<T>{};
       c.gr = grad ? wcsph::rec<T>(S.grad, k) : wcsph::Rec<T>{};
-      d.template pair<KIND, DELTA>(c, k, terms, c0, alpha, beta, xeps, rs,
-                                   kfac, a.dim, dc);
+      d.template pair<KIND, DELTA, VISC, PERIODIC>(
+          c, k, terms, c0, alpha, beta, xeps, rs, kfac, a.dim, dc, vc, box);
     };
-    wcsph::walk_rows(a, S, l, 1, d, rs, walker, body);
+    wcsph::walk_rows<PERIODIC>(a, S, l, 1, d, rs, walker, body);
     walker.finish(body);
   }
   if (active) d.store(a, i);
 }
 
-template <typename T, bool DELTA>
-cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
+template <typename T, int KIND, bool DELTA, bool VISC>
+cudaError_t launch_kind(const WcsphArgs& a, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (a.n_dest + threads - 1) / threads;
-  if (a.kernel_kind == 0)
-    wcsph_pair_kernel<T, 0, DELTA><<<blocks, threads, 0, stream>>>(a);
-  else if (a.kernel_kind == 1)
-    wcsph_pair_kernel<T, 1, DELTA><<<blocks, threads, 0, stream>>>(a);
+  if (a.periodic)
+    wcsph_pair_kernel<T, KIND, DELTA, VISC, true>
+        <<<blocks, threads, 0, stream>>>(a);
   else
-    wcsph_pair_kernel<T, 2, DELTA><<<blocks, threads, 0, stream>>>(a);
+    wcsph_pair_kernel<T, KIND, DELTA, VISC, false>
+        <<<blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T, bool DELTA, bool VISC>
+cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
+  switch (a.kernel_kind) {
+    case 0:
+      return launch_kind<T, 0, DELTA, VISC>(a, stream);
+    case 1:
+      return launch_kind<T, 1, DELTA, VISC>(a, stream);
+    case 2:
+      return launch_kind<T, 2, DELTA, VISC>(a, stream);
+    default:
+      return launch_kind<T, 3, DELTA, VISC>(a, stream);
+  }
 }
 
 template <typename T>
 cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
-  bool delta = false;
-  for (int s = 0; s < a.n_src; ++s)
-    delta = delta || (a.src[s].terms & (kDcont | kDmom));
-  return delta ? launch<T, true>(a, stream) : launch<T, false>(a, stream);
+  int terms = 0;
+  for (int s = 0; s < a.n_src; ++s) terms |= a.src[s].terms;
+  const bool delta = terms & (kDcont | kDmom), visc = terms & kLvisc;
+  if (delta)
+    return visc ? launch<T, true, true>(a, stream)
+                : launch<T, true, false>(a, stream);
+  return visc ? launch<T, false, true>(a, stream)
+              : launch<T, false, false>(a, stream);
 }
 
 }  // namespace

@@ -3,16 +3,19 @@
 //
 // The two pair kernels compute the same contract (ops/wcsph_pair.py): the
 // ContinuityEquation, the non-tensile MomentumEquation (artificial
-// viscosity and the dt_cfl max), XSPHCorrection and, in wcsph_pair only,
-// the two delta-SPH terms (ContinuityEquationDeltaSPH,
+// viscosity and the dt_cfl max), XSPHCorrection, LaminarViscosity and, in
+// wcsph_pair only, the two delta-SPH terms (ContinuityEquationDeltaSPH,
 // MomentumEquationDeltaSPH) of one dest array over at most kMaxSources
 // sources, each output written once as pre + sum (max(pre, m) for
-// dt_cfl) under the write mask.  They differ only in how
-// a dest reaches its source particles (csrc/cell_walk.cuh), so everything
-// else lives here: the argument struct, the packed source records, the
-// shape functions and the per-pair body.  The body reads a source
-// through a functor (`Src::x(j)`, ...); the walks hand it one
-// candidate's records (Cand).
+// dt_cfl) under the write mask, on an open or a periodic grid.  They
+// differ only in how a dest reaches its source particles
+// (csrc/cell_walk.cuh), so everything else lives here: the argument
+// struct, the packed source records and the per-pair body (the shape
+// functions are csrc/shapes.cuh's).  The body reads a source through a
+// functor (`Src::x(j)`, ...); the walks hand it one candidate's records
+// (Cand).  On a periodic grid (the kernels' template flag PERIODIC) every
+// displacement, in the walk's support test and in the body, is the
+// minimum image d - L rint(d / L) with the box lengths of the arguments.
 //
 // Sources are read from their packed copy (csrc/cell_pack.cuh), whose
 // record planes are, as ops/wcsph_pair.py PACK_RECORDS:
@@ -21,7 +24,8 @@
 //   plane 2: rho p cs 0
 //   plane 3: gradrho[0] gradrho[1] gradrho[2] 0
 // the third only where the term mask reads rho (p and cs 0 where it reads
-// neither), the fourth only where it holds kDcont.  The dest's gradrho,
+// neither: kLvisc reads rho alone), the fourth only where it holds
+// kDcont.  The dest's gradrho,
 // an (n, 3) array, is read from its row.
 
 #pragma once
@@ -31,12 +35,14 @@
 
 #include "cell_pack.cuh"
 #include "cell_walk.cuh"
+#include "shapes.cuh"
 
 // The argument structs are at global scope: the exported C functions
 // take them, and a type in an unnamed namespace would give those
 // functions internal linkage.
 constexpr int kMaxSources = 4;
-constexpr int kCont = 1, kMom = 2, kXsph = 4, kDcont = 8, kDmom = 16;
+constexpr int kCont = 1, kMom = 2, kXsph = 4, kDcont = 8, kDmom = 16,
+              kLvisc = 32;
 // outputs in the order of ops/wcsph_pair.py OUTPUTS: arho, au, av, aw,
 // ax, ay, az, dt_cfl
 constexpr int kDtCfl = 7, kNumOut = 8;
@@ -51,8 +57,8 @@ struct SrcArgs {
   const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double c0, alpha, beta, xsph_eps;
-  // kDcont: delta, its c0; kDmom: alpha, c0, rho0
-  double delta, delta_c0, dmom_alpha, dmom_c0, rho0;
+  // kDcont: delta, its c0; kDmom: alpha, c0, rho0; kLvisc: nu, eta
+  double delta, delta_c0, dmom_alpha, dmom_c0, rho0, nu, eta;
   int32_t terms, pad;
 };
 
@@ -67,7 +73,8 @@ struct WcsphArgs {
   void* out[kNumOut];
   SrcArgs src[kMaxSources];
   double radius_scale, kfac;  // kfac: the kernel's sigma
-  int32_t n_dest, n_src, nx, ny, nz, dim, kernel_kind, dtype;
+  double box[3];  // the length of each periodic axis, 0 on the others
+  int32_t n_dest, n_src, nx, ny, nz, dim, kernel_kind, dtype, periodic;
   // the pack that fills the sources' pos, vel and thermo: the launch
   // functions launch it just before the walk (n_src 0: none)
   PackArgs pack;
@@ -80,63 +87,8 @@ __device__ __forceinline__ T ld(const void* p, int i) {
   return static_cast<const T*>(p)[i];
 }
 
-// Unnormalised shape function (w, dw/dq) of base/kernels.py, by
-// KERNEL_KIND: WendlandQuintic 0, CubicSpline 1, Gaussian 2 (the WCSPH
-// walks' kinds) and QuinticSpline 3.
-template <typename T, int KIND>
-__device__ __forceinline__ void shape(T q, T& w, T& dw) {
-  if (KIND == 0) {  // WendlandQuintic, support q < 2
-    if (q < T(2)) {
-      const T t = T(1) - T(0.5) * q;
-      const T t3 = t * t * t;
-      w = t3 * t * (T(2) * q + T(1));
-      dw = T(-5) * q * t3;
-    } else {
-      w = T(0);
-      dw = T(0);
-    }
-  } else if (KIND == 1) {  // CubicSpline, support q <= 2
-    if (q > T(2)) {
-      w = T(0);
-      dw = T(0);
-    } else if (q > T(1)) {
-      const T t = T(2) - q;
-      w = T(0.25) * t * t * t;
-      dw = T(-0.75) * t * t;
-    } else {
-      w = T(1) - T(1.5) * q * q * (T(1) - T(0.5) * q);
-      dw = T(-3) * q * (T(1) - T(0.75) * q);
-    }
-  } else if (KIND == 2) {  // Gaussian, truncated at q = 3 (exp, not __expf)
-    if (q < T(3)) {
-      const T e = exp(-q * q);
-      w = e;
-      dw = T(-2) * q * e;
-    } else {
-      w = T(0);
-      dw = T(0);
-    }
-  } else {  // QuinticSpline, support q <= 3 (csrc/tvf_pair.cu only)
-    if (q > T(3)) {
-      w = T(0);
-      dw = T(0);
-    } else {
-      const T t3 = T(3) - q, t3_2 = t3 * t3, t3_4 = t3_2 * t3_2;
-      w = t3_4 * t3;
-      dw = T(-5) * t3_4;
-      if (q <= T(2)) {
-        const T t2 = T(2) - q, t2_2 = t2 * t2, t2_4 = t2_2 * t2_2;
-        w -= T(6) * (t2_4 * t2);
-        dw += T(30) * t2_4;
-        if (q <= T(1)) {
-          const T t1 = T(1) - q, t1_2 = t1 * t1, t1_4 = t1_2 * t1_2;
-          w += T(15) * (t1_4 * t1);
-          dw += T(-75) * t1_4;
-        }
-      }
-    }
-  }
-}
+// The shape functions, by KERNEL_KIND (csrc/shapes.cuh).
+using shapes::shape;
 
 using walk::Rec;
 using walk::rec;
@@ -174,19 +126,38 @@ __device__ __forceinline__ DeltaConsts<T> delta_consts(const SrcArgs& S) {
           T(S.rho0)};
 }
 
+// LaminarViscosity's constants of one source, in the working type.
+template <typename T>
+struct ViscConsts {
+  T nu, eta;
+};
+
+template <typename T>
+__device__ __forceinline__ ViscConsts<T> visc_consts(const SrcArgs& S) {
+  return {T(S.nu), T(S.eta)};
+}
+
+// The box of the arguments' periodic axes (walk::Box), in the working
+// type.
+template <typename T>
+__device__ __forceinline__ walk::Box<T> box_of(const WcsphArgs& a) {
+  return {{T(a.box[0]), T(a.box[1]), T(a.box[2])}};
+}
+
 // One dest particle: its values, read once, and its accumulators.
 template <typename T>
 struct Dest {
   T xi, yi, zi, ui, vi, wi, hi, rhoi, pi, csi, rhoi21, gxi, gyi, gzi;
   T arho, au, av, aw, ax, ay, az, cfl;
 
-  // dterms: the union of the sources' term masks; DELTA: whether they
-  // may hold the delta-SPH terms (a kernel without them is built apart,
-  // so that their registers cost the other paths nothing)
-  template <bool DELTA = false>
+  // dterms: the union of the sources' term masks; DELTA, VISC: whether
+  // they may hold the delta-SPH terms, kLvisc (a kernel without them is
+  // built apart, so that their registers cost the other paths nothing)
+  template <bool DELTA = false, bool VISC = false>
   __device__ void load(const WcsphArgs& a, int i, int dterms) {
     const bool need_rho =
-        dterms & (kMom | kXsph | (DELTA ? kDcont | kDmom : 0));
+        dterms & (kMom | kXsph | (DELTA ? kDcont | kDmom : 0) |
+                  (VISC ? kLvisc : 0));
     const bool dcont = DELTA && (dterms & kDcont);
     const bool mom = dterms & kMom;
     xi = ld<T>(a.x, i);
@@ -210,15 +181,25 @@ struct Dest {
   // The pair (this dest, source particle j), with the support test
   // r2 < (rs max(hi, hj))^2 and the guards of the torch pair engine.
   // dc: the delta-SPH terms' constants (read only with kDcont, kDmom,
-  // in a kernel built with DELTA).
-  template <int KIND, bool DELTA = false, class Src>
+  // in a kernel built with DELTA); vc: kLvisc's (a kernel built with
+  // VISC); box: the periodic axes' lengths (a kernel built with
+  // PERIODIC, which takes the minimum image of each displacement).
+  template <int KIND, bool DELTA = false, bool VISC = false,
+            bool PERIODIC = false, class Src>
   __device__ __forceinline__ void pair(const Src& s, int j, int terms,
                                        T c0, T alpha, T beta, T xeps, T rs,
                                        T kfac, int dim,
-                                       const DeltaConsts<T>& dc = {}) {
-    const T xij = xi - s.x(j);
-    const T yij = yi - s.y(j);
-    const T zij = zi - s.z(j);
+                                       const DeltaConsts<T>& dc = {},
+                                       const ViscConsts<T>& vc = {},
+                                       const walk::Box<T>& box = {}) {
+    T xij = xi - s.x(j);
+    T yij = yi - s.y(j);
+    T zij = zi - s.z(j);
+    if (PERIODIC) {
+      xij = walk::image(xij, box.len[0]);
+      yij = walk::image(yij, box.len[1]);
+      zij = walk::image(zij, box.len[2]);
+    }
     const T r2 = xij * xij + yij * yij + zij * zij;
     const T hj = s.h(j);
     const T sup = rs * (hi > hj ? hi : hj);
@@ -262,7 +243,7 @@ struct Dest {
         aw += t * dwz;
       }
     }
-    if (terms & (kMom | kXsph)) {
+    if (terms & (kMom | kXsph | (VISC ? kLvisc : 0))) {
       const T rhoj = s.rho(j);
       const T rhoij = T(0.5) * (rhoi + rhoj);
       const T rhoij1 = T(1) / (rhoij != T(0) ? rhoij : T(1));
@@ -280,6 +261,14 @@ struct Dest {
         au += f * dwx;
         av += f * dwy;
         aw += f * dwz;
+      }
+      if (VISC && (terms & kLvisc)) {  // LaminarViscosity
+        const T fij = dwx * xij + dwy * yij + dwz * zij;
+        const T t = mj * T(4) * vc.nu * fij /
+                    ((rhoi + rhoj) * (r2 + vc.eta * hij * hij));
+        au += t * uij;
+        av += t * vij;
+        aw += t * wij;
       }
       if (terms & kXsph) {
         const T t = -xeps * mj * (wq * fac) * rhoij1;
@@ -309,16 +298,21 @@ struct Dest {
 };
 
 // The walk over one source for a lane (walk::walk_rows), with the grid
-// and the source's cell ranges and {x, y, z, h} plane of `a`.
-template <typename T, class Body>
+// and the source's cell ranges and {x, y, z, h} plane of `a`; PERIODIC:
+// walk::walk_rows_periodic with the box of `a` (halo 1).
+template <bool PERIODIC = false, typename T, class Body>
 __device__ __forceinline__ void walk_rows(const WcsphArgs& a,
                                           const SrcArgs& S,
                                           const walk::Lane& l, int halo,
                                           const Dest<T>& d, T rs,
                                           walk::Walker<T>& walker,
                                           Body& body) {
-  walk::walk_rows(a, S.cell_start, S.cell_end, S.pos, l, halo,
-                  d.point(), rs, walker, body);
+  if (PERIODIC)
+    walk::walk_rows_periodic(a, S.cell_start, S.cell_end, S.pos, l,
+                             d.point(), rs, box_of<T>(a), walker, body);
+  else
+    walk::walk_rows(a, S.cell_start, S.cell_end, S.pos, l, halo,
+                    d.point(), rs, walker, body);
 }
 
 // The union of the sources' term masks.
@@ -331,7 +325,7 @@ __device__ __forceinline__ int dest_terms(const WcsphArgs& a) {
 // Checks shared by the launch functions.
 inline bool args_ok(const WcsphArgs& a) {
   return a.n_src >= 0 && a.n_src <= kMaxSources && a.nx >= 1 && a.ny >= 1 &&
-         a.nz >= 1 && a.kernel_kind >= 0 && a.kernel_kind <= 2 &&
+         a.nz >= 1 && a.kernel_kind >= 0 && a.kernel_kind <= 3 &&
          (a.dtype == 0 || a.dtype == 1) && pack::args_ok(a.pack) &&
          (a.pack.n_src == 0 || a.pack.dtype == a.dtype);
 }

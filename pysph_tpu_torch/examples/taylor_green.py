@@ -1,15 +1,25 @@
-"""Taylor-Green vortex: 2D periodic decaying vortices (TVF scheme).
+"""Taylor-Green vortex: 2D periodic decaying vortices.
 
 Port of ``pysph_tpu/examples/taylor_green.py``: a unit box periodic in x
 and y holds the vortices ``u = -U cos(2 pi x) sin(2 pi y)``, ``v = U
 sin(2 pi x) cos(2 pi y)``, whose speed decays as ``U exp(-8 pi^2 t /
-Re)`` (``exact_solution``).  The default ``--scheme tvf`` is the
-Transport Velocity Formulation (``TVFScheme``: ``PECIntegrator`` with
-``TransportVelocityStep``, ``QuinticSpline``, a fixed dt), whose pair
-phases run on ``tvf_pair`` over the periodic grid.  On an NVIDIA card:
+Re)`` (``exact_solution``).  Three of the reference's schemes, each
+with ``QuinticSpline`` and a fixed dt, their pair phases on the periodic
+grid:
+
+- ``--scheme tvf`` (the default), the Transport Velocity Formulation
+  (``TVFScheme``: ``PECIntegrator`` with ``TransportVelocityStep``),
+  on ``tvf_pair``;
+- ``--scheme wcsph`` (``WCSPHScheme`` with the Tait EOS, no artificial
+  viscosity, ``LaminarViscosity``; ``PECIntegrator`` with ``WCSPHStep``),
+  on ``wcsph_pair`` (``--engine dense``: ``dense_pair``);
+- ``--scheme gtvf`` (``GTVFScheme`` without walls, ``pref = p0``;
+  ``GTVFIntegrator``, two evaluators a step), on ``gtvf_pair``.
+
+On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.taylor_green --nx 400 \\
-        --max-steps 200 --disable-output
+        --max-steps 200 --disable-output [--scheme wcsph|gtvf]
 
 (160,000 particles, h = dx = 2.5e-3, dt = 5.68e-5 s); ``--nx 50`` (the
 default, 2,500 particles) is the reference's size.  On the CPU:
@@ -28,7 +38,8 @@ from pysph_tpu_torch.base.kernels import QuinticSpline
 from pysph_tpu_torch.base.utils import get_particle_array
 from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.scheme import (
-    NotPortedScheme, SchemeChooser, TVFScheme)
+    NotPortedScheme, SchemeChooser, TVFScheme, WCSPHScheme)
+from pysph_tpu_torch.sph.wc.gtvf import GTVFScheme
 
 L = 1.0
 U = 1.0
@@ -38,8 +49,6 @@ p0 = c0 ** 2 * rho0
 
 #: the reference's other schemes: the ROADMAP items that port them
 _NOT_PORTED = {
-    'wcsph': 'ROADMAP Queue 1 item 34, the periodic wcsph_pair',
-    'gtvf': 'ROADMAP Queue 1 item 34, the periodic gtvf_pair',
     'edac': 'ROADMAP Queue 1 item 28, remaining physics',
     'iisph': 'ROADMAP Queue 1 item 26',
     'crksph': 'ROADMAP Queue 1 item 28, remaining physics',
@@ -90,16 +99,28 @@ class TaylorGreen(Application):
         self.tf = 2.0
 
     def create_scheme(self):
+        wcsph = WCSPHScheme(['fluid'], [], dim=2, rho0=rho0, c0=c0,
+                            h0=None, hdx=None, nu=None, gamma=7.0,
+                            alpha=0.0, beta=0.0)
         tvf = TVFScheme(['fluid'], [], dim=2, rho0=rho0, c0=c0, nu=None,
                         p0=p0, pb=None, h0=None)
+        gtvf = GTVFScheme(fluids=['fluid'], solids=[], dim=2, rho0=rho0,
+                          c0=c0, nu=None, h0=None, pref=None)
         others = {name: NotPortedScheme(name, item)
                   for name, item in _NOT_PORTED.items()}
-        return SchemeChooser(default='tvf', tvf=tvf, **others)
+        return SchemeChooser(default='tvf', wcsph=wcsph, tvf=tvf,
+                             gtvf=gtvf, **others)
 
     def configure_scheme(self):
         h0 = self.hdx * self.dx
-        self.scheme.configure(pb=self.options.pb_factor * p0, nu=self.nu,
-                              h0=h0)
+        choice = self.options.scheme
+        if choice == 'tvf':
+            self.scheme.configure(pb=self.options.pb_factor * p0,
+                                  nu=self.nu, h0=h0)
+        elif choice == 'wcsph':
+            self.scheme.configure(hdx=self.hdx, nu=self.nu, h0=h0)
+        elif choice == 'gtvf':
+            self.scheme.configure(pref=p0, nu=self.nu, h0=h0)
         self.scheme.configure_solver(kernel=QuinticSpline(dim=2),
                                      tf=self.tf, dt=self.dt)
         self.scheme.get_solver().set_print_freq(500)

@@ -1,13 +1,14 @@
 """The cell-blocked WCSPH pair kernel: wrapper and launch counter.
 
 ``dense_pair`` computes what ``wcsph_pair`` computes (``ops/wcsph_pair.py``:
-Continuity, non-tensile Momentum and XSPH of one dest over at most
-``MAX_SOURCES`` sources, with the same per-source term masks, but for
-the delta-SPH terms ``DCONT`` and ``DMOM``, which it refuses), with the
-same arguments and outputs; ``wcsph_pair_reference`` is the plain version
-of both.  The engine ``dense`` (``config.py``) plans the WCSPH phase sets
-onto it; it is the port's counterpart of the JAX package's dense-slot
-Pallas engine (``PYSPH_TPU_RESIDENT=0 PYSPH_TPU_COMPACT=0``).
+Continuity, non-tensile Momentum, XSPH and the laminar viscosity of one
+dest over at most ``MAX_SOURCES`` sources, with the same per-source term
+masks, but for the delta-SPH terms ``DCONT`` and ``DMOM``, which it
+refuses), with the same arguments and outputs, on an open or a periodic
+grid; ``wcsph_pair_reference`` is the plain version of both.  The engine
+``dense`` (``config.py``) plans the WCSPH phase sets onto it; it is the
+port's counterpart of the JAX package's dense-slot Pallas engine
+(``PYSPH_TPU_RESIDENT=0 PYSPH_TPU_COMPACT=0``).
 
 For CUDA tensors it calls ``csrc/dense_pair.cu`` (built on first use by
 ``ops/build.py``) once, which launches the source pack (counted in

@@ -2,34 +2,37 @@
 
 Four kernels take a dest's pair phases, all its sources in one call:
 
-- ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path and
-  the elliptical drop): every equation with sources is
-  ``ContinuityEquation``, ``MomentumEquation`` (non-tensile),
-  ``XSPHCorrection``, ``ContinuityEquationDeltaSPH`` or
-  ``MomentumEquationDeltaSPH``, with the ``WendlandQuintic``,
-  ``CubicSpline`` or ``Gaussian`` kernel;
+- ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path, the
+  elliptical drop and the Taylor-Green vortex's ``--scheme wcsph``):
+  every equation with sources is ``ContinuityEquation``,
+  ``MomentumEquation`` (non-tensile), ``XSPHCorrection``,
+  ``LaminarViscosity``, ``ContinuityEquationDeltaSPH`` or
+  ``MomentumEquationDeltaSPH``;
 - ``dense_pair`` (``ops/dense_pair.py``): the same phase sets but for the
   two delta-SPH terms, walked one thread block per dest cell;
 - ``delta_pair`` (``ops/delta_pair.py``, the delta-SPH pre-phases): every
   source takes ``GradientCorrectionPreStep`` alone, or
   ``GradientCorrection`` then ``ContinuityEquationDeltaSPHPreStep``, or
-  the latter alone, the same for every source, with the kernels of
-  ``wcsph_pair``.  ``GradientCorrection`` rewrites ``DWIJ`` for the
-  equation after it: a symbol, which the rule below does not see, so
-  ``delta_pair``'s planner accepts exactly that ordered pair;
-- ``gtvf_pair`` (``ops/gtvf_pair.py``, the GTVF dam break): the
-  equations fall in one of its five phase sets (``SetWallVelocity``;
-  ``ContinuityEquationGTVF`` + ``ContinuitySolid``; ``CorrectDensity``;
-  ``VolumeSummation`` + ``SolidWallPressureBC``;
-  ``MomentumEquationPressureGradient`` +
-  ``MomentumEquationArtificialStress``), with ``WendlandQuintic``;
+  the latter alone, the same for every source.  ``GradientCorrection``
+  rewrites ``DWIJ`` for the equation after it: a symbol, which the rule
+  below does not see, so ``delta_pair``'s planner accepts exactly that
+  ordered pair;
+- ``gtvf_pair`` (``ops/gtvf_pair.py``, the GTVF dam break and the
+  Taylor-Green vortex's ``--scheme gtvf``): the equations fall in one of
+  its five phase sets (``SetWallVelocity``; ``ContinuityEquationGTVF`` +
+  ``ContinuitySolid``; ``CorrectDensity``; ``VolumeSummation`` +
+  ``SolidWallPressureBC``; ``MomentumEquationPressureGradient`` +
+  ``MomentumEquationViscosity`` + ``MomentumEquationArtificialStress``);
 - ``tvf_pair`` (``ops/tvf_pair.py``, the Taylor-Green vortex's TVF
   groups): the equations of a dest fall in one of its two phase sets
   (``SummationDensity``; the TVF ``MomentumEquationPressureGradient``,
   ``MomentumEquationViscosity``, ``MomentumEquationArtificialStress``
-  and ``MomentumEquationArtificialViscosity``), with any kernel of
-  ``KERNEL_KIND``.  It is the one kernel with a periodic walk: on a
-  periodic grid the other planners refuse.
+  and ``MomentumEquationArtificialViscosity``).
+
+Every kernel takes every kind of ``KERNEL_KIND``.  All but
+``delta_pair`` walk a periodic grid (the wrapped stencil, the minimum
+image); on a periodic grid ``delta_pair``'s planner refuses (ROADMAP
+Queue 1 item 34).
 
 For each, each equation appears at most once per source, with at most
 ``MAX_SOURCES`` sources, and no equation reads a property that another
@@ -59,8 +62,7 @@ main group (it reads the strided ``gradrho``) run on the torch engine.
 import logging
 from typing import Callable, NamedTuple, Optional
 
-from pysph_tpu_torch.base.kernels import (
-    KERNEL_KIND, WCSPH_KINDS, WendlandQuintic)
+from pysph_tpu_torch.base.kernels import KERNEL_KIND, WCSPH_KINDS
 from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gtvf_pair as _gp
@@ -75,9 +77,10 @@ from pysph_tpu_torch.sph.wc.basic import (
     MomentumEquation, MomentumEquationDeltaSPH)
 from pysph_tpu_torch.sph.wc.kernel_correction import (
     GradientCorrection, GradientCorrectionPreStep)
+from pysph_tpu_torch.sph.wc.viscosity import LaminarViscosity
 
 _DENSE_TERMS = {ContinuityEquation: _wp.CONT, MomentumEquation: _wp.MOM,
-                XSPHCorrection: _wp.XSPH}
+                XSPHCorrection: _wp.XSPH, LaminarViscosity: _wp.VISC}
 _WCSPH_TERMS = {**_DENSE_TERMS, ContinuityEquationDeltaSPH: _wp.DCONT,
                 MomentumEquationDeltaSPH: _wp.DMOM}
 #: delta_pair's term masks by the equation types of a source, in order
@@ -116,6 +119,8 @@ class PairSource(NamedTuple):
     dmom_alpha: float = 0.0
     dmom_c0: float = 0.0
     rho0: float = 0.0
+    nu: float = 0.0
+    eta: float = 0.0
 
 
 def _gtvf_terms():
@@ -123,7 +128,8 @@ def _gtvf_terms():
     # imports the evaluator, which imports this module
     from pysph_tpu_torch.sph.wc.gtvf import (
         ContinuityEquationGTVF, CorrectDensity,
-        MomentumEquationArtificialStress, MomentumEquationPressureGradient)
+        MomentumEquationArtificialStress, MomentumEquationPressureGradient,
+        MomentumEquationViscosity)
     from pysph_tpu_torch.sph.wc.transport_velocity import (
         ContinuitySolid, SetWallVelocity, SolidWallPressureBC,
         VolumeSummation)
@@ -131,6 +137,7 @@ def _gtvf_terms():
             ContinuitySolid: _gp.CSOLID, CorrectDensity: _gp.CDENS,
             VolumeSummation: _gp.VSUM, SolidWallPressureBC: _gp.WALLP,
             MomentumEquationPressureGradient: _gp.MPG,
+            MomentumEquationViscosity: _gp.MVISC,
             MomentumEquationArtificialStress: _gp.MAS}
 
 
@@ -207,6 +214,8 @@ def _plan_wcsph(dest, sources, kernel, op=_wp.wcsph_pair,
             elif isinstance(eq, MomentumEquationDeltaSPH):
                 params.update(dmom_alpha=eq.alpha, dmom_c0=eq.c0,
                               rho0=eq.rho0)
+            elif isinstance(eq, LaminarViscosity):
+                params.update(nu=eq.nu, eta=eq.eta)
         plan_sources.append(PairSource(src, t, **params))
         terms |= t
     return PairPlan(dest, plan_sources, kernel, op,
@@ -241,7 +250,7 @@ def _plan_delta(dest, sources, kernel):
 
 
 def _plan_gtvf(dest, sources, kernel):
-    if type(kernel) is not WendlandQuintic:
+    if type(kernel) not in KERNEL_KIND:
         raise PairIneligible('kernel %r' % kernel)
     term_of = _gtvf_terms()
     plan_sources = []
@@ -251,7 +260,10 @@ def _plan_gtvf(dest, sources, kernel):
         gravity = next(((eq.gx, eq.gy, eq.gz) for eq in eqs
                         if term_of[type(eq)] == _gp.WALLP),
                        (0.0, 0.0, 0.0))
-        plan_sources.append(_gp.GtvfSource(src, t, tuple(eqs), gravity))
+        nu = next((eq.nu for eq in eqs if term_of[type(eq)] == _gp.MVISC),
+                  0.0)
+        plan_sources.append(_gp.GtvfSource(src, t, tuple(eqs), gravity,
+                                           nu))
         terms |= t
     if _gp.phase_of(terms) is None:
         raise PairIneligible('GTVF terms %#x span two phase sets' % terms)
@@ -285,8 +297,9 @@ def _plan_tvf(dest, sources, kernel):
 
 _PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf),
              'dense': (_plan_dense,)}
-#: the planners whose kernels walk a periodic grid
-_PERIODIC = (_plan_tvf,)
+#: the planners whose kernels walk a periodic grid (``delta_pair``'s
+#: periodic branch is ROADMAP Queue 1 item 34's remainder)
+_PERIODIC = (_plan_wcsph, _plan_dense, _plan_gtvf, _plan_tvf)
 
 
 def plan_pair_phases(dest, sources, kernel, engine='kernel',

@@ -9,6 +9,8 @@ A per-source term mask selects
   ``MomentumEquation``);
 - ``XSPH``: ``ax, ay, az += -eps m_j WIJ RHOIJ1 VIJ``
   (``XSPHCorrection``);
+- ``VISC``: ``au, av, aw += 4 nu m_j (DWIJ.XIJ) VIJ / ((rho_i + rho_j)
+  (R2IJ + eta HIJ^2))`` (``LaminarViscosity``, Morris);
 - ``DCONT``: the delta-SPH diffusion of ``arho``, which reads the
   dest's and the source's ``gradrho`` (``ContinuityEquationDeltaSPH``);
 - ``DMOM``: the delta-SPH viscous term of ``au, av, aw``
@@ -16,7 +18,11 @@ A per-source term mask selects
 
 Each output is ``pre + sum`` (``max(pre, m)`` for ``dt_cfl``) on rows
 under the write mask and ``pre`` elsewhere; every read sees the value
-from before the phase.
+from before the phase.  Any kernel of ``KERNEL_KIND``.  The grid may be
+periodic (``base/cell_grid.py``): the kernel then walks the wrapped
+stencil and takes the minimum image of every displacement
+(``csrc/cell_walk.cuh::walk_rows_periodic``, built as a template flag,
+so the kernel on an open grid keeps the plain walk).
 
 For CUDA tensors it calls ``csrc/wcsph_pair.cu`` (built on first use by
 ``ops/build.py``) once: its launch function launches the source pack
@@ -46,13 +52,14 @@ from pysph_tpu_torch.sph.basic_equations import (
     ContinuityEquation, XSPHCorrection)
 from pysph_tpu_torch.sph.wc.basic import (
     ContinuityEquationDeltaSPH, MomentumEquation, MomentumEquationDeltaSPH)
+from pysph_tpu_torch.sph.wc.viscosity import LaminarViscosity
 
-CONT, MOM, XSPH, DCONT, DMOM = 1, 2, 4, 8, 16
+CONT, MOM, XSPH, DCONT, DMOM, VISC = 1, 2, 4, 8, 16, 32
 MAX_SOURCES = 4
 OUTPUTS = ('arho', 'au', 'av', 'aw', 'ax', 'ay', 'az', 'dt_cfl')
 TERM_OUTPUTS = {CONT: ('arho',), MOM: ('au', 'av', 'aw', 'dt_cfl'),
                 XSPH: ('ax', 'ay', 'az'), DCONT: ('arho',),
-                DMOM: ('au', 'av', 'aw')}
+                DMOM: ('au', 'av', 'aw'), VISC: ('au', 'av', 'aw')}
 
 #: the columns of the stride-3 ``gradrho``, as the pack names them
 GRADRHO = tuple(('gradrho', c) for c in range(3))
@@ -60,7 +67,7 @@ GRADRHO = tuple(('gradrho', c) for c in range(3))
 _BASE = ('x', 'y', 'z', 'u', 'v', 'w', 'h')
 _TERM_READS = {CONT: ('m',), MOM: ('m', 'rho', 'p', 'cs'),
                XSPH: ('m', 'rho'), DCONT: ('m', 'rho') + GRADRHO,
-               DMOM: ('m', 'rho')}
+               DMOM: ('m', 'rho'), VISC: ('m', 'rho')}
 _DEST_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'rho', 'p', 'cs',
                'gradrho')
 
@@ -109,6 +116,9 @@ def _equations(ps):
         eqs.append(MomentumEquationDeltaSPH('dest', [ps.name], rho0=ps.rho0,
                                             c0=ps.dmom_c0,
                                             alpha=ps.dmom_alpha))
+    if ps.terms & VISC:
+        eqs.append(LaminarViscosity('dest', [ps.name], nu=ps.nu,
+                                    eta=ps.eta))
     return eqs
 
 
@@ -169,7 +179,7 @@ class _SrcArgs(ctypes.Structure):
                  ('cell_end', ctypes.c_void_p)] +
                 [(k, ctypes.c_double) for k in (
                     'c0', 'alpha', 'beta', 'xsph_eps', 'delta', 'delta_c0',
-                    'dmom_alpha', 'dmom_c0', 'rho0')] +
+                    'dmom_alpha', 'dmom_c0', 'rho0', 'nu', 'eta')] +
                 [('terms', ctypes.c_int32), ('pad', ctypes.c_int32)])
 
 
@@ -182,10 +192,11 @@ class WcsphArgs(ctypes.Structure):
                  ('out', ctypes.c_void_p * len(OUTPUTS)),
                  ('src', _SrcArgs * MAX_SOURCES),
                  ('radius_scale', ctypes.c_double),
-                 ('kfac', ctypes.c_double)] +
+                 ('kfac', ctypes.c_double),
+                 ('box', ctypes.c_double * 3)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim',
-                    'kernel_kind', 'dtype')] +
+                    'kernel_kind', 'dtype', 'periodic')] +
                 [('pack', cell_pack.PackArgs)])
 
 
@@ -206,9 +217,6 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
         raise ValueError('%s: %d sources' % (name, len(sources)))
     if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
         raise ValueError('%s: no shape function for %r' % (name, kernel))
-    if grid.is_periodic:
-        raise ValueError('%s: no periodic walk (ROADMAP Queue 1 item 34, '
-                         'the periodic branch of this kernel)' % name)
     i32 = torch.int32
     args = WcsphArgs()
     buf = cell_pack.fill(args.pack, _packs(sources), name) \
@@ -233,6 +241,7 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
         sa.delta, sa.delta_c0 = ps.delta, ps.delta_c0
         sa.dmom_alpha, sa.dmom_c0, sa.rho0 = (ps.dmom_alpha, ps.dmom_c0,
                                               ps.rho0)
+        sa.nu, sa.eta = ps.nu, ps.eta
         sa.terms = ps.terms
     for p in _reads(terms, with_mass=False):
         if p in GRADRHO:
@@ -260,6 +269,12 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
             args.out[k] = out[p].data_ptr()
     args.radius_scale = grid.radius_scale
     args.kfac = kernel.fac
+    if grid.is_periodic:
+        # the box lengths of the periodic axes, each the dtype's value
+        lengths = grid.box_host(fdt)['lengths']
+        for d, per in enumerate(grid.periodic):
+            args.box[d] = lengths[d] if per else 0.0
+        args.periodic = 1
     args.n_dest, args.n_src = n, len(sources)
     args.nx, args.ny, args.nz = grid.dims
     args.dim = kernel.dim

@@ -1,7 +1,8 @@
 """Viscosity equations (port of ``pysph_tpu/sph/wc/viscosity.py``).
 
-No hand-written kernel takes them: a pair phase that holds one runs on
-the torch pair engine.  ``WCSPHScheme`` uses ``LaminarViscosity`` and
+``LaminarViscosity`` is ``wcsph_pair``'s and ``dense_pair``'s ``VISC``
+term; a pair phase that holds one of the others runs on the torch pair
+engine.  ``WCSPHScheme`` uses ``LaminarViscosity`` and
 ``LaminarViscosityDeltaSPH`` where ``nu != 0``.
 """
 

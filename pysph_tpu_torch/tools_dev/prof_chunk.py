@@ -1,10 +1,10 @@
 """Device time by layer of a step replayed from the solver's CUDA graph.
 
-    python3 -m pysph_tpu_torch.tools_dev.prof_chunk [label]
+    python3 -m pysph_tpu_torch.tools_dev.prof_chunk [label [path ...]]
 
-Sets each full-width path of ``time_chunks.PATHS`` up in float32, solves
-it ``STEPS`` steps (past its damped steps, into its chunks), then times
-on the state it reached:
+Sets each full-width path of ``time_chunks.PATHS`` (or the paths named)
+up in float32, solves it ``STEPS`` steps (past its damped steps, into its
+chunks), then times on the state it reached:
 
 - the solver's chunk graph: CUDA events around replays, and the device's
   busy time and kernels from ``torch.profiler`` (CUDA activity only) over
@@ -273,15 +273,15 @@ def profile_path(path, kw):
     return row
 
 
-def main(label=''):
+def main(label='', paths=()):
     smi = common.require_cuda()
     rows = []
-    for path, kw in PATHS.items():
-        row = dict(label=label, card=smi, **profile_path(path, kw))
+    for path in paths or PATHS:
+        row = dict(label=label, card=smi, **profile_path(path, PATHS[path]))
         print(json.dumps(row), flush=True)
         rows.append(row)
     return rows
 
 
 if __name__ == '__main__':
-    main(sys.argv[1] if len(sys.argv) > 1 else '')
+    main(sys.argv[1] if len(sys.argv) > 1 else '', sys.argv[2:])

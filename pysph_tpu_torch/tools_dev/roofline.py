@@ -45,18 +45,20 @@ PEAK_BYTES = 3.35e12  # HBM3
 I32 = 4
 
 #: the support test of every walk: xij yij zij, r2, max(hi, hj), rs *,
-#: square, compare (cell_walk.cuh:74-83)
+#: square, compare (cell_walk.cuh:88-97)
 SUPPORT_FLOPS = 12
 #: per pair in support, before the terms: uij vij wij, hij, rinv, rij,
-#: h1, q, fac, g, DWIJ (wcsph_terms.cuh:198-220), and the shape function
+#: h1, q, fac, g, DWIJ (wcsph_terms.cuh:195-222), and the shape function
 #: by kernel kind (WendlandQuintic, CubicSpline, Gaussian, QuinticSpline
-#: (its three branches at q <= 1); :84-137)
+#: (its three branches at q <= 1); shapes.cuh)
 WCSPH_PAIR_FLOPS = 22
 SHAPE_FLOPS = (12, 9, 6, 22)
-#: per term and pair in support (wcsph_terms.cuh:222-270); MOM and XSPH
-#: share rhoij and rhoij1 (4), DCONT and DMOM V_j and EPS (3)
+#: per term and pair in support (wcsph_terms.cuh:224-278); MOM, XSPH and
+#: VISC share rhoij and rhoij1 (4), DCONT and DMOM V_j and EPS (3); on a
+#: periodic grid the minimum image (IMAGE_FLOPS a periodic axis) in every
+#: support test and in the body
 WCSPH_TERM_FLOPS = {wp.CONT: 7, wp.MOM: 39, wp.XSPH: 10, wp.DCONT: 23,
-                    wp.DMOM: 19}
+                    wp.DMOM: 19, wp.VISC: 20}
 WCSPH_RHO_FLOPS = 4
 WCSPH_DELTA_FLOPS = 3
 #: delta_pair.cu, per pair in support: DWIJ (:165-177) before the shape
@@ -66,11 +68,14 @@ WCSPH_DELTA_FLOPS = 3
 DELTA_PAIR_FLOPS = 26
 DELTA_GRAD_FLOPS = 9
 DELTA_SOLVE_FLOPS = {1: 3, 2: 13, 3: 56}
-#: gtvf_pair.cu: WIJ and DWIJ of every pair in support (:382-401), then
-#: each term's functor (:168-358)
-GTVF_PAIR_FLOPS = 32
+#: gtvf_pair.cu: WIJ and DWIJ of every pair in support before the shape
+#: function (:403-429), then each term's functor (:166-375), MPG's h/2
+#: gradient with a second shape function; the minimum image as
+#: wcsph_pair's
+GTVF_PAIR_FLOPS = 20
 GTVF_TERM_FLOPS = {gp.SWV: 7, gp.CGTVF: 12, gp.CSOLID: 12, gp.CDENS: 4,
-                   gp.VSUM: 1, gp.WALLP: 14, gp.MPG: 44, gp.MAS: 72}
+                   gp.VSUM: 1, gp.WALLP: 14, gp.MPG: 32, gp.MAS: 72,
+                   gp.MVISC: 28}
 #: fused_pair.cu: the support test and the h > 0 test per candidate
 #: (cell_walk.cuh:74-83, fused_pair.cu:102), the rest per pair in
 #: support (fused_pair.cu:103-144)
@@ -181,20 +186,21 @@ def wcsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     terms = 0
     work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
     shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    image = IMAGE_FLOPS * sum(grid.periodic)
     for src, cells, ps in sources:
         terms |= ps.terms
         cand, reached, ncells = stencil(grid, dest_cells, cells)
         work['visited'] += cand
         pairs = support_pairs(grid, dest, dest_cells, src, cells)
-        per_pair = WCSPH_PAIR_FLOPS + shape + sum(
+        per_pair = WCSPH_PAIR_FLOPS + image + shape + sum(
             f for t, f in WCSPH_TERM_FLOPS.items() if ps.terms & t)
-        if ps.terms & (wp.MOM | wp.XSPH):
+        if ps.terms & (wp.MOM | wp.XSPH | wp.VISC):
             per_pair += WCSPH_RHO_FLOPS
         if ps.terms & (wp.DCONT | wp.DMOM):
             per_pair += WCSPH_DELTA_FLOPS
         work['candidates'] += cand
         work['pairs'] += pairs
-        work['flops'] += cand * SUPPORT_FLOPS + pairs * per_pair
+        work['flops'] += cand * (SUPPORT_FLOPS + image) + pairs * per_pair
         work['bytes'] += _source_bytes(src, reached, ncells,
                                        wp._reads(ps.terms, with_mass=True))
     work['bytes'] += _dest_bytes(dest, write_mask, pre,
@@ -254,19 +260,24 @@ def pack_work(sources):
 
 
 def gtvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
-    """Work of one ``gtvf_pair`` call."""
+    """Work of one ``gtvf_pair`` call (the stencil wrapped on a periodic
+    grid)."""
     terms = 0
     work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
+    shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    image = IMAGE_FLOPS * sum(grid.periodic)
     for src, cells, gs in sources:
         terms |= gs.terms
         cand, reached, ncells = stencil(grid, dest_cells, cells)
         pairs = support_pairs(grid, dest, dest_cells, src, cells)
-        per_pair = GTVF_PAIR_FLOPS + sum(
+        per_pair = GTVF_PAIR_FLOPS + image + shape + sum(
             f for t, f in GTVF_TERM_FLOPS.items() if gs.terms & t)
+        if gs.terms & gp.MPG:
+            per_pair += shape
         work['candidates'] += cand
         work['visited'] += cand
         work['pairs'] += pairs
-        work['flops'] += cand * SUPPORT_FLOPS + pairs * per_pair
+        work['flops'] += cand * (SUPPORT_FLOPS + image) + pairs * per_pair
         work['bytes'] += _source_bytes(src, reached, ncells,
                                        gp._reads(gs.terms, 1))
     work['bytes'] += _dest_bytes(dest, write_mask, pre, gp._reads(terms, 0))

@@ -17,7 +17,8 @@ steps inside the chunks; ``dam_break_3d --engine dense --delta-sph``
 runs its delta-SPH groups on the torch pair engine inside the graphs
 (a chunk that overflowed a capacity is redone and captured again); the
 Taylor-Green vortex runs on a periodic box, whose particles wrap across
-it inside the chunks.
+it inside the chunks, under its three schemes (``tvf``; ``wcsph`` on
+both kernel engines; ``gtvf``, two evaluators a step).
 
 ``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
 step (host clock at each step's start, the card synchronised) or in
@@ -26,7 +27,7 @@ over the chunks after the capture).  ``main`` prints one JSON line per
 full-width run of ``STEPS`` steps and binning configuration of
 ``CONFIGS``, both ways, with the binnings that ran, tagged with
 ``label`` and the card's name and power limit (the delta-SPH dam break
-under ``reuse`` only).
+and the Taylor-Green runs under ``reuse`` only).
 
 ``CONFIGS`` are the reference's two binning configurations, set in code
 on an app after its setup (``configure``): ``reuse`` (the default: a
@@ -77,11 +78,22 @@ PATHS = {
                               extra=('--nx', '200'), engine='dense'),
     'taylor_green nx=400': dict(dx=None, cls=TaylorGreen,
                                 extra=('--nx', '400')),
+    'taylor_green wcsph nx=400': dict(
+        dx=None, cls=TaylorGreen, extra=('--nx', '400', '--scheme',
+                                         'wcsph')),
+    'taylor_green wcsph nx=400 dense': dict(
+        dx=None, cls=TaylorGreen, extra=('--nx', '400', '--scheme',
+                                         'wcsph'), engine='dense'),
+    'taylor_green gtvf nx=400': dict(
+        dx=None, cls=TaylorGreen, extra=('--nx', '400', '--scheme',
+                                         'gtvf')),
 }
 
 
 #: the paths timed under the default binning configuration only
-REUSE_ONLY = ('dam_break_3d dx=0.02 delta', 'taylor_green nx=400')
+REUSE_ONLY = ('dam_break_3d dx=0.02 delta', 'taylor_green nx=400',
+              'taylor_green wcsph nx=400', 'taylor_green wcsph nx=400 dense',
+              'taylor_green gtvf nx=400')
 
 
 def configs(path):
@@ -177,6 +189,13 @@ GATES.update({
     'elliptical_drop nx=40': (EllipticalDrop, ('--nx', '40'), _tight_grid),
     'taylor_green nx=40': (TaylorGreen, ('--nx', '40', '--perturb', '0.1'),
                            None),
+    'taylor_green wcsph nx=40': (TaylorGreen, (
+        '--nx', '40', '--perturb', '0.1', '--scheme', 'wcsph'), None),
+    'taylor_green wcsph nx=40 dense': (TaylorGreen, (
+        '--nx', '40', '--perturb', '0.1', '--scheme', 'wcsph', '--engine',
+        'dense'), None),
+    'taylor_green gtvf nx=40': (TaylorGreen, (
+        '--nx', '40', '--perturb', '0.1', '--scheme', 'gtvf'), None),
 })
 GATES.update({
     'dam_break_2d wcsph dx=0.02 %s' % name[:-len('Integrator')]: (

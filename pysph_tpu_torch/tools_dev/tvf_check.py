@@ -1,11 +1,15 @@
-"""``tvf_pair`` on the Taylor-Green vortex's calls, for the card.
+"""The Taylor-Green vortex's pair calls, for the card: ``tvf_pair``'s,
+and those of its other schemes (``wcsph_pair``, ``dense_pair``,
+``gtvf_pair``).
 
-``calls(nx, dtype, edges=False)``: the two pair calls of one eval of
-``examples/taylor_green.py`` at ``nx`` (the density and the momentum
-launch, as ``time_walks.plan_calls`` gives them) on the card, from a
-state with seeded perturbations of the velocities, the transport
-velocities, the density, the number density and the pressure (numpy
-``default_rng``).  With ``edges``, a seeded tenth of the particles is
+``calls(nx, dtype, edges=False, scheme='tvf', engine='kernel')``: the
+pair calls of one eval of ``examples/taylor_green.py --scheme <scheme>``
+at ``nx`` (for ``tvf`` the density and the momentum launch; for
+``gtvf`` those of both evaluators), as ``time_walks.plan_calls`` gives
+them, on the card, from a state with seeded perturbations of the
+velocities, the transport velocities, the density, the number density
+and the pressure (numpy ``default_rng``; the props the scheme's arrays
+hold).  With ``edges``, a seeded tenth of the particles is
 moved onto the box's edges and corners (x and y each 0, L, or L less one
 part in 1e7), so that the split x ranges at the grid's ends and the
 wrapped rows are walked by many lanes.  ``compare(calls, tol)`` holds
@@ -13,8 +17,8 @@ the kernel to its plain version on them; ``check_linked(calls, label)``
 holds the linked pair (the density call emitting its neighbour list,
 the momentum call consuming it) to the two walking calls bit for bit,
 the list to ``pair_link.neighbours_reference`` exactly and both outputs
-to the plain version.  ``chip_smoke.py`` and
-``tests/test_torch_tvf_cuda.py`` use them.
+to the plain version.  ``chip_smoke.py``, ``tests/test_torch_tvf_cuda.py``
+and ``tests/test_torch_tg_schemes_cuda.py`` use them.
 """
 
 import re
@@ -31,7 +35,10 @@ from pysph_tpu_torch.tools_dev.time_walks import make_app, plan_calls
 
 def perturb(states, seed=12345):
     """Seeded velocities, transport velocities and 1-2% jitters of rho,
-    V and p of the fluid."""
+    V and p of the fluid; where the fluid holds GTVF's ``rho0`` and
+    ``p0``, the values its groups' ``initialize`` give them (``rho0 =
+    rho``, ``p0 = min(10 |p|, p_ref)``, ``p_ref`` the example's 100), so
+    that ``CorrectDensity`` divides by no 0 and the h/2 gradient counts."""
     st = states['fluid']
     rng = np.random.default_rng(seed)
     n = st['x'].shape[0]
@@ -41,10 +48,18 @@ def perturb(states, seed=12345):
                                device=st['x'].device)
 
     for p in ('u', 'v', 'uhat', 'vhat'):
-        st[p] = t(rng.normal(0.0, 0.5, n))
+        draw = t(rng.normal(0.0, 0.5, n))
+        if p in st:
+            st[p] = draw
     st['rho'] = t(1.0 + 0.01 * rng.normal(size=n))
-    st['V'] = st['V'] * t(1.0 + 0.02 * rng.normal(size=n))
+    draw = t(1.0 + 0.02 * rng.normal(size=n))
+    if 'V' in st:
+        st['V'] = st['V'] * draw
     st['p'] = t(2.0 * rng.normal(size=n))
+    if 'rho0' in st:
+        st['rho0'] = st['rho'].clone()
+    if 'p0' in st:
+        st['p0'] = torch.clamp(10.0 * st['p'].abs(), max=100.0)
 
 
 def on_edges(states, domain, seed=54321, share=0.1):
@@ -67,32 +82,47 @@ def on_edges(states, domain, seed=54321, share=0.1):
     return int(pick.sum())
 
 
-def calls(nx, dtype, edges=False):
-    """(calls, particles, particles moved onto the edges) of one eval at
-    ``nx`` on the card (``perturb``ed; ``on_edges`` with ``edges``)."""
-    s = make_app(None, dtype, cls=TaylorGreen,
-                 extra=('--nx', str(nx))).solver
+def calls(nx, dtype, edges=False, scheme='tvf', engine='kernel'):
+    """(calls, particles, particles moved onto the edges) of one eval of
+    every evaluator of ``scheme`` on ``engine`` at ``nx`` on the card
+    (``perturb``ed; ``on_edges`` with ``edges``).  The schemes but
+    ``tvf`` start from positions jittered by a tenth of dx (``--perturb
+    0.1``): on the lattice GTVF's ``auhat``, a sum of kernel gradients
+    under factors of the dest's alone, cancels to rounding."""
+    jitter = () if scheme == 'tvf' else ('--perturb', '0.1')
+    s = make_app(None, dtype, cls=TaylorGreen, engine=engine,
+                 extra=('--nx', str(nx), '--scheme', scheme) +
+                 jitter).solver
     perturb(s.states)
     moved = on_edges(s.states, s.domain) if edges else 0
     n = s.states['fluid']['x'].shape[0]
-    return plan_calls(s, [0]), n, moved
+    return plan_calls(s, range(len(s.acceleration_evals))), n, moved
 
 
 def compare(calls_, tol):
     """The largest absolute and scaled errors of the kernel against its
-    plain version over the calls' outputs; raises past ``tol`` of
-    max|ref|."""
+    plain version over the calls' outputs (over the finite entries of the
+    plain version, whose infinities the kernel must match exactly);
+    raises past ``tol`` of max|ref|."""
     worst_abs = worst = 0.0
     for _, dest, plan, args in calls_:
         got = plan.op(*args)
         ref = plan.reference(*args)
         torch.cuda.synchronize()
         for p in plan.outputs:
-            scale = max(float(ref[p].abs().max()), 1e-300)
-            err = float((got[p] - ref[p]).abs().max())
+            fin = torch.isfinite(ref[p])
+            if not (torch.equal(torch.isfinite(got[p]), fin) and
+                    torch.equal(got[p][~fin], ref[p][~fin])):
+                raise AssertionError('%s %s.%s: non-finite entries differ'
+                                     % (plan.op.__name__, dest, p))
+            if not bool(fin.any()):
+                continue
+            scale = max(float(ref[p][fin].abs().max()), 1e-300)
+            err = float((got[p][fin] - ref[p][fin]).abs().max())
             if not err <= tol * scale:
-                raise AssertionError('tvf_pair %s.%s: error %.3g > %.0e * '
-                                     '%.3g' % (dest, p, err, tol, scale))
+                raise AssertionError('%s %s.%s: error %.3g > %.0e * %.3g'
+                                     % (plan.op.__name__, dest, p, err, tol,
+                                        scale))
             worst_abs, worst = max(worst_abs, err), max(worst, err / scale)
     return worst_abs, worst
 

@@ -21,10 +21,12 @@ def csrc(tmp_path, monkeypatch):
 def test_sources_follow_the_includes(csrc):
     for name in ('wcsph_pair', 'dense_pair', 'pair_stub'):
         assert [p.name for p in build.sources(name)] == [
-            name + '.cu', 'wcsph_terms.cuh', 'cell_pack.cuh', 'cell_walk.cuh']
-    for name in ('fused_pair', 'gtvf_pair'):
-        assert [p.name for p in build.sources(name)] == [
-            name + '.cu', 'cell_pack.cuh', 'cell_walk.cuh']
+            name + '.cu', 'wcsph_terms.cuh', 'cell_pack.cuh', 'cell_walk.cuh',
+            'shapes.cuh']
+    assert [p.name for p in build.sources('fused_pair')] == [
+        'fused_pair.cu', 'cell_pack.cuh', 'cell_walk.cuh']
+    assert [p.name for p in build.sources('gtvf_pair')] == [
+        'gtvf_pair.cu', 'cell_pack.cuh', 'cell_walk.cuh', 'shapes.cuh']
     assert [p.name for p in build.sources('cell_pack')] == [
         'cell_pack.cu', 'cell_pack.cuh']
     for name in ('micro_launch', 'micro_engine', 'bin_cells'):
@@ -60,6 +62,12 @@ def test_header_edit_changes_the_key(csrc):
     walked = {n: build.build_key(n) for n in names}
     assert {n for n in names if walked[n] != edited[n]} == {
         'wcsph_pair', 'dense_pair', 'pair_stub', 'fused_pair', 'gtvf_pair'}
+    # the shape functions' header: the four walks that compute WIJ
+    shapes = csrc / 'shapes.cuh'
+    shapes.write_text(shapes.read_text() + '\n// edited\n')
+    shaped = {n: build.build_key(n) for n in names}
+    assert {n for n in names if shaped[n] != walked[n]} == {
+        'wcsph_pair', 'dense_pair', 'pair_stub', 'gtvf_pair'}
     # a nested include counts too
     (csrc / 'extra.cuh').write_text('// v1\n')
     header.write_text('#include "extra.cuh"\n' + header.read_text())

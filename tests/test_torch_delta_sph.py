@@ -273,7 +273,8 @@ def test_kernel_engine_plans_every_delta_set():
     (src,) = plans[2][2]
     # MomentumEquation's alpha is 0; MomentumEquationDeltaSPH takes it
     assert src[:3] == ('fluid', fluid, 1400.0) and src[3] == 0.0
-    assert src[6:] == (0.1, 1400.0, 0.1, 1400.0, 1.0)
+    # the laminar viscosity's nu and eta: no VISC term
+    assert src[6:] == (0.1, 1400.0, 0.1, 1400.0, 1.0, 0.0, 0.0)
     # 3D: the moment in three dimensions, the correction in two
     plans = _plans(_dam_break('kernel'))
     assert plans[0] == ('fluid', dl.delta_pair, [('fluid', dl.MMAT, 3, 0.1)])
@@ -650,7 +651,9 @@ def test_viscosity_matches_jax(name):
         [pa], [Group(equations=[getattr(viscosity, name)(
             'fluid', ['fluid'], **kw)])], CubicSpline(dim=2), config,
         CellGrid.from_particles([pa], dim=2, radius_scale=2.0))
-    assert set(a_eval.engine_choices.values()) == {'torch'}
+    # LaminarViscosity is wcsph_pair's VISC term (its plain version here)
+    assert set(a_eval.engine_choices.values()) == {
+        'kernel' if name == 'LaminarViscosity' else 'torch'}
     states = {'fluid': pa.to_device(config)}
     a_eval.update_and_compute(0.0, 0.1, states)
     for p in ('au', 'av'):
@@ -704,8 +707,10 @@ def test_scheme_viscosity_branch_matches_jax(delta_sph, tmp_path):
     port.setup(['-q', '--disable-output', '--use-double', '--device',
                 'cpu'] + argv)
     a_eval = port.solver.acceleration_evals[0]
-    # the fluid's main group holds the viscosity: the torch engine
-    assert a_eval.engine_choices[('fluid', ('fluid',))] == 'torch'
+    # the fluid's main group holds the viscosity: wcsph_pair's VISC term,
+    # and with delta-SPH LaminarViscosityDeltaSPH, which no kernel takes
+    assert a_eval.engine_choices[('fluid', ('fluid',))] == (
+        'torch' if delta_sph else 'kernel')
     port.solver.integrator.initial_acceleration(port.solver.states, 0.0,
                                                 s.dt)
     for p in ('arho', 'au', 'av', 'ax', 'ay'):

@@ -183,12 +183,12 @@ def test_kernel_and_scheme_options():
                              'CubicSpline']).solver
     assert isinstance(s.kernel, CubicSpline)
     assert s.grid.radius_scale == 2.0 and s.grid.dims == (17, 17, 1)
-    # QuinticSpline is ported (the WCSPH walks do not take it: the
-    # drop's pair phases then run on the torch engine)
+    # QuinticSpline is ported, and the WCSPH walks take it: the drop's
+    # pair phases stay on the kernel engine
     s = _port_app('kernel', ['--disable-output', '--kernel',
                              'QuinticSpline']).solver
     assert isinstance(s.kernel, QuinticSpline) and s.grid.radius_scale == 3.0
-    assert set(s.acceleration_evals[0].engine_choices.values()) == {'torch'}
+    assert set(s.acceleration_evals[0].engine_choices.values()) == {'kernel'}
     with pytest.raises(NotImplementedError, match='item 19'):
         _port_app('kernel', ['--disable-output', '--kernel',
                              'WendlandQuinticC4'])

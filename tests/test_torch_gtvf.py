@@ -326,5 +326,6 @@ def test_planner_refuses_mixed_gtvf_phase_sets():
     mpg = MomentumEquationPressureGradient('f', ['f'], pref=1.0)
     with pytest.raises(PairIneligible, match='accumulates'):
         plan_pair_phases('f', {'f': [cd, mpg]}, k)
-    with pytest.raises(PairIneligible):
-        plan_pair_phases('f', {'f': [cd]}, CubicSpline(dim=2))
+    # every kind of KERNEL_KIND has its shape function in the kernel
+    assert plan_pair_phases('f', {'f': [cd]}, CubicSpline(dim=2)).op is \
+        gp.gtvf_pair

@@ -159,7 +159,7 @@ def test_scheme_is_the_reference_default():
         (tp.tvf_pair, ('au', 'av', 'aw', 'auhat', 'avhat', 'awhat'))]
     assert [[ps.terms for ps in p.sources] for p in plans] == [
         [tp.SDEN], [tp.MPG | tp.VISC | tp.MAS]]
-    for scheme in ('wcsph', 'gtvf', 'iisph', 'edac'):
+    for scheme in ('iisph', 'edac'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             TaylorGreen().setup(['--device', 'cpu', '--scheme', scheme])
 

@@ -35,6 +35,7 @@ from pysph_tpu_torch.base.domain import DomainManager
 from pysph_tpu_torch.base.kernels import Gaussian, QuinticSpline
 from pysph_tpu_torch.base.utils import get_particle_array
 from pysph_tpu_torch.config import Config
+from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.sph import scheme
 from pysph_tpu_torch.sph.equation import Group
@@ -323,10 +324,14 @@ def test_tvf_scheme_with_a_solid_matches_jax(engine):
     ev.evaluate(t=0.2, dt=1e-4)
     if engine == 'kernel':
         # the fluid's summation density takes tvf_pair; its momentum
-        # group holds the no-slip wall, which tvf_pair does not take
+        # group holds the no-slip wall, which tvf_pair does not take; the
+        # wall's velocity and pressure take gtvf_pair, which walks the
+        # periodic grid
         plans = [p for p in ev.func_eval._plans.values() if p is not None]
         assert [(p.op, p.outputs) for p in plans] == [
-            (tp.tvf_pair, ('V', 'rho'))]
+            (tp.tvf_pair, ('V', 'rho')),
+            (gp.gtvf_pair, ('uf', 'vf', 'wf', 'wij')),
+            (gp.gtvf_pair, ('wij', 'p'))]
     jmap = {pa.name: pa for pa in jarrays}
     for pa in arrays:
         for p in SCHEME_PROPS[pa.name]:
