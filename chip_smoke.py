@@ -7,8 +7,10 @@ Phases (any failure propagates; the exit code is then not 0):
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
 2. build the eleven CUDA sources of ``pysph_tpu_torch/csrc`` (the nine
    pair and probe kernels, the source pack ``cell_pack`` and the binning
-   ``bin_cells``) with nvcc, one process per source, in parallel, and
-   print ``-Xptxas -v``;
+   ``bin_cells``) and the libraries of the later smoothing-kernel kinds
+   (4-7, ``csrc/shapes.cuh``) of the five pair kernels that take kinds,
+   with nvcc, one process per library, all in parallel, each one's
+   seconds printed, and print ``-Xptxas -v``;
 3. ``wcsph_pair`` against its plain torch version on the card, on the
    dam_break_3d state with a seeded velocity and density perturbation:
    dx=0.04 (24,672 particles) in float64 (scaled error <= 1e-10) and
@@ -19,7 +21,13 @@ Phases (any failure propagates; the exit code is then not 0):
    (``ops/cell_pack.py``) equal to its plain version, and timed; then 10
    steps of dam_break_3d
    at dx=0.04 in float64 on the kernel engine against the torch engine
-   (<= 1e-9 of max|ref|);
+   (<= 1e-9 of max|ref|); then each later kind (``WendlandQuinticC4``,
+   ``WendlandQuinticC6``, ``SuperGaussian`` in 2D and 3D) in every pair
+   kernel that takes kinds against its plain version in float64 and
+   float32 (``tools_dev/kind_check.py``: the Taylor-Green vortex at nx=50
+   under ``tvf``, ``gtvf``, ``wcsph`` on both engines and ``wcsph
+   --delta-sph``, dam_break_3d at dx=0.04 on both engines and with
+   ``--delta-sph``; 0 flipped accept decisions);
 4. the solver's chunks (``tools_dev/time_chunks.py::gate``): on each of
    the paths in float64 at a small size (dam_break_3d dx=0.04, also
    with its fluid at 3 m/s so that the binning is rebuilt inside the
@@ -51,6 +59,10 @@ Phases (any failure propagates; the exit code is then not 0):
    reference's other binning configuration (``bin_every_eval`` on cells
    1.001 times the support, ``time_chunks.CONFIGS``), per step and in
    chunks; GTVF and the drops below are driven and checked the same way;
+   then dam_break_3d ``--kernel WendlandQuinticC4`` (``wcsph_pair`` at
+   kind 4, a library of its own): against its plain version at dx=0.02 in
+   float32, timed there with its open-grid kernels' registers and spills,
+   and the path as the main path under the binning reuse;
 6. the delta-SPH dam break (``dam_break_3d --delta-sph``, the
    BASELINE's): ``delta_pair`` (the moment matrix and the corrected
    density gradient) and ``wcsph_pair``'s delta terms against their plain
@@ -124,8 +136,14 @@ Phases (any failure propagates; the exit code is then not 0):
    kernel, with its decay held to the JAX package's for the same scheme,
    nx, steps and dtype (``JAX_DECAY``: max |v| over the exact decay
    within 1e-3 of the JAX figure, the L1 error of |v| within 5% of it);
-   their chunks against the per-step loop are gates of phase 4
-   (``taylor_green <scheme> nx=40``);
+   then the same for ``--scheme wcsph`` with each of ``--delta-sph``
+   (``delta_pair``'s periodic branch, linked, twice an eval, with its
+   accept decisions' flips counted and 0, and ``wcsph_pair`` with the
+   delta terms and ``LaminarViscosityDeltaSPH``), ``--summation-density``
+   (``wcsph_pair`` twice an eval: the density launch and the main one)
+   and ``--tensile-correction`` (``wcsph_pair``'s tensile term); their
+   chunks against the per-step loop are gates of phase 4
+   (``taylor_green <scheme>[ <option>] nx=40``);
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -191,6 +209,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -217,6 +236,7 @@ from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
 from pysph_tpu_torch.tools_dev import time_chunks, tvf_check, walk_cases
+from pysph_tpu_torch.tools_dev import kind_check
 from pysph_tpu_torch.tools_dev.common import (
     capture, events_ms, graph_ms, linked_calls)
 from pysph_tpu_torch.tools_dev.time_walks import (
@@ -226,10 +246,14 @@ STEPS = 200
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 #: the JAX package's Taylor-Green decay at nx=400 after STEPS steps in
 #: float32 on the CPU (``python tests/jax_tg_decay.py --scheme <scheme>
-#: --nx 400 --steps 200``): (max |v| over the exact decay of the start's
-#: max |v|, the L1 error of |v|)
+#: --nx 400 --steps 200 [<the option's flags>]``), by scheme and option:
+#: (max |v| over the exact decay of the start's max |v|, the L1 error of
+#: |v|)
 JAX_DECAY = {'wcsph': (1.000178380345958, 0.009089970207746673),
-             'gtvf': (1.000495169086151, 0.009147097045272161)}
+             'gtvf': (1.000495169086151, 0.009147097045272161),
+             'wcsph delta': (0.9986821392914745, 0.008999829297085801),
+             'wcsph summation': (1.000352147793546, 0.009079249251684698),
+             'wcsph tensile': (1.0001777789107333, 0.009101093339999769)}
 
 
 def _compare(calls, dtype, label, op=None):
@@ -703,26 +727,28 @@ def _integrators_phase():
         del app, s
 
 
-def _tg_decay(out, solver, scheme='tvf'):
+def _tg_decay(out, solver, key='tvf'):
     """max |v| and the L1 error of |v| of the Taylor-Green run's final
-    state against the exact decay (into ``out``).  ``tvf``: max |v|
+    state against the exact decay (into ``out``); ``key``: the scheme and
+    the option of the run.  ``tvf``: max |v|
     within 1% of the exact decay of the lattice's max |v| at t = 0, the
     L1 error below 2% of U (the pressure waves of the start, p = 0 from
     the summation density against the exact field's, hold it near 0.9%
-    at t=0.011 at nx=64 and nx=100 in float32 on the CPU).  ``wcsph``,
-    ``gtvf``: that ratio within 1e-3 of the JAX package's for the same
-    run, the L1 error within 5% of its (``JAX_DECAY``)."""
+    at t=0.011 at nx=64 and nx=100 in float32 on the CPU).  The others
+    (``wcsph`` and its options, ``gtvf``): that ratio within 1e-3 of the
+    JAX package's for the same run, the L1 error within 5% of its
+    (``JAX_DECAY[key]``)."""
     st = {p: solver.states['fluid'][p].double().cpu().numpy()
           for p in 'xyuv'}
     vmax, exact, l1 = decay_errors(st['x'], st['y'], st['u'], st['v'],
                                    solver.t, 100.0)
     ratio = vmax / (out['vmax0'] * exact)
     out.update(t=solver.t, vmax=vmax, exact=exact, l1=l1, ratio=ratio)
-    if scheme == 'tvf':
+    if key == 'tvf':
         bars = 'bar 1%; L1 bar 2e-2'
         ok = abs(ratio - 1.0) < 1e-2 and l1 < 2e-2
     else:
-        jax_ratio, jax_l1 = JAX_DECAY[scheme]
+        jax_ratio, jax_l1 = JAX_DECAY[key]
         out.update(jax_ratio=jax_ratio, jax_l1=jax_l1)
         bars = 'JAX %.6f, bar 1e-3; JAX L1 %.4g, bar 5%%' % (jax_ratio,
                                                               jax_l1)
@@ -731,11 +757,11 @@ def _tg_decay(out, solver, scheme='tvf'):
     print('taylor_green %s nx=400 float32 at t=%.6g after %d steps: max|v| '
           '%.6f, exact decay of the start\'s %.6f: %.6f (ratio %.6f); L1 '
           'error of |v| %.4g (%s)' % (
-              scheme, solver.t, solver.count, vmax, out['vmax0'],
+              key, solver.t, solver.count, vmax, out['vmax0'],
               out['vmax0'] * exact, ratio, l1, bars), flush=True)
     if not ok:
         raise AssertionError('the Taylor-Green vortex (%s) missed its '
-                             'decay' % scheme)
+                             'decay' % key)
 
 
 def _tvf_linked(s):
@@ -878,115 +904,291 @@ def _tvf_phase(runs, kernels, bins):
         'density emits, the momentum consumes)')
 
 
-#: the Taylor-Green vortex's other runs: (scheme, engine, kernel wrapper,
-#: its pack, its pack's plain version, its work count, the TPU kernel it
-#: replaces, launches in the initial eval and a step, reuse tests a step)
+class TgRun(NamedTuple):
+    """A Taylor-Green run of ``_tg_scheme_phase``: ``scheme`` on
+    ``engine`` with the ``time_chunks.WCSPH_OPTIONS`` entry ``option``
+    ('' for none); ``drive``: ``_drive``'s ops ((kernel wrapper, launches
+    in the initial eval, a step[, packs a launch]), ...), the first the
+    kernel whose periodic entry the run adds; ``bins``: reuse tests a
+    step."""
+    scheme: str
+    engine: str
+    option: str
+    drive: tuple
+    bins: int
+
+    @property
+    def flags(self):
+        return time_chunks.WCSPH_OPTIONS[self.option] if self.option else ()
+
+    @property
+    def key(self):
+        """The scheme and the option: ``JAX_DECAY``'s key."""
+        return self.scheme + (' ' + self.option if self.option else '')
+
+    @property
+    def label(self):
+        """Its ``time_chunks.PATHS`` label."""
+        return 'taylor_green %s nx=400%s' % (
+            self.key, ' dense' if self.engine == 'dense' else '')
+
+
+#: the Taylor-Green vortex's other runs
 TG_RUNS = (
-    ('wcsph', 'kernel', wp.wcsph_pair, wp.pack_sources,
-     wp.pack_sources_reference, roofline.wcsph_work,
-     'pysph_tpu/ops/resident.py:645', 1, 1, 1),
-    ('wcsph', 'dense', dp.dense_pair, wp.pack_sources,
-     wp.pack_sources_reference, roofline.wcsph_work,
-     'pysph_tpu/ops/pallas_engine.py:574', 1, 1, 1),
-    ('gtvf', 'kernel', gp.gtvf_pair, gp.pack_sources,
-     gp.pack_sources_reference, roofline.gtvf_work,
-     'pysph_tpu/ops/pallas_engine.py:1160', 1, 3, 2),
+    TgRun('wcsph', 'kernel', '', ((wp.wcsph_pair, 1, 1),), 1),
+    TgRun('wcsph', 'dense', '', ((dp.dense_pair, 1, 1),), 1),
+    TgRun('gtvf', 'kernel', '', ((gp.gtvf_pair, 1, 3),), 2),
+    TgRun('wcsph', 'kernel', 'delta',
+          ((dl.delta_pair, 2, 2, 0.5), (wp.wcsph_pair, 1, 1)), 1),
+    TgRun('wcsph', 'kernel', 'summation', ((wp.wcsph_pair, 2, 2),), 1),
+    TgRun('wcsph', 'kernel', 'tensile', ((wp.wcsph_pair, 1, 1),), 1),
 )
+#: by pair kernel: (its pack, the pack's plain version, its work count,
+#: the TPU kernel it replaces, the mangled template flags after the kind
+#: of its periodic instantiations on the runs' paths)
+TG_KERNELS = {
+    wp.wcsph_pair: (wp.pack_sources, wp.pack_sources_reference,
+                    roofline.wcsph_work, 'pysph_tpu/ops/resident.py:645',
+                    'ELb[01]ELb1ELb1E'),
+    dp.dense_pair: (wp.pack_sources, wp.pack_sources_reference,
+                    roofline.wcsph_work, 'pysph_tpu/ops/pallas_engine.py:574',
+                    'ELb1ELb1E'),
+    gp.gtvf_pair: (gp.pack_sources, gp.pack_sources_reference,
+                   roofline.gtvf_work, 'pysph_tpu/ops/pallas_engine.py:1160',
+                   'ELb1E'),
+    dl.delta_pair: (dl.pack_sources, dl.pack_sources_reference,
+                    roofline.delta_work, 'pysph_tpu/ops/resident.py:645',
+                    r'ELi\dELb[01]ELb1E'),
+}
+#: the pair kernels that take a smoothing kernel's kind, each of whose
+#: later kinds is a library of its own (``ops/build.py``)
+KIND_KERNELS = ('tvf_pair', 'wcsph_pair', 'gtvf_pair', 'dense_pair',
+                'delta_pair')
 #: the props the engines must agree on, by scheme
 TG_PROPS = {'wcsph': ('x', 'y', 'u', 'v', 'rho', 'p', 'arho', 'au', 'av'),
             'gtvf': ('x', 'y', 'u', 'v', 'rho', 'p', 'rhodiv', 'au', 'av',
                      'auhat', 'avhat')}
 
 
-def _path_resources(lib, kernel):
+def _path_resources(op):
     """{mangled name: (registers, spill store bytes, spill load bytes)} of
-    the ``QuinticSpline`` instantiations of ``kernel`` with the periodic
-    flag in the built library ``lib`` (``build.resources``): the
-    Taylor-Green runs' kernels."""
-    flags = {'wcsph_pair': 'Li3ELb0ELb1ELb1E', 'dense_pair': 'Li3ELb1ELb1E',
-             'gtvf_pair': 'Li3ELb1E'}[kernel]
-    path = re.compile(kernel + '_kernelI[fd]' + flags)
+    the ``QuinticSpline`` instantiations of the kernel of ``op`` with the
+    periodic flag that the Taylor-Green runs launch, in its built library
+    (``build.resources``)."""
+    path = re.compile(op.__name__ + '_kernelI[fd]Li3' + TG_KERNELS[op][4])
     return {name.split('_pair_kernel')[-1]: res
-            for name, res in sorted(build.resources(lib).items())
+            for name, res in sorted(build.resources(
+                build.build(op.__name__)).items())
             if path.search(name)}
 
 
+def _delta_run_linked(s):
+    """The Taylor-Green ``--delta-sph`` run of ``s`` ran its two
+    ``delta_pair`` plans linked, with no dest past the list's capacity
+    (the counter reset before the run)."""
+    plans = [p for a in s.acceleration_evals for p in a._plans.values()
+             if p is not None and p.op is dl.delta_pair]
+    links = {id(p.link) for p in plans if p.link is not None}
+    overflowed = dl.overflowed('cuda')
+    print('taylor_green wcsph --delta-sph nx=400: %d linked delta_pair '
+          'pair, %d dests past the list\'s capacity in the runs'
+          % (len(links), overflowed), flush=True)
+    if len(plans) != 2 or len(links) != 1 or overflowed:
+        raise AssertionError('the Taylor-Green --delta-sph run was not '
+                             'linked, or %d dests overflowed its list'
+                             % overflowed)
+
+
+def _tg_kernel_times(op, calls):
+    """(ms in a graph, eager ms, plain ms, work, the linked pair's times
+    or None) of ``op``'s calls of one eval, as the path runs them."""
+    mine = [c for c in calls if c[2].op is op]
+    count = TG_KERNELS[op][2]
+    plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in mine], 3)
+    if not linked_calls(mine):
+        eager = events_ms(lambda: [op(*c[3]) for c in mine], 20)
+        ms = graph_ms(lambda: [op(*c[3]) for c in mine], 20)
+        return ms, eager, plain_ms, _calls_work(mine, count), None
+    times, linked_fn = _linked_times(op, mine)
+    ((_, _, _, first), (_, _, _, second)), = linked_calls(mine)
+    # the consuming call tests no candidate: one walk's tests
+    work = roofline.add(count(*first), count(*second, walks=False))
+    return (times['linked'], events_ms(linked_fn, 20), plain_ms, work,
+            times)
+
+
 def _tg_scheme_phase(runs, kernels, run):
-    """The Taylor-Green vortex under another scheme (``TG_RUNS``): the
-    kernel's periodic branch against its plain version on the path's
-    calls (``tvf_check.calls``: perturbed, and with a tenth of the
-    particles on the box's edges and corners) at nx=50 in both dtypes and
-    at nx=400 in float32, the pack of each call exact, timed and counted
-    at nx=400 with the path's kernels' registers and spills; the kernel
-    engine against the torch engine at nx=50 from ``--perturb 0.1`` in
-    float64 for 10 steps; then the path at nx=400 as the main path under
-    the binning reuse, every dest on the kernel (the launch counts), with
-    its decay against the JAX package's (``_tg_decay``).  Adds the
-    kernel's periodic entry."""
-    (scheme, engine, op, pack, pack_reference, count, replaces, first,
-     per_step, bins) = run
-    name = op.__name__
-    what = 'taylor_green --scheme %s%s' % (
-        scheme, ' --engine dense' if engine == 'dense' else '')
+    """The Taylor-Green vortex under another scheme or option
+    (``TG_RUNS``): each kernel's periodic branch against its plain
+    version on the path's calls (``tvf_check.calls``: perturbed, and with
+    a tenth of the particles on the box's edges and corners; after one
+    eval for ``--delta-sph``, whose ``delta_pair`` calls are also held by
+    ``delta_check``: the flipped accept decisions counted and 0, the
+    linked pair bit for bit the walk and its list
+    ``neighbours_reference``'s) at nx=50 in both dtypes and at nx=400 in
+    float32, the pack of each call exact, timed and counted at nx=400
+    with the path's kernels' registers and spills; the kernel engine
+    against the torch engine at nx=50 from ``--perturb 0.1`` in float64
+    for 10 steps; then the path at nx=400 as the main path under the
+    binning reuse, every dest on its kernel (the launch counts), with its
+    decay against the JAX package's (``_tg_decay``).  Adds an entry
+    ``<kernel> periodic[ <option>]`` for each of its kernels."""
+    ops = [d[0] for d in run.drive]
+    delta = dl.delta_pair in ops
+    what = 'taylor_green --scheme %s%s%s' % (
+        run.scheme, ''.join(' ' + f for f in run.flags),
+        ' --engine dense' if run.engine == 'dense' else '')
+    flips = 0
     for nx, dtype, edges in ((50, torch.float64, False),
                              (50, torch.float64, True),
                              (50, torch.float32, False),
                              (50, torch.float32, True),
                              (400, torch.float32, True)):
-        calls, n, moved = tvf_check.calls(nx, dtype, edges, scheme, engine)
-        if not all(c[3][5].is_periodic and c[2].op is op for c in calls):
-            raise AssertionError('%s: a call off the periodic %s'
-                                 % (what, name))
-        _compare(calls, dtype, '%s %s nx=%d %s%s (%d particles%s)' % (
-            name, what, nx, str(dtype)[6:], ' edges' * edges, n,
-            ', %d on the edges' % moved if edges else ''))
+        calls, n, moved = tvf_check.calls(nx, dtype, edges, run.scheme,
+                                          run.engine, run.flags, delta)
+        if not all(c[3][5].is_periodic for c in calls) or \
+                {c[2].op for c in calls} != set(ops):
+            raise AssertionError('%s: calls off the periodic %s' % (
+                what, [op.__name__ for op in ops]))
+        label = '%s nx=%d %s%s (%d particles%s)' % (
+            what, nx, str(dtype)[6:], ' edges' * edges, n,
+            ', %d on the edges' % moved if edges else '')
+        _compare(calls, dtype, label)
+        if delta:
+            flips += delta_check.check(calls, label)['flips']
+            flips += delta_check.check_linked(calls, label)['flips']
         del calls
-    calls, n, _ = tvf_check.calls(400, torch.float32, False, scheme, engine)
+    if flips:
+        raise AssertionError('%s: %d flipped accept decisions' % (what,
+                                                                   flips))
+    calls, n, _ = tvf_check.calls(400, torch.float32, False, run.scheme,
+                                  run.engine, run.flags, delta)
     if n != 160000:
         raise AssertionError('taylor_green at nx=400 has %d particles, not '
                              '160,000' % n)
-    err = _compare(calls, torch.float32, '%s %s nx=400 float32 (%d '
-                   'particles)' % (name, what, n))
-    for k, dest, _, args in calls:
+    errs = {}
+    for op in ops:
+        errs[op] = _compare([c for c in calls if c[2].op is op],
+                            torch.float32, '%s %s nx=400 float32 (%d '
+                            'particles)' % (op.__name__, what, n))
+    if delta:
+        found = delta_check.check(calls, what + ' nx=400')
+        linked = delta_check.check_linked(calls, what + ' nx=400')
+        if found['flips'] + linked['flips']:
+            raise AssertionError('%s nx=400: flipped accept decisions'
+                                 % what)
+    for k, dest, plan, args in calls:
+        pack, pack_reference = TG_KERNELS[plan.op][:2]
         _check_pack('%s nx=400 eval %d %s' % (what, k, dest),
                     pack(args[4]), pack_reference(args[4]))
-    eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
-    ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
-    plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in calls], 3)
-    work = _calls_work(calls, count)
-    bound_ms, bound_by = roofline.bound(work)
-    resources = _path_resources(build.build(name), name)
-    print('%s, the %d launches of one step\'s evals of %s at nx=400 '
-          'float32 (grid %s, periodic %s; the pack included): kernel %.4f '
-          'ms in a graph, %.4f eager, plain torch %.3f ms; bound %.4f ms '
-          '(%s: %.4g flops, %d B); %d candidates, %d visited, %d pairs; '
-          'registers and spill bytes (stores, loads) of the periodic '
-          'QuinticSpline kernels: %s' % (
-              name, len(calls), what, calls[0][3][5].dims,
-              calls[0][3][5].periodic, ms, eager, plain_ms, bound_ms,
-              bound_by, work['flops'], work['bytes'], work['candidates'],
-              work['visited'], work['pairs'], resources), flush=True)
+    timed = {}
+    for op in ops:
+        ms, eager, plain_ms, work, linked = timed[op] = _tg_kernel_times(
+            op, calls)
+        name = op.__name__
+        print('%s, its %d launches of one step\'s evals of %s at nx=400 '
+              'float32 (grid %s, periodic %s; the pack included%s): kernel '
+              '%.4f ms in a graph, %.4f eager, plain torch %.3f ms; bound '
+              '%.4f ms (%s: %.4g flops, %d B); %d candidates, %d visited, '
+              '%d pairs; registers and spill bytes (stores, loads) of the '
+              'periodic QuinticSpline kernels: %s' % ((
+                  name, sum(c[2].op is op for c in calls), what,
+                  calls[0][3][5].dims, calls[0][3][5].periodic,
+                  ', linked: the moment emits, the gradient consumes; alone '
+                  '%.4f and %.4f, the two walking launches %.4f' % (
+                      linked['emit'], linked['consume'], linked['walking'])
+                  if linked else '', ms, eager, plain_ms) +
+                  roofline.bound(work) + (
+                      work['flops'], work['bytes'], work['candidates'],
+                      work['visited'], work['pairs'], _path_resources(op))),
+              flush=True)
     del calls
-    _engines_agree('taylor_green %s nx=50' % scheme, None, 10,
-                   TG_PROPS[scheme], cls=TaylorGreen, engine=engine,
+    _engines_agree('%s nx=50' % what, None, 10,
+                   TG_PROPS[run.scheme], cls=TaylorGreen, engine=run.engine,
                    extra=('--nx', '50', '--perturb', '0.1', '--scheme',
-                          scheme))
-    label = 'taylor_green %s nx=400%s' % (
-        scheme, ' dense' if engine == 'dense' else '')
-    kw = time_chunks.PATHS[label]
+                          run.scheme) + run.flags)
+    kw = time_chunks.PATHS[run.label]
     start = make_app(None, torch.float32, **{
         k: v for k, v in kw.items() if k != 'dx'}).solver.states['fluid']
     decay = dict(vmax0=float(torch.sqrt(start['u'] ** 2 +
                                         start['v'] ** 2).max()))
     del start
-    runs[label, 'reuse'] = _drive(
-        label, kw, ((op, first, per_step),), bins, engine=engine,
-        checks=(functools.partial(_tg_decay, decay, scheme=scheme),))
-    kernels[name + ' periodic'] = dict(_entry(
-        name, replaces, runs[label, 'reuse']['launches'][name], err, ms,
-        plain_ms, work, None, eager_ms=eager, resources=resources,
-        decay=decay, path='%s nx=400, the pair calls of one step (%d '
-        'launches)' % (what, per_step)), name=name + ' periodic')
+    dl.reset_overflow('cuda')
+    runs[run.label, 'reuse'] = _drive(
+        run.label, kw, run.drive, run.bins, engine=run.engine,
+        checks=(functools.partial(_tg_decay, decay, key=run.key),) + (
+            (_delta_run_linked,) if delta else ()))
+    for op in ops:
+        ms, eager, plain_ms, work, linked = timed[op]
+        name = op.__name__
+        extra = {} if linked is None else dict(
+            per_launch_ms=[linked['emit'], linked['consume']],
+            walking_ms=linked['walking'], flips=flips)
+        entry = '%s periodic%s' % (name, ' ' + run.option if run.option
+                                   else '')
+        kernels[entry] = dict(_entry(
+            name, TG_KERNELS[op][3],
+            runs[run.label, 'reuse']['launches'][name], errs[op], ms,
+            plain_ms, work, None, eager_ms=eager,
+            resources=_path_resources(op),
+            decay=decay, path='%s nx=400, the %s calls of one step (%d '
+            'launches)' % (what, name, next(d[2] for d in run.drive
+                                            if d[0] is op)), **extra),
+            name=entry)
+
+
+def _kinds_phase():
+    """Each later kind (``kind_check.NEW_KINDS``) in every pair kernel
+    that takes kinds against its plain version, in both dtypes
+    (``tools_dev/kind_check.py``: the Taylor-Green vortex at nx=50 under
+    ``tvf``, ``gtvf``, ``wcsph`` on both engines and ``wcsph
+    --delta-sph``, dam_break_3d at dx=0.04 on both engines and with
+    ``--delta-sph``; 0 flipped accept decisions)."""
+    for kernel in kind_check.NEW_KINDS:
+        for dtype in (torch.float64, torch.float32):
+            for label, f in kind_check.check(kernel, dtype).items():
+                print('%s (kinds %s): max abs err %.3g, max scaled err '
+                      '%.3g%s' % (label, f['kinds'], f['max_abs_err'],
+                                  f['max_scaled_err'],
+                                  '; %d linked pairs, %d flips' % (
+                                      f['linked'], f['flips'])
+                                  if 'flips' in f else ''), flush=True)
+
+
+def _c4_phase(runs, kernels):
+    """dam_break_3d with ``--kernel WendlandQuinticC4``: ``wcsph_pair`` at
+    kind 4 against its plain version at dx=0.02 in float32 on the
+    perturbed state (float64 and both engines at dx=0.04 are
+    ``_kinds_phase``'s), timed there with its registers and spills; then
+    the path as the main path under the binning reuse (3 launches in the
+    initial eval, 6 a step).  Adds the ``wcsph_pair C4`` entry."""
+    label = 'dam_break_3d dx=0.02 C4'
+    flags = time_chunks.PATHS[label]['extra']
+    calls, n = pair_calls(0.02, torch.float32, extra=flags)
+    err = _compare(calls, torch.float32, 'wcsph_pair %s float32 (%d '
+                   'particles)' % (label, n))
+    eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in calls], 3)
+    work = _calls_work(calls, roofline.wcsph_work)
+    lib = build.build('wcsph_pair', build.kind_flags(4))
+    resources = {name.split('_pair_kernel')[-1]: res
+                 for name, res in sorted(build.resources(lib).items())
+                 if 'Lb0ELb0ELb0E' in name}
+    print('wcsph_pair, pair phases of one eval of %s float32 (the pack '
+          'included): kernel %.3f ms eager, %.3f ms in a graph, plain torch '
+          '%.3f ms; bound %.4f ms (%s); %d candidates, %d pairs; registers '
+          'and spill bytes (stores, loads) of its open-grid kernels: %s' % ((
+              label, eager, ms, plain_ms) + roofline.bound(work) + (
+              work['candidates'], work['pairs'], resources)), flush=True)
+    del calls
+    runs[label, 'reuse'] = _drive(label, time_chunks.PATHS[label],
+                                  ((wp.wcsph_pair, 3, 6),), 1)
+    kernels['wcsph_pair C4'] = dict(_entry(
+        'wcsph_pair', 'pysph_tpu/ops/resident.py:645',
+        runs[label, 'reuse']['launches']['wcsph_pair'], err, ms, plain_ms,
+        work, None, eager_ms=eager, resources=resources,
+        path='%s, one eval (3 launches)' % label), name='wcsph_pair C4')
 
 
 def _dense_delta_phase():
@@ -1438,11 +1640,24 @@ def main():
     names = ('tvf_pair', 'wcsph_pair', 'gtvf_pair', 'dense_pair',
              'fused_pair', 'micro_launch', 'micro_engine', 'pair_stub',
              'cell_pack', 'bin_cells', 'delta_pair')
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = dict(zip(names, pool.map(build.build, names)))
-    print('built %s in %.1f s' % ([lib.name for lib in libs.values()],
-                                  time.perf_counter() - t0))
-    for lib in libs.values():
+    # and each later kind's library of the pair kernels that take kinds
+    jobs = [(n, ()) for n in names] + [
+        (n, build.kind_flags(k)) for n in KIND_KERNELS
+        for k in range(build.BASE_KINDS, build.KINDS)]
+
+    def timed_build(job):
+        t = time.perf_counter()
+        return build.build(*job), time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(timed_build, jobs)))
+    libs = {n: built[n, ()][0] for n in names}
+    print('built %d libraries in %.1f s, all at once (%d nvcc in parallel); '
+          'each one\'s seconds: %s' % (
+              len(jobs), time.perf_counter() - t0, len(jobs), ', '.join(
+                  '%s%s %.1f' % (n, ''.join(' ' + f for f in extra), sec)
+                  for (n, extra), (_, sec) in built.items())), flush=True)
+    for lib, _ in built.values():
         print(lib.with_suffix('.log').read_text().strip(), flush=True)
     kernels = {}
 
@@ -1487,6 +1702,9 @@ def main():
         print('chunk gate: %s' % json.dumps(time_chunks.gate(case)),
               flush=True)
 
+    # the later kinds in every pair kernel that takes kinds
+    _kinds_phase()
+
     # the main path, under both binning configurations: 3 launches in the
     # initial eval, 6 a step; the reuse test once a step (reuse) or at
     # both evals (every eval)
@@ -1527,6 +1745,7 @@ def main():
         note='the binning and its reuse test, one call of five gated '
         'kernels; its JAX counterpart, prepare_reuse and prepare, is XLA '
         'ops under a lax.cond, not a pallas_call')
+    _c4_phase(runs, kernels)
     _delta_phase(runs, kernels)
     dense_delta = _dense_delta_phase()
 

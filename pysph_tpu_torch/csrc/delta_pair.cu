@@ -34,7 +34,12 @@
 // The walk is wcsph_pair's (csrc/cell_walk.cuh): thread = position in the
 // dest's sorted order, each lane walking its cells cx - 1 .. cx + 1 in
 // each stencil row of the packed copy, the candidates in support handed
-// to the pair body in rounds.  Sources are read from their packed copy
+// to the pair body in rounds.  On a periodic grid (the template flag
+// PERIODIC: the Taylor-Green vortex's --delta-sph) the rows wrap
+// (walk::walk_rows_periodic) and every displacement, in the support test
+// and in the pair, is the minimum image d - L rint(d / L), rounded as the
+// plain version's grid.image (torch.round; no FMA here either), so that
+// the accept test sees the same XIJ.  Sources are read from their packed copy
 // (csrc/cell_pack.cuh), whose record planes are, as ops/delta_pair.py
 // PACK_RECORDS:
 //   plane 0: x y z h
@@ -108,9 +113,10 @@ struct DeltaArgs {
   int32_t* overflow;  // kEmit: one per dest with more than cap pairs
   DeltaSrc src[kDeltaSources];
   double radius_scale, kfac, tol;
+  double box[3];  // the length of each periodic axis, 0 on the others
   // dim: the kernel's; mdim: the moment's (kMmat) or correction's (kCorr)
   int32_t n_dest, n_src, nx, ny, nz, dim, kernel_kind, dtype, terms, mdim;
-  int32_t mode, cap;
+  int32_t mode, cap, periodic;
   PackArgs pack;
 };
 
@@ -183,7 +189,7 @@ __device__ __forceinline__ void solve(const Solve<T>& s, T* w, int n) {
   }
 }
 
-template <typename T, int KIND, int MODE, bool MOMENT>
+template <typename T, int KIND, int MODE, bool MOMENT, bool PERIODIC>
 __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
     delta_pair_kernel(const DeltaArgs a) {
   // every lane stays to the end: the walk's votes take the whole warp
@@ -208,13 +214,19 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
   }
   const Solve<T> sv = prepare_solve(m, n);  // the correction's (kCorr)
   const T rs = T(a.radius_scale), kfac = T(a.kfac), tol = T(a.tol);
+  const walk::Box<T> box{{T(a.box[0]), T(a.box[1]), T(a.box[2])}};
   T acc[9] = {};
   int kept = 0, listed = 0;
 
   // the pair of this dest and the source particle whose records are p
   // ({x, y, z, h}) and mr ({m, rho, 0, 0})
   auto pair = [&](const walk::Rec<T>& p, const walk::Rec<T>& mr) {
-    const T xij = xi - p.a, yij = yi - p.b, zij = zi - p.c;
+    T xij = xi - p.a, yij = yi - p.b, zij = zi - p.c;
+    if (PERIODIC) {
+      xij = walk::image(xij, box.len[0]);
+      yij = walk::image(yij, box.len[1]);
+      zij = walk::image(zij, box.len[2]);
+    }
     const T r2 = xij * xij + yij * yij + zij * zij;
     const T hij = T(0.5) * (hi + p.d);
     const T rinv = r2 > T(1e-24) ? rsqrt_t(r2) : T(0);
@@ -314,8 +326,13 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
         }
         pair(walk::rec<T>(S.pos, k), walk::rec<T>(S.mass, k));
       };
-      walk::walk_rows(a, S.cell_start, S.cell_end, S.pos, l, 1,
-                      walk::Rec<T>{xi, yi, zi, hi}, rs, walker, body);
+      const walk::Rec<T> di{xi, yi, zi, hi};
+      if (PERIODIC)
+        walk::walk_rows_periodic(a, S.cell_start, S.cell_end, S.pos, l, di,
+                                 rs, box, walker, body);
+      else
+        walk::walk_rows(a, S.cell_start, S.cell_end, S.pos, l, 1, di, rs,
+                        walker, body);
       walker.finish(body);
     }
   }
@@ -339,15 +356,16 @@ template <typename T, int MODE, bool MOMENT>
 cudaError_t launch(const DeltaArgs& a, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (a.n_dest + threads - 1) / threads;
-  if (a.kernel_kind == 0)
-    delta_pair_kernel<T, 0, MODE, MOMENT><<<blocks, threads, 0, stream>>>(a);
-  else if (a.kernel_kind == 1)
-    delta_pair_kernel<T, 1, MODE, MOMENT><<<blocks, threads, 0, stream>>>(a);
-  else if (a.kernel_kind == 2)
-    delta_pair_kernel<T, 2, MODE, MOMENT><<<blocks, threads, 0, stream>>>(a);
-  else
-    delta_pair_kernel<T, 3, MODE, MOMENT><<<blocks, threads, 0, stream>>>(a);
-  return cudaGetLastError();
+  return shapes::with_kind(a.kernel_kind, [&](auto kind) {
+    constexpr int K = decltype(kind)::value;
+    if (a.periodic)
+      delta_pair_kernel<T, K, MODE, MOMENT, true>
+          <<<blocks, threads, 0, stream>>>(a);
+    else
+      delta_pair_kernel<T, K, MODE, MOMENT, false>
+          <<<blocks, threads, 0, stream>>>(a);
+    return cudaGetLastError();
+  });
 }
 
 // the moment group walks or emits; the gradient groups walk or consume
@@ -379,7 +397,7 @@ bool args_ok(const DeltaArgs& a) {
   return terms_ok && dims_ok && mode_ok && list_ok && bases_ok &&
          a.n_src >= 1 && a.n_src <= kDeltaSources && a.nx >= 1 &&
          a.ny >= 1 && a.nz >= 1 && a.dim >= 1 && a.dim <= 3 &&
-         a.kernel_kind >= 0 && a.kernel_kind <= 3 &&
+         shapes::built_kind(a.kernel_kind) &&
          (a.dtype == 0 || a.dtype == 1) && pack::args_ok(a.pack) &&
          (a.pack.n_src == 0 || a.pack.dtype == a.dtype) &&
          a.dorder != nullptr && a.cell != nullptr && a.pre != nullptr &&

@@ -3,10 +3,10 @@
 //
 // Replaces pysph_tpu/ops/pallas_engine.py::_pair_kernel (the dense-slot
 // Pallas engine, PYSPH_TPU_RESIDENT=0 PYSPH_TPU_COMPACT=0) for the WCSPH
-// phase sets: ContinuityEquation, the non-tensile MomentumEquation,
-// XSPHCorrection and LaminarViscosity of one dest array over at most 4
-// sources, with the WendlandQuintic, CubicSpline, Gaussian or
-// QuinticSpline kernel, on an open or a periodic grid.  Same contract,
+// phase sets: ContinuityEquation, MomentumEquation (with or without the
+// tensile correction), XSPHCorrection, LaminarViscosity and
+// SummationDensity of one dest array over at most 4 sources, with any
+// shape of csrc/shapes.cuh, on an open or a periodic grid.  Same contract,
 // same arguments and same per-pair body (wcsph_terms.cuh) as
 // csrc/wcsph_pair.cu; only the walk differs.
 //
@@ -339,11 +339,11 @@ __device__ void issue(const WcsphArgs& a, const C& c,
   bulk_copy(stage, from, bytes, bar);
 }
 
-// 5 blocks an SM in float (72 registers a thread).  VISC: built with
-// kLvisc; PERIODIC: the periodic tile and the minimum image (template
-// flags, so that the kernels built without them are the code they were
-// before them).
-template <typename T, int KIND, bool VISC, bool PERIODIC>
+// 5 blocks an SM in float (72 registers a thread).  EXTRA: built with
+// the kExtra terms this kernel takes (kLvisc, kTens, kSumRho); PERIODIC:
+// the periodic tile and the minimum image (template flags, so that the
+// kernels built without them are the code they were before them).
+template <typename T, int KIND, bool EXTRA, bool PERIODIC>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
     dense_pair_kernel(const WcsphArgs a) {
   using Chunks = ChunksOf<PERIODIC>;
@@ -396,7 +396,7 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
     const int i = active ? a.dorder[pos] : 0;
     const int cx = active ? a.cell[i] % a.nx : x0;
     Dest<T> d{};
-    if (active) d.template load<false, VISC>(a, i, dterms);
+    if (active) d.template load<false, EXTRA>(a, i, dterms);
     const Rec<T> di = d.point();
     const walk::Box<T> box = wcsph::box_of<T>(a);
     auto test = [&](const Rec<T>& r) {
@@ -410,17 +410,17 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
     for (int s = 0; s < a.n_src; ++s) {
       const SrcArgs& S = a.src[s];
       const int terms = S.terms;
-      const bool thermo = terms & (kMom | kXsph | (VISC ? kLvisc : 0));
+      const bool thermo = terms & (kMom | kXsph | (EXTRA ? kLvisc : 0));
       const T c0 = T(S.c0), alpha = T(S.alpha), beta = T(S.beta);
       const T xeps = T(S.xsph_eps);
-      const wcsph::ViscConsts<T> vc = wcsph::visc_consts<T>(S);
+      const wcsph::ExtraConsts<T> ec = wcsph::extra_consts<T>(a, S);
       auto body = [&](int k) {
         Cand<T> cand;
         cand.pos = wcsph::rec<T>(S.pos, k);
         cand.vel = wcsph::rec<T>(S.vel, k);
         cand.th = thermo ? wcsph::rec<T>(S.thermo, k) : Rec<T>{};
-        d.template pair<KIND, false, VISC, PERIODIC>(
-            cand, k, terms, c0, alpha, beta, xeps, rs, kfac, a.dim, {}, vc,
+        d.template pair<KIND, false, EXTRA, PERIODIC>(
+            cand, k, terms, c0, alpha, beta, xeps, rs, kfac, a.dim, {}, ec,
             box);
       };
       for (; !c.done && c.s == s; c.next(a), ++used) {
@@ -444,34 +444,34 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 5 : 3)
       }
       walker.finish(body);
     }
-    if (active) d.store(a, i);
+    if (active) d.template store<EXTRA>(a, i);
   }
 }
 
-template <typename T, int KIND, bool VISC, bool PERIODIC>
+template <typename T, int KIND, bool EXTRA, bool PERIODIC>
 cudaError_t launch_flags(const WcsphArgs& a, int blocks,
                          cudaStream_t stream) {
   // above 48 KB (float64) a kernel must ask for its dynamic shared memory
   constexpr int ring = kStages * stage_bytes<T>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      dense_pair_kernel<T, KIND, VISC, PERIODIC>,
+      dense_pair_kernel<T, KIND, EXTRA, PERIODIC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, ring);
   if (attr != cudaSuccess) return attr;
-  dense_pair_kernel<T, KIND, VISC, PERIODIC>
+  dense_pair_kernel<T, KIND, EXTRA, PERIODIC>
       <<<blocks, kThreads, ring, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int KIND>
 cudaError_t launch_kind(const WcsphArgs& a, int blocks, cudaStream_t stream) {
-  bool visc = false;
+  bool extra = false;
   for (int s = 0; s < a.n_src; ++s)
-    visc = visc || (a.src[s].terms & kLvisc);
+    extra = extra || (a.src[s].terms & kExtra);
   if (a.periodic)
-    return visc ? launch_flags<T, KIND, true, true>(a, blocks, stream)
-                : launch_flags<T, KIND, false, true>(a, blocks, stream);
-  return visc ? launch_flags<T, KIND, true, false>(a, blocks, stream)
-              : launch_flags<T, KIND, false, false>(a, blocks, stream);
+    return extra ? launch_flags<T, KIND, true, true>(a, blocks, stream)
+                 : launch_flags<T, KIND, false, true>(a, blocks, stream);
+  return extra ? launch_flags<T, KIND, true, false>(a, blocks, stream)
+               : launch_flags<T, KIND, false, false>(a, blocks, stream);
 }
 
 template <typename T>
@@ -480,10 +480,9 @@ cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
       1LL * ((a.nx + kTileCells - 1) / kTileCells) * a.ny * a.nz;
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int blocks = static_cast<int>(tiles);
-  if (a.kernel_kind == 0) return launch_kind<T, 0>(a, blocks, stream);
-  if (a.kernel_kind == 1) return launch_kind<T, 1>(a, blocks, stream);
-  if (a.kernel_kind == 2) return launch_kind<T, 2>(a, blocks, stream);
-  return launch_kind<T, 3>(a, blocks, stream);
+  return shapes::with_kind(a.kernel_kind, [&](auto kind) {
+    return launch_kind<T, decltype(kind)::value>(a, blocks, stream);
+  });
 }
 
 }  // namespace
@@ -494,13 +493,14 @@ int dense_pair_args_size() { return static_cast<int>(sizeof(WcsphArgs)); }
 
 int dense_pair_launch(const WcsphArgs* args, void* stream) {
   const WcsphArgs a = *args;
-  if (!wcsph::args_ok(a) || a.dorder == nullptr || a.cell == nullptr ||
+  if (!wcsph::args_ok(a) || !shapes::built_kind(a.kernel_kind) ||
+      a.dorder == nullptr || a.cell == nullptr ||
       a.dcell_start == nullptr || a.dcell_end == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the delta-SPH terms are wcsph_pair's only (their strided gradrho
-  // plane is not staged here)
+  // the delta-SPH terms are wcsph_pair's only (as the JAX dense engine,
+  // which takes no delta-SPH group)
   for (int s = 0; s < a.n_src; ++s)
-    if (a.src[s].terms & (kDcont | kDmom))
+    if (a.src[s].terms & (kDcont | kDmom | kLvd))
       return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

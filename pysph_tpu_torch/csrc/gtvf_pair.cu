@@ -18,7 +18,7 @@
 //                                          -> au av aw auhat avhat awhat
 //
 // A per-source term mask (ops/gtvf_pair.py) says which equations a
-// source takes.  Any smoothing kernel of KERNEL_KIND (csrc/shapes.cuh:
+// source takes.  Any smoothing kernel with a kernel_kind (csrc/shapes.cuh:
 // WendlandQuintic on the dam break, QuinticSpline on the Taylor-Green
 // vortex).  One launch computes every pair term of one dest array over
 // all of its sources (at most 4) and writes each output once.
@@ -482,16 +482,9 @@ cudaError_t launch_kind(const GtvfArgs& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch(const GtvfArgs& a, cudaStream_t stream) {
-  switch (a.kernel_kind) {
-    case 0:
-      return launch_kind<T, 0>(a, stream);
-    case 1:
-      return launch_kind<T, 1>(a, stream);
-    case 2:
-      return launch_kind<T, 2>(a, stream);
-    default:
-      return launch_kind<T, 3>(a, stream);
-  }
+  return shapes::with_kind(a.kernel_kind, [&](auto kind) {
+    return launch_kind<T, decltype(kind)::value>(a, stream);
+  });
 }
 
 }  // namespace
@@ -504,7 +497,7 @@ int gtvf_pair_launch(const GtvfArgs* args, void* stream) {
   const GtvfArgs a = *args;
   if (a.n_src < 0 || a.n_src > kMaxSources || a.nx < 1 || a.ny < 1 ||
       a.nz < 1 || a.dim < 1 || a.dim > 3 || (a.dtype != 0 && a.dtype != 1) ||
-      a.kernel_kind < 0 || a.kernel_kind > 3 ||
+      !shapes::built_kind(a.kernel_kind) ||
       a.dorder == nullptr || a.cell == nullptr || !pack::args_ok(a.pack) ||
       (a.pack.n_src != 0 && a.pack.dtype != a.dtype))
     return static_cast<int>(cudaErrorInvalidValue);

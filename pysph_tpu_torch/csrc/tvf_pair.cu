@@ -15,7 +15,7 @@
 //                                          -> au av aw auhat avhat awhat
 //
 // A per-source term mask (ops/tvf_pair.py) says which equations a source
-// takes.  Any shape of KERNEL_KIND (csrc/shapes.cuh; QuinticSpline
+// takes.  Any shape of csrc/shapes.cuh (QuinticSpline
 // on the path).  One launch computes every pair term of one dest array
 // over all of its sources (at most 4) and writes each output once.
 //
@@ -471,16 +471,9 @@ cudaError_t launch_kind(const TvfArgs& a, cudaStream_t stream) {
 
 template <typename T>
 cudaError_t launch(const TvfArgs& a, cudaStream_t stream) {
-  switch (a.kernel_kind) {
-    case 0:
-      return launch_kind<T, 0>(a, stream);
-    case 1:
-      return launch_kind<T, 1>(a, stream);
-    case 2:
-      return launch_kind<T, 2>(a, stream);
-    default:
-      return launch_kind<T, 3>(a, stream);
-  }
+  return shapes::with_kind(a.kernel_kind, [&](auto kind) {
+    return launch_kind<T, decltype(kind)::value>(a, stream);
+  });
 }
 
 bool args_ok(const TvfArgs& a) {
@@ -497,7 +490,7 @@ bool args_ok(const TvfArgs& a) {
   return mode_ok && list_ok && bases_ok && a.n_src >= 0 &&
          a.n_src <= kMaxSources && a.nx >= 1 && a.ny >= 1 && a.nz >= 1 &&
          a.dim >= 1 && a.dim <= 3 && (a.dtype == 0 || a.dtype == 1) &&
-         a.kernel_kind >= 0 && a.kernel_kind <= 3 && a.phase >= kDensity &&
+         shapes::built_kind(a.kernel_kind) && a.phase >= kDensity &&
          a.phase <= kMomentum && a.dorder != nullptr && a.cell != nullptr &&
          pack::args_ok(a.pack) &&
          (a.pack.n_src == 0 || a.pack.dtype == a.dtype);

@@ -2,14 +2,15 @@
 // cell-sorted packed sources.
 //
 // Replaces pysph_tpu/ops/resident.py::_pair_kernel_resident for the
-// equations of the dam-break main path: ContinuityEquation, the
-// non-tensile MomentumEquation (artificial viscosity and the dt_cfl max)
-// and XSPHCorrection, and the main group's delta-SPH terms
-// (ContinuityEquationDeltaSPH, MomentumEquationDeltaSPH), with the
-// WendlandQuintic, CubicSpline, Gaussian or QuinticSpline kernel; and for
-// WCSPHScheme with a viscosity, LaminarViscosity, on the Taylor-Green
-// vortex's box periodic in x and y (examples/taylor_green.py --scheme
-// wcsph).  (The delta-SPH pre-phases are csrc/delta_pair.cu.)
+// equations of WCSPHScheme: ContinuityEquation, MomentumEquation
+// (artificial viscosity and the dt_cfl max, and with --tensile-correction
+// Monaghan's tensile correction) and XSPHCorrection, the main group's
+// delta-SPH terms (ContinuityEquationDeltaSPH, MomentumEquationDeltaSPH,
+// LaminarViscosityDeltaSPH), LaminarViscosity, and the
+// --summation-density group's SummationDensity (a launch of its own),
+// with any shape of csrc/shapes.cuh, on an open grid or on the
+// Taylor-Green vortex's box periodic in x and y (examples/taylor_green.py
+// --scheme wcsph).  (The delta-SPH pre-phases are csrc/delta_pair.cu.)
 // One launch computes every pair term of one dest array over all of its
 // sources (at most 4), and writes each output once.
 //
@@ -50,11 +51,12 @@ using wcsph::Dest;
 
 // 8 blocks of 128 threads an SM in float (64 registers a thread): the
 // walk waits on its loads, so more warps in flight hide more of it.
-// DELTA: built with the delta-SPH terms (a call whose sources take one);
-// VISC: with kLvisc; PERIODIC: the periodic walk and the minimum image.
-// Each flag is a template parameter, so that the kernels built without
-// it are the code they were before it.
-template <typename T, int KIND, bool DELTA, bool VISC, bool PERIODIC>
+// DELTA: built with kDcont and kDmom (a call whose sources take one);
+// EXTRA: with the kExtra terms (kLvisc, kTens, kSumRho, kLvd, runtime
+// branches on the term mask); PERIODIC: the periodic walk and the minimum
+// image.  Each flag is a template parameter, so that the kernels built
+// without it are the code they were before it.
+template <typename T, int KIND, bool DELTA, bool EXTRA, bool PERIODIC>
 __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
     wcsph_pair_kernel(const WcsphArgs a) {
   // every lane stays to the end: the walk's votes take the whole warp
@@ -64,7 +66,7 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
   const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
 
   Dest<T> d{};
-  if (active) d.template load<DELTA, VISC>(a, i, wcsph::dest_terms(a));
+  if (active) d.template load<DELTA, EXTRA>(a, i, wcsph::dest_terms(a));
   const T rs = T(a.radius_scale), kfac = T(a.kfac);
   const walk::Box<T> box = wcsph::box_of<T>(a);
 
@@ -75,64 +77,57 @@ __global__ void __launch_bounds__(128, sizeof(T) == 4 ? 8 : 4)
     const int terms = S.terms;
     const bool thermo =
         terms & (kMom | kXsph | (DELTA ? kDcont | kDmom : 0) |
-                 (VISC ? kLvisc : 0));
+                 (EXTRA ? kLvisc | kLvd : 0));
     const bool grad = DELTA && (terms & kDcont);
     const T c0 = T(S.c0), alpha = T(S.alpha), beta = T(S.beta);
     const T xeps = T(S.xsph_eps);
     const wcsph::DeltaConsts<T> dc = wcsph::delta_consts<T>(S);
-    const wcsph::ViscConsts<T> vc = wcsph::visc_consts<T>(S);
+    const wcsph::ExtraConsts<T> ec = wcsph::extra_consts<T>(a, S);
     auto body = [&](int k) {
       Cand<T> c;
       c.pos = wcsph::rec<T>(S.pos, k);
       c.vel = wcsph::rec<T>(S.vel, k);
       c.th = thermo ? wcsph::rec<T>(S.thermo, k) : wcsph::Rec<T>{};
       c.gr = grad ? wcsph::rec<T>(S.grad, k) : wcsph::Rec<T>{};
-      d.template pair<KIND, DELTA, VISC, PERIODIC>(
-          c, k, terms, c0, alpha, beta, xeps, rs, kfac, a.dim, dc, vc, box);
+      d.template pair<KIND, DELTA, EXTRA, PERIODIC>(
+          c, k, terms, c0, alpha, beta, xeps, rs, kfac, a.dim, dc, ec, box);
     };
     wcsph::walk_rows<PERIODIC>(a, S, l, 1, d, rs, walker, body);
     walker.finish(body);
   }
-  if (active) d.store(a, i);
+  if (active) d.template store<EXTRA>(a, i);
 }
 
-template <typename T, int KIND, bool DELTA, bool VISC>
+template <typename T, int KIND, bool DELTA, bool EXTRA>
 cudaError_t launch_kind(const WcsphArgs& a, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (a.n_dest + threads - 1) / threads;
   if (a.periodic)
-    wcsph_pair_kernel<T, KIND, DELTA, VISC, true>
+    wcsph_pair_kernel<T, KIND, DELTA, EXTRA, true>
         <<<blocks, threads, 0, stream>>>(a);
   else
-    wcsph_pair_kernel<T, KIND, DELTA, VISC, false>
+    wcsph_pair_kernel<T, KIND, DELTA, EXTRA, false>
         <<<blocks, threads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool DELTA, bool VISC>
+template <typename T, bool DELTA, bool EXTRA>
 cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
-  switch (a.kernel_kind) {
-    case 0:
-      return launch_kind<T, 0, DELTA, VISC>(a, stream);
-    case 1:
-      return launch_kind<T, 1, DELTA, VISC>(a, stream);
-    case 2:
-      return launch_kind<T, 2, DELTA, VISC>(a, stream);
-    default:
-      return launch_kind<T, 3, DELTA, VISC>(a, stream);
-  }
+  return shapes::with_kind(a.kernel_kind, [&](auto kind) {
+    return launch_kind<T, decltype(kind)::value, DELTA, EXTRA>(a, stream);
+  });
 }
 
 template <typename T>
 cudaError_t launch(const WcsphArgs& a, cudaStream_t stream) {
   int terms = 0;
   for (int s = 0; s < a.n_src; ++s) terms |= a.src[s].terms;
-  const bool delta = terms & (kDcont | kDmom), visc = terms & kLvisc;
+  const bool delta = terms & (kDcont | kDmom), extra = terms & kExtra;
   if (delta)
-    return visc ? launch<T, true, true>(a, stream)
-                : launch<T, true, false>(a, stream);
-  return visc ? launch<T, false, true>(a, stream)
-              : launch<T, false, false>(a, stream);
+    return extra ? launch<T, true, true>(a, stream)
+                 : launch<T, true, false>(a, stream);
+  return extra ? launch<T, false, true>(a, stream)
+               : launch<T, false, false>(a, stream);
 }
 
 }  // namespace
@@ -143,7 +138,8 @@ int wcsph_pair_args_size() { return static_cast<int>(sizeof(WcsphArgs)); }
 
 int wcsph_pair_launch(const WcsphArgs* args, void* stream) {
   const WcsphArgs a = *args;
-  if (!wcsph::args_ok(a) || a.dorder == nullptr || a.cell == nullptr)
+  if (!wcsph::args_ok(a) || !shapes::built_kind(a.kernel_kind) ||
+      a.dorder == nullptr || a.cell == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -2,12 +2,17 @@
 // and csrc/pair_stub.cu.
 //
 // The two pair kernels compute the same contract (ops/wcsph_pair.py): the
-// ContinuityEquation, the non-tensile MomentumEquation (artificial
-// viscosity and the dt_cfl max), XSPHCorrection, LaminarViscosity and, in
-// wcsph_pair only, the two delta-SPH terms (ContinuityEquationDeltaSPH,
-// MomentumEquationDeltaSPH) of one dest array over at most kMaxSources
+// ContinuityEquation, the MomentumEquation (artificial viscosity and the
+// dt_cfl max, with or without the tensile correction), XSPHCorrection,
+// LaminarViscosity, SummationDensity and, in wcsph_pair only, the three
+// delta-SPH terms (ContinuityEquationDeltaSPH, MomentumEquationDeltaSPH,
+// LaminarViscosityDeltaSPH) of one dest array over at most kMaxSources
 // sources, each output written once as pre + sum (max(pre, m) for
-// dt_cfl) under the write mask, on an open or a periodic grid.  They
+// dt_cfl) under the write mask, on an open or a periodic grid.
+//
+// The terms the dam breaks' main path does not take (kLvisc, kTens,
+// kSumRho, kLvd) are compiled only into the kernels built with the
+// template flag EXTRA, so that those without it are the code they were.  They
 // differ only in how a dest reaches its source particles
 // (csrc/cell_walk.cuh), so everything else lives here: the argument
 // struct, the packed source records and the per-pair body (the shape
@@ -24,8 +29,8 @@
 //   plane 2: rho p cs 0
 //   plane 3: gradrho[0] gradrho[1] gradrho[2] 0
 // the third only where the term mask reads rho (p and cs 0 where it reads
-// neither: kLvisc reads rho alone), the fourth only where it holds
-// kDcont.  The dest's gradrho,
+// neither: kLvisc and kLvd read rho alone), the fourth only where it holds
+// kDcont; kSumRho reads the first two.  The dest's gradrho,
 // an (n, 3) array, is read from its row.
 
 #pragma once
@@ -42,10 +47,12 @@
 // functions internal linkage.
 constexpr int kMaxSources = 4;
 constexpr int kCont = 1, kMom = 2, kXsph = 4, kDcont = 8, kDmom = 16,
-              kLvisc = 32;
+              kLvisc = 32, kTens = 64, kSumRho = 128, kLvd = 256;
+// the terms of the kernels built with EXTRA
+constexpr int kExtra = kLvisc | kTens | kSumRho | kLvd;
 // outputs in the order of ops/wcsph_pair.py OUTPUTS: arho, au, av, aw,
-// ax, ay, az, dt_cfl
-constexpr int kDtCfl = 7, kNumOut = 8;
+// ax, ay, az, dt_cfl, rho (the last only in the kernels built with EXTRA)
+constexpr int kDtCfl = 7, kRho = 8, kNumOut = 9;
 
 struct SrcArgs {
   // the packed copy: record k holds particle order[k], the source's
@@ -57,8 +64,9 @@ struct SrcArgs {
   const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double c0, alpha, beta, xsph_eps;
-  // kDcont: delta, its c0; kDmom: alpha, c0, rho0; kLvisc: nu, eta
-  double delta, delta_c0, dmom_alpha, dmom_c0, rho0, nu, eta;
+  // kDcont: delta, its c0; kDmom: alpha, c0, rho0; kLvisc: nu, eta; kLvd:
+  // 2 (dim + 2) nu rho0
+  double delta, delta_c0, dmom_alpha, dmom_c0, rho0, nu, eta, lvd_fac;
   int32_t terms, pad;
 };
 
@@ -72,7 +80,8 @@ struct WcsphArgs {
   const void* pre[kNumOut];  // values before the phase; null: unused
   void* out[kNumOut];
   SrcArgs src[kMaxSources];
-  double radius_scale, kfac;  // kfac: the kernel's sigma
+  // kfac: the kernel's sigma; wdp: w(deltap), unnormalised (kTens)
+  double radius_scale, kfac, wdp;
   double box[3];  // the length of each periodic axis, 0 on the others
   int32_t n_dest, n_src, nx, ny, nz, dim, kernel_kind, dtype, periodic;
   // the pack that fills the sources' pos, vel and thermo: the launch
@@ -87,7 +96,7 @@ __device__ __forceinline__ T ld(const void* p, int i) {
   return static_cast<const T*>(p)[i];
 }
 
-// The shape functions, by KERNEL_KIND (csrc/shapes.cuh).
+// The shape functions, by kernel_kind (csrc/shapes.cuh).
 using shapes::shape;
 
 using walk::Rec;
@@ -126,15 +135,18 @@ __device__ __forceinline__ DeltaConsts<T> delta_consts(const SrcArgs& S) {
           T(S.rho0)};
 }
 
-// LaminarViscosity's constants of one source, in the working type.
+// The constants of one source's EXTRA terms, in the working type:
+// LaminarViscosity's, LaminarViscosityDeltaSPH's and the tensile
+// correction's w(deltap).
 template <typename T>
-struct ViscConsts {
-  T nu, eta;
+struct ExtraConsts {
+  T nu, eta, lvd_fac, wdp;
 };
 
 template <typename T>
-__device__ __forceinline__ ViscConsts<T> visc_consts(const SrcArgs& S) {
-  return {T(S.nu), T(S.eta)};
+__device__ __forceinline__ ExtraConsts<T> extra_consts(const WcsphArgs& a,
+                                                       const SrcArgs& S) {
+  return {T(S.nu), T(S.eta), T(S.lvd_fac), T(a.wdp)};
 }
 
 // The box of the arguments' periodic axes (walk::Box), in the working
@@ -148,16 +160,17 @@ __device__ __forceinline__ walk::Box<T> box_of(const WcsphArgs& a) {
 template <typename T>
 struct Dest {
   T xi, yi, zi, ui, vi, wi, hi, rhoi, pi, csi, rhoi21, gxi, gyi, gzi;
-  T arho, au, av, aw, ax, ay, az, cfl;
+  T arho, au, av, aw, ax, ay, az, cfl, rho;
 
-  // dterms: the union of the sources' term masks; DELTA, VISC: whether
-  // they may hold the delta-SPH terms, kLvisc (a kernel without them is
-  // built apart, so that their registers cost the other paths nothing)
-  template <bool DELTA = false, bool VISC = false>
+  // dterms: the union of the sources' term masks; DELTA, EXTRA: whether
+  // they may hold the delta-SPH terms, the kExtra terms (a kernel without
+  // them is built apart, so that their registers cost the other paths
+  // nothing)
+  template <bool DELTA = false, bool EXTRA = false>
   __device__ void load(const WcsphArgs& a, int i, int dterms) {
     const bool need_rho =
         dterms & (kMom | kXsph | (DELTA ? kDcont | kDmom : 0) |
-                  (VISC ? kLvisc : 0));
+                  (EXTRA ? kLvisc | kLvd : 0));
     const bool dcont = DELTA && (dterms & kDcont);
     const bool mom = dterms & kMom;
     xi = ld<T>(a.x, i);
@@ -174,23 +187,23 @@ struct Dest {
     gxi = dcont ? ld<T>(a.gradrho, 3 * i) : T(0);
     gyi = dcont ? ld<T>(a.gradrho, 3 * i + 1) : T(0);
     gzi = dcont ? ld<T>(a.gradrho, 3 * i + 2) : T(0);
-    arho = au = av = aw = ax = ay = az = T(0);
+    arho = au = av = aw = ax = ay = az = rho = T(0);
     cfl = mom ? ld<T>(a.pre[kDtCfl], i) : T(0);
   }
 
   // The pair (this dest, source particle j), with the support test
   // r2 < (rs max(hi, hj))^2 and the guards of the torch pair engine.
   // dc: the delta-SPH terms' constants (read only with kDcont, kDmom,
-  // in a kernel built with DELTA); vc: kLvisc's (a kernel built with
-  // VISC); box: the periodic axes' lengths (a kernel built with
+  // in a kernel built with DELTA); ec: the kExtra terms' (a kernel built
+  // with EXTRA); box: the periodic axes' lengths (a kernel built with
   // PERIODIC, which takes the minimum image of each displacement).
-  template <int KIND, bool DELTA = false, bool VISC = false,
+  template <int KIND, bool DELTA = false, bool EXTRA = false,
             bool PERIODIC = false, class Src>
   __device__ __forceinline__ void pair(const Src& s, int j, int terms,
                                        T c0, T alpha, T beta, T xeps, T rs,
                                        T kfac, int dim,
                                        const DeltaConsts<T>& dc = {},
-                                       const ViscConsts<T>& vc = {},
+                                       const ExtraConsts<T>& ec = {},
                                        const walk::Box<T>& box = {}) {
     T xij = xi - s.x(j);
     T yij = yi - s.y(j);
@@ -222,6 +235,8 @@ struct Dest {
     const T dwx = g * xij, dwy = g * yij, dwz = g * zij;
 
     if (terms & kCont) arho += mj * (dwx * uij + dwy * vij + dwz * wij);
+    // SummationDensity
+    if (EXTRA && (terms & kSumRho)) rho += mj * (wq * fac);
     if (DELTA && (terms & (kDcont | kDmom))) {
       const T rhoj = s.rho(j);
       const T vj = mj / rhoj;
@@ -243,7 +258,16 @@ struct Dest {
         aw += t * dwz;
       }
     }
-    if (terms & (kMom | kXsph | (VISC ? kLvisc : 0))) {
+    if (EXTRA && (terms & kLvd)) {  // LaminarViscosityDeltaSPH
+      const T vj = mj / s.rho(j);
+      const T vdotx = uij * xij + vij * yij + wij * zij;
+      const T piij = vdotx / (r2 + T(0.01) * hij * hij);
+      const T t = ec.lvd_fac * piij * vj / rhoi;
+      au += t * dwx;
+      av += t * dwy;
+      aw += t * dwz;
+    }
+    if (terms & (kMom | kXsph | (EXTRA ? kLvisc : 0))) {
       const T rhoj = s.rho(j);
       const T rhoij = T(0.5) * (rhoi + rhoj);
       const T rhoij1 = T(1) / (rhoij != T(0) ? rhoij : T(1));
@@ -256,16 +280,27 @@ struct Dest {
         const T dtc =
             r2 > T(1e-12) ? fabs(hij * vdotx) * rinv * rinv + c0 : T(0);
         cfl = dtc > cfl ? dtc : cfl;
-        const T tmp = pi * rhoi21 + s.p(j) * (T(1) / (rhoj * rhoj));
+        const T pj = s.p(j);
+        const T tmpj = pj * (T(1) / (rhoj * rhoj));
+        T tmp = pi * rhoi21 + tmpj;
+        if (EXTRA && (terms & kTens)) {  // the tensile correction
+          const T tmpi = pi * rhoi21;
+          T fij = wq / ec.wdp;
+          fij = fij * fij;
+          fij = fij * fij;
+          const T ri = pi > T(0) ? T(0.01) * tmpi : T(0.2) * fabs(tmpi);
+          const T rj = pj > T(0) ? T(0.01) * tmpj : T(0.2) * fabs(tmpj);
+          tmp = tmp + (ri + rj) * fij;
+        }
         const T f = -mj * (tmp + piij);
         au += f * dwx;
         av += f * dwy;
         aw += f * dwz;
       }
-      if (VISC && (terms & kLvisc)) {  // LaminarViscosity
+      if (EXTRA && (terms & kLvisc)) {  // LaminarViscosity
         const T fij = dwx * xij + dwy * yij + dwz * zij;
-        const T t = mj * T(4) * vc.nu * fij /
-                    ((rhoi + rhoj) * (r2 + vc.eta * hij * hij));
+        const T t = mj * T(4) * ec.nu * fij /
+                    ((rhoi + rhoj) * (r2 + ec.eta * hij * hij));
         au += t * uij;
         av += t * vij;
         aw += t * wij;
@@ -283,12 +318,13 @@ struct Dest {
   __device__ Rec<T> point() const { return {xi, yi, zi, hi}; }
 
   // pre + sum (max(pre, m) for dt_cfl) where the write mask is set,
-  // pre elsewhere.
+  // pre elsewhere; rho only in a kernel built with EXTRA.
+  template <bool EXTRA = false>
   __device__ void store(const WcsphArgs& a, int i) const {
     const bool wm = a.wmask == nullptr || a.wmask[i] != 0;
-    const T acc[kNumOut] = {arho, au, av, aw, ax, ay, az, T(0)};
+    const T acc[kNumOut] = {arho, au, av, aw, ax, ay, az, T(0), rho};
 #pragma unroll
-    for (int k = 0; k < kNumOut; ++k) {
+    for (int k = 0; k < (EXTRA ? kNumOut : kRho); ++k) {
       if (a.out[k] == nullptr) continue;
       const T pre = ld<T>(a.pre[k], i);
       const T val = k == kDtCfl ? cfl : pre + acc[k];
@@ -325,7 +361,7 @@ __device__ __forceinline__ int dest_terms(const WcsphArgs& a) {
 // Checks shared by the launch functions.
 inline bool args_ok(const WcsphArgs& a) {
   return a.n_src >= 0 && a.n_src <= kMaxSources && a.nx >= 1 && a.ny >= 1 &&
-         a.nz >= 1 && a.kernel_kind >= 0 && a.kernel_kind <= 3 &&
+         a.nz >= 1 && a.kernel_kind >= 0 && a.kernel_kind < shapes::kKinds &&
          (a.dtype == 0 || a.dtype == 1) && pack::args_ok(a.pack) &&
          (a.pack.n_src == 0 || a.pack.dtype == a.dtype);
 }

@@ -12,6 +12,14 @@ header is rebuilt and an unchanged one is not.  The
 compiler's resource report (``-Xptxas -v``: registers, spills, shared
 memory per kernel) is kept beside the library as ``.log``.
 
+The pair kernels instantiate their templates once a smoothing-kernel
+kind (``base/kernels.py::kernel_kind``, ``csrc/shapes.cuh``).  Their
+default library holds the kinds below ``BASE_KINDS``; each later kind is
+a library of its own, built with ``-DPAIR_KIND=<kind>`` at its first
+launch (``launch`` reads the kind from the argument struct's
+``kernel_kind``), so that a path that runs none of them builds what it
+built before they came.
+
 Needs the CUDA toolkit (``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda``,
 else ``nvcc`` on ``PATH``) and a Hopper card: the code is built for
 ``sm_90a`` only.
@@ -34,6 +42,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: flags of one source only: delta_pair's accept test must round every
 #: operation as the plain torch version does, so no FMA contraction
 EXTRA_FLAGS = {'delta_pair': ('-fmad=false',)}
+#: the kinds of a pair kernel's default library, and the kinds in all
+#: (csrc/shapes.cuh kBaseKinds, kKinds)
+BASE_KINDS = 4
+KINDS = 8
 
 _loaded = {}
 
@@ -135,12 +147,19 @@ def resources(lib):
     return {k: tuple(v) for k, v in found.items()}
 
 
-def load_library(name, args_type):
-    """The built library of ``csrc/<name>.cu`` as a ``ctypes.CDLL`` with
-    its C interface declared, checked against the argument struct
-    ``args_type``."""
-    if name not in _loaded:
-        lib = ctypes.CDLL(str(build(name)))
+def kind_flags(kind):
+    """The flags beside a pair kernel's own of the library that holds
+    the shape ``kind``: none for the default library."""
+    return () if kind < BASE_KINDS else ('-DPAIR_KIND=%d' % kind,)
+
+
+def load_library(name, args_type, extra=()):
+    """The built library of ``csrc/<name>.cu`` (with the flags
+    ``extra``) as a ``ctypes.CDLL`` with its C interface declared,
+    checked against the argument struct ``args_type``."""
+    key = (name,) + tuple(extra)
+    if key not in _loaded:
+        lib = ctypes.CDLL(str(build(name, extra)))
         fn = getattr(lib, name + '_launch')
         fn.argtypes = [ctypes.POINTER(args_type), ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -154,14 +173,17 @@ def load_library(name, args_type):
             raise RuntimeError('%s: argument struct is %d bytes in C and %d '
                                'in Python' % (name, fn(),
                                               ctypes.sizeof(args_type)))
-        _loaded[name] = lib
-    return _loaded[name]
+        _loaded[key] = lib
+    return _loaded[key]
 
 
 def launch(name, args, device):
     """Launch ``csrc/<name>.cu`` with the ctypes struct ``args`` on the
-    current stream of ``device``; raises if CUDA refuses the launch."""
-    lib = load_library(name, type(args))
+    current stream of ``device`` (from the library of its
+    ``kernel_kind``, where it has one); raises if CUDA refuses the
+    launch."""
+    lib = load_library(name, type(args),
+                       kind_flags(getattr(args, 'kernel_kind', 0)))
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, name + '_launch')(ctypes.byref(args), stream)
     if rc != 0:

@@ -21,7 +21,11 @@ corrects two components, as the reference does).  The output, ``m_mat``
 mask and ``pre`` elsewhere.  The two phases are two groups of the
 evaluator (the moment group writes every row, the gradient group only
 real ones), so a step's eval launches ``delta_pair`` twice for each
-fluid.
+fluid.  The grid may be periodic (the Taylor-Green vortex's
+``--delta-sph``): the kernel then walks the wrapped stencil and takes the
+minimum image of every displacement, rounded as the plain version's
+(``csrc/cell_walk.cuh::walk_rows_periodic``, a template flag, so the
+kernel on an open grid keeps the plain walk).
 
 The linked pair.  Where the gradient group follows the moment group
 with the same dest and sources and nothing between them moves ``x y z h
@@ -53,7 +57,7 @@ from typing import NamedTuple
 
 import torch
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND, WCSPH_KINDS
+from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import build, cell_pack, pair_link
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.ops.pair_link import CAPACITY, Handoff
@@ -147,7 +151,7 @@ def accepted_reference(dest, dest_cells, sources, grid, kernel):
         for a in range(0, n, PAIR_CHUNK):
             i, j = grid.neighbor_pairs(dest, dest_cells, src, src_cells,
                                        (a, min(n, a + PAIR_CHUNK)))
-            ctx = PairContext(dest, src, i, j, kernel, None)
+            ctx = PairContext(dest, src, i, j, kernel, None, grid=grid)
             m = [[ctx.dget('m_mat', 9 * d_idx + 3 * r + c)
                   for c in range(ds.dim)] for r in range(ds.dim)]
             _, ok = accept(m, ctx.sym('DWIJ'), ctx.sym('HIJ'), ds.dim,
@@ -217,11 +221,12 @@ class DeltaArgs(ctypes.Structure):
                  ('count', ctypes.c_void_p), ('overflow', ctypes.c_void_p),
                  ('src', _SrcArgs * MAX_SOURCES),
                  ('radius_scale', ctypes.c_double),
-                 ('kfac', ctypes.c_double), ('tol', ctypes.c_double)] +
+                 ('kfac', ctypes.c_double), ('tol', ctypes.c_double),
+                 ('box', ctypes.c_double * 3)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim',
                     'kernel_kind', 'dtype', 'terms', 'mdim', 'mode',
-                    'cap')] +
+                    'cap', 'periodic')] +
                 [('pack', cell_pack.PackArgs)])
 
 
@@ -254,11 +259,9 @@ def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
         raise ValueError('delta_pair: dtype %s' % fdt)
-    if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
+    kind = kernel_kind(kernel)
+    if kind is None:
         raise ValueError('delta_pair: no shape function for %r' % kernel)
-    if grid.is_periodic:
-        raise ValueError('delta_pair: no periodic walk (ROADMAP Queue 1 '
-                         'item 34, the periodic branch of this kernel)')
     first = _check_sources(sources)
     (output,) = outputs_for(first.terms)
     if pre.keys() != {output}:
@@ -318,10 +321,16 @@ def delta_args(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     args.radius_scale = grid.radius_scale
     args.kfac = kernel.fac
     args.tol = first.tol
+    if grid.is_periodic:
+        # the box lengths of the periodic axes, each the dtype's value
+        lengths = grid.box_host(fdt)['lengths']
+        for d, per in enumerate(grid.periodic):
+            args.box[d] = lengths[d] if per else 0.0
+        args.periodic = 1
     args.n_dest, args.n_src = n, len(sources)
     args.nx, args.ny, args.nz = grid.dims
     args.dim = kernel.dim
-    args.kernel_kind = KERNEL_KIND[type(kernel)]
+    args.kernel_kind = kind
     args.dtype = 1 if fdt == torch.float64 else 0
     args.terms = first.terms
     args.mdim = first.dim if first.terms & (MMAT | CORR) else 0

@@ -24,7 +24,7 @@ MOMENTUM        MPG (``MomentumEquationPressureGradient``,  au av aw
 
 Each output is ``pre + sum`` on rows under the write mask and ``pre``
 elsewhere; every read sees the value from before the phase.  Any kernel
-of ``KERNEL_KIND`` (``WendlandQuintic`` on the dam break,
+with a ``kernel_kind`` (``WendlandQuintic`` on the dam break,
 ``QuinticSpline`` on the Taylor-Green vortex).  The grid may be periodic
 (``base/cell_grid.py``): the kernel then walks the wrapped stencil and
 takes the minimum image of every displacement
@@ -46,7 +46,7 @@ from typing import NamedTuple
 
 import torch
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 
@@ -197,7 +197,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
         raise ValueError('gtvf_pair: dtype %s' % fdt)
-    if type(kernel) not in KERNEL_KIND:
+    if kernel_kind(kernel) is None:
         raise ValueError('gtvf_pair: no shape function for %r' % kernel)
     if len(sources) > MAX_SOURCES:
         raise ValueError('gtvf_pair: %d sources' % len(sources))
@@ -252,7 +252,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     args.dim = kernel.dim
     args.phase = phase
     args.dtype = 1 if fdt == torch.float64 else 0
-    args.kernel_kind = KERNEL_KIND[type(kernel)]
+    args.kernel_kind = kernel_kind(kernel)
     if n == 0:
         return out
     build.launch('gtvf_pair', args, dev)

@@ -4,12 +4,13 @@ Four kernels take a dest's pair phases, all its sources in one call:
 
 - ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path, the
   elliptical drop and the Taylor-Green vortex's ``--scheme wcsph``):
-  every equation with sources is ``ContinuityEquation``,
-  ``MomentumEquation`` (non-tensile), ``XSPHCorrection``,
-  ``LaminarViscosity``, ``ContinuityEquationDeltaSPH`` or
-  ``MomentumEquationDeltaSPH``;
+  every equation with sources is ``SummationDensity``,
+  ``ContinuityEquation``, ``MomentumEquation`` (with or without the
+  tensile correction), ``XSPHCorrection``, ``LaminarViscosity``,
+  ``ContinuityEquationDeltaSPH``, ``MomentumEquationDeltaSPH`` or
+  ``LaminarViscosityDeltaSPH``;
 - ``dense_pair`` (``ops/dense_pair.py``): the same phase sets but for the
-  two delta-SPH terms, walked one thread block per dest cell;
+  three delta-SPH terms, walked one thread block per dest cell;
 - ``delta_pair`` (``ops/delta_pair.py``, the delta-SPH pre-phases): every
   source takes ``GradientCorrectionPreStep`` alone, or
   ``GradientCorrection`` then ``ContinuityEquationDeltaSPHPreStep``, or
@@ -29,10 +30,9 @@ Four kernels take a dest's pair phases, all its sources in one call:
   ``MomentumEquationViscosity``, ``MomentumEquationArtificialStress``
   and ``MomentumEquationArtificialViscosity``).
 
-Every kernel takes every kind of ``KERNEL_KIND``.  All but
-``delta_pair`` walk a periodic grid (the wrapped stencil, the minimum
-image); on a periodic grid ``delta_pair``'s planner refuses (ROADMAP
-Queue 1 item 34).
+Every kernel takes every kernel with a ``kernel_kind`` (not the ``_1D``
+ones: ROADMAP Queue 1 item 28), and every kernel walks a periodic grid
+(the wrapped stencil, the minimum image).
 
 For each, each equation appears at most once per source, with at most
 ``MAX_SOURCES`` sources, and no equation reads a property that another
@@ -62,7 +62,7 @@ main group (it reads the strided ``gradrho``) run on the torch engine.
 import logging
 from typing import Callable, NamedTuple, Optional
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND, WCSPH_KINDS
+from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gtvf_pair as _gp
@@ -70,19 +70,28 @@ from pysph_tpu_torch.ops import pair_link as _pl
 from pysph_tpu_torch.ops import tvf_pair as _tp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
 from pysph_tpu_torch.sph.basic_equations import (
-    ContinuityEquation, XSPHCorrection)
+    ContinuityEquation, SummationDensity, XSPHCorrection)
 from pysph_tpu_torch.sph.equation import _method_args
 from pysph_tpu_torch.sph.wc.basic import (
     ContinuityEquationDeltaSPH, ContinuityEquationDeltaSPHPreStep,
     MomentumEquation, MomentumEquationDeltaSPH)
 from pysph_tpu_torch.sph.wc.kernel_correction import (
     GradientCorrection, GradientCorrectionPreStep)
-from pysph_tpu_torch.sph.wc.viscosity import LaminarViscosity
+from pysph_tpu_torch.sph.wc.viscosity import (
+    LaminarViscosity, LaminarViscosityDeltaSPH)
 
-_DENSE_TERMS = {ContinuityEquation: _wp.CONT, MomentumEquation: _wp.MOM,
-                XSPHCorrection: _wp.XSPH, LaminarViscosity: _wp.VISC}
+
+def _momentum_term(eq):
+    return _wp.MOM | (_wp.TENS if eq.tensile_correction else 0)
+
+
+#: the term bits of each equation type, or a function of the equation
+_DENSE_TERMS = {ContinuityEquation: _wp.CONT, MomentumEquation: _momentum_term,
+                XSPHCorrection: _wp.XSPH, LaminarViscosity: _wp.VISC,
+                SummationDensity: _wp.SDEN}
 _WCSPH_TERMS = {**_DENSE_TERMS, ContinuityEquationDeltaSPH: _wp.DCONT,
-                MomentumEquationDeltaSPH: _wp.DMOM}
+                MomentumEquationDeltaSPH: _wp.DMOM,
+                LaminarViscosityDeltaSPH: _wp.LVD}
 #: delta_pair's term masks by the equation types of a source, in order
 _DELTA_SETS = {
     (GradientCorrectionPreStep,): _dl.MMAT,
@@ -95,7 +104,10 @@ _SYM_READS = {'HIJ': ('h',), 'EPS': ('h',), 'RHOIJ': ('rho',),
               'RHOIJ1': ('rho',), 'XIJ': ('x', 'y', 'z'),
               'VIJ': ('u', 'v', 'w'), 'R2IJ': ('x', 'y', 'z'),
               'RINV': ('x', 'y', 'z'), 'RIJ': ('x', 'y', 'z'),
-              'WIJ': ('x', 'y', 'z', 'h'), 'DWIJ': ('x', 'y', 'z', 'h')}
+              **{sym: ('x', 'y', 'z', 'h') for sym in (
+                  'WIJ', 'WI', 'WJ', 'DWIJ', 'DWI', 'DWJ', 'GHIJ', 'GHI',
+                  'GHJ', 'WDASHIJ', 'WDASHI', 'WDASHJ')},
+              'WDP': ('h',)}
 
 
 logger = logging.getLogger(__name__)
@@ -121,6 +133,9 @@ class PairSource(NamedTuple):
     rho0: float = 0.0
     nu: float = 0.0
     eta: float = 0.0
+    lvd_nu: float = 0.0
+    lvd_rho0: float = 0.0
+    lvd_dim: int = 0
 
 
 def _gtvf_terms():
@@ -165,11 +180,14 @@ def _source_terms(sources, term_of, term_outputs, max_sources):
             term = term_of.get(type(eq))
             if term is None:
                 raise PairIneligible('equation %s' % eq.name)
+            if callable(term):
+                term = term(eq)
             if terms & term:
                 raise PairIneligible('%s twice for source %s'
                                      % (eq.name, src))
             terms |= term
-            own = set(term_outputs[term])
+            own = {p for t, ps in term_outputs.items() if term & t
+                   for p in ps}
             for p in own:
                 writes.setdefault(p, set()).add(type(eq))
             reads |= {(p, type(eq)) for p in _reads(eq) - own}
@@ -195,10 +213,16 @@ def _tvf_terms():
             MomentumEquationArtificialViscosity: _tp.AVIS}
 
 
+def _check_kind(kernel):
+    if kernel_kind(kernel) is None:
+        raise PairIneligible('kernel %r has no shape function in the pair '
+                             'kernels (1D kernels: ROADMAP Queue 1 item '
+                             '28)' % kernel)
+
+
 def _plan_wcsph(dest, sources, kernel, op=_wp.wcsph_pair,
                 term_of=_WCSPH_TERMS):
-    if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
-        raise PairIneligible('kernel %r' % kernel)
+    _check_kind(kernel)
     plan_sources = []
     terms = 0
     for src, t, eqs in _source_terms(sources, term_of, _wp.TERM_OUTPUTS,
@@ -216,6 +240,9 @@ def _plan_wcsph(dest, sources, kernel, op=_wp.wcsph_pair,
                               rho0=eq.rho0)
             elif isinstance(eq, LaminarViscosity):
                 params.update(nu=eq.nu, eta=eq.eta)
+            elif isinstance(eq, LaminarViscosityDeltaSPH):
+                params.update(lvd_nu=eq.nu, lvd_rho0=eq.rho0,
+                              lvd_dim=eq.dim)
         plan_sources.append(PairSource(src, t, **params))
         terms |= t
     return PairPlan(dest, plan_sources, kernel, op,
@@ -228,8 +255,7 @@ def _plan_dense(dest, sources, kernel):
 
 
 def _plan_delta(dest, sources, kernel):
-    if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
-        raise PairIneligible('kernel %r' % kernel)
+    _check_kind(kernel)
     if len(sources) > _dl.MAX_SOURCES:
         raise PairIneligible('%d sources (at most %d)'
                              % (len(sources), _dl.MAX_SOURCES))
@@ -250,8 +276,7 @@ def _plan_delta(dest, sources, kernel):
 
 
 def _plan_gtvf(dest, sources, kernel):
-    if type(kernel) not in KERNEL_KIND:
-        raise PairIneligible('kernel %r' % kernel)
+    _check_kind(kernel)
     term_of = _gtvf_terms()
     plan_sources = []
     terms = 0
@@ -272,8 +297,7 @@ def _plan_gtvf(dest, sources, kernel):
 
 
 def _plan_tvf(dest, sources, kernel):
-    if type(kernel) not in KERNEL_KIND:
-        raise PairIneligible('kernel %r' % kernel)
+    _check_kind(kernel)
     term_of = _tvf_terms()
     plan_sources = []
     terms = 0
@@ -297,23 +321,14 @@ def _plan_tvf(dest, sources, kernel):
 
 _PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf),
              'dense': (_plan_dense,)}
-#: the planners whose kernels walk a periodic grid (``delta_pair``'s
-#: periodic branch is ROADMAP Queue 1 item 34's remainder)
-_PERIODIC = (_plan_wcsph, _plan_dense, _plan_gtvf, _plan_tvf)
 
 
-def plan_pair_phases(dest, sources, kernel, engine='kernel',
-                     periodic=False):
+def plan_pair_phases(dest, sources, kernel, engine='kernel'):
     """``sources``: ordered {src name: [equations]}.  Returns the
     ``PairPlan`` of the first of the ``engine``'s kernels that takes
-    them (on a ``periodic`` grid, of those with a periodic walk), or
-    raises ``PairIneligible`` with each kernel's reason."""
+    them, or raises ``PairIneligible`` with each kernel's reason."""
     reasons = []
     for planner in _PLANNERS[engine]:
-        if periodic and planner not in _PERIODIC:
-            reasons.append('%s: no periodic walk (ROADMAP Queue 1 item 34)'
-                           % planner.__name__[6:])
-            continue
         try:
             return planner(dest, sources, kernel)
         except PairIneligible as e:

@@ -18,7 +18,7 @@ MOMENTUM    MPG (``MomentumEquationPressureGradient``),   au av aw
 (the equations of ``sph/wc/transport_velocity.py``).  Each output is
 ``pre + sum`` on rows under the write mask and ``pre`` elsewhere; every
 read sees the value from before the phase.  Any kernel of
-``KERNEL_KIND`` (``QuinticSpline`` on the path).
+``kernel_kind`` (``QuinticSpline`` on the path).
 
 The grid may be periodic (``base/cell_grid.py``): the kernel then walks
 the wrapped stencil and takes the minimum image of every displacement
@@ -57,7 +57,7 @@ from typing import NamedTuple
 
 import torch
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import build, cell_pack, pair_link
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.ops.pair_link import CAPACITY, Handoff
@@ -241,7 +241,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         raise ValueError('tvf_pair: dtype %s' % fdt)
     if len(sources) > MAX_SOURCES:
         raise ValueError('tvf_pair: %d sources' % len(sources))
-    if type(kernel) not in KERNEL_KIND:
+    if kernel_kind(kernel) is None:
         raise ValueError('tvf_pair: no shape function for %r' % kernel)
     terms, phase = _phase(sources)
     _check_mode(phase, emit, handoff, dest, sources)
@@ -323,7 +323,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     args.dim = kernel.dim
     args.phase = phase
     args.dtype = 1 if fdt == torch.float64 else 0
-    args.kernel_kind = KERNEL_KIND[type(kernel)]
+    args.kernel_kind = kernel_kind(kernel)
     if n:
         build.launch('tvf_pair', args, dev)
         tvf_pair.launches += 1

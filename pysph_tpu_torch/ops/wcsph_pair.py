@@ -9,8 +9,15 @@ A per-source term mask selects
   ``MomentumEquation``);
 - ``XSPH``: ``ax, ay, az += -eps m_j WIJ RHOIJ1 VIJ``
   (``XSPHCorrection``);
+- ``TENS`` (with ``MOM``): Monaghan's tensile correction, ``(R_i + R_j)
+  (WIJ / WDP)^4`` added to the pressure terms (``MomentumEquation`` with
+  ``tensile_correction``);
 - ``VISC``: ``au, av, aw += 4 nu m_j (DWIJ.XIJ) VIJ / ((rho_i + rho_j)
   (R2IJ + eta HIJ^2))`` (``LaminarViscosity``, Morris);
+- ``LVD``: ``au, av, aw += 2 (dim + 2) nu rho0 (VIJ.XIJ) / (R2IJ + EPS)
+  V_j / rho_i DWIJ`` (``LaminarViscosityDeltaSPH``);
+- ``SDEN``: ``rho += m_j WIJ`` (``SummationDensity``, a group of its
+  own);
 - ``DCONT``: the delta-SPH diffusion of ``arho``, which reads the
   dest's and the source's ``gradrho`` (``ContinuityEquationDeltaSPH``);
 - ``DMOM``: the delta-SPH viscous term of ``au, av, aw``
@@ -18,7 +25,7 @@ A per-source term mask selects
 
 Each output is ``pre + sum`` (``max(pre, m)`` for ``dt_cfl``) on rows
 under the write mask and ``pre`` elsewhere; every read sees the value
-from before the phase.  Any kernel of ``KERNEL_KIND``.  The grid may be
+from before the phase.  Any kernel with a ``kernel_kind``.  The grid may be
 periodic (``base/cell_grid.py``): the kernel then walks the wrapped
 stencil and takes the minimum image of every displacement
 (``csrc/cell_walk.cuh::walk_rows_periodic``, built as a template flag,
@@ -45,21 +52,25 @@ import functools
 
 import torch
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND, WCSPH_KINDS
+from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.sph.basic_equations import (
-    ContinuityEquation, XSPHCorrection)
+    ContinuityEquation, SummationDensity, XSPHCorrection)
 from pysph_tpu_torch.sph.wc.basic import (
     ContinuityEquationDeltaSPH, MomentumEquation, MomentumEquationDeltaSPH)
-from pysph_tpu_torch.sph.wc.viscosity import LaminarViscosity
+from pysph_tpu_torch.sph.wc.viscosity import (
+    LaminarViscosity, LaminarViscosityDeltaSPH)
 
-CONT, MOM, XSPH, DCONT, DMOM, VISC = 1, 2, 4, 8, 16, 32
+CONT, MOM, XSPH, DCONT, DMOM, VISC, TENS, SDEN, LVD = (
+    1, 2, 4, 8, 16, 32, 64, 128, 256)
 MAX_SOURCES = 4
-OUTPUTS = ('arho', 'au', 'av', 'aw', 'ax', 'ay', 'az', 'dt_cfl')
+OUTPUTS = ('arho', 'au', 'av', 'aw', 'ax', 'ay', 'az', 'dt_cfl', 'rho')
 TERM_OUTPUTS = {CONT: ('arho',), MOM: ('au', 'av', 'aw', 'dt_cfl'),
                 XSPH: ('ax', 'ay', 'az'), DCONT: ('arho',),
-                DMOM: ('au', 'av', 'aw'), VISC: ('au', 'av', 'aw')}
+                DMOM: ('au', 'av', 'aw'), VISC: ('au', 'av', 'aw'),
+                TENS: ('au', 'av', 'aw'), SDEN: ('rho',),
+                LVD: ('au', 'av', 'aw')}
 
 #: the columns of the stride-3 ``gradrho``, as the pack names them
 GRADRHO = tuple(('gradrho', c) for c in range(3))
@@ -67,7 +78,9 @@ GRADRHO = tuple(('gradrho', c) for c in range(3))
 _BASE = ('x', 'y', 'z', 'u', 'v', 'w', 'h')
 _TERM_READS = {CONT: ('m',), MOM: ('m', 'rho', 'p', 'cs'),
                XSPH: ('m', 'rho'), DCONT: ('m', 'rho') + GRADRHO,
-               DMOM: ('m', 'rho'), VISC: ('m', 'rho')}
+               DMOM: ('m', 'rho'), VISC: ('m', 'rho'),
+               TENS: ('m', 'rho', 'p', 'cs'), SDEN: ('m',),
+               LVD: ('m', 'rho')}
 _DEST_PROPS = ('x', 'y', 'z', 'u', 'v', 'w', 'h', 'rho', 'p', 'cs',
                'gradrho')
 
@@ -103,9 +116,13 @@ def _equations(ps):
     eqs = []
     if ps.terms & CONT:
         eqs.append(ContinuityEquation('dest', [ps.name]))
+    if ps.terms & SDEN:
+        eqs.append(SummationDensity('dest', [ps.name]))
     if ps.terms & MOM:
         eqs.append(MomentumEquation('dest', [ps.name], c0=ps.c0,
-                                    alpha=ps.alpha, beta=ps.beta))
+                                    alpha=ps.alpha, beta=ps.beta,
+                                    tensile_correction=bool(
+                                        ps.terms & TENS)))
     if ps.terms & XSPH:
         eqs.append(XSPHCorrection('dest', [ps.name], eps=ps.eps))
     if ps.terms & DCONT:
@@ -119,7 +136,20 @@ def _equations(ps):
     if ps.terms & VISC:
         eqs.append(LaminarViscosity('dest', [ps.name], nu=ps.nu,
                                     eta=ps.eta))
+    if ps.terms & LVD:
+        eqs.append(LaminarViscosityDeltaSPH('dest', [ps.name],
+                                            dim=ps.lvd_dim,
+                                            rho0=ps.lvd_rho0, nu=ps.lvd_nu))
     return eqs
+
+
+@functools.lru_cache(maxsize=None)
+def _w_deltap(cls, dim):
+    """w(deltap) of the kernel ``cls(dim)``, unnormalised, in float64:
+    the tensile correction's WIJ / WDP is w(q) / w(deltap)."""
+    kernel = cls(dim=dim)
+    return float(kernel._shape(torch.tensor(kernel.get_deltap(),
+                                            dtype=torch.float64))[0])
 
 
 def wcsph_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
@@ -179,7 +209,8 @@ class _SrcArgs(ctypes.Structure):
                  ('cell_end', ctypes.c_void_p)] +
                 [(k, ctypes.c_double) for k in (
                     'c0', 'alpha', 'beta', 'xsph_eps', 'delta', 'delta_c0',
-                    'dmom_alpha', 'dmom_c0', 'rho0', 'nu', 'eta')] +
+                    'dmom_alpha', 'dmom_c0', 'rho0', 'nu', 'eta',
+                    'lvd_fac')] +
                 [('terms', ctypes.c_int32), ('pad', ctypes.c_int32)])
 
 
@@ -192,7 +223,7 @@ class WcsphArgs(ctypes.Structure):
                  ('out', ctypes.c_void_p * len(OUTPUTS)),
                  ('src', _SrcArgs * MAX_SOURCES),
                  ('radius_scale', ctypes.c_double),
-                 ('kfac', ctypes.c_double),
+                 ('kfac', ctypes.c_double), ('wdp', ctypes.c_double),
                  ('box', ctypes.c_double * 3)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim',
@@ -215,7 +246,8 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
         raise ValueError('%s: dtype %s' % (name, fdt))
     if len(sources) > MAX_SOURCES:
         raise ValueError('%s: %d sources' % (name, len(sources)))
-    if KERNEL_KIND.get(type(kernel)) not in WCSPH_KINDS:
+    kind = kernel_kind(kernel)
+    if kind is None:
         raise ValueError('%s: no shape function for %r' % (name, kernel))
     i32 = torch.int32
     args = WcsphArgs()
@@ -242,6 +274,8 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
         sa.dmom_alpha, sa.dmom_c0, sa.rho0 = (ps.dmom_alpha, ps.dmom_c0,
                                               ps.rho0)
         sa.nu, sa.eta = ps.nu, ps.eta
+        # LaminarViscosityDeltaSPH's constant, as its loop multiplies it
+        sa.lvd_fac = 2 * (ps.lvd_dim + 2) * ps.lvd_nu * ps.lvd_rho0
         sa.terms = ps.terms
     for p in _reads(terms, with_mass=False):
         if p in GRADRHO:
@@ -269,6 +303,8 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
             args.out[k] = out[p].data_ptr()
     args.radius_scale = grid.radius_scale
     args.kfac = kernel.fac
+    if terms & TENS:
+        args.wdp = _w_deltap(type(kernel), kernel.dim)
     if grid.is_periodic:
         # the box lengths of the periodic axes, each the dtype's value
         lengths = grid.box_host(fdt)['lengths']
@@ -278,7 +314,7 @@ def pair_args(name, dest, dest_cells, write_mask, pre, sources, grid,
     args.n_dest, args.n_src = n, len(sources)
     args.nx, args.ny, args.nz = grid.dims
     args.dim = kernel.dim
-    args.kernel_kind = KERNEL_KIND[type(kernel)]
+    args.kernel_kind = kind
     args.dtype = 1 if fdt == torch.float64 else 0
     return args, out, buf
 

@@ -26,8 +26,7 @@ from pysph_tpu_torch.solver.utils import get_files
 
 logger = logging.getLogger(__name__)
 
-#: the ``--kernel`` choices of the JAX package; the ones ``base/kernels.py``
-#: lacks raise ``NotImplementedError``
+#: the ``--kernel`` choices of the JAX package (all in ``base/kernels.py``)
 KERNELS = ('CubicSpline', 'Gaussian', 'QuinticSpline', 'SuperGaussian',
            'WendlandQuintic', 'WendlandQuinticC2_1D', 'WendlandQuinticC4',
            'WendlandQuinticC4_1D', 'WendlandQuinticC6',
@@ -226,12 +225,7 @@ class Application(object):
         if o.kernel is not None:
             # the solver sizes its CellGrid with this kernel's
             # radius_scale
-            cls = getattr(_kernels, o.kernel, None)
-            if cls is None:
-                raise NotImplementedError(
-                    'the %s kernel is not ported yet (ROADMAP Queue 1 item '
-                    '19)' % o.kernel)
-            solver.kernel = cls(dim=solver.dim)
+            solver.kernel = getattr(_kernels, o.kernel)(dim=solver.dim)
         if o.time_step is not None:
             solver.dt = o.time_step
         if o.final_time is not None:

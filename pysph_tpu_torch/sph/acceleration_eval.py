@@ -66,7 +66,8 @@ class PairContext(object):
     every symbol built from it) its minimum image."""
 
     SYMBOLS = ('HIJ', 'EPS', 'RHOIJ', 'RHOIJ1', 'XIJ', 'VIJ', 'R2IJ',
-               'RIJ', 'RINV', 'WIJ', 'DWIJ')
+               'RIJ', 'RINV', 'WIJ', 'WI', 'WJ', 'DWIJ', 'DWI', 'DWJ',
+               'GHI', 'GHJ', 'GHIJ', 'WDASHI', 'WDASHJ', 'WDASHIJ', 'WDP')
 
     def __init__(self, dest, src, i, j, kernel, write_mask, w=None,
                  grid=None):
@@ -139,29 +140,86 @@ class PairContext(object):
     def _c_rij(self):
         return self.sym('R2IJ') * self.sym('RINV')
 
-    def _kparts(self):
-        """(h1, w, dw, fac) at HIJ: one reciprocal and one shape
-        evaluation shared by WIJ and DWIJ."""
-        if '_KP' not in self._sym:
-            hij = self.sym('HIJ')
-            h1 = 1.0 / torch.where(hij > 0.0, hij, 1.0)
-            w, dw = self.kernel._shape(self.sym('RIJ') * h1)
+    def _kparts(self, kind='ij'):
+        """(h1, q, w, dw, fac) at the smoothing length of ``kind`` ('ij':
+        HIJ, 'i': the dest's h, 'j': the source's): one reciprocal and
+        one shape evaluation shared by the symbols of that h."""
+        key = '_KP_' + kind
+        if key not in self._sym:
+            h = self.sym('HIJ') if kind == 'ij' else \
+                self.dget('h') if kind == 'i' else self.sget('h')
+            h1 = 1.0 / torch.where(h > 0.0, h, 1.0)
+            q = self.sym('RIJ') * h1
+            w, dw = self.kernel._shape(q)
             dim = self.kernel.dim
             fac = self.kernel.fac * (h1 if dim == 1 else h1 * h1
                                      if dim == 2 else h1 * h1 * h1)
-            self._sym['_KP'] = (h1, w, dw, fac)
-        return self._sym['_KP']
+            self._sym[key] = (h1, q, w, dw, fac)
+        return self._sym[key]
 
-    def _c_wij(self):
-        _h1, w, _dw, fac = self._kparts()
+    def _w(self, kind):
+        _h1, _q, w, _dw, fac = self._kparts(kind)
         return w * fac
 
-    def _c_dwij(self):
-        h1, _w, dw, fac = self._kparts()
+    def _grad(self, kind):
+        h1, _q, _w, dw, fac = self._kparts(kind)
         xij = self.sym('XIJ')
         tmp = torch.where(self.sym('RIJ') > 1e-12,
                           dw * fac * h1 * self.sym('RINV'), 0.0)
         return SymVec([tmp * xij[0], tmp * xij[1], tmp * xij[2]])
+
+    def _gradh(self, kind):
+        h1, q, w, dw, fac = self._kparts(kind)
+        return -fac * h1 * (dw * q + w * self.kernel.dim)
+
+    def _wdash(self, kind):
+        _h1, _q, _w, dw, fac = self._kparts(kind)
+        return dw * fac
+
+    def _c_wij(self):
+        return self._w('ij')
+
+    def _c_wi(self):
+        return self._w('i')
+
+    def _c_wj(self):
+        return self._w('j')
+
+    def _c_dwij(self):
+        return self._grad('ij')
+
+    def _c_dwi(self):
+        return self._grad('i')
+
+    def _c_dwj(self):
+        return self._grad('j')
+
+    def _c_ghij(self):
+        return self._gradh('ij')
+
+    def _c_ghi(self):
+        return self._gradh('i')
+
+    def _c_ghj(self):
+        return self._gradh('j')
+
+    def _c_wdashij(self):
+        return self._wdash('ij')
+
+    def _c_wdashi(self):
+        return self._wdash('i')
+
+    def _c_wdashj(self):
+        return self._wdash('j')
+
+    def _c_wdp(self):
+        # W at rij = deltap HIJ: q = deltap, so only fac is per pair; w at
+        # deltap is taken on the host in the working dtype (nothing is
+        # copied to the card, so that a chunk's capture takes it)
+        fac = self._kparts('ij')[4]
+        w_dp, _ = self.kernel._shape(torch.tensor(self.kernel.get_deltap(),
+                                                  dtype=fac.dtype))
+        return fac * float(w_dp)
 
 
 def _bind_particle_phase(method, store, write_mask, t, dt, consts=(),
@@ -355,8 +413,7 @@ class AccelerationEval(object):
                 if engine != 'torch':
                     try:
                         plan = plan_pair_phases(dest, sources, self.kernel,
-                                                engine,
-                                                self.grid.is_periodic)
+                                                engine)
                     except PairIneligible as e:
                         logger.info('torch pair engine for %s <- %s: %s',
                                     dest, list(sources), e)

@@ -4,6 +4,16 @@
 from pysph_tpu_torch.sph.equation import Equation
 
 
+class SummationDensity(Equation):
+    """rho_a = sum_b m_b W_ab."""
+
+    def initialize(self, d_idx, d_rho):
+        d_rho[d_idx] = 0.0
+
+    def loop(self, d_idx, d_rho, s_idx, s_m, WIJ):
+        d_rho[d_idx] += s_m[s_idx] * WIJ
+
+
 class ContinuityEquation(Equation):
     """drho_a/dt = sum_b m_b v_ab . grad W_ab."""
 

@@ -361,7 +361,7 @@ class WCSPHScheme(Scheme):
         without ``dim``, so it corrects two components in 3D as the
         reference does."""
         from pysph_tpu_torch.sph.basic_equations import (
-            ContinuityEquation, XSPHCorrection)
+            ContinuityEquation, SummationDensity, XSPHCorrection)
         from pysph_tpu_torch.sph.equation import Group
         from pysph_tpu_torch.sph.wc.basic import (
             ContinuityEquationDeltaSPH, ContinuityEquationDeltaSPHPreStep,
@@ -371,15 +371,19 @@ class WCSPHScheme(Scheme):
             GradientCorrection, GradientCorrectionPreStep)
         from pysph_tpu_torch.sph.wc.viscosity import (
             LaminarViscosity, LaminarViscosityDeltaSPH)
-        for flag, item in ((self.summation_density, 'summation density: '
-                            'ROADMAP Queue 1 item 19'),
-                           (self.update_h, 'update_h: ROADMAP Queue 1 '
-                            'item 28')):
-            if flag:
-                raise NotImplementedError('%s is not ported yet' % item)
+        if self.update_h:
+            raise NotImplementedError('update_h is not ported yet (ROADMAP '
+                                      'Queue 1 item 28)')
 
         equations = []
         all = self.fluids + self.solids
+        summation = self.summation_density
+        delta_sph = self.delta_sph and not summation
+
+        if summation:
+            equations.append(Group(equations=[
+                SummationDensity(dest=name, sources=all)
+                for name in self.fluids], real=False))
 
         g1 = []
         for name in self.fluids:
@@ -391,7 +395,7 @@ class WCSPHScheme(Scheme):
                           c0=self.c0, gamma=self.gamma))
         equations.append(Group(equations=g1, real=False))
 
-        if self.delta_sph:
+        if delta_sph:
             equations.append(Group(equations=[
                 GradientCorrectionPreStep(dest=name, sources=[name],
                                           dim=self.dim)
@@ -408,8 +412,9 @@ class WCSPHScheme(Scheme):
         for name in self.solids:
             g2.append(ContinuityEquation(dest=name, sources=self.fluids))
         for name in self.fluids:
-            g2.append(ContinuityEquation(dest=name, sources=all))
-            if self.delta_sph:
+            if not summation:
+                g2.append(ContinuityEquation(dest=name, sources=all))
+            if delta_sph:
                 g2.append(ContinuityEquationDeltaSPH(
                     dest=name, sources=[name], c0=self.c0,
                     delta=self.delta))

@@ -51,16 +51,13 @@ class TaitEOSHGCorrection(Equation):
 
 
 class MomentumEquation(Equation):
-    """Monaghan momentum equation with artificial viscosity; also
-    accumulates the per-particle CFL/force timestep factors
+    """Monaghan momentum equation with artificial viscosity and, with
+    ``tensile_correction``, Monaghan's tensile instability correction;
+    also accumulates the per-particle CFL/force timestep factors
     dt_cfl/dt_force."""
 
     def __init__(self, dest, sources, c0, alpha=1.0, beta=1.0, gx=0.0,
                  gy=0.0, gz=0.0, tensile_correction=False):
-        if tensile_correction:
-            raise NotImplementedError(
-                'the tensile-correction branch of MomentumEquation is not '
-                'ported yet (ROADMAP Queue 1, main-path equations)')
         self.alpha = alpha
         self.beta = beta
         self.gx = gx
@@ -69,6 +66,9 @@ class MomentumEquation(Equation):
         self.c0 = c0
         self.tensile_correction = tensile_correction
         super(MomentumEquation, self).__init__(dest, sources)
+        # the correction reads WIJ and WDP: only its loop asks for them
+        if tensile_correction:
+            self.loop = self._loop_tensile
 
     def initialize(self, d_idx, d_au, d_av, d_aw, d_dt_cfl):
         d_au[d_idx] = 0.0
@@ -76,9 +76,10 @@ class MomentumEquation(Equation):
         d_aw[d_idx] = 0.0
         d_dt_cfl[d_idx] = 0.0
 
-    def loop(self, d_idx, s_idx, d_rho, d_cs, d_p, d_au, d_av, d_aw,
-             s_m, s_rho, s_cs, s_p, VIJ, XIJ, HIJ, R2IJ, RHOIJ1, RINV,
-             EPS, DWIJ, d_dt_cfl):
+    def _core(self, d_idx, s_idx, d_rho, d_cs, d_p, s_rho, s_cs, s_p,
+              VIJ, XIJ, HIJ, R2IJ, RHOIJ1, RINV, EPS, d_dt_cfl):
+        """The pressure terms and the artificial viscosity: returns
+        (p_i / rho_i^2, p_j / rho_j^2, piij)."""
         rhoi21 = 1.0 / (d_rho[d_idx] * d_rho[d_idx])
         rhoj21 = 1.0 / (s_rho[s_idx] * s_rho[s_idx])
 
@@ -97,7 +98,32 @@ class MomentumEquation(Equation):
             torch.abs(HIJ * vijdotxij) * RINV * RINV + self.c0, 0.0)
         d_dt_cfl[d_idx] = MAX(_dt_cfl, d_dt_cfl[d_idx])
 
-        tmp = d_p[d_idx] * rhoi21 + s_p[s_idx] * rhoj21
+        return d_p[d_idx] * rhoi21, s_p[s_idx] * rhoj21, piij
+
+    def loop(self, d_idx, s_idx, d_rho, d_cs, d_p, d_au, d_av, d_aw,
+             s_m, s_rho, s_cs, s_p, VIJ, XIJ, HIJ, R2IJ, RHOIJ1, RINV,
+             EPS, DWIJ, d_dt_cfl):
+        tmpi, tmpj, piij = self._core(
+            d_idx, s_idx, d_rho, d_cs, d_p, s_rho, s_cs, s_p, VIJ, XIJ,
+            HIJ, R2IJ, RHOIJ1, RINV, EPS, d_dt_cfl)
+        tmp = tmpi + tmpj
+        d_au[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[0]
+        d_av[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[1]
+        d_aw[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[2]
+
+    def _loop_tensile(self, d_idx, s_idx, d_rho, d_cs, d_p, d_au, d_av,
+                      d_aw, s_m, s_rho, s_cs, s_p, VIJ, XIJ, HIJ, R2IJ,
+                      RHOIJ1, RINV, EPS, DWIJ, WIJ, WDP, d_dt_cfl):
+        tmpi, tmpj, piij = self._core(
+            d_idx, s_idx, d_rho, d_cs, d_p, s_rho, s_cs, s_p, VIJ, XIJ,
+            HIJ, R2IJ, RHOIJ1, RINV, EPS, d_dt_cfl)
+        fij = WIJ / WDP
+        fij = fij * fij
+        fij = fij * fij
+        Ri = torch.where(d_p[d_idx] > 0, 0.01 * tmpi, 0.2 * torch.abs(tmpi))
+        Rj = torch.where(s_p[s_idx] > 0, 0.01 * tmpj, 0.2 * torch.abs(tmpj))
+
+        tmp = (tmpi + tmpj) + (Ri + Rj) * fij
         d_au[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[0]
         d_av[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[1]
         d_aw[d_idx] += -s_m[s_idx] * (tmp + piij) * DWIJ[2]

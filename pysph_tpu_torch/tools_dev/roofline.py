@@ -32,7 +32,7 @@ card; only a time divided by a bound is a device number.
 
 import torch
 
-from pysph_tpu_torch.base.kernels import KERNEL_KIND
+from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import cell_walk
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import gtvf_pair as gp
@@ -48,17 +48,20 @@ I32 = 4
 #: square, compare (cell_walk.cuh:88-97)
 SUPPORT_FLOPS = 12
 #: per pair in support, before the terms: uij vij wij, hij, rinv, rij,
-#: h1, q, fac, g, DWIJ (wcsph_terms.cuh:195-222), and the shape function
-#: by kernel kind (WendlandQuintic, CubicSpline, Gaussian, QuinticSpline
-#: (its three branches at q <= 1); shapes.cuh)
+#: h1, q, fac, g, DWIJ (wcsph_terms.cuh), and the shape function by
+#: kernel kind (WendlandQuintic, CubicSpline, Gaussian, QuinticSpline (its
+#: three branches at q <= 1), WendlandQuinticC4, WendlandQuinticC6,
+#: SuperGaussian in 2D and 3D; shapes.cuh)
 WCSPH_PAIR_FLOPS = 22
-SHAPE_FLOPS = (12, 9, 6, 22)
-#: per term and pair in support (wcsph_terms.cuh:224-278); MOM, XSPH and
-#: VISC share rhoij and rhoij1 (4), DCONT and DMOM V_j and EPS (3); on a
-#: periodic grid the minimum image (IMAGE_FLOPS a periodic axis) in every
-#: support test and in the body
+SHAPE_FLOPS = (12, 9, 6, 22, 17, 22, 10, 10)
+#: per term and pair in support (wcsph_terms.cuh); MOM, XSPH and VISC
+#: share rhoij and rhoij1 (4), DCONT, DMOM and LVD V_j and EPS (3); TENS
+#: counts what it adds to MOM (w / w(deltap) to the 4th power, R_i, R_j);
+#: on a periodic grid the minimum image (IMAGE_FLOPS a periodic axis) in
+#: every support test and in the body
 WCSPH_TERM_FLOPS = {wp.CONT: 7, wp.MOM: 39, wp.XSPH: 10, wp.DCONT: 23,
-                    wp.DMOM: 19, wp.VISC: 20}
+                    wp.DMOM: 19, wp.VISC: 20, wp.TENS: 12, wp.SDEN: 3,
+                    wp.LVD: 17}
 WCSPH_RHO_FLOPS = 4
 WCSPH_DELTA_FLOPS = 3
 #: delta_pair.cu, per pair in support: DWIJ (:165-177) before the shape
@@ -185,7 +188,7 @@ def wcsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     """Work of one ``wcsph_pair`` or ``dense_pair`` call."""
     terms = 0
     work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
-    shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
     image = IMAGE_FLOPS * sum(grid.periodic)
     for src, cells, ps in sources:
         terms |= ps.terms
@@ -196,7 +199,7 @@ def wcsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
             f for t, f in WCSPH_TERM_FLOPS.items() if ps.terms & t)
         if ps.terms & (wp.MOM | wp.XSPH | wp.VISC):
             per_pair += WCSPH_RHO_FLOPS
-        if ps.terms & (wp.DCONT | wp.DMOM):
+        if ps.terms & (wp.DCONT | wp.DMOM | wp.LVD):
             per_pair += WCSPH_DELTA_FLOPS
         work['candidates'] += cand
         work['pairs'] += pairs
@@ -216,10 +219,13 @@ def delta_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     written once; of each source the reachable particles' x y z h m rho
     and cell ranges.  ``walks=False``: a gradient call that reads a
     linked moment call's neighbour list, whose candidates' support
-    tests that walk made and are not counted again."""
+    tests that walk made and are not counted again.  On a periodic grid
+    the stencil wraps and every support test and pair takes the minimum
+    image."""
     x = dest['x']
     n, es = x.shape[0], x.element_size()
-    shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
+    image = IMAGE_FLOPS * sum(grid.periodic)
     ds = sources[0][2]
     if ds.terms & dl.MMAT:
         body = 1 + 4 * ds.dim * ds.dim
@@ -234,9 +240,9 @@ def delta_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         if walks:
             work['candidates'] += cand
             work['visited'] += cand
-            work['flops'] += cand * SUPPORT_FLOPS
+            work['flops'] += cand * (SUPPORT_FLOPS + image)
         work['pairs'] += pairs
-        work['flops'] += pairs * (DELTA_PAIR_FLOPS + shape + body)
+        work['flops'] += pairs * (DELTA_PAIR_FLOPS + image + shape + body)
         work['bytes'] += _source_bytes(src, reached, ncells,
                                        dl.PACK_RECORDS[0] + ('m', 'rho'))
     (out,) = pre.values()
@@ -264,7 +270,7 @@ def gtvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     grid)."""
     terms = 0
     work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
-    shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
     image = IMAGE_FLOPS * sum(grid.periodic)
     for src, cells, gs in sources:
         terms |= gs.terms
@@ -292,7 +298,7 @@ def tvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     made and are not counted again."""
     terms = 0
     work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
-    shape = SHAPE_FLOPS[KERNEL_KIND[type(kernel)]]
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
     image = IMAGE_FLOPS * sum(grid.periodic)
     for src, cells, ts in sources:
         terms |= ts.terms

@@ -18,7 +18,8 @@ runs its delta-SPH groups on the torch pair engine inside the graphs
 (a chunk that overflowed a capacity is redone and captured again); the
 Taylor-Green vortex runs on a periodic box, whose particles wrap across
 it inside the chunks, under its three schemes (``tvf``; ``wcsph`` on
-both kernel engines; ``gtvf``, two evaluators a step).
+both kernel engines, and with each of ``WCSPH_OPTIONS``, the scheme's
+other flags and kernels; ``gtvf``, two evaluators a step).
 
 ``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
 step (host clock at each step's start, the card synchronised) or in
@@ -87,13 +88,33 @@ PATHS = {
     'taylor_green gtvf nx=400': dict(
         dx=None, cls=TaylorGreen, extra=('--nx', '400', '--scheme',
                                          'gtvf')),
+    'dam_break_3d dx=0.02 C4': dict(
+        dx=0.02, extra=('--kernel', 'WendlandQuinticC4')),
 }
 
+#: WCSPHScheme's other flags and kernels on the Taylor-Green vortex:
+#: {name: the example's arguments}
+WCSPH_OPTIONS = {
+    'delta': ('--delta-sph',),
+    'summation': ('--summation-density',),
+    'tensile': ('--tensile-correction',),
+    'C4': ('--kernel', 'WendlandQuinticC4'),
+    'C6': ('--kernel', 'WendlandQuinticC6'),
+    'SuperGaussian': ('--kernel', 'SuperGaussian'),
+}
+#: the options timed at full width
+TIMED_OPTIONS = ('delta', 'summation', 'tensile')
+PATHS.update({
+    'taylor_green wcsph %s nx=400' % name: dict(
+        dx=None, cls=TaylorGreen, extra=('--nx', '400', '--scheme', 'wcsph')
+        + WCSPH_OPTIONS[name]) for name in TIMED_OPTIONS})
 
 #: the paths timed under the default binning configuration only
 REUSE_ONLY = ('dam_break_3d dx=0.02 delta', 'taylor_green nx=400',
               'taylor_green wcsph nx=400', 'taylor_green wcsph nx=400 dense',
-              'taylor_green gtvf nx=400')
+              'taylor_green gtvf nx=400', 'dam_break_3d dx=0.02 C4') + tuple(
+                  'taylor_green wcsph %s nx=400' % name
+                  for name in TIMED_OPTIONS)
 
 
 def configs(path):
@@ -200,6 +221,10 @@ GATES.update({
 GATES.update({
     'dam_break_2d wcsph dx=0.02 %s' % name[:-len('Integrator')]: (
         integrated(name), ('--dx', '0.02'), None) for name in INTEGRATORS})
+GATES.update({
+    'taylor_green wcsph %s nx=40' % name: (TaylorGreen, (
+        '--nx', '40', '--perturb', '0.1', '--scheme', 'wcsph') + flags, None)
+    for name, flags in WCSPH_OPTIONS.items()})
 
 
 def _gate_run(case, chunk_steps, device):

@@ -115,13 +115,14 @@ def _slack(s, cell_slack):
         s.grid.resize(s.states.values(), cell_slack=cell_slack)
 
 
-def pair_calls(dx, dtype, cell_slack=None, cls=DamBreak3D):
+def pair_calls(dx, dtype, cell_slack=None, cls=DamBreak3D, extra=()):
     """(calls, particle count) for one eval of the perturbed dam break
     at ``dx`` (on cells ``cell_slack`` times the support where given);
     ``cls``: ``DamBreak2D`` for the 2D WCSPH dam break (``--scheme
     wcsph``: WendlandQuintic, the Hughes-Graham walls), its velocities
-    perturbed in the plane."""
-    s = make_app(dx, dtype, cls=cls).solver
+    perturbed in the plane; ``extra``: the example's further arguments
+    (``--kernel ...``)."""
+    s = make_app(dx, dtype, cls=cls, extra=extra).solver
     _slack(s, cell_slack)
     perturb(s.states, dtype, 'uvw'[:s.dim])
     s.integrator.initial_acceleration(s.states, 0.0, s.dt)
@@ -129,12 +130,14 @@ def pair_calls(dx, dtype, cell_slack=None, cls=DamBreak3D):
     return plan_calls(s, [0]), n
 
 
-def delta_calls(dx, dtype, steps=0):
+def delta_calls(dx, dtype, steps=0, extra=()):
     """(calls, particle count, app) of one eval of dam_break_3d
-    ``--delta-sph`` at ``dx``: with ``steps``, on the state the path
-    reaches after that many steps from rest; without, after the first
-    eval of a state with seeded velocity and density perturbations."""
-    app = make_app(dx, dtype, steps=steps, extra=('--delta-sph',))
+    ``--delta-sph`` (and the further arguments ``extra``) at ``dx``: with
+    ``steps``, on the state the path reaches after that many steps from
+    rest; without, after the first eval of a state with seeded velocity
+    and density perturbations."""
+    app = make_app(dx, dtype, steps=steps,
+                   extra=('--delta-sph',) + tuple(extra))
     s = app.solver
     if steps:
         app.solve()

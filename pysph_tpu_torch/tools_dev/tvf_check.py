@@ -82,31 +82,39 @@ def on_edges(states, domain, seed=54321, share=0.1):
     return int(pick.sum())
 
 
-def calls(nx, dtype, edges=False, scheme='tvf', engine='kernel'):
+def calls(nx, dtype, edges=False, scheme='tvf', engine='kernel', flags=(),
+          evaluate=False):
     """(calls, particles, particles moved onto the edges) of one eval of
-    every evaluator of ``scheme`` on ``engine`` at ``nx`` on the card
-    (``perturb``ed; ``on_edges`` with ``edges``).  The schemes but
-    ``tvf`` start from positions jittered by a tenth of dx (``--perturb
-    0.1``): on the lattice GTVF's ``auhat``, a sum of kernel gradients
-    under factors of the dest's alone, cancels to rounding."""
+    every evaluator of ``scheme`` (with the example's further arguments
+    ``flags``, such as ``--delta-sph``) on ``engine`` at ``nx`` on the
+    card (``perturb``ed; ``on_edges`` with ``edges``; with ``evaluate``,
+    after one initial evaluation, so that what the groups derive before
+    the pair phases, delta-SPH's ``m_mat`` and ``gradrho``, is the
+    path's).  The schemes but ``tvf`` start from positions jittered by a
+    tenth of dx (``--perturb 0.1``): on the lattice GTVF's ``auhat``, a
+    sum of kernel gradients under factors of the dest's alone, cancels to
+    rounding."""
     jitter = () if scheme == 'tvf' else ('--perturb', '0.1')
     s = make_app(None, dtype, cls=TaylorGreen, engine=engine,
-                 extra=('--nx', str(nx), '--scheme', scheme) +
-                 jitter).solver
+                 extra=('--nx', str(nx), '--scheme', scheme) + jitter +
+                 tuple(flags)).solver
     perturb(s.states)
     moved = on_edges(s.states, s.domain) if edges else 0
+    if evaluate:
+        s.integrator.initial_acceleration(s.states, 0.0, s.dt)
     n = s.states['fluid']['x'].shape[0]
     return plan_calls(s, range(len(s.acceleration_evals))), n, moved
 
 
-def compare(calls_, tol):
-    """The largest absolute and scaled errors of the kernel against its
-    plain version over the calls' outputs (over the finite entries of the
-    plain version, whose infinities the kernel must match exactly);
-    raises past ``tol`` of max|ref|."""
+def compare(calls_, tol, op=None):
+    """The largest absolute and scaled errors of the kernel (``op``, else
+    the plan's) against its plain version over the calls' outputs (over
+    the finite entries of the plain version, whose infinities the kernel
+    must match exactly); raises past ``tol`` of max|ref|."""
     worst_abs = worst = 0.0
     for _, dest, plan, args in calls_:
-        got = plan.op(*args)
+        kernel = op or plan.op
+        got = kernel(*args)
         ref = plan.reference(*args)
         torch.cuda.synchronize()
         for p in plan.outputs:
@@ -114,14 +122,14 @@ def compare(calls_, tol):
             if not (torch.equal(torch.isfinite(got[p]), fin) and
                     torch.equal(got[p][~fin], ref[p][~fin])):
                 raise AssertionError('%s %s.%s: non-finite entries differ'
-                                     % (plan.op.__name__, dest, p))
+                                     % (kernel.__name__, dest, p))
             if not bool(fin.any()):
                 continue
             scale = max(float(ref[p][fin].abs().max()), 1e-300)
             err = float((got[p][fin] - ref[p][fin]).abs().max())
             if not err <= tol * scale:
                 raise AssertionError('%s %s.%s: error %.3g > %.0e * %.3g'
-                                     % (plan.op.__name__, dest, p, err, tol,
+                                     % (kernel.__name__, dest, p, err, tol,
                                         scale))
             worst_abs, worst = max(worst_abs, err), max(worst, err / scale)
     return worst_abs, worst

@@ -81,3 +81,29 @@ def test_missing_header_is_an_error(csrc):
     src.write_text('#include "nowhere.cuh"\n' + src.read_text())
     with pytest.raises(FileNotFoundError, match='nowhere.cuh'):
         build.build_key('fused_pair')
+
+
+def test_each_later_kind_is_a_library_of_its_own(csrc, monkeypatch):
+    """Kinds 0-3 launch from the default library; each later kind from a
+    library built with -DPAIR_KIND=<kind>, which the kind's launch asks
+    for and no other."""
+    assert build.kind_flags(0) == build.kind_flags(3) == ()
+    assert build.kind_flags(4) == ('-DPAIR_KIND=4',)
+    keys = {build.build_key('wcsph_pair', build.kind_flags(k))
+            for k in range(build.KINDS)}
+    assert len(keys) == 5
+    asked = []
+
+    def load(name, args_type, extra=()):
+        asked.append((name, extra))
+        raise RuntimeError('stop')
+
+    monkeypatch.setattr(build, 'load_library', load)
+    from pysph_tpu_torch.ops import wcsph_pair as wp
+    for kind in (0, 3, 6):
+        args = wp.WcsphArgs()
+        args.kernel_kind = kind
+        with pytest.raises(RuntimeError, match='stop'):
+            build.launch('wcsph_pair', args, None)
+    assert asked == [('wcsph_pair', ()), ('wcsph_pair', ()),
+                     ('wcsph_pair', ('-DPAIR_KIND=6',))]

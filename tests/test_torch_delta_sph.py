@@ -273,8 +273,8 @@ def test_kernel_engine_plans_every_delta_set():
     (src,) = plans[2][2]
     # MomentumEquation's alpha is 0; MomentumEquationDeltaSPH takes it
     assert src[:3] == ('fluid', fluid, 1400.0) and src[3] == 0.0
-    # the laminar viscosity's nu and eta: no VISC term
-    assert src[6:] == (0.1, 1400.0, 0.1, 1400.0, 1.0, 0.0, 0.0)
+    # the laminar viscosities' constants: no VISC or LVD term
+    assert src[6:] == (0.1, 1400.0, 0.1, 1400.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0)
     # 3D: the moment in three dimensions, the correction in two
     plans = _plans(_dam_break('kernel'))
     assert plans[0] == ('fluid', dl.delta_pair, [('fluid', dl.MMAT, 3, 0.1)])
@@ -651,9 +651,10 @@ def test_viscosity_matches_jax(name):
         [pa], [Group(equations=[getattr(viscosity, name)(
             'fluid', ['fluid'], **kw)])], CubicSpline(dim=2), config,
         CellGrid.from_particles([pa], dim=2, radius_scale=2.0))
-    # LaminarViscosity is wcsph_pair's VISC term (its plain version here)
+    # LaminarViscosity is wcsph_pair's VISC term, LaminarViscosityDeltaSPH
+    # its LVD term (their plain version here); no kernel takes the others
     assert set(a_eval.engine_choices.values()) == {
-        'kernel' if name == 'LaminarViscosity' else 'torch'}
+        'kernel' if name.startswith('LaminarViscosity') else 'torch'}
     states = {'fluid': pa.to_device(config)}
     a_eval.update_and_compute(0.0, 0.1, states)
     for p in ('au', 'av'):
@@ -708,9 +709,11 @@ def test_scheme_viscosity_branch_matches_jax(delta_sph, tmp_path):
                 'cpu'] + argv)
     a_eval = port.solver.acceleration_evals[0]
     # the fluid's main group holds the viscosity: wcsph_pair's VISC term,
-    # and with delta-SPH LaminarViscosityDeltaSPH, which no kernel takes
-    assert a_eval.engine_choices[('fluid', ('fluid',))] == (
-        'torch' if delta_sph else 'kernel')
+    # and with delta-SPH LaminarViscosityDeltaSPH, its LVD term
+    assert a_eval.engine_choices[('fluid', ('fluid',))] == 'kernel'
+    plan = next(p for p in a_eval._plans.values()
+                if p is not None and p.op is wp.wcsph_pair)
+    assert plan.sources[0].terms & (wp.LVD if delta_sph else wp.VISC)
     port.solver.integrator.initial_acceleration(port.solver.states, 0.0,
                                                 s.dt)
     for p in ('arho', 'au', 'av', 'ax', 'ay'):

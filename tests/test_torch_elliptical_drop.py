@@ -29,7 +29,8 @@ from pysph_tpu.config import get_config
 from pysph_tpu.examples.elliptical_drop import \
     EllipticalDrop as JaxEllipticalDrop
 from pysph_tpu.solver import output as jax_output
-from pysph_tpu_torch.base.kernels import CubicSpline, Gaussian, QuinticSpline
+from pysph_tpu_torch.base.kernels import (
+    CubicSpline, Gaussian, QuinticSpline, WendlandQuinticC4)
 from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
@@ -189,9 +190,12 @@ def test_kernel_and_scheme_options():
                              'QuinticSpline']).solver
     assert isinstance(s.kernel, QuinticSpline) and s.grid.radius_scale == 3.0
     assert set(s.acceleration_evals[0].engine_choices.values()) == {'kernel'}
-    with pytest.raises(NotImplementedError, match='item 19'):
-        _port_app('kernel', ['--disable-output', '--kernel',
-                             'WendlandQuinticC4'])
+    # so is WendlandQuinticC4 (a kind of its own in the pair kernels)
+    s = _port_app('kernel', ['--disable-output', '--kernel',
+                             'WendlandQuinticC4']).solver
+    assert isinstance(s.kernel, WendlandQuinticC4) and \
+        s.grid.radius_scale == 2.0
+    assert set(s.acceleration_evals[0].engine_choices.values()) == {'kernel'}
     with pytest.raises(NotImplementedError, match='item 26'):
         _port_app('kernel', ['--disable-output', '--scheme', 'iisph'])
 

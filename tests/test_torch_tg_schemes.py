@@ -15,8 +15,8 @@ and y (``examples/taylor_green.py``, ``QuinticSpline``, a fixed dt).
   the card runs: 30 steps at nx=40 with particles wrapping).
 - The plain ``wcsph_pair`` / ``dense_pair`` / ``gtvf_pair`` with
   ``VISC`` / ``MVISC`` on the periodic grid against the torch engine.
-- The planners take a periodic grid for ``wcsph``, ``dense`` and
-  ``gtvf``; ``delta`` refuses it and names ROADMAP item 34.
+- The planners take a periodic grid for ``wcsph``, ``dense``, ``gtvf``
+  and ``delta`` (``delta_pair``'s periodic branch).
 """
 
 import shutil
@@ -30,11 +30,11 @@ from pysph_tpu.examples.taylor_green import TaylorGreen as JaxTaylorGreen
 from pysph_tpu_torch.base.kernels import QuinticSpline
 from pysph_tpu_torch.base.particle_array import ParticleArray
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen
+from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import wcsph_pair as wp
-from pysph_tpu_torch.ops.pair_engine import (
-    PairIneligible, plan_pair_phases)
+from pysph_tpu_torch.ops.pair_engine import plan_pair_phases
 from pysph_tpu_torch.sph.wc.kernel_correction import (
     GradientCorrectionPreStep)
 from pysph_tpu_torch.tools_dev import time_chunks
@@ -279,13 +279,17 @@ def test_plain_kernels_equal_the_torch_engine(scheme, engine):
 def test_planners_take_the_periodic_grid(scheme, engine):
     kernel = QuinticSpline(dim=2)
     if scheme == 'delta':
+        # the delta-SPH groups of --delta-sph on the periodic box
+        app = _port_app('wcsph', engine, ARGV + ['--delta-sph'])
+        plans = [p for a_eval in app.solver.acceleration_evals
+                 for p in a_eval._plans.values() if p is not None]
+        assert app.solver.grid.is_periodic
+        assert sum(p.op is dl.delta_pair for p in plans) == 2
+        assert all(p.link is not None for p in plans
+                   if p.op is dl.delta_pair)
         eqs = {'fluid': [GradientCorrectionPreStep('fluid', ['fluid'],
                                                    dim=2)]}
-        assert plan_pair_phases('fluid', eqs, kernel).op.__name__ == \
-            'delta_pair'
-        with pytest.raises(PairIneligible, match='delta: no periodic walk '
-                           r'\(ROADMAP Queue 1 item 34\)'):
-            plan_pair_phases('fluid', eqs, kernel, periodic=True)
+        assert plan_pair_phases('fluid', eqs, kernel).op is dl.delta_pair
         return
     app = _port_app(scheme, engine)
     for a_eval in app.solver.acceleration_evals:
@@ -297,6 +301,5 @@ def test_planners_take_the_periodic_grid(scheme, engine):
                         sources.setdefault(src, []).append(eq)
             if not sources:
                 continue
-            plan = plan_pair_phases('fluid', sources, kernel, engine,
-                                    periodic=True)
+            plan = plan_pair_phases('fluid', sources, kernel, engine)
             assert plan.op is OPS[scheme, engine]

@@ -149,10 +149,9 @@ def _link_case(between=(), momentum_sources=('f',)):
     groups = [density] + [Group(eqs, real=False) for eqs in between] + [
         momentum]
     plans = {(id(density), 'f'): plan_pair_phases(
-        'f', {'f': list(density.equations)}, kernel, periodic=True),
+        'f', {'f': list(density.equations)}, kernel),
         (id(momentum), 'f'): plan_pair_phases(
-            'f', {s: list(momentum.equations) for s in srcs}, kernel,
-            periodic=True)}
+            'f', {s: list(momentum.equations) for s in srcs}, kernel)}
     return plans, link_pairs(groups, plans)
 
 
