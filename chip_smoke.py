@@ -143,7 +143,25 @@ Phases (any failure propagates; the exit code is then not 0):
    (``wcsph_pair`` twice an eval: the density launch and the main one)
    and ``--tensile-correction`` (``wcsph_pair``'s tensile term); their
    chunks against the per-step loop are gates of phase 4
-   (``taylor_green <scheme>[ <option>] nx=40``);
+   (``taylor_green <scheme>[ <option>] nx=40``); then the Adami walls on
+   ``tvf_pair`` (its no-slip term) and the TVF wall examples
+   (``_tvf_wall_phase``): every pair kernel of their evals (each fluid's
+   density and momentum on ``tvf_pair``, linked; the wall's velocity and
+   pressure on ``gtvf_pair``) against its plain version on the cavity's
+   open grid at nx=50 and Poiseuille's channel, periodic in x, in float64
+   and float32, each also with a tenth of the fluid on its box's edges
+   and corners, and on Rayleigh-Taylor and the periodic cylinders in
+   float32, the linked pair bit for bit the walk on each; the cavity at
+   nx=400 (160,000 fluid and 8,921 wall particles) in float32, timed
+   there; the cavity at nx=400 as the main path under the binning reuse
+   (every dest on a kernel, one linked pair, no dest past its list), its
+   fluid's max speed and kinetic energy within 1e-3 of the JAX package's
+   (``JAX_CAVITY``); Poiseuille's and Couette's flow to their tf = 100,
+   their ``post_process`` error against the exact profile within 0.005
+   of the JAX package's (``JAX_PROFILE``); Rayleigh-Taylor and the
+   periodic cylinders as the main path; their chunks against the
+   per-step loop are gates of phase 4 (``cavity nx=20``,
+   ``poiseuille``);
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -219,6 +237,8 @@ from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
+from pysph_tpu_torch.examples.couette import CouetteFlow
+from pysph_tpu_torch.examples.poiseuille import PoiseuilleFlow, profile_error
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen, decay_errors
 from pysph_tpu_torch.ops import bin_cells as bc
 from pysph_tpu_torch.ops import build, cell_pack, cell_walk
@@ -254,25 +274,41 @@ JAX_DECAY = {'wcsph': (1.000178380345958, 0.009089970207746673),
              'wcsph delta': (0.9986821392914745, 0.008999829297085801),
              'wcsph summation': (1.000352147793546, 0.009079249251684698),
              'wcsph tensile': (1.0001777789107333, 0.009101093339999769)}
+#: the JAX package's ``post_process`` error against the exact steady
+#: profile (max |u - ue| over max |ue|) of Poiseuille's and Couette's
+#: flow run as the examples define themselves (to tf = 100) in float32 on
+#: the CPU (``python tests/jax_wall_figures.py poiseuille``, ``...
+#: couette``); the port's bar is the JAX error plus PROFILE_SLACK
+JAX_PROFILE = {'poiseuille': 0.006605376955121756,
+               'couette': 0.0002688895328901708}
+PROFILE_SLACK = 0.005
+#: the JAX package's lid-driven cavity at nx=400 after STEPS steps in
+#: float32 on the CPU (``python tests/jax_wall_figures.py cavity --nx 400
+#: --steps 200``): the fluid's max speed and kinetic energy, which the
+#: port's run must meet to CAVITY_TOL relative
+JAX_CAVITY = (0.9328589499779117, 0.0033403797557614422)
+CAVITY_TOL = 1e-3
 
 
 def _compare(calls, dtype, label, op=None):
     """Max absolute and max scaled error of each kernel (``op``, else
     the plan's) against its plain version over every dest and output
     (on the entries where the plain version is finite; its infinities
-    must be matched exactly)."""
+    must be matched exactly); the plain version with torch's
+    deterministic algorithms (``tvf_check.reference``)."""
     worst_abs = worst_scaled = 0.0
     for k, dest, plan, args in calls:
         got = (op or plan.op)(*args)
-        ref = plan.reference(*args)
+        ref = tvf_check.reference(plan, args)
         torch.cuda.synchronize()
         for p in ref:
             fin = torch.isfinite(ref[p])
             if not torch.equal(torch.isfinite(got[p]), fin) or \
-                    not torch.equal(got[p][~fin], ref[p][~fin]):
+                    not torch.equal(got[p][~fin].double(),
+                                    ref[p][~fin].double()):
                 raise AssertionError('%s eval %d %s.%s: non-finite entries '
                                      'differ' % (label, k, dest, p))
-            d = float((got[p][fin] - ref[p][fin]).abs().max())
+            d = float((got[p][fin].double() - ref[p][fin]).abs().max())
             scale = max(float(ref[p][fin].abs().max()), 1e-300)
             worst_abs = max(worst_abs, d)
             worst_scaled = max(worst_scaled, d / scale)
@@ -1137,6 +1173,251 @@ def _tg_scheme_phase(runs, kernels, run):
             name=entry)
 
 
+#: the TVF wall examples' checks of ``_tvf_wall_phase``: (example, its
+#: arguments, dtypes, with the edge particles too)
+WALL_CHECKS = (
+    ('cavity', ('--nx', '50'), (torch.float64, torch.float32), True),
+    ('poiseuille', (), (torch.float64, torch.float32), True),
+    ('rayleigh_taylor', (), (torch.float32,), False),
+    ('periodic_cylinders', (), (torch.float32,), False),
+)
+
+
+def _tvf_linked_runs(label, fluids, out=None):
+    """A check of a solver (``_drive``'s ``checks``): each of its
+    ``fluids`` fluids ran its ``tvf_pair`` density and momentum plans
+    linked, with no dest past the list's capacity in the runs (the
+    counter reset before them); with ``out``, the dests past it are
+    counted into ``out['overflowed']`` instead (their warps walk: a run
+    whose particles cluster, as Rayleigh-Taylor's two phases do under
+    one reference density)."""
+    def check(s):
+        plans = [p for a in s.acceleration_evals for p in a._plans.values()
+                 if p is not None and p.op is tp.tvf_pair]
+        links = {id(p.link) for p in plans if p.link is not None}
+        overflowed = tp.overflowed('cuda')
+        print('%s: %d linked tvf_pair pairs of %d plans, %d dests past the '
+              'list\'s capacity in the runs' % (label, len(links),
+                                                len(plans), overflowed),
+              flush=True)
+        if out is not None:
+            out['overflowed'] = overflowed
+        if len(plans) != 2 * fluids or len(links) != fluids or \
+                any(p.link is None for p in plans) or \
+                (overflowed and out is None):
+            raise AssertionError('%s: not linked, or %d dests overflowed '
+                                 'the list' % (label, overflowed))
+    return check
+
+
+def _cavity_figures(out, solver):
+    """The cavity's fluid max speed and kinetic energy after its run,
+    against the JAX package's same run (``JAX_CAVITY``, to
+    ``CAVITY_TOL`` relative); into ``out``."""
+    st = solver.states['fluid']
+    u, v, m = (st[c].double() for c in ('u', 'v', 'm'))
+    speed2 = u * u + v * v
+    vmax, ke = float(speed2.max().sqrt()), float(0.5 * (m * speed2).sum())
+    errs = (vmax / JAX_CAVITY[0] - 1.0, ke / JAX_CAVITY[1] - 1.0)
+    out.update(t=solver.t, vmax=vmax, ke=ke, jax_vmax=JAX_CAVITY[0],
+               jax_ke=JAX_CAVITY[1], rel_err=errs)
+    print('cavity nx=400 float32 at t=%.6g after %d steps: fluid max speed '
+          '%.7f (JAX %.7f, relative %.3g), kinetic energy %.7g (JAX %.7g, '
+          'relative %.3g); bar %.0e' % (
+              solver.t, solver.count, vmax, JAX_CAVITY[0], errs[0], ke,
+              JAX_CAVITY[1], errs[1], CAVITY_TOL), flush=True)
+    if not max(abs(e) for e in errs) <= CAVITY_TOL:
+        raise AssertionError('the cavity missed the JAX package\'s run')
+
+
+def _profile_run(example):
+    """Poiseuille's or Couette's flow as the example defines itself (to
+    its tf, float32, on the kernels, dumping into a temporary directory
+    under ``build/``): the ``post_process`` error against the exact
+    steady profile within ``PROFILE_SLACK`` of the JAX package's
+    (``JAX_PROFILE``), every dest on a kernel, the fluid's pair linked
+    with no dest past its capacity.  Returns what it measured."""
+    cls = {'poiseuille': PoiseuilleFlow, 'couette': CouetteFlow}[example]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = tempfile.mkdtemp(prefix=example + '_', dir=build.BUILD_DIR)
+    try:
+        app = cls()
+        app.setup(['-q', '--device', 'cuda', '-d', out])
+        s = app.solver
+        tp.reset_overflow('cuda')
+        tp.tvf_pair.launches = gp.gtvf_pair.launches = 0
+        start = time.perf_counter()
+        app.solve()
+        secs = time.perf_counter() - start
+        launches = (tp.tvf_pair.launches, gp.gtvf_pair.launches)
+        _tvf_linked_runs(example, 1)(s)
+        for name, st in s.states.items():
+            if not all(bool(v.isfinite().all()) for v in st.values()
+                       if v.is_floating_point()):
+                raise AssertionError('%s: non-finite %s' % (example, name))
+        if set(s.acceleration_evals[0].engine_choices.values()) != \
+                {'kernel'}:
+            raise AssertionError('%s: a dest off the kernels' % example)
+        _, u, ue = app.post_process(app.info_filename)
+        err = profile_error(u, ue)
+        bar = JAX_PROFILE[example] + PROFILE_SLACK
+        print('%s float32 to t=%.6g (%d steps, %.1f s, %.4f ms/step with '
+              'dumps; %d captures, %d replays, %d reads; launches counted '
+              'eager and a capture once: tvf_pair %d, gtvf_pair %d): '
+              'post_process error against the exact profile %.5f, JAX\'s '
+              '%.5f, bar %.5f' % (
+                  example, s.t, s.count, secs, 1e3 * secs / s.count,
+                  s.captures, s.replays, s.reads, launches[0], launches[1],
+                  err, JAX_PROFILE[example], bar), flush=True)
+        if not (abs(s.t - s.tf) <= 1e-6 * s.tf and err <= bar):
+            raise AssertionError('%s missed the exact profile' % example)
+        return dict(t=s.t, steps=s.count, s=secs, err=err,
+                    jax_err=JAX_PROFILE[example], bar=bar)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _tvf_wall_phase(runs, kernels, bins):
+    """The Adami walls on ``tvf_pair`` (its no-slip term, the ``WALL``
+    instantiations) and the TVF wall examples.  Every pair kernel of the
+    wall examples' evals (each fluid's density and momentum on
+    ``tvf_pair``, the wall's velocity and pressure on ``gtvf_pair``)
+    against its plain version (``tvf_check.wall_calls``: the fluids
+    jittered and seeded, and with a tenth of them on their box's edges
+    and corners, after one eval) on the cavity's open grid at nx=50 and
+    Poiseuille's channel, periodic in x, in float64 and float32, and on
+    Rayleigh-Taylor and the periodic cylinders in float32, with the
+    linked pair on each (``tvf_check.check_linked``: its list, its bits
+    against the walk, no dest past the capacity but in the edge cases);
+    the cavity at nx=400 (160,000 fluid and 8,921 wall particles) the
+    same in float32, timed there (the linked pair against the two
+    walking launches and each launch alone, the wall's ``gtvf_pair``
+    calls) with the open-grid kernels' registers and spills; then the
+    cavity at nx=400 as the main path under the binning reuse (2
+    ``tvf_pair`` and 2 ``gtvf_pair`` launches in the initial eval and a
+    step, linked, no overflow), with its fluid's max speed and kinetic
+    energy against the JAX package's (``JAX_CAVITY``); Poiseuille's and
+    Couette's flow to their tf with the ``post_process`` error against
+    ``JAX_PROFILE``; Rayleigh-Taylor (two linked pairs) and the periodic
+    cylinders for ``STEPS`` steps as the main path, the dests past the
+    list's capacity counted (Rayleigh-Taylor's phases, under one
+    reference density, cluster: their warps walk).  Adds the entries
+    ``tvf_pair wall`` and ``gtvf_pair wall``."""
+    for example, extra, dtypes, with_edges in WALL_CHECKS:
+        for dtype in dtypes:
+            for edges in (False, True) if with_edges else (False,):
+                calls, n, moved = tvf_check.wall_calls(example, dtype, edges,
+                                                       extra)
+                what = '%s%s %s%s (%d particles%s)' % (
+                    example, ''.join(' ' + a for a in extra),
+                    str(dtype)[6:], ' edges' * edges, n,
+                    ', %d on the edges' % moved if edges else '')
+                _compare(calls, dtype, 'tvf_pair/gtvf_pair ' + what)
+                found = tvf_check.check_linked(calls, what, TOL[dtype])
+                if found['overflowed'] and not edges:
+                    raise AssertionError('%s: %d dests past the list\'s '
+                                         'capacity' % (what,
+                                                       found['overflowed']))
+                del calls
+    calls, n, _ = tvf_check.wall_calls('cavity', torch.float32, False,
+                                       ('--nx', '400'))
+    if n != 168921 or calls[0][3][5].is_periodic:
+        raise AssertionError('the cavity at nx=400 has %d particles, not '
+                             '168,921, or a periodic grid' % n)
+    what = 'cavity nx=400 float32 (%d particles)' % n
+    tvf = [c for c in calls if c[2].op is tp.tvf_pair]
+    gtvf = [c for c in calls if c[2].op is gp.gtvf_pair]
+    err = _compare(tvf, torch.float32, 'tvf_pair ' + what)
+    gtvf_err = _compare(gtvf, torch.float32, 'gtvf_pair ' + what)
+    linked = tvf_check.check_linked(calls, what, TOL[torch.float32])
+    if linked['overflowed']:
+        raise AssertionError('%s: %d dests past the list\'s capacity'
+                             % (what, linked['overflowed']))
+    err = max(err, linked['max_abs_err'])
+    for k, dest, plan, args in calls:
+        pack, ref = ((tp.pack_sources, tp.pack_sources_reference)
+                     if plan.op is tp.tvf_pair else
+                     (gp.pack_sources, gp.pack_sources_reference))
+        _check_pack('cavity nx=400 ' + dest, pack(args[4]), ref(args[4]))
+    times, linked_fn = _linked_times(tp.tvf_pair, tvf)
+    eager = events_ms(linked_fn, 20)
+    plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in tvf], 3)
+    ((_, _, _, dargs), (_, _, _, margs)), = linked_calls(tvf)
+    work = roofline.add(roofline.tvf_work(*dargs),
+                        roofline.tvf_work(*margs, walks=False))
+    bound_ms, bound_by = roofline.bound(work)
+    resources = tvf_check.resources(build.build('tvf_pair'), periodic=False)
+    gtvf_ms = graph_ms(lambda: [c[2].op(*c[3]) for c in gtvf], 20)
+    gtvf_eager = events_ms(lambda: [c[2].op(*c[3]) for c in gtvf], 20)
+    gtvf_plain = events_ms(lambda: [c[2].reference(*c[3]) for c in gtvf],
+                           3)
+    gtvf_work = _calls_work(gtvf, roofline.gtvf_work)
+    print('tvf_pair, the 2 launches of one eval of the cavity at nx=400 '
+          'float32 (grid %s, open; the wall a source of the momentum call, '
+          'its no-slip term), graph replays alternated in this process: '
+          'linked (emit + consume, each packing) %.4f ms, walking (2 walks) '
+          '%.4f ms; alone: emit %.4f, consume %.4f, density walk %.4f, '
+          'momentum walk %.4f; linked eager %.3f, plain torch %.3f ms; bound '
+          '%.4f ms (%s, one walk: %.4g flops, %d candidates, %d pairs, %d '
+          'B); share %.1f%%; registers and spill bytes (stores, loads) of '
+          'the open-grid kernels by mode: %s' % ((
+              calls[0][3][5].dims, times['linked'], times['walking'],
+              times['emit'], times['consume'], times['first walk'],
+              times['second walk'], eager, plain_ms, bound_ms, bound_by,
+              work['flops'], work['candidates'], work['pairs'],
+              work['bytes'], 100 * bound_ms / times['linked'], resources)),
+          flush=True)
+    print('gtvf_pair, the wall\'s 2 launches (SetWallVelocity, '
+          'SolidWallPressureBC) of one eval of the cavity at nx=400 float32: '
+          '%.4f ms in a graph, %.4f eager, plain torch %.3f ms; bound %.4f '
+          'ms (%s); %d candidates, %d pairs' % ((
+              gtvf_ms, gtvf_eager, gtvf_plain) + roofline.bound(gtvf_work) +
+              (gtvf_work['candidates'], gtvf_work['pairs'])), flush=True)
+    del calls, tvf, gtvf, linked_fn, dargs, margs
+    label = 'cavity nx=400'
+    figures = {}
+    tp.reset_overflow('cuda')
+    runs[label, 'reuse'] = _drive(
+        label, time_chunks.PATHS[label],
+        ((tp.tvf_pair, 2, 2), (gp.gtvf_pair, 2, 2)), 1,
+        checks=(functools.partial(_bin_phase, label, out=bins),
+                _tvf_linked_runs(label, 1),
+                functools.partial(_cavity_figures, figures)))
+    if runs[label, 'reuse']['particles'] != 168921:
+        raise AssertionError('the cavity at nx=400 has %d particles'
+                             % runs[label, 'reuse']['particles'])
+    profiles = {example: _profile_run(example)
+                for example in ('poiseuille', 'couette')}
+    overflows = {}
+    for label, fluids in (('rayleigh_taylor', 2), ('periodic_cylinders', 1)):
+        tp.reset_overflow('cuda')
+        overflows[label] = {}
+        runs[label, 'reuse'] = _drive(
+            label, time_chunks.PATHS[label],
+            ((tp.tvf_pair, 2 * fluids, 2 * fluids), (gp.gtvf_pair, 2, 2)), 1,
+            checks=(_tvf_linked_runs(label, fluids, overflows[label]),))
+    launches = runs['cavity nx=400', 'reuse']['launches']
+    kernels['tvf_pair wall'] = dict(_entry(
+        'tvf_pair', 'pysph_tpu/ops/resident.py:645', launches['tvf_pair'],
+        err, times['linked'], plain_ms, work, None, eager_ms=eager,
+        share=bound_ms / times['linked'],
+        per_launch_ms=[times['emit'], times['consume']],
+        walking_ms=times['walking'],
+        walking_per_launch_ms=[times['first walk'], times['second walk']],
+        overflowed=linked['overflowed'], max_count=linked['max_count'],
+        capacity=linked['capacity'], resources=resources,
+        cavity=figures, profiles=profiles, overflows=overflows,
+        path='cavity nx=400, one eval (2 launches, linked: the density '
+        'emits, the momentum with the no-slip wall consumes)'),
+        name='tvf_pair wall')
+    kernels['gtvf_pair wall'] = dict(_entry(
+        'gtvf_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
+        launches['gtvf_pair'], gtvf_err, gtvf_ms, gtvf_plain, gtvf_work,
+        None, eager_ms=gtvf_eager,
+        path='cavity nx=400, the wall\'s 2 calls of one eval'),
+        name='gtvf_pair wall')
+
+
 def _kinds_phase():
     """Each later kind (``kind_check.NEW_KINDS``) in every pair kernel
     that takes kinds against its plain version, in both dtypes
@@ -1806,6 +2087,9 @@ def main():
     _tvf_phase(runs, kernels, bins)
     for run in TG_RUNS:
         _tg_scheme_phase(runs, kernels, run)
+
+    # the Adami walls on tvf_pair and the TVF wall examples
+    _tvf_wall_phase(runs, kernels, bins)
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls

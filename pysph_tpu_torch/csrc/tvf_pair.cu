@@ -2,16 +2,19 @@
 // csrc/cell_walk.cuh over the cell-sorted packed sources, on an open or a
 // periodic grid.
 //
-// Replaces pysph_tpu/ops/resident.py::_pair_kernel_resident on the path
-// of the Taylor-Green vortex (examples/taylor_green.py, TVFScheme), where
-// the TPU runs it in resident mode on a box periodic in x and y.  The
-// scheme's groups give two phase sets, one device functor each:
+// Replaces pysph_tpu/ops/resident.py::_pair_kernel_resident on the paths
+// of TVFScheme: the Taylor-Green vortex (examples/taylor_green.py), where
+// the TPU runs it in resident mode on a box periodic in x and y, and the
+// wall examples (poiseuille, couette, cavity, rayleigh_taylor,
+// periodic_cylinders: Adami's walls, on a grid periodic in x or open).
+// The scheme's groups give two phase sets, one device functor each:
 //
 //   Density    SummationDensity                       -> V rho
 //   Momentum   MomentumEquationPressureGradient (TVF, with the background
 //              pressure pb), MomentumEquationViscosity,
 //              MomentumEquationArtificialStress,
-//              MomentumEquationArtificialViscosity
+//              MomentumEquationArtificialViscosity,
+//              SolidWallNoSlipBC (the template flag WALL)
 //                                          -> au av aw auhat avhat awhat
 //
 // A per-source term mask (ops/tvf_pair.py) says which equations a source
@@ -28,7 +31,9 @@
 //   plane 1: m rho p V
 //   plane 2: u v w 0
 //   plane 3: uhat vhat what 0
-// of which a source packs plane 0 and those its terms read (the density
+//   plane 4: ug vg wg 0
+// (plane 4: a wall's ghost velocity, which SolidWallNoSlipBC reads), of
+// which a source packs plane 0 and those its terms read (the density
 // launch plane 0 only).  Each lane walks its own cells cx - 1 .. cx + 1 in
 // each stencil row; on a periodic grid (the template flag PERIODIC) the
 // rows wrap and a row that crosses the grid's end on x is two ranges
@@ -55,13 +60,23 @@
 // nbr[c * n_dest + p], a position in the numbering of all sources' copies
 // (source s's position k is base_s + k), for c < cap; count[p] is the
 // dest's number of pairs, which may exceed cap, and each such dest adds
-// one to *overflow.  kConsume (the momentum launch) packs only planes 1-3
-// (m rho p V, the velocities: fresh after the density and EOS groups) and
-// reads plane 0 from the density launch's copy: a warp whose dests all
+// one to *overflow.  kConsume (the momentum launch) packs only planes 1-4
+// (m rho p V, the velocities, the wall's ghost velocity: fresh after the
+// density, EOS and wall groups) and reads plane 0 from the density
+// launch's copy: a warp whose dests all
 // fit reads its lanes' listed records in list order, kListBatch loads in
 // flight a lane, and hands each to the same pair_of and functor as the
-// walk, so its sums are the walk's bit for bit; a warp with a dest past
-// cap walks as kWalk.
+// walk, so its sums are the walk's bit for bit (built with ptxas's FMA
+// contraction off, ops/build.py EXTRA_FLAGS: ptxas fuses a multiply and
+// an add as each launch's schedule allows, which differed between the two
+// launches on the wall examples); a warp with a dest past cap walks as
+// kWalk.
+//
+// The wall (WALL).  SolidWallNoSlipBC is a runtime term like the others,
+// but only in the Momentum instantiations with the template flag WALL,
+// which the launch function picks where a source takes it: a momentum
+// launch with no wall source (the Taylor-Green vortex) runs the code it
+// ran before the term came, with the same registers.
 //
 // What bounds it: operations, and in each mode something else first.  A
 // walking launch tests the candidates of the 3x3-cell stencil (~98 a
@@ -91,13 +106,14 @@
 // take them, and a type in an unnamed namespace would give those
 // functions internal linkage.  (kMaxSources, 4, is csrc/wcsph_terms.cuh's.)
 // term bits, as ops/tvf_pair.py
-constexpr int kSden = 1, kMpg = 2, kVisc = 4, kMas = 8, kAvis = 16;
+constexpr int kSden = 1, kMpg = 2, kVisc = 4, kMas = 8, kAvis = 16,
+              kNoSlip = 32;
 // outputs in the order of ops/tvf_pair.py OUTPUTS
 enum TvfOut { oV, oRho, oAu, oAv, oAw, oAuhat, oAvhat, oAwhat, kTvfOut };
 // phase ids: the index of the phase set in ops/tvf_pair.py PHASE_SETS
 enum TvfPhase { kDensity, kMomentum };
 // the record planes of the packed copy (above)
-enum TvfPlane { kPos, kMass, kVel, kHat, kTvfPlanes };
+enum TvfPlane { kPos, kMass, kVel, kHat, kGhost, kTvfPlanes };
 // the modes, as ops/tvf_pair.py WALK, EMIT, CONSUME
 constexpr int kWalk = 0, kEmit = 1, kConsume = 2;
 // kConsume: listed entries whose loads a lane has in flight (at 5
@@ -129,6 +145,7 @@ struct TvfSrc {
   const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double pb, nu, alpha, c0;   // MPG's pb, VISC's nu, AVIS's alpha and c0
+  double noslip_nu;           // NOSLIP's nu
   int32_t terms;
   int32_t base;  // its position 0 in the neighbour list's numbering
 };
@@ -224,7 +241,7 @@ __device__ __forceinline__ void put(const TvfArgs& a, int k, int i, T acc,
   static_cast<T*>(a.out[k])[i] = wm ? pre + acc : pre;
 }
 
-__device__ __forceinline__ int all_terms(const TvfArgs& a) {
+__host__ __device__ __forceinline__ int all_terms(const TvfArgs& a) {
   int t = 0;
   for (int s = 0; s < a.n_src; ++s) t |= a.src[s].terms;
   return t;
@@ -249,22 +266,24 @@ struct Density {
 };
 
 // The dest's parts are loaded once: 1 / m, (1 / V)^2, rho, p, the
-// velocity, and for the artificial stress rho u[c] (uhat - u)[d].
-template <typename T>
+// velocity, and for the artificial stress rho u[c] (uhat - u)[d].  WALL:
+// the instantiation that takes SolidWallNoSlipBC (kNoSlip).
+template <typename T, bool WALL>
 struct Momentum {
+  static constexpr int kWall = WALL ? kNoSlip : 0;
   T mi1 = 0, vi2 = 0, rhoi = 0, pi = 0;
   T ui[3] = {}, ai[3][3] = {};  // ai[c][d] = rhoi ui[c] (uhati - ui)[d]
   T au = 0, av = 0, aw = 0, auhat = 0, avhat = 0, awhat = 0;
   __device__ void load(const TvfArgs& a, int i) {
     const int t = all_terms(a);
-    if (t & (kMpg | kVisc | kMas)) {
+    if (t & (kMpg | kVisc | kMas | kWall)) {
       mi1 = T(1) / ld<T>(a.m, i);
       const T vi = T(1) / ld<T>(a.V, i);
       vi2 = vi * vi;
     }
     rhoi = ld<T>(a.rho, i);
     if (t & kMpg) pi = ld<T>(a.p, i);
-    if (t & (kVisc | kMas | kAvis)) {
+    if (t & (kVisc | kMas | kAvis | kWall)) {
       ui[0] = ld<T>(a.u, i);
       ui[1] = ld<T>(a.v, i);
       ui[2] = ld<T>(a.w, i);
@@ -336,6 +355,16 @@ struct Momentum {
         av += -piij * q.dwy;
         aw += -piij * q.dwz;
       }
+    }
+    if (WALL && (S.terms & kNoSlip)) {  // SolidWallNoSlipBC
+      const Rec<T> ghost = rec<T>(S.plane[kGhost], q.k);  // ug vg wg
+      const T etai = T(S.noslip_nu) * rhoi, etaj = T(S.noslip_nu) * rhoj;
+      const T etaij = T(2) * (etai * etaj) / (etai + etaj);
+      const T fij = q.xij * q.dwx + q.yij * q.dwy + q.zij * q.dwz;
+      const T tmp = vfac * (etaij * fij / (q.r2 + eps));
+      au += tmp * (ui[0] - ghost.a);
+      av += tmp * (ui[1] - ghost.b);
+      aw += tmp * (ui[2] - ghost.c);
     }
   }
   __device__ void store(const TvfArgs& a, int i, bool wm) {
@@ -442,24 +471,34 @@ __global__ void __launch_bounds__(
   if (active) ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
 }
 
-// the density launch walks or emits, the momentum launch walks or
-// consumes
+constexpr int kThreads = 128;
+
+// the momentum launch walks or consumes
+template <typename T, int KIND, bool PERIODIC, bool WALL>
+void launch_momentum(const TvfArgs& a, int blocks, cudaStream_t stream) {
+  if (a.mode == kConsume)
+    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T, WALL>, kConsume>
+        <<<blocks, kThreads, 0, stream>>>(a);
+  else
+    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T, WALL>, kWalk>
+        <<<blocks, kThreads, 0, stream>>>(a);
+}
+
+// the density launch walks or emits; the momentum launch takes the WALL
+// instantiation where a source takes SolidWallNoSlipBC
 template <typename T, int KIND, bool PERIODIC>
 cudaError_t launch_walk(const TvfArgs& a, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (a.n_dest + threads - 1) / threads;
+  const int blocks = (a.n_dest + kThreads - 1) / kThreads;
   if (a.phase == kDensity && a.mode == kEmit)
     tvf_pair_kernel<T, KIND, PERIODIC, Density<T>, kEmit>
-        <<<blocks, threads, 0, stream>>>(a);
+        <<<blocks, kThreads, 0, stream>>>(a);
   else if (a.phase == kDensity)
     tvf_pair_kernel<T, KIND, PERIODIC, Density<T>, kWalk>
-        <<<blocks, threads, 0, stream>>>(a);
-  else if (a.mode == kConsume)
-    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T>, kConsume>
-        <<<blocks, threads, 0, stream>>>(a);
+        <<<blocks, kThreads, 0, stream>>>(a);
+  else if (all_terms(a) & kNoSlip)
+    launch_momentum<T, KIND, PERIODIC, true>(a, blocks, stream);
   else
-    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T>, kWalk>
-        <<<blocks, threads, 0, stream>>>(a);
+    launch_momentum<T, KIND, PERIODIC, false>(a, blocks, stream);
   return cudaGetLastError();
 }
 

@@ -63,8 +63,7 @@ class DamBreak2D(Application):
             rho0=ro, gy=-g, h0=None, c0=co, pref=None)
         return SchemeChooser(
             default='wcsph', wcsph=wcsph,
-            edac=NotPortedScheme('edac', 'ROADMAP Queue 1 item 28, '
-                                 'remaining physics'),
+            edac=NotPortedScheme('edac', 'ROADMAP Queue 1 item 35'),
             iisph=NotPortedScheme('iisph', 'ROADMAP Queue 1 item 26'),
             gtvf=gtvf)
 

@@ -49,7 +49,7 @@ p0 = c0 ** 2 * rho0
 
 #: the reference's other schemes: the ROADMAP items that port them
 _NOT_PORTED = {
-    'edac': 'ROADMAP Queue 1 item 28, remaining physics',
+    'edac': 'ROADMAP Queue 1 item 35',
     'iisph': 'ROADMAP Queue 1 item 26',
     'crksph': 'ROADMAP Queue 1 item 28, remaining physics',
     'pcisph': 'ROADMAP Queue 1 item 28, remaining physics',

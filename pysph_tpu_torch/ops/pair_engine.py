@@ -24,11 +24,12 @@ Four kernels take a dest's pair phases, all its sources in one call:
   ``ContinuitySolid``; ``CorrectDensity``; ``VolumeSummation`` +
   ``SolidWallPressureBC``; ``MomentumEquationPressureGradient`` +
   ``MomentumEquationViscosity`` + ``MomentumEquationArtificialStress``);
-- ``tvf_pair`` (``ops/tvf_pair.py``, the Taylor-Green vortex's TVF
-  groups): the equations of a dest fall in one of its two phase sets
-  (``SummationDensity``; the TVF ``MomentumEquationPressureGradient``,
-  ``MomentumEquationViscosity``, ``MomentumEquationArtificialStress``
-  and ``MomentumEquationArtificialViscosity``).
+- ``tvf_pair`` (``ops/tvf_pair.py``, ``TVFScheme``'s groups: the
+  Taylor-Green vortex and the wall examples): the equations of a dest
+  fall in one of its two phase sets (``SummationDensity``; the TVF
+  ``MomentumEquationPressureGradient``, ``MomentumEquationViscosity``,
+  ``MomentumEquationArtificialStress``,
+  ``MomentumEquationArtificialViscosity`` and ``SolidWallNoSlipBC``).
 
 Every kernel takes every kernel with a ``kernel_kind`` (not the ``_1D``
 ones: ROADMAP Queue 1 item 28), and every kernel walks a periodic grid
@@ -205,12 +206,13 @@ def _tvf_terms():
         MomentumEquationArtificialStress,
         MomentumEquationArtificialViscosity,
         MomentumEquationPressureGradient, MomentumEquationViscosity,
-        SummationDensity)
+        SolidWallNoSlipBC, SummationDensity)
     return {SummationDensity: _tp.SDEN,
             MomentumEquationPressureGradient: _tp.MPG,
             MomentumEquationViscosity: _tp.VISC,
             MomentumEquationArtificialStress: _tp.MAS,
-            MomentumEquationArtificialViscosity: _tp.AVIS}
+            MomentumEquationArtificialViscosity: _tp.AVIS,
+            SolidWallNoSlipBC: _tp.NOSLIP}
 
 
 def _check_kind(kernel):
@@ -311,6 +313,8 @@ def _plan_tvf(dest, sources, kernel):
                 params['nu'] = eq.nu
             elif term_of[type(eq)] == _tp.AVIS:
                 params.update(alpha=eq.alpha, c0=eq.c0)
+            elif term_of[type(eq)] == _tp.NOSLIP:
+                params['noslip_nu'] = eq.nu
         plan_sources.append(_tp.TvfSource(src, t, tuple(eqs), **params))
         terms |= t
     if _tp.phase_of(terms) is None:

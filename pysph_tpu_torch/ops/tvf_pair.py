@@ -12,12 +12,15 @@ DENSITY     SDEN (``SummationDensity``)                   V rho
 MOMENTUM    MPG (``MomentumEquationPressureGradient``),   au av aw
             VISC (``MomentumEquationViscosity``),         auhat avhat
             MAS (``MomentumEquationArtificialStress``),   awhat
-            AVIS (``MomentumEquationArtificialViscosity``)
+            AVIS (``MomentumEquationArtificialViscosity``),
+            NOSLIP (``SolidWallNoSlipBC``)
 ==========  ============================================  ============
 
-(the equations of ``sph/wc/transport_velocity.py``).  Each output is
-``pre + sum`` on rows under the write mask and ``pre`` elsewhere; every
-read sees the value from before the phase.  Any kernel of
+(the equations of ``sph/wc/transport_velocity.py``; ``TVFScheme`` gives
+a wall source MPG and NOSLIP, whose ghost velocity ``ug vg wg`` is a
+plane of its own).  Each output is ``pre + sum`` on rows under the
+write mask and ``pre`` elsewhere; every read sees the value from before
+the phase.  Any kernel of
 ``kernel_kind`` (``QuinticSpline`` on the path).
 
 The grid may be periodic (``base/cell_grid.py``): the kernel then walks
@@ -32,10 +35,11 @@ y z h`` (``ops/pair_engine.py::link_pairs``), the two plans share a
 ``emit=True`` and returns, beside its output, a ``Handoff``: its
 sources' packed ``{x y z h}`` copies and the neighbour list, up to
 ``CAPACITY[dim]`` entries a dest.  The momentum call takes it
-(``handoff=``): it packs only the planes 1-3 (fresh after the density
-and EOS groups) and reads the listed records instead of walking, so its
-sums are the walk's bit for bit; a warp holding a dest past the
-capacity walks.  The density launch counts such dests on the card
+(``handoff=``): it packs only the planes 1-4 (fresh after the density,
+EOS and wall groups: the wall's ``p``, ``rho`` and ``ug`` change
+between the two calls) and reads the listed records instead of
+walking, so its sums are the walk's bit for bit; a warp holding a dest
+past the capacity walks.  The density launch counts such dests on the card
 (``overflowed``).  A linked momentum plan run without its hand-off
 raises.
 
@@ -62,9 +66,9 @@ from pysph_tpu_torch.ops import build, cell_pack, pair_link
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.ops.pair_link import CAPACITY, Handoff
 
-SDEN, MPG, VISC, MAS, AVIS = (1 << k for k in range(5))
+SDEN, MPG, VISC, MAS, AVIS, NOSLIP = (1 << k for k in range(6))
 #: phase sets, indexed by the phase id of the CUDA kernel
-PHASE_SETS = (SDEN, MPG | VISC | MAS | AVIS)
+PHASE_SETS = (SDEN, MPG | VISC | MAS | AVIS | NOSLIP)
 DENSITY, MOMENTUM = 0, 1
 #: the kernel's modes (csrc/tvf_pair.cu kWalk, kEmit, kConsume)
 WALK, EMIT, CONSUME = 0, 1, 2
@@ -72,7 +76,7 @@ MAX_SOURCES = 4
 OUTPUTS = ('V', 'rho', 'au', 'av', 'aw', 'auhat', 'avhat', 'awhat')
 _ACC = ('au', 'av', 'aw')
 TERM_OUTPUTS = {SDEN: ('V', 'rho'), MPG: _ACC + ('auhat', 'avhat', 'awhat'),
-                VISC: _ACC, MAS: _ACC, AVIS: _ACC}
+                VISC: _ACC, MAS: _ACC, AVIS: _ACC, NOSLIP: _ACC}
 
 # props each term reads beyond x, y, z, h: (dest, source)
 _VEL = ('u', 'v', 'w')
@@ -82,19 +86,23 @@ _TERM_READS = {
     MPG: (('m', 'rho', 'p', 'V'), ('rho', 'p', 'V')),
     VISC: (('m', 'rho', 'V') + _VEL, ('rho', 'V') + _VEL),
     MAS: (('m', 'rho', 'V') + _VEL + _HAT, ('rho', 'V') + _VEL + _HAT),
-    AVIS: (('rho',) + _VEL, ('m', 'rho') + _VEL)}
+    AVIS: (('rho',) + _VEL, ('m', 'rho') + _VEL),
+    NOSLIP: (('m', 'rho', 'V') + _VEL, ('rho', 'V', 'ug', 'vg', 'wg'))}
 _DEST_PROPS = ('x', 'y', 'z', 'h', 'm', 'rho', 'p', 'V') + _VEL + _HAT
 #: record planes of the packed copy (csrc/tvf_pair.cu): the density
-#: launch packs plane 0 only, the momentum launch planes 0 to 3
+#: launch packs plane 0 only, the momentum launch planes 0 to 4, each
+#: where the source's terms read one of its props (plane 4, the wall's
+#: ghost velocity, for NOSLIP alone)
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('m', 'rho', 'p', 'V'),
-                ('u', 'v', 'w', None), ('uhat', 'vhat', 'what', None))
+                ('u', 'v', 'w', None), ('uhat', 'vhat', 'what', None),
+                ('ug', 'vg', 'wg', None))
 
 
 class TvfSource(NamedTuple):
     """One source of a dest's phase set: its term mask, the ``Equation``
     objects the terms stand for (the plain version runs them) and their
     constants: MPG's background pressure ``pb``, VISC's ``nu``, AVIS's
-    ``alpha`` and ``c0``."""
+    ``alpha`` and ``c0``, NOSLIP's ``noslip_nu``."""
     name: str
     terms: int
     equations: tuple
@@ -102,6 +110,7 @@ class TvfSource(NamedTuple):
     nu: float = 0.0
     alpha: float = 0.0
     c0: float = 0.0
+    noslip_nu: float = 0.0
 
 
 def phase_of(terms):
@@ -189,6 +198,7 @@ class _SrcArgs(ctypes.Structure):
                 ('cell_end', ctypes.c_void_p),
                 ('pb', ctypes.c_double), ('nu', ctypes.c_double),
                 ('alpha', ctypes.c_double), ('c0', ctypes.c_double),
+                ('noslip_nu', ctypes.c_double),
                 ('terms', ctypes.c_int32), ('base', ctypes.c_int32)]
 
 
@@ -270,6 +280,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
                                  'cell_start')
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
         sa.pb, sa.nu, sa.alpha, sa.c0 = ts.pb, ts.nu, ts.alpha, ts.c0
+        sa.noslip_nu = ts.noslip_nu
         sa.terms = ts.terms
         sa.base = base
         base += src['x'].shape[0]

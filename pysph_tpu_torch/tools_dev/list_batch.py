@@ -61,7 +61,8 @@ def _use(name, own, extra):
     """Let the next launch of ``name`` load the variant built with
     ``extra``."""
     build.EXTRA_FLAGS[name] = own + tuple(extra)
-    build._loaded.pop(name, None)
+    # the default library's key (ops/build.py::load_library)
+    build._loaded.pop((name,), None)
 
 
 def main(name='delta_pair', rounds=7, reps=20):
@@ -88,7 +89,7 @@ def main(name='delta_pair', rounds=7, reps=20):
                 raise AssertionError('%s %s: the consuming call differs '
                                      'from the walk' % (name, v))
             # the graphs hold this variant's kernels; keep its library
-            held.append((build._loaded[name], handoff))
+            held.append((build._loaded[(name,)], handoff))
             graphs[v, 'consume'] = common.capture(
                 lambda h=handoff: op(*second, handoff=h))
             graphs[v, 'emit'] = common.capture(
@@ -101,7 +102,7 @@ def main(name='delta_pair', rounds=7, reps=20):
         build.EXTRA_FLAGS.pop(name, None)
         if own:
             build.EXTRA_FLAGS[name] = own
-        build._loaded.pop(name, None)
+        build._loaded.pop((name,), None)
     times = {k: [] for k in graphs}
     for _ in range(rounds):
         for k, graph in graphs.items():

@@ -92,14 +92,15 @@ FUSED_PAIR_FLOPS = 65
 BIN_TEST_FLOPS = 16
 BIN_CELL_FLOPS = 5
 #: tvf_pair.cu: per pair in support, xij, r2, hij, rinv, rij, h1, fac,
-#: WIJ, the gradient's factor and DWIJ (pair_of, :193-221) before the
-#: shape function; each term (:245-353), and the momentum terms' shared
-#: 1 / Vj, their volume factor, EPS and vij (:287-294); the minimum
-#: image, d - L rint(d / L), on each periodic axis, in every support
-#: test (cell_walk.cuh) and in the body
+#: WIJ, the gradient's factor and DWIJ (pair_of) before the shape
+#: function; each term (the functors' pair bodies; NOSLIP, the no-slip
+#: wall: etai, etaj, etaij, Fij, its factor and u - ug, 24), and the
+#: momentum terms' shared 1 / Vj, their volume factor, EPS and vij; the
+#: minimum image, d - L rint(d / L), on each periodic axis, in every
+#: support test (cell_walk.cuh) and in the body
 TVF_PAIR_FLOPS = 30
 TVF_TERM_FLOPS = {tp.SDEN: 3, tp.MPG: 25, tp.VISC: 25, tp.MAS: 57,
-                  tp.AVIS: 25}
+                  tp.AVIS: 25, tp.NOSLIP: 24}
 TVF_MOMENTUM_FLOPS = 9
 IMAGE_FLOPS = 4
 

@@ -19,7 +19,9 @@ runs its delta-SPH groups on the torch pair engine inside the graphs
 Taylor-Green vortex runs on a periodic box, whose particles wrap across
 it inside the chunks, under its three schemes (``tvf``; ``wcsph`` on
 both kernel engines, and with each of ``WCSPH_OPTIONS``, the scheme's
-other flags and kernels; ``gtvf``, two evaluators a step).
+other flags and kernels; ``gtvf``, two evaluators a step); the TVF wall
+examples run the Adami walls, the cavity on an open grid, Poiseuille's
+channel periodic in x.
 
 ``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
 step (host clock at each step's start, the card synchronised) or in
@@ -27,8 +29,8 @@ chunks (host clock after each chunk's read, which waits for the card,
 over the chunks after the capture).  ``main`` prints one JSON line per
 full-width run of ``STEPS`` steps and binning configuration of
 ``CONFIGS``, both ways, with the binnings that ran, tagged with
-``label`` and the card's name and power limit (the delta-SPH dam break
-and the Taylor-Green runs under ``reuse`` only).
+``label`` and the card's name and power limit (the delta-SPH dam break,
+the Taylor-Green runs and the wall examples under ``reuse`` only).
 
 ``CONFIGS`` are the reference's two binning configurations, set in code
 on an app after its setup (``configure``): ``reuse`` (the default: a
@@ -46,8 +48,12 @@ import numpy as np
 import torch
 
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
+from pysph_tpu_torch.examples.cavity import LidDrivenCavity
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
+from pysph_tpu_torch.examples.periodic_cylinders import PeriodicCylinders
+from pysph_tpu_torch.examples.poiseuille import PoiseuilleFlow
+from pysph_tpu_torch.examples.rayleigh_taylor import RayleighTaylor
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen
 from pysph_tpu_torch.sph import integrator as _integrator
 from pysph_tpu_torch.sph import integrator_step as _steps
@@ -90,7 +96,16 @@ PATHS = {
                                          'gtvf')),
     'dam_break_3d dx=0.02 C4': dict(
         dx=0.02, extra=('--kernel', 'WendlandQuinticC4')),
+    # the TVF wall examples: the lid-driven cavity at a convergence
+    # study's resolution, and the two runs whose sizes are the
+    # reference's constants
+    'cavity nx=400': dict(dx=None, cls=LidDrivenCavity,
+                          extra=('--nx', '400')),
+    'rayleigh_taylor': dict(dx=None, cls=RayleighTaylor),
+    'periodic_cylinders': dict(dx=None, cls=PeriodicCylinders),
 }
+#: the TVF wall examples' paths
+WALL_PATHS = ('cavity nx=400', 'rayleigh_taylor', 'periodic_cylinders')
 
 #: WCSPHScheme's other flags and kernels on the Taylor-Green vortex:
 #: {name: the example's arguments}
@@ -114,7 +129,7 @@ REUSE_ONLY = ('dam_break_3d dx=0.02 delta', 'taylor_green nx=400',
               'taylor_green wcsph nx=400', 'taylor_green wcsph nx=400 dense',
               'taylor_green gtvf nx=400', 'dam_break_3d dx=0.02 C4') + tuple(
                   'taylor_green wcsph %s nx=400' % name
-                  for name in TIMED_OPTIONS)
+                  for name in TIMED_OPTIONS) + WALL_PATHS
 
 
 def configs(path):
@@ -217,6 +232,8 @@ GATES.update({
         'dense'), None),
     'taylor_green gtvf nx=40': (TaylorGreen, (
         '--nx', '40', '--perturb', '0.1', '--scheme', 'gtvf'), None),
+    'cavity nx=20': (LidDrivenCavity, ('--nx', '20'), None),
+    'poiseuille': (PoiseuilleFlow, (), None),
 })
 GATES.update({
     'dam_break_2d wcsph dx=0.02 %s' % name[:-len('Integrator')]: (

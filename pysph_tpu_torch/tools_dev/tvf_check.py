@@ -1,6 +1,6 @@
 """The Taylor-Green vortex's pair calls, for the card: ``tvf_pair``'s,
 and those of its other schemes (``wcsph_pair``, ``dense_pair``,
-``gtvf_pair``).
+``gtvf_pair``); and those of the TVF wall examples.
 
 ``calls(nx, dtype, edges=False, scheme='tvf', engine='kernel')``: the
 pair calls of one eval of ``examples/taylor_green.py --scheme <scheme>``
@@ -12,7 +12,18 @@ and the pressure (numpy ``default_rng``; the props the scheme's arrays
 hold).  With ``edges``, a seeded tenth of the particles is
 moved onto the box's edges and corners (x and y each 0, L, or L less one
 part in 1e7), so that the split x ranges at the grid's ends and the
-wrapped rows are walked by many lanes.  ``compare(calls, tol)`` holds
+wrapped rows are walked by many lanes.
+
+``wall_calls(example, dtype, edges=False, extra=())``: the pair calls of
+one eval of a TVF wall example (``WALL_EXAMPLES``: ``cavity`` on an open
+grid, ``poiseuille``, ``couette`` and ``periodic_cylinders`` on a grid
+periodic in x, ``rayleigh_taylor``, two fluids in a closed box), each
+fluid's positions jittered by a tenth of dx, its velocities and
+transport velocities seeded, and, with ``edges``, a tenth of it on the
+edges and corners of the fluid's box; after one evaluation, so that the
+wall's ``p``, ``rho`` and ghost velocity are those its groups give.
+
+``compare(calls, tol)`` holds
 the kernel to its plain version on them; ``check_linked(calls, label)``
 holds the linked pair (the density call emitting its neighbour list,
 the momentum call consuming it) to the two walking calls bit for bit,
@@ -25,6 +36,8 @@ import re
 
 import numpy as np
 import torch
+
+import importlib
 
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen
 from pysph_tpu_torch.ops import cell_pack, pair_link
@@ -106,16 +119,107 @@ def calls(nx, dtype, edges=False, scheme='tvf', engine='kernel', flags=(),
     return plan_calls(s, range(len(s.acceleration_evals))), n, moved
 
 
+#: the TVF wall examples: {name: (application class, its wall array)}
+WALL_EXAMPLES = {
+    'cavity': ('LidDrivenCavity', 'solid'),
+    'poiseuille': ('PoiseuilleFlow', 'channel'),
+    'couette': ('CouetteFlow', 'channel'),
+    'rayleigh_taylor': ('RayleighTaylor', 'solid'),
+    'periodic_cylinders': ('PeriodicCylinders', 'solid'),
+}
+
+
+def wall_app(example, dtype, steps=0, extra=()):
+    """A TVF wall example's application set up on the card."""
+    name = WALL_EXAMPLES[example][0]
+    cls = getattr(importlib.import_module(
+        'pysph_tpu_torch.examples.' + example), name)
+    return make_app(None, dtype, steps=steps, cls=cls, extra=extra)
+
+
+def _fluid_box(st):
+    """The box of a fluid's lattice: its extreme positions widened by
+    half its spacing, for each of x and y."""
+    dx = float(torch.sqrt(st['m'][0] / st['rho'][0]))
+    return [(float(st[c].min()) - 0.5 * dx, float(st[c].max()) + 0.5 * dx)
+            for c in 'xy'], dx
+
+
+def wall_calls(example, dtype, edges=False, extra=(), seed=2468):
+    """(calls, particles, particles moved onto the edges) of one eval of
+    the wall example ``example`` (with its further arguments ``extra``)
+    on the card: each fluid's positions jittered by up to a tenth of dx,
+    its u, v, uhat, vhat seeded and its rho by 1% (numpy
+    ``default_rng``); with ``edges``, a seeded tenth of each fluid moved
+    onto the edges and corners of its lattice's box (each of x and y set
+    to the box's lower end, upper end, or upper end less one part in
+    1e7, or kept); then one evaluation, whose groups give the wall its
+    ghost velocity, pressure and density, and the calls on that state."""
+    s = wall_app(example, dtype, extra=extra).solver
+    wall = WALL_EXAMPLES[example][1]
+    rng = np.random.default_rng(seed)
+    moved = 0
+    for name, st in s.states.items():
+        if name == wall:
+            continue
+        n = st['x'].shape[0]
+        box, dx = _fluid_box(st)
+
+        def t(v):
+            return torch.as_tensor(v, dtype=dtype, device=st['x'].device)
+
+        for c in ('x', 'y'):
+            st[c] = st[c] + t(0.1 * dx * rng.uniform(-1, 1, n))
+        for c in ('u', 'v', 'uhat', 'vhat'):
+            st[c] = t(rng.normal(0.0, 0.5, n))
+        st['rho'] = st['rho'] * t(1.0 + 0.01 * rng.normal(size=n))
+        if edges:
+            pick = rng.random(n) < 0.1
+            for d, c in enumerate('xy'):
+                lo, hi = box[d]
+                where = rng.integers(0, 4, n)
+                vals = np.choose(np.minimum(where, 2),
+                                 [lo, hi, hi - (hi - lo) * 1e-7])
+                x = st[c].cpu().numpy().copy()
+                sel = pick & (where < 3)
+                x[sel] = vals[sel]
+                st[c] = t(x)
+            moved += int(pick.sum())
+    s.integrator.initial_acceleration(s.states, 0.0, s.dt)
+    n = sum(st['x'].shape[0] for st in s.states.values())
+    return plan_calls(s, range(len(s.acceleration_evals))), n, moved
+
+
+def reference(plan, args):
+    """The plain version of ``plan``'s call on ``args``; on the card with
+    torch's deterministic algorithms.  Its sums are ``index_add_`` calls,
+    which on the card otherwise add with atomics in an order that
+    changes run to run: at the edge cases' stacked corners at nx=400
+    that moved a float32 comparison by up to 1e-4 of max|ref| between
+    runs (``taylor_green --scheme gtvf``, eval 1 ``rho``: 6e-5 to 1.2e-4
+    in three runs; deterministic, 8.1e-5 every run)."""
+    if not args[0]['x'].is_cuda:
+        return plan.reference(*args)
+    before = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return plan.reference(*args)
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=warn)
+
+
 def compare(calls_, tol, op=None):
     """The largest absolute and scaled errors of the kernel (``op``, else
-    the plan's) against its plain version over the calls' outputs (over
-    the finite entries of the plain version, whose infinities the kernel
-    must match exactly); raises past ``tol`` of max|ref|."""
+    the plan's) against its plain version (``reference``) over the calls'
+    outputs (over the finite entries of the plain version, whose
+    infinities the kernel must match exactly); raises past ``tol`` of
+    max|ref|."""
     worst_abs = worst = 0.0
     for _, dest, plan, args in calls_:
         kernel = op or plan.op
         got = kernel(*args)
-        ref = plan.reference(*args)
+        ref = reference(plan, args)
         torch.cuda.synchronize()
         for p in plan.outputs:
             fin = torch.isfinite(ref[p])
@@ -126,7 +230,7 @@ def compare(calls_, tol, op=None):
             if not bool(fin.any()):
                 continue
             scale = max(float(ref[p][fin].abs().max()), 1e-300)
-            err = float((got[p][fin] - ref[p][fin]).abs().max())
+            err = float((got[p][fin].double() - ref[p][fin]).abs().max())
             if not err <= tol * scale:
                 raise AssertionError('%s %s.%s: error %.3g > %.0e * %.3g'
                                      % (kernel.__name__, dest, p, err, tol,
@@ -135,23 +239,26 @@ def compare(calls_, tol, op=None):
     return worst_abs, worst
 
 
-_KERNEL = re.compile(r'tvf_pair_kernelI([fd])Li3ELb1E\w*?(Density|Momentum)'
-                     r'I[fd]EELi(\d)E')
+_KERNEL = re.compile(r'tvf_pair_kernelI([fd])Li3ELb([01])E\w*?'
+                     r'(Density|Momentum)I[fd](?:Lb([01])E)?EELi(\d)E')
 _MODES = {tp.WALK: 'walk', tp.EMIT: 'emit', tp.CONSUME: 'consume'}
 
 
-def resources(lib):
-    """{'<dtype> <phase set> <mode>': (registers, spill store bytes, spill
-    load bytes)} of the path's kernels (``QuinticSpline``, periodic) in
-    the built ``tvf_pair`` library ``lib`` (``build.resources``)."""
+def resources(lib, periodic=True):
+    """{'<dtype> <phase set>[ wall] <mode>': (registers, spill store
+    bytes, spill load bytes)} of the ``QuinticSpline`` kernels on a
+    periodic grid (``periodic``; else on an open one) in the built
+    ``tvf_pair`` library ``lib`` (``build.resources``); ``wall``: the
+    momentum instantiations that take ``SolidWallNoSlipBC``."""
     from pysph_tpu_torch.ops import build
     out = {}
     for name, res in build.resources(lib).items():
         m = _KERNEL.search(name)
-        if m:
-            out['%s %s %s' % ('float32' if m.group(1) == 'f' else 'float64',
-                              m.group(2).lower(),
-                              _MODES[int(m.group(3))])] = res
+        if m and m.group(2) == str(int(periodic)):
+            out['%s %s%s %s' % (
+                'float32' if m.group(1) == 'f' else 'float64',
+                m.group(3).lower(), ' wall' * (m.group(4) == '1'),
+                _MODES[int(m.group(5))])] = res
     return dict(sorted(out.items()))
 
 
@@ -161,7 +268,7 @@ def _within(label, got, ref, tol, failures):
     worst = 0.0
     for p, want in ref.items():
         scale = max(float(want.abs().max()), 1e-300)
-        err = float((got[p] - want).abs().max())
+        err = float((got[p].double() - want).abs().max())
         if not err <= tol * scale:
             failures.append('%s.%s: error %.3g > %.0e * %.3g' % (
                 label, p, err, tol, scale))
@@ -216,7 +323,7 @@ def check_linked(calls, label, tol, capacity=None):
         for plan, args, got in ((dplan, dargs, density),
                                 (mplan, margs, momentum)):
             found['max_abs_err'] = max(found['max_abs_err'], _within(
-                dest, got, plan.reference(*args), tol, failures))
+                dest, got, reference(plan, args), tol, failures))
         found['linked'] += 1
         found['dests'] += n
         found['pairs'] += int(want.sum())

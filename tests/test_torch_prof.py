@@ -1,17 +1,21 @@
 """The pair stub (``ops/pair_stub.py``), the ported profiling tools'
 inner functions and the work counter (``tools_dev/roofline.py``) on the
 CPU, at dam_break_3d dx=0.12, held against ``pysph_tpu`` and a
-brute-force numpy count."""
+brute-force numpy count; and the TVF wall examples' entries of the timed
+paths (``tools_dev/time_chunks.py``), set up on the CPU."""
 
 import numpy as np
 import pytest
 import torch
 
 from pysph_tpu.examples.dam_break_3d import DamBreak3D as JaxDamBreak3D
+from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import pair_stub as ps
+from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.sph.equation import Group
-from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
+from pysph_tpu_torch.tools_dev import (
+    prof_dma, prof_phases, roofline, time_chunks, time_walks)
 from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
 
 DX = 0.12
@@ -155,3 +159,53 @@ def test_work_counter_pairs_match_a_brute_force_count(dest):
         stub['third']['bytes'] <= stub['all']['bytes']
     ms, by = roofline.bound(work)
     assert ms > 0 and by in ('bytes', 'operations')
+
+
+#: the wall paths' particles by array, as the reference's examples make
+#: them (the cavity at nx=400: 160,000 fluid and 8,921 wall particles)
+WALL_PARTICLES = {
+    'cavity nx=400': {'fluid': 160000, 'solid': 8921},
+    'rayleigh_taylor': {'fluid1': 2501, 'fluid2': 2499, 'solid': 1882},
+    'periodic_cylinders': {'fluid': 9128, 'solid': 2472},
+}
+
+
+@pytest.mark.parametrize('path', time_chunks.WALL_PATHS)
+def test_wall_paths_set_up_on_their_kernels(path):
+    """Each wall path of ``time_chunks.PATHS``, set up on the CPU as the
+    card's tools set it up: the example at its size, the timed paths
+    under the default binning only, every dest on a kernel (each fluid's
+    two groups on ``tvf_pair``, linked; the wall's on ``gtvf_pair``), and
+    the work counter counting the no-slip wall's flops."""
+    kw = time_chunks.PATHS[path]
+    assert kw['dx'] is None and time_chunks.configs(path) == ('reuse',)
+    app = kw['cls']()
+    app.setup(['--disable-output', '-q', '--device', 'cpu'] +
+              list(kw.get('extra', ())))
+    s = app.solver
+    assert {name: st['x'].shape[0] for name, st in s.states.items()} == \
+        WALL_PARTICLES[path]
+    a_eval, = s.acceleration_evals
+    assert set(a_eval.engine_choices.values()) == {'kernel'}
+    plans = [p for p in a_eval._plans.values() if p is not None]
+    tvf = [p for p in plans if p.op is tp.tvf_pair]
+    assert len(tvf) == 2 * (len(WALL_PARTICLES[path]) - 1)
+    assert all(p.link is not None for p in tvf)
+    assert [p.op for p in plans if p.dest == 'solid'] == [gp.gtvf_pair] * 2
+    momentum = next(p for p in tvf if p.outputs[0] == 'au')
+    wall = next(ps_ for ps_ in momentum.sources if ps_.name == 'solid')
+    assert wall.terms == tp.MPG | tp.NOSLIP
+    if path == 'cavity nx=400':
+        return
+    # the no-slip term's flops, once a pair of the fluid and the wall
+    args = next(c[3] for c in time_walks.plan_calls(s, [0])
+                if c[2] is momentum)
+    work = roofline.tvf_work(*args)
+    src = [c for c in args[4] if c[2].name == 'solid']
+    args[4][args[4].index(src[0])] = src[0][:2] + (
+        src[0][2]._replace(terms=tp.MPG),)
+    without = roofline.tvf_work(*args)
+    wall_pairs = roofline.support_pairs(args[5], args[0], args[1],
+                                        src[0][0], src[0][1])
+    assert wall_pairs > 0 and work['flops'] - without['flops'] == \
+        wall_pairs * roofline.TVF_TERM_FLOPS[tp.NOSLIP]

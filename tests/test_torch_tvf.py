@@ -323,15 +323,21 @@ def test_tvf_scheme_with_a_solid_matches_jax(engine):
                       config=Config(engine=engine, **CPU))
     ev.evaluate(t=0.2, dt=1e-4)
     if engine == 'kernel':
-        # the fluid's summation density takes tvf_pair; its momentum
-        # group holds the no-slip wall, which tvf_pair does not take; the
-        # wall's velocity and pressure take gtvf_pair, which walks the
-        # periodic grid
+        # the fluid's summation density and its momentum group, the
+        # no-slip wall among its terms, take tvf_pair, linked; the wall's
+        # velocity and pressure take gtvf_pair, which walks the periodic
+        # grid
         plans = [p for p in ev.func_eval._plans.values() if p is not None]
         assert [(p.op, p.outputs) for p in plans] == [
             (tp.tvf_pair, ('V', 'rho')),
             (gp.gtvf_pair, ('uf', 'vf', 'wf', 'wij')),
-            (gp.gtvf_pair, ('wij', 'p'))]
+            (gp.gtvf_pair, ('wij', 'p')),
+            (tp.tvf_pair, ('au', 'av', 'aw', 'auhat', 'avhat', 'awhat'))]
+        assert plans[0].link is not None and plans[0].link is plans[3].link
+        assert [(s.name, s.terms) for s in plans[3].sources] == [
+            ('fluid', tp.MPG | tp.AVIS | tp.VISC | tp.MAS),
+            ('solid', tp.MPG | tp.AVIS | tp.NOSLIP)]
+        assert set(ev.func_eval.engine_choices.values()) == {'kernel'}
     jmap = {pa.name: pa for pa in jarrays}
     for pa in arrays:
         for p in SCHEME_PROPS[pa.name]:

@@ -3,10 +3,10 @@ neighbour list, the momentum call of a later group reads it
 (``ops/pair_engine.py::link_pairs``, ``ops/pair_link.py``).
 
 - The linker links the Taylor-Green vortex's density and momentum plans
-  and the two-source TVF channel's with ``nu = 0``; it refuses with
-  ``nu > 0`` (the no-slip wall sends the momentum group to the torch
-  engine), when an equation between the groups writes ``x``, and when
-  the two plans' sources differ.
+  and the two-source TVF channel's, with ``nu = 0`` and with ``nu > 0``
+  (the no-slip wall a term of the momentum plan); it refuses when an
+  equation between the groups writes ``x``, and when the two plans'
+  sources differ.
 - ``pair_link.neighbours_reference`` on the periodic grid, with a tenth
   of the particles on the box's edges and corners and on grids of 2, 3
   and 4 cells an axis, is the walk order of ``cell_walk.periodic_spans``
@@ -113,23 +113,24 @@ def _channel_eval(nu, jax=False):
 
 
 def test_channel_links_two_sources_and_matches_jax():
-    """``nu = 0``: the fluid's density and momentum plans over fluid and
-    wall are linked, and the linked eval equals pysph_tpu's at 1e-10 of
-    max|ref|; ``nu > 0``: the momentum group holds the no-slip wall,
-    runs on the torch engine and nothing links."""
-    arrays, ev = _channel_eval(0.0)
-    (dest, density, momentum), = _linked(ev.func_eval._plans.values())
-    assert dest == 'fluid'
-    assert [s.name for s in density.sources] == \
-        [s.name for s in momentum.sources] == ['fluid', 'solid']
-    jmap = {pa.name: pa for pa in _channel_eval(0.0, jax=True)[0]}
-    for pa in arrays:
-        for p in SCHEME_PROPS[pa.name]:
-            want = np.asarray(getattr(jmap[pa.name], p))
-            err = _scaled_err(getattr(pa, p), want)
-            assert err <= TOL, '%s.%s: %.3g' % (pa.name, p, err)
-    _, ev = _channel_eval(0.01)
-    assert _linked(ev.func_eval._plans.values()) == []
+    """The fluid's density and momentum plans over fluid and wall are
+    linked, and the linked eval equals pysph_tpu's at 1e-10 of max|ref|:
+    with ``nu = 0``, and with ``nu > 0``, where the momentum plan holds
+    the no-slip wall (``NOSLIP``, the wall source's term)."""
+    for nu in (0.0, 0.01):
+        arrays, ev = _channel_eval(nu)
+        (dest, density, momentum), = _linked(ev.func_eval._plans.values())
+        assert dest == 'fluid'
+        assert [s.name for s in density.sources] == \
+            [s.name for s in momentum.sources] == ['fluid', 'solid']
+        assert bool(momentum.sources[1].terms & tp.NOSLIP) == (nu > 0)
+        jmap = {pa.name: pa for pa in _channel_eval(nu, jax=True)[0]}
+        for pa in arrays:
+            for p in SCHEME_PROPS[pa.name]:
+                want = np.asarray(getattr(jmap[pa.name], p))
+                err = _scaled_err(getattr(pa, p), want)
+                assert err <= TOL, 'nu=%g %s.%s: %.3g' % (nu, pa.name, p,
+                                                          err)
 
 
 class _Shift(Equation):
