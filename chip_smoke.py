@@ -7,10 +7,11 @@ Phases (any failure propagates; the exit code is then not 0):
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
 2. build the eleven CUDA sources of ``pysph_tpu_torch/csrc`` (the nine
    pair and probe kernels, the source pack ``cell_pack`` and the binning
-   ``bin_cells``) and the libraries of the later smoothing-kernel kinds
-   (4-7, ``csrc/shapes.cuh``) of the five pair kernels that take kinds,
-   with nvcc, one process per library, all in parallel, each one's
-   seconds printed, and print ``-Xptxas -v``;
+   ``bin_cells``), ``tvf_pair``'s EDAC library (``-DTVF_EDAC``) and the
+   libraries of the later smoothing-kernel kinds (4-7,
+   ``csrc/shapes.cuh``) of the five pair kernels that take kinds, with
+   nvcc, one process per library, all in parallel, each one's seconds
+   printed, and print ``-Xptxas -v``;
 3. ``wcsph_pair`` against its plain torch version on the card, on the
    dam_break_3d state with a seeded velocity and density perturbation:
    dx=0.04 (24,672 particles) in float64 (scaled error <= 1e-10) and
@@ -161,7 +162,28 @@ Phases (any failure propagates; the exit code is then not 0):
    of the JAX package's (``JAX_PROFILE``); Rayleigh-Taylor and the
    periodic cylinders as the main path; their chunks against the
    per-step loop are gates of phase 4 (``cavity nx=20``,
-   ``poiseuille``);
+   ``poiseuille``); then ``EDACScheme``'s three runs (``_edac_phase``:
+   ``taylor_green``, ``cavity`` and ``dam_break_2d --scheme edac``):
+   ``tvf_pair``'s EDAC terms and ``gtvf_pair``'s EDAC wall set against
+   their plain versions at a small size (nx=50, dx=0.02) in float64 and
+   float32, with and without the edge particles, and at the paths'
+   sizes (Taylor-Green and the cavity at nx=400, the dam break at
+   dx=0.004) in float32, the linked calls (the density launch emitting,
+   the cavity's mean-pressure launch and each momentum launch reading
+   its list) bit for bit the walk, the dests whose ``nnbr`` differs
+   counted (0 from the perturbed starts; at each path's own start
+   printed), timed there with the EDAC library's registers and spills;
+   each path as the main path under the binning reuse, its launches
+   against the plan's count, its gate: the decay within 1e-3 (ratio) and
+   5% (L1) of ``JAX_DECAY['edac']`` and within 5% of the exact one, the
+   cavity within 1e-3 of ``JAX_CAVITY_EDAC``, the dam break's wall
+   pressure >= 0 after the run and, at dx=0.02 per step, before every
+   step, with its front and kinetic energy within 1e-3 of
+   ``JAX_DAM_BREAK_EDAC``; their chunks against the per-step loop are
+   gates of phase 4 (``taylor_green edac nx=40``, ``cavity edac nx=20``,
+   ``dam_break_2d edac dx=0.04``); then ``gtvf_pair`` at kind 4 on the
+   Taylor-Green vortex's ``--scheme gtvf --kernel WendlandQuinticC4`` at
+   nx=400, against its plain version and timed;
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -260,7 +282,8 @@ from pysph_tpu_torch.tools_dev import kind_check
 from pysph_tpu_torch.tools_dev.common import (
     capture, events_ms, graph_ms, linked_calls)
 from pysph_tpu_torch.tools_dev.time_walks import (
-    delta_calls, drop_calls, fused_call, gtvf_calls, make_app, pair_calls)
+    delta_calls, drop_calls, fused_call, gtvf_calls, make_app, pair_calls,
+    plan_calls)
 
 STEPS = 200
 TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
@@ -271,6 +294,7 @@ TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 #: |v|)
 JAX_DECAY = {'wcsph': (1.000178380345958, 0.009089970207746673),
              'gtvf': (1.000495169086151, 0.009147097045272161),
+             'edac': (1.0016999426061108, 0.0006807834743331017),
              'wcsph delta': (0.9986821392914745, 0.008999829297085801),
              'wcsph summation': (1.000352147793546, 0.009079249251684698),
              'wcsph tensile': (1.0001777789107333, 0.009101093339999769)}
@@ -288,6 +312,17 @@ PROFILE_SLACK = 0.005
 #: port's run must meet to CAVITY_TOL relative
 JAX_CAVITY = (0.9328589499779117, 0.0033403797557614422)
 CAVITY_TOL = 1e-3
+#: the same for ``--scheme edac`` (``python tests/jax_wall_figures.py
+#: cavity --scheme edac --nx 400 --steps 200``)
+JAX_CAVITY_EDAC = (0.9326928853989933, 0.0033353065544602318)
+#: the JAX package's 2D dam break under ``--scheme edac`` at dx=0.02
+#: after STEPS steps in float32 on the CPU (``python
+#: tests/jax_wall_figures.py dam_break_2d --dx 0.02 --steps 200``): the
+#: fluid's front (max x) and kinetic energy, which the port's run must
+#: meet to CAVITY_TOL relative; the wall's pressure stays >= 0
+#: (ClampWallPressure)
+JAX_DAM_BREAK_EDAC = (1.0208659172058105, 8.88488556575926)
+DAM_BREAK_FIGURE_DX = 0.02
 
 
 def _compare(calls, dtype, label, op=None):
@@ -771,9 +806,11 @@ def _tg_decay(out, solver, key='tvf'):
     L1 error below 2% of U (the pressure waves of the start, p = 0 from
     the summation density against the exact field's, hold it near 0.9%
     at t=0.011 at nx=64 and nx=100 in float32 on the CPU).  The others
-    (``wcsph`` and its options, ``gtvf``): that ratio within 1e-3 of the
-    JAX package's for the same run, the L1 error within 5% of its
-    (``JAX_DECAY[key]``)."""
+    (``wcsph`` and its options, ``gtvf``, ``edac``): that ratio within
+    1e-3 of the JAX package's for the same run, the L1 error within 5% of
+    its (``JAX_DECAY[key]``); ``edac`` also the JAX package's own bar,
+    max |v| within 5% of the exact decay
+    (``tests/test_examples_quantitative.py:63-77``)."""
     st = {p: solver.states['fluid'][p].double().cpu().numpy()
           for p in 'xyuv'}
     vmax, exact, l1 = decay_errors(st['x'], st['y'], st['u'], st['v'],
@@ -790,6 +827,9 @@ def _tg_decay(out, solver, key='tvf'):
                                                               jax_l1)
         ok = abs(ratio - jax_ratio) <= 1e-3 and \
             abs(l1 - jax_l1) <= 0.05 * jax_l1
+        if key == 'edac':
+            bars += '; exact bar 5%'
+            ok = ok and abs(ratio - 1.0) < 0.05
     print('taylor_green %s nx=400 float32 at t=%.6g after %d steps: max|v| '
           '%.6f, exact decay of the start\'s %.6f: %.6f (ratio %.6f); L1 '
           'error of |v| %.4g (%s)' % (
@@ -1210,24 +1250,25 @@ def _tvf_linked_runs(label, fluids, out=None):
     return check
 
 
-def _cavity_figures(out, solver):
+def _cavity_figures(out, solver, jax=JAX_CAVITY, label='cavity'):
     """The cavity's fluid max speed and kinetic energy after its run,
-    against the JAX package's same run (``JAX_CAVITY``, to
-    ``CAVITY_TOL`` relative); into ``out``."""
+    against the JAX package's same run (``jax``: ``JAX_CAVITY``, or
+    ``JAX_CAVITY_EDAC`` for ``--scheme edac``, to ``CAVITY_TOL``
+    relative); into ``out``."""
     st = solver.states['fluid']
     u, v, m = (st[c].double() for c in ('u', 'v', 'm'))
     speed2 = u * u + v * v
     vmax, ke = float(speed2.max().sqrt()), float(0.5 * (m * speed2).sum())
-    errs = (vmax / JAX_CAVITY[0] - 1.0, ke / JAX_CAVITY[1] - 1.0)
-    out.update(t=solver.t, vmax=vmax, ke=ke, jax_vmax=JAX_CAVITY[0],
-               jax_ke=JAX_CAVITY[1], rel_err=errs)
-    print('cavity nx=400 float32 at t=%.6g after %d steps: fluid max speed '
+    errs = (vmax / jax[0] - 1.0, ke / jax[1] - 1.0)
+    out.update(t=solver.t, vmax=vmax, ke=ke, jax_vmax=jax[0],
+               jax_ke=jax[1], rel_err=errs)
+    print('%s nx=400 float32 at t=%.6g after %d steps: fluid max speed '
           '%.7f (JAX %.7f, relative %.3g), kinetic energy %.7g (JAX %.7g, '
           'relative %.3g); bar %.0e' % (
-              solver.t, solver.count, vmax, JAX_CAVITY[0], errs[0], ke,
-              JAX_CAVITY[1], errs[1], CAVITY_TOL), flush=True)
+              label, solver.t, solver.count, vmax, jax[0], errs[0], ke,
+              jax[1], errs[1], CAVITY_TOL), flush=True)
     if not max(abs(e) for e in errs) <= CAVITY_TOL:
-        raise AssertionError('the cavity missed the JAX package\'s run')
+        raise AssertionError('%s missed the JAX package\'s run' % label)
 
 
 def _profile_run(example):
@@ -1416,6 +1457,342 @@ def _tvf_wall_phase(runs, kernels, bins):
         None, eager_ms=gtvf_eager,
         path='cavity nx=400, the wall\'s 2 calls of one eval'),
         name='gtvf_pair wall')
+
+
+class EdacRun(NamedTuple):
+    """An EDAC run of ``_edac_phase``: its ``time_chunks.PATHS`` label,
+    its example, the arguments of the checks' small size and of the
+    path's, the particles at the path's size, ``_drive``'s ops and the
+    ``tvf_pair`` calls that read the density call's list."""
+    label: str
+    example: str
+    small: tuple
+    full: tuple
+    particles: int
+    drive: tuple
+    consumers: int
+
+
+#: EDACScheme's three runs
+EDAC_RUNS = (
+    EdacRun('taylor_green edac nx=400', 'taylor_green', ('--nx', '50'),
+            ('--nx', '400'), 160000, ((tp.tvf_pair, 2, 2),), 1),
+    EdacRun('cavity edac nx=400', 'cavity', ('--nx', '50'), ('--nx', '400'),
+            168921, ((tp.tvf_pair, 3, 3), (gp.gtvf_pair, 1, 1)), 2),
+    EdacRun('dam_break_2d edac dx=0.004', 'dam_break_2d', ('--dx', '0.02'),
+            ('--dx', '0.004'), 137803,
+            ((tp.tvf_pair, 2, 2), (gp.gtvf_pair, 1, 1)), 1),
+)
+
+
+def _edac_calls(run, dtype, edges, full):
+    """(calls, particles, particles on the edges) of one eval of ``run``
+    at its small or its full size (``tvf_check``: perturbed, the fluid's
+    pressure seeded, and with ``edges`` a tenth of the fluid on its box's
+    edges and corners)."""
+    size = run.full if full else run.small
+    if run.example == 'taylor_green':
+        return tvf_check.calls(int(size[1]), dtype, edges, scheme='edac')
+    return tvf_check.wall_calls(run.example, dtype, edges,
+                                size + ('--scheme', 'edac'))
+
+
+def _chain_times(calls, rounds=5, reps=20):
+    """Median ms of CUDA graph replays of the linked ``tvf_pair`` calls
+    of ``calls`` run as the path runs them (the density call emitting,
+    the mean-pressure call and the momentum call consuming), of them all
+    walking, and of each launch alone (the consuming ones on a hand-off
+    emitted before), alternated over ``rounds`` rounds in this process;
+    and the linked calls as a function."""
+    (first, last), = linked_calls(calls)
+    args = [first[3]] + [c[3] for c in tvf_check.middle_calls(
+        calls, first)] + [last[3]]
+    op = tp.tvf_pair
+
+    def linked():
+        _, handoff = op(*args[0], emit=True)
+        return [op(*a, handoff=handoff) for a in args[1:]]
+
+    _, held = op(*args[0], emit=True)
+    fns = {'linked': linked,
+           'walking': lambda: [op(*a) for a in args],
+           'emit': lambda: op(*args[0], emit=True)}
+    for k, a in enumerate(args[1:]):
+        fns['consume %d' % k] = functools.partial(op, *a, handoff=held)
+    for k, a in enumerate(args):
+        fns['walk %d' % k] = functools.partial(op, *a)
+    graphs = {k: capture(fn) for k, fn in fns.items()}
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, graph in graphs.items():
+            times[k].append(events_ms(graph.replay, reps))
+    del graphs, held
+    work = roofline.add(roofline.tvf_work(*args[0]), *[
+        roofline.tvf_work(*a, walks=False) for a in args[1:]])
+    return {k: float(np.median(v)) for k, v in times.items()}, linked, work
+
+
+def _edac_linked(run):
+    """A check of ``_drive``: the run's fluid ran every ``tvf_pair`` plan
+    through one link, the density plan emitting and each consuming plan
+    (the momentum plan last) reading its list, with no dest past the
+    list's capacity in the runs (the counter reset before them)."""
+    def check(s):
+        plans = [p for a in s.acceleration_evals for p in a._plans.values()
+                 if p is not None and p.op is tp.tvf_pair]
+        links = {id(p.link): p.link for p in plans if p.link is not None}
+        overflowed = tp.overflowed('cuda')
+        print('%s: %d linked tvf_pair plans of %d, %d consuming the density '
+              'call\'s list (the momentum call last), %d dests past the '
+              'list\'s capacity in the runs' % (
+                  run.label, sum(p.link is not None for p in plans),
+                  len(plans), sum(len(k.consumers) for k in links.values()),
+                  overflowed), flush=True)
+        consumer = [k.consumer for k in links.values()]
+        if len(links) != 1 or len(plans) != 1 + run.consumers or \
+                any(p.link is None for p in plans) or overflowed or \
+                'au' not in consumer[0].outputs:
+            raise AssertionError('%s: not linked, or %d dests overflowed '
+                                 'the list' % (run.label, overflowed))
+    return check
+
+
+def _wall_pressure(label, wall):
+    """A check of ``_drive``: the wall's pressure after the run is >= 0
+    (``ClampWallPressure``)."""
+    def check(s):
+        low = float(s.states[wall]['p'].min())
+        print('%s: the wall\'s least pressure after the run %.6g (>= 0)'
+              % (label, low), flush=True)
+        if not low >= 0.0:
+            raise AssertionError('%s: a wall pressure below 0' % label)
+    return check
+
+
+def _dam_break_figures():
+    """The EDAC dam break at ``DAM_BREAK_FIGURE_DX`` in float32 for
+    ``STEPS`` steps per step, the wall's least pressure read before each
+    step and after the last (>= 0 throughout), and the fluid's front
+    (max x) and kinetic energy against the JAX package's same run
+    (``JAX_DAM_BREAK_EDAC``, to ``CAVITY_TOL`` relative)."""
+    app = make_app(DAM_BREAK_FIGURE_DX, torch.float32, steps=STEPS,
+                   cls=DamBreak2D, extra=('--scheme', 'edac'))
+    s = app.solver
+    s.chunk_steps = 1
+    low = []
+    s.add_pre_step_callback(lambda solver: low.append(
+        float(solver.states['boundary']['p'].min())))
+    app.solve()
+    low.append(float(s.states['boundary']['p'].min()))
+    st = s.states['fluid']
+    u, v, m = (st[c].double() for c in ('u', 'v', 'm'))
+    front = float(st['x'].max())
+    ke = float(0.5 * (m * (u * u + v * v)).sum())
+    errs = (front / JAX_DAM_BREAK_EDAC[0] - 1.0,
+            ke / JAX_DAM_BREAK_EDAC[1] - 1.0)
+    print('dam_break_2d edac dx=%g float32 at t=%.6g after %d steps: front '
+          '%.7f (JAX %.7f, relative %.3g), kinetic energy %.7g (JAX %.7g, '
+          'relative %.3g); bar %.0e; the wall\'s least pressure over %d '
+          'reads %.6g (>= 0)' % (
+              DAM_BREAK_FIGURE_DX, s.t, s.count, front,
+              JAX_DAM_BREAK_EDAC[0], errs[0], ke, JAX_DAM_BREAK_EDAC[1],
+              errs[1], CAVITY_TOL, len(low), min(low)), flush=True)
+    if s.count != STEPS or not max(abs(e) for e in errs) <= CAVITY_TOL or \
+            not min(low) >= 0.0:
+        raise AssertionError('the EDAC dam break missed the JAX package\'s '
+                             'run, or a wall pressure fell below 0')
+    return dict(t=s.t, front=front, ke=ke, rel_err=errs,
+                jax=JAX_DAM_BREAK_EDAC, wall_p_min=min(low))
+
+
+def _edac_phase(runs, kernels):
+    """``EDACScheme``'s three runs (``EDAC_RUNS``: ``taylor_green``,
+    ``cavity`` and ``dam_break_2d --scheme edac``): ``tvf_pair``'s EDAC
+    terms and ``gtvf_pair``'s EDAC wall set against their plain versions
+    on each run's calls (``_edac_calls``: perturbed, the pressure seeded,
+    and with a tenth of the fluid on its box's edges and corners) at the
+    small size in both dtypes and at the path's size in float32, the
+    linked calls bit for bit the walk (``tvf_check.check_linked``: the
+    density call emitting, the cavity's mean-pressure call and each
+    momentum call reading its list), the dests whose ``nnbr`` differs
+    counted (0 from these starts), each pack exact; timed at the path's
+    size with the EDAC instantiations' registers and spills; the dests
+    whose ``nnbr`` differs at the path's own start counted; then each
+    path for ``STEPS`` steps as the main path under the binning reuse
+    (every dest on a kernel, one link, no dest past the list), with its
+    gate: the Taylor-Green decay against ``JAX_DECAY['edac']`` and the
+    exact one, the cavity against ``JAX_CAVITY_EDAC``, the dam break's
+    wall pressure >= 0 and, at ``DAM_BREAK_FIGURE_DX``, its front and
+    energy against ``JAX_DAM_BREAK_EDAC``.  Adds the entries ``tvf_pair
+    edac <example>`` and ``gtvf_pair edac <example>``."""
+    edac_lib = build.build('tvf_pair', tp.EDAC_FLAGS)
+    for run in EDAC_RUNS:
+        for dtype, edges in ((torch.float64, False), (torch.float64, True),
+                             (torch.float32, False), (torch.float32, True)):
+            calls, n, moved = _edac_calls(run, dtype, edges, False)
+            what = '%s edac %s %s%s (%d particles%s)' % (
+                run.example, ' '.join(run.small), str(dtype)[6:],
+                ' edges' * edges, n,
+                ', %d on the edges' % moved if edges else '')
+            _compare(calls, dtype, 'tvf_pair/gtvf_pair ' + what)
+            found = tvf_check.check_linked(calls, what, TOL[dtype])
+            if found['overflowed'] and not edges:
+                raise AssertionError('%s: %d dests past the list\'s '
+                                     'capacity' % (what, found['overflowed']))
+            avgp, flips = tvf_check.nnbr_flips(calls)
+            print('%s: %d ComputeAveragePressure calls, %d dests whose nnbr '
+                  'differs from the plain version\'s' % (what, avgp, flips),
+                  flush=True)
+            if flips:
+                raise AssertionError('%s: %d dests\' nnbr differ' % (what,
+                                                                     flips))
+            del calls
+        calls, n, _ = _edac_calls(run, torch.float32, False, True)
+        if n != run.particles:
+            raise AssertionError('%s has %d particles, not %d'
+                                 % (run.label, n, run.particles))
+        what = '%s float32 (%d particles)' % (run.label, n)
+        tvf = [c for c in calls if c[2].op is tp.tvf_pair]
+        gtvf = [c for c in calls if c[2].op is gp.gtvf_pair]
+        err = _compare(tvf, torch.float32, 'tvf_pair ' + what)
+        linked = tvf_check.check_linked(calls, what, TOL[torch.float32])
+        if linked['overflowed'] or linked['consumers'] != run.consumers:
+            raise AssertionError('%s: %d dests past the list\'s capacity, '
+                                 '%d consuming calls' % (
+                                     what, linked['overflowed'],
+                                     linked['consumers']))
+        err = max(err, linked['max_abs_err'])
+        avgp, flips = tvf_check.nnbr_flips(calls)
+        if flips:
+            raise AssertionError('%s: %d dests\' nnbr differ' % (what, flips))
+        for k, dest, plan, args in calls:
+            pack, ref = ((tp.pack_sources, tp.pack_sources_reference)
+                         if plan.op is tp.tvf_pair else
+                         (gp.pack_sources, gp.pack_sources_reference))
+            _check_pack('%s %s' % (run.label, dest), pack(args[4]),
+                        ref(args[4]))
+        periodic = calls[0][3][5].is_periodic
+        times, linked_fn, work = _chain_times(tvf)
+        eager = events_ms(linked_fn, 20)
+        plain_ms = events_ms(lambda: [c[2].reference(*c[3]) for c in tvf], 3)
+        bound_ms, bound_by = roofline.bound(work)
+        resources = tvf_check.resources(edac_lib, periodic=periodic)
+        print('tvf_pair, the %d launches of one eval of %s (grid %s, '
+              'periodic %s), graph replays alternated in this process: '
+              'linked (the density emits, %d consume; each packing) %.4f ms, '
+              'walking %.4f ms; alone: %s; linked eager %.3f, plain torch '
+              '%.3f ms; bound %.4f ms (%s, one walk: %.4g flops, %d '
+              'candidates, %d pairs, %d B); share %.1f%%; %d dests whose '
+              'nnbr differs in %d ComputeAveragePressure calls; the EDAC '
+              'library\'s kernels, registers and spill bytes (stores, loads) '
+              'by mode: %s' % (
+                  len(tvf), what, calls[0][3][5].dims, periodic,
+                  run.consumers, times['linked'], times['walking'],
+                  ', '.join('%s %.4f' % (k, v) for k, v in times.items()
+                            if k not in ('linked', 'walking')),
+                  eager, plain_ms, bound_ms, bound_by, work['flops'],
+                  work['candidates'], work['pairs'], work['bytes'],
+                  100 * bound_ms / times['linked'], flips, avgp, resources),
+              flush=True)
+        wall = None
+        if gtvf:
+            gtvf_err = _compare(gtvf, torch.float32, 'gtvf_pair ' + what)
+            gtvf_ms = graph_ms(lambda: [c[2].op(*c[3]) for c in gtvf], 20)
+            gtvf_eager = events_ms(lambda: [c[2].op(*c[3]) for c in gtvf],
+                                   20)
+            gtvf_plain = events_ms(
+                lambda: [c[2].reference(*c[3]) for c in gtvf], 3)
+            gtvf_work = _calls_work(gtvf, roofline.gtvf_work)
+            wall = gtvf[0][1]
+            print('gtvf_pair, the wall\'s EDAC set (SourceNumberDensity, '
+                  'VolumeSummation, SolidWallPressureBC, SetWallVelocity) '
+                  'of one eval of %s: %.4f ms in a graph, %.4f eager, plain '
+                  'torch %.3f ms; bound %.4f ms (%s); %d candidates, %d '
+                  'pairs' % ((what, gtvf_ms, gtvf_eager, gtvf_plain) +
+                             roofline.bound(gtvf_work) + (
+                                 gtvf_work['candidates'],
+                                 gtvf_work['pairs'])), flush=True)
+        del calls, tvf, gtvf, linked_fn
+        kw = time_chunks.PATHS[run.label]
+        start = make_app(dtype=torch.float32, **kw).solver
+        avgp, start_flips = tvf_check.nnbr_flips(plan_calls(start, [0]))
+        vmax0 = float(torch.sqrt(start.states['fluid']['u'] ** 2 +
+                                 start.states['fluid']['v'] ** 2).max())
+        print('%s at the example\'s own start: %d dests whose nnbr differs '
+              'from the plain version\'s (a pair at the support\'s edge, '
+              'W = 0, kept by one and dropped by the other) in %d '
+              'ComputeAveragePressure calls' % (run.label, start_flips, avgp),
+              flush=True)
+        del start
+        figures = dict(vmax0=vmax0)
+        if run.example == 'taylor_green':
+            gate = functools.partial(_tg_decay, figures, key='edac')
+        elif run.example == 'cavity':
+            gate = functools.partial(_cavity_figures, figures,
+                                     jax=JAX_CAVITY_EDAC,
+                                     label='cavity edac')
+        else:
+            gate = _wall_pressure(run.label, wall)
+        tp.reset_overflow('cuda')
+        runs[run.label, 'reuse'] = r = _drive(
+            run.label, kw, run.drive, 1, checks=(_edac_linked(run), gate))
+        for op, first, per_step in run.drive:
+            want = first + per_step * (STEPS + r['counters']['captures'])
+            print('%s: %s launches in the %d-step chunked run %d, the plan\'s '
+                  '%d (%d in the initial eval, %d an eval, the warm-up step '
+                  'of each capture once more)' % (
+                      run.label, op.__name__, STEPS,
+                      r['launches'][op.__name__], want, first, per_step),
+                  flush=True)
+            if r['launches'][op.__name__] != want:
+                raise AssertionError('%s: %s launches off the plan'
+                                     % (run.label, op.__name__))
+        if run.example == 'dam_break_2d':
+            figures.update(_dam_break_figures())
+        name = 'tvf_pair edac ' + run.example
+        kernels[name] = dict(_entry(
+            'tvf_pair', 'pysph_tpu/ops/resident.py:645',
+            r['launches']['tvf_pair'], err, times['linked'], plain_ms, work,
+            None, eager_ms=eager, share=bound_ms / times['linked'],
+            launch_ms=times, overflowed=linked['overflowed'],
+            max_count=linked['max_count'], capacity=linked['capacity'],
+            nnbr_flips_at_start=start_flips, resources=resources,
+            figures=figures, path='%s, one eval (%d launches, linked: the '
+            'density emits, %d consume)' % (run.label, 1 + run.consumers,
+                                             run.consumers)), name=name)
+        if wall is not None:
+            name = 'gtvf_pair edac ' + run.example
+            kernels[name] = dict(_entry(
+                'gtvf_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
+                r['launches']['gtvf_pair'], gtvf_err, gtvf_ms, gtvf_plain,
+                gtvf_work, None, eager_ms=gtvf_eager,
+                path='%s, the wall\'s EDAC set of one eval' % run.label),
+                name=name)
+
+
+def _kinds_row():
+    """``gtvf_pair`` at kind 4 on the Taylor-Green vortex's ``--scheme
+    gtvf --nx 400 --kernel WendlandQuinticC4`` (float32, perturbed): a
+    step's launches against their plain versions, timed in a graph and
+    eagerly, the plain version, and the bound from ``roofline.py``, as
+    the ``gtvf_pair periodic`` entry is measured."""
+    calls, n, _ = tvf_check.calls(400, torch.float32, False, 'gtvf',
+                                  flags=('--kernel', 'WendlandQuinticC4'))
+    err = _compare(calls, torch.float32, 'gtvf_pair C4 taylor_green gtvf '
+                   'nx=400 float32 (%d particles)' % n)
+    ms = graph_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    eager = events_ms(lambda: [c[2].op(*c[3]) for c in calls], 20)
+    plain = events_ms(lambda: [c[2].reference(*c[3]) for c in calls], 3)
+    work = _calls_work(calls, roofline.gtvf_work)
+    bound_ms, bound_by = roofline.bound(work)
+    print('gtvf_pair at kind 4 (WendlandQuinticC4), the %d launches of a '
+          'step of taylor_green --scheme gtvf nx=400 float32: %.4f ms in a '
+          'graph, %.4f eager, plain torch %.3f ms; bound %.4f ms (%s: %.4g '
+          'flops, %d B; %d candidates, %d pairs); share %.1f%%; max abs err '
+          '%.3g' % (len(calls), ms, eager, plain, bound_ms, bound_by,
+                    work['flops'], work['bytes'], work['candidates'],
+                    work['pairs'], 100 * bound_ms / ms, err), flush=True)
+    del calls
 
 
 def _kinds_phase():
@@ -1922,7 +2299,7 @@ def main():
              'fused_pair', 'micro_launch', 'micro_engine', 'pair_stub',
              'cell_pack', 'bin_cells', 'delta_pair')
     # and each later kind's library of the pair kernels that take kinds
-    jobs = [(n, ()) for n in names] + [
+    jobs = [(n, ()) for n in names] + [('tvf_pair', tp.EDAC_FLAGS)] + [
         (n, build.kind_flags(k)) for n in KIND_KERNELS
         for k in range(build.BASE_KINDS, build.KINDS)]
 
@@ -2090,6 +2467,11 @@ def main():
 
     # the Adami walls on tvf_pair and the TVF wall examples
     _tvf_wall_phase(runs, kernels, bins)
+
+    # EDAC: taylor_green, cavity and dam_break_2d --scheme edac, and
+    # gtvf_pair's later kind at the Taylor-Green vortex's full width
+    _edac_phase(runs, kernels)
+    _kinds_row()
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls

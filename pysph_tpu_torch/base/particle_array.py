@@ -121,6 +121,11 @@ class ParticleArray(object):
     def set_output_arrays(self, props):
         self.output_property_arrays = list(props)
 
+    def add_output_arrays(self, props):
+        for p in props:
+            if p not in self.output_property_arrays:
+                self.output_property_arrays.append(p)
+
     # -- data access ---------------------------------------------------
     def set(self, **props):
         for name, data in props.items():

@@ -4,9 +4,10 @@
 // Replaces pysph_tpu/ops/pallas_engine.py::_pair_kernel_compact for the
 // pair phases of GTVFScheme: the GTVF dam break (examples/dam_break_2d.py
 // --scheme gtvf) and the Taylor-Green vortex on its box periodic in x
-// and y (examples/taylor_green.py --scheme gtvf).  The two acceleration
-// evaluators of GTVFIntegrator give five phase sets, one device functor
-// each:
+// and y (examples/taylor_green.py --scheme gtvf), and of the walls of
+// TVFScheme (the last two sets' wall terms) and EDACScheme (the sixth).
+// The two acceleration evaluators of GTVFIntegrator give five phase sets,
+// EDACScheme's wall group a sixth, one device functor each:
 //
 //   WallVelocity   SetWallVelocity                       -> uf vf wf wij
 //   Continuity     ContinuityEquationGTVF, ContinuitySolid -> arho
@@ -16,6 +17,12 @@
 //                  gradient at h/2), MomentumEquationViscosity,
 //                  MomentumEquationArtificialStress
 //                                          -> au av aw auhat avhat awhat
+//   EdacWall       SourceNumberDensity, VolumeSummation, EDAC's
+//                  SolidWallPressureBC and SetWallVelocity
+//                                          -> wij V p uf vf wf
+//
+// (EDAC's wall pressure and velocity sum no wij, as TVF's do: their terms
+// are their own, so that SourceNumberDensity's wij is summed once.)
 //
 // A per-source term mask (ops/gtvf_pair.py) says which equations a
 // source takes.  Any smoothing kernel with a kernel_kind (csrc/shapes.cuh:
@@ -77,7 +84,8 @@
 constexpr int kMaxSources = 4;
 // term bits, as ops/gtvf_pair.py
 constexpr int kSwv = 1, kCgtvf = 2, kCsolid = 4, kCdens = 8, kVsum = 16,
-              kWallp = 32, kMpg = 64, kMas = 128, kMvisc = 256;
+              kWallp = 32, kMpg = 64, kMas = 128, kMvisc = 256, kSnd = 512,
+              kEwallp = 1024, kEswv = 2048;
 // outputs in the order of ops/gtvf_pair.py OUTPUTS
 enum Out {
   oUf, oVf, oWf, oWij, oArho, oRho, oRhodiv, oV, oP,
@@ -85,7 +93,7 @@ enum Out {
 };
 // phase ids: the index of the phase set in ops/gtvf_pair.py PHASE_SETS
 enum Phase {
-  kWallVelocity, kContinuity, kDensity, kWallPressure, kMomentum
+  kWallVelocity, kContinuity, kDensity, kWallPressure, kMomentum, kEdacWall
 };
 // the record planes of the packed copy (above)
 enum Plane { kPos, kMass, kVel, kHat, kGhost, kPlanes };
@@ -376,6 +384,47 @@ struct Momentum {
   }
 };
 
+// EDACScheme's wall group: the number density of the fluid, the volume,
+// the pressure and the velocity sums (their post_loops divide by wij).
+template <typename T>
+struct EdacWall {
+  static constexpr int kBlocks = sizeof(T) == 4 ? 8 : 4;
+  T aui = 0, avi = 0, awi = 0;
+  T wij = 0, V = 0, p = 0, uf = 0, vf = 0, wf = 0;
+  __device__ void load(const GtvfArgs& a, int i) {
+    if (all_terms(a) & kEwallp) {
+      aui = ld<T>(a.au, i);
+      avi = ld<T>(a.av, i);
+      awi = ld<T>(a.aw, i);
+    }
+  }
+  __device__ void pair(const GtvfArgs&, const SrcArgs& S,
+                       const Pair<T>& q) {
+    if (S.terms & kSnd) wij += q.w;  // SourceNumberDensity
+    if (S.terms & kVsum) V += q.w;   // VolumeSummation
+    if (S.terms & kEwallp) {         // SolidWallPressureBC (EDAC)
+      const T gdotxij = (T(S.gx) - aui) * q.xij + (T(S.gy) - avi) * q.yij +
+                        (T(S.gz) - awi) * q.zij;
+      const Rec<T> mass = rec<T>(S.plane[kMass], q.k);
+      p += mass.c * q.w + mass.b * gdotxij * q.w;
+    }
+    if (S.terms & kEswv) {  // SetWallVelocity (EDAC)
+      const Rec<T> vj = rec<T>(S.plane[kVel], q.k);
+      uf += vj.a * q.w;
+      vf += vj.b * q.w;
+      wf += vj.c * q.w;
+    }
+  }
+  __device__ void store(const GtvfArgs& a, int i, bool wm) {
+    put(a, oWij, i, wij, wm);
+    put(a, oV, i, V, wm);
+    put(a, oP, i, p, wm);
+    put(a, oUf, i, uf, wm);
+    put(a, oVf, i, vf, wm);
+    put(a, oWf, i, wf, wm);
+  }
+};
+
 // The walk shared by every phase set; KIND: the shape function;
 // PERIODIC: the periodic walk and the minimum image.
 template <typename T, int KIND, bool PERIODIC, class PhaseSet>
@@ -467,6 +516,10 @@ cudaError_t launch_walk(const GtvfArgs& a, cudaStream_t stream) {
       else
         gtvf_pair_kernel<T, KIND, PERIODIC, Momentum<T, KIND, false>>
             <<<blocks, threads, 0, stream>>>(a);
+      break;
+    case kEdacWall:
+      gtvf_pair_kernel<T, KIND, PERIODIC, EdacWall<T>>
+          <<<blocks, threads, 0, stream>>>(a);
       break;
     default:
       return cudaErrorInvalidValue;

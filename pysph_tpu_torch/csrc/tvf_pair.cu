@@ -6,16 +6,22 @@
 // of TVFScheme: the Taylor-Green vortex (examples/taylor_green.py), where
 // the TPU runs it in resident mode on a box periodic in x and y, and the
 // wall examples (poiseuille, couette, cavity, rayleigh_taylor,
-// periodic_cylinders: Adami's walls, on a grid periodic in x or open).
-// The scheme's groups give two phase sets, one device functor each:
+// periodic_cylinders: Adami's walls, on a grid periodic in x or open);
+// and of EDACScheme (taylor_green, cavity and dam_break_2d --scheme edac).
+// The schemes' groups give two phase sets, one device functor each:
 //
 //   Density    SummationDensity                       -> V rho
+//              ComputeAveragePressure (EDAC)          -> pavg nnbr
 //   Momentum   MomentumEquationPressureGradient (TVF, with the background
 //              pressure pb), MomentumEquationViscosity,
 //              MomentumEquationArtificialStress,
 //              MomentumEquationArtificialViscosity,
 //              SolidWallNoSlipBC (the template flag WALL)
 //                                          -> au av aw auhat avhat awhat
+//              EDAC's MomentumEquationPressureGradient (p - pavg) and
+//              MomentumEquation                -> au av aw (auhat ...)
+//              EDACEquation                           -> ap
+//              XSPHCorrection                         -> ax ay az
 //
 // A per-source term mask (ops/tvf_pair.py) says which equations a source
 // takes.  Any shape of csrc/shapes.cuh (QuinticSpline
@@ -78,6 +84,22 @@
 // launch with no wall source (the Taylor-Green vortex) runs the code it
 // ran before the term came, with the same registers.
 //
+// EDAC (the template flag EDAC of both functors).  EDACScheme's terms
+// (kAvgp, kEmpg, kEmom, kEdacEq, kXsphCorr) are runtime terms of the
+// instantiations with EDAC true, which only the library built with
+// -DTVF_EDAC holds (ops/tvf_pair.py EDAC_FLAGS; built at its first
+// launch): Density<T, true> in every mode, kConsume too (the cavity's
+// mean-pressure group, between its density and its momentum group,
+// reads the density launch's list), and Momentum<T, true, true>, with
+// every TVF term as well, under a bound of its own.
+// The default library holds the instantiations with EDAC false, the code
+// of before, and refuses a launch with an EDAC term; the EDAC library
+// refuses one without.  No term reads a plane the TVF terms do not
+// pack: AVGP reads p (plane 1), EDACEquation and XSPHCorrection m rho p V
+// and u v w.  ComputeAveragePressure counts every pair in support, W = 0
+// at its edge too, so a pair exactly at the support's edge moves nnbr
+// where the support test rounds otherwise.
+//
 // What bounds it: operations, and in each mode something else first.  A
 // walking launch tests the candidates of the 3x3-cell stencil (~98 a
 // particle at the path's 1.1 x 3h cells: a 16-byte record load, three
@@ -107,9 +129,15 @@
 // functions internal linkage.  (kMaxSources, 4, is csrc/wcsph_terms.cuh's.)
 // term bits, as ops/tvf_pair.py
 constexpr int kSden = 1, kMpg = 2, kVisc = 4, kMas = 8, kAvis = 16,
-              kNoSlip = 32;
+              kNoSlip = 32, kAvgp = 64, kEmpg = 128, kEmom = 256,
+              kEdacEq = 512, kXsphCorr = 1024;
+// the terms of the EDAC instantiations (ops/tvf_pair.py EDAC_TERMS)
+constexpr int kEdacTerms = kAvgp | kEmpg | kEmom | kEdacEq | kXsphCorr;
 // outputs in the order of ops/tvf_pair.py OUTPUTS
-enum TvfOut { oV, oRho, oAu, oAv, oAw, oAuhat, oAvhat, oAwhat, kTvfOut };
+enum TvfOut {
+  oV, oRho, oAu, oAv, oAw, oAuhat, oAvhat, oAwhat, oPavg, oNnbr, oAp, oAx,
+  oAy, oAz, kTvfOut
+};
 // phase ids: the index of the phase set in ops/tvf_pair.py PHASE_SETS
 enum TvfPhase { kDensity, kMomentum };
 // the record planes of the packed copy (above)
@@ -136,6 +164,16 @@ constexpr int kListBatch = LIST_BATCH;
 #ifndef CONSUME_BLOCKS
 #define CONSUME_BLOCKS 5
 #endif
+// float: the bound of the EDAC momentum instantiations, which hold the
+// dest's pavg and four more accumulators (ap, ax ay az): 121 registers
+// and no spill at 4 blocks (PERF.md section 6)
+constexpr int kEdacMomentumBlocks = 4;
+// the library of the EDAC instantiations (ops/tvf_pair.py EDAC_FLAGS)
+#ifdef TVF_EDAC
+constexpr bool kEdacLibrary = true;
+#else
+constexpr bool kEdacLibrary = false;
+#endif
 
 struct TvfSrc {
   // the packed copy's planes, in the source's cell order; null where the
@@ -146,13 +184,15 @@ struct TvfSrc {
   const int32_t* cell_end;    // per cell: one past the last
   double pb, nu, alpha, c0;   // MPG's pb, VISC's nu, AVIS's alpha and c0
   double noslip_nu;           // NOSLIP's nu
+  double cs, edac_nu;         // EDACEquation's cs and nu
+  double xsph_eps;            // XSPHCorrection's eps
   int32_t terms;
   int32_t base;  // its position 0 in the neighbour list's numbering
 };
 
 struct TvfArgs {
   const void *x, *y, *z, *h, *m, *rho, *p, *V, *u, *v, *w, *uhat, *vhat,
-      *what;                 // dest
+      *what, *pavg;          // dest
   const int32_t* cell;       // dest cell id, ix + nx * (iy + ny * iz)
   const int32_t* dorder;     // the dest's cell order: threads follow it
   const uint8_t* wmask;      // write mask (bool); null: every row
@@ -247,14 +287,23 @@ __host__ __device__ __forceinline__ int all_terms(const TvfArgs& a) {
   return t;
 }
 
-// Each functor: load(a, i), the dest's values; pair(a, S, q), one pair in
-// support; store(a, i, wm), the epilogue.
-template <typename T>
+// Each functor: kDensity, whether it is the density set; load(a, i), the
+// dest's values; pair(a, S, q), one pair in support; store(a, i, wm), the
+// epilogue.  EDAC: the instantiation that takes ComputeAveragePressure.
+template <typename T, bool EDAC>
 struct Density {
+  static constexpr bool kDensity = true;
   T mi = 0;
   T V = 0, rho = 0;
-  __device__ void load(const TvfArgs& a, int i) { mi = ld<T>(a.m, i); }
+  T pavg = 0, nnbr = 0;  // EDAC
+  __device__ void load(const TvfArgs& a, int i) {
+    if (!EDAC || (all_terms(a) & kSden)) mi = ld<T>(a.m, i);
+  }
   __device__ void pair(const TvfArgs&, const TvfSrc& S, const Pair<T>& q) {
+    if (EDAC && (S.terms & kAvgp)) {  // ComputeAveragePressure
+      pavg += rec<T>(S.plane[kMass], q.k).c;
+      nnbr += T(1);
+    }
     if (!(S.terms & kSden)) return;  // SummationDensity
     V += q.w;
     rho += mi * q.w;
@@ -262,28 +311,39 @@ struct Density {
   __device__ void store(const TvfArgs& a, int i, bool wm) {
     put(a, oV, i, V, wm);
     put(a, oRho, i, rho, wm);
+    if (EDAC) {
+      put(a, oPavg, i, pavg, wm);
+      put(a, oNnbr, i, nnbr, wm);
+    }
   }
 };
 
 // The dest's parts are loaded once: 1 / m, (1 / V)^2, rho, p, the
 // velocity, and for the artificial stress rho u[c] (uhat - u)[d].  WALL:
-// the instantiation that takes SolidWallNoSlipBC (kNoSlip).
-template <typename T, bool WALL>
+// the instantiation that takes SolidWallNoSlipBC (kNoSlip); EDAC: the one
+// that takes EDACScheme's terms (and pavg).
+template <typename T, bool WALL, bool EDAC>
 struct Momentum {
+  static constexpr bool kDensity = false;
   static constexpr int kWall = WALL ? kNoSlip : 0;
+  // the EDAC terms that read the volume factor, p, and the velocity
+  static constexpr int kEdacVfac = EDAC ? kEmpg | kEmom | kEdacEq : 0;
+  static constexpr int kEdacVel = EDAC ? kEdacEq | kXsphCorr : 0;
   T mi1 = 0, vi2 = 0, rhoi = 0, pi = 0;
   T ui[3] = {}, ai[3][3] = {};  // ai[c][d] = rhoi ui[c] (uhati - ui)[d]
   T au = 0, av = 0, aw = 0, auhat = 0, avhat = 0, awhat = 0;
+  T pavgi = 0, ap = 0, ax = 0, ay = 0, az = 0;  // EDAC
   __device__ void load(const TvfArgs& a, int i) {
     const int t = all_terms(a);
-    if (t & (kMpg | kVisc | kMas | kWall)) {
+    if (t & (kMpg | kVisc | kMas | kWall | kEdacVfac)) {
       mi1 = T(1) / ld<T>(a.m, i);
       const T vi = T(1) / ld<T>(a.V, i);
       vi2 = vi * vi;
     }
     rhoi = ld<T>(a.rho, i);
-    if (t & kMpg) pi = ld<T>(a.p, i);
-    if (t & (kVisc | kMas | kAvis | kWall)) {
+    if (t & (kMpg | kEdacVfac)) pi = ld<T>(a.p, i);
+    if (EDAC && (t & kEmpg)) pavgi = ld<T>(a.pavg, i);
+    if (t & (kVisc | kMas | kAvis | kWall | kEdacVel)) {
       ui[0] = ld<T>(a.u, i);
       ui[1] = ld<T>(a.v, i);
       ui[2] = ld<T>(a.w, i);
@@ -304,7 +364,8 @@ struct Momentum {
     const T vfac = mi1 * (vi2 + vj * vj);
     const T eps = T(0.01) * q.hij * q.hij;
     Rec<T> vel{};
-    if (S.terms & (kVisc | kMas | kAvis)) vel = rec<T>(S.plane[kVel], q.k);
+    if (S.terms & (kVisc | kMas | kAvis | kEdacVel))
+      vel = rec<T>(S.plane[kVel], q.k);
     const T vij[3] = {ui[0] - vel.a, ui[1] - vel.b, ui[2] - vel.c};
     if (S.terms & kMpg) {  // MomentumEquationPressureGradient
       const T pij = (rhoj * pi + rhoi * mass.c) / (rhoj + rhoi);
@@ -366,6 +427,48 @@ struct Momentum {
       av += tmp * (ui[1] - ghost.b);
       aw += tmp * (ui[2] - ghost.c);
     }
+    if (EDAC) edac_pair(S, q, mass, vfac, eps, vij);
+  }
+  // EDACScheme's terms of one pair: mass = {m rho p V} of the source
+  __device__ void edac_pair(const TvfSrc& S, const Pair<T>& q,
+                            const Rec<T>& mass, T vfac, T eps,
+                            const T (&vij)[3]) {
+    const T rhoj = mass.b;
+    if (S.terms & kEmpg) {  // MomentumEquationPressureGradient (EDAC)
+      const T pij = (rhoj * (pi - pavgi) + rhoi * (mass.c - pavgi)) /
+                    (rhoj + rhoi);
+      const T tmp = -pij * vfac;
+      au += tmp * q.dwx;
+      av += tmp * q.dwy;
+      aw += tmp * q.dwz;
+      const T tmph = T(-S.pb) * vfac;
+      auhat += tmph * q.dwx;
+      avhat += tmph * q.dwy;
+      awhat += tmph * q.dwz;
+    }
+    if (S.terms & kEmom) {  // MomentumEquation (EDAC)
+      const T pij = (rhoj * pi + rhoi * mass.c) / (rhoj + rhoi);
+      const T tmp = -pij * vfac;
+      au += tmp * q.dwx;
+      av += tmp * q.dwy;
+      aw += tmp * q.dwz;
+    }
+    if (S.terms & kEdacEq) {  // EDACEquation
+      const T etaij = T(2) * T(S.edac_nu) * (rhoi * rhoj) / (rhoi + rhoj);
+      const T vdotdw = q.dwx * vij[0] + q.dwy * vij[1] + q.dwz * vij[2];
+      const T cs = T(S.cs);
+      ap += rhoi / rhoj * cs * cs * mass.a * vdotdw;
+      const T xdotdw = q.dwx * q.xij + q.dwy * q.yij + q.dwz * q.zij;
+      ap += vfac * etaij * xdotdw / (q.r2 + eps) * (pi - mass.c);
+    }
+    if (S.terms & kXsphCorr) {  // XSPHCorrection
+      const T rhoij = T(0.5) * (rhoi + rhoj);
+      const T rhoij1 = T(1) / (rhoij != T(0) ? rhoij : T(1));
+      const T tmp = -T(S.xsph_eps) * mass.a * q.w * rhoij1;
+      ax += tmp * vij[0];
+      ay += tmp * vij[1];
+      az += tmp * vij[2];
+    }
   }
   __device__ void store(const TvfArgs& a, int i, bool wm) {
     put(a, oAu, i, au, wm);
@@ -374,6 +477,12 @@ struct Momentum {
     put(a, oAuhat, i, auhat, wm);
     put(a, oAvhat, i, avhat, wm);
     put(a, oAwhat, i, awhat, wm);
+    if (EDAC) {
+      put(a, oAp, i, ap, wm);
+      put(a, oAx, i, ax, wm);
+      put(a, oAy, i, ay, wm);
+      put(a, oAz, i, az, wm);
+    }
   }
 };
 
@@ -388,11 +497,21 @@ constexpr int blocks_of() {
                             : MOMENTUM_BLOCKS;
 }
 
+// The same for a phase set: the EDAC momentum instantiations have a
+// bound of their own.
+template <typename T, class PhaseSet, int MODE>
+constexpr int blocks_for() {
+  return std::is_same<PhaseSet, Momentum<T, true, true>>::value &&
+                 sizeof(T) == 4
+             ? kEdacMomentumBlocks
+             : blocks_of<T, PhaseSet::kDensity, MODE>();
+}
+
 // One kernel for both phase sets and every mode: kEmit only with Density,
-// kConsume only with Momentum (the launch function's dispatch).
+// kConsume with Momentum and with the EDAC Density (the launch function's
+// dispatch).
 template <typename T, int KIND, bool PERIODIC, class PhaseSet, int MODE>
-__global__ void __launch_bounds__(
-    128, (blocks_of<T, std::is_same<PhaseSet, Density<T>>::value, MODE>()))
+__global__ void __launch_bounds__(128, (blocks_for<T, PhaseSet, MODE>()))
     tvf_pair_kernel(const TvfArgs a) {
   // every lane stays to the end: the walk's votes take the whole warp
   const int pos = blockIdx.x * blockDim.x + threadIdx.x;
@@ -474,31 +593,53 @@ __global__ void __launch_bounds__(
 constexpr int kThreads = 128;
 
 // the momentum launch walks or consumes
-template <typename T, int KIND, bool PERIODIC, bool WALL>
+template <typename T, int KIND, bool PERIODIC, bool WALL, bool EDAC>
 void launch_momentum(const TvfArgs& a, int blocks, cudaStream_t stream) {
+  using M = Momentum<T, WALL, EDAC>;
   if (a.mode == kConsume)
-    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T, WALL>, kConsume>
+    tvf_pair_kernel<T, KIND, PERIODIC, M, kConsume>
         <<<blocks, kThreads, 0, stream>>>(a);
   else
-    tvf_pair_kernel<T, KIND, PERIODIC, Momentum<T, WALL>, kWalk>
+    tvf_pair_kernel<T, KIND, PERIODIC, M, kWalk>
         <<<blocks, kThreads, 0, stream>>>(a);
 }
 
-// the density launch walks or emits; the momentum launch takes the WALL
-// instantiation where a source takes SolidWallNoSlipBC
+// the density launch walks or emits (and, in the EDAC library, consumes)
+template <typename T, int KIND, bool PERIODIC, bool EDAC>
+void launch_density(const TvfArgs& a, int blocks, cudaStream_t stream) {
+  using D = Density<T, EDAC>;
+  if (a.mode == kEmit)
+    tvf_pair_kernel<T, KIND, PERIODIC, D, kEmit>
+        <<<blocks, kThreads, 0, stream>>>(a);
+#ifdef TVF_EDAC
+  else if (a.mode == kConsume)
+    tvf_pair_kernel<T, KIND, PERIODIC, D, kConsume>
+        <<<blocks, kThreads, 0, stream>>>(a);
+#endif
+  else
+    tvf_pair_kernel<T, KIND, PERIODIC, D, kWalk>
+        <<<blocks, kThreads, 0, stream>>>(a);
+}
+
+// The default library: the momentum launch takes the WALL instantiation
+// where a source takes SolidWallNoSlipBC.  The EDAC library: the EDAC
+// instantiations, the momentum's with the wall.
 template <typename T, int KIND, bool PERIODIC>
 cudaError_t launch_walk(const TvfArgs& a, cudaStream_t stream) {
   const int blocks = (a.n_dest + kThreads - 1) / kThreads;
-  if (a.phase == kDensity && a.mode == kEmit)
-    tvf_pair_kernel<T, KIND, PERIODIC, Density<T>, kEmit>
-        <<<blocks, kThreads, 0, stream>>>(a);
-  else if (a.phase == kDensity)
-    tvf_pair_kernel<T, KIND, PERIODIC, Density<T>, kWalk>
-        <<<blocks, kThreads, 0, stream>>>(a);
-  else if (all_terms(a) & kNoSlip)
-    launch_momentum<T, KIND, PERIODIC, true>(a, blocks, stream);
+#ifdef TVF_EDAC
+  if (a.phase == kDensity)
+    launch_density<T, KIND, PERIODIC, true>(a, blocks, stream);
   else
-    launch_momentum<T, KIND, PERIODIC, false>(a, blocks, stream);
+    launch_momentum<T, KIND, PERIODIC, true, true>(a, blocks, stream);
+#else
+  if (a.phase == kDensity)
+    launch_density<T, KIND, PERIODIC, false>(a, blocks, stream);
+  else if (all_terms(a) & kNoSlip)
+    launch_momentum<T, KIND, PERIODIC, true, false>(a, blocks, stream);
+  else
+    launch_momentum<T, KIND, PERIODIC, false, false>(a, blocks, stream);
+#endif
   return cudaGetLastError();
 }
 
@@ -516,17 +657,22 @@ cudaError_t launch(const TvfArgs& a, cudaStream_t stream) {
 }
 
 bool args_ok(const TvfArgs& a) {
+  const int terms =
+      a.n_src >= 0 && a.n_src <= kMaxSources ? all_terms(a) : 0;
   const bool mode_ok =
       a.mode == kWalk ||
       (a.mode == kEmit && a.phase == kDensity && a.overflow != nullptr) ||
-      (a.mode == kConsume && a.phase == kMomentum);
+      (a.mode == kConsume &&
+       (a.phase == kMomentum || (kEdacLibrary && (terms & kAvgp))));
+  // each library runs the terms of its instantiations
+  const bool library_ok = ((terms & kEdacTerms) != 0) == kEdacLibrary;
   const bool list_ok = a.mode == kWalk ||
                        (a.cap >= 1 && a.nbr != nullptr &&
                         a.count != nullptr);
   bool bases_ok = a.n_src == 0 || a.src[0].base == 0;
   for (int s = 1; s < a.n_src && s < kMaxSources; ++s)
     bases_ok = bases_ok && a.src[s].base >= a.src[s - 1].base;
-  return mode_ok && list_ok && bases_ok && a.n_src >= 0 &&
+  return mode_ok && library_ok && list_ok && bases_ok && a.n_src >= 0 &&
          a.n_src <= kMaxSources && a.nx >= 1 && a.ny >= 1 && a.nz >= 1 &&
          a.dim >= 1 && a.dim <= 3 && (a.dtype == 0 || a.dtype == 1) &&
          shapes::built_kind(a.kernel_kind) && a.phase >= kDensity &&

@@ -15,17 +15,21 @@ card:
 (on the CPU: ``--device cpu``).  The fluid's pair phases run on
 ``tvf_pair`` (the density and the momentum group, the no-slip wall among
 its terms, as a linked pair), the wall's on ``gtvf_pair``.  ``--scheme
-edac`` raises ``NotImplementedError`` naming its ROADMAP item;
-``post_process`` (the centreline profiles through the reference's
-``Interpolator``) raises it where there are dumps to process.
+edac`` (``EDACScheme`` in its transport-velocity form, ``pb = p0``) runs
+the fluid's density, mean pressure and momentum groups on ``tvf_pair``
+(the density launch's neighbour list read by the other two) and the
+wall's group on ``gtvf_pair``'s EDAC wall set.  ``post_process`` (the
+centreline profiles through the reference's ``Interpolator``) raises
+``NotImplementedError`` naming its ROADMAP item where there are dumps to
+process.
 """
 
 import numpy as np
 
 from pysph_tpu_torch.base.utils import get_particle_array
 from pysph_tpu_torch.solver.application import Application
-from pysph_tpu_torch.sph.scheme import (
-    NotPortedScheme, SchemeChooser, TVFScheme)
+from pysph_tpu_torch.sph.scheme import SchemeChooser, TVFScheme
+from pysph_tpu_torch.sph.wc.edac import EDACScheme
 
 L = 1.0
 Umax = 1.0
@@ -34,8 +38,7 @@ rho0 = 1.0
 p0 = c0 * c0 * rho0
 hdx = 1.0
 
-#: the ROADMAP items of what the port lacks here
-EDAC_ITEM = 'ROADMAP Queue 1 item 35'
+#: the ROADMAP item of what the port lacks here
 INTERPOLATOR_ITEM = 'ROADMAP Queue 1 item 30'
 
 
@@ -69,12 +72,17 @@ class LidDrivenCavity(Application):
     def create_scheme(self):
         tvf = TVFScheme(['fluid'], ['solid'], dim=2, rho0=rho0,
                         c0=c0, nu=None, p0=p0, pb=p0, h0=hdx)
-        return SchemeChooser(default='tvf', tvf=tvf,
-                             edac=NotPortedScheme('edac', EDAC_ITEM))
+        edac = EDACScheme(fluids=['fluid'], solids=['solid'], dim=2,
+                          c0=c0, rho0=rho0, nu=0.0, pb=p0, eps=0.0,
+                          h=0.0)
+        return SchemeChooser(default='tvf', tvf=tvf, edac=edac)
 
     def configure_scheme(self):
         h0 = hdx * self.dx
-        self.scheme.configure(h0=h0, nu=self.nu)
+        if self.options.scheme == 'tvf':
+            self.scheme.configure(h0=h0, nu=self.nu)
+        elif self.options.scheme == 'edac':
+            self.scheme.configure(h=h0, nu=self.nu)
         self.scheme.configure_solver(tf=self.tf, dt=self.dt)
         self.scheme.get_solver().set_print_freq(500)
 

@@ -3,26 +3,33 @@
 Port of ``pysph_tpu/examples/dam_break_2d.py``: a 1 m x 2 m water column
 in a 4 m x 4 m tank with four wall layers.  ``--scheme wcsph`` (the
 default: WCSPH with the Hughes-Graham corrected walls, ``PECIntegrator``,
-``WendlandQuintic``, adaptive dt, 50 damped steps) and ``--scheme gtvf``
+``WendlandQuintic``, adaptive dt, 50 damped steps), ``--scheme gtvf``
 (the generalised transport-velocity formulation, two evaluators per
-step) are ported; on an NVIDIA card:
+step) and ``--scheme edac`` (``EDACScheme``'s external flow, ``pb = 0``:
+the number-density pressure gradient with gravity, ``EDACEquation`` and
+``XSPHCorrection`` with ``eps = 0``; the wall pressure clamped
+non-negative; ``QuinticSpline``, PEC with ``EDACStep``, fixed dt) are
+ported; on an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.dam_break_2d \\
         --dx 0.004 --max-steps 200 --disable-output
     python -m pysph_tpu_torch.examples.dam_break_2d --scheme gtvf \\
         --dx 0.004 --max-steps 200 --disable-output
+    python -m pysph_tpu_torch.examples.dam_break_2d --scheme edac \\
+        --dx 0.004 --max-steps 200 --disable-output
 
-``edac`` and ``iisph`` need their schemes; each raises
-``NotImplementedError`` naming its ROADMAP item.
+``iisph`` needs its scheme; it raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 import numpy as np
 
-from pysph_tpu_torch.base.kernels import WendlandQuintic
+from pysph_tpu_torch.base.kernels import QuinticSpline, WendlandQuintic
 from pysph_tpu_torch.base.utils import get_particle_array
 from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.scheme import (
     NotPortedScheme, SchemeChooser, WCSPHScheme)
+from pysph_tpu_torch.sph.wc.edac import EDACScheme
 from pysph_tpu_torch.sph.wc.gtvf import GTVFScheme
 from pysph_tpu_torch.tools.geometry import get_2d_block, get_2d_tank
 
@@ -61,9 +68,12 @@ class DamBreak2D(Application):
         gtvf = GTVFScheme(
             fluids=['fluid'], solids=['boundary'], dim=2, nu=nu,
             rho0=ro, gy=-g, h0=None, c0=co, pref=None)
+        edac = EDACScheme(
+            fluids=['fluid'], solids=['boundary'], dim=2, c0=co,
+            nu=nu, rho0=ro, h=hdx * 0.03, pb=0.0, gy=-g, eps=0.0,
+            clamp_p=True)
         return SchemeChooser(
-            default='wcsph', wcsph=wcsph,
-            edac=NotPortedScheme('edac', 'ROADMAP Queue 1 item 35'),
+            default='wcsph', wcsph=wcsph, edac=edac,
             iisph=NotPortedScheme('iisph', 'ROADMAP Queue 1 item 26'),
             gtvf=gtvf)
 
@@ -77,6 +87,11 @@ class DamBreak2D(Application):
                 integrator_cls=PECIntegrator,
                 kernel=WendlandQuintic(dim=2), adaptive_timestep=True,
                 n_damp=50, fixed_h=False, dt=dt, **kw)
+            return
+        if self.options.scheme == 'edac':
+            self.scheme.configure(h=self.h)
+            self.scheme.configure_solver(
+                kernel=QuinticSpline(dim=2), dt=dt, **kw)
             return
         self.scheme.configure(pref=ro * co * co / gamma, h0=self.h)
         self.scheme.configure_solver(dt=dt, **kw)

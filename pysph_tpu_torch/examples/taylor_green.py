@@ -3,7 +3,7 @@
 Port of ``pysph_tpu/examples/taylor_green.py``: a unit box periodic in x
 and y holds the vortices ``u = -U cos(2 pi x) sin(2 pi y)``, ``v = U
 sin(2 pi x) cos(2 pi y)``, whose speed decays as ``U exp(-8 pi^2 t /
-Re)`` (``exact_solution``).  Three of the reference's schemes, each
+Re)`` (``exact_solution``).  Four of the reference's schemes, each
 with ``QuinticSpline`` and a fixed dt, their pair phases on the periodic
 grid:
 
@@ -14,12 +14,17 @@ grid:
   viscosity, ``LaminarViscosity``; ``PECIntegrator`` with ``WCSPHStep``),
   on ``wcsph_pair`` (``--engine dense``: ``dense_pair``);
 - ``--scheme gtvf`` (``GTVFScheme`` without walls, ``pref = p0``;
-  ``GTVFIntegrator``, two evaluators a step), on ``gtvf_pair``.
+  ``GTVFIntegrator``, two evaluators a step), on ``gtvf_pair``;
+- ``--scheme edac`` (``EDACScheme`` in its transport-velocity form, ``pb
+  = p0``: ``SummationDensity`` and ``ComputeAveragePressure``, then the
+  pressure gradient less the neighbours' mean pressure, viscosity,
+  artificial stress and ``EDACEquation``; ``PECIntegrator`` with
+  ``EDACTVFStep``), on ``tvf_pair``, linked.
 
 On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.taylor_green --nx 400 \\
-        --max-steps 200 --disable-output [--scheme wcsph|gtvf]
+        --max-steps 200 --disable-output [--scheme wcsph|gtvf|edac]
 
 (160,000 particles, h = dx = 2.5e-3, dt = 5.68e-5 s); ``--nx 50`` (the
 default, 2,500 particles) is the reference's size.  On the CPU:
@@ -39,6 +44,7 @@ from pysph_tpu_torch.base.utils import get_particle_array
 from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.scheme import (
     NotPortedScheme, SchemeChooser, TVFScheme, WCSPHScheme)
+from pysph_tpu_torch.sph.wc.edac import EDACScheme
 from pysph_tpu_torch.sph.wc.gtvf import GTVFScheme
 
 L = 1.0
@@ -49,7 +55,6 @@ p0 = c0 ** 2 * rho0
 
 #: the reference's other schemes: the ROADMAP items that port them
 _NOT_PORTED = {
-    'edac': 'ROADMAP Queue 1 item 35',
     'iisph': 'ROADMAP Queue 1 item 26',
     'crksph': 'ROADMAP Queue 1 item 28, remaining physics',
     'pcisph': 'ROADMAP Queue 1 item 28, remaining physics',
@@ -106,10 +111,12 @@ class TaylorGreen(Application):
                         p0=p0, pb=None, h0=None)
         gtvf = GTVFScheme(fluids=['fluid'], solids=[], dim=2, rho0=rho0,
                           c0=c0, nu=None, h0=None, pref=None)
+        edac = EDACScheme(['fluid'], [], dim=2, rho0=rho0, c0=c0,
+                          nu=None, pb=p0, h=None)
         others = {name: NotPortedScheme(name, item)
                   for name, item in _NOT_PORTED.items()}
         return SchemeChooser(default='tvf', wcsph=wcsph, tvf=tvf,
-                             gtvf=gtvf, **others)
+                             gtvf=gtvf, edac=edac, **others)
 
     def configure_scheme(self):
         h0 = self.hdx * self.dx
@@ -121,6 +128,9 @@ class TaylorGreen(Application):
             self.scheme.configure(hdx=self.hdx, nu=self.nu, h0=h0)
         elif choice == 'gtvf':
             self.scheme.configure(pref=p0, nu=self.nu, h0=h0)
+        elif choice == 'edac':
+            self.scheme.configure(h=h0, nu=self.nu,
+                                  pb=self.options.pb_factor * p0)
         self.scheme.configure_solver(kernel=QuinticSpline(dim=2),
                                      tf=self.tf, dt=self.dt)
         self.scheme.get_solver().set_print_freq(500)

@@ -18,7 +18,9 @@ default library holds the kinds below ``BASE_KINDS``; each later kind is
 a library of its own, built with ``-DPAIR_KIND=<kind>`` at its first
 launch (``launch`` reads the kind from the argument struct's
 ``kernel_kind``), so that a path that runs none of them builds what it
-built before they came.
+built before they came.  A kernel's wrapper may ask for a library of
+further flags the same way (``tvf_pair``'s EDAC instantiations:
+``-DTVF_EDAC``, ``ops/tvf_pair.py`` ``EDAC_FLAGS``).
 
 Needs the CUDA toolkit (``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda``,
 else ``nvcc`` on ``PATH``) and a Hopper card: the code is built for
@@ -184,13 +186,15 @@ def load_library(name, args_type, extra=()):
     return _loaded[key]
 
 
-def launch(name, args, device):
+def launch(name, args, device, extra=()):
     """Launch ``csrc/<name>.cu`` with the ctypes struct ``args`` on the
     current stream of ``device`` (from the library of its
-    ``kernel_kind``, where it has one); raises if CUDA refuses the
-    launch."""
+    ``kernel_kind``, where it has one, and of the flags ``extra``: a
+    kernel's further instantiations, such as ``tvf_pair``'s EDAC terms);
+    raises if CUDA refuses the launch."""
     lib = load_library(name, type(args),
-                       kind_flags(getattr(args, 'kernel_kind', 0)))
+                       kind_flags(getattr(args, 'kernel_kind', 0)) +
+                       tuple(extra))
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = getattr(lib, name + '_launch')(ctypes.byref(args), stream)
     if rc != 0:

@@ -3,7 +3,9 @@
 ``gtvf_pair`` runs the pair terms of one dest array over all its sources
 (at most ``MAX_SOURCES``) in one call, for one of the five phase sets of
 ``GTVFScheme``'s two evaluators (the GTVF dam break's, and the
-Taylor-Green vortex's on its periodic box).  A per-source term mask says which
+Taylor-Green vortex's on its periodic box), the walls' two groups of
+``TVFScheme`` (the last two sets' wall terms) and the walls' group of
+``EDACScheme`` (the sixth).  A per-source term mask says which
 equations a source takes (``ContinuitySolid`` only the walls,
 ``MomentumEquationArtificialStress`` only the fluid, ...):
 
@@ -20,7 +22,15 @@ MOMENTUM        MPG (``MomentumEquationPressureGradient``,  au av aw
                 with the kernel gradient at h/2),           auhat avhat
                 MVISC (``MomentumEquationViscosity``),      awhat
                 MAS (``MomentumEquationArtificialStress``)
+EDAC_WALL       SND (``SourceNumberDensity``),              wij V p
+                VSUM (``VolumeSummation``),                 uf vf wf
+                EWALLP (EDAC's ``SolidWallPressureBC``),
+                ESWV (EDAC's ``SetWallVelocity``)
 ==============  ==========================================  ===========
+
+(TVF's ``SolidWallPressureBC`` and ``SetWallVelocity`` each sum ``wij``
+too, EDAC's leave it to ``SourceNumberDensity``: their terms are
+EDAC's own, which write only their equations' outputs.)
 
 Each output is ``pre + sum`` on rows under the write mask and ``pre``
 elsewhere; every read sees the value from before the phase.  Any kernel
@@ -50,10 +60,11 @@ from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops.build import data_ptr
 
-SWV, CGTVF, CSOLID, CDENS, VSUM, WALLP, MPG, MAS, MVISC = (
-    1 << k for k in range(9))
+(SWV, CGTVF, CSOLID, CDENS, VSUM, WALLP, MPG, MAS, MVISC, SND, EWALLP,
+ ESWV) = (1 << k for k in range(12))
 #: phase sets, indexed by the phase id of the CUDA kernel
-PHASE_SETS = (SWV, CGTVF | CSOLID, CDENS, VSUM | WALLP, MPG | MVISC | MAS)
+PHASE_SETS = (SWV, CGTVF | CSOLID, CDENS, VSUM | WALLP, MPG | MVISC | MAS,
+              SND | VSUM | EWALLP | ESWV)
 MAX_SOURCES = 4
 OUTPUTS = ('uf', 'vf', 'wf', 'wij', 'arho', 'rho', 'rhodiv', 'V', 'p',
            'au', 'av', 'aw', 'auhat', 'avhat', 'awhat')
@@ -61,7 +72,8 @@ TERM_OUTPUTS = {SWV: ('uf', 'vf', 'wf', 'wij'), CGTVF: ('arho',),
                 CSOLID: ('arho',), CDENS: ('rho', 'rhodiv'), VSUM: ('V',),
                 WALLP: ('p', 'wij'),
                 MPG: ('au', 'av', 'aw', 'auhat', 'avhat', 'awhat'),
-                MAS: ('au', 'av', 'aw'), MVISC: ('au', 'av', 'aw')}
+                MAS: ('au', 'av', 'aw'), MVISC: ('au', 'av', 'aw'),
+                SND: ('wij',), EWALLP: ('p',), ESWV: ('uf', 'vf', 'wf')}
 
 # props each term reads beyond x, y, z, h: (dest, source)
 _HAT = ('uhat', 'vhat', 'what')
@@ -75,7 +87,10 @@ _TERM_READS = {
     MPG: (('rho', 'p', 'p0'), ('m', 'rho', 'p')),
     MAS: (('rho', 'u', 'v', 'w') + _HAT,
           ('m', 'rho', 'u', 'v', 'w') + _HAT),
-    MVISC: (('rho', 'u', 'v', 'w'), ('m', 'rho', 'u', 'v', 'w'))}
+    MVISC: (('rho', 'u', 'v', 'w'), ('m', 'rho', 'u', 'v', 'w')),
+    SND: ((), ()),
+    EWALLP: (('au', 'av', 'aw'), ('p', 'rho')),
+    ESWV: ((), ('u', 'v', 'w'))}
 _DEST_PROPS = ('x', 'y', 'z', 'h', 'rho', 'p', 'p0', 'u', 'v', 'w', 'uhat',
                'vhat', 'what', 'au', 'av', 'aw')
 #: record planes of the packed copy (csrc/gtvf_pair.cu): mass and
@@ -90,8 +105,8 @@ PACK_RECORDS = (('x', 'y', 'z', 'h'), ('m', 'rho', 'p', 'rho0'),
 class GtvfSource(NamedTuple):
     """One source of a dest's phase set: its term mask, the ``Equation``
     objects the terms stand for (the plain version runs them), the
-    gravity of its ``SolidWallPressureBC`` and the ``nu`` of its
-    ``MomentumEquationViscosity``."""
+    gravity of its ``SolidWallPressureBC`` (TVF's or EDAC's) and the
+    ``nu`` of its ``MomentumEquationViscosity``."""
     name: str
     terms: int
     equations: tuple

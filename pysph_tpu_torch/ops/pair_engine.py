@@ -19,17 +19,23 @@ Four kernels take a dest's pair phases, all its sources in one call:
   below does not see, so ``delta_pair``'s planner accepts exactly that
   ordered pair;
 - ``gtvf_pair`` (``ops/gtvf_pair.py``, the GTVF dam break and the
-  Taylor-Green vortex's ``--scheme gtvf``): the equations fall in one of
-  its five phase sets (``SetWallVelocity``; ``ContinuityEquationGTVF`` +
+  Taylor-Green vortex's ``--scheme gtvf``, the walls of ``TVFScheme`` and
+  ``EDACScheme``): the equations fall in one of its six phase sets
+  (``SetWallVelocity``; ``ContinuityEquationGTVF`` +
   ``ContinuitySolid``; ``CorrectDensity``; ``VolumeSummation`` +
   ``SolidWallPressureBC``; ``MomentumEquationPressureGradient`` +
-  ``MomentumEquationViscosity`` + ``MomentumEquationArtificialStress``);
-- ``tvf_pair`` (``ops/tvf_pair.py``, ``TVFScheme``'s groups: the
-  Taylor-Green vortex and the wall examples): the equations of a dest
-  fall in one of its two phase sets (``SummationDensity``; the TVF
-  ``MomentumEquationPressureGradient``, ``MomentumEquationViscosity``,
-  ``MomentumEquationArtificialStress``,
-  ``MomentumEquationArtificialViscosity`` and ``SolidWallNoSlipBC``).
+  ``MomentumEquationViscosity`` + ``MomentumEquationArtificialStress``;
+  EDAC's wall set, ``SourceNumberDensity`` + ``VolumeSummation`` + EDAC's
+  ``SolidWallPressureBC`` and ``SetWallVelocity``);
+- ``tvf_pair`` (``ops/tvf_pair.py``, ``TVFScheme``'s and
+  ``EDACScheme``'s groups: the Taylor-Green vortex, the wall examples,
+  the EDAC runs): the equations of a dest fall in one of its two phase
+  sets (``SummationDensity`` and EDAC's ``ComputeAveragePressure``; the
+  TVF ``MomentumEquationPressureGradient``,
+  ``MomentumEquationViscosity``, ``MomentumEquationArtificialStress``,
+  ``MomentumEquationArtificialViscosity`` and ``SolidWallNoSlipBC``,
+  EDAC's ``MomentumEquationPressureGradient``, ``MomentumEquation`` and
+  ``EDACEquation``, and ``XSPHCorrection``).
 
 Every kernel takes every kernel with a ``kernel_kind`` (not the ``_1D``
 ones: ROADMAP Queue 1 item 28), and every kernel walks a periodic grid
@@ -45,10 +51,10 @@ the torch pair engine instead.
 ``link_pairs`` links two plans of one kernel for one dest where nothing
 between them moves the pairs: a dest's ``delta_pair`` moment plan and
 its corrected gradient plan in the group right after it, and a dest's
-``tvf_pair`` density plan and its momentum plan in a later group.  The
-first call then hands its neighbour list and packed copies to the
-second (``PairPlan.link``, ``ops/pair_link.py``), which walks no
-candidates.
+``tvf_pair`` density plan and its momentum plan in a later group (and
+the mean-pressure plan of ``EDACScheme`` between them).  The first call
+then hands its neighbour list and packed copies to the later ones
+(``PairPlan.link``, ``ops/pair_link.py``), which walk no candidates.
 
 The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
 sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair`` and the
@@ -142,6 +148,7 @@ class PairSource(NamedTuple):
 def _gtvf_terms():
     # imported here: sph/wc/gtvf.py imports the integrator, which
     # imports the evaluator, which imports this module
+    from pysph_tpu_torch.sph.wc import edac
     from pysph_tpu_torch.sph.wc.gtvf import (
         ContinuityEquationGTVF, CorrectDensity,
         MomentumEquationArtificialStress, MomentumEquationPressureGradient,
@@ -154,7 +161,10 @@ def _gtvf_terms():
             VolumeSummation: _gp.VSUM, SolidWallPressureBC: _gp.WALLP,
             MomentumEquationPressureGradient: _gp.MPG,
             MomentumEquationViscosity: _gp.MVISC,
-            MomentumEquationArtificialStress: _gp.MAS}
+            MomentumEquationArtificialStress: _gp.MAS,
+            edac.SourceNumberDensity: _gp.SND,
+            edac.SolidWallPressureBC: _gp.EWALLP,
+            edac.SetWallVelocity: _gp.ESWV}
 
 
 def _reads(eq):
@@ -202,6 +212,7 @@ def _source_terms(sources, term_of, term_outputs, max_sources):
 
 def _tvf_terms():
     # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.wc import edac
     from pysph_tpu_torch.sph.wc.transport_velocity import (
         MomentumEquationArtificialStress,
         MomentumEquationArtificialViscosity,
@@ -212,7 +223,12 @@ def _tvf_terms():
             MomentumEquationViscosity: _tp.VISC,
             MomentumEquationArtificialStress: _tp.MAS,
             MomentumEquationArtificialViscosity: _tp.AVIS,
-            SolidWallNoSlipBC: _tp.NOSLIP}
+            SolidWallNoSlipBC: _tp.NOSLIP,
+            edac.ComputeAveragePressure: _tp.AVGP,
+            edac.MomentumEquationPressureGradient: _tp.EMPG,
+            edac.MomentumEquation: _tp.EMOM,
+            edac.EDACEquation: _tp.EDACEQ,
+            XSPHCorrection: _tp.XSPH}
 
 
 def _check_kind(kernel):
@@ -285,7 +301,7 @@ def _plan_gtvf(dest, sources, kernel):
     for src, t, eqs in _source_terms(sources, term_of, _gp.TERM_OUTPUTS,
                                      _gp.MAX_SOURCES):
         gravity = next(((eq.gx, eq.gy, eq.gz) for eq in eqs
-                        if term_of[type(eq)] == _gp.WALLP),
+                        if term_of[type(eq)] in (_gp.WALLP, _gp.EWALLP)),
                        (0.0, 0.0, 0.0))
         nu = next((eq.nu for eq in eqs if term_of[type(eq)] == _gp.MVISC),
                   0.0)
@@ -307,18 +323,26 @@ def _plan_tvf(dest, sources, kernel):
                                      _tp.MAX_SOURCES):
         params = {}
         for eq in eqs:
-            if term_of[type(eq)] == _tp.MPG:
+            term = term_of[type(eq)]
+            if term in (_tp.MPG, _tp.EMPG):
                 params['pb'] = eq.pb
-            elif term_of[type(eq)] == _tp.VISC:
+            elif term == _tp.VISC:
                 params['nu'] = eq.nu
-            elif term_of[type(eq)] == _tp.AVIS:
+            elif term == _tp.AVIS:
                 params.update(alpha=eq.alpha, c0=eq.c0)
-            elif term_of[type(eq)] == _tp.NOSLIP:
+            elif term == _tp.NOSLIP:
                 params['noslip_nu'] = eq.nu
+            elif term == _tp.EDACEQ:
+                params.update(cs=eq.cs, edac_nu=eq.nu)
+            elif term == _tp.XSPH:
+                params['eps'] = eq.eps
         plan_sources.append(_tp.TvfSource(src, t, tuple(eqs), **params))
         terms |= t
     if _tp.phase_of(terms) is None:
         raise PairIneligible('TVF terms %#x span two phase sets' % terms)
+    if terms & _tp.MPG and terms & _tp.EMPG:
+        raise PairIneligible('TVF\'s and EDAC\'s pressure gradients share '
+                             'the background pressure')
     return PairPlan(dest, plan_sources, kernel, _tp.tvf_pair,
                     _tp.tvf_pair_reference, _tp.outputs_for(terms))
 
@@ -348,16 +372,21 @@ _DELTA_EQUATIONS = frozenset(t for eqs in _DELTA_SETS for t in eqs)
 
 def _tvf_link_equations():
     """The equations that may lie between a linked ``tvf_pair`` density
-    call and its momentum call, those calls' own included: TVF's pair
-    equations, the EOS and the walls' velocity and pressure
-    (``TVFScheme``'s groups).  None writes x y z h, so both calls see
-    the same pairs in support; the momentum call packs the other props
-    afresh."""
+    call and its momentum call, those calls' own included: ``tvf_pair``'s
+    pair equations (TVF's and EDAC's), the EOS and the walls' velocity,
+    pressure and volume (``TVFScheme``'s and ``EDACScheme``'s groups;
+    ``ClampWallPressure`` a ``post_loop`` alone).  None writes x y z h,
+    so every call sees the same pairs in support; the consuming calls
+    pack the other props afresh."""
     # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.wc import edac
     from pysph_tpu_torch.sph.wc.transport_velocity import (
-        SetWallVelocity, SolidWallPressureBC, StateEquation)
-    return frozenset(_tvf_terms()) | {StateEquation, SetWallVelocity,
-                                      SolidWallPressureBC}
+        SetWallVelocity, SolidWallPressureBC, StateEquation,
+        VolumeSummation)
+    return frozenset(_tvf_terms()) | {
+        StateEquation, SetWallVelocity, SolidWallPressureBC,
+        VolumeSummation, edac.SourceNumberDensity, edac.SolidWallPressureBC,
+        edac.SetWallVelocity, edac.ClampWallPressure}
 
 
 def _delta_dims(moment, gradient):
@@ -368,20 +397,25 @@ def _delta_dims(moment, gradient):
     return None
 
 
-def _tvf_phase(plan):
+def _tvf_terms_of(plan):
     terms = 0
     for ts in plan.sources:
         terms |= ts.terms
-    return _tp.phase_of(terms)
+    return terms
+
+
+def _tvf_phase(plan):
+    return _tp.phase_of(_tvf_terms_of(plan))
 
 
 class _LinkRule(NamedTuple):
     """How one kernel's plans link: ``emits(plan)`` and
     ``consumes(plan)`` pick the two calls; the consumer is the kernel's
     next plan for the dest within ``reach`` groups after the emitter's
-    (None: any later group); every equation of the groups from the
-    emitter's to the consumer's must be one of ``equations()``, and
-    ``check(emitter, consumer)`` gives any further refusal."""
+    (None: any later group) but those that ``passes(plan)`` takes, which
+    read the list too (``Link.middle``); every equation of the groups
+    from the emitter's to the consumer's must be one of ``equations()``,
+    and ``check(emitter, consumer)`` gives any further refusal."""
     op: Callable
     emits: Callable
     consumes: Callable
@@ -389,6 +423,7 @@ class _LinkRule(NamedTuple):
     equations: Callable
     link: type
     check: Callable = lambda emitter, consumer: None
+    passes: Callable = lambda plan: False
 
 
 _LINK_RULES = (
@@ -396,20 +431,25 @@ _LINK_RULES = (
               lambda p: p.sources[0].terms == _dl.MMAT,
               lambda p: p.sources[0].terms == _dl.CORR | _dl.GRAD, 1,
               lambda: _DELTA_EQUATIONS, _dl.Link, _delta_dims),
+    # EDACScheme with walls: its mean-pressure group (AVGP alone) lies
+    # between the density and the momentum group and reads the list too
     _LinkRule(_tp.tvf_pair, lambda p: _tvf_phase(p) == _tp.DENSITY,
               lambda p: _tvf_phase(p) == _tp.MOMENTUM, None,
-              _tvf_link_equations, _pl.Link),
+              _tvf_link_equations, _pl.Link,
+              passes=lambda p: _tvf_terms_of(p) == _tp.AVGP),
 )
 
 
-def _link_refusal(rule, span, emitter, consumer):
-    """Why the emitting and the consuming plan, over the groups ``span``
-    (the emitter's to the consumer's), cannot share a walk, or None."""
+def _link_refusal(rule, span, emitter, consumers):
+    """Why the emitting plan and the ``consumers``, over the groups
+    ``span`` (the emitter's to the last consumer's), cannot share a walk,
+    or None."""
     names = [ps.name for ps in emitter.sources]
-    if names != [ps.name for ps in consumer.sources]:
-        return 'sources %s and %s' % (
-            names, [ps.name for ps in consumer.sources])
-    why = rule.check(emitter, consumer)
+    for consumer in consumers:
+        if names != [ps.name for ps in consumer.sources]:
+            return 'sources %s and %s' % (
+                names, [ps.name for ps in consumer.sources])
+    why = rule.check(emitter, consumers[-1])
     if why is not None:
         return why
     allowed = rule.equations()
@@ -434,36 +474,45 @@ def link_pairs(groups, plans):
     from the density group to the momentum group is TVF's, the EOS or
     the walls' (``_tvf_link_equations``: none writes ``x y z h``); both
     with the same sources in the same order.  The first call then emits
-    the neighbour list and packed copies that the second reads
-    (``ops/pair_link.py``); each refusal is logged.  Returns the
-    ``Link`` of each linked pair."""
+    the neighbour list and packed copies that the second reads (and the
+    ``tvf_pair`` mean-pressure plans of ``AVGP`` alone between them,
+    ``EDACScheme``'s with walls: ``Link.middle``) (``ops/pair_link.py``);
+    each refusal is logged.  Returns the ``Link`` of each linked pair."""
     links = []
     for a, g0 in enumerate(groups):
         for dest in dict.fromkeys(eq.dest for eq in g0.equations):
             emitter = plans.get((id(g0), dest))
             rule = next((r for r in _LINK_RULES if emitter is not None and
-                         emitter.op is r.op and r.emits(emitter)), None)
+                         emitter.link is None and emitter.op is r.op and
+                         r.emits(emitter)), None)
             if rule is None:
                 continue
             end = len(groups) if rule.reach is None else \
                 min(len(groups), a + 1 + rule.reach)
-            consumer = None
+            consumer, middle = None, []
             for b in range(a + 1, end):
-                consumer = plans.get((id(groups[b]), dest))
-                if consumer is not None and consumer.op is rule.op:
-                    break
-                consumer = None
+                plan = plans.get((id(groups[b]), dest))
+                if plan is None or plan.op is not rule.op:
+                    continue
+                if rule.passes(plan):
+                    middle.append(plan)
+                    continue
+                consumer = plan
+                break
             if consumer is None or not rule.consumes(consumer):
                 logger.info('%s for %s: no link: no consuming plan after '
                             'it', rule.op.__name__, dest)
                 continue
-            why = _link_refusal(rule, groups[a:b + 1], emitter, consumer)
+            why = _link_refusal(rule, groups[a:b + 1], emitter,
+                                middle + [consumer])
             if why is not None:
                 logger.info('%s for %s: no link: %s', rule.op.__name__,
                             dest, why)
                 continue
-            emitter.link = consumer.link = rule.link(emitter, consumer)
-            links.append(emitter.link)
+            link = rule.link(emitter, consumer, middle)
+            for plan in [emitter, consumer] + middle:
+                plan.link = link
+            links.append(link)
     return links
 
 

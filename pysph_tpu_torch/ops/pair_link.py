@@ -34,13 +34,23 @@ class Handoff(NamedTuple):
     support of the dest at sorted position ``p`` (in the numbering of
     ``neighbours_reference``), for ``c < min(count[p], capacity)``;
     ``count[p]`` may exceed the capacity ``nbr.shape[0]``.  ``sources``:
-    ((name, particles), ...) of the copies.  On the CPU, where the plain
-    consumer walks, ``buf`` and ``nbr`` are empty and ``count`` is
-    None."""
+    ((name, particles), ...) of the copies; ``planes``: the record planes
+    of each copy, plane 0 ``{x y z h}`` first (None: plane 0 alone).  On
+    the CPU, where the plain consumer walks, ``buf`` and ``nbr`` are
+    empty and ``count`` is None."""
     buf: torch.Tensor
     nbr: torch.Tensor
     count: torch.Tensor
     sources: tuple
+    planes: tuple = None
+
+    def plane0(self):
+        """The offset in ``buf``, in values, of each copy's plane 0."""
+        offsets, off = [], 0
+        for k, (_, n) in enumerate(self.sources):
+            offsets.append(off)
+            off += 4 * n * (1 if self.planes is None else self.planes[k])
+        return offsets, off
 
 
 def copies_of(sources):
@@ -169,20 +179,31 @@ def reset_overflow(name, device):
 
 class Link(object):
     """An emitting plan and the consuming plan of a later group, linked
-    by ``ops/pair_engine.py::link_pairs``: the evaluator runs both
-    through ``run``."""
+    by ``ops/pair_engine.py::link_pairs``, and the plans of the groups
+    between them that read the same list (``middle``: ``tvf_pair``'s
+    mean-pressure plan between the density and the momentum plan of
+    ``EDACScheme`` with walls): the evaluator runs them through
+    ``run``, the hand-off kept until the last consumer takes it."""
 
-    def __init__(self, emitter, consumer):
+    def __init__(self, emitter, consumer, middle=()):
         self.emitter = emitter
         self.consumer = consumer
+        self.middle = tuple(middle)
         self.handoff = None
 
+    @property
+    def consumers(self):
+        return self.middle + (self.consumer,)
+
     def run(self, plan, args):
-        """The result of ``plan`` (one of the two) on its arguments."""
+        """The result of ``plan`` (one of the link's) on its
+        arguments."""
         if plan is self.emitter:
             out, self.handoff = plan.op(*args, emit=True)
             return out
-        handoff, self.handoff = self.handoff, None
+        handoff = self.handoff
+        if plan is self.consumer:
+            self.handoff = None
         if handoff is None:
             raise RuntimeError('%s: the linked consumer of %s runs without '
                                'the hand-off of its emitting call'

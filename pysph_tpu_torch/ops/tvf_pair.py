@@ -2,26 +2,36 @@
 
 ``tvf_pair`` runs the pair terms of one dest array over all its sources
 (at most ``MAX_SOURCES``) in one call, for one of the two phase sets of
-``TVFScheme``'s groups (the Taylor-Green vortex's path).  A per-source
-term mask says which equations a source takes:
+``TVFScheme``'s and ``EDACScheme``'s groups (the Taylor-Green vortex's
+path, the wall examples', the EDAC dam break's).  A per-source term mask
+says which equations a source takes:
 
 ==========  ============================================  ============
 phase set   terms (equations)                             outputs
 ==========  ============================================  ============
-DENSITY     SDEN (``SummationDensity``)                   V rho
+DENSITY     SDEN (``SummationDensity``),                  V rho
+            AVGP (EDAC's ``ComputeAveragePressure``)      pavg nnbr
 MOMENTUM    MPG (``MomentumEquationPressureGradient``),   au av aw
             VISC (``MomentumEquationViscosity``),         auhat avhat
             MAS (``MomentumEquationArtificialStress``),   awhat
             AVIS (``MomentumEquationArtificialViscosity``),
-            NOSLIP (``SolidWallNoSlipBC``)
+            NOSLIP (``SolidWallNoSlipBC``),
+            EMPG (EDAC's ``MomentumEquationPressureGradient``,
+            ``p - pavg``), EMOM (EDAC's ``MomentumEquation``),
+            EDACEQ (``EDACEquation``)                     ap
+            XSPH (``XSPHCorrection``)                     ax ay az
 ==========  ============================================  ============
 
-(the equations of ``sph/wc/transport_velocity.py``; ``TVFScheme`` gives
-a wall source MPG and NOSLIP, whose ghost velocity ``ug vg wg`` is a
-plane of its own).  Each output is ``pre + sum`` on rows under the
-write mask and ``pre`` elsewhere; every read sees the value from before
-the phase.  Any kernel of
-``kernel_kind`` (``QuinticSpline`` on the path).
+(the equations of ``sph/wc/transport_velocity.py`` and
+``sph/wc/edac.py``; ``TVFScheme`` gives a wall source MPG and NOSLIP,
+whose ghost velocity ``ug vg wg`` is a plane of its own).  Each output
+is ``pre + sum`` on rows under the write mask and ``pre`` elsewhere;
+every read sees the value from before the phase.  Any kernel of
+``kernel_kind`` (``QuinticSpline`` on the path).  The EDAC terms
+(``EDAC_TERMS``) are built into instantiations of their own, in a
+library of their own built at their first launch (``EDAC_FLAGS``), so
+that a path that runs none of them builds and runs the code it did
+before them.
 
 The grid may be periodic (``base/cell_grid.py``): the kernel then walks
 the wrapped stencil and takes the minimum image of every displacement
@@ -31,7 +41,9 @@ so the kernel on an open grid keeps the plain walk).
 The linked pair.  Where the momentum group of a dest follows its
 density group with the same sources and nothing between them moves ``x
 y z h`` (``ops/pair_engine.py::link_pairs``), the two plans share a
-``Link`` (``ops/pair_link.py``): the density call runs with
+``Link`` (``ops/pair_link.py``; with ``EDACScheme``'s walls the
+mean-pressure plan between them, AVGP alone, consumes too): the density
+call runs with
 ``emit=True`` and returns, beside its output, a ``Handoff``: its
 sources' packed ``{x y z h}`` copies and the neighbour list, up to
 ``CAPACITY[dim]`` entries a dest.  The momentum call takes it
@@ -66,17 +78,27 @@ from pysph_tpu_torch.ops import build, cell_pack, pair_link
 from pysph_tpu_torch.ops.build import data_ptr
 from pysph_tpu_torch.ops.pair_link import CAPACITY, Handoff
 
-SDEN, MPG, VISC, MAS, AVIS, NOSLIP = (1 << k for k in range(6))
+SDEN, MPG, VISC, MAS, AVIS, NOSLIP, AVGP, EMPG, EMOM, EDACEQ, XSPH = (
+    1 << k for k in range(11))
 #: phase sets, indexed by the phase id of the CUDA kernel
-PHASE_SETS = (SDEN, MPG | VISC | MAS | AVIS | NOSLIP)
+PHASE_SETS = (SDEN | AVGP,
+              MPG | VISC | MAS | AVIS | NOSLIP | EMPG | EMOM | EDACEQ | XSPH)
+#: the terms of EDACScheme, built into instantiations of their own (the
+#: library of the flags EDAC_FLAGS, csrc/tvf_pair.cu TVF_EDAC)
+EDAC_TERMS = AVGP | EMPG | EMOM | EDACEQ | XSPH
+EDAC_FLAGS = ('-DTVF_EDAC',)
 DENSITY, MOMENTUM = 0, 1
 #: the kernel's modes (csrc/tvf_pair.cu kWalk, kEmit, kConsume)
 WALK, EMIT, CONSUME = 0, 1, 2
 MAX_SOURCES = 4
-OUTPUTS = ('V', 'rho', 'au', 'av', 'aw', 'auhat', 'avhat', 'awhat')
+OUTPUTS = ('V', 'rho', 'au', 'av', 'aw', 'auhat', 'avhat', 'awhat', 'pavg',
+           'nnbr', 'ap', 'ax', 'ay', 'az')
 _ACC = ('au', 'av', 'aw')
-TERM_OUTPUTS = {SDEN: ('V', 'rho'), MPG: _ACC + ('auhat', 'avhat', 'awhat'),
-                VISC: _ACC, MAS: _ACC, AVIS: _ACC, NOSLIP: _ACC}
+_ACCHAT = _ACC + ('auhat', 'avhat', 'awhat')
+TERM_OUTPUTS = {SDEN: ('V', 'rho'), MPG: _ACCHAT, VISC: _ACC, MAS: _ACC,
+                AVIS: _ACC, NOSLIP: _ACC, AVGP: ('pavg', 'nnbr'),
+                EMPG: _ACCHAT, EMOM: _ACC, EDACEQ: ('ap',),
+                XSPH: ('ax', 'ay', 'az')}
 
 # props each term reads beyond x, y, z, h: (dest, source)
 _VEL = ('u', 'v', 'w')
@@ -87,12 +109,18 @@ _TERM_READS = {
     VISC: (('m', 'rho', 'V') + _VEL, ('rho', 'V') + _VEL),
     MAS: (('m', 'rho', 'V') + _VEL + _HAT, ('rho', 'V') + _VEL + _HAT),
     AVIS: (('rho',) + _VEL, ('m', 'rho') + _VEL),
-    NOSLIP: (('m', 'rho', 'V') + _VEL, ('rho', 'V', 'ug', 'vg', 'wg'))}
-_DEST_PROPS = ('x', 'y', 'z', 'h', 'm', 'rho', 'p', 'V') + _VEL + _HAT
+    NOSLIP: (('m', 'rho', 'V') + _VEL, ('rho', 'V', 'ug', 'vg', 'wg')),
+    AVGP: ((), ('p',)),
+    EMPG: (('m', 'rho', 'p', 'V', 'pavg'), ('rho', 'p', 'V')),
+    EMOM: (('m', 'rho', 'p', 'V'), ('rho', 'p', 'V')),
+    EDACEQ: (('m', 'rho', 'p', 'V') + _VEL, ('m', 'rho', 'p', 'V') + _VEL),
+    XSPH: (('rho',) + _VEL, ('m', 'rho') + _VEL)}
+_DEST_PROPS = ('x', 'y', 'z', 'h', 'm', 'rho', 'p', 'V') + _VEL + _HAT + (
+    'pavg',)
 #: record planes of the packed copy (csrc/tvf_pair.cu): the density
-#: launch packs plane 0 only, the momentum launch planes 0 to 4, each
-#: where the source's terms read one of its props (plane 4, the wall's
-#: ghost velocity, for NOSLIP alone)
+#: launch packs plane 0 (and plane 1 for AVGP's p), the momentum launch
+#: planes 0 to 4, each where the source's terms read one of its props
+#: (plane 4, the wall's ghost velocity, for NOSLIP alone)
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('m', 'rho', 'p', 'V'),
                 ('u', 'v', 'w', None), ('uhat', 'vhat', 'what', None),
                 ('ug', 'vg', 'wg', None))
@@ -101,8 +129,9 @@ PACK_RECORDS = (('x', 'y', 'z', 'h'), ('m', 'rho', 'p', 'V'),
 class TvfSource(NamedTuple):
     """One source of a dest's phase set: its term mask, the ``Equation``
     objects the terms stand for (the plain version runs them) and their
-    constants: MPG's background pressure ``pb``, VISC's ``nu``, AVIS's
-    ``alpha`` and ``c0``, NOSLIP's ``noslip_nu``."""
+    constants: MPG's (or EMPG's) background pressure ``pb``, VISC's
+    ``nu``, AVIS's ``alpha`` and ``c0``, NOSLIP's ``noslip_nu``,
+    EDACEQ's ``cs`` and ``edac_nu``, XSPH's ``eps``."""
     name: str
     terms: int
     equations: tuple
@@ -111,6 +140,9 @@ class TvfSource(NamedTuple):
     alpha: float = 0.0
     c0: float = 0.0
     noslip_nu: float = 0.0
+    cs: float = 0.0
+    edac_nu: float = 0.0
+    eps: float = 0.0
 
 
 def phase_of(terms):
@@ -198,7 +230,8 @@ class _SrcArgs(ctypes.Structure):
                 ('cell_end', ctypes.c_void_p),
                 ('pb', ctypes.c_double), ('nu', ctypes.c_double),
                 ('alpha', ctypes.c_double), ('c0', ctypes.c_double),
-                ('noslip_nu', ctypes.c_double),
+                ('noslip_nu', ctypes.c_double), ('cs', ctypes.c_double),
+                ('edac_nu', ctypes.c_double), ('eps', ctypes.c_double),
                 ('terms', ctypes.c_int32), ('base', ctypes.c_int32)]
 
 
@@ -230,16 +263,17 @@ def _phase(sources):
     return terms, phase
 
 
-def _check_mode(phase, emit, handoff, dest, sources):
-    """Raise unless only a density call emits and only a momentum call
-    takes a hand-off, one that ``sources`` on ``dest``'s device emitted
-    for as many dests."""
+def _check_mode(terms, phase, emit, handoff, dest, sources):
+    """Raise unless only a density call emits and only a momentum call or
+    a density call with AVGP (EDAC's mean pressure) takes a hand-off, one
+    that ``sources`` on ``dest``'s device emitted for as many dests."""
     if emit and (handoff is not None or phase != DENSITY):
         raise ValueError('tvf_pair: only a density call emits a hand-off')
     if handoff is None:
         return
-    if phase != MOMENTUM:
-        raise ValueError('tvf_pair: a density call takes no hand-off')
+    if phase != MOMENTUM and not terms & AVGP:
+        raise ValueError('tvf_pair: a density call without AVGP takes no '
+                         'hand-off')
     pair_link.check_handoff('tvf_pair', handoff, dest, sources)
 
 
@@ -254,7 +288,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     if kernel_kind(kernel) is None:
         raise ValueError('tvf_pair: no shape function for %r' % kernel)
     terms, phase = _phase(sources)
-    _check_mode(phase, emit, handoff, dest, sources)
+    _check_mode(terms, phase, emit, handoff, dest, sources)
     i32 = torch.int32
     args = _Args()
     # a consuming call packs all but plane 0, which it reads from the
@@ -265,6 +299,11 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     # the copies' buffer stays referenced until the launch is queued
     buf = cell_pack.fill(args.pack, packs, 'tvf_pair') \
         if n and sources else None
+    if handoff is not None:
+        plane0, size = handoff.plane0()
+        if n and handoff.buf.numel() != size:
+            raise ValueError('tvf_pair: a hand-off of %d values for copies '
+                             'of %d' % (handoff.buf.numel(), size))
     base = 0
     for k, (src, cells, ts) in enumerate(sources):
         sa = args.src[k]
@@ -275,12 +314,13 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
                 sa.plane[slot] = copy.out + q * plane
             if handoff is not None:
                 sa.plane[0] = handoff.buf.data_ptr() + \
-                    4 * base * x.element_size()
+                    plane0[k] * x.element_size()
         sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
                                  'cell_start')
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
         sa.pb, sa.nu, sa.alpha, sa.c0 = ts.pb, ts.nu, ts.alpha, ts.c0
         sa.noslip_nu = ts.noslip_nu
+        sa.cs, sa.edac_nu, sa.eps = ts.cs, ts.edac_nu, ts.eps
         sa.terms = ts.terms
         sa.base = base
         base += src['x'].shape[0]
@@ -307,15 +347,12 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
             handoff = Handoff(buf, torch.empty((cap, n), dtype=i32,
                                                device=dev),
                               torch.empty(n, dtype=i32, device=dev),
-                              pair_link.copies_of(sources))
+                              pair_link.copies_of(sources),
+                              tuple(len(planes) for _, _, planes in packs))
             args.overflow = pair_link.overflow_counter('tvf_pair',
                                                        dev).data_ptr()
         args.mode = EMIT
     elif handoff is not None:
-        if n and handoff.buf.numel() != 4 * base:
-            raise ValueError('tvf_pair: a hand-off of %d values for %d '
-                             'source particles, not their {x y z h} '
-                             'copies' % (handoff.buf.numel(), base))
         args.mode = CONSUME
     if handoff is not None and n:
         args.nbr = data_ptr(handoff.nbr, handoff.nbr.shape[0], i32, dev,
@@ -336,7 +373,8 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     args.dtype = 1 if fdt == torch.float64 else 0
     args.kernel_kind = kernel_kind(kernel)
     if n:
-        build.launch('tvf_pair', args, dev)
+        build.launch('tvf_pair', args, dev,
+                     EDAC_FLAGS if terms & EDAC_TERMS else ())
         tvf_pair.launches += 1
         cell_pack.pack.launches += bool(args.pack.n_src)
     return (out, handoff) if emit else out
@@ -353,7 +391,7 @@ def tvf_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     plain version; CUDA tensors launch the kernel."""
     dev = dest['x'].device
     if dev.type == 'cpu':
-        _check_mode(_phase(sources)[1], emit, handoff, dest, sources)
+        _check_mode(*_phase(sources), emit, handoff, dest, sources)
         out = tvf_pair_reference(dest, dest_cells, write_mask, pre,
                                  sources, grid, kernel)
         # the plain momentum call walks: the hand-off carries nothing

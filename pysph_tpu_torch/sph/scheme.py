@@ -16,12 +16,17 @@ class Scheme(object):
     def add_user_options(self, group):
         pass
 
+    def attributes_changed(self):
+        """Derive what depends on the scheme's parameters (called by
+        ``configure``)."""
+
     def configure(self, **kw):
         for k, v in kw.items():
             if not hasattr(self, k):
                 raise RuntimeError('Parameter %s not defined for %s.' %
                                    (k, self.__class__.__name__))
             setattr(self, k, v)
+        self.attributes_changed()
 
     def consume_user_options(self, options):
         pass

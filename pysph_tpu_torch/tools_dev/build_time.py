@@ -2,6 +2,7 @@
 registers and spills.
 
     python3 pysph_tpu_torch/tools_dev/build_time.py [ROOT] [--kinds]
+        [--edac]
 
 (as a script, so that no ``pysph_tpu_torch`` is imported before it
 chooses one) imports ``pysph_tpu_torch.ops.build`` from the tree at
@@ -10,8 +11,10 @@ chooses one) imports ``pysph_tpu_torch.ops.build`` from the tree at
 libraries of ``PAIRS`` into that tree's ``build/`` in parallel, one nvcc
 each, and times each build and the whole; with ``--kinds`` then each later
 smoothing-kernel kind's library of the five that take kinds
-(``build.kind_flags``), in parallel.  A library already built is not
-built again: run it on a tree whose ``build/`` holds none.  Prints one
+(``build.kind_flags``), in parallel; with ``--edac`` then ``tvf_pair``'s
+EDAC library (``ops/tvf_pair.py`` ``EDAC_FLAGS``) alone, with its
+kernels' registers and spills.  A library already built is not built
+again: run it on a tree whose ``build/`` holds none.  Prints one
 JSON line: the seconds, and ``build.resources`` of each default library
 (registers, spill store and load bytes of every kernel).
 """
@@ -40,7 +43,8 @@ def _timed(build, jobs):
 
 def main(argv):
     kinds = '--kinds' in argv
-    roots = [a for a in argv if a != '--kinds']
+    edac = '--edac' in argv
+    roots = [a for a in argv if a not in ('--kinds', '--edac')]
     root = Path(roots[0]).resolve() if roots else \
         Path(__file__).resolve().parents[2]
     sys.path.insert(0, str(root))
@@ -60,6 +64,11 @@ def main(argv):
         out.update(kinds_wall_s=wall, kinds_s={
             '%s %s' % (job[0], job[1][0]): s
             for job, (_, s) in zip(jobs, done)})
+    if edac:
+        from pysph_tpu_torch.ops import tvf_pair
+        ((lib, secs),), _ = _timed(build, [('tvf_pair',
+                                            tvf_pair.EDAC_FLAGS)])
+        out.update(edac_s=secs, edac_resources=build.resources(lib))
     print(json.dumps(out), flush=True)
 
 

@@ -72,13 +72,14 @@ DELTA_PAIR_FLOPS = 26
 DELTA_GRAD_FLOPS = 9
 DELTA_SOLVE_FLOPS = {1: 3, 2: 13, 3: 56}
 #: gtvf_pair.cu: WIJ and DWIJ of every pair in support before the shape
-#: function (:403-429), then each term's functor (:166-375), MPG's h/2
-#: gradient with a second shape function; the minimum image as
+#: function, then each term's functor, MPG's h/2 gradient with a second
+#: shape function (EDAC's wall terms: SND and VSUM a sum each, EWALLP
+#: WALLP's without wij, ESWV SWV's without it); the minimum image as
 #: wcsph_pair's
 GTVF_PAIR_FLOPS = 20
 GTVF_TERM_FLOPS = {gp.SWV: 7, gp.CGTVF: 12, gp.CSOLID: 12, gp.CDENS: 4,
                    gp.VSUM: 1, gp.WALLP: 14, gp.MPG: 32, gp.MAS: 72,
-                   gp.MVISC: 28}
+                   gp.MVISC: 28, gp.SND: 1, gp.EWALLP: 13, gp.ESWV: 6}
 #: fused_pair.cu: the support test and the h > 0 test per candidate
 #: (cell_walk.cuh:74-83, fused_pair.cu:102), the rest per pair in
 #: support (fused_pair.cu:103-144)
@@ -94,13 +95,18 @@ BIN_CELL_FLOPS = 5
 #: tvf_pair.cu: per pair in support, xij, r2, hij, rinv, rij, h1, fac,
 #: WIJ, the gradient's factor and DWIJ (pair_of) before the shape
 #: function; each term (the functors' pair bodies; NOSLIP, the no-slip
-#: wall: etai, etaj, etaij, Fij, its factor and u - ug, 24), and the
-#: momentum terms' shared 1 / Vj, their volume factor, EPS and vij; the
-#: minimum image, d - L rint(d / L), on each periodic axis, in every
-#: support test (cell_walk.cuh) and in the body
+#: wall: etai, etaj, etaij, Fij, its factor and u - ug, 24; EDAC's
+#: (edac_pair): AVGP the sum and the count, 2; EMPG MPG's with p - pavg
+#: on both sides, 27; EMOM the pressure gradient alone, 13; EDACEQ etaij,
+#: v.DWIJ and x.DWIJ, the two increments of ap, 29; XSPH rhoij, its
+#: guarded reciprocal and the three increments, 14), and the momentum
+#: terms' shared 1 / Vj, their volume factor, EPS and vij; the minimum
+#: image, d - L rint(d / L), on each periodic axis, in every support test
+#: (cell_walk.cuh) and in the body
 TVF_PAIR_FLOPS = 30
 TVF_TERM_FLOPS = {tp.SDEN: 3, tp.MPG: 25, tp.VISC: 25, tp.MAS: 57,
-                  tp.AVIS: 25, tp.NOSLIP: 24}
+                  tp.AVIS: 25, tp.NOSLIP: 24, tp.AVGP: 2, tp.EMPG: 27,
+                  tp.EMOM: 13, tp.EDACEQ: 29, tp.XSPH: 14}
 TVF_MOMENTUM_FLOPS = 9
 IMAGE_FLOPS = 4
 
@@ -294,9 +300,10 @@ def gtvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
 def tvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
              walks=True):
     """Work of one ``tvf_pair`` call (the stencil wrapped on a periodic
-    grid).  ``walks=False``: a momentum call that reads a linked density
-    call's neighbour list, whose candidates' support tests that walk
-    made and are not counted again."""
+    grid).  ``walks=False``: a call that reads a linked density call's
+    neighbour list (the momentum call, and ``EDACScheme``'s mean
+    pressure), whose candidates' support tests that walk made and are
+    not counted again."""
     terms = 0
     work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
     shape = SHAPE_FLOPS[kernel_kind(kernel)]
@@ -307,7 +314,7 @@ def tvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         pairs = support_pairs(grid, dest, dest_cells, src, cells)
         per_pair = TVF_PAIR_FLOPS + image + shape + sum(
             f for t, f in TVF_TERM_FLOPS.items() if ts.terms & t)
-        if ts.terms & ~tp.SDEN:
+        if ts.terms & ~(tp.SDEN | tp.AVGP):
             per_pair += TVF_MOMENTUM_FLOPS
         if walks:
             work['candidates'] += cand

@@ -21,7 +21,10 @@ it inside the chunks, under its three schemes (``tvf``; ``wcsph`` on
 both kernel engines, and with each of ``WCSPH_OPTIONS``, the scheme's
 other flags and kernels; ``gtvf``, two evaluators a step); the TVF wall
 examples run the Adami walls, the cavity on an open grid, Poiseuille's
-channel periodic in x.
+channel periodic in x; ``EDACScheme`` runs the Taylor-Green vortex, the
+cavity (its mean-pressure group between the density and the momentum
+group) and the 2D dam break (its external flow, the wall pressure
+clamped).
 
 ``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
 step (host clock at each step's start, the card synchronised) or in
@@ -106,6 +109,18 @@ PATHS = {
 }
 #: the TVF wall examples' paths
 WALL_PATHS = ('cavity nx=400', 'rayleigh_taylor', 'periodic_cylinders')
+#: EDACScheme's three runs: Taylor-Green and the cavity at a convergence
+#: study's resolution, the dam break at the WCSPH and GTVF dam breaks'
+EDAC_PATHS = {
+    'taylor_green edac nx=400': dict(
+        dx=None, cls=TaylorGreen, extra=('--nx', '400', '--scheme',
+                                         'edac')),
+    'cavity edac nx=400': dict(dx=None, cls=LidDrivenCavity,
+                               extra=('--nx', '400', '--scheme', 'edac')),
+    'dam_break_2d edac dx=0.004': dict(dx=0.004, cls=DamBreak2D,
+                                       extra=('--scheme', 'edac')),
+}
+PATHS.update(EDAC_PATHS)
 
 #: WCSPHScheme's other flags and kernels on the Taylor-Green vortex:
 #: {name: the example's arguments}
@@ -129,7 +144,7 @@ REUSE_ONLY = ('dam_break_3d dx=0.02 delta', 'taylor_green nx=400',
               'taylor_green wcsph nx=400', 'taylor_green wcsph nx=400 dense',
               'taylor_green gtvf nx=400', 'dam_break_3d dx=0.02 C4') + tuple(
                   'taylor_green wcsph %s nx=400' % name
-                  for name in TIMED_OPTIONS) + WALL_PATHS
+                  for name in TIMED_OPTIONS) + WALL_PATHS + tuple(EDAC_PATHS)
 
 
 def configs(path):
@@ -234,6 +249,12 @@ GATES.update({
         '--nx', '40', '--perturb', '0.1', '--scheme', 'gtvf'), None),
     'cavity nx=20': (LidDrivenCavity, ('--nx', '20'), None),
     'poiseuille': (PoiseuilleFlow, (), None),
+    'taylor_green edac nx=40': (TaylorGreen, (
+        '--nx', '40', '--perturb', '0.1', '--scheme', 'edac'), None),
+    'cavity edac nx=20': (LidDrivenCavity, ('--nx', '20', '--scheme',
+                                            'edac'), None),
+    'dam_break_2d edac dx=0.04': (DamBreak2D, ('--dx', '0.04', '--scheme',
+                                               'edac'), None),
 })
 GATES.update({
     'dam_break_2d wcsph dx=0.02 %s' % name[:-len('Integrator')]: (

@@ -15,21 +15,27 @@ part in 1e7), so that the split x ranges at the grid's ends and the
 wrapped rows are walked by many lanes.
 
 ``wall_calls(example, dtype, edges=False, extra=())``: the pair calls of
-one eval of a TVF wall example (``WALL_EXAMPLES``: ``cavity`` on an open
+one eval of a wall example (``WALL_EXAMPLES``: ``cavity`` on an open
 grid, ``poiseuille``, ``couette`` and ``periodic_cylinders`` on a grid
-periodic in x, ``rayleigh_taylor``, two fluids in a closed box), each
-fluid's positions jittered by a tenth of dx, its velocities and
-transport velocities seeded, and, with ``edges``, a tenth of it on the
-edges and corners of the fluid's box; after one evaluation, so that the
-wall's ``p``, ``rho`` and ghost velocity are those its groups give.
+periodic in x, ``rayleigh_taylor``, two fluids in a closed box, and
+``dam_break_2d``, whose ``--scheme edac`` has walls), each fluid's
+positions jittered by a tenth of dx, its velocities and transport
+velocities seeded (and its pressure, under ``EDACScheme``, which evolves
+it), and, with ``edges``, a tenth of it on the edges and corners of the
+fluid's box; after one evaluation, so that the wall's ``p``, ``rho`` and
+ghost velocity are those its groups give.
 
 ``compare(calls, tol)`` holds
 the kernel to its plain version on them; ``check_linked(calls, label)``
 holds the linked pair (the density call emitting its neighbour list,
-the momentum call consuming it) to the two walking calls bit for bit,
-the list to ``pair_link.neighbours_reference`` exactly and both outputs
-to the plain version.  ``chip_smoke.py``, ``tests/test_torch_tvf_cuda.py``
-and ``tests/test_torch_tg_schemes_cuda.py`` use them.
+the momentum call consuming it, and ``EDACScheme``'s mean-pressure call
+between them where it has one) to the walking calls bit for bit, the
+list to ``pair_link.neighbours_reference`` exactly and every output to
+the plain version; ``nnbr_flips(calls)`` counts the dests whose
+``ComputeAveragePressure`` neighbour count differs between the kernel
+and the plain version (a pair exactly at the support's edge, kept or
+dropped by the last bit of r2).  ``chip_smoke.py`` and the card tests
+``tests/test_torch_{tvf,tg_schemes,tvf_walls,edac}_cuda.py`` use them.
 """
 
 import re
@@ -126,6 +132,7 @@ WALL_EXAMPLES = {
     'couette': ('CouetteFlow', 'channel'),
     'rayleigh_taylor': ('RayleighTaylor', 'solid'),
     'periodic_cylinders': ('PeriodicCylinders', 'solid'),
+    'dam_break_2d': ('DamBreak2D', 'boundary'),
 }
 
 
@@ -171,8 +178,13 @@ def wall_calls(example, dtype, edges=False, extra=(), seed=2468):
         for c in ('x', 'y'):
             st[c] = st[c] + t(0.1 * dx * rng.uniform(-1, 1, n))
         for c in ('u', 'v', 'uhat', 'vhat'):
-            st[c] = t(rng.normal(0.0, 0.5, n))
+            if c in st:
+                st[c] = t(rng.normal(0.0, 0.5, n))
         st['rho'] = st['rho'] * t(1.0 + 0.01 * rng.normal(size=n))
+        if 'ap' in st:
+            # EDAC evolves p: seeded, on the scale of the density
+            scale = max(1.0, float(st['rho'].mean()))
+            st['p'] = t(scale * rng.normal(size=n))
         if edges:
             pick = rng.random(n) < 0.1
             for d, c in enumerate('xy'):
@@ -240,25 +252,30 @@ def compare(calls_, tol, op=None):
 
 
 _KERNEL = re.compile(r'tvf_pair_kernelI([fd])Li3ELb([01])E\w*?'
-                     r'(Density|Momentum)I[fd](?:Lb([01])E)?EELi(\d)E')
+                     r'(Density|Momentum)I[fd]((?:Lb[01]E)*)EELi(\d)E')
 _MODES = {tp.WALK: 'walk', tp.EMIT: 'emit', tp.CONSUME: 'consume'}
 
 
 def resources(lib, periodic=True):
-    """{'<dtype> <phase set>[ wall] <mode>': (registers, spill store
-    bytes, spill load bytes)} of the ``QuinticSpline`` kernels on a
+    """{'<dtype> <phase set>[ wall][ edac] <mode>': (registers, spill
+    store bytes, spill load bytes)} of the ``QuinticSpline`` kernels on a
     periodic grid (``periodic``; else on an open one) in the built
     ``tvf_pair`` library ``lib`` (``build.resources``); ``wall``: the
-    momentum instantiations that take ``SolidWallNoSlipBC``."""
+    momentum instantiations that take ``SolidWallNoSlipBC``, ``edac``:
+    those that take ``EDACScheme``'s terms."""
     from pysph_tpu_torch.ops import build
     out = {}
     for name, res in build.resources(lib).items():
         m = _KERNEL.search(name)
-        if m and m.group(2) == str(int(periodic)):
-            out['%s %s%s %s' % (
-                'float32' if m.group(1) == 'f' else 'float64',
-                m.group(3).lower(), ' wall' * (m.group(4) == '1'),
-                _MODES[int(m.group(5))])] = res
+        if not m or m.group(2) != str(int(periodic)):
+            continue
+        flags = [f == '1' for f in re.findall(r'Lb([01])E', m.group(4))]
+        wall, edac = (False, flags[0]) if m.group(3) == 'Density' else \
+            tuple(flags)
+        out['%s %s%s%s %s' % (
+            'float32' if m.group(1) == 'f' else 'float64',
+            m.group(3).lower(), ' wall' * wall, ' edac' * edac,
+            _MODES[int(m.group(5))])] = res
     return dict(sorted(out.items()))
 
 
@@ -276,35 +293,49 @@ def _within(label, got, ref, tol, failures):
     return worst
 
 
+def middle_calls(calls, emitting):
+    """The calls of the link of ``emitting`` (a call of ``calls``) that
+    read its list between it and its consumer (``Link.middle``)."""
+    link = emitting[2].link
+    return [c for p in link.middle for c in calls
+            if c[0] == emitting[0] and c[2] is p]
+
+
 def check_linked(calls, label, tol, capacity=None):
     """Each linked pair of ``calls`` run as the path runs it: the
     density call emitting (``capacity``: the list's, for tests), then
-    the momentum call consuming its hand-off.  The density output must
-    be the walking call's bit for bit, the counts and the listed
-    positions those of ``pair_link.neighbours_reference`` exactly (up to
-    the capacity), the overflow counter the dests past it, the momentum
-    output the walking momentum call's bit for bit, both within ``tol``
-    of max|ref| of the plain version, and each call one pack.  Returns
-    {linked, dests, pairs, overflowed, max_count, capacity, packs,
-    max_abs_err}; raises where a bar is missed, after printing what it
-    found, and for calls on the CPU, where the consuming call runs the
-    plain version, which walks."""
+    the mean-pressure calls between (``EDACScheme``'s with walls) and the
+    momentum call consuming its hand-off.  The density output must be
+    the walking call's bit for bit, the counts and the listed positions
+    those of ``pair_link.neighbours_reference`` exactly (up to the
+    capacity), the overflow counter the dests past it, each consuming
+    call's output the walking call's bit for bit, each within ``tol`` of
+    max|ref| of the plain version, and each call one pack.  Returns
+    {linked, consumers, dests, pairs, overflowed, max_count, capacity,
+    packs, max_abs_err}; raises where a bar is missed, after printing
+    what it found, and for calls on the CPU, where the consuming call
+    runs the plain version, which walks."""
     if not all(c[3][0]['x'].is_cuda for c in calls):
         raise ValueError('check_linked: %s: calls off the card' % label)
-    found = dict(linked=0, dests=0, pairs=0, overflowed=0, max_count=0,
-                 capacity=0, packs=0, max_abs_err=0.0)
+    found = dict(linked=0, consumers=0, dests=0, pairs=0, overflowed=0,
+                 max_count=0, capacity=0, packs=0, max_abs_err=0.0)
     failures = []
-    for (_, dest, dplan, dargs), (_, _, mplan, margs) in linked_calls(calls):
+    for emitting, consuming in linked_calls(calls):
+        (_, dest, dplan, dargs), (_, _, mplan, margs) = emitting, consuming
         n, dev = dargs[0]['x'].shape[0], dargs[0]['x'].device
         tp.reset_overflow(dev)
         packs = cell_pack.pack.launches
         density, handoff = tp.tvf_pair(*dargs, emit=True, capacity=capacity)
+        middle = [(c[2], c[3], tp.tvf_pair(*c[3], handoff=handoff))
+                  for c in middle_calls(calls, emitting)]
         momentum = tp.tvf_pair(*margs, handoff=handoff)
         found['packs'] += cell_pack.pack.launches - packs
         overflowed = tp.overflowed(dev)
-        for what, got, walked in (
+        for what, got, walked in [
                 ('density', density, tp.tvf_pair(*dargs)),
-                ('momentum', momentum, tp.tvf_pair(*margs))):
+                ('momentum', momentum, tp.tvf_pair(*margs))] + [
+                    ('mean pressure', got, tp.tvf_pair(*args))
+                    for _, args, got in middle]:
             if any(not torch.equal(got[p], walked[p]) for p in walked):
                 failures.append('%s: the linked %s call differs from the '
                                 'walk' % (dest, what))
@@ -320,28 +351,48 @@ def check_linked(calls, label, tol, capacity=None):
             failures.append('%s: %d dests counted past the capacity, %d '
                             'are' % (dest, overflowed,
                                      int((want > cap).sum())))
-        for plan, args, got in ((dplan, dargs, density),
-                                (mplan, margs, momentum)):
+        for plan, args, got in [(dplan, dargs, density),
+                                (mplan, margs, momentum)] + middle:
             found['max_abs_err'] = max(found['max_abs_err'], _within(
                 dest, got, reference(plan, args), tol, failures))
         found['linked'] += 1
+        found['consumers'] += 1 + len(middle)
         found['dests'] += n
         found['pairs'] += int(want.sum())
         found['overflowed'] += overflowed
         found['max_count'] = max(found['max_count'], int(want.max()))
         found['capacity'] = cap
-    if found['packs'] != 2 * found['linked']:
-        failures.append('%d packs for %d linked pairs' % (found['packs'],
-                                                          found['linked']))
-    print('tvf_pair linked, %s: %d linked pairs, %d dests, %d pairs; the '
-          'list equal to neighbours_reference, both calls equal to the '
-          'walk bit for bit, max abs err %.3g against the plain version; '
-          'capacity %d, largest count %d, %d dests past it; %d packs' % (
-              label, found['linked'], found['dests'], found['pairs'],
-              found['max_abs_err'], found['capacity'], found['max_count'],
-              found['overflowed'], found['packs']), flush=True)
+    if found['packs'] != found['linked'] + found['consumers']:
+        failures.append('%d packs for %d linked pairs with %d consumers'
+                        % (found['packs'], found['linked'],
+                           found['consumers']))
+    print('tvf_pair linked, %s: %d linked pairs (%d consuming calls), %d '
+          'dests, %d pairs; the list equal to neighbours_reference, every '
+          'call equal to the walk bit for bit, max abs err %.3g against the '
+          'plain version; capacity %d, largest count %d, %d dests past it; '
+          '%d packs' % (
+              label, found['linked'], found['consumers'], found['dests'],
+              found['pairs'], found['max_abs_err'], found['capacity'],
+              found['max_count'], found['overflowed'], found['packs']),
+          flush=True)
     if not found['linked']:
         failures.append('no linked pair among the calls')
     if failures:
         raise AssertionError('%s: %s' % (label, '; '.join(failures)))
     return found
+
+
+def nnbr_flips(calls):
+    """(calls, dests) of ``calls`` with ``ComputeAveragePressure`` (the
+    ``nnbr`` output), and the dests whose count differs between the
+    kernel and its plain version: each such dest has a pair at the
+    support's edge (``W = 0``) that one keeps and the other drops, as
+    r2's last bit falls."""
+    found = dests = 0
+    for _, _, plan, args in calls:
+        if 'nnbr' not in plan.outputs:
+            continue
+        got, ref = plan.op(*args), reference(plan, args)
+        found += 1
+        dests += int((got['nnbr'] != ref['nnbr']).sum())
+    return found, dests

@@ -12,8 +12,9 @@ clamps them into its edge cells:
 - ``empty-dest``: a dest array of no particles.
 
 Every case but ``four-sources`` has a write mask.  ``gtvf_calls`` gives
-the ``gtvf_pair`` calls of both evaluators of a small GTVF dam break,
-optionally with a crowded clamped edge cell, and ``fused_case`` a
+the ``gtvf_pair`` calls of both evaluators of a small GTVF dam break and
+the wall's EDAC set of the EDAC dam break (every phase set), optionally
+with a crowded clamped edge cell, and ``fused_case`` a
 ``fused_continuity_momentum`` call with rows of ``h <= 0``, a clamped
 edge cell and cells of a chosen width.  The cases run on any device:
 the CPU tests hold the walks' rules to them and the card tests and
@@ -29,6 +30,7 @@ from pysph_tpu_torch.base.kernels import CubicSpline, Gaussian, WendlandQuintic
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.elliptical_drop import EllipticalDrop
 from pysph_tpu_torch.ops import cell_pack, cell_walk
+from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops.pair_engine import PairSource
 from pysph_tpu_torch.tools_dev.time_walks import plan_calls
@@ -165,34 +167,42 @@ def gtvf_calls(device='cpu', dtype=torch.float64, seed=4, crowd=False,
                dx=0.05):
     """[(eval index, dest, plan, arguments)] of every ``gtvf_pair`` call
     of both evaluators of the GTVF dam break at ``dx``, after one pass of
-    each: seeded velocities and transport velocities, every fifth row
-    outside the write mask, seeded ``pre`` values.  With ``crowd``, 300
-    fluid particles sit far beyond the grid's corner, clamped into its
-    corner cell."""
-    app = DamBreak2D()
-    app.setup(['--scheme', 'gtvf', '--dx', str(dx)] + _argv(device, dtype))
-    s = app.solver
+    each, and then of the wall's EDAC set of the EDAC dam break
+    (``--scheme edac``, eval index 2): seeded velocities and transport
+    velocities, every fifth row outside the write mask, seeded ``pre``
+    values.  With ``crowd``, 300 fluid particles sit far beyond the
+    grid's corner, clamped into its corner cell."""
     rng = np.random.default_rng(seed)
-    for st in s.states.values():
-        n = st['x'].shape[0]
-        for p in ('u', 'v', 'uhat', 'vhat'):
-            st[p] = torch.as_tensor(rng.normal(0.0, 0.5, n), dtype=dtype,
-                                    device=device)
-        st['tag'][::5] = 1
-    if crowd:
-        fluid = s.states['fluid']
-        for c in 'xy':
-            fluid[c] = fluid[c].clone()
-            fluid[c][:300] = fluid[c].max() + 10.0 + 0.05 * torch.as_tensor(
-                rng.uniform(size=300), dtype=dtype, device=device)
-    for a_eval in s.acceleration_evals:
-        a_eval.update_and_compute(0.0, s.dt, s.states)
     calls = []
-    for k, dest, plan, args in plan_calls(s, range(len(s.acceleration_evals))):
-        n = args[0]['x'].shape[0]
-        pre = {p: torch.as_tensor(rng.normal(size=n), dtype=dtype,
-                                  device=device) for p in plan.outputs}
-        calls.append((k, dest, plan, args[:3] + (pre,) + args[4:]))
+    for first, scheme in ((0, 'gtvf'), (2, 'edac')):
+        app = DamBreak2D()
+        app.setup(['--scheme', scheme, '--dx', str(dx)] +
+                  _argv(device, dtype))
+        s = app.solver
+        for st in s.states.values():
+            n = st['x'].shape[0]
+            for p in ('u', 'v', 'uhat', 'vhat'):
+                st[p] = torch.as_tensor(rng.normal(0.0, 0.5, n),
+                                        dtype=dtype, device=device)
+            st['tag'][::5] = 1
+        if crowd:
+            fluid = s.states['fluid']
+            for c in 'xy':
+                fluid[c] = fluid[c].clone()
+                fluid[c][:300] = fluid[c].max() + 10.0 + 0.05 * \
+                    torch.as_tensor(rng.uniform(size=300), dtype=dtype,
+                                    device=device)
+        for a_eval in s.acceleration_evals:
+            a_eval.update_and_compute(0.0, s.dt, s.states)
+        for k, dest, plan, args in plan_calls(
+                s, range(len(s.acceleration_evals))):
+            if plan.op is not gp.gtvf_pair:
+                continue
+            n = args[0]['x'].shape[0]
+            pre = {p: torch.as_tensor(rng.normal(size=n), dtype=dtype,
+                                      device=device) for p in plan.outputs}
+            calls.append((first + k, dest, plan, args[:3] + (pre,) +
+                          args[4:]))
     return calls
 
 

@@ -4,17 +4,24 @@ that ``chip_smoke.py`` holds the port's runs on the card to.
     JAX_PLATFORMS=cpu python tests/jax_wall_figures.py poiseuille
     JAX_PLATFORMS=cpu python tests/jax_wall_figures.py couette
     JAX_PLATFORMS=cpu python tests/jax_wall_figures.py cavity \\
-        --nx 400 --steps 200
+        --nx 400 --steps 200 [--scheme edac]
+    JAX_PLATFORMS=cpu python tests/jax_wall_figures.py dam_break_2d \\
+        --dx 0.02 --steps 200 [--scheme edac]
 
 ``poiseuille`` and ``couette`` run ``pysph_tpu/examples/<name>.py`` as
 the example defines itself (to its own ``tf``, float32), dumping into a
 temporary directory, and print the ``post_process`` error against the
 exact steady profile (max |u - ue| over max |ue|) as ``profile_err``.
-``cavity`` runs ``pysph_tpu/examples/cavity.py --nx <nx>`` for
-``steps`` steps in float32 (no output) and prints the fluid's max speed
-and kinetic energy, as ``chip_smoke.py::_cavity_figures`` computes them
-for the port.  One JSON line each.  Not a test: pytest collects only
-``test_*.py``.
+``cavity`` runs ``pysph_tpu/examples/cavity.py --nx <nx> --scheme
+<scheme>`` (default ``tvf``) for ``steps`` steps in float32 (no output)
+and prints the fluid's max speed and kinetic energy, as
+``chip_smoke.py::_cavity_figures`` computes them for the port.
+``dam_break_2d`` runs ``pysph_tpu/examples/dam_break_2d.py --dx <dx>
+--scheme <scheme>`` (default ``edac``) for ``steps`` steps in float32
+(no output) and prints the fluid's front (its max x), its kinetic
+energy and the wall's least pressure, as ``chip_smoke.py::
+_dam_break_figures`` computes them for the port.  One JSON line each.
+Not a test: pytest collects only ``test_*.py``.
 """
 
 import argparse
@@ -47,13 +54,13 @@ def profile(name):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def cavity(nx, steps):
+def cavity(nx, steps, scheme='tvf'):
     from pysph_tpu.examples.cavity import LidDrivenCavity
     tmp = tempfile.mkdtemp()
     try:
         app = LidDrivenCavity()
         app.setup(['-d', tmp, '--disable-output', '-q', '--nx', str(nx),
-                   '--max-steps', str(steps)])
+                   '--max-steps', str(steps), '--scheme', scheme])
         t0 = time.perf_counter()
         app.solve()
         wall = time.perf_counter() - t0
@@ -61,7 +68,8 @@ def cavity(nx, steps):
         u, v, m = (np.asarray(getattr(pa, c), dtype=np.float64)
                    for c in ('u', 'v', 'm'))
         speed2 = u * u + v * v
-        return dict(example='cavity', nx=nx, steps=int(app.solver.count),
+        return dict(example='cavity', scheme=scheme, nx=nx,
+                    steps=int(app.solver.count),
                     t=float(app.solver.t), n=int(u.size),
                     vmax=float(np.sqrt(speed2.max())),
                     ke=float(0.5 * np.sum(m * speed2)),
@@ -70,16 +78,48 @@ def cavity(nx, steps):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def dam_break(dx, steps, scheme='edac'):
+    from pysph_tpu.examples.dam_break_2d import DamBreak2D
+    tmp = tempfile.mkdtemp()
+    try:
+        app = DamBreak2D()
+        app.setup(['-d', tmp, '--disable-output', '-q', '--dx', repr(dx),
+                   '--max-steps', str(steps), '--scheme', scheme])
+        t0 = time.perf_counter()
+        app.solve()
+        wall = time.perf_counter() - t0
+        arrays = {p.name: p for p in app.particles}
+        fluid = arrays['fluid']
+        x, u, v, m = (np.asarray(getattr(fluid, c), dtype=np.float64)
+                      for c in ('x', 'u', 'v', 'm'))
+        p_wall = np.asarray(arrays['boundary'].p, dtype=np.float64)
+        return dict(example='dam_break_2d', scheme=scheme, dx=dx,
+                    steps=int(app.solver.count), t=float(app.solver.t),
+                    n=int(x.size), front=float(x.max()),
+                    ke=float(0.5 * np.sum(m * (u * u + v * v))),
+                    wall_p_min=float(p_wall.min()),
+                    dtype=str(np.asarray(fluid.u).dtype), solve_s=wall)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('example',
-                        choices=('poiseuille', 'couette', 'cavity'))
+                        choices=('poiseuille', 'couette', 'cavity',
+                                 'dam_break_2d'))
     parser.add_argument('--nx', type=int, default=400)
+    parser.add_argument("--dx", type=float, default=0.02)
     parser.add_argument('--steps', type=int, default=200)
+    parser.add_argument('--scheme', default=None)
     a = parser.parse_args()
     os.environ.setdefault('JAX_PLATFORMS', 'cpu')
-    out = cavity(a.nx, a.steps) if a.example == 'cavity' else \
-        profile(a.example)
+    if a.example == 'cavity':
+        out = cavity(a.nx, a.steps, a.scheme or 'tvf')
+    elif a.example == 'dam_break_2d':
+        out = dam_break(a.dx, a.steps, a.scheme or 'edac')
+    else:
+        out = profile(a.example)
     print(json.dumps(out), flush=True)
 
 

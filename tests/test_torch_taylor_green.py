@@ -5,7 +5,8 @@ a box periodic in x and y, 4 x 4 cells).
 - The scheme is the reference's: ``PECIntegrator`` with
   ``TransportVelocityStep``, ``QuinticSpline``, the example's fixed dt,
   a periodic grid; both pair groups on ``tvf_pair`` (its plain version
-  here) under the kernel engine; the other schemes raise.
+  here) under the kernel engine; ``--scheme edac`` sets up
+  ``EDACScheme``, the schemes not ported raise.
 - One evaluation of a perturbed lattice to 1e-10 of ``max|ref|``, on the
   kernel and the torch engine, against the JAX XLA engine, and against
   the JAX Pallas engine in resident mode (``_pair_kernel_resident`` in
@@ -159,9 +160,12 @@ def test_scheme_is_the_reference_default():
         (tp.tvf_pair, ('au', 'av', 'aw', 'auhat', 'avhat', 'awhat'))]
     assert [[ps.terms for ps in p.sources] for p in plans] == [
         [tp.SDEN], [tp.MPG | tp.VISC | tp.MAS]]
-    for scheme in ('iisph', 'edac'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            TaylorGreen().setup(['--device', 'cpu', '--scheme', scheme])
+    # EDAC is ported (ROADMAP item 35); IISPH is refused naming its item
+    edac = TaylorGreen()
+    edac.setup(['--device', 'cpu', '--scheme', 'edac', '-q'])
+    assert type(edac.scheme.scheme).__name__ == 'EDACScheme'
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        TaylorGreen().setup(['--device', 'cpu', '--scheme', 'iisph'])
 
 
 @pytest.mark.parametrize('engine', ['kernel', 'torch'])

@@ -20,7 +20,8 @@ inputs seeded with numpy), and the two oracle gates of
   1e-6 relative L2) and ``test_wcsph_vs_scalar_reference_1e6`` (``:189``:
   10 EPEC steps of the nx=10 drop against ``NumpyWCSPH`` at 1e-6), with
   that module's oracle helpers.
-- The ``edac`` choices of the ported examples name ROADMAP item 35.
+- The ``edac`` choices of the ported examples, refused until ROADMAP
+  item 35 ported EDAC, set up and step.
 - Each wall example (``examples/poiseuille.py``, ``couette``, ``cavity
   --nx 12``, ``rayleigh_taylor``, ``periodic_cylinders``) for two steps
   on the CPU with dumps, and its ``post_process``; the cavity's raises
@@ -427,16 +428,24 @@ def test_wcsph_vs_scalar_reference_1e6(engine):
     ('taylor_green', ['--nx', '8']), ('dam_break_2d', ['--dx', '0.5']),
     ('cavity', ['--nx', '8'])])
 def test_edac_is_refused_naming_its_item(example, argv):
-    """``--scheme edac`` raises ``NotImplementedError`` naming ROADMAP
-    Queue 1 item 35, the item that ports EDAC."""
+    """``--scheme edac``, which these examples refused naming ROADMAP
+    Queue 1 item 35 until that item ported EDAC, sets up ``EDACScheme``
+    and steps on the CPU, every dest on a kernel's plain version
+    (``tests/test_torch_edac.py`` holds the runs to pysph_tpu)."""
+    from pysph_tpu_torch.sph.wc.edac import EDACScheme
     mod = importlib.import_module('pysph_tpu_torch.examples.' + example)
     cls = {'taylor_green': 'TaylorGreen', 'dam_break_2d': 'DamBreak2D',
            'cavity': 'LidDrivenCavity'}[example]
-    with pytest.raises(NotImplementedError,
-                       match=r'ROADMAP Queue 1 item 35\b'):
-        getattr(mod, cls)().setup(['--device', 'cpu', '-q',
-                                   '--disable-output', '--scheme', 'edac']
-                                  + argv)
+    app = getattr(mod, cls)()
+    app.run(['--device', 'cpu', '-q', '--disable-output', '--scheme',
+             'edac', '--max-steps', '1'] + argv)
+    s = app.solver
+    assert isinstance(app.scheme.scheme, EDACScheme) and s.count == 1
+    assert set(s.acceleration_evals[0].engine_choices.values()) == {
+        'kernel'}
+    for st in s.states.values():
+        assert all(bool(v.isfinite().all()) for v in st.values()
+                   if v.is_floating_point())
 
 
 #: {example: (application class, arguments)}
