@@ -5,7 +5,7 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the eleven CUDA sources of ``pysph_tpu_torch/csrc`` (the nine
+2. build the twelve CUDA sources of ``pysph_tpu_torch/csrc`` (the ten
    pair and probe kernels, the source pack ``cell_pack`` and the binning
    ``bin_cells``), ``tvf_pair``'s EDAC library (``-DTVF_EDAC``) and the
    libraries of the later smoothing-kernel kinds (4-7,
@@ -183,7 +183,28 @@ Phases (any failure propagates; the exit code is then not 0):
    gates of phase 4 (``taylor_green edac nx=40``, ``cavity edac nx=20``,
    ``dam_break_2d edac dx=0.04``); then ``gtvf_pair`` at kind 4 on the
    Taylor-Green vortex's ``--scheme gtvf --kernel WendlandQuinticC4`` at
-   nx=400, against its plain version and timed;
+   nx=400, against its plain version and timed; then ``IISPHScheme``'s
+   three runs (``_iisph_phase``: ``taylor_green``, ``elliptical_drop``
+   and ``dam_break_2d --scheme iisph``): ``iisph_pair``'s six phase sets
+   against their plain versions on every pair call of one evaluation
+   (each pressure sweep's two calls among them) from the run's own state
+   after 3 steps of a jittered start (``tools_dev/iisph_check.py``), at a
+   small size (nx=50, nx=40, dx=0.02) in float64 and float32 with and
+   without a tenth of the fluid on its box's edges and corners (where
+   the solve sweeps 30 times) and at the path's size (nx=400, 160,000
+   particles; nx=200, 125,623; dx=0.004, 137,803) in float32, the chain
+   of linked calls (the dest's first call that sees all its sources
+   emitting its neighbour list, every later one reading it, the fluid's
+   ``dijpj`` over fewer sources) bit for bit the walk, each pack exact;
+   timed there (the evaluation linked and walking, each phase set alone,
+   the plain versions) with the library's registers and spills; each
+   path for 200 steps in the per-step loop (an iterated group keeps it
+   off the chunks), its ``iisph_pair`` launches against the walking
+   launches and 2 a sweep of every evaluation, its sweeps and host reads
+   a step, its device idle share from ``torch.profiler``; its
+   gate against the JAX package's figures within 1e-3 (``JAX_IISPH``:
+   Taylor-Green nx=400's decay ratio, the drop nx=50's max |y| at tf, the
+   dam break dx=0.02's front and energy after 10 steps);
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -254,7 +275,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pysph_tpu_torch.base.kernels import CubicSpline
+from pysph_tpu_torch.base.kernels import CubicSpline, kernel_kind
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
@@ -268,12 +289,13 @@ from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
+from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.ops import pair_stub as stub
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops.pair_engine import PairSource
-from pysph_tpu_torch.tools_dev import bin_check, delta_check
+from pysph_tpu_torch.tools_dev import bin_check, delta_check, iisph_check
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
@@ -323,6 +345,21 @@ JAX_CAVITY_EDAC = (0.9326928853989933, 0.0033353065544602318)
 #: (ClampWallPressure)
 JAX_DAM_BREAK_EDAC = (1.0208659172058105, 8.88488556575926)
 DAM_BREAK_FIGURE_DX = 0.02
+#: the JAX package's figures of the three IISPH runs in float32 on the
+#: CPU, each at the size and steps of the run's ``IisphRun.figure``,
+#: which the port's run there must meet to CAVITY_TOL relative:
+#: Taylor-Green (``python tests/jax_tg_decay.py --scheme iisph --nx 400
+#: --steps 200``): max |v| over the exact decay of the start's max |v|;
+#: the drop (``python tests/jax_wall_figures.py elliptical_drop --nx 50
+#: --scheme iisph``, to tf): max |y| of the fluid, its semi-major axis;
+#: the dam break (``python tests/jax_wall_figures.py dam_break_2d --dx
+#: 0.02 --steps 10 --scheme iisph``): the fluid's front (max x) and its
+#: kinetic energy.  The dam break stops at 10 steps: the reference's
+#: IISPH dam break diverges from about step 12 at dx=0.02 (its speed
+#: 10^4 m/s by step 19), in the JAX package and in the port alike
+JAX_IISPH = {'taylor_green': (1.000369764239616,),
+             'elliptical_drop': (1.9322257041931152,),
+             'dam_break_2d': (1.040663719177246, 2948.5665646805487)}
 
 
 def _compare(calls, dtype, label, op=None):
@@ -1770,6 +1807,338 @@ def _edac_phase(runs, kernels):
                 name=name)
 
 
+class IisphRun(NamedTuple):
+    """An IISPH run of ``_iisph_phase``: its ``time_chunks.STEP_PATHS``
+    label, its ``iisph_check.RUNS`` name, the sizes of the checks and of
+    the path, the particles at the path's size, the walking pair
+    launches of an evaluation (2 more a pressure sweep), and the size
+    and steps (None: to tf) of its gate against ``JAX_IISPH``."""
+    label: str
+    run: str
+    small: object
+    full: object
+    particles: int
+    fixed: int
+    figure: object
+    figure_steps: object
+
+
+#: IISPHScheme's three runs
+IISPH_RUNS = (
+    IisphRun('taylor_green iisph nx=400', 'taylor_green', 50, 400, 160000,
+             4, 400, 200),
+    IisphRun('drop iisph nx=200', 'elliptical_drop', 40, 200, 125623, 4,
+             50, None),
+    IisphRun('dam_break_2d iisph dx=0.004', 'dam_break_2d', 0.02, 0.004,
+             137803, 6, 0.02, 10),
+)
+#: the phase sets of iisph_pair, by phase id (ops/iisph_pair.py)
+IISPH_SETS = ('density', 'advection', 'advected density', 'dijpj',
+              'pressure sweep', 'pressure force')
+
+
+def _iisph_set(call):
+    terms = 0
+    for ps in call[2].sources:
+        terms |= ps.terms
+    return IISPH_SETS[ip.phase_of(terms)]
+
+
+def _iisph_times(calls, rounds=5, reps=20):
+    """Median ms of CUDA graph replays, alternated over ``rounds`` rounds
+    in this process, of the ``iisph_pair`` calls of one evaluation
+    (``iisph_check.calls``) run as the path runs them (linked), all
+    walking, and each phase set's calls alone (the consuming ones on a
+    hand-off emitted before); the plain versions' ms a set; and the work
+    a set (``roofline.iisph_work``, a consuming call's candidates
+    uncounted)."""
+    op = ip.iisph_pair
+    (emitting, later), = iisph_check.chains(calls)
+    consuming = {c[0] for c in later}
+    _, held = op(*emitting[3], emit=True)
+    sets = {}
+    for c in calls:
+        sets.setdefault(_iisph_set(c), []).append(c)
+
+    def run_set(cs):
+        for c in cs:
+            if c[0] in consuming:
+                op(*c[3], handoff=held)
+            else:
+                op(*c[3])
+    fns = {'path': lambda: iisph_check.run_as_path(calls),
+           'walking': lambda: [op(*c[3]) for c in calls]}
+    for name, cs in sets.items():
+        fns[name] = functools.partial(run_set, cs)
+    graphs = {k: capture(fn) for k, fn in fns.items()}
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, graph in graphs.items():
+            times[k].append(events_ms(graph.replay, reps))
+    del graphs, held
+    plain = {name: events_ms(lambda cs=cs: [c[2].reference(*c[3])
+                                            for c in cs], 1)
+             for name, cs in sets.items()}
+    work = {name: roofline.add(*[roofline.iisph_work(
+        *c[3], walks=c[0] not in consuming) for c in cs])
+        for name, cs in sets.items()}
+    return {k: float(np.median(v)) for k, v in times.items()}, plain, work
+
+
+def _iisph_drive(run):
+    """``run`` at full width in float32 for ``STEPS`` steps (the drop to
+    tf if that comes first) in the per-step loop (an iterated group keeps
+    it off the chunks), timed by ``time_chunks.timed_solve`` (median
+    ms/step from the host clock at each step's start, the card
+    synchronised), ``iisph_pair``'s launches (set to 0 just before the
+    run, read just after) against the walking launches and 2 a sweep of
+    every evaluation, its pressure sweeps and its host reads a step
+    (the time loop's and ``converged``'s), every dest on the kernel, no
+    capture, no dest past the neighbour list, the final state finite and
+    a wall's number density positive at its corners."""
+    app = make_app(dtype=torch.float32, steps=STEPS,
+                   **time_chunks.STEP_PATHS[run.label])
+    s = app.solver
+    a_eval, = s.acceleration_evals
+    ip.iisph_pair.launches = cell_pack.pack.launches = 0
+    ip.reset_overflow('cuda')
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ms, samples = time_chunks.timed_solve(app, 1)
+    launches, packs = ip.iisph_pair.launches, cell_pack.pack.launches
+    sweeps = list(a_eval.sweeps)
+    want = sum(run.fixed + 2 * k for k in sweeps)
+    reads = s.reads + a_eval.converged_reads
+    overflowed = ip.overflowed('cuda')
+    n = sum(st['x'].shape[0] for st in s.states.values())
+    wall_v = [float(st['V'].min()) for name, st in s.states.items()
+              if name != 'fluid']
+    out = dict(launches=launches, planned=want, packs=packs, steps=s.count,
+               evals=len(sweeps), sweeps=(min(sweeps),
+                                          float(np.mean(sweeps)),
+                                          max(sweeps)),
+               ms=ms, reads_per_step=reads / s.count,
+               converged_reads=a_eval.converged_reads, reads=s.reads,
+               rebuilds=s.rebuilds, particles=n, t=s.t,
+               overflowed=overflowed,
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+               vmax=float(torch.sqrt(s.states['fluid']['u'] ** 2 +
+                                     s.states['fluid']['v'] ** 2).max()),
+               wall_v_min=min(wall_v) if wall_v else None)
+    print('%s float32, per step: %d steps to t=%.6g, median %.3f ms/step '
+          '(min %.3f, max %.3f over %d samples from step %d), %.4g '
+          'particle-steps/s; engines %s; iisph_pair launches %d, the '
+          'sweeps\' %d (%d evaluations: %d walking launches each and 2 a '
+          'sweep); %d packs; pressure sweeps a step min %d, mean %.3f, max '
+          '%d; host reads %.3f a step (%d of the time loop, %d of '
+          'converged); %d captures; %d dests past the list\'s capacity; %d '
+          'binnings; max |v| %.4g; the wall\'s least number density %s; '
+          'peak device memory %.1f MiB' % (
+              run.label, s.count, s.t, ms, min(samples), max(samples),
+              len(samples), time_chunks.WARMUP, n / ms * 1e3,
+              a_eval.engine_choices, launches, want, len(sweeps), run.fixed,
+              packs, *out['sweeps'], out['reads_per_step'], s.reads,
+              a_eval.converged_reads, s.captures, overflowed, s.rebuilds,
+              out['vmax'], out['wall_v_min'], out['peak_mib']), flush=True)
+    finite = all(bool(torch.isfinite(v).all()) for st in s.states.values()
+                 for v in st.values() if v.is_floating_point())
+    if (set(a_eval.engine_choices.values()) != {'kernel'} or
+            launches != want or packs != want or s.captures or
+            not finite or
+            not (s.count == STEPS or abs(s.t - s.tf) < 1e-9) or
+            (wall_v and not min(wall_v) > 0.0)):
+        raise AssertionError('%s did not run every pair phase through '
+                             'iisph_pair as its sweeps imply, or ended '
+                             'non-finite' % run.label)
+    del app, s, a_eval
+    return out
+
+
+def _iisph_idle(run, steps=20, warmup=10):
+    """The device's busy and idle share of ``run``'s steps at full width
+    in float32 in the per-step loop: ``steps`` steps after ``warmup``
+    under ``torch.profiler`` (CUDA activity only), the kernels' device
+    time against the host clock around the steps (the card synchronised
+    at both ends)."""
+    app = make_app(dtype=torch.float32, steps=warmup + steps,
+                   **time_chunks.STEP_PATHS[run.label])
+    s = app.solver
+    s.max_steps = warmup
+    s.solve()
+    s.max_steps = warmup + steps
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = 0.0
+    for evt in prof.key_averages():
+        us = getattr(evt, 'self_device_time_total', None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        busy += us / 1e3
+    done = s.count - warmup
+    out = dict(steps=done, wall_ms=wall * 1e3 / done,
+               busy_ms=busy / done, idle_share=1.0 - busy / (wall * 1e3))
+    print('%s: %d profiled steps, %.3f ms a step on the host clock, the '
+          'device busy %.3f ms a step (kernels), idle share %.1f%%' % (
+              run.label, done, out['wall_ms'], out['busy_ms'],
+              100 * out['idle_share']), flush=True)
+    return out
+
+
+def _iisph_gate(run):
+    """``run`` at its ``figure`` size in float32 in the per-step loop for
+    its ``figure_steps`` (to tf where None), its figures against the
+    JAX package's same run (``JAX_IISPH``) to CAVITY_TOL relative:
+    Taylor-Green's decay ratio, the drop's max |y|, the dam break's front
+    and kinetic energy."""
+    size = '--nx' if run.run != 'dam_break_2d' else '--dx'
+    app = iisph_check.app(run.run, run.figure, torch.float32,
+                          steps=run.figure_steps or 0)
+    s = app.solver
+    st = s.states['fluid']
+    vmax0 = float(torch.sqrt(st['u'] ** 2 + st['v'] ** 2).max())
+    s.solve()
+    st = {p: v.double().cpu().numpy() for p, v in
+          s.states['fluid'].items() if v.is_floating_point()}
+    if run.run == 'taylor_green':
+        vmax, exact, l1 = decay_errors(st['x'], st['y'], st['u'], st['v'],
+                                       s.t, 100.0)
+        got = (vmax / (vmax0 * exact),)
+        names = ('decay ratio',)
+    elif run.run == 'elliptical_drop':
+        got = (float(np.abs(st['y']).max()),)
+        names = ('max |y|',)
+    else:
+        got = (float(st['x'].max()), float(0.5 * np.sum(st['m'] * (
+            st['u'] ** 2 + st['v'] ** 2))))
+        names = ('front', 'kinetic energy')
+    want = JAX_IISPH[run.run]
+    errs = [g / w - 1.0 for g, w in zip(got, want)]
+    sweeps = s.acceleration_evals[0].sweeps
+    print('%s iisph %s=%s float32 at t=%.6g after %d steps: %s; bar %.0e; '
+          'pressure sweeps a step min %d, mean %.3f, max %d' % (
+              run.run, size, run.figure, s.t, s.count, '; '.join(
+                  '%s %.7g (JAX %.7g, relative %.3g)' % x
+                  for x in zip(names, got, want, errs)), CAVITY_TOL,
+              min(sweeps), float(np.mean(sweeps)), max(sweeps)),
+          flush=True)
+    if not max(abs(e) for e in errs) <= CAVITY_TOL:
+        raise AssertionError('%s missed the JAX package\'s figures'
+                             % run.label)
+    return dict(size=run.figure, steps=s.count, t=s.t, figures=got,
+                jax=want, rel_err=errs)
+
+
+def _iisph_phase(kernels):
+    """``IISPHScheme``'s three runs (``IISPH_RUNS``: ``taylor_green``,
+    ``elliptical_drop`` and ``dam_break_2d --scheme iisph``):
+    ``iisph_pair``'s six phase sets against their plain versions on
+    every pair call of one evaluation from each run's own state after 3
+    steps of a jittered start (``iisph_check.calls``) at the small size
+    in float64 and float32, with and without a tenth of the fluid on its
+    box's edges and corners, and at the path's size in float32, every
+    link (``iisph_check.check_linked``) bit for bit the walk and its list
+    ``neighbours_reference``'s, each pack exact; timed at the path's size
+    (the evaluation linked and walking, each set alone, the plain
+    versions) with the library's registers and spills; each path for
+    ``STEPS`` steps in the per-step loop (``_iisph_drive``), its device
+    idle share (``_iisph_idle``), and its gate against the
+    JAX package's figures (``_iisph_gate``).  Adds the entries
+    ``iisph_pair`` (Taylor-Green), ``iisph_pair elliptical_drop`` and
+    ``iisph_pair dam_break_2d``; returns {label: the run's
+    ``_iisph_drive``}."""
+    lib = build.build('iisph_pair')
+    runs = {}
+    for run in IISPH_RUNS:
+        for dtype, edges in ((torch.float64, False), (torch.float64, True),
+                             (torch.float32, False), (torch.float32, True)):
+            calls, n, moved, sweeps = iisph_check.calls(run.run, run.small,
+                                                        dtype, edges=edges)
+            what = '%s iisph %s %s%s (%d particles%s, %d sweeps, %d calls)' \
+                % (run.run, run.small, str(dtype)[6:], ' edges' * edges, n,
+                   ', %d on the edges' % moved if edges else '', sweeps,
+                   len(calls))
+            if len(calls) != run.fixed + 2 * sweeps:
+                raise AssertionError('%s: %d calls' % (what, len(calls)))
+            _compare(calls, dtype, 'iisph_pair ' + what)
+            found = iisph_check.check_linked(calls, what, TOL[dtype])
+            if found['overflowed'] and not edges:
+                raise AssertionError('%s: %d dests past the list\'s '
+                                     'capacity' % (what, found['overflowed']))
+            del calls
+        calls, n, _, sweeps = iisph_check.calls(run.run, run.full,
+                                                torch.float32)
+        if n != run.particles:
+            raise AssertionError('%s has %d particles, not %d'
+                                 % (run.label, n, run.particles))
+        what = '%s float32 (%d particles, %d sweeps, %d calls)' % (
+            run.label, n, sweeps, len(calls))
+        err = _compare(calls, torch.float32, 'iisph_pair ' + what)
+        linked = iisph_check.check_linked(calls, what, TOL[torch.float32])
+        if linked['overflowed']:
+            raise AssertionError('%s: %d dests past the list\'s capacity'
+                                 % (what, linked['overflowed']))
+        err = max(err, linked['max_abs_err'])
+        for _, dest, _, args in calls:
+            _check_pack('%s %s' % (run.label, dest),
+                        ip.pack_sources(args[4]),
+                        ip.pack_sources_reference(args[4]))
+        times, plain, work = _iisph_times(calls)
+        eager = events_ms(lambda: iisph_check.run_as_path(calls), 20)
+        total = roofline.add(*work.values())
+        bound_ms, bound_by = roofline.bound(total)
+        periodic = calls[0][3][5].is_periodic
+        kind = kernel_kind(calls[0][3][6])
+        resources = iisph_check.resources(lib, kind, periodic)
+        sets = {name: dict(ms=times[name], plain_ms=plain[name],
+                           bound_ms=roofline.bound(w)[0],
+                           bound_by=roofline.bound(w)[1],
+                           share=roofline.bound(w)[0] / times[name],
+                           calls=sum(_iisph_set(c) == name for c in calls),
+                           pairs=w['pairs'], flops=w['flops'],
+                           bytes=w['bytes'])
+                for name, w in work.items()}
+        print('iisph_pair, the %d launches of one evaluation of %s (grid %s, '
+              'periodic %s, kernel kind %d), graph replays alternated in '
+              'this process: as the path runs them (linked: one emits, %d '
+              'read its list) %.4f ms, walking %.4f ms; eager %.3f ms; plain '
+              'torch %.3f ms; bound %.4f ms (%s: %.4g flops, %d candidates, '
+              '%d pairs, %d B), share %.1f%%; by phase set: %s; the '
+              'library\'s kernels of this kind, registers and spill bytes '
+              '(stores, loads) by mode: %s' % (
+                  len(calls), what, calls[0][3][5].dims, periodic, kind,
+                  linked['consumers'], times['path'], times['walking'],
+                  eager, sum(plain.values()), bound_ms, bound_by,
+                  total['flops'], total['candidates'], total['pairs'],
+                  total['bytes'], 100 * bound_ms / times['path'], '; '.join(
+                      '%s (%d calls) %.4f ms, plain %.3f, bound %.4f (%s), '
+                      'share %.1f%%' % (k, v['calls'], v['ms'], v['plain_ms'],
+                                        v['bound_ms'], v['bound_by'],
+                                        100 * v['share'])
+                      for k, v in sets.items()), resources), flush=True)
+        del calls
+        runs[run.label] = drive = _iisph_drive(run)
+        idle = _iisph_idle(run)
+        gate = _iisph_gate(run)
+        name = 'iisph_pair' if run.run == 'taylor_green' else \
+            'iisph_pair ' + run.run
+        kernels[name] = dict(_entry(
+            'iisph_pair', 'pysph_tpu/ops/resident.py:645',
+            drive['launches'], err, times['path'], sum(plain.values()),
+            total, None, eager_ms=eager, walking_ms=times['walking'],
+            share=bound_ms / times['path'], sets=sets, sweeps=sweeps,
+            overflowed=linked['overflowed'], max_count=linked['max_count'],
+            capacity=linked['capacity'], resources=resources, run=drive,
+            idle=idle, gate=gate, path='%s, one evaluation (%d sweeps: %d '
+            'launches, linked)' % (run.label, sweeps, run.fixed + 2 * sweeps)),
+            name=name)
+    return runs
+
+
 def _kinds_row():
     """``gtvf_pair`` at kind 4 on the Taylor-Green vortex's ``--scheme
     gtvf --nx 400 --kernel WendlandQuinticC4`` (float32, perturbed): a
@@ -2295,9 +2664,9 @@ def main():
                                             torch.version.cuda, kind))
 
     t0 = time.perf_counter()
-    names = ('tvf_pair', 'wcsph_pair', 'gtvf_pair', 'dense_pair',
-             'fused_pair', 'micro_launch', 'micro_engine', 'pair_stub',
-             'cell_pack', 'bin_cells', 'delta_pair')
+    names = ('iisph_pair', 'tvf_pair', 'wcsph_pair', 'gtvf_pair',
+             'dense_pair', 'fused_pair', 'micro_launch', 'micro_engine',
+             'pair_stub', 'cell_pack', 'bin_cells', 'delta_pair')
     # and each later kind's library of the pair kernels that take kinds
     jobs = [(n, ()) for n in names] + [('tvf_pair', tp.EDAC_FLAGS)] + [
         (n, build.kind_flags(k)) for n in KIND_KERNELS
@@ -2473,6 +2842,9 @@ def main():
     _edac_phase(runs, kernels)
     _kinds_row()
 
+    # IISPH: taylor_green, elliptical_drop and dam_break_2d --scheme iisph
+    iisph_runs = _iisph_phase(kernels)
+
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
     timed = {}     # the float32 calls at the paths' shapes
@@ -2581,6 +2953,14 @@ def main():
               r['ms'][10], 100.0 * r['rebuilds'][1] / r['steps'],
               100.0 * r['rebuilds'][10] / r['steps'], r['counters'],
               r['steps']))
+    print('IISPH, float32, per step (an iterated group keeps a run off '
+          'the chunks): ms/step, pressure sweeps a step (min, mean, max), '
+          'host reads a step, iisph_pair launches (the sweeps\' count):')
+    for label, r in iisph_runs.items():
+        print('  %-28s %8.3f ms/step  sweeps %d / %.3f / %d  reads %.3f  '
+              'launches %d (%d)  %d steps' % (
+                  label, r['ms'], *r['sweeps'], r['reads_per_step'],
+                  r['launches'], r['planned'], r['steps']))
     print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
     for label, rows in bins.items():
         for i, t in enumerate(rows):

@@ -71,3 +71,22 @@ def get_particle_array_tvf_solid(constants=None, **props):
     pa.set_output_arrays(['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'p', 'h',
                           'm', 'V', 'pid', 'gid', 'tag'])
     return pa
+
+
+def get_particle_array_iisph(constants=None, **props):
+    """IISPH particle array, with the constant ``tmp_comp`` (the pressure
+    solve's compressed-particle count and compression sum, written by
+    ``PressureSolve.reduce``)."""
+    iisph_props = ['uadv', 'vadv', 'wadv', 'rho_adv',
+                   'au', 'av', 'aw', 'ax', 'ay', 'az',
+                   'dii0', 'dii1', 'dii2', 'V', 'dt_cfl', 'dt_force',
+                   'aii', 'dijpj0', 'dijpj1', 'dijpj2', 'p', 'p0', 'piter',
+                   'compression']
+    consts = {'tmp_comp': [0.0, 0.0]}
+    if constants:
+        consts.update(constants)
+    pa = get_particle_array(
+        constants=consts, additional_props=iisph_props, **props)
+    pa.set_output_arrays(['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'h', 'm',
+                          'p', 'pid', 'au', 'av', 'aw', 'tag', 'gid', 'V'])
+    return pa

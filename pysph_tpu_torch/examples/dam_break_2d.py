@@ -8,8 +8,11 @@ default: WCSPH with the Hughes-Graham corrected walls, ``PECIntegrator``,
 step) and ``--scheme edac`` (``EDACScheme``'s external flow, ``pb = 0``:
 the number-density pressure gradient with gravity, ``EDACEquation`` and
 ``XSPHCorrection`` with ``eps = 0``; the wall pressure clamped
-non-negative; ``QuinticSpline``, PEC with ``EDACStep``, fixed dt) are
-ported; on an NVIDIA card:
+non-negative; ``QuinticSpline``, PEC with ``EDACStep``, fixed dt) and
+``--scheme iisph`` (``IISPHScheme``: the walls through their number
+density, the relaxed-Jacobi pressure solve iterated 2 to 30 sweeps a
+step; ``QuinticSpline``, Euler with ``IISPHStep``, adaptive dt from
+ten times WCSPH's) are ported; on an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.dam_break_2d \\
         --dx 0.004 --max-steps 200 --disable-output
@@ -17,9 +20,8 @@ ported; on an NVIDIA card:
         --dx 0.004 --max-steps 200 --disable-output
     python -m pysph_tpu_torch.examples.dam_break_2d --scheme edac \\
         --dx 0.004 --max-steps 200 --disable-output
-
-``iisph`` needs its scheme; it raises ``NotImplementedError`` naming its
-ROADMAP item.
+    python -m pysph_tpu_torch.examples.dam_break_2d --scheme iisph \\
+        --dx 0.004 --max-steps 200 --disable-output
 """
 
 import numpy as np
@@ -27,8 +29,8 @@ import numpy as np
 from pysph_tpu_torch.base.kernels import QuinticSpline, WendlandQuintic
 from pysph_tpu_torch.base.utils import get_particle_array
 from pysph_tpu_torch.solver.application import Application
-from pysph_tpu_torch.sph.scheme import (
-    NotPortedScheme, SchemeChooser, WCSPHScheme)
+from pysph_tpu_torch.sph.iisph import IISPHScheme
+from pysph_tpu_torch.sph.scheme import SchemeChooser, WCSPHScheme
 from pysph_tpu_torch.sph.wc.edac import EDACScheme
 from pysph_tpu_torch.sph.wc.gtvf import GTVFScheme
 from pysph_tpu_torch.tools.geometry import get_2d_block, get_2d_tank
@@ -72,10 +74,11 @@ class DamBreak2D(Application):
             fluids=['fluid'], solids=['boundary'], dim=2, c0=co,
             nu=nu, rho0=ro, h=hdx * 0.03, pb=0.0, gy=-g, eps=0.0,
             clamp_p=True)
-        return SchemeChooser(
-            default='wcsph', wcsph=wcsph, edac=edac,
-            iisph=NotPortedScheme('iisph', 'ROADMAP Queue 1 item 26'),
-            gtvf=gtvf)
+        iisph = IISPHScheme(
+            fluids=['fluid'], solids=['boundary'], dim=2, nu=nu,
+            rho0=ro, gy=-g)
+        return SchemeChooser(default='wcsph', wcsph=wcsph, edac=edac,
+                             iisph=iisph, gtvf=gtvf)
 
     def configure_scheme(self):
         dt = 0.125 * self.h / co
@@ -92,6 +95,11 @@ class DamBreak2D(Application):
             self.scheme.configure(h=self.h)
             self.scheme.configure_solver(
                 kernel=QuinticSpline(dim=2), dt=dt, **kw)
+            return
+        if self.options.scheme == 'iisph':
+            self.scheme.configure_solver(
+                kernel=QuinticSpline(dim=2), dt=10 * dt,
+                adaptive_timestep=True, **kw)
             return
         self.scheme.configure(pref=ro * co * co / gamma, h0=self.h)
         self.scheme.configure_solver(dt=dt, **kw)

@@ -4,17 +4,20 @@ Port of ``pysph_tpu/examples/elliptical_drop.py``: a circular fluid patch
 of radius 1 under the velocity field (-100 x, 100 y) deforms into an
 ellipse of conserved area; the semi-axes follow an ODE with an exact
 solution (``exact_solution``).  WCSPH with the Gaussian kernel, the EPEC
-integrator and adaptive dt, one fluid and no walls.  On an NVIDIA card:
+integrator and adaptive dt, one fluid and no walls; ``--scheme iisph``
+(``IISPHScheme``, Euler, dt 2e-4 and adaptive) is the reference's other
+run.  On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.elliptical_drop --nx 200 \\
         --disable-output                      # wcsph_pair
     python -m pysph_tpu_torch.examples.elliptical_drop --nx 200 \\
         --engine dense --disable-output       # dense_pair
+    python -m pysph_tpu_torch.examples.elliptical_drop --nx 200 \\
+        --scheme iisph --disable-output       # iisph_pair
 
 ``--nx 40`` (the default, 5,021 particles) is the published size.  On
 the CPU: ``--device cpu --use-double``.  ``post_process`` reads the last
-dump and compares the semi-minor axis with the exact one.  ``--scheme
-iisph`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 26).
+dump and compares the semi-minor axis with the exact one.
 """
 
 import os
@@ -25,8 +28,8 @@ from pysph_tpu_torch.base.kernels import Gaussian
 from pysph_tpu_torch.base.utils import get_particle_array
 from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.integrator import EPECIntegrator
-from pysph_tpu_torch.sph.scheme import (
-    NotPortedScheme, SchemeChooser, WCSPHScheme)
+from pysph_tpu_torch.sph.iisph import IISPHScheme
+from pysph_tpu_torch.sph.scheme import SchemeChooser, WCSPHScheme
 
 
 def _axis_rate(state, t):
@@ -73,16 +76,21 @@ class EllipticalDrop(Application):
             ['fluid'], [], dim=2, rho0=self.ro, c0=self.co,
             h0=self.dx * self.hdx, hdx=self.hdx, gamma=7.0, alpha=0.1,
             beta=0.0)
-        return SchemeChooser(
-            default='wcsph', wcsph=wcsph,
-            iisph=NotPortedScheme('iisph', 'ROADMAP Queue 1 item 26'))
+        iisph = IISPHScheme(['fluid'], [], dim=2, rho0=self.ro)
+        return SchemeChooser(default='wcsph', wcsph=wcsph, iisph=iisph)
 
     def configure_scheme(self):
+        tf = 0.0076
+        if self.options.scheme == 'iisph':
+            self.scheme.configure_solver(
+                kernel=Gaussian(dim=2), dt=2e-4, tf=tf,
+                adaptive_timestep=True)
+            return
         dt = 0.25 * self.hdx * self.dx / (141 + self.co)
         self.scheme.configure(h0=self.hdx * self.dx)
         self.scheme.configure_solver(
             kernel=Gaussian(dim=2), integrator_cls=EPECIntegrator, dt=dt,
-            tf=0.0076, adaptive_timestep=True, cfl=0.3, n_damp=50,
+            tf=tf, adaptive_timestep=True, cfl=0.3, n_damp=50,
             output_at_times=[0.0008, 0.0038])
 
     def create_particles(self):

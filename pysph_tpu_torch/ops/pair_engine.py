@@ -1,6 +1,6 @@
 """Planning: which pair phases a hand-written pair kernel runs.
 
-Four kernels take a dest's pair phases, all its sources in one call:
+Six kernels take a dest's pair phases, all its sources in one call:
 
 - ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path, the
   elliptical drop and the Taylor-Green vortex's ``--scheme wcsph``):
@@ -35,7 +35,15 @@ Four kernels take a dest's pair phases, all its sources in one call:
   ``MomentumEquationViscosity``, ``MomentumEquationArtificialStress``,
   ``MomentumEquationArtificialViscosity`` and ``SolidWallNoSlipBC``,
   EDAC's ``MomentumEquationPressureGradient``, ``MomentumEquation`` and
-  ``EDACEquation``, and ``XSPHCorrection``).
+  ``EDACEquation``, and ``XSPHCorrection``);
+- ``iisph_pair`` (``ops/iisph_pair.py``, ``IISPHScheme``'s groups: the
+  IISPH dam break, drop and Taylor-Green vortex): the equations of a
+  dest fall in one of its six phase sets (``NumberDensity``,
+  ``SummationDensity``, ``SummationDensityBoundary``; ``ComputeDII`` and
+  the viscosities, with their wall terms; ``ComputeRhoAdvection``,
+  ``ComputeAII`` and their wall terms; ``ComputeDIJPJ``;
+  ``PressureSolve`` and its wall term; ``PressureForce`` and its wall
+  term), each plan taking the step's dt (``PairPlan.takes_dt``).
 
 Every kernel takes every kernel with a ``kernel_kind`` (not the ``_1D``
 ones: ROADMAP Queue 1 item 28), and every kernel walks a periodic grid
@@ -52,13 +60,19 @@ the torch pair engine instead.
 between them moves the pairs: a dest's ``delta_pair`` moment plan and
 its corrected gradient plan in the group right after it, and a dest's
 ``tvf_pair`` density plan and its momentum plan in a later group (and
-the mean-pressure plan of ``EDACScheme`` between them).  The first call
-then hands its neighbour list and packed copies to the later ones
-(``PairPlan.link``, ``ops/pair_link.py``), which walk no candidates.
+the mean-pressure plan of ``EDACScheme`` between them); and a chain of a
+dest's ``iisph_pair`` plans: the first that sees every later plan's
+sources (a later plan may read fewer) emits, and every later one (each
+pressure sweep's two among them, run again every sweep) reads.  The
+first call then hands its neighbour list and packed copies to the later
+ones (``PairPlan.link``, ``ops/pair_link.py``), which walk no
+candidates.  The evaluator plans and links the groups of an iterated
+group's sub-tree as they run in one sweep (``leaf_groups``).
 
 The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
-sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair`` and the
-delta-SPH pre-phases onto ``delta_pair``; ``dense`` plans the WCSPH sets
+sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair``, the
+delta-SPH pre-phases onto ``delta_pair``, TVF's and EDAC's sets onto
+``tvf_pair`` and IISPH's onto ``iisph_pair``; ``dense`` plans the WCSPH sets
 without delta-SPH terms onto ``dense_pair`` and nothing else, as the JAX
 package's dense-slot engine refuses sequential and strided phases
 (``pallas_engine.py:855-861``): the GTVF sets, the delta-SPH pre-phases
@@ -73,6 +87,7 @@ from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gtvf_pair as _gp
+from pysph_tpu_torch.ops import iisph_pair as _ip
 from pysph_tpu_torch.ops import pair_link as _pl
 from pysph_tpu_torch.ops import tvf_pair as _tp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
@@ -347,7 +362,55 @@ def _plan_tvf(dest, sources, kernel):
                     _tp.tvf_pair_reference, _tp.outputs_for(terms))
 
 
-_PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf),
+def _iisph_terms():
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph import iisph
+    return {iisph.NumberDensity: _ip.NDEN,
+            iisph.SummationDensity: _ip.SDEN,
+            iisph.SummationDensityBoundary: _ip.SDENB,
+            iisph.ComputeDII: _ip.DII, iisph.ComputeDIIBoundary: _ip.DIIB,
+            iisph.ViscosityAcceleration: _ip.VISC,
+            iisph.ViscosityAccelerationBoundary: _ip.VISCB,
+            iisph.ComputeRhoAdvection: _ip.RHOADV,
+            iisph.ComputeRhoBoundary: _ip.RHOB,
+            iisph.ComputeAII: _ip.AII, iisph.ComputeAIIBoundary: _ip.AIIB,
+            iisph.ComputeDIJPJ: _ip.DIJPJ, iisph.PressureSolve: _ip.PSOLVE,
+            iisph.PressureSolveBoundary: _ip.PSOLVEB,
+            iisph.PressureForce: _ip.PFORCE,
+            iisph.PressureForceBoundary: _ip.PFORCEB}
+
+
+def _one(eqs, attr, what):
+    """The one value of ``attr`` that the equations of a source that have
+    it give, or 0.0; ``PairIneligible`` where they differ (the kernel
+    takes one a source)."""
+    values = {getattr(eq, attr) for eq in eqs if hasattr(eq, attr)}
+    if len(values) > 1:
+        raise PairIneligible('%s: %s differ (%s)' % (what, attr,
+                                                     sorted(values)))
+    return values.pop() if values else 0.0
+
+
+def _plan_iisph(dest, sources, kernel):
+    _check_kind(kernel)
+    term_of = _iisph_terms()
+    plan_sources = []
+    terms = 0
+    for src, t, eqs in _source_terms(sources, term_of, _ip.TERM_OUTPUTS,
+                                     _ip.MAX_SOURCES):
+        plan_sources.append(_ip.IisphSource(
+            src, t, tuple(eqs), rho0=_one(eqs, 'rho0', src),
+            nu=_one(eqs, 'nu', src)))
+        terms |= t
+    if _ip.phase_of(terms) is None:
+        raise PairIneligible('IISPH terms %#x span two phase sets' % terms)
+    return PairPlan(dest, plan_sources, kernel, _ip.iisph_pair,
+                    _ip.iisph_pair_reference, _ip.outputs_for(terms),
+                    takes_dt=True)
+
+
+_PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf,
+                        _plan_iisph),
              'dense': (_plan_dense,)}
 
 
@@ -397,7 +460,7 @@ def _delta_dims(moment, gradient):
     return None
 
 
-def _tvf_terms_of(plan):
+def _terms_of(plan):
     terms = 0
     for ts in plan.sources:
         terms |= ts.terms
@@ -405,7 +468,7 @@ def _tvf_terms_of(plan):
 
 
 def _tvf_phase(plan):
-    return _tp.phase_of(_tvf_terms_of(plan))
+    return _tp.phase_of(_terms_of(plan))
 
 
 class _LinkRule(NamedTuple):
@@ -436,7 +499,7 @@ _LINK_RULES = (
     _LinkRule(_tp.tvf_pair, lambda p: _tvf_phase(p) == _tp.DENSITY,
               lambda p: _tvf_phase(p) == _tp.MOMENTUM, None,
               _tvf_link_equations, _pl.Link,
-              passes=lambda p: _tvf_terms_of(p) == _tp.AVGP),
+              passes=lambda p: _terms_of(p) == _tp.AVGP),
 )
 
 
@@ -461,6 +524,65 @@ def _link_refusal(rule, span, emitter, consumers):
     return None
 
 
+def _subsequence(names, of):
+    """Whether ``names`` are among ``of``, in its order."""
+    it = iter(of)
+    return all(name in it for name in names)
+
+
+def _link_iisph(groups, plans):
+    """The links of ``iisph_pair``'s plans (``link_pairs``): for each
+    dest, its first plan of an emitting set (``EMITTING``) whose sources
+    include those of every later ``iisph_pair`` plan of the dest, in its
+    order, emits, and every later plan reads its list (the last the
+    consumer, the others ``Link.middle``), where every equation of the
+    groups from the emitter's to the last is IISPH's (none moves ``x y z
+    h``).  Each refusal is logged.  Returns the links."""
+    from pysph_tpu_torch.sph import iisph
+    chains = {}
+    for a, group in enumerate(groups):
+        for dest in dict.fromkeys(eq.dest for eq in group.equations):
+            plan = plans.get((id(group), dest))
+            if plan is not None and plan.op is _ip.iisph_pair and \
+                    plan.link is None:
+                chains.setdefault(dest, []).append((a, plan))
+    allowed = {cls for cls in vars(iisph).values()
+               if isinstance(cls, type) and issubclass(cls, iisph.Equation)}
+    links = []
+    for dest, chain in chains.items():
+        link, why = None, 'one plan'
+        for k, (a, emitter) in enumerate(chain[:-1]):
+            names = [ps.name for ps in emitter.sources]
+            later = [plan for _, plan in chain[k + 1:]]
+            if _ip.phase_of(_terms_of(emitter)) not in _ip.EMITTING:
+                why = 'the first plans are of no emitting set'
+                continue
+            if not all(_subsequence([ps.name for ps in p.sources], names)
+                       for p in later):
+                why = 'no plan\'s sources include the later plans\''
+                continue
+            if any(_ip.phase_of(_terms_of(p)) not in _ip.CONSUMING
+                   for p in later):
+                why = 'a later plan of no consuming set'
+                break
+            b = chain[-1][0]
+            bad = next((eq.name for g in groups[a:b + 1]
+                        for eq in g.equations if type(eq) not in allowed),
+                       None)
+            if bad is not None:
+                why = '%s is not among the equations that keep the pairs' \
+                    % bad
+                break
+            link = _pl.Link(emitter, later[-1], later[:-1])
+            for plan in [emitter] + later:
+                plan.link = link
+            links.append(link)
+            break
+        if link is None:
+            logger.info('iisph_pair for %s: no link: %s', dest, why)
+    return links
+
+
 def link_pairs(groups, plans):
     """Link the plans of one kernel for one dest that can share a walk
     (``groups``, in order; ``plans``: {(id(group), dest): ``PairPlan``
@@ -477,7 +599,9 @@ def link_pairs(groups, plans):
     the neighbour list and packed copies that the second reads (and the
     ``tvf_pair`` mean-pressure plans of ``AVGP`` alone between them,
     ``EDACScheme``'s with walls: ``Link.middle``) (``ops/pair_link.py``);
-    each refusal is logged.  Returns the ``Link`` of each linked pair."""
+    and each dest's chain of ``iisph_pair`` plans (``_link_iisph``).  Each
+    refusal is logged.  Returns the ``Link`` of each linked pair or
+    chain."""
     links = []
     for a, g0 in enumerate(groups):
         for dest in dict.fromkeys(eq.dest for eq in g0.equations):
@@ -513,27 +637,36 @@ def link_pairs(groups, plans):
             for plan in [emitter, consumer] + middle:
                 plan.link = link
             links.append(link)
-    return links
+    return links + _link_iisph(groups, plans)
 
 
 class PairPlan(object):
     """The kernel call for one dest over all its sources: ``op`` is the
-    kernel's wrapper, ``reference`` its plain version (same arguments);
-    ``link``: the ``pair_link.Link`` a linked plan runs through."""
+    kernel's wrapper, ``reference`` its plain version (same arguments;
+    with ``takes_dt`` the step's dt is the last); ``link``: the
+    ``pair_link.Link`` a linked plan runs through."""
 
-    def __init__(self, dest, sources, kernel, op, reference, outputs):
+    def __init__(self, dest, sources, kernel, op, reference, outputs,
+                 takes_dt=False):
         self.dest = dest
         self.sources = sources
         self.kernel = kernel
         self.op = op
         self.reference = reference
         self.outputs = outputs
+        self.takes_dt = takes_dt
         self.link = None
 
-    def execute(self, store, states, cells, grid, write_mask):
-        pre = {p: store[p] for p in self.outputs}
+    def args(self, store, states, cells, grid, write_mask, pre, dt=0.0):
+        """The arguments of ``op`` for the dest's ``store`` and the
+        outputs' values before the phase ``pre``."""
         srcs = [(states[s.name], cells[s.name], s) for s in self.sources]
         args = (store, cells[self.dest], write_mask, pre, srcs, grid,
                 self.kernel)
+        return args + (dt,) if self.takes_dt else args
+
+    def execute(self, store, states, cells, grid, write_mask, dt=0.0):
+        pre = {p: store[p] for p in self.outputs}
+        args = self.args(store, states, cells, grid, write_mask, pre, dt)
         store.update(self.op(*args) if self.link is None
                      else self.link.run(self, args))

@@ -2,10 +2,13 @@
 writes a neighbour list, a later call of the same dest reads it instead
 of walking again.
 
-Two kernels run linked pairs (``ops/pair_engine.py::link_pairs`` forms
-them): ``delta_pair`` (the moment launch emits, the corrected gradient
-launch consumes) and ``tvf_pair`` (the density launch emits, the
-momentum launch consumes).  Nothing between the two calls moves ``x y z
+Three kernels run linked calls (``ops/pair_engine.py::link_pairs``
+forms them): ``delta_pair`` (the moment launch emits, the corrected
+gradient launch consumes), ``tvf_pair`` (the density launch emits, the
+momentum launch consumes) and ``iisph_pair`` (a dest's first launch that
+sees all its sources emits, every later launch of its evaluation reads,
+the pressure sweep's again each sweep; a reader may take fewer of the
+emitter's sources).  Nothing between the two calls moves ``x y z
 h``, so the emitting call's pairs in support are the consuming call's,
 in the same order.  The emitting call returns, beside its output, a
 ``Handoff``: its sources' packed copies and the neighbour list, each
@@ -182,8 +185,10 @@ class Link(object):
     by ``ops/pair_engine.py::link_pairs``, and the plans of the groups
     between them that read the same list (``middle``: ``tvf_pair``'s
     mean-pressure plan between the density and the momentum plan of
-    ``EDACScheme`` with walls): the evaluator runs them through
-    ``run``, the hand-off kept until the last consumer takes it."""
+    ``EDACScheme`` with walls; ``iisph_pair``'s plans between the
+    emitter and the force, some run once a pressure sweep): the
+    evaluator runs them through ``run``, the hand-off kept until the
+    last consumer takes it."""
 
     def __init__(self, emitter, consumer, middle=()):
         self.emitter = emitter

@@ -5,6 +5,15 @@ per group and dest array the phases run as in the reference:
 ``initialize`` -> source-less ``loop`` -> pair ``loop`` per source ->
 ``post_loop``.
 
+Groups nest: a group of sub-groups runs them in order, and an iterated
+group (``Group(iterate=True)``) runs its sub-tree in sweeps until its
+equations' ``converged`` all hold and ``min_iterations`` sweeps ran, at
+most ``max_iterations`` (``_run_iterated``).  ``converged`` is read on
+the host once a sweep, one 0-d tensor, and only where its answer can
+stop the loop (``converged_reads`` counts the reads, ``sweeps`` the
+sweeps of each iterated group run).  After a dest's ``post_loop`` an
+equation's ``reduce(dst, t, dt)`` runs on a ``ReduceView`` of the dest.
+
 Pair phases take one of the engines, chosen once per (group, dest) when
 the evaluator is built and recorded in ``engine_choices``:
 
@@ -52,7 +61,7 @@ logger = logging.getLogger(__name__)
 #: dam break's density keep each chunk's pair tensors near 8M entries.
 PAIR_CHUNK = 16384
 
-_DSL_ITEM = 'ROADMAP Queue 1, DSL breadth'
+_DSL_ITEM = 'ROADMAP Queue 1 item 21, DSL breadth'
 
 
 class PairContext(object):
@@ -222,6 +231,47 @@ class PairContext(object):
         return fac * float(w_dp)
 
 
+class _ReduceArray(object):
+    """One prop or constant of a ``ReduceView``: ``[key]`` reads
+    ``state[name][key]`` (a slice, an index), and an assignment writes a
+    new tensor with ``[key]`` set, on the state's device (no host copy),
+    unmasked."""
+
+    __slots__ = ('store', 'name')
+
+    def __init__(self, store, name):
+        self.store = store
+        self.name = name
+
+    def __getitem__(self, key):
+        return self.store[self.name][key]
+
+    def __setitem__(self, key, value):
+        # a new tensor: the solver's saved states share the old one
+        t = self.store[self.name].clone()
+        t[key] = value
+        self.store[self.name] = t
+
+
+class ReduceView(object):
+    """The ``dst`` of ``reduce(dst, t, dt)`` and ``converged(dst)``: the
+    dest's props and constants by attribute, read live from its state
+    dict and written on the device (``_ReduceArray``); ``mask``: the
+    group's write mask (None: every row), ``active``: every row."""
+
+    def __init__(self, store, mask):
+        object.__setattr__(self, '_store', store)
+        object.__setattr__(self, 'mask', mask)
+        object.__setattr__(self, 'active', torch.ones_like(
+            store['x'], dtype=torch.bool))
+
+    def __getattr__(self, name):
+        store = object.__getattribute__(self, '_store')
+        if name in store:
+            return _ReduceArray(store, name)
+        raise AttributeError(name)
+
+
 def _bind_particle_phase(method, store, write_mask, t, dt, consts=(),
                          kernel=None):
     """Run a per-particle method batched over every row of ``store``."""
@@ -341,6 +391,10 @@ class AccelerationEval(object):
         self.domain = grid.domain
         # the handle of update_and_compute
         self._handle = None
+        #: the sweeps of each iterated group run, in order (append-only:
+        #: clear it to reset), and the host reads of ``converged``
+        self.sweeps = []
+        self.converged_reads = 0
 
     @staticmethod
     def _make_groups(equations):
@@ -359,15 +413,30 @@ class AccelerationEval(object):
             groups.append(Group(pending))
         return groups
 
-    def _iter_equations(self):
-        for g in self.groups:
-            for eq in g.equations:
-                yield eq
+    def leaf_groups(self, groups=None):
+        """The groups that hold equations, in the order they run (a
+        sweep of an iterated group once)."""
+        for g in (self.groups if groups is None else groups):
+            if g.has_subgroups:
+                yield from self.leaf_groups(g.equations)
+            else:
+                yield g
+
+    def _iter_equations(self, groups=None):
+        for g in self.leaf_groups(groups):
+            yield from g.equations
+
+    @property
+    def has_iterated(self):
+        """Whether a group of the tree iterates."""
+        def walk(groups):
+            return any(g.iterate or (g.has_subgroups and walk(g.equations))
+                       for g in groups)
+        return walk(self.groups)
 
     def _validate(self):
         for eq in self._iter_equations():
-            for m in ('reduce', 'converged', 'initialize_pair',
-                      'loop_all', 'py_initialize'):
+            for m in ('initialize_pair', 'loop_all', 'py_initialize'):
                 if getattr(eq, m, None) is not None:
                     raise NotImplementedError(
                         '%s.%s is not ported yet (%s)' % (
@@ -389,7 +458,8 @@ class AccelerationEval(object):
     def _dest_order(group):
         dests = OrderedDict()
         for eq in group.equations:
-            dests.setdefault(eq.dest, []).append(eq)
+            if not isinstance(eq, Group):
+                dests.setdefault(eq.dest, []).append(eq)
         return dests
 
     @staticmethod
@@ -402,7 +472,8 @@ class AccelerationEval(object):
 
     def _plan(self):
         plans = {}
-        for group in self.groups:
+        leaves = list(self.leaf_groups())
+        for group in leaves:
             for dest, eqs in self._dest_order(group).items():
                 sources = self._sources(eqs)
                 if not sources:
@@ -424,7 +495,7 @@ class AccelerationEval(object):
                     for src in sources:
                         self.grid.pair_capacity(dest, src,
                                                 self.config.device)
-        link_pairs(self.groups, plans)
+        link_pairs(leaves, plans)
         return plans
 
     def set_domain(self, domain):
@@ -486,8 +557,60 @@ class AccelerationEval(object):
         ``grid.pair_overflow`` (``run_sized``, the solver)."""
         cells = handle.lists
         for group in self.groups:
-            self._run_group(group, t, dt, states, cells)
+            self._dispatch(group, t, dt, states, cells)
         return states
+
+    def _dispatch(self, group, t, dt, states, cells):
+        if group.iterate:
+            self._run_iterated(group, t, dt, states, cells)
+        else:
+            self._run_once(group, t, dt, states, cells)
+
+    def _run_once(self, group, t, dt, states, cells):
+        if group.has_subgroups:
+            for sub in group.equations:
+                self._dispatch(sub, t, dt, states, cells)
+        else:
+            self._run_group(group, t, dt, states, cells)
+
+    def _run_iterated(self, group, t, dt, states, cells):
+        """Sweeps of ``group``'s sub-tree (or its own equations) while
+        fewer than ``max_iterations`` ran and not (converged and at least
+        ``min_iterations`` ran), as ``pysph_tpu``'s ``lax.while_loop``;
+        ``converged`` is read (one ``.item()``) only after a sweep that
+        has run ``min_iterations`` and not ``max_iterations``."""
+        max_it = int(group.max_iterations)
+        min_it = int(group.min_iterations)
+        it = 0
+        while it < max_it:
+            self._run_once(group, t, dt, states, cells)
+            it += 1
+            if it < min_it or it >= max_it:
+                continue
+            conv = self._converged(group, states)
+            if conv is True:
+                break
+            self.converged_reads += 1
+            if conv.item():
+                break
+        self.sweeps.append(it)
+
+    def _converged(self, group, states):
+        """The AND of the ``converged`` of every equation of ``group``'s
+        tree (``converged(dst)`` or ``converged()``; a value > 0 holds):
+        a 0-d bool tensor, or True where no equation has one."""
+        conv = True
+        for eq in self._iter_equations([group]):
+            fn = getattr(eq, 'converged', None)
+            if fn is None:
+                continue
+            if 'dst' in _method_args(fn):
+                val = fn(dst=ReduceView(states[eq.dest], None))
+            else:
+                val = fn()
+            held = torch.as_tensor(val) > 0
+            conv = held if conv is True else conv & held
+        return conv
 
     def _run_group(self, group, t, dt, states, cells):
         kernel = self.kernel
@@ -506,7 +629,7 @@ class AccelerationEval(object):
             sources = self._sources(eqs)
             plan = self._plans.get((id(group), dest))
             if plan is not None:
-                plan.execute(store, states, cells, self.grid, wm)
+                plan.execute(store, states, cells, self.grid, wm, dt)
             else:
                 for src, src_eqs in sources.items():
                     run_pair_phase(
@@ -519,3 +642,7 @@ class AccelerationEval(object):
                 fn = getattr(eq, 'post_loop', None)
                 if fn is not None:
                     _bind_particle_phase(fn, store, wm, t, dt, consts, kernel)
+            for eq in eqs:
+                fn = getattr(eq, 'reduce', None)
+                if fn is not None:
+                    fn(dst=ReduceView(store, wm), t=t, dt=dt)

@@ -64,7 +64,7 @@ def _check_index(key, name):
     if not isinstance(key, IndexSym):
         raise NotImplementedError(
             'indexing %r with %r: only d_idx/s_idx are ported yet (ROADMAP '
-            'Queue 1, DSL breadth)' % (name, key))
+            'Queue 1 item 21, DSL breadth)' % (name, key))
 
 
 def column(t, key, name):
@@ -251,21 +251,37 @@ class Group(object):
     """Ordered set of equations evaluated together.  With ``real`` the
     group writes only local particles (``tag == 0``).
 
-    The other group features of ``pysph_tpu`` (``iterate``,
-    ``condition``, ``update_nnps``, ``pre``/``post``, ``start_idx``/
-    ``stop_idx``, sub-groups) are refused until they are ported."""
+    A group may hold sub-groups instead of equations (``has_subgroups``),
+    and with ``iterate`` it runs its sub-tree again and again: at most
+    ``max_iterations`` sweeps, stopping after a sweep once its equations'
+    ``converged`` all say so and ``min_iterations`` sweeps have run (the
+    evaluator's ``_run_iterated``).  The other group features of
+    ``pysph_tpu`` (``condition``, ``update_nnps``, ``pre``/``post``,
+    ``start_idx``/``stop_idx``) are refused until they are ported."""
 
-    def __init__(self, equations, real=True, **features):
+    def __init__(self, equations, real=True, iterate=False,
+                 max_iterations=1, min_iterations=0, **features):
         self.equations = list(equations)
         self.real = real
+        self.iterate = iterate
+        self.max_iterations = max_iterations
+        self.min_iterations = min_iterations
+        self.has_subgroups = all(isinstance(e, Group) for e in
+                                 self.equations) and len(self.equations) > 0
         used = sorted(k for k, v in features.items() if v)
-        if used or any(isinstance(e, Group) for e in self.equations):
+        if used:
             raise NotImplementedError(
-                'group features %s / sub-groups are not ported yet '
-                '(ROADMAP Queue 1, DSL breadth)' % used)
+                'group features %s are not ported yet (ROADMAP Queue 1 '
+                'item 21, DSL breadth)' % used)
+        if not self.has_subgroups and any(isinstance(e, Group)
+                                          for e in self.equations):
+            raise NotImplementedError(
+                'a group of equations and sub-groups together is not '
+                'ported (ROADMAP Queue 1 item 21, DSL breadth)')
 
     def __repr__(self):
-        return 'Group(n_eq=%d, real=%s)' % (len(self.equations), self.real)
+        return 'Group(n_eq=%d, real=%s, iterate=%s)' % (
+            len(self.equations), self.real, self.iterate)
 
     def write_mask(self, state):
         """Rows the group may write: every particle of the (unpadded)

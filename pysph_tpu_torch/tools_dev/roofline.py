@@ -36,6 +36,7 @@ from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import cell_walk
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import gtvf_pair as gp
+from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import wcsph_pair as wp
@@ -108,6 +109,22 @@ TVF_TERM_FLOPS = {tp.SDEN: 3, tp.MPG: 25, tp.VISC: 25, tp.MAS: 57,
                   tp.AVIS: 25, tp.NOSLIP: 24, tp.AVGP: 2, tp.EMPG: 27,
                   tp.EMOM: 13, tp.EDACEQ: 29, tp.XSPH: 14}
 TVF_MOMENTUM_FLOPS = 9
+#: iisph_pair.cu: per pair in support pair_of as tvf_pair's (before the
+#: shape function), then each term's functor: NDEN the sum; SDEN m W;
+#: SDENB rho0 / Vj W; DII -m rho_1^2 and 3 increments; DIIB with
+#: rho0 / Vj; VISC vij, EPS, x.DWIJ, rhoij and its guarded reciprocal,
+#: the factor and 3 increments; VISCB with phi_b; RHOADV (uadv_i -
+#: uadv_j).DWIJ, dt m and the sum (RHOB the wall's u v w, rho0 / Vj);
+#: AII (dii_i - fac DWIJ).DWIJ and m times it (AIIB rho0 / Vj); DIJPJ
+#: 1 / rho_j, -m_j rho1^2 piter_j and 3 increments; PSOLVE djkpk, tmp,
+#: tmp.DWIJ and m times it; PSOLVEB rho0 / Vj dijpj_i.DWIJ; PFORCE 1 /
+#: rho_j, the two pressure terms and 3 increments; PFORCEB -p_i rho_i1^2
+#: rho0 / Vj and 3 increments
+IISPH_TERM_FLOPS = {ip.NDEN: 1, ip.SDEN: 2, ip.SDENB: 3, ip.DII: 9,
+                    ip.DIIB: 10, ip.VISC: 26, ip.VISCB: 23, ip.RHOADV: 11,
+                    ip.RHOB: 12, ip.AII: 13, ip.AIIB: 14, ip.DIJPJ: 11,
+                    ip.PSOLVE: 22, ip.PSOLVEB: 8, ip.PFORCE: 15,
+                    ip.PFORCEB: 11}
 IMAGE_FLOPS = 4
 
 
@@ -325,6 +342,34 @@ def tvf_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         work['bytes'] += _source_bytes(src, reached, ncells,
                                        tp._reads(ts.terms, 1))
     work['bytes'] += _dest_bytes(dest, write_mask, pre, tp._reads(terms, 0))
+    return work
+
+
+def iisph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+               dt=0.0, walks=True):
+    """Work of one ``iisph_pair`` call (the stencil wrapped on a periodic
+    grid).  ``walks=False``: a call that reads a linked call's neighbour
+    list, whose candidates' support tests that walk made and are not
+    counted again."""
+    terms = 0
+    work = dict(candidates=0, visited=0, pairs=0, flops=0, bytes=0)
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
+    image = IMAGE_FLOPS * sum(grid.periodic)
+    for src, cells, ts in sources:
+        terms |= ts.terms
+        cand, reached, ncells = stencil(grid, dest_cells, cells)
+        pairs = support_pairs(grid, dest, dest_cells, src, cells)
+        per_pair = TVF_PAIR_FLOPS + image + shape + sum(
+            f for t, f in IISPH_TERM_FLOPS.items() if ts.terms & t)
+        if walks:
+            work['candidates'] += cand
+            work['visited'] += cand
+            work['flops'] += cand * (SUPPORT_FLOPS + image)
+        work['pairs'] += pairs
+        work['flops'] += pairs * per_pair
+        work['bytes'] += _source_bytes(src, reached, ncells,
+                                       ip._reads(ts.terms, 1))
+    work['bytes'] += _dest_bytes(dest, write_mask, pre, ip._reads(terms, 0))
     return work
 
 

@@ -33,7 +33,9 @@ over the chunks after the capture).  ``main`` prints one JSON line per
 full-width run of ``STEPS`` steps and binning configuration of
 ``CONFIGS``, both ways, with the binnings that ran, tagged with
 ``label`` and the card's name and power limit (the delta-SPH dam break,
-the Taylor-Green runs and the wall examples under ``reuse`` only).
+the Taylor-Green runs and the wall examples under ``reuse`` only); then
+``STEP_PATHS``, IISPH's runs, per step only, with their pressure sweeps
+and host reads.
 
 ``CONFIGS`` are the reference's two binning configurations, set in code
 on an app after its setup (``configure``): ``reuse`` (the default: a
@@ -121,6 +123,19 @@ EDAC_PATHS = {
                                        extra=('--scheme', 'edac')),
 }
 PATHS.update(EDAC_PATHS)
+#: IISPHScheme's three runs, timed per step only: an iterated group
+#: keeps a run off the chunks (its converged is read once a sweep);
+#: Taylor-Green at a convergence study's resolution, the dam break at the
+#: other dam breaks', the drop at the WCSPH drop's
+STEP_PATHS = {
+    'taylor_green iisph nx=400': dict(
+        dx=None, cls=TaylorGreen, extra=('--nx', '400', '--scheme',
+                                         'iisph')),
+    'dam_break_2d iisph dx=0.004': dict(dx=0.004, cls=DamBreak2D,
+                                        extra=('--scheme', 'iisph')),
+    'drop iisph nx=200': dict(dx=None, cls=EllipticalDrop,
+                              extra=('--nx', '200', '--scheme', 'iisph')),
+}
 
 #: WCSPHScheme's other flags and kernels on the Taylor-Green vortex:
 #: {name: the example's arguments}
@@ -410,6 +425,20 @@ def main(label=''):
                 del app, s
             print(json.dumps(row), flush=True)
             rows.append(row)
+    for path, kw in STEP_PATHS.items():
+        app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+        ms, samples = timed_solve(app, 1)
+        s = app.solver
+        sweeps = [k for a in s.acceleration_evals for k in a.sweeps]
+        row = dict(label=label, card=smi, path=path, config='reuse',
+                   steps=s.count, ms_per_step=ms, min=min(samples),
+                   max=max(samples), samples=len(samples),
+                   sweeps=sum(sweeps), converged_reads=sum(
+                       a.converged_reads for a in s.acceleration_evals),
+                   reads=s.reads, rebuilds=s.rebuilds)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del app, s
     return rows
 
 

@@ -87,18 +87,16 @@ def plan_calls(s, evals):
     for k in evals:
         a_eval = s.acceleration_evals[k]
         cells = a_eval.grid.bin_all(s.states)
-        for group in a_eval.groups:
+        for group in a_eval.leaf_groups():
             for dest in a_eval._dest_order(group):
                 plan = a_eval._plans.get((id(group), dest))
                 if plan is None:
                     continue
                 store = s.states[dest]
                 pre = {p: torch.zeros_like(store[p]) for p in plan.outputs}
-                srcs = [(s.states[ps.name], cells[ps.name], ps)
-                        for ps in plan.sources]
-                calls.append((k, dest, plan, (
-                    store, cells[dest], group.write_mask(store), pre, srcs,
-                    a_eval.grid, a_eval.kernel)))
+                calls.append((k, dest, plan, plan.args(
+                    store, s.states, cells, a_eval.grid,
+                    group.write_mask(store), pre, s.dt)))
     return calls
 
 

@@ -6,7 +6,9 @@ that ``chip_smoke.py`` holds the port's runs on the card to.
     JAX_PLATFORMS=cpu python tests/jax_wall_figures.py cavity \\
         --nx 400 --steps 200 [--scheme edac]
     JAX_PLATFORMS=cpu python tests/jax_wall_figures.py dam_break_2d \\
-        --dx 0.02 --steps 200 [--scheme edac]
+        --dx 0.02 --steps 200 [--scheme edac|iisph]
+    JAX_PLATFORMS=cpu python tests/jax_wall_figures.py elliptical_drop \\
+        --nx 100 [--steps 200] [--scheme iisph]
 
 ``poiseuille`` and ``couette`` run ``pysph_tpu/examples/<name>.py`` as
 the example defines itself (to its own ``tf``, float32), dumping into a
@@ -20,7 +22,11 @@ and prints the fluid's max speed and kinetic energy, as
 --scheme <scheme>`` (default ``edac``) for ``steps`` steps in float32
 (no output) and prints the fluid's front (its max x), its kinetic
 energy and the wall's least pressure, as ``chip_smoke.py::
-_dam_break_figures`` computes them for the port.  One JSON line each.
+_dam_break_figures`` computes them for the port.  ``elliptical_drop``
+runs ``pysph_tpu/examples/elliptical_drop.py --nx <nx> --scheme
+<scheme>`` (default ``iisph``) to its ``tf`` (or ``steps`` steps) in
+float32 (no output) and prints the fluid's max |y| (the semi-major axis)
+and max |x|.  One JSON line each.
 Not a test: pytest collects only ``test_*.py``.
 """
 
@@ -103,21 +109,46 @@ def dam_break(dx, steps, scheme='edac'):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def drop(nx, steps, scheme='iisph'):
+    from pysph_tpu.examples.elliptical_drop import EllipticalDrop
+    tmp = tempfile.mkdtemp()
+    try:
+        app = EllipticalDrop()
+        app.setup(['-d', tmp, '--disable-output', '-q', '--nx', str(nx),
+                   '--max-steps', str(steps), '--scheme', scheme])
+        t0 = time.perf_counter()
+        app.solve()
+        wall = time.perf_counter() - t0
+        pa = app.particles[0]
+        x, y = (np.asarray(getattr(pa, c), dtype=np.float64) for c in 'xy')
+        return dict(example='elliptical_drop', scheme=scheme, nx=nx,
+                    steps=int(app.solver.count), t=float(app.solver.t),
+                    n=int(x.size), ymax=float(np.abs(y).max()),
+                    xmax=float(np.abs(x).max()),
+                    dtype=str(np.asarray(pa.u).dtype), solve_s=wall)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('example',
                         choices=('poiseuille', 'couette', 'cavity',
-                                 'dam_break_2d'))
+                                 'dam_break_2d', 'elliptical_drop'))
     parser.add_argument('--nx', type=int, default=400)
     parser.add_argument("--dx", type=float, default=0.02)
-    parser.add_argument('--steps', type=int, default=200)
+    parser.add_argument('--steps', type=int, default=None)
     parser.add_argument('--scheme', default=None)
     a = parser.parse_args()
     os.environ.setdefault('JAX_PLATFORMS', 'cpu')
+    steps = 200 if a.steps is None else a.steps
     if a.example == 'cavity':
-        out = cavity(a.nx, a.steps, a.scheme or 'tvf')
+        out = cavity(a.nx, steps, a.scheme or 'tvf')
     elif a.example == 'dam_break_2d':
-        out = dam_break(a.dx, a.steps, a.scheme or 'edac')
+        out = dam_break(a.dx, steps, a.scheme or 'edac')
+    elif a.example == 'elliptical_drop':
+        # to the example's tf unless a step count is given
+        out = drop(a.nx, a.steps or 1 << 30, a.scheme or 'iisph')
     else:
         out = profile(a.example)
     print(json.dumps(out), flush=True)

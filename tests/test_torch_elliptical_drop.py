@@ -196,8 +196,12 @@ def test_kernel_and_scheme_options():
     assert isinstance(s.kernel, WendlandQuinticC4) and \
         s.grid.radius_scale == 2.0
     assert set(s.acceleration_evals[0].engine_choices.values()) == {'kernel'}
-    with pytest.raises(NotImplementedError, match='item 26'):
-        _port_app('kernel', ['--disable-output', '--scheme', 'iisph'])
+    # IISPH is ported (ROADMAP item 26): the reference's IISPH drop
+    app = _port_app('kernel', ['--disable-output', '--scheme', 'iisph'])
+    assert type(app.scheme.scheme).__name__ == 'IISPHScheme'
+    assert isinstance(app.solver.kernel, Gaussian)
+    assert set(app.solver.acceleration_evals[0].engine_choices.values()) \
+        == {'kernel'}
 
 
 def test_exact_solution_matches_jax():

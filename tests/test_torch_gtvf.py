@@ -266,14 +266,16 @@ def test_scheme_chooser_picks_the_scheme():
     assert isinstance(s.integrator, GTVFIntegrator)
     assert len(s.acceleration_evals) == 2
     assert all(a.grid is s.grid for a in s.acceleration_evals)
-    # EDAC is ported (ROADMAP item 35); IISPH is refused naming its item
+    # EDAC (ROADMAP item 35) and IISPH (item 26) are ported
     edac = DamBreak2D()
     edac.setup(['--scheme', 'edac', '--dx', '0.1', '-q',
                 '--disable-output', '--device', 'cpu'])
     assert type(edac.scheme.scheme).__name__ == 'EDACScheme'
-    with pytest.raises(NotImplementedError, match='item 26'):
-        DamBreak2D().setup(['--scheme', 'iisph', '--dx', '0.1', '-q',
-                            '--disable-output', '--device', 'cpu'])
+    iisph = DamBreak2D()
+    iisph.setup(['--scheme', 'iisph', '--dx', '0.1', '-q',
+                 '--disable-output', '--device', 'cpu'])
+    assert type(iisph.scheme.scheme).__name__ == 'IISPHScheme'
+    assert iisph.solver.adaptive_timestep
 
 
 def test_planner_routes_gtvf_and_wcsph():

@@ -160,12 +160,17 @@ def test_scheme_is_the_reference_default():
         (tp.tvf_pair, ('au', 'av', 'aw', 'auhat', 'avhat', 'awhat'))]
     assert [[ps.terms for ps in p.sources] for p in plans] == [
         [tp.SDEN], [tp.MPG | tp.VISC | tp.MAS]]
-    # EDAC is ported (ROADMAP item 35); IISPH is refused naming its item
+    # EDAC (ROADMAP item 35) and IISPH (item 26) are ported; PCISPH is
+    # refused naming its item
     edac = TaylorGreen()
     edac.setup(['--device', 'cpu', '--scheme', 'edac', '-q'])
     assert type(edac.scheme.scheme).__name__ == 'EDACScheme'
+    iisph = TaylorGreen()
+    iisph.setup(['--device', 'cpu', '--scheme', 'iisph', '-q'])
+    assert type(iisph.scheme.scheme).__name__ == 'IISPHScheme'
+    assert iisph.scheme.scheme.nu == iisph.nu
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        TaylorGreen().setup(['--device', 'cpu', '--scheme', 'iisph'])
+        TaylorGreen().setup(['--device', 'cpu', '--scheme', 'pcisph'])
 
 
 @pytest.mark.parametrize('engine', ['kernel', 'torch'])
