@@ -5,9 +5,9 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the twelve CUDA sources of ``pysph_tpu_torch/csrc`` (the ten
-   pair and probe kernels, the source pack ``cell_pack`` and the binning
-   ``bin_cells``), ``tvf_pair``'s EDAC library (``-DTVF_EDAC``) and the
+2. build the thirteen CUDA sources of ``pysph_tpu_torch/csrc`` (the ten
+   pair and probe kernels, IISPH's pressure solve ``iisph_solve``, the
+   source pack ``cell_pack`` and the binning ``bin_cells``), ``tvf_pair``'s EDAC library (``-DTVF_EDAC``) and the
    libraries of the later smoothing-kernel kinds (4-7,
    ``csrc/shapes.cuh``) of the five pair kernels that take kinds, with
    nvcc, one process per library, all in parallel, each one's seconds
@@ -197,14 +197,27 @@ Phases (any failure propagates; the exit code is then not 0):
    emitting its neighbour list, every later one reading it, the fluid's
    ``dijpj`` over fewer sources) bit for bit the walk, each pack exact;
    timed there (the evaluation linked and walking, each phase set alone,
-   the plain versions) with the library's registers and spills; each
-   path for 200 steps in the per-step loop (an iterated group keeps it
-   off the chunks), its ``iisph_pair`` launches against the walking
-   launches and 2 a sweep of every evaluation, its sweeps and host reads
-   a step, its device idle share from ``torch.profiler``; its
-   gate against the JAX package's figures within 1e-3 (``JAX_IISPH``:
-   Taylor-Green nx=400's decay ratio, the drop nx=50's max |y| at tf, the
-   dam break dx=0.02's front and energy after 10 steps);
+   the plain versions) with the library's registers and spills; then
+   ``iisph_solve``, the pressure group's every sweep in one cooperative
+   launch, on the same states (``iisph_check.check_solve``): within the
+   tolerance of its plain version with the same sweeps, and bit for bit
+   the per-launch chain (``iisph_pair``'s ``dijpj`` and pressure launches
+   and the torch ``post_loop``) in ``p``, ``piter``, ``compression`` and
+   ``dijpj`` where the sweeps agree, at the call's tolerance, at one that
+   forces 30 sweeps and at one that stops at 2; timed at the path's size
+   (an evaluation as the path runs it now, the solve alone, its plain
+   version) with its registers and spills; each path for 200 steps in
+   chunks of 10 replayed from a CUDA graph and per step
+   (``_iisph_drive``): 4 (6) ``iisph_pair`` and 1 ``iisph_solve``
+   launches a step and a pack each, no host read of ``converged``, the
+   sweeps of every evaluation equal both ways, host reads a step, a
+   replayed step's device busy time and idle share (``_iisph_idle``);
+   its gate, in chunks, against the JAX package's figures within 1e-3
+   (``JAX_IISPH``: Taylor-Green nx=400's decay ratio, the drop nx=50's
+   max |y| at tf, the dam break dx=0.02's front and energy after 10
+   steps); the chunks against the per-step loop in float64 are gates of
+   phase 4 (``taylor_green iisph nx=40``, ``dam_break_2d iisph
+   dx=0.04``);
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -290,6 +303,7 @@ from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import iisph_pair as ip
+from pysph_tpu_torch.ops import iisph_solve as isv
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.ops import pair_stub as stub
@@ -298,7 +312,8 @@ from pysph_tpu_torch.ops.pair_engine import PairSource
 from pysph_tpu_torch.tools_dev import bin_check, delta_check, iisph_check
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
-from pysph_tpu_torch.tools_dev import prof_dma, prof_phases, roofline
+from pysph_tpu_torch.tools_dev import prof_chunk, prof_dma, prof_phases
+from pysph_tpu_torch.tools_dev import roofline
 from pysph_tpu_torch.tools_dev import time_chunks, tvf_check, walk_cases
 from pysph_tpu_torch.tools_dev import kind_check
 from pysph_tpu_torch.tools_dev.common import (
@@ -1887,111 +1902,165 @@ def _iisph_times(calls, rounds=5, reps=20):
 
 def _iisph_drive(run):
     """``run`` at full width in float32 for ``STEPS`` steps (the drop to
-    tf if that comes first) in the per-step loop (an iterated group keeps
-    it off the chunks), timed by ``time_chunks.timed_solve`` (median
-    ms/step from the host clock at each step's start, the card
-    synchronised), ``iisph_pair``'s launches (set to 0 just before the
-    run, read just after) against the walking launches and 2 a sweep of
-    every evaluation, its pressure sweeps and its host reads a step
-    (the time loop's and ``converged``'s), every dest on the kernel, no
-    capture, no dest past the neighbour list, the final state finite and
-    a wall's number density positive at its corners."""
-    app = make_app(dtype=torch.float32, steps=STEPS,
-                   **time_chunks.STEP_PATHS[run.label])
-    s = app.solver
-    a_eval, = s.acceleration_evals
-    ip.iisph_pair.launches = cell_pack.pack.launches = 0
-    ip.reset_overflow('cuda')
-    gc.collect()
-    torch.cuda.reset_peak_memory_stats()
-    ms, samples = time_chunks.timed_solve(app, 1)
-    launches, packs = ip.iisph_pair.launches, cell_pack.pack.launches
-    sweeps = list(a_eval.sweeps)
-    want = sum(run.fixed + 2 * k for k in sweeps)
-    reads = s.reads + a_eval.converged_reads
-    overflowed = ip.overflowed('cuda')
-    n = sum(st['x'].shape[0] for st in s.states.values())
-    wall_v = [float(st['V'].min()) for name, st in s.states.items()
-              if name != 'fluid']
-    out = dict(launches=launches, planned=want, packs=packs, steps=s.count,
-               evals=len(sweeps), sweeps=(min(sweeps),
-                                          float(np.mean(sweeps)),
-                                          max(sweeps)),
-               ms=ms, reads_per_step=reads / s.count,
-               converged_reads=a_eval.converged_reads, reads=s.reads,
-               rebuilds=s.rebuilds, particles=n, t=s.t,
-               overflowed=overflowed,
-               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
-               vmax=float(torch.sqrt(s.states['fluid']['u'] ** 2 +
-                                     s.states['fluid']['v'] ** 2).max()),
-               wall_v_min=min(wall_v) if wall_v else None)
-    print('%s float32, per step: %d steps to t=%.6g, median %.3f ms/step '
-          '(min %.3f, max %.3f over %d samples from step %d), %.4g '
-          'particle-steps/s; engines %s; iisph_pair launches %d, the '
-          'sweeps\' %d (%d evaluations: %d walking launches each and 2 a '
-          'sweep); %d packs; pressure sweeps a step min %d, mean %.3f, max '
-          '%d; host reads %.3f a step (%d of the time loop, %d of '
-          'converged); %d captures; %d dests past the list\'s capacity; %d '
-          'binnings; max |v| %.4g; the wall\'s least number density %s; '
-          'peak device memory %.1f MiB' % (
-              run.label, s.count, s.t, ms, min(samples), max(samples),
-              len(samples), time_chunks.WARMUP, n / ms * 1e3,
-              a_eval.engine_choices, launches, want, len(sweeps), run.fixed,
-              packs, *out['sweeps'], out['reads_per_step'], s.reads,
-              a_eval.converged_reads, s.captures, overflowed, s.rebuilds,
-              out['vmax'], out['wall_v_min'], out['peak_mib']), flush=True)
-    finite = all(bool(torch.isfinite(v).all()) for st in s.states.values()
-                 for v in st.values() if v.is_floating_point())
-    if (set(a_eval.engine_choices.values()) != {'kernel'} or
-            launches != want or packs != want or s.captures or
-            not finite or
-            not (s.count == STEPS or abs(s.t - s.tf) < 1e-9) or
-            (wall_v and not min(wall_v) > 0.0)):
-        raise AssertionError('%s did not run every pair phase through '
-                             'iisph_pair as its sweeps imply, or ended '
-                             'non-finite' % run.label)
-    del app, s, a_eval
+    tf if that comes first), in chunks of 10 replayed from a CUDA graph
+    and per step, each timed by ``time_chunks.timed_solve`` (median
+    ms/step: in chunks from the host clock after each chunk's read, per
+    step from the host clock at each step's start, the card
+    synchronised).  ``iisph_pair``'s, ``iisph_solve``'s and the pack's
+    launches are set to 0 just before each run and read just after: per
+    step, ``fixed`` pair launches and one solve an evaluation; in chunks,
+    the eager launches (the initial eval and one warm-up step a capture)
+    and a capture's ``fixed`` x K and K, the launches on the card the
+    eager ones plus those of a capture x replays; a pack a launch.  Every
+    dest on the kernel, no ``converged`` read, the final state finite, a
+    wall's number density positive at its corners (the dests past the
+    neighbour list printed: the dam break's, which diverges, walk), and
+    the sweeps of every evaluation of the chunked run equal
+    to the per-step run's (a step that differs printed with its mean
+    compression's distance from the tolerance).  Returns the chunked
+    run's figures, with ``per_step`` the other's and ``idle`` a replay's
+    device idle share (``_iisph_idle``)."""
+    ops = (ip.iisph_pair, isv.iisph_solve)
+    out = {}
+    for k in (10, 1):
+        app = make_app(dtype=torch.float32, steps=STEPS,
+                       **time_chunks.STEP_PATHS[run.label])
+        s = app.solver
+        a_eval, = s.acceleration_evals
+        bodies = _chunk_launches(s, ops)
+        comps = []
+        if k == 1:
+            # the mean compression after each step's solve, kept on the
+            # card (a pre-step callback sees the step before's)
+            s.add_pre_step_callback(lambda solver: comps.append(
+                solver.states['fluid']['tmp_comp'].clone()))
+        ip.iisph_pair.launches = isv.iisph_solve.launches = 0
+        cell_pack.pack.launches = 0
+        ip.reset_overflow('cuda')
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        ms, samples = time_chunks.timed_solve(app, k)
+        counted = [op.launches for op in ops]
+        packs = cell_pack.pack.launches
+        sweeps = list(a_eval.sweeps)
+        overflowed = ip.overflowed('cuda')
+        n = sum(st['x'].shape[0] for st in s.states.values())
+        wall_v = [float(st['V'].min()) for name, st in s.states.items()
+                  if name != 'fluid']
+        per_step = (run.fixed, 1)
+        if k == 1:
+            on_card = counted
+            ok = not bodies and counted == [f * (1 + s.count)
+                                            for f in per_step]
+        else:
+            K = s.chunk_steps
+            captured = [[c[q] for _, c, cap in bodies if cap]
+                        for q in range(2)]
+            warm = [[c[q] for _, c, cap in bodies if not cap]
+                    for q in range(2)]
+            eager = [c - sum(cap) for c, cap in zip(counted, captured)]
+            on_card = [e + f * K * s.replays for e, f in zip(eager, per_step)]
+            ok = s.captures >= 1 and all(
+                set(captured[q]) == {f * K} and warm[q] == [f] * s.captures
+                and eager[q] == f * (1 + s.n_damp + s.captures)
+                for q, f in enumerate(per_step))
+        row = dict(ms=ms, steps=s.count, t=s.t, particles=n,
+                   launches=dict(zip(('iisph_pair', 'iisph_solve'),
+                                     on_card)),
+                   counted=counted, packs=packs, evals=len(sweeps),
+                   sweeps=sweeps, converged_reads=a_eval.converged_reads,
+                   reads=s.reads, reads_per_step=s.reads / s.count,
+                   captures=s.captures, replays=s.replays,
+                   rebuilds=s.rebuilds, overflowed=overflowed,
+                   peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+                   vmax=float(torch.sqrt(s.states['fluid']['u'] ** 2 +
+                                         s.states['fluid']['v'] ** 2).max()),
+                   wall_v_min=min(wall_v) if wall_v else None)
+        print('%s float32, chunk_steps=%d: %d steps to t=%.6g, median %.3f '
+              'ms/step (min %.3f, max %.3f over %d samples from step %d), '
+              '%.4g particle-steps/s; engines %s; launches counted %s, on '
+              'the card %s (iisph_pair, iisph_solve; %d + %d a step); %d '
+              'packs; %d evaluations, pressure sweeps min %d, mean %.3f, '
+              'max %d; %d converged reads; host reads %.3f a step (%d); %d '
+              'captures, %d replays; %d dests past the list\'s capacity; %d '
+              'binnings; max |v| %.4g; the wall\'s least number density %s; '
+              'peak device memory %.1f MiB' % (
+                  run.label, k, s.count, s.t, ms, min(samples), max(samples),
+                  len(samples), time_chunks.WARMUP, n / ms * 1e3,
+                  a_eval.engine_choices, counted, on_card, run.fixed, 1,
+                  packs, len(sweeps), min(sweeps), float(np.mean(sweeps)),
+                  max(sweeps), a_eval.converged_reads, row['reads_per_step'],
+                  s.reads, s.captures, s.replays, overflowed, s.rebuilds,
+                  row['vmax'], row['wall_v_min'], row['peak_mib']),
+              flush=True)
+        finite = all(bool(torch.isfinite(v).all())
+                     for st in s.states.values() for v in st.values()
+                     if v.is_floating_point())
+        if (not ok or set(a_eval.engine_choices.values()) != {'kernel'} or
+                packs != sum(counted) or a_eval.converged_reads or
+                not finite or
+                len(sweeps) != 1 + s.count or
+                not (s.count == STEPS or abs(s.t - s.tf) < 1e-9) or
+                (wall_v and not min(wall_v) > 0.0)):
+            raise AssertionError('%s, chunk_steps=%d did not run every pair '
+                                 'phase through iisph_pair and the pressure '
+                                 'group through iisph_solve, or ended '
+                                 'non-finite: %s' % (run.label, k, bodies))
+        if k == 10:
+            out = row
+            out['idle'] = _iisph_idle(run, s)
+        else:
+            out['per_step'] = row
+            # the margin of each evaluation's last sweep (eval 0: the
+            # initial one)
+            spec, = [p.spec for p in a_eval._solves.values()]
+            margins = [abs(t[1] / max(t[0], 1.0) - spec.rho0) / spec.rho0 -
+                       spec.tolerance for t in torch.stack(
+                           comps + [s.states['fluid']['tmp_comp']])
+                       .double().tolist()]
+        del app, s, a_eval
+    differ = [(i, a, b, margins[i]) for i, (a, b) in
+              enumerate(zip(out['sweeps'], out['per_step']['sweeps']))
+              if a != b]
+    out['sweeps_differ'] = differ
+    print('%s: the sweeps of %d evaluations in chunks and per step %s%s; '
+          'the mean compression\'s distance from the tolerance after a '
+          'step: least %.4g; %.3f ms/step in chunks, %.3f per step' % (
+              run.label, len(out['sweeps']),
+              'equal' if not differ else 'differ at',
+              '' if not differ else ' ' + '; '.join(
+                  'eval %d: %d and %d sweeps, margin %s' % d
+                  for d in differ), min(abs(m) for m in margins[1:]),
+              out['ms'], out['per_step']['ms']), flush=True)
     return out
 
 
-def _iisph_idle(run, steps=20, warmup=10):
-    """The device's busy and idle share of ``run``'s steps at full width
-    in float32 in the per-step loop: ``steps`` steps after ``warmup``
-    under ``torch.profiler`` (CUDA activity only), the kernels' device
-    time against the host clock around the steps (the card synchronised
-    at both ends)."""
-    app = make_app(dtype=torch.float32, steps=warmup + steps,
-                   **time_chunks.STEP_PATHS[run.label])
-    s = app.solver
-    s.max_steps = warmup
-    s.solve()
-    s.max_steps = warmup + steps
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        s.solve()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = 0.0
-    for evt in prof.key_averages():
-        us = getattr(evt, 'self_device_time_total', None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        busy += us / 1e3
-    done = s.count - warmup
-    out = dict(steps=done, wall_ms=wall * 1e3 / done,
-               busy_ms=busy / done, idle_share=1.0 - busy / (wall * 1e3))
-    print('%s: %d profiled steps, %.3f ms a step on the host clock, the '
-          'device busy %.3f ms a step (kernels), idle share %.1f%%' % (
-              run.label, done, out['wall_ms'], out['busy_ms'],
-              100 * out['idle_share']), flush=True)
+def _iisph_idle(run, s):
+    """The device's busy time and idle share of a step replayed from the
+    chunked run's graph (``s``), from the trace of one replay
+    (``prof_chunk.replay_gaps``: its span from the first device operation
+    to the last, and the time in it that no operation runs), and a
+    step's replay time from CUDA events around replays."""
+    K = s.chunk_steps
+    gaps = prof_chunk.replay_gaps(s._graph)
+    replay = events_ms(s._graph.replay, 10)
+    out = dict(replay_ms=replay / K, span_ms=gaps['span_us'] / 1e3 / K,
+               busy_ms=(gaps['span_us'] - gaps['idle_us']) / 1e3 / K,
+               idle_share=gaps['idle_us'] / gaps['span_us'],
+               operations=gaps['ops'] / K, gaps=gaps['gaps'])
+    print('%s: a step replayed from the chunk\'s graph: replay %.4f ms '
+          '(events); one replay\'s trace: %.4f ms a step from its first '
+          'device operation to its last, busy %.4f ms (%.0f operations), '
+          'idle share %.1f%%; longest gaps %s' % (
+              run.label, out['replay_ms'], out['span_ms'], out['busy_ms'],
+              out['operations'], 100 * out['idle_share'], out['gaps']),
+          flush=True)
     return out
 
 
 def _iisph_gate(run):
-    """``run`` at its ``figure`` size in float32 in the per-step loop for
-    its ``figure_steps`` (to tf where None), its figures against the
+    """``run`` at its ``figure`` size in float32 in chunks for its
+    ``figure_steps`` (to tf where None), its figures against the
     JAX package's same run (``JAX_IISPH``) to CAVITY_TOL relative:
     Taylor-Green's decay ratio, the drop's max |y|, the dam break's front
     and kinetic energy."""
@@ -2019,9 +2088,11 @@ def _iisph_gate(run):
     want = JAX_IISPH[run.run]
     errs = [g / w - 1.0 for g, w in zip(got, want)]
     sweeps = s.acceleration_evals[0].sweeps
-    print('%s iisph %s=%s float32 at t=%.6g after %d steps: %s; bar %.0e; '
-          'pressure sweeps a step min %d, mean %.3f, max %d' % (
-              run.run, size, run.figure, s.t, s.count, '; '.join(
+    print('%s iisph %s=%s float32 at t=%.6g after %d steps (%d captures, %d '
+          'replays, %d converged reads): %s; bar %.0e; pressure sweeps a '
+          'step min %d, mean %.3f, max %d' % (
+              run.run, size, run.figure, s.t, s.count, s.captures,
+              s.replays, s.acceleration_evals[0].converged_reads, '; '.join(
                   '%s %.7g (JAX %.7g, relative %.3g)' % x
                   for x in zip(names, got, want, errs)), CAVITY_TOL,
               min(sweeps), float(np.mean(sweeps)), max(sweeps)),
@@ -2029,29 +2100,65 @@ def _iisph_gate(run):
     if not max(abs(e) for e in errs) <= CAVITY_TOL:
         raise AssertionError('%s missed the JAX package\'s figures'
                              % run.label)
+    if not s.captures or s.acceleration_evals[0].converged_reads:
+        raise AssertionError('%s: the gate ran off the chunks' % run.label)
     return dict(size=run.figure, steps=s.count, t=s.t, figures=got,
                 jax=want, rel_err=errs)
+
+
+def _solve_times(calls, rounds=5, reps=20):
+    """Median ms of CUDA graph replays, alternated over ``rounds`` rounds
+    in this process, of one evaluation as the path runs it now
+    (``iisph_check.run_as_path`` over ``calls``, recorded with the solve:
+    the pair calls linked and the ``iisph_solve`` call) and of the solve
+    call alone; its eager ms; the plain version's ms (on the card, with
+    torch's deterministic algorithms)."""
+    call, = iisph_check.solve_calls(calls)
+    args = call[3]
+    fns = {'eval': lambda: iisph_check.run_as_path(calls),
+           'solve': lambda: isv.iisph_solve(*args)}
+    graphs = {k: capture(fn) for k, fn in fns.items()}
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, graph in graphs.items():
+            times[k].append(events_ms(graph.replay, reps))
+    del graphs
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    out['solve_eager'] = events_ms(lambda: isv.iisph_solve(*args), reps)
+    out['plain'] = events_ms(lambda: iisph_check._deterministic(
+        lambda: isv.iisph_solve_reference(*args[:12])), 1)
+    return out
 
 
 def _iisph_phase(kernels):
     """``IISPHScheme``'s three runs (``IISPH_RUNS``: ``taylor_green``,
     ``elliptical_drop`` and ``dam_break_2d --scheme iisph``):
     ``iisph_pair``'s six phase sets against their plain versions on
-    every pair call of one evaluation from each run's own state after 3
-    steps of a jittered start (``iisph_check.calls``) at the small size
-    in float64 and float32, with and without a tenth of the fluid on its
-    box's edges and corners, and at the path's size in float32, every
-    link (``iisph_check.check_linked``) bit for bit the walk and its list
-    ``neighbours_reference``'s, each pack exact; timed at the path's size
-    (the evaluation linked and walking, each set alone, the plain
-    versions) with the library's registers and spills; each path for
-    ``STEPS`` steps in the per-step loop (``_iisph_drive``), its device
-    idle share (``_iisph_idle``), and its gate against the
-    JAX package's figures (``_iisph_gate``).  Adds the entries
-    ``iisph_pair`` (Taylor-Green), ``iisph_pair elliptical_drop`` and
-    ``iisph_pair dam_break_2d``; returns {label: the run's
+    every pair call of one evaluation, the pressure group swept as the
+    per-launch chain (its ``dijpj`` and pressure launches each sweep),
+    from each run's own state after 3 steps of a jittered start
+    (``iisph_check.calls``) at the small size in float64 and float32,
+    with and without a tenth of the fluid on its box's edges and corners,
+    and at the path's size in float32, every link
+    (``iisph_check.check_linked``) bit for bit the walk and its list
+    ``neighbours_reference``'s, each pack exact; and ``iisph_solve``, the
+    pressure group in one launch, on the same states
+    (``iisph_check.check_solve``): within the tolerance of its plain
+    version with the same sweeps and bit for bit the per-launch chain
+    where the sweeps agree, at the call's tolerance, at one that forces
+    30 sweeps and at one that stops at 2; timed at the path's size (the
+    evaluation linked and walking as the chain, each phase set alone, the
+    evaluation with the solve, the solve alone, the plain versions) with
+    both libraries' registers and spills; each path for ``STEPS`` steps
+    in chunks and per step (``_iisph_drive``), a replayed step's device
+    idle share (``_iisph_idle``), and its gate against the JAX package's
+    figures (``_iisph_gate``, in chunks).  Adds the entries
+    ``iisph_pair`` and ``iisph_solve`` (Taylor-Green), ``... 
+    elliptical_drop`` and ``... dam_break_2d``; returns {label: the run's
     ``_iisph_drive``}."""
     lib = build.build('iisph_pair')
+    solve_lib = build.build('iisph_solve')
+    solve_res = iisph_check.solve_resources(solve_lib)
     runs = {}
     for run in IISPH_RUNS:
         for dtype, edges in ((torch.float64, False), (torch.float64, True),
@@ -2069,6 +2176,11 @@ def _iisph_phase(kernels):
             if found['overflowed'] and not edges:
                 raise AssertionError('%s: %d dests past the list\'s '
                                      'capacity' % (what, found['overflowed']))
+            del calls
+            calls, _, _, _ = iisph_check.calls(run.run, run.small, dtype,
+                                               edges=edges, solve=True)
+            iisph_check.check_solve(iisph_check.solve_calls(calls)[0],
+                                    'iisph_solve ' + what, TOL[dtype])
             del calls
         calls, n, _, sweeps = iisph_check.calls(run.run, run.full,
                                                 torch.float32)
@@ -2103,13 +2215,14 @@ def _iisph_phase(kernels):
                            bytes=w['bytes'])
                 for name, w in work.items()}
         print('iisph_pair, the %d launches of one evaluation of %s (grid %s, '
-              'periodic %s, kernel kind %d), graph replays alternated in '
-              'this process: as the path runs them (linked: one emits, %d '
-              'read its list) %.4f ms, walking %.4f ms; eager %.3f ms; plain '
-              'torch %.3f ms; bound %.4f ms (%s: %.4g flops, %d candidates, '
-              '%d pairs, %d B), share %.1f%%; by phase set: %s; the '
-              'library\'s kernels of this kind, registers and spill bytes '
-              '(stores, loads) by mode: %s' % (
+              'periodic %s, kernel kind %d), the pressure group as the '
+              'per-launch chain, graph replays alternated in this process: '
+              'as the chain runs them (linked: one emits, %d read its list) '
+              '%.4f ms, walking %.4f ms; eager %.3f ms; plain torch %.3f ms; '
+              'bound %.4f ms (%s: %.4g flops, %d candidates, %d pairs, %d '
+              'B), share %.1f%%; by phase set: %s; the library\'s kernels '
+              'of this kind, registers and spill bytes (stores, loads) by '
+              'mode: %s' % (
                   len(calls), what, calls[0][3][5].dims, periodic, kind,
                   linked['consumers'], times['path'], times['walking'],
                   eager, sum(plain.values()), bound_ms, bound_by,
@@ -2121,21 +2234,63 @@ def _iisph_phase(kernels):
                                         100 * v['share'])
                       for k, v in sets.items()), resources), flush=True)
         del calls
+        # the path now: 4 (6) pair calls and the solve
+        calls, _, _, solve_sweeps = iisph_check.calls(
+            run.run, run.full, torch.float32, solve=True)
+        solve_call, = iisph_check.solve_calls(calls)
+        checked = iisph_check.check_solve(solve_call, 'iisph_solve ' + what,
+                                          TOL[torch.float32])
+        solve_err = max(row.get('max_abs_err', 0.0)
+                        for row in checked.values())
+        st = _solve_times(calls)
+        solve_work = roofline.iisph_solve_work(*solve_call[3],
+                                               sweeps=solve_sweeps)
+        pair_work = roofline.add(*[
+            roofline.iisph_work(*c[3], walks=c[2] is c[2].link.emitter
+                                if c[2].link is not None else True)
+            for c in iisph_check.pair_calls(calls)])
+        eval_bound = roofline.bound(roofline.add(pair_work, solve_work))[0]
+        solve_bound, solve_by = roofline.bound(solve_work)
+        chain_ms = sets['dijpj']['ms'] + sets['pressure sweep']['ms']
+        print('iisph_solve, %s: %d sweeps; one evaluation as the path runs '
+              'it (%d iisph_pair launches, linked, and the solve) %.4f ms '
+              '(the chain above %.4f), bound %.4f ms; the solve alone %.4f '
+              'ms (%.4f a sweep), eager %.4f, plain torch %.3f; the chain\'s '
+              'dijpj and pressure sweep sets %.4f ms; bound %.4f ms (%s: '
+              '%.4g flops, %d pairs, %d B), share %.1f%%; registers and '
+              'spill bytes (stores, loads): %s' % (
+                  what, solve_sweeps, len(calls) - 1, st['eval'],
+                  times['path'], eval_bound, st['solve'],
+                  st['solve'] / max(solve_sweeps, 1), st['solve_eager'],
+                  st['plain'], chain_ms, solve_bound, solve_by,
+                  solve_work['flops'], solve_work['pairs'],
+                  solve_work['bytes'], 100 * solve_bound / st['solve'],
+                  solve_res), flush=True)
+        del calls
         runs[run.label] = drive = _iisph_drive(run)
-        idle = _iisph_idle(run)
         gate = _iisph_gate(run)
-        name = 'iisph_pair' if run.run == 'taylor_green' else \
-            'iisph_pair ' + run.run
-        kernels[name] = dict(_entry(
+        suffix = '' if run.run == 'taylor_green' else ' ' + run.run
+        kernels['iisph_pair' + suffix] = dict(_entry(
             'iisph_pair', 'pysph_tpu/ops/resident.py:645',
-            drive['launches'], err, times['path'], sum(plain.values()),
-            total, None, eager_ms=eager, walking_ms=times['walking'],
-            share=bound_ms / times['path'], sets=sets, sweeps=sweeps,
-            overflowed=linked['overflowed'], max_count=linked['max_count'],
-            capacity=linked['capacity'], resources=resources, run=drive,
-            idle=idle, gate=gate, path='%s, one evaluation (%d sweeps: %d '
-            'launches, linked)' % (run.label, sweeps, run.fixed + 2 * sweeps)),
-            name=name)
+            drive['launches']['iisph_pair'], err, times['path'],
+            sum(plain.values()), total, None, eager_ms=eager,
+            walking_ms=times['walking'], share=bound_ms / times['path'],
+            sets=sets, sweeps=sweeps, overflowed=linked['overflowed'],
+            max_count=linked['max_count'], capacity=linked['capacity'],
+            resources=resources, run=drive, gate=gate,
+            path='%s, one evaluation as the per-launch chain (%d sweeps: %d '
+            'launches, linked)' % (run.label, sweeps,
+                                   run.fixed + 2 * sweeps)),
+            name='iisph_pair' + suffix)
+        kernels['iisph_solve' + suffix] = dict(_entry(
+            'iisph_solve', 'pysph_tpu/ops/resident.py:645',
+            drive['launches']['iisph_solve'], solve_err, st['solve'],
+            st['plain'], solve_work, None, eager_ms=st['solve_eager'],
+            eval_ms=st['eval'], chain_ms=chain_ms, checked=checked,
+            sweeps=solve_sweeps, share=solve_bound / st['solve'],
+            resources=solve_res, path='%s, the pressure group of one '
+            'evaluation (%d sweeps, one launch)' % (run.label, solve_sweeps)),
+            name='iisph_solve' + suffix)
     return runs
 
 
@@ -2664,9 +2819,10 @@ def main():
                                             torch.version.cuda, kind))
 
     t0 = time.perf_counter()
-    names = ('iisph_pair', 'tvf_pair', 'wcsph_pair', 'gtvf_pair',
-             'dense_pair', 'fused_pair', 'micro_launch', 'micro_engine',
-             'pair_stub', 'cell_pack', 'bin_cells', 'delta_pair')
+    names = ('iisph_pair', 'iisph_solve', 'tvf_pair', 'wcsph_pair',
+             'gtvf_pair', 'dense_pair', 'fused_pair', 'micro_launch',
+             'micro_engine', 'pair_stub', 'cell_pack', 'bin_cells',
+             'delta_pair')
     # and each later kind's library of the pair kernels that take kinds
     jobs = [(n, ()) for n in names] + [('tvf_pair', tp.EDAC_FLAGS)] + [
         (n, build.kind_flags(k)) for n in KIND_KERNELS
@@ -2953,14 +3109,22 @@ def main():
               r['ms'][10], 100.0 * r['rebuilds'][1] / r['steps'],
               100.0 * r['rebuilds'][10] / r['steps'], r['counters'],
               r['steps']))
-    print('IISPH, float32, per step (an iterated group keeps a run off '
-          'the chunks): ms/step, pressure sweeps a step (min, mean, max), '
-          'host reads a step, iisph_pair launches (the sweeps\' count):')
+    print('IISPH, float32, per step / in chunks of 10 (the pressure group '
+          'one iisph_solve launch an evaluation): ms/step, pressure sweeps '
+          'a step (min, mean, max; the same in both runs), host reads a '
+          'step, launches on the card in chunks (iisph_pair, iisph_solve), '
+          'a replayed step\'s device busy ms and idle share:')
     for label, r in iisph_runs.items():
-        print('  %-28s %8.3f ms/step  sweeps %d / %.3f / %d  reads %.3f  '
-              'launches %d (%d)  %d steps' % (
-                  label, r['ms'], *r['sweeps'], r['reads_per_step'],
-                  r['launches'], r['planned'], r['steps']))
+        sw = r['sweeps']
+        print('  %-28s %8.3f / %8.3f ms/step  sweeps %d / %.3f / %d  reads '
+              '%.3f / %.3f  launches %d, %d  busy %.4f ms, idle %.1f%%  %d '
+              'steps' % (
+                  label, r['per_step']['ms'], r['ms'], min(sw),
+                  float(np.mean(sw)), max(sw),
+                  r['per_step']['reads_per_step'], r['reads_per_step'],
+                  r['launches']['iisph_pair'], r['launches']['iisph_solve'],
+                  r['idle']['busy_ms'], 100 * r['idle']['idle_share'],
+                  r['steps']))
     print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
     for label, rows in bins.items():
         for i, t in enumerate(rows):

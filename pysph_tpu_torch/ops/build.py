@@ -43,16 +43,17 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 #: flags of one source only: delta_pair's accept test must round every
 #: operation as the plain torch version does, so no FMA contraction;
-#: tvf_pair's linked momentum launch (and iisph_pair's linked launches)
-#: must sum as its walking launch does,
-#: bit for bit, so ptxas contracts no multiply and add into an FMA (it
+#: tvf_pair's linked momentum launch (and iisph_pair's linked launches,
+#: and iisph_solve's sweeps as iisph_pair's) must sum as its walking
+#: launch does, bit for bit, so ptxas contracts no multiply and add into an FMA (it
 #: does so as its schedule allows, which differs between the two
 #: launches: 1-74 dests a call differed in their last bits on the wall
 #: examples' edge cases; the front end's contractions, made on the source
 #: expressions, stay)
 EXTRA_FLAGS = {'delta_pair': ('-fmad=false',),
                'tvf_pair': ('-Xptxas', '--fmad=false'),
-               'iisph_pair': ('-Xptxas', '--fmad=false')}
+               'iisph_pair': ('-Xptxas', '--fmad=false'),
+               'iisph_solve': ('-Xptxas', '--fmad=false')}
 #: the kinds of a pair kernel's default library, and the kinds in all
 #: (csrc/shapes.cuh kBaseKinds, kKinds)
 BASE_KINDS = 4

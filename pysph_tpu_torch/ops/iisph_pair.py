@@ -28,9 +28,10 @@ FORCE       PFORCE, PFORCEB (``PressureForce``,             au av aw
 Each output is ``pre + sum`` on rows under the write mask and ``pre``
 elsewhere; every read sees the value from before the phase.  The
 advected density's terms take the step's ``dt``, the last argument of
-every call.  Any kernel of ``kernel_kind``; the grid may be periodic
-(the wrapped stencil and the minimum image, a template flag of the
-kernel, as ``tvf_pair``'s).
+every call: a float, or (in the solver's chunks) a float64 0-d tensor on
+the card, which the kernel reads there.  Any kernel of ``kernel_kind``;
+the grid may be periodic (the wrapped stencil and the minimum image, a
+template flag of the kernel, as ``tvf_pair``'s).
 
 The linked launches.  Nothing in an IISPH evaluation moves ``x y z h``
 and the binning runs once an eval, so a dest's launches after the first
@@ -204,6 +205,16 @@ def iisph_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
     return {p: store[p] for p in pre}
 
 
+def device_dt(dt, device, name):
+    """The address of a step's dt held on the card (the solver's chunk
+    carries it as a float64 0-d tensor), checked."""
+    if dt.dtype != torch.float64 or dt.device != device or dt.numel() != 1:
+        raise ValueError('%s: dt must be a float64 scalar tensor on %s, got '
+                         '%s %s on %s' % (name, device, tuple(dt.shape),
+                                          dt.dtype, dt.device))
+    return dt.data_ptr()
+
+
 def overflowed(device):
     """The dests past the capacity counted since the last
     ``reset_overflow`` (reads the counter)."""
@@ -233,7 +244,7 @@ class _Args(ctypes.Structure):
                  ('src', _SrcArgs * MAX_SOURCES),
                  ('radius_scale', ctypes.c_double),
                  ('kfac', ctypes.c_double), ('dt', ctypes.c_double),
-                 ('box', ctypes.c_double * 3)] +
+                 ('dt_at', ctypes.c_void_p), ('box', ctypes.c_double * 3)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim', 'phase',
                     'dtype', 'kernel_kind', 'periodic', 'mode', 'cap')] +
@@ -385,7 +396,11 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel, dt,
         args.cap = handoff.nbr.shape[0]
     args.radius_scale = grid.radius_scale
     args.kfac = kernel.fac
-    args.dt = float(dt)
+    if torch.is_tensor(dt):
+        # the solver's chunk: the step's dt stays on the card
+        args.dt_at = device_dt(dt, dev, 'iisph_pair')
+    else:
+        args.dt = float(dt)
     # the box lengths of the periodic axes, each the dtype's value
     lengths = grid.box_host(fdt)['lengths']
     for d, per in enumerate(grid.periodic):

@@ -69,6 +69,13 @@ ones (``PairPlan.link``, ``ops/pair_link.py``), which walk no
 candidates.  The evaluator plans and links the groups of an iterated
 group's sub-tree as they run in one sweep (``leaf_groups``).
 
+``plan_solve`` plans an iterated group onto ``iisph_solve``
+(``ops/iisph_solve.py``) where its tree is exactly IISPH's pressure solve
+(``ComputeDIJPJ``, then ``PressureSolve`` and at most walls'
+``PressureSolveBoundary``, of one dest) and both sub-groups' plans read
+the list of the dest's emitting ``iisph_pair`` launch: one launch then
+runs every sweep, the loop condition on the card (``SolvePlan``).
+
 The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
 sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair``, the
 delta-SPH pre-phases onto ``delta_pair``, TVF's and EDAC's sets onto
@@ -88,6 +95,7 @@ from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gtvf_pair as _gp
 from pysph_tpu_torch.ops import iisph_pair as _ip
+from pysph_tpu_torch.ops import iisph_solve as _is
 from pysph_tpu_torch.ops import pair_link as _pl
 from pysph_tpu_torch.ops import tvf_pair as _tp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
@@ -670,3 +678,81 @@ class PairPlan(object):
         args = self.args(store, states, cells, grid, write_mask, pre, dt)
         store.update(self.op(*args) if self.link is None
                      else self.link.run(self, args))
+
+
+def plan_solve(group, plans, kernel):
+    """The ``SolvePlan`` of the iterated ``group`` (its sub-groups' plans
+    in ``plans``, as ``link_pairs`` linked them), or ``PairIneligible``:
+    the group must be ``Group([ComputeDIJPJ(d, [d])], [PressureSolve(d,
+    [d])(, PressureSolveBoundary(d, walls))], iterate=True)`` with both
+    sub-groups of one write mask, their plans reading the neighbour list
+    of the dest's emitting ``iisph_pair`` launch, and the kernel one of
+    ``iisph_solve``'s kinds."""
+    from pysph_tpu_torch.sph import iisph
+    subs = group.equations
+    if not group.has_subgroups or len(subs) != 2 or any(
+            g.has_subgroups or g.iterate for g in subs):
+        raise PairIneligible('not two groups of equations')
+    dijpj, solve = subs[0].equations, subs[1].equations
+    dest = dijpj[0].dest
+    if [type(eq) for eq in dijpj] != [iisph.ComputeDIJPJ] or [
+            type(eq) for eq in solve] not in (
+                [iisph.PressureSolve],
+                [iisph.PressureSolve, iisph.PressureSolveBoundary]) or any(
+                    eq.dest != dest for eq in solve):
+        raise PairIneligible('not ComputeDIJPJ, then PressureSolve and '
+                             'PressureSolveBoundary, of one dest')
+    if dijpj[0].sources != [dest] or solve[0].sources != [dest]:
+        raise PairIneligible('ComputeDIJPJ or PressureSolve of %s over %s, '
+                             '%s' % (dest, dijpj[0].sources,
+                                     solve[0].sources))
+    if subs[0].real != subs[1].real:
+        raise PairIneligible('sub-groups of two write masks')
+    if kernel_kind(kernel) not in _is.KINDS:
+        raise PairIneligible('kernel %r: iisph_solve holds kinds %s'
+                             % (kernel, _is.KINDS))
+    first, second = (plans.get((id(g), dest)) for g in subs)
+    link = getattr(first, 'link', None)
+    if second is None or link is None or second.link is not link or \
+            first.op is not _ip.iisph_pair or \
+            not {id(first), id(second)} <= set(map(id, link.consumers)):
+        raise PairIneligible('the sweeps\' plans read no emitting '
+                             'iisph_pair launch\'s list')
+    eq = solve[0]
+    return SolvePlan(dest, first, second, subs[1], _is.SolveSpec(
+        dest, eq.rho0, eq.omega, eq.tolerance, int(group.min_iterations),
+        int(group.max_iterations)))
+
+
+class SolvePlan(object):
+    """An iterated group planned onto ``iisph_solve``: ``dijpj`` and
+    ``solve`` are its sub-groups' ``iisph_pair`` plans (their sources and
+    the link whose hand-off the solve reads), ``group`` the sub-group
+    whose write mask the solve takes, ``spec`` the ``SolveSpec``."""
+
+    def __init__(self, dest, dijpj, solve, group, spec):
+        self.dest = dest
+        self.dijpj = dijpj
+        self.solve = solve
+        self.group = group
+        self.spec = spec
+
+    def args(self, states, cells, grid, dt, active=None, log=None):
+        """The arguments of ``iisph_solve`` on the states."""
+        store = states[self.dest]
+        handoff = self.solve.link.handoff
+        if handoff is None:
+            raise RuntimeError('iisph_solve: the iterated group of %s runs '
+                               'without the hand-off of its emitting '
+                               'iisph_pair launch' % self.dest)
+
+        def srcs(plan):
+            return [(states[s.name], cells[s.name], s) for s in plan.sources]
+        return (store, cells[self.dest], self.group.write_mask(store),
+                srcs(self.dijpj), srcs(self.solve), grid, self.dijpj.kernel,
+                dt, self.spec, handoff, active, log)
+
+    def execute(self, states, cells, grid, dt, active=None, log=None):
+        out, _ = _is.iisph_solve(*self.args(states, cells, grid, dt, active,
+                                            log))
+        states[self.dest].update(out)

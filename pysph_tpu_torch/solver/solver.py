@@ -17,10 +17,12 @@ device the K steps are captured once into one CUDA graph and each chunk
 is one replay; on the CPU the same code runs eagerly.  A chunk runs
 where the JAX solver runs one: K > 1, ``count >= n_damp`` (the damped
 steps stay on the host), no dt shortened for an output time pending,
-no pre-step or post-stage callback, and no iterated group in an
-evaluator (its ``converged`` is read on the host once a sweep, and a
-graph would replay one sweep count; capturing the sweeps is ROADMAP
-Queue 2's).  Elsewhere the per-step loop
+no pre-step or post-stage callback, and, where chunks are CUDA graphs,
+no iterated group that sweeps on the host (its ``converged`` is read
+once a sweep, and a graph would replay one sweep count): IISPH's
+pressure solve runs its sweeps in one ``iisph_solve`` launch, the loop
+condition on the card (``AccelerationEval.host_iterated``).  Elsewhere
+the per-step loop
 runs, reading dt (and the overflow flag) once a step with adaptive dt,
 the flag every ``GROW_CHECK_STEPS`` steps with a fixed one;
 ``chunk_steps = 1`` is that loop throughout.  The first ineligible step
@@ -252,10 +254,11 @@ class Solver(object):
                 (self.pre_step_callbacks, 'a pre-step callback'),
                 (self.integrator.post_stage_callback is not None,
                  'a post-stage callback'),
-                # converged is read on the host once a sweep: a graph
-                # would replay one sweep count (ROADMAP Queue 2)
-                (any(a.has_iterated for a in self.acceleration_evals),
-                 'an iterated group')):
+                # converged read on the host once a sweep: a graph would
+                # replay one sweep count; an iisph_solve sweeps on the card
+                (self._graphed() and any(
+                    a.host_iterated for a in self.acceleration_evals),
+                 'an iterated group that no iisph_solve plan takes')):
             if failed:
                 self._log_once('per-step loop: %s' % reason)
                 return False

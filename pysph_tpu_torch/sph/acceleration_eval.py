@@ -8,11 +8,16 @@ per group and dest array the phases run as in the reference:
 Groups nest: a group of sub-groups runs them in order, and an iterated
 group (``Group(iterate=True)``) runs its sub-tree in sweeps until its
 equations' ``converged`` all hold and ``min_iterations`` sweeps ran, at
-most ``max_iterations`` (``_run_iterated``).  ``converged`` is read on
-the host once a sweep, one 0-d tensor, and only where its answer can
-stop the loop (``converged_reads`` counts the reads, ``sweeps`` the
-sweeps of each iterated group run).  After a dest's ``post_loop`` an
-equation's ``reduce(dst, t, dt)`` runs on a ``ReduceView`` of the dest.
+most ``max_iterations`` (``_run_iterated``).  Where the tree is IISPH's
+pressure solve on ``iisph_pair`` (``ops/pair_engine.py::plan_solve``),
+one ``iisph_solve`` call runs every sweep, the loop condition on the
+device, and nothing is read back (its plain version on the CPU reads
+``converged`` on the host); any other iterated group sweeps on the host,
+which reads ``converged`` once a sweep, one 0-d tensor, and only where
+its answer can stop the loop.  ``converged_reads`` counts the host
+loop's reads, ``sweeps`` the sweeps of each iterated group run.  After a
+dest's ``post_loop`` an equation's ``reduce(dst, t, dt)`` runs on a
+``ReduceView`` of the dest.
 
 Pair phases take one of the engines, chosen once per (group, dest) when
 the evaluator is built and recorded in ``engine_choices``:
@@ -48,8 +53,9 @@ from collections import OrderedDict
 import torch
 
 from pysph_tpu_torch.ops.bin_cells import bin_cells
+from pysph_tpu_torch.ops.iisph_solve import SweepLog
 from pysph_tpu_torch.ops.pair_engine import (
-    PairIneligible, link_pairs, plan_pair_phases)
+    PairIneligible, link_pairs, plan_pair_phases, plan_solve)
 from pysph_tpu_torch.sph.equation import (
     UNIT, ArrayView, Group, IndexSym, MultiStageEquations, PairDestView,
     PairSrcView, SymVec, _method_args, column, get_arrays_used_in_equation,
@@ -387,13 +393,17 @@ class AccelerationEval(object):
         # {(dest, (srcs,)): 'kernel' | 'dense' | 'torch'}, filled while
         # planning
         self.engine_choices = {}
+        #: run the iterated groups that have a ``SolvePlan`` through it
+        #: (False: on the host, as the others; the tools' per-launch
+        #: chain)
+        self.solve_iterated = True
+        self._sweeps = []
+        self._sweep_log = None
         self._plans = self._plan()
         self.domain = grid.domain
         # the handle of update_and_compute
         self._handle = None
-        #: the sweeps of each iterated group run, in order (append-only:
-        #: clear it to reset), and the host reads of ``converged``
-        self.sweeps = []
+        #: the host loop's reads of ``converged``
         self.converged_reads = 0
 
     @staticmethod
@@ -426,13 +436,35 @@ class AccelerationEval(object):
         for g in self.leaf_groups(groups):
             yield from g.equations
 
+    def _iterated(self, groups=None):
+        """The iterated groups of the tree, outermost first."""
+        for g in (self.groups if groups is None else groups):
+            if g.iterate:
+                yield g
+            if g.has_subgroups:
+                yield from self._iterated(g.equations)
+
     @property
     def has_iterated(self):
         """Whether a group of the tree iterates."""
-        def walk(groups):
-            return any(g.iterate or (g.has_subgroups and walk(g.equations))
-                       for g in groups)
-        return walk(self.groups)
+        return any(True for _ in self._iterated())
+
+    @property
+    def host_iterated(self):
+        """Whether a group of the tree iterates on the host (no
+        ``SolvePlan``, or ``solve_iterated`` off)."""
+        return any(not (self.solve_iterated and id(g) in self._solves)
+                   for g in self._iterated())
+
+    @property
+    def sweeps(self):
+        """The sweeps of each iterated group run, in order (append-only:
+        clear it to reset); reads the device's ``SweepLog`` of the
+        ``iisph_solve`` runs since the last access (one read where there
+        is one)."""
+        if self._sweep_log is not None:
+            self._sweeps.extend(self._sweep_log.drain())
+        return self._sweeps
 
     def _validate(self):
         for eq in self._iter_equations():
@@ -496,6 +528,17 @@ class AccelerationEval(object):
                         self.grid.pair_capacity(dest, src,
                                                 self.config.device)
         link_pairs(leaves, plans)
+        # {id(iterated group): SolvePlan}
+        self._solves = {}
+        for group in self._iterated():
+            try:
+                self._solves[id(group)] = plan_solve(group, plans,
+                                                     self.kernel)
+            except PairIneligible as e:
+                logger.info('host loop for the iterated group %r: %s',
+                            group, e)
+        if self._solves and self._sweep_log is None:
+            self._sweep_log = SweepLog(self.config.device)
         return plans
 
     def set_domain(self, domain):
@@ -550,35 +593,44 @@ class AccelerationEval(object):
         run_sized(self.grid, states, run)
         return states
 
-    def compute(self, t, dt, states, handle):
+    def compute(self, t, dt, states, handle, active=None):
         """One evaluation on the binning of ``handle``; updates the
         per-array state dicts in place.  The torch engine's lists are at
         the grid's capacities: a caller that may meet an overflow keeps
-        ``grid.pair_overflow`` (``run_sized``, the solver)."""
+        ``grid.pair_overflow`` (``run_sized``, the solver).  ``active``:
+        the solver's chunk flag (a 0-d bool tensor), which an
+        ``iisph_solve`` sweeps under (none where it is false)."""
         cells = handle.lists
         for group in self.groups:
-            self._dispatch(group, t, dt, states, cells)
+            self._dispatch(group, t, dt, states, cells, active)
         return states
 
-    def _dispatch(self, group, t, dt, states, cells):
+    def _dispatch(self, group, t, dt, states, cells, active=None):
         if group.iterate:
-            self._run_iterated(group, t, dt, states, cells)
+            self._run_iterated(group, t, dt, states, cells, active)
         else:
-            self._run_once(group, t, dt, states, cells)
+            self._run_once(group, t, dt, states, cells, active)
 
-    def _run_once(self, group, t, dt, states, cells):
+    def _run_once(self, group, t, dt, states, cells, active=None):
         if group.has_subgroups:
             for sub in group.equations:
-                self._dispatch(sub, t, dt, states, cells)
+                self._dispatch(sub, t, dt, states, cells, active)
         else:
             self._run_group(group, t, dt, states, cells)
 
-    def _run_iterated(self, group, t, dt, states, cells):
+    def _run_iterated(self, group, t, dt, states, cells, active=None):
         """Sweeps of ``group``'s sub-tree (or its own equations) while
         fewer than ``max_iterations`` ran and not (converged and at least
-        ``min_iterations`` ran), as ``pysph_tpu``'s ``lax.while_loop``;
-        ``converged`` is read (one ``.item()``) only after a sweep that
-        has run ``min_iterations`` and not ``max_iterations``."""
+        ``min_iterations`` ran), as ``pysph_tpu``'s ``lax.while_loop``:
+        by its ``SolvePlan`` where it has one (``iisph_solve``, its sweeps
+        logged on the device), else on the host, which reads
+        ``converged`` (one ``.item()``) only after a sweep that has run
+        ``min_iterations`` and not ``max_iterations``."""
+        plan = self._solves.get(id(group)) if self.solve_iterated else None
+        if plan is not None:
+            plan.execute(states, cells, self.grid, dt, active,
+                         self._sweep_log)
+            return
         max_it = int(group.max_iterations)
         min_it = int(group.min_iterations)
         it = 0

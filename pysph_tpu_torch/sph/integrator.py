@@ -24,7 +24,8 @@ only when a particle has moved half the slack margin, or h has grown)
 and its later evaluations in the step reuse that binning, unless
 ``bin_every_eval`` is set, when every evaluation with ``update_nnps``
 runs the test.  ``step(..., active)`` passes the solver's chunk flag to
-the test, so an inactive step bins nothing.  ``rebuilds`` (a float64 0-d
+the test, so an inactive step bins nothing, and to the evaluators (an
+``iisph_solve`` sweeps under it).  ``rebuilds`` (a float64 0-d
 tensor on the device) counts the binnings that ran; nothing is read.
 
 ``t`` and ``dt`` reach the stages and the evaluators as given: Python
@@ -143,7 +144,8 @@ class Integrator(object):
             self._bin(index)
         self.acceleration_evals[index].compute(self._t, self._dt,
                                                self._states,
-                                               self.handles[index])
+                                               self.handles[index],
+                                               self._active)
 
     def update_domain(self):
         """Wrap every array's positions into the periodic domain (port

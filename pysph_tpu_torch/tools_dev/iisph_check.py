@@ -7,10 +7,13 @@ three runs.
 its size argument.
 
 ``calls(run, size, dtype, edges=False, steps=3, engine='kernel',
-device='cuda')``: every pair call of one evaluation of ``run`` at
-``size`` (``--nx`` or ``--dx``), as the evaluator makes it, on its own
-inputs (``record``: the density, advection and advected-density calls,
-each sweep's ``dijpj`` and pressure calls, the force call), from the
+device='cuda', solve=False)``: every pair call of one evaluation of
+``run`` at ``size`` (``--nx`` or ``--dx``), as the evaluator makes it, on
+its own inputs (``record``: the density, advection and advected-density
+calls, each sweep's ``dijpj`` and pressure calls (the evaluator's host
+loop, the per-launch chain), the force call; with ``solve``, the
+``iisph_solve`` call of the pressure group in place of the sweeps'
+calls, as the path runs it), from the
 run's state after ``steps`` steps of a start whose fluid positions are
 jittered by up to a tenth of dx and velocities seeded (numpy
 ``default_rng``); with ``edges``, a seeded tenth of the fluid is then
@@ -26,8 +29,14 @@ its hand-off): each output the walking call's bit for bit, the list
 ``pair_link.neighbours_reference``'s exactly (up to the capacity), the
 overflow counter the dests past it, each output within ``tol`` of
 max|ref| of the plain version, and one pack a call.  ``resources(lib,
-kind, periodic)``: the kernels' registers and spills.  ``chip_smoke.py``
-and ``tests/test_torch_iisph_cuda.py`` use them.
+kind, periodic)``: the kernels' registers and spills.
+``check_solve(call, label, tol)`` holds a recorded ``iisph_solve`` call
+to its plain version (within ``tol`` of max|ref|, the same sweeps) and,
+where the sweeps agree, to the per-launch chain bit for bit
+(``iisph_solve_reference`` over ``iisph_pair`` on the hand-off), each at
+the call's tolerance and at ones that force ``max_iterations`` sweeps and
+stop at ``min_iterations``.  ``chip_smoke.py`` and
+``tests/test_torch_iisph_cuda.py`` use them.
 """
 
 import importlib
@@ -38,6 +47,8 @@ import torch
 
 from pysph_tpu_torch.ops import cell_pack, pair_link
 from pysph_tpu_torch.ops import iisph_pair as ip
+from pysph_tpu_torch.ops import iisph_solve as isv
+from pysph_tpu_torch.ops.pair_engine import SolvePlan
 from pysph_tpu_torch.tools_dev.tvf_check import _within, reference
 
 #: {run: (module, application class, size argument, wall array or None)}
@@ -122,9 +133,18 @@ def record(a_eval):
     """Record every planned pair call of ``a_eval`` as it runs: returns
     the list it fills with (index, dest, plan, arguments), the arguments
     those of the call (the dest's and sources' states as they were, the
-    outputs' values before the phase, the step's dt); ``forget`` ends
-    the recording."""
+    outputs' values before the phase, the step's dt); an ``iisph_solve``
+    call as (index, dest, ``SolvePlan``, its arguments, no log);
+    ``forget`` ends the recording."""
     calls = []
+    for plan in a_eval._solves.values():
+        def solve(states, cells, grid, dt, active=None, log=None,
+                  plan=plan, run=plan.execute):
+            snap = {name: dict(st) for name, st in states.items()}
+            calls.append((len(calls), plan.dest, plan,
+                          plan.args(snap, cells, grid, dt, active)))
+            run(states, cells, grid, dt, active, log)
+        plan.execute = solve
     for plan in a_eval._plans.values():
         if plan is None:
             continue
@@ -141,17 +161,19 @@ def record(a_eval):
 
 
 def forget(a_eval):
-    for plan in a_eval._plans.values():
+    for plan in list(a_eval._plans.values()) + list(a_eval._solves.values()):
         if plan is not None:
             plan.__dict__.pop('execute', None)
 
 
 def calls(run, size, dtype, edges=False, steps=3, engine='kernel',
-          device='cuda'):
+          device='cuda', solve=False):
     """(calls, particles, particles moved onto the edges, sweeps of the
     eval) of one evaluation of ``run`` at ``size`` (``record``), from
     its state after ``steps`` steps of a ``jitter``ed start, with
-    ``edges`` a tenth of the fluid then ``on_edges``."""
+    ``edges`` a tenth of the fluid then ``on_edges``; the pressure
+    group's sweeps as the per-launch chain, or with ``solve`` as the
+    path's ``iisph_solve`` call."""
     s = app(run, size, dtype, steps=steps, engine=engine,
             device=device).solver
     jitter(s)
@@ -160,12 +182,133 @@ def calls(run, size, dtype, edges=False, steps=3, engine='kernel',
     moved = on_edges(s) if edges else 0
     a_eval = s.acceleration_evals[0]
     found = record(a_eval)
+    a_eval.solve_iterated = solve
     try:
         a_eval.update_and_compute(s.t, s.dt, s.states)
     finally:
         forget(a_eval)
+        a_eval.solve_iterated = True
     n = sum(st['x'].shape[0] for st in s.states.values())
     return found, n, moved, a_eval.sweeps[-1]
+
+
+def solve_calls(calls_):
+    """The ``iisph_solve`` calls among ``calls_``."""
+    return [c for c in calls_ if isinstance(c[2], SolvePlan)]
+
+
+def pair_calls(calls_):
+    """The ``iisph_pair`` calls among ``calls_``."""
+    return [c for c in calls_ if not isinstance(c[2], SolvePlan)]
+
+
+def _deterministic(fn):
+    """``fn()`` with torch's deterministic algorithms on (the plain
+    versions' ``index_add_`` on the card, as ``tvf_check.reference``)."""
+    before = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=warn)
+
+
+#: the tolerances of ``check_solve`` beside the call's own: one no mean
+#: compression meets (below 0: ``max_iterations`` sweeps; a small positive
+#: one is met where the mean rounds to rho0 exactly) and one every one
+#: meets (the loop stops at ``min_iterations``)
+FORCED = {'max': -1.0, 'min': 1e3}
+#: how near its tolerance, relative, a mean compression may lie where the
+#: kernel's sweeps and its plain version's differ: their sums of
+#: ``compression`` run in another order
+MARGIN = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def with_tolerance(args, tolerance):
+    """An ``iisph_solve`` call's arguments with another tolerance."""
+    spec = args[8]._replace(tolerance=tolerance)
+    return args[:8] + (spec,) + args[9:]
+
+
+def chain(args):
+    """The per-launch chain of an ``iisph_solve`` call on the card:
+    ``iisph_pair``'s ``dijpj`` and pressure launches on the call's
+    hand-off each sweep, the torch ``post_loop`` and ``reduce`` between,
+    ``converged`` read on the host."""
+    return isv.iisph_solve_reference(*args[:12], pair=ip.iisph_pair)
+
+
+def _margin(out, spec):
+    """The distance of the last sweep's mean compression from the
+    tolerance."""
+    count, total = out['tmp_comp'].double().tolist()
+    return abs(total / max(count, 1.0) - spec.rho0) / spec.rho0 - \
+        spec.tolerance
+
+
+def check_solve(call, label, tol, blocks=0):
+    """A recorded ``iisph_solve`` call (``calls(..., solve=True)``) at its
+    own tolerance and at those of ``FORCED``: the kernel (``blocks``: its
+    grid, 0 as it chooses) against its plain version (every output within
+    ``tol`` of max|ref|, the same sweeps; at its own tolerance the sweeps
+    may differ only where the mean compression lies within ``MARGIN`` of
+    it, which is printed), and against the per-launch chain (``chain``):
+    where the sweeps agree ``p``, ``piter``, ``compression`` and
+    ``dijpj`` bit for bit, where they differ the mean compression's
+    distance from the tolerance printed; raises where a bar is missed.
+    Returns {case: {sweeps, reference_sweeps, chain_sweeps, max_abs_err,
+    bitwise, tmp_comp_err, margin}}."""
+    _, dest, plan, args = call
+    if not args[0]['x'].is_cuda:
+        raise ValueError('check_solve: %s: a call off the card' % label)
+    out, failures = {}, []
+    cases = {'own': args[8].tolerance, **FORCED}
+    for case, tolerance in cases.items():
+        a = with_tolerance(args, tolerance)
+        before = isv.iisph_solve.launches
+        got, k = isv.iisph_solve(*a, blocks=blocks)
+        if isv.iisph_solve.launches != before + 1:
+            failures.append('%s: %d launches' % (case, isv.iisph_solve.launches
+                                                 - before))
+        ref, kr = _deterministic(
+            lambda: isv.iisph_solve_reference(*a[:12]))
+        got_chain, kc = chain(a)
+        k, kr, kc = int(k), int(kr), int(kc)
+        row = dict(sweeps=k, reference_sweeps=kr, chain_sweeps=kc)
+        if k != kr:
+            row['margin'] = margin = _margin(got, a[8])
+            print('%s %s: %d sweeps, the plain version %d: the mean '
+                  'compression %.6g from the tolerance' % (
+                      label, case, k, kr, margin), flush=True)
+            if case != 'own' or not abs(margin) <= MARGIN[got['p'].dtype]:
+                failures.append('%s: %d sweeps, the plain version %d'
+                                % (case, k, kr))
+        else:
+            row['max_abs_err'] = _within('%s %s' % (dest, case), got, ref,
+                                         tol, failures)
+        if k == kc:
+            row['bitwise'] = all(torch.equal(got[p], got_chain[p])
+                                 for p in isv.OUTPUTS[:-1])
+            row['tmp_comp_err'] = float((got['tmp_comp'] -
+                                         got_chain['tmp_comp']).abs().max())
+            if not row['bitwise']:
+                failures.append('%s: %s differ from the per-launch chain' % (
+                    case, [p for p in isv.OUTPUTS[:-1]
+                           if not torch.equal(got[p], got_chain[p])]))
+        else:
+            row['margin'] = margin = _margin(got, a[8])
+            print('%s %s: %d sweeps, the per-launch chain %d: the mean '
+                  'compression %.6g from the tolerance' % (
+                      label, case, k, kc, margin), flush=True)
+        if case == 'max' and k != args[8].max_iterations or \
+                case == 'min' and k != max(1, args[8].min_iterations):
+            failures.append('%s: %d sweeps' % (case, k))
+        out[case] = row
+    print('iisph_solve, %s: %s' % (label, out), flush=True)
+    if failures:
+        raise AssertionError('%s: %s' % (label, '; '.join(failures)))
+    return out
 
 
 def chains(calls_):
@@ -184,9 +327,14 @@ def chains(calls_):
 def run_as_path(calls_, capacity=None):
     """The outputs of ``calls_`` (``calls``') as the evaluator runs their
     plans: each link's emitting call emits, every later call of the link
-    reads its hand-off, the others walk; in order."""
+    reads its hand-off, the others walk, an ``iisph_solve`` call reads
+    the hand-off of its link; in order."""
     out, handoffs = [], {}
     for _, _, plan, args in calls_:
+        if isinstance(plan, SolvePlan):
+            handoff = handoffs[id(plan.solve.link)]
+            out.append(isv.iisph_solve(*args[:9], handoff, *args[10:]))
+            continue
         link = plan.link
         if link is None:
             out.append(plan.op(*args))
@@ -276,7 +424,8 @@ def check_linked(calls_, label, tol, capacity=None):
 #: the phase sets' functors, as csrc/iisph_pair.cu names them
 SETS = ('Density', 'Advection', 'RhoAdv', 'Dijpj', 'Solve', 'Force')
 _KERNEL = re.compile(r'iisph_pair_kernelI([fd])Li(\d)ELb([01])E\w*?'
-                     r'(%s)I[fd]EELi(\d)E' % '|'.join(SETS))
+                     r'(%s)I[fd](?:Lb0E)?EELi(\d)E' % '|'.join(SETS))
+_SOLVE = re.compile(r'iisph_solve_kernelI([fd])Li(\d)ELb([01])E')
 _MODES = {ip.WALK: 'walk', ip.CONSUME: 'consume'}
 
 
@@ -295,4 +444,19 @@ def resources(lib, kind=3, periodic=False):
             continue
         out['%s %s %s' % ('float32' if m.group(1) == 'f' else 'float64',
                           m.group(4).lower(), _MODES[int(m.group(5))])] = res
+    return dict(sorted(out.items()))
+
+
+def solve_resources(lib):
+    """{'<dtype> kind <k> <periodic|open>': (registers, spill store
+    bytes, spill load bytes)} of the built ``iisph_solve`` library's
+    kernels."""
+    from pysph_tpu_torch.ops import build
+    out = {}
+    for name, res in build.resources(lib).items():
+        m = _SOLVE.search(name)
+        if m:
+            out['%s kind %s %s' % (
+                'float32' if m.group(1) == 'f' else 'float64', m.group(2),
+                'periodic' if m.group(3) == '1' else 'open')] = res
     return dict(sorted(out.items()))

@@ -1,9 +1,11 @@
 """Variants of a linked pair's kernel on one card: the listed entries a
 consuming lane has in flight (``-DLIST_BATCH``) and, for ``tvf_pair``,
 the blocks an SM its launches ask for (``-DEMIT_BLOCKS``,
-``-DCONSUME_BLOCKS``).
+``-DCONSUME_BLOCKS``); and of ``iisph_solve``, the float32 blocks an SM
+its launch bounds ask for (``-DIISPH_SOLVE_BLOCKS``).
 
     python3 -m pysph_tpu_torch.tools_dev.list_batch [delta_pair|tvf_pair]
+    python3 -m pysph_tpu_torch.tools_dev.list_batch iisph_solve
 
 ``delta_pair`` (the default): dam_break_3d ``--delta-sph`` at dx=0.02 in
 float32 after its 50 damped steps, 1, 2, 4 and 8 entries in flight.
@@ -18,7 +20,16 @@ all variants alternated over 7 rounds in one process, and one JSON line
 is printed for each variant and graph: the median ms of 20 replays and
 the rounds' min and max, tagged with the card's name and power limit;
 for ``tvf_pair`` also a line of each variant's registers and spills by
-mode (``tvf_check.resources``).
+mode (``tvf_check.resources``).  ``iisph_solve``: the pressure group's
+call of one evaluation of each IISPH run at its full width in float32
+(``SOLVE_RUNS``: the Taylor-Green vortex at nx=400, the drop at nx=200,
+the dam break at dx=0.004; ``iisph_check.calls``), 4, 5, 6 and 8
+blocks; each
+variant's sweeps and outputs must equal the default library's bit for
+bit (``tmp_comp`` aside: its sums follow the grid, which the variant
+sizes); the
+solve is replayed from CUDA graphs, alternated as above, with each
+variant's registers and spills (``iisph_check.solve_resources``).
 """
 
 import json
@@ -31,7 +42,8 @@ import torch
 from pysph_tpu_torch.ops import build
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import tvf_pair as tp
-from pysph_tpu_torch.tools_dev import common, tvf_check
+from pysph_tpu_torch.ops import iisph_solve as isv
+from pysph_tpu_torch.tools_dev import common, iisph_check, tvf_check
 from pysph_tpu_torch.tools_dev.time_walks import delta_calls
 
 
@@ -48,6 +60,7 @@ VARIANTS = {
                 [_tvf(4, c) for c in (3, 7, 8)] +
                 [_tvf(4, 5, emit=e) for e in (4, 6)] +
                 [_tvf(4, 5, momentum=m) for m in (4, 5)],
+    'iisph_solve': [('-DIISPH_SOLVE_BLOCKS=%d' % b,) for b in (4, 5, 6, 8)],
 }
 
 
@@ -65,11 +78,56 @@ def _use(name, own, extra):
     build._loaded.pop((name,), None)
 
 
+#: the IISPH runs of the solve's variants, at their full width
+SOLVE_RUNS = {'taylor_green': 400, 'elliptical_drop': 200,
+              'dam_break_2d': 0.004}
+
+
+def _solve_variants(smi, variants, libs):
+    """The solve's graph of each variant and run, and the variants'
+    libraries, which the graphs' kernels need loaded."""
+    name = 'iisph_solve'
+    for v, lib in zip(variants, libs):
+        print(json.dumps(dict(card=smi, kernel=name, flags=v,
+                              resources=iisph_check.solve_resources(lib))),
+              flush=True)
+    runs = {}
+    for run, size in SOLVE_RUNS.items():
+        calls = iisph_check.calls(run, size, torch.float32, solve=True)[0]
+        (_, _, _, args), = iisph_check.solve_calls(calls)
+        runs[run] = (args,) + isv.iisph_solve(*args)
+    own = build.EXTRA_FLAGS.get(name, ())
+    graphs, held = {}, []
+    try:
+        for v in variants:
+            _use(name, own, v)
+            for run, (args, want, sweeps) in runs.items():
+                got, k = isv.iisph_solve(*args)
+                # tmp_comp's sums follow the grid, which the variant sizes
+                if int(k) != int(sweeps) or any(
+                        not torch.equal(got[p], want[p])
+                        for p in isv.OUTPUTS[:-1]):
+                    raise AssertionError('%s %s %s: the outputs differ from '
+                                         'the default library\'s'
+                                         % (name, v, run))
+                graphs[v, run] = common.capture(
+                    lambda args=args: isv.iisph_solve(*args))
+            held.append(build._loaded[(name,)])
+    finally:
+        build.EXTRA_FLAGS[name] = own
+        build._loaded.pop((name,), None)
+    return graphs, held
+
+
 def main(name='delta_pair', rounds=7, reps=20):
     smi = common.require_cuda()
     variants = VARIANTS[name]
     with ThreadPoolExecutor(len(variants)) as pool:
         libs = list(pool.map(lambda v: build.build(name, v), variants))
+    if name == 'iisph_solve':
+        graphs, _held = _solve_variants(smi, variants, libs)
+        _report(smi, name, graphs, rounds, reps)
+        return
     if name == 'tvf_pair':
         for v, lib in zip(variants, libs):
             print(json.dumps(dict(card=smi, kernel=name, flags=v,
@@ -103,6 +161,12 @@ def main(name='delta_pair', rounds=7, reps=20):
         if own:
             build.EXTRA_FLAGS[name] = own
         build._loaded.pop((name,), None)
+    _report(smi, name, graphs, rounds, reps)
+
+
+def _report(smi, name, graphs, rounds, reps):
+    """Each graph's median ms of ``reps`` replays over ``rounds`` rounds,
+    all alternated, one JSON line each."""
     times = {k: [] for k in graphs}
     for _ in range(rounds):
         for k, graph in graphs.items():

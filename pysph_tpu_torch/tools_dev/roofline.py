@@ -373,6 +373,47 @@ def iisph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     return work
 
 
+#: iisph_solve.cu a dest and sweep beside the pair sums: post_loop (tmp 3,
+#: dnr 1, the guard 2, the relaxed update 5, the clamp 1, the compression
+#: 5) and reduce's count and sum (2)
+SOLVE_DEST_FLOPS = 19
+
+
+def iisph_solve_work(dest, dest_cells, write_mask, dijpj, solve, grid,
+                     kernel, dt, spec, handoff=None, active=None, log=None,
+                     sweeps=1):
+    """Work of one ``iisph_solve`` call of ``sweeps`` sweeps (its
+    arguments, ``ops/iisph_solve.py``): each sweep's two passes over the
+    neighbour list, ComputeDIJPJ and PressureSolve, as ``iisph_work``
+    counts a call that reads a list (no candidate test), and post_loop
+    and reduce a dest; the bytes once: each source's records and the
+    list's entries read, the dest's inputs read and its outputs written
+    (a sweep reads them again from L2)."""
+    pre = {p: dest[p] for p in ('dijpj0', 'dijpj1', 'dijpj2')}
+    work = add(iisph_work(dest, dest_cells, write_mask, pre, dijpj, grid,
+                          kernel, dt, walks=False),
+               iisph_work(dest, dest_cells, write_mask, {'p': dest['p']},
+                          solve, grid, kernel, dt, walks=False))
+    x = dest['x']
+    n, es = x.shape[0], x.element_size()
+    work['pairs'] *= sweeps
+    work['flops'] = sweeps * (work['flops'] + n * SOLVE_DEST_FLOPS)
+    terms = {ts.name: ts.terms for _, _, ts in dijpj}
+    for _, _, ts in solve:
+        terms[ts.name] = terms.get(ts.name, 0) | ts.terms
+    work['bytes'] = 0
+    for src, cells, ts in solve:
+        _, reached, ncells = stencil(grid, dest_cells, cells)
+        pairs = support_pairs(grid, dest, dest_cells, src, cells)
+        work['bytes'] += _source_bytes(src, reached, ncells, ip._reads(
+            terms[ts.name], 1)) + pairs * I32
+    reads = ip._reads(ip.DIJPJ | ip.PSOLVE, 0) | {'aii', 'rho_adv'}
+    outputs = ('p', 'piter', 'compression', 'dijpj0', 'dijpj1', 'dijpj2')
+    work['bytes'] += n * (es * (len(reads) + len(outputs)) + I32) + (
+        0 if write_mask is None else n)
+    return work
+
+
 def fused_work(state, cells, grid):
     """Work of one ``fused_continuity_momentum`` call (one array against
     itself, 9 props in, 4 sums out, no pre values or write mask)."""

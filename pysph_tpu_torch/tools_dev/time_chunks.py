@@ -24,7 +24,9 @@ examples run the Adami walls, the cavity on an open grid, Poiseuille's
 channel periodic in x; ``EDACScheme`` runs the Taylor-Green vortex, the
 cavity (its mean-pressure group between the density and the momentum
 group) and the 2D dam break (its external flow, the wall pressure
-clamped).
+clamped); ``IISPHScheme`` the Taylor-Green vortex and the 2D dam break
+(adaptive dt), the pressure group's sweeps in one ``iisph_solve``
+launch inside the graphs.
 
 ``timed_solve(app, chunk_steps)``: the median ms/step of a run, per
 step (host clock at each step's start, the card synchronised) or in
@@ -33,9 +35,9 @@ over the chunks after the capture).  ``main`` prints one JSON line per
 full-width run of ``STEPS`` steps and binning configuration of
 ``CONFIGS``, both ways, with the binnings that ran, tagged with
 ``label`` and the card's name and power limit (the delta-SPH dam break,
-the Taylor-Green runs and the wall examples under ``reuse`` only); then
-``STEP_PATHS``, IISPH's runs, per step only, with their pressure sweeps
-and host reads.
+the Taylor-Green runs, the wall examples and the EDAC and IISPH runs
+under ``reuse`` only); the IISPH runs (``STEP_PATHS``) with their
+pressure sweeps, ``iisph_solve`` launches and host reads both ways.
 
 ``CONFIGS`` are the reference's two binning configurations, set in code
 on an app after its setup (``configure``): ``reuse`` (the default: a
@@ -60,6 +62,7 @@ from pysph_tpu_torch.examples.periodic_cylinders import PeriodicCylinders
 from pysph_tpu_torch.examples.poiseuille import PoiseuilleFlow
 from pysph_tpu_torch.examples.rayleigh_taylor import RayleighTaylor
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen
+from pysph_tpu_torch.ops.iisph_solve import iisph_solve
 from pysph_tpu_torch.sph import integrator as _integrator
 from pysph_tpu_torch.sph import integrator_step as _steps
 from pysph_tpu_torch.tools_dev import common
@@ -123,10 +126,11 @@ EDAC_PATHS = {
                                        extra=('--scheme', 'edac')),
 }
 PATHS.update(EDAC_PATHS)
-#: IISPHScheme's three runs, timed per step only: an iterated group
-#: keeps a run off the chunks (its converged is read once a sweep);
-#: Taylor-Green at a convergence study's resolution, the dam break at the
-#: other dam breaks', the drop at the WCSPH drop's
+#: IISPHScheme's three runs (their pressure group one iisph_solve launch
+#: an eval, so they run in chunks), timed in chunks and per step with
+#: their sweeps and host reads: Taylor-Green at a convergence study's
+#: resolution, the dam break at the other dam breaks', the drop at the
+#: WCSPH drop's
 STEP_PATHS = {
     'taylor_green iisph nx=400': dict(
         dx=None, cls=TaylorGreen, extra=('--nx', '400', '--scheme',
@@ -136,6 +140,7 @@ STEP_PATHS = {
     'drop iisph nx=200': dict(dx=None, cls=EllipticalDrop,
                               extra=('--nx', '200', '--scheme', 'iisph')),
 }
+PATHS.update(STEP_PATHS)
 
 #: WCSPHScheme's other flags and kernels on the Taylor-Green vortex:
 #: {name: the example's arguments}
@@ -159,7 +164,8 @@ REUSE_ONLY = ('dam_break_3d dx=0.02 delta', 'taylor_green nx=400',
               'taylor_green wcsph nx=400', 'taylor_green wcsph nx=400 dense',
               'taylor_green gtvf nx=400', 'dam_break_3d dx=0.02 C4') + tuple(
                   'taylor_green wcsph %s nx=400' % name
-                  for name in TIMED_OPTIONS) + WALL_PATHS + tuple(EDAC_PATHS)
+                  for name in TIMED_OPTIONS) + WALL_PATHS + tuple(
+                      EDAC_PATHS) + tuple(STEP_PATHS)
 
 
 def configs(path):
@@ -270,6 +276,10 @@ GATES.update({
                                             'edac'), None),
     'dam_break_2d edac dx=0.04': (DamBreak2D, ('--dx', '0.04', '--scheme',
                                                'edac'), None),
+    'taylor_green iisph nx=40': (TaylorGreen, (
+        '--nx', '40', '--perturb', '0.1', '--scheme', 'iisph'), None),
+    'dam_break_2d iisph dx=0.04': (DamBreak2D, ('--dx', '0.04', '--scheme',
+                                                'iisph'), None),
 })
 GATES.update({
     'dam_break_2d wcsph dx=0.02 %s' % name[:-len('Integrator')]: (
@@ -408,6 +418,8 @@ def main(label=''):
         print(json.dumps(row), flush=True)
         rows.append(row)
     for path, kw in PATHS.items():
+        if path in STEP_PATHS:
+            continue
         for config in configs(path):
             row = dict(label=label, card=smi, path=path, config=config,
                        steps=STEPS)
@@ -426,19 +438,25 @@ def main(label=''):
             print(json.dumps(row), flush=True)
             rows.append(row)
     for path, kw in STEP_PATHS.items():
-        app = make_app(dtype=torch.float32, steps=STEPS, **kw)
-        ms, samples = timed_solve(app, 1)
-        s = app.solver
-        sweeps = [k for a in s.acceleration_evals for k in a.sweeps]
         row = dict(label=label, card=smi, path=path, config='reuse',
-                   steps=s.count, ms_per_step=ms, min=min(samples),
-                   max=max(samples), samples=len(samples),
-                   sweeps=sum(sweeps), converged_reads=sum(
-                       a.converged_reads for a in s.acceleration_evals),
-                   reads=s.reads, rebuilds=s.rebuilds)
+                   steps=STEPS)
+        for k in (10, 1):
+            app = make_app(dtype=torch.float32, steps=STEPS, **kw)
+            iisph_solve.launches = 0
+            ms, samples = timed_solve(app, k)
+            s = app.solver
+            sweeps = [n for a in s.acceleration_evals for n in a.sweeps]
+            row['chunk_steps=%d' % k] = dict(
+                ms_per_step=ms, min=min(samples), max=max(samples),
+                samples=len(samples), steps=s.count, sweeps=sweeps,
+                solve_launches=iisph_solve.launches,
+                converged_reads=sum(a.converged_reads
+                                    for a in s.acceleration_evals),
+                captures=s.captures, replays=s.replays, reads=s.reads,
+                rebuilds=s.rebuilds)
+            del app, s
         print(json.dumps(row), flush=True)
         rows.append(row)
-        del app, s
     return rows
 
 

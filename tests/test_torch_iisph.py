@@ -25,8 +25,11 @@ against pysph_tpu's, float64 on the CPU, inputs seeded with numpy.
   ``NumpyIISPH`` (``tests/test_reference_parity.py``) at 1e-6 relative
   L2, with the oracle's sweep counts, more than 2.
 - The plans: every dest of the three runs on ``iisph_pair`` with the
-  sets the scheme gives it, linked as designed; the chunk refused for an
-  iterated group.
+  sets the scheme gives it, linked as designed, and the pressure group
+  on ``iisph_solve`` (its plain version on the CPU), held to the JAX
+  app's evaluation; the graphed chunk refused only for an iterated group
+  that sweeps on the host (``tests/test_torch_iisph_solve.py`` holds
+  the solve to the host loop).
 
 ``tests/test_torch_iisph_cuda.py`` holds the kernel to its plain
 version on the card.
@@ -740,18 +743,55 @@ def test_scheme_options_and_solver():
 
 
 def test_an_iterated_group_keeps_the_run_off_the_chunks(caplog):
+    """A graphed chunk (CUDA) refuses only an iterated group that sweeps
+    on the host, one that no ``iisph_solve`` plan takes; IISPH's group,
+    planned onto ``iisph_solve``, keeps the run in the chunks, and on the
+    CPU, where a chunk runs eagerly, the IISPH run chunks."""
     app = _port_app('taylor_green', extra=['--max-steps', '3'])
     s = app.solver
-    assert s.chunk_steps == 10
-    with caplog.at_level(logging.INFO,
-                         logger='pysph_tpu_torch.solver.solver'):
+    a_eval = s.acceleration_evals[0]
+    assert s.chunk_steps == 10 and len(a_eval._solves) == 1
+    logger = 'pysph_tpu_torch.solver.solver'
+    s._graphed = lambda: True
+    assert s._chunk_eligible()
+    a_eval.solve_iterated = False
+    with caplog.at_level(logging.INFO, logger=logger):
+        assert not s._chunk_eligible()
+    assert 'per-step loop: an iterated group that no iisph_solve plan ' \
+        'takes' in caplog.text
+    a_eval.solve_iterated = True
+    del s._graphed
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger=logger):
         app.solve()
     assert s.count == 3 and s.captures == 0 and s.replays == 0
-    assert 'per-step loop: an iterated group' in caplog.text
+    assert 'per-step loop' not in caplog.text
+    assert a_eval.sweeps == [2] * 4 and a_eval.converged_reads == 0
+
+
+@pytest.mark.parametrize('run', list(RUNS))
+def test_the_solve_matches_jax(run, jax_runs):
+    """The pressure group's one ``iisph_solve`` call (its plain version
+    on the CPU) in place of the sweeps' pair calls: one evaluation
+    against the JAX app's, the same sweeps, 1e-10, no host read of
+    ``converged`` counted."""
+    evals, _, _, _, dt, sweeps = jax_runs[run]
+    app, dt = _port_start(run, 'kernel')
+    s = app.solver
     a_eval = s.acceleration_evals[0]
-    assert len(a_eval.sweeps) == 4
-    assert a_eval.converged_reads == sum(
-        k >= 2 and k < 30 for k in a_eval.sweeps)
+    calls = iisph_check.record(a_eval)
+    try:
+        s.integrator.initial_acceleration(s.states, 0.0, dt)
+    finally:
+        iisph_check.forget(a_eval)
+    solve, = iisph_check.solve_calls(calls)
+    assert solve[1] == 'fluid'
+    assert len(iisph_check.pair_calls(calls)) == (6 if RUNS[run][3] else 4)
+    assert a_eval.sweeps == sweeps[:1] and a_eval.converged_reads == 0
+    got = _outputs({name: (lambda p, st=st: st[p].numpy())
+                    for name, st in s.states.items()},
+                   RUNS[run][3], EVAL_PROPS)
+    assert _check(got, evals, TOL, run + ' solve') >= 14
 
 
 def test_plane_table_is_the_cuda_source():
