@@ -5,9 +5,9 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the thirteen CUDA sources of ``pysph_tpu_torch/csrc`` (the ten
-   pair and probe kernels, IISPH's pressure solve ``iisph_solve``, the
-   source pack ``cell_pack`` and the binning ``bin_cells``), ``tvf_pair``'s EDAC library (``-DTVF_EDAC``) and the
+2. build the fourteen CUDA sources of ``pysph_tpu_torch/csrc`` (the
+   eleven pair and probe kernels, IISPH's pressure solve ``iisph_solve``,
+   the source pack ``cell_pack`` and the binning ``bin_cells``), ``tvf_pair``'s EDAC library (``-DTVF_EDAC``) and the
    libraries of the later smoothing-kernel kinds (4-7,
    ``csrc/shapes.cuh``) of the five pair kernels that take kinds, with
    nvcc, one process per library, all in parallel, each one's seconds
@@ -217,7 +217,29 @@ Phases (any failure propagates; the exit code is then not 0):
    max |y| at tf, the dam break dx=0.02's front and energy after 10
    steps); the chunks against the per-step loop in float64 are gates of
    phase 4 (``taylor_green iisph nx=40``, ``dam_break_2d iisph
-   dx=0.04``);
+   dx=0.04``); then ``GasDScheme``'s two runs (``_gasd_phase``:
+   ``examples/gas_dynamics/shocktube.py`` and ``sedov.py``): both of
+   ``gasd_pair``'s sets (the grad-h density, ``MPMAccelerations``)
+   against their plain versions (``tools_dev/gasd_check.py``: every
+   output within the dtype's tolerance of max|ref|, ``dt_cfl``'s MAX
+   among them, the pairs and every dest's pair count equal) on a jittered
+   Sedov lattice at nx=41 and the shock tube at nl=80 (h jumping by 8 at
+   the diaphragm) in float64 and float32, and on the blast at its full
+   width, nx=401 (160,801 particles), after 50 steps in float32; GHI
+   against ``Gaussian.gradient_h`` in 1D and 2D; every other kernel with
+   a shape function in both dtypes (``gasd_check.kinds``; each later kind
+   a library of its own); timed at full width with the library's
+   registers and spills, beside the bound of the pairs alone; the shock
+   tube at nl=320 in float64 to tf = 0.15, its L1 errors against the exact Riemann
+   solution within 1e-3 of the JAX package's (``JAX_SHOCKTUBE``); the
+   Sedov blast at nx=41 in float32 for 200 steps, its shell radius, peak
+   density and total energy within 1e-3 of the JAX package's
+   (``JAX_SEDOV``); and the blast at nx=401 for 200 steps per step (the
+   density sweeps on the host): ms/step over steps 20-199, the sweeps,
+   host reads, launches and binnings a step, the largest hmax/hmin, the
+   candidates a dest, the drift in total energy, and one step's device
+   idle share and time by layer from a ``torch.profiler`` trace
+   (``_gasd_drive``);
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -293,6 +315,7 @@ from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
+from pysph_tpu_torch.examples.gas_dynamics import sedov, shocktube
 from pysph_tpu_torch.examples.couette import CouetteFlow
 from pysph_tpu_torch.examples.poiseuille import PoiseuilleFlow, profile_error
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen, decay_errors
@@ -301,6 +324,7 @@ from pysph_tpu_torch.ops import build, cell_pack, cell_walk
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
+from pysph_tpu_torch.ops import gasd_pair as gd
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import iisph_solve as isv
@@ -310,6 +334,7 @@ from pysph_tpu_torch.ops import pair_stub as stub
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops.pair_engine import PairSource
 from pysph_tpu_torch.tools_dev import bin_check, delta_check, iisph_check
+from pysph_tpu_torch.tools_dev import gasd_check
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_chunk, prof_dma, prof_phases
@@ -375,6 +400,18 @@ DAM_BREAK_FIGURE_DX = 0.02
 JAX_IISPH = {'taylor_green': (1.000369764239616,),
              'elliptical_drop': (1.9322257041931152,),
              'dam_break_2d': (1.040663719177246, 2948.5665646805487)}
+#: the JAX package's gas-dynamics figures (``tests/jax_gasd_figures.py``,
+#: its FROZEN; the JAX solver's per-step loop): the shock tube's L1
+#: errors of rho, p and u against the
+#: exact Riemann solution at --nl 320 in float64 to tf = 0.15 (``python
+#: tests/jax_gasd_figures.py shocktube``), and the Sedov blast's shell
+#: radius, peak density and total energy at --nx 41 after 200 steps in
+#: float32 (``... sedov --nx 41 --steps 200``); the port's within
+#: CAVITY_TOL of each, relative
+JAX_SHOCKTUBE = {'rho': 0.01269194755940777, 'p': 0.015312279820969206,
+                 'u': 0.06395616494260377}
+JAX_SEDOV = {'radius': 0.1599970491956032, 'peak': 1.7150838375091553,
+             'energy': 0.9999738059114059}
 
 
 def _compare(calls, dtype, label, op=None):
@@ -1091,7 +1128,7 @@ TG_KERNELS = {
 #: the pair kernels that take a smoothing kernel's kind, each of whose
 #: later kinds is a library of its own (``ops/build.py``)
 KIND_KERNELS = ('tvf_pair', 'wcsph_pair', 'gtvf_pair', 'dense_pair',
-                'delta_pair')
+                'delta_pair', 'gasd_pair')
 #: the props the engines must agree on, by scheme
 TG_PROPS = {'wcsph': ('x', 'y', 'u', 'v', 'rho', 'p', 'arho', 'au', 'av'),
             'gtvf': ('x', 'y', 'u', 'v', 'rho', 'p', 'rhodiv', 'au', 'av',
@@ -2294,6 +2331,302 @@ def _iisph_phase(kernels):
     return runs
 
 
+def _gasd_gate(run, size, dtype, steps=0):
+    """``run`` (``gasd_check.RUNS``) at ``size`` from the example's own
+    start, on the kernels, to its tf or for ``steps`` steps; returns
+    (solver, its fluid state in float64 on the host, the launches of
+    gasd_pair, packs, seconds)."""
+    app = gasd_check.app(run, size, dtype, steps=steps)
+    s = app.solver
+    gd.gasd_pair.launches = cell_pack.pack.launches = 0
+    start = time.perf_counter()
+    app.solve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    st = {p: v.double().cpu().numpy() for p, v in s.states['fluid'].items()
+          if v.is_floating_point()}
+    return s, st, gd.gasd_pair.launches, cell_pack.pack.launches, secs
+
+
+def _gasd_drive(label, size, steps):
+    """The Sedov blast at ``size`` in float32 for ``steps`` steps from the
+    example's start with the CFL dt (``gasd_check.FULL_WIDTH``), timed per
+    step (``time_chunks.timed_solve``: the
+    host clock at each step's start, the card synchronised, over steps
+    20 on): ``gasd_pair``'s, the pack's and the binning's launches set to
+    0 just before and read just after; the sweeps, host reads and
+    re-binnings a step; the largest hmax/hmin and the candidates a dest
+    at the end; the drift in total energy; a step's device idle share and
+    its device time by layer from one step's ``torch.profiler`` trace."""
+    app = gasd_check.app('sedov', size, torch.float32, steps=steps,
+                         extra=gasd_check.FULL_WIDTH)
+    s = app.solver
+    a_eval, = s.acceleration_evals
+    st = s.states['fluid']
+    e0 = sedov.figures(*[st[p].double().cpu().numpy() for p in (
+        'x', 'y', 'u', 'v', 'rho', 'm', 'e')])['energy']
+    spread, start = [], {}
+
+    def counts():
+        return dict(gasd_pair=gd.gasd_pair.launches,
+                    cell_pack=cell_pack.pack.launches,
+                    bin_cells=bc.bin_cells.launches,
+                    converged_reads=a_eval.converged_reads, reads=s.reads,
+                    binnings=a_eval.binnings)
+
+    def pre_step(solver):
+        # the counts after the initial evaluation (250 sweeps: its h0 is
+        # 0, so that no particle's h converges), kept apart
+        if not start:
+            start.update(counts())
+        st = solver.states['fluid']
+        spread.append(torch.stack([st['h'].max(), st['h'].min()]))
+
+    s.add_pre_step_callback(pre_step)
+    gd.gasd_pair.launches = cell_pack.pack.launches = 0
+    bc.bin_cells.launches = 0
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    ms, samples = time_chunks.timed_solve(app, 1)
+    end = counts()
+    launches = {k: end[k] for k in ('gasd_pair', 'cell_pack', 'bin_cells')}
+    per_step = {k: (end[k] - start[k]) / s.count for k in end}
+    if not (launches['gasd_pair'] and launches['bin_cells'] and
+            launches['cell_pack'] == launches['gasd_pair']):
+        raise AssertionError('%s did not run through gasd_pair, the pack '
+                             'and the binning: %s' % (label, launches))
+    sweeps = list(a_eval.sweeps)
+    n = st['x'].shape[0]
+    ratios = torch.stack(spread).double().cpu().numpy()
+    hmax_hmin = float((ratios[:, 0] / ratios[:, 1]).max())
+    st = s.states['fluid']
+    fin = {p: st[p].double().cpu().numpy() for p in (
+        'x', 'y', 'u', 'v', 'rho', 'm', 'e', 'h')}
+    figs = sedov.figures(*[fin[p] for p in ('x', 'y', 'u', 'v', 'rho', 'm',
+                                            'e')])
+    cells = s.grid.bin_all(s.states)['fluid']
+    candidates = roofline.stencil(s.grid, cells, cells)[0]
+    finite = all(bool(torch.isfinite(v).all()) for v in st.values()
+                 if v.is_floating_point())
+    steps_run = s.count
+    # one more step (evaluation, binning, stages) traced: the state moves
+    # on, the counts are read above
+    trace = prof_chunk.trace_gaps(
+        lambda: s.integrator.step(s.states, s.t, s.dt))
+    layers = {}
+    for name, us in trace['busy'].items():
+        key = ('gasd_pair density' if 'gasd_pair' in name and 'Density'
+               in name else 'gasd_pair momentum' if 'gasd_pair' in name
+               else 'pack' if 'cell_pack' in name else 'binning'
+               if 'bin::' in name else 'elementwise and copies')
+        layers[key] = layers.get(key, 0.0) + us / 1e3
+    busy = (trace['span_us'] - trace['idle_us']) / 1e3
+    row = dict(ms=ms, samples=len(samples), steps=steps_run, t=s.t,
+               particles=n, launches=launches, initial=start,
+               per_step=per_step,
+               launches_per_step=per_step['gasd_pair'],
+               evals=len(sweeps), sweeps_initial=sweeps[0],
+               sweeps_steps=(min(sweeps[1:]), float(np.mean(sweeps[1:])),
+                             max(sweeps[1:])),
+               reads_per_step=per_step['converged_reads'] +
+               per_step['reads'] + per_step['binnings'],
+               rebuilds=s.rebuilds,
+               binnings_per_step=per_step['binnings'] + s.rebuilds /
+               steps_run,
+               hmax_hmin=hmax_hmin, candidates_per_dest=candidates / n,
+               energy_drift=figs['energy'] / e0 - 1.0, figures=figs,
+               grows=s.grid.grows, dims=s.grid.dims,
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+               step_span_ms=trace['span_us'] / 1e3, step_busy_ms=busy,
+               idle_share=trace['idle_us'] / trace['span_us'],
+               step_ops=trace['ops'], layers=layers, gaps=trace['gaps'])
+    print('%s float32, per step (the CFL dt): %d steps to t=%.6g, median '
+          '%.3f ms/step (min %.3f, max %.3f over %d samples from step %d); '
+          'gasd_pair %d launches in the run, %d packs, %d bin_cells calls; '
+          'the initial evaluation %d sweeps (%s); a step, the steps alone: '
+          'sweeps %d / %.3f / %d (min / mean / max), gasd_pair launches '
+          '%.3f (the sweeps\' density launches and one momentum launch), '
+          'host reads %.3f (converged %.3f, the solver\'s %.3f, one before '
+          'each re-binning), binnings '
+          '%.3f (in the density sweeps %.3f, by the reuse test %.3f); '
+          'largest hmax/hmin %.4f; %.1f stencil candidates a dest at the end '
+          '(grid %s, %d grows); total energy drift %.3g; figures %s; peak '
+          'device memory %.1f MiB; finite %s' % (
+              label, steps_run, s.t, ms, min(samples), max(samples),
+              len(samples), time_chunks.WARMUP, launches['gasd_pair'],
+              launches['cell_pack'], launches['bin_cells'], sweeps[0], start,
+              *row['sweeps_steps'], per_step['gasd_pair'],
+              row['reads_per_step'], per_step['converged_reads'],
+              per_step['reads'], row['binnings_per_step'],
+              per_step['binnings'], s.rebuilds / steps_run, hmax_hmin,
+              row['candidates_per_dest'], s.grid.dims, s.grid.grows,
+              row['energy_drift'], figs, row['peak_mib'], finite),
+          flush=True)
+    print('%s: one step\'s trace: %.4f ms from its first device operation '
+          'to its last, busy %.4f ms (%d operations), idle share %.1f%%; '
+          'device ms by layer %s; longest gaps %s' % (
+              label, row['step_span_ms'], busy, trace['ops'],
+              100 * row['idle_share'], {k: round(v, 4) for k, v in
+                                        layers.items()}, trace['gaps']),
+          flush=True)
+    if not finite or steps_run != steps or \
+            set(a_eval.engine_choices.values()) != {'kernel'}:
+        raise AssertionError('%s did not run every pair phase on gasd_pair '
+                             'or ended non-finite' % label)
+    return row
+
+
+def _gasd_phase(kernels):
+    """``GasDScheme``'s two runs on ``gasd_pair``: both sets against their
+    plain version (``gasd_check.check``: each output within TOL of
+    max|ref|, the pairs and every dest's pair count equal) on the
+    jittered Sedov lattice at nx=41 and the shock tube at nl=80 (h jumping
+    by 8 at the diaphragm) in float64 and float32, and at the Sedov
+    blast's full width, nx=401 in float32 after 50 steps (h varies); GHI
+    against ``Gaussian.gradient_h`` in 1D and 2D; every other kernel with
+    a shape function in both dtypes (``gasd_check.kinds``: the Sedov
+    lattice at nx=21, the 1D splines on the shock tube at nl=40); timed
+    there (with the bound of the pairs alone beside the bound) (each set
+    alone, the two in a graph and eager, the plain version) with the
+    library's registers and spills; the shock tube at nl=320 in float64
+    to tf, its L1 errors against the exact solution within CAVITY_TOL of
+    the JAX package's (``JAX_SHOCKTUBE``); the Sedov blast at nx=41 in
+    float32 for 200 steps, its figures within CAVITY_TOL of
+    ``JAX_SEDOV``; and the blast at nx=401 for ``STEPS`` steps per step
+    (``_gasd_drive``).  Adds the entry ``gasd_pair``."""
+    lib = build.build('gasd_pair')
+    resources = gasd_check.resources(lib)
+    for dtype in (torch.float64, torch.float32):
+        for run, size in (('sedov', 41), ('shocktube', 80)):
+            calls, n, _ = gasd_check.calls(run, size, dtype)
+            found = gasd_check.check(calls, '%s %s' % (run, dtype),
+                                     TOL[dtype])
+            print('compare gasd_pair %s %d %s (%d particles, jittered, both '
+                  'sets): max abs err %.3g, max scaled err %.3g (tol %.0e); '
+                  '%d pairs, 0 dests whose count differs' % (
+                      run, size, str(dtype)[6:], n, found['max_abs_err'],
+                      found['max_scaled_err'], TOL[dtype], found['pairs']),
+                  flush=True)
+        for dim in (1, 2):
+            err = gasd_check.gradient_h(dim, dtype)
+            print('gasd_pair GHI %dD %s against Gaussian.gradient_h: scaled '
+                  'error %.3g' % (dim, str(dtype)[6:], err), flush=True)
+            if not err <= (1e-13 if dtype == torch.float64 else 1e-5):
+                raise AssertionError('gasd_pair GHI %dD' % dim)
+        for label, f in gasd_check.kinds(dtype, TOL[dtype]).items():
+            print('compare gasd_pair %s (kind %d, jittered, both sets): max '
+                  'abs err %.3g, max scaled err %.3g; %d pairs, 0 dests '
+                  'whose count differs' % (label, f['kind'], f['max_abs_err'],
+                                           f['max_scaled_err'], f['pairs']),
+                  flush=True)
+    calls, n, app = gasd_check.calls('sedov', 401, torch.float32, steps=50,
+                                     jitter_start=False,
+                                     extra=gasd_check.FULL_WIDTH)
+    st = app.solver.states['fluid']
+    hmax_hmin = float(st['h'].max() / st['h'].min())
+    what = 'sedov nx=401 float32 after 50 steps (%d particles, hmax/hmin ' \
+        '%.4f)' % (n, hmax_hmin)
+    found = gasd_check.check(calls, what, TOL[torch.float32])
+    print('compare gasd_pair %s: max abs err %.3g, max scaled err %.3g; %d '
+          'pairs, 0 dests whose count differs' % (
+              what, found['max_abs_err'], found['max_scaled_err'],
+              found['pairs']), flush=True)
+    for _, dest, _, args in calls:
+        _check_pack('sedov nx=401 ' + dest, gd.pack_sources(args[4]),
+                    gd.pack_sources_reference(args[4]))
+    sets = {}
+    for name, call in zip(('density', 'momentum'), calls):
+        args = call[3]
+        w = roofline.gasd_work(*args)
+        ms = graph_ms(lambda: gd.gasd_pair(*args), 20)
+        plain = events_ms(lambda: tvf_check.reference(call[2], args), 3)
+        sets[name] = dict(ms=ms, eager_ms=events_ms(
+            lambda: gd.gasd_pair(*args), 20), plain_ms=plain,
+            bound_ms=roofline.bound(w)[0], bound_by=roofline.bound(w)[1],
+            pair_bound_ms=roofline.bound(dict(w, flops=w['pair_flops']))[0],
+            candidates=w['candidates'], pairs=w['pairs'], flops=w['flops'],
+            pair_flops=w['pair_flops'], bytes=w['bytes'])
+    both = graph_ms(lambda: [gd.gasd_pair(*c[3]) for c in calls], 20)
+    eager = events_ms(lambda: [gd.gasd_pair(*c[3]) for c in calls], 20)
+    plain = sum(v['plain_ms'] for v in sets.values())
+    work = _calls_work(calls, roofline.gasd_work)
+    bound_ms, bound_by = roofline.bound(work)
+    pair_bound_ms = roofline.bound(dict(work, flops=work['pair_flops']))[0]
+    print('gasd_pair, %s, in a graph: a density launch %.4f ms (eager %.4f, '
+          'plain %.3f; bound %.4f ms, %s; of the pairs alone %.4f ms) and '
+          'the momentum launch %.4f ms (eager %.4f, plain %.3f; bound %.4f '
+          'ms, %s; of the pairs alone %.4f ms); the two %.4f ms, eager '
+          '%.4f; bound %.4f ms (%s: %.4g flops, %d candidates, %d pairs, %d '
+          'B), share %.1f%%; of the pairs alone (%.4g flops, no support '
+          'tests of the candidates) %.4f ms, share %.1f%%; %.1f candidates '
+          'and %.1f pairs a dest; registers and spill bytes (stores, '
+          'loads) at kind 2: %s' % (
+              what, sets['density']['ms'], sets['density']['eager_ms'],
+              sets['density']['plain_ms'], sets['density']['bound_ms'],
+              sets['density']['bound_by'], sets['density']['pair_bound_ms'],
+              sets['momentum']['ms'], sets['momentum']['eager_ms'],
+              sets['momentum']['plain_ms'], sets['momentum']['bound_ms'],
+              sets['momentum']['bound_by'],
+              sets['momentum']['pair_bound_ms'], both, eager, bound_ms,
+              bound_by, work['flops'], work['candidates'], work['pairs'],
+              work['bytes'], 100 * bound_ms / both, work['pair_flops'],
+              pair_bound_ms, 100 * pair_bound_ms / both,
+              work['candidates'] / 2 / n, work['pairs'] / 2 / n, resources),
+          flush=True)
+    err = found['max_abs_err']
+    del calls, app, st
+    # the shock tube against the exact solution and the JAX package's
+    s, st, launches, packs, secs = _gasd_gate('shocktube', 320,
+                                              torch.float64)
+    l1 = shocktube.l1_errors(st['x'], st['rho'], st['p'], st['u'], s.t)
+    errs = {k: l1[k] / JAX_SHOCKTUBE[k] - 1.0 for k in l1}
+    sweeps = s.acceleration_evals[0].sweeps
+    print('shocktube nl=320 float64 at t=%.8g after %d steps (%.1f s; %d '
+          'gasd_pair launches, %d packs; sweeps min %d / mean %.3f / max %d; '
+          'hmax/hmin %.4f): L1 errors against the exact solution %s; the '
+          'JAX package\'s %s; relative %s; bar %.0e' % (
+              s.t, s.count, secs, launches, packs, min(sweeps),
+              float(np.mean(sweeps)), max(sweeps),
+              st['h'].max() / st['h'].min(), l1, JAX_SHOCKTUBE, errs,
+              CAVITY_TOL), flush=True)
+    if not (abs(s.t - 0.15) < 1e-9 and launches and packs == launches and
+            max(abs(e) for e in errs.values()) <= CAVITY_TOL):
+        raise AssertionError('the shock tube missed the JAX package\'s L1 '
+                             'errors')
+    tube = dict(t=s.t, steps=s.count, l1=l1, jax=JAX_SHOCKTUBE,
+                rel_err=errs, launches=launches, seconds=secs)
+    # the Sedov blast at nx=41 against the JAX package's figures
+    s, st, launches, packs, secs = _gasd_gate('sedov', 41, torch.float32,
+                                              steps=STEPS)
+    figs = sedov.figures(*[st[p] for p in ('x', 'y', 'u', 'v', 'rho', 'm',
+                                           'e')])
+    errs = {k: figs[k] / JAX_SEDOV[k] - 1.0 for k in figs}
+    print('sedov nx=41 float32 at t=%.6g after %d steps (%.1f s; %d '
+          'gasd_pair launches, %d packs; hmax/hmin %.4f): %s; the JAX '
+          'package\'s %s; relative %s; bar %.0e' % (
+              s.t, s.count, secs, launches, packs,
+              st['h'].max() / st['h'].min(), figs, JAX_SEDOV, errs,
+              CAVITY_TOL), flush=True)
+    if not (s.count == STEPS and launches and packs == launches and
+            max(abs(e) for e in errs.values()) <= CAVITY_TOL):
+        raise AssertionError('the Sedov blast missed the JAX package\'s '
+                             'figures')
+    blast = dict(t=s.t, steps=s.count, figures=figs, jax=JAX_SEDOV,
+                 rel_err=errs, launches=launches, seconds=secs)
+    del s, st
+    drive = _gasd_drive('sedov nx=401', 401, STEPS)
+    kernels['gasd_pair'] = dict(_entry(
+        'gasd_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
+        drive['launches']['gasd_pair'], err, both, plain, work, None,
+        eager_ms=eager, share=bound_ms / both, pair_bound_ms=pair_bound_ms,
+        sets=sets,
+        resources=resources, hmax_hmin=hmax_hmin, run=drive,
+        shocktube=tube, sedov_nx41=blast,
+        path='sedov nx=401 after 50 steps, one density launch and the '
+        'momentum launch'))
+    return drive
+
+
 def _kinds_row():
     """``gtvf_pair`` at kind 4 on the Taylor-Green vortex's ``--scheme
     gtvf --nx 400 --kernel WendlandQuinticC4`` (float32, perturbed): a
@@ -2819,7 +3152,8 @@ def main():
                                             torch.version.cuda, kind))
 
     t0 = time.perf_counter()
-    names = ('iisph_pair', 'iisph_solve', 'tvf_pair', 'wcsph_pair',
+    names = ('iisph_pair', 'iisph_solve', 'gasd_pair', 'tvf_pair',
+             'wcsph_pair',
              'gtvf_pair', 'dense_pair', 'fused_pair', 'micro_launch',
              'micro_engine', 'pair_stub', 'cell_pack', 'bin_cells',
              'delta_pair')
@@ -3001,6 +3335,9 @@ def main():
     # IISPH: taylor_green, elliptical_drop and dam_break_2d --scheme iisph
     iisph_runs = _iisph_phase(kernels)
 
+    # gas dynamics: the shock tube and the Sedov blast under GasDScheme
+    gasd_run = _gasd_phase(kernels)
+
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
     timed = {}     # the float32 calls at the paths' shapes
@@ -3125,6 +3462,16 @@ def main():
                   r['launches']['iisph_pair'], r['launches']['iisph_solve'],
                   r['idle']['busy_ms'], 100 * r['idle']['idle_share'],
                   r['steps']))
+    r = gasd_run
+    print('Sedov nx=401 float32, per step (the density sweeps on the host; '
+          'a step, the initial evaluation apart): %.3f ms/step; sweeps %d / '
+          '%.3f / %d; host reads %.3f; gasd_pair launches %.3f; binnings '
+          '%.3f; idle share %.1f%%; largest hmax/hmin %.4f; %.1f candidates '
+          'a dest; energy drift %.3g' % (
+              r['ms'], *r['sweeps_steps'], r['reads_per_step'],
+              r['launches_per_step'], r['binnings_per_step'],
+              100 * r['idle_share'], r['hmax_hmin'],
+              r['candidates_per_dest'], r['energy_drift']))
     print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
     for label, rows in bins.items():
         for i, t in enumerate(rows):

@@ -78,6 +78,13 @@ class CellList(NamedTuple):
     end: torch.Tensor     # (ncells,) int32 one past the last
 
 
+class PairsDropped(Exception):
+    """Raised where an evaluation finds, before it bins again, that a
+    torch engine pair list of its run dropped pairs: the run is to be
+    redone with the capacities grown (``run_sized``, the solver's redo)
+    before anything bins what the dropped pairs gave."""
+
+
 class PairCapacity(object):
     """The torch pair engine's capacities for one (dest, source) pair of
     arrays, a chunk of dest rows: ``candidates`` and ``pairs`` (host

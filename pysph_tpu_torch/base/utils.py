@@ -90,3 +90,23 @@ def get_particle_array_iisph(constants=None, **props):
     pa.set_output_arrays(['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'h', 'm',
                           'p', 'pid', 'au', 'av', 'aw', 'tag', 'gid', 'V'])
     return pa
+
+
+def get_particle_array_gasd(constants=None, **props):
+    """Gas-dynamics particle array: the grad-h density iteration's
+    ``h0``, ``dwdh``, ``omega`` and per-particle ``converged`` flag, the
+    artificial viscosity and conduction switches ``alpha1`` and
+    ``alpha2`` and their rates, and the CFL maximum ``dt_cfl``."""
+    required_props = [
+        'x', 'y', 'z', 'u', 'v', 'w', 'rho', 'h', 'm', 'cs', 'p', 'e',
+        'au', 'av', 'aw', 'arho', 'ae', 'am', 'ah', 'x0', 'y0', 'z0',
+        'u0', 'v0', 'w0', 'rho0', 'e0', 'h0', 'div', 'grhox', 'grhoy',
+        'grhoz', 'dwdh', 'omega', 'converged', 'alpha1', 'alpha2', 'del2e',
+        'aalpha1', 'aalpha2', 'alpha10', 'alpha20',
+        'dt_cfl', 'dt_force']
+    pa = get_particle_array(
+        constants=constants, additional_props=required_props, **props)
+    pa.set_output_arrays(['x', 'y', 'z', 'u', 'v', 'w', 'rho', 'p', 'e',
+                          'au', 'av', 'ae', 'pid', 'gid', 'tag', 'h',
+                          'alpha1', 'alpha2'])
+    return pa

@@ -1,0 +1,437 @@
+// Gas-dynamics pair kernel for Hopper (sm_90a): GasDScheme's grad-h MPM
+// pair terms with per-particle smoothing lengths, over the warp-coherent
+// walk of csrc/cell_walk.cuh and the cell-sorted packed sources of
+// csrc/cell_pack.cuh, on an open or a periodic grid.
+//
+// Replaces pysph_tpu/ops/pallas_engine.py::_pair_kernel_compact (:1160,
+// its pallas_call :1867), which the TPU runs for both MPM pair phases of
+// GasDScheme (the shock tube and the Sedov blast of
+// examples/gas_dynamics/): the resident engine turns itself off for an
+// update_nnps group.  Two phase sets, one device functor each:
+//
+//   Density    SummationDensity: WI, DWI and GHI at the dest's h
+//              -> rho arho grhox grhoy grhoz dwdh
+//   Momentum   MPMAccelerations: DWI at the dest's h, DWJ at the
+//              source's, DWIJ at HIJ; the signal-velocity viscosity
+//              (dot <= 0) and conduction; a MAX into dt_cfl
+//              -> au av aw ae del2e dt_cfl
+//
+// h varies per particle: the walk's support test is r2 < (rs max(hi,
+// hj))^2 (walk::in_support), so a pair in support through hj only adds the
+// kernel's zero at hi, as the torch pair engine's.  The shape is any kind
+// of csrc/shapes.cuh (the Gaussian, kind 2, radius scale 3, is the
+// scheme's default), a template parameter: this library holds kinds 0-3
+// and each later kind is a library of its own (shapes::with_kind,
+// ops/build.py kind_flags); GHI is shapes::gradient_h.  MPMAccelerations'
+// normalised XIJ is a copy inside the pair body.  One launch computes the
+// pair terms of one dest array over all its sources (at most 4) and
+// writes each output once: pre + sum (dt_cfl: max(pre, max over pairs))
+// under the write mask, pre elsewhere; with a non-null count, each dest's
+// number of pairs in support.
+//
+// Design, as csrc/iisph_pair.cu's walk: thread t takes the dest at
+// position t of the dest's sorted order, so a warp holds dests of one or
+// a few nearby cells; each lane walks its own cells cx - 1 .. cx + 1 in
+// each stencil row (on a periodic grid, the template flag PERIODIC, the
+// rows wrap and each displacement is the minimum image,
+// walk::walk_rows_periodic); the walker hands the candidates in support
+// to the pair body in rounds, one per lane.  Each source is read from its
+// packed copy (launched by this file's launch function just before the
+// kernel), whose record planes are, as ops/gasd_pair.py PACK_RECORDS:
+//   plane 0: x y z h
+//   plane 1: u v w m
+//   plane 2: rho p cs e
+//   plane 3: omega alpha1 alpha2 0
+// of which the density set packs planes 0 and 1, the momentum set all
+// four.  No shared memory and no atomics: every run sums in the order of
+// the plain stencil walk.  Built with -fmad=false (ops/build.py
+// EXTRA_FLAGS): the support test then rounds each operation as the plain
+// version's, so the pairs and each dest's count are exactly its.  No
+// neighbour list is carried: h changes every sweep of the density
+// iteration, which re-bins, so each launch packs and walks afresh.
+//
+// What bounds it: operations.  A launch tests the candidates of the
+// stencil (a 16-byte record load and a support test each); per pair in
+// support the density set evaluates the kernel's shape once (an exp for
+// the Gaussian) and ~30 flops on two records, the momentum set the
+// kernel's gradient at three smoothing lengths (three shapes) and ~110
+// flops on four records.  With
+// cells sized by hmax, a dest whose h is small tests up to (hmax /
+// hi)^dim times the candidates it needs; the grid is not stratified
+// (ROADMAP Queue 1 item 27).  The bytes are a few records a particle.
+//
+// Interface: plain C, called through ctypes (ops/gasd_pair.py).  The
+// launch function takes a host pointer to GasdArgs (copied into the
+// kernel's parameters) and the stream, launches the pack of a.pack and
+// then the kernel, and returns cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cell_pack.cuh"
+#include "cell_walk.cuh"
+#include "shapes.cuh"
+
+constexpr int kGasdSources = 4;
+// term bits, as ops/gasd_pair.py SDEN, MPM
+constexpr int kSden = 1, kMpm = 2;
+// outputs in the order of ops/gasd_pair.py OUTPUTS
+enum GasdOut {
+  oRho, oArho, oGrhox, oGrhoy, oGrhoz, oDwdh, oAu, oAv, oAw, oAe, oDel2e,
+  oDtCfl, kGasdOut
+};
+// phase ids: the index of the phase set in ops/gasd_pair.py PHASE_SETS
+enum GasdPhase { kDensity, kMomentum };
+// the record planes of a packed copy
+enum GasdPlane { kPos, kVelM, kThermo, kSwitch, kGasdPlanes };
+
+// The argument structs are at global scope: the exported C functions take
+// them, and a type in an unnamed namespace would give those functions
+// internal linkage.
+struct GasdSrc {
+  // the packed copy's planes, in the source's cell order; null where the
+  // set reads none of the plane's props
+  const void* plane[kGasdPlanes];
+  const int32_t* cell_start;  // per cell: first position in the copy
+  const int32_t* cell_end;    // per cell: one past the last
+  double beta;                // MPMAccelerations' beta
+  int32_t terms, pad;
+};
+
+struct GasdArgs {
+  const void *x, *y, *z, *h, *u, *v, *w, *rho, *p, *cs, *e, *omega,
+      *alpha1, *alpha2;        // dest
+  const int32_t* cell;         // dest cell id, ix + nx * (iy + ny * iz)
+  const int32_t* dorder;       // the dest's cell order: threads follow it
+  const uint8_t* wmask;        // write mask (bool); null: every row
+  const void* pre[kGasdOut];   // values before the phase; null: unused
+  void* out[kGasdOut];
+  int32_t* count;              // non-null: each dest's pairs in support
+  GasdSrc src[kGasdSources];
+  double radius_scale, kfac;   // kfac: the kernel's sigma
+  double box[3];  // the length of each periodic axis, 0 on the others
+  int32_t n_dest, n_src, nx, ny, nz, dim, phase, dtype, kernel_kind,
+      periodic;
+  // the pack that fills the sources' planes: the launch function launches
+  // it just before the kernel
+  PackArgs pack;
+};
+
+namespace {
+
+using walk::Rec;
+using walk::rec;
+
+template <typename T>
+__device__ __forceinline__ T ld(const void* p, int i) {
+  return static_cast<const T*>(p)[i];
+}
+
+template <typename T>
+__device__ __forceinline__ T hpow(T h1, int dim) {
+  return dim == 1 ? h1 : dim == 2 ? h1 * h1 : h1 * h1 * h1;
+}
+
+// One pair in support: k, the source particle's position in its packed
+// copy; XIJ (the minimum image on a periodic grid), RIJ, 1 / RIJ (0 at
+// RIJ = 0, as the torch pair engine's RINV) and the source's h.
+template <typename T>
+struct Pair {
+  int k;
+  T xij, yij, zij, rij, rinv, hj;
+};
+
+template <typename T, bool PERIODIC>
+__device__ __forceinline__ Pair<T> pair_of(const Rec<T>& di,
+                                           const Rec<T>& pj, int k,
+                                           const walk::Box<T>& box) {
+  Pair<T> q;
+  q.k = k;
+  q.xij = di.a - pj.a;
+  q.yij = di.b - pj.b;
+  q.zij = di.c - pj.c;
+  if (PERIODIC) {
+    q.xij = walk::image(q.xij, box.len[0]);
+    q.yij = walk::image(q.yij, box.len[1]);
+    q.zij = walk::image(q.zij, box.len[2]);
+  }
+  const T r2 = q.xij * q.xij + q.yij * q.yij + q.zij * q.zij;
+  q.rinv = r2 > T(1e-24) ? T(1) / sqrt(r2) : T(0);
+  q.rij = r2 * q.rinv;
+  q.hj = pj.d;
+  return q;
+}
+
+// The kernel of shape KIND at one smoothing length h: h1 = 1 / h (1 where
+// h <= 0), fac = sigma h1^dim, as the torch pair engine's _kparts.
+template <typename T, int KIND>
+struct AtH {
+  T h1, fac;
+  __device__ __forceinline__ void set(T h, T kfac, int dim) {
+    h1 = T(1) / (h > T(0) ? h : T(1));
+    fac = kfac * hpow(h1, dim);
+  }
+  // the gradient's factor: DW = grad(q) * XIJ (0 where RIJ <= 1e-12)
+  __device__ __forceinline__ T grad(const Pair<T>& q) const {
+    T w, dw;
+    shapes::shape<T, KIND>(q.rij * h1, w, dw);
+    return q.rij > T(1e-12) ? dw * fac * h1 * q.rinv : T(0);
+  }
+};
+
+// SummationDensity: WI, DWI, GHI at the dest's h.
+template <typename T, int KIND>
+struct Density {
+  static constexpr bool kDensitySet = true;
+  T ui = 0, vi = 0, wi = 0;
+  AtH<T, KIND> at{};
+  int dim = 0;
+  T rho = 0, arho = 0, gx = 0, gy = 0, gz = 0, dwdh = 0;
+  __device__ void load(const GasdArgs& a, int i) {
+    ui = ld<T>(a.u, i);
+    vi = ld<T>(a.v, i);
+    wi = ld<T>(a.w, i);
+    dim = a.dim;
+    at.set(ld<T>(a.h, i), T(a.kfac), dim);
+  }
+  __device__ void pair(const GasdSrc& S, const Pair<T>& q) {
+    const Rec<T> vm = rec<T>(S.plane[kVelM], q.k);  // u v w m
+    const T qi = q.rij * at.h1;
+    T w, dw;
+    shapes::shape<T, KIND>(qi, w, dw);
+    const T gr = q.rij > T(1e-12) ? dw * at.fac * at.h1 * q.rinv : T(0);
+    const T dx = gr * q.xij, dy = gr * q.yij, dz = gr * q.zij;
+    const T mj = vm.d;
+    const T vdot = (ui - vm.a) * dx + (vi - vm.b) * dy + (wi - vm.c) * dz;
+    rho += mj * (w * at.fac);
+    arho += mj * vdot;
+    gx += mj * dx;
+    gy += mj * dy;
+    gz += mj * dz;
+    dwdh += mj * shapes::gradient_h(w, dw, qi, at.fac, at.h1, dim);
+  }
+  __device__ void store(const GasdArgs& a, int i, bool wm) {
+    const T acc[6] = {rho, arho, gx, gy, gz, dwdh};
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const T pre = ld<T>(a.pre[oRho + k], i);
+      static_cast<T*>(a.out[oRho + k])[i] = wm ? pre + acc[k] : pre;
+    }
+  }
+};
+
+// MPMAccelerations' loop.
+template <typename T, int KIND>
+struct Momentum {
+  static constexpr bool kDensitySet = false;
+  T ui = 0, vi = 0, wi = 0, hi = 0, rhoi = 0, p_i = 0, csi = 0, ei = 0,
+    omegai = 0, a1i = 0, a2i = 0, pibrhoi2 = 0, kfac = 0;
+  AtH<T, KIND> at{};
+  int dim = 0;
+  T au = 0, av = 0, aw = 0, ae = 0, del2e = 0, cfl = 0;
+  __device__ void load(const GasdArgs& a, int i) {
+    ui = ld<T>(a.u, i);
+    vi = ld<T>(a.v, i);
+    wi = ld<T>(a.w, i);
+    hi = ld<T>(a.h, i);
+    rhoi = ld<T>(a.rho, i);
+    p_i = ld<T>(a.p, i);
+    csi = ld<T>(a.cs, i);
+    ei = ld<T>(a.e, i);
+    omegai = ld<T>(a.omega, i);
+    a1i = ld<T>(a.alpha1, i);
+    a2i = ld<T>(a.alpha2, i);
+    pibrhoi2 = p_i / (rhoi * rhoi);
+    kfac = T(a.kfac);
+    dim = a.dim;
+    at.set(hi, kfac, dim);
+    cfl = ld<T>(a.pre[oDtCfl], i);
+  }
+  __device__ void pair(const GasdSrc& S, const Pair<T>& q) {
+    const Rec<T> vm = rec<T>(S.plane[kVelM], q.k);     // u v w m
+    const Rec<T> th = rec<T>(S.plane[kThermo], q.k);   // rho p cs e
+    const Rec<T> sw = rec<T>(S.plane[kSwitch], q.k);   // omega a1 a2 0
+    const T beta = T(S.beta);
+    const T mj = vm.d, rhoj = th.a, pj = th.b;
+    const T pjbrhoj2 = pj / (rhoj * rhoj);
+    const T cij = T(0.5) * (csi + th.c);
+    const T rhoij = T(0.5) * (rhoi + rhoj);
+    const T hij = T(0.5) * (hi + q.hj);
+    const T eps = T(0.01) * hij * hij;
+    // DWI, DWJ and DWIJ: the gradient at the dest's, the source's and
+    // their mean smoothing length
+    AtH<T, KIND> atj, atij;
+    atj.set(q.hj, kfac, dim);
+    atij.set(hij, kfac, dim);
+    const T gi = at.grad(q), gj = atj.grad(q), gij = atij.grad(q);
+    const T dwi[3] = {gi * q.xij, gi * q.yij, gi * q.zij};
+    const T dwj[3] = {gj * q.xij, gj * q.yij, gj * q.zij};
+    const T dwij[3] = {gij * q.xij, gij * q.yij, gij * q.zij};
+    const T vij[3] = {ui - vm.a, vi - vm.b, wi - vm.c};
+    // the normalised interaction vector, a copy of XIJ
+    const bool near = q.rij < T(1e-8);
+    const T safe_r = near ? T(1) : q.rij;
+    const T xn[3] = {near ? T(0) : q.xij / safe_r,
+                     near ? T(0) : q.yij / safe_r,
+                     near ? T(0) : q.zij / safe_r};
+    const T dot = vij[0] * xn[0] + vij[1] * xn[1] + vij[2] * xn[2];
+    const T fij = xn[0] * dwij[0] + xn[1] * dwij[1] + xn[2] * dwij[2];
+    const T pdiff = fabs(p_i - pj);
+    const T s1 = T(2) * cij - beta * dot;
+    const T vsig1 = T(0.5) * (s1 > T(0) ? s1 : T(0));
+    const T vsig2 = sqrt(pdiff / rhoij);
+    const T sig = cij + beta * dot;
+    cfl = sig > cfl ? sig : cfl;
+    const T alpha1 = T(0.5) * (a1i + sw.b);
+    if (dot <= T(0)) {
+      const T visc = mj / rhoij * alpha1 * vsig1 * dot;
+      au += visc * dwij[0];
+      av += visc * dwij[1];
+      aw += visc * dwij[2];
+      ae += T(-0.5) * mj / rhoij * alpha1 * vsig1 * dot * dot * fij;
+    }
+    const T omegaj = sw.a;
+    au += -mj * (pibrhoi2 * omegai * dwi[0] + pjbrhoj2 * omegaj * dwj[0]);
+    av += -mj * (pibrhoi2 * omegai * dwi[1] + pjbrhoj2 * omegaj * dwj[1]);
+    aw += -mj * (pibrhoi2 * omegai * dwi[2] + pjbrhoj2 * omegaj * dwj[2]);
+    const T vdotdwi = vij[0] * dwi[0] + vij[1] * dwi[1] + vij[2] * dwi[2];
+    ae += mj * pibrhoi2 * omegai * vdotdwi;
+    const T alpha2 = T(0.5) * (a2i + sw.c);
+    const T eij = ei - th.d;
+    ae += mj / rhoij * alpha2 * vsig2 * eij * fij;
+    del2e += mj / rhoj * eij / (q.rij + eps) * fij;
+  }
+  __device__ void store(const GasdArgs& a, int i, bool wm) {
+    const T acc[5] = {au, av, aw, ae, del2e};
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const T pre = ld<T>(a.pre[oAu + k], i);
+      static_cast<T*>(a.out[oAu + k])[i] = wm ? pre + acc[k] : pre;
+    }
+    const T pre = ld<T>(a.pre[oDtCfl], i);
+    static_cast<T*>(a.out[oDtCfl])[i] = wm ? cfl : pre;
+  }
+};
+
+// The blocks of 128 threads an SM that a kernel's __launch_bounds__ asks
+// for: double 4; float 8 for the density set, 6 for the momentum set.
+template <typename T, class PhaseSet>
+constexpr int blocks_for() {
+  return sizeof(T) == 8 ? 4 : PhaseSet::kDensitySet ? 8 : 6;
+}
+
+template <typename T, int KIND, bool PERIODIC, class PhaseSet>
+__global__ void __launch_bounds__(128, (blocks_for<T, PhaseSet>()))
+    gasd_pair_kernel(const GasdArgs a) {
+  // every lane stays to the end: the walk's votes take the whole warp
+  const int pos = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = pos < a.n_dest;
+  const int i = active ? a.dorder[pos] : 0;
+
+  Rec<T> di{};  // {xi, yi, zi, hi}
+  PhaseSet ph;
+  if (active) {
+    di = {ld<T>(a.x, i), ld<T>(a.y, i), ld<T>(a.z, i), ld<T>(a.h, i)};
+    ph.load(a, i);
+  }
+  const T rs = T(a.radius_scale);
+  const walk::Box<T> box{{T(a.box[0]), T(a.box[1]), T(a.box[2])}};
+  const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
+  walk::Walker<T> walker;
+  walker.begin();
+  int pairs = 0;
+  for (int s = 0; s < a.n_src; ++s) {
+    const GasdSrc& S = a.src[s];
+    auto body = [&](int k) {
+      ++pairs;
+      ph.pair(S, pair_of<T, PERIODIC>(di, rec<T>(S.plane[kPos], k), k,
+                                      box));
+    };
+    if (PERIODIC)
+      walk::walk_rows_periodic(a, S.cell_start, S.cell_end, S.plane[kPos],
+                               l, di, rs, box, walker, body);
+    else
+      walk::walk_rows(a, S.cell_start, S.cell_end, S.plane[kPos], l, 1, di,
+                      rs, walker, body);
+    walker.finish(body);
+  }
+  if (active) {
+    ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
+    if (a.count != nullptr) a.count[i] = pairs;
+  }
+}
+
+constexpr int kThreads = 128;
+
+template <typename T, int KIND, bool PERIODIC>
+cudaError_t launch_walk(const GasdArgs& a, cudaStream_t stream) {
+  const int blocks = (a.n_dest + kThreads - 1) / kThreads;
+  if (a.phase == kDensity)
+    gasd_pair_kernel<T, KIND, PERIODIC, Density<T, KIND>>
+        <<<blocks, kThreads, 0, stream>>>(a);
+  else
+    gasd_pair_kernel<T, KIND, PERIODIC, Momentum<T, KIND>>
+        <<<blocks, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int KIND>
+cudaError_t launch_kind(const GasdArgs& a, cudaStream_t stream) {
+  return a.periodic ? launch_walk<T, KIND, true>(a, stream)
+                    : launch_walk<T, KIND, false>(a, stream);
+}
+
+template <typename T>
+cudaError_t launch(const GasdArgs& a, cudaStream_t stream) {
+  return shapes::with_kind(a.kernel_kind, [&](auto kind) {
+    return launch_kind<T, decltype(kind)::value>(a, stream);
+  });
+}
+
+// the planes each set reads (ops/gasd_pair.py pack_layout)
+int planes_of(int phase) { return phase == kDensity ? 2 : kGasdPlanes; }
+
+bool args_ok(const GasdArgs& a) {
+  const int set_terms = a.phase == kDensity ? kSden : kMpm;
+  bool sources_ok = a.n_src >= 1 && a.n_src <= kGasdSources;
+  for (int s = 0; sources_ok && s < a.n_src; ++s) {
+    const GasdSrc& S = a.src[s];
+    sources_ok = S.terms == set_terms && S.cell_start != nullptr &&
+                 S.cell_end != nullptr;
+    for (int q = 0; q < planes_of(a.phase); ++q)
+      sources_ok = sources_ok && S.plane[q] != nullptr;
+  }
+  bool outs_ok = true;
+  const int first = a.phase == kDensity ? oRho : oAu;
+  for (int k = first; k < first + 6; ++k)
+    outs_ok = outs_ok && a.pre[k] != nullptr && a.out[k] != nullptr;
+  return sources_ok && outs_ok && a.nx >= 1 && a.ny >= 1 && a.nz >= 1 &&
+         a.dim >= 1 && a.dim <= 3 && (a.dtype == 0 || a.dtype == 1) &&
+         shapes::built_kind(a.kernel_kind) &&
+         (a.phase == kDensity || a.phase == kMomentum) &&
+         a.dorder != nullptr && a.cell != nullptr &&
+         pack::args_ok(a.pack) && a.pack.dtype == a.dtype;
+}
+
+}  // namespace
+
+extern "C" {
+
+int gasd_pair_args_size() { return static_cast<int>(sizeof(GasdArgs)); }
+
+int gasd_pair_launch(const GasdArgs* args, void* stream) {
+  const GasdArgs a = *args;
+  if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.n_dest <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t packed = pack::launch(a.pack, st);
+  if (packed != cudaSuccess) return static_cast<int>(packed);
+  return static_cast<int>(a.dtype == 0 ? launch<float>(a, st)
+                                       : launch<double>(a, st));
+}
+
+const char* gasd_pair_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

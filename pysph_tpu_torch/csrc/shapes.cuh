@@ -4,7 +4,8 @@
 // SuperGaussian 6 in 2D and 7 in 3D (its shape depends on dim, so each dim
 // is a kind).  Every pair kernel that computes WIJ or DWIJ takes its shape
 // from here (csrc/wcsph_terms.cuh names it wcsph::shape); the kernel's
-// sigma and 1 / h^dim are the caller's.
+// sigma and 1 / h^dim are the caller's.  gradient_h gives dW/dh from a
+// shape (csrc/gasd_pair.cu's GHI).
 //
 // The libraries (ops/build.py).  A pair kernel instantiates its templates
 // once a kind, so each kind adds to its cold build.  A library built
@@ -142,6 +143,15 @@ __device__ __forceinline__ void shape(T q, T& w, T& dw) {
       }
     }
   }
+}
+
+// dW/dh of the kernel at q = r / h from its shape (w, dw) at q, where fac
+// is sigma / h^dim and h1 is 1 / h: -fac / h (q dw + dim w), as
+// base/kernels.py gradient_h (and the torch pair engine's GHI, GHJ, GHIJ).
+template <typename T>
+__device__ __forceinline__ T gradient_h(T w, T dw, T q, T fac, T h1,
+                                        int dim) {
+  return -fac * h1 * (dw * q + w * T(dim));
 }
 
 }  // namespace shapes

@@ -49,8 +49,11 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: does so as its schedule allows, which differs between the two
 #: launches: 1-74 dests a call differed in their last bits on the wall
 #: examples' edge cases; the front end's contractions, made on the source
-#: expressions, stay)
+#: expressions, stay); gasd_pair's walk must decide support as its plain
+#: version does, so that its pairs and each dest's count are the plain
+#: version's exactly: no FMA contraction at all, as delta_pair
 EXTRA_FLAGS = {'delta_pair': ('-fmad=false',),
+               'gasd_pair': ('-fmad=false',),
                'tvf_pair': ('-Xptxas', '--fmad=false'),
                'iisph_pair': ('-Xptxas', '--fmad=false'),
                'iisph_solve': ('-Xptxas', '--fmad=false')}

@@ -1,6 +1,6 @@
 """Planning: which pair phases a hand-written pair kernel runs.
 
-Six kernels take a dest's pair phases, all its sources in one call:
+Seven kernels take a dest's pair phases, all its sources in one call:
 
 - ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path, the
   elliptical drop and the Taylor-Green vortex's ``--scheme wcsph``):
@@ -43,11 +43,17 @@ Six kernels take a dest's pair phases, all its sources in one call:
   the viscosities, with their wall terms; ``ComputeRhoAdvection``,
   ``ComputeAII`` and their wall terms; ``ComputeDIJPJ``;
   ``PressureSolve`` and its wall term; ``PressureForce`` and its wall
-  term), each plan taking the step's dt (``PairPlan.takes_dt``).
+  term), each plan taking the step's dt (``PairPlan.takes_dt``);
+- ``gasd_pair`` (``ops/gasd_pair.py``, ``GasDScheme``'s MPM groups: the
+  shock tube and the Sedov blast): every source of a dest takes
+  ``SummationDensity`` (the density set) or every source
+  ``MPMAccelerations`` (the momentum set).
 
 Every kernel takes every kernel with a ``kernel_kind`` (not the ``_1D``
-ones: ROADMAP Queue 1 item 28), and every kernel walks a periodic grid
-(the wrapped stencil, the minimum image).
+ones: ROADMAP Queue 1 item 28; where a set is ``gasd_pair``'s, such a
+kernel raises ``NotImplementedError`` rather than leave the 1D gas runs
+to the torch engine), and every kernel walks a periodic grid (the
+wrapped stencil, the minimum image).
 
 For each, each equation appears at most once per source, with at most
 ``MAX_SOURCES`` sources, and no equation reads a property that another
@@ -79,7 +85,8 @@ runs every sweep, the loop condition on the card (``SolvePlan``).
 The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
 sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair``, the
 delta-SPH pre-phases onto ``delta_pair``, TVF's and EDAC's sets onto
-``tvf_pair`` and IISPH's onto ``iisph_pair``; ``dense`` plans the WCSPH sets
+``tvf_pair``, IISPH's onto ``iisph_pair`` and the MPM sets onto
+``gasd_pair``; ``dense`` plans the WCSPH sets
 without delta-SPH terms onto ``dense_pair`` and nothing else, as the JAX
 package's dense-slot engine refuses sequential and strided phases
 (``pallas_engine.py:855-861``): the GTVF sets, the delta-SPH pre-phases
@@ -93,6 +100,7 @@ from typing import Callable, NamedTuple, Optional
 from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
+from pysph_tpu_torch.ops import gasd_pair as _gd
 from pysph_tpu_torch.ops import gtvf_pair as _gp
 from pysph_tpu_torch.ops import iisph_pair as _ip
 from pysph_tpu_torch.ops import iisph_solve as _is
@@ -417,8 +425,39 @@ def _plan_iisph(dest, sources, kernel):
                     takes_dt=True)
 
 
+def _gasd_terms():
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.gas_dynamics import basic
+    return {basic.SummationDensity: _gd.SDEN,
+            basic.MPMAccelerations: _gd.MPM}
+
+
+def _plan_gasd(dest, sources, kernel):
+    term_of = _gasd_terms()
+    plan_sources = []
+    terms = 0
+    for src, t, eqs in _source_terms(sources, term_of, _gd.TERM_OUTPUTS,
+                                     _gd.MAX_SOURCES):
+        plan_sources.append(_gd.GasdSource(
+            src, t, tuple(eqs), beta=_one(eqs, 'beta', src)))
+        terms |= t
+    if _gd.phase_of(terms) is None or any(
+            ps.terms != terms for ps in plan_sources):
+        raise PairIneligible('gas-dynamics terms %#x: not one phase set for '
+                             'every source' % terms)
+    if kernel_kind(kernel) is None:
+        # the gas runs are 1D and 2D, where the _1D kernels are offered: a
+        # refusal here would run them on the torch engine unannounced
+        raise NotImplementedError(
+            'gasd_pair: kernel %r has no shape function in the pair kernels '
+            '(1D kernels: ROADMAP Queue 1 item 28); run it with --engine '
+            'torch' % kernel)
+    return PairPlan(dest, plan_sources, kernel, _gd.gasd_pair,
+                    _gd.gasd_pair_reference, _gd.TERM_OUTPUTS[terms])
+
+
 _PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf,
-                        _plan_iisph),
+                        _plan_iisph, _plan_gasd),
              'dense': (_plan_dense,)}
 
 
@@ -523,12 +562,20 @@ def _link_refusal(rule, span, emitter, consumers):
     why = rule.check(emitter, consumers[-1])
     if why is not None:
         return why
-    allowed = rule.equations()
+    return _span_refusal(span, rule.equations())
+
+
+def _span_refusal(span, allowed):
+    """Why the groups ``span`` (the emitter's to the last consumer's) do
+    not keep the pairs: an equation not among ``allowed``, or a group
+    before the last that re-bins; or None."""
     for group in span:
         for eq in group.equations:
             if type(eq) not in allowed:
                 return '%s is not among the equations that keep the ' \
                     'pairs' % eq.name
+    if any(group.update_nnps for group in span[:-1]):
+        return 'a group between them re-bins (update_nnps)'
     return None
 
 
@@ -573,13 +620,8 @@ def _link_iisph(groups, plans):
                    for p in later):
                 why = 'a later plan of no consuming set'
                 break
-            b = chain[-1][0]
-            bad = next((eq.name for g in groups[a:b + 1]
-                        for eq in g.equations if type(eq) not in allowed),
-                       None)
-            if bad is not None:
-                why = '%s is not among the equations that keep the pairs' \
-                    % bad
+            why = _span_refusal(groups[a:chain[-1][0] + 1], allowed)
+            if why is not None:
                 break
             link = _pl.Link(emitter, later[-1], later[:-1])
             for plan in [emitter] + later:

@@ -82,7 +82,7 @@ import os
 import numpy as np
 import torch
 
-from pysph_tpu_torch.base.cell_grid import CellGrid
+from pysph_tpu_torch.base.cell_grid import CellGrid, PairsDropped
 from pysph_tpu_torch.base.kernels import CubicSpline
 from pysph_tpu_torch.solver.output import dump
 from pysph_tpu_torch.solver.utils import mkdir
@@ -278,7 +278,10 @@ class Solver(object):
         saved = self._save()
         while True:
             self.grid.watch_pairs()
-            self.integrator.step(self.states, self.t, self.dt)
+            try:
+                self.integrator.step(self.states, self.t, self.dt)
+            except PairsDropped:
+                pass
             self.reads += 1
             if not self.grid.pairs_overflowed():
                 return

@@ -39,12 +39,18 @@ the evaluator is built and recorded in ``engine_choices``:
   On exact lists (no capacity) it is also the plain version that the
   kernels are tested against.
 
-An evaluation does not bin: ``compute`` takes a ``GridHandle``
-(``base/cell_grid.py``) that ``prepare`` bins afresh and
+An evaluation does not bin its start: ``compute`` takes a
+``GridHandle`` (``base/cell_grid.py``) that ``prepare`` bins afresh and
 ``prepare_reuse`` keeps while its test holds (Verlet-style, as
 ``pysph_tpu``'s; the integrator calls them, once a step per evaluator by
-default).  ``make_acceleration_evals`` builds one evaluator per stage of
-a ``MultiStageEquations``, all on one ``CellGrid``.
+default).  A group with ``update_nnps`` (the gas-dynamics schemes' h
+updates) bins afresh after it, or at the top of each of its sweeps where
+it iterates, into a handle of the evaluator's own (``_rebin``), which
+every later group of the evaluation reads; the integrator's handle and
+its reuse test are left as they were; a position or h that is not finite
+raises there, before it is binned.  ``make_acceleration_evals`` builds
+one evaluator per stage of a ``MultiStageEquations``, all on one
+``CellGrid``.
 """
 
 import logging
@@ -52,6 +58,7 @@ from collections import OrderedDict
 
 import torch
 
+from pysph_tpu_torch.base.cell_grid import PairsDropped
 from pysph_tpu_torch.ops.bin_cells import bin_cells
 from pysph_tpu_torch.ops.iisph_solve import SweepLog
 from pysph_tpu_torch.ops.pair_engine import (
@@ -355,7 +362,10 @@ def run_sized(grid, states, run):
     saved = {name: dict(st) for name, st in states.items()}
     while True:
         grid.watch_pairs()
-        run()
+        try:
+            run()
+        except PairsDropped:
+            pass
         if not grid.pairs_overflowed():
             return
         grown = grid.grow_pairs()
@@ -403,8 +413,13 @@ class AccelerationEval(object):
         self.domain = grid.domain
         # the handle of update_and_compute
         self._handle = None
+        # the handle of the re-binnings of update_nnps groups
+        self._nnps_handle = None
         #: the host loop's reads of ``converged``
         self.converged_reads = 0
+        #: the re-binnings of ``update_nnps`` groups (``_rebin``), each
+        #: after one host read
+        self.binnings = 0
 
     @staticmethod
     def _make_groups(equations):
@@ -599,24 +614,58 @@ class AccelerationEval(object):
         the grid's capacities: a caller that may meet an overflow keeps
         ``grid.pair_overflow`` (``run_sized``, the solver).  ``active``:
         the solver's chunk flag (a 0-d bool tensor), which an
-        ``iisph_solve`` sweeps under (none where it is false)."""
+        ``iisph_solve`` sweeps under (none where it is false).  A group
+        with ``update_nnps`` bins afresh after it runs (at the top of
+        each sweep where it iterates) into the evaluator's own handle,
+        whose lists every later group of the evaluation reads
+        (``_rebin``); ``handle`` is left as it was."""
         cells = handle.lists
         for group in self.groups:
-            self._dispatch(group, t, dt, states, cells, active)
+            cells = self._dispatch(group, t, dt, states, cells, active)
         return states
 
-    def _dispatch(self, group, t, dt, states, cells, active=None):
-        if group.iterate:
-            self._run_iterated(group, t, dt, states, cells, active)
-        else:
-            self._run_once(group, t, dt, states, cells, active)
+    def _rebin(self, states):
+        """Bin afresh into the evaluator's own handle (``prepare``, a full
+        rebuild, as ``pysph_tpu``'s re-binning after an ``update_nnps``
+        group) and return its lists; counted in ``binnings``.  First one
+        host read: where a torch engine list of this run dropped pairs,
+        raise ``PairsDropped`` (the run is redone with the capacities
+        grown); where a position or h is not finite (a run that blew up),
+        raise ``FloatingPointError``, as such an h would pile every
+        particle into one cell."""
+        grid = self.grid
+        lo, hi, hmax = grid._box(states[n] for n in self.arrays_used)
+        flags = [torch.isfinite(torch.cat([lo, hi, hmax.reshape(1)])).all()]
+        if grid.pair_overflow is not None:
+            flags.append(grid.pair_overflow)
+        finite, *dropped = torch.stack(flags).tolist()
+        if any(dropped):
+            raise PairsDropped()
+        if not finite:
+            raise FloatingPointError(
+                'update_nnps: a position or h is not finite before the '
+                're-binning (lowest %s, highest %s, hmax %s)' % (
+                    lo.tolist(), hi.tolist(), float(hmax)))
+        self._nnps_handle, _ = self.prepare(states, self._nnps_handle)
+        self.binnings += 1
+        return self._nnps_handle.lists
 
-    def _run_once(self, group, t, dt, states, cells, active=None):
-        if group.has_subgroups:
-            for sub in group.equations:
-                self._dispatch(sub, t, dt, states, cells, active)
-        else:
+    def _dispatch(self, group, t, dt, states, cells, active=None):
+        """Run ``group``; returns the cell lists of the groups after it."""
+        if group.iterate:
+            return self._run_iterated(group, t, dt, states, cells, active)
+        cells = self._sweep(group, t, dt, states, cells, active)
+        return self._rebin(states) if group.update_nnps else cells
+
+    def _sweep(self, group, t, dt, states, cells, active=None):
+        """One pass of ``group``'s sub-tree (or its own equations); returns
+        the cell lists after it (a sub-group may re-bin)."""
+        if not group.has_subgroups:
             self._run_group(group, t, dt, states, cells)
+            return cells
+        for sub in group.equations:
+            cells = self._dispatch(sub, t, dt, states, cells, active)
+        return cells
 
     def _run_iterated(self, group, t, dt, states, cells, active=None):
         """Sweeps of ``group``'s sub-tree (or its own equations) while
@@ -625,17 +674,22 @@ class AccelerationEval(object):
         by its ``SolvePlan`` where it has one (``iisph_solve``, its sweeps
         logged on the device), else on the host, which reads
         ``converged`` (one ``.item()``) only after a sweep that has run
-        ``min_iterations`` and not ``max_iterations``."""
+        ``min_iterations`` and not ``max_iterations``.  With
+        ``update_nnps`` each sweep first bins afresh (``_rebin``), and the
+        groups after it read the last sweep's binning.  Returns the cell
+        lists of the groups after it."""
         plan = self._solves.get(id(group)) if self.solve_iterated else None
         if plan is not None:
             plan.execute(states, cells, self.grid, dt, active,
                          self._sweep_log)
-            return
+            return cells
         max_it = int(group.max_iterations)
         min_it = int(group.min_iterations)
         it = 0
         while it < max_it:
-            self._run_once(group, t, dt, states, cells)
+            if group.update_nnps:
+                cells = self._rebin(states)
+            cells = self._sweep(group, t, dt, states, cells)
             it += 1
             if it < min_it or it >= max_it:
                 continue
@@ -646,6 +700,7 @@ class AccelerationEval(object):
             if conv.item():
                 break
         self.sweeps.append(it)
+        return cells
 
     def _converged(self, group, states):
         """The AND of the ``converged`` of every equation of ``group``'s

@@ -255,14 +255,19 @@ class Group(object):
     and with ``iterate`` it runs its sub-tree again and again: at most
     ``max_iterations`` sweeps, stopping after a sweep once its equations'
     ``converged`` all say so and ``min_iterations`` sweeps have run (the
-    evaluator's ``_run_iterated``).  The other group features of
-    ``pysph_tpu`` (``condition``, ``update_nnps``, ``pre``/``post``,
-    ``start_idx``/``stop_idx``) are refused until they are ported."""
+    evaluator's ``_run_iterated``).  With ``update_nnps`` the evaluator
+    bins afresh after the group or, where it iterates, at the top of
+    every sweep, as ``pysph_tpu``'s does (the grad-h density iteration
+    changes h every sweep).  The other group features of ``pysph_tpu``
+    (``condition``, ``pre``/``post``, ``start_idx``/``stop_idx``) are
+    refused until they are ported."""
 
-    def __init__(self, equations, real=True, iterate=False,
-                 max_iterations=1, min_iterations=0, **features):
+    def __init__(self, equations, real=True, update_nnps=False,
+                 iterate=False, max_iterations=1, min_iterations=0,
+                 **features):
         self.equations = list(equations)
         self.real = real
+        self.update_nnps = bool(update_nnps)
         self.iterate = iterate
         self.max_iterations = max_iterations
         self.min_iterations = min_iterations

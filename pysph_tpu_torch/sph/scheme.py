@@ -1,6 +1,6 @@
 """SPH schemes: equations + integrator + solver for a formulation
 (port of ``pysph_tpu/sph/scheme.py``: ``Scheme``, ``SchemeChooser``,
-``TVFScheme`` and ``WCSPHScheme``; ``GTVFScheme`` is in
+``TVFScheme``, ``WCSPHScheme`` and ``GasDScheme``; ``GTVFScheme`` is in
 ``sph/wc/gtvf.py``)."""
 
 
@@ -460,3 +460,158 @@ class WCSPHScheme(Scheme):
             if pa.name in self.solids:
                 if 'lb_weight' not in pa.constants:
                     pa.add_constant('lb_weight', 0.1)
+
+
+class GasDScheme(Scheme):
+    """Compressible gas dynamics with grad-h smoothing lengths: the
+    ``mpm`` adaptive-h scheme (the default) iterates each particle's h
+    with the summation density to convergence in one iterated group that
+    re-bins every sweep; ``gsph`` scales h, sums the density, sets h from
+    the volume and sums again, re-binning after each h update; then the
+    ideal-gas EOS and ``MPMAccelerations``.  ``PECIntegrator`` with
+    ``GasDFluidStep`` and ``Gaussian`` by default.  Walls
+    (``WallBoundary``) and ghost particles (``MPMUpdateGhostProps``) are
+    not ported: ``solids`` and ``has_ghosts`` raise."""
+
+    def __init__(self, fluids, solids, dim, gamma, kernel_factor,
+                 alpha1=1.0, alpha2=0.1, beta=2.0,
+                 adaptive_h_scheme='mpm', update_alpha1=False,
+                 update_alpha2=False, max_density_iterations=250,
+                 density_iteration_tolerance=1e-3, has_ghosts=False):
+        self.fluids = fluids
+        self.solids = solids
+        self.dim = dim
+        self.solver = None
+        self.gamma = gamma
+        self.alpha1 = alpha1
+        self.alpha2 = alpha2
+        self.update_alpha1 = update_alpha1
+        self.update_alpha2 = update_alpha2
+        self.beta = beta
+        self.kernel_factor = kernel_factor
+        self.adaptive_h_scheme = adaptive_h_scheme
+        self.density_iteration_tolerance = density_iteration_tolerance
+        self.max_density_iterations = max_density_iterations
+        self.has_ghosts = has_ghosts
+
+    def _check_ported(self):
+        if self.solids:
+            raise NotImplementedError(
+                'GasDScheme with solids %s: WallBoundary is not ported yet '
+                '(ROADMAP Queue 1 item 28, remaining physics)'
+                % list(self.solids))
+        if self.has_ghosts:
+            raise NotImplementedError(
+                'GasDScheme with has_ghosts: MPMUpdateGhostProps needs ghost '
+                'particles, which the periodic grid does not make (ROADMAP '
+                'Queue 1 item 27)')
+
+    def add_user_options(self, group):
+        group.add_argument(
+            '--adaptive-h', action='store', dest='adaptive_h_scheme',
+            default=None, choices=['gsph', 'mpm'],
+            help='Adaptive smoothing length scheme.')
+        group.add_argument('--alpha1', action='store', type=float,
+                           dest='alpha1', default=None,
+                           help='Artificial viscosity alpha1.')
+        group.add_argument('--beta', action='store', type=float,
+                           dest='beta', default=None,
+                           help='Artificial viscosity beta.')
+        group.add_argument('--alpha2', action='store', type=float,
+                           dest='alpha2', default=None,
+                           help='Artificial viscosity alpha2.')
+        group.add_argument('--gamma', action='store', type=float,
+                           dest='gamma', default=None,
+                           help='EOS gamma.')
+        add_bool_argument(group, 'update-alpha1', dest='update_alpha1',
+                          help='Update alpha1 dynamically.',
+                          default=None)
+        add_bool_argument(group, 'update-alpha2', dest='update_alpha2',
+                          help='Update alpha2 dynamically.',
+                          default=None)
+
+    def consume_user_options(self, options):
+        data = dict((var, self._smart_getattr(options, var)) for var in
+                    ('gamma', 'alpha2', 'alpha1', 'beta',
+                     'update_alpha1', 'update_alpha2',
+                     'adaptive_h_scheme'))
+        self.configure(**data)
+
+    def configure_solver(self, kernel=None, integrator_cls=None,
+                         extra_steppers=None, **kw):
+        from pysph_tpu_torch.base.kernels import Gaussian
+        from pysph_tpu_torch.sph.integrator import PECIntegrator
+        from pysph_tpu_torch.sph.integrator_step import GasDFluidStep
+        from pysph_tpu_torch.solver.solver import Solver
+        self._check_ported()
+        if kernel is None:
+            kernel = Gaussian(dim=self.dim)
+        steppers = dict(extra_steppers or {})
+        for name in self.fluids:
+            if name not in steppers:
+                steppers[name] = GasDFluidStep()
+        cls = PECIntegrator if integrator_cls is None else integrator_cls
+        integrator = cls(**steppers)
+        self.solver = Solver(dim=self.dim, integrator=integrator,
+                             kernel=kernel, **kw)
+
+    def get_equations(self):
+        from pysph_tpu_torch.sph.equation import Group
+        from pysph_tpu_torch.sph.gas_dynamics.basic import (
+            IdealGasEOS, MPMAccelerations, ScaleSmoothingLength,
+            SummationDensity, UpdateSmoothingLengthFromVolume)
+        self._check_ported()
+        equations = []
+        if self.adaptive_h_scheme == 'mpm':
+            g1 = [SummationDensity(
+                dest=fluid, sources=self.fluids, k=self.kernel_factor,
+                density_iterations=True, dim=self.dim,
+                htol=self.density_iteration_tolerance)
+                for fluid in self.fluids]
+            equations.append(Group(
+                equations=g1, update_nnps=True, iterate=True,
+                max_iterations=self.max_density_iterations))
+        elif self.adaptive_h_scheme == 'gsph':
+            equations.append(Group(equations=[
+                ScaleSmoothingLength(dest=f, sources=None, factor=2.0)
+                for f in self.fluids], update_nnps=True))
+            equations.append(Group(equations=[
+                SummationDensity(dest=f, sources=self.fluids,
+                                 dim=self.dim)
+                for f in self.fluids], update_nnps=False))
+            equations.append(Group(equations=[
+                UpdateSmoothingLengthFromVolume(
+                    dest=f, sources=None, k=self.kernel_factor,
+                    dim=self.dim)
+                for f in self.fluids], update_nnps=True))
+            equations.append(Group(equations=[
+                SummationDensity(dest=f, sources=self.fluids,
+                                 dim=self.dim)
+                for f in self.fluids], update_nnps=False))
+
+        equations.append(Group(equations=[
+            IdealGasEOS(dest=f, sources=None, gamma=self.gamma)
+            for f in self.fluids]))
+        equations.append(Group(equations=[
+            MPMAccelerations(
+                dest=f, sources=self.fluids,
+                alpha1_min=self.alpha1, alpha2_min=self.alpha2,
+                beta=self.beta, update_alpha1=self.update_alpha1,
+                update_alpha2=self.update_alpha2)
+            for f in self.fluids]))
+        return equations
+
+    def setup_properties(self, particles, clean=True):
+        import numpy
+        from pysph_tpu_torch.base.utils import get_particle_array_gasd
+        self._check_ported()
+        particle_arrays = dict((p.name, p) for p in particles)
+        dummy = get_particle_array_gasd(name='junk')
+        props = list(dummy.properties.keys())
+        output_props = dummy.output_property_arrays
+        for fluid in self.fluids:
+            pa = particle_arrays[fluid]
+            self._ensure_properties(pa, props, clean)
+            pa.add_property('orig_idx', type='int')
+            pa.orig_idx = numpy.arange(pa.get_number_of_particles())
+            pa.set_output_arrays(output_props)

@@ -88,16 +88,23 @@ def replay_busy(graph, reps=REPS):
 
 def replay_gaps(graph, top=GAPS):
     """The idle time of one replay of ``graph`` from the profiler's
-    trace: {span_us: its first device operation's start to its last's
-    end, idle_us: the time in that span that no operation runs, ops:
-    the device operations, gaps: the ``top`` longest idle gaps, [us,
-    operation before, operation after], after: the ``top`` operations
-    (by name) after which the most idle time falls, [us, gaps, name]}."""
-    graph.replay()
+    trace (``trace_gaps``)."""
+    return trace_gaps(graph.replay, top)
+
+
+def trace_gaps(fn, top=GAPS):
+    """The idle time of one call of ``fn`` (after one warm-up call) from
+    the profiler's trace: {span_us: its first device operation's start
+    to its last's end, idle_us: the time in that span that no operation
+    runs, ops: the device operations, gaps: the ``top`` longest idle
+    gaps, [us, operation before, operation after], after: the ``top``
+    operations (by name) after which the most idle time falls, [us, gaps,
+    name], busy: {operation name: its device us}}."""
+    fn()
     torch.cuda.synchronize()
     act = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
-        graph.replay()
+        fn()
         torch.cuda.synchronize()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, path = tempfile.mkstemp(suffix='.json', dir=BUILD_DIR)
@@ -108,10 +115,14 @@ def replay_gaps(graph, top=GAPS):
             events = json.load(f)['traceEvents']
     finally:
         os.unlink(path)
+    device = [e for e in events if e.get('cat') in DEVICE_OPS]
     ops = sorted((e['ts'], e['ts'] + e.get('dur', 0), e['name'][:80])
-                 for e in events if e.get('cat') in DEVICE_OPS)
+                 for e in device)
     if not ops:
         return None
+    busy = {}
+    for e in device:
+        busy[e['name']] = busy.get(e['name'], 0.0) + e.get('dur', 0)
     gaps, (_, end, last) = [], ops[0]
     for start, stop, name in ops[1:]:
         if start > end:
@@ -126,7 +137,8 @@ def replay_gaps(graph, top=GAPS):
     gaps.sort(key=lambda g: -g[0])
     return dict(span_us=end - ops[0][0], idle_us=sum(g[0] for g in gaps),
                 ops=len(ops), gaps=gaps[:top],
-                after=sorted(after.values(), key=lambda a: -a[0])[:top])
+                after=sorted(after.values(), key=lambda a: -a[0])[:top],
+                busy=busy)
 
 
 def chunk_host(s, reps=REPS):

@@ -35,6 +35,7 @@ import torch
 from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import cell_walk
 from pysph_tpu_torch.ops import delta_pair as dl
+from pysph_tpu_torch.ops import gasd_pair as gd
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import micro
@@ -126,6 +127,18 @@ IISPH_TERM_FLOPS = {ip.NDEN: 1, ip.SDEN: 2, ip.SDENB: 3, ip.DII: 9,
                     ip.PSOLVE: 22, ip.PSOLVEB: 8, ip.PFORCE: 15,
                     ip.PFORCEB: 11}
 IMAGE_FLOPS = 4
+#: gasd_pair.cu: per pair in support, pair_of (xij, r2, rinv, rij: 11);
+#: the density set's q, shape at hi, the gradient's factor and DWI, v.DWI,
+#: WI, the five sums and GHI (gradient_h, 6): 35 beside the shape; the
+#: momentum set's pj / rhoj^2, cij, rhoij, hij, EPS, the two further
+#: smoothing lengths' h1 and fac, three gradients' q and factor, DWI DWJ
+#: DWIJ, vij, the normalised XIJ, dot, Fij, the signal speeds, the MAX,
+#: alpha1, the pressure terms, v.DWI, the conduction and del2e: 119
+#: beside its three shapes, and the viscosity's 17 on a pair with dot <= 0
+GASD_PAIR_FLOPS = 11
+GASD_SET_FLOPS = {gd.SDEN: 35, gd.MPM: 119}
+GASD_SHAPES = {gd.SDEN: 1, gd.MPM: 3}
+GASD_VISC_FLOPS = 17
 
 
 def bound(work):
@@ -370,6 +383,44 @@ def iisph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         work['bytes'] += _source_bytes(src, reached, ncells,
                                        ip._reads(ts.terms, 1))
     work['bytes'] += _dest_bytes(dest, write_mask, pre, ip._reads(terms, 0))
+    return work
+
+
+def gasd_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Work of one ``gasd_pair`` call (the stencil wrapped on a periodic
+    grid): the momentum set's viscosity counted on the pairs that
+    approach (``dot <= 0``: ``v_ij . x_ij <= 0``) in this call's data.
+    ``pair_flops`` leaves out the support tests of the stencil's
+    candidates: the work of the pairs alone, which a grid whose cells
+    fit each particle's h (stratified, ROADMAP Queue 1 item 27) would
+    come nearer to (``bound(dict(work, flops=work['pair_flops']))``)."""
+    terms = 0
+    work = dict(candidates=0, visited=0, pairs=0, flops=0, pair_flops=0,
+                bytes=0)
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
+    image = IMAGE_FLOPS * sum(grid.periodic)
+    n = dest['x'].shape[0]
+    for src, cells, gs in sources:
+        terms |= gs.terms
+        cand, reached, ncells = stencil(grid, dest_cells, cells)
+        i, j = grid.neighbor_pairs(dest, dest_cells, src, cells, (0, n))
+        pairs = int(i.numel())
+        work['candidates'] += cand
+        work['visited'] += cand
+        work['pairs'] += pairs
+        paired = pairs * (GASD_PAIR_FLOPS + image + GASD_SET_FLOPS[
+            gs.terms] + GASD_SHAPES[gs.terms] * shape)
+        if gs.terms & gd.MPM:
+            approach = sum(
+                (dest[v][i] - src[v][j]) * grid.image(d, dest[c][i] -
+                                                      src[c][j])
+                for d, (c, v) in enumerate(zip('xyz', 'uvw'))) <= 0
+            paired += int(approach.sum()) * GASD_VISC_FLOPS
+        work['pair_flops'] += paired
+        work['flops'] += cand * (SUPPORT_FLOPS + image) + paired
+        work['bytes'] += _source_bytes(src, reached, ncells,
+                                       gd._reads(gs.terms, 1))
+    work['bytes'] += _dest_bytes(dest, write_mask, pre, gd._reads(terms, 0))
     return work
 
 

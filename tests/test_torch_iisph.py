@@ -173,6 +173,13 @@ class _PyInit(Equation):
 @pytest.mark.parametrize('feature', ['condition', 'update_nnps', 'pre',
                                      'post', 'start_idx', 'stop_idx'])
 def test_group_features_not_ported_are_refused(feature):
+    if feature == 'update_nnps':
+        # ported with the gas-dynamics schemes: taken on a plain and an
+        # iterated group (tests/test_torch_gas_dynamics.py holds the
+        # re-binning to the JAX package's)
+        assert Group([], update_nnps=1).update_nnps
+        assert Group([], update_nnps=True, iterate=True).update_nnps
+        return
     with pytest.raises(NotImplementedError, match='item 21'):
         Group([], **{feature: 1})
 
