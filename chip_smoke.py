@@ -234,12 +234,29 @@ Phases (any failure propagates; the exit code is then not 0):
    solution within 1e-3 of the JAX package's (``JAX_SHOCKTUBE``); the
    Sedov blast at nx=41 in float32 for 200 steps, its shell radius, peak
    density and total energy within 1e-3 of the JAX package's
-   (``JAX_SEDOV``); and the blast at nx=401 for 200 steps per step (the
-   density sweeps on the host): ms/step over steps 20-199, the sweeps,
-   host reads, launches and binnings a step, the largest hmax/hmin, the
-   candidates a dest, the drift in total energy, and one step's device
-   idle share and time by layer from a ``torch.profiler`` trace
-   (``_gasd_drive``);
+   (``JAX_SEDOV``); the gated density sweep (``gasd_sweep``) against its
+   plain version on every sweep of an iteration (``_gasd_sweep_checks``:
+   the Sedov lattice at nx=41 and the shock tube at nl=80 in both
+   dtypes, a list of one entry, Sedov nx=401 after 50 steps in float32,
+   where float32 may end a particle converged on one side only where its
+   step lies within rounding of htol, counted), its neighbour list
+   against ``pair_link.neighbours_reference`` and the momentum launch on
+   it bit for bit the walk, timed; 20 steps of Sedov nx=401 under
+   ``mpm`` and ``gsph`` in chunks against the per-step loop bit for bit
+   (``_gasd_chunk_gate``); the blast at nx=401 for 200 steps in chunks of
+   10 (the sweeps gated on the card, at most 0.2 host reads a step) and
+   per step (``_gasd_drive``): ms/step over steps 20-199, the sweeps,
+   slots, redos, host reads, launches and binnings a step, the largest
+   hmax/hmin, the candidates a dest, the drift in total energy, and a
+   step's device idle share and time by layer from a ``torch.profiler``
+   trace (a replay of the chunk's graph); the binning's guards
+   (``_bin_guard_phase``: 160,801 particles in one cell and on the
+   clamped edges of a 4 x 4 grid sorted as ``torch.sort(cid,
+   stable=True)``, a NaN state not binned and raising, a chunked run
+   with a NaN h raising ``FloatingPointError`` at its read, before its
+   first chunk and after it (with no redo), each within
+   ``BIN_GUARD_SECONDS``) and its times on the blast's final state beside
+   ``torch.sort``'s;
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -310,7 +327,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import CubicSpline, kernel_kind
+from pysph_tpu_torch.base.utils import get_particle_array_gasd
+from pysph_tpu_torch.config import Config
 from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
@@ -330,6 +350,7 @@ from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import iisph_solve as isv
 from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops import micro
+from pysph_tpu_torch.ops import pair_link as pl
 from pysph_tpu_torch.ops import pair_stub as stub
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops.pair_engine import PairSource
@@ -639,6 +660,8 @@ def _bin_phase(label, s, out):
         calls = bin_check.check(s.grid, used, seed=i,
                                 label='%s eval %d' % (label, i))
         t = bin_check.times(s.grid, used)
+        cid = s.grid.bin_all(used)[next(iter(used))].cell.long()
+        t['sort_ms'] = events_ms(lambda: torch.sort(cid, stable=True), 20)
         n = sum(st['x'].shape[0] for st in used.values())
         print('bin_cells %s eval %d after %d steps (%d particles in %d '
               'arrays, %d cells): exactly the plain version in %d calls, '
@@ -649,9 +672,11 @@ def _bin_phase(label, s, out):
                    t['kept_ms'], t['rebuilt_ms'], t['plain_ms']) +
                   roofline.bound(t['kept_work']) +
                   roofline.bound(t['rebuilt_work'])), flush=True)
-        print('  rebuilt, by kernel (ms): %s' % ', '.join(
-            '%s %.4f' % (k.split('(')[0].split(' ')[-1], v)
-            for k, v in t['rebuilt_kernels'].items()), flush=True)
+        print('  rebuilt, by kernel (ms): %s; torch.sort(cid, stable=True) '
+              'on the first array\'s cell ids %.4f ms' % (', '.join(
+                  '%s %.4f' % (k.split('(')[0].split(' ')[-1], v)
+                  for k, v in t['rebuilt_kernels'].items()), t['sort_ms']),
+              flush=True)
         rows.append(t)
     out[label] = rows
 
@@ -2338,26 +2363,40 @@ def _gasd_gate(run, size, dtype, steps=0):
     gasd_pair, packs, seconds)."""
     app = gasd_check.app(run, size, dtype, steps=steps)
     s = app.solver
-    gd.gasd_pair.launches = cell_pack.pack.launches = 0
+    gd.gasd_pair.launches = gd.gasd_sweep.launches = 0
+    cell_pack.pack.launches = 0
     start = time.perf_counter()
     app.solve()
     torch.cuda.synchronize()
     secs = time.perf_counter() - start
     st = {p: v.double().cpu().numpy() for p, v in s.states['fluid'].items()
           if v.is_floating_point()}
-    return s, st, gd.gasd_pair.launches, cell_pack.pack.launches, secs
+    launches = gd.gasd_pair.launches + gd.gasd_sweep.launches
+    if not (gd.gasd_pair.launches and gd.gasd_sweep.launches):
+        raise AssertionError('%s %d: gasd_pair %d, gasd_sweep %d launches'
+                             % (run, size, gd.gasd_pair.launches,
+                                gd.gasd_sweep.launches))
+    return s, st, launches, cell_pack.pack.launches, secs
 
 
-def _gasd_drive(label, size, steps):
+def _gasd_drive(label, size, steps, chunk_steps):
     """The Sedov blast at ``size`` in float32 for ``steps`` steps from the
-    example's start with the CFL dt (``gasd_check.FULL_WIDTH``), timed per
-    step (``time_chunks.timed_solve``: the
-    host clock at each step's start, the card synchronised, over steps
-    20 on): ``gasd_pair``'s, the pack's and the binning's launches set to
-    0 just before and read just after; the sweeps, host reads and
-    re-binnings a step; the largest hmax/hmin and the candidates a dest
-    at the end; the drift in total energy; a step's device idle share and
-    its device time by layer from one step's ``torch.profiler`` trace."""
+    example's start with the CFL dt (``gasd_check.FULL_WIDTH``), in
+    chunks of ``chunk_steps`` (1: per step), timed
+    (``time_chunks.timed_solve``: per step the host clock at each step's
+    start, the card synchronised; in chunks after each chunk's read, over
+    the chunks replaying a graph captured before them; from step 20 on):
+    ``gasd_pair``'s, ``gasd_sweep``'s, the pack's and the binning's
+    launches set to 0 just before and read just after (each must have
+    launched); after the initial evaluation (250 sweeps: its h0 is 0, so
+    that no particle's h converges), kept apart: a step's sweeps (min,
+    mean, max), host reads (the solver's and ``converged``'s), binnings
+    (the integrator's reuse test and the sweeps' own, on the device), the
+    slots, redos and captures; the hmax/hmin and candidates a dest at the
+    end, the drift in total energy, and a step's device time by layer and
+    idle share (per step: one step's ``torch.profiler`` trace; in chunks:
+    one replay of the chunk's graph, a tenth of it).  Returns the row, the
+    final state (float32 tensors on the card) and the run's grid."""
     app = gasd_check.app('sedov', size, torch.float32, steps=steps,
                          extra=gasd_check.FULL_WIDTH)
     s = app.solver
@@ -2365,41 +2404,54 @@ def _gasd_drive(label, size, steps):
     st = s.states['fluid']
     e0 = sedov.figures(*[st[p].double().cpu().numpy() for p in (
         'x', 'y', 'u', 'v', 'rho', 'm', 'e')])['energy']
-    spread, start = [], {}
+    start = {}
 
     def counts():
+        ig = s.integrator
         return dict(gasd_pair=gd.gasd_pair.launches,
+                    gasd_sweep=gd.gasd_sweep.launches,
                     cell_pack=cell_pack.pack.launches,
                     bin_cells=bc.bin_cells.launches,
                     converged_reads=a_eval.converged_reads, reads=s.reads,
-                    binnings=a_eval.binnings)
+                    binnings=float(ig.rebuilds) + float(a_eval.rebuilds),
+                    sweep_binnings=float(a_eval.rebuilds))
 
-    def pre_step(solver):
-        # the counts after the initial evaluation (250 sweeps: its h0 is
-        # 0, so that no particle's h converges), kept apart
-        if not start:
-            start.update(counts())
-        st = solver.states['fluid']
-        spread.append(torch.stack([st['h'].max(), st['h'].min()]))
+    initial = s.integrator.initial_acceleration
 
-    s.add_pre_step_callback(pre_step)
-    gd.gasd_pair.launches = cell_pack.pack.launches = 0
-    bc.bin_cells.launches = 0
+    def initial_acceleration(*args):
+        out = initial(*args)
+        start.update(counts())
+        return out
+
+    s.integrator.initial_acceleration = initial_acceleration
+    dev = st['x'].device
+    pl.reset_overflow('gasd_pair', dev)
+    gd.gasd_pair.launches = gd.gasd_sweep.launches = 0
+    cell_pack.pack.launches = bc.bin_cells.launches = 0
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    ms, samples = time_chunks.timed_solve(app, 1)
+    ms, samples = time_chunks.timed_solve(app, chunk_steps)
     end = counts()
-    launches = {k: end[k] for k in ('gasd_pair', 'cell_pack', 'bin_cells')}
+    launches = {k: end[k] for k in ('gasd_pair', 'gasd_sweep', 'cell_pack',
+                                    'bin_cells')}
     per_step = {k: (end[k] - start[k]) / s.count for k in end}
-    if not (launches['gasd_pair'] and launches['bin_cells'] and
-            launches['cell_pack'] == launches['gasd_pair']):
-        raise AssertionError('%s did not run through gasd_pair, the pack '
-                             'and the binning: %s' % (label, launches))
+    if not (launches['gasd_pair'] and launches['gasd_sweep'] and
+            launches['bin_cells'] and launches['cell_pack'] ==
+            launches['gasd_pair'] + launches['gasd_sweep']):
+        raise AssertionError('%s did not run through gasd_pair, gasd_sweep, '
+                             'the pack and the binning: %s' % (label,
+                                                               launches))
     sweeps = list(a_eval.sweeps)
     n = st['x'].shape[0]
-    ratios = torch.stack(spread).double().cpu().numpy()
-    hmax_hmin = float((ratios[:, 0] / ratios[:, 1]).max())
+    # the dests past the list's entries: in every sweep that ran (on the
+    # card, graph replays too), and in the last one
+    past = pl.overflowed('gasd_pair', dev)
+    plans = a_eval.sweep_plans()
+    last = plans[0].buffers.count
+    past_last = int((last > plans[0].buffers.nbr.shape[0]).sum())
     st = s.states['fluid']
+    hmax_hmin = float(st['h'].max() / st['h'].min())
+    final = {p: v.clone() for p, v in st.items()}
     fin = {p: st[p].double().cpu().numpy() for p in (
         'x', 'y', 'u', 'v', 'rho', 'm', 'e', 'h')}
     figs = sedov.figures(*[fin[p] for p in ('x', 'y', 'u', 'v', 'rho', 'm',
@@ -2409,63 +2461,75 @@ def _gasd_drive(label, size, steps):
     finite = all(bool(torch.isfinite(v).all()) for v in st.values()
                  if v.is_floating_point())
     steps_run = s.count
-    # one more step (evaluation, binning, stages) traced: the state moves
-    # on, the counts are read above
-    trace = prof_chunk.trace_gaps(
-        lambda: s.integrator.step(s.states, s.t, s.dt))
+    # after the counts: the state moves on
+    if chunk_steps > 1:
+        trace = prof_chunk.replay_gaps(s._graph)
+        per = chunk_steps
+    else:
+        trace = prof_chunk.trace_gaps(
+            lambda: s.integrator.step(s.states, s.t, s.dt))
+        per = 1
     layers = {}
     for name, us in trace['busy'].items():
         key = ('gasd_pair density' if 'gasd_pair' in name and 'Density'
                in name else 'gasd_pair momentum' if 'gasd_pair' in name
-               else 'pack' if 'cell_pack' in name else 'binning'
+               else 'pack' if 'pack' in name else 'binning'
                if 'bin::' in name else 'elementwise and copies')
-        layers[key] = layers.get(key, 0.0) + us / 1e3
-    busy = (trace['span_us'] - trace['idle_us']) / 1e3
+        layers[key] = layers.get(key, 0.0) + us / 1e3 / per
+    busy = (trace['span_us'] - trace['idle_us']) / 1e3 / per
     row = dict(ms=ms, samples=len(samples), steps=steps_run, t=s.t,
-               particles=n, launches=launches, initial=start,
-               per_step=per_step,
-               launches_per_step=per_step['gasd_pair'],
+               chunk_steps=chunk_steps, particles=n, launches=launches,
+               initial=start, per_step=per_step,
+               launches_per_step=per_step['gasd_pair'] +
+               per_step['gasd_sweep'],
                evals=len(sweeps), sweeps_initial=sweeps[0],
                sweeps_steps=(min(sweeps[1:]), float(np.mean(sweeps[1:])),
                              max(sweeps[1:])),
                reads_per_step=per_step['converged_reads'] +
-               per_step['reads'] + per_step['binnings'],
-               rebuilds=s.rebuilds,
-               binnings_per_step=per_step['binnings'] + s.rebuilds /
-               steps_run,
+               per_step['reads'],
+               binnings_per_step=per_step['binnings'],
+               sweep_binnings_per_step=per_step['sweep_binnings'],
+               slots=[p.slots for p in plans], redos=s.redos,
+               past_sweeps=past / max(sum(sweeps), 1), past_last=past_last,
+               most_pairs=int(last.max()),
+               captures=s.captures, replays=s.replays,
                hmax_hmin=hmax_hmin, candidates_per_dest=candidates / n,
                energy_drift=figs['energy'] / e0 - 1.0, figures=figs,
                grows=s.grid.grows, dims=s.grid.dims,
                peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
-               step_span_ms=trace['span_us'] / 1e3, step_busy_ms=busy,
+               step_span_ms=trace['span_us'] / 1e3 / per, step_busy_ms=busy,
                idle_share=trace['idle_us'] / trace['span_us'],
-               step_ops=trace['ops'], layers=layers, gaps=trace['gaps'])
-    print('%s float32, per step (the CFL dt): %d steps to t=%.6g, median '
-          '%.3f ms/step (min %.3f, max %.3f over %d samples from step %d); '
-          'gasd_pair %d launches in the run, %d packs, %d bin_cells calls; '
-          'the initial evaluation %d sweeps (%s); a step, the steps alone: '
-          'sweeps %d / %.3f / %d (min / mean / max), gasd_pair launches '
-          '%.3f (the sweeps\' density launches and one momentum launch), '
-          'host reads %.3f (converged %.3f, the solver\'s %.3f, one before '
-          'each re-binning), binnings '
-          '%.3f (in the density sweeps %.3f, by the reuse test %.3f); '
-          'largest hmax/hmin %.4f; %.1f stencil candidates a dest at the end '
-          '(grid %s, %d grows); total energy drift %.3g; figures %s; peak '
-          'device memory %.1f MiB; finite %s' % (
-              label, steps_run, s.t, ms, min(samples), max(samples),
-              len(samples), time_chunks.WARMUP, launches['gasd_pair'],
-              launches['cell_pack'], launches['bin_cells'], sweeps[0], start,
-              *row['sweeps_steps'], per_step['gasd_pair'],
+               step_ops=trace['ops'] / per, layers=layers,
+               gaps=trace['gaps'])
+    how = 'in chunks of %d' % chunk_steps if chunk_steps > 1 else \
+        'per step'
+    print('%s float32, %s (the CFL dt): %d steps to t=%.6g, median %.4f '
+          'ms/step (min %.4f, max %.4f over %d samples from step %d); '
+          'launches in the run %s; the initial evaluation %d sweeps; a '
+          'step, the steps alone: sweeps %d / %.3f / %d (min / mean / max), '
+          'launches %.3f (gasd_sweep and gasd_pair), host reads %.3f '
+          '(converged %.3f, the solver\'s %.3f), binnings %.3f (in the '
+          'sweeps %.3f); slots %s, redos %d, captures %d, replays %d; '
+          'dests past the list\'s entries %.1f a sweep, %d in the last '
+          '(the most pairs %d); '
+          'largest hmax/hmin %.4f; %.1f stencil candidates a dest at the '
+          'end (grid %s, %d grows); total energy drift %.3g; figures %s; '
+          'peak device memory %.1f MiB; finite %s' % (
+              label, how, steps_run, s.t, ms, min(samples), max(samples),
+              len(samples), time_chunks.WARMUP, launches, sweeps[0],
+              *row['sweeps_steps'], row['launches_per_step'],
               row['reads_per_step'], per_step['converged_reads'],
               per_step['reads'], row['binnings_per_step'],
-              per_step['binnings'], s.rebuilds / steps_run, hmax_hmin,
-              row['candidates_per_dest'], s.grid.dims, s.grid.grows,
-              row['energy_drift'], figs, row['peak_mib'], finite),
-          flush=True)
-    print('%s: one step\'s trace: %.4f ms from its first device operation '
-          'to its last, busy %.4f ms (%d operations), idle share %.1f%%; '
-          'device ms by layer %s; longest gaps %s' % (
-              label, row['step_span_ms'], busy, trace['ops'],
+              row['sweep_binnings_per_step'], row['slots'], s.redos,
+              s.captures, s.replays, row['past_sweeps'], past_last,
+              row['most_pairs'], hmax_hmin, row['candidates_per_dest'],
+              s.grid.dims, s.grid.grows, row['energy_drift'], figs,
+              row['peak_mib'], finite), flush=True)
+    print('%s %s: a step\'s trace (%s): %.4f ms from its first device '
+          'operation to its last, busy %.4f ms (%.0f operations), idle '
+          'share %.1f%%; device ms by layer %s; longest gaps %s' % (
+              label, how, 'one replay of the chunk, a tenth' if per > 1
+              else 'one step', row['step_span_ms'], busy, row['step_ops'],
               100 * row['idle_share'], {k: round(v, 4) for k, v in
                                         layers.items()}, trace['gaps']),
           flush=True)
@@ -2473,7 +2537,168 @@ def _gasd_drive(label, size, steps):
             set(a_eval.engine_choices.values()) != {'kernel'}:
         raise AssertionError('%s did not run every pair phase on gasd_pair '
                              'or ended non-finite' % label)
-    return row
+    if chunk_steps > 1 and not (s.replays and plans and
+                                row['reads_per_step'] <= 0.2):
+        raise AssertionError('%s did not run its sweeps in chunks on the '
+                             'card: %s' % (label, row))
+    return row, final, s.grid
+
+
+def _gasd_chunk_gate():
+    """20 steps of Sedov nx=401 in float32 (``gasd_check.FULL_WIDTH``)
+    under ``mpm`` and ``--adaptive-h gsph`` in chunks of 10 replayed from
+    CUDA graphs against the per-step loop: every prop equal bit for bit,
+    t, dt and the count too."""
+    out = {}
+    for scheme in ('mpm', 'gsph'):
+        got = {}
+        for k in (10, 1):
+            app = gasd_check.app('sedov', 401, torch.float32, steps=20,
+                                 extra=gasd_check.FULL_WIDTH +
+                                 ('--adaptive-h', scheme))
+            s = app.solver
+            s.chunk_steps = k
+            app.solve()
+            got[k] = s
+        a, b = got[10], got[1]
+        differ = [p for p, v in b.states['fluid'].items()
+                  if not torch.equal(v, a.states['fluid'][p])]
+        out[scheme] = dict(steps=a.count, replays=a.replays,
+                           captures=a.captures, redos=a.redos,
+                           reads=(a.reads, b.reads), differ=differ)
+        print('gas chunk gate: sedov nx=401 float32 --adaptive-h %s, 20 '
+              'steps in chunks of 10 (%d captures, %d replays, %d redos, %d '
+              'reads) against per step (%d reads): props that differ %s; '
+              't %s, dt %s, count %s equal' % (
+                  scheme, a.captures, a.replays, a.redos, a.reads, b.reads,
+                  differ, a.t == b.t, a.dt == b.dt, a.count == b.count),
+              flush=True)
+        if differ or not (a.t == b.t and a.dt == b.dt and a.count ==
+                          b.count == 20 and a.replays):
+            raise AssertionError('sedov --adaptive-h %s: the chunks differ '
+                                 'from the per-step loop' % scheme)
+    return out
+
+
+#: seconds a guarded binning (``_bin_guard_phase``) may take
+BIN_GUARD_SECONDS = 10.0
+
+
+def _bin_guard_phase(sedov_state):
+    """The binning's guards on the card, each within
+    ``BIN_GUARD_SECONDS``: 160,801 particles crowded into one cell, and
+    onto the clamped edges of a grid of 4 x 4 cells, binned with
+    ``order`` equal to ``torch.sort(cid, stable=True)``'s, timed against
+    that sort; Sedov nx=401's state with one x made NaN binned: nothing
+    binned, the grid's flag set, ``check_finite`` raising; and a chunked
+    Sedov nx=101 run whose h is made NaN raising ``FloatingPointError``
+    at its first read, and one whose h is made NaN after a first chunk
+    raising at the next chunk's read with no redo.  Returns the times."""
+    out = {}
+    rng = np.random.default_rng(4)
+    n = 160801
+    for label, spread, dims in (('one cell', 1e-3, None),
+                                ('clamped edges', 400.0, (4, 4, 1))):
+        pa = get_particle_array_gasd(name='fluid', x=rng.uniform(0, spread, n),
+                                     y=rng.uniform(0, spread, n), h=1.0,
+                                     m=1.0)
+        grid = CellGrid.from_particles([pa], dim=2, radius_scale=3.0)
+        if dims is not None:
+            grid._set_dims(dims)
+        states = {'fluid': pa.to_device(Config(device='cuda',
+                                               dtype=torch.float32))}
+        handle = grid.handle_for(None, states)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bc.bin_cells(grid, states, handle, force=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        cid = handle.lists['fluid'].cell.long()
+        largest = int(torch.bincount(cid, minlength=grid.ncells).max())
+        stable = torch.equal(handle.lists['fluid'].order.long(),
+                             torch.sort(cid, stable=True).indices)
+        ms = graph_ms(lambda: bc.bin_cells(grid, states, handle, force=True),
+                      5)
+        sort_ms = events_ms(lambda: torch.sort(cid, stable=True), 5)
+        calls = bin_check.check(grid, states, label=label)
+        out[label] = dict(seconds=secs, ms=ms, sort_ms=sort_ms,
+                          largest=largest)
+        print('bin_cells, %d particles %s (grid %s, the largest cell %d): '
+              'order equal to torch.sort(cid, stable=True) %s, exactly the '
+              'plain version in %d calls; first call %.4f s, rebuilt %.4f '
+              'ms in a graph, torch.sort stable %.4f ms' % (
+                  n, label, grid.dims, largest, stable, calls, secs, ms,
+                  sort_ms), flush=True)
+        if not (stable and secs < BIN_GUARD_SECONDS and largest >= n // 10):
+            raise AssertionError('bin_cells on %s' % label)
+    grid, states = sedov_state
+    handle = grid.handle_for(None, states)
+    bc.bin_cells(grid, states, handle, force=True)
+    kept = [t.clone() for t in handle.lists['fluid']]
+    st = dict(states['fluid'])
+    st['x'] = st['x'].clone()
+    st['x'][12345] = float('nan')
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    flag = bc.bin_cells(grid, {'fluid': st}, handle, force=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    unchanged = all(torch.equal(a, b) for a, b in
+                    zip(kept, handle.lists['fluid']))
+    try:
+        grid.check_finite()
+        raised = False
+    except FloatingPointError:
+        raised = True
+    print('bin_cells, Sedov nx=401 with one x NaN: binned in %.4f s, flag '
+          '%s, the lists unchanged %s, FloatingPointError raised %s' % (
+              secs, bool(flag), unchanged, raised), flush=True)
+    if bool(flag) or not (unchanged and raised and
+                          secs < BIN_GUARD_SECONDS):
+        raise AssertionError('bin_cells on a NaN state')
+    app = gasd_check.app('sedov', 101, torch.float32, steps=30,
+                         extra=gasd_check.FULL_WIDTH)
+    s = app.solver
+    s.states['fluid']['h'][77] = float('nan')
+    t = time.perf_counter()
+    try:
+        app.solve()
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    secs = time.perf_counter() - t
+    print('sedov nx=101 float32 in chunks with one h NaN: %s after %.2f s '
+          '(%d steps, %d reads)' % (raised, secs, s.count, s.reads),
+          flush=True)
+    if raised is None or secs > BIN_GUARD_SECONDS:
+        raise AssertionError('a NaN h did not raise at the solver\'s read')
+    out['nan'] = dict(seconds=secs, steps=s.count)
+    # the NaN after a first chunk, at the example's fixed dt (no per-step
+    # read first): the next chunk's sweeps never converge, and its read
+    # raises before any redo with more slots
+    app = gasd_check.app('sedov', 101, torch.float32, steps=10)
+    s = app.solver
+    app.solve()
+    done, replays, redos = s.count, s.replays, s.redos
+    s.max_steps = 30
+    s.states['fluid']['h'][77] = float('nan')
+    t = time.perf_counter()
+    try:
+        s.solve()
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    secs = time.perf_counter() - t
+    print('sedov nx=101 float32 in chunks with one h NaN after a first '
+          'chunk of %d steps: %s after %.2f s (%d steps, %d redos, %d '
+          'replays)' % (done, raised, secs, s.count, s.redos - redos,
+                        s.replays - replays), flush=True)
+    if raised is None or s.redos != redos or s.count != done or \
+            secs > BIN_GUARD_SECONDS:
+        raise AssertionError('a NaN h after a chunk did not raise at the '
+                             'next chunk\'s read with no redo')
+    out['nan_later'] = dict(seconds=secs, steps=s.count)
+    return out
 
 
 def _gasd_phase(kernels):
@@ -2614,17 +2839,121 @@ def _gasd_phase(kernels):
     blast = dict(t=s.t, steps=s.count, figures=figs, jax=JAX_SEDOV,
                  rel_err=errs, launches=launches, seconds=secs)
     del s, st
-    drive = _gasd_drive('sedov nx=401', 401, STEPS)
+    sweep = _gasd_sweep_checks()
+    gate = _gasd_chunk_gate()
+    drive, final, sedov_grid = _gasd_drive('sedov nx=401', 401, STEPS, 10)
+    per_step, stepped, _ = _gasd_drive('sedov nx=401', 401, STEPS, 1)
+    differ = [p for p, v in stepped.items() if not torch.equal(v, final[p])]
+    print('sedov nx=401 float32, %d steps in chunks against per step: props '
+          'that differ %s' % (STEPS, differ), flush=True)
+    if differ:
+        raise AssertionError('sedov nx=401: the chunks differ from the '
+                             'per-step loop in %s' % differ)
+    del stepped
+    states = {'fluid': final}
+    guard = _bin_guard_phase((sedov_grid, states))
+    sedov_bins = bin_check.times(sedov_grid, states)
+    cid = sedov_grid.bin_all(states)['fluid'].cell.long()
+    sedov_bins['sort_ms'] = events_ms(lambda: torch.sort(cid, stable=True),
+                                      20)
+    print('bin_cells, Sedov nx=401 float32 after %d steps in chunks (%d '
+          'cells): kept %.4f ms, rebuilt %.4f ms in a graph (by kernel %s), '
+          'plain %.3f ms; torch.sort(cid, stable=True) on its cell ids '
+          '%.4f ms' % (
+              STEPS, sedov_grid.ncells, sedov_bins['kept_ms'],
+              sedov_bins['rebuilt_ms'], {
+                  k.split('(')[0].split(' ')[-1]: round(v, 4)
+                  for k, v in sedov_bins['rebuilt_kernels'].items()},
+              sedov_bins['plain_ms'], sedov_bins['sort_ms']), flush=True)
     kernels['gasd_pair'] = dict(_entry(
         'gasd_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
         drive['launches']['gasd_pair'], err, both, plain, work, None,
         eager_ms=eager, share=bound_ms / both, pair_bound_ms=pair_bound_ms,
-        sets=sets,
+        sets=sets, linked_ms=sweep['times']['linked_ms'],
+        linked_walk_ms=sweep['times']['walk_ms'],
+        linked_bound_ms=roofline.bound(sweep['times']['linked_work'])[0],
+        overflowed_dests=sweep['times']['overflowed'],
         resources=resources, hmax_hmin=hmax_hmin, run=drive,
+        per_step_run=per_step, chunk_gate=gate,
         shocktube=tube, sedov_nx41=blast,
         path='sedov nx=401 after 50 steps, one density launch and the '
-        'momentum launch'))
-    return drive
+        'momentum launch, walking; linked_ms: the momentum launch on the '
+        'last sweep\'s list'))
+    t = sweep['times']
+    kernels['gasd_sweep'] = dict(_entry(
+        'gasd_sweep', 'pysph_tpu/ops/pallas_engine.py:1160',
+        drive['launches']['gasd_sweep'], sweep['max_abs_err'], t['ms'],
+        t['plain_ms'], t['work'], None, eager_ms=t['eager_ms'],
+        checks=sweep['checks'], guard=guard,
+        path='sedov nx=401 after 50 steps, one gated density sweep (the '
+        'pack, initialize, the sums, post_loop, the count, the list)'),
+        source='pysph_tpu_torch/csrc/gasd_pair.cu')
+    return drive, per_step, sedov_bins
+
+
+def _gasd_sweep_checks():
+    """``gasd_sweep`` against its plain version (``gasd_check.
+    check_sweep``: every sweep of an iteration from a state whose h moved
+    by up to 5%, the list against ``neighbours_reference``, the linked
+    momentum launch bit for bit the walk) on the Sedov lattice at nx=41
+    and the shock tube at nl=80 in both dtypes, with a list of one entry
+    (every warp walks), and at Sedov nx=401 in float32 after 50 steps,
+    where it is timed (``gasd_check.sweep_times``)."""
+    found, worst = [], 0.0
+    cases = [(run, size, dtype, 0, None) for dtype in (torch.float64,
+                                                      torch.float32)
+             for run, size in (('sedov', 41), ('shocktube', 80))]
+    cases.append(('sedov', 41, torch.float64, 0, 1))
+    for run, size, dtype, steps, cap in cases:
+        s = gasd_check.sweep_start(run, size, dtype, steps=steps)
+        label = '%s %d %s%s' % (run, size, str(dtype)[6:],
+                                '' if cap is None else ', list of %d' % cap)
+        f = gasd_check.check_sweep(s, label, TOL[dtype], capacity=cap)
+        found.append(dict(f, label=label))
+        print('compare gasd_sweep %s (h moved by up to 5%%): %d sweeps (the '
+              'kernel alone %d, the plain version alone %d), max abs err '
+              '%.3g, max scaled err %.3g; %d converged flags apart; %d pairs '
+              'listed, the list as neighbours_reference, %d dests past its '
+              '%d entries (the most pairs %d); the momentum launch on it '
+              'bit for bit the walk' % (
+                  label, f['sweeps'], f['sweeps_kernel'], f['sweeps_plain'],
+                  f['max_abs_err'], f['max_scaled_err'], f['flags_differ'],
+                  f['pairs'], f['overflowed'], f['capacity'],
+                  f['max_count']), flush=True)
+    s = gasd_check.sweep_start('sedov', 401, torch.float32, steps=50,
+                               jitter_start=False,
+                               extra=gasd_check.FULL_WIDTH)
+    label = 'sedov 401 float32 after 50 steps'
+    f = gasd_check.check_sweep(s, label, TOL[torch.float32])
+    found.append(dict(f, label=label))
+    worst = f['max_abs_err']
+    t = gasd_check.sweep_times(s)
+    bound_ms, bound_by = roofline.bound(t['work'])
+    lbound = roofline.bound(t['linked_work'])[0]
+    print('compare gasd_sweep %s: %d sweeps (kernel %d, plain %d), max abs '
+          'err %.3g, max scaled err %.3g; %d converged flags apart (steps '
+          'within %.3g of htol of it); %d pairs listed, %d dests past the '
+          '%d entries' % (
+              label, f['sweeps'], f['sweeps_kernel'], f['sweeps_plain'],
+              f['max_abs_err'], f['max_scaled_err'], f['flags_differ'],
+              f.get('flip_off', 0.0), f['pairs'], f['overflowed'],
+              f['capacity']), flush=True)
+    print('gasd_sweep, %s: a gated sweep launch %.4f ms in a graph (eager '
+          '%.4f, plain %.3f); bound %.4f ms (%s: %.4g flops, %d candidates, '
+          '%d pairs, %d B), share %.1f%%; the momentum launch on the last '
+          'sweep\'s list %.4f ms, walking %.4f (the list read where the '
+          'iteration ended converged: %s); its bound %.4f ms, share %.1f%%; '
+          '%d of %d dests past the list\'s 64 entries (the most pairs %d)'
+          % (label, t['ms'], t['eager_ms'], t['plain_ms'], bound_ms,
+             bound_by, t['work']['flops'], t['work']['candidates'],
+             t['work']['pairs'], t['work']['bytes'], 100 * bound_ms / t['ms'],
+             t['linked_ms'], t['walk_ms'], t['converged'], lbound,
+             100 * lbound / t['linked_ms'], t['overflowed'], t['dests'],
+             t['max_count']), flush=True)
+    return dict(checks=found, times=t, max_abs_err=worst)
+
+
+
 
 
 def _kinds_row():
@@ -3257,9 +3586,11 @@ def main():
         main_bin['plain_ms'], main_bin['rebuilt_work'], None,
         kept_ms=main_bin['kept_ms'],
         kept_bound_ms=roofline.bound(main_bin['kept_work'])[0],
+        sort_library_ms=main_bin['sort_ms'],
         path='dam_break_3d dx=0.02 after %d steps, one eval rebuilt (ms) '
-        'and kept (kept_ms)' % STEPS),
-        note='the binning and its reuse test, one call of five gated '
+        'and kept (kept_ms); sort_library_ms: torch.sort(cid, stable=True) '
+        'on its cell ids, the nearest PyTorch call to its sort' % STEPS),
+        note='the binning and its reuse test, one call of six gated '
         'kernels; its JAX counterpart, prepare_reuse and prepare, is XLA '
         'ops under a lax.cond, not a pallas_call')
     _c4_phase(runs, kernels)
@@ -3336,7 +3667,7 @@ def main():
     iisph_runs = _iisph_phase(kernels)
 
     # gas dynamics: the shock tube and the Sedov blast under GasDScheme
-    gasd_run = _gasd_phase(kernels)
+    gasd_run, gasd_step, gasd_bins = _gasd_phase(kernels)
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
@@ -3462,16 +3793,19 @@ def main():
                   r['launches']['iisph_pair'], r['launches']['iisph_solve'],
                   r['idle']['busy_ms'], 100 * r['idle']['idle_share'],
                   r['steps']))
-    r = gasd_run
-    print('Sedov nx=401 float32, per step (the density sweeps on the host; '
-          'a step, the initial evaluation apart): %.3f ms/step; sweeps %d / '
-          '%.3f / %d; host reads %.3f; gasd_pair launches %.3f; binnings '
-          '%.3f; idle share %.1f%%; largest hmax/hmin %.4f; %.1f candidates '
-          'a dest; energy drift %.3g' % (
-              r['ms'], *r['sweeps_steps'], r['reads_per_step'],
-              r['launches_per_step'], r['binnings_per_step'],
-              100 * r['idle_share'], r['hmax_hmin'],
-              r['candidates_per_dest'], r['energy_drift']))
+    print('Sedov nx=401 float32 (a step, the initial evaluation apart), in '
+          'chunks of 10 (the density sweeps gated on the card) / per step '
+          '(the sweeps\' loop on the host):')
+    for how, r in (('chunks', gasd_run), ('per step', gasd_step)):
+        print('  %-9s %.4f ms/step; sweeps %d / %.3f / %d; host reads '
+              '%.3f; launches %.3f; binnings %.3f; slots %s, redos %d; busy '
+              '%.4f ms, idle share %.1f%%; largest hmax/hmin %.4f; %.1f '
+              'candidates a dest; energy drift %.3g' % (
+                  how, r['ms'], *r['sweeps_steps'], r['reads_per_step'],
+                  r['launches_per_step'], r['binnings_per_step'], r['slots'],
+                  r['redos'], r['step_busy_ms'], 100 * r['idle_share'],
+                  r['hmax_hmin'], r['candidates_per_dest'],
+                  r['energy_drift']))
     print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
     for label, rows in bins.items():
         for i, t in enumerate(rows):

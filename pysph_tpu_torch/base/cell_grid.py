@@ -33,6 +33,12 @@ grid when it reads it.
 
 Particles keep their order: consumers read sources through ``order``.
 
+A position or h that is not finite (a run that blew up) is not binned:
+the binning keeps the handle as it was and sets the grid's
+``nonfinite`` flag on the device (``nonfinite_flag``), which the solver
+reads with its chunk's read (or its step's) and ``check_finite`` turns
+into ``FloatingPointError``.
+
 A periodic domain (``base/domain.py``, ``set_domain``) changes the
 geometry on its periodic axes as ``pysph_tpu``'s ``GridSpec`` does: the
 grid spans the box, ``max(floor(L / cell), 1)`` cells of width ``L /
@@ -76,13 +82,6 @@ class CellList(NamedTuple):
     order: torch.Tensor   # (n,) int32 particle indices sorted by cell
     start: torch.Tensor   # (ncells,) int32 first position in ``order``
     end: torch.Tensor     # (ncells,) int32 one past the last
-
-
-class PairsDropped(Exception):
-    """Raised where an evaluation finds, before it bins again, that a
-    torch engine pair list of its run dropped pairs: the run is to be
-    redone with the capacities grown (``run_sized``, the solver's redo)
-    before anything bins what the dropped pairs gave."""
 
 
 class PairCapacity(object):
@@ -195,6 +194,14 @@ class CellGrid(object):
         #: 0-d device bool that the torch engine's lists OR their
         #: overflow into while set (None: not kept)
         self.pair_overflow = None
+        #: 0-d device bool that every binning that met a position or h
+        #: that is not finite sets (``nonfinite_flag``; None before the
+        #: first binning)
+        self.nonfinite = None
+        #: 0-d device bool that the gated density sweeps OR an
+        #: evaluation that ran out of sweep slots into while set (None:
+        #: not kept; ``ops/pair_engine.py::SweepPlan``)
+        self.sweep_overflow = None
 
     def _set_domain(self, domain):
         """Keep ``domain`` (a ``DomainManager``, or None) and which axes
@@ -313,6 +320,29 @@ class CellGrid(object):
         handle = GridHandle(self, states)
         self._handles.add(handle)
         return handle
+
+    def nonfinite_flag(self, device):
+        """The grid's ``nonfinite`` flag on ``device`` (made where
+        missing: by the first binning, which no capture holds)."""
+        device = torch.device(device)
+        if device.type == 'cuda' and device.index is None:
+            device = torch.device('cuda', torch.cuda.current_device())
+        if self.nonfinite is None or self.nonfinite.device != device:
+            self.nonfinite = torch.zeros((), dtype=torch.bool,
+                                         device=device)
+        return self.nonfinite
+
+    def check_finite(self, flag=None):
+        """Raise ``FloatingPointError`` where a binning met a position or
+        h that is not finite: ``flag`` is the flag as the caller read it
+        (a bool), else it is read here (one read).  Clears the flag."""
+        if flag is None:
+            flag = self.nonfinite is not None and bool(self.nonfinite)
+        if flag:
+            self.nonfinite.zero_()
+            raise FloatingPointError(
+                'a position or h is not finite: the binning refused the '
+                'state (the run blew up)')
 
     def note_overflow(self, flag):
         """OR a binning's overflow flag into ``overflow`` (which it sets

@@ -21,6 +21,13 @@
 //   gives them), start and end per cell, and x, y, z copied into ref;
 // - where not: nothing of the handle changes (every kernel but the first
 //   returns at once); the flag is written either way;
+// - a position or h that is not finite (a run that blew up) is never
+//   binned: the reduction tests every particle itself (fmax drops a NaN
+//   operand, so the maxima never show one), and where it finds one (and
+//   active) the flag is 0 and the grid's flag `nonfinite` is set to 1,
+//   which the solver reads with what it reads anyway and raises
+//   FloatingPointError; so a NaN can no longer pile every particle into
+//   cell 0 for the sort;
 // - on a periodic axis (CellGrid with a periodic domain): the origin is
 //   the box's lower corner, the cells have the width L / dims, the id is
 //   floor((x - origin) / width) modulo the count, the axis never
@@ -37,11 +44,12 @@
 // and x y z once more, and writes cell, order, start, end, ref: a few MB,
 // ~2 us at 3.35 TB/s.  A kept eval reads x y z h and ref.
 //
-// Design: five launches, each gated by the flag on the card, so a CUDA
-// graph holds all five and a kept eval costs their early returns:
+// Design: six launches, each gated by the flag on the card, so a CUDA
+// graph holds all six and a kept eval costs their early returns:
 // 1. bin_reduce: grid-stride over all particles, block maxima, a partial
 //    per block; the last block to finish (a ticket) reduces the partials
-//    and decides (finalize).  It also zeroes the per-cell counts (scratch).
+//    and decides (finalize).  It also zeroes the per-cell counts and the
+//    counts of the listed cells (scratch).
 // 2. bin_count: cell ids, the counts by atomicAdd, ref.
 // 3. bin_scan: a block per tile of kScanTile cells of an array; it sums
 //    the counts before its tile (the tiles are few, so every block reads
@@ -49,12 +57,30 @@
 //    memory and writes start, and end = start (the scatter's cursors).
 // 4. bin_scatter: order[end[cell]++] = i, in no fixed order, which leaves
 //    end one past the cell's last;
-// 5. bin_sort: one thread per cell sorts its range of order (insertion:
-//    ~20-40 particles a cell at cell_slack 1.1), which makes order
-//    deterministic and equal to the stable sort's.
+// 5. bin_sort, a thread a cell: puts the cell's range of order in
+//    ascending order where it holds at most kTiny particles (the paths'
+//    cells of a few particles: its values in registers, each stored at
+//    its rank, kTiny^2 compares), and lists a longer one;
+// 6. bin_sort_listed sorts the listed cells, so that order is
+//    deterministic and the stable sort's: a warp a cell of at
+//    most kShort loads it into shared memory and each lane writes each
+//    of its values at its rank, the count of the cell's values below it
+//    (the indices are distinct): at most kShort / 32 values a lane times
+//    the count (the gas runs' cells of ~110); then a block a longer cell
+//    sorts it by an LSD radix sort of its indices, 8 bits a pass
+//    (ceil(bits of n / 8) passes), each pass a histogram, a scan and a
+//    scatter that is stable by construction (a slice of the block's
+//    threads at a time, in index order: a value's place is its digit's
+//    start, plus the values of that digit in the earlier slices, the
+//    earlier warps of its slice (shared counts) and the lower lanes of
+//    its warp (__match_any_sync)), through a scratch copy: O(k) a cell in
+//    its count k, whatever the cell holds (a state crowded into one cell
+//    sorts in one block in a few passes).
+// The insertion sort of every cell by one thread that this replaces
+// cost O(k^2) in a cell's count, and one thread sorted a crowded cell.
 //
 // Interface: plain C through ctypes (ops/bin_cells.py):
-// bin_cells_launch(const BinArgs*, stream) launches the five kernels and
+// bin_cells_launch(const BinArgs*, stream) launches the six kernels and
 // returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -70,8 +96,19 @@ constexpr int kScanThreads = 1024;
 // cells a block of bin_scan scans, kScanItems a thread
 constexpr int kScanItems = 8;
 constexpr int kScanTile = kScanThreads * kScanItems;
-// a partial: -lo (3), hi (3), hmax, disp2, each reduced by max
-constexpr int kValues = 8;
+// a partial: -lo (3), hi (3), hmax, disp2, and 1 where a particle's
+// position or h is not finite (else 0), each reduced by max
+constexpr int kValues = 9;
+// the longest cell a thread sorts alone (kTiny^2 compares in registers),
+// and the longest a warp sorts
+constexpr int kTiny = 16;
+constexpr int kShort = 256;
+// bin_sort_listed: threads a block, its warps, the radix and blocks (2
+// blocks an SM)
+constexpr int kLongThreads = 512;
+constexpr int kLongWarps = kLongThreads / 32;
+constexpr int kRadix = 256;
+constexpr int kLongBlocks = 132 * 2;
 
 struct BinArray {
   const void* x;     // (n,) of the dtype
@@ -84,6 +121,12 @@ struct BinArray {
   int32_t* start;    // (ncells,) first position in order
   int32_t* end;      // (ncells,) one past the last
   int32_t* count;    // (ncells,) scratch: the counts
+  int32_t* tmp;      // (n,) scratch: bin_sort_listed's copy
+  // (ncells,) scratch: the cells bin_sort leaves to bin_sort_listed, those
+  // of kTiny + 1 .. kShort particles from the front, the longer from the
+  // back, and (2,) their numbers
+  int32_t* listed;
+  int32_t* nlisted;
   int32_t n, pad;
 };
 
@@ -96,6 +139,7 @@ struct BinArgs {
   const uint8_t* active;    // () bool, or null: always active
   double* partial;          // (kReduceBlocks, kValues) scratch
   uint32_t* ticket;         // () scratch, 0 between launches
+  uint8_t* nonfinite;       // () bool, set where the state is not finite
   double slack_rs;          // cell_slack * radius_scale
   double half_margin;       // 0.5 * (cell_slack - 1) * radius_scale
   // the periodic axes (per[d] != 0): the box's lower corner, its length
@@ -184,8 +228,11 @@ __device__ void finalize(const BinArgs& a, const T* v) {
                                                : *width;
   const bool stale = disp2 > mul(margin, margin) ||
                      cell > mul(least, static_cast<T>(1.0001));
-  bool rebuild = a.force != 0 || stale;
-  if (a.active != nullptr) rebuild = rebuild && *a.active != 0;
+  const bool live = a.active == nullptr || *a.active != 0;
+  // a state that is not finite is not binned, and flags the grid
+  const bool bad = v[8] > static_cast<T>(0);
+  if (bad && live) *a.nonfinite = 1;
+  const bool rebuild = (a.force != 0 || stale) && live && !bad;
   *a.rebuild = rebuild;
   if (!rebuild) return;
   const int dims[3] = {a.nx, a.ny, a.nz};
@@ -210,6 +257,8 @@ __global__ void __launch_bounds__(kThreads) bin_reduce(const BinArgs a) {
   for (int j = 0; j < kValues; ++j) v[j] = lowest;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
   const int stride = gridDim.x * blockDim.x;
+  if (blockIdx.x == 0 && threadIdx.x < 2 * a.n_arr)
+    a.arr[threadIdx.x >> 1].nlisted[threadIdx.x & 1] = 0;
   for (int s = 0; s < a.n_arr; ++s) {
     const BinArray& A = a.arr[s];
     for (int c = first; c < a.ncells; c += stride) A.count[c] = 0;
@@ -226,7 +275,10 @@ __global__ void __launch_bounds__(kThreads) bin_reduce(const BinArgs a) {
       v[3] = fmax(v[3], px);
       v[4] = fmax(v[4], py);
       v[5] = fmax(v[5], pz);
-      v[6] = fmax(v[6], h[i]);
+      const T hi = h[i];
+      v[6] = fmax(v[6], hi);
+      if (!(isfinite(px) && isfinite(py) && isfinite(pz) && isfinite(hi)))
+        v[8] = static_cast<T>(1);
       T dx = sub(px, ref[i]), dy = sub(py, ref[A.n + i]),
         dz = sub(pz, ref[2 * A.n + i]);
       // a wrap moves a coordinate by a box length: its minimum image
@@ -360,21 +412,141 @@ __global__ void __launch_bounds__(kThreads) bin_scatter(const BinArgs a) {
   A.order[atomicAdd(&A.end[A.cell[i]], 1)] = i;
 }
 
+// A thread a cell: a cell of at most kTiny particles sorted in place, a
+// longer one listed for bin_sort_listed.
 __global__ void __launch_bounds__(kThreads) bin_sort(const BinArgs a) {
   if (!*a.rebuild) return;
   const BinArray& A = a.arr[blockIdx.y];
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= a.ncells) return;
-  int32_t* o = A.order;
-  const int s = A.start[c], e = A.end[c];
-  for (int k = s + 1; k < e; ++k) {
-    const int32_t v = o[k];
-    int j = k - 1;
-    while (j >= s && o[j] > v) {
-      o[j + 1] = o[j];
-      --j;
+  const int b = A.start[c], k = A.end[c] - b;
+  if (k > kShort) {
+    A.listed[a.ncells - 1 - atomicAdd(&A.nlisted[1], 1)] = c;
+  } else if (k > kTiny) {
+    A.listed[atomicAdd(&A.nlisted[0], 1)] = c;
+  } else if (k > 1) {
+    // in registers: each value goes to its rank (the indices are
+    // distinct), every load issued before any store
+    int32_t* o = A.order + b;
+    int32_t v[kTiny];
+#pragma unroll
+    for (int u = 0; u < kTiny; ++u) v[u] = u < k ? o[u] : INT32_MAX;
+#pragma unroll
+    for (int u = 0; u < kTiny; ++u) {
+      int r = 0;
+#pragma unroll
+      for (int w = 0; w < kTiny; ++w) r += v[w] < v[u];
+      if (u < k) o[r] = v[u];
     }
-    o[j + 1] = v;
+  }
+}
+
+// The listed cells: a warp a cell of at most kShort (a rank sort in the
+// warp's shared memory), then a block a longer cell (an LSD radix sort;
+// see the top).
+__global__ void __launch_bounds__(kLongThreads, 2)
+    bin_sort_listed(const BinArgs a) {
+  if (!*a.rebuild) return;
+  const BinArray& A = a.arr[blockIdx.y];
+  const int nmid = A.nlisted[0], nlong = A.nlisted[1];
+  if (blockIdx.x * kLongWarps >= nmid && blockIdx.x >= nlong) return;
+  __shared__ int32_t held[kLongWarps][kShort];
+  __shared__ int cnt[kLongWarps][kRadix];
+  __shared__ int base[kRadix], total[kRadix];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int32_t* s = held[warp];
+  for (int q = blockIdx.x * kLongWarps + warp; q < nmid;
+       q += gridDim.x * kLongWarps) {
+    const int c = A.listed[q];
+    const int b = A.start[c], k = A.end[c] - b;
+    int32_t* o = A.order + b;
+    for (int e = lane; e < k; e += 32) s[e] = o[e];
+    __syncwarp();
+    int32_t mine[kShort / 32];
+    int rank[kShort / 32];
+#pragma unroll
+    for (int u = 0; u < kShort / 32; ++u) {
+      mine[u] = lane + 32 * u < k ? s[lane + 32 * u] : INT32_MAX;
+      rank[u] = 0;
+    }
+    for (int e = 0; e < k; ++e) {
+      const int32_t v = s[e];
+#pragma unroll
+      for (int u = 0; u < kShort / 32; ++u) rank[u] += v < mine[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kShort / 32; ++u)
+      if (lane + 32 * u < k) o[rank[u]] = mine[u];
+    __syncwarp();
+  }
+  const int bits = A.n > 1 ? 32 - __clz(A.n - 1) : 1;
+  const int passes = (bits + 7) / 8;
+  for (int q = blockIdx.x; q < nlong; q += gridDim.x) {
+    const int c = A.listed[a.ncells - 1 - q];
+    const int b = A.start[c], k = A.end[c] - b;
+    int32_t* src = A.order + b;
+    int32_t* dst = A.tmp + b;
+    for (int p = 0; p < passes; ++p) {
+      const int shift = 8 * p;
+      for (int r = t; r < kRadix; r += kLongThreads) base[r] = 0;
+      __syncthreads();
+      for (int e = t; e < k; e += kLongThreads)
+        atomicAdd(&base[(src[e] >> shift) & (kRadix - 1)], 1);
+      __syncthreads();
+      if (warp == 0) {
+        // the digits' starts: an exclusive scan, kRadix / 32 a lane
+        constexpr int kPer = kRadix / 32;
+        int v[kPer], sum = 0;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) sum += v[j] = base[lane * kPer + j];
+        int x = sum;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x, o);
+          if (lane >= o) x += y;
+        }
+        int run = x - sum;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          base[lane * kPer + j] = run;
+          run += v[j];
+        }
+      }
+      __syncthreads();
+      for (int s0 = 0; s0 < k; s0 += kLongThreads) {
+        const int e = s0 + t;
+        const bool valid = e < k;
+        const int32_t v = valid ? src[e] : 0;
+        const int d = valid ? (v >> shift) & (kRadix - 1) : kRadix;
+        for (int r = t; r < kLongWarps * kRadix; r += kLongThreads)
+          (&cnt[0][0])[r] = 0;
+        __syncthreads();
+        const unsigned peers = __match_any_sync(0xffffffffu, d);
+        const int below = __popc(peers & ((1u << lane) - 1u));
+        if (valid && below == 0) cnt[warp][d] = __popc(peers);
+        __syncthreads();
+        // each digit's values in the slice's earlier warps
+        for (int r = t; r < kRadix; r += kLongThreads) {
+          int run = 0;
+          for (int w = 0; w < kLongWarps; ++w) {
+            const int x = cnt[w][r];
+            cnt[w][r] = run;
+            run += x;
+          }
+          total[r] = run;
+        }
+        __syncthreads();
+        if (valid) dst[base[d] + cnt[warp][d] + below] = v;
+        __syncthreads();
+        for (int r = t; r < kRadix; r += kLongThreads) base[r] += total[r];
+        __syncthreads();
+      }
+      int32_t* swap = src;
+      src = dst;
+      dst = swap;
+    }
+    if (passes & 1)
+      for (int e = t; e < k; e += kLongThreads) A.order[b + e] = src[e];
+    __syncthreads();
   }
 }
 
@@ -383,12 +555,14 @@ inline bool args_ok(const BinArgs& a) {
       a.nx < 1 || a.ny < 1 || a.nz < 1 ||
       static_cast<long long>(a.nx) * a.ny * a.nz != a.ncells ||
       a.origin == nullptr || a.width == nullptr || a.overflow == nullptr ||
-      a.rebuild == nullptr || a.partial == nullptr || a.ticket == nullptr)
+      a.rebuild == nullptr || a.partial == nullptr || a.ticket == nullptr ||
+      a.nonfinite == nullptr)
     return false;
   for (int s = 0; s < a.n_arr; ++s) {
     const BinArray& A = a.arr[s];
     if (A.n < 0 || A.start == nullptr || A.end == nullptr ||
-        A.count == nullptr ||
+        A.count == nullptr || A.listed == nullptr || A.nlisted == nullptr ||
+        (A.n > 0 && A.tmp == nullptr) ||
         (A.n > 0 && (A.x == nullptr || A.y == nullptr || A.z == nullptr ||
                      A.h == nullptr || A.ref == nullptr ||
                      A.cell == nullptr || A.order == nullptr)))
@@ -406,12 +580,13 @@ cudaError_t launch(const BinArgs& a, cudaStream_t st) {
       min(kReduceBlocks, max(1, (most + kThreads - 1) / kThreads));
   bin_reduce<T><<<blocks, kThreads, 0, st>>>(a);
   const dim3 by_particle((nmax + kThreads - 1) / kThreads, a.n_arr);
-  const dim3 by_cell((a.ncells + kThreads - 1) / kThreads, a.n_arr);
   if (nmax > 0) bin_count<T><<<by_particle, kThreads, 0, st>>>(a);
   const dim3 by_tile((a.ncells + kScanTile - 1) / kScanTile, a.n_arr);
   bin_scan<<<by_tile, kScanThreads, 0, st>>>(a);
   if (nmax > 0) bin_scatter<<<by_particle, kThreads, 0, st>>>(a);
+  const dim3 by_cell((a.ncells + kThreads - 1) / kThreads, a.n_arr);
   bin_sort<<<by_cell, kThreads, 0, st>>>(a);
+  bin_sort_listed<<<dim3(kLongBlocks, a.n_arr), kLongThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 

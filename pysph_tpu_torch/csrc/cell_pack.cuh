@@ -43,10 +43,17 @@ struct PackSrc {
   int32_t n, planes;
 };
 
-// n_src 0: nothing to pack
+// n_src 0: nothing to pack.  Two optional 0-d device gates, read by every
+// thread (null: the plain pack):
+//   run:   where it is 0 nothing is written
+//   skip0: where it is set plane 0 is left as it is
+// (csrc/gasd_pair.cu: the density sweep runs under its gate, and the
+// momentum launch that reads the last sweep's {x y z h} packs planes 1-3).
 struct PackArgs {
   PackSrc src[kMaxPackSources];
   int32_t n_src, dtype;
+  const uint8_t* run;
+  const uint8_t* skip0;
 };
 
 namespace pack {
@@ -71,13 +78,15 @@ __device__ __forceinline__ void store(double* plane, int k, double a,
 
 template <typename T>
 __global__ void __launch_bounds__(256) cell_pack_kernel(const PackArgs a) {
+  if (a.run != nullptr && *a.run == 0) return;
   const PackSrc& S = a.src[blockIdx.y];
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= S.n) return;
   const int j = S.order[k];
   T* out = static_cast<T*>(S.out);
   const size_t plane = static_cast<size_t>(S.n) * 4;
-  for (int q = 0; q < S.planes; ++q)
+  for (int q = a.skip0 != nullptr && *a.skip0 != 0 ? 1 : 0; q < S.planes;
+       ++q)
     store(out + q * plane, k, value<T>(S.prop[q][0], S.stride[q][0], j),
           value<T>(S.prop[q][1], S.stride[q][1], j),
           value<T>(S.prop[q][2], S.stride[q][2], j),

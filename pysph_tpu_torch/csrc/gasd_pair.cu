@@ -43,12 +43,38 @@
 //   plane 2: rho p cs e
 //   plane 3: omega alpha1 alpha2 0
 // of which the density set packs planes 0 and 1, the momentum set all
-// four.  No shared memory and no atomics: every run sums in the order of
-// the plain stencil walk.  Built with -fmad=false (ops/build.py
-// EXTRA_FLAGS): the support test then rounds each operation as the plain
-// version's, so the pairs and each dest's count are exactly its.  No
-// neighbour list is carried: h changes every sweep of the density
-// iteration, which re-bins, so each launch packs and walks afresh.
+// four.  No shared memory: every run sums in the order of the plain
+// stencil walk.  Built with -fmad=false (ops/build.py EXTRA_FLAGS): the
+// support test then rounds each operation as the plain version's, so the
+// pairs and each dest's count are exactly its.
+//
+// Modes (the template flag MODE).  kWalk: the call above (the tools'
+// unlinked calls).  kSweep, the density set only: one sweep of
+// GasDScheme's iterated density group (ops/gasd_pair.py gasd_sweep), all
+// gated by the 0-d flag run (null: runs; where 0 the pack and the kernel
+// return at once and nothing is written): the pack, SummationDensity's
+// initialize (the sums start at 0 under the write mask), its pair sums,
+// its post_loop (the Newton step of h towards rho = m (k / h)^dim for
+// each particle not yet converged, omega, arho, ah, converged and div;
+// in IEEE operations as the torch post_loop's) written in place of the
+// dest's props (each dest reads its own h before it writes it: the walk
+// reads the sources from the packed snapshot), and the count of the
+// particles not converged after it (warp-aggregated atomics, an integer:
+// deterministic); and it emits its neighbour list: entry c of the dest at
+// sorted position p is nbr[c * n_dest + p], source s's position k
+// numbered base_s + k, for c < cap, lcount[p] its pairs (which may exceed
+// cap: each such dest adds one to *overflow).  Positions do not move
+// during the iteration and a sweep that ends it converged leaves every h
+// as it was, so the last sweep's list holds the momentum launch's pairs,
+// in its walk's order.  kConsume, the momentum set only: where the 0-d
+// flag use is set (the iteration ended converged, decided on the card)
+// its pack skips plane 0 and the kernel reads {x y z h} from the last
+// sweep's copy (hplane) and a warp whose dests all fit reads their listed
+// pairs in list order, handing each to the same pair_of and functor as
+// the walk, so its sums are the walk's bit for bit; a warp with a dest
+// past cap walks (on that copy).  Where use is 0 (the iteration ended at
+// max_iterations, so h moved in its last sweep) it packs all four planes
+// and walks, as kWalk.
 //
 // What bounds it: operations.  A launch tests the candidates of the
 // stencil (a 16-byte record load and a support test each); per pair in
@@ -82,6 +108,16 @@ enum GasdOut {
 };
 // phase ids: the index of the phase set in ops/gasd_pair.py PHASE_SETS
 enum GasdPhase { kDensity, kMomentum };
+// modes, as ops/gasd_pair.py WALK, SWEEP, CONSUME
+enum GasdMode { kWalk, kSweep, kConsume };
+// kSweep's outputs, the order of ops/gasd_pair.py SWEEP_OUTPUTS: the
+// density sums, then what initialize and post_loop write
+enum GasdSweep {
+  wRho, wArho, wGrhox, wGrhoy, wGrhoz, wDwdh, wDiv, wOmega, wH, wAh,
+  wConverged, kSweepOut
+};
+// kConsume: listed entries whose loads a lane has in flight
+constexpr int kListBatch = 4;
 // the record planes of a packed copy
 enum GasdPlane { kPos, kVelM, kThermo, kSwitch, kGasdPlanes };
 
@@ -95,7 +131,8 @@ struct GasdSrc {
   const int32_t* cell_start;  // per cell: first position in the copy
   const int32_t* cell_end;    // per cell: one past the last
   double beta;                // MPMAccelerations' beta
-  int32_t terms, pad;
+  int32_t terms;
+  int32_t base;  // its position 0 in the neighbour list's numbering
 };
 
 struct GasdArgs {
@@ -112,6 +149,23 @@ struct GasdArgs {
   double box[3];  // the length of each periodic axis, 0 on the others
   int32_t n_dest, n_src, nx, ny, nz, dim, phase, dtype, kernel_kind,
       periodic;
+  // the modes (see the top): kSweep's gate, its dest props and outputs,
+  // the count of the particles not converged, and the list it emits,
+  // which kConsume reads where *use is set, with the copies' plane 0
+  int32_t mode, cap;
+  const uint8_t* run;          // kSweep: null or the gate
+  const uint8_t* use;          // kConsume: read the list where *use != 0
+  const void *m, *h0;          // kSweep: dest
+  const void* swpre[11];       // kSweep: the values before, GasdSweep
+  void* sw[11];                // order, and the outputs (in place: the
+                               // same pointers)
+  int32_t* unconv;             // kSweep: += the particles not converged
+  int32_t* nbr;                // (cap, n_dest)
+  int32_t* lcount;             // (n_dest): pairs by sorted position
+  int32_t* overflow;           // kSweep: += dests with more than cap
+  const void* hplane[kGasdSources];  // kConsume: the last sweep's plane 0
+  double k, htol;              // SummationDensity's k and htol
+  int32_t iterate_once, density_iterations;
   // the pack that fills the sources' planes: the launch function launches
   // it just before the kernel
   PackArgs pack;
@@ -130,6 +184,24 @@ __device__ __forceinline__ T ld(const void* p, int i) {
 template <typename T>
 __device__ __forceinline__ T hpow(T h1, int dim) {
   return dim == 1 ? h1 : dim == 2 ? h1 * h1 : h1 * h1 * h1;
+}
+
+// x^(1 / dim) as torch's pow takes it: x, sqrt, pow
+__device__ __forceinline__ float root(float x, int dim) {
+  return dim == 1 ? x : dim == 2 ? sqrtf(x) : powf(x, 1.0f / 3.0f);
+}
+__device__ __forceinline__ double root(double x, int dim) {
+  return dim == 1 ? x : dim == 2 ? sqrt(x) : pow(x, 1.0 / 3.0);
+}
+
+// torch.maximum / torch.minimum: a NaN of either side propagates
+template <typename T>
+__device__ __forceinline__ T tmax(T a, T b) {
+  return (a != a || a > b) ? a : b;
+}
+template <typename T>
+__device__ __forceinline__ T tmin(T a, T b) {
+  return (a != a || a < b) ? a : b;
 }
 
 // One pair in support: k, the source particle's position in its packed
@@ -217,6 +289,55 @@ struct Density {
       const T pre = ld<T>(a.pre[oRho + k], i);
       static_cast<T*>(a.out[oRho + k])[i] = wm ? pre + acc[k] : pre;
     }
+  }
+  // kSweep: initialize, the sums and post_loop of SummationDensity, in
+  // place of the dest's props (hi: its h, read before the walk); returns
+  // whether the particle is converged after it
+  __device__ bool sweep(const GasdArgs& a, int i, bool wm, T hi) {
+    T v[kSweepOut];
+#pragma unroll
+    for (int k = 0; k < kSweepOut; ++k) v[k] = ld<T>(a.swpre[k], i);
+    if (wm) {
+      // initialize zeroes the sums (and div), the pair phase adds
+      v[wRho] = T(0) + rho;
+      v[wArho] = T(0) + arho;
+      v[wGrhox] = T(0) + gx;
+      v[wGrhoy] = T(0) + gy;
+      v[wGrhoz] = T(0) + gz;
+      v[wDwdh] = T(0) + dwdh;
+      v[wDiv] = T(0);
+      if (a.density_iterations) post_loop(a, i, hi, v);
+      v[wDiv] = -v[wArho] / v[wRho];
+    }
+#pragma unroll
+    for (int k = 0; k < kSweepOut; ++k) static_cast<T*>(a.sw[k])[i] = v[k];
+    return v[wConverged] == T(1);
+  }
+  // SummationDensity.post_loop with density_iterations, as its torch ops
+  __device__ void post_loop(const GasdArgs& a, int i, T hi, T* v) {
+    const bool act = v[wConverged] != T(1);
+    const T mi = ld<T>(a.m, i), hi0 = ld<T>(a.h0, i);
+    const T kk = T(a.k), r = v[wRho];
+    const T rhoi = mi / hpow(hi / kk, dim);
+    const T dhdrhoi = -hi / (T(dim) * r);
+    T omegai = T(1) - dhdrhoi * v[wDwdh];
+    omegai = omegai < T(0) ? T(1) : omegai;
+    const T gradhi = T(1) / omegai;
+    const T func = rhoi - r;
+    const T dfdh = omegai / dhdrhoi;
+    T hnew = hi - func / dfdh;
+    hnew = tmin(tmax(hnew, T(0.8) * hi), T(1.2) * hi);
+    if (hnew <= T(1e-6) || gradhi < T(1e-6)) hnew = kk * root(mi / r, dim);
+    const T diff = fabs(hnew - hi) / hi0;
+    const bool done =
+        a.iterate_once != 0 || (diff < T(a.htol) && omegai > T(0));
+    if (act) v[wOmega] = gradhi;
+    v[wH] = act && !done ? hnew : hi;
+    if (act && done) {
+      v[wArho] = v[wArho] * gradhi;
+      v[wAh] = v[wArho] * dhdrhoi;
+    }
+    v[wConverged] = act && done ? T(1) : act ? T(0) : v[wConverged];
   }
 };
 
@@ -313,6 +434,19 @@ struct Momentum {
   }
 };
 
+// kSweep's store: the density set's sweep (the other set never sweeps)
+template <typename T, int KIND>
+__device__ __forceinline__ bool sweep_of(Density<T, KIND>& ph,
+                                         const GasdArgs& a, int i, bool wm,
+                                         T hi) {
+  return ph.sweep(a, i, wm, hi);
+}
+template <class PhaseSet, typename T>
+__device__ __forceinline__ bool sweep_of(PhaseSet&, const GasdArgs&, int,
+                                         bool, T) {
+  return true;
+}
+
 // The blocks of 128 threads an SM that a kernel's __launch_bounds__ asks
 // for: double 4; float 8 for the density set, 6 for the momentum set.
 template <typename T, class PhaseSet>
@@ -320,9 +454,10 @@ constexpr int blocks_for() {
   return sizeof(T) == 8 ? 4 : PhaseSet::kDensitySet ? 8 : 6;
 }
 
-template <typename T, int KIND, bool PERIODIC, class PhaseSet>
+template <typename T, int KIND, bool PERIODIC, class PhaseSet, int MODE>
 __global__ void __launch_bounds__(128, (blocks_for<T, PhaseSet>()))
     gasd_pair_kernel(const GasdArgs a) {
+  if (MODE == kSweep && a.run != nullptr && *a.run == 0) return;
   // every lane stays to the end: the walk's votes take the whole warp
   const int pos = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = pos < a.n_dest;
@@ -336,24 +471,80 @@ __global__ void __launch_bounds__(128, (blocks_for<T, PhaseSet>()))
   }
   const T rs = T(a.radius_scale);
   const walk::Box<T> box{{T(a.box[0]), T(a.box[1]), T(a.box[2])}};
-  const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
-  walk::Walker<T> walker;
-  walker.begin();
+  const bool linked = MODE == kConsume && *a.use != 0;
+  // each source's {x y z h}: the last sweep's copy where linked
+  auto plane0 = [&](int s) {
+    return linked ? a.hplane[s] : a.src[s].plane[kPos];
+  };
   int pairs = 0;
-  for (int s = 0; s < a.n_src; ++s) {
-    const GasdSrc& S = a.src[s];
-    auto body = [&](int k) {
-      ++pairs;
-      ph.pair(S, pair_of<T, PERIODIC>(di, rec<T>(S.plane[kPos], k), k,
-                                      box));
-    };
-    if (PERIODIC)
-      walk::walk_rows_periodic(a, S.cell_start, S.cell_end, S.plane[kPos],
-                               l, di, rs, box, walker, body);
-    else
-      walk::walk_rows(a, S.cell_start, S.cell_end, S.plane[kPos], l, 1, di,
-                      rs, walker, body);
-    walker.finish(body);
+  bool walking = true;
+  if (linked) {
+    const int count = active ? a.lcount[pos] : 0;
+    walking = __any_sync(walk::kFull, count > a.cap);
+    // the list runs source by source: s is the source of the entries
+    int s = 0;
+    for (int c0 = 0; !walking && c0 < count; c0 += kListBatch) {
+      int e[kListBatch];
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u)
+        e[u] = c0 + u < count ? a.nbr[size_t(c0 + u) * a.n_dest + pos] : -1;
+      int from[kListBatch];
+      Rec<T> pj[kListBatch];
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u) {
+        if (e[u] < 0) continue;
+        while (s + 1 < a.n_src && e[u] >= a.src[s + 1].base) ++s;
+        from[u] = s;
+        pj[u] = rec<T>(a.hplane[s], e[u] - a.src[s].base);
+      }
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u) {
+        if (e[u] < 0) continue;
+        const GasdSrc& S = a.src[from[u]];
+        ++pairs;
+        ph.pair(S, pair_of<T, PERIODIC>(di, pj[u], e[u] - S.base, box));
+      }
+    }
+  }
+  if (walking) {
+    const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
+    walk::Walker<T> walker;
+    walker.begin();
+    int listed = 0;
+    for (int s = 0; s < a.n_src; ++s) {
+      const GasdSrc& S = a.src[s];
+      const void* p0 = plane0(s);
+      auto body = [&](int k) {
+        if (MODE == kSweep) {
+          if (listed < a.cap)
+            a.nbr[size_t(listed) * a.n_dest + pos] = S.base + k;
+          ++listed;
+        }
+        ++pairs;
+        ph.pair(S, pair_of<T, PERIODIC>(di, rec<T>(p0, k), k, box));
+      };
+      if (PERIODIC)
+        walk::walk_rows_periodic(a, S.cell_start, S.cell_end, p0, l, di, rs,
+                                 box, walker, body);
+      else
+        walk::walk_rows(a, S.cell_start, S.cell_end, p0, l, 1, di, rs,
+                        walker, body);
+      walker.finish(body);
+    }
+    if (MODE == kSweep && active) {
+      a.lcount[pos] = listed;
+      if (listed > a.cap) atomicAdd(a.overflow, 1);
+    }
+  }
+  if (MODE == kSweep) {
+    bool open = false;
+    if (active)
+      open = !sweep_of(ph, a, i, a.wmask == nullptr || a.wmask[i] != 0,
+                       di.d);
+    const unsigned votes = __ballot_sync(walk::kFull, open);
+    if ((threadIdx.x & 31) == 0 && votes != 0)
+      atomicAdd(a.unconv, __popc(votes));
+    return;
   }
   if (active) {
     ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
@@ -365,12 +556,20 @@ constexpr int kThreads = 128;
 
 template <typename T, int KIND, bool PERIODIC>
 cudaError_t launch_walk(const GasdArgs& a, cudaStream_t stream) {
+  using D = Density<T, KIND>;
+  using M = Momentum<T, KIND>;
   const int blocks = (a.n_dest + kThreads - 1) / kThreads;
-  if (a.phase == kDensity)
-    gasd_pair_kernel<T, KIND, PERIODIC, Density<T, KIND>>
+  if (a.mode == kSweep)
+    gasd_pair_kernel<T, KIND, PERIODIC, D, kSweep>
+        <<<blocks, kThreads, 0, stream>>>(a);
+  else if (a.mode == kConsume)
+    gasd_pair_kernel<T, KIND, PERIODIC, M, kConsume>
+        <<<blocks, kThreads, 0, stream>>>(a);
+  else if (a.phase == kDensity)
+    gasd_pair_kernel<T, KIND, PERIODIC, D, kWalk>
         <<<blocks, kThreads, 0, stream>>>(a);
   else
-    gasd_pair_kernel<T, KIND, PERIODIC, Momentum<T, KIND>>
+    gasd_pair_kernel<T, KIND, PERIODIC, M, kWalk>
         <<<blocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
@@ -403,9 +602,26 @@ bool args_ok(const GasdArgs& a) {
   }
   bool outs_ok = true;
   const int first = a.phase == kDensity ? oRho : oAu;
-  for (int k = first; k < first + 6; ++k)
-    outs_ok = outs_ok && a.pre[k] != nullptr && a.out[k] != nullptr;
-  return sources_ok && outs_ok && a.nx >= 1 && a.ny >= 1 && a.nz >= 1 &&
+  if (a.mode == kSweep) {
+    for (int k = 0; k < kSweepOut; ++k)
+      outs_ok = outs_ok && a.sw[k] != nullptr && a.swpre[k] != nullptr;
+    outs_ok = outs_ok && a.phase == kDensity && a.m != nullptr &&
+              a.h0 != nullptr && a.unconv != nullptr &&
+              a.overflow != nullptr;
+  } else {
+    for (int k = first; k < first + 6; ++k)
+      outs_ok = outs_ok && a.pre[k] != nullptr && a.out[k] != nullptr;
+  }
+  if (a.mode == kConsume) {
+    outs_ok = outs_ok && a.phase == kMomentum && a.use != nullptr;
+    for (int s = 0; s < a.n_src; ++s)
+      outs_ok = outs_ok && a.hplane[s] != nullptr;
+  }
+  const bool list_ok =
+      a.mode == kWalk ||
+      (a.cap >= 1 && a.nbr != nullptr && a.lcount != nullptr);
+  return sources_ok && outs_ok && list_ok &&
+         (a.mode == kWalk || a.mode == kSweep || a.mode == kConsume) && a.nx >= 1 && a.ny >= 1 && a.nz >= 1 &&
          a.dim >= 1 && a.dim <= 3 && (a.dtype == 0 || a.dtype == 1) &&
          shapes::built_kind(a.kernel_kind) &&
          (a.phase == kDensity || a.phase == kMomentum) &&
@@ -420,10 +636,14 @@ extern "C" {
 int gasd_pair_args_size() { return static_cast<int>(sizeof(GasdArgs)); }
 
 int gasd_pair_launch(const GasdArgs* args, void* stream) {
-  const GasdArgs a = *args;
+  GasdArgs a = *args;
   if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   if (a.n_dest <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the sweep's pack runs under its gate; the momentum launch that reads
+  // the last sweep's copy leaves plane 0 unpacked
+  a.pack.run = a.mode == kSweep ? a.run : nullptr;
+  a.pack.skip0 = a.mode == kConsume ? a.use : nullptr;
   const cudaError_t packed = pack::launch(a.pack, st);
   if (packed != cudaSuccess) return static_cast<int>(packed);
   return static_cast<int>(a.dtype == 0 ? launch<float>(a, st)

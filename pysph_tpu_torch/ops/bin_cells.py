@@ -14,9 +14,15 @@ inactive step bins nothing).  Where the flag is set the handle is binned
 afresh in place (origin, width, overflow, each array's cell, order,
 start and end, and the reference positions), where it is not the handle
 stays as it was, bit for bit.  Nothing is read back: the flag is a 0-d
-bool tensor on the states' device (``handle.rebuild``), returned.
+bool tensor on the states' device (``handle.rebuild``), returned.  A
+position or h that is not finite is never binned: there (where active)
+the flag is 0 and the grid's ``nonfinite`` flag (``CellGrid.
+nonfinite_flag``) is set, which the solver reads with what it reads
+anyway and turns into ``FloatingPointError`` (``CellGrid.check_finite``).
+``order`` is the stable sort's by cell id (ascending indices within a
+cell), whatever a cell holds.
 
-CUDA tensors launch ``csrc/bin_cells.cu`` (five kernels, each gated by
+CUDA tensors launch ``csrc/bin_cells.cu`` (six kernels, each gated by
 the flag on the card, from one host call) and count the call in
 ``bin_cells.launches``; CPU tensors take ``bin_cells_reference``, which
 computes everything and keeps the old values with ``torch.where``, so
@@ -35,7 +41,7 @@ MAX_ARRAYS = 8
 #: rows of the kernel's partials (csrc/bin_cells.cu kReduceBlocks)
 REDUCE_BLOCKS = 264
 #: values of a partial row (csrc/bin_cells.cu kValues)
-VALUES = 8
+VALUES = 9
 
 
 def bin_cells_reference(grid, states, handle, force=False, active=None):
@@ -43,6 +49,10 @@ def bin_cells_reference(grid, states, handle, force=False, active=None):
     the test, then a fresh binning (``CellGrid.bin``), then every tensor
     of the handle set to ``torch.where(rebuild, new, old)``."""
     live = [(name, s) for name, s in states.items() if s['x'].numel()]
+    nonfinite = ~torch.stack([torch.isfinite(torch.stack([s[p] for p in
+                                                          'xyzh'])).all()
+                              for _, s in live]).all()
+    bad = nonfinite
     lo, hi, hmax = grid._box(s for _, s in live)
     disp2 = torch.stack([_disp2(grid, s, handle.ref[name])
                          for name, s in live]).max()
@@ -54,10 +64,21 @@ def bin_cells_reference(grid, states, handle, force=False, active=None):
     rebuild = torch.ones_like(stale) if force else stale
     if active is not None:
         rebuild = rebuild & active
+        bad = bad & active
+    flag = grid.nonfinite_flag(bad.device)
+    flag.copy_(flag | bad)
+    rebuild = rebuild & ~bad
     origin = grid.origin(lo)
     overflow = grid.escaped(origin, hi, width)
+    # what a state that is not finite would bin is dropped below (also
+    # where ``active`` is false); its values are made finite first only
+    # so that the ids index the cells
+    width_ok = torch.where(nonfinite & ~(width > 0), torch.ones_like(width),
+                           width)
     for name, s in states.items():
-        new = grid.bin(s, origin, width)
+        new = grid.bin({c: torch.nan_to_num(s[c], 0.0, 0.0, 0.0)
+                        for c in 'xyz'}, torch.nan_to_num(origin, 0.0, 0.0,
+                                                          0.0), width_ok)
         for old, value in zip(handle.lists[name], new):
             old.copy_(torch.where(rebuild, value, old))
         ref = handle.ref[name]
@@ -80,14 +101,15 @@ def _disp2(grid, state, ref):
 class _Array(ctypes.Structure):
     _fields_ = [(k, ctypes.c_void_p) for k in (
         'x', 'y', 'z', 'h', 'ref', 'cell', 'order', 'start', 'end',
-        'count')] + [('n', ctypes.c_int32), ('pad', ctypes.c_int32)]
+        'count', 'tmp', 'listed', 'nlisted')] + [('n', ctypes.c_int32),
+                                                 ('pad', ctypes.c_int32)]
 
 
 class BinArgs(ctypes.Structure):
     _fields_ = [('arr', _Array * MAX_ARRAYS)] + \
         [(k, ctypes.c_void_p) for k in ('origin', 'width', 'overflow',
                                         'rebuild', 'active', 'partial',
-                                        'ticket')] + \
+                                        'ticket', 'nonfinite')] + \
         [('slack_rs', ctypes.c_double), ('half_margin', ctypes.c_double),
          ('pmin', ctypes.c_double * 3), ('plen', ctypes.c_double * 3),
          ('pwidth', ctypes.c_double * 3), ('stale', ctypes.c_double)] + \
@@ -97,14 +119,20 @@ class BinArgs(ctypes.Structure):
 
 
 def _scratch(handle):
-    """The kernel's scratch of ``handle``, made at its first launch: the
-    per-cell counts of each array, the partials and the ticket (0 between
-    launches)."""
+    """The kernel's scratch of ``handle``, made at its first launch: each
+    array's per-cell counts, the list of the cells that ``bin_sort`` does
+    not sort itself, its two counts and the long cells' sorting copy
+    ({name: (count, listed, nlisted, tmp)}), the partials and the ticket
+    (0 between launches)."""
     if handle.scratch is None:
         dev = handle.width.device
+        i32 = torch.int32
         handle.scratch = (
-            {name: torch.zeros(handle.ncells, dtype=torch.int32, device=dev)
-             for name in handle.names},
+            {name: (torch.zeros(handle.ncells, dtype=i32, device=dev),
+                    torch.zeros(handle.ncells, dtype=i32, device=dev),
+                    torch.zeros(2, dtype=i32, device=dev),
+                    torch.zeros(n, dtype=i32, device=dev))
+             for name, n in zip(handle.names, handle.sizes)},
             torch.zeros(REDUCE_BLOCKS * VALUES, dtype=torch.float64,
                         device=dev),
             torch.zeros(1, dtype=torch.int32, device=dev))
@@ -135,7 +163,11 @@ def _launch(grid, states, handle, force, active):
         a.order = data_ptr(cl.order, n, i32, dev, 'order')
         a.start = data_ptr(cl.start, ncells, i32, dev, 'start')
         a.end = data_ptr(cl.end, ncells, i32, dev, 'end')
-        a.count = data_ptr(counts[name], ncells, i32, dev, 'count')
+        count, listed, nlisted, tmp = counts[name]
+        a.count = data_ptr(count, ncells, i32, dev, 'count')
+        a.listed = listed.data_ptr()
+        a.nlisted = nlisted.data_ptr()
+        a.tmp = tmp.data_ptr()
         a.n = n
     args.origin = data_ptr(handle.origin, 3, fdt, dev, 'origin')
     args.width = data_ptr(handle.width.view(1), 1, fdt, dev, 'width')
@@ -148,6 +180,8 @@ def _launch(grid, states, handle, force, active):
                                'active')
     args.partial = partial.data_ptr()
     args.ticket = ticket.data_ptr()
+    args.nonfinite = data_ptr(grid.nonfinite_flag(dev).view(1), 1,
+                              torch.bool, dev, 'nonfinite')
     args.slack_rs = grid.cell_slack * grid.radius_scale
     args.half_margin = grid.half_margin()
     args.n_arr = len(states)
@@ -186,5 +220,5 @@ def bin_cells(grid, states, handle, force=False, active=None):
 
 
 #: kernel launches since the last reset (set to 0 to reset): one a call
-#: (its five gated kernels)
+#: (its six gated kernels)
 bin_cells.launches = 0

@@ -79,15 +79,19 @@ class _PackSrc(ctypes.Structure):
 
 
 class PackArgs(ctypes.Structure):
+    # run, skip0: the pack's optional device gates (csrc/cell_pack.cuh),
+    # null unless a launch function sets them
     _fields_ = [('src', _PackSrc * MAX_SOURCES), ('n_src', ctypes.c_int32),
-                ('dtype', ctypes.c_int32)]
+                ('dtype', ctypes.c_int32), ('run', ctypes.c_void_p),
+                ('skip0', ctypes.c_void_p)]
 
 
-def fill(args, packs, name):
+def fill(args, packs, name, buf=None):
     """Fill the ``PackArgs`` ``args`` for ``packs`` on the card, checking
     their props (``name`` is for the messages), and allocate the copies
-    in one buffer, in the order of ``packs``, each starting at a whole
-    record (``args.src[k].out`` points at copy k).  Returns the buffer,
+    in one buffer (or take ``buf``, of that size and dtype), in the order
+    of ``packs``, each starting at a whole record (``args.src[k].out``
+    points at copy k).  Returns the buffer,
     which must stay referenced until the launch is queued; ``args.n_src``
     stays 0 where no source has a particle, and then nothing is to be
     launched."""
@@ -99,7 +103,13 @@ def fill(args, packs, name):
         raise ValueError('%s: %d sources' % (name, len(packs)))
     sizes = [len(planes) * state['x'].shape[0] * 4
              for state, _, planes in packs]
-    buf = torch.empty(sum(sizes), dtype=fdt, device=dev)
+    if buf is None:
+        buf = torch.empty(sum(sizes), dtype=fdt, device=dev)
+    elif buf.numel() != sum(sizes) or buf.dtype != fdt or \
+            buf.device != dev:
+        raise ValueError('%s: a buffer of %d %s values on %s for copies of '
+                         '%d' % (name, buf.numel(), buf.dtype, buf.device,
+                                 sum(sizes)))
     ptr, es = buf.data_ptr(), buf.element_size()
     for k, (state, order, planes) in enumerate(packs):
         sa = args.src[k]

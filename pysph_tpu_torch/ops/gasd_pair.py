@@ -32,8 +32,27 @@ first launch); a kernel without a ``kernel_kind``, a dtype other than
 float32 and float64, or a refused launch raises.  For CPU tensors it
 calls ``gasd_pair_reference``, the torch pair engine running the same
 ``Equation`` objects on the exact lists of ``CellGrid.neighbor_pairs``.
-No neighbour list is carried from one call to the next: the density
-iteration changes h and re-bins every sweep.
+
+``gasd_sweep`` runs one sweep of ``GasDScheme``'s iterated density group
+(``Group([SummationDensity(..., density_iterations=True)], iterate=True,
+update_nnps=True)``): ``initialize``, the pair sums, ``post_loop`` (the
+Newton step of each unconverged particle's h) and the count of the
+particles not converged after it, in one launch (the pack, then the
+kernel, in mode ``SWEEP``), gated by a 0-d device flag ``run`` (none of
+it runs where it is false, and then the dest's props stay as they were,
+bit for bit) and writing in place where it is given;
+``gasd_sweep_reference`` is its plain version (the torch phases of the
+``Equation``).  Each sweep on the card emits its neighbour list into a
+``SweepBuffers`` (its pack, the list, each dest's count), so the list
+left is the last sweep's.  Positions do not move during the iteration,
+and a sweep that leaves every particle converged leaves every h as it
+was, so where the iteration ended so, the last sweep saw exactly the
+momentum launch's pairs: ``gasd_pair(..., handoff=)`` (mode ``CONSUME``,
+the ``MPMAccelerations`` launch that ``ops/pair_engine.py::link_sweep``
+links to the sweep) then packs only planes 1-3 and reads the list and
+the sweep's ``{x y z h}`` copy, bit for bit the walk, and otherwise (the
+hand-off's ``use`` flag false, decided on the card) packs and walks.
+On CPU tensors the plain versions walk and the hand-off is empty.
 """
 
 import ctypes
@@ -44,6 +63,7 @@ import torch
 
 from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import build, cell_pack
+from pysph_tpu_torch.ops import pair_link as pl
 from pysph_tpu_torch.ops.build import data_ptr
 
 SDEN, MPM = 1, 2
@@ -64,6 +84,12 @@ _SET_READS = {
                   'alpha2'))}
 _DEST_PROPS = ('x', 'y', 'z', 'h') + _VEL + (
     'rho', 'p', 'cs', 'e', 'omega', 'alpha1', 'alpha2')
+#: the kernel's modes (csrc/gasd_pair.cu GasdMode)
+WALK, SWEEP, CONSUME = range(3)
+#: what a sweep writes, in the kernel's order (csrc/gasd_pair.cu
+#: GasdSweep): the density sums, then initialize's and post_loop's
+SWEEP_OUTPUTS = ('rho', 'arho', 'grhox', 'grhoy', 'grhoz', 'dwdh', 'div',
+                 'omega', 'h', 'ah', 'converged')
 #: record planes of the packed copy (csrc/gasd_pair.cu): the density set
 #: packs planes 0 and 1, the momentum set all four
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('u', 'v', 'w', 'm'),
@@ -78,6 +104,23 @@ class GasdSource(NamedTuple):
     terms: int
     equations: tuple
     beta: float = 0.0
+
+
+class SweepSpec(NamedTuple):
+    """The iterated density group's constants: its ``SummationDensity``
+    (the plain version runs it) and that equation's ``k``, ``htol``,
+    ``iterate_only_once`` and ``density_iterations``."""
+    equation: object
+    k: float
+    htol: float
+    iterate_once: bool
+    density_iterations: bool
+
+
+def sweep_spec(eq):
+    """The ``SweepSpec`` of a gas-dynamics ``SummationDensity``."""
+    return SweepSpec(eq, eq.k, eq.htol, bool(eq.iterate_only_once),
+                     bool(eq.density_iterations))
 
 
 def phase_of(terms):
@@ -164,7 +207,7 @@ class _SrcArgs(ctypes.Structure):
                 ('cell_start', ctypes.c_void_p),
                 ('cell_end', ctypes.c_void_p),
                 ('beta', ctypes.c_double),
-                ('terms', ctypes.c_int32), ('pad', ctypes.c_int32)]
+                ('terms', ctypes.c_int32), ('base', ctypes.c_int32)]
 
 
 class _Args(ctypes.Structure):
@@ -179,12 +222,24 @@ class _Args(ctypes.Structure):
                  ('kfac', ctypes.c_double), ('box', ctypes.c_double * 3)] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim', 'phase',
-                    'dtype', 'kernel_kind', 'periodic')] +
-                [('pack', cell_pack.PackArgs)])
+                    'dtype', 'kernel_kind', 'periodic', 'mode', 'cap')] +
+                [(k, ctypes.c_void_p) for k in ('run', 'use', 'm', 'h0')] +
+                [('swpre', ctypes.c_void_p * len(SWEEP_OUTPUTS)),
+                 ('sw', ctypes.c_void_p * len(SWEEP_OUTPUTS))] +
+                [(k, ctypes.c_void_p) for k in ('unconv', 'nbr', 'lcount',
+                                                'overflow')] +
+                [('hplane', ctypes.c_void_p * MAX_SOURCES),
+                 ('k', ctypes.c_double), ('htol', ctypes.c_double),
+                 ('iterate_once', ctypes.c_int32),
+                 ('density_iterations', ctypes.c_int32),
+                 ('pack', cell_pack.PackArgs)])
 
 
-def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-            counts):
+def _common(args, dest, dest_cells, write_mask, sources, grid, kernel,
+            phase, buf=None):
+    """Fill what every mode's ``_Args`` holds: the dest, its cells, the
+    sources (their packed planes in one buffer, ``buf`` where given), the
+    grid and the kernel; returns the packs' buffer."""
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     if fdt not in (torch.float32, torch.float64):
@@ -195,17 +250,13 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     if kind is None:
         raise ValueError('gasd_pair: no shape function for %r (1D kernels: '
                          'ROADMAP Queue 1 item 28)' % kernel)
-    phase = _phase(sources)
     terms = PHASE_SETS[phase]
-    if set(pre) != set(TERM_OUTPUTS[terms]):
-        raise ValueError('gasd_pair: pre values for %s, the set gives %s'
-                         % (sorted(pre), TERM_OUTPUTS[terms]))
     i32 = torch.int32
-    args = _Args()
     packs = _packs(sources)
     # the copies' buffer stays referenced until the launch is queued
-    buf = cell_pack.fill(args.pack, packs, 'gasd_pair')
+    buf = cell_pack.fill(args.pack, packs, 'gasd_pair', buf)
     slots = pack_layout(terms)[0]
+    base = 0
     for k, (src, cells, gs) in enumerate(sources):
         sa, c = args.src[k], args.pack.src[k]
         plane = c.n * 4 * x.element_size()
@@ -216,21 +267,14 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
         sa.beta = gs.beta
         sa.terms = gs.terms
+        sa.base = base
+        base += c.n
     for p in _reads(terms, 0):
         setattr(args, p, data_ptr(dest[p], n, fdt, dev, 'd_' + p))
     args.cell = data_ptr(dest_cells.cell, n, i32, dev, 'dest cell')
     args.dorder = data_ptr(dest_cells.order, n, i32, dev, 'dest order')
     if write_mask is not None:
         args.wmask = data_ptr(write_mask, n, torch.bool, dev, 'write mask')
-    out = {}
-    for k, p in enumerate(OUTPUTS):
-        if p in pre:
-            args.pre[k] = data_ptr(pre[p], n, fdt, dev, 'pre ' + p)
-            out[p] = torch.empty_like(pre[p])
-            args.out[k] = out[p].data_ptr()
-    if counts:
-        out['nnbr'] = torch.empty(n, dtype=i32, device=dev)
-        args.count = out['nnbr'].data_ptr()
     args.radius_scale = grid.radius_scale
     args.kfac = kernel.fac
     # the box lengths of the periodic axes, each the dtype's value
@@ -244,6 +288,46 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     args.phase = phase
     args.dtype = 1 if fdt == torch.float64 else 0
     args.kernel_kind = kind
+    return buf
+
+
+def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+            counts, handoff=None):
+    x = dest['x']
+    dev, fdt, n = x.device, x.dtype, x.shape[0]
+    phase = _phase(sources)
+    terms = PHASE_SETS[phase]
+    if set(pre) != set(TERM_OUTPUTS[terms]):
+        raise ValueError('gasd_pair: pre values for %s, the set gives %s'
+                         % (sorted(pre), TERM_OUTPUTS[terms]))
+    args = _Args()
+    buf = _common(args, dest, dest_cells, write_mask, sources, grid, kernel,
+                  phase)
+    out = {}
+    for k, p in enumerate(OUTPUTS):
+        if p in pre:
+            args.pre[k] = data_ptr(pre[p], n, fdt, dev, 'pre ' + p)
+            out[p] = torch.empty_like(pre[p])
+            args.out[k] = out[p].data_ptr()
+    if counts:
+        out['nnbr'] = torch.empty(n, dtype=torch.int32, device=dev)
+        args.count = out['nnbr'].data_ptr()
+    if handoff is not None:
+        if phase != MOMENTUM:
+            raise ValueError('gasd_pair: a hand-off given to a density call')
+        pl.check_handoff('gasd_pair', handoff, dest, sources)
+        if handoff.count is None or handoff.use is None:
+            raise ValueError('gasd_pair: an empty hand-off on the card')
+        plane0, _ = handoff.plane0()
+        for k in range(len(sources)):
+            args.hplane[k] = handoff.buf.data_ptr() + \
+                plane0[k] * handoff.buf.element_size()
+        args.mode = CONSUME
+        args.use = data_ptr(handoff.use.view(1), 1, torch.bool, dev, 'use')
+        args.nbr = data_ptr(handoff.nbr, handoff.nbr.shape[0],
+                            torch.int32, dev, 'neighbour list', width=n)
+        args.lcount = data_ptr(handoff.count, n, torch.int32, dev, 'counts')
+        args.cap = handoff.nbr.shape[0]
     if n:
         build.launch('gasd_pair', args, dev)
         gasd_pair.launches += 1
@@ -252,10 +336,12 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
 
 
 def gasd_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-              counts=False):
+              counts=False, handoff=None):
     """Pair terms of one dest over its sources; same arguments and
-    result as ``gasd_pair_reference``.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    result as ``gasd_pair_reference``.  ``handoff``: a momentum call's
+    ``Handoff`` of the last density sweep (``gasd_sweep``), read where
+    its ``use`` flag is set.  CPU tensors take the plain version (which
+    walks); CUDA tensors launch the kernel or raise."""
     dev = dest['x'].device
     if dev.type == 'cpu':
         return gasd_pair_reference(dest, dest_cells, write_mask, pre,
@@ -263,8 +349,134 @@ def gasd_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     if dev.type != 'cuda':
         raise ValueError('gasd_pair: no kernel for device %s' % dev)
     return _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-                   counts)
+                   counts, handoff)
+
+
+class SweepBuffers(object):
+    """What the sweeps of one iterated group write besides the dest's
+    props, kept across its sweeps (and a CUDA graph's replays): ``buf``,
+    the sources' packed planes 0 and 1 (``cell_pack.fill``'s layout);
+    ``nbr`` (``pair_link.CAPACITY[dim]``, n) and ``count`` (n,), the
+    neighbour list; ``sources``: ((name, particles), ...)."""
+
+    def __init__(self, dest, sources, dim):
+        x = dest['x']
+        n, dev = x.shape[0], x.device
+        self.sources = pl.copies_of(sources)
+        self.buf = torch.empty(sum(2 * 4 * ns for _, ns in self.sources),
+                               dtype=x.dtype, device=dev)
+        self.nbr = torch.empty((pl.CAPACITY[dim], n), dtype=torch.int32,
+                               device=dev)
+        self.count = torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def fits(self, dest, sources):
+        x = dest['x']
+        return self.sources == pl.copies_of(sources) and \
+            self.buf.dtype == x.dtype and self.buf.device == x.device
+
+    def handoff(self, use):
+        """The ``Handoff`` of the last sweep, read where ``use`` (a 0-d
+        device bool) is set."""
+        return pl.Handoff(self.buf, self.nbr, self.count, self.sources,
+                          (2,) * len(self.sources), use)
+
+
+def gasd_sweep_reference(dest, dest_cells, write_mask, sources, grid,
+                         kernel, spec, run=None, buffers=None):
+    """Plain torch version of ``gasd_sweep`` (same arguments and result):
+    the ``SummationDensity`` of ``spec`` run as the evaluator runs it
+    (``initialize``, the pair sums on the exact lists, ``post_loop``),
+    the particles not converged after it counted; where ``run`` is false
+    the props as they were and a count of 0.  Writes nothing in place
+    and emits no list."""
+    from pysph_tpu_torch.sph.acceleration_eval import _bind_particle_phase
+    _phase(sources)
+    eq = spec.equation
+    store = dict(dest)
+    _bind_particle_phase(eq.initialize, store, write_mask, 0.0, 0.0,
+                         kernel=kernel)
+    pre = {p: store[p] for p in TERM_OUTPUTS[SDEN]}
+    store.update(gasd_pair_reference(store, dest_cells, write_mask, pre,
+                                     sources, grid, kernel))
+    _bind_particle_phase(eq.post_loop, store, write_mask, 0.0, 0.0,
+                         kernel=kernel)
+    out = {p: store[p] for p in SWEEP_OUTPUTS}
+    unconv = (out['converged'] != 1.0).sum().to(torch.int32)
+    if run is not None:
+        out = {p: torch.where(run, v, dest[p]) for p, v in out.items()}
+        unconv = torch.where(run, unconv, torch.zeros_like(unconv))
+    return out, unconv
+
+
+def _sweep_launch(dest, dest_cells, write_mask, sources, grid, kernel, spec,
+                  run, buffers):
+    x = dest['x']
+    dev, fdt, n = x.device, x.dtype, x.shape[0]
+    if _phase(sources) != DENSITY:
+        raise ValueError('gasd_sweep: sources of the momentum set')
+    if buffers is None or not buffers.fits(dest, sources) or \
+            buffers.nbr.shape[1] != n:
+        raise ValueError('gasd_sweep: no SweepBuffers of these sources on '
+                         'the card')
+    args = _Args()
+    _common(args, dest, dest_cells, write_mask, sources, grid, kernel,
+            DENSITY, buffers.buf)
+    # in place where gated (nothing written where run is false), else
+    # into new tensors
+    out = {}
+    for k, p in enumerate(SWEEP_OUTPUTS):
+        args.swpre[k] = data_ptr(dest[p], n, fdt, dev, 'd_' + p)
+        out[p] = dest[p] if run is not None else torch.empty_like(dest[p])
+        args.sw[k] = out[p].data_ptr()
+    args.m = data_ptr(dest['m'], n, fdt, dev, 'd_m')
+    args.h0 = data_ptr(dest['h0'], n, fdt, dev, 'd_h0')
+    if run is not None:
+        if run.dtype != torch.bool or run.device != dev or run.numel() != 1:
+            raise ValueError('gasd_sweep: run must be a bool scalar tensor '
+                             'on %s' % dev)
+        args.run = run.data_ptr()
+    unconv = torch.zeros((), dtype=torch.int32, device=dev)
+    args.unconv = unconv.data_ptr()
+    args.nbr = buffers.nbr.data_ptr()
+    args.lcount = buffers.count.data_ptr()
+    args.overflow = pl.overflow_counter('gasd_pair', dev).data_ptr()
+    args.cap = buffers.nbr.shape[0]
+    args.mode = SWEEP
+    args.k, args.htol = spec.k, spec.htol
+    args.iterate_once = spec.iterate_once
+    args.density_iterations = spec.density_iterations
+    if n:
+        build.launch('gasd_pair', args, dev)
+        gasd_sweep.launches += 1
+        cell_pack.pack.launches += bool(args.pack.n_src)
+    return out, unconv
+
+
+def gasd_sweep(dest, dest_cells, write_mask, sources, grid, kernel, spec,
+               run=None, buffers=None):
+    """One sweep of the iterated density group of ``spec`` (a
+    ``SweepSpec``) on the dest's state ``dest`` (its ``CellList``
+    ``dest_cells``, the group's ``write_mask``) over the density set's
+    ``sources`` ((state, ``CellList``, ``GasdSource``)); ``run``: a 0-d
+    device bool that gates it (None: it runs); ``buffers``: the
+    ``SweepBuffers`` it packs into and emits its list into (on the
+    card).  Returns ({prop: tensor} of ``SWEEP_OUTPUTS``, the particles
+    not converged after it as a 0-d int32 tensor).  CUDA tensors launch
+    the kernel (in place where ``run`` is given) or raise; CPU tensors
+    take the plain version."""
+    dev = dest['x'].device
+    if dev.type == 'cpu':
+        return gasd_sweep_reference(dest, dest_cells, write_mask, sources,
+                                    grid, kernel, spec, run, buffers)
+    if dev.type != 'cuda':
+        raise ValueError('gasd_sweep: no kernel for device %s' % dev)
+    return _sweep_launch(dest, dest_cells, write_mask, sources, grid,
+                         kernel, spec, run, buffers)
 
 
 #: kernel launches since the last reset (set to 0 to reset)
 gasd_pair.launches = 0
+
+
+#: kernel launches since the last reset (set to 0 to reset)
+gasd_sweep.launches = 0

@@ -1,5 +1,5 @@
-"""IISPH's iterated pressure group in one launch: wrapper, launch counter,
-sweep log and plain version.
+"""IISPH's iterated pressure group in one launch: wrapper, launch counter
+and plain version.
 
 ``IISPHScheme`` (``sph/iisph.py``) solves for the pressure with
 ``Group([ComputeDIJPJ], [PressureSolve(, PressureSolveBoundary)],
@@ -21,7 +21,7 @@ most ``max_iterations``.  ``iisph_solve`` runs every sweep of it:
 Either returns ({output: tensor} for ``OUTPUTS``, the sweeps as a 0-d
 int32 tensor on the dest's device).  ``active`` (a 0-d bool tensor, the
 solver's chunk flag) runs no sweep where it is false, and ``log`` (a
-``SweepLog``) gets the sweep count of every call that ran.
+``ops/sweeps.py::SweepLog``) gets the sweep count of every call that ran.
 ``iisph_solve_reference(..., pair=iisph_pair)`` on the card is the
 per-launch chain the kernel replaces (``iisph_pair``'s ``dijpj`` and
 pressure launches on the hand-off, the torch ``post_loop``), which
@@ -29,7 +29,6 @@ pressure launches on the hand-off, the torch ``post_loop``), which
 """
 
 import ctypes
-import logging
 from typing import NamedTuple
 
 import torch
@@ -38,8 +37,7 @@ from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops.build import data_ptr
-
-logger = logging.getLogger(__name__)
+from pysph_tpu_torch.ops.sweeps import keep_sweeping
 
 #: the outputs, each the dest's prop (``tmp_comp``: its constant)
 OUTPUTS = ('p', 'piter', 'compression', 'dijpj0', 'dijpj1', 'dijpj2',
@@ -48,8 +46,6 @@ _DIJPJ = ('dijpj0', 'dijpj1', 'dijpj2')
 #: the kernel kinds the library holds (``kernel_kind``): Gaussian and
 #: QuinticSpline, the IISPH runs' kernels
 KINDS = (2, 3)
-#: the entries of a ``SweepLog``
-LOG_ENTRIES = 4096
 #: the planes the launch packs of the dest ({m rho 0 0}, P[0], D, O; the
 #: first the fluid source's plane kMass of csrc/iisph_terms.cuh) and of a
 #: wall (its plane kMass, {0 0 V 0})
@@ -68,40 +64,6 @@ class SolveSpec(NamedTuple):
     tolerance: float
     min_iterations: int
     max_iterations: int
-
-
-class SweepLog(object):
-    """A ring of sweep counts on a device, which ``iisph_solve`` appends
-    to on the device (the count of calls first, then ``entries``
-    counts); ``drain`` reads it (one read)."""
-
-    def __init__(self, device, entries=LOG_ENTRIES):
-        self.buf = torch.zeros(1 + entries, dtype=torch.int32,
-                               device=device)
-
-    def drain(self):
-        """The counts logged since the last drain, oldest first; empties
-        the log."""
-        vals = self.buf.tolist()
-        n, ring = vals[0], vals[1:]
-        if not n:
-            return []
-        cap = len(ring)
-        if n > cap:
-            logger.warning('sweep log: %d of %d counts overwritten before '
-                           'a read', n - cap, n)
-        kept = min(n, cap)
-        self.buf[0] = 0
-        return [ring[(n - kept + k) % cap] for k in range(kept)]
-
-
-def keep_sweeping(it, conv, min_iterations, max_iterations):
-    """The pressure group's loop condition after ``it`` sweeps, the last
-    converged or not (``conv``): pysph_tpu's ``lax.while_loop`` cond,
-    ``(it < max_it) & ~(conv & (it >= min_it))``
-    (``pysph_tpu/ops/resident.py:1501``), as csrc/iisph_solve.cu
-    evaluates it on the card."""
-    return it < max_iterations and not (conv and it >= min_iterations)
 
 
 def _check(dest, dijpj, solve, spec):

@@ -75,6 +75,14 @@ ones (``PairPlan.link``, ``ops/pair_link.py``), which walk no
 candidates.  The evaluator plans and links the groups of an iterated
 group's sub-tree as they run in one sweep (``leaf_groups``).
 
+``plan_sweep`` plans ``GasDScheme``'s iterated density group (one
+dest's ``SummationDensity`` with ``density_iterations``, re-binned every
+sweep) onto ``gasd_sweep`` (``ops/gasd_pair.py``): a ``SweepPlan``,
+whose sweeps the evaluator runs gated on the card (``sph/
+acceleration_eval.py::_run_swept``), and ``link_sweep`` links it to the
+dest's ``MPMAccelerations`` plan after it, which then reads the last
+sweep's neighbour list where the iteration ended converged.
+
 ``plan_solve`` plans an iterated group onto ``iisph_solve``
 (``ops/iisph_solve.py``) where its tree is exactly IISPH's pressure solve
 (``ComputeDIJPJ``, then ``PressureSolve`` and at most walls'
@@ -798,3 +806,143 @@ class SolvePlan(object):
         out, _ = _is.iisph_solve(*self.args(states, cells, grid, dt, active,
                                             log))
         states[self.dest].update(out)
+
+
+def plan_sweep(group, plans, kernel):
+    """The ``SweepPlan`` of the iterated ``group`` (its plan in
+    ``plans``), or ``PairIneligible``: the group must be ``Group(
+    [SummationDensity(d, sources, density_iterations=True)],
+    iterate=True, update_nnps=True)`` of the gas-dynamics equations, one
+    dest, its plan ``gasd_pair``'s density set."""
+    from pysph_tpu_torch.sph.gas_dynamics import basic
+    eqs = group.equations
+    if group.has_subgroups or not group.update_nnps:
+        raise PairIneligible('not a re-binned group of equations')
+    if len(eqs) != 1 or type(eqs[0]) is not basic.SummationDensity or \
+            not eqs[0].density_iterations:
+        raise PairIneligible('not one SummationDensity with '
+                             'density_iterations')
+    plan = plans.get((id(group), eqs[0].dest))
+    if plan is None or plan.op is not _gd.gasd_pair:
+        raise PairIneligible('its pair phase is not on gasd_pair')
+    if int(group.max_iterations) < 1:
+        raise PairIneligible('max_iterations %r' % group.max_iterations)
+    return SweepPlan(plan, group, _gd.sweep_spec(eqs[0]))
+
+
+def _sweep_link_equations():
+    """The equations that may lie between a density sweep and the
+    momentum plan that reads its list (``GasDScheme``'s groups): none
+    writes x y z h."""
+    from pysph_tpu_torch.sph.gas_dynamics import basic
+    return frozenset((basic.IdealGasEOS, basic.MPMAccelerations))
+
+
+def link_sweep(sweep, groups, plans):
+    """Link ``sweep`` (a ``SweepPlan``) to its dest's next ``gasd_pair``
+    plan in ``groups`` (the leaf groups in order) where that is a
+    momentum plan over the same sources and every equation of the groups
+    from the sweep's to it keeps the pairs (``_sweep_link_equations``, no
+    re-binning before it).  Returns the ``Link``, or None (logged)."""
+    names = [ps.name for ps in sweep.plan.sources]
+    a = next(k for k, g in enumerate(groups) if g is sweep.group)
+    for b in range(a + 1, len(groups)):
+        plan = plans.get((id(groups[b]), sweep.dest))
+        if plan is None or plan.op is not _gd.gasd_pair:
+            continue
+        why = None
+        if _gd.phase_of(_terms_of(plan)) != _gd.MOMENTUM:
+            why = 'the next gasd_pair plan is not of the momentum set'
+        elif [ps.name for ps in plan.sources] != names:
+            why = 'sources %s and %s' % (
+                names, [ps.name for ps in plan.sources])
+        else:
+            why = _span_refusal(groups[a + 1:b + 1],
+                                _sweep_link_equations())
+        if why is None:
+            link = _SweepLink(sweep, plan)
+            sweep.link = plan.link = link
+            return link
+        break
+    else:
+        why = 'no momentum plan after it'
+    logger.info('gasd_sweep for %s: no link: %s', sweep.dest, why)
+    return None
+
+
+class _SweepLink(_pl.Link):
+    """A ``SweepPlan`` and the momentum plan that reads its last sweep's
+    list: the sweep sets ``handoff`` (``SweepPlan.hand_off``); where none
+    did (the evaluator's host loop with ``solve_iterated`` off) the
+    momentum call walks."""
+
+    def run(self, plan, args):
+        handoff, self.handoff = self.handoff, None
+        return plan.op(*args) if handoff is None else \
+            plan.op(*args, handoff=handoff)
+
+
+#: the fewest sweep slots a chunk's evaluation holds
+MIN_SLOTS = 2
+
+
+class SweepPlan(object):
+    """An iterated density group planned onto ``gasd_sweep``: ``plan`` is
+    its ``gasd_pair`` density plan (the sources), ``group`` the group,
+    ``spec`` the ``SweepSpec``, ``link`` the ``Link`` to the momentum
+    plan (or None).  ``slots``: the sweeps a chunk's evaluation holds
+    (None until the first chunk: ``MIN_SLOTS`` or the most that a
+    converged evaluation outside a chunk took, ``seen``; doubled where an
+    evaluation of a chunk ran out, the solver's redo); ``buffers``: the
+    ``SweepBuffers`` on the card."""
+
+    def __init__(self, plan, group, spec):
+        self.plan = plan
+        self.dest = plan.dest
+        self.group = group
+        self.spec = spec
+        self.link = None
+        self.slots = None
+        self.seen = 0
+        self.buffers = None
+        self.min_iterations = int(group.min_iterations)
+        self.max_iterations = int(group.max_iterations)
+
+    def sized(self):
+        """The slots, set where not yet."""
+        if self.slots is None:
+            self.slots = min(max(MIN_SLOTS, self.seen), self.max_iterations)
+        return self.slots
+
+    def grow(self):
+        """Double the slots (at most ``max_iterations``)."""
+        self.slots = min(2 * self.sized(), self.max_iterations)
+        return self.slots
+
+    def sweep(self, states, cells, grid, run=None):
+        """One gated sweep on the states (in place where ``run`` is
+        given); returns the particles not converged after it (a 0-d
+        int32 tensor)."""
+        store = states[self.dest]
+        srcs = [(states[s.name], cells[s.name], s) for s in self.plan.sources]
+        x = store['x']
+        if x.is_cuda and (self.buffers is None or
+                          not self.buffers.fits(store, srcs)):
+            self.buffers = _gd.SweepBuffers(store, srcs, self.plan.kernel.dim)
+        out, unconv = _gd.gasd_sweep(
+            store, cells[self.dest], self.group.write_mask(store), srcs, grid,
+            self.plan.kernel, self.spec, run, self.buffers)
+        store.update(out)
+        return unconv
+
+    def hand_off(self, states, use):
+        """Leave the last sweep's list for the linked momentum plan, read
+        where ``use`` (a 0-d device bool) is set."""
+        if self.link is None:
+            return
+        store = states[self.dest]
+        if store['x'].is_cuda:
+            self.link.handoff = self.buffers.handoff(use)
+        else:
+            self.link.handoff = _pl.empty_handoff(
+                store, [(states[s.name], None, s) for s in self.plan.sources])

@@ -2,13 +2,16 @@
 writes a neighbour list, a later call of the same dest reads it instead
 of walking again.
 
-Three kernels run linked calls (``ops/pair_engine.py::link_pairs``
-forms them): ``delta_pair`` (the moment launch emits, the corrected
-gradient launch consumes), ``tvf_pair`` (the density launch emits, the
-momentum launch consumes) and ``iisph_pair`` (a dest's first launch that
-sees all its sources emits, every later launch of its evaluation reads,
-the pressure sweep's again each sweep; a reader may take fewer of the
-emitter's sources).  Nothing between the two calls moves ``x y z
+Four kernels run linked calls (``ops/pair_engine.py::link_pairs`` and
+``link_sweep`` form them): ``delta_pair`` (the moment launch emits, the
+corrected gradient launch consumes), ``tvf_pair`` (the density launch
+emits, the momentum launch consumes), ``iisph_pair`` (a dest's first
+launch that sees all its sources emits, every later launch of its
+evaluation reads, the pressure sweep's again each sweep; a reader may
+take fewer of the emitter's sources) and ``gasd_pair`` (each sweep of
+``GasDScheme``'s density iteration emits, ``MPMAccelerations``' launch
+reads the last one's list where the hand-off's ``use`` flag says that
+the iteration ended converged, and walks elsewhere).  Nothing between the two calls moves ``x y z
 h``, so the emitting call's pairs in support are the consuming call's,
 in the same order.  The emitting call returns, beside its output, a
 ``Handoff``: its sources' packed copies and the neighbour list, each
@@ -38,14 +41,18 @@ class Handoff(NamedTuple):
     ``neighbours_reference``), for ``c < min(count[p], capacity)``;
     ``count[p]`` may exceed the capacity ``nbr.shape[0]``.  ``sources``:
     ((name, particles), ...) of the copies; ``planes``: the record planes
-    of each copy, plane 0 ``{x y z h}`` first (None: plane 0 alone).  On
-    the CPU, where the plain consumer walks, ``buf`` and ``nbr`` are
-    empty and ``count`` is None."""
+    of each copy, plane 0 ``{x y z h}`` first (None: plane 0 alone);
+    ``use``: a 0-d device bool, where given the consumer reads the list
+    only where it is set and walks elsewhere (``gasd_pair``'s momentum
+    launch: set where the density iteration ended converged).  On the
+    CPU, where the plain consumer walks, ``buf`` and ``nbr`` are empty
+    and ``count`` is None."""
     buf: torch.Tensor
     nbr: torch.Tensor
     count: torch.Tensor
     sources: tuple
     planes: tuple = None
+    use: torch.Tensor = None
 
     def plane0(self):
         """The offset in ``buf``, in values, of each copy's plane 0."""

@@ -21,8 +21,9 @@ no pre-step or post-stage callback, and, where chunks are CUDA graphs,
 no iterated group that sweeps on the host (its ``converged`` is read
 once a sweep, and a graph would replay one sweep count): IISPH's
 pressure solve runs its sweeps in one ``iisph_solve`` launch, the loop
-condition on the card (``AccelerationEval.host_iterated``).  Elsewhere
-the per-step loop
+condition on the card, and ``GasDScheme``'s density iteration its
+sweeps in slots gated on the card (``AccelerationEval._run_swept``;
+``AccelerationEval.host_iterated``).  Elsewhere the per-step loop
 runs, reading dt (and the overflow flag) once a step with adaptive dt,
 the flag every ``GROW_CHECK_STEPS`` steps with a fixed one;
 ``chunk_steps = 1`` is that loop throughout.  The first ineligible step
@@ -71,7 +72,18 @@ the flag beside ``GROW`` (the per-step loop reads it after each step),
 and after an overflow the host puts the state back, grows the
 capacities (``CellGrid.grow_pairs``, one more read) and runs the chunk
 again, captured anew; t, dt and the count are the host's from before it.
-``redos`` counts.
+An evaluation of a chunk whose density iteration would sweep past its
+slots sets the grid's ``sweep_overflow``; the chunk's read carries it
+(``SWEEPS``), and the host puts the state back (the evaluators' own
+binnings too), doubles the slots and runs the chunk again, as after a
+dropped pair list, unless a binning of the chunk met a state that is
+not finite (which never converges): that raises first.  ``redos``
+counts both.
+
+A binning that met a position or h that is not finite bins nothing and
+sets the grid's ``nonfinite`` flag, which the chunk's read carries
+(``BAD``) and the per-step loop reads with dt and the grow flag:
+``FloatingPointError`` is raised there.
 """
 
 import gc
@@ -82,7 +94,7 @@ import os
 import numpy as np
 import torch
 
-from pysph_tpu_torch.base.cell_grid import CellGrid, PairsDropped
+from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import CubicSpline
 from pysph_tpu_torch.solver.output import dump
 from pysph_tpu_torch.solver.utils import mkdir
@@ -94,8 +106,9 @@ EPSILON = 1e-14
 #: (the per-step loop; a chunk reads it once)
 GROW_CHECK_STEPS = 20
 #: the chunk's device carry: float64 slots of ``Solver._carry``
-T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW, REBUILDS, PAIRS = range(10)
-N_CARRY = PAIRS + 1
+(T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW, REBUILDS, PAIRS, SWEEPS,
+ BAD) = range(12)
+N_CARRY = BAD + 1
 
 
 class Solver(object):
@@ -139,7 +152,7 @@ class Solver(object):
         #: binnings that ran (the integrator's device count, as last read)
         self.rebuilds = 0
         #: chunks and steps run again after a torch engine pair list
-        #: overflowed
+        #: overflowed or an evaluation ran out of sweep slots
         self.redos = 0
         self.states = None
         self._prev_dt = None
@@ -255,10 +268,12 @@ class Solver(object):
                 (self.integrator.post_stage_callback is not None,
                  'a post-stage callback'),
                 # converged read on the host once a sweep: a graph would
-                # replay one sweep count; an iisph_solve sweeps on the card
+                # replay one sweep count; an iisph_solve and the gated
+                # density sweeps sweep on the card
                 (self._graphed() and any(
                     a.host_iterated for a in self.acceleration_evals),
-                 'an iterated group that no iisph_solve plan takes')):
+                 'an iterated group that no iisph_solve plan takes (nor '
+                 'a gasd_sweep plan)')):
             if failed:
                 self._log_once('per-step loop: %s' % reason)
                 return False
@@ -278,10 +293,7 @@ class Solver(object):
         saved = self._save()
         while True:
             self.grid.watch_pairs()
-            try:
-                self.integrator.step(self.states, self.t, self.dt)
-            except PairsDropped:
-                pass
+            self.integrator.step(self.states, self.t, self.dt)
             self.reads += 1
             if not self.grid.pairs_overflowed():
                 return
@@ -289,20 +301,25 @@ class Solver(object):
 
     def _save(self):
         """What a redo puts back: copies of the states (a chunk writes
-        its static tensors in place) and of the binning handles, the
-        count of binnings and the grid's overflow flag."""
+        its static tensors in place) and of the binning handles (the
+        evaluators' own too), the count of binnings and the grid's
+        overflow flag."""
         ig = self.integrator
         states = {name: {p: v.clone() for p, v in st.items()}
                   for name, st in self.states.items()}
         handles = {i: (h, h.save()) for i, h in ig.handles.items()}
         rebuilds = None if ig.rebuilds is None else ig.rebuilds.clone()
-        return states, handles, rebuilds, self.grid.overflow
+        own = [a.nnps_state() for a in self.acceleration_evals]
+        return states, handles, rebuilds, self.grid.overflow, own
 
-    def _redo(self, saved, what):
+    def _redo(self, saved, what, slots=False):
         """Put back what ``_save`` kept (a chunk's next run copies the
         states into its static tensors) and grow the torch engine's
-        capacities that a list outgrew (one read)."""
-        states, handles, rebuilds, overflow = saved
+        capacities that a list outgrew (one read) or, with ``slots``, the
+        sweep slots."""
+        states, handles, rebuilds, overflow, own = saved
+        for a_eval, kept in zip(self.acceleration_evals, own):
+            a_eval.restore_nnps(kept)
         for name, st in self.states.items():
             st.clear()
             st.update(states[name])
@@ -313,9 +330,20 @@ class Solver(object):
         if rebuilds is not None:
             ig.rebuilds.copy_(rebuilds)
         self.grid.overflow = overflow
+        # a binning of what the redo drops that was not finite does not
+        # count (the run again meets it where it is real)
+        if self.grid.nonfinite is not None:
+            self.grid.nonfinite.zero_()
+        self.redos += 1
+        if slots:
+            grown = [[p.grow() for p in a.sweep_plans()]
+                     for a in self.acceleration_evals]
+            logger.info('step %d: an evaluation ran out of sweep slots; '
+                        'slots grown to %s, the %s run again', self.count,
+                        grown, what)
+            return
         grown = self.grid.grow_pairs()
         self.reads += 1
-        self.redos += 1
         logger.info('step %d: a torch engine pair list overflowed; '
                     'capacities grown to %s, the %s run again', self.count,
                     grown, what)
@@ -338,7 +366,8 @@ class Solver(object):
         inputs[COUNT], inputs[N_REAL] = self.count, n_real
         inputs[T_OUT] = self._next_output_time()
         graph = self._captured_chunk() if self._graphed() else None
-        saved = self._save() if self.grid.pair_caps else None
+        saved = self._save() if self.grid.pair_caps or self._swept() \
+            else None
         self._carry.copy_(torch.tensor(inputs, dtype=torch.float64))
         if graph is not None:
             graph.replay()
@@ -352,6 +381,12 @@ class Solver(object):
         if vals[PAIRS]:
             # the loop runs the chunk again, captured at the new sizes
             self._redo(saved, 'chunk')
+            return
+        # a state that is not finite never converges: raise before more
+        # slots are tried (they cannot make it finite)
+        self.grid.check_finite(bool(vals[BAD]))
+        if vals[SWEEPS]:
+            self._redo(saved, 'chunk', slots=True)
             return
         self.t, self.dt = vals[T], vals[DT]
         self.count = int(vals[COUNT])
@@ -433,19 +468,27 @@ class Solver(object):
         done = torch.zeros_like(t)
         grow = torch.zeros_like(active)
         pairs = torch.zeros_like(active)
+        short = torch.zeros_like(active)
         watch = bool(self.grid.pair_caps)
+        swept = self._swept()
         for i in range(iters):
             self.grid.overflow_any = torch.zeros_like(active)
             if watch:
                 self.grid.pair_overflow = torch.zeros_like(active)
+            if swept:
+                self.grid.sweep_overflow = torch.zeros_like(active)
             self.integrator.step(self.states, t, dt, active)
             ovf = self.grid.overflow_any
             self.grid.overflow_any = None
             stop = ovf
             if watch:
-                stop = ovf | self.grid.pair_overflow
+                stop = stop | self.grid.pair_overflow
                 pairs = pairs | (active & self.grid.pair_overflow)
                 self.grid.pair_overflow = None
+            if swept:
+                stop = stop | self.grid.sweep_overflow
+                short = short | self.grid.sweep_overflow
+                self.grid.sweep_overflow = None
             self._write_back(active)
             t1 = t + dt
             c1 = count + 1
@@ -476,16 +519,20 @@ class Solver(object):
             # dump, a grow or a redo on the host first
             active = active & (n_real > i + 1) & ((tf - t1) > eps) & \
                 ~(tdiff.abs() < eps) & ~stop
+        bad = self.grid.nonfinite_flag(c.device)
         c.copy_(torch.stack([t, dt, dt_un, count, n_real, t_out, done,
                              grow.to(torch.float64),
                              self.integrator.rebuilds,
-                             pairs.to(torch.float64)]))
+                             pairs.to(torch.float64),
+                             short.to(torch.float64),
+                             bad.to(torch.float64)]))
 
     def _captured_chunk(self):
         """The CUDA graph of a chunk, captured again where what it bakes
         in changed (the grid's counts, the torch engine's capacities)."""
         key = (self.chunk_steps, self.tf, self.cfl, self.adaptive_timestep,
-               self.grid.dims, self.grid.pair_key())
+               self.grid.dims, self.grid.pair_key(),
+               tuple(a.sweep_key() for a in self.acceleration_evals))
         if self._graph is not None and self._graph_key == key:
             return self._graph
         self._graph = None
@@ -511,6 +558,10 @@ class Solver(object):
         self._graph, self._graph_key = graph, key
         return graph
 
+    def _swept(self):
+        """Whether an evaluator sweeps an iterated group in slots."""
+        return any(a.sweep_plans() for a in self.acceleration_evals)
+
     def _grow(self):
         self.grid.grow(self.states.values())
         self.reads += 1
@@ -531,18 +582,23 @@ class Solver(object):
         overflowed."""
         undamped = self._get_undamped_timestep()
         flag = self.grid.overflow
+        bad = self.grid.nonfinite_flag(flag.device)
         dt = None
         if self.adaptive_timestep:
             dt = self.integrator.compute_time_step(self.states, undamped,
                                                    self.cfl)
         if dt is not None:
-            # one device-to-host copy for both
-            dt, grow = torch.stack([dt, flag.to(dt.dtype)]).tolist()
+            # one device-to-host copy for all three
+            dt, grow, nonfinite = torch.stack(
+                [dt, flag.to(dt.dtype), bad.to(dt.dtype)]).tolist()
             self.reads += 1
         else:
             dt = undamped
-            grow = self.count % GROW_CHECK_STEPS == 0 and bool(flag)
-            self.reads += self.count % GROW_CHECK_STEPS == 0
+            grow = nonfinite = False
+            if self.count % GROW_CHECK_STEPS == 0:
+                grow, nonfinite = torch.stack([flag, bad]).tolist()
+                self.reads += 1
+        self.grid.check_finite(nonfinite)
         if grow:
             self._grow()
         return dt

@@ -12,9 +12,14 @@ most ``max_iterations`` (``_run_iterated``).  Where the tree is IISPH's
 pressure solve on ``iisph_pair`` (``ops/pair_engine.py::plan_solve``),
 one ``iisph_solve`` call runs every sweep, the loop condition on the
 device, and nothing is read back (its plain version on the CPU reads
-``converged`` on the host); any other iterated group sweeps on the host,
-which reads ``converged`` once a sweep, one 0-d tensor, and only where
-its answer can stop the loop.  ``converged_reads`` counts the host
+``converged`` on the host); where it is ``GasDScheme``'s density
+iteration on ``gasd_pair`` (``plan_sweep``), each sweep is one gated
+``gasd_sweep`` launch after the reuse test of the evaluator's own
+binning, a chunk's evaluation runs a fixed number of such slots with
+nothing read, and the host loop outside chunks reads the count of
+unconverged particles (``_run_swept``); any other iterated group sweeps
+on the host, which reads ``converged`` once a sweep, one 0-d tensor, and
+only where its answer can stop the loop.  ``converged_reads`` counts the host
 loop's reads, ``sweeps`` the sweeps of each iterated group run.  After a
 dest's ``post_loop`` an equation's ``reduce(dst, t, dt)`` runs on a
 ``ReduceView`` of the dest.
@@ -47,8 +52,9 @@ default).  A group with ``update_nnps`` (the gas-dynamics schemes' h
 updates) bins afresh after it, or at the top of each of its sweeps where
 it iterates, into a handle of the evaluator's own (``_rebin``), which
 every later group of the evaluation reads; the integrator's handle and
-its reuse test are left as they were; a position or h that is not finite
-raises there, before it is binned.  ``make_acceleration_evals`` builds
+its reuse test are left as they were; nothing is read there (a position
+or h that is not finite is not binned and flags the grid, which the
+solver reads).  ``make_acceleration_evals`` builds
 one evaluator per stage of a ``MultiStageEquations``, all on one
 ``CellGrid``.
 """
@@ -58,11 +64,11 @@ from collections import OrderedDict
 
 import torch
 
-from pysph_tpu_torch.base.cell_grid import PairsDropped
 from pysph_tpu_torch.ops.bin_cells import bin_cells
-from pysph_tpu_torch.ops.iisph_solve import SweepLog
+from pysph_tpu_torch.ops.sweeps import SweepLog, keep_sweeping
 from pysph_tpu_torch.ops.pair_engine import (
-    PairIneligible, link_pairs, plan_pair_phases, plan_solve)
+    PairIneligible, SweepPlan, link_pairs, link_sweep, plan_pair_phases,
+    plan_solve, plan_sweep)
 from pysph_tpu_torch.sph.equation import (
     UNIT, ArrayView, Group, IndexSym, MultiStageEquations, PairDestView,
     PairSrcView, SymVec, _method_args, column, get_arrays_used_in_equation,
@@ -356,20 +362,22 @@ def run_pair_phase(eqs, dest, src, dest_cells, src_cells, grid, kernel,
 def run_sized(grid, states, run):
     """Run ``run()``, an eager evaluation that writes ``states`` (a dict
     of state dicts, whose entries it replaces), again from the states as
-    they were, with ``grid``'s pair capacities grown, until no torch
-    engine pair list overflowed: one read a run where a dest is on that
-    engine, none else.  The first capacities are sized so."""
+    they were, with ``grid``'s pair capacities grown (and its
+    ``nonfinite`` flag cleared), until no torch engine pair list
+    overflowed: one read a run where a dest is on that engine, none
+    else.  The first capacities are sized so."""
     saved = {name: dict(st) for name, st in states.items()}
     while True:
         grid.watch_pairs()
-        try:
-            run()
-        except PairsDropped:
-            pass
+        run()
         if not grid.pairs_overflowed():
             return
         grown = grid.grow_pairs()
         logger.info('torch pair engine capacities grown: %s', grown)
+        # what the dropped pairs gave is run again: a binning of it that
+        # was not finite does not count
+        if grid.nonfinite is not None:
+            grid.nonfinite.zero_()
         for name, st in states.items():
             st.clear()
             st.update(saved[name])
@@ -417,9 +425,12 @@ class AccelerationEval(object):
         self._nnps_handle = None
         #: the host loop's reads of ``converged``
         self.converged_reads = 0
-        #: the re-binnings of ``update_nnps`` groups (``_rebin``), each
-        #: after one host read
+        #: the calls of ``_rebin`` (the re-binnings of ``update_nnps``
+        #: groups; a captured one counts once)
         self.binnings = 0
+        #: the binnings of ``_rebin`` that ran (a 0-d float64 tensor on
+        #: the device, None before the first; nothing read)
+        self.rebuilds = None
 
     @staticmethod
     def _make_groups(equations):
@@ -543,15 +554,22 @@ class AccelerationEval(object):
                         self.grid.pair_capacity(dest, src,
                                                 self.config.device)
         link_pairs(leaves, plans)
-        # {id(iterated group): SolvePlan}
+        # {id(iterated group): SolvePlan or SweepPlan}
         self._solves = {}
         for group in self._iterated():
             try:
                 self._solves[id(group)] = plan_solve(group, plans,
                                                      self.kernel)
+                continue
             except PairIneligible as e:
-                logger.info('host loop for the iterated group %r: %s',
-                            group, e)
+                why = str(e)
+            try:
+                sweep = self._solves[id(group)] = plan_sweep(group, plans,
+                                                             self.kernel)
+                link_sweep(sweep, leaves, plans)
+            except PairIneligible as e:
+                logger.info('host loop for the iterated group %r: %s; %s',
+                            group, why, e)
         if self._solves and self._sweep_log is None:
             self._sweep_log = SweepLog(self.config.device)
         return plans
@@ -624,38 +642,56 @@ class AccelerationEval(object):
             cells = self._dispatch(group, t, dt, states, cells, active)
         return states
 
-    def _rebin(self, states):
-        """Bin afresh into the evaluator's own handle (``prepare``, a full
-        rebuild, as ``pysph_tpu``'s re-binning after an ``update_nnps``
-        group) and return its lists; counted in ``binnings``.  First one
-        host read: where a torch engine list of this run dropped pairs,
-        raise ``PairsDropped`` (the run is redone with the capacities
-        grown); where a position or h is not finite (a run that blew up),
-        raise ``FloatingPointError``, as such an h would pile every
-        particle into one cell."""
-        grid = self.grid
-        lo, hi, hmax = grid._box(states[n] for n in self.arrays_used)
-        flags = [torch.isfinite(torch.cat([lo, hi, hmax.reshape(1)])).all()]
-        if grid.pair_overflow is not None:
-            flags.append(grid.pair_overflow)
-        finite, *dropped = torch.stack(flags).tolist()
-        if any(dropped):
-            raise PairsDropped()
-        if not finite:
-            raise FloatingPointError(
-                'update_nnps: a position or h is not finite before the '
-                're-binning (lowest %s, highest %s, hmax %s)' % (
-                    lo.tolist(), hi.tolist(), float(hmax)))
-        self._nnps_handle, _ = self.prepare(states, self._nnps_handle)
+    def _rebin(self, states, active=None, force=True):
+        """Bin into the evaluator's own handle and return its lists: afresh
+        (``prepare``, as ``pysph_tpu``'s re-binning after an
+        ``update_nnps`` group) or, without ``force``, where its reuse test
+        fails; with ``active`` (a 0-d device bool) only where it is set.
+        Nothing is read: a state that is not finite sets the grid's
+        ``nonfinite`` flag (``ops/bin_cells.py``), a torch engine list of
+        the run that dropped pairs its ``pair_overflow``, and the solver
+        reads both.  Counted in ``binnings`` (calls) and ``rebuilds``
+        (binnings that ran, on the device)."""
+        self._nnps_handle, flag = self._bin(states, self._nnps_handle, force,
+                                            active)
         self.binnings += 1
+        if self.rebuilds is None:
+            self.rebuilds = torch.zeros((), dtype=torch.float64,
+                                        device=flag.device)
+        self.rebuilds.add_(flag)
         return self._nnps_handle.lists
+
+    def nnps_state(self):
+        """A copy of the evaluator's own binning (``_rebin``'s handle) and
+        its count, for ``restore_nnps`` (the solver's redo)."""
+        h = self._nnps_handle
+        return (h, None if h is None else h.save(),
+                None if self.rebuilds is None else self.rebuilds.clone())
+
+    def restore_nnps(self, saved):
+        """Put back what ``nnps_state`` copied, in place."""
+        h, kept, rebuilds = saved
+        self._nnps_handle = h
+        if h is not None:
+            h.restore(kept)
+        if rebuilds is not None:
+            self.rebuilds.copy_(rebuilds)
+
+    def sweep_plans(self):
+        """The ``SweepPlan`` of each iterated group that has one."""
+        return [p for p in self._solves.values() if isinstance(p, SweepPlan)]
+
+    def sweep_key(self):
+        """The sweep slots of each ``SweepPlan`` (sized where not yet):
+        what a captured chunk bakes in."""
+        return tuple(p.sized() for p in self.sweep_plans())
 
     def _dispatch(self, group, t, dt, states, cells, active=None):
         """Run ``group``; returns the cell lists of the groups after it."""
         if group.iterate:
             return self._run_iterated(group, t, dt, states, cells, active)
         cells = self._sweep(group, t, dt, states, cells, active)
-        return self._rebin(states) if group.update_nnps else cells
+        return self._rebin(states, active) if group.update_nnps else cells
 
     def _sweep(self, group, t, dt, states, cells, active=None):
         """One pass of ``group``'s sub-tree (or its own equations); returns
@@ -672,13 +708,15 @@ class AccelerationEval(object):
         fewer than ``max_iterations`` ran and not (converged and at least
         ``min_iterations`` ran), as ``pysph_tpu``'s ``lax.while_loop``:
         by its ``SolvePlan`` where it has one (``iisph_solve``, its sweeps
-        logged on the device), else on the host, which reads
-        ``converged`` (one ``.item()``) only after a sweep that has run
-        ``min_iterations`` and not ``max_iterations``.  With
-        ``update_nnps`` each sweep first bins afresh (``_rebin``), and the
-        groups after it read the last sweep's binning.  Returns the cell
-        lists of the groups after it."""
+        logged on the device), by its ``SweepPlan`` (``_run_swept``),
+        else on the host, which reads ``converged`` (one ``.item()``) only
+        after a sweep that has run ``min_iterations`` and not
+        ``max_iterations``.  With ``update_nnps`` each sweep first bins
+        afresh (``_rebin``), and the groups after it read the last sweep's
+        binning.  Returns the cell lists of the groups after it."""
         plan = self._solves.get(id(group)) if self.solve_iterated else None
+        if isinstance(plan, SweepPlan):
+            return self._run_swept(plan, states, active)
         if plan is not None:
             plan.execute(states, cells, self.grid, dt, active,
                          self._sweep_log)
@@ -700,6 +738,51 @@ class AccelerationEval(object):
             if conv.item():
                 break
         self.sweeps.append(it)
+        return cells
+
+    def _run_swept(self, plan, states, active=None):
+        """The sweeps of a ``SweepPlan``'s group (``gasd_sweep``), each
+        after the reuse test of the evaluator's own binning (positions do
+        not move during the iteration, so it re-bins only where h grew
+        past the cells; the pairs in support are those of a fresh
+        binning), under the loop condition of ``_run_iterated``.  Outside
+        a chunk (``active`` None) on the host: the count of unconverged
+        particles read after a sweep that can stop the loop (counted in
+        ``converged_reads``).  In a chunk, ``plan.slots`` sweeps, each
+        gated on the card by ``active`` and the loop condition, nothing
+        read; where an evaluation would sweep past its slots, the grid's
+        ``sweep_overflow`` (where kept) is set, and the solver runs the
+        chunk again with more slots.  Either way the sweeps are the same,
+        bit for bit, and logged on the device; the linked momentum plan
+        reads the last sweep's list where it left every particle
+        converged.  Returns the lists of the last sweep's binning."""
+        min_it, max_it = plan.min_iterations, plan.max_iterations
+        if active is None:
+            it, conv = 0, False
+            while keep_sweeping(it, conv, min_it, max_it):
+                cells = self._rebin(states, force=False)
+                unconv = plan.sweep(states, cells, self.grid)
+                it += 1
+                if min_it <= it < max_it:
+                    self.converged_reads += 1
+                    conv = not int(unconv)
+            if conv:
+                plan.seen = max(plan.seen, it)
+            converged = unconv == 0
+        else:
+            it = torch.zeros((), dtype=torch.int32, device=active.device)
+            converged = torch.zeros_like(active)
+            for _ in range(plan.sized()):
+                runs = active & (it < max_it) & ~(converged & (it >= min_it))
+                cells = self._rebin(states, runs, force=False)
+                unconv = plan.sweep(states, cells, self.grid, runs)
+                converged = torch.where(runs, unconv == 0, converged)
+                it = it + runs
+            more = active & (it < max_it) & ~(converged & (it >= min_it))
+            if self.grid.sweep_overflow is not None:
+                self.grid.sweep_overflow = self.grid.sweep_overflow | more
+        self._sweep_log.add(it, active)
+        plan.hand_off(states, converged)
         return cells
 
     def _converged(self, group, states):

@@ -17,7 +17,11 @@
 
 On the kernel engine the pair terms of ``SummationDensity`` and
 ``MPMAccelerations`` run in ``gasd_pair`` (``ops/gasd_pair.py``); their
-``initialize`` and ``post_loop`` stay elementwise phases here.  ADKE's
+``initialize`` and ``post_loop`` stay elementwise phases here, but for
+the ``mpm`` scheme's iterated density group, whose every sweep
+(``initialize``, the sums, ``post_loop``, the count of unconverged
+particles) is one ``gasd_sweep`` launch (``ops/pair_engine.py::
+plan_sweep``), in the same IEEE operations as the methods below.  ADKE's
 equations come with ``ADKEScheme`` (ROADMAP Queue 1 item 28).
 """
 

@@ -8,7 +8,8 @@ bins the arrays on a ``CellGrid`` (periodic on the axes of
 results back into the arrays.  A torch engine pair list that outgrew its
 capacity is run again with the capacity grown (``run_sized``), and a
 particle beyond the grid is clamped into its edge cell (correct), so one
-evaluation needs no redo of its own.
+evaluation needs no redo of its own; a position or h that is not finite
+raises ``FloatingPointError`` after it (the binning's flag, one read).
 """
 
 from pysph_tpu_torch.base.cell_grid import CellGrid
@@ -33,6 +34,7 @@ class SPHEvaluator(object):
         arrays."""
         states = {pa.name: pa.to_device(self.config) for pa in self.arrays}
         self.func_eval.update_and_compute(t, dt, states)
+        self.func_eval.grid.check_finite()
         for pa in self.arrays:
             pa.update_from_device(states[pa.name])
 

@@ -24,7 +24,19 @@ set's ``dwdh`` of a dest with one neighbour at a few distances against
 device)``: ``check`` of both sets under each other kernel (``KINDS``:
 ``--kernel``, the Sedov lattice at nx=21 and, for the kernels with a 1D
 shape, the shock tube at nl=40).  ``resources(lib, kind)``: the kernels'
-registers and spills at one kind.  ``chip_smoke.py`` and
+registers and spills at one kind.  ``sweep_start(run, size, dtype,
+steps, ...)``: a solver whose fluid stands at the start of an
+evaluation with its h moved by a seeded fraction (``converged`` 0, h0
+the h before), so that the density iteration has sweeps to run.
+``check_sweep(s, label, tol, capacity)``: ``gasd_sweep`` (the gated
+density sweep) against its plain version on every sweep of that
+iteration (each from the plain version's state: every output within
+``tol`` of max|ref|, the count of unconverged particles and each
+``converged`` flag equal), its emitted list against
+``pair_link.neighbours_reference``, the iteration's sweeps on the kernel
+alone and on the plain version alone, and the linked ``MPMAccelerations``
+launch on the last sweep's list bit for bit the walking one (its ``use``
+flag set, and cleared).  ``chip_smoke.py`` and
 ``tests/test_torch_gasd_cuda.py`` use them; on CPU tensors the kernel is
 its plain version, which the CPU tests run through the same functions.
 """
@@ -40,6 +52,9 @@ from pysph_tpu_torch.base.utils import get_particle_array_gasd
 from pysph_tpu_torch.config import Config
 from pysph_tpu_torch.examples.gas_dynamics.sedov import SedovPointExplosion
 from pysph_tpu_torch.examples.gas_dynamics.shocktube import ShockTube
+from pysph_tpu_torch.ops import gasd_pair as gd
+from pysph_tpu_torch.ops import pair_link as pl
+from pysph_tpu_torch.ops.sweeps import keep_sweeping
 from pysph_tpu_torch.sph.acceleration_eval import AccelerationEval
 from pysph_tpu_torch.sph.equation import Group
 from pysph_tpu_torch.sph.gas_dynamics.basic import SummationDensity
@@ -219,3 +234,257 @@ def resources(lib, kind=2):
                               'periodic' if m.group(3) == '1' else 'open')
                 ] = res
     return dict(sorted(out.items()))
+
+
+#: float32: a dest whose converged flag the kernel and the plain version
+#: decide apart must have taken a step within this fraction of htol of
+#: htol (the sums' rounding moves the step by ~1e-4 of itself)
+FLIP_BAR = 1e-3
+
+
+def sweep_start(run, size, dtype, steps=0, jitter_start=True, device='cuda',
+                extra=(), scale=0.05, seed=1357):
+    """A solver of ``run`` at ``size`` after ``steps`` steps of its
+    (jittered) start whose fluid stands where an evaluation's density
+    iteration starts (``GasDFluidStep.initialize``: ``converged`` 0,
+    ``omega`` 1, h0 = h), its h then moved by up to ``scale`` of itself
+    (seeded)."""
+    a = app(run, size, dtype, steps=steps, device=device, extra=extra)
+    s = a.solver
+    if jitter_start:
+        jitter(s)
+    if steps:
+        s.solve()
+    st = s.states['fluid']
+    rng = np.random.default_rng(seed)
+    n = st['x'].shape[0]
+    st['h0'] = st['h'].clone()
+    st['h'] = st['h'] * torch.as_tensor(
+        1.0 + scale * rng.uniform(-1, 1, n), dtype=st['h'].dtype,
+        device=st['h'].device)
+    st['converged'] = torch.zeros_like(st['h'])
+    st['omega'] = torch.ones_like(st['h'])
+    return s
+
+
+def _sweep_args(s, states):
+    a_eval = s.acceleration_evals[0]
+    plan, = a_eval.sweep_plans()
+    cells = s.grid.bin_all(states)
+    store = states[plan.dest]
+    srcs = [(states[ps.name], cells[ps.name], ps) for ps in plan.plan.sources]
+    return plan, cells, (store, cells[plan.dest],
+                         plan.group.write_mask(store), srcs, s.grid,
+                         plan.plan.kernel, plan.spec)
+
+
+def _plain_sweep(args):
+    dest = args[0]
+    if not dest['x'].is_cuda:
+        return gd.gasd_sweep_reference(*args)
+    before = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return gd.gasd_sweep_reference(*args)
+    finally:
+        torch.use_deterministic_algorithms(before, warn_only=warn)
+
+
+def _iterate(s, states, sweep):
+    """The sweeps of the density iteration from ``states`` (updated),
+    each ``sweep(args)`` on a fresh binning; returns (sweeps, the last
+    call's arguments, its cells, whether it ended converged)."""
+    plan = s.acceleration_evals[0].sweep_plans()[0]
+    it, conv = 0, False
+    while keep_sweeping(it, conv, plan.min_iterations, plan.max_iterations):
+        _, cells, args = _sweep_args(s, states)
+        out, unconv = sweep(args)
+        states[plan.dest].update(out)
+        it += 1
+        conv = not int(unconv)
+    return it, args, cells, conv
+
+
+def check_sweep(s, label, tol, capacity=None):
+    """``gasd_sweep`` on the card against its plain version (module
+    docstring); ``capacity``: the list's entries (default
+    ``pair_link.CAPACITY[dim]``).  Returns {sweeps, sweeps_kernel,
+    sweeps_plain, max_abs_err, max_scaled_err, flags_differ, pairs,
+    overflowed, max_count, capacity, linked, walked, flip_off}; raises
+    where a bar is missed.  In float32 a dest may end converged on one
+    side only where its step lies within ``FLIP_BAR`` of htol of htol:
+    counted in ``flags_differ`` (none may in float64) and left out of the
+    errors."""
+    plan = s.acceleration_evals[0].sweep_plans()[0]
+    dev = s.states[plan.dest]['x'].device
+    if dev.type != 'cuda':
+        raise ValueError('check_sweep: %s: states off the card' % label)
+    start = {n: dict(st) for n, st in s.states.items()}
+    failures = []
+    found = dict(max_abs_err=0.0, max_scaled_err=0.0, flags_differ=0,
+                 pairs=0, overflowed=0, max_count=0)
+    # each sweep of the plain iteration, the kernel from the same state
+    states = {n: dict(st) for n, st in start.items()}
+    it, conv = 0, False
+    while keep_sweeping(it, conv, plan.min_iterations, plan.max_iterations):
+        _, cells, args = _sweep_args(s, states)
+        store, srcs = args[0], args[3]
+        buffers = gd.SweepBuffers(store, srcs, plan.plan.kernel.dim)
+        if capacity is not None:
+            buffers.nbr = buffers.nbr[:capacity].contiguous()
+        pl.reset_overflow('gasd_pair', dev)
+        got, gun = gd.gasd_sweep(*args, buffers=buffers)
+        want, wun = _plain_sweep(args)
+        torch.cuda.synchronize()
+        # a particle whose Newton step sits within rounding of htol may
+        # end converged on one side only (float32: the sums' order)
+        flip = got['converged'] != want['converged']
+        flips = int(flip.sum())
+        found['flags_differ'] += flips
+        if flips:
+            step = (got['h'].double() - want['h'].double()).abs()[flip] / \
+                store['h0'].double()[flip]
+            off = float((step / plan.spec.htol - 1.0).abs().max())
+            found['flip_off'] = max(found.get('flip_off', 0.0), off)
+            if store['x'].dtype == torch.float64 or not off <= FLIP_BAR:
+                failures.append('%s sweep %d: %d converged flags differ, '
+                                'their steps %.3g of htol off it' % (
+                                    label, it, flips, off))
+        keep = ~flip
+        for p in gd.SWEEP_OUTPUTS:
+            ref = want[p].double()[keep]
+            scale = max(float(ref.abs().max()), 1e-300)
+            err = float((got[p].double()[keep] - ref).abs().max())
+            found['max_abs_err'] = max(found['max_abs_err'], err)
+            found['max_scaled_err'] = max(found['max_scaled_err'],
+                                          err / scale)
+            if not err <= tol * scale:
+                failures.append('%s sweep %d %s: error %.3g > %.0e * %.3g'
+                                % (label, it, p, err, tol, scale))
+        # the flags the kernel ends converged and the plain version not
+        ends = int((got['converged'] == 1.0)[flip].sum())
+        if int(gun) != int(wun) - ends + (flips - ends):
+            failures.append('%s sweep %d: %d unconverged, the plain version '
+                            '%d, %d flags apart' % (label, it, int(gun),
+                                                    int(wun), flips))
+        count, positions = pl.listed(buffers.handoff(None))
+        want_count, where = pl.neighbours_reference(store, args[1], srcs,
+                                                    s.grid)
+        cap = buffers.nbr.shape[0]
+        if not (torch.equal(count, want_count) and torch.equal(
+                positions, pl.cut(want_count, where, cap))):
+            failures.append('%s sweep %d: the neighbour list differs from '
+                            'neighbours_reference' % (label, it))
+        over = pl.overflowed('gasd_pair', dev)
+        if over != int((want_count > cap).sum()):
+            failures.append('%s sweep %d: %d dests counted past the '
+                            'capacity, %d are' % (label, it, over,
+                                                  int((want_count > cap)
+                                                      .sum())))
+        found['pairs'] += int(want_count.sum())
+        found['overflowed'] = max(found['overflowed'], over)
+        found['max_count'] = max(found['max_count'], int(want_count.max()))
+        found['capacity'] = cap
+        states[plan.dest].update(want)
+        it += 1
+        conv = not int(wun)
+    found['sweeps'] = it
+    # the iteration on each alone
+    kernel_states = {n: dict(st) for n, st in start.items()}
+    buffers = gd.SweepBuffers(start[plan.dest], args[3],
+                              plan.plan.kernel.dim)
+    kit, kargs, kcells, kconv = _iterate(
+        s, kernel_states, lambda a: gd.gasd_sweep(*a, buffers=buffers))
+    pit, _, _, _ = _iterate(s, {n: dict(st) for n, st in start.items()},
+                            _plain_sweep)
+    found['sweeps_kernel'], found['sweeps_plain'] = kit, pit
+    # the linked momentum launch on the kernel's last sweep
+    link = plan.link
+    if link is None:
+        failures.append('%s: the sweep is linked to no momentum plan'
+                        % label)
+    else:
+        mplan = link.consumer
+        mstore = kernel_states[plan.dest]
+        pre = {p: torch.zeros_like(mstore[p]) for p in mplan.outputs}
+        margs = mplan.args(mstore, kernel_states, kcells, s.grid,
+                           mplan_mask(s, mplan, mstore), pre)
+        walked = gd.gasd_pair(*margs)
+        found['linked'] = found['walked'] = 0
+        for use in ((True, False) if kconv else (False,)):
+            flag = torch.tensor(use, device=dev)
+            got = gd.gasd_pair(*margs, handoff=buffers.handoff(flag))
+            if any(not torch.equal(got[p], walked[p]) for p in walked):
+                failures.append('%s: the momentum launch on the list (use '
+                                '%s) differs from the walk' % (label, use))
+            found['linked' if use else 'walked'] += 1
+        ref = reference(mplan, margs)
+        for p in mplan.outputs:
+            r = ref[p].double()
+            scale = max(float(r.abs().max()), 1e-300)
+            err = float((walked[p].double() - r).abs().max())
+            if not err <= tol * scale:
+                failures.append('%s momentum %s: error %.3g > %.0e * %.3g'
+                                % (label, p, err, tol, scale))
+    if failures:
+        print('check_sweep %s: %s' % (label, found), flush=True)
+        raise AssertionError('; '.join(failures))
+    return found
+
+
+def sweep_times(s, reps=20):
+    """At the state of ``s`` (``sweep_start``'s), on the card: a gated
+    sweep launch as the path runs it (in place under its flag) in a CUDA
+    graph and eager, its plain version and its work
+    (``roofline.gasd_sweep_work``); the iteration on the kernel from that
+    state, then the momentum launch on its last sweep's list and walking,
+    each in a graph, with their work, and the dests past the list's
+    capacity in one sweep (``pair_link.overflowed``)."""
+    from pysph_tpu_torch.tools_dev import common, roofline
+    plan = s.acceleration_evals[0].sweep_plans()[0]
+    start = {n: dict(st) for n, st in s.states.items()}
+    states = {n: dict(st) for n, st in start.items()}
+    _, _, args = _sweep_args(s, states)
+    store, srcs = args[0], args[3]
+    dev = store['x'].device
+    store.update({p: store[p].clone() for p in gd.SWEEP_OUTPUTS})
+    buffers = gd.SweepBuffers(store, srcs, plan.plan.kernel.dim)
+    run = torch.ones((), dtype=torch.bool, device=dev)
+    work = roofline.gasd_sweep_work(*args[:6])
+    plain_ms = common.events_ms(lambda: _plain_sweep(args), 3)
+
+    def sweep():
+        gd.gasd_sweep(*args, run=run, buffers=buffers)
+    ms = common.graph_ms(sweep, reps)
+    eager_ms = common.events_ms(sweep, reps)
+    kernel_states = {n: dict(st) for n, st in start.items()}
+    sweeps, kargs, kcells, conv = _iterate(
+        s, kernel_states, lambda a: gd.gasd_sweep(*a, buffers=buffers))
+    pl.reset_overflow('gasd_pair', dev)
+    gd.gasd_sweep(*kargs, buffers=buffers)
+    overflowed = pl.overflowed('gasd_pair', dev)
+    mplan = plan.link.consumer
+    mstore = kernel_states[plan.dest]
+    pre = {p: torch.zeros_like(mstore[p]) for p in mplan.outputs}
+    margs = mplan.args(mstore, kernel_states, kcells, s.grid,
+                       mplan_mask(s, mplan, mstore), pre)
+    use = torch.tensor(conv, device=dev)
+    linked_ms = common.graph_ms(
+        lambda: gd.gasd_pair(*margs, handoff=buffers.handoff(use)), reps)
+    walk_ms = common.graph_ms(lambda: gd.gasd_pair(*margs), reps)
+    return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, work=work,
+                sweeps=sweeps, converged=conv, linked_ms=linked_ms,
+                walk_ms=walk_ms,
+                linked_work=roofline.gasd_linked_work(*margs),
+                walk_work=roofline.gasd_work(*margs), overflowed=overflowed,
+                dests=mstore['x'].shape[0],
+                max_count=int(buffers.count.max()))
+
+
+def mplan_mask(s, mplan, store):
+    """The write mask of the group of the momentum plan ``mplan``."""
+    a_eval = s.acceleration_evals[0]
+    group = next(g for g in a_eval.leaf_groups()
+                 if a_eval._plans.get((id(g), mplan.dest)) is mplan)
+    return group.write_mask(store)

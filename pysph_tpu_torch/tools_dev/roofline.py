@@ -424,6 +424,42 @@ def gasd_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     return work
 
 
+#: gasd_pair.cu's sweep a dest beside the density sums: post_loop (rhoi 4,
+#: dhdrhoi 3, omega 3, the Newton step 6, the clamp 4, diff 3, arho and ah
+#: 2, div 2)
+GASD_POST_FLOPS = 27
+
+
+def gasd_sweep_work(dest, dest_cells, write_mask, sources, grid, kernel):
+    """Work of one ``gasd_sweep`` call: the density set's walk
+    (``gasd_work``), its post_loop a dest, its props read and written in
+    place (the 11 outputs, m and h0) and its neighbour list written (an
+    entry a pair up to the capacity, a count a dest)."""
+    pre = {p: dest[p] for p in gd.TERM_OUTPUTS[gd.SDEN]}
+    work = gasd_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel)
+    n = dest['x'].shape[0]
+    es = dest['x'].element_size()
+    work['flops'] += n * GASD_POST_FLOPS
+    work['pair_flops'] += n * GASD_POST_FLOPS
+    work['bytes'] += n * es * (2 * len(gd.SWEEP_OUTPUTS) + 2 - 2 * 6) + \
+        4 * (min(work['pairs'], n * 64) + n)
+    return work
+
+
+def gasd_linked_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel):
+    """Work of the momentum ``gasd_pair`` call on a density sweep's list:
+    its pairs alone (no candidate's support test) and their list entries
+    read beside its walk's bytes."""
+    work = gasd_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel)
+    work['flops'] = work['pair_flops']
+    work['visited'] = 0
+    work['bytes'] += 4 * (work['pairs'] + dest['x'].shape[0])
+    return work
+
+
 #: iisph_solve.cu a dest and sweep beside the pair sums: post_loop (tmp 3,
 #: dnr 1, the guard 2, the relaxed update 5, the clamp 1, the compression
 #: 5) and reduce's count and sum (2)

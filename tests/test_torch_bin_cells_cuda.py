@@ -101,3 +101,56 @@ def test_periodic_bin_cells_matches_plain_version_exactly(case, dtype):
     assert grid.periodic[:dim] == tuple(c in axes for c in 'xyz'[:dim])
     states = {'fluid': pa.to_device(Config(device='cuda', dtype=dtype))}
     assert bin_check.check(grid, states, seed=dim) == len(bin_check.FLAGS)
+
+
+def _crowded(spread, dims, dtype, n=60000, seed=8):
+    rng = np.random.default_rng(seed)
+    pa = ParticleArray(name='fluid', x=rng.uniform(0.0, spread, n),
+                       y=rng.uniform(0.0, spread, n), z=np.zeros(n),
+                       h=np.ones(n))
+    grid = CellGrid.from_particles([pa], dim=2, radius_scale=3.0)
+    if dims is not None:
+        grid._set_dims(dims)
+    return grid, {'fluid': pa.to_device(Config(device='cuda', dtype=dtype))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('spread,dims', [(1e-3, None), (400.0, (4, 4, 1)),
+                                         (40.0, None)])
+def test_a_crowded_state_sorts_as_the_stable_sort(spread, dims, dtype):
+    """Every particle in one cell, the clamped edges of a grid far too
+    small, and cells past a warp's sort (longer than 256): ``order`` is
+    ``torch.sort(cid, stable=True)``'s and the plain version's, at
+    once."""
+    _need_card()
+    grid, states = _crowded(spread, dims, dtype)
+    handle = grid.handle_for(None, states)
+    bc.bin_cells(grid, states, handle, force=True)
+    cells = handle.lists['fluid']
+    cid = cells.cell.long()
+    assert int(torch.bincount(cid).max()) > 256
+    assert torch.equal(cells.order.long(),
+                       torch.sort(cid, stable=True).indices)
+    assert bin_check.check(grid, states) == len(bin_check.FLAGS)
+
+
+@pytest.mark.cuda
+def test_a_nan_state_is_not_binned():
+    """A NaN x: the binning keeps the handle as it was, its flag 0, the
+    grid's ``nonfinite`` set, which ``check_finite`` raises; the plain
+    version does the same."""
+    _need_card()
+    grid, states = _crowded(40.0, None, torch.float32, n=5000)
+    handle = grid.handle_for(None, states)
+    bc.bin_cells(grid, states, handle, force=True)
+    kept = [t.clone() for t in handle.lists['fluid']]
+    st = dict(states['fluid'])
+    st['x'] = st['x'].clone()
+    st['x'][17] = float('nan')
+    for op in (bc.bin_cells, bc.bin_cells_reference):
+        assert not bool(op(grid, {'fluid': st}, handle, force=True))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(kept, handle.lists['fluid']))
+        with pytest.raises(FloatingPointError, match='not finite'):
+            grid.check_finite()

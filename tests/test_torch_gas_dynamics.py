@@ -31,7 +31,8 @@ seeded with numpy.
   force count; the planner's two sets and its refusals (logged);
   ``Group(update_nnps=True)`` taken and the other features refused;
   ``GasDScheme`` refusing walls and ghosts; ``ReduceView.active`` against
-  the JAX evaluator's ``active``; a NaN h refused before a re-binning.
+  the JAX evaluator's ``active``; a NaN h not binned, and the grid's
+  flag that the solver reads.
 
 ``tests/test_torch_gasd_cuda.py`` holds the kernel to its plain version
 on the card.
@@ -58,8 +59,7 @@ from pysph_tpu.sph import scheme as jax_scheme
 from pysph_tpu.sph.acceleration_eval import _active_mask as jax_active
 from pysph_tpu.sph.gas_dynamics import basic as jax_basic
 from pysph_tpu.tools.sph_evaluator import SPHEvaluator as JaxEvaluator
-from pysph_tpu_torch.base.cell_grid import (CellGrid, PairCapacity,
-                                            PairsDropped)
+from pysph_tpu_torch.base.cell_grid import CellGrid, PairCapacity
 from pysph_tpu_torch.base.domain import DomainManager
 from pysph_tpu_torch.base.kernels import (CubicSpline, Gaussian,
                                           WendlandQuinticC2_1D, kernel_kind)
@@ -643,10 +643,12 @@ def test_reduce_view_active_matches_jax():
 
 def test_plain_binning_takes_nan():
     """A NaN h is not binned: the re-binning of an ``update_nnps`` group
-    reads first that the positions and h are finite and raises where not
-    (such an h would pile every particle into one cell); where a torch
-    engine list of the run dropped pairs, it raises ``PairsDropped``
-    instead, and ``run_sized`` runs the evaluation again."""
+    reads nothing, and where a position or h is not finite the binning
+    keeps the handle as it was (such an h would pile every particle into
+    one cell) and sets the grid's ``nonfinite`` flag, which
+    ``check_finite`` (the solver's read) turns into
+    ``FloatingPointError``; a torch engine list that dropped pairs no
+    longer stops it (the solver reads ``pair_overflow`` and redoes)."""
     arr = _sedov(get_particle_array_gasd, nx=7)
     grid = CellGrid.from_particles([arr], dim=2, radius_scale=3.0)
     a_eval = AccelerationEval([arr], _scheme(scheme, 'mpm sedov')
@@ -655,16 +657,24 @@ def test_plain_binning_takes_nan():
     states = {'fluid': arr.to_device(Config(**CPU))}
     cells = a_eval._rebin(states)
     assert a_eval.binnings == 1 and int(cells['fluid'].end.max()) > 0
+    assert int(a_eval.rebuilds) == 1
+    kept = [t.clone() for t in cells['fluid']]
+    grid.check_finite()
     st = states['fluid']
     st['h'] = st['h'].clone()
     st['h'][3] = float('nan')
+    cells = a_eval._rebin(states)
+    assert all(torch.equal(a, b) for a, b in zip(cells['fluid'], kept))
+    assert bool(grid.nonfinite) and int(a_eval.rebuilds) == 1
     with pytest.raises(FloatingPointError, match='not finite'):
-        a_eval._rebin(states)
+        grid.check_finite()
+    assert not bool(grid.nonfinite)
+    st['h'][3] = st['h'][2]
     grid.pair_overflow = torch.ones((), dtype=torch.bool)
-    with pytest.raises(PairsDropped):
-        a_eval._rebin(states)
+    a_eval._rebin(states)
     grid.pair_overflow = None
-    assert a_eval.binnings == 1
+    grid.check_finite()
+    assert a_eval.binnings == 3 and int(a_eval.rebuilds) == 2
 
 
 def test_a_link_does_not_span_a_rebinning(caplog):

@@ -141,26 +141,82 @@ def test_another_kernel_on_the_card_raises():
         gd.gasd_pair(state, *args[1:6], Gaussian(dim=2))
 
 
+def _solve(run, k, steps, extra=()):
+    app = gasd_check.app(run, RUNS[run], torch.float32, steps=steps,
+                         extra=extra)
+    s = app.solver
+    s.chunk_steps = k
+    gd.gasd_pair.launches = gd.gasd_sweep.launches = 0
+    a_eval, = s.acceleration_evals
+    a_eval.sweeps.clear()
+    a_eval.binnings = a_eval.converged_reads = 0
+    app.solve()
+    return s, a_eval
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('run', list(RUNS))
 def test_steps_on_the_card_run_on_the_kernel(run):
-    """Three steps of each run in float32: every pair phase on the
-    kernel (launches: the sweeps' density calls and one momentum call an
-    evaluation), a re-binning a sweep, a finite state."""
+    """Three steps of each run in float32 per step: every pair phase on
+    the kernel (a gated sweep launch a sweep, one momentum launch an
+    evaluation), a binning test a sweep, the count of unconverged
+    particles read only after a sweep that can stop the loop, a finite
+    state; and in one chunk, replayed from a CUDA graph, the same bits
+    with no such read after the initial evaluation's."""
     _need_card()
-    app = gasd_check.app(run, RUNS[run], torch.float32, steps=3)
-    s = app.solver
-    a_eval, = s.acceleration_evals
+    s, a_eval = _solve(run, 1, 3)
     assert set(a_eval.engine_choices.values()) == {'kernel'}
-    gd.gasd_pair.launches = 0
-    a_eval.sweeps.clear()
-    a_eval.binnings = 0
-    app.solve()
     sweeps = a_eval.sweeps
     assert s.count == 3 and len(sweeps) == 4
-    assert gd.gasd_pair.launches == sum(sweeps) + len(sweeps)
+    assert gd.gasd_sweep.launches == sum(sweeps)
+    assert gd.gasd_pair.launches == len(sweeps)
     assert a_eval.binnings == sum(sweeps)
-    assert a_eval.converged_reads >= len(sweeps)
+    assert 0 < a_eval.converged_reads <= sum(sweeps)
     for v in s.states['fluid'].values():
         if v.is_floating_point():
             assert bool(torch.isfinite(v).all())
+    c, c_eval = _solve(run, 10, 3)
+    assert c.replays == 1 and c.redos == 0
+    assert c_eval.sweeps == sweeps
+    assert c_eval.converged_reads <= sweeps[0]
+    for p, v in s.states['fluid'].items():
+        assert torch.equal(c.states['fluid'][p], v), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scheme', ['mpm', 'gsph'])
+def test_gas_chunks_equal_the_per_step_loop_on_the_card(scheme):
+    """20 steps of ``sedov`` (the CFL dt) under each adaptive-h scheme in
+    chunks of 10 replayed from CUDA graphs equal the per-step loop bit
+    for bit: ``gsph``'s re-binnings and ``mpm``'s gated sweeps read
+    nothing inside a chunk."""
+    _need_card()
+    extra = gasd_check.FULL_WIDTH + ('--adaptive-h', scheme)
+    c, _ = _solve('sedov', 10, 20, extra)
+    s, _ = _solve('sedov', 1, 20, extra)
+    assert c.replays >= 1 and c.count == s.count == 20
+    assert (c.t, c.dt) == (s.t, s.dt)
+    for p, v in s.states['fluid'].items():
+        assert torch.equal(c.states['fluid'][p], v), (scheme, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('run,cap', [('sedov', None), ('shocktube', None),
+                                     ('sedov', 1)])
+def test_gated_sweep_matches_plain_version_on_the_card(run, cap, dtype):
+    """``gasd_sweep`` against its plain version on every sweep of an
+    iteration from a state whose h moved by up to 5% (``gasd_check.
+    check_sweep``): the outputs within the tolerance, no converged flag
+    apart in float64, the list as ``neighbours_reference`` (with one
+    entry too: every warp walks), the momentum launch on it bit for bit
+    the walk."""
+    _need_card()
+    s = gasd_check.sweep_start(run, 41 if run == 'sedov' else 80, dtype)
+    found = gasd_check.check_sweep(s, run, TOL[dtype], capacity=cap)
+    assert found['sweeps'] > 1 and found['pairs'] > 0
+    assert found['linked'] == 1 and found['walked'] == 1
+    if dtype == torch.float64:
+        assert found['flags_differ'] == 0
+    if cap == 1:
+        assert found['overflowed'] > 0

@@ -32,6 +32,7 @@ import torch
 
 from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import iisph_solve as isv
+from pysph_tpu_torch.ops import sweeps
 from pysph_tpu_torch.ops.pair_engine import SolvePlan
 from pysph_tpu_torch.sph import iisph
 from pysph_tpu_torch.tools_dev import iisph_check
@@ -228,13 +229,13 @@ def test_a_masked_step_logs_no_sweeps(caplog):
 
 # -- the log and the wrapper -------------------------------------------------
 def test_sweep_log_is_a_ring(caplog):
-    log = isv.SweepLog('cpu', entries=3)
+    log = sweeps.SweepLog('cpu', entries=3)
     assert log.drain() == []
     for k in (4, 5, 6, 7, 8):
         n = int(log.buf[0])
         log.buf[1 + n % 3] = k
         log.buf[0] = n + 1
-    with caplog.at_level(logging.WARNING, logger=isv.logger.name):
+    with caplog.at_level(logging.WARNING, logger=sweeps.logger.name):
         assert log.drain() == [6, 7, 8]
     assert '2 of 5 counts overwritten' in caplog.text
     assert log.drain() == []
