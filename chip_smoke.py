@@ -5,8 +5,8 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the fourteen CUDA sources of ``pysph_tpu_torch/csrc`` (the
-   eleven pair and probe kernels, IISPH's pressure solve ``iisph_solve``,
+2. build the fifteen CUDA sources of ``pysph_tpu_torch/csrc`` (the
+   twelve pair and probe kernels, IISPH's pressure solve ``iisph_solve``,
    the source pack ``cell_pack`` and the binning ``bin_cells``), ``tvf_pair``'s EDAC library (``-DTVF_EDAC``) and the
    libraries of the later smoothing-kernel kinds (4-7,
    ``csrc/shapes.cuh``) of the five pair kernels that take kinds, with
@@ -256,7 +256,28 @@ Phases (any failure propagates; the exit code is then not 0):
    with a NaN h raising ``FloatingPointError`` at its read, before its
    first chunk and after it (with no redo), each within
    ``BIN_GUARD_SECONDS``) and its times on the blast's final state beside
-   ``torch.sort``'s;
+   ``torch.sort``'s; then ``GSPHScheme`` on ``gsph_pair`` and
+   ``ADKEScheme`` on ``gasd_pair``'s ADKE sets (``_gas_schemes_phase``):
+   the eleven device Riemann solvers against the torch ones on Toro's
+   problems and 10^5 seeded states in both dtypes; every set of both
+   schemes against its plain version on jittered small states (the
+   accuracy test at 24^2 and the hydrostatic box at nx=20, periodic, the
+   shock tube at nl=80 with its free ends) in float64 and float32, the
+   acceleration under every Riemann solver, limiter, interpolation,
+   interface, the hybrid blend and the conduction, and at full width
+   (the accuracy test at 256^2, ``gsph`` in float32, ``adke`` in float64;
+   the shock tube at nl=320, ``adke`` in float32), the pairs and every
+   dest's count equal; accuracy_test_2d (gsph, mpm, adke) at 64^2 to tf,
+   hydrostatic_box (gsph, mpm, adke) at nx=50 for 200 steps and the shock
+   tube (gsph, adke) at nl=320 to tf in float64, each within CAVITY_TOL
+   of the JAX package's figures (``JAX_ACCURACY``, ``JAX_HYDROSTATIC``,
+   ``JAX_SHOCKTUBE_SCHEMES``); the accuracy test under gsph at 256^2 in
+   float32: 20 steps in chunks bit for bit the per-step loop, 200 steps
+   timed in chunks of 10 and per step with a step's launches, host
+   reads, device time by layer and idle share (``_accuracy_drive``), and
+   the run to tf = 1.0 with its L1 under ``ACCURACY_L1_BAR``; each set
+   timed there beside its bound with ``gsph_pair``'s registers and
+   spills;
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -335,7 +356,8 @@ from pysph_tpu_torch.examples.dam_break_2d import DamBreak2D
 from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
-from pysph_tpu_torch.examples.gas_dynamics import sedov, shocktube
+from pysph_tpu_torch.examples.gas_dynamics import (
+    accuracy_test_2d, hydrostatic_box, sedov, shocktube)
 from pysph_tpu_torch.examples.couette import CouetteFlow
 from pysph_tpu_torch.examples.poiseuille import PoiseuilleFlow, profile_error
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen, decay_errors
@@ -345,6 +367,7 @@ from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
 from pysph_tpu_torch.ops import gasd_pair as gd
+from pysph_tpu_torch.ops import gsph_pair as gs
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import iisph_solve as isv
@@ -433,6 +456,35 @@ JAX_SHOCKTUBE = {'rho': 0.01269194755940777, 'p': 0.015312279820969206,
                  'u': 0.06395616494260377}
 JAX_SEDOV = {'radius': 0.1599970491956032, 'peak': 1.7150838375091553,
              'energy': 0.9999738059114059}
+#: the JAX package's figures of the new gas runs (tests/jax_gasd_figures.py,
+#: its FROZEN; the JAX solver's per-step loop, float64, the periodic runs
+#: on its grid with ROOMY cells): accuracy_test_2d --nparticles 64 to tf =
+#: 1.0, its L1 error of rho against the advected profile, by scheme;
+#: hydrostatic_box --nx 50 after 200 steps, its largest speed and largest
+#: relative departure of rho, by scheme; the shock tube at --nl 320 to tf
+#: = 0.15 under gsph and adke, the L1 errors of rho, p and u; the port's
+#: within CAVITY_TOL of each, relative
+JAX_ACCURACY = {'gsph': 0.019094168522500815, 'mpm': 0.009723247057571023,
+                'adke': 0.01850768099388279}
+JAX_HYDROSTATIC = {
+    'gsph': {'max_speed': 0.05207310077308546,
+             'rho_spread': 0.488650734680953},
+    'mpm': {'max_speed': 0.09849217996461504,
+            'rho_spread': 0.39589640171242335},
+    'adke': {'max_speed': 0.17708498207009132,
+             'rho_spread': 0.4606353648072288}}
+JAX_SHOCKTUBE_SCHEMES = {
+    'gsph': {'rho': 0.006351124186608512, 'p': 0.005643681197702059,
+             'u': 0.009568452084448117},
+    'adke': {'rho': 0.19249611921569626, 'p': 0.2167222541130143,
+             'u': 0.19141747246591215}}
+#: the accuracy test at full width: its particles a side, the steps timed,
+#: and the JAX package's slow test's bar on its L1 at tf = 1.0
+#: (tests/test_examples_quantitative.py)
+ACCURACY_FULL = 256
+#: steps of accuracy_test_2d --scheme adke at full width, per step
+ADKE_STEPS = 40
+ACCURACY_L1_BAR = 0.08
 
 
 def _compare(calls, dtype, label, op=None):
@@ -2954,6 +3006,429 @@ def _gasd_sweep_checks():
 
 
 
+def _scheme_gate(run, size, scheme, steps=0):
+    """``run`` (``gasd_check.RUNS``) under ``--scheme scheme`` at ``size``
+    in float64 from the example's start, in chunks, to its tf or for
+    ``steps`` steps: (solver, its fluid state in float64 on the host, the
+    launches of gsph_pair and gasd_pair, seconds); every pair phase on a
+    kernel, and a kernel of the scheme launched."""
+    app = gasd_check.app(run, size, torch.float64, steps=steps,
+                         extra=('--scheme', scheme))
+    s = app.solver
+    gs.gsph_pair.launches = gd.gasd_pair.launches = 0
+    gd.gasd_sweep.launches = 0
+    start = time.perf_counter()
+    app.solve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    st = {p: v.double().cpu().numpy() for p, v in s.states['fluid'].items()
+          if v.is_floating_point()}
+    launches = dict(gsph_pair=gs.gsph_pair.launches,
+                    gasd_pair=gd.gasd_pair.launches,
+                    gasd_sweep=gd.gasd_sweep.launches)
+    ours = launches['gsph_pair'] if scheme == 'gsph' else \
+        launches['gasd_pair']
+    if not ours or set(s.acceleration_evals[0].engine_choices.values()) \
+            != {'kernel'}:
+        raise AssertionError('%s %s %d: not every pair phase on a kernel '
+                             '(%s)' % (run, scheme, size, launches))
+    return s, st, launches, secs
+
+
+def _gate_row(label, got, want, extra):
+    errs = {k: got[k] / want[k] - 1.0 for k in want}
+    print('%s: %s; the JAX package\'s %s; relative %s; bar %.0e; %s' % (
+        label, got, want, errs, CAVITY_TOL, extra), flush=True)
+    if not max(abs(e) for e in errs.values()) <= CAVITY_TOL:
+        raise AssertionError('%s missed the JAX package\'s figures' % label)
+    return dict(got=got, jax=want, rel_err=errs)
+
+
+def _scheme_gates():
+    """The new runs against the JAX package's figures: accuracy_test_2d
+    (gsph, mpm, adke) at 64^2 to tf, hydrostatic_box (gsph, mpm, adke) at
+    nx=50 for 200 steps, the shock tube (gsph, adke) at nl=320 to tf, all
+    in float64 in chunks.  Returns the rows."""
+    rows = {}
+    for scheme in ('gsph', 'mpm', 'adke'):
+        s, st, launches, secs = _scheme_gate('accuracy_test_2d', 64, scheme)
+        l1 = accuracy_test_2d.l1_norm(st['x'], st['y'], st['rho'])
+        rows['accuracy %s' % scheme] = _gate_row(
+            'accuracy_test_2d --scheme %s --nparticles 64 float64 at t=%.8g '
+            'after %d steps' % (scheme, s.t, s.count), dict(l1=l1),
+            dict(l1=JAX_ACCURACY[scheme]),
+            '%.1f s, launches %s' % (secs, launches))
+    for scheme in ('gsph', 'mpm', 'adke'):
+        s, st, launches, secs = _scheme_gate('hydrostatic_box', 50, scheme,
+                                             steps=STEPS)
+        figs = hydrostatic_box.figures(st['u'], st['v'], st['rho'],
+                                       st['m'], 1.0 / 50)
+        rows['hydrostatic %s' % scheme] = _gate_row(
+            'hydrostatic_box --scheme %s --nx 50 float64 at t=%.8g after %d '
+            'steps' % (scheme, s.t, s.count), figs, JAX_HYDROSTATIC[scheme],
+            '%.1f s, launches %s' % (secs, launches))
+    for scheme in ('gsph', 'adke'):
+        s, st, launches, secs = _scheme_gate('shocktube', 320, scheme)
+        l1 = shocktube.l1_errors(st['x'], st['rho'], st['p'], st['u'], s.t)
+        if abs(s.t - 0.15) >= 1e-9:
+            raise AssertionError('shocktube %s ended at t=%r' % (scheme,
+                                                                   s.t))
+        rows['shocktube %s' % scheme] = _gate_row(
+            'shocktube --scheme %s --nl 320 float64 at t=%.8g after %d steps'
+            % (scheme, s.t, s.count), l1, JAX_SHOCKTUBE_SCHEMES[scheme],
+            '%.1f s, launches %s, hmax/hmin %.4f' % (
+                secs, launches, st['h'].max() / st['h'].min()))
+    return rows
+
+
+def _scheme_checks():
+    """Each new set against its plain version (``gasd_check.check``: every
+    output within TOL of max|ref|, the pairs and each dest's count equal):
+    on jittered small states (the accuracy test at 24^2 and the
+    hydrostatic box at nx=20, periodic, and the shock tube at nl=80 with
+    its free ends) in float64 and float32, and at full width (the
+    accuracy test at 256^2) in float32; the acceleration under every
+    entry of ``gasd_check.BRANCHES`` (every Riemann solver, limiter,
+    interpolation, interface, the hybrid blend, the conduction) on the
+    small states in both dtypes; the eleven device Riemann solvers
+    against the torch ones on Toro's problems and 10^5 seeded states;
+    ADKE's sets at the accuracy test's full width in float64 and at the
+    shock tube's (nl=320) in float32, and at the accuracy test's full
+    width in float32 against the plain version in float64
+    (``_adke_full_check``).  Returns the largest abs errors (``gsph
+    full`` and ``adke full``: of the full-width float32 calls that are
+    timed) and those calls."""
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        found = gasd_check.riemann_check(dtype, n=100000)
+        print('riemann %s (the device solvers of gsph_pair against '
+              'riemann_solver.py, Toro\'s 4 problems and 10^5 seeded '
+              'states): scaled error, NaNs apart by solver %s' % (
+                  str(dtype)[6:], {k: (float('%.3g' % v[0]), v[1])
+                                   for k, v in found.items()}), flush=True)
+        for run, size in (('accuracy_test_2d', 24), ('hydrostatic_box', 20),
+                          ('shocktube', 80)):
+            for scheme in ('gsph', 'adke'):
+                calls, n, _ = gasd_check.calls(run, size, dtype,
+                                               extra=('--scheme', scheme))
+                label = '%s %s %d %s' % (run, scheme, size, str(dtype)[6:])
+                f = gasd_check.check(calls, label, TOL[dtype])
+                errs[scheme] = max(errs.get(scheme, 0.0), f['max_abs_err'])
+                print('compare %s (%d particles, jittered, %d calls): max '
+                      'abs err %.3g, max scaled err %.3g (tol %.0e); %d pairs,'
+                      ' 0 dests whose count differs' % (
+                          label, n, len(calls), f['max_abs_err'],
+                          f['max_scaled_err'], TOL[dtype], f['pairs']),
+                      flush=True)
+                if scheme != 'gsph' or run == 'hydrostatic_box':
+                    continue
+                worst = {}
+                for blabel, call in gasd_check.branch_calls(calls).items():
+                    f = gasd_check.check([call], label + ' ' + blabel,
+                                         TOL[dtype])
+                    worst[blabel] = float('%.3g' % f['max_scaled_err'])
+                print('compare gsph_pair acceleration %s under every branch '
+                      '(scaled errors; pairs and counts equal): %s' % (
+                          label, worst), flush=True)
+    full = {}
+    # full width: the accuracy test in float32, ADKE's also in float64
+    # and the shock tube's at its full width, nl=320, in float32
+    for run, size, scheme, dtype in (
+            ('accuracy_test_2d', ACCURACY_FULL, 'gsph', torch.float32),
+            ('accuracy_test_2d', ACCURACY_FULL, 'adke', torch.float64),
+            ('shocktube', 320, 'adke', torch.float32)):
+        calls, n, _ = gasd_check.calls(run, size, dtype,
+                                       extra=('--scheme', scheme))
+        label = '%s %s %d %s' % (run, scheme, size, str(dtype)[6:])
+        f = gasd_check.check(calls, label, TOL[dtype])
+        print('compare %s (%d particles): max abs err %.3g, max scaled err '
+              '%.3g (tol %.0e); %d pairs, 0 dests whose count differs' % (
+                  label, n, f['max_abs_err'], f['max_scaled_err'],
+                  TOL[dtype], f['pairs']), flush=True)
+        if scheme == 'gsph':
+            errs['gsph full'] = f['max_abs_err']
+            full[scheme] = calls
+    errs['adke full'], full['adke'] = _adke_full_check()
+    return errs, full
+
+
+def _double(obj):
+    """``obj`` (a call's arguments) with every floating tensor in it,
+    in dicts, lists and tuples, as float64."""
+    if torch.is_tensor(obj):
+        return obj.double() if obj.is_floating_point() else obj
+    if isinstance(obj, dict):
+        return {k: _double(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, '_fields'):
+        return type(obj)(*[_double(v) for v in obj])
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_double(v) for v in obj)
+    return obj
+
+
+#: the float32 kernel's error against the plain float64 version may be up
+#: to this many times the plain float32 version's own (``_adke_full_check``)
+F32_ROUNDING_FACTOR = 4.0
+
+
+def _adke_full_check():
+    """ADKE's calls at the accuracy test's full width in float32, each
+    output held to the plain version in float64 on the same inputs: the
+    kernel's error within 1e-4 of max|ref| or within
+    ``F32_ROUNDING_FACTOR`` times the plain float32 version's own error
+    against it.  Its accelerations in a uniform pressure cancel to ~1/60
+    of their terms' sum, so float32 rounds both versions by more than
+    1e-4 of the sum; a wrong kernel errs by far more than the plain
+    float32 version does.  Returns (the kernel's max abs err against its
+    float32 plain version, the calls)."""
+    calls, n, _ = gasd_check.calls('accuracy_test_2d', ACCURACY_FULL,
+                                   torch.float32,
+                                   extra=('--scheme', 'adke'))
+    label = 'accuracy_test_2d adke %d float32' % ACCURACY_FULL
+    err32, readings = 0.0, {}
+    for _, dest, plan, args in calls:
+        got = plan.op(*args)
+        ref32 = tvf_check.reference(plan, args)
+        ref64 = tvf_check.reference(plan, _double(args))
+        torch.cuda.synchronize()
+        for p in plan.outputs:
+            scale = max(float(ref64[p].abs().max()), 1e-300)
+            kernel = float((got[p].double() - ref64[p]).abs().max())
+            plain = float((ref32[p].double() - ref64[p]).abs().max())
+            err32 = max(err32, float(
+                (got[p].double() - ref32[p].double()).abs().max()))
+            key = '%s %s' % (plan.op.__name__, p)
+            readings[key] = (float('%.3g' % (kernel / scale)),
+                             float('%.3g' % (plain / scale)))
+            if not kernel <= max(F32_ROUNDING_FACTOR * plain,
+                                 TOL[torch.float32] * scale):
+                raise AssertionError(
+                    '%s %s: the kernel is %.3g from the float64 plain '
+                    'version, the float32 plain version %.3g (max|ref| '
+                    '%.3g)' % (label, key, kernel, plain, scale))
+    print('compare %s (%d particles) against the plain version in float64 '
+          '(scaled errors of the kernel and of the plain float32 version, '
+          'by output; held within %.0e or %g times the plain one\'s): %s; '
+          'the kernel against the plain float32 version: max abs err %.3g'
+          % (label, n, TOL[torch.float32], F32_ROUNDING_FACTOR, readings,
+             err32), flush=True)
+    return err32, calls
+
+
+def _set_times(calls, op, terms_of, work_of):
+    """{set: ms in a graph, eager, plain, work} of the calls of ``op``."""
+    out = {}
+    for call in calls:
+        if call[2].op is not op:
+            continue
+        args = call[3]
+        name = terms_of[call[2].sources[0].terms]
+        w = work_of(*args)
+        out[name] = dict(ms=graph_ms(lambda: op(*args), 20),
+                         eager_ms=events_ms(lambda: op(*args), 20),
+                         plain_ms=events_ms(
+                             lambda: tvf_check.reference(call[2], args), 3),
+                         bound_ms=roofline.bound(w)[0],
+                         bound_by=roofline.bound(w)[1], work=w)
+    return out
+
+
+#: the pair kernels of the accuracy test's path under each scheme
+ACCURACY_KERNELS = {'gsph': (gs.gsph_pair, gd.gasd_pair),
+                    'adke': (gd.gasd_pair, wp.wcsph_pair)}
+
+
+def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
+    """accuracy_test_2d --scheme ``scheme`` at full width in float32 for
+    ``steps`` steps from the example's start in chunks of ``chunk_steps``
+    (1: per step), timed (``time_chunks.timed_solve``, from step 20), the
+    launches of the scheme's pair kernels (``ACCURACY_KERNELS``), the
+    pack and the binning set to 0 just before and read just after (each
+    must have launched); a step's launches and host reads, and a step's
+    device time by layer and idle share (in chunks: a replay of the
+    chunk's graph, a tenth of it; per step: one step's trace).  Returns
+    (row, final state)."""
+    app = gasd_check.app('accuracy_test_2d', ACCURACY_FULL, torch.float32,
+                         steps=steps, extra=('--scheme', scheme))
+    s = app.solver
+    gc.collect()
+    ops = ACCURACY_KERNELS[scheme] + (cell_pack.pack, bc.bin_cells)
+    for op in ops:
+        op.launches = 0
+    ms, samples = time_chunks.timed_solve(app, chunk_steps)
+    launches = {op.__name__: op.launches for op in ops}
+    if not all(launches.values()):
+        raise AssertionError('accuracy %s did not run through every kernel '
+                             'of its path: %s' % (scheme, launches))
+    st = s.states['fluid']
+    final = {p: v.clone() for p, v in st.items()}
+    finite = all(bool(torch.isfinite(v).all()) for v in st.values()
+                 if v.is_floating_point())
+    if chunk_steps > 1:
+        trace = prof_chunk.replay_gaps(s._graph)
+        per = chunk_steps
+    else:
+        trace = prof_chunk.trace_gaps(
+            lambda: s.integrator.step(s.states, s.t, s.dt))
+        per = 1
+    layers = {}
+    for name, us in trace['busy'].items():
+        key = ('gsph_pair acceleration' if 'gsph_pair' in name and
+               'Acceleration' in name else 'gsph_pair gradients'
+               if 'gsph_pair' in name else 'gasd_pair'
+               if 'gasd_pair' in name else 'wcsph_pair'
+               if 'wcsph_pair' in name else 'pack' if 'pack' in name
+               else 'binning' if 'bin::' in name
+               else 'elementwise and copies')
+        layers[key] = layers.get(key, 0.0) + us / 1e3 / per
+    row = dict(ms=ms, samples=len(samples), steps=s.count, t=s.t,
+               chunk_steps=chunk_steps, launches=launches,
+               launches_per_step={k: v / s.count for k, v in
+                                  launches.items()},
+               reads_per_step=s.reads / s.count, captures=s.captures,
+               replays=s.replays, grows=s.grid.grows, redos=s.redos,
+               dims=s.grid.dims,
+               step_busy_ms=(trace['span_us'] - trace['idle_us']) / 1e3 / per,
+               step_span_ms=trace['span_us'] / 1e3 / per,
+               idle_share=trace['idle_us'] / trace['span_us'],
+               layers=layers, gaps=trace['gaps'])
+    how = 'in chunks of %d' % chunk_steps if chunk_steps > 1 else 'per step'
+    print('accuracy_test_2d --scheme %s --nparticles %d float32 %s: %d '
+          'steps to t=%.6g, median %.4f ms/step (min %.4f, max %.4f over %d '
+          'samples from step %d); wrapper calls a step %s (in chunks a '
+          'capture\'s count once); host reads a step %.3f; captures %d, '
+          'replays %d; grid %s (%d grows, %d redos); a step\'s trace: busy '
+          '%.4f ms of '
+          '%.4f, idle share %.1f%%; device ms by layer %s; finite %s' % (
+              scheme, ACCURACY_FULL, how, s.count, s.t, ms, min(samples),
+              max(samples), len(samples), time_chunks.WARMUP,
+              row['launches_per_step'], row['reads_per_step'], s.captures,
+              s.replays, s.grid.dims, s.grid.grows, s.redos,
+              row['step_busy_ms'],
+              row['step_span_ms'], 100 * row['idle_share'],
+              {k: round(v, 4) for k, v in layers.items()}, finite),
+          flush=True)
+    if not finite or s.count != steps:
+        raise AssertionError('accuracy %s %s ended non-finite' % (scheme,
+                                                                  how))
+    return row, final
+
+
+def _gas_schemes_phase(kernels):
+    """``GSPHScheme`` on ``gsph_pair`` and ``ADKEScheme`` on ``gasd_pair``'s
+    ADKE sets: the kernels against their plain versions
+    (``_scheme_checks``), the runs against the JAX package's figures
+    (``_scheme_gates``), and the accuracy test at full width in float32:
+    20 steps in chunks bit for bit the per-step loop, 200 steps timed in
+    chunks of 10 and per step (``_accuracy_drive``), the run to tf = 1.0
+    with its L1 under ``ACCURACY_L1_BAR``; ``--scheme adke`` at full width
+    in float32 for ``ADKE_STEPS`` steps per step, whose launches the
+    ``gasd_pair adke`` entry reports; each set timed at full width, its
+    bound from ``roofline.py`` (the support tests counted on cells that
+    fit the call's h, ``fitted_cells``; the walk's extra candidates on the
+    grid's cells printed beside it).  Adds the entries ``gsph_pair`` and
+    ``gasd_pair adke``."""
+    resources = gasd_check.resources(build.build('gsph_pair'),
+                                     kernel='gsph_pair')
+    errs, full = _scheme_checks()
+    gates = _scheme_gates()
+    # full width: chunks against per step, bit for bit
+    got = {}
+    for k in (10, 1):
+        app = gasd_check.app('accuracy_test_2d', ACCURACY_FULL,
+                             torch.float32, steps=20,
+                             extra=('--scheme', 'gsph'))
+        app.solver.chunk_steps = k
+        app.solve()
+        got[k] = app.solver
+    a, b = got[10], got[1]
+    differ = [p for p, v in b.states['fluid'].items()
+              if not torch.equal(v, a.states['fluid'][p])]
+    print('accuracy_test_2d gsph %d float32, 20 steps in chunks of 10 (%d '
+          'captures, %d replays) against per step: props that differ %s; t '
+          '%s, dt %s, count %s equal' % (
+              ACCURACY_FULL, a.captures, a.replays, differ, a.t == b.t,
+              a.dt == b.dt, a.count == b.count), flush=True)
+    if differ or not (a.t == b.t and a.count == b.count == 20 and
+                      a.replays):
+        raise AssertionError('accuracy gsph: the chunks differ from the '
+                             'per-step loop')
+    del got, a, b
+    drive, _ = _accuracy_drive(STEPS, 10)
+    per_step, _ = _accuracy_drive(STEPS, 1)
+    adke_run, _ = _accuracy_drive(ADKE_STEPS, 1, 'adke')
+    # the whole run to tf = 1.0 in chunks
+    app = gasd_check.app('accuracy_test_2d', ACCURACY_FULL, torch.float32,
+                         extra=('--scheme', 'gsph'))
+    start = time.perf_counter()
+    app.solve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    s = app.solver
+    st = {p: s.states['fluid'][p].double().cpu().numpy()
+          for p in ('x', 'y', 'rho')}
+    l1 = accuracy_test_2d.l1_norm(st['x'], st['y'], st['rho'])
+    print('accuracy_test_2d --scheme gsph --nparticles %d float32 to t=%.8g: '
+          '%d steps in %.1f s; L1 of rho %.6g (bar %.2f, the JAX package\'s '
+          'slow test\'s)' % (ACCURACY_FULL, s.t, s.count, secs, l1,
+                              ACCURACY_L1_BAR), flush=True)
+    if not (abs(s.t - 1.0) < 1e-6 and l1 < ACCURACY_L1_BAR):
+        raise AssertionError('accuracy gsph at full width: L1 %r' % l1)
+    whole = dict(t=s.t, steps=s.count, seconds=secs, l1=l1)
+    del app, s
+    # each set at full width
+    gsets = _set_times(full['gsph'], gs.gsph_pair,
+                       {gs.GRAD: 'gradients', gs.ACC: 'acceleration'},
+                       roofline.gsph_work)
+    asets = _set_times(full['adke'], gd.gasd_pair,
+                       {gd.ADEN: 'adke density', gd.ADKE: 'adke accel'},
+                       roofline.gasd_work)
+    for label, sets in (('gsph_pair', gsets), ('gasd_pair adke', asets)):
+        for name, t in sets.items():
+            w = t['work']
+            print('%s %s, accuracy_test_2d %d float32: %.4f ms in a graph '
+                  '(eager %.4f, plain %.3f); bound %.4f ms (%s: %.4g flops, '
+                  '%d candidates on cells that fit its h, %d pairs, %d B), '
+                  'share %.1f%%; its walk on the grid\'s cells tests %d '
+                  'candidates (%.1f a pair, %.1f on fitted cells)' % (
+                      label, name, ACCURACY_FULL, t['ms'], t['eager_ms'],
+                      t['plain_ms'], t['bound_ms'], t['bound_by'],
+                      w['flops'], w['candidates'], w['pairs'], w['bytes'],
+                      100 * t['bound_ms'] / t['ms'], w['walk_candidates'],
+                      w['walk_candidates'] / w['pairs'],
+                      w['candidates'] / w['pairs']), flush=True)
+    print('gsph_pair registers and spill bytes (stores, loads) at kind 2: %s'
+          % resources, flush=True)
+    gwork = roofline.add(*[t['work'] for t in gsets.values()])
+    awork = roofline.add(*[t['work'] for t in asets.values()])
+    # the per-step run's launches: a captured chunk's replays launch the
+    # kernels without calling their wrappers
+    kernels['gsph_pair'] = _entry(
+        'gsph_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
+        per_step['launches']['gsph_pair'], errs['gsph full'],
+        sum(t['ms'] for t in gsets.values()),
+        sum(t['plain_ms'] for t in gsets.values()), gwork, None,
+        eager_ms=sum(t['eager_ms'] for t in gsets.values()), sets={
+            k: {n: v for n, v in t.items() if n != 'work'}
+            for k, t in gsets.items()},
+        resources=resources, gates=gates, run=drive, per_step_run=per_step,
+        whole_run=whole,
+        path='accuracy_test_2d --scheme gsph %d^2 float32, the gradients '
+        'and the acceleration of one evaluation' % ACCURACY_FULL)
+    kernels['gasd_pair adke'] = dict(_entry(
+        'gasd_pair adke', 'pysph_tpu/ops/pallas_engine.py:1160',
+        adke_run['launches']['gasd_pair'], errs['adke full'],
+        sum(t['ms'] for t in asets.values()),
+        sum(t['plain_ms'] for t in asets.values()), awork, None,
+        eager_ms=sum(t['eager_ms'] for t in asets.values()), sets={
+            k: {n: v for n, v in t.items() if n != 'work'}
+            for k, t in asets.items()},
+        run=adke_run,
+        path='accuracy_test_2d --scheme adke %d^2 float32, the ADKE density '
+        'and accelerations of one evaluation; launches: %d steps of that run '
+        'per step' % (ACCURACY_FULL, ADKE_STEPS)),
+        source='pysph_tpu_torch/csrc/gasd_pair.cu')
+    return drive, per_step
 
 
 def _kinds_row():
@@ -3481,7 +3956,8 @@ def main():
                                             torch.version.cuda, kind))
 
     t0 = time.perf_counter()
-    names = ('iisph_pair', 'iisph_solve', 'gasd_pair', 'tvf_pair',
+    names = ('gsph_pair', 'iisph_pair', 'iisph_solve', 'gasd_pair',
+             'tvf_pair',
              'wcsph_pair',
              'gtvf_pair', 'dense_pair', 'fused_pair', 'micro_launch',
              'micro_engine', 'pair_stub', 'cell_pack', 'bin_cells',
@@ -3668,6 +4144,9 @@ def main():
 
     # gas dynamics: the shock tube and the Sedov blast under GasDScheme
     gasd_run, gasd_step, gasd_bins = _gasd_phase(kernels)
+    # GSPHScheme and ADKEScheme: the accuracy test, the hydrostatic box and
+    # the shock tube
+    gsph_run, gsph_step = _gas_schemes_phase(kernels)
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
@@ -3806,6 +4285,13 @@ def main():
                   r['redos'], r['step_busy_ms'], 100 * r['idle_share'],
                   r['hmax_hmin'], r['candidates_per_dest'],
                   r['energy_drift']))
+    print('accuracy_test_2d --scheme gsph %d^2 float32 (a step), in chunks '
+          'of 10 / per step:' % ACCURACY_FULL)
+    for how, r in (('chunks', gsph_run), ('per step', gsph_step)):
+        print('  %-9s %.4f ms/step; launches %s; host reads %.3f; busy '
+              '%.4f ms, idle share %.1f%%' % (
+                  how, r['ms'], r['launches_per_step'], r['reads_per_step'],
+                  r['step_busy_ms'], 100 * r['idle_share']))
     print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
     for label, rows in bins.items():
         for i, t in enumerate(rows):

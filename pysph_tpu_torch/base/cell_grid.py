@@ -42,13 +42,20 @@ into ``FloatingPointError``.
 A periodic domain (``base/domain.py``, ``set_domain``) changes the
 geometry on its periodic axes as ``pysph_tpu``'s ``GridSpec`` does: the
 grid spans the box, ``max(floor(L / cell), 1)`` cells of width ``L /
-dims`` from the domain's lower corner, fixed whatever the particles do
-(no grow, no overflow); cell ids wrap modulo the counts instead of
-clamping; the stencil wraps, and shrinks to ``(-1, 0)`` on an axis of
-two cells and ``(0,)`` on one of one cell so that no cell is visited
-twice; and the support test and the reuse test take the minimum image of
-every displacement.  The exact lists (``neighbor_pairs``) are the plain
-version of that walk.
+dims`` from the domain's lower corner, fixed whatever the particles'
+positions do; where an equation writes h (``h_varies``), every binning
+that ran raises ``widest`` to its width (the support ``cell_slack
+radius_scale hmax``), and where that is wider than a periodic cell
+(``cells_small``, ``outgrown``) the grid is re-sized (``grow``) for that
+h and what was evaluated on the small cells is run again from the state
+before it: by ``run_sized`` (the initial evaluation), by the solver's
+redo of the step or chunk; cell ids wrap modulo the counts instead of
+clamping; the
+stencil wraps, and shrinks to ``(-1, 0)`` on an axis of two cells and
+``(0,)`` on one of one cell so that no cell is visited twice; and the
+support test and the reuse test take the minimum image of every
+displacement. The exact lists (``neighbor_pairs``) are the plain version
+of that walk.
 
 The torch pair engine's lists (``neighbor_pairs`` with a
 ``PairCapacity``) are built at capacities held on the host, one for the
@@ -202,6 +209,12 @@ class CellGrid(object):
         #: evaluation that ran out of sweep slots into while set (None:
         #: not kept; ``ops/pair_engine.py::SweepPlan``)
         self.sweep_overflow = None
+        #: whether an evaluator of the grid has an equation that writes h
+        #: (set by the evaluators): only then is ``widest`` kept
+        self.h_varies = False
+        #: 0-d float64 tensor that every binning that ran raises to its
+        #: width while set (``watch_width``; None: not kept)
+        self.widest = None
 
     def _set_domain(self, domain):
         """Keep ``domain`` (a ``DomainManager``, or None) and which axes
@@ -287,23 +300,28 @@ class CellGrid(object):
             grid._set_dims(grid.sized_dims(grid.dims, width))
         return grid
 
-    def grow(self, states):
-        """Re-size the grid as ``resize`` does, after particles left it."""
-        self.resize(states)
+    def grow(self, states, hmax=None):
+        """Re-size the grid as ``resize`` does, after particles left it
+        or h grew past its periodic cells (``hmax``: the largest h that a
+        binning met, where more than the states' now)."""
+        self.resize(states, hmax=hmax)
         self.grows += 1
 
-    def resize(self, states, cell_slack=None):
+    def resize(self, states, cell_slack=None, hmax=None):
         """Re-size the cell counts from the states' current bounding box
-        and hmax, padded as ``from_particles`` does (one device-to-host
-        copy), for cells ``cell_slack`` times the support where given.
+        and hmax (or ``hmax`` where larger), padded as ``from_particles``
+        does (one device-to-host copy), for cells ``cell_slack`` times the
+        support where given.
         The grid is changed in place, so every evaluator that shares it
         bins on the new counts; every handle of the grid is invalidated,
         so its next test rebuilds it (made anew where the counts
         changed)."""
         if cell_slack is not None:
             self.cell_slack = float(cell_slack)
-        lo, hi, hmax = self._box(states)
-        box = torch.cat([hi - lo, hmax.reshape(1)]).tolist()
+        lo, hi, hnow = self._box(states)
+        box = torch.cat([hi - lo, hnow.reshape(1)]).tolist()
+        if hmax is not None:
+            box[3] = max(box[3], float(hmax))
         width = self.cell_slack * self.radius_scale * box[3]
         self.cell = width
         self._set_dims(self.sized_dims(
@@ -499,6 +517,30 @@ class CellGrid(object):
         if all(self.periodic[:self.dim]):
             return torch.where(width > 0, stale, width)
         return torch.minimum(width, stale)
+
+    def cells_small(self, width):
+        """0-d device bool: whether a binning of width ``width`` (the
+        support of its hmax, slack included) is wider than a cell of the
+        periodic axes, whose counts do not follow h (False on an open
+        grid).  Nothing is read back."""
+        if not self.is_periodic:
+            return torch.zeros_like(width, dtype=torch.bool)
+        return width > self.stale_width(width) * 1.0001
+
+    def watch_width(self, device):
+        """Keep ``widest`` from here on (a zero on ``device``) where the
+        grid is periodic and an equation writes h, else not."""
+        self.widest = torch.zeros((), dtype=torch.float64, device=device) \
+            if self.is_periodic and self.h_varies else None
+
+    def outgrown(self, width):
+        """The hmax that the grid must be re-sized for where a binning
+        of width ``width`` (a host float, the largest ``widest`` read) was
+        wider than a periodic cell, else None."""
+        if not self.is_periodic or \
+                not width > self.box_host(torch.float64)['stale'] * 1.0001:
+            return None
+        return width / (self.cell_slack * self.radius_scale)
 
     def image(self, d, dx):
         """The minimum image of the displacements ``dx`` along axis

@@ -7,9 +7,15 @@ so h jumps by the density ratio there), run to tf = 0.15 with dt = 1e-4
 under ``GasDScheme`` (``--scheme mpm``, the default): the grad-h density
 iteration, an iterated group re-binned every sweep, then the ideal-gas
 EOS and ``MPMAccelerations``; ``PECIntegrator`` with ``GasDFluidStep``
-and the ``Gaussian`` kernel.  Both pair sets run in ``gasd_pair``.  The
-reference's ``adke`` and ``gsph`` schemes raise ``NotImplementedError``
-naming their ROADMAP item.  On an NVIDIA card:
+and the ``Gaussian`` kernel.  Both pair sets run in ``gasd_pair``.
+``--scheme adke`` (``ADKEScheme``, k = 0.3, eps = 0.5: the ADKE density
+and accelerations on ``gasd_pair``'s ADKE sets, the plain summation
+density on ``wcsph_pair``; PEC with ``ADKEStep``) and ``--scheme gsph``
+(``GSPHScheme`` with the exact Riemann solver, I02 monotonicity, linear
+interpolation and thermal conduction g1 = 0.25, g2 = 0.5: the density
+groups on ``gasd_pair``, the gradients and the accelerations on
+``gsph_pair``; Euler with ``GSPHStep``) are the reference's other two.
+On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.gas_dynamics.shocktube \\
         --use-double --disable-output
@@ -26,13 +32,8 @@ from pysph_tpu_torch.base.utils import get_particle_array_gasd
 from pysph_tpu_torch.examples.gas_dynamics import riemann_solver
 from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.scheme import (
-    GasDScheme, NotPortedScheme, SchemeChooser)
+    ADKEScheme, GasDScheme, GSPHScheme, SchemeChooser)
 
-#: the reference's other schemes: the ROADMAP item that ports them
-_NOT_PORTED = {
-    'adke': 'ROADMAP Queue 1 item 28, remaining physics',
-    'gsph': 'ROADMAP Queue 1 item 28, remaining physics',
-}
 #: the interior held to the exact solution: the rarefactions from the
 #: free ends reach |x| = 0.32 by tf
 WINDOW = 0.3
@@ -74,9 +75,15 @@ class ShockTube(Application):
         mpm = GasDScheme(
             fluids=['fluid'], solids=[], dim=1, gamma=self.gamma,
             kernel_factor=1.2, alpha1=1.0, alpha2=0.1, beta=2.0)
-        others = {name: NotPortedScheme(name, item)
-                  for name, item in _NOT_PORTED.items()}
-        return SchemeChooser(default='mpm', mpm=mpm, **others)
+        adke = ADKEScheme(
+            fluids=['fluid'], solids=[], dim=1, gamma=self.gamma,
+            alpha=1.0, beta=1.0, k=0.3, eps=0.5, g1=0.2, g2=0.4)
+        gsph = GSPHScheme(
+            fluids=['fluid'], solids=[], dim=1, gamma=self.gamma,
+            kernel_factor=1.0, g1=0.25, g2=0.5, rsolver=2,
+            interpolation=1, monotonicity=1, interface_zero=True,
+            hybrid=False, blend_alpha=2.0, niter=20, tol=1e-6)
+        return SchemeChooser(default='mpm', mpm=mpm, adke=adke, gsph=gsph)
 
     def configure_scheme(self):
         self.scheme.configure_solver(dt=1e-4, tf=0.15)

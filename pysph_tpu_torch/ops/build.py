@@ -51,9 +51,11 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: examples' edge cases; the front end's contractions, made on the source
 #: expressions, stay); gasd_pair's walk must decide support as its plain
 #: version does, so that its pairs and each dest's count are the plain
-#: version's exactly: no FMA contraction at all, as delta_pair
+#: version's exactly: no FMA contraction at all, as delta_pair; and so
+#: gsph_pair's, whose Riemann solvers round as their torch versions do
 EXTRA_FLAGS = {'delta_pair': ('-fmad=false',),
                'gasd_pair': ('-fmad=false',),
+               'gsph_pair': ('-fmad=false',),
                'tvf_pair': ('-Xptxas', '--fmad=false'),
                'iisph_pair': ('-Xptxas', '--fmad=false'),
                'iisph_solve': ('-Xptxas', '--fmad=false')}

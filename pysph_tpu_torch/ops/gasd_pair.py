@@ -3,7 +3,9 @@
 ``gasd_pair`` runs the pair terms of one dest array over all its sources
 (at most ``MAX_SOURCES``) in one call, for one of the two phase sets of
 ``GasDScheme``'s MPM groups (``sph/gas_dynamics/basic.py``: the shock
-tube and the Sedov blast of ``examples/gas_dynamics/``):
+tube and the Sedov blast of ``examples/gas_dynamics/``) or of
+``ADKEScheme``'s (the shock tube, the accuracy test and the hydrostatic
+box's ``--scheme adke``):
 
 ==========  ==============================================  =============
 phase set   terms (equations)                               outputs
@@ -12,6 +14,10 @@ DENSITY     SDEN (``SummationDensity``): WI, DWI, GHI at    rho arho
             the dest's h                                    grhox-z dwdh
 MOMENTUM    MPM (``MPMAccelerations``): DWI, DWJ, DWIJ at   au av aw ae
             the dest's, the source's and the mean h         del2e dt_cfl
+ADKE        ADEN (``SummationDensityADKE``): WIJ at the     rho arho
+DENSITY     mean h, DWI at the dest's
+ADKE        ADKE (``ADKEAccelerations``): DWIJ at the mean  au av aw ae
+ACCEL       h, Monaghan's viscosity, the ADKE conduction
 ==========  ==============================================  =============
 
 Each output is ``pre + sum`` (``dt_cfl``: ``max(pre, max over pairs)``)
@@ -56,24 +62,24 @@ On CPU tensors the plain versions walk and the hand-off is empty.
 """
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
-from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import build, cell_pack
 from pysph_tpu_torch.ops import pair_link as pl
 from pysph_tpu_torch.ops.build import data_ptr
+from pysph_tpu_torch.ops.pair_sets import PhaseSets, fill_outputs
 
-SDEN, MPM = 1, 2
+SDEN, MPM, ADEN, ADKE = 1, 2, 4, 8
 #: phase sets, indexed by the phase id of the CUDA kernel
-PHASE_SETS = (SDEN, MPM)
-DENSITY, MOMENTUM = range(2)
+PHASE_SETS = (SDEN, MPM, ADEN, ADKE)
+DENSITY, MOMENTUM, ADKE_DENSITY, ADKE_ACCEL = range(4)
 MAX_SOURCES = 4
 OUTPUTS = ('rho', 'arho', 'grhox', 'grhoy', 'grhoz', 'dwdh', 'au', 'av',
            'aw', 'ae', 'del2e', 'dt_cfl')
-TERM_OUTPUTS = {SDEN: OUTPUTS[:6], MPM: OUTPUTS[6:]}
+TERM_OUTPUTS = {SDEN: OUTPUTS[:6], MPM: OUTPUTS[6:], ADEN: OUTPUTS[:2],
+                ADKE: OUTPUTS[6:10]}
 
 _VEL = ('u', 'v', 'w')
 #: props each set reads beyond x, y, z, h: (dest, source)
@@ -81,29 +87,44 @@ _SET_READS = {
     SDEN: (_VEL, _VEL + ('m',)),
     MPM: (_VEL + ('rho', 'p', 'cs', 'e', 'omega', 'alpha1', 'alpha2'),
           _VEL + ('m', 'rho', 'p', 'cs', 'e', 'omega', 'alpha1',
-                  'alpha2'))}
+                  'alpha2')),
+    ADEN: (_VEL, _VEL + ('m',)),
+    ADKE: (_VEL + ('rho', 'p', 'cs', 'e', 'div'),
+           _VEL + ('m', 'rho', 'p', 'cs', 'e', 'div'))}
 _DEST_PROPS = ('x', 'y', 'z', 'h') + _VEL + (
-    'rho', 'p', 'cs', 'e', 'omega', 'alpha1', 'alpha2')
+    'rho', 'p', 'cs', 'e', 'omega', 'alpha1', 'alpha2', 'div')
 #: the kernel's modes (csrc/gasd_pair.cu GasdMode)
 WALK, SWEEP, CONSUME = range(3)
 #: what a sweep writes, in the kernel's order (csrc/gasd_pair.cu
 #: GasdSweep): the density sums, then initialize's and post_loop's
 SWEEP_OUTPUTS = ('rho', 'arho', 'grhox', 'grhoy', 'grhoz', 'dwdh', 'div',
                  'omega', 'h', 'ah', 'converged')
-#: record planes of the packed copy (csrc/gasd_pair.cu): the density set
-#: packs planes 0 and 1, the momentum set all four
+#: record planes of the packed copy (csrc/gasd_pair.cu): the density sets
+#: pack planes 0 and 1, the momentum sets all four
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('u', 'v', 'w', 'm'),
-                ('rho', 'p', 'cs', 'e'), ('omega', 'alpha1', 'alpha2', None))
+                ('rho', 'p', 'cs', 'e'), ('omega', 'alpha1', 'alpha2', 'div'))
+_SETS = PhaseSets('gasd_pair', PHASE_SETS, _SET_READS, PACK_RECORDS,
+                  MAX_SOURCES)
+phase_of = _SETS.phase_of
+_reads = _SETS.reads
+pack_layout = _SETS.pack_layout
+pack_sources = _SETS.pack_sources
+pack_sources_reference = _SETS.pack_sources_reference
+_phase = _SETS.phase
 
 
 class GasdSource(NamedTuple):
     """One source of a dest's phase set: its term mask, the ``Equation``
-    objects the terms stand for (the plain version runs them) and
-    ``MPMAccelerations``' ``beta``."""
+    objects the terms stand for (the plain version runs them),
+    ``MPMAccelerations``' or ``ADKEAccelerations``' ``beta`` and the
+    latter's ``alpha``, ``g1`` and ``g2``."""
     name: str
     terms: int
     equations: tuple
     beta: float = 0.0
+    alpha: float = 0.0
+    g1: float = 0.0
+    g2: float = 0.0
 
 
 class SweepSpec(NamedTuple):
@@ -123,61 +144,6 @@ def sweep_spec(eq):
                      bool(eq.density_iterations))
 
 
-def phase_of(terms):
-    """The phase id of the set ``terms`` is, or None."""
-    return PHASE_SETS.index(terms) if terms in PHASE_SETS else None
-
-
-@functools.lru_cache(maxsize=None)
-def _reads(terms, side):
-    return frozenset(('x', 'y', 'z', 'h') + _SET_READS[terms][side])
-
-
-def pack_layout(terms):
-    """(slots, planes): the ``PACK_RECORDS`` planes a source of the set
-    ``terms`` packs, and their prop names (``cell_pack.layout``)."""
-    return cell_pack.layout(PACK_RECORDS, _reads(terms, 1))
-
-
-def _packs(sources):
-    return [(src, cells.order, pack_layout(gs.terms)[1])
-            for src, cells, gs in sources]
-
-
-def pack_sources_reference(sources):
-    """Plain torch version of ``pack_sources``: for each (state,
-    ``CellList``, ``GasdSource``) of a call, the ``(planes, n, 4)``
-    records of its planes gathered through the cell order."""
-    return cell_pack.pack_reference(_packs(sources))
-
-
-def pack_sources(sources):
-    """The packed copy of every source of a ``gasd_pair`` call; same
-    arguments and result as ``pack_sources_reference``.  CPU tensors
-    take the plain version; CUDA tensors launch ``csrc/cell_pack.cu``."""
-    return cell_pack.pack(_packs(sources))
-
-
-def _phase(sources):
-    terms = {gs.terms for _, _, gs in sources}
-    phase = phase_of(terms.pop()) if len(terms) == 1 else None
-    if phase is None or not sources:
-        raise ValueError('gasd_pair: sources of terms %s are not one phase '
-                         'set' % sorted(gs.terms for _, _, gs in sources))
-    return phase
-
-
-def neighbour_counts(dest, dest_cells, sources, grid):
-    """Each dest's pairs in support over the call's sources (int32): the
-    plain version of the kernel's ``count``."""
-    n = dest['x'].shape[0]
-    out = torch.zeros(n, dtype=torch.int64, device=dest['x'].device)
-    for src, cells, _ in sources:
-        i, _ = grid.neighbor_pairs(dest, dest_cells, src, cells, (0, n))
-        out += torch.bincount(i, minlength=n)
-    return out.to(torch.int32)
-
-
 def gasd_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
                         kernel, counts=False):
     """Plain torch version of ``gasd_pair``: the torch pair engine
@@ -189,24 +155,16 @@ def gasd_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
     value before the phase}; ``sources``: [(state, CellList,
     GasdSource)]; ``grid``: the ``CellGrid`` of the cell lists;
     ``counts``: add ``nnbr``.  Returns {output: tensor}."""
-    from pysph_tpu_torch.sph.acceleration_eval import run_pair_phase
-    _phase(sources)
-    store = dict(dest)
-    store.update(pre)
-    for src, src_cells, gs in sources:
-        run_pair_phase(list(gs.equations), store, src, dest_cells,
-                       src_cells, grid, kernel, write_mask, 0.0, 0.0)
-    out = {p: store[p] for p in pre}
-    if counts:
-        out['nnbr'] = neighbour_counts(dest, dest_cells, sources, grid)
-    return out
+    return _SETS.reference(dest, dest_cells, write_mask, pre, sources, grid,
+                           kernel, counts=counts)
 
 
 class _SrcArgs(ctypes.Structure):
     _fields_ = [('plane', ctypes.c_void_p * len(PACK_RECORDS)),
                 ('cell_start', ctypes.c_void_p),
                 ('cell_end', ctypes.c_void_p),
-                ('beta', ctypes.c_double),
+                ('beta', ctypes.c_double), ('alpha', ctypes.c_double),
+                ('g1', ctypes.c_double), ('g2', ctypes.c_double),
                 ('terms', ctypes.c_int32), ('base', ctypes.c_int32)]
 
 
@@ -237,64 +195,21 @@ class _Args(ctypes.Structure):
 
 def _common(args, dest, dest_cells, write_mask, sources, grid, kernel,
             phase, buf=None):
-    """Fill what every mode's ``_Args`` holds: the dest, its cells, the
-    sources (their packed planes in one buffer, ``buf`` where given), the
-    grid and the kernel; returns the packs' buffer."""
-    x = dest['x']
-    dev, fdt, n = x.device, x.dtype, x.shape[0]
-    if fdt not in (torch.float32, torch.float64):
-        raise ValueError('gasd_pair: dtype %s' % fdt)
-    if len(sources) > MAX_SOURCES:
-        raise ValueError('gasd_pair: %d sources' % len(sources))
-    kind = kernel_kind(kernel)
-    if kind is None:
-        raise ValueError('gasd_pair: no shape function for %r (1D kernels: '
-                         'ROADMAP Queue 1 item 28)' % kernel)
-    terms = PHASE_SETS[phase]
-    i32 = torch.int32
-    packs = _packs(sources)
-    # the copies' buffer stays referenced until the launch is queued
-    buf = cell_pack.fill(args.pack, packs, 'gasd_pair', buf)
-    slots = pack_layout(terms)[0]
-    base = 0
-    for k, (src, cells, gs) in enumerate(sources):
-        sa, c = args.src[k], args.pack.src[k]
-        plane = c.n * 4 * x.element_size()
-        for q, s in enumerate(slots):
-            sa.plane[s] = c.out + q * plane
-        sa.cell_start = data_ptr(cells.start, grid.ncells, i32, dev,
-                                 'cell_start')
-        sa.cell_end = data_ptr(cells.end, grid.ncells, i32, dev, 'cell_end')
-        sa.beta = gs.beta
-        sa.terms = gs.terms
-        sa.base = base
-        base += c.n
-    for p in _reads(terms, 0):
-        setattr(args, p, data_ptr(dest[p], n, fdt, dev, 'd_' + p))
-    args.cell = data_ptr(dest_cells.cell, n, i32, dev, 'dest cell')
-    args.dorder = data_ptr(dest_cells.order, n, i32, dev, 'dest order')
-    if write_mask is not None:
-        args.wmask = data_ptr(write_mask, n, torch.bool, dev, 'write mask')
-    args.radius_scale = grid.radius_scale
-    args.kfac = kernel.fac
-    # the box lengths of the periodic axes, each the dtype's value
-    lengths = grid.box_host(fdt)['lengths']
-    for d, per in enumerate(grid.periodic):
-        args.box[d] = lengths[d] if per else 0.0
-    args.periodic = grid.is_periodic
-    args.n_dest, args.n_src = n, len(sources)
-    args.nx, args.ny, args.nz = grid.dims
-    args.dim = kernel.dim
-    args.phase = phase
-    args.dtype = 1 if fdt == torch.float64 else 0
-    args.kernel_kind = kind
+    """``PhaseSets.fill``, and each source's viscosity and conduction
+    constants; returns the packs' buffer."""
+    buf = _SETS.fill(args, dest, dest_cells, write_mask, sources, grid,
+                     kernel, phase, buf)
+    for k, (_, _, gs) in enumerate(sources):
+        sa = args.src[k]
+        sa.beta, sa.alpha = gs.beta, gs.alpha
+        sa.g1, sa.g2 = gs.g1, gs.g2
     return buf
 
 
 def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
             counts, handoff=None):
     x = dest['x']
-    dev, fdt, n = x.device, x.dtype, x.shape[0]
+    dev, n = x.device, x.shape[0]
     phase = _phase(sources)
     terms = PHASE_SETS[phase]
     if set(pre) != set(TERM_OUTPUTS[terms]):
@@ -303,15 +218,7 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     args = _Args()
     buf = _common(args, dest, dest_cells, write_mask, sources, grid, kernel,
                   phase)
-    out = {}
-    for k, p in enumerate(OUTPUTS):
-        if p in pre:
-            args.pre[k] = data_ptr(pre[p], n, fdt, dev, 'pre ' + p)
-            out[p] = torch.empty_like(pre[p])
-            args.out[k] = out[p].data_ptr()
-    if counts:
-        out['nnbr'] = torch.empty(n, dtype=torch.int32, device=dev)
-        args.count = out['nnbr'].data_ptr()
+    out = fill_outputs(args, OUTPUTS, pre, x, counts)
     if handoff is not None:
         if phase != MOMENTUM:
             raise ValueError('gasd_pair: a hand-off given to a density call')

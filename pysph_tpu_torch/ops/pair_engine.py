@@ -1,6 +1,6 @@
 """Planning: which pair phases a hand-written pair kernel runs.
 
-Seven kernels take a dest's pair phases, all its sources in one call:
+Eight kernels take a dest's pair phases, all its sources in one call:
 
 - ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path, the
   elliptical drop and the Taylor-Green vortex's ``--scheme wcsph``):
@@ -45,15 +45,23 @@ Seven kernels take a dest's pair phases, all its sources in one call:
   ``PressureSolve`` and its wall term; ``PressureForce`` and its wall
   term), each plan taking the step's dt (``PairPlan.takes_dt``);
 - ``gasd_pair`` (``ops/gasd_pair.py``, ``GasDScheme``'s MPM groups: the
-  shock tube and the Sedov blast): every source of a dest takes
-  ``SummationDensity`` (the density set) or every source
-  ``MPMAccelerations`` (the momentum set).
+  shock tube and the Sedov blast; ``ADKEScheme``'s: the shock tube, the
+  accuracy test and the hydrostatic box): every source of a dest takes
+  ``SummationDensity`` (the density set), every source
+  ``MPMAccelerations`` (the momentum set), every source
+  ``SummationDensityADKE`` (ADKE's density set) or every source
+  ``ADKEAccelerations`` (ADKE's accelerations);
+- ``gsph_pair`` (``ops/gsph_pair.py``, ``GSPHScheme``'s groups: the
+  accuracy test, the hydrostatic box and the shock tube): every source
+  of a dest takes ``GSPHGradients`` (the gradients) or every source
+  ``GSPHAcceleration`` with the same constants (the accelerations), each
+  plan taking the step's t and dt (``PairPlan.takes_time``).
 
 Every kernel takes every kernel with a ``kernel_kind`` (not the ``_1D``
-ones: ROADMAP Queue 1 item 28; where a set is ``gasd_pair``'s, such a
-kernel raises ``NotImplementedError`` rather than leave the 1D gas runs
-to the torch engine), and every kernel walks a periodic grid (the
-wrapped stencil, the minimum image).
+ones: ROADMAP Queue 1 item 28; where a set is ``gasd_pair``'s or
+``gsph_pair``'s, such a kernel raises ``NotImplementedError`` rather than
+leave the 1D gas runs to the torch engine), and every kernel walks a
+periodic grid (the wrapped stencil, the minimum image).
 
 For each, each equation appears at most once per source, with at most
 ``MAX_SOURCES`` sources, and no equation reads a property that another
@@ -93,8 +101,8 @@ runs every sweep, the loop condition on the card (``SolvePlan``).
 The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
 sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair``, the
 delta-SPH pre-phases onto ``delta_pair``, TVF's and EDAC's sets onto
-``tvf_pair``, IISPH's onto ``iisph_pair`` and the MPM sets onto
-``gasd_pair``; ``dense`` plans the WCSPH sets
+``tvf_pair``, IISPH's onto ``iisph_pair``, the MPM and ADKE sets onto
+``gasd_pair`` and GSPH's onto ``gsph_pair``; ``dense`` plans the WCSPH sets
 without delta-SPH terms onto ``dense_pair`` and nothing else, as the JAX
 package's dense-slot engine refuses sequential and strided phases
 (``pallas_engine.py:855-861``): the GTVF sets, the delta-SPH pre-phases
@@ -109,6 +117,7 @@ from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gasd_pair as _gd
+from pysph_tpu_torch.ops import gsph_pair as _gs
 from pysph_tpu_torch.ops import gtvf_pair as _gp
 from pysph_tpu_torch.ops import iisph_pair as _ip
 from pysph_tpu_torch.ops import iisph_solve as _is
@@ -437,7 +446,20 @@ def _gasd_terms():
     # imported here, as _gtvf_terms
     from pysph_tpu_torch.sph.gas_dynamics import basic
     return {basic.SummationDensity: _gd.SDEN,
-            basic.MPMAccelerations: _gd.MPM}
+            basic.MPMAccelerations: _gd.MPM,
+            basic.SummationDensityADKE: _gd.ADEN,
+            basic.ADKEAccelerations: _gd.ADKE}
+
+
+def _refuse_1d(name, kernel):
+    """A gas set's kernel must have a shape function: the gas runs are 1D
+    and 2D, where the _1D kernels are offered, and a refusal here would run
+    them on the torch engine unannounced."""
+    if kernel_kind(kernel) is None:
+        raise NotImplementedError(
+            '%s: kernel %r has no shape function in the pair kernels (1D '
+            'kernels: ROADMAP Queue 1 item 28); run it with --engine torch'
+            % (name, kernel))
 
 
 def _plan_gasd(dest, sources, kernel):
@@ -447,25 +469,53 @@ def _plan_gasd(dest, sources, kernel):
     for src, t, eqs in _source_terms(sources, term_of, _gd.TERM_OUTPUTS,
                                      _gd.MAX_SOURCES):
         plan_sources.append(_gd.GasdSource(
-            src, t, tuple(eqs), beta=_one(eqs, 'beta', src)))
+            src, t, tuple(eqs), beta=_one(eqs, 'beta', src),
+            alpha=_one(eqs, 'alpha', src), g1=_one(eqs, 'g1', src),
+            g2=_one(eqs, 'g2', src)))
         terms |= t
     if _gd.phase_of(terms) is None or any(
             ps.terms != terms for ps in plan_sources):
         raise PairIneligible('gas-dynamics terms %#x: not one phase set for '
                              'every source' % terms)
-    if kernel_kind(kernel) is None:
-        # the gas runs are 1D and 2D, where the _1D kernels are offered: a
-        # refusal here would run them on the torch engine unannounced
-        raise NotImplementedError(
-            'gasd_pair: kernel %r has no shape function in the pair kernels '
-            '(1D kernels: ROADMAP Queue 1 item 28); run it with --engine '
-            'torch' % kernel)
+    _refuse_1d('gasd_pair', kernel)
     return PairPlan(dest, plan_sources, kernel, _gd.gasd_pair,
                     _gd.gasd_pair_reference, _gd.TERM_OUTPUTS[terms])
 
 
+def _gsph_terms():
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.gas_dynamics import gsph
+    return {gsph.GSPHGradients: _gs.GRAD, gsph.GSPHAcceleration: _gs.ACC}
+
+
+def _plan_gsph(dest, sources, kernel):
+    term_of = _gsph_terms()
+    plan_sources = []
+    terms = 0
+    for src, t, eqs in _source_terms(sources, term_of, _gs.TERM_OUTPUTS,
+                                     _gs.MAX_SOURCES):
+        params = next((_gs.params_of(eq) for eq in eqs
+                       if term_of[type(eq)] == _gs.ACC), _gs.GsphParams())
+        plan_sources.append(_gs.GsphSource(src, t, tuple(eqs), params))
+        terms |= t
+    if _gs.phase_of(terms) is None or any(
+            ps.terms != terms for ps in plan_sources):
+        raise PairIneligible('GSPH terms %#x: not one phase set for every '
+                             'source' % terms)
+    if len({ps.params for ps in plan_sources}) != 1:
+        raise PairIneligible('GSPHAcceleration: sources of different '
+                             'constants')
+    if not 0 <= plan_sources[0].params.rsolver < _gs.RSOLVERS:
+        raise ValueError('GSPHAcceleration: no Riemann solver %r (0-10)'
+                         % plan_sources[0].params.rsolver)
+    _refuse_1d('gsph_pair', kernel)
+    return PairPlan(dest, plan_sources, kernel, _gs.gsph_pair,
+                    _gs.gsph_pair_reference, _gs.TERM_OUTPUTS[terms],
+                    takes_time=True)
+
+
 _PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf,
-                        _plan_iisph, _plan_gasd),
+                        _plan_iisph, _plan_gasd, _plan_gsph),
              'dense': (_plan_dense,)}
 
 
@@ -701,11 +751,12 @@ def link_pairs(groups, plans):
 class PairPlan(object):
     """The kernel call for one dest over all its sources: ``op`` is the
     kernel's wrapper, ``reference`` its plain version (same arguments;
-    with ``takes_dt`` the step's dt is the last); ``link``: the
-    ``pair_link.Link`` a linked plan runs through."""
+    with ``takes_dt`` the step's dt is the last, with ``takes_time`` the
+    step's t and dt are); ``link``: the ``pair_link.Link`` a linked plan
+    runs through."""
 
     def __init__(self, dest, sources, kernel, op, reference, outputs,
-                 takes_dt=False):
+                 takes_dt=False, takes_time=False):
         self.dest = dest
         self.sources = sources
         self.kernel = kernel
@@ -713,19 +764,24 @@ class PairPlan(object):
         self.reference = reference
         self.outputs = outputs
         self.takes_dt = takes_dt
+        self.takes_time = takes_time
         self.link = None
 
-    def args(self, store, states, cells, grid, write_mask, pre, dt=0.0):
+    def args(self, store, states, cells, grid, write_mask, pre, dt=0.0,
+             t=0.0):
         """The arguments of ``op`` for the dest's ``store`` and the
         outputs' values before the phase ``pre``."""
         srcs = [(states[s.name], cells[s.name], s) for s in self.sources]
         args = (store, cells[self.dest], write_mask, pre, srcs, grid,
                 self.kernel)
+        if self.takes_time:
+            return args + (t, dt)
         return args + (dt,) if self.takes_dt else args
 
-    def execute(self, store, states, cells, grid, write_mask, dt=0.0):
+    def execute(self, store, states, cells, grid, write_mask, dt=0.0,
+                t=0.0):
         pre = {p: store[p] for p in self.outputs}
-        args = self.args(store, states, cells, grid, write_mask, pre, dt)
+        args = self.args(store, states, cells, grid, write_mask, pre, dt, t)
         store.update(self.op(*args) if self.link is None
                      else self.link.run(self, args))
 

@@ -77,8 +77,14 @@ slots sets the grid's ``sweep_overflow``; the chunk's read carries it
 (``SWEEPS``), and the host puts the state back (the evaluators' own
 binnings too), doubles the slots and runs the chunk again, as after a
 dropped pair list, unless a binning of the chunk met a state that is
-not finite (which never converges): that raises first.  ``redos``
-counts both.
+not finite (which never converges): that raises first.  Where an
+equation writes h on a periodic grid (``CellGrid.h_varies``), each step
+keeps the widest binning (``CellGrid.widest``): a step whose h outgrew the
+periodic cells summed on cells that miss pairs, so the chunk stops after
+it, its read carries the width (``WIDE``; the per-step loop reads it
+after each step), and the host puts the state back, re-sizes the grid
+for that h and runs the chunk (or step) again.  ``redos`` counts all
+three.
 
 A binning that met a position or h that is not finite bins nothing and
 sets the grid's ``nonfinite`` flag, which the chunk's read carries
@@ -107,8 +113,8 @@ EPSILON = 1e-14
 GROW_CHECK_STEPS = 20
 #: the chunk's device carry: float64 slots of ``Solver._carry``
 (T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW, REBUILDS, PAIRS, SWEEPS,
- BAD) = range(12)
-N_CARRY = BAD + 1
+ BAD, WIDE) = range(13)
+N_CARRY = WIDE + 1
 
 
 class Solver(object):
@@ -286,18 +292,28 @@ class Solver(object):
     def _step(self):
         """One step of the per-step loop, redone from the state before it
         with the capacities grown where a torch engine pair list
-        overflowed (where a dest is on that engine: one read a step)."""
-        if not self.grid.pair_caps:
+        overflowed, or the grid re-sized where h outgrew its periodic
+        cells (where a dest is on that engine or an equation writes h on
+        a periodic grid: one read a step)."""
+        grid = self.grid
+        if not (grid.pair_caps or self._watch_width()):
             self.integrator.step(self.states, self.t, self.dt)
             return
         saved = self._save()
+        zero = torch.zeros((), dtype=torch.float64, device=self.config.device)
         while True:
-            self.grid.watch_pairs()
+            grid.watch_pairs()
+            grid.watch_width(zero.device)
             self.integrator.step(self.states, self.t, self.dt)
+            flags = [zero if f is None else f.to(zero.dtype)
+                     for f in (grid.pair_overflow, grid.widest)]
+            grid.pair_overflow = grid.widest = None
+            pairs, width = torch.stack(flags).tolist()
             self.reads += 1
-            if not self.grid.pairs_overflowed():
+            hmax = grid.outgrown(width)
+            if not pairs and hmax is None:
                 return
-            self._redo(saved, 'step')
+            self._redo(saved, 'step', pairs=bool(pairs), hmax=hmax)
 
     def _save(self):
         """What a redo puts back: copies of the states (a chunk writes
@@ -312,11 +328,12 @@ class Solver(object):
         own = [a.nnps_state() for a in self.acceleration_evals]
         return states, handles, rebuilds, self.grid.overflow, own
 
-    def _redo(self, saved, what, slots=False):
+    def _redo(self, saved, what, pairs=False, slots=False, hmax=None):
         """Put back what ``_save`` kept (a chunk's next run copies the
-        states into its static tensors) and grow the torch engine's
-        capacities that a list outgrew (one read) or, with ``slots``, the
-        sweep slots."""
+        states into its static tensors) and re-size the grid for ``hmax``
+        where given (h outgrew the periodic cells; one read), double the
+        sweep slots with ``slots``, and grow the torch engine's
+        capacities that a list outgrew with ``pairs`` (one read)."""
         states, handles, rebuilds, overflow, own = saved
         for a_eval, kept in zip(self.acceleration_evals, own):
             a_eval.restore_nnps(kept)
@@ -335,18 +352,24 @@ class Solver(object):
         if self.grid.nonfinite is not None:
             self.grid.nonfinite.zero_()
         self.redos += 1
+        if hmax is not None:
+            self.grid.grow(self.states.values(), hmax)
+            self.reads += 1
+            logger.info('step %d: h grew past the periodic cells; the grid '
+                        're-sized to %s, the %s run again', self.count,
+                        self.grid.dims, what)
         if slots:
             grown = [[p.grow() for p in a.sweep_plans()]
                      for a in self.acceleration_evals]
             logger.info('step %d: an evaluation ran out of sweep slots; '
                         'slots grown to %s, the %s run again', self.count,
                         grown, what)
-            return
-        grown = self.grid.grow_pairs()
-        self.reads += 1
-        logger.info('step %d: a torch engine pair list overflowed; '
-                    'capacities grown to %s, the %s run again', self.count,
-                    grown, what)
+        if pairs:
+            grown = self.grid.grow_pairs()
+            self.reads += 1
+            logger.info('step %d: a torch engine pair list overflowed; '
+                        'capacities grown to %s, the %s run again',
+                        self.count, grown, what)
 
     def _next_output_time(self):
         """The first output time more than epsilon after t (inf if
@@ -366,8 +389,8 @@ class Solver(object):
         inputs[COUNT], inputs[N_REAL] = self.count, n_real
         inputs[T_OUT] = self._next_output_time()
         graph = self._captured_chunk() if self._graphed() else None
-        saved = self._save() if self.grid.pair_caps or self._swept() \
-            else None
+        saved = self._save() if self.grid.pair_caps or self._swept() or \
+            self._watch_width() else None
         self._carry.copy_(torch.tensor(inputs, dtype=torch.float64))
         if graph is not None:
             graph.replay()
@@ -378,9 +401,10 @@ class Solver(object):
         self.grid.overflow = None
         vals = self._carry.tolist()      # the chunk's one read
         self.reads += 1
-        if vals[PAIRS]:
+        hmax = self.grid.outgrown(vals[WIDE])
+        if vals[PAIRS] or hmax is not None:
             # the loop runs the chunk again, captured at the new sizes
-            self._redo(saved, 'chunk')
+            self._redo(saved, 'chunk', pairs=bool(vals[PAIRS]), hmax=hmax)
             return
         # a state that is not finite never converges: raise before more
         # slots are tried (they cannot make it finite)
@@ -456,8 +480,11 @@ class Solver(object):
         each deciding on the device what the per-step loop decides on
         the host; writes back t, dt, the uncapped dt, the count, the
         steps done, whether a binning overflowed, the binnings run and
-        whether a torch engine pair list overflowed (the chunk then stops
-        after that step)."""
+        whether a torch engine pair list overflowed, whether an evaluation
+        ran out of sweep slots, whether a binning met a state that is not
+        finite and the widest binning, where kept (the chunk stops after a
+        step whose list overflowed, whose sweeps ran short or whose h
+        outgrew the periodic cells)."""
         c = self._carry
         t, dt, dt_un, count, n_real, t_out = (c[T], c[DT], c[DT_UN],
                                               c[COUNT], c[N_REAL], c[T_OUT])
@@ -469,18 +496,27 @@ class Solver(object):
         grow = torch.zeros_like(active)
         pairs = torch.zeros_like(active)
         short = torch.zeros_like(active)
+        widest = torch.zeros_like(t)
         watch = bool(self.grid.pair_caps)
         swept = self._swept()
+        wide = self._watch_width()
         for i in range(iters):
             self.grid.overflow_any = torch.zeros_like(active)
             if watch:
                 self.grid.pair_overflow = torch.zeros_like(active)
             if swept:
                 self.grid.sweep_overflow = torch.zeros_like(active)
+            if wide:
+                self.grid.widest = torch.zeros_like(t)
             self.integrator.step(self.states, t, dt, active)
             ovf = self.grid.overflow_any
             self.grid.overflow_any = None
             stop = ovf
+            if wide:
+                stop = stop | self.grid.cells_small(self.grid.widest)
+                widest = torch.maximum(
+                    widest, torch.where(active, self.grid.widest, 0.0))
+                self.grid.widest = None
             if watch:
                 stop = stop | self.grid.pair_overflow
                 pairs = pairs | (active & self.grid.pair_overflow)
@@ -525,7 +561,7 @@ class Solver(object):
                              self.integrator.rebuilds,
                              pairs.to(torch.float64),
                              short.to(torch.float64),
-                             bad.to(torch.float64)]))
+                             bad.to(torch.float64), widest]))
 
     def _captured_chunk(self):
         """The CUDA graph of a chunk, captured again where what it bakes
@@ -557,6 +593,11 @@ class Solver(object):
         self.captures += 1
         self._graph, self._graph_key = graph, key
         return graph
+
+    def _watch_width(self):
+        """Whether the steps keep the widest binning (``CellGrid.
+        watch_width``): a periodic grid where an equation writes h."""
+        return self.grid.is_periodic and self.grid.h_varies
 
     def _swept(self):
         """Whether an evaluator sweeps an iterated group in slots."""

@@ -359,21 +359,43 @@ def run_pair_phase(eqs, dest, src, dest_cells, src_cells, grid, kernel,
             _bind_pair_phase(eq.loop, ctx, t, dt)
 
 
+def _writes_h(eq):
+    """Whether a phase of ``eq`` that runs on the dest alone takes
+    ``d_h`` (``initialize``, ``post_loop``, a source-less ``loop``): one
+    that may write h (a pair ``loop`` reads it)."""
+    phases = ['initialize', 'post_loop'] + (['loop'] if eq.no_source else [])
+    return any('d_h' in _method_args(getattr(eq, m))
+               for m in phases if getattr(eq, m, None) is not None)
+
+
 def run_sized(grid, states, run):
     """Run ``run()``, an eager evaluation that writes ``states`` (a dict
     of state dicts, whose entries it replaces), again from the states as
     they were, with ``grid``'s pair capacities grown (and its
     ``nonfinite`` flag cleared), until no torch engine pair list
     overflowed: one read a run where a dest is on that engine, none
-    else.  The first capacities are sized so."""
+    else.  The first capacities are sized so.  On a periodic grid where
+    an equation writes h it also runs again, the grid re-sized for the
+    largest h that a binning of the run met, where that h outgrew the
+    cells (``grid.widest``: one more read a run)."""
     saved = {name: dict(st) for name, st in states.items()}
+    dev = next(iter(states.values()))['x'].device
     while True:
         grid.watch_pairs()
+        grid.watch_width(dev)
         run()
-        if not grid.pairs_overflowed():
+        width, grid.widest = grid.widest, None
+        hmax = None if width is None else grid.outgrown(float(width))
+        if hmax is not None:
+            grid.grow(states.values(), hmax)
+            logger.info('h grew past the periodic cells: the grid re-sized '
+                        'to %s, the evaluation run again', grid.dims)
+            grid.pairs_overflowed()
+        elif not grid.pairs_overflowed():
             return
-        grown = grid.grow_pairs()
-        logger.info('torch pair engine capacities grown: %s', grown)
+        else:
+            grown = grid.grow_pairs()
+            logger.info('torch pair engine capacities grown: %s', grown)
         # what the dropped pairs gave is run again: a binning of it that
         # was not finite does not count
         if grid.nonfinite is not None:
@@ -419,6 +441,8 @@ class AccelerationEval(object):
         self._sweep_log = None
         self._plans = self._plan()
         self.domain = grid.domain
+        if any(_writes_h(eq) for eq in self._iter_equations()):
+            grid.h_varies = True
         # the handle of update_and_compute
         self._handle = None
         # the handle of the re-binnings of update_nnps groups
@@ -612,6 +636,11 @@ class AccelerationEval(object):
         flag = bin_cells(self.grid, sub, handle, force, active)
         # a kept binning reports no overflow
         self.grid.note_overflow(handle.overflow & flag)
+        if self.grid.widest is not None:
+            # h past a periodic grid's cells: the caller grows and redoes
+            self.grid.widest = torch.maximum(
+                self.grid.widest, torch.where(flag, handle.width, 0.0)
+                .to(self.grid.widest.dtype))
         return handle, flag
 
     # -- execution -----------------------------------------------------
@@ -697,8 +726,7 @@ class AccelerationEval(object):
         """One pass of ``group``'s sub-tree (or its own equations); returns
         the cell lists after it (a sub-group may re-bin)."""
         if not group.has_subgroups:
-            self._run_group(group, t, dt, states, cells)
-            return cells
+            return self._run_group(group, t, dt, states, cells, active)
         for sub in group.equations:
             cells = self._dispatch(sub, t, dt, states, cells, active)
         return cells
@@ -802,7 +830,12 @@ class AccelerationEval(object):
             conv = held if conv is True else conv & held
         return conv
 
-    def _run_group(self, group, t, dt, states, cells):
+    def _run_group(self, group, t, dt, states, cells, active=None):
+        """One pass of ``group``'s own equations; returns the cell lists
+        after it.  Where a dest's ``initialize`` writes h (ADKE's density
+        resets it to h0), the evaluator's own binning runs its reuse test
+        right after it (``_rebin``, rebuilt where h grew past the cells),
+        so that the pair phases see every pair in support of the new h."""
         kernel = self.kernel
         for dest, eqs in self._dest_order(group).items():
             store = states[dest]
@@ -816,10 +849,13 @@ class AccelerationEval(object):
                 if eq.no_source and getattr(eq, 'loop', None) is not None:
                     _bind_particle_phase(eq.loop, store, wm, t, dt, consts,
                                          kernel)
+            if any('d_h' in _method_args(eq.initialize) for eq in eqs
+                   if getattr(eq, 'initialize', None) is not None):
+                cells = self._rebin(states, active, force=False)
             sources = self._sources(eqs)
             plan = self._plans.get((id(group), dest))
             if plan is not None:
-                plan.execute(store, states, cells, self.grid, wm, dt)
+                plan.execute(store, states, cells, self.grid, wm, dt, t=t)
             else:
                 for src, src_eqs in sources.items():
                     run_pair_phase(
@@ -836,3 +872,4 @@ class AccelerationEval(object):
                 fn = getattr(eq, 'reduce', None)
                 if fn is not None:
                     fn(dst=ReduceView(store, wm), t=t, dt=dt)
+        return cells

@@ -1,2 +1,4 @@
 """Compressible gas dynamics (port of ``pysph_tpu/sph/gas_dynamics/``):
-the grad-h MPM equations of ``GasDScheme`` (``basic.py``)."""
+the grad-h MPM and ADKE equations of ``GasDScheme`` and ``ADKEScheme``
+(``basic.py``), and Godunov SPH, ``GSPHScheme``'s (``gsph.py``, with the
+Riemann solvers of ``riemann_solver.py``)."""

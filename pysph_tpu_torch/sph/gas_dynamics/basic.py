@@ -13,7 +13,13 @@
 - ``MPMAccelerations``: the Monaghan-Price-Morris accelerations with the
   grad-h factors ``omega``, signal-velocity viscosity and conduction, a
   ``MAX`` of the signal speed into ``dt_cfl``, and the switches'
-  rates ``aalpha1``, ``aalpha2`` in ``post_loop``.
+  rates ``aalpha1``, ``aalpha2`` in ``post_loop``;
+- ``SummationDensityADKE``, ``ADKEAccelerations`` and
+  ``ADKEUpdateGhostProps``: ``ADKEScheme``'s, the summation density with
+  h reset to ``h0`` in ``initialize`` and, in ``reduce``, the adaptive
+  kernel estimate ``h = k (g / rho)^eps h0`` (g the geometric mean of
+  rho), and the accelerations with Monaghan's viscosity and the ADKE
+  thermal conduction (whose ``g2`` is ``g1``, as the reference's).
 
 On the kernel engine the pair terms of ``SummationDensity`` and
 ``MPMAccelerations`` run in ``gasd_pair`` (``ops/gasd_pair.py``); their
@@ -21,8 +27,10 @@ On the kernel engine the pair terms of ``SummationDensity`` and
 the ``mpm`` scheme's iterated density group, whose every sweep
 (``initialize``, the sums, ``post_loop``, the count of unconverged
 particles) is one ``gasd_sweep`` launch (``ops/pair_engine.py::
-plan_sweep``), in the same IEEE operations as the methods below.  ADKE's
-equations come with ``ADKEScheme`` (ROADMAP Queue 1 item 28).
+plan_sweep``), in the same IEEE operations as the methods below.  The
+pair terms of ``SummationDensityADKE`` and ``ADKEAccelerations`` are
+``gasd_pair``'s ADKE sets; ``reduce`` runs as torch ops on the device
+after the dest's ``post_loop`` and reads nothing back.
 """
 
 import torch
@@ -48,6 +56,42 @@ class UpdateSmoothingLengthFromVolume(Equation):
 
     def loop(self, d_idx, d_m, d_rho, d_h):
         d_h[d_idx] = self.k * (d_m[d_idx] / d_rho[d_idx]) ** self.dim1
+
+
+class SummationDensityADKE(Equation):
+    """The ADKE summation density: WIJ at the mean h, after h is reset to
+    h0; ``reduce`` sets each particle's h from the geometric mean of
+    rho."""
+
+    def __init__(self, dest, sources, k=1.0, eps=0.0):
+        self.k = k
+        self.eps = eps
+        super(SummationDensityADKE, self).__init__(dest, sources)
+
+    def initialize(self, d_idx, d_arho, d_rho, d_h, d_h0):
+        d_rho[d_idx] = 0.0
+        d_arho[d_idx] = 0.0
+        d_h[d_idx] = d_h0[d_idx]
+
+    def loop(self, d_idx, d_rho, d_arho, s_idx, s_m, VIJ, DWI, WIJ):
+        d_rho[d_idx] += s_m[s_idx] * WIJ
+        vijdotdwij = (VIJ[0] * DWI[0] + VIJ[1] * DWI[1] +
+                      VIJ[2] * DWI[2])
+        d_arho[d_idx] += s_m[s_idx] * vijdotdwij
+
+    def post_loop(self, d_idx, d_rho, d_arho, d_div, d_logrho):
+        d_div[d_idx] = -d_arho[d_idx] / d_rho[d_idx]
+        d_arho[d_idx] = 0.0
+        d_logrho[d_idx] = torch.log(d_rho[d_idx])
+
+    def reduce(self, dst, t, dt):
+        mask = dst.active
+        rho = dst.rho[:]
+        n = torch.where(mask, 1.0, 0.0).to(rho.dtype).sum()
+        sum_logrho = torch.where(mask, dst.logrho[:], 0.0).sum()
+        g = torch.exp(sum_logrho / torch.clamp(n, min=1.0))
+        lamda = self.k * (g / torch.where(mask, rho, 1.0)) ** self.eps
+        dst.h[:] = torch.where(mask, lamda * dst.h0[:], dst.h[:])
 
 
 class SummationDensity(Equation):
@@ -239,3 +283,71 @@ class MPMAccelerations(Equation):
                 torch.sqrt(torch.clamp(d_e[d_idx], min=1e-30))
             d_aalpha2[d_idx] = (self.alpha2_min - d_alpha2[d_idx]) / \
                 tau + S2
+
+
+class ADKEAccelerations(Equation):
+    """The ADKE accelerations: the pressure gradient with Monaghan's
+    artificial viscosity and the ADKE thermal conduction.  ``g2`` is set
+    to ``g1``, as the reference's (ROADMAP Queue 3: reproduced on
+    purpose)."""
+
+    def __init__(self, dest, sources, alpha, beta, g1, g2, k, eps):
+        self.alpha = alpha
+        self.beta = beta
+        self.g1 = g1
+        self.g2 = g1
+        self.k = k
+        self.eps = eps
+        super(ADKEAccelerations, self).__init__(dest, sources)
+
+    def initialize(self, d_idx, d_au, d_av, d_aw, d_ae):
+        d_au[d_idx] = 0.0
+        d_av[d_idx] = 0.0
+        d_aw[d_idx] = 0.0
+        d_ae[d_idx] = 0.0
+
+    def loop(self, d_idx, s_idx, d_au, d_av, d_aw, d_ae, d_p, s_p,
+             d_rho, s_rho, d_m, s_m, d_cs, s_cs, s_e, d_e, s_h, d_h,
+             s_div, d_div, DWIJ, HIJ, XIJ, VIJ, R2IJ, EPS, RHOIJ,
+             RHOIJ1):
+        pibrhoi2 = d_p[d_idx] / (d_rho[d_idx] * d_rho[d_idx])
+        pjbrhoj2 = s_p[s_idx] / (s_rho[s_idx] * s_rho[s_idx])
+        cij = 0.5 * (d_cs[d_idx] + s_cs[s_idx])
+        mj = s_m[s_idx]
+        hi = d_h[d_idx]
+        hj = s_h[s_idx]
+        divi = d_div[d_idx]
+        divj = s_div[s_idx]
+        eij = d_e[d_idx] - s_e[s_idx]
+        Hi = self.g1 * hi * d_cs[d_idx] + \
+            self.g2 * hi * hi * (torch.abs(divi) - divi)
+        Hj = self.g1 * hj * s_cs[s_idx] + \
+            self.g2 * hj * hj * (torch.abs(divj) - divj)
+        Hij = (Hi + Hj) * eij / (RHOIJ * (R2IJ + EPS))
+        xijdotvij = (XIJ[0] * VIJ[0] + XIJ[1] * VIJ[1] +
+                     XIJ[2] * VIJ[2])
+        muij = HIJ * xijdotvij / (R2IJ + EPS)
+        piij = muij * (self.beta * muij - self.alpha * cij) * RHOIJ1
+        piij = torch.where(xijdotvij < 0, piij, 0.0)
+        tmpv = pibrhoi2 + pjbrhoj2 + piij
+        d_au[d_idx] += -mj * tmpv * DWIJ[0]
+        d_av[d_idx] += -mj * tmpv * DWIJ[1]
+        d_aw[d_idx] += -mj * tmpv * DWIJ[2]
+        vijdotdwij = (VIJ[0] * DWIJ[0] + VIJ[1] * DWIJ[1] +
+                      VIJ[2] * DWIJ[2])
+        xijdotdwij = (XIJ[0] * DWIJ[0] + XIJ[1] * DWIJ[1] +
+                      XIJ[2] * DWIJ[2])
+        d_ae[d_idx] += 0.5 * mj * (tmpv * vijdotdwij +
+                                   2 * xijdotdwij * Hij)
+
+
+class ADKEUpdateGhostProps(Equation):
+    """The reference's copy into ghost particles: a no-op here (the
+    periodic grid's minimum images stand for the ghosts)."""
+
+    def __init__(self, dest, sources=None, dim=2):
+        super(ADKEUpdateGhostProps, self).__init__(dest, sources)
+        self.dim = dim
+
+    def initialize(self, d_idx):
+        pass

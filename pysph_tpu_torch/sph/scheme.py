@@ -1,7 +1,7 @@
 """SPH schemes: equations + integrator + solver for a formulation
 (port of ``pysph_tpu/sph/scheme.py``: ``Scheme``, ``SchemeChooser``,
-``TVFScheme``, ``WCSPHScheme`` and ``GasDScheme``; ``GTVFScheme`` is in
-``sph/wc/gtvf.py``)."""
+``TVFScheme``, ``WCSPHScheme``, ``GasDScheme``, ``GSPHScheme`` and
+``ADKEScheme``; ``GTVFScheme`` is in ``sph/wc/gtvf.py``)."""
 
 
 class Scheme(object):
@@ -614,4 +614,309 @@ class GasDScheme(Scheme):
             self._ensure_properties(pa, props, clean)
             pa.add_property('orig_idx', type='int')
             pa.orig_idx = numpy.arange(pa.get_number_of_particles())
+            pa.set_output_arrays(output_props)
+
+
+def _check_gas_ported(scheme):
+    """Refuse walls and ghost particles, as ``GasDScheme`` does."""
+    name = type(scheme).__name__
+    if scheme.solids:
+        raise NotImplementedError(
+            '%s with solids %s: WallBoundary is not ported yet (ROADMAP '
+            'Queue 1 item 28, remaining physics)' % (name,
+                                                     list(scheme.solids)))
+    if scheme.has_ghosts:
+        raise NotImplementedError(
+            '%s with has_ghosts: its ghost-property copy needs ghost '
+            'particles, which the periodic grid does not make (ROADMAP '
+            'Queue 1 item 27)' % name)
+
+
+class GSPHScheme(Scheme):
+    """Godunov SPH: h scaled, the summation density, h set from the
+    volume and the density again (each h update re-binned), the ideal-gas
+    EOS, ``GSPHGradients`` and ``GSPHAcceleration`` (a Riemann problem a
+    pair, ``rsolver`` one of 11).  ``EulerIntegrator`` with ``GSPHStep``
+    and ``Gaussian`` by default.  ``get_equations`` passes no ``tf`` to
+    ``GSPHAcceleration``, so its hybrid blend takes tf = 1, as the
+    reference's (ROADMAP Queue 3: reproduced on purpose).  Walls and
+    ghost particles are not ported: ``solids`` and ``has_ghosts``
+    raise."""
+
+    def __init__(self, fluids, solids, dim, gamma, kernel_factor,
+                 g1=0.0, g2=0.0, rsolver=2, interpolation=1,
+                 monotonicity=1, interface_zero=True, hybrid=False,
+                 blend_alpha=5.0, tf=1.0, niter=20, tol=1e-6,
+                 has_ghosts=False):
+        self.fluids = fluids
+        self.solids = solids
+        self.dim = dim
+        self.solver = None
+        self.gamma = gamma
+        self.kernel_factor = kernel_factor
+        self.g1 = g1
+        self.g2 = g2
+        self.rsolver = rsolver
+        self.interpolation = interpolation
+        self.monotonicity = monotonicity
+        self.interface_zero = interface_zero
+        self.hybrid = hybrid
+        self.blend_alpha = blend_alpha
+        self.tf = tf
+        self.niter = niter
+        self.tol = tol
+        self.has_ghosts = has_ghosts
+        self.rsolver_choices = {
+            'non_diffusive': 0, 'van_leer': 1, 'exact': 2, 'hllc': 3,
+            'ducowicz': 4, 'hlle': 5, 'roe': 6, 'llxf': 7,
+            'hllc_ball': 8, 'hll_ball': 9, 'hllsy': 10}
+        self.interpolation_choices = {'delta': 0, 'linear': 1,
+                                      'cubic': 2}
+        self.monotonicity_choices = {'first_order': 0, 'i02': 1,
+                                     'iwin': 2}
+
+    def add_user_options(self, group):
+        group.add_argument(
+            '--rsolver', action='store', type=str, dest='rsolver',
+            default=None, choices=set(self.rsolver_choices),
+            help='Riemann solver to use.')
+        group.add_argument(
+            '--interpolation', action='store', type=str,
+            dest='interpolation', default=None,
+            choices=set(self.interpolation_choices),
+            help='Interpolation algorithm to use.')
+        group.add_argument(
+            '--monotonicity', action='store', type=str,
+            dest='monotonicity', default=None,
+            choices=set(self.monotonicity_choices),
+            help='Monotonicity algorithm to use.')
+        group.add_argument('--g1', action='store', type=float,
+                           dest='g1', default=None,
+                           help='Thermal conduction parameter.')
+        group.add_argument('--g2', action='store', type=float,
+                           dest='g2', default=None,
+                           help='Thermal conduction parameter.')
+        group.add_argument('--gamma', action='store', type=float,
+                           dest='gamma', default=None,
+                           help='Gamma for the state equation.')
+        group.add_argument('--blend-alpha', action='store', type=float,
+                           dest='blend_alpha', default=None,
+                           help='Blending factor for hybrid scheme.')
+        add_bool_argument(
+            group, 'interface-zero', dest='interface_zero',
+            help='Set interface position to zero for Riemann problem.',
+            default=None)
+        add_bool_argument(group, 'hybrid', dest='hybrid',
+                          help='Use the hybrid scheme.', default=None)
+
+    def consume_user_options(self, options):
+        data = dict((var, self._smart_getattr(options, var)) for var in
+                    ('gamma', 'g1', 'g2', 'interface_zero', 'hybrid',
+                     'blend_alpha'))
+        for var in ('monotonicity', 'rsolver', 'interpolation'):
+            res = getattr(options, var, None)
+            data[var] = (getattr(self, var) if res is None else
+                         getattr(self, var + '_choices')[res])
+        self.configure(**data)
+
+    def configure_solver(self, kernel=None, integrator_cls=None,
+                         extra_steppers=None, **kw):
+        from pysph_tpu_torch.base.kernels import Gaussian
+        from pysph_tpu_torch.sph.integrator import EulerIntegrator
+        from pysph_tpu_torch.sph.integrator_step import GSPHStep
+        from pysph_tpu_torch.solver.solver import Solver
+        _check_gas_ported(self)
+        if kernel is None:
+            kernel = Gaussian(dim=self.dim)
+        steppers = dict(extra_steppers or {})
+        for name in self.fluids:
+            if name not in steppers:
+                steppers[name] = GSPHStep()
+        cls = EulerIntegrator if integrator_cls is None else integrator_cls
+        integrator = cls(**steppers)
+        self.solver = Solver(dim=self.dim, integrator=integrator,
+                             kernel=kernel, **kw)
+        if 'tf' in kw:
+            self.tf = kw['tf']
+
+    def get_equations(self):
+        from pysph_tpu_torch.sph.equation import Group
+        from pysph_tpu_torch.sph.gas_dynamics.basic import (
+            IdealGasEOS, ScaleSmoothingLength, SummationDensity,
+            UpdateSmoothingLengthFromVolume)
+        from pysph_tpu_torch.sph.gas_dynamics.gsph import (
+            GSPHAcceleration, GSPHGradients)
+        _check_gas_ported(self)
+        all_pa = self.fluids + self.solids
+        equations = []
+        equations.append(Group(equations=[
+            ScaleSmoothingLength(dest=f, sources=None, factor=2.0)
+            for f in self.fluids], update_nnps=True))
+        equations.append(Group(equations=[
+            SummationDensity(dest=f, sources=all_pa, dim=self.dim)
+            for f in self.fluids], update_nnps=False))
+        equations.append(Group(equations=[
+            UpdateSmoothingLengthFromVolume(
+                dest=f, sources=None, k=self.kernel_factor,
+                dim=self.dim)
+            for f in self.fluids], update_nnps=True))
+        equations.append(Group(equations=[
+            SummationDensity(dest=f, sources=all_pa, dim=self.dim)
+            for f in self.fluids], update_nnps=False))
+        equations.append(Group(equations=[
+            IdealGasEOS(dest=f, sources=None, gamma=self.gamma)
+            for f in self.fluids]))
+        equations.append(Group(equations=[
+            GSPHGradients(dest=f, sources=all_pa)
+            for f in self.fluids]))
+        # no tf: the hybrid blend takes GSPHAcceleration's tf = 1, as the
+        # reference's
+        equations.append(Group(equations=[
+            GSPHAcceleration(
+                dest=f, sources=all_pa, g1=self.g1, g2=self.g2,
+                monotonicity=self.monotonicity, rsolver=self.rsolver,
+                interpolation=self.interpolation,
+                interface_zero=self.interface_zero, hybrid=self.hybrid,
+                blend_alpha=self.blend_alpha, gamma=self.gamma,
+                niter=self.niter, tol=self.tol)
+            for f in self.fluids]))
+        return equations
+
+    def setup_properties(self, particles, clean=True):
+        import numpy
+        from pysph_tpu_torch.base.utils import get_particle_array_gasd
+        _check_gas_ported(self)
+        particle_arrays = dict((p.name, p) for p in particles)
+        dummy = get_particle_array_gasd(name='junk')
+        props = (list(dummy.properties.keys()) +
+                 'px py pz ux uy uz vx vy vz wx wy wz'.split())
+        output_props = dummy.output_property_arrays
+        for fluid in self.fluids:
+            pa = particle_arrays[fluid]
+            self._ensure_properties(pa, props, clean)
+            pa.add_property('orig_idx', type='int')
+            pa.orig_idx = numpy.arange(pa.get_number_of_particles())
+            pa.set_output_arrays(output_props)
+
+
+class ADKEScheme(Scheme):
+    """Adaptive kernel estimation (Sigalotti et al.): the ADKE summation
+    density (h reset to h0, then ``reduce`` sets h = k (g / rho)^eps h0),
+    the plain summation density at that h (re-binned after), the
+    ideal-gas EOS and ``ADKEAccelerations``.  ``PECIntegrator`` with
+    ``ADKEStep`` and ``Gaussian`` by default.  Walls and ghost particles
+    are not ported: ``solids`` and ``has_ghosts`` raise."""
+
+    def __init__(self, fluids, solids, dim, gamma=1.4, alpha=1.0,
+                 beta=2.0, k=1.0, eps=0.0, g1=0.0, g2=0.0,
+                 has_ghosts=False):
+        self.fluids = fluids
+        self.solids = solids
+        self.dim = dim
+        self.solver = None
+        self.gamma = gamma
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+        self.eps = eps
+        self.g1 = g1
+        self.g2 = g2
+        self.has_ghosts = has_ghosts
+
+    def add_user_options(self, group):
+        group.add_argument('--alpha', action='store', type=float,
+                           dest='alpha', default=None,
+                           help='Artificial viscosity alpha.')
+        group.add_argument('--beta', action='store', type=float,
+                           dest='beta', default=None,
+                           help='Artificial viscosity beta.')
+        group.add_argument('--gamma', action='store', type=float,
+                           dest='gamma', default=None,
+                           help='EOS gamma.')
+        group.add_argument('--g1', action='store', type=float,
+                           dest='g1', default=None,
+                           help='ADKE artificial heat g1.')
+        group.add_argument('--g2', action='store', type=float,
+                           dest='g2', default=None,
+                           help='ADKE artificial heat g2.')
+        group.add_argument('--adke-k', action='store', type=float,
+                           dest='k', default=None,
+                           help='ADKE kernel scaling k.')
+        group.add_argument('--adke-eps', action='store', type=float,
+                           dest='eps', default=None,
+                           help='ADKE sensitivity eps.')
+
+    def consume_user_options(self, options):
+        data = dict((var, self._smart_getattr(options, var)) for var in
+                    ('gamma', 'alpha', 'beta', 'g1', 'g2', 'k', 'eps'))
+        self.configure(**data)
+
+    def get_equations(self):
+        from pysph_tpu_torch.sph.basic_equations import SummationDensity
+        from pysph_tpu_torch.sph.equation import Group
+        from pysph_tpu_torch.sph.gas_dynamics.basic import (
+            ADKEAccelerations, IdealGasEOS, SummationDensityADKE)
+        _check_gas_ported(self)
+        equations = []
+        equations.append(Group([
+            SummationDensityADKE(
+                f, sources=self.fluids + self.solids, k=self.k,
+                eps=self.eps) for f in self.fluids],
+            update_nnps=False, iterate=False))
+        equations.append(Group([
+            SummationDensity(f, self.fluids + self.solids)
+            for f in self.fluids], update_nnps=True))
+        equations.append(Group(equations=[
+            IdealGasEOS(e, sources=None, gamma=self.gamma)
+            for e in self.fluids + self.solids]))
+        equations.append(Group(equations=[
+            ADKEAccelerations(
+                dest=f, sources=self.fluids + self.solids,
+                alpha=self.alpha, beta=self.beta, g1=self.g1,
+                g2=self.g2, k=self.k, eps=self.eps)
+            for f in self.fluids]))
+        return equations
+
+    def configure_solver(self, kernel=None, integrator_cls=None,
+                         extra_steppers=None, **kw):
+        from pysph_tpu_torch.base.kernels import Gaussian
+        from pysph_tpu_torch.sph.integrator import PECIntegrator
+        from pysph_tpu_torch.sph.integrator_step import ADKEStep
+        from pysph_tpu_torch.solver.solver import Solver
+        _check_gas_ported(self)
+        if kernel is None:
+            kernel = Gaussian(dim=self.dim)
+        steppers = dict(extra_steppers or {})
+        for name in self.fluids:
+            if name not in steppers:
+                steppers[name] = ADKEStep()
+        cls = PECIntegrator if integrator_cls is None else integrator_cls
+        integrator = cls(**steppers)
+        self.solver = Solver(dim=self.dim, integrator=integrator,
+                             kernel=kernel, **kw)
+
+    def setup_properties(self, particles, clean=True):
+        import numpy
+        from pysph_tpu_torch.base.utils import get_particle_array
+        _check_gas_ported(self)
+        particle_arrays = dict((p.name, p) for p in particles)
+        required_props = [
+            'x', 'y', 'z', 'u', 'v', 'w', 'rho', 'h', 'm', 'cs', 'p',
+            'e', 'au', 'av', 'aw', 'arho', 'ae', 'am', 'ah', 'x0',
+            'y0', 'z0', 'u0', 'v0', 'w0', 'rho0', 'e0', 'h0', 'div',
+            'wij', 'htmp', 'logrho']
+        dummy = get_particle_array(additional_props=required_props,
+                                   name='junk')
+        dummy.set_output_arrays(
+            ['x', 'y', 'u', 'v', 'rho', 'm', 'h', 'cs', 'p', 'e',
+             'au', 'av', 'ae', 'pid', 'gid', 'tag'])
+        props = list(dummy.properties.keys())
+        output_props = dummy.output_property_arrays
+        for name in self.solids + self.fluids:
+            pa = particle_arrays[name]
+            self._ensure_properties(pa, props, clean)
+            if name in self.fluids:
+                pa.add_property('orig_idx', type='int')
+                pa.orig_idx = numpy.arange(
+                    pa.get_number_of_particles())
             pa.set_output_arrays(output_props)

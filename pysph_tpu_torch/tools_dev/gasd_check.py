@@ -1,8 +1,13 @@
-"""``GasDScheme``'s pair calls, for the card: ``gasd_pair``'s on the shock
-tube and the Sedov blast.
+"""The gas schemes' pair calls, for the card: ``gasd_pair``'s (``GasDScheme``
+and ``ADKEScheme``) and ``gsph_pair``'s (``GSPHScheme``) on the shock tube,
+the Sedov blast, the accuracy test and the hydrostatic box.
 
-``RUNS``: ``examples/gas_dynamics/shocktube.py`` (1D, ``--nl``) and
-``examples/gas_dynamics/sedov.py`` (2D, ``--nx``).
+``RUNS``: ``examples/gas_dynamics/shocktube.py`` (1D, ``--nl``),
+``examples/gas_dynamics/sedov.py`` (2D, ``--nx``),
+``examples/gas_dynamics/accuracy_test_2d.py`` (2D periodic,
+``--nparticles``) and ``examples/gas_dynamics/hydrostatic_box.py`` (2D
+periodic, ``--nx``); the scheme is an ``extra`` argument (``--scheme
+gsph``, ``--scheme adke``).
 
 ``app(run, size, dtype, steps=0, engine='kernel', device='cuda',
 extra=())``: the run's application set up (with the further arguments
@@ -15,8 +20,9 @@ state after ``steps`` steps and one evaluation, whose start's positions
 are first moved by up to a tenth of the spacing and its velocities
 seeded (numpy ``default_rng``, ``jitter``) where ``jitter_start``: h
 then varies from particle to particle.  ``check(calls, label, tol)``: each call's kernel
-against its plain version (torch's deterministic algorithms on the
-card): every output within ``tol`` of max|ref| (``dt_cfl``, the
+(``gasd_pair``, ``gsph_pair`` or, for ADKE's plain summation density,
+``wcsph_pair``) against its plain version (torch's deterministic
+algorithms on the card): every output within ``tol`` of max|ref| (``dt_cfl``, the
 ``MAX``, among them), each dest's pairs in support (``nnbr``) and their
 total exactly equal.  ``gradient_h(dim, dtype, device)``: the density
 set's ``dwdh`` of a dest with one neighbour at a few distances against
@@ -36,9 +42,16 @@ iteration (each from the plain version's state: every output within
 ``pair_link.neighbours_reference``, the iteration's sweeps on the kernel
 alone and on the plain version alone, and the linked ``MPMAccelerations``
 launch on the last sweep's list bit for bit the walking one (its ``use``
-flag set, and cleared).  ``chip_smoke.py`` and
-``tests/test_torch_gasd_cuda.py`` use them; on CPU tensors the kernel is
-its plain version, which the CPU tests run through the same functions.
+flag set, and cleared).  ``branch_calls(calls_)``: a GSPH run's calls
+with the acceleration call again under each entry of ``BRANCHES`` (every Riemann solver, every
+monotonicity and interpolation, ``interface_zero`` off, the hybrid blend
+at t = 0.3 and the conduction), each with its own ``GSPHAcceleration``.
+``riemann_check(dtype, n, device)``: each of the eleven device Riemann
+solvers (``gsph_pair.riemann``) against the torch solver on Toro's four
+problems and ``n`` seeded states.  ``chip_smoke.py`` and
+``tests/test_torch_gasd_cuda.py``, ``tests/test_torch_gsph_cuda.py`` use
+them; on CPU tensors the kernel is its plain version, which the CPU
+tests run through the same functions.
 """
 
 import re
@@ -50,20 +63,30 @@ from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import Gaussian, kernel_kind
 from pysph_tpu_torch.base.utils import get_particle_array_gasd
 from pysph_tpu_torch.config import Config
+from pysph_tpu_torch.examples.gas_dynamics.accuracy_test_2d import (
+    AccuracyTest2D)
+from pysph_tpu_torch.examples.gas_dynamics.hydrostatic_box import (
+    HydrostaticBox)
 from pysph_tpu_torch.examples.gas_dynamics.sedov import SedovPointExplosion
 from pysph_tpu_torch.examples.gas_dynamics.shocktube import ShockTube
 from pysph_tpu_torch.ops import gasd_pair as gd
+from pysph_tpu_torch.ops import gsph_pair as gs
 from pysph_tpu_torch.ops import pair_link as pl
+from pysph_tpu_torch.ops import pair_sets
 from pysph_tpu_torch.ops.sweeps import keep_sweeping
 from pysph_tpu_torch.sph.acceleration_eval import AccelerationEval
 from pysph_tpu_torch.sph.equation import Group
 from pysph_tpu_torch.sph.gas_dynamics.basic import SummationDensity
+from pysph_tpu_torch.sph.gas_dynamics.gsph import GSPHAcceleration
+from pysph_tpu_torch.sph.gas_dynamics.riemann_solver import riemann_solve
 from pysph_tpu_torch.tools_dev.time_walks import plan_calls
 from pysph_tpu_torch.tools_dev.tvf_check import reference
 
 #: {run: (application class, size argument)}
 RUNS = {'shocktube': (ShockTube, '--nl'),
-        'sedov': (SedovPointExplosion, '--nx')}
+        'sedov': (SedovPointExplosion, '--nx'),
+        'accuracy_test_2d': (AccuracyTest2D, '--nparticles'),
+        'hydrostatic_box': (HydrostaticBox, '--nx')}
 #: the Sedov blast at full width (nx=401) steps with the CFL dt of
 #: ``MPMAccelerations``' ``dt_cfl`` at a CFL number of 0.1: the example's
 #: fixed dt of 1e-4 is some ten times the CFL limit there (the blast's
@@ -142,8 +165,16 @@ def check(calls_, label, tol):
     pairs = 0
     failures = []
     for _, dest, plan, args in calls_:
-        got = plan.op(*args, counts=True)
-        ref = reference(plan, args + (True,))
+        if plan.op in (gd.gasd_pair, gs.gsph_pair):
+            got = plan.op(*args, counts=True)
+            ref = reference(plan, args + (True,))
+        else:
+            # ADKE's plain summation density on wcsph_pair, which counts
+            # no pairs: its outputs, and the pairs of the exact lists
+            got = plan.op(*args)
+            ref = reference(plan, args)
+            got['nnbr'] = ref['nnbr'] = pair_sets.neighbour_counts(
+                args[0], args[1], args[4], args[5])
         if args[0]['x'].is_cuda:
             torch.cuda.synchronize()
         for p in plan.outputs:
@@ -216,18 +247,22 @@ def kinds(dtype, tol, device='cuda'):
     return found
 
 
-_KERNEL = re.compile(r'gasd_pair_kernelI([fd])Li(\d)ELb([01])EN\w*?'
-                     r'(Density|Momentum)')
+#: the kernels' names in a library's log: the kernel, its sets
+_KERNELS = {'gasd_pair': 'Density|Momentum|AdkeDensity|AdkeAccel',
+            'gsph_pair': 'Gradients|Acceleration'}
 
 
-def resources(lib, kind=2):
+def resources(lib, kind=2, kernel='gasd_pair'):
     """{'<dtype> <set> <open|periodic>': (registers, spill store bytes,
     spill load bytes)} of the kernels of shape ``kind`` in the built
-    ``gasd_pair`` library ``lib`` (``build.resources``)."""
+    library ``lib`` of ``kernel`` (``gasd_pair`` or ``gsph_pair``;
+    ``build.resources``)."""
     from pysph_tpu_torch.ops import build
+    pattern = re.compile(r'%s_kernelI([fd])Li(\d)ELb([01])EN\w*?\d(%s)I'
+                         % (kernel, _KERNELS[kernel]))
     out = {}
     for name, res in build.resources(lib).items():
-        m = _KERNEL.search(name)
+        m = pattern.search(name)
         if m and int(m.group(2)) == kind:
             out['%s %s %s' % ('float32' if m.group(1) == 'f' else 'float64',
                               m.group(4).lower(),
@@ -488,3 +523,81 @@ def mplan_mask(s, mplan, store):
     group = next(g for g in a_eval.leaf_groups()
                  if a_eval._plans.get((id(g), mplan.dest)) is mplan)
     return group.write_mask(store)
+
+
+#: GSPHAcceleration's variants of ``branch_calls``: every Riemann solver
+#: and every branch of the limiter, the interpolation, the interface, the
+#: hybrid blend and the conduction
+BRANCHES = dict(
+    [('rsolver %d' % r, dict(rsolver=r, monotonicity=1)) for r in range(11)]
+    + [('first order delta', dict(rsolver=2, monotonicity=0,
+                                  interpolation=0)),
+       ('iwin cubic', dict(rsolver=7, monotonicity=2, interpolation=2)),
+       ('linear interface', dict(rsolver=3, interface_zero=False)),
+       ('iwin cubic interface', dict(rsolver=4, monotonicity=2,
+                                     interpolation=2,
+                                     interface_zero=False)),
+       ('hybrid', dict(rsolver=2, hybrid=True, blend_alpha=2.0)),
+       ('conduction', dict(rsolver=2, g1=0.25, g2=0.5))])
+
+
+def branch_calls(calls_):
+    """{label: call}: the acceleration call of a GSPH run's ``calls_``
+    (``calls``'s first item) under each of ``BRANCHES``, at t = 0.3."""
+    (k, dest, plan, args), = [c for c in calls_
+                              if c[2].sources[0].terms == gs.ACC]
+    base = plan.sources[0][2][0]
+    out = {}
+    for label, kw in BRANCHES.items():
+        eq = GSPHAcceleration(base.dest, base.sources, gamma=base.gamma,
+                              niter=base.niter, **kw)
+        srcs = [(st, cells, gs.GsphSource(ss.name, ss.terms, (eq,),
+                                          gs.params_of(eq)))
+                for st, cells, ss in args[4]]
+        out[label] = (k, dest, plan, args[:4] + (srcs,) + args[5:7] +
+                      (0.3, args[8]))
+    return out
+
+
+def riemann_states(n, dtype, device, seed=11):
+    """Toro's four problems, then ``n`` seeded states (densities and
+    pressures log-uniform over three and four decades, velocities in
+    [-3, 3]), as (rhol, rhor, pl, pr, ul, ur) tensors."""
+    toro = np.array([[1.0, 0.125, 1.0, 0.1, 0.0, 0.0],
+                     [1.0, 1.0, 1000.0, 0.01, 0.0, 0.0],
+                     [1.0, 1.0, 0.4, 0.4, -2.0, 2.0],
+                     [1.0, 1.0, 0.01, 100.0, 0.0, 0.0]]).T
+    rng = np.random.default_rng(seed)
+    rand = np.concatenate([10.0 ** rng.uniform(-2, 1, (2, n)),
+                           10.0 ** rng.uniform(-2, 2, (2, n)),
+                           rng.uniform(-3, 3, (2, n))])
+    return [torch.as_tensor(np.concatenate([a, b]), dtype=dtype,
+                            device=device) for a, b in zip(toro, rand)]
+
+
+def riemann_check(dtype, n=100000, device='cuda', gamma=1.4, niter=20):
+    """{solver id: (largest error scaled by max|ref|, NaNs apart)} of each
+    device solver against the torch solver on ``riemann_states``; raises
+    where a NaN falls apart or an error passes 1e-10 (float64) or 1e-4
+    (float32) of max|ref| over the finite values."""
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    states = riemann_states(n, dtype, device)
+    found, failures = {}, []
+    for method in range(gs.RSOLVERS):
+        got = gs.riemann(method, *states, gamma, niter)
+        want = riemann_solve(method, *states, gamma, niter)
+        worst, apart = 0.0, 0
+        for g, w in zip(got, want):
+            nan = torch.isnan(w)
+            apart += int((torch.isnan(g) != nan).sum())
+            fin = ~nan & torch.isfinite(w)
+            scale = max(float(w[fin].abs().max()), 1e-300)
+            err = float((g[fin].double() - w[fin].double()).abs().max())
+            worst = max(worst, err / scale)
+        found[method] = (worst, apart)
+        if apart or not worst <= tol:
+            failures.append('solver %d: scaled error %.3g, %d NaNs apart'
+                            % (method, worst, apart))
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return found

@@ -149,13 +149,13 @@ def record(a_eval):
         if plan is None:
             continue
 
-        def execute(store, states, cells, grid, write_mask, dt=0.0,
+        def execute(store, states, cells, grid, write_mask, dt=0.0, t=0.0,
                     plan=plan, run=plan.execute):
             pre = {p: store[p] for p in plan.outputs}
             snap = {name: dict(st) for name, st in states.items()}
             calls.append((len(calls), plan.dest, plan, plan.args(
-                dict(store), snap, cells, grid, write_mask, pre, dt)))
-            run(store, states, cells, grid, write_mask, dt)
+                dict(store), snap, cells, grid, write_mask, pre, dt, t)))
+            run(store, states, cells, grid, write_mask, dt, t=t)
         plan.execute = execute
     return calls
 

@@ -32,10 +32,12 @@ card; only a time divided by a bound is a device number.
 
 import torch
 
+from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import cell_walk
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import gasd_pair as gd
+from pysph_tpu_torch.ops import gsph_pair as gs
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import micro
@@ -134,11 +136,41 @@ IMAGE_FLOPS = 4
 #: smoothing lengths' h1 and fac, three gradients' q and factor, DWI DWJ
 #: DWIJ, vij, the normalised XIJ, dot, Fij, the signal speeds, the MAX,
 #: alpha1, the pressure terms, v.DWI, the conduction and del2e: 119
-#: beside its three shapes, and the viscosity's 17 on a pair with dot <= 0
+#: beside its three shapes, and the viscosity's 17 on a pair with dot <= 0;
+#: ADKE's density (AdkeDensity): hij, its h1 and fac, q, WIJ, the
+#: gradient's factor at hi and DWI, v.DWI, the two sums: 25 beside its two
+#: shapes; ADKE's accelerations (AdkeAccel): pj / rhoj^2, cij, eij, Hi,
+#: Hj, hij, EPS, rhoij and its inverse, r2, Hij, vij, x.v, muij, tmpv, the
+#: h1 and fac of hij, the gradient's factor and DWIJ, the three sums,
+#: v.DWIJ, x.DWIJ and ae: 88 beside its shape, and the viscosity's 6 on a
+#: pair with x.v < 0
 GASD_PAIR_FLOPS = 11
-GASD_SET_FLOPS = {gd.SDEN: 35, gd.MPM: 119}
-GASD_SHAPES = {gd.SDEN: 1, gd.MPM: 3}
+GASD_SET_FLOPS = {gd.SDEN: 35, gd.MPM: 119, gd.ADEN: 25, gd.ADKE: 88}
+GASD_SHAPES = {gd.SDEN: 1, gd.MPM: 3, gd.ADEN: 2, gd.ADKE: 1}
 GASD_VISC_FLOPS = 17
+ADKE_VISC_FLOPS = 6
+#: gsph_pair.cu, beside pair_of (GASD_PAIR_FLOPS): the gradients' factor
+#: at hi and DWI, 1 / rhoj, the four differences and the 12 sums: 41
+#: beside the shape; the accelerations' e_ij, sij, vl, vr, the two grho
+#: and p projections, the two velocity projections (vsi, vsj), hij, EPS,
+#: rhoij, the limiter (I02 first-order or IwIn counted as I02's 8), the
+#: interpolation (linear's 16), the reconstruction (fl fr and the six
+#: states with their floors), v*, the h1 and fac of hj, the two gradients'
+#: factors, DWI DWJ and the four sums: 176 beside its two shapes; the
+#: conduction's Hi, Hj, Hij, the gradient at hij and x.DWIJ: 30 and a
+#: shape more
+GSPH_SET_FLOPS = {gs.GRAD: 41, gs.ACC: 176}
+GSPH_SHAPES = {gs.GRAD: 1, gs.ACC: 2}
+GSPH_CONDUCTION_FLOPS = 30
+#: the Riemann solvers (csrc/riemann.cuh), per pair: the flops beside the
+#: Newton trips, and those of a trip (van Leer: wl, wr, zl, zr, u*l, u*r,
+#: p* and its floor; exact: two pressure functions and the step, each
+#: function counted at its cheaper branch, the shock's 12, so that the
+#: bound stays a least time whatever branch a pair takes); a pow, like an
+#: exp, counts one
+RIEMANN_FLOPS = {0: 4, 1: 28, 2: 62, 3: 62, 4: 72, 5: 46, 6: 24, 7: 26,
+                 8: 40, 9: 56, 10: 38}
+RIEMANN_TRIP_FLOPS = {1: 42, 2: 30}
 
 
 def bound(work):
@@ -386,42 +418,119 @@ def iisph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     return work
 
 
-def gasd_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
-    """Work of one ``gasd_pair`` call (the stencil wrapped on a periodic
-    grid): the momentum set's viscosity counted on the pairs that
-    approach (``dot <= 0``: ``v_ij . x_ij <= 0``) in this call's data.
-    ``pair_flops`` leaves out the support tests of the stencil's
-    candidates: the work of the pairs alone, which a grid whose cells
-    fit each particle's h (stratified, ROADMAP Queue 1 item 27) would
-    come nearer to (``bound(dict(work, flops=work['pair_flops']))``)."""
+def fitted_cells(grid, dest, dest_cells, sources):
+    """(a grid, the dest's and each source's cells on it) for counting a
+    gas call's support tests: a periodic grid keeps the cells it was
+    sized for, the largest h that a binning met (GSPH's evaluation
+    doubles h before its density), so there a copy whose periodic cells
+    fit the call's own hmax (``cell_slack`` times its support, as an
+    open grid's binning sizes them) and the arrays binned on it afresh
+    (``CellGrid.bin``); elsewhere the call's own."""
+    if not grid.is_periodic:
+        return grid, dest_cells, [c for _, c, _ in sources]
+    states = [dest] + [src for src, _, _ in sources]
+    hmax = max(float(st['h'].max()) for st in states if st['h'].numel())
+    width = grid.cell_slack * grid.radius_scale * hmax
+    fit = CellGrid(grid.dim, grid.radius_scale, grid.dims, grid.cell_slack,
+                   grid.domain)
+    fit._set_dims(fit.sized_dims(grid.dims, width))
+    x = dest['x']
+    lo = torch.stack([torch.stack([st[c].min() for c in 'xyz'])
+                      for st in states if st['x'].numel()]).min(0).values
+    w = torch.tensor(width, dtype=x.dtype, device=x.device)
+    origin = fit.origin(lo)
+    cells = [fit.bin(st, origin, w) for st in states]
+    return fit, cells[0], cells[1:]
+
+
+def _gas_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+              reads, paired):
+    """The shared count of ``gasd_work`` and ``gsph_work``: each
+    source's pairs in support and ``paired(i, j, src, source)``, their
+    flops, the support tests of the candidates and the bytes on
+    ``fitted_cells`` (``candidates``, ``flops``, ``bytes``), and the
+    candidates of the call's own cells beside them (``walk_candidates``:
+    the tests more than those that a periodic grid sized for a larger h
+    makes the walk take, time lost, not work the call needs);
+    ``pair_flops`` leaves out the support tests: the work of the pairs
+    alone."""
     terms = 0
-    work = dict(candidates=0, visited=0, pairs=0, flops=0, pair_flops=0,
-                bytes=0)
-    shape = SHAPE_FLOPS[kernel_kind(kernel)]
+    work = dict(candidates=0, walk_candidates=0, visited=0, pairs=0,
+                flops=0, pair_flops=0, bytes=0)
     image = IMAGE_FLOPS * sum(grid.periodic)
     n = dest['x'].shape[0]
-    for src, cells, gs in sources:
-        terms |= gs.terms
-        cand, reached, ncells = stencil(grid, dest_cells, cells)
+    fit, fit_dest, fit_src = fitted_cells(grid, dest, dest_cells, sources)
+    for (src, cells, s), fcells in zip(sources, fit_src):
+        terms |= s.terms
+        walked = stencil(grid, dest_cells, cells)[0]
+        cand, reached, ncells = stencil(fit, fit_dest, fcells)
         i, j = grid.neighbor_pairs(dest, dest_cells, src, cells, (0, n))
-        pairs = int(i.numel())
+        flops = paired(i, j, src, s)
         work['candidates'] += cand
-        work['visited'] += cand
-        work['pairs'] += pairs
-        paired = pairs * (GASD_PAIR_FLOPS + image + GASD_SET_FLOPS[
-            gs.terms] + GASD_SHAPES[gs.terms] * shape)
-        if gs.terms & gd.MPM:
-            approach = sum(
+        work['walk_candidates'] += walked
+        work['visited'] += walked
+        work['pairs'] += int(i.numel())
+        work['pair_flops'] += flops
+        work['flops'] += cand * (SUPPORT_FLOPS + image) + flops
+        work['bytes'] += _source_bytes(src, reached, ncells,
+                                       reads(s.terms, 1))
+    work['bytes'] += _dest_bytes(dest, write_mask, pre, reads(terms, 0))
+    return work
+
+
+def gasd_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Work of one ``gasd_pair`` call (``_gas_work``; the stencil wrapped
+    on a periodic grid): the momentum sets' viscosity counted on the
+    pairs that approach (``dot <= 0`` under MPM, ``dot < 0`` under ADKE:
+    ``v_ij . x_ij``) in this call's data."""
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
+    image = IMAGE_FLOPS * sum(grid.periodic)
+
+    def paired(i, j, src, s):
+        flops = i.numel() * (GASD_PAIR_FLOPS + image + GASD_SET_FLOPS[
+            s.terms] + GASD_SHAPES[s.terms] * shape)
+        if s.terms & (gd.MPM | gd.ADKE):
+            dot = sum(
                 (dest[v][i] - src[v][j]) * grid.image(d, dest[c][i] -
                                                       src[c][j])
-                for d, (c, v) in enumerate(zip('xyz', 'uvw'))) <= 0
-            paired += int(approach.sum()) * GASD_VISC_FLOPS
-        work['pair_flops'] += paired
-        work['flops'] += cand * (SUPPORT_FLOPS + image) + paired
-        work['bytes'] += _source_bytes(src, reached, ncells,
-                                       gd._reads(gs.terms, 1))
-    work['bytes'] += _dest_bytes(dest, write_mask, pre, gd._reads(terms, 0))
-    return work
+                for d, (c, v) in enumerate(zip('xyz', 'uvw')))
+            flops += int((dot <= 0).sum()) * GASD_VISC_FLOPS \
+                if s.terms & gd.MPM else \
+                int((dot < 0).sum()) * ADKE_VISC_FLOPS
+        return flops
+
+    return _gas_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel, gd._reads, paired)
+
+
+def riemann_flops(params):
+    """The flops of one pair's Riemann solve(s) under ``GsphParams``:
+    the solver with its ``niter`` trips, and HLLSY's where ``hybrid``."""
+    flops = RIEMANN_FLOPS[params.rsolver] + params.niter * \
+        RIEMANN_TRIP_FLOPS.get(params.rsolver, 0)
+    return flops + (RIEMANN_FLOPS[10] + 6 if params.hybrid else 0)
+
+
+def gsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+              t=0.0, dt=0.0):
+    """Work of one ``gsph_pair`` call (``_gas_work``; the stencil wrapped
+    on a periodic grid): the accelerations' Riemann solver with its
+    Newton trips (``riemann_flops``) and the conduction where it is
+    on."""
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
+    image = IMAGE_FLOPS * sum(grid.periodic)
+
+    def paired(i, j, src, s):
+        per = GASD_PAIR_FLOPS + image + GSPH_SET_FLOPS[s.terms] + \
+            GSPH_SHAPES[s.terms] * shape
+        if s.terms & gs.ACC:
+            per += riemann_flops(s.params)
+            if not (s.params.g1 == 0 and s.params.g2 == 0):
+                per += GSPH_CONDUCTION_FLOPS + shape
+        return i.numel() * per
+
+    return _gas_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel, gs._reads, paired)
 
 
 #: gasd_pair.cu's sweep a dest beside the density sums: post_loop (rhoi 4,

@@ -96,7 +96,7 @@ def plan_calls(s, evals):
                 pre = {p: torch.zeros_like(store[p]) for p in plan.outputs}
                 calls.append((k, dest, plan, plan.args(
                     store, s.states, cells, a_eval.grid,
-                    group.write_mask(store), pre, s.dt)))
+                    group.write_mask(store), pre, s.dt, s.t)))
     return calls
 
 

@@ -57,7 +57,12 @@ def test_port_imports_no_jax():
     for m in ('ops.micro', 'ops.pair_stub', 'tools_dev.micro_launch',
               'tools_dev.micro_engine', 'tools_dev.prof_dma',
               'tools_dev.prof_phases', 'tools_dev.roofline',
-              'tools_dev.time_chunks', 'tools_dev.prof_chunk'):
+              'tools_dev.time_chunks', 'tools_dev.prof_chunk',
+              'ops.gsph_pair', 'ops.pair_sets', 'sph.gas_dynamics.gsph',
+              'sph.gas_dynamics.riemann_solver',
+              'tools.uniform_distribution',
+              'examples.gas_dynamics.accuracy_test_2d',
+              'examples.gas_dynamics.hydrostatic_box'):
         assert 'pysph_tpu_torch.' + m in names
     code = ('import importlib, sys\n'
             'for m in %r:\n'
