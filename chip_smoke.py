@@ -277,7 +277,16 @@ Phases (any failure propagates; the exit code is then not 0):
    reads, device time by layer and idle share (``_accuracy_drive``), and
    the run to tf = 1.0 with its L1 under ``ACCURACY_L1_BAR``; each set
    timed there beside its bound with ``gsph_pair``'s registers and
-   spills;
+   spills; also each binning's periodic counts in those runs,
+   the linked pair (``gasd_check.check_gsph_linked``: the acceleration
+   on the gradients launch's list bit for bit the walking launch; its
+   list against ``neighbours_reference``) on the small states in both
+   dtypes and at full width in float32, the four pair launches of an
+   evaluation after the first chunk at full width
+   (``gasd_check.path_calls``) with their candidates a pair on their
+   binnings' cells (at most ``MAX_CANDIDATES_A_PAIR``, within
+   ``FITTED_SLACK`` of the count on cells fitted to the launch's own h),
+   and the linked pair timed beside the walking launches;
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -485,6 +494,14 @@ ACCURACY_FULL = 256
 #: steps of accuracy_test_2d --scheme adke at full width, per step
 ADKE_STEPS = 40
 ACCURACY_L1_BAR = 0.08
+#: the most support tests a pair in support that a launch of the accuracy
+#: test's GSPH evaluation may take after its first chunk, its binnings
+#: sized for their own h (~4.4 on cells 1.1 times the support)
+MAX_CANDIDATES_A_PAIR = 6.0
+#: a binning is sized for the widest h of the steps since its last sizing,
+#: so its cells may be a count wider than those fitted to one launch's h:
+#: its walk tests at most this many times the fitted candidates
+FITTED_SLACK = 1.1
 
 
 def _compare(calls, dtype, label, op=None):
@@ -3130,6 +3147,8 @@ def _scheme_checks():
                 print('compare gsph_pair acceleration %s under every branch '
                       '(scaled errors; pairs and counts equal): %s' % (
                           label, worst), flush=True)
+                _print_linked(gasd_check.check_gsph_linked(
+                    calls, label, TOL[dtype]), label)
     full = {}
     # full width: the accuracy test in float32, ADKE's also in float64
     # and the shock tube's at its full width, nl=320, in float32
@@ -3148,8 +3167,20 @@ def _scheme_checks():
         if scheme == 'gsph':
             errs['gsph full'] = f['max_abs_err']
             full[scheme] = calls
+            _print_linked(gasd_check.check_gsph_linked(
+                calls, label, TOL[dtype]), label)
     errs['adke full'], full['adke'] = _adke_full_check()
     return errs, full
+
+
+def _print_linked(found, label):
+    print('compare gsph_pair linked %s: the gradients launch\'s list as '
+          'neighbours_reference (%d dests, %d pairs, the most %d, capacity '
+          '%d, %d past it); the acceleration on it bit for bit the walking '
+          'launch; max abs err %.3g of the plain version' % (
+              label, found['dests'], found['pairs'], found['max_count'],
+              found['capacity'], found['overflowed'], found['max_abs_err']),
+          flush=True)
 
 
 def _double(obj):
@@ -3233,6 +3264,72 @@ def _set_times(calls, op, terms_of, work_of):
     return out
 
 
+def _gsph_linked_times(calls):
+    """GSPH's linked pair at full width (``calls``: one evaluation's, as
+    ``gasd_check.calls`` records them), each in a CUDA graph: the
+    emitting gradients launch, the acceleration on its hand-off, the pair
+    as the path runs it, eagerly too, and the two walking launches; the
+    work of the pair (the gradients' walk and the acceleration's pairs
+    alone, ``roofline.gsph_linked_work``)."""
+    (_, _, _, gargs), (_, _, _, aargs) = linked_calls(calls)[0]
+    _, handoff = gs.gsph_pair(*gargs, emit=True)
+
+    def pair():
+        gs.gsph_pair(*aargs, handoff=gs.gsph_pair(*gargs, emit=True)[1])
+    return dict(
+        emit_ms=graph_ms(lambda: gs.gsph_pair(*gargs, emit=True), 20),
+        consume_ms=graph_ms(lambda: gs.gsph_pair(*aargs, handoff=handoff),
+                            20),
+        linked_ms=graph_ms(pair, 20), eager_ms=events_ms(pair, 20),
+        walking_ms=graph_ms(lambda: (gs.gsph_pair(*gargs),
+                                     gs.gsph_pair(*aargs)), 20),
+        work=roofline.add(roofline.gsph_work(*gargs),
+                          roofline.gsph_linked_work(*aargs)))
+
+
+#: the launches of one evaluation of GSPHScheme, in order
+GSPH_LAUNCHES = ('scaled density', 'density', 'gradients', 'acceleration')
+
+
+def _gsph_path_candidates():
+    """The four pair launches of one evaluation of the accuracy test at
+    full width in float32 after its first chunk (10 steps), as the path
+    makes them (``gasd_check.path_calls``): each one's cells, candidates
+    a pair in support on its binning's cells (the walk's) and on cells
+    fitted to its h (``roofline``); the walk's at most
+    ``MAX_CANDIDATES_A_PAIR`` and ``FITTED_SLACK`` times the fitted
+    count.  Returns {launch: row}."""
+    calls, _ = gasd_check.path_calls('accuracy_test_2d', ACCURACY_FULL,
+                                     torch.float32, steps=10,
+                                     extra=('--scheme', 'gsph'))
+    rows = {}
+    for name, (_, _, plan, args) in zip(GSPH_LAUNCHES, calls):
+        count = roofline.gsph_work if plan.op is gs.gsph_pair else \
+            roofline.gasd_work
+        w = count(*args[:7])
+        rows[name] = dict(kernel=plan.op.__name__, dims=args[5].dims,
+                          hmax=float(args[0]['h'].max()),
+                          candidates=w['candidates'],
+                          walk_candidates=w['walk_candidates'],
+                          pairs=w['pairs'])
+    print('accuracy_test_2d gsph %d float32, an evaluation after the first '
+          'chunk, each launch on its binning\'s cells: %s' % (
+              ACCURACY_FULL, {k: '%s %s hmax %.4g: %.2f candidates a pair '
+                              '(%.2f on fitted cells)' % (
+                                  r['kernel'], r['dims'][:2], r['hmax'],
+                                  r['walk_candidates'] / r['pairs'],
+                                  r['candidates'] / r['pairs'])
+                              for k, r in rows.items()}), flush=True)
+    for name, r in rows.items():
+        if not (r['walk_candidates'] <= FITTED_SLACK * r['candidates'] and
+                r['walk_candidates'] <= MAX_CANDIDATES_A_PAIR * r['pairs']):
+            raise AssertionError('accuracy gsph %s: %d candidates for %d '
+                                 'pairs (%d on fitted cells)' % (
+                                     name, r['walk_candidates'], r['pairs'],
+                                     r['candidates']))
+    return rows
+
+
 #: the pair kernels of the accuracy test's path under each scheme
 ACCURACY_KERNELS = {'gsph': (gs.gsph_pair, gd.gasd_pair),
                     'adke': (gd.gasd_pair, wp.wcsph_pair)}
@@ -3281,8 +3378,11 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
                else 'binning' if 'bin::' in name
                else 'elementwise and copies')
         layers[key] = layers.get(key, 0.0) + us / 1e3 / per
+    cells = {b.name: b.cells(s.grid).dims
+             for b in s.acceleration_evals[0].kept_binnings()}
     row = dict(ms=ms, samples=len(samples), steps=s.count, t=s.t,
-               chunk_steps=chunk_steps, launches=launches,
+               chunk_steps=chunk_steps, launches=launches, cells=cells,
+               shrinks=s.grid.shrinks,
                launches_per_step={k: v / s.count for k, v in
                                   launches.items()},
                reads_per_step=s.reads / s.count, captures=s.captures,
@@ -3297,13 +3397,15 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
           'steps to t=%.6g, median %.4f ms/step (min %.4f, max %.4f over %d '
           'samples from step %d); wrapper calls a step %s (in chunks a '
           'capture\'s count once); host reads a step %.3f; captures %d, '
-          'replays %d; grid %s (%d grows, %d redos); a step\'s trace: busy '
+          'replays %d; grid %s (%d grows, %d redos); each binning\'s '
+          'periodic counts %s (%d sized down); a step\'s trace: busy '
           '%.4f ms of '
           '%.4f, idle share %.1f%%; device ms by layer %s; finite %s' % (
               scheme, ACCURACY_FULL, how, s.count, s.t, ms, min(samples),
               max(samples), len(samples), time_chunks.WARMUP,
               row['launches_per_step'], row['reads_per_step'], s.captures,
-              s.replays, s.grid.dims, s.grid.grows, s.redos,
+              s.replays, s.grid.dims, s.grid.grows, s.redos, cells,
+              s.grid.shrinks,
               row['step_busy_ms'],
               row['step_span_ms'], 100 * row['idle_share'],
               {k: round(v, 4) for k, v in layers.items()}, finite),
@@ -3376,10 +3478,12 @@ def _gas_schemes_phase(kernels):
         raise AssertionError('accuracy gsph at full width: L1 %r' % l1)
     whole = dict(t=s.t, steps=s.count, seconds=secs, l1=l1)
     del app, s
+    candidates = _gsph_path_candidates()
     # each set at full width
     gsets = _set_times(full['gsph'], gs.gsph_pair,
                        {gs.GRAD: 'gradients', gs.ACC: 'acceleration'},
                        roofline.gsph_work)
+    linked = _gsph_linked_times(full['gsph'])
     asets = _set_times(full['adke'], gd.gasd_pair,
                        {gd.ADEN: 'adke density', gd.ADKE: 'adke accel'},
                        roofline.gasd_work)
@@ -3399,6 +3503,15 @@ def _gas_schemes_phase(kernels):
                       w['candidates'] / w['pairs']), flush=True)
     print('gsph_pair registers and spill bytes (stores, loads) at kind 2: %s'
           % resources, flush=True)
+    lbound = roofline.bound(linked['work'])
+    print('gsph_pair linked, accuracy_test_2d %d float32: the pair %.4f ms '
+          'in a graph (eager %.4f): emit %.4f, the acceleration on its list '
+          '%.4f; the two walking launches %.4f; bound %.4f ms (%s: the '
+          'gradients\' walk and the acceleration\'s pairs), share %.1f%%'
+          % (ACCURACY_FULL, linked['linked_ms'], linked['eager_ms'],
+             linked['emit_ms'], linked['consume_ms'], linked['walking_ms'],
+             lbound[0], lbound[1], 100 * lbound[0] / linked['linked_ms']),
+          flush=True)
     gwork = roofline.add(*[t['work'] for t in gsets.values()])
     awork = roofline.add(*[t['work'] for t in asets.values()])
     # the per-step run's launches: a captured chunk's replays launch the
@@ -3406,15 +3519,18 @@ def _gas_schemes_phase(kernels):
     kernels['gsph_pair'] = _entry(
         'gsph_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
         per_step['launches']['gsph_pair'], errs['gsph full'],
-        sum(t['ms'] for t in gsets.values()),
-        sum(t['plain_ms'] for t in gsets.values()), gwork, None,
-        eager_ms=sum(t['eager_ms'] for t in gsets.values()), sets={
+        linked['linked_ms'],
+        sum(t['plain_ms'] for t in gsets.values()), linked['work'], None,
+        eager_ms=linked['eager_ms'], sets={
             k: {n: v for n, v in t.items() if n != 'work'}
             for k, t in gsets.items()},
-        resources=resources, gates=gates, run=drive, per_step_run=per_step,
-        whole_run=whole,
+        linked={k: v for k, v in linked.items() if k != 'work'},
+        walking_bound_ms=roofline.bound(gwork)[0],
+        candidates=candidates, resources=resources, gates=gates, run=drive,
+        per_step_run=per_step, whole_run=whole,
         path='accuracy_test_2d --scheme gsph %d^2 float32, the gradients '
-        'and the acceleration of one evaluation' % ACCURACY_FULL)
+        'and the acceleration of one evaluation, linked as the path runs '
+        'them' % ACCURACY_FULL)
     kernels['gasd_pair adke'] = dict(_entry(
         'gasd_pair adke', 'pysph_tpu/ops/pallas_engine.py:1160',
         adke_run['launches']['gasd_pair'], errs['adke full'],

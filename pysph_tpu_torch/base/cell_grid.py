@@ -43,19 +43,33 @@ A periodic domain (``base/domain.py``, ``set_domain``) changes the
 geometry on its periodic axes as ``pysph_tpu``'s ``GridSpec`` does: the
 grid spans the box, ``max(floor(L / cell), 1)`` cells of width ``L /
 dims`` from the domain's lower corner, fixed whatever the particles'
-positions do; where an equation writes h (``h_varies``), every binning
-that ran raises ``widest`` to its width (the support ``cell_slack
-radius_scale hmax``), and where that is wider than a periodic cell
-(``cells_small``, ``outgrown``) the grid is re-sized (``grow``) for that
-h and what was evaluated on the small cells is run again from the state
-before it: by ``run_sized`` (the initial evaluation), by the solver's
-redo of the step or chunk; cell ids wrap modulo the counts instead of
-clamping; the
+positions do; cell ids wrap modulo the counts instead of clamping; the
 stencil wraps, and shrinks to ``(-1, 0)`` on an axis of two cells and
 ``(0,)`` on one of one cell so that no cell is visited twice; and the
 support test and the reuse test take the minimum image of every
 displacement. The exact lists (``neighbor_pairs``) are the plain version
 of that walk.
+
+Where an equation also writes h (``h_varies``; ``keeps_width``), each
+binning that an evaluator keeps (its step's, and the re-binning after
+each ``update_nnps`` group: ``sph/acceleration_eval.py::Binning``)
+carries periodic counts of its own, ``max(floor(L / cell), 1)`` for the
+``cell`` it was sized for (``cells_for``: the grid itself for its own
+counts, else a ``GridView``, the grid with other periodic counts), held
+on the host so that a captured chunk bakes them in.  Each binning that
+ran raises its ``widest``, the support ``cell_slack radius_scale hmax``
+it binned; where that is wider than its periodic cell (``cells_small``,
+``outgrown``) what was evaluated on the small cells is run again from
+the state before it, that binning sized for its width (by ``run_sized``
+for the initial evaluation, by the solver's redo of the step or chunk;
+``grows`` counts), and where a binning's widest over an initial
+evaluation, or over the solver's last ``RESIZE_STEPS`` steps, is
+``SHRINK`` of its cell or less (``oversized``) it is sized down for it
+there, with no redo (``shrinks`` counts).  So GSPH's scaled density,
+which bins at twice the h of its second density, and the second
+density, the gradients and the acceleration each walk cells that fit
+their own h.  Open grids size each binning's cells from its own hmax
+already.
 
 The torch pair engine's lists (``neighbor_pairs`` with a
 ``PairCapacity``) are built at capacities held on the host, one for the
@@ -81,6 +95,11 @@ import torch
 #: headroom of the cell counts on each side of the particles' extent
 #: (pysph_tpu/base/cell_grid.py:168)
 PAD = 0.03
+#: the fraction of its periodic cell that a binning's widest must fall to
+#: before it is sized down: a halved h (GSPH's scaled h after its first
+#: evaluation, its h from the volume after the setup's) bins a few
+#: percent wider than half its cells, which floor(L / cell) widens
+SHRINK = 0.55
 
 
 class CellList(NamedTuple):
@@ -116,13 +135,17 @@ class GridHandle(object):
     flag of its last test (``ops/bin_cells.py``), all tensors on the
     states' device that each binning overwrites in place, so that a CUDA
     graph replaying a step sees the same storage; ``scratch`` is the
-    kernel's.  A new handle holds no particle in any cell and has width
-    0, so its first test rebuilds it; ``invalidate`` sets the width to 0
-    again."""
+    kernel's; ``grid``, the geometry it bins on (a ``CellGrid`` or a
+    ``GridView`` of one); ``binning``, the evaluator's ``Binning`` that
+    keeps it (None elsewhere).  A new handle holds no particle in any
+    cell and has width 0, so its first test rebuilds it; ``invalidate``
+    sets the width to 0 again."""
 
     def __init__(self, grid, states):
         x = next(iter(states.values()))['x']
         dev, fdt, i32 = x.device, x.dtype, torch.int32
+        self.grid = grid
+        self.binning = None
         self.dims, self.ncells = grid.dims, grid.ncells
         self.names = tuple(states)
         self.sizes = tuple(s['x'].shape[0] for s in states.values())
@@ -180,7 +203,9 @@ class CellGrid(object):
     grow (None before the first; the solver sets it to None after a
     chunk); ``overflow_any``, once set to a flag, ORs in every later
     binning's (the solver's chunks set and read it; None: not kept);
-    ``grows`` counts the calls of ``grow``."""
+    ``grows`` counts the calls of ``grow`` and the re-sizings of a
+    binning's periodic cells for an h that outgrew them, ``shrinks``
+    those for an h that fell to ``SHRINK`` of them or less."""
 
     def __init__(self, dim, radius_scale, dims, cell_slack=1.1,
                  domain=None):
@@ -195,6 +220,7 @@ class CellGrid(object):
         self.overflow = None
         self.overflow_any = None
         self.grows = 0
+        self.shrinks = 0
         self._handles = weakref.WeakSet()
         #: {(dest, source): PairCapacity} of the torch pair engine
         self.pair_caps = {}
@@ -210,11 +236,8 @@ class CellGrid(object):
         #: not kept; ``ops/pair_engine.py::SweepPlan``)
         self.sweep_overflow = None
         #: whether an evaluator of the grid has an equation that writes h
-        #: (set by the evaluators): only then is ``widest`` kept
+        #: (set by the evaluators): only then do binnings keep a width
         self.h_varies = False
-        #: 0-d float64 tensor that every binning that ran raises to its
-        #: width while set (``watch_width``; None: not kept)
-        self.widest = None
 
     def _set_domain(self, domain):
         """Keep ``domain`` (a ``DomainManager``, or None) and which axes
@@ -246,6 +269,30 @@ class CellGrid(object):
         self._limit = None
         self._offsets = {}
         self._consts = {}
+        self._views = {}
+
+    @property
+    def keeps_width(self):
+        """Whether binnings keep their widest width and have periodic
+        counts of their own: a periodic grid where an equation writes
+        h."""
+        return self.is_periodic and self.h_varies
+
+    def cells_for(self, cell):
+        """The geometry of a binning whose periodic cells are sized for
+        cells of ``cell`` (a host float; None: the grid's own counts):
+        the grid itself where the counts are its own, else a
+        ``GridView`` with ``max(floor(L / cell), 1)`` cells on each
+        periodic axis, made once per counts and grid size."""
+        if cell is None or not self.is_periodic:
+            return self
+        dims = tuple(self.sized_dims(self.dims, cell))
+        if dims == self.dims:
+            return self
+        view = self._views.get(dims)
+        if view is None:
+            view = self._views[dims] = GridView(self, dims)
+        return view
 
     def sized_dims(self, dims, cell):
         """``dims`` with each periodic axis set to ``max(floor(L /
@@ -300,18 +347,16 @@ class CellGrid(object):
             grid._set_dims(grid.sized_dims(grid.dims, width))
         return grid
 
-    def grow(self, states, hmax=None):
-        """Re-size the grid as ``resize`` does, after particles left it
-        or h grew past its periodic cells (``hmax``: the largest h that a
-        binning met, where more than the states' now)."""
-        self.resize(states, hmax=hmax)
+    def grow(self, states):
+        """Re-size the grid as ``resize`` does, after particles left
+        it."""
+        self.resize(states)
         self.grows += 1
 
-    def resize(self, states, cell_slack=None, hmax=None):
+    def resize(self, states, cell_slack=None):
         """Re-size the cell counts from the states' current bounding box
-        and hmax (or ``hmax`` where larger), padded as ``from_particles``
-        does (one device-to-host copy), for cells ``cell_slack`` times the
-        support where given.
+        and hmax, padded as ``from_particles`` does (one device-to-host
+        copy), for cells ``cell_slack`` times the support where given.
         The grid is changed in place, so every evaluator that shares it
         bins on the new counts; every handle of the grid is invalidated,
         so its next test rebuilds it (made anew where the counts
@@ -320,8 +365,6 @@ class CellGrid(object):
             self.cell_slack = float(cell_slack)
         lo, hi, hnow = self._box(states)
         box = torch.cat([hi - lo, hnow.reshape(1)]).tolist()
-        if hmax is not None:
-            box[3] = max(box[3], float(hmax))
         width = self.cell_slack * self.radius_scale * box[3]
         self.cell = width
         self._set_dims(self.sized_dims(
@@ -518,29 +561,39 @@ class CellGrid(object):
             return torch.where(width > 0, stale, width)
         return torch.minimum(width, stale)
 
+    def _widest_cells(self):
+        """Whether every periodic axis has one cell: no sizing can widen
+        the cells (a support wider than the box is the minimum image's
+        limit, not the grid's)."""
+        return all(n == 1 for n, per in zip(self.dims, self.periodic)
+                   if per)
+
     def cells_small(self, width):
         """0-d device bool: whether a binning of width ``width`` (the
         support of its hmax, slack included) is wider than a cell of the
         periodic axes, whose counts do not follow h (False on an open
-        grid).  Nothing is read back."""
-        if not self.is_periodic:
+        grid and where the periodic cells are as wide as the box).
+        Nothing is read back."""
+        if not self.is_periodic or self._widest_cells():
             return torch.zeros_like(width, dtype=torch.bool)
         return width > self.stale_width(width) * 1.0001
 
-    def watch_width(self, device):
-        """Keep ``widest`` from here on (a zero on ``device``) where the
-        grid is periodic and an equation writes h, else not."""
-        self.widest = torch.zeros((), dtype=torch.float64, device=device) \
-            if self.is_periodic and self.h_varies else None
-
     def outgrown(self, width):
-        """The hmax that the grid must be re-sized for where a binning
-        of width ``width`` (a host float, the largest ``widest`` read) was
-        wider than a periodic cell, else None."""
-        if not self.is_periodic or \
-                not width > self.box_host(torch.float64)['stale'] * 1.0001:
-            return None
-        return width / (self.cell_slack * self.radius_scale)
+        """Whether a binning of width ``width`` (a host float, the widest
+        that a binning on these counts met) was wider than a periodic
+        cell: it missed pairs, and its binning must be sized for
+        ``width`` and what it evaluated run again."""
+        return self.is_periodic and not self._widest_cells() and \
+            width > self.box_host(torch.float64)['stale'] * 1.0001
+
+    def oversized(self, width):
+        """Whether a binning whose widest over a run was ``width`` (a host
+        float; 0: none ran) would fit periodic cells of ``SHRINK`` of the
+        width or less: it may be sized down for ``width``, with a factor
+        of ~1.8 of hysteresis, so that an h that wanders re-sizes
+        rarely."""
+        return self.is_periodic and \
+            0.0 < width <= SHRINK * self.box_host(torch.float64)['stale']
 
     def image(self, d, dx):
         """The minimum image of the displacements ``dx`` along axis
@@ -707,3 +760,44 @@ class CellGrid(object):
             self.pair_overflow = self.pair_overflow | (
                 (total > cap.candidates) | (n_pairs > cap.pairs))
         return out_i, out_j, out_w
+
+
+class GridView(CellGrid):
+    """A ``CellGrid`` with periodic counts of its own (``CellGrid.
+    cells_for``): the geometry of a binning sized for its own h.  It
+    holds its counts and what is derived from them (the stencil, the
+    periodic widths, the limits); every other attribute, the flags and
+    the torch engine's capacities among them, is the grid's, read and
+    written through.  Re-sizing (``grow``, ``resize``, ``set_domain``)
+    is the grid's."""
+
+    _OWN = frozenset(('_base', 'dims', 'ncells', '_limit', '_offsets',
+                      '_consts', '_views'))
+
+    def __init__(self, base, dims):
+        object.__setattr__(self, '_base', base)
+        self._set_dims(dims)
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, '_base'), name)
+
+    def __setattr__(self, name, value):
+        if name in GridView._OWN:
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self._base, name, value)
+
+    def __repr__(self):
+        return 'GridView(%r, dims=%s)' % (self._base, self.dims)
+
+    def cells_for(self, cell):
+        return self._base.cells_for(cell)
+
+    def grow(self, states):
+        self._base.grow(states)
+
+    def resize(self, states, cell_slack=None):
+        self._base.resize(states, cell_slack)
+
+    def set_domain(self, domain):
+        self._base.set_domain(domain)

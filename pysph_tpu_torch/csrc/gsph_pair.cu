@@ -60,20 +60,40 @@
 //   plane 4: px py pz ux
 //   plane 5: uy uz vx vy
 //   plane 6: vz wx wy wz
-// of which the gradients pack planes 0-2, the acceleration all seven.  No
-// shared memory: every run sums in the order of the plain stencil walk.
-// Built with -fmad=false (ops/build.py EXTRA_FLAGS): the support test and
-// every pair term round each operation as the plain version's, so the
-// pairs and each dest's count are exactly its.
+// of which the gradients pack planes 0-2, the acceleration all seven.
+// Every run sums in the order of the plain stencil walk.  Built with
+// -fmad=false (ops/build.py EXTRA_FLAGS): the support test and every pair
+// term round each operation as the plain version's, so the pairs and each
+// dest's count are exactly its.
+//
+// The linked pair (the mode a.mode, uniform over the launch: kWalk, the
+// call above; kEmit, the gradients; kConsume, the acceleration).  Nothing
+// between GSPHScheme's gradients group and its acceleration group writes
+// a prop of planes 0-2 (ops/pair_engine.py link_pairs), so the gradients
+// launch (kEmit) walks as above and also writes its neighbour list: entry c
+// of the dest at sorted position p is nbr[c * n_dest + p], source s's
+// position k numbered base_s + k, for c < cap, lcount[p] its pairs (which
+// may exceed cap: each such dest adds one to *overflow).  The acceleration
+// launch (kConsume) packs only planes 3-6 and reads planes 0-2 from the
+// gradients launch's copy; a warp whose dests all fit reads their listed
+// pairs in list order, handing each to the same pair_of and functor as the
+// walk, so its sums are the walk's bit for bit; a warp with a dest past
+// cap walks.  (Staging each block's listed sources in shared memory by
+// bulk asynchronous copies, its stencil rows' ranges of the copy, was
+// measured 2-6% slower than these reads through L1 at the accuracy test's
+// 256^2, PERF.md, and is not kept.)
 //
 // What bounds it: operations.  Per pair in support the gradients
 // evaluate the shape once and ~40 flops; the acceleration the gradient at
 // three smoothing lengths, ~150 flops of reconstruction and sums, and the
 // Riemann solver: a few tens of flops and square roots for the
 // approximate ones, and for the exact solver two pow-based pressure
-// functions a Newton trip, niter trips (20 in the shock tube).  A pair's
-// registers (the dest's 24 values, the source's 28) spill where the
-// solver's code is long.
+// functions a Newton trip, niter trips (20 in the shock tube).  The pair
+// body reads each source record where it uses it, so a value is held only
+// while it is in use.  The acceleration kernel's __launch_bounds__ asks
+// for GSPH_ACC_BLOCKS_F32 (float: 4, 128 registers, a few spilled bytes)
+// or GSPH_ACC_BLOCKS_F64 (double: 2) blocks an SM, the fastest of a
+// measured sweep (tools_dev/list_batch.py gsph_pair, PERF.md).
 //
 // Interface: plain C, called through ctypes (ops/gsph_pair.py).  The
 // launch function takes a host pointer to GsphArgs (copied into the
@@ -91,6 +111,15 @@
 #include "shapes.cuh"
 
 constexpr int kGsphSources = 4;
+// the acceleration kernel's blocks of 128 threads an SM (__launch_bounds__)
+#ifndef GSPH_ACC_BLOCKS_F32
+#define GSPH_ACC_BLOCKS_F32 4
+#endif
+#ifndef GSPH_ACC_BLOCKS_F64
+#define GSPH_ACC_BLOCKS_F64 2
+#endif
+// modes, as ops/gsph_pair.py WALK, EMIT, CONSUME
+enum GsphMode { kWalk, kEmit, kConsume };
 // term bits, as ops/gsph_pair.py GRAD, ACC
 constexpr int kGrad = 1, kAcc = 2;
 // outputs in the order of ops/gsph_pair.py OUTPUTS
@@ -140,6 +169,13 @@ struct GsphArgs {
   // GSPHAcceleration's branches
   int32_t rsolver, niter, monotonicity, interpolation, interface_zero,
       hybrid, conduction;
+  // the linked pair (see the top): the mode, the list's entries a dest,
+  // the list (cap, n_dest), each dest's count and kEmit's count of dests
+  // past cap
+  int32_t mode, cap;
+  int32_t* nbr;
+  int32_t* lcount;
+  int32_t* overflow;
   // the pack that fills the sources' planes: the launch function launches
   // it just before the kernel
   PackArgs pack;
@@ -162,6 +198,15 @@ template <typename T>
 __device__ __forceinline__ T ld(const void* p, int i) {
   return static_cast<const T*>(p)[i];
 }
+
+// A source's planes as the pair body reads them: its packed copy.
+struct CopyPlanes {
+  const void* const* plane;
+  template <typename T>
+  __device__ __forceinline__ Rec<T> rec(int q, int k) const {
+    return walk::rec<T>(plane[q], k);
+  }
+};
 
 template <typename T>
 __device__ __forceinline__ T hpow(T h1, int dim) {
@@ -225,6 +270,7 @@ struct AtH {
 template <typename T, int KIND>
 struct Gradients {
   static constexpr int kBlocks = 4;
+  static constexpr bool kConsumes = false;
   T ui = 0, vi = 0, wi = 0, pi = 0;
   AtH<T, KIND> at{};
   T acc[12] = {};
@@ -235,10 +281,10 @@ struct Gradients {
     pi = ld<T>(a.p, i);
     at.set(ld<T>(a.h, i), T(a.kfac), a.dim);
   }
-  __device__ void pair(const GsphArgs&, const GsphSrc& S,
-                       const Pair<T>& q) {
-    const Rec<T> vm = rec<T>(S.plane[kVelM], q.k);     // u v w m
-    const Rec<T> th = rec<T>(S.plane[kThermo], q.k);   // rho p cs e
+  template <class Src>
+  __device__ void pair(const GsphArgs&, const Src& S, const Pair<T>& q) {
+    const Rec<T> vm = S.template rec<T>(kVelM, q.k);     // u v w m
+    const Rec<T> th = S.template rec<T>(kThermo, q.k);   // rho p cs e
     const T gi = at.grad(q);
     const T dwi[3] = {gi * q.xij, gi * q.yij, gi * q.zij};
     const T rj1 = T(1) / th.a;
@@ -274,7 +320,9 @@ __device__ __forceinline__ T monotonicity_min(T x1, T x2, T x3) {
 // GSPHAcceleration's loop.
 template <typename T, int KIND>
 struct Acceleration {
-  static constexpr int kBlocks = 2;
+  static constexpr int kBlocks =
+      sizeof(T) == 4 ? GSPH_ACC_BLOCKS_F32 : GSPH_ACC_BLOCKS_F64;
+  static constexpr bool kConsumes = true;
   T ui = 0, vi = 0, wi = 0, hi = 0, rhoi = 0, pi = 0, csi = 0, ei = 0,
     divi = 0, gxi = 0, gyi = 0, gzi = 0, Hi = 0, dt = 0, bf = 0, kfac = 0;
   T gi9[12] = {};  // the dest's px py pz ux uy uz vx vy vz wx wy wz
@@ -363,14 +411,12 @@ struct Acceleration {
     }
   }
 
-  __device__ void pair(const GsphArgs& a, const GsphSrc& S,
-                       const Pair<T>& q) {
-    const Rec<T> vm = rec<T>(S.plane[kVelM], q.k);     // u v w m
-    const Rec<T> th = rec<T>(S.plane[kThermo], q.k);   // rho p cs e
-    const Rec<T> dg = rec<T>(S.plane[kDivGrho], q.k);  // div grho xyz
-    const Rec<T> g4 = rec<T>(S.plane[kGrad4], q.k);    // px py pz ux
-    const Rec<T> g5 = rec<T>(S.plane[kGrad5], q.k);    // uy uz vx vy
-    const Rec<T> g6 = rec<T>(S.plane[kGrad6], q.k);    // vz wx wy wz
+  // the source's records are read where each is used, so that a value is
+  // held only while it is in use
+  template <class Src>
+  __device__ void pair(const GsphArgs& a, const Src& S, const Pair<T>& q) {
+    const Rec<T> vm = S.template rec<T>(kVelM, q.k);     // u v w m
+    const Rec<T> th = S.template rec<T>(kThermo, q.k);   // rho p cs e
     const T hj = q.hj, RIJ = q.rij;
     const T mj = vm.d, rhoj = th.a, pj = th.b, csj = th.c;
     const T hij = T(0.5) * (hi + hj);
@@ -388,6 +434,7 @@ struct Acceleration {
     const T vl = vm.a * e0 + vm.b * e1 + vm.c * e2;
     const T vr = ui * e0 + vi * e1 + wi * e2;
 
+    const Rec<T> dg = S.template rec<T>(kDivGrho, q.k);  // div grho xyz
     const T grhoi = gxi * e0 + gyi * e1 + gzi * e2;
     const T grhoj = dg.b * e0 + dg.c * e1 + dg.d * e2;
     T vij_i, vij_j, sstar;
@@ -400,6 +447,9 @@ struct Acceleration {
              e0 * e2 * (gi9[5] + gi9[9]) + e1 * e1 * gi9[7] +
              e1 * e2 * (gi9[8] + gi9[10]) + e2 * e2 * gi9[11]);
     T rsj = grhoj;
+    const Rec<T> g4 = S.template rec<T>(kGrad4, q.k);    // px py pz ux
+    const Rec<T> g5 = S.template rec<T>(kGrad5, q.k);    // uy uz vx vy
+    const Rec<T> g6 = S.template rec<T>(kGrad6, q.k);    // vz wx wy wz
     T psj = g4.a * e0 + g4.b * e1 + g4.c * e2;
     // source: ux g4.d, uy g5.a, uz g5.b, vx g5.c, vy g5.d, vz g6.a,
     // wx g6.b, wy g6.c, wz g6.d
@@ -495,9 +545,13 @@ struct Acceleration {
   }
 };
 
+constexpr int kThreads = 128;
+// listed entries whose loads a lane has in flight
+constexpr int kListBatch = 4;
+
 template <typename T, int KIND, bool PERIODIC, class PhaseSet>
-__global__ void __launch_bounds__(128, PhaseSet::kBlocks)
-    gsph_pair_kernel(const GsphArgs a) {
+__global__ void __launch_bounds__(kThreads, PhaseSet::kBlocks)
+    gsph_pair_kernel(const __grid_constant__ GsphArgs a) {
   // every lane stays to the end: the walk's votes take the whole warp
   const int pos = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = pos < a.n_dest;
@@ -512,31 +566,65 @@ __global__ void __launch_bounds__(128, PhaseSet::kBlocks)
   const T rs = T(a.radius_scale);
   const walk::Box<T> box{{T(a.box[0]), T(a.box[1]), T(a.box[2])}};
   int pairs = 0;
-  const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
-  walk::Walker<T> walker;
-  walker.begin();
-  for (int s = 0; s < a.n_src; ++s) {
-    const GsphSrc& S = a.src[s];
-    const void* p0 = S.plane[kPos];
-    auto body = [&](int k) {
-      ++pairs;
-      ph.pair(a, S, pair_of<T, PERIODIC>(di, rec<T>(p0, k), k, box));
-    };
-    if (PERIODIC)
-      walk::walk_rows_periodic(a, S.cell_start, S.cell_end, p0, l, di, rs,
-                               box, walker, body);
-    else
-      walk::walk_rows(a, S.cell_start, S.cell_end, p0, l, 1, di, rs, walker,
-                      body);
-    walker.finish(body);
+  bool walking = true;
+  if (PhaseSet::kConsumes && a.mode == kConsume) {
+    const int count = active ? a.lcount[pos] : 0;
+    walking = __any_sync(walk::kFull, count > a.cap);
+    // the list runs source by source: s is the source of the entries
+    int s = 0;
+    for (int c0 = 0; !walking && c0 < count; c0 += kListBatch) {
+      int e[kListBatch];
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u)
+        e[u] = c0 + u < count ? a.nbr[size_t(c0 + u) * a.n_dest + pos] : -1;
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u) {
+        if (e[u] < 0) continue;
+        while (s + 1 < a.n_src && e[u] >= a.src[s + 1].base) ++s;
+        const int k = e[u] - a.src[s].base;
+        const CopyPlanes P{a.src[s].plane};
+        ++pairs;
+        ph.pair(a, P,
+                pair_of<T, PERIODIC>(di, P.template rec<T>(kPos, k), k, box));
+      }
+    }
+  }
+  if (walking) {
+    const bool emit = a.mode == kEmit;
+    int listed = 0;
+    const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
+    walk::Walker<T> walker;
+    walker.begin();
+    for (int s = 0; s < a.n_src; ++s) {
+      const GsphSrc& S = a.src[s];
+      const void* p0 = S.plane[kPos];
+      const CopyPlanes P{S.plane};
+      auto body = [&](int k) {
+        if (emit) {
+          if (listed < a.cap) a.nbr[size_t(listed) * a.n_dest + pos] = S.base + k;
+          ++listed;
+        }
+        ++pairs;
+        ph.pair(a, P, pair_of<T, PERIODIC>(di, rec<T>(p0, k), k, box));
+      };
+      if (PERIODIC)
+        walk::walk_rows_periodic(a, S.cell_start, S.cell_end, p0, l, di, rs,
+                                 box, walker, body);
+      else
+        walk::walk_rows(a, S.cell_start, S.cell_end, p0, l, 1, di, rs, walker,
+                        body);
+      walker.finish(body);
+    }
+    if (emit && active) {
+      a.lcount[pos] = listed;
+      if (listed > a.cap) atomicAdd(a.overflow, 1);
+    }
   }
   if (active) {
     ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
     if (a.count != nullptr) a.count[i] = pairs;
   }
 }
-
-constexpr int kThreads = 128;
 
 template <typename T, int KIND, bool PERIODIC>
 cudaError_t launch_walk(const GsphArgs& a, cudaStream_t stream) {
@@ -585,8 +673,13 @@ bool args_ok(const GsphArgs& a) {
       a.rsolver >= 0 && a.rsolver <= 10 && a.niter >= 0 &&
       a.monotonicity >= 0 && a.monotonicity <= 2 && a.interpolation >= 0 &&
       a.interpolation <= 2 && a.tf != 0.0;
-  return sources_ok && outs_ok && branches_ok && a.nx >= 1 && a.ny >= 1 &&
-         a.nz >= 1 && a.dim >= 1 && a.dim <= 3 &&
+  const bool mode_ok =
+      a.mode == kWalk ||
+      (a.cap >= 1 && a.nbr != nullptr && a.lcount != nullptr &&
+       (a.mode == kEmit ? a.phase == kGradients && a.overflow != nullptr
+                        : a.mode == kConsume && a.phase == kAcceleration));
+  return sources_ok && outs_ok && branches_ok && mode_ok && a.nx >= 1 &&
+         a.ny >= 1 && a.nz >= 1 && a.dim >= 1 && a.dim <= 3 &&
          (a.dtype == 0 || a.dtype == 1) &&
          shapes::built_kind(a.kernel_kind) &&
          (a.phase == kGradients || a.phase == kAcceleration) &&

@@ -52,10 +52,14 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: expressions, stay); gasd_pair's walk must decide support as its plain
 #: version does, so that its pairs and each dest's count are the plain
 #: version's exactly: no FMA contraction at all, as delta_pair; and so
-#: gsph_pair's, whose Riemann solvers round as their torch versions do
+#: gsph_pair's, whose Riemann solvers round as their torch versions do;
+#: gsph_pair, the longest build (its acceleration kernels inline the pair
+#: body for the listed and the walked pairs), also optimizes on every core
+#: (-split-compile=0: the same registers and bit-identical results, its
+#: cold build some three times shorter on an H100 host)
 EXTRA_FLAGS = {'delta_pair': ('-fmad=false',),
                'gasd_pair': ('-fmad=false',),
-               'gsph_pair': ('-fmad=false',),
+               'gsph_pair': ('-fmad=false', '-split-compile=0'),
                'tvf_pair': ('-Xptxas', '--fmad=false'),
                'iisph_pair': ('-Xptxas', '--fmad=false'),
                'iisph_solve': ('-Xptxas', '--fmad=false')}

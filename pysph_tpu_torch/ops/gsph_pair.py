@@ -29,6 +29,20 @@ one set a call.  The step's ``t`` and ``dt`` are Python floats or, in the
 solver's chunks, 0-d float64 tensors on the card, which the kernel reads
 there (a CUDA graph replays the step's own).
 
+The linked pair.  Where a dest's acceleration group follows its
+gradients group with the same sources and nothing between them writes a
+prop of the gradients' planes (``ops/pair_engine.py::link_pairs``), the
+two plans share a ``Link`` (``ops/pair_link.py``): the gradients call
+runs with ``emit=True`` and returns, beside its output, a ``Handoff``:
+its sources' packed copies of planes 0-2 (``{x y z h}``, ``{u v w m}``,
+``{rho p cs e}``) and the neighbour list, up to ``CAPACITY[dim]``
+entries a dest.  The acceleration call takes it (``handoff=``): it packs
+only planes 3-6 and reads the listed records instead of walking, so its
+sums are the walk's bit for bit; a warp holding a dest past the capacity
+walks.  The gradients launch counts such dests on the card
+(``overflowed``).  A linked acceleration plan run without its hand-off
+raises.
+
 For CUDA tensors it calls ``csrc/gsph_pair.cu`` (a library of its own,
 built on first use by ``ops/build.py``) once: its launch function
 launches the source pack (``ops/cell_pack.py``, counted in
@@ -38,7 +52,8 @@ its first launch); a kernel without a ``kernel_kind``, a dtype other than
 float32 and float64, an unknown ``rsolver`` or a refused launch raises.
 For CPU tensors it calls ``gsph_pair_reference``, the torch pair engine
 running the same ``Equation`` objects on the exact lists of
-``CellGrid.neighbor_pairs``.
+``CellGrid.neighbor_pairs``, which walks for the acceleration call too:
+an emitting call returns an empty hand-off.
 
 ``riemann`` runs one of the library's eleven device Riemann solvers
 (``csrc/riemann.cuh``) elementwise on tensors on the card, for holding
@@ -51,11 +66,16 @@ from typing import NamedTuple
 
 import torch
 
-from pysph_tpu_torch.ops import build, cell_pack
+from pysph_tpu_torch.ops import build, cell_pack, pair_link
 from pysph_tpu_torch.ops.build import data_ptr
+from pysph_tpu_torch.ops.pair_link import CAPACITY, Handoff
 from pysph_tpu_torch.ops.pair_sets import PhaseSets, fill_outputs
 
 GRAD, ACC = 1, 2
+#: the kernel's modes (csrc/gsph_pair.cu GsphMode)
+WALK, EMIT, CONSUME = range(3)
+#: the planes that an emitting gradients call leaves in its hand-off
+HANDED = 3
 #: phase sets, indexed by the phase id of the CUDA kernel
 PHASE_SETS = (GRAD, ACC)
 GRADIENTS, ACCELERATION = range(2)
@@ -173,8 +193,20 @@ class _Args(ctypes.Structure):
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim', 'phase',
                     'dtype', 'kernel_kind', 'periodic', 'rsolver', 'niter',
                     'monotonicity', 'interpolation', 'interface_zero',
-                    'hybrid', 'conduction')] +
+                    'hybrid', 'conduction', 'mode', 'cap')] +
+                [(k, ctypes.c_void_p) for k in ('nbr', 'lcount',
+                                                 'overflow')] +
                 [('pack', cell_pack.PackArgs)])
+
+
+def overflowed(device):
+    """The dests past the list's capacity that emitting launches counted
+    since ``reset_overflow`` (reads the counter)."""
+    return pair_link.overflowed('gsph_pair', device)
+
+
+def reset_overflow(device):
+    pair_link.reset_overflow('gsph_pair', device)
 
 
 def _time(args, name, value, dev):
@@ -192,11 +224,26 @@ def _time(args, name, value, dev):
         setattr(args, name, float(value))
 
 
+def _check_mode(phase, emit, handoff, dest, sources):
+    """Raise unless only a gradients call emits and only an acceleration
+    call takes a hand-off, one that ``sources`` on ``dest``'s device
+    emitted for as many dests."""
+    if emit and (handoff is not None or phase != GRADIENTS):
+        raise ValueError('gsph_pair: only a gradients call emits a hand-off')
+    if handoff is None:
+        return
+    if phase != ACCELERATION:
+        raise ValueError('gsph_pair: only an acceleration call takes a '
+                         'hand-off')
+    pair_link.check_handoff('gsph_pair', handoff, dest, sources)
+
+
 def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel, t,
-            dt, counts):
+            dt, counts, emit, handoff, capacity):
     x = dest['x']
     dev, n = x.device, x.shape[0]
     phase = _phase(sources)
+    _check_mode(phase, emit, handoff, dest, sources)
     terms = PHASE_SETS[phase]
     if set(pre) != set(TERM_OUTPUTS[terms]):
         raise ValueError('gsph_pair: pre values for %s, the set gives %s'
@@ -209,8 +256,42 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel, t,
         raise ValueError('gsph_pair: monotonicity %d, interpolation %d'
                          % (prm.monotonicity, prm.interpolation))
     args = _Args()
+    i32 = torch.int32
+    # an emitting call packs planes 0-2 with every prop the acceleration
+    # reads of them, and a consuming call packs planes 3-6 and reads 0-2
+    # from the emitting call's copies (HANDED planes each, one after
+    # another)
+    slots, planes = pack_layout(ACC)
+    layout = (slots[:HANDED], planes[:HANDED]) if emit else \
+        (slots[HANDED:], planes[HANDED:]) if handoff is not None else None
     buf = _SETS.fill(args, dest, dest_cells, write_mask, sources, grid,
-                     kernel, phase)
+                     kernel, phase, layout=layout)
+    if handoff is not None:
+        plane0, size = handoff.plane0()
+        if n and handoff.buf.numel() != size:
+            raise ValueError('gsph_pair: a hand-off of %d values for copies '
+                             'of %d' % (handoff.buf.numel(), size))
+        es = x.element_size()
+        for k, (src, _, _) in enumerate(sources):
+            ns = src['x'].shape[0]
+            for q in range(HANDED):
+                args.src[k].plane[q] = handoff.buf.data_ptr() + \
+                    (plane0[k] + q * 4 * ns) * es
+        args.mode = CONSUME
+    elif emit:
+        cap = capacity or CAPACITY[kernel.dim]
+        handoff = Handoff(buf, torch.empty((cap, n), dtype=i32, device=dev),
+                          torch.empty(n, dtype=i32, device=dev),
+                          pair_link.copies_of(sources),
+                          (HANDED,) * len(sources))
+        args.overflow = pair_link.overflow_counter('gsph_pair',
+                                                   dev).data_ptr()
+        args.mode = EMIT
+    if handoff is not None and n:
+        args.nbr = data_ptr(handoff.nbr, handoff.nbr.shape[0], i32, dev,
+                            'neighbour list', width=n)
+        args.lcount = data_ptr(handoff.count, n, i32, dev, 'counts')
+        args.cap = handoff.nbr.shape[0]
     out = fill_outputs(args, OUTPUTS, pre, x, counts)
     _time(args, 'dt', dt, dev)
     _time(args, 't', t, dev)
@@ -225,23 +306,34 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel, t,
         build.launch('gsph_pair', args, dev)
         gsph_pair.launches += 1
         cell_pack.pack.launches += bool(args.pack.n_src)
+    if emit:
+        return out, handoff
     del buf  # held until the launch is queued
     return out
 
 
 def gsph_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-              t=0.0, dt=0.0, counts=False):
+              t=0.0, dt=0.0, counts=False, emit=False, handoff=None,
+              capacity=None):
     """Pair terms of one dest over its sources; same arguments and
-    result as ``gsph_pair_reference``.  CPU tensors take the plain
+    result as ``gsph_pair_reference``.  ``emit`` (a gradients call):
+    return (result, ``Handoff``); ``handoff`` (an acceleration call): read
+    that hand-off's copies and neighbour list instead of walking;
+    ``capacity``: the list's entries a dest for ``emit``, for tests
+    (default ``CAPACITY[kernel.dim]``).  CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise."""
     dev = dest['x'].device
     if dev.type == 'cpu':
-        return gsph_pair_reference(dest, dest_cells, write_mask, pre,
-                                   sources, grid, kernel, t, dt, counts)
+        _check_mode(_phase(sources), emit, handoff, dest, sources)
+        out = gsph_pair_reference(dest, dest_cells, write_mask, pre,
+                                  sources, grid, kernel, t, dt, counts)
+        # the plain acceleration call walks: the hand-off carries nothing
+        return (out, pair_link.empty_handoff(dest, sources)) if emit \
+            else out
     if dev.type != 'cuda':
         raise ValueError('gsph_pair: no kernel for device %s' % dev)
     return _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-                   t, dt, counts)
+                   t, dt, counts, emit, handoff, capacity)
 
 
 class _RiemannArgs(ctypes.Structure):

@@ -72,9 +72,10 @@ the torch pair engine instead.
 
 ``link_pairs`` links two plans of one kernel for one dest where nothing
 between them moves the pairs: a dest's ``delta_pair`` moment plan and
-its corrected gradient plan in the group right after it, and a dest's
+its corrected gradient plan in the group right after it, a dest's
 ``tvf_pair`` density plan and its momentum plan in a later group (and
-the mean-pressure plan of ``EDACScheme`` between them); and a chain of a
+the mean-pressure plan of ``EDACScheme`` between them), a dest's
+``gsph_pair`` gradients plan and its acceleration plan; and a chain of a
 dest's ``iisph_pair`` plans: the first that sees every later plan's
 sources (a later plan may read fewer) emits, and every later one (each
 pressure sweep's two among them, run again every sweep) reads.  The
@@ -557,6 +558,17 @@ def _tvf_link_equations():
         edac.SetWallVelocity, edac.ClampWallPressure}
 
 
+def _gsph_link_equations():
+    """The equations that may lie between a linked ``gsph_pair``
+    gradients call and its acceleration call, those calls' own: none
+    writes a prop of the gradients' packed planes (``x y z h``, ``u v w
+    m``, ``rho p cs e``), which the acceleration call reads from the
+    gradients call's copy."""
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.gas_dynamics import gsph
+    return frozenset((gsph.GSPHGradients, gsph.GSPHAcceleration))
+
+
 def _delta_dims(moment, gradient):
     mdim, cdim = moment.sources[0].dim, gradient.sources[0].dim
     if mdim != moment.kernel.dim or cdim > mdim:
@@ -605,6 +617,10 @@ _LINK_RULES = (
               lambda p: _tvf_phase(p) == _tp.MOMENTUM, None,
               _tvf_link_equations, _pl.Link,
               passes=lambda p: _terms_of(p) == _tp.AVGP),
+    _LinkRule(_gs.gsph_pair,
+              lambda p: _gs.phase_of(_terms_of(p)) == _gs.GRADIENTS,
+              lambda p: _gs.phase_of(_terms_of(p)) == _gs.ACCELERATION, None,
+              _gsph_link_equations, _pl.Link),
 )
 
 
@@ -703,8 +719,13 @@ def link_pairs(groups, plans):
     ``tvf_pair`` plan where that is a momentum plan and every equation
     from the density group to the momentum group is TVF's, the EOS or
     the walls' (``_tvf_link_equations``: none writes ``x y z h``); both
-    with the same sources in the same order.  The first call then emits
-    the neighbour list and packed copies that the second reads (and the
+    with the same sources in the same order; each ``gsph_pair``
+    gradients plan to the dest's next ``gsph_pair`` plan where that is an
+    acceleration plan and every equation from the one group to the other
+    is ``GSPHGradients`` or ``GSPHAcceleration`` (``_gsph_link_equations``:
+    none writes a prop of the gradients' packed planes).  The first call
+    then emits the neighbour list and packed copies that the second reads
+    (and the
     ``tvf_pair`` mean-pressure plans of ``AVGP`` alone between them,
     ``EDACScheme``'s with walls: ``Link.middle``) (``ops/pair_link.py``);
     and each dest's chain of ``iisph_pair`` plans (``_link_iisph``).  Each

@@ -2,22 +2,24 @@
 writes a neighbour list, a later call of the same dest reads it instead
 of walking again.
 
-Four kernels run linked calls (``ops/pair_engine.py::link_pairs`` and
+Five kernels run linked calls (``ops/pair_engine.py::link_pairs`` and
 ``link_sweep`` form them): ``delta_pair`` (the moment launch emits, the
 corrected gradient launch consumes), ``tvf_pair`` (the density launch
 emits, the momentum launch consumes), ``iisph_pair`` (a dest's first
 launch that sees all its sources emits, every later launch of its
 evaluation reads, the pressure sweep's again each sweep; a reader may
-take fewer of the emitter's sources) and ``gasd_pair`` (each sweep of
+take fewer of the emitter's sources), ``gasd_pair`` (each sweep of
 ``GasDScheme``'s density iteration emits, ``MPMAccelerations``' launch
 reads the last one's list where the hand-off's ``use`` flag says that
-the iteration ended converged, and walks elsewhere).  Nothing between the two calls moves ``x y z
-h``, so the emitting call's pairs in support are the consuming call's,
-in the same order.  The emitting call returns, beside its output, a
-``Handoff``: its sources' packed copies and the neighbour list, each
-dest's in-support source positions in the walk's order
-(``neighbours_reference``), up to ``CAPACITY[dim]`` a dest, with its
-count.  A consuming warp that holds a dest past the capacity walks; the
+the iteration ended converged, and walks elsewhere) and ``gsph_pair``
+(``GSPHScheme``'s gradients launch emits, its acceleration launch reads
+the list and the gradients' copies of planes 0-2).  Nothing between the
+two calls moves ``x y z h``, so the emitting call's pairs in support are
+the consuming call's, in the same order.  The emitting call returns,
+beside its output, a ``Handoff``: its sources' packed copies and the
+neighbour list, each dest's in-support source positions in the walk's
+order (``neighbours_reference``), up to ``CAPACITY[dim]`` a dest, with
+its count.  A consuming warp that holds a dest past the capacity walks; the
 emitting launch counts such dests on the card (``overflowed``).  The
 plans of a pair share a ``Link``, through which the evaluator runs them.
 """

@@ -48,8 +48,12 @@ class PhaseSets(object):
         ``terms`` packs, and their prop names (``cell_pack.layout``)."""
         return cell_pack.layout(self.pack_records, self.reads(terms, 1))
 
-    def packs(self, sources):
-        return [(src, cells.order, self.pack_layout(s.terms)[1])
+    def packs(self, sources, layout=None):
+        """(state, order, planes) of each source's pack: its set's layout's
+        planes, or ``layout``'s ((slots, planes), as ``pack_layout``
+        gives) where given."""
+        return [(src, cells.order, (self.pack_layout(s.terms)
+                                    if layout is None else layout)[1])
                 for src, cells, s in sources]
 
     def pack_sources_reference(self, sources):
@@ -92,14 +96,15 @@ class PhaseSets(object):
         return out
 
     def fill(self, args, dest, dest_cells, write_mask, sources, grid,
-             kernel, phase, buf=None):
+             kernel, phase, buf=None, layout=None):
         """Fill what every launch's ``args`` holds: the dest's props that
         the set reads, its cells and write mask, each source's packed
-        planes (in one buffer, ``buf`` where given), cells, terms and
-        first row, the grid and the kernel; raises for a dtype, a number
-        of sources or a kernel that the library lacks.  Returns the
-        packs' buffer, which stays referenced until the launch is
-        queued."""
+        planes (the set's layout, or ``layout``'s (slots, planes) where
+        given, the caller pointing any other; in one buffer, ``buf`` where
+        given), cells, terms and first row, the grid and the kernel;
+        raises for a dtype, a number of sources or a kernel that the
+        library lacks.  Returns the packs' buffer, which stays referenced
+        until the launch is queued."""
         x = dest['x']
         dev, fdt, n = x.device, x.dtype, x.shape[0]
         if fdt not in (torch.float32, torch.float64):
@@ -112,8 +117,9 @@ class PhaseSets(object):
                              'ROADMAP Queue 1 item 28)' % (self.name, kernel))
         terms = self.sets[phase]
         i32 = torch.int32
-        buf = cell_pack.fill(args.pack, self.packs(sources), self.name, buf)
-        slots = self.pack_layout(terms)[0]
+        buf = cell_pack.fill(args.pack, self.packs(sources, layout),
+                             self.name, buf)
+        slots = (self.pack_layout(terms) if layout is None else layout)[0]
         base = 0
         for k, (src, cells, s) in enumerate(sources):
             sa, c = args.src[k], args.pack.src[k]

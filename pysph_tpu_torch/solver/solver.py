@@ -78,13 +78,22 @@ slots sets the grid's ``sweep_overflow``; the chunk's read carries it
 binnings too), doubles the slots and runs the chunk again, as after a
 dropped pair list, unless a binning of the chunk met a state that is
 not finite (which never converges): that raises first.  Where an
-equation writes h on a periodic grid (``CellGrid.h_varies``), each step
-keeps the widest binning (``CellGrid.widest``): a step whose h outgrew the
-periodic cells summed on cells that miss pairs, so the chunk stops after
-it, its read carries the width (``WIDE``; the per-step loop reads it
-after each step), and the host puts the state back, re-sizes the grid
-for that h and runs the chunk (or step) again.  ``redos`` counts all
-three.
+equation writes h on a periodic grid (``CellGrid.keeps_width``), each
+binning that the evaluators keep (``sph/acceleration_eval.py::Binning``:
+the step's, and each ``update_nnps`` group's) has periodic counts of its
+own and keeps its widest binning: a step where one outgrew its periodic
+cells summed on cells that miss pairs, so the chunk stops after it, its
+read carries one width a binning (``WIDE``, read with the carry in one
+read; the per-step loop reads them after each step), and the host puts
+the state back, sizes that binning for its width and runs the chunk (or
+step) again; a binning whose widest over the last ``RESIZE_STEPS`` steps
+fits about half its cells or less (``cell_grid.SHRINK``) is sized down
+for it after the step (or chunk) that ends them, with no redo: where
+binnings keep widths a chunk ends at each multiple of ``RESIZE_STEPS``,
+and both loops decide at the same counts on the same widths, so that
+they give the same bits
+(``acceleration_eval.shrink_binnings``), and the next chunk is captured
+at the new counts.  ``redos`` counts all three.
 
 A binning that met a position or h that is not finite bins nothing and
 sets the grid's ``nonfinite`` flag, which the chunk's read carries
@@ -102,6 +111,8 @@ import torch
 
 from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import CubicSpline
+from pysph_tpu_torch.sph.acceleration_eval import (
+    grow_binnings, shrink_binnings, sized_binnings)
 from pysph_tpu_torch.solver.output import dump
 from pysph_tpu_torch.solver.utils import mkdir
 
@@ -111,10 +122,14 @@ EPSILON = 1e-14
 #: steps between two reads of the grid's overflow flag where dt is fixed
 #: (the per-step loop; a chunk reads it once)
 GROW_CHECK_STEPS = 20
-#: the chunk's device carry: float64 slots of ``Solver._carry``
+#: steps over which a binning's widths are kept before it may be sized
+#: down (at each multiple of it, in both loops)
+RESIZE_STEPS = 10
+#: the chunk's device carry: float64 slots of ``Solver._carry``, then
+#: (``WIDE`` on) the widest binning of each ``Binning`` that keeps one
 (T, DT, DT_UN, COUNT, N_REAL, T_OUT, DONE, GROW, REBUILDS, PAIRS, SWEEPS,
  BAD, WIDE) = range(13)
-N_CARRY = WIDE + 1
+N_CARRY = WIDE
 
 
 class Solver(object):
@@ -169,6 +184,12 @@ class Solver(object):
         self._graph = None
         self._graph_key = None
         self._logged = set()
+        #: the binnings whose widths the chunk's ``_wide`` holds, in order
+        self._wide_of = []
+        self._wide = None
+        #: {Binning: its widest binning since the last multiple of
+        #: RESIZE_STEPS} (host floats)
+        self._window = {}
 
     def setup(self, particles, equations, config):
         """Build the evaluators (one per stage of ``MultiStageEquations``,
@@ -292,28 +313,50 @@ class Solver(object):
     def _step(self):
         """One step of the per-step loop, redone from the state before it
         with the capacities grown where a torch engine pair list
-        overflowed, or the grid re-sized where h outgrew its periodic
+        overflowed, or a binning re-sized where h outgrew its periodic
         cells (where a dest is on that engine or an equation writes h on
-        a periodic grid: one read a step)."""
+        a periodic grid: one read a step); a binning that fits about half its
+        cells or less is sized down after it."""
         grid = self.grid
-        if not (grid.pair_caps or self._watch_width()):
+        wide = self._watch_width()
+        if not (grid.pair_caps or wide):
             self.integrator.step(self.states, self.t, self.dt)
             return
         saved = self._save()
         zero = torch.zeros((), dtype=torch.float64, device=self.config.device)
         while True:
             grid.watch_pairs()
-            grid.watch_width(zero.device)
+            for b in self._binnings():
+                b.clear()
             self.integrator.step(self.states, self.t, self.dt)
-            flags = [zero if f is None else f.to(zero.dtype)
-                     for f in (grid.pair_overflow, grid.widest)]
-            grid.pair_overflow = grid.widest = None
-            pairs, width = torch.stack(flags).tolist()
+            binnings = self._binnings()
+            flag = grid.pair_overflow
+            grid.pair_overflow = None
+            vals = torch.stack([zero if flag is None else flag.to(zero.dtype)]
+                               + [b.widest for b in binnings]).tolist()
             self.reads += 1
-            hmax = grid.outgrown(width)
-            if not pairs and hmax is None:
+            grown = wide and grow_binnings(grid, binnings, vals[1:],
+                                           'step %d' % self.count)
+            if not vals[0] and not grown:
+                self._note_widths(binnings, vals[1:], self.count + 1)
                 return
-            self._redo(saved, 'step', pairs=bool(pairs), hmax=hmax)
+            self._redo(saved, 'step', pairs=bool(vals[0]))
+
+    def _note_widths(self, binnings, widths, count):
+        """Keep the widest binnings of a step or chunk that stands, which
+        ended at ``count``; at a multiple of ``RESIZE_STEPS`` size down
+        the binnings whose widest since the last fits about half their cells
+        (``shrink_binnings``)."""
+        for b, w in zip(binnings, widths):
+            self._window[b] = max(self._window.get(b, 0.0), w)
+        if count % RESIZE_STEPS == 0:
+            window, self._window = self._window, {}
+            shrink_binnings(self.grid, list(window), list(window.values()),
+                            'step %d' % count)
+
+    def _binnings(self):
+        """The evaluators' ``Binning``s that keep a width, in order."""
+        return sized_binnings(self.acceleration_evals)
 
     def _save(self):
         """What a redo puts back: copies of the states (a chunk writes
@@ -328,12 +371,12 @@ class Solver(object):
         own = [a.nnps_state() for a in self.acceleration_evals]
         return states, handles, rebuilds, self.grid.overflow, own
 
-    def _redo(self, saved, what, pairs=False, slots=False, hmax=None):
+    def _redo(self, saved, what, pairs=False, slots=False):
         """Put back what ``_save`` kept (a chunk's next run copies the
-        states into its static tensors) and re-size the grid for ``hmax``
-        where given (h outgrew the periodic cells; one read), double the
-        sweep slots with ``slots``, and grow the torch engine's
-        capacities that a list outgrew with ``pairs`` (one read)."""
+        states into its static tensors; a binning re-sized for an h that
+        outgrew its cells bins anew at its new counts), double the sweep
+        slots with ``slots``, and grow the torch engine's capacities that
+        a list outgrew with ``pairs`` (one read)."""
         states, handles, rebuilds, overflow, own = saved
         for a_eval, kept in zip(self.acceleration_evals, own):
             a_eval.restore_nnps(kept)
@@ -352,12 +395,6 @@ class Solver(object):
         if self.grid.nonfinite is not None:
             self.grid.nonfinite.zero_()
         self.redos += 1
-        if hmax is not None:
-            self.grid.grow(self.states.values(), hmax)
-            self.reads += 1
-            logger.info('step %d: h grew past the periodic cells; the grid '
-                        're-sized to %s, the %s run again', self.count,
-                        self.grid.dims, what)
         if slots:
             grown = [[p.grow() for p in a.sweep_plans()]
                      for a in self.acceleration_evals]
@@ -383,14 +420,17 @@ class Solver(object):
         read and the host's part of the steps (grow, dump)."""
         n_real = min(self.chunk_steps, self.pfreq - self.count % self.pfreq,
                      self.max_steps - self.count)
+        if self._watch_width():
+            n_real = min(n_real, RESIZE_STEPS - self.count % RESIZE_STEPS)
         self._bind_static()
         inputs = [0.0] * N_CARRY
         inputs[T], inputs[DT], inputs[DT_UN] = self.t, self.dt, self.dt
         inputs[COUNT], inputs[N_REAL] = self.count, n_real
         inputs[T_OUT] = self._next_output_time()
         graph = self._captured_chunk() if self._graphed() else None
+        wide = self._watch_width()
         saved = self._save() if self.grid.pair_caps or self._swept() or \
-            self._watch_width() else None
+            wide else None
         self._carry.copy_(torch.tensor(inputs, dtype=torch.float64))
         if graph is not None:
             graph.replay()
@@ -399,12 +439,17 @@ class Solver(object):
             self._chunk_body(self.chunk_steps)
         # the chunk's binnings ran inside it (in a graph's memory on CUDA)
         self.grid.overflow = None
-        vals = self._carry.tolist()      # the chunk's one read
+        # the chunk's one read: the carry and the binnings' widths
+        vals = (self._carry if self._wide is None else
+                torch.cat([self._carry, self._wide])).tolist()
         self.reads += 1
-        hmax = self.grid.outgrown(vals[WIDE])
-        if vals[PAIRS] or hmax is not None:
+        # a binning that outgrew its cells is re-sized for a redo; else one
+        # that fits about half of them or less is sized down
+        grown = wide and grow_binnings(self.grid, self._wide_of, vals[WIDE:],
+                                       'step %d' % self.count)
+        if vals[PAIRS] or grown:
             # the loop runs the chunk again, captured at the new sizes
-            self._redo(saved, 'chunk', pairs=bool(vals[PAIRS]), hmax=hmax)
+            self._redo(saved, 'chunk', pairs=bool(vals[PAIRS]))
             return
         # a state that is not finite never converges: raise before more
         # slots are tried (they cannot make it finite)
@@ -419,6 +464,8 @@ class Solver(object):
         # the last step set a dt to land on an output time: resume with
         # the uncapped one after it, as the per-step loop does
         self._prev_dt = vals[DT_UN] if vals[DT] != vals[DT_UN] else None
+        if wide:
+            self._note_widths(self._wide_of, vals[WIDE:], self.count)
         if vals[GROW]:
             self._grow()
         self._dump_output_if_needed()
@@ -481,10 +528,11 @@ class Solver(object):
         the host; writes back t, dt, the uncapped dt, the count, the
         steps done, whether a binning overflowed, the binnings run and
         whether a torch engine pair list overflowed, whether an evaluation
-        ran out of sweep slots, whether a binning met a state that is not
-        finite and the widest binning, where kept (the chunk stops after a
-        step whose list overflowed, whose sweeps ran short or whose h
-        outgrew the periodic cells)."""
+        ran out of sweep slots and whether a binning met a state that is
+        not finite, and (into ``_wide``) each ``Binning``'s widest, where
+        kept (the chunk stops after a step whose list overflowed, whose
+        sweeps ran short or where a binning's h outgrew its periodic
+        cells)."""
         c = self._carry
         t, dt, dt_un, count, n_real, t_out = (c[T], c[DT], c[DT_UN],
                                               c[COUNT], c[N_REAL], c[T_OUT])
@@ -496,27 +544,25 @@ class Solver(object):
         grow = torch.zeros_like(active)
         pairs = torch.zeros_like(active)
         short = torch.zeros_like(active)
-        widest = torch.zeros_like(t)
         watch = bool(self.grid.pair_caps)
         swept = self._swept()
         wide = self._watch_width()
+        # an inactive step bins nothing, so a width only grows where active
+        for b in self._binnings():
+            b.clear()
         for i in range(iters):
             self.grid.overflow_any = torch.zeros_like(active)
             if watch:
                 self.grid.pair_overflow = torch.zeros_like(active)
             if swept:
                 self.grid.sweep_overflow = torch.zeros_like(active)
-            if wide:
-                self.grid.widest = torch.zeros_like(t)
             self.integrator.step(self.states, t, dt, active)
             ovf = self.grid.overflow_any
             self.grid.overflow_any = None
             stop = ovf
             if wide:
-                stop = stop | self.grid.cells_small(self.grid.widest)
-                widest = torch.maximum(
-                    widest, torch.where(active, self.grid.widest, 0.0))
-                self.grid.widest = None
+                for b in self._binnings():
+                    stop = stop | b.cells(self.grid).cells_small(b.widest)
             if watch:
                 stop = stop | self.grid.pair_overflow
                 pairs = pairs | (active & self.grid.pair_overflow)
@@ -561,14 +607,19 @@ class Solver(object):
                              self.integrator.rebuilds,
                              pairs.to(torch.float64),
                              short.to(torch.float64),
-                             bad.to(torch.float64), widest]))
+                             bad.to(torch.float64)]))
+        self._wide_of = self._binnings() if wide else []
+        self._wide = torch.stack([b.widest for b in self._wide_of]) \
+            if self._wide_of else None
 
     def _captured_chunk(self):
         """The CUDA graph of a chunk, captured again where what it bakes
-        in changed (the grid's counts, the torch engine's capacities)."""
+        in changed (the grid's counts and each binning's, the torch
+        engine's capacities)."""
         key = (self.chunk_steps, self.tf, self.cfl, self.adaptive_timestep,
                self.grid.dims, self.grid.pair_key(),
-               tuple(a.sweep_key() for a in self.acceleration_evals))
+               tuple(a.sweep_key() for a in self.acceleration_evals),
+               tuple(b.cells(self.grid).dims for b in self._binnings()))
         if self._graph is not None and self._graph_key == key:
             return self._graph
         self._graph = None
@@ -595,9 +646,10 @@ class Solver(object):
         return graph
 
     def _watch_width(self):
-        """Whether the steps keep the widest binning (``CellGrid.
-        watch_width``): a periodic grid where an equation writes h."""
-        return self.grid.is_periodic and self.grid.h_varies
+        """Whether the binnings keep their widest width and counts of
+        their own (``CellGrid.keeps_width``): a periodic grid where an
+        equation writes h."""
+        return self.grid.keeps_width
 
     def _swept(self):
         """Whether an evaluator sweeps an iterated group in slots."""

@@ -50,13 +50,16 @@ An evaluation does not bin its start: ``compute`` takes a
 ``pysph_tpu``'s; the integrator calls them, once a step per evaluator by
 default).  A group with ``update_nnps`` (the gas-dynamics schemes' h
 updates) bins afresh after it, or at the top of each of its sweeps where
-it iterates, into a handle of the evaluator's own (``_rebin``), which
-every later group of the evaluation reads; the integrator's handle and
-its reuse test are left as they were; nothing is read there (a position
-or h that is not finite is not binned and flags the grid, which the
-solver reads).  ``make_acceleration_evals`` builds
-one evaluator per stage of a ``MultiStageEquations``, all on one
-``CellGrid``.
+it iterates, into a handle of the evaluator's own for that group
+(``_rebin_into``), which every later group of the evaluation reads; the
+integrator's handle and its reuse test are left as they were; nothing is
+read there (a position or h that is not finite is not binned and flags
+the grid, which the solver reads).  Each such binning, and the step's,
+is a ``Binning``: on a periodic grid where an equation writes h
+(``CellGrid.keeps_width``) it has periodic counts of its own, sized for
+the widest binning it met (``base/cell_grid.py``; ``run_sized`` and the
+solver re-size them).  ``make_acceleration_evals`` builds one evaluator
+per stage of a ``MultiStageEquations``, all on one ``CellGrid``.
 """
 
 import logging
@@ -368,32 +371,102 @@ def _writes_h(eq):
                for m in phases if getattr(eq, m, None) is not None)
 
 
-def run_sized(grid, states, run):
+class Binning(object):
+    """One binning that an evaluator keeps across evaluations: the
+    step's (the integrator's handle, or ``update_and_compute``'s), or the
+    re-binning after one ``update_nnps`` group (or at the top of each of
+    its sweeps, or after an ``initialize`` that writes h), whose
+    ``handle`` the evaluator holds.  ``cell``: the periodic cell width it
+    is sized for (a host float; None: the grid's counts), read where the
+    grid keeps widths (``CellGrid.keeps_width``); ``widest``: a 0-d
+    float64 tensor on the device that each binning of it that ran raises
+    to its width, cleared by the caller (None where no width is kept)."""
+
+    def __init__(self, name):
+        self.name = name
+        self.cell = None
+        self.handle = None
+        self.widest = None
+
+    def cells(self, grid):
+        """The geometry it bins on (``CellGrid.cells_for``)."""
+        return grid.cells_for(self.cell)
+
+    def clear(self):
+        if self.widest is not None:
+            self.widest.zero_()
+
+
+def sized_binnings(evals):
+    """The ``Binning``s of the evaluators ``evals`` that keep a width."""
+    return [b for a in evals for b in a.kept_binnings()
+            if b.widest is not None]
+
+
+def grow_binnings(grid, binnings, widths, where):
+    """Size each of ``binnings`` whose widest binning (``widths``, host
+    floats, in order) outgrew its periodic cells for that width; returns
+    whether one did (what it evaluated must run again; ``grid.grows``
+    counts once).  ``where`` names the run for the log."""
+    grown = [(b, w) for b, w in zip(binnings, widths)
+             if b.cells(grid).outgrown(w)]
+    for b, w in grown:
+        b.cell = w
+    if grown:
+        grid.grows += 1
+        logger.info('%s: h grew past the periodic cells of %s; re-sized to '
+                    '%s, run again', where, [b.name for b, _ in grown],
+                    [b.cells(grid).dims for b, _ in grown])
+    return bool(grown)
+
+
+def shrink_binnings(grid, binnings, widths, where):
+    """Size down each of ``binnings`` whose widest binning (``widths``)
+    fits ``SHRINK`` of its periodic cells or less (about half), for that
+    width (``grid.shrinks`` counts each)."""
+    for b, w in zip(binnings, widths):
+        if b.cells(grid).oversized(w):
+            b.cell = w
+            grid.shrinks += 1
+            logger.info('%s: the binning %s fits about half its periodic '
+                        'cells; re-sized to %s', where, b.name,
+                        b.cells(grid).dims)
+
+
+def run_sized(grid, states, run, evals=()):
     """Run ``run()``, an eager evaluation that writes ``states`` (a dict
     of state dicts, whose entries it replaces), again from the states as
     they were, with ``grid``'s pair capacities grown (and its
     ``nonfinite`` flag cleared), until no torch engine pair list
     overflowed: one read a run where a dest is on that engine, none
-    else.  The first capacities are sized so.  On a periodic grid where
-    an equation writes h it also runs again, the grid re-sized for the
-    largest h that a binning of the run met, where that h outgrew the
-    cells (``grid.widest``: one more read a run)."""
+    else.  The first capacities are sized so.  Where the grid keeps
+    widths (``CellGrid.keeps_width``) it also runs again where a binning
+    of the evaluators ``evals`` outgrew its periodic cells, that binning
+    sized for its width, and after the run sizes down a binning whose
+    cells are twice its width or more (``grow_binnings``,
+    ``shrink_binnings``; one read a run, with the pair flag)."""
     saved = {name: dict(st) for name, st in states.items()}
-    dev = next(iter(states.values()))['x'].device
     while True:
         grid.watch_pairs()
-        grid.watch_width(dev)
+        for b in sized_binnings(evals):
+            b.clear()
         run()
-        width, grid.widest = grid.widest, None
-        hmax = None if width is None else grid.outgrown(float(width))
-        if hmax is not None:
-            grid.grow(states.values(), hmax)
-            logger.info('h grew past the periodic cells: the grid re-sized '
-                        'to %s, the evaluation run again', grid.dims)
-            grid.pairs_overflowed()
-        elif not grid.pairs_overflowed():
-            return
+        binnings = sized_binnings(evals)
+        flag = grid.pair_overflow
+        grid.pair_overflow = None
+        if binnings:
+            vals = torch.stack([b.widest for b in binnings] + (
+                [] if flag is None else [flag.to(torch.float64)])).tolist()
+            overflowed = flag is not None and bool(vals.pop())
+            redo = grow_binnings(grid, binnings, vals, 'the evaluation')
         else:
+            overflowed = flag is not None and bool(flag)
+            redo = False
+        if not (redo or overflowed):
+            if binnings:
+                shrink_binnings(grid, binnings, vals, 'the evaluation')
+            return
+        if overflowed:
             grown = grid.grow_pairs()
             logger.info('torch pair engine capacities grown: %s', grown)
         # what the dropped pairs gave is run again: a binning of it that
@@ -445,14 +518,17 @@ class AccelerationEval(object):
             grid.h_varies = True
         # the handle of update_and_compute
         self._handle = None
-        # the handle of the re-binnings of update_nnps groups
-        self._nnps_handle = None
+        #: {None (the step's) or id(group): Binning}, made at first use
+        self._binnings = OrderedDict()
+        #: {id(group): the Binning whose lists the group's pair phases
+        #: read in the last evaluation}
+        self.last_reads = {}
         #: the host loop's reads of ``converged``
         self.converged_reads = 0
-        #: the calls of ``_rebin`` (the re-binnings of ``update_nnps``
+        #: the calls of ``_rebin_into`` (the re-binnings of ``update_nnps``
         #: groups; a captured one counts once)
         self.binnings = 0
-        #: the binnings of ``_rebin`` that ran (a 0-d float64 tensor on
+        #: the binnings of ``_rebin_into`` that ran (a 0-d float64 tensor on
         #: the device, None before the first; nothing read)
         self.rebuilds = None
 
@@ -630,17 +706,45 @@ class AccelerationEval(object):
         a box length."""
         return self._bin(states, handle, force=False, active=active)
 
-    def _bin(self, states, handle, force, active=None):
+    def binning(self, group=None):
+        """The ``Binning`` of ``group``'s re-binning (None: the step's),
+        made where missing."""
+        key = None if group is None else id(group)
+        b = self._binnings.get(key)
+        if b is None:
+            name = 'step' if group is None else 'group %d' % next(
+                k for k, g in enumerate(self._all_groups()) if g is group)
+            b = self._binnings[key] = Binning(name)
+        return b
+
+    def kept_binnings(self):
+        """The ``Binning``s made so far, the step's first."""
+        return list(self._binnings.values())
+
+    def _all_groups(self, groups=None):
+        for g in (self.groups if groups is None else groups):
+            yield g
+            if g.has_subgroups:
+                yield from self._all_groups(g.equations)
+
+    def _bin(self, states, handle, force, active=None, binning=None):
         sub = {n: states[n] for n in self.arrays_used}
-        handle = self.grid.handle_for(handle, sub)
-        flag = bin_cells(self.grid, sub, handle, force, active)
+        b = self.binning() if binning is None else binning
+        grid = b.cells(self.grid)
+        handle = b.handle = grid.handle_for(handle, sub)
+        handle.binning = b
+        flag = bin_cells(grid, sub, handle, force, active)
         # a kept binning reports no overflow
         self.grid.note_overflow(handle.overflow & flag)
-        if self.grid.widest is not None:
-            # h past a periodic grid's cells: the caller grows and redoes
-            self.grid.widest = torch.maximum(
-                self.grid.widest, torch.where(flag, handle.width, 0.0)
-                .to(self.grid.widest.dtype))
+        if self.grid.keeps_width:
+            # h past the binning's periodic cells: the caller re-sizes
+            # and redoes; far inside them: it sizes them down
+            if b.widest is None:
+                b.widest = torch.zeros((), dtype=torch.float64,
+                                       device=flag.device)
+            b.widest.copy_(torch.maximum(
+                b.widest, torch.where(flag, handle.width, 0.0)
+                .to(torch.float64)))
         return handle, flag
 
     # -- execution -----------------------------------------------------
@@ -652,7 +756,7 @@ class AccelerationEval(object):
             self._handle, _ = self.prepare(states, self._handle)
             self.compute(t, dt, states, self._handle)
 
-        run_sized(self.grid, states, run)
+        run_sized(self.grid, states, run, [self])
         return states
 
     def compute(self, t, dt, states, handle, active=None):
@@ -665,44 +769,52 @@ class AccelerationEval(object):
         with ``update_nnps`` bins afresh after it runs (at the top of
         each sweep where it iterates) into the evaluator's own handle,
         whose lists every later group of the evaluation reads
-        (``_rebin``); ``handle`` is left as it was."""
-        cells = handle.lists
+        (``_rebin_into``); ``handle`` is left as it was."""
         for group in self.groups:
-            cells = self._dispatch(group, t, dt, states, cells, active)
+            handle = self._dispatch(group, t, dt, states, handle, active)
         return states
 
-    def _rebin(self, states, active=None, force=True):
-        """Bin into the evaluator's own handle and return its lists: afresh
-        (``prepare``, as ``pysph_tpu``'s re-binning after an
-        ``update_nnps`` group) or, without ``force``, where its reuse test
-        fails; with ``active`` (a 0-d device bool) only where it is set.
-        Nothing is read: a state that is not finite sets the grid's
-        ``nonfinite`` flag (``ops/bin_cells.py``), a torch engine list of
-        the run that dropped pairs its ``pair_overflow``, and the solver
-        reads both.  Counted in ``binnings`` (calls) and ``rebuilds``
-        (binnings that ran, on the device)."""
-        self._nnps_handle, flag = self._bin(states, self._nnps_handle, force,
-                                            active)
+    def _rebin_into(self, states, group, active=None, force=True):
+        """Bin into the evaluator's own handle of ``group`` (its
+        ``Binning``) and return the handle: afresh (``prepare``, as
+        ``pysph_tpu``'s re-binning after an ``update_nnps`` group) or,
+        without ``force``, where its reuse test fails; with ``active`` (a
+        0-d device bool) only where it is set.  Nothing is read: a state
+        that is not finite sets the grid's ``nonfinite`` flag
+        (``ops/bin_cells.py``), a torch engine list of the run that
+        dropped pairs its ``pair_overflow``, and the solver reads both.
+        Counted in ``binnings`` (calls) and ``rebuilds`` (binnings that
+        ran, on the device)."""
+        b = self.binning(group)
+        handle, flag = self._bin(states, b.handle, force, active, b)
         self.binnings += 1
         if self.rebuilds is None:
             self.rebuilds = torch.zeros((), dtype=torch.float64,
                                         device=flag.device)
         self.rebuilds.add_(flag)
-        return self._nnps_handle.lists
+        return handle
+
+    def drop_own_binnings(self):
+        """Forget the evaluator's own handles: the next re-binning of
+        each group bins into a new one."""
+        for b in self._binnings.values():
+            b.handle = None
 
     def nnps_state(self):
-        """A copy of the evaluator's own binning (``_rebin``'s handle) and
-        its count, for ``restore_nnps`` (the solver's redo)."""
-        h = self._nnps_handle
-        return (h, None if h is None else h.save(),
-                None if self.rebuilds is None else self.rebuilds.clone())
+        """A copy of the evaluator's own binnings (``_rebin_into``'s handles)
+        and their count, for ``restore_nnps`` (the solver's redo)."""
+        own = [(b, b.handle, None if b.handle is None else b.handle.save())
+               for key, b in self._binnings.items() if key is not None]
+        return (own, None if self.rebuilds is None
+                else self.rebuilds.clone())
 
     def restore_nnps(self, saved):
         """Put back what ``nnps_state`` copied, in place."""
-        h, kept, rebuilds = saved
-        self._nnps_handle = h
-        if h is not None:
-            h.restore(kept)
+        own, rebuilds = saved
+        for b, h, kept in own:
+            b.handle = h
+            if h is not None:
+                h.restore(kept)
         if rebuilds is not None:
             self.rebuilds.copy_(rebuilds)
 
@@ -715,23 +827,25 @@ class AccelerationEval(object):
         what a captured chunk bakes in."""
         return tuple(p.sized() for p in self.sweep_plans())
 
-    def _dispatch(self, group, t, dt, states, cells, active=None):
-        """Run ``group``; returns the cell lists of the groups after it."""
+    def _dispatch(self, group, t, dt, states, handle, active=None):
+        """Run ``group`` on the binning of ``handle``; returns the handle
+        whose lists the groups after it read."""
         if group.iterate:
-            return self._run_iterated(group, t, dt, states, cells, active)
-        cells = self._sweep(group, t, dt, states, cells, active)
-        return self._rebin(states, active) if group.update_nnps else cells
+            return self._run_iterated(group, t, dt, states, handle, active)
+        handle = self._sweep(group, t, dt, states, handle, active)
+        return self._rebin_into(states, group, active) \
+            if group.update_nnps else handle
 
-    def _sweep(self, group, t, dt, states, cells, active=None):
+    def _sweep(self, group, t, dt, states, handle, active=None):
         """One pass of ``group``'s sub-tree (or its own equations); returns
-        the cell lists after it (a sub-group may re-bin)."""
+        the handle after it (a sub-group may re-bin)."""
         if not group.has_subgroups:
-            return self._run_group(group, t, dt, states, cells, active)
+            return self._run_group(group, t, dt, states, handle, active)
         for sub in group.equations:
-            cells = self._dispatch(sub, t, dt, states, cells, active)
-        return cells
+            handle = self._dispatch(sub, t, dt, states, handle, active)
+        return handle
 
-    def _run_iterated(self, group, t, dt, states, cells, active=None):
+    def _run_iterated(self, group, t, dt, states, handle, active=None):
         """Sweeps of ``group``'s sub-tree (or its own equations) while
         fewer than ``max_iterations`` ran and not (converged and at least
         ``min_iterations`` ran), as ``pysph_tpu``'s ``lax.while_loop``:
@@ -740,22 +854,22 @@ class AccelerationEval(object):
         else on the host, which reads ``converged`` (one ``.item()``) only
         after a sweep that has run ``min_iterations`` and not
         ``max_iterations``.  With ``update_nnps`` each sweep first bins
-        afresh (``_rebin``), and the groups after it read the last sweep's
-        binning.  Returns the cell lists of the groups after it."""
+        afresh (``_rebin_into``), and the groups after it read the last sweep's
+        binning.  Returns the handle of the groups after it."""
         plan = self._solves.get(id(group)) if self.solve_iterated else None
         if isinstance(plan, SweepPlan):
             return self._run_swept(plan, states, active)
         if plan is not None:
-            plan.execute(states, cells, self.grid, dt, active,
+            plan.execute(states, handle.lists, handle.grid, dt, active,
                          self._sweep_log)
-            return cells
+            return handle
         max_it = int(group.max_iterations)
         min_it = int(group.min_iterations)
         it = 0
         while it < max_it:
             if group.update_nnps:
-                cells = self._rebin(states)
-            cells = self._sweep(group, t, dt, states, cells)
+                handle = self._rebin_into(states, group)
+            handle = self._sweep(group, t, dt, states, handle)
             it += 1
             if it < min_it or it >= max_it:
                 continue
@@ -766,7 +880,7 @@ class AccelerationEval(object):
             if conv.item():
                 break
         self.sweeps.append(it)
-        return cells
+        return handle
 
     def _run_swept(self, plan, states, active=None):
         """The sweeps of a ``SweepPlan``'s group (``gasd_sweep``), each
@@ -783,13 +897,13 @@ class AccelerationEval(object):
         chunk again with more slots.  Either way the sweeps are the same,
         bit for bit, and logged on the device; the linked momentum plan
         reads the last sweep's list where it left every particle
-        converged.  Returns the lists of the last sweep's binning."""
+        converged.  Returns the handle of the last sweep's binning."""
         min_it, max_it = plan.min_iterations, plan.max_iterations
         if active is None:
             it, conv = 0, False
             while keep_sweeping(it, conv, min_it, max_it):
-                cells = self._rebin(states, force=False)
-                unconv = plan.sweep(states, cells, self.grid)
+                handle = self._rebin_into(states, plan.group, force=False)
+                unconv = plan.sweep(states, handle.lists, handle.grid)
                 it += 1
                 if min_it <= it < max_it:
                     self.converged_reads += 1
@@ -802,8 +916,9 @@ class AccelerationEval(object):
             converged = torch.zeros_like(active)
             for _ in range(plan.sized()):
                 runs = active & (it < max_it) & ~(converged & (it >= min_it))
-                cells = self._rebin(states, runs, force=False)
-                unconv = plan.sweep(states, cells, self.grid, runs)
+                handle = self._rebin_into(states, plan.group, runs,
+                                          force=False)
+                unconv = plan.sweep(states, handle.lists, handle.grid, runs)
                 converged = torch.where(runs, unconv == 0, converged)
                 it = it + runs
             more = active & (it < max_it) & ~(converged & (it >= min_it))
@@ -811,7 +926,7 @@ class AccelerationEval(object):
                 self.grid.sweep_overflow = self.grid.sweep_overflow | more
         self._sweep_log.add(it, active)
         plan.hand_off(states, converged)
-        return cells
+        return handle
 
     def _converged(self, group, states):
         """The AND of the ``converged`` of every equation of ``group``'s
@@ -830,12 +945,13 @@ class AccelerationEval(object):
             conv = held if conv is True else conv & held
         return conv
 
-    def _run_group(self, group, t, dt, states, cells, active=None):
-        """One pass of ``group``'s own equations; returns the cell lists
-        after it.  Where a dest's ``initialize`` writes h (ADKE's density
-        resets it to h0), the evaluator's own binning runs its reuse test
-        right after it (``_rebin``, rebuilt where h grew past the cells),
-        so that the pair phases see every pair in support of the new h."""
+    def _run_group(self, group, t, dt, states, handle, active=None):
+        """One pass of ``group``'s own equations on the binning of
+        ``handle``; returns the handle after it.  Where a dest's
+        ``initialize`` writes h (ADKE's density resets it to h0), the
+        evaluator's own binning of the group runs its reuse test right
+        after it (``_rebin_into``, rebuilt where h grew past the cells), so
+        that the pair phases see every pair in support of the new h."""
         kernel = self.kernel
         for dest, eqs in self._dest_order(group).items():
             store = states[dest]
@@ -851,18 +967,22 @@ class AccelerationEval(object):
                                          kernel)
             if any('d_h' in _method_args(eq.initialize) for eq in eqs
                    if getattr(eq, 'initialize', None) is not None):
-                cells = self._rebin(states, active, force=False)
+                handle = self._rebin_into(states, group, active,
+                                          force=False)
             sources = self._sources(eqs)
+            if sources:
+                self.last_reads[id(group)] = handle.binning
+            cells, grid = handle.lists, handle.grid
             plan = self._plans.get((id(group), dest))
             if plan is not None:
-                plan.execute(store, states, cells, self.grid, wm, dt, t=t)
+                plan.execute(store, states, cells, grid, wm, dt, t=t)
             else:
                 for src, src_eqs in sources.items():
                     run_pair_phase(
                         [eq for eq in src_eqs
                          if getattr(eq, 'loop', None) is not None],
                         store, states[src], cells[dest], cells[src],
-                        self.grid, kernel, wm, t, dt,
+                        grid, kernel, wm, t, dt,
                         cap=self.grid.pair_caps[dest, src])
             for eq in eqs:
                 fn = getattr(eq, 'post_loop', None)
@@ -872,4 +992,4 @@ class AccelerationEval(object):
                 fn = getattr(eq, 'reduce', None)
                 if fn is not None:
                     fn(dst=ReduceView(store, wm), t=t, dt=dt)
-        return cells
+        return handle

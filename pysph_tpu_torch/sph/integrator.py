@@ -118,7 +118,8 @@ class Integrator(object):
                                                self.handles[0])
             self._states = None
 
-        run_sized(self.acceleration_evals[0].grid, states, run)
+        run_sized(self.acceleration_evals[0].grid, states, run,
+                  self.acceleration_evals)
         return states
 
     def _bin(self, index, force=False):

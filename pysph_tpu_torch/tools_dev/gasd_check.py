@@ -46,6 +46,14 @@ flag set, and cleared).  ``branch_calls(calls_)``: a GSPH run's calls
 with the acceleration call again under each entry of ``BRANCHES`` (every Riemann solver, every
 monotonicity and interpolation, ``interface_zero`` off, the hybrid blend
 at t = 0.3 and the conduction), each with its own ``GSPHAcceleration``.
+``path_calls(run, size, dtype, steps, extra)``: (calls, app): the pair
+calls of one evaluation as the path makes them (each at the h it runs
+at, on the cells of its binning), after ``steps`` steps of the run's
+start.  ``check_gsph_linked(calls_, label, tol, capacity)``: GSPH's linked pair
+on the card: the gradients call emitting bit for bit its walk, its list
+against ``pair_link.neighbours_reference``, and the acceleration call
+on that hand-off bit for bit the walking acceleration call and within
+``tol`` of the plain version.
 ``riemann_check(dtype, n, device)``: each of the eleven device Riemann
 solvers (``gsph_pair.riemann``) against the torch solver on Toro's four
 problems and ``n`` seeded states.  ``chip_smoke.py`` and
@@ -79,6 +87,7 @@ from pysph_tpu_torch.sph.equation import Group
 from pysph_tpu_torch.sph.gas_dynamics.basic import SummationDensity
 from pysph_tpu_torch.sph.gas_dynamics.gsph import GSPHAcceleration
 from pysph_tpu_torch.sph.gas_dynamics.riemann_solver import riemann_solve
+from pysph_tpu_torch.tools_dev.common import linked_calls
 from pysph_tpu_torch.tools_dev.time_walks import plan_calls
 from pysph_tpu_torch.tools_dev.tvf_check import reference
 
@@ -154,6 +163,44 @@ def calls(run, size, dtype, steps=0, jitter_start=True, device='cuda',
     s.integrator.initial_acceleration(s.states, s.t, s.dt)
     n = sum(st['x'].shape[0] for st in s.states.values())
     return plan_calls(s, [0]), n, a
+
+
+def path_calls(run, size, dtype, steps=0, device='cuda', extra=()):
+    """(calls, app): [(0, dest, plan, kernel arguments)] of each pair
+    launch of one evaluation of evaluator 0, recorded as the evaluation
+    makes them (the scaled density at its scaled h, each on its binning's
+    cells), after ``steps`` steps of the run's start; the evaluation is
+    run on the step's binning (its reuse test) with the torch engine's
+    and the linked plans' arguments as they are."""
+    a = app(run, size, dtype, steps=steps, device=device, extra=extra)
+    s = a.solver
+    if steps:
+        a.solve()
+    else:
+        s.integrator.initial_acceleration(s.states, s.t, s.dt)
+    a_eval = s.acceleration_evals[0]
+    calls, kept = [], []
+    for plan in a_eval._plans.values():
+        if plan is None:
+            continue
+
+        def record(*args, plan=plan, op=plan.op, **kw):
+            # the states as the call sees them: later phases replace
+            # their entries (the tensors stay)
+            calls.append((0, plan.dest, plan, (
+                dict(args[0]), args[1], args[2], dict(args[3]),
+                [(dict(st), c, sp) for st, c, sp in args[4]]) + args[5:]))
+            return op(*args, **kw)
+        kept.append((plan, plan.op))
+        plan.op = record
+    try:
+        handle, _ = a_eval.prepare_reuse(s.states, s.integrator.handles[0])
+        a_eval.compute(s.t, s.dt, s.states, handle)
+    finally:
+        for plan, op in kept:
+            plan.op = op
+    # each call's plan as the tools run it (its own op)
+    return calls, a
 
 
 def check(calls_, label, tol):
@@ -523,6 +570,61 @@ def mplan_mask(s, mplan, store):
     group = next(g for g in a_eval.leaf_groups()
                  if a_eval._plans.get((id(g), mplan.dest)) is mplan)
     return group.write_mask(store)
+
+
+def check_gsph_linked(calls_, label, tol, capacity=None):
+    """The linked ``gsph_pair`` pair of a GSPH run's ``calls_`` on the
+    card: the gradients call with ``emit`` (``capacity``: the list's, for
+    tests) must be its walking call bit for bit, its list
+    ``pair_link.neighbours_reference``'s exactly (each dest's cut at the
+    capacity) and its overflow count the dests past it; the acceleration
+    call on that hand-off must be the walking acceleration call bit for
+    bit; both within ``tol`` of max|ref| of the plain version.  Returns
+    {dests, pairs, max_count, capacity, overflowed, max_abs_err}; raises
+    where a bar is missed."""
+    (emitting, consuming), = linked_calls(calls_)
+    gplan, gargs = emitting[2], emitting[3]
+    aplan, aargs = consuming[2], consuming[3]
+    dest = gargs[0]
+    dev = dest['x'].device
+    if dev.type != 'cuda':
+        raise ValueError('check_gsph_linked: %s: calls off the card' % label)
+    failures = []
+    pl.reset_overflow('gsph_pair', dev)
+    grads, handoff = gs.gsph_pair(*gargs, emit=True, capacity=capacity)
+    overflowed = pl.overflowed('gsph_pair', dev)
+    acc = gs.gsph_pair(*aargs, handoff=handoff)
+    for what, got, walked in (('gradients', grads, gs.gsph_pair(*gargs)),
+                              ('acceleration', acc, gs.gsph_pair(*aargs))):
+        differ = [p for p in walked if not torch.equal(got[p], walked[p])]
+        if differ:
+            failures.append('%s: the linked %s call differs from the walk '
+                            'in %s' % (label, what, differ))
+    count, positions = pl.listed(handoff)
+    want, where = pl.neighbours_reference(dest, gargs[1], gargs[4], gargs[5])
+    cap = handoff.nbr.shape[0]
+    if not (torch.equal(count, want) and
+            torch.equal(positions, pl.cut(want, where, cap))):
+        failures.append('%s: the neighbour list differs from '
+                        'neighbours_reference' % label)
+    if overflowed != int((want > cap).sum()):
+        failures.append('%s: %d dests counted past the capacity, %d are'
+                        % (label, overflowed, int((want > cap).sum())))
+    worst = 0.0
+    for plan, args, got in ((gplan, gargs, grads), (aplan, aargs, acc)):
+        ref = reference(plan, args)
+        for p in plan.outputs:
+            scale = max(float(ref[p].abs().max()), 1e-300)
+            err = float((got[p].double() - ref[p].double()).abs().max())
+            worst = max(worst, err)
+            if not err <= tol * scale:
+                failures.append('%s %s: error %.3g > %.0e * %.3g' % (
+                    label, p, err, tol, scale))
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return dict(dests=dest['x'].shape[0], pairs=int(want.sum()),
+                max_count=int(want.max()), capacity=cap,
+                overflowed=overflowed, max_abs_err=worst)
 
 
 #: GSPHAcceleration's variants of ``branch_calls``: every Riemann solver

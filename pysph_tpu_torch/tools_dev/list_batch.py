@@ -2,10 +2,13 @@
 consuming lane has in flight (``-DLIST_BATCH``) and, for ``tvf_pair``,
 the blocks an SM its launches ask for (``-DEMIT_BLOCKS``,
 ``-DCONSUME_BLOCKS``); and of ``iisph_solve``, the float32 blocks an SM
-its launch bounds ask for (``-DIISPH_SOLVE_BLOCKS``).
+its launch bounds ask for (``-DIISPH_SOLVE_BLOCKS``); and of
+``gsph_pair``, the blocks an SM its acceleration kernel's launch bounds
+ask for (``-DGSPH_ACC_BLOCKS_F32``, ``-DGSPH_ACC_BLOCKS_F64``).
 
     python3 -m pysph_tpu_torch.tools_dev.list_batch [delta_pair|tvf_pair]
     python3 -m pysph_tpu_torch.tools_dev.list_batch iisph_solve
+    python3 -m pysph_tpu_torch.tools_dev.list_batch gsph_pair
 
 ``delta_pair`` (the default): dam_break_3d ``--delta-sph`` at dx=0.02 in
 float32 after its 50 damped steps, 1, 2, 4 and 8 entries in flight.
@@ -30,6 +33,12 @@ bit (``tmp_comp`` aside: its sums follow the grid, which the variant
 sizes); the
 solve is replayed from CUDA graphs, alternated as above, with each
 variant's registers and spills (``iisph_check.solve_resources``).
+``gsph_pair``: the accuracy test at 256^2 (``--scheme gsph``,
+``gasd_check.calls``) in float32 and float64; each variant's
+acceleration on the gradients' hand-off must equal the walking launch
+bit for bit; then per dtype the consuming and the walking acceleration,
+the emitting and the walking gradients are replayed, alternated as
+above, with each variant's registers and spills.
 """
 
 import json
@@ -41,9 +50,11 @@ import torch
 
 from pysph_tpu_torch.ops import build
 from pysph_tpu_torch.ops import delta_pair as dl
+from pysph_tpu_torch.ops import gsph_pair as gs
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import iisph_solve as isv
-from pysph_tpu_torch.tools_dev import common, iisph_check, tvf_check
+from pysph_tpu_torch.tools_dev import (
+    common, gasd_check, iisph_check, tvf_check)
 from pysph_tpu_torch.tools_dev.time_walks import delta_calls
 
 
@@ -52,8 +63,13 @@ def _tvf(batch, consume, emit=8, momentum=6):
             '-DEMIT_BLOCKS=%d' % emit, '-DMOMENTUM_BLOCKS=%d' % momentum)
 
 
+def _gsph(f32, f64):
+    return ('-DGSPH_ACC_BLOCKS_F32=%d' % f32,
+            '-DGSPH_ACC_BLOCKS_F64=%d' % f64)
+
+
 #: the variants' flags by kernel (tvf_pair's built with 4, 5, 8, 6 by
-#: default)
+#: default; gsph_pair's with 4, 2)
 VARIANTS = {
     'delta_pair': [('-DLIST_BATCH=%d' % b,) for b in (1, 2, 4, 8)],
     'tvf_pair': [_tvf(b, c) for c in (4, 5, 6) for b in (1, 2, 4)] +
@@ -61,6 +77,8 @@ VARIANTS = {
                 [_tvf(4, 5, emit=e) for e in (4, 6)] +
                 [_tvf(4, 5, momentum=m) for m in (4, 5)],
     'iisph_solve': [('-DIISPH_SOLVE_BLOCKS=%d' % b,) for b in (4, 5, 6, 8)],
+    'gsph_pair': [_gsph(3, 2), _gsph(4, 2), _gsph(5, 2), _gsph(6, 2),
+                  _gsph(4, 1)],
 }
 
 
@@ -119,13 +137,58 @@ def _solve_variants(smi, variants, libs):
     return graphs, held
 
 
+def _gsph_variants(smi, variants, libs, size=256):
+    """The graphs of each ``gsph_pair`` variant's launches (see the
+    module's docstring), and the variants' libraries and hand-offs, which
+    the graphs need kept."""
+    name = 'gsph_pair'
+    for v, lib in zip(variants, libs):
+        print(json.dumps(dict(card=smi, kernel=name, flags=v,
+                              resources=gasd_check.resources(
+                                  lib, kernel=name))), flush=True)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        calls = gasd_check.calls('accuracy_test_2d', size, dtype,
+                                 extra=('--scheme', 'gsph'))[0]
+        (g, a), = common.linked_calls(calls)
+        runs[str(dtype)[6:]] = (g[3], a[3])
+    own = build.EXTRA_FLAGS.get(name, ())
+    graphs, held = {}, []
+    try:
+        for v in variants:
+            _use(name, own, v)
+            for tag, (first, second) in runs.items():
+                _, handoff = gs.gsph_pair(*first, emit=True)
+                walked = gs.gsph_pair(*second)
+                got = gs.gsph_pair(*second, handoff=handoff)
+                if any(not torch.equal(got[p], walked[p]) for p in walked):
+                    raise AssertionError('%s %s %s: the consuming call '
+                                         'differs from the walk'
+                                         % (name, v, tag))
+                held.append((build._loaded[(name,)], handoff))
+                graphs[v, tag + ' consume'] = common.capture(
+                    lambda h=handoff, a=second: gs.gsph_pair(*a, handoff=h))
+                graphs[v, tag + ' walking acceleration'] = common.capture(
+                    lambda a=second: gs.gsph_pair(*a))
+                graphs[v, tag + ' emit'] = common.capture(
+                    lambda a=first: gs.gsph_pair(*a, emit=True))
+                graphs[v, tag + ' walking gradients'] = common.capture(
+                    lambda a=first: gs.gsph_pair(*a))
+    finally:
+        build.EXTRA_FLAGS[name] = own
+        build._loaded.pop((name,), None)
+    return graphs, held
+
+
 def main(name='delta_pair', rounds=7, reps=20):
     smi = common.require_cuda()
     variants = VARIANTS[name]
     with ThreadPoolExecutor(len(variants)) as pool:
         libs = list(pool.map(lambda v: build.build(name, v), variants))
-    if name == 'iisph_solve':
-        graphs, _held = _solve_variants(smi, variants, libs)
+    if name in ('iisph_solve', 'gsph_pair'):
+        variants_of = _solve_variants if name == 'iisph_solve' else \
+            _gsph_variants
+        graphs, _held = variants_of(smi, variants, libs)
         _report(smi, name, graphs, rounds, reps)
         return
     if name == 'tvf_pair':

@@ -451,9 +451,16 @@ def _gas_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     ``fitted_cells`` (``candidates``, ``flops``, ``bytes``), and the
     candidates of the call's own cells beside them (``walk_candidates``:
     the tests more than those that a periodic grid sized for a larger h
-    makes the walk take, time lost, not work the call needs);
-    ``pair_flops`` leaves out the support tests: the work of the pairs
-    alone."""
+    makes the walk take, time lost, not work the call needs).  Where each
+    binning has periodic counts fitted to its own h (the binnings of a
+    run whose equations write h: ``base/cell_grid.py``; GSPH's path), a
+    call on its binning's cells (``time_walks.plan_calls``) has
+    ``walk_candidates`` equal to ``candidates`` where the binning was
+    sized for the call's own h (as after an initial evaluation), and a
+    few percent more where it was sized for the widest h of the steps
+    before (the accuracy test at 256^2 after its first chunk: 4.26 and
+    4.03 a pair against 4.03 and 3.90); ``pair_flops`` leaves out the
+    support tests: the work of the pairs alone."""
     terms = 0
     work = dict(candidates=0, walk_candidates=0, visited=0, pairs=0,
                 flops=0, pair_flops=0, bytes=0)
@@ -562,6 +569,19 @@ def gasd_linked_work(dest, dest_cells, write_mask, pre, sources, grid,
     its pairs alone (no candidate's support test) and their list entries
     read beside its walk's bytes."""
     work = gasd_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel)
+    work['flops'] = work['pair_flops']
+    work['visited'] = 0
+    work['bytes'] += 4 * (work['pairs'] + dest['x'].shape[0])
+    return work
+
+
+def gsph_linked_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel, t=0.0, dt=0.0):
+    """Work of the acceleration ``gsph_pair`` call on its gradients
+    call's list: its pairs alone (no candidate's support test) and their
+    list entries read beside its walk's bytes."""
+    work = gsph_work(dest, dest_cells, write_mask, pre, sources, grid,
                      kernel)
     work['flops'] = work['pair_flops']
     work['visited'] = 0

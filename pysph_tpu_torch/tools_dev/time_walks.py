@@ -82,12 +82,20 @@ def perturb(states, dtype, props, seed=12345):
 
 def plan_calls(s, evals):
     """[(eval index, dest, plan, kernel arguments)] for every planned
-    pair phase of the solver's evaluators ``evals``, on its states."""
+    pair phase of the solver's evaluators ``evals``, on its states binned
+    afresh on the cells that the group's binning has now (the grid's;
+    where binnings keep periodic counts of their own, those of the
+    binning whose lists the group read in the last evaluation:
+    ``AccelerationEval.last_reads``)."""
     calls = []
     for k in evals:
         a_eval = s.acceleration_evals[k]
-        cells = a_eval.grid.bin_all(s.states)
+        binned = {}
         for group in a_eval.leaf_groups():
+            b = a_eval.last_reads.get(id(group))
+            grid = a_eval.grid if b is None else b.cells(a_eval.grid)
+            if grid not in binned:
+                binned[grid] = grid.bin_all(s.states)
             for dest in a_eval._dest_order(group):
                 plan = a_eval._plans.get((id(group), dest))
                 if plan is None:
@@ -95,7 +103,7 @@ def plan_calls(s, evals):
                 store = s.states[dest]
                 pre = {p: torch.zeros_like(store[p]) for p in plan.outputs}
                 calls.append((k, dest, plan, plan.args(
-                    store, s.states, cells, a_eval.grid,
+                    store, s.states, binned[grid], grid,
                     group.write_mask(store), pre, s.dt, s.t)))
     return calls
 

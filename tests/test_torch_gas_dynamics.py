@@ -680,7 +680,7 @@ def test_plain_binning_takes_nan():
                               .get_equations(), Gaussian(dim=2),
                               Config(engine='kernel', **CPU), grid)
     states = {'fluid': arr.to_device(Config(**CPU))}
-    cells = a_eval._rebin(states)
+    cells = a_eval._rebin_into(states, a_eval.groups[0]).lists
     assert a_eval.binnings == 1 and int(cells['fluid'].end.max()) > 0
     assert int(a_eval.rebuilds) == 1
     kept = [t.clone() for t in cells['fluid']]
@@ -688,7 +688,7 @@ def test_plain_binning_takes_nan():
     st = states['fluid']
     st['h'] = st['h'].clone()
     st['h'][3] = float('nan')
-    cells = a_eval._rebin(states)
+    cells = a_eval._rebin_into(states, a_eval.groups[0]).lists
     assert all(torch.equal(a, b) for a, b in zip(cells['fluid'], kept))
     assert bool(grid.nonfinite) and int(a_eval.rebuilds) == 1
     with pytest.raises(FloatingPointError, match='not finite'):
@@ -696,7 +696,7 @@ def test_plain_binning_takes_nan():
     assert not bool(grid.nonfinite)
     st['h'][3] = st['h'][2]
     grid.pair_overflow = torch.ones((), dtype=torch.bool)
-    a_eval._rebin(states)
+    a_eval._rebin_into(states, a_eval.groups[0])
     grid.pair_overflow = None
     grid.check_finite()
     assert a_eval.binnings == 3 and int(a_eval.rebuilds) == 2

@@ -218,7 +218,11 @@ def test_gsph_first_evaluation_sees_every_pair():
            if v.is_floating_point()}
     dims0 = s.grid.dims
     s.integrator.initial_acceleration(s.states, 0.0, s.dt)
-    assert s.grid.dims[0] < dims0[0] and s.grid.grows == 1
+    # the binning of the scaled h (after ScaleSmoothingLength's group) was
+    # re-sized to fewer, wider cells, once
+    a_eval = s.acceleration_evals[0]
+    scaled = a_eval.binning(a_eval.groups[0]).handle
+    assert scaled.dims[0] < dims0[0] and s.grid.grows == 1
     # the all-pairs sums of the scheme's two densities
     x, y, m = st0['x'], st0['y'], st0['m']
     d = np.stack([x[:, None] - x[None], y[:, None] - y[None]])
@@ -278,7 +282,10 @@ def _scaled_later(chunk_steps, all_pairs):
         fluid[c] = fluid[c] + 0.1 / 32 * torch.as_tensor(
             rng.uniform(-1, 1, fluid[c].shape[0]))
     if all_pairs:
+        # every binning keeps the grid's one cell a side: none is sized
+        # down for its h
         s.grid._set_dims((1, 1, 1))
+        s.grid.oversized = lambda width: False
     app.solve()
     assert s.count == 4
     return s
@@ -301,7 +308,7 @@ def test_h_outgrowing_the_cells_mid_run_is_redone(chunk_steps):
 
 
 def test_the_width_is_watched_only_where_an_equation_writes_h():
-    """The grid keeps its widest binning (``h_varies``) under the gas
+    """The binnings keep their widest binning (``h_varies``) under the gas
     schemes, whose equations write h, and not under the Taylor-Green
     vortex's, whose h stays as it was."""
     from pysph_tpu_torch.examples.gas_dynamics.accuracy_test_2d import (
@@ -317,4 +324,6 @@ def test_the_width_is_watched_only_where_an_equation_writes_h():
         assert grid.is_periodic
         assert grid.h_varies == (cls is AccuracyTest2D)
         app.solve()
-        assert grid.widest is None
+        widths = [b.widest for a in app.solver.acceleration_evals
+                  for b in a.kept_binnings()]
+        assert all((w is None) != (cls is AccuracyTest2D) for w in widths)

@@ -182,7 +182,7 @@ def test_slots_give_the_host_loops_bits(case):
                          (sweeps - 1, True)):
         if slots < 1:
             continue
-        a_eval._nnps_handle = None
+        a_eval.drop_own_binnings()
         plan.slots = slots
         grid.sweep_overflow = torch.zeros((), dtype=torch.bool)
         run = {'fluid': dict(start)}

@@ -6,8 +6,11 @@ the diaphragm) from a jittered start, in float64 and float32, each
 dest's pairs in support equal to the plain version's; the acceleration
 under every Riemann solver and every branch (``gasd_check.BRANCHES``);
 the eleven device Riemann solvers against the torch ones; a CUDA tensor
-with an unknown solver refused, not run on the plain version; and the
-runs in chunks against the per-step loop bit for bit.
+with an unknown solver refused, not run on the plain version; the runs
+in chunks against the per-step loop bit for bit; and the linked pair:
+the acceleration on the gradients launch's list bit for bit the walking
+launch, on the accuracy test (periodic) and the shock tube (open), with
+the list's capacity cut so that some warps walk.
 
 Skips without an NVIDIA card (a CUDA kernel has no CPU mode).  This file
 imports no JAX, so it also runs where only the port is installed:
@@ -121,3 +124,41 @@ def test_runs_in_chunks_equal_the_per_step_loop(run, size, scheme):
               if not torch.equal(v, a.states['fluid'][p])]
     assert not differ
     assert cell_pack.pack.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('capacity', [None, 8])
+@pytest.mark.parametrize('run,size', [('accuracy_test_2d', 24),
+                                      ('shocktube', 80)])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_linked_acceleration_is_the_walk(dtype, run, size, capacity):
+    """The gradients launch's list is ``neighbours_reference``'s and the
+    acceleration launch on it is the walking launch bit for bit."""
+    _need_card()
+    calls, _, _ = gasd_check.calls(run, size, dtype,
+                                   extra=('--scheme', 'gsph'))
+    found = gasd_check.check_gsph_linked(
+        calls, '%s %s' % (run, dtype), TOL[dtype], capacity)
+    assert found['pairs'] > 0
+    assert (found['overflowed'] > 0) == (capacity is not None)
+
+
+@pytest.mark.cuda
+def test_the_path_runs_the_linked_acceleration_on_fitted_cells():
+    """The accuracy test's evaluation links its gradients launch to its
+    acceleration launch; its binnings' periodic counts fit their own
+    h."""
+    _need_card()
+    app = gasd_check.app('accuracy_test_2d', 32, torch.float32, steps=12,
+                         extra=('--scheme', 'gsph'))
+    s = app.solver
+    app.solve()
+    assert s.count == 12
+    a_eval = s.acceleration_evals[0]
+    grads, acc = [p for p in a_eval._plans.values()
+                  if p is not None and p.op is gs.gsph_pair]
+    assert grads.link is acc.link is not None
+    for b in a_eval.kept_binnings():
+        w = float(b.handle.width)
+        cell = b.handle.grid.box_host(torch.float64)['stale']
+        assert w <= cell < 2 * w, (b.name, w, cell)
