@@ -286,7 +286,16 @@ Phases (any failure propagates; the exit code is then not 0):
    (``gasd_check.path_calls``) with their candidates a pair on their
    binnings' cells (at most ``MAX_CANDIDATES_A_PAIR``, within
    ``FITTED_SLACK`` of the count on cells fitted to the launch's own h),
-   and the linked pair timed beside the walking launches;
+   and the linked pair timed beside the walking launches, GSPH's two
+   density launches there timed beside their bound; ``ADKEScheme``'s
+   sets on ``csrc/adke_pair.cu`` (a group of lanes a dest: its lanes,
+   registers and spills printed): in float64 on the shock tube at
+   nl=320, the accuracy test at 64^2 and the hydrostatic box at nx=50
+   too, on periodic grids of 1, 2, 3, 5 and 8 cells an axis and on probe
+   dests of an open grid (``gasd_check.adke_calls``) in both dtypes, the
+   pairs and counts equal; each launch at full width repeated bit for
+   bit; 20 steps of the accuracy test under adke at 256^2 in chunks bit
+   for bit the per-step loop, and 200 steps timed in chunks;
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -3033,7 +3042,7 @@ def _scheme_gate(run, size, scheme, steps=0):
                          extra=('--scheme', scheme))
     s = app.solver
     gs.gsph_pair.launches = gd.gasd_pair.launches = 0
-    gd.gasd_sweep.launches = 0
+    gd.gasd_sweep.launches = gd.gasd_pair.adke_launches = 0
     start = time.perf_counter()
     app.solve()
     torch.cuda.synchronize()
@@ -3042,9 +3051,10 @@ def _scheme_gate(run, size, scheme, steps=0):
           if v.is_floating_point()}
     launches = dict(gsph_pair=gs.gsph_pair.launches,
                     gasd_pair=gd.gasd_pair.launches,
-                    gasd_sweep=gd.gasd_sweep.launches)
+                    gasd_sweep=gd.gasd_sweep.launches,
+                    adke_pair=gd.gasd_pair.adke_launches)
     ours = launches['gsph_pair'] if scheme == 'gsph' else \
-        launches['gasd_pair']
+        launches['adke_pair'] if scheme == 'adke' else launches['gasd_pair']
     if not ours or set(s.acceleration_evals[0].engine_choices.values()) \
             != {'kernel'}:
         raise AssertionError('%s %s %d: not every pair phase on a kernel '
@@ -3183,35 +3193,13 @@ def _print_linked(found, label):
           flush=True)
 
 
-def _double(obj):
-    """``obj`` (a call's arguments) with every floating tensor in it,
-    in dicts, lists and tuples, as float64."""
-    if torch.is_tensor(obj):
-        return obj.double() if obj.is_floating_point() else obj
-    if isinstance(obj, dict):
-        return {k: _double(v) for k, v in obj.items()}
-    if isinstance(obj, tuple) and hasattr(obj, '_fields'):
-        return type(obj)(*[_double(v) for v in obj])
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(_double(v) for v in obj)
-    return obj
-
-
-#: the float32 kernel's error against the plain float64 version may be up
-#: to this many times the plain float32 version's own (``_adke_full_check``)
-F32_ROUNDING_FACTOR = 4.0
-
-
 def _adke_full_check():
     """ADKE's calls at the accuracy test's full width in float32, each
-    output held to the plain version in float64 on the same inputs: the
-    kernel's error within 1e-4 of max|ref| or within
-    ``F32_ROUNDING_FACTOR`` times the plain float32 version's own error
-    against it.  Its accelerations in a uniform pressure cancel to ~1/60
-    of their terms' sum, so float32 rounds both versions by more than
-    1e-4 of the sum; a wrong kernel errs by far more than the plain
-    float32 version does.  Returns (the kernel's max abs err against its
-    float32 plain version, the calls)."""
+    output held to the plain version in float64 on the same inputs
+    (``gasd_check.against_float64``: the kernel's error within 1e-4 of
+    max|ref| or within ``gasd_check.F32_ROUNDING_FACTOR`` times the plain
+    float32 version's own error against it).  Returns (the kernel's max
+    abs err against its float32 plain version, the calls)."""
     calls, n, _ = gasd_check.calls('accuracy_test_2d', ACCURACY_FULL,
                                    torch.float32,
                                    extra=('--scheme', 'adke'))
@@ -3220,29 +3208,20 @@ def _adke_full_check():
     for _, dest, plan, args in calls:
         got = plan.op(*args)
         ref32 = tvf_check.reference(plan, args)
-        ref64 = tvf_check.reference(plan, _double(args))
+        ref64 = tvf_check.reference(plan, gasd_check.double(args))
         torch.cuda.synchronize()
-        for p in plan.outputs:
-            scale = max(float(ref64[p].abs().max()), 1e-300)
-            kernel = float((got[p].double() - ref64[p]).abs().max())
-            plain = float((ref32[p].double() - ref64[p]).abs().max())
+        for p, r in gasd_check.against_float64(
+                got, ref32, ref64, plan.outputs, label,
+                TOL[torch.float32]).items():
+            readings['%s %s' % (plan.op.__name__, p)] = r
             err32 = max(err32, float(
                 (got[p].double() - ref32[p].double()).abs().max()))
-            key = '%s %s' % (plan.op.__name__, p)
-            readings[key] = (float('%.3g' % (kernel / scale)),
-                             float('%.3g' % (plain / scale)))
-            if not kernel <= max(F32_ROUNDING_FACTOR * plain,
-                                 TOL[torch.float32] * scale):
-                raise AssertionError(
-                    '%s %s: the kernel is %.3g from the float64 plain '
-                    'version, the float32 plain version %.3g (max|ref| '
-                    '%.3g)' % (label, key, kernel, plain, scale))
     print('compare %s (%d particles) against the plain version in float64 '
           '(scaled errors of the kernel and of the plain float32 version, '
           'by output; held within %.0e or %g times the plain one\'s): %s; '
           'the kernel against the plain float32 version: max abs err %.3g'
-          % (label, n, TOL[torch.float32], F32_ROUNDING_FACTOR, readings,
-             err32), flush=True)
+          % (label, n, TOL[torch.float32], gasd_check.F32_ROUNDING_FACTOR,
+             readings, err32), flush=True)
     return err32, calls
 
 
@@ -3311,7 +3290,21 @@ def _gsph_path_candidates():
                           hmax=float(args[0]['h'].max()),
                           candidates=w['candidates'],
                           walk_candidates=w['walk_candidates'],
-                          pairs=w['pairs'])
+                          pairs=w['pairs'], work=w)
+    # the two density launches (gasd_pair) as the path makes them
+    dens = [c for c in calls if c[2].op is gd.gasd_pair]
+    dwork = roofline.add(*[rows[n]['work'] for n in GSPH_LAUNCHES[:2]])
+    dbound = roofline.bound(dwork)
+    dms = graph_ms(lambda: [c[2].op(*c[3]) for c in dens], 20)
+    rows['density launches'] = dict(ms=dms, bound_ms=dbound[0],
+                                    bound_by=dbound[1], work=dwork)
+    print('accuracy_test_2d gsph %d float32, the two density launches '
+          '(gasd_pair) of an evaluation after the first chunk: %.4f ms in a '
+          'graph; bound %.4f ms (%s: %.4g flops, %d candidates, %d pairs, '
+          '%d B), share %.1f%%' % (
+              ACCURACY_FULL, dms, dbound[0], dbound[1], dwork['flops'],
+              dwork['candidates'], dwork['pairs'], dwork['bytes'],
+              100 * dbound[0] / dms), flush=True)
     print('accuracy_test_2d gsph %d float32, an evaluation after the first '
           'chunk, each launch on its binning\'s cells: %s' % (
               ACCURACY_FULL, {k: '%s %s hmax %.4g: %.2f candidates a pair '
@@ -3319,8 +3312,10 @@ def _gsph_path_candidates():
                                   r['kernel'], r['dims'][:2], r['hmax'],
                                   r['walk_candidates'] / r['pairs'],
                                   r['candidates'] / r['pairs'])
-                              for k, r in rows.items()}), flush=True)
-    for name, r in rows.items():
+                              for k, r in rows.items() if k in GSPH_LAUNCHES
+                              }), flush=True)
+    for name in GSPH_LAUNCHES:
+        r = rows[name]
         if not (r['walk_candidates'] <= FITTED_SLACK * r['candidates'] and
                 r['walk_candidates'] <= MAX_CANDIDATES_A_PAIR * r['pairs']):
             raise AssertionError('accuracy gsph %s: %d candidates for %d '
@@ -3352,8 +3347,12 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
     ops = ACCURACY_KERNELS[scheme] + (cell_pack.pack, bc.bin_cells)
     for op in ops:
         op.launches = 0
+    gd.gasd_pair.adke_launches = 0
     ms, samples = time_chunks.timed_solve(app, chunk_steps)
     launches = {op.__name__: op.launches for op in ops}
+    if scheme == 'adke':
+        # csrc/adke_pair.cu's, counted apart by the gasd_pair wrapper
+        launches['adke_pair'] = gd.gasd_pair.adke_launches
     if not all(launches.values()):
         raise AssertionError('accuracy %s did not run through every kernel '
                              'of its path: %s' % (scheme, launches))
@@ -3373,7 +3372,8 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
         key = ('gsph_pair acceleration' if 'gsph_pair' in name and
                'Acceleration' in name else 'gsph_pair gradients'
                if 'gsph_pair' in name else 'gasd_pair'
-               if 'gasd_pair' in name else 'wcsph_pair'
+               if 'gasd_pair' in name else 'adke_pair'
+               if 'adke_' in name else 'wcsph_pair'
                if 'wcsph_pair' in name else 'pack' if 'pack' in name
                else 'binning' if 'bin::' in name
                else 'elementwise and copies')
@@ -3416,6 +3416,79 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
     return row, final
 
 
+def _chunks_match(scheme, steps=20):
+    """accuracy_test_2d --scheme ``scheme`` at full width in float32,
+    ``steps`` steps in chunks of 10 against the per-step loop: every prop,
+    t, dt and the count bit for bit."""
+    got = {}
+    for k in (10, 1):
+        app = gasd_check.app('accuracy_test_2d', ACCURACY_FULL,
+                             torch.float32, steps=steps,
+                             extra=('--scheme', scheme))
+        app.solver.chunk_steps = k
+        app.solve()
+        got[k] = app.solver
+    a, b = got[10], got[1]
+    differ = [p for p, v in b.states['fluid'].items()
+              if not torch.equal(v, a.states['fluid'][p])]
+    print('accuracy_test_2d %s %d float32, %d steps in chunks of 10 (%d '
+          'captures, %d replays) against per step: props that differ %s; t '
+          '%s, dt %s, count %s equal' % (
+              scheme, ACCURACY_FULL, steps, a.captures, a.replays, differ,
+              a.t == b.t, a.dt == b.dt, a.count == b.count), flush=True)
+    if differ or not (a.t == b.t and a.count == b.count == steps and
+                      a.replays):
+        raise AssertionError('accuracy %s: the chunks differ from the '
+                             'per-step loop' % scheme)
+
+
+#: ``_adke_checks``' float64 runs beyond ``_scheme_checks``': (run, size)
+ADKE_F64_RUNS = (('shocktube', 320), ('accuracy_test_2d', 64),
+                 ('hydrostatic_box', 50))
+
+
+def _adke_checks(full):
+    """ADKE's sets on ``csrc/adke_pair.cu`` beyond ``_scheme_checks``, in
+    float64: on ``ADKE_F64_RUNS``, on periodic grids of 1, 2, 3, 5 and 8
+    cells an axis and on an open grid's probe dests
+    (``gasd_check.adke_calls``; float32 too in
+    ``tests/test_torch_gsph_cuda.py``) (``gasd_check.check``: within TOL
+    of max|ref|, the pairs and each dest's count equal); and each launch
+    of ``full`` (the accuracy test's at full width in float32) repeated
+    bit for bit.  Returns {label: largest scaled error}."""
+    found = {}
+    for run, size in ADKE_F64_RUNS:
+        calls, n, _ = gasd_check.calls(run, size, torch.float64,
+                                       extra=('--scheme', 'adke'))
+        label = '%s adke %d float64' % (run, size)
+        f = gasd_check.check(calls, label, TOL[torch.float64])
+        found[label] = f['max_scaled_err']
+        print('compare %s (%d particles): max scaled err %.3g (tol %.0e); '
+              '%d pairs, 0 dests whose count differs' % (
+                  label, n, f['max_scaled_err'], TOL[torch.float64],
+                  f['pairs']), flush=True)
+    for cells in (1, 2, 3, 5, 8, None):
+        calls = gasd_check.adke_calls(cells, torch.float64)
+        label = 'adke_pair %s float64' % (
+            'periodic %d^2 cells' % cells if cells else
+            'open grid, %d probe dests' % gasd_check.ADKE_PROBES)
+        gd.gasd_pair.adke_launches = 0
+        f = gasd_check.check(calls, label, TOL[torch.float64])
+        if gd.gasd_pair.adke_launches != len(calls):
+            raise AssertionError('%s: %d ADKE launches for %d calls' % (
+                label, gd.gasd_pair.adke_launches, len(calls)))
+        found[label] = f['max_scaled_err']
+        print('compare %s: max scaled err %.3g (tol %.0e); %d pairs, 0 '
+              'dests whose count differs' % (
+                  label, f['max_scaled_err'], TOL[torch.float64],
+                  f['pairs']), flush=True)
+    dests = gasd_check.repeats(full)
+    print('adke_pair accuracy_test_2d %d float32: each launch twice, %d '
+          'dests\' outputs and counts bit for bit' % (ACCURACY_FULL, dests),
+          flush=True)
+    return found
+
+
 def _gas_schemes_phase(kernels):
     """``GSPHScheme`` on ``gsph_pair`` and ``ADKEScheme`` on ``gasd_pair``'s
     ADKE sets: the kernels against their plain versions
@@ -3424,41 +3497,32 @@ def _gas_schemes_phase(kernels):
     20 steps in chunks bit for bit the per-step loop, 200 steps timed in
     chunks of 10 and per step (``_accuracy_drive``), the run to tf = 1.0
     with its L1 under ``ACCURACY_L1_BAR``; ``--scheme adke`` at full width
-    in float32 for ``ADKE_STEPS`` steps per step, whose launches the
-    ``gasd_pair adke`` entry reports; each set timed at full width, its
+    in float32 for ``ADKE_STEPS`` steps per step, whose launches of
+    ``csrc/adke_pair.cu`` the ``gasd_pair adke`` entry reports, 20 steps
+    in chunks bit for bit the per-step loop and 200 steps timed in chunks
+    of 10, its sets' further checks (``_adke_checks``), its lanes,
+    registers and spills; each set timed at full width, its
     bound from ``roofline.py`` (the support tests counted on cells that
     fit the call's h, ``fitted_cells``; the walk's extra candidates on the
     grid's cells printed beside it).  Adds the entries ``gsph_pair`` and
     ``gasd_pair adke``."""
     resources = gasd_check.resources(build.build('gsph_pair'),
                                      kernel='gsph_pair')
+    adke_res = gasd_check.resources(build.build('adke_pair'),
+                                    kernel='adke_pair')
+    lanes = build.load_library('adke_pair', gd._Args).adke_pair_lanes()
+    print('adke_pair: %d lanes a dest; registers and spill bytes (stores, '
+          'loads) at kind 2: %s' % (lanes, adke_res), flush=True)
     errs, full = _scheme_checks()
+    adke_checks = _adke_checks(full['adke'])
     gates = _scheme_gates()
     # full width: chunks against per step, bit for bit
-    got = {}
-    for k in (10, 1):
-        app = gasd_check.app('accuracy_test_2d', ACCURACY_FULL,
-                             torch.float32, steps=20,
-                             extra=('--scheme', 'gsph'))
-        app.solver.chunk_steps = k
-        app.solve()
-        got[k] = app.solver
-    a, b = got[10], got[1]
-    differ = [p for p, v in b.states['fluid'].items()
-              if not torch.equal(v, a.states['fluid'][p])]
-    print('accuracy_test_2d gsph %d float32, 20 steps in chunks of 10 (%d '
-          'captures, %d replays) against per step: props that differ %s; t '
-          '%s, dt %s, count %s equal' % (
-              ACCURACY_FULL, a.captures, a.replays, differ, a.t == b.t,
-              a.dt == b.dt, a.count == b.count), flush=True)
-    if differ or not (a.t == b.t and a.count == b.count == 20 and
-                      a.replays):
-        raise AssertionError('accuracy gsph: the chunks differ from the '
-                             'per-step loop')
-    del got, a, b
+    for scheme in ('gsph', 'adke'):
+        _chunks_match(scheme)
     drive, _ = _accuracy_drive(STEPS, 10)
     per_step, _ = _accuracy_drive(STEPS, 1)
     adke_run, _ = _accuracy_drive(ADKE_STEPS, 1, 'adke')
+    adke_chunks, _ = _accuracy_drive(STEPS, 10, 'adke')
     # the whole run to tf = 1.0 in chunks
     app = gasd_check.app('accuracy_test_2d', ACCURACY_FULL, torch.float32,
                          extra=('--scheme', 'gsph'))
@@ -3533,18 +3597,19 @@ def _gas_schemes_phase(kernels):
         'them' % ACCURACY_FULL)
     kernels['gasd_pair adke'] = dict(_entry(
         'gasd_pair adke', 'pysph_tpu/ops/pallas_engine.py:1160',
-        adke_run['launches']['gasd_pair'], errs['adke full'],
+        adke_run['launches']['adke_pair'], errs['adke full'],
         sum(t['ms'] for t in asets.values()),
         sum(t['plain_ms'] for t in asets.values()), awork, None,
         eager_ms=sum(t['eager_ms'] for t in asets.values()), sets={
             k: {n: v for n, v in t.items() if n != 'work'}
             for k, t in asets.items()},
-        run=adke_run,
+        run=adke_run, chunked_run=adke_chunks, lanes=lanes,
+        resources=adke_res, checks=adke_checks,
         path='accuracy_test_2d --scheme adke %d^2 float32, the ADKE density '
         'and accelerations of one evaluation; launches: %d steps of that run '
         'per step' % (ACCURACY_FULL, ADKE_STEPS)),
-        source='pysph_tpu_torch/csrc/gasd_pair.cu')
-    return drive, per_step
+        source='pysph_tpu_torch/csrc/adke_pair.cu')
+    return drive, per_step, adke_chunks, adke_run
 
 
 def _kinds_row():
@@ -4072,8 +4137,17 @@ def main():
                                             torch.version.cuda, kind))
 
     t0 = time.perf_counter()
+    laps = [t0]
+
+    def lap(label):
+        """Print the seconds since the last lap: the time each phase
+        takes of the script's limit."""
+        laps.append(time.perf_counter())
+        print('phase %s: %.1f s (%.1f s since the builds began)' % (
+            label, laps[-1] - laps[-2], laps[-1] - t0), flush=True)
+
     names = ('gsph_pair', 'iisph_pair', 'iisph_solve', 'gasd_pair',
-             'tvf_pair',
+             'adke_pair', 'tvf_pair',
              'wcsph_pair',
              'gtvf_pair', 'dense_pair', 'fused_pair', 'micro_launch',
              'micro_engine', 'pair_stub', 'cell_pack', 'bin_cells',
@@ -4097,6 +4171,7 @@ def main():
                   for (n, extra), (_, sec) in built.items())), flush=True)
     for lib, _ in built.values():
         print(lib.with_suffix('.log').read_text().strip(), flush=True)
+    lap('build')
     kernels = {}
 
     # wcsph_pair against its plain version
@@ -4140,8 +4215,10 @@ def main():
         print('chunk gate: %s' % json.dumps(time_chunks.gate(case)),
               flush=True)
 
+    lap('wcsph_pair checks and chunk gates')
     # the later kinds in every pair kernel that takes kinds
     _kinds_phase()
+    lap('kinds')
 
     # the main path, under both binning configurations: 3 launches in the
     # initial eval, 6 a step; the reuse test once a step (reuse) or at
@@ -4185,9 +4262,11 @@ def main():
         note='the binning and its reuse test, one call of six gated '
         'kernels; its JAX counterpart, prepare_reuse and prepare, is XLA '
         'ops under a lax.cond, not a pallas_call')
+    lap('dam_break_3d')
     _c4_phase(runs, kernels)
     _delta_phase(runs, kernels)
     dense_delta = _dense_delta_phase()
+    lap('C4 and delta-SPH')
 
     # gtvf_pair against its plain version
     for dx, dtype in ((0.02, torch.float64), (0.02, torch.float32)):
@@ -4239,8 +4318,10 @@ def main():
         eager_ms=gtvf_eager, path='GTVF dx=0.004, both evals of a step')
 
     # the 2D WCSPH dam break (PEC) and the other integrators
+    lap('GTVF')
     _wcsph2d_phase(runs, kernels, bins)
     _integrators_phase()
+    lap('2D WCSPH and the integrators')
 
     # the Taylor-Green vortex on its periodic box
     _tvf_phase(runs, kernels, bins)
@@ -4248,21 +4329,28 @@ def main():
         _tg_scheme_phase(runs, kernels, run)
 
     # the Adami walls on tvf_pair and the TVF wall examples
+    lap('Taylor-Green')
     _tvf_wall_phase(runs, kernels, bins)
+    lap('TVF walls')
 
     # EDAC: taylor_green, cavity and dam_break_2d --scheme edac, and
     # gtvf_pair's later kind at the Taylor-Green vortex's full width
     _edac_phase(runs, kernels)
     _kinds_row()
+    lap('EDAC')
 
     # IISPH: taylor_green, elliptical_drop and dam_break_2d --scheme iisph
     iisph_runs = _iisph_phase(kernels)
+    lap('IISPH')
 
     # gas dynamics: the shock tube and the Sedov blast under GasDScheme
     gasd_run, gasd_step, gasd_bins = _gasd_phase(kernels)
+    lap('GasDScheme')
     # GSPHScheme and ADKEScheme: the accuracy test, the hydrostatic box and
     # the shock tube
-    gsph_run, gsph_step = _gas_schemes_phase(kernels)
+    gsph_run, gsph_step, adke_chunks, adke_step = _gas_schemes_phase(
+        kernels)
+    lap('GSPHScheme and ADKEScheme')
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
@@ -4349,12 +4437,14 @@ def main():
         drop['work'], None, eager_ms=drop['dense_pair'],
         path='drop nx=200, one eval')
 
+    lap('the drop, dense_pair and fused_pair')
     _physics_gate()
 
     # the probes and the stub: the tools' paths
     kernels['micro_launch'] = _micro_launch_phase()
     kernels['micro_engine'] = _micro_engine_phase()
     kernels['pair_stub'] = _pair_stub_phase(libs['pair_stub'])
+    lap('the physics gate, the probes and the stub')
 
     print('ms/step in this run, float32, per step / in chunks of 10, and '
           'binnings a 100 steps per step / in chunks, by binning '
@@ -4408,6 +4498,15 @@ def main():
               '%.4f ms, idle share %.1f%%' % (
                   how, r['ms'], r['launches_per_step'], r['reads_per_step'],
                   r['step_busy_ms'], 100 * r['idle_share']))
+    print('accuracy_test_2d --scheme adke %d^2 float32 (a step), in chunks '
+          'of 10 (%d steps) / per step (%d steps):' % (
+              ACCURACY_FULL, STEPS, ADKE_STEPS))
+    for how, r in (('chunks', adke_chunks), ('per step', adke_step)):
+        print('  %-9s %.4f ms/step; launches %s; host reads %.3f; busy '
+              '%.4f ms, idle share %.1f%%; device ms by layer %s' % (
+                  how, r['ms'], r['launches_per_step'], r['reads_per_step'],
+                  r['step_busy_ms'], 100 * r['idle_share'],
+                  {k: round(v, 4) for k, v in r['layers'].items()}))
     print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
     for label, rows in bins.items():
         for i, t in enumerate(rows):

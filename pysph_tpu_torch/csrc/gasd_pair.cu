@@ -6,10 +6,10 @@
 // Replaces pysph_tpu/ops/pallas_engine.py::_pair_kernel_compact (:1160,
 // its pallas_call :1867), which the TPU runs for both MPM pair phases of
 // GasDScheme (the shock tube and the Sedov blast of
-// examples/gas_dynamics/), and for ADKEScheme's two (the shock tube, the
-// accuracy test and the hydrostatic box's --scheme adke): the resident
-// engine turns itself off for an update_nnps group.  Four phase sets, one
-// device functor each:
+// examples/gas_dynamics/), and for ADKEScheme's two, which
+// csrc/adke_pair.cu runs here (the arguments of both are
+// csrc/gasd_terms.cuh's): the resident engine turns itself off for an
+// update_nnps group.  Two phase sets, one device functor each:
 //
 //   Density       SummationDensity: WI, DWI and GHI at the dest's h
 //                 -> rho arho grhox grhoy grhoz dwdh
@@ -17,13 +17,6 @@
 //                 source's, DWIJ at HIJ; the signal-velocity viscosity
 //                 (dot <= 0) and conduction; a MAX into dt_cfl
 //                 -> au av aw ae del2e dt_cfl
-//   AdkeDensity   SummationDensityADKE: WIJ at HIJ, DWI at the dest's h
-//                 -> rho arho
-//   AdkeAccel     ADKEAccelerations: DWIJ at HIJ; Monaghan's viscosity
-//                 (XIJ.VIJ < 0) and the ADKE conduction, with each
-//                 source's alpha, beta, g1 and g2 -> au av aw ae
-//
-// The ADKE sets run in the walk's mode only (kWalk below).
 //
 // h varies per particle: the walk's support test is r2 < (rs max(hi,
 // hj))^2 (walk::in_support), so a pair in support through hj only adds the
@@ -51,10 +44,9 @@
 //   plane 1: u v w m
 //   plane 2: rho p cs e
 //   plane 3: omega alpha1 alpha2 div
-// of which the density sets pack planes 0 and 1, the momentum sets all
-// four (MPM's with div written 0, ADKE's with omega, alpha1 and alpha2
-// written 0).  No shared memory: every run sums in the order of the plain
-// stencil walk.  Built with -fmad=false (ops/build.py EXTRA_FLAGS): the
+// of which the density set packs planes 0 and 1, the momentum set all
+// four (div written 0).  No shared memory: every run sums in the order of
+// the plain stencil walk.  Built with -fmad=false (ops/build.py EXTRA_FLAGS): the
 // support test then rounds each operation as the plain version's, so the
 // pairs and each dest's count are exactly its.
 //
@@ -106,96 +98,17 @@
 
 #include "cell_pack.cuh"
 #include "cell_walk.cuh"
+#include "gasd_terms.cuh"
 #include "shapes.cuh"
-
-constexpr int kGasdSources = 4;
-// term bits, as ops/gasd_pair.py SDEN, MPM, ADEN, ADKE
-constexpr int kSden = 1, kMpm = 2, kAden = 4, kAdke = 8;
-// outputs in the order of ops/gasd_pair.py OUTPUTS
-enum GasdOut {
-  oRho, oArho, oGrhox, oGrhoy, oGrhoz, oDwdh, oAu, oAv, oAw, oAe, oDel2e,
-  oDtCfl, kGasdOut
-};
-// phase ids: the index of the phase set in ops/gasd_pair.py PHASE_SETS
-enum GasdPhase { kDensity, kMomentum, kAdkeDensity, kAdkeAccel };
-// modes, as ops/gasd_pair.py WALK, SWEEP, CONSUME
-enum GasdMode { kWalk, kSweep, kConsume };
-// kSweep's outputs, the order of ops/gasd_pair.py SWEEP_OUTPUTS: the
-// density sums, then what initialize and post_loop write
-enum GasdSweep {
-  wRho, wArho, wGrhox, wGrhoy, wGrhoz, wDwdh, wDiv, wOmega, wH, wAh,
-  wConverged, kSweepOut
-};
-// kConsume: listed entries whose loads a lane has in flight
-constexpr int kListBatch = 4;
-// the record planes of a packed copy
-enum GasdPlane { kPos, kVelM, kThermo, kSwitch, kGasdPlanes };
-
-// The argument structs are at global scope: the exported C functions take
-// them, and a type in an unnamed namespace would give those functions
-// internal linkage.
-struct GasdSrc {
-  // the packed copy's planes, in the source's cell order; null where the
-  // set reads none of the plane's props
-  const void* plane[kGasdPlanes];
-  const int32_t* cell_start;  // per cell: first position in the copy
-  const int32_t* cell_end;    // per cell: one past the last
-  double beta;                // MPMAccelerations', ADKEAccelerations' beta
-  double alpha, g1, g2;        // ADKEAccelerations' alpha, g1, g2
-  int32_t terms;
-  int32_t base;  // its position 0 in the neighbour list's numbering
-};
-
-struct GasdArgs {
-  const void *x, *y, *z, *h, *u, *v, *w, *rho, *p, *cs, *e, *omega,
-      *alpha1, *alpha2, *div;  // dest
-  const int32_t* cell;         // dest cell id, ix + nx * (iy + ny * iz)
-  const int32_t* dorder;       // the dest's cell order: threads follow it
-  const uint8_t* wmask;        // write mask (bool); null: every row
-  const void* pre[kGasdOut];   // values before the phase; null: unused
-  void* out[kGasdOut];
-  int32_t* count;              // non-null: each dest's pairs in support
-  GasdSrc src[kGasdSources];
-  double radius_scale, kfac;   // kfac: the kernel's sigma
-  double box[3];  // the length of each periodic axis, 0 on the others
-  int32_t n_dest, n_src, nx, ny, nz, dim, phase, dtype, kernel_kind,
-      periodic;
-  // the modes (see the top): kSweep's gate, its dest props and outputs,
-  // the count of the particles not converged, and the list it emits,
-  // which kConsume reads where *use is set, with the copies' plane 0
-  int32_t mode, cap;
-  const uint8_t* run;          // kSweep: null or the gate
-  const uint8_t* use;          // kConsume: read the list where *use != 0
-  const void *m, *h0;          // kSweep: dest
-  const void* swpre[11];       // kSweep: the values before, GasdSweep
-  void* sw[11];                // order, and the outputs (in place: the
-                               // same pointers)
-  int32_t* unconv;             // kSweep: += the particles not converged
-  int32_t* nbr;                // (cap, n_dest)
-  int32_t* lcount;             // (n_dest): pairs by sorted position
-  int32_t* overflow;           // kSweep: += dests with more than cap
-  const void* hplane[kGasdSources];  // kConsume: the last sweep's plane 0
-  double k, htol;              // SummationDensity's k and htol
-  int32_t iterate_once, density_iterations;
-  // the pack that fills the sources' planes: the launch function launches
-  // it just before the kernel
-  PackArgs pack;
-};
 
 namespace {
 
+using gasd::AtH;
+using gasd::hpow;
+using gasd::ld;
+using gasd::Pair;
 using walk::Rec;
 using walk::rec;
-
-template <typename T>
-__device__ __forceinline__ T ld(const void* p, int i) {
-  return static_cast<const T*>(p)[i];
-}
-
-template <typename T>
-__device__ __forceinline__ T hpow(T h1, int dim) {
-  return dim == 1 ? h1 : dim == 2 ? h1 * h1 : h1 * h1 * h1;
-}
 
 // x^(1 / dim) as torch's pow takes it: x, sqrt, pow
 __device__ __forceinline__ float root(float x, int dim) {
@@ -214,15 +127,6 @@ template <typename T>
 __device__ __forceinline__ T tmin(T a, T b) {
   return (a != a || a < b) ? a : b;
 }
-
-// One pair in support: k, the source particle's position in its packed
-// copy; XIJ (the minimum image on a periodic grid), RIJ, 1 / RIJ (0 at
-// RIJ = 0, as the torch pair engine's RINV) and the source's h.
-template <typename T>
-struct Pair {
-  int k;
-  T xij, yij, zij, rij, rinv, hj;
-};
 
 template <typename T, bool PERIODIC>
 __device__ __forceinline__ Pair<T> pair_of(const Rec<T>& di,
@@ -244,23 +148,6 @@ __device__ __forceinline__ Pair<T> pair_of(const Rec<T>& di,
   q.hj = pj.d;
   return q;
 }
-
-// The kernel of shape KIND at one smoothing length h: h1 = 1 / h (1 where
-// h <= 0), fac = sigma h1^dim, as the torch pair engine's _kparts.
-template <typename T, int KIND>
-struct AtH {
-  T h1, fac;
-  __device__ __forceinline__ void set(T h, T kfac, int dim) {
-    h1 = T(1) / (h > T(0) ? h : T(1));
-    fac = kfac * hpow(h1, dim);
-  }
-  // the gradient's factor: DW = grad(q) * XIJ (0 where RIJ <= 1e-12)
-  __device__ __forceinline__ T grad(const Pair<T>& q) const {
-    T w, dw;
-    shapes::shape<T, KIND>(q.rij * h1, w, dw);
-    return q.rij > T(1e-12) ? dw * fac * h1 * q.rinv : T(0);
-  }
-};
 
 // SummationDensity: WI, DWI, GHI at the dest's h.
 template <typename T, int KIND>
@@ -445,111 +332,6 @@ struct Momentum {
   }
 };
 
-// SummationDensityADKE's loop: WIJ at the mean h, DWI at the dest's.
-template <typename T, int KIND>
-struct AdkeDensity {
-  static constexpr bool kDensitySet = true;
-  T ui = 0, vi = 0, wi = 0, hi = 0, kfac = 0;
-  AtH<T, KIND> at{};
-  int dim = 0;
-  T rho = 0, arho = 0;
-  __device__ void load(const GasdArgs& a, int i) {
-    ui = ld<T>(a.u, i);
-    vi = ld<T>(a.v, i);
-    wi = ld<T>(a.w, i);
-    hi = ld<T>(a.h, i);
-    kfac = T(a.kfac);
-    dim = a.dim;
-    at.set(hi, kfac, dim);
-  }
-  __device__ void pair(const GasdSrc& S, const Pair<T>& q) {
-    const Rec<T> vm = rec<T>(S.plane[kVelM], q.k);  // u v w m
-    AtH<T, KIND> atij;
-    atij.set(T(0.5) * (hi + q.hj), kfac, dim);
-    T w, dw;
-    shapes::shape<T, KIND>(q.rij * atij.h1, w, dw);
-    const T gi = at.grad(q);
-    const T mj = vm.d;
-    rho += mj * (w * atij.fac);
-    const T vdot = (ui - vm.a) * (gi * q.xij) + (vi - vm.b) * (gi * q.yij) +
-                   (wi - vm.c) * (gi * q.zij);
-    arho += mj * vdot;
-  }
-  __device__ void store(const GasdArgs& a, int i, bool wm) {
-    const T acc[2] = {rho, arho};
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const T pre = ld<T>(a.pre[oRho + k], i);
-      static_cast<T*>(a.out[oRho + k])[i] = wm ? pre + acc[k] : pre;
-    }
-  }
-};
-
-// ADKEAccelerations' loop.
-template <typename T, int KIND>
-struct AdkeAccel {
-  static constexpr bool kDensitySet = false;
-  T ui = 0, vi = 0, wi = 0, hi = 0, rhoi = 0, csi = 0, ei = 0, divi = 0,
-    pibrhoi2 = 0, kfac = 0;
-  int dim = 0;
-  T au = 0, av = 0, aw = 0, ae = 0;
-  __device__ void load(const GasdArgs& a, int i) {
-    ui = ld<T>(a.u, i);
-    vi = ld<T>(a.v, i);
-    wi = ld<T>(a.w, i);
-    hi = ld<T>(a.h, i);
-    rhoi = ld<T>(a.rho, i);
-    csi = ld<T>(a.cs, i);
-    ei = ld<T>(a.e, i);
-    divi = ld<T>(a.div, i);
-    pibrhoi2 = ld<T>(a.p, i) / (rhoi * rhoi);
-    kfac = T(a.kfac);
-    dim = a.dim;
-  }
-  __device__ void pair(const GasdSrc& S, const Pair<T>& q) {
-    const Rec<T> vm = rec<T>(S.plane[kVelM], q.k);     // u v w m
-    const Rec<T> th = rec<T>(S.plane[kThermo], q.k);   // rho p cs e
-    const Rec<T> sw = rec<T>(S.plane[kSwitch], q.k);   // 0 0 0 div
-    const T g1 = T(S.g1), g2 = T(S.g2);
-    const T mj = vm.d, rhoj = th.a, hj = q.hj, divj = sw.d;
-    const T pjbrhoj2 = th.b / (rhoj * rhoj);
-    const T cij = T(0.5) * (csi + th.c);
-    const T eij = ei - th.d;
-    const T Hi = g1 * hi * csi + g2 * hi * hi * (fabs(divi) - divi);
-    const T Hj = g1 * hj * th.c + g2 * hj * hj * (fabs(divj) - divj);
-    const T hij = T(0.5) * (hi + hj);
-    const T eps = T(0.01) * hij * hij;
-    const T rhoij = T(0.5) * (rhoi + rhoj);
-    const T rhoij1 = T(1) / (rhoij != T(0) ? rhoij : T(1));
-    const T r2 = q.xij * q.xij + q.yij * q.yij + q.zij * q.zij;
-    const T Hij = (Hi + Hj) * eij / (rhoij * (r2 + eps));
-    const T vij[3] = {ui - vm.a, vi - vm.b, wi - vm.c};
-    const T xv = q.xij * vij[0] + q.yij * vij[1] + q.zij * vij[2];
-    const T muij = hij * xv / (r2 + eps);
-    T piij = muij * (T(S.beta) * muij - T(S.alpha) * cij) * rhoij1;
-    piij = xv < T(0) ? piij : T(0);
-    const T tmpv = pibrhoi2 + pjbrhoj2 + piij;
-    AtH<T, KIND> atij;
-    atij.set(hij, kfac, dim);
-    const T gij = atij.grad(q);
-    const T dwij[3] = {gij * q.xij, gij * q.yij, gij * q.zij};
-    au += -mj * tmpv * dwij[0];
-    av += -mj * tmpv * dwij[1];
-    aw += -mj * tmpv * dwij[2];
-    const T vd = vij[0] * dwij[0] + vij[1] * dwij[1] + vij[2] * dwij[2];
-    const T xd = q.xij * dwij[0] + q.yij * dwij[1] + q.zij * dwij[2];
-    ae += T(0.5) * mj * (tmpv * vd + T(2) * xd * Hij);
-  }
-  __device__ void store(const GasdArgs& a, int i, bool wm) {
-    const T acc[4] = {au, av, aw, ae};
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const T pre = ld<T>(a.pre[oAu + k], i);
-      static_cast<T*>(a.out[oAu + k])[i] = wm ? pre + acc[k] : pre;
-    }
-  }
-};
-
 // kSweep's store: the density set's sweep (the other sets never sweep)
 template <typename T, int KIND>
 __device__ __forceinline__ bool sweep_of(Density<T, KIND>& ph,
@@ -684,14 +466,8 @@ cudaError_t launch_walk(const GasdArgs& a, cudaStream_t stream) {
   else if (a.phase == kDensity)
     gasd_pair_kernel<T, KIND, PERIODIC, D, kWalk>
         <<<blocks, kThreads, 0, stream>>>(a);
-  else if (a.phase == kMomentum)
-    gasd_pair_kernel<T, KIND, PERIODIC, M, kWalk>
-        <<<blocks, kThreads, 0, stream>>>(a);
-  else if (a.phase == kAdkeDensity)
-    gasd_pair_kernel<T, KIND, PERIODIC, AdkeDensity<T, KIND>, kWalk>
-        <<<blocks, kThreads, 0, stream>>>(a);
   else
-    gasd_pair_kernel<T, KIND, PERIODIC, AdkeAccel<T, KIND>, kWalk>
+    gasd_pair_kernel<T, KIND, PERIODIC, M, kWalk>
         <<<blocks, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
@@ -710,21 +486,18 @@ cudaError_t launch(const GasdArgs& a, cudaStream_t stream) {
 }
 
 // the planes each set reads (ops/gasd_pair.py pack_layout)
-int planes_of(int phase) {
-  return phase == kDensity || phase == kAdkeDensity ? 2 : kGasdPlanes;
-}
+int planes_of(int phase) { return phase == kDensity ? 2 : kGasdPlanes; }
 
 // each set's outputs: [first, last] of GasdOut
 void outputs_of(int phase, int& first, int& last) {
-  first = phase == kDensity || phase == kAdkeDensity ? oRho : oAu;
-  last = phase == kDensity ? oDwdh : phase == kMomentum ? oDtCfl
-       : phase == kAdkeDensity ? oArho : oAe;
+  first = phase == kDensity ? oRho : oAu;
+  last = phase == kDensity ? oDwdh : oDtCfl;
 }
 
+// the ADKE sets are csrc/adke_pair.cu's
 bool args_ok(const GasdArgs& a) {
-  const int terms_of[4] = {kSden, kMpm, kAden, kAdke};
-  const bool phase_ok = a.phase >= kDensity && a.phase <= kAdkeAccel;
-  const int set_terms = phase_ok ? terms_of[a.phase] : 0;
+  const bool phase_ok = a.phase == kDensity || a.phase == kMomentum;
+  const int set_terms = a.phase == kDensity ? kSden : kMpm;
   bool sources_ok = a.n_src >= 1 && a.n_src <= kGasdSources;
   for (int s = 0; sources_ok && s < a.n_src; ++s) {
     const GasdSrc& S = a.src[s];
@@ -745,8 +518,6 @@ bool args_ok(const GasdArgs& a) {
   } else {
     for (int k = first; k <= last; ++k)
       outs_ok = outs_ok && a.pre[k] != nullptr && a.out[k] != nullptr;
-    outs_ok = outs_ok &&
-              (a.mode == kWalk || a.phase == kDensity || a.phase == kMomentum);
   }
   if (a.mode == kConsume) {
     outs_ok = outs_ok && a.phase == kMomentum && a.use != nullptr;

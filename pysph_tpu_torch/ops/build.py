@@ -56,7 +56,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: gsph_pair, the longest build (its acceleration kernels inline the pair
 #: body for the listed and the walked pairs), also optimizes on every core
 #: (-split-compile=0: the same registers and bit-identical results, its
-#: cold build some three times shorter on an H100 host)
+#: cold build some three times shorter on an H100 host); adke_pair, the
+#: ADKE sets, contracts: its support test is written in single IEEE
+#: operations (__fmul_rn and its kin), so its pairs stay the plain
+#: version's
 EXTRA_FLAGS = {'delta_pair': ('-fmad=false',),
                'gasd_pair': ('-fmad=false',),
                'gsph_pair': ('-fmad=false', '-split-compile=0'),

@@ -29,14 +29,18 @@ Gaussian, kind 2; not the ``_1D`` kernels, ROADMAP Queue 1 item 28); the
 grid may be periodic.  ``counts=True`` adds ``nnbr``, each dest's pairs
 in support (int32), to the result.
 
-For CUDA tensors it calls ``csrc/gasd_pair.cu`` (a library of its own,
-built on first use by ``ops/build.py``) once: its launch function
-launches the source pack (``ops/cell_pack.py``, counted in
-``cell_pack.pack.launches``) and then the kernel (counted in
-``gasd_pair.launches``; each later kind a library of its own, built at its
-first launch); a kernel without a ``kernel_kind``, a dtype other than
-float32 and float64, or a refused launch raises.  For CPU tensors it
-calls ``gasd_pair_reference``, the torch pair engine running the same
+For CUDA tensors it calls ``csrc/gasd_pair.cu`` (the MPM sets) or
+``csrc/adke_pair.cu`` (the ADKE sets; each a library of its own, built on
+first use by ``ops/build.py``) once: its launch function launches the
+source pack (``ops/cell_pack.py``, counted in ``cell_pack.pack.launches``)
+and then the kernel (counted in ``gasd_pair.launches``, and the ADKE
+library's also in ``gasd_pair.adke_launches``; each later kind a library
+of its own, built at its first launch); a kernel without a
+``kernel_kind``, a dtype other than float32 and float64, or a refused
+launch raises.  The ADKE accelerations' launch rewrites each source's
+packed plane 3 with the terms of the source alone (``adke_terms_reference``
+is its plain version) before its kernel.  For CPU tensors it calls
+``gasd_pair_reference``, the torch pair engine running the same
 ``Equation`` objects on the exact lists of ``CellGrid.neighbor_pairs``.
 
 ``gasd_sweep`` runs one sweep of ``GasDScheme``'s iterated density group
@@ -99,8 +103,10 @@ WALK, SWEEP, CONSUME = range(3)
 #: GasdSweep): the density sums, then initialize's and post_loop's
 SWEEP_OUTPUTS = ('rho', 'arho', 'grhox', 'grhoy', 'grhoz', 'dwdh', 'div',
                  'omega', 'h', 'ah', 'converged')
-#: record planes of the packed copy (csrc/gasd_pair.cu): the density sets
-#: pack planes 0 and 1, the momentum sets all four
+#: record planes of the packed copy (csrc/gasd_pair.cu, csrc/adke_pair.cu):
+#: the density sets pack planes 0 and 1, the momentum sets all four (the
+#: ADKE accelerations' plane 3, packed as 0 0 0 div, then rewritten as
+#: ``adke_terms_reference`` gives)
 PACK_RECORDS = (('x', 'y', 'z', 'h'), ('u', 'v', 'w', 'm'),
                 ('rho', 'p', 'cs', 'e'), ('omega', 'alpha1', 'alpha2', 'div'))
 _SETS = PhaseSets('gasd_pair', PHASE_SETS, _SET_READS, PACK_RECORDS,
@@ -157,6 +163,20 @@ def gasd_pair_reference(dest, dest_cells, write_mask, pre, sources, grid,
     ``counts``: add ``nnbr``.  Returns {output: tensor}."""
     return _SETS.reference(dest, dest_cells, write_mask, pre, sources, grid,
                            kernel, counts=counts)
+
+
+def adke_terms_reference(state, source):
+    """Plain version of the ADKE accelerations' plane 3 of a source (its
+    state dict and ``GasdSource``), as ``csrc/adke_pair.cu`` writes it
+    into the packed copy before its kernel, in the state's order: (n, 4)
+    of ``p / rho^2``, ``g1 h cs + g2 h^2 (|div| - div)`` (``Hj``), 0 and
+    ``div``, in ``ADKEAccelerations``' expressions."""
+    rho, h, div = state['rho'], state['h'], state['div']
+    pjbrhoj2 = state['p'] / (rho * rho)
+    big_hj = source.g1 * h * state['cs'] + \
+        source.g2 * h * h * (torch.abs(div) - div)
+    return torch.stack([pjbrhoj2, big_hj, torch.zeros_like(div), div],
+                       dim=1)
 
 
 class _SrcArgs(ctypes.Structure):
@@ -236,8 +256,10 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         args.lcount = data_ptr(handoff.count, n, torch.int32, dev, 'counts')
         args.cap = handoff.nbr.shape[0]
     if n:
-        build.launch('gasd_pair', args, dev)
+        adke = phase in (ADKE_DENSITY, ADKE_ACCEL)
+        build.launch('adke_pair' if adke else 'gasd_pair', args, dev)
         gasd_pair.launches += 1
+        gasd_pair.adke_launches += adke
         cell_pack.pack.launches += bool(args.pack.n_src)
     return out
 
@@ -381,8 +403,10 @@ def gasd_sweep(dest, dest_cells, write_mask, sources, grid, kernel, spec,
                          kernel, spec, run, buffers)
 
 
-#: kernel launches since the last reset (set to 0 to reset)
+#: kernel launches since the last reset (set to 0 to reset): of either
+#: library, and of ``csrc/adke_pair.cu``'s alone
 gasd_pair.launches = 0
+gasd_pair.adke_launches = 0
 
 
 #: kernel launches since the last reset (set to 0 to reset)

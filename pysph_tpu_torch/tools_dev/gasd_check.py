@@ -295,18 +295,21 @@ def kinds(dtype, tol, device='cuda'):
 
 
 #: the kernels' names in a library's log: the kernel, its sets
-_KERNELS = {'gasd_pair': 'Density|Momentum|AdkeDensity|AdkeAccel',
+#: the ADKE sets' functors (in ``adke_pair``, and in ``gasd_pair`` before it)
+ADKE_SETS = 'AdkeDensity|AdkeAccel'
+_KERNELS = {'gasd_pair': 'Density|Momentum', 'adke_pair': ADKE_SETS,
             'gsph_pair': 'Gradients|Acceleration'}
 
 
-def resources(lib, kind=2, kernel='gasd_pair'):
+def resources(lib, kind=2, kernel='gasd_pair', sets=None):
     """{'<dtype> <set> <open|periodic>': (registers, spill store bytes,
     spill load bytes)} of the kernels of shape ``kind`` in the built
-    library ``lib`` of ``kernel`` (``gasd_pair`` or ``gsph_pair``;
-    ``build.resources``)."""
+    library ``lib`` of ``kernel`` (``gasd_pair``, ``adke_pair`` or
+    ``gsph_pair``; ``build.resources``): its sets, or the functors
+    ``sets`` (a regex alternation)."""
     from pysph_tpu_torch.ops import build
     pattern = re.compile(r'%s_kernelI([fd])Li(\d)ELb([01])EN\w*?\d(%s)I'
-                         % (kernel, _KERNELS[kernel]))
+                         % (kernel, sets or _KERNELS[kernel]))
     out = {}
     for name, res in build.resources(lib).items():
         m = pattern.search(name)
@@ -316,6 +319,149 @@ def resources(lib, kind=2, kernel='gasd_pair'):
                               'periodic' if m.group(3) == '1' else 'open')
                 ] = res
     return dict(sorted(out.items()))
+
+
+#: ``adke_calls``: the lattice's particles an axis, and its probe dests
+#: (a count that fills no whole block: a block of 128 threads takes 16
+#: dests at 8 lanes a dest)
+ADKE_LATTICE = 24
+ADKE_PROBES = 37
+
+
+def adke_calls(cells, dtype, device='cuda', seed=7):
+    """ADKE's two sets (``SummationDensityADKE``, ``ADKEAccelerations``
+    with the accuracy test's constants) on a jittered ``ADKE_LATTICE``^2
+    lattice in the unit square, h varying by 20% from particle to
+    particle, its props seeded (numpy ``default_rng``): with ``cells`` an
+    int, the square periodic in x and y and h sized so that the grid has
+    ``cells`` cells on each axis, the lattice its own dests; with
+    ``cells`` None, an open grid and also ``ADKE_PROBES`` probe particles
+    as dests of the lattice, the last third of them far from it (no
+    pair).  Returns the calls as ``time_walks.plan_calls`` gives them
+    (density then accelerations, the lattice's first)."""
+    from pysph_tpu_torch.base.domain import DomainManager
+    from pysph_tpu_torch.sph.gas_dynamics.basic import (
+        ADKEAccelerations, SummationDensityADKE)
+    rng = np.random.default_rng(seed)
+    n = ADKE_LATTICE
+    dx = 1.0 / n
+    g = (np.arange(n) + 0.5) * dx
+    lx, ly = (c.ravel() for c in np.meshgrid(g, g))
+    # the widest h of a grid of `cells` cells 1.1 times the support
+    hmax = 1.0 / (3.3 * (cells + 0.5)) if cells else 1.5 * dx
+
+    def array(name, x, y):
+        k = x.size
+        pa = get_particle_array_gasd(
+            name=name, x=x, y=y, u=rng.normal(size=k), v=rng.normal(size=k),
+            m=dx * dx, rho=1.0 + 0.1 * rng.random(k),
+            p=1.0 + rng.random(k), cs=1.0 + rng.random(k),
+            e=1.0 + rng.random(k), div=rng.normal(size=k),
+            h=hmax * (1.0 - 0.2 * rng.random(k)))
+        pa.add_property('logrho')
+        pa.properties['h0'][:] = pa.properties['h']
+        return pa
+
+    k = lx.size
+    arrays = [array('fluid', lx + 0.1 * dx * rng.uniform(-1, 1, k),
+                    ly + 0.1 * dx * rng.uniform(-1, 1, k))]
+    if cells is None:
+        far = ADKE_PROBES // 3
+        near = ADKE_PROBES - far
+        px = np.concatenate([rng.uniform(0, 1, near),
+                             rng.uniform(3, 4, far)])
+        arrays.append(array('probe', px, rng.uniform(0, 1, ADKE_PROBES)))
+    dests = [pa.name for pa in arrays]
+    groups = [Group([SummationDensityADKE(d, ['fluid'], k=1.5, eps=0.0)
+                     for d in dests]),
+              Group([ADKEAccelerations(d, ['fluid'], alpha=1.0, beta=2.0,
+                                       g1=0.2, g2=0.4, k=1.5, eps=0.0)
+                     for d in dests])]
+    domain = None if cells is None else DomainManager(
+        xmin=0, xmax=1, ymin=0, ymax=1, periodic_in_x=True,
+        periodic_in_y=True)
+    kernel = Gaussian(dim=2)
+    grid = CellGrid.from_particles(arrays, dim=2,
+                                   radius_scale=kernel.radius_scale,
+                                   domain=domain)
+    if cells is not None and grid.dims[:2] != (cells, cells):
+        raise AssertionError('adke_calls: a grid of %s cells for %d'
+                             % (grid.dims, cells))
+    config = Config(device=device, dtype=dtype)
+    a_eval = AccelerationEval(arrays, groups, kernel, config, grid)
+    states = {pa.name: pa.to_device(config) for pa in arrays}
+    binned = grid.bin_all(states)
+    calls = []
+    for group in a_eval.leaf_groups():
+        for dest in dests:
+            plan = a_eval._plans.get((id(group), dest))
+            store = states[dest]
+            pre = {p: torch.zeros_like(store[p]) for p in plan.outputs}
+            calls.append((0, dest, plan, plan.args(
+                store, states, binned, grid, None, pre)))
+    return calls
+
+
+def double(obj):
+    """``obj`` (a call's arguments) with every floating tensor in it,
+    in dicts, lists and tuples, as float64."""
+    if torch.is_tensor(obj):
+        return obj.double() if obj.is_floating_point() else obj
+    if isinstance(obj, dict):
+        return {k: double(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, '_fields'):
+        return type(obj)(*[double(v) for v in obj])
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(double(v) for v in obj)
+    return obj
+
+
+#: the float32 kernel's error against the plain float64 version may be up
+#: to this many times the plain float32 version's own (``against_float64``)
+F32_ROUNDING_FACTOR = 4.0
+
+
+def against_float64(got, ref32, ref64, outputs, label, tol=1e-4):
+    """A float32 call's results ``got`` held to its plain version in
+    float64 on the same inputs ``ref64``: each output's error within
+    ``tol`` of max|ref| or within ``F32_ROUNDING_FACTOR`` times the plain
+    float32 version's (``ref32``) own error against it.  ADKE's
+    accelerations in a uniform pressure cancel to ~1/60 of their terms'
+    sum, so float32 rounds both versions by more than 1e-4 of the sum; a
+    wrong kernel errs by far more than the plain float32 version does.
+    Returns {output: (the kernel's scaled error, the plain float32
+    version's)}; raises where an output misses."""
+    readings = {}
+    for p in outputs:
+        scale = max(float(ref64[p].abs().max()), 1e-300)
+        kernel = float((got[p].double() - ref64[p]).abs().max())
+        plain = float((ref32[p].double() - ref64[p]).abs().max())
+        readings[p] = (float('%.3g' % (kernel / scale)),
+                       float('%.3g' % (plain / scale)))
+        if not kernel <= max(F32_ROUNDING_FACTOR * plain, tol * scale):
+            raise AssertionError(
+                '%s %s: the kernel is %.3g from the float64 plain version, '
+                'the float32 plain version %.3g (max|ref| %.3g)' % (
+                    label, p, kernel, plain, scale))
+    return readings
+
+
+def repeats(calls_):
+    """Each ``gasd_pair`` call of ``calls_`` launched twice, with its
+    counts: the dests whose outputs or count differ between the two
+    (none: a launch's sums are one fixed order).  Returns the dests the
+    calls compared."""
+    dests = 0
+    for _, dest, plan, args in calls_:
+        if plan.op is not gd.gasd_pair:
+            continue
+        a, b = plan.op(*args, counts=True), plan.op(*args, counts=True)
+        differ = [p for p in a if not torch.equal(a[p], b[p])]
+        if differ:
+            raise AssertionError('%s %s: two launches differ in %s' % (
+                dest, plan.outputs, differ))
+        dests += a['nnbr'].numel()
+    return dests
 
 
 #: float32: a dest whose converged flag the kernel and the plain version

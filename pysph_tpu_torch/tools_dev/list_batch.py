@@ -4,11 +4,19 @@ the blocks an SM its launches ask for (``-DEMIT_BLOCKS``,
 ``-DCONSUME_BLOCKS``); and of ``iisph_solve``, the float32 blocks an SM
 its launch bounds ask for (``-DIISPH_SOLVE_BLOCKS``); and of
 ``gsph_pair``, the blocks an SM its acceleration kernel's launch bounds
-ask for (``-DGSPH_ACC_BLOCKS_F32``, ``-DGSPH_ACC_BLOCKS_F64``).
+ask for (``-DGSPH_ACC_BLOCKS_F32``, ``-DGSPH_ACC_BLOCKS_F64``); and of
+``adke_pair`` (``gasd_pair``'s ADKE sets), the lanes a dest and the
+launch bounds (``-DADKE_LANES``, ``-DADKE_DENSITY_BLOCKS``,
+``-DADKE_ACCEL_BLOCKS``, ``-DADKE_BLOCKS_F64``), beside the ADKE sets of
+the commit before ``adke_pair``.
 
     python3 -m pysph_tpu_torch.tools_dev.list_batch [delta_pair|tvf_pair]
     python3 -m pysph_tpu_torch.tools_dev.list_batch iisph_solve
     python3 -m pysph_tpu_torch.tools_dev.list_batch gsph_pair
+    python3 -m pysph_tpu_torch.tools_dev.list_batch adke_pair PARENT
+
+(``PARENT``: a checkout of the commit before ``csrc/adke_pair.cu``, e.g.
+``git archive <commit> | tar -x -C build/parent``.)
 
 ``delta_pair`` (the default): dam_break_3d ``--delta-sph`` at dx=0.02 in
 float32 after its 50 damped steps, 1, 2, 4 and 8 entries in flight.
@@ -38,23 +46,44 @@ variant's registers and spills (``iisph_check.solve_resources``).
 acceleration on the gradients' hand-off must equal the walking launch
 bit for bit; then per dtype the consuming and the walking acceleration,
 the emitting and the walking gradients are replayed, alternated as
-above, with each variant's registers and spills.
+above, with each variant's registers and spills.  ``adke_pair``: the
+accuracy test at 256^2 (``--scheme adke``, ``gasd_check.calls``) in
+float32 and float64, the variants of ``VARIANTS`` (the Gaussian alone,
+``-DPAIR_KIND=2``) and first the baseline, ``PARENT``: the checkout's
+``csrc/gasd_pair.cu`` built with this repo's ``gasd_pair`` flags and
+launched for the two ADKE phase ids (a thread a dest, each source's terms
+a pair, the image's division on every candidate, no FMA contraction);
+each variant's pairs and counts
+exactly the plain version's, its outputs within 1e-10 of max|ref| in
+float64 and, in float32, within ``gasd_check.F32_ROUNDING_FACTOR`` times
+the plain float32 version's error against the float64 one; then per
+dtype each set's launch is replayed, alternated as above, with each
+variant's registers and spills; then the accuracy test ``--scheme
+adke`` at 256^2 in float32, 200 steps in chunks of 10
+(``time_chunks.timed_solve``) under ``PARENT`` and under the
+fastest variant in float32 (the two sets' medians summed), parent,
+fastest, fastest, parent, one JSON line each: ms/step, a replayed step's
+device busy ms, idle share and the ADKE launches' device ms a step.
 """
 
+import ctypes
 import json
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from pysph_tpu_torch.ops import build
 from pysph_tpu_torch.ops import delta_pair as dl
+from pysph_tpu_torch.ops import gasd_pair as gd
 from pysph_tpu_torch.ops import gsph_pair as gs
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import iisph_solve as isv
 from pysph_tpu_torch.tools_dev import (
-    common, gasd_check, iisph_check, tvf_check)
+    common, gasd_check, iisph_check, prof_chunk, time_chunks, tvf_check)
 from pysph_tpu_torch.tools_dev.time_walks import delta_calls
 
 
@@ -68,6 +97,18 @@ def _gsph(f32, f64):
             '-DGSPH_ACC_BLOCKS_F64=%d' % f64)
 
 
+def _adke(lanes, blocks=8, f64=4):
+    """An ``adke_pair`` variant: the Gaussian alone, ``lanes`` a dest,
+    ``blocks`` an SM for both sets in float32 and ``f64`` in float64."""
+    return ('-DPAIR_KIND=2', '-DADKE_LANES=%d' % lanes,
+            '-DADKE_DENSITY_BLOCKS=%d' % blocks,
+            '-DADKE_ACCEL_BLOCKS=%d' % blocks, '-DADKE_BLOCKS_F64=%d' % f64)
+
+
+#: the ADKE sweep's baseline: the sets of the commit before
+#: ``csrc/adke_pair.cu`` (``_parent_library``)
+PARENT = ('parent',)
+
 #: the variants' flags by kernel (tvf_pair's built with 4, 5, 8, 6 by
 #: default; gsph_pair's with 4, 2)
 VARIANTS = {
@@ -79,6 +120,9 @@ VARIANTS = {
     'iisph_solve': [('-DIISPH_SOLVE_BLOCKS=%d' % b,) for b in (4, 5, 6, 8)],
     'gsph_pair': [_gsph(3, 2), _gsph(4, 2), _gsph(5, 2), _gsph(6, 2),
                   _gsph(4, 1)],
+    'adke_pair': [PARENT] +
+                 [_adke(g, b) for g in (1, 2, 4, 8) for b in (6, 8)] +
+                 [_adke(8, 12, f64=6), _adke(8, 4, f64=2)],
 }
 
 
@@ -180,14 +224,176 @@ def _gsph_variants(smi, variants, libs, size=256):
     return graphs, held
 
 
-def main(name='delta_pair', rounds=7, reps=20):
+#: the accuracy test's size of the ADKE sweep
+ADKE_SIZE = 256
+
+
+def _parent_library(root):
+    """``csrc/gasd_pair.cu`` of the checkout ``root`` (the commit before
+    ``csrc/adke_pair.cu``, whose phases 2 and 3 were the ADKE sets), built
+    into ``build/`` with this repo's ``gasd_pair`` flags for the Gaussian
+    alone."""
+    src = Path(root) / 'pysph_tpu_torch' / 'csrc' / 'gasd_pair.cu'
+    lib = build.BUILD_DIR / 'libgasd_pair-parent.so'
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run(
+        [build.nvcc(), *build.flags('gasd_pair', ('-DPAIR_KIND=2',)),
+         '-o', str(lib), str(src)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError('nvcc failed on %s:\n%s%s' % (
+            src, proc.stdout, proc.stderr))
+    lib.with_suffix('.log').write_text(proc.stdout + proc.stderr)
+    return lib
+
+
+class _AsAdke:
+    """The parent's ``gasd_pair`` library under ``adke_pair``'s names, so
+    that ``build.launch('adke_pair', ...)`` runs its ADKE sets: the same
+    argument struct, the same phase ids."""
+
+    def __init__(self, path):
+        lib = ctypes.CDLL(str(path))
+        lib.gasd_pair_args_size.restype = ctypes.c_int
+        if lib.gasd_pair_args_size() != ctypes.sizeof(gd._Args):
+            raise RuntimeError('%s: argument struct is %d bytes in C and %d '
+                               'in Python' % (path, lib.gasd_pair_args_size(),
+                                              ctypes.sizeof(gd._Args)))
+        self.adke_pair_launch = lib.gasd_pair_launch
+        self.adke_pair_launch.argtypes = [ctypes.POINTER(gd._Args),
+                                          ctypes.c_void_p]
+        self.adke_pair_launch.restype = ctypes.c_int
+        self.adke_pair_error_string = lib.gasd_pair_error_string
+        self.adke_pair_error_string.argtypes = [ctypes.c_int]
+        self.adke_pair_error_string.restype = ctypes.c_char_p
+
+
+def _use_adke(own, v, parent):
+    """Let the next ADKE launch run the variant ``v``: flags, or
+    ``PARENT`` (the library ``parent``, an ``_AsAdke``)."""
+    _use('adke_pair', own, () if v == PARENT else v)
+    if v == PARENT:
+        build._loaded[('adke_pair',)] = parent
+
+
+def _adke_variants(smi, variants, libs, parent, size=ADKE_SIZE):
+    """The graphs of each ``adke_pair`` variant's two launches by dtype
+    (see the module's docstring), and the variants' libraries, which the
+    graphs' kernels need loaded."""
+    name = 'adke_pair'
+    for v, lib in zip(variants, libs):
+        print(json.dumps(dict(card=smi, kernel=name, flags=v,
+                              resources=gasd_check.resources(
+                                  lib, kernel='gasd_pair' if v == PARENT
+                                  else name, sets=gasd_check.ADKE_SETS))),
+              flush=True)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        calls = gasd_check.calls('accuracy_test_2d', size, dtype,
+                                 extra=('--scheme', 'adke'))[0]
+        for _, _, plan, args in calls:
+            if plan.op is not gd.gasd_pair:
+                continue
+            ref = tvf_check.reference(plan, args + (True,))
+            ref64 = None if dtype == torch.float64 else \
+                tvf_check.reference(plan, gasd_check.double(args))
+            what = 'density' if plan.sources[0].terms == gd.ADEN else \
+                'accelerations'
+            runs[str(dtype)[6:] + ' ' + what] = (plan, args, ref, ref64)
+    own = build.EXTRA_FLAGS.get(name, ())
+    graphs, held = {}, []
+    try:
+        for v in variants:
+            _use_adke(own, v, parent)
+            for tag, (plan, args, ref, ref64) in runs.items():
+                got = gd.gasd_pair(*args, counts=True)
+                torch.cuda.synchronize()
+                if not torch.equal(got['nnbr'], ref['nnbr']):
+                    raise AssertionError('%s %s %s: the pairs differ from '
+                                         'the plain version\'s' % (
+                                             name, v, tag))
+                if ref64 is None:
+                    for p in plan.outputs:
+                        scale = max(float(ref[p].abs().max()), 1e-300)
+                        err = float((got[p] - ref[p]).abs().max())
+                        if not err <= 1e-10 * scale:
+                            raise AssertionError('%s %s %s %s: error %.3g' % (
+                                name, v, tag, p, err / scale))
+                else:
+                    gasd_check.against_float64(got, ref, ref64, plan.outputs,
+                                               '%s %s %s' % (name, v, tag))
+                graphs[v, tag] = common.capture(
+                    lambda a=args: gd.gasd_pair(*a))
+            held.append(build._loaded[(name,)])
+    finally:
+        build.EXTRA_FLAGS[name] = own
+        build._loaded.pop((name,), None)
+    return graphs, held
+
+
+def _adke_steps(smi, variants, parent, steps=200, chunk_steps=10):
+    """The accuracy test ``--scheme adke`` at ``ADKE_SIZE`` in float32 in
+    chunks under each of ``variants`` (flags or ``PARENT``) in turn: one
+    JSON line each."""
+    name = 'adke_pair'
+    own = build.EXTRA_FLAGS.get(name, ())
+    held = []
+    try:
+        for v in variants:
+            _use_adke(own, v, parent)
+            app = gasd_check.app('accuracy_test_2d', ADKE_SIZE,
+                                 torch.float32, steps=steps,
+                                 extra=('--scheme', 'adke'))
+            gd.gasd_pair.adke_launches = 0
+            ms, samples = time_chunks.timed_solve(app, chunk_steps)
+            s = app.solver
+            trace = prof_chunk.replay_gaps(s._graph)
+            # adke_pair's kernels, or the parent's gasd_pair ADKE sets
+            adke = sum(us for k, us in trace['busy'].items()
+                       if 'adke' in k.lower()) / 1e3 / chunk_steps
+            held.append((build._loaded[(name,)], app))
+            print(json.dumps(dict(
+                card=smi, kernel=name, flags=v, run='accuracy_test_2d adke '
+                '%d float32, %d steps in chunks of %d' % (
+                    ADKE_SIZE, steps, chunk_steps), ms_step=ms,
+                min=min(samples), max=max(samples), samples=len(samples),
+                busy_ms=(trace['span_us'] - trace['idle_us']) / 1e3 /
+                chunk_steps, idle_share=trace['idle_us'] / trace['span_us'],
+                adke_ms=adke, adke_launches=gd.gasd_pair.adke_launches,
+                steps=s.count)), flush=True)
+    finally:
+        build.EXTRA_FLAGS[name] = own
+        build._loaded.pop((name,), None)
+    return held
+
+
+def main(name='delta_pair', parent=None, rounds=7, reps=20):
     smi = common.require_cuda()
     variants = VARIANTS[name]
+    if name == 'adke_pair' and parent is None:
+        raise SystemExit('adke_pair needs a checkout of the commit before '
+                         'csrc/adke_pair.cu (see the module\'s docstring)')
+
+    def built(v):
+        return _parent_library(parent) if v == PARENT else \
+            build.build(name, v)
+
     with ThreadPoolExecutor(len(variants)) as pool:
-        libs = list(pool.map(lambda v: build.build(name, v), variants))
+        libs = list(pool.map(built, variants))
+    if name == 'adke_pair':
+        as_adke = _AsAdke(libs[0])
+        graphs, _held = _adke_variants(smi, variants, libs, as_adke)
+        times = _report(smi, name, graphs, rounds, reps)
+
+        def f32(v):
+            return sum(np.median(t) for (w, tag), t in times.items()
+                       if w == v and tag.startswith('float32'))
+        fastest = min(variants[1:], key=f32)
+        _held.append(_adke_steps(smi, [PARENT, fastest, fastest, PARENT],
+                                 as_adke))
+        return
     if name in ('iisph_solve', 'gsph_pair'):
-        variants_of = _solve_variants if name == 'iisph_solve' else \
-            _gsph_variants
+        variants_of = {'iisph_solve': _solve_variants,
+                       'gsph_pair': _gsph_variants}[name]
         graphs, _held = variants_of(smi, variants, libs)
         _report(smi, name, graphs, rounds, reps)
         return
@@ -238,7 +444,8 @@ def _report(smi, name, graphs, rounds, reps):
         print(json.dumps(dict(card=smi, kernel=name, flags=v, graph=what,
                               ms=float(np.median(t)), min=min(t),
                               max=max(t))), flush=True)
+    return times
 
 
 if __name__ == '__main__':
-    main(*sys.argv[1:2])
+    main(*sys.argv[1:3])

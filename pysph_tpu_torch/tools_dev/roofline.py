@@ -139,16 +139,26 @@ IMAGE_FLOPS = 4
 #: beside its three shapes, and the viscosity's 17 on a pair with dot <= 0;
 #: ADKE's density (AdkeDensity): hij, its h1 and fac, q, WIJ, the
 #: gradient's factor at hi and DWI, v.DWI, the two sums: 25 beside its two
-#: shapes; ADKE's accelerations (AdkeAccel): pj / rhoj^2, cij, eij, Hi,
-#: Hj, hij, EPS, rhoij and its inverse, r2, Hij, vij, x.v, muij, tmpv, the
-#: h1 and fac of hij, the gradient's factor and DWIJ, the three sums,
-#: v.DWIJ, x.DWIJ and ae: 88 beside its shape, and the viscosity's 6 on a
-#: pair with x.v < 0
+#: shapes; ADKE's accelerations (AdkeAccel): cij, eij, hij, EPS, rhoij and
+#: its inverse, r2, Hij, vij, x.v, muij, tmpv, the h1 and fac of hij, the
+#: gradient's factor and DWIJ, the three sums, v.DWIJ, x.DWIJ and ae: 70
+#: beside its shape, and the viscosity's 6 on a pair with x.v < 0; the
+#: terms of one particle alone, once each: a source's pj / rhoj^2 (2) and
+#: Hj = g1 hj csj + g2 hj^2 (|divj| - divj) (8), counted on the sources
+#: with a pair, and the dest's Hi (8) a source array, on the dests with a
+#: pair (csrc/adke_pair.cu's adke_terms_kernel and AdkeAccel::source)
 GASD_PAIR_FLOPS = 11
-GASD_SET_FLOPS = {gd.SDEN: 35, gd.MPM: 119, gd.ADEN: 25, gd.ADKE: 88}
+GASD_SET_FLOPS = {gd.SDEN: 35, gd.MPM: 119, gd.ADEN: 25, gd.ADKE: 70}
 GASD_SHAPES = {gd.SDEN: 1, gd.MPM: 3, gd.ADEN: 2, gd.ADKE: 1}
 GASD_VISC_FLOPS = 17
 ADKE_VISC_FLOPS = 6
+ADKE_SOURCE_FLOPS = 10
+ADKE_DEST_FLOPS = 8
+#: ADKE's sets' minimum image on a periodic axis, a candidate and a pair:
+#: d - L s, with L s known from the stencil range's wrap s (csrc/
+#: adke_pair.cu; the division that it keeps for a particle past the box's
+#: end since its binning is not work the function needs)
+ADKE_IMAGE_FLOPS = 1
 #: gsph_pair.cu, beside pair_of (GASD_PAIR_FLOPS): the gradients' factor
 #: at hi and DWI, 1 / rhoj, the four differences and the 12 sums: 41
 #: beside the shape; the accelerations' e_ij, sij, vl, vr, the two grho
@@ -444,7 +454,7 @@ def fitted_cells(grid, dest, dest_cells, sources):
 
 
 def _gas_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-              reads, paired):
+              reads, paired, image_flops=IMAGE_FLOPS):
     """The shared count of ``gasd_work`` and ``gsph_work``: each
     source's pairs in support and ``paired(i, j, src, source)``, their
     flops, the support tests of the candidates and the bytes on
@@ -460,11 +470,12 @@ def _gas_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
     few percent more where it was sized for the widest h of the steps
     before (the accuracy test at 256^2 after its first chunk: 4.26 and
     4.03 a pair against 4.03 and 3.90); ``pair_flops`` leaves out the
-    support tests: the work of the pairs alone."""
+    support tests: the work of the pairs alone; a support test's minimum
+    image costs ``image_flops`` a periodic axis."""
     terms = 0
     work = dict(candidates=0, walk_candidates=0, visited=0, pairs=0,
                 flops=0, pair_flops=0, bytes=0)
-    image = IMAGE_FLOPS * sum(grid.periodic)
+    image = image_flops * sum(grid.periodic)
     n = dest['x'].shape[0]
     fit, fit_dest, fit_src = fitted_cells(grid, dest, dest_cells, sources)
     for (src, cells, s), fcells in zip(sources, fit_src):
@@ -489,13 +500,20 @@ def gasd_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     """Work of one ``gasd_pair`` call (``_gas_work``; the stencil wrapped
     on a periodic grid): the momentum sets' viscosity counted on the
     pairs that approach (``dot <= 0`` under MPM, ``dot < 0`` under ADKE:
-    ``v_ij . x_ij``) in this call's data."""
+    ``v_ij . x_ij``) in this call's data; ADKE's terms of one particle
+    alone once a source and a dest with a pair, and its minimum image at
+    ``ADKE_IMAGE_FLOPS`` an axis."""
     shape = SHAPE_FLOPS[kernel_kind(kernel)]
-    image = IMAGE_FLOPS * sum(grid.periodic)
+    adke = any(s.terms & (gd.ADEN | gd.ADKE) for _, _, s in sources)
+    axis = ADKE_IMAGE_FLOPS if adke else IMAGE_FLOPS
+    image = axis * sum(grid.periodic)
 
     def paired(i, j, src, s):
         flops = i.numel() * (GASD_PAIR_FLOPS + image + GASD_SET_FLOPS[
             s.terms] + GASD_SHAPES[s.terms] * shape)
+        if s.terms & gd.ADKE:
+            flops += ADKE_SOURCE_FLOPS * int(torch.unique(j).numel()) + \
+                ADKE_DEST_FLOPS * int(torch.unique(i).numel())
         if s.terms & (gd.MPM | gd.ADKE):
             dot = sum(
                 (dest[v][i] - src[v][j]) * grid.image(d, dest[c][i] -
@@ -507,7 +525,7 @@ def gasd_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
         return flops
 
     return _gas_work(dest, dest_cells, write_mask, pre, sources, grid,
-                     kernel, gd._reads, paired)
+                     kernel, gd._reads, paired, axis)
 
 
 def riemann_flops(params):

@@ -7,7 +7,11 @@ dest's pairs in support equal to the plain version's; the acceleration
 under every Riemann solver and every branch (``gasd_check.BRANCHES``);
 the eleven device Riemann solvers against the torch ones; a CUDA tensor
 with an unknown solver refused, not run on the plain version; the runs
-in chunks against the per-step loop bit for bit; and the linked pair:
+in chunks against the per-step loop bit for bit; ADKE's sets
+(``csrc/adke_pair.cu``, a group of lanes a dest) on periodic grids of 1,
+2, 3, 5 and 8 cells an axis and on probe dests that fill no whole block,
+a third of them without a pair, each launch repeated bit for bit; and
+the linked pair:
 the acceleration on the gradients launch's list bit for bit the walking
 launch, on the accuracy test (periodic) and the shock tube (open), with
 the list's capacity cut so that some warps walk.
@@ -58,6 +62,37 @@ def test_gas_scheme_sets_match_plain_versions(dtype, run, size, scheme):
                              TOL[dtype])
     assert gs.gsph_pair.launches == (2 if scheme == 'gsph' else 0)
     assert found['pairs'] > 0 and found['nnbr_differ'] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cells', [1, 2, 3, 5, 8, None])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_adke_sets_on_few_cells_and_probes(dtype, cells):
+    """ADKE's sets on a periodic grid of ``cells`` cells an axis (the
+    image by the range's wrap and by the division both taken) or, at
+    None, on an open grid with probe dests (``gasd_check.adke_calls``):
+    one launch of the ADKE library a call, the pairs and each dest's
+    count exactly the plain version's, every output within the
+    tolerance."""
+    _need_card()
+    calls = gasd_check.adke_calls(cells, dtype)
+    gd.gasd_pair.adke_launches = 0
+    found = gasd_check.check(calls, 'adke cells %s %s' % (cells, dtype),
+                             TOL[dtype])
+    assert gd.gasd_pair.adke_launches == len(calls)
+    assert found['pairs'] > 0 and found['nnbr_differ'] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('run,size', RUNS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_adke_launches_repeat_bit_for_bit(dtype, run, size):
+    _need_card()
+    calls, n, _ = gasd_check.calls(run, size, dtype,
+                                   extra=('--scheme', 'adke'))
+    assert gasd_check.repeats(calls) == 2 * n
+    assert gasd_check.repeats(gasd_check.adke_calls(None, dtype)) == 2 * (
+        gasd_check.ADKE_LATTICE ** 2 + gasd_check.ADKE_PROBES)
 
 
 @pytest.mark.cuda
