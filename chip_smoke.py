@@ -5,8 +5,8 @@
 Phases (any failure propagates; the exit code is then not 0):
 
 1. the card's name and power limit (``nvidia-smi``); no CUDA, no run;
-2. build the fifteen CUDA sources of ``pysph_tpu_torch/csrc`` (the
-   twelve pair and probe kernels, IISPH's pressure solve ``iisph_solve``,
+2. build the seventeen CUDA sources of ``pysph_tpu_torch/csrc`` (the
+   fourteen pair and probe kernels, IISPH's pressure solve ``iisph_solve``,
    the source pack ``cell_pack`` and the binning ``bin_cells``), ``tvf_pair``'s EDAC library (``-DTVF_EDAC``) and the
    libraries of the later smoothing-kernel kinds (4-7,
    ``csrc/shapes.cuh``) of the five pair kernels that take kinds, with
@@ -295,7 +295,23 @@ Phases (any failure propagates; the exit code is then not 0):
    dests of an open grid (``gasd_check.adke_calls``) in both dtypes, the
    pairs and counts equal; each launch at full width repeated bit for
    bit; 20 steps of the accuracy test under adke at 256^2 in chunks bit
-   for bit the per-step loop, and 200 steps timed in chunks;
+   for bit the per-step loop, and 200 steps timed in chunks; then
+   ``CRKSPHScheme`` on ``crksph_pair`` (``_crksph_phase``): its six sets
+   of both evaluators against their plain versions in float64 and
+   float32 (``tools_dev/crksph_check.py``: within TOL of max|ref|, each
+   dest's pairs equal) on the accuracy test at 256^2 (periodic, after a
+   jittered step), an open 12^2 box with a singular particle and an open
+   6^3 box, with its registers and spills by instantiation; the accuracy
+   test at 32^2 to tf (L1), the hydrostatic box's default at nx=50 for
+   200 steps (its largest speed under ``HYDROSTATIC_STILL``, rho's
+   spread) in float64 and Taylor-Green ``--scheme crksph`` at nx=100
+   (``TG_CRKSPH_NX``) for 200 steps in float32 against the JAX package's
+   figures (``JAX_CRKSPH``, ``JAX_DECAY['crksph']``); the accuracy test at 256^2 in float32: 20 steps in
+   chunks bit for bit the per-step loop, 200 steps timed in chunks of 10
+   and per step (``_accuracy_drive``: every pair phase of both
+   evaluators on ``crksph_pair``, a step's launches, host reads, device
+   ms by layer and idle share), the ``post_loop`` solve timed alone, and
+   each set timed there beside its bound;
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -381,6 +397,7 @@ from pysph_tpu_torch.examples.poiseuille import PoiseuilleFlow, profile_error
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen, decay_errors
 from pysph_tpu_torch.ops import bin_cells as bc
 from pysph_tpu_torch.ops import build, cell_pack, cell_walk
+from pysph_tpu_torch.ops import crksph_pair as cp
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
@@ -395,7 +412,9 @@ from pysph_tpu_torch.ops import pair_link as pl
 from pysph_tpu_torch.ops import pair_stub as stub
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops.pair_engine import PairSource
+from pysph_tpu_torch.sph.wc import crksph
 from pysph_tpu_torch.tools_dev import bin_check, delta_check, iisph_check
+from pysph_tpu_torch.tools_dev import crksph_check
 from pysph_tpu_torch.tools_dev import gasd_check
 from pysph_tpu_torch.tools_dev import micro_engine as tool_engine
 from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
@@ -421,7 +440,16 @@ JAX_DECAY = {'wcsph': (1.000178380345958, 0.009089970207746673),
              'edac': (1.0016999426061108, 0.0006807834743331017),
              'wcsph delta': (0.9986821392914745, 0.008999829297085801),
              'wcsph summation': (1.000352147793546, 0.009079249251684698),
-             'wcsph tensile': (1.0001777789107333, 0.009101093339999769)}
+             'wcsph tensile': (1.0001777789107333, 0.009101093339999769),
+             # at TG_CRKSPH_NX (``... --scheme crksph --nx 100 --steps
+             # 200``): at nx=400 the JAX package's run printed NaN
+             'crksph': (1.0003998103748453, 0.050676097729411056)}
+#: the Taylor-Green vortex's ``--scheme crksph`` gate size: the example
+#: starts CRKSPH at e = 0 (p = 0, cs = 0), and at nx=400 e falls below 0
+#: somewhere within 200 steps, where cs is NaN: the JAX package's run
+#: printed NaN, the port's raises FloatingPointError at its read (both
+#: float32); at nx=100 both stay finite for 200 steps
+TG_CRKSPH_NX = 100
 #: the JAX package's ``post_process`` error against the exact steady
 #: profile (max |u - ue| over max |ue|) of Poiseuille's and Couette's
 #: flow run as the examples define themselves (to tf = 100) in float32 on
@@ -496,6 +524,22 @@ JAX_SHOCKTUBE_SCHEMES = {
              'u': 0.009568452084448117},
     'adke': {'rho': 0.19249611921569626, 'p': 0.2167222541130143,
              'u': 0.19141747246591215}}
+#: the JAX package's figures of the CRKSPH runs (the JAX solver's per-step
+#: loop): ``accuracy``, accuracy_test_2d --nparticles 32 to tf = 1.0 in
+#: float64, its L1 error of rho (``python tests/jax_gasd_figures.py
+#: accuracy_test_2d --nparticles 32 --scheme crksph``; 32^2, as its 64^2
+#: run took over 20 minutes on the CPU); ``hydrostatic``, the
+#: hydrostatic box's default scheme at --nx 50 after 200 steps in float64
+#: (``python tests/jax_gasd_figures.py hydrostatic_box --nx 50 --steps
+#: 200 --scheme crksph``); Taylor-Green's is JAX_DECAY['crksph'], at
+#: TG_CRKSPH_NX
+JAX_CRKSPH = {'accuracy': (32, 7.707702803696342e-07),
+              'hydrostatic': {'max_speed': 3.852790224035833e-15,
+                              'rho_spread': 0.00015512394441330457}}
+#: nothing moves in the hydrostatic box under CRKSPH: the JAX package's
+#: largest speed after 200 steps is rounding (3.9e-15), which no relative
+#: bar can hold; the port's must stay below this
+HYDROSTATIC_STILL = 1e-12
 #: the accuracy test at full width: its particles a side, the steps timed,
 #: and the JAX package's slow test's bar on its L1 at tf = 1.0
 #: (tests/test_examples_quantitative.py)
@@ -990,7 +1034,7 @@ def _integrators_phase():
         del app, s
 
 
-def _tg_decay(out, solver, key='tvf'):
+def _tg_decay(out, solver, key='tvf', nx=400):
     """max |v| and the L1 error of |v| of the Taylor-Green run's final
     state against the exact decay (into ``out``); ``key``: the scheme and
     the option of the run.  ``tvf``: max |v|
@@ -1022,10 +1066,10 @@ def _tg_decay(out, solver, key='tvf'):
         if key == 'edac':
             bars += '; exact bar 5%'
             ok = ok and abs(ratio - 1.0) < 0.05
-    print('taylor_green %s nx=400 float32 at t=%.6g after %d steps: max|v| '
+    print('taylor_green %s nx=%d float32 at t=%.6g after %d steps: max|v| '
           '%.6f, exact decay of the start\'s %.6f: %.6f (ratio %.6f); L1 '
           'error of |v| %.4g (%s)' % (
-              key, solver.t, solver.count, vmax, out['vmax0'],
+              key, nx, solver.t, solver.count, vmax, out['vmax0'],
               out['vmax0'] * exact, ratio, l1, bars), flush=True)
     if not ok:
         raise AssertionError('the Taylor-Green vortex (%s) missed its '
@@ -3327,7 +3371,27 @@ def _gsph_path_candidates():
 
 #: the pair kernels of the accuracy test's path under each scheme
 ACCURACY_KERNELS = {'gsph': (gs.gsph_pair, gd.gasd_pair),
-                    'adke': (gd.gasd_pair, wp.wcsph_pair)}
+                    'adke': (gd.gasd_pair, wp.wcsph_pair),
+                    'crksph': (cp.crksph_pair,)}
+#: a crksph_pair kernel's set, by its functor's name in a trace
+CRKSPH_SETS = {'NumDen': 'number density', 'Moments': 'moments',
+               'Density': 'density', 'GradV': 'velocity gradient',
+               'Mom<': 'momentum', 'Energy': 'energy'}
+
+
+def _layer(name):
+    """The layer of a kernel of the accuracy test's trace."""
+    if 'crksph_pair' in name:
+        return 'crksph_pair ' + next(
+            (v for k, v in CRKSPH_SETS.items() if k in name), '?')
+    return ('gsph_pair acceleration' if 'gsph_pair' in name and
+            'Acceleration' in name else 'gsph_pair gradients'
+            if 'gsph_pair' in name else 'gasd_pair'
+            if 'gasd_pair' in name else 'adke_pair'
+            if 'adke_' in name else 'wcsph_pair'
+            if 'wcsph_pair' in name else 'pack' if 'pack' in name
+            else 'binning' if 'bin::' in name
+            else 'elementwise and copies')
 
 
 def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
@@ -3369,14 +3433,7 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
         per = 1
     layers = {}
     for name, us in trace['busy'].items():
-        key = ('gsph_pair acceleration' if 'gsph_pair' in name and
-               'Acceleration' in name else 'gsph_pair gradients'
-               if 'gsph_pair' in name else 'gasd_pair'
-               if 'gasd_pair' in name else 'adke_pair'
-               if 'adke_' in name else 'wcsph_pair'
-               if 'wcsph_pair' in name else 'pack' if 'pack' in name
-               else 'binning' if 'bin::' in name
-               else 'elementwise and copies')
+        key = _layer(name)
         layers[key] = layers.get(key, 0.0) + us / 1e3 / per
     cells = {b.name: b.cells(s.grid).dims
              for b in s.acceleration_evals[0].kept_binnings()}
@@ -3391,7 +3448,9 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
                step_busy_ms=(trace['span_us'] - trace['idle_us']) / 1e3 / per,
                step_span_ms=trace['span_us'] / 1e3 / per,
                idle_share=trace['idle_us'] / trace['span_us'],
-               layers=layers, gaps=trace['gaps'])
+               layers=layers, gaps=trace['gaps'],
+               engines=[sorted(set(a.engine_choices.values()))
+                        for a in s.acceleration_evals])
     how = 'in chunks of %d' % chunk_steps if chunk_steps > 1 else 'per step'
     print('accuracy_test_2d --scheme %s --nparticles %d float32 %s: %d '
           'steps to t=%.6g, median %.4f ms/step (min %.4f, max %.4f over %d '
@@ -3610,6 +3669,161 @@ def _gas_schemes_phase(kernels):
         'per step' % (ACCURACY_FULL, ADKE_STEPS)),
         source='pysph_tpu_torch/csrc/adke_pair.cu')
     return drive, per_step, adke_chunks, adke_run
+
+
+def _crksph_gates():
+    """The CRKSPH runs against the JAX package's figures (``JAX_CRKSPH``):
+    the accuracy test at 32^2 to tf and the hydrostatic box at nx=50 for
+    200 steps in float64, Taylor-Green at ``TG_CRKSPH_NX`` for 200 steps in
+    float32,
+    each in chunks with every pair phase of both evaluators on
+    ``crksph_pair``.  Returns the rows."""
+    rows = {}
+
+    def run(name, size, dtype, steps=0):
+        app = crksph_check.app(name, size, dtype, steps=steps)
+        s = app.solver
+        engines = [set(a.engine_choices.values())
+                   for a in s.acceleration_evals]
+        if engines != [{'kernel'}, {'kernel'}]:
+            raise AssertionError('crksph %s: pair phases off crksph_pair: '
+                                 '%s' % (name, engines))
+        cp.reset_launches()
+        st0 = {p: s.states['fluid'][p].double().cpu().numpy()
+               for p in 'uv'}
+        start = time.perf_counter()
+        app.solve()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - start
+        if not all(cp.crksph_pair.by_set):
+            raise AssertionError('crksph %s: a set never launched: %s' % (
+                name, cp.crksph_pair.by_set))
+        st = {p: v.double().cpu().numpy() for p, v in s.states['fluid'].items()
+              if v.is_floating_point()}
+        return s, st0, st, '%.1f s, launches by set %s' % (
+            secs, cp.crksph_pair.by_set)
+
+    size, l1_jax = JAX_CRKSPH['accuracy']
+    s, _, st, extra = run('accuracy_test_2d', size, torch.float64)
+    l1 = accuracy_test_2d.l1_norm(st['x'], st['y'], st['rho'])
+    if abs(s.t - 1.0) >= 1e-9:
+        raise AssertionError('accuracy crksph ended at t=%r' % s.t)
+    rows['accuracy'] = _gate_row(
+        'accuracy_test_2d --scheme crksph --nparticles %d float64 at t=%.8g '
+        'after %d steps' % (size, s.t, s.count), dict(l1=l1),
+        dict(l1=l1_jax), extra)
+    s, _, st, extra = run('hydrostatic_box', 50, torch.float64, STEPS)
+    figs = hydrostatic_box.figures(st['u'], st['v'], st['rho'], st['m'],
+                                   1.0 / 50)
+    want = JAX_CRKSPH['hydrostatic']
+    rows['hydrostatic'] = _gate_row(
+        'hydrostatic_box (crksph) --nx 50 float64 at t=%.8g after %d steps, '
+        'rho\'s spread' % (s.t, s.count), dict(rho_spread=figs['rho_spread']),
+        dict(rho_spread=want['rho_spread']), extra)
+    print('hydrostatic_box (crksph) --nx 50: largest speed %.3g (the JAX '
+          'package\'s %.3g; bar %.0e, HYDROSTATIC_STILL)' % (
+              figs['max_speed'], want['max_speed'], HYDROSTATIC_STILL),
+          flush=True)
+    if not figs['max_speed'] < HYDROSTATIC_STILL:
+        raise AssertionError('the hydrostatic box moved under crksph')
+    rows['hydrostatic']['max_speed'] = figs['max_speed']
+    s, st0, _, extra = run('taylor_green', TG_CRKSPH_NX, torch.float32,
+                           STEPS)
+    out = dict(vmax0=float(np.sqrt(st0['u'] ** 2 + st0['v'] ** 2).max()))
+    _tg_decay(out, s, key='crksph', nx=TG_CRKSPH_NX)
+    rows['taylor_green'] = out
+    print('taylor_green crksph nx=%d: %s' % (TG_CRKSPH_NX, extra),
+          flush=True)
+    return rows
+
+
+def _crksph_phase(kernels):
+    """``CRKSPHScheme`` on ``crksph_pair``: its six sets of both
+    evaluators against their plain versions in float64 and float32
+    (``crksph_check.check``) on the accuracy test at full width (periodic)
+    after a jittered step, on an open 2D box with a singular particle and
+    on an open 3D box; the JAX package's figures (``_crksph_gates``); the
+    accuracy test at full width in float32: 20 steps in chunks bit for
+    bit the per-step loop, 200 steps timed in chunks of 10 and per step
+    (``_accuracy_drive``: every pair phase of both evaluators on the
+    kernel, a step's launches, host reads, device ms by layer and idle
+    share), the ``post_loop`` solve timed alone; each set timed there
+    beside its bound, registers and spills by instantiation.  Adds the
+    entry ``crksph_pair``; returns (chunked run, per-step run)."""
+    t0 = time.perf_counter()
+    resources = crksph_check.resources()
+    print('crksph_pair registers and spill bytes (stores, loads) by '
+          'instantiation (QuinticSpline): %s' % resources, flush=True)
+    errs, full = {}, None
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL[dtype]
+        cases = [('accuracy_test_2d %d periodic' % ACCURACY_FULL,
+                  crksph_check.calls('accuracy_test_2d', ACCURACY_FULL,
+                                     dtype)[0])]
+        cases += [('%s box' % case, crksph_check.box_calls(case, dtype))
+                  for case in ('open', '3d')]
+        for label, calls in cases:
+            label = '%s %s' % (label, str(dtype)[6:])
+            if [c[2].op for c in calls] != [cp.crksph_pair] * 6:
+                raise AssertionError('crksph %s: not six crksph_pair calls'
+                                     % label)
+            f = crksph_check.check(calls, label, tol)
+            errs[label] = f
+            print('compare crksph_pair %s: max scaled err %.3g (tol %.0e), '
+                  'by set %s; %d pairs, 0 dests whose count differs' % (
+                      label, f['max_scaled_err'], tol,
+                      {k: float('%.3g' % v) for k, v in f['by_set'].items()},
+                      f['pairs']), flush=True)
+        if dtype == torch.float32:
+            full = cases[0][1]
+    gates = _crksph_gates()
+    _chunks_match('crksph')
+    drive, _ = _accuracy_drive(STEPS, 10, 'crksph')
+    per_step, final = _accuracy_drive(STEPS, 1, 'crksph')
+    for r in (drive, per_step):
+        if r['engines'] != [['kernel'], ['kernel']]:
+            raise AssertionError('accuracy crksph: pair phases off the '
+                                 'kernel: %s' % r['engines'])
+    # the post_loop's batched solve alone, on the run's moments
+    n = final['x'].shape[0]
+    moments = (final['crk_m0'], final['crk_m1'][:, :2],
+               final['crk_m2'][:, :4].reshape(n, 2, 2),
+               final['crk_gm0'][:, :2],
+               final['crk_gm1'][:, :4].reshape(n, 2, 2),
+               final['crk_gm2'][:, :8].reshape(n, 2, 2, 2),
+               final['crk_nnbr'])
+    solve_ms = graph_ms(lambda: crksph.crk_solve(*moments, 2), 20)
+    sets = crksph_check.set_times(full)
+    for name, t in sets.items():
+        w = t['work']
+        print('crksph_pair %s, accuracy_test_2d %d float32: %.4f ms in a '
+              'graph (eager %.4f, plain %.3f); bound %.4f ms (%s: %.4g '
+              'flops, %d candidates, %d pairs, %d B), share %.1f%%' % (
+                  name, ACCURACY_FULL, t['ms'], t['eager_ms'], t['plain_ms'],
+                  t['bound_ms'], t['bound_by'], w['flops'], w['candidates'],
+                  w['pairs'], w['bytes'], 100 * t['bound_ms'] / t['ms']),
+              flush=True)
+    print('crksph post_loop solve, accuracy_test_2d %d float32: %.4f ms in '
+          'a graph' % (ACCURACY_FULL, solve_ms), flush=True)
+    work = roofline.add(*[t['work'] for t in sets.values()])
+    kernels['crksph_pair'] = _entry(
+        'crksph_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
+        per_step['launches']['crksph_pair'],
+        errs['accuracy_test_2d %d periodic float32' % ACCURACY_FULL][
+            'max_abs_err'],
+        sum(t['ms'] for t in sets.values()),
+        sum(t['plain_ms'] for t in sets.values()), work, None,
+        eager_ms=sum(t['eager_ms'] for t in sets.values()), sets={
+            k: {n: v for n, v in t.items() if n != 'work'}
+            for k, t in sets.items()},
+        solve_ms=solve_ms, resources=resources, gates=gates, run=drive,
+        per_step_run=per_step,
+        checks={k: v['max_scaled_err'] for k, v in errs.items()},
+        seconds=time.perf_counter() - t0,
+        path='accuracy_test_2d --scheme crksph %d^2 float32, the six pair '
+        'calls of one step (two evaluators), each walking; launches: %d '
+        'steps of that run per step' % (ACCURACY_FULL, STEPS))
+    return drive, per_step
 
 
 def _kinds_row():
@@ -4146,8 +4360,8 @@ def main():
         print('phase %s: %.1f s (%.1f s since the builds began)' % (
             label, laps[-1] - laps[-2], laps[-1] - t0), flush=True)
 
-    names = ('gsph_pair', 'iisph_pair', 'iisph_solve', 'gasd_pair',
-             'adke_pair', 'tvf_pair',
+    names = ('gsph_pair', 'crksph_pair', 'iisph_pair', 'iisph_solve',
+             'gasd_pair', 'adke_pair', 'tvf_pair',
              'wcsph_pair',
              'gtvf_pair', 'dense_pair', 'fused_pair', 'micro_launch',
              'micro_engine', 'pair_stub', 'cell_pack', 'bin_cells',
@@ -4351,6 +4565,9 @@ def main():
     gsph_run, gsph_step, adke_chunks, adke_step = _gas_schemes_phase(
         kernels)
     lap('GSPHScheme and ADKEScheme')
+    # CRKSPHScheme: the accuracy test, the hydrostatic box and Taylor-Green
+    crk_run, crk_step = _crksph_phase(kernels)
+    lap('CRKSPHScheme')
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
@@ -4502,6 +4719,14 @@ def main():
           'of 10 (%d steps) / per step (%d steps):' % (
               ACCURACY_FULL, STEPS, ADKE_STEPS))
     for how, r in (('chunks', adke_chunks), ('per step', adke_step)):
+        print('  %-9s %.4f ms/step; launches %s; host reads %.3f; busy '
+              '%.4f ms, idle share %.1f%%; device ms by layer %s' % (
+                  how, r['ms'], r['launches_per_step'], r['reads_per_step'],
+                  r['step_busy_ms'], 100 * r['idle_share'],
+                  {k: round(v, 4) for k, v in r['layers'].items()}))
+    print('accuracy_test_2d --scheme crksph %d^2 float32 (a step, two '
+          'evaluators), in chunks of 10 / per step:' % ACCURACY_FULL)
+    for how, r in (('chunks', crk_run), ('per step', crk_step)):
         print('  %-9s %.4f ms/step; launches %s; host reads %.3f; busy '
               '%.4f ms, idle share %.1f%%; device ms by layer %s' % (
                   how, r['ms'], r['launches_per_step'], r['reads_per_step'],

@@ -30,7 +30,7 @@
 #include <stdint.h>
 
 constexpr int kMaxPackSources = 4;
-constexpr int kMaxPlanes = 7;
+constexpr int kMaxPlanes = 10;
 
 struct PackSrc {
   // plane q, record k: {prop[q][c][stride[q][c] * order[k]]}, c = 0..3;

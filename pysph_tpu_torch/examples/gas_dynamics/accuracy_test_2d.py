@@ -11,13 +11,15 @@ default: ``GSPHScheme`` with the local Lax-Friedrichs solver, I02
 monotonicity, linear interpolation; Euler with ``GSPHStep``; the
 density groups on ``gasd_pair``, the gradients and accelerations on
 ``gsph_pair``), ``mpm`` (``GasDScheme`` with kernel_factor 1.5 and no
-viscosity, adaptive dt) and ``adke`` (``ADKEScheme`` with k = 1.5, no
-viscosity or conduction) are ported; the reference's ``crksph``,
-``psph``, ``tsph`` and ``magma2`` raise ``NotImplementedError`` naming
-their ROADMAP item.  On an NVIDIA card:
+viscosity, adaptive dt), ``adke`` (``ADKEScheme`` with k = 1.5, no
+viscosity or conduction) and ``crksph`` (``CRKSPHScheme`` with cl = 2,
+no viscosity: ``CRKSPHIntegrator``, two evaluators a step,
+``QuinticSpline``; its six pair phase sets on ``crksph_pair``) are
+ported; the reference's ``psph``, ``tsph`` and ``magma2`` raise
+``NotImplementedError`` naming their ROADMAP item.  On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.gas_dynamics.accuracy_test_2d \\
-        --disable-output
+        --disable-output [--scheme mpm|adke|crksph]
 
 On the CPU: ``--device cpu --use-double --nparticles 32``.
 ``post_process`` prints and returns the last dump's ``l1_norm``.
@@ -30,6 +32,7 @@ from pysph_tpu_torch.base.utils import get_particle_array as gpa
 from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.scheme import (
     ADKEScheme, GasDScheme, GSPHScheme, NotPortedScheme, SchemeChooser)
+from pysph_tpu_torch.sph.wc.crksph import CRKSPHScheme
 from pysph_tpu_torch.tools import uniform_distribution as ud
 
 dim = 2
@@ -47,7 +50,6 @@ kernel_factor = 1.5
 
 #: the reference's other schemes: the ROADMAP item that ports them
 _NOT_PORTED = {
-    'crksph': 'ROADMAP Queue 1 item 28, remaining physics',
     'psph': 'ROADMAP Queue 1 item 28, remaining physics',
     'tsph': 'ROADMAP Queue 1 item 28, remaining physics',
     'magma2': 'ROADMAP Queue 1 item 28, remaining physics',
@@ -127,6 +129,9 @@ class AccuracyTest2D(Application):
             fluids=['fluid'], solids=[], dim=dim, gamma=gamma,
             kernel_factor=kernel_factor, alpha1=0, alpha2=0,
             beta=beta)
+        crksph = CRKSPHScheme(
+            fluids=['fluid'], dim=dim, rho0=0, c0=0, nu=0, h0=0,
+            p0=0, gamma=gamma, cl=2)
         gsph = GSPHScheme(
             fluids=['fluid'], solids=[], dim=dim, gamma=gamma,
             kernel_factor=1.0, g1=0.0, g2=0.0, rsolver=7,
@@ -135,7 +140,7 @@ class AccuracyTest2D(Application):
         others = {name: NotPortedScheme(name, item)
                   for name, item in _NOT_PORTED.items()}
         return SchemeChooser(default='gsph', adke=adke, mpm=mpm, gsph=gsph,
-                             **others)
+                             crksph=crksph, **others)
 
     def configure_scheme(self):
         s = self.scheme

@@ -4,17 +4,18 @@ light medium, in a box periodic in x and y; nothing should move.
 Port of ``pysph_tpu/examples/gas_dynamics/hydrostatic_box.py``: a cubic
 lattice of ``--nx`` x ``--nx`` particles on [0, 1]^2 (50 by default) at
 p = 1, rho 4 inside (0.25, 0.75)^2 and 1 outside (the masses dx^2 rho
-set it), gamma 1.5, h = 1.5 dx, dt = 1e-3 to tf = 10.  ``--scheme gsph``
-(``GSPHScheme``, the local Lax-Friedrichs solver; Euler with
-``GSPHStep``), ``mpm`` (``GasDScheme``, kernel_factor 1.2, no viscosity)
-and ``adke`` (``ADKEScheme``: alpha = beta = 0.1, k = 1.5, g1 = g2 =
-0.1) are ported; ``gsph`` and ``mpm`` take the adaptive dt.  The
-reference's default, ``crksph``, and its ``psph``, ``tsph`` and
-``magma2`` raise ``NotImplementedError`` naming their ROADMAP item, so
-the scheme is chosen with ``--scheme``.  On an NVIDIA card:
+set it), gamma 1.5, h = 1.5 dx, dt = 1e-3 to tf = 10.  The default,
+``--scheme crksph`` (``CRKSPHScheme``, cl = 2, no viscosity;
+``CRKSPHIntegrator``, two evaluators a step, ``QuinticSpline``; its six
+pair phase sets on ``crksph_pair``), ``gsph`` (``GSPHScheme``, the local
+Lax-Friedrichs solver; Euler with ``GSPHStep``), ``mpm`` (``GasDScheme``,
+kernel_factor 1.2, no viscosity) and ``adke`` (``ADKEScheme``: alpha =
+beta = 0.1, k = 1.5, g1 = g2 = 0.1) are ported; ``gsph`` and ``mpm`` take
+the adaptive dt.  The reference's ``psph``, ``tsph`` and ``magma2`` raise
+``NotImplementedError`` naming their ROADMAP item.  On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.gas_dynamics.hydrostatic_box \\
-        --scheme gsph --max-steps 200 --disable-output
+        --max-steps 200 --disable-output [--scheme gsph|mpm|adke]
 
 On the CPU: ``--device cpu --use-double``.  ``figures`` gives a state's
 largest speed and the largest relative departure of rho from the
@@ -28,11 +29,11 @@ from pysph_tpu_torch.base.utils import get_particle_array as gpa
 from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.scheme import (
     ADKEScheme, GasDScheme, GSPHScheme, NotPortedScheme, SchemeChooser)
+from pysph_tpu_torch.sph.wc.crksph import CRKSPHScheme
 from pysph_tpu_torch.tools import uniform_distribution as ud
 
 #: the reference's other schemes: the ROADMAP item that ports them
 _NOT_PORTED = {
-    'crksph': 'ROADMAP Queue 1 item 28, remaining physics',
     'psph': 'ROADMAP Queue 1 item 28, remaining physics',
     'tsph': 'ROADMAP Queue 1 item 28, remaining physics',
     'magma2': 'ROADMAP Queue 1 item 28, remaining physics',
@@ -107,13 +108,16 @@ class HydrostaticBox(Application):
             fluids=['fluid'], solids=[], dim=2, gamma=self.gamma,
             kernel_factor=1.2, alpha1=0, alpha2=0, beta=2.0,
             update_alpha1=False, update_alpha2=False)
+        crk = CRKSPHScheme(
+            fluids=['fluid'], dim=2, rho0=0, c0=0, nu=0, h0=0, p0=0,
+            gamma=self.gamma, cl=2)
         adke = ADKEScheme(
             fluids=['fluid'], solids=[], dim=2, gamma=self.gamma,
             alpha=0.1, beta=0.1, k=1.5, eps=0.0, g1=0.1, g2=0.1)
         others = {name: NotPortedScheme(name, item)
                   for name, item in _NOT_PORTED.items()}
-        return SchemeChooser(default='crksph', adke=adke, mpm=mpm,
-                             gsph=gsph, **others)
+        return SchemeChooser(default='crksph', crksph=crk, adke=adke,
+                             mpm=mpm, gsph=gsph, **others)
 
     def configure_scheme(self):
         s = self.scheme

@@ -3,7 +3,7 @@
 Port of ``pysph_tpu/examples/taylor_green.py``: a unit box periodic in x
 and y holds the vortices ``u = -U cos(2 pi x) sin(2 pi y)``, ``v = U
 sin(2 pi x) cos(2 pi y)``, whose speed decays as ``U exp(-8 pi^2 t /
-Re)`` (``exact_solution``).  Five of the reference's schemes, each
+Re)`` (``exact_solution``).  Six of the reference's schemes, each
 with ``QuinticSpline`` and a fixed dt, their pair phases on the periodic
 grid:
 
@@ -22,12 +22,16 @@ grid:
   ``EDACTVFStep``), on ``tvf_pair``, linked;
 - ``--scheme iisph`` (``IISPHScheme`` with ``ViscosityAcceleration``:
   Euler with ``IISPHStep``, the pressure solve iterated 2 to 30 sweeps a
-  step), on ``iisph_pair``, linked.
+  step), on ``iisph_pair``, linked;
+- ``--scheme crksph`` (``CRKSPHScheme`` with ``LaminarViscosity`` at
+  ``nu = 1 / Re``; ``CRKSPHIntegrator``, two evaluators a step), on
+  ``crksph_pair``.
 
 On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.taylor_green --nx 400 \\
-        --max-steps 200 --disable-output [--scheme wcsph|gtvf|edac|iisph]
+        --max-steps 200 --disable-output \\
+        [--scheme wcsph|gtvf|edac|iisph|crksph]
 
 (160,000 particles, h = dx = 2.5e-3, dt = 5.68e-5 s); ``--nx 50`` (the
 default, 2,500 particles) is the reference's size.  On the CPU:
@@ -48,6 +52,7 @@ from pysph_tpu_torch.solver.application import Application
 from pysph_tpu_torch.sph.scheme import (
     NotPortedScheme, SchemeChooser, TVFScheme, WCSPHScheme)
 from pysph_tpu_torch.sph.iisph import IISPHScheme
+from pysph_tpu_torch.sph.wc.crksph import CRKSPHScheme
 from pysph_tpu_torch.sph.wc.edac import EDACScheme
 from pysph_tpu_torch.sph.wc.gtvf import GTVFScheme
 
@@ -59,7 +64,6 @@ p0 = c0 ** 2 * rho0
 
 #: the reference's other schemes: the ROADMAP items that port them
 _NOT_PORTED = {
-    'crksph': 'ROADMAP Queue 1 item 28, remaining physics',
     'pcisph': 'ROADMAP Queue 1 item 28, remaining physics',
     'sisph': 'ROADMAP Queue 1 item 28, remaining physics',
     'isph': 'ROADMAP Queue 1 item 28, remaining physics',
@@ -118,11 +122,13 @@ class TaylorGreen(Application):
                           nu=None, pb=p0, h=None)
         iisph = IISPHScheme(fluids=['fluid'], solids=[], dim=2, nu=None,
                             rho0=rho0)
+        crksph = CRKSPHScheme(fluids=['fluid'], dim=2, nu=None,
+                              rho0=rho0, h0=None, c0=c0, p0=0.0)
         others = {name: NotPortedScheme(name, item)
                   for name, item in _NOT_PORTED.items()}
         return SchemeChooser(default='tvf', wcsph=wcsph, tvf=tvf,
                              gtvf=gtvf, edac=edac, iisph=iisph,
-                             **others)
+                             crksph=crksph, **others)
 
     def configure_scheme(self):
         h0 = self.hdx * self.dx
@@ -139,6 +145,8 @@ class TaylorGreen(Application):
                                   pb=self.options.pb_factor * p0)
         elif choice == 'iisph':
             self.scheme.configure(nu=self.nu)
+        elif choice == 'crksph':
+            self.scheme.configure(h0=h0, nu=self.nu)
         self.scheme.configure_solver(kernel=QuinticSpline(dim=2),
                                      tf=self.tf, dt=self.dt)
         self.scheme.get_solver().set_print_freq(

@@ -32,7 +32,7 @@ from pysph_tpu_torch.ops.build import data_ptr
 
 MAX_SOURCES = 4
 #: record planes a source can pack (csrc/cell_pack.cuh kMaxPlanes)
-MAX_PLANES = 7
+MAX_PLANES = 10
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,6 @@
 """Planning: which pair phases a hand-written pair kernel runs.
 
-Eight kernels take a dest's pair phases, all its sources in one call:
+Nine kernels take a dest's pair phases, all its sources in one call:
 
 - ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path, the
   elliptical drop and the Taylor-Green vortex's ``--scheme wcsph``):
@@ -55,7 +55,15 @@ Eight kernels take a dest's pair phases, all its sources in one call:
   accuracy test, the hydrostatic box and the shock tube): every source
   of a dest takes ``GSPHGradients`` (the gradients) or every source
   ``GSPHAcceleration`` with the same constants (the accelerations), each
-  plan taking the step's t and dt (``PairPlan.takes_time``).
+  plan taking the step's t and dt (``PairPlan.takes_time``);
+- ``crksph_pair`` (``ops/crksph_pair.py``, ``CRKSPHScheme``'s groups: the
+  accuracy test, the hydrostatic box and the Taylor-Green vortex): every
+  source of a dest takes one of its six ordered sets (``_crksph_sets``),
+  the same set with the same constants.  ``CRKSPHSymmetric`` rewrites
+  ``DWIJ``, ``DWI`` and ``DWJ`` for the equation after it, as
+  ``GradientCorrection`` does, so its planner accepts exactly those
+  orders; a 1D dest raises ``NotImplementedError`` (ROADMAP Queue 1 item
+  27) rather than leave it to the torch engine.
 
 Every kernel takes every kernel with a ``kernel_kind`` (not the ``_1D``
 ones: ROADMAP Queue 1 item 28; where a set is ``gasd_pair``'s or
@@ -103,7 +111,8 @@ The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
 sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair``, the
 delta-SPH pre-phases onto ``delta_pair``, TVF's and EDAC's sets onto
 ``tvf_pair``, IISPH's onto ``iisph_pair``, the MPM and ADKE sets onto
-``gasd_pair`` and GSPH's onto ``gsph_pair``; ``dense`` plans the WCSPH sets
+``gasd_pair``, GSPH's onto ``gsph_pair`` and CRKSPH's onto
+``crksph_pair``; ``dense`` plans the WCSPH sets
 without delta-SPH terms onto ``dense_pair`` and nothing else, as the JAX
 package's dense-slot engine refuses sequential and strided phases
 (``pallas_engine.py:855-861``): the GTVF sets, the delta-SPH pre-phases
@@ -115,6 +124,7 @@ import logging
 from typing import Callable, NamedTuple, Optional
 
 from pysph_tpu_torch.base.kernels import kernel_kind
+from pysph_tpu_torch.ops import crksph_pair as _cp
 from pysph_tpu_torch.ops import delta_pair as _dl
 from pysph_tpu_torch.ops import dense_pair as _dp
 from pysph_tpu_torch.ops import gasd_pair as _gd
@@ -515,8 +525,67 @@ def _plan_gsph(dest, sources, kernel):
                     takes_time=True)
 
 
+def _crksph_sets():
+    """``crksph_pair``'s term masks by the equation types of a source, in
+    order."""
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.wc import crksph
+    sym = crksph.CRKSPHSymmetric
+    return {(crksph.NumberDensity,): _cp.NDEN,
+            (crksph.CRKSPHPreStep,): _cp.MOMS,
+            (sym, crksph.SummationDensityCRKSPH): _cp.RHO,
+            (sym, crksph.VelocityGradient): _cp.GRADV,
+            (sym, crksph.MomentumEquation): _cp.MOM,
+            (sym, crksph.MomentumEquation, LaminarViscosity):
+                _cp.MOM | _cp.VISC,
+            (sym, crksph.EnergyEquation): _cp.ENERGY}
+
+
+def _crksph_constants(eqs):
+    """The kernel's constants of one source's equations."""
+    from pysph_tpu_torch.sph.wc import crksph
+    out = {}
+    for eq in eqs:
+        if isinstance(eq, (crksph.MomentumEquation, crksph.EnergyEquation)):
+            out.update(cl=float(eq.cl), cq=float(eq.cq),
+                       eta_crit=float(eq.eta_crit),
+                       eta_fold=float(eq.eta_fold),
+                       gamma=float(getattr(eq, 'gamma', 0.0)))
+        elif isinstance(eq, LaminarViscosity):
+            out.update(nu=float(eq.nu), eta=float(eq.eta))
+    return out
+
+
+def _plan_crksph(dest, sources, kernel):
+    if len(sources) > _cp.MAX_SOURCES:
+        raise PairIneligible('%d sources (at most %d)'
+                             % (len(sources), _cp.MAX_SOURCES))
+    sets = _crksph_sets()
+    plan_sources = []
+    for src, eqs in sources.items():
+        terms = sets.get(tuple(type(eq) for eq in eqs))
+        if terms is None:
+            raise PairIneligible('equations %s of source %s' % (
+                [eq.name for eq in eqs], src))
+        dims = {eq.dim for eq in eqs if hasattr(eq, 'dim')}
+        if dims - {kernel.dim}:
+            raise PairIneligible('CRKSPH equations in %s dimensions, the '
+                                 'kernel in %d' % (sorted(dims), kernel.dim))
+        plan_sources.append(_cp.CrkSource(src, terms, tuple(eqs),
+                                          **_crksph_constants(eqs)))
+    first = plan_sources[0]
+    if any(ps.terms != first.terms or ps[3:] != first[3:]
+           for ps in plan_sources):
+        raise PairIneligible('sources of different CRKSPH sets or '
+                             'constants')
+    _check_kind(kernel)
+    _cp.sets_of(kernel.dim)
+    return PairPlan(dest, plan_sources, kernel, _cp.crksph_pair,
+                    _cp.crksph_pair_reference, _cp.TERM_OUTPUTS[first.terms])
+
+
 _PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf,
-                        _plan_iisph, _plan_gasd, _plan_gsph),
+                        _plan_iisph, _plan_gasd, _plan_gsph, _plan_crksph),
              'dense': (_plan_dense,)}
 
 

@@ -20,7 +20,9 @@ precomputed pair symbols (HIJ, XIJ, VIJ, R2IJ, RIJ, RINV, WIJ, DWIJ,
   write rows ``w`` of a list at a capacity, whose entries past the pair
   count go to a scratch row);
 - a stride-``k`` property is an ``(n, k)`` tensor, and ``d_p[k*d_idx + c]``
-  (``s_p[...]`` likewise) addresses its column ``c`` in both phases;
+  (``s_p[...]`` likewise) addresses its column ``c`` in both phases; in
+  a per-particle phase ``d_p.whole()`` is the whole tensor and
+  ``d_p.assign(value)`` writes all of it at once;
 - ``if cond:`` on pair values becomes ``torch.where``; ``MAX`` marks
   max accumulation (``scatter_reduce`` with ``amax``).
 """
@@ -160,6 +162,27 @@ class ArrayView(object):
         if self.write_mask is not None:
             new = torch.where(self.write_mask, new, col)
         self.store[self.name] = with_column(arr, key, new)
+
+    def whole(self):
+        """The whole property: ``(n,)``, or ``(n, k)`` for stride ``k``
+        (the tensor of the state; do not write into it)."""
+        return self.store[self.name]
+
+    def assign(self, value):
+        """Write the whole property at once under the write mask:
+        ``value`` a number or a tensor of the property's shape.  One new
+        tensor, where writing each of ``k`` columns through
+        ``with_column`` makes ``k`` (CRKSPH's stride-27 moments)."""
+        arr = self.store[self.name]
+        if torch.is_tensor(value):
+            new = value.to(arr.dtype).expand_as(arr)
+        else:
+            new = torch.full_like(arr, value)
+        if self.write_mask is not None:
+            mask = self.write_mask if arr.dim() == 1 else \
+                self.write_mask[:, None]
+            new = torch.where(mask, new, arr)
+        self.store[self.name] = new.contiguous()
 
 
 class PairDestView(object):

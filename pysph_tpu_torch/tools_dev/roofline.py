@@ -35,6 +35,7 @@ import torch
 from pysph_tpu_torch.base.cell_grid import CellGrid
 from pysph_tpu_torch.base.kernels import kernel_kind
 from pysph_tpu_torch.ops import cell_walk
+from pysph_tpu_torch.ops import crksph_pair as cp
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import gasd_pair as gd
 from pysph_tpu_torch.ops import gsph_pair as gs
@@ -181,6 +182,30 @@ GSPH_CONDUCTION_FLOPS = 30
 RIEMANN_FLOPS = {0: 4, 1: 28, 2: 62, 3: 62, 4: 72, 5: 46, 6: 24, 7: 26,
                  8: 40, 9: 56, 10: 38}
 RIEMANN_TRIP_FLOPS = {1: 42, 2: 30}
+#: crksph_pair.cu, per pair in support beside pair_of (GASD_PAIR_FLOPS)
+#: and its shapes (CRKSPH_SHAPES), by dimension (2, 3): a shape's q, W and
+#: the gradient's factor (kernel_at, 6) and, at a smoothing length other
+#: than the dest's, its h1 and fac (AtH::set, 5 in 2D, 6 in 3D; HIJ 2
+#: more); NumDen: its sum (7); Moments: hij, V_j^-1, DW, the count, V W
+#: and the sums of m0, m1, m2 (once for a <= b: 3 each), gm0, gm1 (5 each)
+#: and gm2 (9 each, a <= b): 111, 259; Density: hij, B.x, the pair
+#: factor, V_j^-1 and the two sums: 26, 27; GradV: DWI, the dest's
+#: corrected gradient (corrected<1>: 2 DIM + DIM (2 DIM + 8)), V_j^-1,
+#: vij and the DIM^2 sums (4 each): 56, 97; the momentum set: WI DWI at
+#: hi and WJ DWJ at hj, both sides' corrected gradients and DWIJ
+#: (Symmetric::dwij_of: 82, 126), the limiter, Q_i, Q_j and the factor
+#: (Symmetric::fac_of: 108, 158) and its three sums (9): 199, 293, and
+#: LaminarViscosity's 28 more (CRKSPH_VISC_FLOPS); the energy set: dwij_of,
+#: fac_of, vij of u0, the DIM terms of aeij (6 each), sj (a pow and a
+#: division), the entropy split and its sum (15): 220, 320
+CRKSPH_SET_FLOPS = {
+    2: {cp.NDEN: 7, cp.MOMS: 111, cp.RHO: 26, cp.GRADV: 56, cp.MOM: 199,
+        cp.ENERGY: 220},
+    3: {cp.NDEN: 7, cp.MOMS: 259, cp.RHO: 27, cp.GRADV: 97, cp.MOM: 293,
+        cp.ENERGY: 320}}
+CRKSPH_SHAPES = {cp.NDEN: 1, cp.MOMS: 1, cp.RHO: 1, cp.GRADV: 1, cp.MOM: 2,
+                 cp.ENERGY: 2}
+CRKSPH_VISC_FLOPS = 28
 
 
 def bound(work):
@@ -526,6 +551,37 @@ def gasd_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
 
     return _gas_work(dest, dest_cells, write_mask, pre, sources, grid,
                      kernel, gd._reads, paired, axis)
+
+
+def crksph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Work of one ``crksph_pair`` call (``_gas_work``; the stencil
+    wrapped on a periodic grid): ``CRKSPH_SET_FLOPS`` and its shapes a
+    pair in support, ``LaminarViscosity``'s where the set has it; the
+    bytes of the dest's strided props (``crksph_pair.DEST_STRIDED``) and
+    of each strided output's every column beside the props of stride
+    1."""
+    dim = kernel.dim
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
+    image = IMAGE_FLOPS * sum(grid.periodic)
+    sets = cp.sets_of(dim)
+
+    def paired(i, j, src, s):
+        base = s.terms & ~cp.VISC
+        per = GASD_PAIR_FLOPS + image + CRKSPH_SET_FLOPS[dim][base] + \
+            CRKSPH_SHAPES[base] * shape
+        if s.terms & cp.VISC:
+            per += CRKSPH_VISC_FLOPS
+        return i.numel() * per
+
+    work = _gas_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel, sets.reads, paired)
+    x = dest['x']
+    n, es = x.shape[0], x.element_size()
+    terms = sources[0][2].terms
+    work['bytes'] += n * es * (
+        sum(cp.WIDTH[p] for p in cp.DEST_STRIDED.get(terms, ())) +
+        2 * sum(cp.WIDTH.get(p, 1) - 1 for p in pre))
+    return work
 
 
 def riemann_flops(params):

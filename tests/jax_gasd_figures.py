@@ -8,9 +8,9 @@
     JAX_PLATFORMS=cpu python tests/jax_gasd_figures.py sedov \\
         [--nx 41] [--steps 200]
     JAX_PLATFORMS=cpu python tests/jax_gasd_figures.py accuracy_test_2d \\
-        [--nparticles 64] [--scheme gsph|mpm|adke]
+        [--nparticles 64] [--scheme gsph|mpm|adke|crksph]
     JAX_PLATFORMS=cpu python tests/jax_gasd_figures.py hydrostatic_box \\
-        [--nx 50] [--steps 200] [--scheme gsph|mpm|adke]
+        [--nx 50] [--steps 200] [--scheme gsph|mpm|adke|crksph]
 
 Both run the JAX solver's per-step loop (``chunk_steps = 1``), as the
 port runs an iterated group on the card.  ``shocktube`` runs
@@ -90,6 +90,13 @@ FROZEN = {
                 'rho_spread': 0.39589640171242335},
         'adke': {'max_speed': 0.17708498207009132,
                  'rho_spread': 0.4606353648072288}},
+    # the CRKSPH runs, float64: accuracy_test_2d --nparticles 32 --scheme
+    # crksph to tf = 1.0 (378 steps; 64^2 ran past 20 minutes on the
+    # CPU), its L1 of rho; hydrostatic_box --nx 50 --scheme crksph after
+    # 200 steps (its largest speed is rounding)
+    'crksph': {'accuracy_test_2d 32': 7.707702803696342e-07,
+               'hydrostatic_box': {'max_speed': 3.852790224035833e-15,
+                                   'rho_spread': 0.00015512394441330457}},
     # shocktube --nl 320 --scheme gsph|adke to tf = 0.15 (1,500 steps),
     # float64: the L1 errors of rho, p and u
     'shocktube schemes': {
