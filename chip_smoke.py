@@ -306,12 +306,20 @@ Phases (any failure propagates; the exit code is then not 0):
    200 steps (its largest speed under ``HYDROSTATIC_STILL``, rho's
    spread) in float64 and Taylor-Green ``--scheme crksph`` at nx=100
    (``TG_CRKSPH_NX``) for 200 steps in float32 against the JAX package's
-   figures (``JAX_CRKSPH``, ``JAX_DECAY['crksph']``); the accuracy test at 256^2 in float32: 20 steps in
+   figures (``JAX_CRKSPH``, ``JAX_DECAY['crksph']``); the first
+   evaluator's five sets linked (the number density emitting the list,
+   four launches reading it) against the plain version and the walking
+   launches, the list against ``neighbours_reference``, on the accuracy
+   test and the open box (the 3D box walks); the ``post_loop`` solve on
+   ``crk_solve`` against its plain version on all three, the same
+   particles singular; the accuracy test at 256^2 in float32: 20 steps in
    chunks bit for bit the per-step loop, 200 steps timed in chunks of 10
    and per step (``_accuracy_drive``: every pair phase of both
-   evaluators on ``crksph_pair``, a step's launches, host reads, device
-   ms by layer and idle share), the ``post_loop`` solve timed alone, and
-   each set timed there beside its bound;
+   evaluators on ``crksph_pair``, the solve on ``crk_solve``, a step's
+   launches, host reads, device ms by layer and idle share; 0 dests past
+   the list's capacity), the solve timed beside its plain version, and
+   each set timed there walking and as the path runs it, beside its
+   bound, with the lanes a dest, registers and spills;
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -398,6 +406,7 @@ from pysph_tpu_torch.examples.taylor_green import TaylorGreen, decay_errors
 from pysph_tpu_torch.ops import bin_cells as bc
 from pysph_tpu_torch.ops import build, cell_pack, cell_walk
 from pysph_tpu_torch.ops import crksph_pair as cp
+from pysph_tpu_torch.ops.crk_solve import crk_solve, crk_solve_reference
 from pysph_tpu_torch.ops import delta_pair as dl
 from pysph_tpu_torch.ops import dense_pair as dp
 from pysph_tpu_torch.ops import fused_pair as fp
@@ -3372,7 +3381,7 @@ def _gsph_path_candidates():
 #: the pair kernels of the accuracy test's path under each scheme
 ACCURACY_KERNELS = {'gsph': (gs.gsph_pair, gd.gasd_pair),
                     'adke': (gd.gasd_pair, wp.wcsph_pair),
-                    'crksph': (cp.crksph_pair,)}
+                    'crksph': (cp.crksph_pair, crk_solve)}
 #: a crksph_pair kernel's set, by its functor's name in a trace
 CRKSPH_SETS = {'NumDen': 'number density', 'Moments': 'moments',
                'Density': 'density', 'GradV': 'velocity gradient',
@@ -3384,6 +3393,9 @@ def _layer(name):
     if 'crksph_pair' in name:
         return 'crksph_pair ' + next(
             (v for k, v in CRKSPH_SETS.items() if k in name), '?')
+    if 'crk_solve' in name:
+        return 'crk_solve'
+
     return ('gsph_pair acceleration' if 'gsph_pair' in name and
             'Acceleration' in name else 'gsph_pair gradients'
             if 'gsph_pair' in name else 'gasd_pair'
@@ -3677,7 +3689,9 @@ def _crksph_gates():
     200 steps in float64, Taylor-Green at ``TG_CRKSPH_NX`` for 200 steps in
     float32,
     each in chunks with every pair phase of both evaluators on
-    ``crksph_pair``.  Returns the rows."""
+    ``crksph_pair``, the first evaluator's five on one list (0 dests past
+    its capacity; each run's most pairs a dest, ``crk_nnbr``, printed).
+    Returns the rows."""
     rows = {}
 
     def run(name, size, dtype, steps=0):
@@ -3689,6 +3703,7 @@ def _crksph_gates():
             raise AssertionError('crksph %s: pair phases off crksph_pair: '
                                  '%s' % (name, engines))
         cp.reset_launches()
+        cp.reset_overflow('cuda')
         st0 = {p: s.states['fluid'][p].double().cpu().numpy()
                for p in 'uv'}
         start = time.perf_counter()
@@ -3698,10 +3713,15 @@ def _crksph_gates():
         if not all(cp.crksph_pair.by_set):
             raise AssertionError('crksph %s: a set never launched: %s' % (
                 name, cp.crksph_pair.by_set))
+        over = cp.overflowed('cuda')
+        if over:
+            raise AssertionError('crksph %s: %d dests past the list\'s '
+                                 'capacity' % (name, over))
         st = {p: v.double().cpu().numpy() for p, v in s.states['fluid'].items()
               if v.is_floating_point()}
-        return s, st0, st, '%.1f s, launches by set %s' % (
-            secs, cp.crksph_pair.by_set)
+        return s, st0, st, '%.1f s, launches by set %s, most pairs a dest ' \
+            '%d (0 past the capacity)' % (secs, cp.crksph_pair.by_set,
+                                          int(st['crk_nnbr'].max()))
 
     size, l1_jax = JAX_CRKSPH['accuracy']
     s, _, st, extra = run('accuracy_test_2d', size, torch.float64)
@@ -3738,28 +3758,42 @@ def _crksph_gates():
 
 
 def _crksph_phase(kernels):
-    """``CRKSPHScheme`` on ``crksph_pair``: its six sets of both
-    evaluators against their plain versions in float64 and float32
-    (``crksph_check.check``) on the accuracy test at full width (periodic)
-    after a jittered step, on an open 2D box with a singular particle and
-    on an open 3D box; the JAX package's figures (``_crksph_gates``); the
-    accuracy test at full width in float32: 20 steps in chunks bit for
-    bit the per-step loop, 200 steps timed in chunks of 10 and per step
-    (``_accuracy_drive``: every pair phase of both evaluators on the
-    kernel, a step's launches, host reads, device ms by layer and idle
-    share), the ``post_loop`` solve timed alone; each set timed there
-    beside its bound, registers and spills by instantiation.  Adds the
-    entry ``crksph_pair``; returns (chunked run, per-step run)."""
+    """``CRKSPHScheme`` on ``crksph_pair`` and its ``post_loop`` solve on
+    ``crk_solve``: the six sets of both evaluators against their plain
+    versions in float64 and float32 (``crksph_check.check``, each call
+    walking) on the accuracy test at full width (periodic) after a
+    jittered step, on an open 2D box with a singular particle and on an
+    open 3D box; the first evaluator's linked chain on the accuracy test
+    and the open 2D box (``crksph_check.check_linked``: the number density
+    emitting, four calls reading its list, against the plain version and
+    the walking calls, the list against ``neighbours_reference``, 0 dests
+    past the capacity at full width; the 3D box unlinked); the solve
+    against its plain version on the three (``crksph_check.check_solve``,
+    the same particles singular); the JAX package's figures
+    (``_crksph_gates``); the accuracy test at full width in float32: 20
+    steps in chunks bit for bit the per-step loop, 200 steps timed in
+    chunks of 10 and per step (``_accuracy_drive``: every pair phase of
+    both evaluators on the kernel, the solve on its own, a step's
+    launches, host reads, device ms by layer and idle share; 0 dests past
+    the list's capacity); each set timed there walking and as the path
+    runs it, beside its bound, the solve beside its plain version; lanes,
+    registers and spills by instantiation.  Adds the entries
+    ``crksph_pair`` and ``crk_solve``; returns (chunked run, per-step
+    run)."""
     t0 = time.perf_counter()
     resources = crksph_check.resources()
-    print('crksph_pair registers and spill bytes (stores, loads) by '
-          'instantiation (QuinticSpline): %s' % resources, flush=True)
-    errs, full = {}, None
+    lanes = crksph_check.lanes()
+    solve_res = build.resources(build.build('crk_solve'))
+    print('crksph_pair lanes a dest by set (float32, float64): %s; '
+          'registers and spill bytes (stores, loads) by instantiation '
+          '(QuinticSpline): %s; crk_solve: %s' % (lanes, resources,
+                                                 solve_res), flush=True)
+    errs, linked, solves, full = {}, {}, {}, None
     for dtype in (torch.float64, torch.float32):
         tol = TOL[dtype]
-        cases = [('accuracy_test_2d %d periodic' % ACCURACY_FULL,
-                  crksph_check.calls('accuracy_test_2d', ACCURACY_FULL,
-                                     dtype)[0])]
+        acc_calls, _, acc_app = crksph_check.calls(
+            'accuracy_test_2d', ACCURACY_FULL, dtype)
+        cases = [('accuracy_test_2d %d periodic' % ACCURACY_FULL, acc_calls)]
         cases += [('%s box' % case, crksph_check.box_calls(case, dtype))
                   for case in ('open', '3d')]
         for label, calls in cases:
@@ -3774,55 +3808,124 @@ def _crksph_phase(kernels):
                       label, f['max_scaled_err'], tol,
                       {k: float('%.3g' % v) for k, v in f['by_set'].items()},
                       f['pairs']), flush=True)
+            if '3d' in label:
+                if any(c[2].link is not None for c in calls):
+                    raise AssertionError('crksph %s: linked in 3D' % label)
+                continue
+            f = crksph_check.check_linked(calls, label, tol)
+            linked[label] = f
+            print('crksph_pair %s linked (the number density emitting, 4 '
+                  'launches reading its list): max scaled err %.3g against '
+                  'the plain version, %.3g against the walking launches; '
+                  'the list as neighbours_reference; most pairs a dest %d, '
+                  '%d past the capacity %d' % (
+                      label, f['max_scaled_err'], f['against_walk'],
+                      f['most_pairs'], f['overflowed'],
+                      cp.CAPACITY[2]), flush=True)
+            if 'accuracy' in label and f['overflowed']:
+                raise AssertionError('crksph %s: %d dests past the list\'s '
+                                     'capacity' % (label, f['overflowed']))
+        # the solve on the moments after the moments set: the accuracy
+        # test's evaluated state, each box's state as its density call
+        # saw it (the open box's far particle singular)
+        states = [(cases[0][0], acc_app.solver.states['fluid'], 2)] + [
+            (label, calls[2][3][0], 3 if '3d' in label else 2)
+            for label, calls in cases[1:]]
+        for label, st, dim in states:
+            label = '%s %s' % (label, str(dtype)[6:])
+            err, scaled, singular = crksph_check.check_solve(st, dim, tol,
+                                                             label)
+            solves[label] = dict(max_abs_err=err, max_scaled_err=scaled,
+                                 singular=singular)
+            print('compare crk_solve %s: max abs err %.3g, scaled %.3g (tol '
+                  '%.0e); %d particles singular or with fewer than 2 '
+                  'neighbours, the same in both' % (label, err, scaled, tol,
+                                                    singular), flush=True)
         if dtype == torch.float32:
             full = cases[0][1]
     gates = _crksph_gates()
     _chunks_match('crksph')
+    cp.reset_overflow('cuda')
     drive, _ = _accuracy_drive(STEPS, 10, 'crksph')
     per_step, final = _accuracy_drive(STEPS, 1, 'crksph')
+    overflowed = cp.overflowed('cuda')
+    most = int(final['crk_nnbr'].max())
+    print('accuracy_test_2d --scheme crksph %d float32, the two 200-step '
+          'runs: %d dests past the list\'s capacity %d; most pairs a dest '
+          'at the end %d' % (ACCURACY_FULL, overflowed, cp.CAPACITY[2],
+                             most), flush=True)
+    if overflowed:
+        raise AssertionError('accuracy crksph: %d dests past the list\'s '
+                             'capacity' % overflowed)
     for r in (drive, per_step):
         if r['engines'] != [['kernel'], ['kernel']]:
             raise AssertionError('accuracy crksph: pair phases off the '
                                  'kernel: %s' % r['engines'])
-    # the post_loop's batched solve alone, on the run's moments
-    n = final['x'].shape[0]
-    moments = (final['crk_m0'], final['crk_m1'][:, :2],
-               final['crk_m2'][:, :4].reshape(n, 2, 2),
-               final['crk_gm0'][:, :2],
-               final['crk_gm1'][:, :4].reshape(n, 2, 2),
-               final['crk_gm2'][:, :8].reshape(n, 2, 2, 2),
-               final['crk_nnbr'])
-    solve_ms = graph_ms(lambda: crksph.crk_solve(*moments, 2), 20)
+    # the post_loop's solve alone, on the run's moments, and its plain
+    # version (the torch ops that ran before it)
+    moments = crksph_check.solve_moments(final, 2)
+    solve_ms = graph_ms(lambda: crksph.crk_solve(*moments), 20)
+    solve_plain_ms = graph_ms(lambda: crk_solve_reference(*moments), 20)
+    solve_work = roofline.crk_solve_work(final['x'].shape[0], 2,
+                                         final['x'].element_size())
     sets = crksph_check.set_times(full)
+    chain = crksph_check.chain_times(full)
     for name, t in sets.items():
         w = t['work']
-        print('crksph_pair %s, accuracy_test_2d %d float32: %.4f ms in a '
-              'graph (eager %.4f, plain %.3f); bound %.4f ms (%s: %.4g '
-              'flops, %d candidates, %d pairs, %d B), share %.1f%%' % (
+        print('crksph_pair %s, accuracy_test_2d %d float32, walking: %.4f '
+              'ms in a graph (eager %.4f, plain %.3f); bound %.4f ms (%s: '
+              '%.4g flops, %d candidates, %d pairs, %d B), share %.1f%%; on '
+              'the path %s ms' % (
                   name, ACCURACY_FULL, t['ms'], t['eager_ms'], t['plain_ms'],
                   t['bound_ms'], t['bound_by'], w['flops'], w['candidates'],
-                  w['pairs'], w['bytes'], 100 * t['bound_ms'] / t['ms']),
+                  w['pairs'], w['bytes'], 100 * t['bound_ms'] / t['ms'],
+                  '%.4f' % chain.get(name, chain['emit'] if name ==
+                                     'number density' else t['ms'])),
               flush=True)
-    print('crksph post_loop solve, accuracy_test_2d %d float32: %.4f ms in '
-          'a graph' % (ACCURACY_FULL, solve_ms), flush=True)
-    work = roofline.add(*[t['work'] for t in sets.values()])
+    work = roofline.crksph_path_work(full)
+    walking = roofline.add(*[t['work'] for t in sets.values()])
+    print('crksph_pair accuracy_test_2d %d float32, a step\'s six launches '
+          'as the path runs them: %.4f ms in a graph (the linked chain %.4f, '
+          'the six walking %.4f); bound %.4f ms (%s: one walk, four list '
+          'reads, the energy\'s walk), %.4f counting six walks; share %.1f%%'
+          % (ACCURACY_FULL, chain['six'], chain['chain'],
+             sum(t['ms'] for t in sets.values()), roofline.bound(work)[0],
+             roofline.bound(work)[1], roofline.bound(walking)[0],
+             100 * roofline.bound(work)[0] / chain['six']), flush=True)
+    print('crk_solve, accuracy_test_2d %d float32: %.4f ms in a graph, its '
+          'plain version (the torch ops) %.4f; bound %.4f ms (%s)' % (
+              ACCURACY_FULL, solve_ms, solve_plain_ms,
+              roofline.bound(solve_work)[0], roofline.bound(solve_work)[1]),
+          flush=True)
     kernels['crksph_pair'] = _entry(
         'crksph_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
         per_step['launches']['crksph_pair'],
         errs['accuracy_test_2d %d periodic float32' % ACCURACY_FULL][
             'max_abs_err'],
-        sum(t['ms'] for t in sets.values()),
-        sum(t['plain_ms'] for t in sets.values()), work, None,
+        chain['six'], sum(t['plain_ms'] for t in sets.values()), work, None,
         eager_ms=sum(t['eager_ms'] for t in sets.values()), sets={
             k: {n: v for n, v in t.items() if n != 'work'}
-            for k, t in sets.items()},
-        solve_ms=solve_ms, resources=resources, gates=gates, run=drive,
-        per_step_run=per_step,
+            for k, t in sets.items()}, linked_ms=chain,
+        walking_bound_ms=roofline.bound(walking)[0], lanes=lanes,
+        resources=resources, gates=gates, run=drive, per_step_run=per_step,
         checks={k: v['max_scaled_err'] for k, v in errs.items()},
+        linked=linked, overflowed=overflowed, most_pairs=most,
         seconds=time.perf_counter() - t0,
         path='accuracy_test_2d --scheme crksph %d^2 float32, the six pair '
-        'calls of one step (two evaluators), each walking; launches: %d '
+        'calls of one step (two evaluators) as the path runs them: the '
+        'first evaluator\'s five linked, the energy walking; launches: %d '
         'steps of that run per step' % (ACCURACY_FULL, STEPS))
+    kernels['crk_solve'] = dict(_entry(
+        'crk_solve', 'pysph_tpu/sph/wc/crksph.py:86',
+        per_step['launches']['crk_solve'],
+        solves['accuracy_test_2d %d periodic float32' % ACCURACY_FULL][
+            'max_abs_err'], solve_ms, solve_plain_ms, solve_work, None,
+        checks=solves, resources=solve_res,
+        path='accuracy_test_2d --scheme crksph %d^2 float32, the post_loop '
+        'solve of one step on its moments after 200 steps; launches: %d '
+        'steps of that run per step' % (ACCURACY_FULL, STEPS)),
+        note='CRKSPHPreStep.post_loop\'s solve; the JAX package computes it '
+        'in jnp (crk_solve, jnp.linalg.det and inv), not in a pallas_call')
     return drive, per_step
 
 
@@ -4361,6 +4464,7 @@ def main():
             label, laps[-1] - laps[-2], laps[-1] - t0), flush=True)
 
     names = ('gsph_pair', 'crksph_pair', 'iisph_pair', 'iisph_solve',
+             'crk_solve',
              'gasd_pair', 'adke_pair', 'tvf_pair',
              'wcsph_pair',
              'gtvf_pair', 'dense_pair', 'fused_pair', 'micro_launch',

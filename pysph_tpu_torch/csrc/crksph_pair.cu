@@ -43,14 +43,34 @@
 // library holds QuinticSpline alone (kind 3, the scheme's), every other
 // kind is a library of its own (-DPAIR_KIND=k, ops/crksph_pair.py).
 //
-// Design, as csrc/gasd_pair.cu's walk: thread t takes the dest at
-// position t of the dest's sorted order, each lane walks its own cells
-// cx - 1 .. cx + 1 in each stencil row (on a periodic grid, the template
-// flag PERIODIC, the rows wrap and each displacement is the minimum
-// image), and the walker hands the candidates in support to the pair body
-// in rounds.  No shared memory.  Each source is read from its packed copy
-// (launched by this file's launch function just before the kernel), whose
-// record planes are, as ops/crksph_pair.py PACK_RECORDS[DIM]: in 2D
+// Design.  A group of G lanes takes a dest (csrc/group_walk.cuh: thread t
+// the dest at position t / G of the dest's sorted order as lane t mod G,
+// each lane a stride of every stencil range, the group's sums added by a
+// __shfl_xor_sync butterfly, lane 0 storing them), G by set and dtype
+// (kLanes, chosen by a measured sweep: tools_dev/list_batch.py
+// crksph_pair).  At the accuracy test's 65,536 dests a thread a dest
+// filled ~15 of an SM's 64 warp slots; G lanes fill G times as many.  On
+// a periodic grid (the template flag PERIODIC) the rows wrap and each
+// displacement is the minimum image, from the stencil range's wrap where
+// it can be (csrc/group_walk.cuh).  No shared memory.
+//
+// One neighbour list an evaluation (ops/pair_link.py).  Five of the six
+// sets run in CRKSPHScheme's first evaluator with nothing between them
+// that moves x y z h, so they share one walk (mode, CrkMode): the number
+// density launch (kEmit) walks and writes each dest's pairs in support in
+// the walk's order, entry c of the dest at sorted position p at nbr[c *
+// n_dest + p] (source s's position k numbered base_s + k) for c < cap,
+// lcount[p] its pairs (which may exceed cap: each such dest adds one to
+// *overflow); the moments, density, velocity gradient and momentum
+// launches (kRead) read plane 0 from the emitting launch's copy, pack only
+// their further planes, and take list entries r, r + G, ... of their dest
+// instead of walking, a warp holding a dest past cap walking as kWalk
+// does.  The energy launch, the second evaluator's only set, walks
+// (kWalk), as every set does unlinked.
+//
+// Each source is read from its packed copy (launched by this file's
+// launch function just before the kernel), whose record planes are, as
+// ops/crksph_pair.py PACK_RECORDS[DIM]: in 2D
 //   plane 0: x y z h
 //   plane 1: u v w m
 //   plane 2: rho p cs V
@@ -69,17 +89,22 @@
 // (p:c is column c of the strided p; planes 3 on hold one flat record of
 // the source's coefficients, the first DIM components of each, packed once
 // a call): kNumDen packs plane 0, kMoments and kRho planes 0 and 2,
-// kGradV 0-2, kMom and kEnergy all.  Built with -fmad=false
-// (ops/build.py EXTRA_FLAGS): the support test and the pair body round
-// each operation as the plain version's, so the pairs and each dest's
-// count are its exactly.
+// kGradV 0-2, kMom and kEnergy all; a reading launch all but plane 0.
+// Built with -fmad=false (ops/build.py EXTRA_FLAGS): the support test and
+// the pair body round each operation as the plain version's, so the pairs
+// and each dest's count are its exactly.
 //
 // What bounds it: operations.  kMom and kEnergy evaluate the shape at
 // three smoothing lengths a pair (WI DWI, WJ DWJ; HIJ only for a 2D pair
 // off the plane) and ~200 flops on up to 7 (2D) or 10 (3D) records;
-// kMoments one shape and ~40 (2D) or ~110 (3D) flops.  The four corrected
-// sets of one evaluation walk the same neighbours; each walks them again
-// (a linked list, ops/pair_link.py, is the redesign: ROADMAP Queue 2).
+// kMoments one shape and ~40 (2D) or ~110 (3D) flops; the walk tests ~3.6
+// candidates a pair (the accuracy test at 256^2, QuinticSpline at h = 2
+// dx), which the list spares four launches of five.
+//
+// Variants for the measured sweep (tools_dev/list_batch.py crksph_pair):
+// CRKSPH_LANES (G of every set and dtype), CRKSPH_BLOCKS and
+// CRKSPH_BLOCKS_F64 (the launch bounds' blocks an SM, float32 and
+// float64), CRKSPH_SWEEP (the 2D periodic kernels alone).
 //
 // Interface: plain C, called through ctypes (ops/crksph_pair.py).  The
 // launch function takes a host pointer to CrkArgs (copied into the
@@ -95,6 +120,7 @@
 
 #include "cell_pack.cuh"
 #include "cell_walk.cuh"
+#include "group_walk.cuh"
 #include "shapes.cuh"
 
 constexpr int kCrkSources = 4;
@@ -108,6 +134,8 @@ enum CrkOut {
 };
 // the record planes of a packed copy
 enum CrkPlane { kPos, kVelM, kThermo, kCoef };
+// walk; walk and write the neighbour list; read it (ops/crksph_pair.py)
+enum CrkMode { kWalk, kEmit, kRead };
 
 struct CrkSrc {
   // the packed copy's planes, in the source's cell order; null where the
@@ -138,6 +166,12 @@ struct CrkArgs {
   double cl, cq, eta_crit, eta_fold, gamma, nu, eta;
   int32_t n_dest, n_src, nx, ny, nz, dim, phase, dtype, kernel_kind,
       periodic, visc;
+  // the list (cap, n_dest), each dest's count and kEmit's count of dests
+  // past cap
+  int32_t mode, cap;
+  int32_t* nbr;
+  int32_t* lcount;
+  int32_t* overflow;
   PackArgs pack;
 };
 
@@ -355,6 +389,7 @@ __device__ __forceinline__ void limiter(const T* gvi, const T* gvj,
 // NumberDensity: V += WI.
 template <typename T, int KIND, int DIM>
 struct NumDen {
+  static constexpr int kPhase = kNumDen;
   AtH<T, KIND, DIM> at{};
   T v = 0;
   __device__ void load(const CrkArgs& a, int i) {
@@ -364,6 +399,10 @@ struct NumDen {
     T W, G;
     kernel_at(at, q, W, G);
     v += W;
+  }
+  template <int L>
+  __device__ void reduce() {
+    v = group::sum<L>(v);
   }
   __device__ void store(const CrkArgs& a, int i, bool wm) {
     const T pre = ld<T>(a.pre[oV], i);
@@ -375,6 +414,7 @@ struct NumDen {
 // for each (a <= b), which they are symmetric in.
 template <typename T, int KIND, int DIM>
 struct Moments {
+  static constexpr int kPhase = kMoments;
   static constexpr int kSym = DIM * (DIM + 1) / 2;
   T hi = 0, kfac = 0;
   T m0 = 0, nn = 0, m1[DIM] = {}, m2[kSym] = {}, gm0[DIM] = {},
@@ -419,6 +459,22 @@ struct Moments {
         }
     }
   }
+  template <int L>
+  __device__ void reduce() {
+    m0 = group::sum<L>(m0);
+    nn = group::sum<L>(nn);
+#pragma unroll
+    for (int c = 0; c < DIM; ++c) {
+      m1[c] = group::sum<L>(m1[c]);
+      gm0[c] = group::sum<L>(gm0[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < kSym; ++c) m2[c] = group::sum<L>(m2[c]);
+#pragma unroll
+    for (int c = 0; c < DIM * DIM; ++c) gm1[c] = group::sum<L>(gm1[c]);
+#pragma unroll
+    for (int c = 0; c < DIM * kSym; ++c) gm2[c] = group::sum<L>(gm2[c]);
+  }
   // column c of output o: pre + the sum where it is summed
   __device__ static void put(const CrkArgs& a, int o, int i, int c, bool wm,
                              bool summed, T sum) {
@@ -461,6 +517,7 @@ struct Moments {
 // A_i (1 + B_i . x) over the three components of B_i.
 template <typename T, int KIND, int DIM>
 struct Density {
+  static constexpr int kPhase = kRho;
   T hi = 0, kfac = 0, mi = 0, ai = 0, b[3] = {};
   T rho = 0, rhofac = 0;
   __device__ void load(const CrkArgs& a, int i) {
@@ -483,6 +540,11 @@ struct Density {
     rho += mi * fac;
     rhofac += Vj * fac;
   }
+  template <int L>
+  __device__ void reduce() {
+    rho = group::sum<L>(rho);
+    rhofac = group::sum<L>(rhofac);
+  }
   __device__ void store(const CrkArgs& a, int i, bool wm) {
     const T p0 = ld<T>(a.pre[oRho], i), p1 = ld<T>(a.pre[oRhofac], i);
     static_cast<T*>(a.out[oRho])[i] = wm ? p0 + rho : p0;
@@ -493,6 +555,7 @@ struct Density {
 // CRKSPHSymmetric, VelocityGradient: the dest's corrected DWI at hi.
 template <typename T, int KIND, int DIM>
 struct GradV {
+  static constexpr int kPhase = kGradV;
   AtH<T, KIND, DIM> at{};
   Coef<T, DIM> ci{};
   T ui = 0, vi = 0, wi = 0;
@@ -520,6 +583,11 @@ struct GradV {
 #pragma unroll
       for (int be = 0; be < DIM; ++be)
         gv[DIM * al + be] += -Vj * vij[al] * dwi[be];
+  }
+  template <int L>
+  __device__ void reduce() {
+#pragma unroll
+    for (int c = 0; c < DIM * DIM; ++c) gv[c] = group::sum<L>(gv[c]);
   }
   __device__ void store(const CrkArgs& a, int i, bool wm) {
 #pragma unroll
@@ -608,6 +676,7 @@ struct Symmetric {
 // CRKSPHSymmetric, MomentumEquation [, LaminarViscosity].
 template <typename T, int KIND, int DIM>
 struct Mom : Symmetric<T, KIND, DIM> {
+  static constexpr int kPhase = kMom;
   using B = Symmetric<T, KIND, DIM>;
   T au = 0, av = 0, aw = 0;
   __device__ void load(const CrkArgs& a, int i) { B::load_common(a, i); }
@@ -636,6 +705,12 @@ struct Mom : Symmetric<T, KIND, DIM> {
       aw += tmp * vij[2];
     }
   }
+  template <int L>
+  __device__ void reduce() {
+    au = group::sum<L>(au);
+    av = group::sum<L>(av);
+    aw = group::sum<L>(aw);
+  }
   __device__ void store(const CrkArgs& a, int i, bool wm) {
     const T acc[3] = {au, av, aw};
 #pragma unroll
@@ -649,6 +724,7 @@ struct Mom : Symmetric<T, KIND, DIM> {
 // CRKSPHSymmetric, EnergyEquation.
 template <typename T, int KIND, int DIM>
 struct Energy : Symmetric<T, KIND, DIM> {
+  static constexpr int kPhase = kEnergy;
   using B = Symmetric<T, KIND, DIM>;
   T u0i[3] = {}, si = 0, gamma = 0;
   T ae = 0;
@@ -687,6 +763,10 @@ struct Energy : Symmetric<T, KIND, DIM> {
     const T fij = sd > T(0) ? smin / ssum : sd < T(0) ? smax / ssum : T(0.5);
     ae += T(0.5) * fij * aeij;
   }
+  template <int L>
+  __device__ void reduce() {
+    ae = group::sum<L>(ae);
+  }
   __device__ void store(const CrkArgs& a, int i, bool wm) {
     const T pre = ld<T>(a.pre[oAe], i);
     static_cast<T*>(a.out[oAe])[i] = wm ? pre + ae : pre;
@@ -696,12 +776,50 @@ struct Energy : Symmetric<T, KIND, DIM> {
 // --------------------------------------------------------------- kernel
 
 constexpr int kThreads = 128;
+// listed entries whose loads a lane has in flight
+constexpr int kListBatch = 4;
 
-template <typename T, int KIND, bool PERIODIC, class Set>
-__global__ void __launch_bounds__(kThreads) crksph_pair_kernel(
-    const CrkArgs a) {
-  // every lane stays to the end: the walk's votes take the whole warp
-  const int pos = blockIdx.x * blockDim.x + threadIdx.x;
+// The lanes a dest (G) and the launch bounds' blocks an SM of each set
+// (kNumDen .. kEnergy) by dtype: the measured sweep's choice, each set's
+// fastest of G = 1, 2, 4, 8 at 4, 6, 8 blocks (float32) and 2, 3, 4
+// (float64) on the accuracy test at 256^2 (tools_dev/list_batch.py
+// crksph_pair, PERF.md); a variant of the sweep sets every set's by
+// CRKSPH_LANES, CRKSPH_BLOCKS (float32) and CRKSPH_BLOCKS_F64.
+template <typename T>
+constexpr int lanes_of(int phase) {
+#ifdef CRKSPH_LANES
+  return CRKSPH_LANES;
+#else
+  constexpr int f32[kCrkPhases] = {4, 4, 4, 4, 4, 4};
+  constexpr int f64[kCrkPhases] = {4, 2, 4, 2, 4, 4};
+  return sizeof(T) == 8 ? f64[phase] : f32[phase];
+#endif
+}
+
+template <typename T>
+constexpr int blocks_of(int phase) {
+#ifdef CRKSPH_BLOCKS
+  if (sizeof(T) == 4) return CRKSPH_BLOCKS;
+#endif
+#ifdef CRKSPH_BLOCKS_F64
+  if (sizeof(T) == 8) return CRKSPH_BLOCKS_F64;
+#endif
+  constexpr int f32[kCrkPhases] = {8, 8, 8, 8, 6, 6};
+  constexpr int f64[kCrkPhases] = {4, 4, 4, 4, 4, 4};
+  return sizeof(T) == 8 ? f64[phase] : f32[phase];
+}
+
+template <typename T, int KIND, bool PERIODIC, class Set, int G>
+__global__ void __launch_bounds__(kThreads, (blocks_of<T>(Set::kPhase)))
+    crksph_pair_kernel(const __grid_constant__ CrkArgs a) {
+  // the number density emits the list; moments, density, gradient and
+  // momentum read it
+  constexpr bool kEmits = Set::kPhase == kNumDen;
+  constexpr bool kReads = Set::kPhase >= kMoments && Set::kPhase <= kMom;
+  // every lane stays to the end: the walk's votes and the group's sums
+  // take the whole warp
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int pos = t / G, r = t % G;
   const bool active = pos < a.n_dest;
   const int i = active ? a.dorder[pos] : 0;
 
@@ -714,68 +832,108 @@ __global__ void __launch_bounds__(kThreads) crksph_pair_kernel(
   const T rs = T(a.radius_scale);
   const walk::Box<T> box{{T(a.box[0]), T(a.box[1]), T(a.box[2])}};
   int pairs = 0;
-  const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
-  walk::Walker<T> walker;
-  walker.begin();
-  for (int s = 0; s < a.n_src; ++s) {
-    const CrkSrc& S = a.src[s];
-    const void* p0 = S.plane[kPos];
-    auto body = [&](int k) {
-      ++pairs;
-      ph.pair(a, S, pair_of<T, PERIODIC>(di, rec<T>(p0, k), k, box));
-    };
-    if (PERIODIC)
-      walk::walk_rows_periodic(a, S.cell_start, S.cell_end, p0, l, di, rs,
-                               box, walker, body);
-    else
-      walk::walk_rows(a, S.cell_start, S.cell_end, p0, l, 1, di, rs, walker,
-                      body);
-    walker.finish(body);
+  bool walking = true;
+  if (kReads && a.mode == kRead) {
+    const int count = active ? a.lcount[pos] : 0;
+    walking = __any_sync(walk::kFull, count > a.cap);
+    // the list runs source by source: s is the source of the entries
+    int s = 0;
+    for (int c0 = r; !walking && c0 < count; c0 += G * kListBatch) {
+      int e[kListBatch];
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u) {
+        const int c = c0 + G * u;
+        e[u] = c < count ? a.nbr[size_t(c) * a.n_dest + pos] : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u) {
+        if (e[u] < 0) continue;
+        while (s + 1 < a.n_src && e[u] >= a.src[s + 1].base) ++s;
+        const CrkSrc& S = a.src[s];
+        const int k = e[u] - S.base;
+        ++pairs;
+        ph.pair(a, S,
+                pair_of<T, PERIODIC>(di, rec<T>(S.plane[kPos], k), k, box));
+      }
+    }
   }
-  if (active) {
+  if (walking) {
+    const bool emit = kEmits && a.mode == kEmit;
+    int listed = 0;
+    const walk::Lane l = walk::lane_cell(a, active ? a.cell[i] : 0, active);
+    group::Walker<T, G> walker;
+    walker.begin();
+    for (int s = 0; s < a.n_src; ++s) {
+      const CrkSrc& S = a.src[s];
+      const void* p0 = S.plane[kPos];
+      auto body = [&](int k, int tag) {
+        ++pairs;
+        ph.pair(a, S, group::pair_at<Pair<T>, T, PERIODIC>(
+                          di, rec<T>(p0, k), k, tag, box));
+      };
+      auto list = [&](unsigned found, int wbase) {
+        if (emit)
+          listed += group::list_window<G>(found, wbase, r, listed, S.base,
+                                          a.cap, a.nbr, a.n_dest, pos);
+      };
+      group::walk_source<T, G, PERIODIC>(a, S.cell_start, S.cell_end, p0, l,
+                                         r, di, rs, box, walker, body, list);
+      walker.finish(body);
+    }
+    if (emit && active && r == 0) {
+      a.lcount[pos] = listed;
+      if (listed > a.cap) atomicAdd(a.overflow, 1);
+    }
+  }
+  ph.template reduce<G>();
+  pairs = group::sum<G>(pairs);
+  if (active && r == 0) {
     ph.store(a, i, a.wmask == nullptr || a.wmask[i] != 0);
     if (a.count != nullptr) a.count[i] = pairs;
   }
 }
 
-template <typename T, int KIND, bool PERIODIC, int DIM>
+template <typename T, int KIND, bool PERIODIC, class Set>
 cudaError_t launch_set(const CrkArgs& a, cudaStream_t stream) {
-  const int blocks = (a.n_dest + kThreads - 1) / kThreads;
+  constexpr int G = lanes_of<T>(Set::kPhase);
+  const long long threads = static_cast<long long>(a.n_dest) * G;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  crksph_pair_kernel<T, KIND, PERIODIC, Set, G>
+      <<<blocks, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int KIND, bool PERIODIC, int DIM>
+cudaError_t launch_phase(const CrkArgs& a, cudaStream_t stream) {
   switch (a.phase) {
     case kNumDen:
-      crksph_pair_kernel<T, KIND, PERIODIC, NumDen<T, KIND, DIM>>
-          <<<blocks, kThreads, 0, stream>>>(a);
-      break;
+      return launch_set<T, KIND, PERIODIC, NumDen<T, KIND, DIM>>(a, stream);
     case kMoments:
-      crksph_pair_kernel<T, KIND, PERIODIC, Moments<T, KIND, DIM>>
-          <<<blocks, kThreads, 0, stream>>>(a);
-      break;
+      return launch_set<T, KIND, PERIODIC, Moments<T, KIND, DIM>>(a, stream);
     case kRho:
-      crksph_pair_kernel<T, KIND, PERIODIC, Density<T, KIND, DIM>>
-          <<<blocks, kThreads, 0, stream>>>(a);
-      break;
+      return launch_set<T, KIND, PERIODIC, Density<T, KIND, DIM>>(a, stream);
     case kGradV:
-      crksph_pair_kernel<T, KIND, PERIODIC, GradV<T, KIND, DIM>>
-          <<<blocks, kThreads, 0, stream>>>(a);
-      break;
+      return launch_set<T, KIND, PERIODIC, GradV<T, KIND, DIM>>(a, stream);
     case kMom:
-      crksph_pair_kernel<T, KIND, PERIODIC, Mom<T, KIND, DIM>>
-          <<<blocks, kThreads, 0, stream>>>(a);
-      break;
+      return launch_set<T, KIND, PERIODIC, Mom<T, KIND, DIM>>(a, stream);
     default:
-      crksph_pair_kernel<T, KIND, PERIODIC, Energy<T, KIND, DIM>>
-          <<<blocks, kThreads, 0, stream>>>(a);
+      return launch_set<T, KIND, PERIODIC, Energy<T, KIND, DIM>>(a, stream);
   }
-  return cudaGetLastError();
 }
 
 template <typename T, int KIND>
 cudaError_t launch_kind(const CrkArgs& a, cudaStream_t stream) {
+#ifdef CRKSPH_SWEEP
+  // a sweep's variant holds the 2D periodic kernels alone
+  if (a.dim != 2 || !a.periodic) return cudaErrorInvalidValue;
+  return launch_phase<T, KIND, true, 2>(a, stream);
+#else
   if (a.dim == 2)
-    return a.periodic ? launch_set<T, KIND, true, 2>(a, stream)
-                      : launch_set<T, KIND, false, 2>(a, stream);
-  return a.periodic ? launch_set<T, KIND, true, 3>(a, stream)
-                    : launch_set<T, KIND, false, 3>(a, stream);
+    return a.periodic ? launch_phase<T, KIND, true, 2>(a, stream)
+                      : launch_phase<T, KIND, false, 2>(a, stream);
+  return a.periodic ? launch_phase<T, KIND, true, 3>(a, stream)
+                    : launch_phase<T, KIND, false, 3>(a, stream);
+#endif
 }
 
 template <typename T>
@@ -842,7 +1000,15 @@ bool args_ok(const CrkArgs& a) {
     sources_ok = S.terms == terms_of(a) && S.cell_start != nullptr &&
                  S.cell_end != nullptr && planes_ok(S, a.phase, a.dim);
   }
-  return sources_ok && a.phase >= 0 && a.phase < kCrkPhases &&
+  // only the number density emits, only the moments, density, gradient
+  // and momentum read
+  const bool mode_ok =
+      a.mode == kWalk ||
+      (a.cap >= 1 && a.nbr != nullptr && a.lcount != nullptr &&
+       (a.mode == kEmit ? a.phase == kNumDen && a.overflow != nullptr
+                        : a.mode == kRead && a.phase >= kMoments &&
+                              a.phase <= kMom));
+  return sources_ok && a.phase >= 0 && a.phase < kCrkPhases && mode_ok &&
          outputs_ok(a) && dest_ok(a) && a.nx >= 1 && a.ny >= 1 &&
          a.nz >= 1 && (a.dim == 2 || a.dim == 3) &&
          (a.dtype == 0 || a.dtype == 1) &&
@@ -856,6 +1022,11 @@ bool args_ok(const CrkArgs& a) {
 extern "C" {
 
 int crksph_pair_args_size() { return static_cast<int>(sizeof(CrkArgs)); }
+
+// the lanes a dest of a set (CrkPhase) in a dtype (0 float32, 1 float64)
+int crksph_pair_lanes(int phase, int dtype) {
+  return dtype == 1 ? lanes_of<double>(phase) : lanes_of<float>(phase);
+}
 
 int crksph_pair_launch(const CrkArgs* args, void* stream) {
   const CrkArgs& a = *args;

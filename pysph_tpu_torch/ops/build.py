@@ -59,10 +59,15 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: cold build some three times shorter on an H100 host); adke_pair, the
 #: ADKE sets, contracts: its support test is written in single IEEE
 #: operations (__fmul_rn and its kin), so its pairs stay the plain
-#: version's
+#: version's; crksph_pair takes no contraction, as gasd_pair, and
+#: optimizes on every core, as gsph_pair (its default library the second
+#: longest build); crk_solve rounds the determinant as its plain version,
+#: so that the same particles are singular
 EXTRA_FLAGS = {'delta_pair': ('-fmad=false',),
                'gasd_pair': ('-fmad=false',),
                'gsph_pair': ('-fmad=false', '-split-compile=0'),
+               'crksph_pair': ('-fmad=false', '-split-compile=0'),
+               'crk_solve': ('-fmad=false',),
                'tvf_pair': ('-Xptxas', '--fmad=false'),
                'iisph_pair': ('-Xptxas', '--fmad=false'),
                'iisph_solve': ('-Xptxas', '--fmad=false')}

@@ -42,13 +42,25 @@ w0``.
 For CUDA tensors it calls ``csrc/crksph_pair.cu`` once: its launch
 function launches the source pack (``ops/cell_pack.py``, counted in
 ``cell_pack.pack.launches``) and then the kernel (counted in
-``crksph_pair.launches``, and by set in ``crksph_pair.by_set``); its
-default library holds ``QuinticSpline`` alone, every other kind is a
-library of its own (``-DPAIR_KIND``), built at its first launch; a dtype
-other than float32 and float64 or a refused launch raises.  For CPU
-tensors it calls ``crksph_pair_reference``, the torch pair engine running
-the same ``Equation`` objects on the exact lists of
-``CellGrid.neighbor_pairs``.
+``crksph_pair.launches``, and by set in ``crksph_pair.by_set``), a group
+of lanes a dest (``lanes``); its default library holds ``QuinticSpline``
+alone, every other kind is a library of its own (``-DPAIR_KIND``), built
+at its first launch; a dtype other than float32 and float64 or a refused
+launch raises.  For CPU tensors it calls ``crksph_pair_reference``, the
+torch pair engine running the same ``Equation`` objects on the exact
+lists of ``CellGrid.neighbor_pairs``.
+
+One neighbour list an evaluation (``ops/pair_link.py``;
+``ops/pair_engine.py::link_pairs`` links the plans): the number density
+call runs with ``emit=True`` and returns, beside its output, a
+``Handoff``, its sources' packed ``{x y z h}`` copies and each dest's
+pairs in support in the walk's order, up to ``CAPACITY[dim]`` entries a
+dest; the moments, density, velocity gradient and momentum calls of the
+same evaluation take it (``handoff=``), pack only their further planes
+and read the listed pairs instead of walking.  A warp holding a dest
+past the capacity walks; the emitting launch counts such dests on the
+card (``overflowed``).  On CPU tensors the plain version walks for every
+call and the emitting call returns an empty hand-off.
 """
 
 import ctypes
@@ -57,8 +69,9 @@ from typing import NamedTuple
 import torch
 
 from pysph_tpu_torch.base.kernels import kernel_kind
-from pysph_tpu_torch.ops import build, cell_pack
+from pysph_tpu_torch.ops import build, cell_pack, pair_link
 from pysph_tpu_torch.ops.build import data_ptr
+from pysph_tpu_torch.ops.pair_link import Handoff
 from pysph_tpu_torch.ops.pair_sets import PhaseSets
 
 NDEN, MOMS, RHO, GRADV, MOM, ENERGY, VISC = 1, 2, 4, 8, 16, 32, 64
@@ -67,6 +80,18 @@ PHASE_SETS = (NDEN, MOMS, RHO, GRADV, MOM, ENERGY, MOM | VISC)
 #: the CUDA kernel's phase of each phase id (csrc/crksph_pair.cu CrkPhase;
 #: the viscosity is its ``visc`` flag)
 KERNEL_PHASE = (0, 1, 2, 3, 4, 5, 4)
+#: the kernel's modes (csrc/crksph_pair.cu CrkMode)
+WALK, EMIT, READ = range(3)
+#: the sets that emit the list and those that read it
+EMITTING = (NDEN,)
+READING = (MOMS, RHO, GRADV, MOM, MOM | VISC)
+#: entries of the neighbour list a dest, by the kernel's dim: the most
+#: pairs a dest held on the card on the paths of chip_smoke.py was 117
+#: (the accuracy test at 256^2 after a jittered step, QuinticSpline at
+#: h = 2 dx; 113 after its 200 steps, 69 the hydrostatic box at nx=50,
+#: 33 Taylor-Green at nx=100), with headroom (PERF.md).  3D (h = 2 dx:
+#: ~900 pairs a dest) has none: its sets walk, unlinked
+CAPACITY = {2: 160}
 MAX_SOURCES = 4
 OUTPUTS = ('V', 'crk_m0', 'crk_m1', 'crk_m2', 'crk_gm0', 'crk_gm1',
            'crk_gm2', 'crk_nnbr', 'rho', 'rhofac', 'gradv', 'au', 'av',
@@ -199,7 +224,10 @@ class _Args(ctypes.Structure):
                     'eta')] +
                 [(k, ctypes.c_int32) for k in (
                     'n_dest', 'n_src', 'nx', 'ny', 'nz', 'dim', 'phase',
-                    'dtype', 'kernel_kind', 'periodic', 'visc')] +
+                    'dtype', 'kernel_kind', 'periodic', 'visc', 'mode',
+                    'cap')] +
+                [(k, ctypes.c_void_p) for k in ('nbr', 'lcount',
+                                                 'overflow')] +
                 [('pack', cell_pack.PackArgs)])
 
 
@@ -212,19 +240,82 @@ def kind_flags(kernel):
         kind < build.BASE_KINDS and kind != 3 else ()
 
 
+def overflowed(device):
+    """The dests past the list's capacity that emitting launches counted
+    since ``reset_overflow`` (reads the counter)."""
+    return pair_link.overflowed('crksph_pair', device)
+
+
+def reset_overflow(device):
+    pair_link.reset_overflow('crksph_pair', device)
+
+
+def lanes(phase, dtype):
+    """The lanes a dest of the kernel's phase ``phase`` (``KERNEL_PHASE``)
+    in ``dtype``, as the default library was built (loads it)."""
+    lib = build.load_library('crksph_pair', _Args)
+    return lib.crksph_pair_lanes(phase, int(dtype == torch.float64))
+
+
+def _check_mode(terms, emit, handoff, dest, sources):
+    """Raise unless only a set of ``EMITTING`` emits and only a set of
+    ``READING`` takes a hand-off, one that ``sources`` on ``dest``'s
+    device emitted for as many dests."""
+    if emit and (handoff is not None or terms not in EMITTING):
+        raise ValueError('crksph_pair: only a number density call emits a '
+                         'hand-off')
+    if handoff is None:
+        return
+    if terms not in READING:
+        raise ValueError('crksph_pair: a call of terms %#x takes no hand-off'
+                         % terms)
+    pair_link.check_handoff('crksph_pair', handoff, dest, sources)
+
+
 def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-            counts):
+            counts, emit, handoff, capacity):
     x = dest['x']
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     sets = sets_of(kernel.dim)
     phase = sets.phase(sources)
     terms = PHASE_SETS[phase]
+    _check_mode(terms, emit, handoff, dest, sources)
     if set(pre) != set(TERM_OUTPUTS[terms]):
         raise ValueError('crksph_pair: pre values for %s, the set gives %s'
                          % (sorted(pre), TERM_OUTPUTS[terms]))
     args = _Args()
+    i32 = torch.int32
+    # a reading call packs its planes but plane 0, which it reads from the
+    # emitting call's copies
+    slots, planes = sets.pack_layout(terms)
+    layout = (slots[1:], planes[1:]) if handoff is not None else None
     buf = sets.fill(args, dest, dest_cells, write_mask, sources, grid,
-                    kernel, phase)
+                    kernel, phase, layout=layout)
+    if handoff is not None:
+        plane0, size = handoff.plane0()
+        if n and handoff.buf.numel() != size:
+            raise ValueError('crksph_pair: a hand-off of %d values for '
+                             'copies of %d' % (handoff.buf.numel(), size))
+        for k in range(len(sources)):
+            args.src[k].plane[0] = handoff.buf.data_ptr() + \
+                plane0[k] * x.element_size()
+        args.mode = READ
+    elif emit:
+        cap = capacity or CAPACITY.get(kernel.dim)
+        if cap is None:
+            raise ValueError('crksph_pair: no list capacity in %dD'
+                             % kernel.dim)
+        handoff = Handoff(buf, torch.empty((cap, n), dtype=i32, device=dev),
+                          torch.empty(n, dtype=i32, device=dev),
+                          pair_link.copies_of(sources))
+        args.overflow = pair_link.overflow_counter('crksph_pair',
+                                                   dev).data_ptr()
+        args.mode = EMIT
+    if handoff is not None and n:
+        args.nbr = data_ptr(handoff.nbr, handoff.nbr.shape[0], i32, dev,
+                            'neighbour list', width=n)
+        args.lcount = data_ptr(handoff.count, n, i32, dev, 'counts')
+        args.cap = handoff.nbr.shape[0]
     args.phase = KERNEL_PHASE[phase]
     args.visc = bool(terms & VISC)
     cs = sources[0][2]
@@ -248,24 +339,35 @@ def _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
         crksph_pair.launches += 1
         crksph_pair.by_set[KERNEL_PHASE[phase]] += 1
         cell_pack.pack.launches += bool(args.pack.n_src)
-    del buf
+    if emit:
+        return out, handoff
+    del buf  # held until the launch is queued
     return out
 
 
 def crksph_pair(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-                counts=False):
+                counts=False, emit=False, handoff=None, capacity=None):
     """Pair terms of one dest over its sources; same arguments and
-    result as ``crksph_pair_reference``.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise (a 1D dest:
-    ``NotImplementedError``)."""
+    result as ``crksph_pair_reference``.  ``emit`` (a number density
+    call): return (result, ``Handoff``); ``handoff`` (a moments, density,
+    velocity gradient or momentum call): read that hand-off's copies and
+    neighbour list instead of walking; ``capacity``: the list's entries
+    a dest for ``emit``, for tests (default ``CAPACITY[kernel.dim]``).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise (a 1D dest: ``NotImplementedError``)."""
     dev = dest['x'].device
     if dev.type == 'cpu':
-        return crksph_pair_reference(dest, dest_cells, write_mask, pre,
-                                     sources, grid, kernel, counts)
+        _check_mode(PHASE_SETS[sets_of(kernel.dim).phase(sources)], emit,
+                    handoff, dest, sources)
+        out = crksph_pair_reference(dest, dest_cells, write_mask, pre,
+                                    sources, grid, kernel, counts)
+        # the plain reading calls walk: the hand-off carries nothing
+        return (out, pair_link.empty_handoff(dest, sources)) if emit \
+            else out
     if dev.type != 'cuda':
         raise ValueError('crksph_pair: no kernel for device %s' % dev)
     return _launch(dest, dest_cells, write_mask, pre, sources, grid, kernel,
-                   counts)
+                   counts, emit, handoff, capacity)
 
 
 def reset_launches():

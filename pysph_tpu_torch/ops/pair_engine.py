@@ -83,8 +83,10 @@ between them moves the pairs: a dest's ``delta_pair`` moment plan and
 its corrected gradient plan in the group right after it, a dest's
 ``tvf_pair`` density plan and its momentum plan in a later group (and
 the mean-pressure plan of ``EDACScheme`` between them), a dest's
-``gsph_pair`` gradients plan and its acceleration plan; and a chain of a
-dest's ``iisph_pair`` plans: the first that sees every later plan's
+``gsph_pair`` gradients plan and its acceleration plan, a dest's
+``crksph_pair`` number density plan and its momentum plan (and the
+moments, density and velocity gradient plans between them); and a chain
+of a dest's ``iisph_pair`` plans: the first that sees every later plan's
 sources (a later plan may read fewer) emits, and every later one (each
 pressure sweep's two among them, run again every sweep) reads.  The
 first call then hands its neighbour list and packed copies to the later
@@ -638,6 +640,27 @@ def _gsph_link_equations():
     return frozenset((gsph.GSPHGradients, gsph.GSPHAcceleration))
 
 
+def _crksph_link_equations():
+    """The equations that may lie between a linked ``crksph_pair`` number
+    density call and its momentum call, those calls' own included:
+    ``CRKSPHScheme``'s pair equations, ``LaminarViscosity`` and its EOS
+    (``StateEquation``, ``SpeedOfSound``).  None writes x y z h, so every
+    call of the chain sees the same pairs in support; the reading calls
+    pack their further props afresh."""
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.wc import crksph
+    return frozenset(cls for eqs in _crksph_sets() for cls in eqs) | {
+        crksph.StateEquation, crksph.SpeedOfSound}
+
+
+def _crksph_capacity(emitter, consumer):
+    dim = emitter.kernel.dim
+    if dim not in _cp.CAPACITY:
+        return 'no list capacity in %dD (CRKSPH at h = 2 dx: ~900 pairs a ' \
+            'dest); its sets walk' % dim
+    return None
+
+
 def _delta_dims(moment, gradient):
     mdim, cdim = moment.sources[0].dim, gradient.sources[0].dim
     if mdim != moment.kernel.dim or cdim > mdim:
@@ -690,6 +713,13 @@ _LINK_RULES = (
               lambda p: _gs.phase_of(_terms_of(p)) == _gs.GRADIENTS,
               lambda p: _gs.phase_of(_terms_of(p)) == _gs.ACCELERATION, None,
               _gsph_link_equations, _pl.Link),
+    # CRKSPHScheme's first evaluator: the number density emits, the
+    # moments, density and velocity gradient read, the momentum consumes
+    _LinkRule(_cp.crksph_pair, lambda p: _terms_of(p) in _cp.EMITTING,
+              lambda p: _terms_of(p) in (_cp.MOM, _cp.MOM | _cp.VISC), None,
+              _crksph_link_equations, _pl.Link, _crksph_capacity,
+              passes=lambda p: _terms_of(p) in (_cp.MOMS, _cp.RHO,
+                                                _cp.GRADV)),
 )
 
 
@@ -792,10 +822,15 @@ def link_pairs(groups, plans):
     gradients plan to the dest's next ``gsph_pair`` plan where that is an
     acceleration plan and every equation from the one group to the other
     is ``GSPHGradients`` or ``GSPHAcceleration`` (``_gsph_link_equations``:
-    none writes a prop of the gradients' packed planes).  The first call
-    then emits the neighbour list and packed copies that the second reads
-    (and the
-    ``tvf_pair`` mean-pressure plans of ``AVGP`` alone between them,
+    none writes a prop of the gradients' packed planes); each
+    ``crksph_pair`` number density plan to the dest's momentum plan, the
+    moments, density and velocity gradient plans between them reading too
+    (``Link.middle``), where every equation from the one group to the
+    other is CRKSPH's, ``LaminarViscosity`` or its EOS
+    (``_crksph_link_equations``: none writes ``x y z h``) and the list has
+    a capacity in the kernel's dimensions (2D).  The first call then
+    emits the neighbour list and packed copies that the second reads (and
+    the ``tvf_pair`` mean-pressure plans of ``AVGP`` alone between them,
     ``EDACScheme``'s with walls: ``Link.middle``) (``ops/pair_link.py``);
     and each dest's chain of ``iisph_pair`` plans (``_link_iisph``).  Each
     refusal is logged.  Returns the ``Link`` of each linked pair or

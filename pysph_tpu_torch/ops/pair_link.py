@@ -2,7 +2,7 @@
 writes a neighbour list, a later call of the same dest reads it instead
 of walking again.
 
-Five kernels run linked calls (``ops/pair_engine.py::link_pairs`` and
+Six kernels run linked calls (``ops/pair_engine.py::link_pairs`` and
 ``link_sweep`` form them): ``delta_pair`` (the moment launch emits, the
 corrected gradient launch consumes), ``tvf_pair`` (the density launch
 emits, the momentum launch consumes), ``iisph_pair`` (a dest's first
@@ -13,7 +13,11 @@ take fewer of the emitter's sources), ``gasd_pair`` (each sweep of
 reads the last one's list where the hand-off's ``use`` flag says that
 the iteration ended converged, and walks elsewhere) and ``gsph_pair``
 (``GSPHScheme``'s gradients launch emits, its acceleration launch reads
-the list and the gradients' copies of planes 0-2).  Nothing between the
+the list and the gradients' copies of planes 0-2) and ``crksph_pair``
+(``CRKSPHScheme``'s number density launch emits, the moments, density,
+velocity gradient and momentum launches of the same evaluation read, a
+group of lanes a dest taking every G-th entry; its capacity is its own,
+``crksph_pair.CAPACITY``).  Nothing between the
 two calls moves ``x y z h``, so the emitting call's pairs in support are
 the consuming call's, in the same order.  The emitting call returns,
 beside its output, a ``Handoff``: its sources' packed copies and the
@@ -31,7 +35,8 @@ import torch
 #: entries of the neighbour list a dest, by the kernel's dim: the most
 #: pairs a dest held on the card, 81 in dam_break_3d dx=0.02 after its
 #: damped steps (3D) and 45 in the perturbed drop (2D), with headroom
-#: (PERF.md); a dest past it makes its warp walk
+#: (PERF.md); a dest past it makes its warp walk (``crksph_pair`` has a
+#: capacity of its own)
 CAPACITY = {1: 16, 2: 64, 3: 128}
 
 

@@ -5,15 +5,17 @@ The reference's per-particle ``loop_all`` is two phases, as in
 ``pysph_tpu``: ``CRKSPHPreStep``'s pair phase sums each dest's moments
 into the strided temporaries of ``_CRK_TEMPS``, and its ``post_loop``
 solves the ``dim x dim`` systems of every particle at once for ``A_i``,
-``B_i`` and their gradients, in closed form (``_inverse``: cofactors, no
-``torch.linalg`` call, whose ``info`` check reads the card and would
-break a chunk's CUDA graph).  ``CRKSPHSymmetric`` rewrites the pair
-symbols ``DWIJ``, ``DWI`` and ``DWJ`` with the corrected kernel gradients
-for the equations after it in its group.
+``B_i`` and their gradients, in closed form (``ops/crk_solve.py``:
+cofactors, no ``torch.linalg`` call, whose ``info`` check reads the card
+and would break a chunk's CUDA graph).  ``CRKSPHSymmetric`` rewrites the
+pair symbols ``DWIJ``, ``DWI`` and ``DWJ`` with the corrected kernel
+gradients for the equations after it in its group.
 
 On the card the six pair phase sets of ``CRKSPHScheme`` run in
-``csrc/crksph_pair.cu`` (``ops/crksph_pair.py``); the per-particle
-phases are torch ops on the state's device.
+``csrc/crksph_pair.cu`` (``ops/crksph_pair.py``; the first evaluator's
+five on one neighbour list) and the ``post_loop`` solve in
+``csrc/crk_solve.cu``; the other per-particle phases are torch ops on
+the state's device.
 
 What ``pysph_tpu`` chose, kept here:
 
@@ -34,6 +36,7 @@ What ``pysph_tpu`` chose, kept here:
 import torch
 
 from pysph_tpu_torch.base.utils import get_particle_array
+from pysph_tpu_torch.ops.crk_solve import crk_solve
 from pysph_tpu_torch.sph.equation import Equation, Group, MultiStageEquations
 from pysph_tpu_torch.sph.integrator import Integrator
 from pysph_tpu_torch.sph.integrator_step import IntegratorStep
@@ -43,62 +46,6 @@ from pysph_tpu_torch.sph.scheme import Scheme
 _CRK_TEMPS = (('crk_m0', 1), ('crk_m1', 3), ('crk_m2', 9),
               ('crk_gm0', 3), ('crk_gm1', 9), ('crk_gm2', 27),
               ('crk_nnbr', 1))
-
-#: ``|det m2|`` below which a particle's system is singular
-SINGULAR = 1e-14
-
-
-def _inverse(m, d):
-    """(det, inverse) of the ``(n, d, d)`` matrices ``m``, d <= 3, from
-    the cofactors."""
-    if d == 1:
-        det = m[:, 0, 0]
-        return det, 1.0 / m
-    if d == 2:
-        a, b, c, e = m[:, 0, 0], m[:, 0, 1], m[:, 1, 0], m[:, 1, 1]
-        det = a * e - b * c
-        adj = torch.stack([torch.stack([e, -b], -1),
-                           torch.stack([-c, a], -1)], -2)
-        return det, adj / det[:, None, None]
-    if d == 3:
-        a = [[m[:, i, j] for j in range(3)] for i in range(3)]
-        cof = [[a[(i + 1) % 3][(j + 1) % 3] * a[(i + 2) % 3][(j + 2) % 3] -
-                a[(i + 1) % 3][(j + 2) % 3] * a[(i + 2) % 3][(j + 1) % 3]
-                for j in range(3)] for i in range(3)]
-        det = a[0][0] * cof[0][0] + a[0][1] * cof[0][1] + \
-            a[0][2] * cof[0][2]
-        # inverse[i][j] = cof[j][i] / det
-        adj = torch.stack([torch.stack([cof[j][i] for j in range(3)], -1)
-                           for i in range(3)], -2)
-        return det, adj / det[:, None, None]
-    raise ValueError('CRKSPH solves dim 1 to 3, not %r' % d)
-
-
-def crk_solve(m0, m1, m2, gm0, gm1, gm2, nnbr, d):
-    """``CRKSPHPreStep.post_loop``'s batched solve: from the moments
-    (``m1``, ``gm0`` ``(n, d)``; ``m2`` ``(n, d, d)``; ``gm1[n, g, a]``;
-    ``gm2[n, g, a, b]``) the correction's ``(ai, gradai, bi, gradbi)``,
-    ``gradbi[n, g, a]``; a particle whose ``|det m2| < 1e-14`` or that has
-    fewer than 2 neighbours gets ``A = 1`` and zeros."""
-    det, _ = _inverse(m2, d)
-    singular = torch.abs(det) < SINGULAR
-    eye = torch.eye(d, dtype=m2.dtype, device=m2.device).expand(m2.shape)
-    _, m2inv = _inverse(torch.where(singular[:, None, None], eye, m2), d)
-    c = torch.einsum('nab,nb->na', m2inv, m1)
-    ai = 1.0 / (m0 - torch.einsum('na,na->n', c, m1))
-    bi = -c
-    t1 = (gm0 - torch.einsum('nab,nb,nga->ng', m2inv, m1, gm1) -
-          torch.einsum('nab,na,ngb->ng', m2inv, m1, gm1) +
-          torch.einsum('ngfs,nf,ns->ng', gm2, c, c))
-    gradai = -ai[:, None] * ai[:, None] * t1
-    gradbi = (-torch.einsum('nab,ngb->nga', m2inv, gm1) +
-              torch.einsum('naf,ngfs,ns->nga', m2inv, gm2, c))
-    bad = singular | (nnbr < 2)
-    return (torch.where(bad, 1.0, ai),
-            torch.where(bad[:, None], 0.0, gradai),
-            torch.where(bad[:, None], 0.0, bi),
-            torch.where(bad[:, None, None], 0.0, gradbi))
-
 
 class CRKSPHPreStep(Equation):
     """Accumulate the CRK moments and solve for A_i, B_i and their

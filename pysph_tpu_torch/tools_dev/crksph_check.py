@@ -22,11 +22,21 @@ the evaluators make them.  ``check(calls, label, tol)``: each call's
 kernel against its plain version (torch's deterministic algorithms on
 the card): every output within ``tol`` of max|ref| and each dest's pairs
 in support equal; returns the largest errors, by set too.
+``check_linked(calls, label, tol, capacity)``: the first evaluator's
+linked chain (``ops/pair_engine.py::link_pairs``: the number density
+emitting, the moments, density, velocity gradient and momentum reading
+its list) against the plain version and the unlinked calls, the list
+against ``pair_link.neighbours_reference``.  ``solve_moments(state,
+dim)``: ``crk_solve``'s arguments from a state's moments, as
+``CRKSPHPreStep.post_loop`` hands them; ``check_solve(state, dim, tol)``:
+the solve against its plain version, the same particles singular.
 ``set_times(calls)``: each set's kernel in a CUDA graph, eagerly and its
-plain version, with its bound (``roofline.crksph_work``).
-``resources(lib)``: registers and spill bytes by dtype, dimension, grid
-and set.  ``chip_smoke.py`` and ``tests/test_torch_crksph_cuda.py`` use
-them; ``tests/test_torch_crksph.py`` takes ``lattice`` from here.
+plain version, with its bound (``roofline.crksph_work``);
+``chain_times(calls)``: the six launches as the path runs them (the
+chain linked, the energy walking) and each launch of the chain alone.
+``resources(lib)``: registers and spill bytes by dtype, dimension, grid,
+set and lanes.  ``chip_smoke.py`` and ``tests/test_torch_crksph_cuda.py``
+use them; ``tests/test_torch_crksph.py`` takes ``lattice`` from here.
 """
 
 import re
@@ -42,7 +52,8 @@ from pysph_tpu_torch.examples.gas_dynamics.accuracy_test_2d import (
 from pysph_tpu_torch.examples.gas_dynamics.hydrostatic_box import (
     HydrostaticBox)
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen
-from pysph_tpu_torch.ops import build
+from pysph_tpu_torch.ops import build, pair_link
+from pysph_tpu_torch.ops import crk_solve as cs
 from pysph_tpu_torch.ops import crksph_pair as cp
 from pysph_tpu_torch.sph.wc import crksph
 from pysph_tpu_torch.tools.sph_evaluator import SPHEvaluator
@@ -223,6 +234,156 @@ def check(calls_, label, tol):
                 pairs=pairs, nnbr_differ=0)
 
 
+def _errors(got, ref, outputs, tol, label, failures):
+    """The largest scaled error of ``got`` against ``ref`` over
+    ``outputs``, each beyond ``tol`` of max|ref| added to ``failures``."""
+    worst = 0.0
+    for p in outputs:
+        scale = max(float(ref[p].abs().max()), 1e-300)
+        err = float((got[p].double() - ref[p].double()).abs().max())
+        if not err <= tol * scale:
+            failures.append('%s %s: error %.3g > %.0e * %.3g' % (
+                label, p, err, tol, scale))
+        worst = max(worst, err / scale)
+    return worst
+
+
+def chain(calls_):
+    """The calls of the linked chain among ``calls_`` (the emitting
+    number density call first, then its readers in order), or []."""
+    for c in calls_:
+        link = c[2].link
+        if link is not None and c[2] is link.emitter:
+            return [c] + [d for d in calls_ if d[0] == c[0] and
+                          d[2] in link.consumers]
+    return []
+
+
+def check_linked(calls_, label, tol, capacity=None):
+    """The linked chain of ``calls_`` (``chain``), the emitting call with
+    the list's ``capacity`` (default ``crksph_pair.CAPACITY``), against
+    the plain version (every output within ``tol`` of max|ref|, each
+    dest's pairs equal) and each reading call against the same call
+    unlinked (within ``tol`` of max|ref|: the lanes take other pairs than
+    the walk's, so the sums round otherwise); the hand-off's list against
+    ``neighbours_reference`` cut at the capacity, its counts equal, and
+    the overflow counter equal to the dests past the capacity.  Raises on
+    a failure; returns the largest scaled errors (against the plain
+    version and against the walk), the most pairs a dest and the dests
+    that overflowed."""
+    calls_ = chain(calls_)
+    if len(calls_) != 5:
+        raise AssertionError('%s: a chain of %d calls, not 5' % (
+            label, len(calls_)))
+    failures = []
+    worst = worst_walk = 0.0
+    (_, _, emitter, first), readers = calls_[0], calls_[1:]
+    dev = first[0]['x'].device
+    if dev.type == 'cuda':
+        cp.reset_overflow(dev)
+    got, handoff = emitter.op(*first, counts=True, emit=True,
+                              capacity=capacity)
+    ref = reference(emitter, first + (True,))
+    worst = _errors(got, ref, emitter.outputs, tol, label + ' emit',
+                    failures)
+    count, positions = pair_link.neighbours_reference(
+        first[0], first[1], first[4], first[5])
+    most = int(count.max()) if count.numel() else 0
+    overflowed = 0
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+        cap = handoff.nbr.shape[0]
+        overflowed = cp.overflowed(dev)
+        listed = pair_link.listed(handoff)[1]
+        if not torch.equal(handoff.count, count) or not torch.equal(
+                listed, pair_link.cut(count, positions, cap)):
+            failures.append('%s: the list differs from neighbours_reference'
+                            % label)
+        if overflowed != int((count > cap).sum()):
+            failures.append('%s: %d dests counted past the capacity %d, %d '
+                            'are' % (label, overflowed, cap,
+                                     int((count > cap).sum())))
+    for _, dest, plan, args in readers:
+        name = '%s %s' % (label, SET_NAMES[plan.sources[0].terms])
+        got = plan.op(*args, counts=True, handoff=handoff)
+        ref = reference(plan, args + (True,))
+        walked = plan.op(*args)
+        worst = max(worst, _errors(got, ref, plan.outputs, tol, name,
+                                   failures))
+        worst_walk = max(worst_walk, _errors(
+            got, walked, plan.outputs, tol, name + ' against the walk',
+            failures))
+        if not torch.equal(got['nnbr'], ref['nnbr']):
+            failures.append('%s: pair counts differ' % name)
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return dict(max_scaled_err=worst, against_walk=worst_walk,
+                most_pairs=most, overflowed=overflowed)
+
+
+def solve_moments(state, dim):
+    """``crk_solve``'s arguments from ``state``'s moments, as
+    ``CRKSPHPreStep.post_loop`` hands them."""
+    n, d = state['x'].shape[0], dim
+    return (state['crk_m0'], state['crk_m1'][:, :d],
+            state['crk_m2'][:, :d * d].reshape(n, d, d),
+            state['crk_gm0'][:, :d],
+            state['crk_gm1'][:, :d * d].reshape(n, d, d),
+            state['crk_gm2'][:, :d ** 3].reshape(n, d, d, d),
+            state['crk_nnbr'], d)
+
+
+def check_solve(state, dim, tol, label):
+    """``crk_solve`` (the kernel on CUDA tensors) against its plain
+    version on ``state``'s moments: every output within ``tol`` of
+    max|ref|, and the same particles singular or with fewer than two
+    neighbours (A = 1 and zeros).  Raises; returns (the largest absolute
+    and scaled errors, the singular particles)."""
+    args = solve_moments(state, dim)
+    got = cs.crk_solve(*args)
+    ref = cs.crk_solve_reference(*args)
+    names = ('ai', 'gradai', 'bi', 'gradbi')
+    failures = []
+    worst = _errors(dict(zip(names, got)), dict(zip(names, ref)), names,
+                    tol, label + ' crk_solve', failures)
+    worst_abs = max(float((a.double() - b.double()).abs().max())
+                    for a, b in zip(got, ref))
+
+    def flagged(out):
+        ai, gradai, bi, gradbi = out
+        n = ai.shape[0]
+        return (ai == 1) & (gradai.reshape(n, -1) == 0).all(1) & \
+            (bi.reshape(n, -1) == 0).all(1) & \
+            (gradbi.reshape(n, -1) == 0).all(1)
+    det = cs._inverse(args[2], dim)[0]
+    want = (det.abs() < cs.SINGULAR) | (args[6] < 2)
+    if not torch.equal(flagged(got) & want, want):
+        failures.append('%s crk_solve: %d singular particles, %d flagged' % (
+            label, int(want.sum()), int((flagged(got) & want).sum())))
+    if failures:
+        raise AssertionError('; '.join(failures))
+    return worst_abs, worst, int(want.sum())
+
+
+def chain_times(calls_, reps=20):
+    """{what: ms in a CUDA graph} of the six launches as the path runs
+    them (``six``: the first evaluator's chain linked, the energy
+    walking), the chain alone (``chain``), its emitting launch alone and
+    each reading launch alone on a hand-off emitted before."""
+    from pysph_tpu_torch.tools_dev.time_walks import run_as_path
+    links = chain(calls_)
+    (_, _, emitter, first) = links[0]
+    out = dict(six=graph_ms(lambda: run_as_path(calls_), reps),
+               chain=graph_ms(lambda: run_as_path(links), reps),
+               emit=graph_ms(lambda: emitter.op(*first, emit=True), reps))
+    handoff = emitter.op(*first, emit=True)[1]
+    for _, _, plan, args in links[1:]:
+        out[SET_NAMES[plan.sources[0].terms]] = graph_ms(
+            lambda plan=plan, args=args: plan.op(*args, handoff=handoff),
+            reps)
+    return out
+
+
 def set_times(calls_, plain_reps=3):
     """{set: ms in a CUDA graph, eagerly, the plain version's, the bound
     and its work} of each call."""
@@ -239,20 +400,29 @@ def set_times(calls_, plain_reps=3):
 
 
 _KERNEL = re.compile(r'crksph_pair_kernelI([fd])Li\d+ELb([01])ENS_\d+'
-                     r'([A-Za-z]+)I[fd]Li\d+ELi(\d)E')
+                     r'([A-Za-z]+)I[fd]Li\d+ELi(\d)EE+(?:Li(\d)E)?')
 
 
 def resources(lib=None):
-    """{'float32 2D periodic Moments': (registers, spill store bytes,
-    spill load bytes)} of the default library's kernels."""
+    """{'float32 2D periodic Moments G8': (registers, spill store bytes,
+    spill load bytes)} of the default library's kernels (or of ``lib``);
+    G: the lanes a dest."""
     lib = build.build('crksph_pair') if lib is None else lib
     out = {}
     for name, res in build.resources(lib).items():
         m = _KERNEL.search(name)
         if m is None:
             continue
-        dtype, periodic, cls, dim = m.groups()
-        out['%s %sD %s %s' % ('float32' if dtype == 'f' else 'float64',
-                              dim, 'periodic' if periodic == '1' else 'open',
-                              cls)] = res
+        dtype, periodic, cls, dim, lanes = m.groups()
+        out['%s %sD %s %s G%s' % (
+            'float32' if dtype == 'f' else 'float64', dim,
+            'periodic' if periodic == '1' else 'open', cls, lanes)] = res
     return out
+
+
+def lanes():
+    """{set: (lanes a dest in float32, in float64)} of the default
+    library."""
+    return {SET_NAMES[t]: tuple(cp.lanes(k, dt) for dt in (
+        torch.float32, torch.float64)) for k, t in enumerate(
+            (cp.NDEN, cp.MOMS, cp.RHO, cp.GRADV, cp.MOM, cp.ENERGY))}

@@ -8,12 +8,18 @@ ask for (``-DGSPH_ACC_BLOCKS_F32``, ``-DGSPH_ACC_BLOCKS_F64``); and of
 ``adke_pair`` (``gasd_pair``'s ADKE sets), the lanes a dest and the
 launch bounds (``-DADKE_LANES``, ``-DADKE_DENSITY_BLOCKS``,
 ``-DADKE_ACCEL_BLOCKS``, ``-DADKE_BLOCKS_F64``), beside the ADKE sets of
-the commit before ``adke_pair``.
+the commit before ``adke_pair``; and of ``crksph_pair``, the lanes a dest
+and the launch bounds (``-DCRKSPH_LANES``, ``-DCRKSPH_BLOCKS``,
+``-DCRKSPH_BLOCKS_F64``, each variant the 2D periodic kernels alone,
+``-DCRKSPH_SWEEP``), and the accuracy test ``--scheme crksph`` in chunks
+under this checkout and another (``crksph_steps``).
 
     python3 -m pysph_tpu_torch.tools_dev.list_batch [delta_pair|tvf_pair]
     python3 -m pysph_tpu_torch.tools_dev.list_batch iisph_solve
     python3 -m pysph_tpu_torch.tools_dev.list_batch gsph_pair
     python3 -m pysph_tpu_torch.tools_dev.list_batch adke_pair PARENT
+    python3 -m pysph_tpu_torch.tools_dev.list_batch crksph_pair
+    python3 -m pysph_tpu_torch.tools_dev.list_batch crksph_steps PARENT
 
 (``PARENT``: a checkout of the commit before ``csrc/adke_pair.cu``, e.g.
 ``git archive <commit> | tar -x -C build/parent``.)
@@ -64,10 +70,26 @@ adke`` at 256^2 in float32, 200 steps in chunks of 10
 fastest variant in float32 (the two sets' medians summed), parent,
 fastest, fastest, parent, one JSON line each: ms/step, a replayed step's
 device busy ms, idle share and the ADKE launches' device ms a step.
+``crksph_pair``: the accuracy test at 256^2 (``--scheme crksph``,
+``crksph_check.calls``) in float32 and float64, the variants of
+``VARIANTS`` (G = 1, 2, 4, 8 lanes a dest for every set, each at three
+launch bounds); each variant's linked chain held to the plain version and
+the walk, its list to ``neighbours_reference``
+(``crksph_check.check_linked``) and its energy launch to the plain
+version; then per dtype each of the six launches as the path runs it
+(the number density emitting, the four reading a hand-off emitted
+before, the energy walking) is replayed, alternated as above, with each
+variant's registers and spills (``crksph_check.resources``), and one
+JSON line a set and dtype names the fastest variant.  ``crksph_steps``:
+the accuracy test ``--scheme crksph`` at 256^2 in float32, 200 steps in
+chunks of 10, under the checkout ``PARENT`` and this one, parent, this,
+this, parent, each in a process of its own (``PYTHONPATH``), one JSON
+line each: ms/step, a replayed step's device busy ms and idle share.
 """
 
 import ctypes
 import json
+import os
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -83,7 +105,8 @@ from pysph_tpu_torch.ops import gsph_pair as gs
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import iisph_solve as isv
 from pysph_tpu_torch.tools_dev import (
-    common, gasd_check, iisph_check, prof_chunk, time_chunks, tvf_check)
+    common, crksph_check, gasd_check, iisph_check, prof_chunk, time_chunks,
+    tvf_check)
 from pysph_tpu_torch.tools_dev.time_walks import delta_calls
 
 
@@ -95,6 +118,14 @@ def _tvf(batch, consume, emit=8, momentum=6):
 def _gsph(f32, f64):
     return ('-DGSPH_ACC_BLOCKS_F32=%d' % f32,
             '-DGSPH_ACC_BLOCKS_F64=%d' % f64)
+
+
+def _crksph(lanes, blocks, f64):
+    """A ``crksph_pair`` variant: the 2D periodic kernels alone, ``lanes``
+    a dest for every set, ``blocks`` an SM in float32 and ``f64`` in
+    float64."""
+    return ('-DCRKSPH_SWEEP', '-DCRKSPH_LANES=%d' % lanes,
+            '-DCRKSPH_BLOCKS=%d' % blocks, '-DCRKSPH_BLOCKS_F64=%d' % f64)
 
 
 def _adke(lanes, blocks=8, f64=4):
@@ -123,6 +154,8 @@ VARIANTS = {
     'adke_pair': [PARENT] +
                  [_adke(g, b) for g in (1, 2, 4, 8) for b in (6, 8)] +
                  [_adke(8, 12, f64=6), _adke(8, 4, f64=2)],
+    'crksph_pair': [_crksph(g, b, f) for g in (1, 2, 4, 8)
+                    for b, f in ((4, 2), (6, 3), (8, 4))],
 }
 
 
@@ -366,8 +399,110 @@ def _adke_steps(smi, variants, parent, steps=200, chunk_steps=10):
     return held
 
 
+#: the default libraries that a sweep's set-up launches, built beside its
+#: variants
+PREBUILT = {'crksph_pair': ('crksph_pair', 'crk_solve', 'cell_pack',
+                            'bin_cells')}
+
+#: the accuracy test's size of the CRKSPH sweep
+CRKSPH_SIZE = 256
+
+
+def _crksph_variants(smi, variants, libs, size=CRKSPH_SIZE):
+    """The graphs of each ``crksph_pair`` variant's six launches by dtype
+    (see the module's docstring), and the variants' libraries and
+    hand-offs, which the graphs need kept."""
+    name = 'crksph_pair'
+    for v, lib in zip(variants, libs):
+        print(json.dumps(dict(card=smi, kernel=name, flags=v,
+                              resources=crksph_check.resources(lib))),
+              flush=True)
+    runs = {str(dtype)[6:]: crksph_check.calls(
+        'accuracy_test_2d', size, dtype)[0]
+        for dtype in (torch.float32, torch.float64)}
+    own = build.EXTRA_FLAGS.get(name, ())
+    graphs, held = {}, []
+    try:
+        for v in variants:
+            _use(name, own, v)
+            for tag, calls in runs.items():
+                tol = 1e-4 if tag == 'float32' else 1e-10
+                label = '%s %s %s' % (name, ' '.join(v), tag)
+                crksph_check.check_linked(calls, label, tol)
+                crksph_check.check(calls[-1:], label, tol)
+                links = crksph_check.chain(calls)
+                (_, _, emitter, first) = links[0]
+                handoff = emitter.op(*first, emit=True)[1]
+                held.append((build._loaded[(name,)], handoff))
+                graphs[v, tag + ' number density'] = common.capture(
+                    lambda p=emitter, a=first: p.op(*a, emit=True))
+                for _, _, plan, args in links[1:]:
+                    graphs[v, '%s %s' % (tag, crksph_check.SET_NAMES[
+                        plan.sources[0].terms])] = common.capture(
+                            lambda p=plan, a=args: p.op(*a, handoff=handoff))
+                (_, _, plan, args) = calls[-1]
+                graphs[v, tag + ' energy'] = common.capture(
+                    lambda p=plan, a=args: p.op(*a))
+    finally:
+        build.EXTRA_FLAGS[name] = own
+        build._loaded.pop((name,), None)
+    return graphs, held
+
+
+def _fastest(smi, name, times):
+    """One JSON line a graph tag (set and dtype): the variant of the
+    least median."""
+    for tag in dict.fromkeys(w for _, w in times):
+        v, t = min(((v, t) for (v, w), t in times.items() if w == tag),
+                   key=lambda vt: np.median(vt[1]))
+        print(json.dumps(dict(card=smi, kernel=name, graph=tag, fastest=v,
+                              ms=float(np.median(t)))), flush=True)
+
+
+#: ``crksph_steps``' run in each checkout's process: the names it uses
+#: are in every checkout since ``CRKSPHScheme`` came
+_CRKSPH_RUN = """
+import json, torch
+import pysph_tpu_torch
+from pysph_tpu_torch.tools_dev import gasd_check, prof_chunk, time_chunks
+app = gasd_check.app('accuracy_test_2d', %d, torch.float32, steps=%d,
+                     extra=('--scheme', 'crksph'))
+ms, samples = time_chunks.timed_solve(app, 10)
+trace = prof_chunk.replay_gaps(app.solver._graph)
+print(json.dumps(dict(package=pysph_tpu_torch.__file__, ms_step=ms,
+                      min=min(samples), max=max(samples),
+                      samples=len(samples), steps=app.solver.count,
+                      busy_ms=(trace['span_us'] - trace['idle_us']) / 1e4,
+                      idle_share=trace['idle_us'] / trace['span_us'])))
+"""
+
+
+def _crksph_steps(smi, parent, steps=200):
+    """The accuracy test ``--scheme crksph`` in chunks under ``parent``
+    and this checkout, alternated (see the module's docstring)."""
+    here = str(Path(__file__).resolve().parents[2])
+    for tree in (parent, here, here, parent):
+        # from the tree itself: `python -c` puts the working directory
+        # first on the path
+        tree = str(Path(tree).resolve())
+        proc = subprocess.run(
+            [sys.executable, '-c', _CRKSPH_RUN % (CRKSPH_SIZE, steps)],
+            capture_output=True, text=True, cwd=tree,
+            env=dict(os.environ, PYTHONPATH=tree))
+        if proc.returncode != 0:
+            raise RuntimeError('crksph_steps under %s:\n%s' % (
+                tree, proc.stderr[-4000:]))
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(dict(card=smi, kernel='crksph_pair', tree=tree,
+                              run='accuracy_test_2d crksph %d float32, %d '
+                              'steps in chunks of 10' % (CRKSPH_SIZE, steps),
+                              **row)), flush=True)
+
+
 def main(name='delta_pair', parent=None, rounds=7, reps=20):
     smi = common.require_cuda()
+    if name == 'crksph_steps':
+        return _crksph_steps(smi, parent)
     variants = VARIANTS[name]
     if name == 'adke_pair' and parent is None:
         raise SystemExit('adke_pair needs a checkout of the commit before '
@@ -377,8 +512,13 @@ def main(name='delta_pair', parent=None, rounds=7, reps=20):
         return _parent_library(parent) if v == PARENT else \
             build.build(name, v)
 
-    with ThreadPoolExecutor(len(variants)) as pool:
+    with ThreadPoolExecutor(len(variants) + len(PREBUILT.get(name, ()))) \
+            as pool:
+        # the libraries the runs' set-up launches, beside the variants
+        pre = [pool.submit(build.build, n) for n in PREBUILT.get(name, ())]
         libs = list(pool.map(built, variants))
+        for lib in pre:
+            lib.result()
     if name == 'adke_pair':
         as_adke = _AsAdke(libs[0])
         graphs, _held = _adke_variants(smi, variants, libs, as_adke)
@@ -390,6 +530,10 @@ def main(name='delta_pair', parent=None, rounds=7, reps=20):
         fastest = min(variants[1:], key=f32)
         _held.append(_adke_steps(smi, [PARENT, fastest, fastest, PARENT],
                                  as_adke))
+        return
+    if name == 'crksph_pair':
+        graphs, _held = _crksph_variants(smi, variants, libs)
+        _fastest(smi, name, _report(smi, name, graphs, rounds, reps))
         return
     if name in ('iisph_solve', 'gsph_pair'):
         variants_of = {'iisph_solve': _solve_variants,

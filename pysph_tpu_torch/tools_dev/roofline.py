@@ -553,13 +553,17 @@ def gasd_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
                      kernel, gd._reads, paired, axis)
 
 
-def crksph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+def crksph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel,
+                mode='walk'):
     """Work of one ``crksph_pair`` call (``_gas_work``; the stencil
     wrapped on a periodic grid): ``CRKSPH_SET_FLOPS`` and its shapes a
     pair in support, ``LaminarViscosity``'s where the set has it; the
     bytes of the dest's strided props (``crksph_pair.DEST_STRIDED``) and
-    of each strided output's every column beside the props of stride
-    1."""
+    of each strided output's every column beside the props of stride 1.
+    ``mode``: ``'walk'``, each candidate's support test (every call
+    walking); ``'emit'``, the walk and its list written (an entry a
+    pair up to the capacity, a count a dest); ``'read'``, a call on the
+    list, its pairs alone (no support test) and their entries read."""
     dim = kernel.dim
     shape = SHAPE_FLOPS[kernel_kind(kernel)]
     image = IMAGE_FLOPS * sum(grid.periodic)
@@ -581,7 +585,43 @@ def crksph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
     work['bytes'] += n * es * (
         sum(cp.WIDTH[p] for p in cp.DEST_STRIDED.get(terms, ())) +
         2 * sum(cp.WIDTH.get(p, 1) - 1 for p in pre))
+    if mode == 'emit':
+        work['bytes'] += I32 * (min(work['pairs'], n * cp.CAPACITY[dim]) + n)
+    elif mode == 'read':
+        work['flops'] = work['pair_flops']
+        work['candidates'] = work['walk_candidates'] = work['visited'] = 0
+        work['bytes'] += I32 * (work['pairs'] + n)
     return work
+
+
+def crksph_path_work(calls):
+    """Work of a step's ``crksph_pair`` calls as the path runs them
+    (``time_walks.plan_calls``' calls of both evaluators): the first
+    evaluator's linked chain emitting and reading, the other calls
+    walking."""
+    def mode(plan):
+        if plan.link is None:
+            return 'walk'
+        return 'emit' if plan is plan.link.emitter else 'read'
+    return add(*[crksph_work(*args, mode=mode(plan))
+                 for _, _, plan, args in calls])
+
+
+#: crk_solve.cu a particle, by D: the determinant twice (D 2: 3 each; 3:
+#: 14), the inverse (6; 36), c and c.m1 (4 D^2), A (2), grad A (D (9 D^2
+#: + 3)), B (D) and grad B (D^2 (3 D + 3))
+CRK_SOLVE_FLOPS = {1: 20, 2: 162, 3: 588}
+
+
+def crk_solve_work(n, dim, element_size):
+    """Work of one ``crk_solve`` launch on ``n`` particles: the moments
+    read (m0, m1, m2, gm0, gm1, gm2, nnbr: 2 + 2 D + 2 D^2 + D^3 values)
+    and A, grad A, B, grad B written (1 + 2 D + D^2) once each."""
+    d = dim
+    values = (2 + 2 * d + 2 * d * d + d ** 3) + (1 + 2 * d + d * d)
+    return dict(flops=n * CRK_SOLVE_FLOPS[d], pair_flops=0,
+                bytes=n * element_size * values, candidates=0,
+                walk_candidates=0, visited=0, pairs=0)
 
 
 def riemann_flops(params):

@@ -5,7 +5,14 @@ Taylor-Green vortex (2D, periodic) from a jittered start after a step,
 and of the seeded boxes (periodic 16^2 with ``LaminarViscosity``, open
 12^2 with a particle whose system is singular, open 6^3), in float64 and
 float32, each dest's pairs in support equal to the plain version's;
-another kernel kind (its own library); a 1D dest on the card raising
+the first evaluator's linked chain (the number density emitting the
+neighbour list, the moments, density, velocity gradient and momentum
+reading it) against the plain version and the walking launches, the
+list against ``neighbours_reference`` (``crksph_check.check_linked``),
+also with the list's capacity forced small (every dest, or those past
+it, walking: the overflow path, counted); ``crk_solve`` against its
+plain version with singular particles, in 2D and 3D; another kernel kind
+(its own library), walking and linked; a 1D dest on the card raising
 rather than running on the plain version; and the accuracy test's run in
 chunks against the per-step loop bit for bit.
 
@@ -20,6 +27,7 @@ import torch
 
 from pysph_tpu_torch.base.kernels import QuinticSpline
 from pysph_tpu_torch.ops import cell_pack
+from pysph_tpu_torch.ops import crk_solve as cs
 from pysph_tpu_torch.ops import crksph_pair as cp
 from pysph_tpu_torch.tools_dev import crksph_check
 from pysph_tpu_torch.tools_dev.testing import one_torch_thread  # noqa: F401
@@ -82,6 +90,65 @@ def test_another_kind_matches_its_plain_version():
     assert cp.kind_flags(calls[0][2].kernel) == ('-DPAIR_KIND=0',)
     crksph_check.check(calls, 'hydrostatic_box WendlandQuintic',
                        TOL[torch.float64])
+    crksph_check.check_linked(calls, 'hydrostatic_box WendlandQuintic',
+                              TOL[torch.float64])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('run,size', RUNS)
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_the_linked_chain_matches_the_walk(dtype, run, size):
+    _need_card()
+    calls, _, _ = crksph_check.calls(run, size, dtype)
+    cp.reset_launches()
+    found = crksph_check.check_linked(calls, '%s %d' % (run, size),
+                                      TOL[dtype])
+    # the chain, and each reading call once more walking
+    assert cp.crksph_pair.by_set == [1, 2, 2, 2, 2, 0]
+    assert found['overflowed'] == 0 and found['most_pairs'] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('capacity', [1, 24])
+def test_dests_past_the_capacity_walk(capacity):
+    """The overflow path: a dest past the list's capacity makes its warp
+    walk, and the emitting launch counts it."""
+    _need_card()
+    calls, _, _ = crksph_check.calls('accuracy_test_2d', 24, torch.float64)
+    found = crksph_check.check_linked(calls, 'capacity %d' % capacity,
+                                      TOL[torch.float64], capacity=capacity)
+    n = calls[0][3][0]['x'].shape[0]
+    assert 0 < found['overflowed'] <= n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['open', '3d'])
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+def test_the_solve_kernel_matches_its_plain_version(dtype, case):
+    """On the moments of the box's evaluation (the open box's far
+    particle singular, with one neighbour), and on seeded moments whose
+    systems are singular."""
+    _need_card()
+    calls = crksph_check.box_calls(case, dtype)
+    dim = 3 if case == '3d' else 2
+    cs.crk_solve.launches = 0
+    _, _, singular = crksph_check.check_solve(calls[2][3][0], dim,
+                                              TOL[dtype], case)
+    assert singular == (1 if case == 'open' else 0)
+    assert cs.crk_solve.launches == 1
+    st = dict(calls[2][3][0])
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    for p in ('crk_m2', 'crk_gm1', 'crk_gm2'):
+        st[p] = torch.randn(st[p].shape, generator=gen, device='cuda',
+                            dtype=dtype)
+    # well-posed systems, five of them singular
+    eye = torch.zeros(9, dtype=dtype, device='cuda')
+    eye[:dim * dim] = torch.eye(dim, dtype=dtype, device='cuda').reshape(-1)
+    st['crk_m2'] = 0.1 * st['crk_m2'] + eye
+    st['crk_m2'][:5] = 0.0
+    _, _, singular = crksph_check.check_solve(st, dim, TOL[dtype],
+                                              case + ' seeded')
+    assert singular >= 5
 
 
 @pytest.mark.cuda
