@@ -319,7 +319,25 @@ Phases (any failure propagates; the exit code is then not 0):
    launches, host reads, device ms by layer and idle share; 0 dests past
    the list's capacity), the solve timed beside its plain version, and
    each set timed there walking and as the path runs it, beside its
-   bound, with the lanes a dest, registers and spills;
+   bound, with the lanes a dest, registers and spills; then
+   ``TSPHScheme`` on ``tsph_pair`` (``_tsph_phase``): its three sets
+   against their plain versions in float64 and float32
+   (``tools_dev/tsph_check.py``: within TOL of max|ref|, each dest's
+   pairs equal) on the accuracy test at 24^2, the hydrostatic box at
+   nx=20 and Cheng-Shu's 1,000 particles (1D), and on the accuracy test
+   at 256^2 in float32; every sweep of a density iteration on
+   ``tsph_sweep`` against its plain version (the converged flags and the
+   count equal), its list against ``neighbours_reference`` and the
+   velocity gradient and the momentum on it bit for bit their walks
+   (``gasd_check.check_sweep``); the accuracy test at 32^2 to tf, the
+   hydrostatic box at nx=50 and Cheng-Shu (``tsph`` and ``gsph``, 1D) for
+   200 steps in float64, Sedov at nx=41 for 200 steps in float32, each
+   within CAVITY_TOL of the JAX package's figures (``JAX_TSPH``,
+   ``JAX_CHENG_SHU_GSPH``); the accuracy test ``tsph`` at 256^2 in
+   float32: 20 steps in chunks bit for bit the per-step loop, 200 steps
+   in chunks of 10 and ``ADKE_STEPS`` per step (``_accuracy_drive``, with
+   its sweeps and slots), each set, the sweep and the two readers on its
+   list timed beside their bounds, with registers and spills;
 9. ``wcsph_pair`` with the Gaussian kernel and ``dense_pair`` against
    their plain version on the elliptical drop (``examples.elliptical_drop``)
    with a seeded velocity and density perturbation: nx=40 (5,021
@@ -399,7 +417,7 @@ from pysph_tpu_torch.examples.dam_break_3d import DamBreak3D
 from pysph_tpu_torch.examples.elliptical_drop import (
     EllipticalDrop, exact_solution)
 from pysph_tpu_torch.examples.gas_dynamics import (
-    accuracy_test_2d, hydrostatic_box, sedov, shocktube)
+    accuracy_test_2d, cheng_shu_1d, hydrostatic_box, sedov, shocktube)
 from pysph_tpu_torch.examples.couette import CouetteFlow
 from pysph_tpu_torch.examples.poiseuille import PoiseuilleFlow, profile_error
 from pysph_tpu_torch.examples.taylor_green import TaylorGreen, decay_errors
@@ -419,6 +437,7 @@ from pysph_tpu_torch.ops import wcsph_pair as wp
 from pysph_tpu_torch.ops import micro
 from pysph_tpu_torch.ops import pair_link as pl
 from pysph_tpu_torch.ops import pair_stub as stub
+from pysph_tpu_torch.ops import tsph_pair as ts
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops.pair_engine import PairSource
 from pysph_tpu_torch.sph.wc import crksph
@@ -430,6 +449,7 @@ from pysph_tpu_torch.tools_dev import micro_launch as tool_launch
 from pysph_tpu_torch.tools_dev import prof_chunk, prof_dma, prof_phases
 from pysph_tpu_torch.tools_dev import roofline
 from pysph_tpu_torch.tools_dev import time_chunks, tvf_check, walk_cases
+from pysph_tpu_torch.tools_dev import tsph_check
 from pysph_tpu_torch.tools_dev import kind_check
 from pysph_tpu_torch.tools_dev.common import (
     capture, events_ms, graph_ms, linked_calls)
@@ -545,6 +565,26 @@ JAX_SHOCKTUBE_SCHEMES = {
 JAX_CRKSPH = {'accuracy': (32, 7.707702803696342e-07),
               'hydrostatic': {'max_speed': 3.852790224035833e-15,
                               'rho_spread': 0.00015512394441330457}}
+#: the JAX package's figures of the TSPH runs (the JAX solver's per-step
+#: loop; tests/jax_gasd_figures.py's FROZEN['tsph'] and ['cheng_shu_1d
+#: gsph']): accuracy_test_2d --nparticles 32 --scheme tsph to tf = 1.0 in
+#: float64, its L1 of rho; hydrostatic_box --nx 50 --scheme tsph after 200
+#: steps in float64; sedov --nx 41 --scheme tsph after 200 steps in
+#: float32; cheng_shu_1d --scheme tsph and --scheme gsph after 200 steps in
+#: float64 (1,000 particles), the mean |rho - the carried profile|, the
+#: largest rho and u; the port's within CAVITY_TOL of each, relative
+JAX_TSPH = {'accuracy': (32, 0.020816479930321194),
+            'hydrostatic': {'max_speed': 0.13057059225211037,
+                            'rho_spread': 0.3963929452518531},
+            'sedov': {'radius': 0.1602630866490765,
+                      'peak': 1.7553044557571411,
+                      'energy': 0.9999728717082634},
+            'cheng_shu_1d': {'rho_l1': 0.01785519223224774,
+                             'rho_max': 3.0006915842179342,
+                             'u_max': 1.0996233021775303}}
+JAX_CHENG_SHU_GSPH = {'rho_l1': 0.01806316552009522,
+                      'rho_max': 3.0793219522333306,
+                      'u_max': 1.0999479519940372}
 #: nothing moves in the hydrostatic box under CRKSPH: the JAX package's
 #: largest speed after 200 steps is rounding (3.9e-15), which no relative
 #: bar can hold; the port's must stay below this
@@ -3381,15 +3421,25 @@ def _gsph_path_candidates():
 #: the pair kernels of the accuracy test's path under each scheme
 ACCURACY_KERNELS = {'gsph': (gs.gsph_pair, gd.gasd_pair),
                     'adke': (gd.gasd_pair, wp.wcsph_pair),
-                    'crksph': (cp.crksph_pair, crk_solve)}
+                    'crksph': (cp.crksph_pair, crk_solve),
+                    'tsph': (ts.tsph_pair, ts.tsph_sweep)}
 #: a crksph_pair kernel's set, by its functor's name in a trace
 CRKSPH_SETS = {'NumDen': 'number density', 'Moments': 'moments',
                'Density': 'density', 'GradV': 'velocity gradient',
                'Mom<': 'momentum', 'Energy': 'energy'}
 
 
+#: a tsph_pair kernel's set, by its functor's name in a trace (the density
+#: set runs on the path as the sweep alone)
+TSPH_SETS = {'Density': 'tsph_sweep', 'Gradient': 'tsph_pair velocity '
+             'gradient', 'Momentum': 'tsph_pair momentum',
+             'tsph_terms': 'tsph_pair per-source terms'}
+
+
 def _layer(name):
     """The layer of a kernel of the accuracy test's trace."""
+    if 'tsph_' in name:
+        return next((v for k, v in TSPH_SETS.items() if k in name), 'tsph?')
     if 'crksph_pair' in name:
         return 'crksph_pair ' + next(
             (v for k, v in CRKSPH_SETS.items() if k in name), '?')
@@ -3449,7 +3499,15 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
         layers[key] = layers.get(key, 0.0) + us / 1e3 / per
     cells = {b.name: b.cells(s.grid).dims
              for b in s.acceleration_evals[0].kept_binnings()}
+    # an iterated group's sweeps: each evaluation's count, the slots a
+    # chunk's evaluation holds, the redos that grew them
+    swept = s.acceleration_evals[0].sweeps
+    sweeps = dict(evaluations=len(swept), total=sum(swept),
+                  most=max(swept, default=0),
+                  slots=[p.slots for p in
+                         s.acceleration_evals[0].sweep_plans()])
     row = dict(ms=ms, samples=len(samples), steps=s.count, t=s.t,
+               sweeps=sweeps,
                chunk_steps=chunk_steps, launches=launches, cells=cells,
                shrinks=s.grid.shrinks,
                launches_per_step={k: v / s.count for k, v in
@@ -3471,7 +3529,8 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
           'replays %d; grid %s (%d grows, %d redos); each binning\'s '
           'periodic counts %s (%d sized down); a step\'s trace: busy '
           '%.4f ms of '
-          '%.4f, idle share %.1f%%; device ms by layer %s; finite %s' % (
+          '%.4f, idle share %.1f%%; device ms by layer %s; sweeps %s; '
+          'finite %s' % (
               scheme, ACCURACY_FULL, how, s.count, s.t, ms, min(samples),
               max(samples), len(samples), time_chunks.WARMUP,
               row['launches_per_step'], row['reads_per_step'], s.captures,
@@ -3479,7 +3538,7 @@ def _accuracy_drive(steps, chunk_steps, scheme='gsph'):
               s.grid.shrinks,
               row['step_busy_ms'],
               row['step_span_ms'], 100 * row['idle_share'],
-              {k: round(v, 4) for k, v in layers.items()}, finite),
+              {k: round(v, 4) for k, v in layers.items()}, sweeps, finite),
           flush=True)
     if not finite or s.count != steps:
         raise AssertionError('accuracy %s %s ended non-finite' % (scheme,
@@ -3926,6 +3985,232 @@ def _crksph_phase(kernels):
         'steps of that run per step' % (ACCURACY_FULL, STEPS)),
         note='CRKSPHPreStep.post_loop\'s solve; the JAX package computes it '
         'in jnp (crk_solve, jnp.linalg.det and inv), not in a pallas_call')
+    return drive, per_step
+
+
+def _tsph_gate(run, size, dtype, steps=0, scheme='tsph'):
+    """``run`` (``tsph_check.RUNS``) under ``--scheme scheme`` at ``size``
+    in ``dtype`` from the example's start, in chunks, to its tf or for
+    ``steps`` steps: (solver, its fluid state in float64 on the host,
+    launches, seconds); every pair phase on a kernel, each of the scheme's
+    kernels launched, and the run finite."""
+    app = tsph_check.app(run, size, dtype, steps=steps,
+                         extra=('--scheme', scheme))
+    s = app.solver
+    ops = (ts.tsph_pair, ts.tsph_sweep) if scheme == 'tsph' else \
+        (gs.gsph_pair, gd.gasd_pair)
+    ts.reset_launches()
+    for op in ops:
+        op.launches = 0
+    start = time.perf_counter()
+    app.solve()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - start
+    st = {p: v.double().cpu().numpy() for p, v in s.states['fluid'].items()
+          if v.is_floating_point()}
+    launches = {op.__name__: op.launches for op in ops}
+    if scheme == 'tsph':
+        launches['tsph_pair by set'] = list(ts.tsph_pair.by_set)
+    engines = set(s.acceleration_evals[0].engine_choices.values())
+    finite = all(np.isfinite(v).all() for v in st.values())
+    if not all(op.launches for op in ops) or engines != {'kernel'} or \
+            not finite:
+        raise AssertionError('%s %s %d: not every pair phase on a kernel '
+                             'or not finite (%s, %s, finite %s)' % (
+                                 run, scheme, size, launches, engines,
+                                 finite))
+    return s, st, launches, '%.1f s, launches %s, sweeps %d in %d ' \
+        'evaluations (most %d), captures %d, redos %d' % (
+            secs, launches, sum(s.acceleration_evals[0].sweeps),
+            len(s.acceleration_evals[0].sweeps),
+            max(s.acceleration_evals[0].sweeps, default=0), s.captures,
+            s.redos)
+
+
+def _tsph_gates():
+    """The TSPH runs, and Cheng-Shu's ``gsph`` in 1D, against the JAX
+    package's figures (``JAX_TSPH``, ``JAX_CHENG_SHU_GSPH``): the accuracy
+    test at 32^2 to tf, the hydrostatic box at nx=50 for 200 steps and
+    Cheng-Shu's 1,000 particles for 200 steps in float64, Sedov at nx=41
+    for 200 steps in float32, each in chunks with every pair phase on a
+    kernel.  Returns the rows."""
+    rows = {}
+    size, l1_jax = JAX_TSPH['accuracy']
+    s, st, _, extra = _tsph_gate('accuracy_test_2d', size, torch.float64)
+    if abs(s.t - 1.0) >= 1e-9:
+        raise AssertionError('accuracy tsph ended at t=%r' % s.t)
+    rows['accuracy'] = _gate_row(
+        'accuracy_test_2d --scheme tsph --nparticles %d float64 at t=%.8g '
+        'after %d steps' % (size, s.t, s.count),
+        dict(l1=accuracy_test_2d.l1_norm(st['x'], st['y'], st['rho'])),
+        dict(l1=l1_jax), extra)
+    s, st, _, extra = _tsph_gate('hydrostatic_box', 50, torch.float64,
+                                 STEPS)
+    rows['hydrostatic'] = _gate_row(
+        'hydrostatic_box --scheme tsph --nx 50 float64 at t=%.8g after %d '
+        'steps' % (s.t, s.count),
+        hydrostatic_box.figures(st['u'], st['v'], st['rho'], st['m'],
+                                1.0 / 50), JAX_TSPH['hydrostatic'], extra)
+    s, st, _, extra = _tsph_gate('sedov', 41, torch.float32, STEPS)
+    rows['sedov'] = _gate_row(
+        'sedov --scheme tsph --nx 41 float32 at t=%.8g after %d steps' % (
+            s.t, s.count),
+        sedov.figures(st['x'], st['y'], st['u'], st['v'], st['rho'],
+                      st['m'], st['e']), JAX_TSPH['sedov'], extra)
+    for scheme, want in (('tsph', JAX_TSPH['cheng_shu_1d']),
+                         ('gsph', JAX_CHENG_SHU_GSPH)):
+        s, st, _, extra = _tsph_gate('cheng_shu_1d', 1000, torch.float64,
+                                     STEPS, scheme)
+        rows['cheng_shu_1d %s' % scheme] = _gate_row(
+            'cheng_shu_1d --scheme %s 1000 particles (1D, periodic) float64 '
+            'at t=%.8g after %d steps' % (scheme, s.t, s.count),
+            cheng_shu_1d.figures(st['x'], st['rho'], st['u'], s.t), want,
+            extra)
+    return rows
+
+
+#: TSPH's small runs for the kernel checks: (run, size)
+TSPH_RUNS = (('accuracy_test_2d', 24), ('hydrostatic_box', 20),
+             ('cheng_shu_1d', 1000))
+
+
+def _tsph_phase(kernels):
+    """``TSPHScheme`` on ``tsph_pair`` (``_tsph_phase``): its three sets
+    against their plain versions (``tsph_check.check``: within TOL of
+    max|ref|, each dest's pairs equal, each walking) on jittered small
+    states (``TSPH_RUNS``: the accuracy test at 24^2, the hydrostatic box
+    at nx=20, Cheng-Shu's 1,000 particles in 1D) in float64 and float32
+    and the accuracy test at 256^2 in float32; the gated sweep
+    (``gasd_check.check_sweep``: every sweep of an iteration from an h
+    moved by 5% against its plain version, the converged flags and the
+    count equal, its list against ``neighbours_reference``, the velocity
+    gradient and the momentum on the last sweep's list bit for bit their
+    walks) on the same states; the JAX package's figures
+    (``_tsph_gates``); the accuracy test at 256^2 in float32: 20 steps in
+    chunks bit for bit the per-step loop, 200 steps in chunks of 10 and
+    ``ADKE_STEPS`` per step (``_accuracy_drive``: every pair phase on a
+    kernel, both ops launched, a step's launches, host reads, sweeps and
+    slots, device ms by layer and idle share); each set timed there
+    walking, the sweep and the two readers on its list as the path runs
+    them, beside their bounds; registers and spills by instantiation.
+    Adds the entries ``tsph_pair`` and ``tsph_sweep``; returns (chunked
+    run, per-step run)."""
+    t0 = time.perf_counter()
+    resources = tsph_check.resources()
+    print('tsph_pair registers and spill bytes (stores, loads) by '
+          'instantiation (Gaussian): %s' % resources, flush=True)
+    errs, sweeps, full = {}, {}, None
+    for dtype in (torch.float64, torch.float32):
+        tol = TOL[dtype]
+        runs = list(TSPH_RUNS)
+        if dtype == torch.float32:
+            runs.append(('accuracy_test_2d', ACCURACY_FULL))
+        for run, size in runs:
+            label = '%s %d %s' % (run, size, str(dtype)[6:])
+            calls, n, _ = tsph_check.calls(run, size, dtype)
+            if [c[2].op for c in calls] != [ts.tsph_pair] * 3:
+                raise AssertionError('tsph %s: not three tsph_pair calls'
+                                     % label)
+            f = errs[label] = tsph_check.check(calls, label, tol)
+            print('compare tsph_pair %s (%d particles): max scaled err %.3g '
+                  '(tol %.0e), by set %s; %d pairs, 0 dests whose count '
+                  'differs' % (
+                      label, n, f['max_scaled_err'], tol,
+                      {k: float('%.3g' % v) for k, v in f['by_set'].items()},
+                      f['pairs']), flush=True)
+            if size == ACCURACY_FULL:
+                full = calls
+            # after two steps: the start's h (2 dx in the accuracy test)
+            # has met hfact's
+            sw = tsph_check.sweep_start(run, size, dtype, steps=2)
+            f = sweeps[label] = gasd_check.check_sweep(sw, label, tol)
+            print('tsph_sweep %s: %d sweeps (kernel alone %d, plain alone '
+                  '%d), max scaled err %.3g, %d converged flags apart '
+                  '(float32 within %.0e of htol); the list as '
+                  'neighbours_reference, most pairs a dest %d, %d past the '
+                  'capacity %d; the velocity gradient and the momentum on '
+                  'it bit for bit their walks (%d on the list, %d walking)'
+                  % (label, f['sweeps'], f['sweeps_kernel'],
+                     f['sweeps_plain'], f['max_scaled_err'],
+                     f['flags_differ'], gasd_check.FLIP_BAR, f['max_count'],
+                     f['overflowed'], f['capacity'], f['linked'],
+                     f['walked']), flush=True)
+            del calls, sw
+    gates = _tsph_gates()
+    _chunks_match('tsph')
+    drive, _ = _accuracy_drive(STEPS, 10, 'tsph')
+    per_step, _ = _accuracy_drive(ADKE_STEPS, 1, 'tsph')
+    for r in (drive, per_step):
+        if r['engines'] != [['kernel']]:
+            raise AssertionError('accuracy tsph: pair phases off the '
+                                 'kernel: %s' % r['engines'])
+    print('accuracy_test_2d --scheme tsph %d float32: sweeps in chunks %s, '
+          'per step %s; redos %d and %d' % (
+              ACCURACY_FULL, drive['sweeps'], per_step['sweeps'],
+              drive['redos'], per_step['redos']), flush=True)
+    sets = tsph_check.set_times(full)
+    for name, t in sets.items():
+        w = t['work']
+        print('tsph_pair %s, accuracy_test_2d %d float32, walking: %.4f '
+              'ms in a graph (eager %.4f, plain %.3f); bound %.4f ms (%s: '
+              '%.4g flops, %d candidates, %d pairs, %d B), share %.1f%%' % (
+                  name, ACCURACY_FULL, t['ms'], t['eager_ms'],
+                  t['plain_ms'], t['bound_ms'], t['bound_by'], w['flops'],
+                  w['candidates'], w['pairs'], w['bytes'],
+                  100 * t['bound_ms'] / t['ms']), flush=True)
+    sw = tsph_check.sweep_start('accuracy_test_2d', ACCURACY_FULL,
+                                torch.float32, steps=2)
+    st = gasd_check.sweep_times(sw)
+    sweep_bound = roofline.bound(st['work'])
+    linked_bound = roofline.bound(st['linked_work'])
+    print('tsph_sweep, accuracy_test_2d %d float32 after two steps, from an '
+          'h moved by 5%%: '
+          'a sweep %.4f ms in a graph (eager %.4f, plain %.3f); bound %.4f '
+          'ms (%s: %.4g flops, %d candidates, %d pairs, %d B), share '
+          '%.1f%%; the iteration %d sweeps (converged %s), %d dests past '
+          'the capacity %d (most pairs %d); the velocity gradient and the '
+          'momentum on its list %.4f ms in a graph (walking %.4f), bound '
+          '%.4f ms (%s), by reader %s' % (
+              ACCURACY_FULL, st['ms'], st['eager_ms'], st['plain_ms'],
+              sweep_bound[0], sweep_bound[1], st['work']['flops'],
+              st['work']['candidates'], st['work']['pairs'],
+              st['work']['bytes'], 100 * sweep_bound[0] / st['ms'],
+              st['sweeps'], st['converged'], st['overflowed'],
+              ts.CAPACITY[2], st['max_count'], st['linked_ms'],
+              st['walk_ms'], linked_bound[0], linked_bound[1],
+              [(r['outputs'], round(r['linked_ms'], 4),
+                round(r['walk_ms'], 4)) for r in st['readers']]),
+          flush=True)
+    full_label = 'accuracy_test_2d %d float32' % ACCURACY_FULL
+    readers_plain = sets['velocity gradient']['plain_ms'] + \
+        sets['momentum']['plain_ms']
+    kernels['tsph_pair'] = _entry(
+        'tsph_pair', 'pysph_tpu/ops/pallas_engine.py:1160',
+        per_step['launches']['tsph_pair'], errs[full_label]['max_abs_err'],
+        st['linked_ms'], readers_plain, st['linked_work'], None,
+        walk_ms=st['walk_ms'], sets={
+            k: {n: v for n, v in t.items() if n != 'work'}
+            for k, t in sets.items()},
+        readers=[{k: v for k, v in r.items() if not k.endswith('work')}
+                 for r in st['readers']], resources=resources, gates=gates,
+        run=drive, per_step_run=per_step,
+        checks={k: v['max_scaled_err'] for k, v in errs.items()},
+        seconds=time.perf_counter() - t0,
+        path='accuracy_test_2d --scheme tsph %d^2 float32, the velocity '
+        'gradient and the momentum of one evaluation on the last sweep\'s '
+        'list (bound: their pairs alone); launches: %d steps of that run '
+        'per step' % (ACCURACY_FULL, ADKE_STEPS))
+    kernels['tsph_sweep'] = dict(_entry(
+        'tsph_sweep', 'pysph_tpu/ops/pallas_engine.py:1160',
+        per_step['launches']['tsph_sweep'],
+        max(v['max_abs_err'] for k, v in sweeps.items()
+            if 'float32' in k), st['ms'], st['plain_ms'], st['work'],
+        None, eager_ms=st['eager_ms'], sweeps=sweeps,
+        path='accuracy_test_2d --scheme tsph %d^2 float32 after two steps, '
+        'one gated sweep (pack, initialize, sums, post_loop, count, list) '
+        'from an h moved by 5%%; launches: %d steps of that run per step' % (
+            ACCURACY_FULL, ADKE_STEPS)),
+        source='pysph_tpu_torch/csrc/tsph_pair.cu')
     return drive, per_step
 
 
@@ -4464,7 +4749,7 @@ def main():
             label, laps[-1] - laps[-2], laps[-1] - t0), flush=True)
 
     names = ('gsph_pair', 'crksph_pair', 'iisph_pair', 'iisph_solve',
-             'crk_solve',
+             'crk_solve', 'tsph_pair',
              'gasd_pair', 'adke_pair', 'tvf_pair',
              'wcsph_pair',
              'gtvf_pair', 'dense_pair', 'fused_pair', 'micro_launch',
@@ -4672,6 +4957,10 @@ def main():
     # CRKSPHScheme: the accuracy test, the hydrostatic box and Taylor-Green
     crk_run, crk_step = _crksph_phase(kernels)
     lap('CRKSPHScheme')
+    # TSPHScheme: the accuracy test, the hydrostatic box, Sedov and
+    # Cheng-Shu
+    tsph_run, tsph_step = _tsph_phase(kernels)
+    lap('TSPHScheme')
 
     # wcsph_pair (Gaussian) and dense_pair against their plain version on
     # the perturbed drop; dense_pair also on dam_break_3d's calls
@@ -4835,6 +5124,17 @@ def main():
               '%.4f ms, idle share %.1f%%; device ms by layer %s' % (
                   how, r['ms'], r['launches_per_step'], r['reads_per_step'],
                   r['step_busy_ms'], 100 * r['idle_share'],
+                  {k: round(v, 4) for k, v in r['layers'].items()}))
+    print('accuracy_test_2d --scheme tsph %d^2 float32 (a step), in chunks '
+          'of 10 (%d steps) / per step (%d steps):' % (
+              ACCURACY_FULL, STEPS, ADKE_STEPS))
+    for how, r in (('chunks', tsph_run), ('per step', tsph_step)):
+        print('  %-9s %.4f ms/step; launches %s; host reads %.3f; sweeps %s; '
+              'redos %d; busy %.4f ms, idle share %.1f%%; device ms by layer '
+              '%s' % (
+                  how, r['ms'], r['launches_per_step'], r['reads_per_step'],
+                  r['sweeps'], r['redos'], r['step_busy_ms'],
+                  100 * r['idle_share'],
                   {k: round(v, 4) for k, v in r['layers'].items()}))
     print('bin_cells an eval in a CUDA graph, kept / rebuilt:')
     for label, rows in bins.items():

@@ -14,12 +14,15 @@ density groups on ``gasd_pair``, the gradients and accelerations on
 viscosity, adaptive dt), ``adke`` (``ADKEScheme`` with k = 1.5, no
 viscosity or conduction) and ``crksph`` (``CRKSPHScheme`` with cl = 2,
 no viscosity: ``CRKSPHIntegrator``, two evaluators a step,
-``QuinticSpline``; its six pair phase sets on ``crksph_pair``) are
-ported; the reference's ``psph``, ``tsph`` and ``magma2`` raise
-``NotImplementedError`` naming their ROADMAP item.  On an NVIDIA card:
+``QuinticSpline``; its six pair phase sets on ``crksph_pair``) and
+``tsph`` (``TSPHScheme`` with hfact 1.5: PEC with TSPH's ``PECStep``,
+the Gaussian; its number-density iteration a gated ``tsph_sweep`` a
+sweep, its velocity gradient and momentum on ``tsph_pair``) are ported;
+the reference's ``psph`` and ``magma2`` raise ``NotImplementedError``
+naming their ROADMAP item.  On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.gas_dynamics.accuracy_test_2d \\
-        --disable-output [--scheme mpm|adke|crksph]
+        --disable-output [--scheme mpm|adke|crksph|tsph]
 
 On the CPU: ``--device cpu --use-double --nparticles 32``.
 ``post_process`` prints and returns the last dump's ``l1_norm``.
@@ -30,6 +33,7 @@ import numpy
 from pysph_tpu_torch.base.domain import DomainManager
 from pysph_tpu_torch.base.utils import get_particle_array as gpa
 from pysph_tpu_torch.solver.application import Application
+from pysph_tpu_torch.sph.gas_dynamics.tsph import TSPHScheme
 from pysph_tpu_torch.sph.scheme import (
     ADKEScheme, GasDScheme, GSPHScheme, NotPortedScheme, SchemeChooser)
 from pysph_tpu_torch.sph.wc.crksph import CRKSPHScheme
@@ -51,7 +55,6 @@ kernel_factor = 1.5
 #: the reference's other schemes: the ROADMAP item that ports them
 _NOT_PORTED = {
     'psph': 'ROADMAP Queue 1 item 28, remaining physics',
-    'tsph': 'ROADMAP Queue 1 item 28, remaining physics',
     'magma2': 'ROADMAP Queue 1 item 28, remaining physics',
 }
 
@@ -137,10 +140,13 @@ class AccuracyTest2D(Application):
             kernel_factor=1.0, g1=0.0, g2=0.0, rsolver=7,
             interpolation=1, monotonicity=1, interface_zero=True,
             hybrid=False, blend_alpha=5.0, niter=40, tol=1e-6)
+        tsph = TSPHScheme(
+            fluids=['fluid'], solids=[], dim=dim, gamma=gamma,
+            hfact=kernel_factor)
         others = {name: NotPortedScheme(name, item)
                   for name, item in _NOT_PORTED.items()}
         return SchemeChooser(default='gsph', adke=adke, mpm=mpm, gsph=gsph,
-                             crksph=crksph, **others)
+                             crksph=crksph, tsph=tsph, **others)
 
     def configure_scheme(self):
         s = self.scheme

@@ -10,12 +10,14 @@ set it), gamma 1.5, h = 1.5 dx, dt = 1e-3 to tf = 10.  The default,
 pair phase sets on ``crksph_pair``), ``gsph`` (``GSPHScheme``, the local
 Lax-Friedrichs solver; Euler with ``GSPHStep``), ``mpm`` (``GasDScheme``,
 kernel_factor 1.2, no viscosity) and ``adke`` (``ADKEScheme``: alpha =
-beta = 0.1, k = 1.5, g1 = g2 = 0.1) are ported; ``gsph`` and ``mpm`` take
-the adaptive dt.  The reference's ``psph``, ``tsph`` and ``magma2`` raise
-``NotImplementedError`` naming their ROADMAP item.  On an NVIDIA card:
+beta = 0.1, k = 1.5, g1 = g2 = 0.1) and ``tsph`` (``TSPHScheme``, hfact
+1.2; its three pair sets on ``tsph_pair``) are ported; ``gsph`` and
+``mpm`` take the adaptive dt.  The reference's ``psph`` and ``magma2``
+raise ``NotImplementedError`` naming their ROADMAP item.  On an NVIDIA
+card:
 
     python -m pysph_tpu_torch.examples.gas_dynamics.hydrostatic_box \\
-        --max-steps 200 --disable-output [--scheme gsph|mpm|adke]
+        --max-steps 200 --disable-output [--scheme gsph|mpm|adke|tsph]
 
 On the CPU: ``--device cpu --use-double``.  ``figures`` gives a state's
 largest speed and the largest relative departure of rho from the
@@ -27,6 +29,7 @@ import numpy
 from pysph_tpu_torch.base.domain import DomainManager
 from pysph_tpu_torch.base.utils import get_particle_array as gpa
 from pysph_tpu_torch.solver.application import Application
+from pysph_tpu_torch.sph.gas_dynamics.tsph import TSPHScheme
 from pysph_tpu_torch.sph.scheme import (
     ADKEScheme, GasDScheme, GSPHScheme, NotPortedScheme, SchemeChooser)
 from pysph_tpu_torch.sph.wc.crksph import CRKSPHScheme
@@ -35,7 +38,6 @@ from pysph_tpu_torch.tools import uniform_distribution as ud
 #: the reference's other schemes: the ROADMAP item that ports them
 _NOT_PORTED = {
     'psph': 'ROADMAP Queue 1 item 28, remaining physics',
-    'tsph': 'ROADMAP Queue 1 item 28, remaining physics',
     'magma2': 'ROADMAP Queue 1 item 28, remaining physics',
 }
 
@@ -114,16 +116,21 @@ class HydrostaticBox(Application):
         adke = ADKEScheme(
             fluids=['fluid'], solids=[], dim=2, gamma=self.gamma,
             alpha=0.1, beta=0.1, k=1.5, eps=0.0, g1=0.1, g2=0.1)
+        tsph = TSPHScheme(
+            fluids=['fluid'], solids=[], dim=2, gamma=self.gamma,
+            hfact=1.2)
         others = {name: NotPortedScheme(name, item)
                   for name, item in _NOT_PORTED.items()}
         return SchemeChooser(default='crksph', crksph=crk, adke=adke,
-                             mpm=mpm, gsph=gsph, **others)
+                             mpm=mpm, gsph=gsph, tsph=tsph, **others)
 
     def configure_scheme(self):
         s = self.scheme
         adaptive = self.options.scheme in ('gsph', 'mpm')
         if self.options.scheme == 'mpm':
             s.configure(kernel_factor=1.2)
+        elif self.options.scheme == 'tsph':
+            s.configure(hfact=1.2)
         s.configure_solver(dt=self.dt, tf=self.tf,
                            adaptive_timestep=adaptive)
         s.get_solver().set_print_freq(50)

@@ -8,12 +8,14 @@ cubic spline over the central kernel support, under ``GasDScheme``
 every sweep, the ideal-gas EOS and ``MPMAccelerations`` with the
 viscosity and conduction switches updated (alpha1 10, alpha2 1);
 ``PECIntegrator`` with ``GasDFluidStep``, the ``Gaussian`` kernel, dt =
-1e-4 to tf = 0.1.  Both pair sets run in ``gasd_pair``.  The reference's
-``psph``, ``tsph`` and ``magma2`` schemes raise ``NotImplementedError``
-naming their ROADMAP item.  On an NVIDIA card:
+1e-4 to tf = 0.1.  Both pair sets run in ``gasd_pair``.  ``--scheme
+tsph`` is ``TSPHScheme`` (hfact 1.2, PEC with TSPH's ``PECStep``): its
+number-density iteration and its two other pair sets run in
+``tsph_pair``.  The reference's ``psph`` and ``magma2`` schemes raise
+``NotImplementedError`` naming their ROADMAP item.  On an NVIDIA card:
 
     python -m pysph_tpu_torch.examples.gas_dynamics.sedov --nx 401 \\
-        --max-steps 200 --disable-output
+        --max-steps 200 --disable-output [--scheme tsph]
 
 (160,801 particles); ``--nx 101`` (the default) is the reference's size.
 On the CPU: ``--device cpu --use-double``.  ``figures`` gives the
@@ -27,6 +29,7 @@ import torch
 from pysph_tpu_torch.base.kernels import CubicSpline
 from pysph_tpu_torch.base.utils import get_particle_array as gpa
 from pysph_tpu_torch.solver.application import Application
+from pysph_tpu_torch.sph.gas_dynamics.tsph import TSPHScheme
 from pysph_tpu_torch.sph.scheme import (
     GasDScheme, NotPortedScheme, SchemeChooser)
 
@@ -45,7 +48,6 @@ kernel_factor = 1.2
 #: the reference's other schemes: the ROADMAP item that ports them
 _NOT_PORTED = {
     'psph': 'ROADMAP Queue 1 item 28, remaining physics',
-    'tsph': 'ROADMAP Queue 1 item 28, remaining physics',
     'magma2': 'ROADMAP Queue 1 item 28, remaining physics',
 }
 #: the density above which a particle is in the blast's shell
@@ -108,9 +110,11 @@ class SedovPointExplosion(Application):
             kernel_factor=kernel_factor, alpha1=alpha1,
             alpha2=alpha2, beta=beta, adaptive_h_scheme='mpm',
             update_alpha1=True, update_alpha2=True)
+        tsph = TSPHScheme(fluids=['fluid'], solids=[], dim=dim,
+                          gamma=gamma, hfact=kernel_factor)
         others = {name: NotPortedScheme(name, item)
                   for name, item in _NOT_PORTED.items()}
-        return SchemeChooser(default='mpm', mpm=mpm, **others)
+        return SchemeChooser(default='mpm', mpm=mpm, tsph=tsph, **others)
 
     def configure_scheme(self):
         self.scheme.configure_solver(dt=dt, tf=tf,

@@ -62,9 +62,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 #: version's; crksph_pair takes no contraction, as gasd_pair, and
 #: optimizes on every core, as gsph_pair (its default library the second
 #: longest build); crk_solve rounds the determinant as its plain version,
-#: so that the same particles are singular
+#: so that the same particles are singular; tsph_pair's sweep takes its
+#: pairs and its Newton step's converged flags as its plain version, as
+#: gasd_pair's
 EXTRA_FLAGS = {'delta_pair': ('-fmad=false',),
                'gasd_pair': ('-fmad=false',),
+               'tsph_pair': ('-fmad=false', '-split-compile=0'),
                'gsph_pair': ('-fmad=false', '-split-compile=0'),
                'crksph_pair': ('-fmad=false', '-split-compile=0'),
                'crk_solve': ('-fmad=false',),

@@ -285,17 +285,18 @@ class SweepBuffers(object):
     """What the sweeps of one iterated group write besides the dest's
     props, kept across its sweeps (and a CUDA graph's replays): ``buf``,
     the sources' packed planes 0 and 1 (``cell_pack.fill``'s layout);
-    ``nbr`` (``pair_link.CAPACITY[dim]``, n) and ``count`` (n,), the
-    neighbour list; ``sources``: ((name, particles), ...)."""
+    ``nbr`` (``capacity``, default ``pair_link.CAPACITY[dim]``, n) and
+    ``count`` (n,), the neighbour list; ``sources``: ((name, particles),
+    ...)."""
 
-    def __init__(self, dest, sources, dim):
+    def __init__(self, dest, sources, dim, capacity=None):
         x = dest['x']
         n, dev = x.shape[0], x.device
         self.sources = pl.copies_of(sources)
         self.buf = torch.empty(sum(2 * 4 * ns for _, ns in self.sources),
                                dtype=x.dtype, device=dev)
-        self.nbr = torch.empty((pl.CAPACITY[dim], n), dtype=torch.int32,
-                               device=dev)
+        self.nbr = torch.empty((capacity or pl.CAPACITY[dim], n),
+                               dtype=torch.int32, device=dev)
         self.count = torch.zeros(n, dtype=torch.int32, device=dev)
 
     def fits(self, dest, sources):

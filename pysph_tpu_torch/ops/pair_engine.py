@@ -1,6 +1,6 @@
 """Planning: which pair phases a hand-written pair kernel runs.
 
-Nine kernels take a dest's pair phases, all its sources in one call:
+Ten kernels take a dest's pair phases, all its sources in one call:
 
 - ``wcsph_pair`` (``ops/wcsph_pair.py``, the dam_break_3d main path, the
   elliptical drop and the Taylor-Green vortex's ``--scheme wcsph``):
@@ -56,6 +56,12 @@ Nine kernels take a dest's pair phases, all its sources in one call:
   of a dest takes ``GSPHGradients`` (the gradients) or every source
   ``GSPHAcceleration`` with the same constants (the accelerations), each
   plan taking the step's t and dt (``PairPlan.takes_time``);
+- ``tsph_pair`` (``ops/tsph_pair.py``, ``TSPHScheme``'s groups: the
+  accuracy test, the hydrostatic box, Sedov's blast and Cheng-Shu's
+  wave): every source of a dest takes TSPH's ``SummationDensity`` (the
+  density set), every source ``VelocityGradDivC1`` (the velocity
+  gradient) or every source ``MomentumAndEnergy`` with the same
+  constants (the momentum), in the kernel's dimensions;
 - ``crksph_pair`` (``ops/crksph_pair.py``, ``CRKSPHScheme``'s groups: the
   accuracy test, the hydrostatic box and the Taylor-Green vortex): every
   source of a dest takes one of its six ordered sets (``_crksph_sets``),
@@ -96,11 +102,14 @@ group's sub-tree as they run in one sweep (``leaf_groups``).
 
 ``plan_sweep`` plans ``GasDScheme``'s iterated density group (one
 dest's ``SummationDensity`` with ``density_iterations``, re-binned every
-sweep) onto ``gasd_sweep`` (``ops/gasd_pair.py``): a ``SweepPlan``,
-whose sweeps the evaluator runs gated on the card (``sph/
+sweep) onto ``gasd_sweep`` (``ops/gasd_pair.py``), and ``TSPHScheme``'s
+onto ``tsph_sweep`` (``ops/tsph_pair.py``): a ``SweepPlan``, whose sweeps
+the evaluator runs gated on the card (``sph/
 acceleration_eval.py::_run_swept``), and ``link_sweep`` links it to the
-dest's ``MPMAccelerations`` plan after it, which then reads the last
-sweep's neighbour list where the iteration ended converged.
+dest's ``MPMAccelerations`` plan after it (``TSPHScheme``'s: its
+``VelocityGradDivC1`` plan, then its ``MomentumAndEnergy`` plan), which
+then read the last sweep's neighbour list where the iteration ended
+converged.
 
 ``plan_solve`` plans an iterated group onto ``iisph_solve``
 (``ops/iisph_solve.py``) where its tree is exactly IISPH's pressure solve
@@ -113,9 +122,9 @@ The engine (``config.py``) picks the kernels: ``kernel`` plans the WCSPH
 sets onto ``wcsph_pair``, the GTVF sets onto ``gtvf_pair``, the
 delta-SPH pre-phases onto ``delta_pair``, TVF's and EDAC's sets onto
 ``tvf_pair``, IISPH's onto ``iisph_pair``, the MPM and ADKE sets onto
-``gasd_pair``, GSPH's onto ``gsph_pair`` and CRKSPH's onto
-``crksph_pair``; ``dense`` plans the WCSPH sets
-without delta-SPH terms onto ``dense_pair`` and nothing else, as the JAX
+``gasd_pair``, GSPH's onto ``gsph_pair``, CRKSPH's onto
+``crksph_pair`` and TSPH's onto ``tsph_pair``; ``dense`` plans the WCSPH
+sets without delta-SPH terms onto ``dense_pair`` and nothing else, as the JAX
 package's dense-slot engine refuses sequential and strided phases
 (``pallas_engine.py:855-861``): the GTVF sets, the delta-SPH pre-phases
 (their outputs ``m_mat`` and ``gradrho`` are strided) and the delta-SPH
@@ -135,6 +144,7 @@ from pysph_tpu_torch.ops import gtvf_pair as _gp
 from pysph_tpu_torch.ops import iisph_pair as _ip
 from pysph_tpu_torch.ops import iisph_solve as _is
 from pysph_tpu_torch.ops import pair_link as _pl
+from pysph_tpu_torch.ops import tsph_pair as _ts
 from pysph_tpu_torch.ops import tvf_pair as _tp
 from pysph_tpu_torch.ops import wcsph_pair as _wp
 from pysph_tpu_torch.sph.basic_equations import (
@@ -495,6 +505,40 @@ def _plan_gasd(dest, sources, kernel):
                     _gd.gasd_pair_reference, _gd.TERM_OUTPUTS[terms])
 
 
+def _tsph_terms():
+    # imported here, as _gtvf_terms
+    from pysph_tpu_torch.sph.gas_dynamics import tsph
+    return {tsph.SummationDensity: _ts.SDEN,
+            tsph.VelocityGradDivC1: _ts.GRADV,
+            tsph.MomentumAndEnergy: _ts.MOM}
+
+
+def _plan_tsph(dest, sources, kernel):
+    term_of = _tsph_terms()
+    plan_sources = []
+    terms = 0
+    for src, t, eqs in _source_terms(sources, term_of, _ts.TERM_OUTPUTS,
+                                     _ts.MAX_SOURCES):
+        dims = {eq.dim for eq in eqs}
+        if dims != {kernel.dim}:
+            raise PairIneligible('TSPH equations in %s dimensions, the '
+                                 'kernel in %d' % (sorted(dims), kernel.dim))
+        plan_sources.append(_ts.TsphSource(
+            src, t, tuple(eqs), beta=_one(eqs, 'beta', src),
+            fkern=_one(eqs, 'fkern', src) or 1.0))
+        terms |= t
+    if _ts.phase_of(terms) is None or any(
+            ps.terms != terms for ps in plan_sources):
+        raise PairIneligible('TSPH terms %#x: not one phase set for every '
+                             'source' % terms)
+    if len({ps[3:] for ps in plan_sources}) != 1:
+        raise PairIneligible('MomentumAndEnergy: sources of different '
+                             'constants')
+    _refuse_1d('tsph_pair', kernel)
+    return PairPlan(dest, plan_sources, kernel, _ts.tsph_pair,
+                    _ts.tsph_pair_reference, _ts.TERM_OUTPUTS[terms])
+
+
 def _gsph_terms():
     # imported here, as _gtvf_terms
     from pysph_tpu_torch.sph.gas_dynamics import gsph
@@ -587,7 +631,8 @@ def _plan_crksph(dest, sources, kernel):
 
 
 _PLANNERS = {'kernel': (_plan_wcsph, _plan_gtvf, _plan_delta, _plan_tvf,
-                        _plan_iisph, _plan_gasd, _plan_gsph, _plan_crksph),
+                        _plan_iisph, _plan_gasd, _plan_gsph, _plan_crksph,
+                        _plan_tsph),
              'dense': (_plan_dense,)}
 
 
@@ -989,76 +1034,125 @@ class SolvePlan(object):
         states[self.dest].update(out)
 
 
+def _sweep_kinds():
+    """{equation type: (its pair kernel's wrapper, the sweep op, the
+    ``SweepSpec`` of an equation, the list's capacity by dim)} of the
+    density iterations that ``plan_sweep`` takes."""
+    from pysph_tpu_torch.sph.gas_dynamics import basic, tsph
+    return {basic.SummationDensity: (_gd.gasd_pair, _gd.gasd_sweep,
+                                     _gd.sweep_spec, _pl.CAPACITY),
+            tsph.SummationDensity: (_ts.tsph_pair, _ts.tsph_sweep,
+                                    _ts.sweep_spec, _ts.CAPACITY)}
+
+
 def plan_sweep(group, plans, kernel):
     """The ``SweepPlan`` of the iterated ``group`` (its plan in
     ``plans``), or ``PairIneligible``: the group must be ``Group(
     [SummationDensity(d, sources, density_iterations=True)],
-    iterate=True, update_nnps=True)`` of the gas-dynamics equations, one
-    dest, its plan ``gasd_pair``'s density set."""
-    from pysph_tpu_torch.sph.gas_dynamics import basic
+    iterate=True, update_nnps=True)`` of one dest, with ``GasDScheme``'s
+    ``SummationDensity`` planned on ``gasd_pair``'s density set or
+    ``TSPHScheme``'s on ``tsph_pair``'s."""
     eqs = group.equations
     if group.has_subgroups or not group.update_nnps:
         raise PairIneligible('not a re-binned group of equations')
-    if len(eqs) != 1 or type(eqs[0]) is not basic.SummationDensity or \
+    kinds = _sweep_kinds()
+    if len(eqs) != 1 or type(eqs[0]) not in kinds or \
             not eqs[0].density_iterations:
         raise PairIneligible('not one SummationDensity with '
                              'density_iterations')
+    op, sweep, spec, capacity = kinds[type(eqs[0])]
     plan = plans.get((id(group), eqs[0].dest))
-    if plan is None or plan.op is not _gd.gasd_pair:
-        raise PairIneligible('its pair phase is not on gasd_pair')
+    if plan is None or plan.op is not op:
+        raise PairIneligible('its pair phase is not on %s' % op.__name__)
     if int(group.max_iterations) < 1:
         raise PairIneligible('max_iterations %r' % group.max_iterations)
-    return SweepPlan(plan, group, _gd.sweep_spec(eqs[0]))
+    return SweepPlan(plan, group, spec(eqs[0]), sweep,
+                     capacity[kernel.dim])
 
 
-def _sweep_link_equations():
-    """The equations that may lie between a density sweep and the
-    momentum plan that reads its list (``GasDScheme``'s groups): none
-    writes x y z h."""
+class _SweepReaders(NamedTuple):
+    """The plans of a sweep's kernel that read its list: ``passes(plan)``
+    a plan between the sweep and the consumer (``Link.middle``),
+    ``consumes(plan)`` the last; ``equations()`` those that may lie
+    between the sweep and the consumer (none writes x y z h)."""
+    passes: Callable
+    consumes: Callable
+    equations: Callable
+
+
+def _gasd_sweep_readers():
     from pysph_tpu_torch.sph.gas_dynamics import basic
-    return frozenset((basic.IdealGasEOS, basic.MPMAccelerations))
+    return _SweepReaders(
+        lambda p: False,
+        lambda p: _gd.phase_of(_terms_of(p)) == _gd.MOMENTUM,
+        lambda: frozenset((basic.IdealGasEOS, basic.MPMAccelerations)))
+
+
+def _tsph_sweep_readers():
+    from pysph_tpu_torch.sph.gas_dynamics import tsph
+    return _SweepReaders(
+        lambda p: _terms_of(p) == _ts.GRADV,
+        lambda p: _terms_of(p) == _ts.MOM,
+        lambda: frozenset((tsph.IdealGasEOS, tsph.VelocityGradDivC1,
+                           tsph.BalsaraSwitch, tsph.MomentumAndEnergy)))
+
+
+#: how each sweep's kernel reads its list, by the kernel's wrapper
+_SWEEP_READERS = {_gd.gasd_pair: _gasd_sweep_readers,
+                  _ts.tsph_pair: _tsph_sweep_readers}
 
 
 def link_sweep(sweep, groups, plans):
-    """Link ``sweep`` (a ``SweepPlan``) to its dest's next ``gasd_pair``
-    plan in ``groups`` (the leaf groups in order) where that is a
-    momentum plan over the same sources and every equation of the groups
-    from the sweep's to it keeps the pairs (``_sweep_link_equations``, no
-    re-binning before it).  Returns the ``Link``, or None (logged)."""
+    """Link ``sweep`` (a ``SweepPlan``) to its dest's later plans of the
+    same kernel in ``groups`` (the leaf groups in order) that read its
+    last sweep's list: ``gasd_pair``'s momentum plan; ``tsph_pair``'s
+    velocity gradient plan (``Link.middle``), then its momentum plan.
+    Each must be over the same sources, and every equation of the groups
+    from the sweep's to the consumer's must keep the pairs (no re-binning
+    before it).  Returns the ``Link``, or None (logged)."""
+    op = sweep.plan.op
+    readers = _SWEEP_READERS[op]()
     names = [ps.name for ps in sweep.plan.sources]
     a = next(k for k, g in enumerate(groups) if g is sweep.group)
+    middle, why = [], None
     for b in range(a + 1, len(groups)):
         plan = plans.get((id(groups[b]), sweep.dest))
-        if plan is None or plan.op is not _gd.gasd_pair:
+        if plan is None or plan.op is not op:
             continue
-        why = None
-        if _gd.phase_of(_terms_of(plan)) != _gd.MOMENTUM:
-            why = 'the next gasd_pair plan is not of the momentum set'
-        elif [ps.name for ps in plan.sources] != names:
+        if [ps.name for ps in plan.sources] != names:
             why = 'sources %s and %s' % (
                 names, [ps.name for ps in plan.sources])
+        elif readers.passes(plan):
+            middle.append(plan)
+            continue
+        elif not readers.consumes(plan):
+            why = 'the next %s plan reads no list' % op.__name__
         else:
-            why = _span_refusal(groups[a + 1:b + 1],
-                                _sweep_link_equations())
+            why = _span_refusal(groups[a + 1:b + 1], readers.equations())
         if why is None:
-            link = _SweepLink(sweep, plan)
-            sweep.link = plan.link = link
+            link = _SweepLink(sweep, plan, middle)
+            sweep.link = link
+            for p in middle + [plan]:
+                p.link = link
             return link
         break
     else:
-        why = 'no momentum plan after it'
-    logger.info('gasd_sweep for %s: no link: %s', sweep.dest, why)
+        why = 'no consuming plan after it'
+    logger.info('%s sweep for %s: no link: %s', op.__name__, sweep.dest,
+                why)
     return None
 
 
 class _SweepLink(_pl.Link):
-    """A ``SweepPlan`` and the momentum plan that reads its last sweep's
-    list: the sweep sets ``handoff`` (``SweepPlan.hand_off``); where none
-    did (the evaluator's host loop with ``solve_iterated`` off) the
-    momentum call walks."""
+    """A ``SweepPlan`` and the plans that read its last sweep's list (the
+    consumer and ``middle``): the sweep sets ``handoff``
+    (``SweepPlan.hand_off``), the consumer takes it; where none did (the
+    evaluator's host loop with ``solve_iterated`` off) they walk."""
 
     def run(self, plan, args):
-        handoff, self.handoff = self.handoff, None
+        handoff = self.handoff
+        if plan is self.consumer:
+            self.handoff = None
         return plan.op(*args) if handoff is None else \
             plan.op(*args, handoff=handoff)
 
@@ -1068,20 +1162,23 @@ MIN_SLOTS = 2
 
 
 class SweepPlan(object):
-    """An iterated density group planned onto ``gasd_sweep``: ``plan`` is
-    its ``gasd_pair`` density plan (the sources), ``group`` the group,
-    ``spec`` the ``SweepSpec``, ``link`` the ``Link`` to the momentum
-    plan (or None).  ``slots``: the sweeps a chunk's evaluation holds
-    (None until the first chunk: ``MIN_SLOTS`` or the most that a
-    converged evaluation outside a chunk took, ``seen``; doubled where an
-    evaluation of a chunk ran out, the solver's redo); ``buffers``: the
-    ``SweepBuffers`` on the card."""
+    """An iterated density group planned onto a sweep op (``op``:
+    ``gasd_sweep`` or ``tsph_sweep``): ``plan`` is its density plan on the
+    sweep's pair kernel (the sources), ``group`` the group, ``spec`` the
+    kernel's ``SweepSpec``, ``link`` the ``Link`` to the plans that read
+    its list (or None), ``capacity`` its list's entries a dest.
+    ``slots``: the sweeps a chunk's evaluation holds (None until the first
+    chunk: ``MIN_SLOTS`` or the most that a converged evaluation outside a
+    chunk took, ``seen``; doubled where an evaluation of a chunk ran out,
+    the solver's redo); ``buffers``: the ``SweepBuffers`` on the card."""
 
-    def __init__(self, plan, group, spec):
+    def __init__(self, plan, group, spec, op, capacity):
         self.plan = plan
         self.dest = plan.dest
         self.group = group
         self.spec = spec
+        self.op = op
+        self.capacity = capacity
         self.link = None
         self.slots = None
         self.seen = 0
@@ -1109,16 +1206,17 @@ class SweepPlan(object):
         x = store['x']
         if x.is_cuda and (self.buffers is None or
                           not self.buffers.fits(store, srcs)):
-            self.buffers = _gd.SweepBuffers(store, srcs, self.plan.kernel.dim)
-        out, unconv = _gd.gasd_sweep(
+            self.buffers = _gd.SweepBuffers(store, srcs, self.plan.kernel.dim,
+                                            self.capacity)
+        out, unconv = self.op(
             store, cells[self.dest], self.group.write_mask(store), srcs, grid,
             self.plan.kernel, self.spec, run, self.buffers)
         store.update(out)
         return unconv
 
     def hand_off(self, states, use):
-        """Leave the last sweep's list for the linked momentum plan, read
-        where ``use`` (a 0-d device bool) is set."""
+        """Leave the last sweep's list for the linked plans, read where
+        ``use`` (a 0-d device bool) is set."""
         if self.link is None:
             return
         store = states[self.dest]

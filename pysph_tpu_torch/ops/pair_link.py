@@ -2,7 +2,7 @@
 writes a neighbour list, a later call of the same dest reads it instead
 of walking again.
 
-Six kernels run linked calls (``ops/pair_engine.py::link_pairs`` and
+Seven kernels run linked calls (``ops/pair_engine.py::link_pairs`` and
 ``link_sweep`` form them): ``delta_pair`` (the moment launch emits, the
 corrected gradient launch consumes), ``tvf_pair`` (the density launch
 emits, the momentum launch consumes), ``iisph_pair`` (a dest's first
@@ -17,7 +17,10 @@ the list and the gradients' copies of planes 0-2) and ``crksph_pair``
 (``CRKSPHScheme``'s number density launch emits, the moments, density,
 velocity gradient and momentum launches of the same evaluation read, a
 group of lanes a dest taking every G-th entry; its capacity is its own,
-``crksph_pair.CAPACITY``).  Nothing between the
+``crksph_pair.CAPACITY``) and ``tsph_pair`` (each sweep of
+``TSPHScheme``'s density iteration emits, as ``gasd_pair``'s, and its
+velocity gradient and momentum launches read the last one's list where
+the hand-off's ``use`` flag is set).  Nothing between the
 two calls moves ``x y z h``, so the emitting call's pairs in support are
 the consuming call's, in the same order.  The emitting call returns,
 beside its output, a ``Handoff``: its sources' packed copies and the

@@ -167,16 +167,18 @@ def neighbour_counts(dest, dest_cells, sources, grid):
     return out.to(torch.int32)
 
 
-def fill_outputs(args, outputs, pre, x, counts):
+def fill_outputs(args, outputs, pre, x, counts, widths=None):
     """Point ``args.pre`` and ``args.out`` at the pre values and at new
     output tensors of each of ``outputs`` in ``pre`` (by its index
-    there), of ``x``'s length, dtype and device, and ``args.count`` at a
-    new ``nnbr`` where ``counts``.  Returns {output: tensor}."""
+    there), of ``x``'s length, dtype and device (``(n, widths[p])`` for a
+    strided output), and ``args.count`` at a new ``nnbr`` where
+    ``counts``.  Returns {output: tensor}."""
     dev, fdt, n = x.device, x.dtype, x.shape[0]
     out = {}
     for k, p in enumerate(outputs):
         if p in pre:
-            args.pre[k] = data_ptr(pre[p], n, fdt, dev, 'pre ' + p)
+            args.pre[k] = data_ptr(pre[p], n, fdt, dev, 'pre ' + p,
+                                   width=(widths or {}).get(p))
             out[p] = torch.empty_like(pre[p])
             args.out[k] = out[p].data_ptr()
     if counts:

@@ -296,11 +296,11 @@ class Solver(object):
                  'a post-stage callback'),
                 # converged read on the host once a sweep: a graph would
                 # replay one sweep count; an iisph_solve and the gated
-                # density sweeps sweep on the card
+                # density sweeps (gasd_sweep, tsph_sweep) sweep on the card
                 (self._graphed() and any(
                     a.host_iterated for a in self.acceleration_evals),
                  'an iterated group that no iisph_solve plan takes (nor '
-                 'a gasd_sweep plan)')):
+                 'a gasd_sweep or tsph_sweep plan)')):
             if failed:
                 self._log_once('per-step loop: %s' % reason)
                 return False

@@ -13,8 +13,9 @@ pressure solve on ``iisph_pair`` (``ops/pair_engine.py::plan_solve``),
 one ``iisph_solve`` call runs every sweep, the loop condition on the
 device, and nothing is read back (its plain version on the CPU reads
 ``converged`` on the host); where it is ``GasDScheme``'s density
-iteration on ``gasd_pair`` (``plan_sweep``), each sweep is one gated
-``gasd_sweep`` launch after the reuse test of the evaluator's own
+iteration on ``gasd_pair`` or ``TSPHScheme``'s on ``tsph_pair``
+(``plan_sweep``), each sweep is one gated ``gasd_sweep`` or
+``tsph_sweep`` launch after the reuse test of the evaluator's own
 binning, a chunk's evaluation runs a fixed number of such slots with
 nothing read, and the host loop outside chunks reads the count of
 unconverged particles (``_run_swept``); any other iterated group sweeps
@@ -883,7 +884,7 @@ class AccelerationEval(object):
         return handle
 
     def _run_swept(self, plan, states, active=None):
-        """The sweeps of a ``SweepPlan``'s group (``gasd_sweep``), each
+        """The sweeps of a ``SweepPlan``'s group (its sweep op), each
         after the reuse test of the evaluator's own binning (positions do
         not move during the iteration, so it re-bins only where h grew
         past the cells; the pairs in support are those of a fresh
@@ -895,9 +896,9 @@ class AccelerationEval(object):
         read; where an evaluation would sweep past its slots, the grid's
         ``sweep_overflow`` (where kept) is set, and the solver runs the
         chunk again with more slots.  Either way the sweeps are the same,
-        bit for bit, and logged on the device; the linked momentum plan
-        reads the last sweep's list where it left every particle
-        converged.  Returns the handle of the last sweep's binning."""
+        bit for bit, and logged on the device; the linked plans read the
+        last sweep's list where it left every particle converged.
+        Returns the handle of the last sweep's binning."""
         min_it, max_it = plan.min_iterations, plan.max_iterations
         if active is None:
             it, conv = 0, False

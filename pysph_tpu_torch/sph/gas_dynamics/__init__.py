@@ -1,4 +1,5 @@
 """Compressible gas dynamics (port of ``pysph_tpu/sph/gas_dynamics/``):
 the grad-h MPM and ADKE equations of ``GasDScheme`` and ``ADKEScheme``
-(``basic.py``), and Godunov SPH, ``GSPHScheme``'s (``gsph.py``, with the
-Riemann solvers of ``riemann_solver.py``)."""
+(``basic.py``), Godunov SPH, ``GSPHScheme``'s (``gsph.py``, with the
+Riemann solvers of ``riemann_solver.py``), and ``TSPHScheme`` with its
+equations (``tsph.py``)."""

@@ -34,15 +34,17 @@ registers and spills at one kind.  ``sweep_start(run, size, dtype,
 steps, ...)``: a solver whose fluid stands at the start of an
 evaluation with its h moved by a seeded fraction (``converged`` 0, h0
 the h before), so that the density iteration has sweeps to run.
-``check_sweep(s, label, tol, capacity)``: ``gasd_sweep`` (the gated
-density sweep) against its plain version on every sweep of that
-iteration (each from the plain version's state: every output within
+``check_sweep(s, label, tol, capacity)``: the sweep plan's op (the gated
+density sweep: ``gasd_sweep``, or ``tsph_sweep`` of a TSPH run from
+``tools_dev/tsph_check.py``) against its plain version on every sweep of
+that iteration (each from the plain version's state: every output within
 ``tol`` of max|ref|, the count of unconverged particles and each
 ``converged`` flag equal), its emitted list against
 ``pair_link.neighbours_reference``, the iteration's sweeps on the kernel
-alone and on the plain version alone, and the linked ``MPMAccelerations``
-launch on the last sweep's list bit for bit the walking one (its ``use``
-flag set, and cleared).  ``branch_calls(calls_)``: a GSPH run's calls
+alone and on the plain version alone, and each linked launch that reads
+the last sweep's list (``MPMAccelerations``'; TSPH's velocity gradient
+and momentum) bit for bit the walking one (its ``use`` flag set, and
+cleared).  ``branch_calls(calls_)``: a GSPH run's calls
 with the acceleration call again under each entry of ``BRANCHES`` (every Riemann solver, every
 monotonicity and interpolation, ``interface_zero`` off, the hybrid blend
 at t = 0.3 and the conduction), each with its own ``GSPHAcceleration``.
@@ -81,6 +83,7 @@ from pysph_tpu_torch.ops import gasd_pair as gd
 from pysph_tpu_torch.ops import gsph_pair as gs
 from pysph_tpu_torch.ops import pair_link as pl
 from pysph_tpu_torch.ops import pair_sets
+from pysph_tpu_torch.ops import tsph_pair as ts
 from pysph_tpu_torch.ops.sweeps import keep_sweeping
 from pysph_tpu_torch.sph.acceleration_eval import AccelerationEval
 from pysph_tpu_torch.sph.equation import Group
@@ -470,14 +473,23 @@ def repeats(calls_):
 FLIP_BAR = 1e-3
 
 
+#: each sweep op's module (its ``SWEEP_OUTPUTS``), the prefix of its work's
+#: measures (``roofline``'s ``<prefix>_sweep_work``, ``_linked_work`` and
+#: ``_work``) and its plain version
+SWEEPS = {gd.gasd_sweep: (gd, 'gasd', gd.gasd_sweep_reference),
+          ts.tsph_sweep: (ts, 'tsph', ts.tsph_sweep_reference)}
+
+
 def sweep_start(run, size, dtype, steps=0, jitter_start=True, device='cuda',
-                extra=(), scale=0.05, seed=1357):
+                extra=(), scale=0.05, seed=1357, make=None):
     """A solver of ``run`` at ``size`` after ``steps`` steps of its
     (jittered) start whose fluid stands where an evaluation's density
-    iteration starts (``GasDFluidStep.initialize``: ``converged`` 0,
-    ``omega`` 1, h0 = h), its h then moved by up to ``scale`` of itself
-    (seeded)."""
-    a = app(run, size, dtype, steps=steps, device=device, extra=extra)
+    iteration starts (``GasDFluidStep.initialize``, TSPH's ``PECStep``'s:
+    ``converged`` 0, ``omega`` 1 where the scheme has it, h0 = h), its h
+    then moved by up to ``scale`` of itself (seeded); ``make``: the
+    application's maker (default ``app``; ``tsph_check.app``)."""
+    a = (make or app)(run, size, dtype, steps=steps, device=device,
+                      extra=extra)
     s = a.solver
     if jitter_start:
         jitter(s)
@@ -491,7 +503,8 @@ def sweep_start(run, size, dtype, steps=0, jitter_start=True, device='cuda',
         1.0 + scale * rng.uniform(-1, 1, n), dtype=st['h'].dtype,
         device=st['h'].device)
     st['converged'] = torch.zeros_like(st['h'])
-    st['omega'] = torch.ones_like(st['h'])
+    if 'omega' in st:
+        st['omega'] = torch.ones_like(st['h'])
     return s
 
 
@@ -506,15 +519,18 @@ def _sweep_args(s, states):
                          plan.plan.kernel, plan.spec)
 
 
-def _plain_sweep(args):
+def _plain_sweep(args, op=gd.gasd_sweep):
+    """The plain version of the sweep op ``op`` on ``args``; on the card
+    with torch's deterministic algorithms."""
+    reference = SWEEPS[op][2]
     dest = args[0]
     if not dest['x'].is_cuda:
-        return gd.gasd_sweep_reference(*args)
+        return reference(*args)
     before = torch.are_deterministic_algorithms_enabled()
     warn = torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        return gd.gasd_sweep_reference(*args)
+        return reference(*args)
     finally:
         torch.use_deterministic_algorithms(before, warn_only=warn)
 
@@ -535,16 +551,19 @@ def _iterate(s, states, sweep):
 
 
 def check_sweep(s, label, tol, capacity=None):
-    """``gasd_sweep`` on the card against its plain version (module
-    docstring); ``capacity``: the list's entries (default
-    ``pair_link.CAPACITY[dim]``).  Returns {sweeps, sweeps_kernel,
-    sweeps_plain, max_abs_err, max_scaled_err, flags_differ, pairs,
-    overflowed, max_count, capacity, linked, walked, flip_off}; raises
-    where a bar is missed.  In float32 a dest may end converged on one
-    side only where its step lies within ``FLIP_BAR`` of htol of htol:
-    counted in ``flags_differ`` (none may in float64) and left out of the
-    errors."""
+    """The sweep plan's op (``gasd_sweep``, ``tsph_sweep``) on the card
+    against its plain version (module docstring), and each plan that
+    reads its list (``MPMAccelerations``'; TSPH's velocity gradient and
+    momentum) on the last sweep's list bit for bit the walk;
+    ``capacity``: the list's entries (default the plan's).  Returns
+    {sweeps, sweeps_kernel, sweeps_plain, max_abs_err, max_scaled_err,
+    flags_differ, pairs, overflowed, max_count, capacity, linked, walked,
+    flip_off}; raises where a bar is missed.  In float32 a dest may end
+    converged on one side only where its step lies within ``FLIP_BAR`` of
+    htol of htol: counted in ``flags_differ`` (none may in float64) and
+    left out of the errors."""
     plan = s.acceleration_evals[0].sweep_plans()[0]
+    mod, kernel = SWEEPS[plan.op][0], plan.plan.op.__name__
     dev = s.states[plan.dest]['x'].device
     if dev.type != 'cuda':
         raise ValueError('check_sweep: %s: states off the card' % label)
@@ -558,12 +577,11 @@ def check_sweep(s, label, tol, capacity=None):
     while keep_sweeping(it, conv, plan.min_iterations, plan.max_iterations):
         _, cells, args = _sweep_args(s, states)
         store, srcs = args[0], args[3]
-        buffers = gd.SweepBuffers(store, srcs, plan.plan.kernel.dim)
-        if capacity is not None:
-            buffers.nbr = buffers.nbr[:capacity].contiguous()
-        pl.reset_overflow('gasd_pair', dev)
-        got, gun = gd.gasd_sweep(*args, buffers=buffers)
-        want, wun = _plain_sweep(args)
+        buffers = gd.SweepBuffers(store, srcs, plan.plan.kernel.dim,
+                                  capacity or plan.capacity)
+        pl.reset_overflow(kernel, dev)
+        got, gun = plan.op(*args, buffers=buffers)
+        want, wun = _plain_sweep(args, plan.op)
         torch.cuda.synchronize()
         # a particle whose Newton step sits within rounding of htol may
         # end converged on one side only (float32: the sums' order)
@@ -580,7 +598,7 @@ def check_sweep(s, label, tol, capacity=None):
                                 'their steps %.3g of htol off it' % (
                                     label, it, flips, off))
         keep = ~flip
-        for p in gd.SWEEP_OUTPUTS:
+        for p in mod.SWEEP_OUTPUTS:
             ref = want[p].double()[keep]
             scale = max(float(ref.abs().max()), 1e-300)
             err = float((got[p].double()[keep] - ref).abs().max())
@@ -604,7 +622,7 @@ def check_sweep(s, label, tol, capacity=None):
                 positions, pl.cut(want_count, where, cap))):
             failures.append('%s sweep %d: the neighbour list differs from '
                             'neighbours_reference' % (label, it))
-        over = pl.overflowed('gasd_pair', dev)
+        over = pl.overflowed(kernel, dev)
         if over != int((want_count > cap).sum()):
             failures.append('%s sweep %d: %d dests counted past the '
                             'capacity, %d are' % (label, it, over,
@@ -621,40 +639,40 @@ def check_sweep(s, label, tol, capacity=None):
     # the iteration on each alone
     kernel_states = {n: dict(st) for n, st in start.items()}
     buffers = gd.SweepBuffers(start[plan.dest], args[3],
-                              plan.plan.kernel.dim)
+                              plan.plan.kernel.dim, plan.capacity)
     kit, kargs, kcells, kconv = _iterate(
-        s, kernel_states, lambda a: gd.gasd_sweep(*a, buffers=buffers))
+        s, kernel_states, lambda a: plan.op(*a, buffers=buffers))
     pit, _, _, _ = _iterate(s, {n: dict(st) for n, st in start.items()},
-                            _plain_sweep)
+                            lambda a: _plain_sweep(a, plan.op))
     found['sweeps_kernel'], found['sweeps_plain'] = kit, pit
-    # the linked momentum launch on the kernel's last sweep
+    # the linked launches on the kernel's last sweep
     link = plan.link
     if link is None:
-        failures.append('%s: the sweep is linked to no momentum plan'
-                        % label)
+        failures.append('%s: the sweep is linked to no plan' % label)
     else:
-        mplan = link.consumer
-        mstore = kernel_states[plan.dest]
-        pre = {p: torch.zeros_like(mstore[p]) for p in mplan.outputs}
-        margs = mplan.args(mstore, kernel_states, kcells, s.grid,
-                           mplan_mask(s, mplan, mstore), pre)
-        walked = gd.gasd_pair(*margs)
         found['linked'] = found['walked'] = 0
-        for use in ((True, False) if kconv else (False,)):
-            flag = torch.tensor(use, device=dev)
-            got = gd.gasd_pair(*margs, handoff=buffers.handoff(flag))
-            if any(not torch.equal(got[p], walked[p]) for p in walked):
-                failures.append('%s: the momentum launch on the list (use '
-                                '%s) differs from the walk' % (label, use))
-            found['linked' if use else 'walked'] += 1
-        ref = reference(mplan, margs)
-        for p in mplan.outputs:
-            r = ref[p].double()
-            scale = max(float(r.abs().max()), 1e-300)
-            err = float((walked[p].double() - r).abs().max())
-            if not err <= tol * scale:
-                failures.append('%s momentum %s: error %.3g > %.0e * %.3g'
-                                % (label, p, err, tol, scale))
+        for mplan in link.consumers:
+            mstore = kernel_states[plan.dest]
+            pre = {p: torch.zeros_like(mstore[p]) for p in mplan.outputs}
+            margs = mplan.args(mstore, kernel_states, kcells, s.grid,
+                               mplan_mask(s, mplan, mstore), pre)
+            walked = mplan.op(*margs)
+            for use in ((True, False) if kconv else (False,)):
+                flag = torch.tensor(use, device=dev)
+                got = mplan.op(*margs, handoff=buffers.handoff(flag))
+                if any(not torch.equal(got[p], walked[p]) for p in walked):
+                    failures.append('%s: the launch of %s on the list (use '
+                                    '%s) differs from the walk' % (
+                                        label, mplan.outputs, use))
+                found['linked' if use else 'walked'] += 1
+            ref = reference(mplan, margs)
+            for p in mplan.outputs:
+                r = ref[p].double()
+                scale = max(float(r.abs().max()), 1e-300)
+                err = float((walked[p].double() - r).abs().max())
+                if not err <= tol * scale:
+                    failures.append('%s reader %s: error %.3g > %.0e * %.3g'
+                                    % (label, p, err, tol, scale))
     if failures:
         print('check_sweep %s: %s' % (label, found), flush=True)
         raise AssertionError('; '.join(failures))
@@ -663,55 +681,71 @@ def check_sweep(s, label, tol, capacity=None):
 
 def sweep_times(s, reps=20):
     """At the state of ``s`` (``sweep_start``'s), on the card: a gated
-    sweep launch as the path runs it (in place under its flag) in a CUDA
-    graph and eager, its plain version and its work
-    (``roofline.gasd_sweep_work``); the iteration on the kernel from that
-    state, then the momentum launch on its last sweep's list and walking,
-    each in a graph, with their work, and the dests past the list's
-    capacity in one sweep (``pair_link.overflowed``)."""
+    sweep launch of the sweep plan's op as the path runs it (in place
+    under its flag) in a CUDA graph and eager, its plain version and its
+    work (``roofline``'s ``<kernel>_sweep_work``); the iteration on the
+    kernel from that state, then the launches that read its last sweep's
+    list (``MPMAccelerations``'; TSPH's velocity gradient and momentum),
+    on the list and walking, each in a graph, with their work
+    (``<kernel>_linked_work``, ``<kernel>_work``; by reader in
+    ``readers``, summed in ``linked_ms``, ``walk_ms`` and the works), and
+    the dests past the list's capacity in one sweep
+    (``pair_link.overflowed``)."""
     from pysph_tpu_torch.tools_dev import common, roofline
     plan = s.acceleration_evals[0].sweep_plans()[0]
+    mod, short, _ = SWEEPS[plan.op]
+    kernel = plan.plan.op.__name__
     start = {n: dict(st) for n, st in s.states.items()}
     states = {n: dict(st) for n, st in start.items()}
     _, _, args = _sweep_args(s, states)
     store, srcs = args[0], args[3]
     dev = store['x'].device
-    store.update({p: store[p].clone() for p in gd.SWEEP_OUTPUTS})
-    buffers = gd.SweepBuffers(store, srcs, plan.plan.kernel.dim)
+    store.update({p: store[p].clone() for p in mod.SWEEP_OUTPUTS})
+    buffers = gd.SweepBuffers(store, srcs, plan.plan.kernel.dim,
+                              plan.capacity)
     run = torch.ones((), dtype=torch.bool, device=dev)
-    work = roofline.gasd_sweep_work(*args[:6])
-    plain_ms = common.events_ms(lambda: _plain_sweep(args), 3)
+    work = getattr(roofline, short + '_sweep_work')(*args[:6])
+    plain_ms = common.events_ms(lambda: _plain_sweep(args, plan.op), 3)
 
     def sweep():
-        gd.gasd_sweep(*args, run=run, buffers=buffers)
+        plan.op(*args, run=run, buffers=buffers)
     ms = common.graph_ms(sweep, reps)
     eager_ms = common.events_ms(sweep, reps)
     kernel_states = {n: dict(st) for n, st in start.items()}
     sweeps, kargs, kcells, conv = _iterate(
-        s, kernel_states, lambda a: gd.gasd_sweep(*a, buffers=buffers))
-    pl.reset_overflow('gasd_pair', dev)
-    gd.gasd_sweep(*kargs, buffers=buffers)
-    overflowed = pl.overflowed('gasd_pair', dev)
-    mplan = plan.link.consumer
+        s, kernel_states, lambda a: plan.op(*a, buffers=buffers))
+    pl.reset_overflow(kernel, dev)
+    plan.op(*kargs, buffers=buffers)
+    overflowed = pl.overflowed(kernel, dev)
     mstore = kernel_states[plan.dest]
-    pre = {p: torch.zeros_like(mstore[p]) for p in mplan.outputs}
-    margs = mplan.args(mstore, kernel_states, kcells, s.grid,
-                       mplan_mask(s, mplan, mstore), pre)
     use = torch.tensor(conv, device=dev)
-    linked_ms = common.graph_ms(
-        lambda: gd.gasd_pair(*margs, handoff=buffers.handoff(use)), reps)
-    walk_ms = common.graph_ms(lambda: gd.gasd_pair(*margs), reps)
+    readers = []
+    for mplan in plan.link.consumers:
+        pre = {p: torch.zeros_like(mstore[p]) for p in mplan.outputs}
+        margs = mplan.args(mstore, kernel_states, kcells, s.grid,
+                           mplan_mask(s, mplan, mstore), pre)
+        readers.append(dict(
+            outputs=mplan.outputs,
+            linked_ms=common.graph_ms(
+                lambda: mplan.op(*margs, handoff=buffers.handoff(use)),
+                reps),
+            walk_ms=common.graph_ms(lambda: mplan.op(*margs), reps),
+            linked_work=getattr(roofline, short + '_linked_work')(*margs),
+            walk_work=getattr(roofline, short + '_work')(*margs)))
     return dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, work=work,
-                sweeps=sweeps, converged=conv, linked_ms=linked_ms,
-                walk_ms=walk_ms,
-                linked_work=roofline.gasd_linked_work(*margs),
-                walk_work=roofline.gasd_work(*margs), overflowed=overflowed,
+                sweeps=sweeps, converged=conv,
+                linked_ms=sum(r['linked_ms'] for r in readers),
+                walk_ms=sum(r['walk_ms'] for r in readers),
+                linked_work=roofline.add(*[r['linked_work']
+                                           for r in readers]),
+                walk_work=roofline.add(*[r['walk_work'] for r in readers]),
+                readers=readers, overflowed=overflowed,
                 dests=mstore['x'].shape[0],
                 max_count=int(buffers.count.max()))
 
 
 def mplan_mask(s, mplan, store):
-    """The write mask of the group of the momentum plan ``mplan``."""
+    """The write mask of the group of the plan ``mplan``."""
     a_eval = s.acceleration_evals[0]
     group = next(g for g in a_eval.leaf_groups()
                  if a_eval._plans.get((id(g), mplan.dest)) is mplan)

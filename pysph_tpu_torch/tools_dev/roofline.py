@@ -42,6 +42,7 @@ from pysph_tpu_torch.ops import gsph_pair as gs
 from pysph_tpu_torch.ops import gtvf_pair as gp
 from pysph_tpu_torch.ops import iisph_pair as ip
 from pysph_tpu_torch.ops import micro
+from pysph_tpu_torch.ops import tsph_pair as ts
 from pysph_tpu_torch.ops import tvf_pair as tp
 from pysph_tpu_torch.ops import wcsph_pair as wp
 
@@ -206,6 +207,26 @@ CRKSPH_SET_FLOPS = {
 CRKSPH_SHAPES = {cp.NDEN: 1, cp.MOMS: 1, cp.RHO: 1, cp.GRADV: 1, cp.MOM: 2,
                  cp.ENERGY: 2}
 CRKSPH_VISC_FLOPS = 28
+#: tsph_pair.cu, per pair in support beside pair_of (GASD_PAIR_FLOPS) and
+#: its shapes (TSPH_SHAPES): Density: q, WI, the gradient's factor (a
+#: compare and three products), v.DWI with DWI (11), GHI (6), fij (3)
+#: and the six sums (9): 36; Gradient: q and the gradient's factor (5),
+#: vij (3), -m_j, and per entry of the DIM x DIM block the DWI component
+#: and the two sums (7 each): 9 + 7 DIM^2; Momentum: the source's h1 and
+#: fac (5), q and the factor at both h (10), DWI DWJ (6), vij (3), cij
+#: (2), hij (3), v.x (5), fij and fji (6), comi comj (4), the four sums
+#: (19): 63, and the viscosity's 34 on a pair with v.x <= 0 (rhoij and
+#: its inverse, alpha, muij, the factor, avi and the four sums); the
+#: terms of one particle alone: a source's plane-3 rewrite (7,
+#: tsph_terms_kernel, every source particle) and the dest's (Density 5,
+#: Momentum 7) once a dest; the sweep's post_loop a dest (ni, dndhi,
+#: func, dfdh, the clipped Newton step, diff, the test, ah: 20)
+TSPH_SET_FLOPS = {ts.SDEN: 36, ts.MOM: 63}
+TSPH_SHAPES = {ts.SDEN: 1, ts.GRADV: 1, ts.MOM: 2}
+TSPH_VISC_FLOPS = 34
+TSPH_SOURCE_FLOPS = 7
+TSPH_DEST_FLOPS = {ts.SDEN: 5, ts.GRADV: 0, ts.MOM: 7}
+TSPH_POST_FLOPS = 20
 
 
 def bound(work):
@@ -696,6 +717,74 @@ def gsph_linked_work(dest, dest_cells, write_mask, pre, sources, grid,
     call's list: its pairs alone (no candidate's support test) and their
     list entries read beside its walk's bytes."""
     work = gsph_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel)
+    work['flops'] = work['pair_flops']
+    work['visited'] = 0
+    work['bytes'] += 4 * (work['pairs'] + dest['x'].shape[0])
+    return work
+
+
+def _tsph_set_flops(terms, dim):
+    return 9 + 7 * dim * dim if terms == ts.GRADV else TSPH_SET_FLOPS[terms]
+
+
+def tsph_work(dest, dest_cells, write_mask, pre, sources, grid, kernel):
+    """Work of one ``tsph_pair`` call (``_gas_work``; the stencil wrapped
+    on a periodic grid): the momentum set's viscosity counted on the
+    pairs that approach (``v_ij . x_ij <= 0``) in this call's data, its
+    per-source terms once a source particle, each set's dest terms once a
+    dest; the strided outputs ``invtt`` and ``gradv`` at 9 values a
+    particle."""
+    shape = SHAPE_FLOPS[kernel_kind(kernel)]
+    image = IMAGE_FLOPS * sum(grid.periodic)
+    dim = kernel.dim
+
+    def paired(i, j, src, s):
+        flops = i.numel() * (GASD_PAIR_FLOPS + image + _tsph_set_flops(
+            s.terms, dim) + TSPH_SHAPES[s.terms] * shape)
+        if s.terms & ts.MOM:
+            dot = sum(
+                (dest[v][i] - src[v][j]) * grid.image(d, dest[c][i] -
+                                                      src[c][j])
+                for d, (c, v) in enumerate(zip('xyz', 'uvw')))
+            flops += int((dot <= 0).sum()) * TSPH_VISC_FLOPS + \
+                TSPH_SOURCE_FLOPS * src['x'].shape[0]
+        return flops
+
+    work = _gas_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel, ts._reads, paired)
+    n, es = dest['x'].shape[0], dest['x'].element_size()
+    terms = sources[0][2].terms
+    work['flops'] += n * TSPH_DEST_FLOPS[terms]
+    work['pair_flops'] += n * TSPH_DEST_FLOPS[terms]
+    # the strided pre values and outputs: 9 values, not 1
+    work['bytes'] += n * es * 2 * 8 * sum(p in ts.WIDTH for p in pre)
+    return work
+
+
+def tsph_sweep_work(dest, dest_cells, write_mask, sources, grid, kernel):
+    """Work of one ``tsph_sweep`` call: the density set's walk
+    (``tsph_work``), its post_loop a dest, its props read and written in
+    place (the 12 outputs, h0) and its neighbour list written (an entry a
+    pair up to the capacity, a count a dest)."""
+    pre = {p: dest[p] for p in ts.TERM_OUTPUTS[ts.SDEN]}
+    work = tsph_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel)
+    n = dest['x'].shape[0]
+    es = dest['x'].element_size()
+    work['flops'] += n * TSPH_POST_FLOPS
+    work['pair_flops'] += n * TSPH_POST_FLOPS
+    work['bytes'] += n * es * (2 * len(ts.SWEEP_OUTPUTS) + 1 - 2 * 6) + \
+        4 * (min(work['pairs'], n * ts.CAPACITY[kernel.dim]) + n)
+    return work
+
+
+def tsph_linked_work(dest, dest_cells, write_mask, pre, sources, grid,
+                     kernel):
+    """Work of a velocity gradient or momentum ``tsph_pair`` call on a
+    density sweep's list: its pairs alone (no candidate's support test)
+    and their list entries read beside its walk's bytes."""
+    work = tsph_work(dest, dest_cells, write_mask, pre, sources, grid,
                      kernel)
     work['flops'] = work['pair_flops']
     work['visited'] = 0

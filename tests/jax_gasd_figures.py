@@ -6,11 +6,13 @@
     JAX_PLATFORMS=cpu python tests/jax_gasd_figures.py shocktube \\
         [--nl 320] [--scheme mpm|gsph|adke]
     JAX_PLATFORMS=cpu python tests/jax_gasd_figures.py sedov \\
-        [--nx 41] [--steps 200]
+        [--nx 41] [--steps 200] [--scheme mpm|tsph]
     JAX_PLATFORMS=cpu python tests/jax_gasd_figures.py accuracy_test_2d \\
-        [--nparticles 64] [--scheme gsph|mpm|adke|crksph]
+        [--nparticles 64] [--scheme gsph|mpm|adke|crksph|tsph]
     JAX_PLATFORMS=cpu python tests/jax_gasd_figures.py hydrostatic_box \\
-        [--nx 50] [--steps 200] [--scheme gsph|mpm|adke|crksph]
+        [--nx 50] [--steps 200] [--scheme gsph|mpm|adke|crksph|tsph]
+    JAX_PLATFORMS=cpu python tests/jax_gasd_figures.py cheng_shu_1d \\
+        [--steps 200] [--scheme gsph|tsph]
 
 Both run the JAX solver's per-step loop (``chunk_steps = 1``), as the
 port runs an iterated group on the card.  ``shocktube`` runs
@@ -33,10 +35,13 @@ scales it by 1.5, past the periodic cells that the JAX package sizes at
 setup and keeps, where its sums miss pairs (ROADMAP Queue 3); the port
 re-sizes its grid for them, and the larger cells give the JAX package
 every pair.
+``cheng_shu_1d`` runs ``cheng_shu_1d.py --use-double`` (1,000
+particles, with ``--scheme``) for ``steps`` steps on ``ROOMY`` cells and
+prints the port's ``examples/gas_dynamics/cheng_shu_1d.py::figures``.
 ``sedov`` runs ``pysph_tpu/examples/gas_dynamics/sedov.py --nx <nx>``
-for ``steps`` steps in float32 (no output) and prints the blast's shell
-radius, peak density and total energy, as the port's
-``examples/gas_dynamics/sedov.py::figures`` computes them; and the
+(with ``--scheme``) for ``steps`` steps in float32 (no output) and
+prints the blast's shell radius, peak density and total energy, as the
+port's ``examples/gas_dynamics/sedov.py::figures`` computes them; and the
 spread of h.  One JSON line each.
 Not a test: pytest collects only ``test_*.py``.  ``FROZEN`` holds what
 it printed on the CPU (JAX's XLA path), the figures ``chip_smoke.py``
@@ -97,6 +102,25 @@ FROZEN = {
     'crksph': {'accuracy_test_2d 32': 7.707702803696342e-07,
                'hydrostatic_box': {'max_speed': 3.852790224035833e-15,
                                    'rho_spread': 0.00015512394441330457}},
+    # the TSPH runs: accuracy_test_2d --nparticles 32 --scheme tsph to tf
+    # = 1.0 (378 steps), float64, its L1 of rho; hydrostatic_box --nx 50
+    # --scheme tsph after 200 steps, float64; sedov --nx 41 --scheme tsph
+    # after 200 steps, float32 (hmax/hmin 2.374); cheng_shu_1d --scheme
+    # tsph after 200 steps, float64
+    'tsph': {'accuracy_test_2d 32': 0.020816479930321194,
+             'hydrostatic_box': {'max_speed': 0.13057059225211037,
+                                 'rho_spread': 0.3963929452518531},
+             'sedov': {'radius': 0.1602630866490765,
+                       'peak': 1.7553044557571411,
+                       'energy': 0.9999728717082634},
+             'cheng_shu_1d': {'rho_l1': 0.01785519223224774,
+                              'rho_max': 3.0006915842179342,
+                              'u_max': 1.0996233021775303}},
+    # cheng_shu_1d --scheme gsph (the exact solver) after 200 steps,
+    # float64
+    'cheng_shu_1d gsph': {'rho_l1': 0.01806316552009522,
+                          'rho_max': 3.0793219522333306,
+                          'u_max': 1.0999479519940372},
     # shocktube --nl 320 --scheme gsph|adke to tf = 0.15 (1,500 steps),
     # float64: the L1 errors of rho, p and u
     'shocktube schemes': {
@@ -146,13 +170,15 @@ def shocktube(nl, scheme='mpm'):
                 solve_s=wall)
 
 
-def sedov(nx, steps):
+def sedov(nx, steps, scheme='mpm'):
     from pysph_tpu.examples.gas_dynamics.sedov import SedovPointExplosion
     from pysph_tpu_torch.examples.gas_dynamics.sedov import figures
     app = SedovPointExplosion()
-    wall = _run(app, ['--nx', str(nx), '--max-steps', str(steps)])
+    wall = _run(app, ['--nx', str(nx), '--max-steps', str(steps),
+                      '--scheme', scheme])
     s, st = app.solver, _state(app)
-    return dict(example='sedov', nx=nx, steps=int(s.count), t=float(s.t),
+    return dict(example='sedov', scheme=scheme, nx=nx, steps=int(s.count),
+                t=float(s.t),
                 n=int(st['x'].size),
                 **figures(st['x'], st['y'], st['u'], st['v'], st['rho'],
                           st['m'], st['e']),
@@ -198,11 +224,28 @@ def hydrostatic_box(nx, steps, scheme):
                 solve_s=wall)
 
 
+def cheng_shu_1d(steps, scheme):
+    from pysph_tpu.examples.gas_dynamics.cheng_shu_1d import ChengShu
+    from pysph_tpu_torch.examples.gas_dynamics.cheng_shu_1d import figures
+    _roomy_grid()
+    app = ChengShu()
+    wall = _run(app, ['--use-double', '--scheme', scheme, '--max-steps',
+                      str(steps)])
+    s, st = app.solver, _state(app)
+    return dict(example='cheng_shu_1d', scheme=scheme, steps=int(s.count),
+                t=float(s.t), n=int(st['x'].size),
+                **figures(st['x'], st['rho'], st['u'], float(s.t)),
+                hmax_hmin=float(st['h'].max() / st['h'].min()),
+                dtype=str(np.asarray(app.particles[0].properties['x']).dtype),
+                solve_s=wall)
+
+
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('example', choices=('shocktube', 'sedov',
                                             'accuracy_test_2d',
-                                            'hydrostatic_box'))
+                                            'hydrostatic_box',
+                                            'cheng_shu_1d'))
     parser.add_argument('--nl', type=int, default=320)
     parser.add_argument('--nx', type=int, default=None)
     parser.add_argument('--nparticles', type=int, default=64)
@@ -212,9 +255,11 @@ def main():
     if args.example == 'shocktube':
         out = shocktube(args.nl, args.scheme or 'mpm')
     elif args.example == 'sedov':
-        out = sedov(args.nx or 41, args.steps)
+        out = sedov(args.nx or 41, args.steps, args.scheme or 'mpm')
     elif args.example == 'accuracy_test_2d':
         out = accuracy_test_2d(args.nparticles, args.scheme or 'gsph')
+    elif args.example == 'cheng_shu_1d':
+        out = cheng_shu_1d(args.steps, args.scheme or 'gsph')
     else:
         out = hydrostatic_box(args.nx or 50, args.steps,
                               args.scheme or 'gsph')
